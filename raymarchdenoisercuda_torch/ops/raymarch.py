@@ -1,0 +1,482 @@
+"""SDF raymarcher emitting a full G-buffer: scene model, camera, the plain
+PyTorch march and shading, and ``render_gbuffer``.
+
+Counterpart of ``raymarchdenoisercuda_tpu/ops/raymarch.py`` (forward only:
+the implicit-function adjoint comes with the training slice).  The plain
+functions ``march_gbuf`` and ``shadow_shade`` are the CPU path and the
+oracles of the CUDA kernels K7 and K8 (``ops/cuda/raymarch.cu``); on the card
+``render_gbuffer`` goes through the kernels (``ops/raymarch_cuda.py``).
+
+Per pixel: sphere-trace the primary ray (``max_steps``), take the material
+of the nearest primitive at the hit (first primitive on ties, in the order
+spheres, boxes, planes), central-difference normal flipped toward the
+viewer; march one shadow ray to a sample on the rectangular area light
+(origin offset 0.02·n, minimum step 0.01); shade
+``albedo·(L·vis·geom/π + 0.08) + emission``; reproject the hit point into the
+previous camera for motion vectors (true division).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..config import CameraParams, RaymarchParams
+from ..gbuffer import GBuffer
+
+_AMBIENT = 0.08
+_SHADOW_MIN_STEP = 0.01
+_SHADOW_OFFSET = 0.02
+
+
+@dataclasses.dataclass(frozen=True)
+class Materials:
+    albedo: torch.Tensor    # (M, 3)
+    emission: torch.Tensor  # (M, 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class Scene:
+    """SDF primitive soup plus a rectangular area light."""
+
+    sphere_params: torch.Tensor  # (Ns, 4): centre xyz, radius
+    sphere_mat: torch.Tensor     # (Ns,) int32
+    box_params: torch.Tensor     # (Nb, 6): centre xyz, half-extent xyz
+    box_mat: torch.Tensor        # (Nb,) int32
+    plane_params: torch.Tensor   # (Np, 4): unit normal xyz, offset (sdf = n.p + d)
+    plane_mat: torch.Tensor      # (Np,) int32
+    materials: Materials
+    light_center: torch.Tensor   # (3,)
+    light_u: torch.Tensor        # (3,) half-extent vector
+    light_v: torch.Tensor        # (3,) half-extent vector
+    light_radiance: torch.Tensor  # (3,)
+
+    @property
+    def device(self) -> torch.device:
+        return self.sphere_params.device
+
+
+@dataclasses.dataclass(frozen=True)
+class Camera:
+    position: torch.Tensor  # (3,)
+    look_at: torch.Tensor   # (3,)
+    up: torch.Tensor        # (3,)
+
+
+def _norm3(v: torch.Tensor) -> torch.Tensor:
+    """Euclidean norm over the leading axis of size 3 (explicit order)."""
+    return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+
+def _normalize(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    return v / torch.clamp(_norm3(v), min=eps)
+
+
+def _dot3(v, w):
+    return v[0] * w[0] + v[1] * w[1] + v[2] * w[2]
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return torch.stack([a[1] * b[2] - a[2] * b[1],
+                        a[2] * b[0] - a[0] * b[2],
+                        a[0] * b[1] - a[1] * b[0]])
+
+
+def sdf_scene(scene: Scene, p: torch.Tensor, want_mat: bool = True):
+    """Signed distance (and material id) at points ``p`` (3, ...)."""
+    sp = scene.sphere_params
+    c = sp[:, :3].reshape(sp.shape[0], 3, *([1] * (p.dim() - 1)))
+    d_sph = _norm3((p[None] - c).transpose(0, 1)) - sp[:, 3].reshape(
+        -1, *([1] * (p.dim() - 1)))
+
+    bp = scene.box_params
+    cb = bp[:, :3].reshape(bp.shape[0], 3, *([1] * (p.dim() - 1)))
+    hb = bp[:, 3:].reshape(bp.shape[0], 3, *([1] * (p.dim() - 1)))
+    q = (torch.abs(p[None] - cb) - hb).transpose(0, 1)        # (3, Nb, ...)
+    d_box = _norm3(torch.clamp(q, min=0.0)) + torch.clamp(
+        torch.maximum(q[0], torch.maximum(q[1], q[2])), max=0.0)
+
+    pp = scene.plane_params
+    shape = (-1,) + (1,) * (p.dim() - 1)
+    d_pl = (pp[:, 0].reshape(shape) * p[0][None]
+            + pp[:, 1].reshape(shape) * p[1][None]
+            + pp[:, 2].reshape(shape) * p[2][None]
+            + pp[:, 3].reshape(shape))
+
+    dists = torch.cat([d_sph, d_box, d_pl], 0)
+    if not want_mat:
+        return torch.amin(dists, 0)
+    mats = torch.cat([scene.sphere_mat, scene.box_mat, scene.plane_mat])
+    d, idx = torch.min(dists, 0)   # first minimum on ties
+    return d, mats[idx]
+
+
+def sdf_normal(scene: Scene, p: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Central-difference SDF gradient -> unit normal (3, ...)."""
+    def d(axis, sign):
+        off = torch.zeros(3, dtype=p.dtype, device=p.device)
+        off[axis] = sign * eps
+        return sdf_scene(scene, p + off.reshape(3, *([1] * (p.dim() - 1))),
+                         want_mat=False)
+
+    n = torch.stack([d(0, 1) - d(0, -1), d(1, 1) - d(1, -1),
+                     d(2, 1) - d(2, -1)])
+    return _normalize(n)
+
+
+def camera_basis(camera: Camera, cfg: CameraParams):
+    """(fwd, right, up, half_w, half_h) of a pinhole camera."""
+    fwd = _normalize(camera.look_at - camera.position)
+    # screen-right = up x fwd: +x world appears on screen right
+    right = _normalize(_cross(camera.up, fwd))
+    up = _cross(fwd, right)
+    half_h = torch.tan(torch.tensor(cfg.fov_y / 2.0, dtype=fwd.dtype,
+                                    device=fwd.device))
+    half_w = half_h * (cfg.width / cfg.height)
+    return fwd, right, up, half_w, half_h
+
+
+def camera_rays_window(camera: Camera, cfg: CameraParams,
+                       row0: int, col0: int, th: int, tw: int):
+    """Ray origins/directions (3, th, tw) for a pixel window at (row0, col0)."""
+    H, W = cfg.height, cfg.width
+    fwd, right, up, half_w, half_h = camera_basis(camera, cfg)
+    dev, dt = fwd.device, fwd.dtype
+    ys = (0.5 - (row0 + torch.arange(th, device=dev, dtype=dt) + 0.5) / H
+          ) * 2 * half_h                                     # +y up
+    xs = ((col0 + torch.arange(tw, device=dev, dtype=dt) + 0.5) / W - 0.5
+          ) * 2 * half_w
+    dirs = (fwd[:, None, None] + up[:, None, None] * ys[None, :, None]
+            + right[:, None, None] * xs[None, None, :])
+    rd = _normalize(dirs)
+    ro = camera.position[:, None, None].expand_as(rd).contiguous()
+    return ro, rd, (fwd, right, up, half_w, half_h)
+
+
+def camera_rays(camera: Camera, cfg: CameraParams):
+    """Primary ray origins/directions (3, H, W)."""
+    return camera_rays_window(camera, cfg, 0, 0, cfg.height, cfg.width)
+
+
+def _raymarch_loop(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                   params: RaymarchParams) -> torch.Tensor:
+    """Sphere-trace all rays in lock-step; returns t.  A ray that stops
+    (converged or escaped) never moves again, so the loop ends as soon as no
+    ray moved, with the result of running all ``max_steps``.
+
+    ``relax_omega > 1``: over-relaxed tracing with rollback (a step whose
+    end sphere does not overlap the start sphere goes back to the
+    conservative step)."""
+    zero = torch.zeros(ro.shape[1:], dtype=ro.dtype, device=ro.device)
+    t = zero
+    om = params.relax_omega
+    if om <= 1.0:
+        for _ in range(params.max_steps):
+            d = sdf_scene(scene, ro + t[None] * rd, want_mat=False)
+            active = (d > params.hit_eps) & (t < params.max_dist)
+            if not bool(active.any()):
+                break
+            t = t + torch.where(active, d, zero)
+        return t
+    d_prev, step_prev = zero, zero
+    for _ in range(params.max_steps):
+        d = sdf_scene(scene, ro + t[None] * rd, want_mat=False)
+        fail = ((d + d_prev) < step_prev) & (step_prev > d_prev)
+        active = (d > params.hit_eps) & (t < params.max_dist) & ~fail
+        if not bool((active | fail).any()):
+            break
+        delta = torch.where(fail, d_prev - step_prev,
+                            torch.where(active, om * d, zero))
+        new_step = torch.where(fail, d_prev,
+                               torch.where(active, om * d, step_prev))
+        d_prev = torch.where(active, d, d_prev)
+        step_prev = new_step
+        t = t + delta
+    return t
+
+
+def march_gbuf(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+               params: RaymarchParams):
+    """Plain version of K7: the primary march plus its G-buffer epilogue.
+
+    Returns ``(t, hit, mat, normal)``: hit distance, hit mask
+    (``d <= 4·hit_eps`` and ``t < max_dist``), int32 material id at the
+    final point, and the unit central-difference normal flipped toward the
+    viewer (not masked by ``hit``)."""
+    t = _raymarch_loop(scene, ro, rd, params)
+    p = ro + t[None] * rd
+    d_final, mat = sdf_scene(scene, p)
+    hit = (d_final <= params.hit_eps * 4.0) & (t < params.max_dist)
+    n = sdf_normal(scene, p, params.normal_eps)
+    n = torch.where(_dot3(n, rd)[None] > 0, -n, n)
+    return t, hit, mat.to(torch.int32), n
+
+
+def light_constants(scene: Scene) -> torch.Tensor:
+    """(7,) = light normal normalize(u×v), radiance, area 4|u×v|."""
+    c = _cross(scene.light_u, scene.light_v)
+    area = 4.0 * _norm3(c)
+    return torch.cat([_normalize(c), scene.light_radiance, area[None]])
+
+
+def prev_camera_constants(prev_camera: Camera, cfg: CameraParams) -> torch.Tensor:
+    """(14,) = position, fwd, right, up, half_w, half_h of the previous
+    camera (the motion reprojection's inputs)."""
+    fwd, right, up, half_w, half_h = camera_basis(prev_camera, cfg)
+    return torch.cat([prev_camera.position, fwd, right, up,
+                      half_w[None], half_h[None]])
+
+
+def shadow_shade(scene: Scene, p: torch.Tensor, n: torch.Tensor,
+                 light_p: torch.Tensor, albedo: torch.Tensor,
+                 emission: torch.Tensor, hit: torch.Tensor,
+                 light_consts: torch.Tensor,
+                 prev_consts: Optional[torch.Tensor],
+                 params: RaymarchParams, cam_wh: Tuple[int, int]):
+    """Plain version of K8: shadow ray, direct-light shading and motion.
+
+    Returns ``(render, vis, motion)``; ``motion`` is None without
+    ``prev_consts``.  Miss pixels get ``dist_l = 0`` (their visibility march
+    is skipped, vis = 1); their albedo and emission are masked to zero, so
+    their render is zero either way."""
+    zero = torch.zeros(p.shape[1:], dtype=p.dtype, device=p.device)
+    origin = p + _SHADOW_OFFSET * n
+    to_l = light_p - origin
+    dist_l = _norm3(to_l)
+    ld = to_l / torch.clamp(dist_l, min=1e-8)[None]
+    dist_l = torch.where(hit, dist_l, zero)
+    t = zero
+    om = params.relax_omega
+    if om <= 1.0:
+        for _ in range(params.shadow_steps):
+            d = sdf_scene(scene, origin + t[None] * ld, want_mat=False)
+            active = (d > params.hit_eps) & (t < dist_l - 0.02)
+            if not bool(active.any()):
+                break
+            t = t + torch.where(active, torch.clamp(d, min=_SHADOW_MIN_STEP),
+                                zero)
+    else:
+        # the conservative fallback step keeps the minimum-step floor
+        d_prev, step_prev = zero, zero
+        for _ in range(params.shadow_steps):
+            d = sdf_scene(scene, origin + t[None] * ld, want_mat=False)
+            cons = torch.clamp(d_prev, min=_SHADOW_MIN_STEP)
+            fail = ((d + d_prev) < step_prev) & (step_prev > cons)
+            active = (d > params.hit_eps) & (t < dist_l - 0.02) & ~fail
+            if not bool((active | fail).any()):
+                break
+            step = torch.clamp(om * d, min=_SHADOW_MIN_STEP)
+            delta = torch.where(fail, cons - step_prev,
+                                torch.where(active, step, zero))
+            new_step = torch.where(fail, cons,
+                                   torch.where(active, step, step_prev))
+            d_prev = torch.where(active, d, d_prev)
+            step_prev = new_step
+            t = t + delta
+    vis = (t >= dist_l - 0.03).to(p.dtype)
+
+    # direct light from p itself
+    s = light_p - p
+    dist2 = s[0] * s[0] + s[1] * s[1] + s[2] * s[2]
+    sd = s / torch.clamp(torch.sqrt(dist2), min=1e-8)[None]
+    cos_s = torch.clamp(_dot3(n, sd), min=0.0)
+    ln, rad, area = light_consts[0:3], light_consts[3:6], light_consts[6]
+    cos_l = torch.abs(ln[0] * sd[0] + ln[1] * sd[1] + ln[2] * sd[2])
+    geom = cos_s * cos_l * area / torch.clamp(dist2, min=1e-4)
+    irr = rad[:, None, None] * (vis * geom)[None]
+    render = albedo * (irr / math.pi + _AMBIENT) + emission
+
+    if prev_consts is None:
+        return render, vis, None
+    ppos, pfwd, pright, pup = (prev_consts[0:3], prev_consts[3:6],
+                               prev_consts[6:9], prev_consts[9:12])
+    phw, phh = prev_consts[12], prev_consts[13]
+    rel = p - ppos[:, None, None]
+    z = _dot3(pfwd, rel)
+    # true division: a reciprocal-multiply's 1-ulp noise at zero motion flips
+    # the temporal step's in-bounds test at the image border
+    x = _dot3(pright, rel) / torch.clamp(z, min=1e-6)
+    y = _dot3(pup, rel) / torch.clamp(z, min=1e-6)
+    W, H = cam_wh
+    px = (x / phw * 0.5 + 0.5) * W - 0.5
+    py = (0.5 - y / phh * 0.5) * H - 0.5
+    iy = torch.arange(p.shape[1], dtype=p.dtype, device=p.device)[:, None]
+    ix = torch.arange(p.shape[2], dtype=p.dtype, device=p.device)[None, :]
+    hit_f = hit.to(p.dtype)
+    motion = torch.stack([py - iy, px - ix]) * hit_f[None]
+    return render, vis, motion
+
+
+def sample_light(scene: Scene, generator: Optional[torch.Generator],
+                 shape) -> torch.Tensor:
+    """Uniform random point on the rectangular area light -> (3, H, W).
+
+    ``generator`` lives on the scene's device.  Its numbers differ from
+    ``jax.random``'s for any seed; tests pass the reference's sample in."""
+    u = torch.rand((2,) + tuple(shape), generator=generator,
+                   dtype=scene.light_center.dtype,
+                   device=scene.device) * 2.0 - 1.0
+    return (scene.light_center[:, None, None]
+            + scene.light_u[:, None, None] * u[0][None]
+            + scene.light_v[:, None, None] * u[1][None])
+
+
+def _material_lookup(mat: torch.Tensor, *tables: torch.Tensor):
+    """Per-pixel material-table lookup: ``tables[i]`` is (M, C); returns one
+    (C, H, W) plane stack per table."""
+    idx = mat.long()
+    outs = [t.t()[:, idx] for t in tables]
+    return outs if len(outs) > 1 else outs[0]
+
+
+def render_gbuffer(
+    scene: Scene,
+    camera: Camera,
+    prev_camera: Optional[Camera],
+    generator: Optional[torch.Generator] = None,
+    *,
+    cam_cfg: CameraParams = CameraParams(),
+    params: RaymarchParams = RaymarchParams(),
+    light_sample: Optional[torch.Tensor] = None,
+    impl: str = "auto",
+) -> GBuffer:
+    """Fused raymarch + G-buffer pass at one light sample per pixel.
+
+    ``light_sample`` (3, H, W) replaces the draw from ``generator`` (tests
+    pass the reference's sample).  ``impl="auto"`` runs K7/K8 through their
+    wrappers, which pick the CUDA kernel or the plain version by device;
+    ``impl="plain"`` runs the plain versions on any device.
+    """
+    # imported here: the wrappers' module imports this one
+    from .raymarch_cuda import march_gbuf_cuda, shadow_shade_cuda
+
+    if impl not in ("auto", "plain"):
+        raise ValueError(f"unknown impl: {impl!r}")
+    if params.coarse_seed:
+        raise NotImplementedError("RaymarchParams.coarse_seed (the cone "
+                                  "pre-march) is not ported")
+    march, shade = ((march_gbuf_cuda, shadow_shade_cuda) if impl == "auto"
+                    else (march_gbuf, shadow_shade))
+    H, W = cam_cfg.height, cam_cfg.width
+    ro, rd, _basis = camera_rays(camera, cam_cfg)
+    t, hit, mat, n = march(scene, ro, rd, params)
+    p = ro + t[None] * rd
+    albedo, emission = _material_lookup(mat, scene.materials.albedo,
+                                        scene.materials.emission)
+    hit_f = hit.to(ro.dtype)[None]
+    albedo = albedo * hit_f
+    emission = emission * hit_f
+
+    lp = (light_sample if light_sample is not None
+          else sample_light(scene, generator, (H, W)))
+    prev = (prev_camera_constants(prev_camera, cam_cfg)
+            if prev_camera is not None else None)
+    render, _vis, motion = shade(scene, p, n, lp, albedo, emission, hit,
+                                 light_constants(scene), prev, params, (W, H))
+    if motion is None:
+        motion = torch.zeros((2, H, W), dtype=ro.dtype, device=ro.device)
+    depth = torch.where(hit, t, torch.zeros_like(t))
+    return GBuffer(render=render, albedo=albedo, normal=n * hit_f,
+                   depth=depth, motion=motion, denoised=None)
+
+
+# ---------------------------------------------------------------------------
+# scene builders (the reference's Cornell box and procedural stress scene)
+# ---------------------------------------------------------------------------
+
+def _scene_from_arrays(device, *, spheres, sphere_mat, boxes, box_mat,
+                       planes, plane_mat, albedo, emission, radiance) -> Scene:
+    def f(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    def i(x):
+        return torch.as_tensor(np.asarray(x, np.int32), device=device)
+
+    return Scene(
+        sphere_params=f(spheres), sphere_mat=i(sphere_mat),
+        box_params=f(boxes), box_mat=i(box_mat),
+        plane_params=f(planes), plane_mat=i(plane_mat),
+        materials=Materials(albedo=f(albedo), emission=f(emission)),
+        light_center=f([0.0, 0.98, 1.25]),
+        light_u=f([0.25, 0.0, 0.0]),
+        light_v=f([0.0, 0.0, 0.20]),
+        light_radiance=f(radiance),
+    )
+
+
+def cornell_scene(
+    *,
+    device="cpu",
+    left_color=(0.75, 0.08, 0.08),
+    right_color=(0.08, 0.65, 0.08),
+    white=(0.85, 0.85, 0.85),
+    box_color=(0.35, 0.35, 0.35),
+    light_radiance=(18.0, 18.0, 18.0),
+) -> Scene:
+    """Cornell box in [-1,1]^2 x [0,2]: 5 walls, tall box, short box, sphere,
+    ceiling rect light (x right, y up, z into the box; camera at -z)."""
+    albedo = np.asarray([white, left_color, right_color, box_color, white,
+                         (0.0, 0.0, 0.0)], np.float32)
+    emission = np.zeros_like(albedo)
+    emission[5] = light_radiance
+    return _scene_from_arrays(
+        device,
+        spheres=[[-0.45, -0.72, 0.80, 0.28]], sphere_mat=[4],
+        boxes=[[-0.35, -0.40, 1.30, 0.30, 0.60, 0.30],   # tall box
+               [0.40, -0.70, 0.90, 0.28, 0.30, 0.28],    # short box
+               [0.0, 0.995, 1.25, 0.25, 0.012, 0.20]],   # light slab
+        box_mat=[3, 3, 5],
+        planes=[[0, 1, 0, 1.0], [0, -1, 0, 1.0], [0, 0, -1, 2.0],
+                [1, 0, 0, 1.0], [-1, 0, 0, 1.0]],
+        plane_mat=[0, 0, 0, 1, 2],
+        albedo=albedo, emission=emission, radiance=light_radiance)
+
+
+def random_scene(n_spheres: int = 24, n_boxes: int = 24,
+                 n_materials: int = 16, seed: int = 0, *,
+                 device="cpu") -> Scene:
+    """Procedural stress scene: the Cornell shell plus ``n_spheres`` spheres
+    and ``n_boxes`` boxes over ``n_materials`` random materials.  Draws the
+    same numpy numbers in the same order as the reference, so one seed gives
+    the same scene in both packages."""
+    rng = np.random.default_rng(seed)
+    albedo = rng.uniform(0.05, 0.9, (n_materials, 3)).astype(np.float32)
+    emission = np.zeros((n_materials, 3), np.float32)
+    emission[n_materials - 1] = (18.0, 18.0, 18.0)
+    planes = np.asarray([[0, 1, 0, 1.0], [0, -1, 0, 1.0], [0, 0, -1, 2.0],
+                         [1, 0, 0, 1.0], [-1, 0, 0, 1.0]], np.float32)
+    plane_mat = rng.integers(0, n_materials - 1, 5).astype(np.int32)
+
+    def body_positions(n):
+        return rng.uniform((-0.85, -0.85, 0.25), (0.85, 0.85, 1.85),
+                           (n, 3)).astype(np.float32)
+
+    sph = np.concatenate([
+        body_positions(n_spheres),
+        rng.uniform(0.05, 0.22, (n_spheres, 1)).astype(np.float32)], axis=1)
+    sphere_mat = rng.integers(0, n_materials - 1, n_spheres).astype(np.int32)
+    box_half = rng.uniform(0.04, 0.2, (n_boxes, 3)).astype(np.float32)
+    boxes = np.concatenate([body_positions(n_boxes), box_half], axis=1)
+    boxes[-1] = (0.0, 0.995, 1.25, 0.25, 0.012, 0.20)   # ceiling light slab
+    box_mat = rng.integers(0, n_materials - 1, n_boxes).astype(np.int32)
+    box_mat[-1] = n_materials - 1
+    return _scene_from_arrays(
+        device, spheres=sph, sphere_mat=sphere_mat, boxes=boxes,
+        box_mat=box_mat, planes=planes, plane_mat=plane_mat,
+        albedo=albedo, emission=emission, radiance=(18.0, 18.0, 18.0))
+
+
+def make_camera(position, look_at=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0), *,
+                device="cpu") -> Camera:
+    def f(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+    return Camera(position=f(position), look_at=f(look_at), up=f(up))
+
+
+def cornell_camera(*, device="cpu") -> Camera:
+    return make_camera([0.0, 0.0, -1.6], device=device)

@@ -1,0 +1,136 @@
+"""K7/K8 wrappers: the primary march and the shadow/shading pass through
+the CUDA kernels of ``ops/cuda/raymarch.cu``.
+
+Counterparts of ``_march_call(emit_normals=True)`` and ``_shade_call`` in
+``raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py``.  CUDA tensors run
+the kernels; CPU tensors run the plain versions ``ops.raymarch.march_gbuf``
+and ``ops.raymarch.shadow_shade``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..config import RaymarchParams
+from .cuda import _build
+from .raymarch import Scene, march_gbuf, shadow_shade
+
+
+class _MarchParams(ctypes.Structure):
+    """Mirror of ``struct MarchParams`` in ``ops/cuda/raymarch.cu``."""
+
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("H", "W", "n_sph", "n_box", "n_pl", "max_steps")] + [
+        (n, ctypes.c_float) for n in
+        ("max_dist", "hit_eps", "hit_eps4", "normal_eps", "relax_omega")]
+
+
+class _ShadeParams(ctypes.Structure):
+    """Mirror of ``struct ShadeParams`` in ``ops/cuda/raymarch.cu``."""
+
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("H", "W", "n_sph", "n_box", "n_pl", "shadow_steps",
+                 "has_prev", "cam_w", "cam_h")] + [
+        (n, ctypes.c_float) for n in ("hit_eps", "relax_omega")]
+
+
+def flatten_scene(scene: Scene) -> torch.Tensor:
+    """The scene's primitives as one flat float32 vector: spheres (Ns, 4) |
+    boxes (Nb, 6) | planes (Np, 4) | sphere, box and plane material ids."""
+    return torch.cat([
+        scene.sphere_params.reshape(-1).float(),
+        scene.box_params.reshape(-1).float(),
+        scene.plane_params.reshape(-1).float(),
+        scene.sphere_mat.float(), scene.box_mat.float(),
+        scene.plane_mat.float()]).contiguous()
+
+
+def _counts(scene: Scene):
+    return (scene.sphere_params.shape[0], scene.box_params.shape[0],
+            scene.plane_params.shape[0])
+
+
+def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                    params: RaymarchParams):
+    """Primary march + G-buffer normals; returns ``(t, hit, mat, normal)``
+    as ``march_gbuf`` does.  Each launch adds one to
+    ``march_gbuf_cuda.launches``."""
+    if not ro.is_cuda:
+        return march_gbuf(scene, ro, rd, params)
+    H, W = ro.shape[-2:]
+    dev = ro.device
+    f32 = torch.float32
+    sc = flatten_scene(scene)
+    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+        (sc, "scene", sc.shape), (ro, "ro", (3, H, W)), (rd, "rd", (3, H, W)))]
+    t = torch.empty((H, W), dtype=f32, device=dev)
+    hit = torch.empty((H, W), dtype=torch.bool, device=dev)
+    mat = torch.empty((H, W), dtype=torch.int32, device=dev)
+    n = torch.empty((3, H, W), dtype=f32, device=dev)
+    n_sph, n_box, n_pl = _counts(scene)
+    p = _MarchParams(H=H, W=W, n_sph=n_sph, n_box=n_box, n_pl=n_pl,
+                     max_steps=params.max_steps, max_dist=params.max_dist,
+                     hit_eps=params.hit_eps, hit_eps4=params.hit_eps * 4.0,
+                     normal_eps=params.normal_eps,
+                     relax_omega=params.relax_omega)
+    rc = _build.kernels().rdt_march(
+        *ptrs, t.data_ptr(), hit.data_ptr(), mat.data_ptr(), n.data_ptr(),
+        ctypes.addressof(p), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rdt_march")
+    march_gbuf_cuda.launches += 1
+    return t, hit, mat, n
+
+
+march_gbuf_cuda.launches = 0
+
+
+def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
+                      light_p: torch.Tensor, albedo: torch.Tensor,
+                      emission: torch.Tensor, hit: torch.Tensor,
+                      light_consts: torch.Tensor,
+                      prev_consts: Optional[torch.Tensor],
+                      params: RaymarchParams, cam_wh: Tuple[int, int]):
+    """Shadow ray + shading + motion; returns ``(render, vis, motion)`` as
+    ``shadow_shade`` does.  Each launch adds one to
+    ``shadow_shade_cuda.launches``."""
+    if not p.is_cuda:
+        return shadow_shade(scene, p, n, light_p, albedo, emission, hit,
+                            light_consts, prev_consts, params, cam_wh)
+    H, W = p.shape[-2:]
+    dev = p.device
+    f32 = torch.float32
+    sc = flatten_scene(scene)
+    planes = [(sc, "scene", sc.shape), (p, "p", (3, H, W)),
+              (n, "n", (3, H, W)), (light_p, "light_p", (3, H, W)),
+              (albedo, "albedo", (3, H, W)),
+              (emission, "emission", (3, H, W))]
+    ptrs = [_build.check_input(t, nm, s, f32, dev) for t, nm, s in planes]
+    hit_ptr = _build.check_input(hit, "hit", (H, W), torch.bool, dev)
+    light_ptr = _build.check_input(light_consts, "light_consts", (7,), f32,
+                                   dev)
+    has_prev = prev_consts is not None
+    prev_ptr = (_build.check_input(prev_consts, "prev_consts", (14,), f32, dev)
+                if has_prev else None)
+    render = torch.empty((3, H, W), dtype=f32, device=dev)
+    vis = torch.empty((H, W), dtype=f32, device=dev)
+    motion = (torch.empty((2, H, W), dtype=f32, device=dev) if has_prev
+              else None)
+    n_sph, n_box, n_pl = _counts(scene)
+    prm = _ShadeParams(H=H, W=W, n_sph=n_sph, n_box=n_box, n_pl=n_pl,
+                       shadow_steps=params.shadow_steps,
+                       has_prev=int(has_prev), cam_w=cam_wh[0],
+                       cam_h=cam_wh[1], hit_eps=params.hit_eps,
+                       relax_omega=params.relax_omega)
+    rc = _build.kernels().rdt_shadow_shade(
+        *ptrs, hit_ptr, light_ptr, prev_ptr, render.data_ptr(),
+        vis.data_ptr(), motion.data_ptr() if has_prev else None,
+        ctypes.addressof(prm), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rdt_shadow_shade")
+    shadow_shade_cuda.launches += 1
+    return render, vis, motion
+
+
+shadow_shade_cuda.launches = 0
