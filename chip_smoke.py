@@ -3,22 +3,35 @@
 
     python3 chip_smoke.py            # from the repository root, one GPU
 
-Phases (each prints one line; any failure raises and the script exits
-non-zero without printing a result):
+Phases (each prints lines starting with its number; any failure raises and
+the script exits non-zero without printing a result):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
-2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``;
-3. hold each kernel (K1 à-trous level, K3 temporal step, K7 march, K8
-   shadow + shading) against its plain PyTorch version on the card at the
-   1080p shapes of the serving path, and time both with CUDA events;
-4. run the slice: 16 frames of the animated Cornell sequence at 1920x1080
-   (``orbit_camera``) through ``FramePipeline`` (render -> temporal ->
-   5-level à-trous, radius 1, fast weights), with every kernel's launch
-   count reset just before and read just after; check the frames are finite
-   and that the kernel path matches the plain path for the first 3 frames.
+2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``
+   (one nvcc per source, in parallel);
+3. hold each kernel against its plain PyTorch version on the card at the
+   1080p shapes of the main paths, values and gradients, and time both
+   with CUDA events: K1 à-trous level (inference and store mode), K2
+   stored-weight adjoint, K3 temporal step, K4 reprojection gather, K5/K6
+   its adjoints (with ``grid_sample``'s forward and backward timed beside
+   them as the library yardstick), K7 march, K8 shadow + shading;
+4. the serving path: 16 frames of the animated Cornell sequence at
+   1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
+   temporal -> 5-level à-trous, radius 1, fast weights); the first 3
+   frames match the plain path;
+5. the training step (BASELINE config 4): ``make_train_step`` at
+   1920x1080 on the Cornell scene, radius 1, 5 levels, exact weights,
+   Adam at lr 1e-2 against a seeded target; 1 warm-up and 8 timed steps
+   (ms/step, peak memory); the first 2 steps match the plain path;
+6. the temporal gradient path: ``svgf_denoise_frame(temporal="ad")`` at
+   1080p differentiated with respect to motion and history, with the motion
+   gradient (K5) and without it (K6); gradients match the plain path.
 
-The line before the last is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``.  No JAX is imported.
+Phases 4, 5 and 6 are the main paths: every kernel's launch count is set
+to 0 just before each and read just after, and each fails if one of its
+kernels never launched.  The line before the last is a JSON object with
+one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+No JAX is imported.
 """
 
 from __future__ import annotations
@@ -30,18 +43,24 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from raymarchdenoisercuda_torch.config import (
     CameraParams, RaymarchParams, SVGFParams)
 from raymarchdenoisercuda_torch.gbuffer import GBuffer, History
 from raymarchdenoisercuda_torch.io.generate import orbit_camera
-from raymarchdenoisercuda_torch.models.pipeline import FramePipeline
+from raymarchdenoisercuda_torch.models.pipeline import (
+    FramePipeline, init_train_state, make_train_step)
+from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import atrous, raymarch, temporal
-from raymarchdenoisercuda_torch.ops.atrous_cuda import svgf_spatial_cuda
+from raymarchdenoisercuda_torch.ops.atrous_cuda import (
+    atrous_level_bwd_stored_cuda, atrous_level_cuda, svgf_spatial_cuda)
+from raymarchdenoisercuda_torch.ops.common import finite_diff_gradients
 from raymarchdenoisercuda_torch.ops.cuda import _build
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     march_gbuf_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
+    gather_bwd_cuda, gather_bwd_hist_cuda, gather_cuda,
     temporal_accumulate_cuda)
 from raymarchdenoisercuda_torch.utils.timing import (
     CudaTimer, cuda_time_ms, nvidia_smi_name_power)
@@ -50,18 +69,41 @@ SEQ_FRAMES = 16
 CHECK_FRAMES = 3
 SERVING = SVGFParams(radius=1)       # the adopted mode: radius 1 ...
 SERVING_WEIGHTS = "fast"             # ... with fast tap weights
-WRAPPERS = {"K1": svgf_spatial_cuda, "K3": temporal_accumulate_cuda,
+TRAIN = SVGFParams(iterations=5, radius=1)   # config 4, exact weights
+TRAIN_STEPS = 8                      # timed, after one warm-up step
+CHECK_STEPS = 2
+M = SVGFParams().max_motion
+# H100 SXM data sheet: HBM rate and the float32 rate outside the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
+            "K3": temporal_accumulate_cuda, "K4": gather_cuda,
+            "K5": gather_bwd_cuda, "K6": gather_bwd_hist_cuda,
             "K7": march_gbuf_cuda, "K8": shadow_shade_cuda}
+PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
+CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
-    "K1": ("atrous_level", "raymarchdenoisercuda_torch/ops/cuda/atrous.cu",
-           "raymarchdenoisercuda_tpu/ops/pallas/atrous_tpu.py:172"),
-    "K3": ("temporal_step", "raymarchdenoisercuda_torch/ops/cuda/temporal.cu",
-           "raymarchdenoisercuda_tpu/ops/pallas/temporal_tpu.py:57"),
-    "K7": ("march_gbuf", "raymarchdenoisercuda_torch/ops/cuda/raymarch.cu",
-           "raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py:115"),
-    "K8": ("shadow_shade", "raymarchdenoisercuda_torch/ops/cuda/raymarch.cu",
-           "raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py:468"),
+    "K1": ("atrous_level", CUDA_SRC + "atrous.cu",
+           PALLAS + "atrous_tpu.py:172"),
+    "K2": ("atrous_bwd_stored", CUDA_SRC + "atrous.cu",
+           PALLAS + "atrous_tpu.py:361"),
+    "K3": ("temporal_step", CUDA_SRC + "temporal.cu",
+           PALLAS + "temporal_tpu.py:57"),
+    "K4": ("reproject_gather", CUDA_SRC + "temporal.cu",
+           PALLAS + "temporal_tpu.py:446"),
+    "K5": ("reproject_gather_bwd", CUDA_SRC + "temporal.cu",
+           PALLAS + "temporal_tpu.py:606"),
+    "K6": ("reproject_gather_bwd_hist", CUDA_SRC + "temporal.cu",
+           PALLAS + "temporal_tpu.py:518"),
+    "K7": ("march_gbuf", CUDA_SRC + "raymarch.cu",
+           PALLAS + "raymarch_tpu.py:115"),
+    "K8": ("shadow_shade", CUDA_SRC + "raymarch.cu",
+           PALLAS + "raymarch_tpu.py:468"),
 }
+# per-tap float operations of K1's weight math and accumulation, and of
+# K2's tap, counted from the kernel sources (a transcendental counts as one)
+K1_TAP_FLOPS = 40
+K2_TAP_FLOPS = 14
 
 
 def phase(n, msg):
@@ -69,7 +111,7 @@ def phase(n, msg):
 
 
 def max_err(a, b, mask=None):
-    d = (a - b).abs()
+    d = (a.float() - b.float()).abs()
     if mask is not None:
         d = d[..., mask]
     return float(d.max()) if d.numel() else 0.0
@@ -77,6 +119,7 @@ def max_err(a, b, mask=None):
 
 def check_close(name, got, want, *, atol, rtol=0.0, mask=None):
     """Raise unless |got - want| <= atol + rtol·|want| (where ``mask``)."""
+    got, want = got.float(), want.float()
     if mask is not None:
         got, want = got[..., mask], want[..., mask]
     bad = (got - want).abs() > atol + rtol * want.abs()
@@ -87,8 +130,16 @@ def check_close(name, got, want, *, atol, rtol=0.0, mask=None):
             f"{float((got - want).abs().max()):.3g})")
 
 
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of the bytes over the HBM rate and
+    the operations over the float32 rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
 def random_planes(H, W, dev, seed):
-    """Seeded SVGF inputs of the serving path's shapes."""
+    """Seeded SVGF inputs of the main paths' shapes."""
     rng = np.random.default_rng(seed)
     n = rng.standard_normal((3, H, W)).astype(np.float32)
     n[2] += 3.0
@@ -108,6 +159,7 @@ def random_planes(H, W, dev, seed):
 
 def check_k1(P, results):
     args = (P["color"], P["variance"], P["normal"], P["depth"])
+    HW = P["depth"].numel()
     for radius in (1, 2):
         for wm in ("exact", "fast"):
             params = SVGFParams(radius=radius)
@@ -129,8 +181,82 @@ def check_k1(P, results):
             phase(3, f"K1 r{radius} {wm}: ok, max |err| {err:.3g}, "
                      f"{ms:.4f} ms/sweep (5 levels), plain {plain_ms:.4f} ms")
             if radius == SERVING.radius and wm == SERVING_WEIGHTS:
-                results["K1"] = dict(max_abs_err=err, ms=ms / SERVING.iterations,
-                                     plain_ms=plain_ms / SERVING.iterations)
+                # inputs 10 floats a pixel, outputs 4
+                results["K1"] = dict(
+                    max_abs_err=err, ms=ms / SERVING.iterations,
+                    plain_ms=plain_ms / SERVING.iterations,
+                    bytes=56 * HW, flops=K1_TAP_FLOPS * 9 * HW)
+
+
+def check_k1_store_k2(P, results):
+    """K1 in store mode (values, bf16 weights, N) and K2 on its weights,
+    each level against the plain twins on the same inputs."""
+    color, var, normal, depth = (P["color"], P["variance"], P["normal"],
+                                 P["depth"])
+    zgrad = finite_diff_gradients(depth)
+    H, W = depth.shape
+    HW = H * W
+    g = torch.Generator(color.device).manual_seed(1)
+    gc = torch.randn((3, H, W), generator=g, device=color.device)
+    gv = torch.randn((H, W), generator=g, device=color.device)
+    for radius in (1, 2):
+        taps = (2 * radius + 1) ** 2
+        for wm in ("exact", "fast"):
+            params = SVGFParams(radius=radius)
+            c, v = color, var
+            errs = [0.0, 0.0]
+            for level in range(params.iterations):
+                kw = dict(level=level, params=params, weight_math=wm)
+                got = atrous_level_cuda(c, v, normal, depth, zgrad,
+                                        store=True, **kw)
+                want = atrous.atrous_level_ref(c, v, normal, depth, zgrad,
+                                               return_weights=True, **kw)
+                w_want = want[2].to(torch.bfloat16)
+                for name, a, b in (("color", got[0], want[0]),
+                                   ("variance", got[1], want[1]),
+                                   ("N", got[3], want[3])):
+                    tol = (dict(atol=0.0, rtol=5e-5) if wm == "exact"
+                           else dict(atol=2e-4 * float(b.abs().max())))
+                    check_close(f"K1 store r{radius} {wm} l{level} {name}",
+                                a, b, **tol)
+                # one bf16 step: expf/torch.exp (or the fast polynomial's
+                # seams) can put a weight on either side of a rounding
+                check_close(f"K1 store r{radius} {wm} l{level} weights",
+                            got[2], w_want, atol=1e-30, rtol=2.0 ** -7)
+                errs[0] = max(errs[0], max_err(got[2], w_want))
+                k2 = atrous_level_bwd_stored_cuda(got[2], got[3], gc, gv,
+                                                  level=level, radius=radius)
+                k2_want = atrous.atrous_level_bwd_stored_ref(
+                    got[2], got[3], gc, gv, level=level, radius=radius)
+                for name, a, b in zip(("d_color", "d_variance"), k2,
+                                      k2_want):
+                    check_close(f"K2 r{radius} {wm} l{level} {name}", a, b,
+                                atol=1e-12 * float(b.abs().max()),
+                                rtol=1e-6)
+                errs[1] = max(errs[1], max(max_err(a, b)
+                                           for a, b in zip(k2, k2_want)))
+                c, v = want[0], want[1]
+            lvl_args = (color, var, normal, depth, zgrad)
+            kw = dict(level=0, params=params, weight_math=wm)
+            ms = cuda_time_ms(lambda: atrous_level_cuda(
+                *lvl_args, store=True, **kw), repeats=20)
+            plain_ms = cuda_time_ms(lambda: atrous.atrous_level_ref(
+                *lvl_args, return_weights=True, **kw), repeats=3)
+            w, norm = got[2], got[3]
+            ms2 = cuda_time_ms(lambda: atrous_level_bwd_stored_cuda(
+                w, norm, gc, gv, level=0, radius=radius), repeats=20)
+            plain2 = cuda_time_ms(lambda: atrous.atrous_level_bwd_stored_ref(
+                w, norm, gc, gv, level=0, radius=radius), repeats=3)
+            phase(3, f"K1 store r{radius} {wm}: ok (5 levels), max |err| "
+                     f"weights {errs[0]:.3g}, {ms:.4f} ms/level, plain "
+                     f"{plain_ms:.4f} ms; K2: ok, max |err| {errs[1]:.3g}, "
+                     f"{ms2:.4f} ms/level, plain {plain2:.4f} ms")
+            if radius == TRAIN.radius and wm == "exact":
+                # bf16 weights, N, gc, gv in; dc, dv out
+                results["K2"] = dict(
+                    max_abs_err=errs[1], ms=ms2, plain_ms=plain2,
+                    bytes=(2 * taps + 4 + 12 + 4 + 16) * HW,
+                    flops=K2_TAP_FLOPS * taps * HW)
 
 
 def check_k3(P, results):
@@ -152,9 +278,148 @@ def check_k3(P, results):
                       repeats=20)
     plain_ms = cuda_time_ms(lambda: temporal.temporal_accumulate(
         g, h, params=params), repeats=3)
-    results["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # render, motion, depth, normal, 10 history planes in; 7 planes out;
+    # ~60 flops a pixel, and ~8 a tap of the 7x7 window on the pixels
+    # whose new history is short (this input's share)
+    short = float((got[2].length < params.variance_boost_frames).float()
+                  .mean())
+    HW = g.depth.numel()
+    results["K3"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                         bytes=104 * HW, flops=(60 + 49 * 8 * short) * HW)
     phase(3, f"K3: ok, max |err| {err:.3g}, {ms:.4f} ms, plain "
              f"{plain_ms:.4f} ms")
+
+
+def _grid(motion):
+    """``grid_sample`` coordinates of p + motion (align_corners=True)."""
+    H, W = motion.shape[-2:]
+    iy = torch.arange(H, device=motion.device, dtype=torch.float32)[:, None]
+    ix = torch.arange(W, device=motion.device, dtype=torch.float32)[None, :]
+    gx = (ix + motion[1]) * (2.0 / (W - 1)) - 1.0
+    gy = (iy + motion[0]) * (2.0 / (H - 1)) - 1.0
+    return torch.stack([gx, gy], -1)[None]
+
+
+def check_k4_k5_k6(P, results):
+    dev = P["color"].device
+    H, W = P["depth"].shape
+    HW = H * W
+    rng = np.random.default_rng(4)
+    stack = torch.cat([P["h_color"], P["h_moments"], P["h_length"][None],
+                       P["depth"][None], P["normal"]]).contiguous()
+    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    rand = (rng.random((2, H, W)) - 0.5) * 2 * (M + 1)   # some beyond M
+    motions = {"random": rand, "integer": np.round(rand),
+               "zero": np.zeros((2, H, W))}
+    tol = dict(atol=1e-6, rtol=1e-5)
+    errs = [0.0, 0.0, 0.0]
+    for kind, m in motions.items():
+        motion = torch.from_numpy(m.astype(np.float32)).to(dev)
+        a, b = gather_cuda(stack, motion, M), temporal.gather_ref(
+            stack, motion, M)
+        check_close(f"K4 {kind}", a, b, **tol)
+        errs[0] = max(errs[0], max_err(a, b))
+        k5 = gather_bwd_cuda(stack, motion, g, M, grad_planes=6)
+        want = temporal.gather_bwd_ref(stack, motion, g, M, motion_grad=True,
+                                       grad_planes=6)
+        for name, a, b in zip(("d_hist", "d_motion"), k5, want):
+            check_close(f"K5 {kind} {name}", a, b, **tol)
+        errs[1] = max(errs[1], max(max_err(a, b) for a, b in zip(k5, want)))
+        k6 = gather_bwd_hist_cuda(motion, g, M, grad_planes=6)
+        check_close(f"K6 {kind} d_hist", k6[0], want[0], **tol)
+        errs[2] = max(errs[2], max_err(k6[0], want[0]))
+        if float(k6[1].abs().max()) != 0.0:
+            raise AssertionError("K6: nonzero d_motion")
+    motion = torch.from_numpy(motions["random"].astype(np.float32)).to(dev)
+    inside = ((motion[0].abs() <= M) & (motion[1].abs() <= M)).float().mean()
+    # a within pixel reads its <= 4 taps; count the pixels this input has
+    frac = float(inside)
+    ms4 = cuda_time_ms(lambda: gather_cuda(stack, motion, M), repeats=20)
+    plain4 = cuda_time_ms(lambda: temporal.gather_ref(stack, motion, M),
+                          repeats=3)
+    ms5 = cuda_time_ms(lambda: gather_bwd_cuda(stack, motion, g, M,
+                                               grad_planes=6), repeats=20)
+    ms6 = cuda_time_ms(lambda: gather_bwd_hist_cuda(motion, g, M,
+                                                    grad_planes=6),
+                       repeats=20)
+    plain5 = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+        stack, motion, g, M, motion_grad=True, grad_planes=6), repeats=3)
+    plain6 = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+        None, motion, g, M, motion_grad=False, grad_planes=6), repeats=3)
+    # library yardstick: bilinear grid_sample with zero padding
+    x = stack[None].clone().requires_grad_()
+    grid = _grid(motion).requires_grad_()
+    lib4 = cuda_time_ms(lambda: F.grid_sample(
+        x, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
+        repeats=20)
+    y = F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                      align_corners=True)
+    gy = g[None]
+    lib5 = cuda_time_ms(lambda: torch.autograd.grad(
+        y, (x, grid), gy, retain_graph=True), repeats=20)
+    lib6 = cuda_time_ms(lambda: torch.autograd.grad(
+        y, x, gy, retain_graph=True), repeats=20)
+    results["K4"] = dict(max_abs_err=errs[0], ms=ms4, plain_ms=plain4,
+                         library_ms=lib4, bytes=88 * HW,
+                         flops=int(4 * (10 * 2 + 8) * frac * HW))
+    results["K5"] = dict(max_abs_err=errs[1], ms=ms5, plain_ms=plain5,
+                         library_ms=lib5, bytes=104 * HW,
+                         flops=int((4 * 6 * 2 + 9 * (6 * 2 + 12))
+                                   * frac * HW))
+    results["K6"] = dict(max_abs_err=errs[2], ms=ms6, plain_ms=plain6,
+                         library_ms=lib6, bytes=72 * HW,
+                         flops=int(4 * 6 * 2 * frac * HW))
+    phase(3, f"K4/K5/K6: ok on random, integer and zero motion, max |err| "
+             f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}; K4 {ms4:.4f} ms "
+             f"(plain {plain4:.4f}, grid_sample {lib4:.4f}); K5 {ms5:.4f} ms "
+             f"(plain {plain5:.4f}, grid_sample bwd {lib5:.4f}); K6 "
+             f"{ms6:.4f} ms (plain {plain6:.4f}, grid_sample bwd input-only "
+             f"{lib6:.4f})")
+
+
+def sdf_flops(scene):
+    """Float operations of one scene SDF evaluation in K7/K8 (sphere 10,
+    box 22, plane 6, plus one compare each)."""
+    return (11 * scene.sphere_params.shape[0] + 23 * scene.box_params.shape[0]
+            + 7 * scene.plane_params.shape[0])
+
+
+def march_evals(scene, ro, rd, rm):
+    """SDF evaluations K7 makes on these rays: the steps each ray takes
+    before it stops, one at the hit and six for the normal."""
+    t = torch.zeros(ro.shape[1:], device=ro.device)
+    steps = torch.zeros_like(t)
+    alive = torch.ones_like(t, dtype=torch.bool)
+    for _ in range(rm.max_steps):
+        d = raymarch.sdf_scene(scene, ro + t[None] * rd, want_mat=False)
+        steps += alive.float()
+        alive = alive & (d > rm.hit_eps) & (t < rm.max_dist)
+        if not bool(alive.any()):
+            break
+        t = t + torch.where(alive, d, torch.zeros_like(d))
+    return float((steps + 7.0).sum())
+
+
+def shadow_evals(scene, p, n, light_p, hit, rm):
+    """SDF evaluations of K8's shadow march on these inputs."""
+    origin = p + 0.02 * n
+    to_l = light_p - origin
+    dist_l = torch.sqrt((to_l * to_l).sum(0))
+    ld = to_l / torch.clamp(dist_l, min=1e-8)[None]
+    dist_l = torch.where(hit, dist_l, torch.zeros_like(dist_l))
+    t = torch.zeros_like(dist_l)
+    steps = torch.zeros_like(t)
+    alive = torch.ones_like(t, dtype=torch.bool)
+    for _ in range(rm.shadow_steps):
+        d = raymarch.sdf_scene(scene, origin + t[None] * ld, want_mat=False)
+        steps += alive.float()
+        alive = alive & (d > rm.hit_eps) & (t < dist_l - 0.02)
+        if not bool(alive.any()):
+            break
+        t = t + torch.where(alive, torch.clamp(d, min=0.01),
+                            torch.zeros_like(d))
+    return float(steps.sum())
 
 
 def check_k7_k8(H, W, dev, results):
@@ -162,6 +427,7 @@ def check_k7_k8(H, W, dev, results):
     cfg = CameraParams(width=W, height=H)
     rm = RaymarchParams()
     ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
+    HW = H * W
 
     got = march_gbuf_cuda(scene, ro, rd, rm)
     want = raymarch.march_gbuf(scene, ro, rd, rm)
@@ -177,7 +443,11 @@ def check_k7_k8(H, W, dev, results):
     ms = cuda_time_ms(lambda: march_gbuf_cuda(scene, ro, rd, rm), repeats=10)
     plain_ms = cuda_time_ms(lambda: raymarch.march_gbuf(scene, ro, rd, rm),
                             repeats=2)
-    results["K7"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms)
+    # ro, rd in; t, hit (1 byte), material, normal out
+    results["K7"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
+                         bytes=45 * HW,
+                         flops=march_evals(scene, ro, rd, rm)
+                         * sdf_flops(scene) + 20 * HW)
     phase(3, f"K7: ok, {int((~same).sum())} flips, max |err| {err7:.3g}, "
              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
 
@@ -204,9 +474,29 @@ def check_k7_k8(H, W, dev, results):
     err8 = max(max_err(got[0], want[0], same), max_err(got[2], want[2]))
     ms = cuda_time_ms(lambda: shadow_shade_cuda(*args), repeats=10)
     plain_ms = cuda_time_ms(lambda: raymarch.shadow_shade(*args), repeats=2)
-    results["K8"] = dict(max_abs_err=err8, ms=ms, plain_ms=plain_ms)
+    # p, n, light sample, albedo, emission, hit in; render, vis, motion out
+    results["K8"] = dict(max_abs_err=err8, ms=ms, plain_ms=plain_ms,
+                         bytes=85 * HW,
+                         flops=shadow_evals(scene, p, n, lp, hit, rm)
+                         * sdf_flops(scene) + 80 * HW)
     phase(3, f"K8: ok, {int((~same).sum())} flips, max |err| {err8:.3g}, "
              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+
+def reset_counts():
+    for wrapper in WRAPPERS.values():
+        wrapper.launches = 0
+
+
+def read_counts(n, expected):
+    """The launch counts of a main path's run; fail if one of its kernels
+    never launched."""
+    counts = {k: w.launches for k, w in WRAPPERS.items()}
+    missing = [k for k in expected if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"phase {n}: kernels never launched on the "
+                             f"main path: {missing}")
+    return counts
 
 
 def run_sequence(pipe, n_frames, H, W, dev, keep):
@@ -228,6 +518,142 @@ def run_sequence(pipe, n_frames, H, W, dev, keep):
             kept.append(out.denoised.clone())
         prev = cam
     return times, kept
+
+
+def serving_phase(H, W, dev, n_frames):
+    scene = raymarch.cornell_scene(device=dev)
+    pipe_cfg = dict(cam_cfg=CameraParams(width=W, height=H),
+                    rm_params=RaymarchParams(), svgf_params=SERVING,
+                    weight_math=SERVING_WEIGHTS)
+    kernel_pipe = FramePipeline(scene, impl="auto", **pipe_cfg)
+    plain_pipe = FramePipeline(scene, impl="plain", **pipe_cfg)
+    keep = min(CHECK_FRAMES, n_frames)
+    reset_counts()
+    times, kernel_frames = run_sequence(kernel_pipe, n_frames, H, W, dev,
+                                        keep)
+    counts = read_counts(4, ("K1", "K3", "K7", "K8"))
+    plain_times, plain_frames = run_sequence(plain_pipe, keep, H, W, dev,
+                                             keep)
+    for f, (a, b) in enumerate(zip(kernel_frames, plain_frames)):
+        check_close(f"frame {f} denoised (kernel vs plain)", a, b,
+                    atol=1e-3 * float(b.abs().max()))
+    steady = times[1:] or times
+    phase(4, f"{n_frames} frames {W}x{H}: kernel path "
+             f"{sum(times) / len(times):.3f} ms/frame (frames 2-{n_frames}:"
+             f" {sum(steady) / len(steady):.3f}), plain path "
+             f"{sum(plain_times) / len(plain_times):.3f} ms/frame over "
+             f"{keep}; first {keep} frames match; launches {counts}")
+    return counts
+
+
+def run_train(step, state, n_steps, keep):
+    """``n_steps`` train steps; returns per-step device ms, host ms, and
+    (loss, albedo gradient, albedo) of the first ``keep``."""
+    dev_ms, host_ms, kept = [], [], []
+    for k in range(n_steps):
+        t0 = time.perf_counter()
+        with CudaTimer() as tm:
+            state, loss = step(state)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        dev_ms.append(tm.ms)
+        if not bool(torch.isfinite(loss)) or not bool(
+                torch.isfinite(state.albedo.grad).all()):
+            raise AssertionError(f"train step {k}: non-finite loss/gradient")
+        if k < keep:
+            kept.append((float(loss), state.albedo.grad.clone(),
+                         state.albedo.detach().clone()))
+    return state, dev_ms, host_ms, kept
+
+
+def train_phase(H, W, dev):
+    scene = raymarch.cornell_scene(device=dev)
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (3, H, W), dtype=np.float32)).to(dev)
+    kw = dict(cam_cfg=CameraParams(width=W, height=H),
+              rm_params=RaymarchParams(), svgf_params=TRAIN)
+    cam = raymarch.cornell_camera(device=dev)
+    runs = {}
+    for impl in ("auto", "plain"):
+        step = make_train_step(scene, cam, target, impl=impl, **kw)
+        state = init_train_state(scene.materials.albedo, H, W,
+                                 torch.Generator(dev).manual_seed(0))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        if impl == "auto":
+            reset_counts()
+            n = 1 + TRAIN_STEPS
+        else:
+            n = CHECK_STEPS
+        state, dev_ms, host_ms, kept = run_train(step, state, n, CHECK_STEPS)
+        peak = torch.cuda.max_memory_allocated() - base
+        if impl == "auto":
+            counts = read_counts(5, ("K1", "K2", "K4", "K7", "K8"))
+            dev_ms, host_ms = dev_ms[1:], host_ms[1:]
+        runs[impl] = (dev_ms, host_ms, kept, peak)
+        del step, state
+    for k, (a, b) in enumerate(zip(runs["auto"][2], runs["plain"][2])):
+        if abs(a[0] - b[0]) > 1e-5 * abs(b[0]):
+            raise AssertionError(f"train step {k}: loss {a[0]} vs plain "
+                                 f"{b[0]}")
+        # the kernel path's adjoint multiplies the bf16-stored weights
+        check_close(f"train step {k} albedo gradient", a[1], b[1],
+                    atol=3e-3 * float(b[1].abs().max()))
+        check_close(f"train step {k} albedo", a[2], b[2], atol=1e-5)
+    (kd, kh, kept, kpeak), (pd, ph, _, ppeak) = runs["auto"], runs["plain"]
+    phase(5, f"train step {W}x{H} (config 4, r1, 5 levels, exact): kernel "
+             f"path {sum(kd) / len(kd):.3f} ms/step device, "
+             f"{sum(kh) / len(kh):.3f} ms/step host wall over {len(kd)} "
+             f"steps (min {min(kd):.3f}, max {max(kd):.3f}), peak memory "
+             f"{kpeak / 2**30:.3f} GiB; plain path {sum(pd) / len(pd):.3f} "
+             f"ms/step over {len(pd)}, peak {ppeak / 2**30:.3f} GiB; first "
+             f"{CHECK_STEPS} steps match (loss {kept[0][0]:.6f}, "
+             f"{kept[1][0]:.6f}); launches {counts}")
+    return counts
+
+
+def temporal_grad_phase(H, W, dev):
+    """Differentiate the denoised frame with respect to motion and the
+    history through ``svgf_denoise_frame(temporal="ad")``: K5 with the
+    motion gradient, K6 without it."""
+    P = random_planes(H, W, dev, seed=5)
+    motion = (P["motion"] * (M / 7.0)).contiguous()   # |motion| <= M
+    total = {k: 0 for k in WRAPPERS}
+    grads = {}
+    for impl in ("auto", "plain"):
+        for motion_grad in (True, False):
+            m = motion.clone().requires_grad_(motion_grad)
+            hc = P["h_color"].clone().requires_grad_()
+            g = GBuffer(render=P["color"],
+                        albedo=torch.full_like(P["color"], 0.7),
+                        normal=P["normal"], depth=P["depth"], motion=m)
+            h = History(color=hc, moments=P["h_moments"],
+                        length=P["h_length"], prev_depth=P["depth"],
+                        prev_normal=P["normal"])
+            if impl == "auto":
+                reset_counts()
+            out, _ = svgf_denoise_frame(g, h, params=TRAIN, impl=impl,
+                                        temporal="ad",
+                                        motion_grad=motion_grad)
+            (out.denoised ** 2).mean().backward()
+            if impl == "auto":
+                counts = read_counts(6, ("K1", "K2", "K4") + (
+                    ("K5",) if motion_grad else ("K6",)))
+                for k, n in counts.items():
+                    total[k] += n
+            grads[impl, motion_grad] = (hc.grad, m.grad)
+    for motion_grad in (True, False):
+        (hk, mk), (hp, mp) = grads["auto", motion_grad], grads["plain",
+                                                               motion_grad]
+        check_close(f"d_history.color (motion_grad={motion_grad})", hk, hp,
+                    atol=3e-3 * float(hp.abs().max()))
+        if motion_grad:
+            check_close("d_motion", mk, mp, atol=3e-3 * float(mp.abs().max()))
+        elif mk is not None:
+            raise AssertionError("motion gradient without motion_grad")
+    phase(6, f"temporal gradient path {W}x{H}: d_motion and d_history match "
+             f"the plain path; launches {total}")
+    return total
 
 
 def main(argv=None) -> int:
@@ -257,44 +683,29 @@ def main(argv=None) -> int:
     results = {}
     P = random_planes(H, W, dev, seed=0)
     check_k1(P, results)
+    check_k1_store_k2(P, results)
     check_k3(P, results)
+    check_k4_k5_k6(P, results)
     check_k7_k8(H, W, dev, results)
     del P
     torch.cuda.synchronize()
 
-    scene = raymarch.cornell_scene(device=dev)
-    pipe_cfg = dict(cam_cfg=CameraParams(width=W, height=H),
-                    rm_params=RaymarchParams(), svgf_params=SERVING,
-                    weight_math=SERVING_WEIGHTS)
-    kernel_pipe = FramePipeline(scene, impl="auto", **pipe_cfg)
-    plain_pipe = FramePipeline(scene, impl="plain", **pipe_cfg)
-    keep = min(CHECK_FRAMES, args.frames)
-    for wrapper in WRAPPERS.values():
-        wrapper.launches = 0
-    times, kernel_frames = run_sequence(kernel_pipe, args.frames, H, W, dev,
-                                        keep)
-    launches = {k: w.launches for k, w in WRAPPERS.items()}
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: "
-                             f"{missing}")
-    plain_times, plain_frames = run_sequence(plain_pipe, keep, H, W, dev,
-                                             keep)
-    for f, (a, b) in enumerate(zip(kernel_frames, plain_frames)):
-        check_close(f"frame {f} denoised (kernel vs plain)", a, b,
-                    atol=1e-3 * float(b.abs().max()))
-    steady = times[1:] or times
-    phase(4, f"{args.frames} frames {W}x{H}: kernel path "
-             f"{sum(times) / len(times):.3f} ms/frame (frames 2-{args.frames}:"
-             f" {sum(steady) / len(steady):.3f}), plain path "
-             f"{sum(plain_times) / len(plain_times):.3f} ms/frame over "
-             f"{keep}; first {keep} frames match; launches {launches}")
+    launches = {k: 0 for k in WRAPPERS}
+    for counts in (serving_phase(H, W, dev, args.frames),
+                   train_phase(H, W, dev), temporal_grad_phase(H, W, dev)):
+        for k, n in counts.items():
+            launches[k] += n
 
     report = []
     for k, (name, source, replaces) in KERNELS.items():
+        r = results[k]
+        bound_ms, bound_by = bound(r.pop("bytes"), r.pop("flops"))
         report.append(dict(name=name, route="cuda", source=source,
                            replaces=replaces, launches=launches[k],
-                           **results[k]))
+                           max_abs_err=r["max_abs_err"], ms=r["ms"],
+                           plain_ms=r["plain_ms"], bound_ms=bound_ms,
+                           bound_by=bound_by,
+                           library_ms=r.get("library_ms")))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

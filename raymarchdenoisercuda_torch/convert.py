@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from .gbuffer import GBuffer, History
+from .models.pipeline import TrainState, init_train_state
 from .ops.raymarch import Camera, Materials, Scene
 
 
@@ -95,3 +96,37 @@ def gbuffer_to_numpy(g: GBuffer) -> Dict[str, Any]:
 
 def history_to_numpy(h: History) -> Dict[str, Any]:
     return {f.name: _np(getattr(h, f.name)) for f in dataclasses.fields(h)}
+
+
+def train_state_from_numpy(albedo, adam: Mapping[str, Any],
+                           history: Mapping[str, Any], device,
+                           generator=None, *, lr: float = 1e-2) -> TrainState:
+    """Port ``TrainState`` from the JAX package's: the albedo table, optax's
+    ``ScaleByAdamState`` fields ``count``, ``mu``, ``nu`` (which become
+    Adam's ``step``, ``exp_avg``, ``exp_avg_sq``) and the history's
+    fields.  The PRNG key does not carry over: pass ``generator``, or the
+    light samples, to the train step."""
+    h = history_from_numpy(history, device)
+    state = init_train_state(_t(albedo, device), *h.length.shape, generator,
+                             lr=lr)
+    state.optimizer.state[state.albedo] = {
+        # Adam keeps a non-capturable step count as a float32 CPU scalar
+        "step": torch.tensor(float(np.asarray(adam["count"])),
+                             dtype=torch.float32),
+        "exp_avg": _t(adam["mu"], device),
+        "exp_avg_sq": _t(adam["nu"], device),
+    }
+    return state._replace(history=h)
+
+
+def train_state_to_numpy(state: TrainState) -> Dict[str, Any]:
+    """Back to numpy: ``albedo``, ``adam`` (``count``, ``mu``, ``nu`` as
+    optax names them; zeros before the first step) and ``history``."""
+    st = state.optimizer.state.get(state.albedo, {})
+    zeros = np.zeros(tuple(state.albedo.shape), np.float32)
+    adam = {"count": np.asarray(int(st["step"]) if "step" in st else 0,
+                                np.int32),
+            "mu": _np(st["exp_avg"]) if "exp_avg" in st else zeros,
+            "nu": _np(st["exp_avg_sq"]) if "exp_avg_sq" in st else zeros}
+    return {"albedo": _np(state.albedo), "adam": adam,
+            "history": history_to_numpy(state.history)}

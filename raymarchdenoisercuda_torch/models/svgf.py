@@ -1,11 +1,19 @@
 """SVGF denoiser: demodulate -> temporal step -> à-trous sweep -> remodulate.
 
-Counterpart of ``raymarchdenoisercuda_tpu/models/svgf.py`` (inference: the
-temporal step is the fused one and the spatial sweep keeps no adjoint
-state).  With ``impl="auto"`` the temporal step and the sweep go through
-their kernel wrappers, which launch K3 and K1 for CUDA tensors and run the
-plain versions for CPU tensors; ``impl="plain"`` runs the plain versions on
-any device (the on-card oracle of the kernel path).
+Counterpart of ``raymarchdenoisercuda_tpu/models/svgf.py``.  With
+``impl="auto"`` the temporal step and the sweep go through their kernel
+wrappers, which launch the kernels for CUDA tensors and run the plain twins
+for CPU tensors:
+
+* ``temporal="auto"``/``"fused"``: the fused inference step (K3), then the
+  inference sweep (K1 without weight writes) — no gradient, as the JAX
+  package's ``spatial_bwd="auto"`` resolves it;
+* ``temporal="ad"``: the differentiable step (K4, adjoint K5/K6) and the
+  stored-weight sweep (K1 in store mode, adjoint K2) — the training path.
+
+``impl="plain"`` runs the plain PyTorch versions on any device, with
+autograd gradients (the JAX package's ``impl="reference"``; the on-card
+oracle of the kernel path); ``detach_weights`` applies to it.
 
 Albedo demodulation: SVGF filters irradiance ``render / max(albedo, eps)``
 and multiplies the albedo back afterwards, so texture is not blurred.
@@ -21,9 +29,10 @@ from torch import nn
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History
 from ..ops.atrous import svgf_spatial_ref
-from ..ops.atrous_cuda import svgf_spatial_cuda
-from ..ops.temporal import temporal_accumulate
-from ..ops.temporal_cuda import temporal_accumulate_cuda
+from ..ops.atrous_cuda import svgf_spatial_cuda, svgf_spatial_stored_cuda
+from ..ops.temporal import temporal_accumulate, temporal_accumulate_ad
+from ..ops.temporal_cuda import (temporal_accumulate_ad_cuda,
+                                 temporal_accumulate_cuda)
 
 _ALBEDO_EPS = 1e-3
 # Surfaces darker than this are emissive/unlit and pass through
@@ -32,6 +41,7 @@ _ALBEDO_EPS = 1e-3
 _EMISSIVE_THRESH = 0.02
 
 IMPLS = ("auto", "plain")
+TEMPORALS = ("auto", "fused", "ad")
 
 
 def demodulate(color: torch.Tensor, albedo: torch.Tensor) -> torch.Tensor:
@@ -50,26 +60,55 @@ def svgf_denoise_frame(
     history: History,
     *,
     params: SVGFParams = SVGFParams(),
+    detach_weights: bool = True,
     weight_math: str = "exact",
     demodulate_albedo: bool = True,
     impl: str = "auto",
+    temporal: str = "auto",
+    motion_grad: bool = True,
 ) -> Tuple[GBuffer, History]:
     """Denoise one frame; returns (gbuffer with ``denoised``, new history).
 
     The new history's colour is the output of level ``params.feedback_level``
-    of the sweep; its previous depth/normal are this frame's."""
+    of the sweep; its previous depth/normal are this frame's.  ``temporal``
+    and ``impl`` are as in the module docstring; ``motion_grad=False`` drops
+    the motion gradient of the differentiable step (exact when the loss does
+    not depend on motion through it, as in material-only training)."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
-    temporal, spatial = ((temporal_accumulate_cuda, svgf_spatial_cuda)
-                         if impl == "auto"
-                         else (temporal_accumulate, svgf_spatial_ref))
+    if temporal not in TEMPORALS:
+        raise ValueError(f"unknown temporal: {temporal!r}")
+    if impl == "auto" and not detach_weights:
+        raise ValueError("detach_weights=False needs impl='plain': the "
+                         "kernel path's adjoint treats the weights as "
+                         "constants (the weight-gradient adjoint K9 is not "
+                         "ported)")
+    ad = temporal == "ad"
     work = (gbuf.replace(render=demodulate(gbuf.render, gbuf.albedo))
             if demodulate_albedo else gbuf)
-    integrated, variance, new_history = temporal(work, history, params=params)
-    filtered, _, feedback = spatial(integrated, variance, gbuf.normal,
-                                    gbuf.depth, params=params,
-                                    weight_math=weight_math,
-                                    return_feedback=True)
+    spatial_kw = dict(params=params, weight_math=weight_math,
+                      return_feedback=True)
+    if impl == "auto":
+        if ad:
+            integrated, variance, new_history = temporal_accumulate_ad_cuda(
+                work, history, params=params, motion_grad=motion_grad)
+            spatial = svgf_spatial_stored_cuda
+        else:
+            integrated, variance, new_history = temporal_accumulate_cuda(
+                work, history, params=params)
+            spatial = svgf_spatial_cuda
+        filtered, _, feedback = spatial(integrated, variance, gbuf.normal,
+                                        gbuf.depth, **spatial_kw)
+    else:
+        if ad:
+            integrated, variance, new_history = temporal_accumulate_ad(
+                work, history, params=params, motion_grad=motion_grad)
+        else:
+            integrated, variance, new_history = temporal_accumulate(
+                work, history, params=params)
+        filtered, _, feedback = svgf_spatial_ref(
+            integrated, variance, gbuf.normal, gbuf.depth,
+            detach_weights=detach_weights, **spatial_kw)
     new_history = new_history.replace(color=feedback)
     denoised = (remodulate(filtered, gbuf.albedo) if demodulate_albedo
                 else filtered)

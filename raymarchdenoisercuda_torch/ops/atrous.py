@@ -1,10 +1,10 @@
 """Edge-aware à-trous wavelet filter (SVGF spatial pass): the plain PyTorch
 version.
 
-Counterpart of ``raymarchdenoisercuda_tpu/ops/atrous.py`` (detached weights:
-this slice is forward-only).  It is the CPU path and the oracle that the
-CUDA kernel K1 (``ops/cuda/atrous.cu``) is held against on the card; it is
-never a fallback for a CUDA tensor.
+Counterpart of ``raymarchdenoisercuda_tpu/ops/atrous.py``.  It is the CPU
+path and the oracle that the CUDA kernels K1 (the level forward) and K2 (the
+stored-weight adjoint, ``ops/cuda/atrous.cu``) are held against on the card;
+it is never a fallback for a CUDA tensor.
 
 Per level, at tap spacing ``s = 2^level``, for centre p and tap q = p + s·d:
 
@@ -14,6 +14,14 @@ Per level, at tap spacing ``s = 2^level``, for centre p and tap q = p + s·d:
 * colour ``Σ w c_q / N`` and variance ``Σ w² v_q / N²``, ``N = max(Σ w, ε)``.
 
 Out-of-image taps are dropped (zero weight).
+
+Gradients: with ``detach_weights=True`` (the default, as in the JAX package)
+the edge-stopping weights are constants for autograd, so a level is linear
+in its colour and variance; ``detach_weights=False`` differentiates through
+them.  The stored-weight adjoint (the kernel path's backward) is written out
+in :func:`atrous_level_bwd_stored_ref`; its forward half is
+``atrous_level_ref(..., return_weights=True)``, which also returns the tap
+weights and the normaliser N.
 
 ``weight_math="fast"`` is the plain version of the TPU kernel's fast tap
 weight (``ops/pallas/atrous_tpu.py`` ``_make_level_kernel(fast_weights=True)``),
@@ -98,8 +106,14 @@ def atrous_level_ref(
     level: int = 0,
     params: SVGFParams = SVGFParams(),
     weight_math: str = "exact",
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One à-trous level.  Returns (filtered colour, filtered variance)."""
+    detach_weights: bool = True,
+    return_weights: bool = False,
+):
+    """One à-trous level.  Returns (filtered colour, filtered variance), and
+    with ``return_weights`` also the (n_taps, H, W) float32 tap weights
+    (``h·mask`` included, so out-of-image taps are 0; tap k = (dy+r)(2r+1) +
+    (dx+r)) and the normaliser ``N = max(Σ w, ε)``, which the stored-weight
+    adjoint consumes."""
     if weight_math not in WEIGHT_MATHS:
         raise ValueError(f"unknown weight_math: {weight_math!r}")
     fast = weight_math == "fast"
@@ -111,8 +125,11 @@ def atrous_level_ref(
         zgrad = finite_diff_gradients(depth)
 
     lum = luminance(color)
+    var_w = variance
+    if detach_weights:
+        lum, var_w = lum.detach(), variance.detach()
     sden = params.sigma_color * torch.sqrt(
-        torch.clamp(variance_blur3x3(variance), min=0.0)) + _EPS
+        torch.clamp(variance_blur3x3(var_w), min=0.0)) + _EPS
     if fast:
         # log2(e) folded into the reciprocal scales: the exponent is base 2
         isd2 = _LOG2E / torch.clamp(sden, min=_EPS)
@@ -127,6 +144,7 @@ def atrous_level_ref(
 
     luma_only = (params.luma_only_from is not None
                  and level >= params.luma_only_from)
+    weights = []
     for dy in range(-r, r + 1):
         for dx in range(-r, r + 1):
             oy, ox = dy * spacing, dx * spacing
@@ -160,13 +178,54 @@ def atrous_level_ref(
                     wn = torch.pow(torch.clamp(ndot, min=1e-20),
                                    params.sigma_normal)
                     w = h * m * torch.exp(wz_exp + wl_exp) * wn
+            if detach_weights:
+                w = w.detach()
+            if return_weights:
+                weights.append(w)
 
             num_c = num_c + w[None] * shift2d(color, oy, ox)
             num_v = num_v + (w * w) * shift2d(variance, oy, ox)
             den = den + w
 
     den = torch.clamp(den, min=_EPS)
+    if return_weights:
+        return (num_c / den[None], num_v / (den * den), torch.stack(weights),
+                den)
     return num_c / den[None], num_v / (den * den)
+
+
+def atrous_level_bwd_stored_ref(
+    w: torch.Tensor,    # (n_taps, H, W) stored tap weights (bf16 or f32)
+    norm: torch.Tensor,  # (H, W) N of the forward
+    gc: torch.Tensor,   # (3, H, W) cotangent of the filtered colour
+    gv: torch.Tensor,   # (H, W) cotangent of the filtered variance
+    *,
+    level: int,
+    radius: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: the detached adjoint of one level from the
+    forward's stored weights.
+
+    With ``u = gc/max(N, ε)`` and ``u2 = gv/max(N, ε)²`` at each centre p,
+    ``dc_x = Σ_d w_{x−d}(d)·u_{x−d}`` and ``dv_x = Σ_d w_{x−d}(d)²·u2_{x−d}``
+    (taps at spacing 2^level, summed in tap order, each weight widened to
+    float32 first).  Returns ``(d_color, d_variance)``."""
+    spacing = 1 << level
+    r = radius
+    inv_n = 1.0 / torch.clamp(norm, min=_EPS)
+    u = gc * inv_n[None]
+    u2 = gv * (inv_n * inv_n)
+    acc_c = torch.zeros_like(gc)
+    acc_v = torch.zeros_like(gv)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            k = (dy + r) * (2 * r + 1) + (dx + r)
+            # centre p = x − d: read everything shifted by −d
+            oy, ox = -dy * spacing, -dx * spacing
+            w_sh = shift2d(w[k].float(), oy, ox)
+            acc_c = acc_c + w_sh[None] * shift2d(u, oy, ox)
+            acc_v = acc_v + (w_sh * w_sh) * shift2d(u2, oy, ox)
+    return acc_c, acc_v
 
 
 def svgf_spatial_ref(
@@ -178,8 +237,10 @@ def svgf_spatial_ref(
     params: SVGFParams = SVGFParams(),
     return_feedback: bool = False,
     weight_math: str = "exact",
+    detach_weights: bool = True,
 ):
-    """Full multi-level à-trous sweep.
+    """Full multi-level à-trous sweep, differentiable by autograd (through
+    the weights too with ``detach_weights=False``).
 
     Returns the denoised colour and variance, and with ``return_feedback``
     also the colour after ``params.feedback_level`` levels, which SVGF feeds
@@ -193,7 +254,8 @@ def svgf_spatial_ref(
     feedback = color
     for lvl in range(params.iterations):
         c, v = atrous_level_ref(c, v, normal, depth, zgrad, level=lvl,
-                                params=params, weight_math=weight_math)
+                                params=params, weight_math=weight_math,
+                                detach_weights=detach_weights)
         if lvl + 1 == params.feedback_level:
             feedback = c
     if return_feedback:

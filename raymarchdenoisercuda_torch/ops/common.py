@@ -58,6 +58,22 @@ def finite_diff_gradients(z: torch.Tensor) -> torch.Tensor:
     return torch.stack([dzdy, dzdx])
 
 
+def tent(x: torch.Tensor) -> torch.Tensor:
+    """The bilinear tap weight ``max(0, 1 − |x|)``."""
+    return torch.clamp(1.0 - torch.abs(x), min=0.0)
+
+
+def tent_prime(x: torch.Tensor) -> torch.Tensor:
+    """d/dx ``max(0, 1 − |x|)`` with JAX's kink conventions (the JAX
+    package's ``_tent_prime``): ``−sign(x)`` with sign(0) = +1 inside the
+    support, half of it at the ``|x| = 1`` ties, zero outside.  Autograd of
+    ``tent`` gives 0 at x = 0 and ∓1 at ±1 instead."""
+    a = torch.abs(x)
+    sgn = torch.where(x >= 0, 1.0, -1.0)
+    w = torch.where(a < 1.0, 1.0, torch.where(a == 1.0, 0.5, 0.0))
+    return -sgn * w
+
+
 def fma(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``a·b + c`` rounded once, as a fused multiply-add rounds it (a float32
     product is exact in float64, and the sum is rounded to float32 from

@@ -1,12 +1,12 @@
 """Build the port's CUDA kernels on first use and load them with ctypes.
 
 Every ``*.cu`` file beside this module is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into ONE shared library with a plain C interface, which
-``ctypes`` loads.  The sources include no PyTorch headers, which keeps the
-build short: 7.7-11.1 s for all of them on an NVIDIA H100 80GB HBM3 machine
-(700 W limit, CUDA 12.8), where a source built through
-``torch.utils.cpp_extension.load``, which includes those headers, takes
-minutes.
+(``sm_90a``), one ``nvcc`` process per source, all started together, and
+the objects are linked into ONE shared library with a plain C interface,
+which ``ctypes`` loads.  The sources include no PyTorch headers, which keeps
+the build short (seconds; ``chip_smoke.py`` prints the time), where a source
+built through ``torch.utils.cpp_extension.load``, which includes those
+headers, takes minutes.
 
 The library goes to ``build/torch_ext/`` at the repository root, named by a
 hash of the sources and flags, so a changed source builds anew and an
@@ -30,18 +30,23 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+import torch
+
 _SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = _SRC_DIR.parents[2] / "build" / "torch_ext"
 NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "-std=c++17",
-              "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "--fmad=false", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry points and their argument types; every one returns cudaError_t
 SIGNATURES = {
     "rdt_zgrad": (_P, _P, _I, _I, _P),
-    "rdt_atrous_level": (_P,) * 9,
+    "rdt_atrous_level": (_P,) * 11,
+    "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 4 + (_P,),
     "rdt_temporal": (_P,) * 15,
+    "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,),
     "rdt_march": (_P,) * 9,
     "rdt_shadow_shade": (_P,) * 14,
 }
@@ -68,29 +73,44 @@ def library_path() -> Path:
 
 
 def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless the library for these sources exists.
+    """Compile the kernels unless the library for these sources exists:
+    one ``nvcc -c`` per source, run in parallel, then one link.
     ``verbose`` adds ``-Xptxas=-v`` (registers, spills) and prints nvcc's
     output.  Returns the library's path."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    # compile to a private name, then rename: a concurrent build never
-    # leaves a half-written library under the final name
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-           "-o", tmp, *map(str, sources())]
-    try:
+    nvcc = nvcc_path()
+    # build in a private directory, then rename the library: a concurrent
+    # build never leaves a half-written library under the final name
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for src in sources():
+            obj = os.path.join(tmp, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
+                   "-c", "-o", obj, str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+            objs.append(obj)
+        failed = []
+        for cmd, proc in procs:
+            log = proc.communicate()[0]
+            if verbose or proc.returncode != 0:
+                print(log, flush=True)
+            if proc.returncode != 0:
+                failed.append(" ".join(cmd))
+        if failed:
+            raise RuntimeError("nvcc failed: " + "; ".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, "-shared", "-gencode=arch=compute_90a,code=sm_90a",
+               "-o", lib, *objs]
         res = subprocess.run(cmd, capture_output=True, text=True)
-        if verbose or res.returncode != 0:
-            print(res.stdout + res.stderr, flush=True)
         if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}): {' '.join(cmd)}")
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+            print(res.stdout + res.stderr, flush=True)
+            raise RuntimeError(f"nvcc link failed: {' '.join(cmd)}")
+        os.replace(lib, out)
     return out
 
 
@@ -114,6 +134,17 @@ def check(rc: int, name: str) -> None:
     if rc != 0:
         msg = kernels().rdt_error_string(rc).decode()
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
+
+
+def check_no_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through a kernel that has no
+    adjoint: its output would otherwise come back without a ``grad_fn``,
+    and the gradient would be lost without an error."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} has no backward: an input requires grad (run it under "
+            f"torch.no_grad(), or use the differentiable entry point)")
 
 
 def check_input(t, name: str, shape, dtype, device) -> int:

@@ -1,10 +1,12 @@
-// K1: one level of the edge-aware à-trous SVGF filter, forward (inference).
+// K1: one level of the edge-aware à-trous SVGF filter, forward, and K2: the
+// stored-weight adjoint of one level.
 //
-// Replaces the TPU kernel raymarchdenoisercuda_tpu/ops/pallas/atrous_tpu.py
+// K1 replaces the TPU kernel raymarchdenoisercuda_tpu/ops/pallas/atrous_tpu.py
 // _make_level_kernel(mode="fwd", fuse_isd=True) as driven by
-// atrous_level_fwd_canvas / _svgf_chained_fwd with bwd_impl="none".  Its
-// plain twin is atrous_level_ref in ops/atrous.py; the arithmetic below
-// follows that function operation by operation (the library is built with
+// atrous_level_fwd_canvas / _svgf_chained_fwd: with bwd_impl="none"
+// (inference, no weight writes) or "stored" (the store mode below).  Its
+// plain twin is atrous_level_ref in ops/atrous.py; the arithmetic follows
+// that function operation by operation (the library is built with
 // --fmad=false, so no multiply-add is contracted), which keeps the kernel
 // within float rounding of the twin.
 //
@@ -15,11 +17,31 @@
 // what the TPU kernel's border mask achieves.  The 3x3 variance blur that
 // sets the luminance sigma is fused in, as on the TPU.
 //
+// Store mode (w_out and n_out non-null, the training forward): the thread
+// also writes its (2r+1)^2 tap weights, h and the border mask included, as
+// bf16 (round to nearest even), and N = max(sum w, eps) as float.  The
+// colour and variance use the float weights, and N is their float sum; only
+// the adjoint sees the rounded weights, as on the TPU.
+//
 // Bound on the card: memory.  Per pixel and level the taps read
 // (2r+1)^2 x 9 floats (colour, variance, normal, depth) that neighbouring
-// threads share through L1/L2; the weight math is ~40 flops a tap.  This
-// first version leaves the reuse to the caches (no shared-memory tiling).
+// threads share through L1/L2; the weight math is ~40 flops a tap.  The
+// least traffic is 56 B/px (inputs once, outputs once), 78 B/px in store mode
+// at radius 1.  This first version leaves the reuse to the caches (no
+// shared-memory tiling).
+//
+// K2 replaces _make_level_kernel(mode="stored") as called by
+// atrous_level_bwd_stored_canvas (the backward of _svgf_chained with
+// bwd_impl="stored"); its plain twin is atrous_level_bwd_stored_ref.  In
+// gather form: the thread of output pixel x sums, over taps d, the centre
+// p = x - d*2^level's stored weight w_p(d) against u = gc_p / max(N_p, eps)
+// and, squared, against u2 = gv_p / max(N_p, eps)^2.  A gather needs no
+// atomics, so the sum is deterministic and in the twin's tap order.  Bound:
+// memory, 54 B/px at radius 1 and 86 B/px at radius 2 (bf16 weights, N,
+// gc, gv in; dc, dv out); the centres' reads are shared between threads
+// through the caches.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -77,6 +99,8 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
                                     const float* __restrict__ zgrad,
                                     float* __restrict__ color_out,
                                     float* __restrict__ var_out,
+                                    __nv_bfloat16* __restrict__ w_out,
+                                    float* __restrict__ n_out,
                                     AtrousParams p) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
@@ -108,14 +132,22 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
 
     float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f, den = 0.0f;
     const int r = p.radius;
+    const int side = 2 * r + 1;
     for (int dy = -r; dy <= r; ++dy) {
         const int oy = dy * p.spacing;
         const int qy = y + oy;
-        if (qy < 0 || qy >= H) continue;
+        const bool row_in = qy >= 0 && qy < H;
         for (int dx = -r; dx <= r; ++dx) {
             const int ox = dx * p.spacing;
             const int qx = x + ox;
-            if (qx < 0 || qx >= W) continue;
+            if (!row_in || qx < 0 || qx >= W) {
+                // dropped tap: its stored weight is zero
+                if (w_out) {
+                    w_out[((dy + r) * side + (dx + r)) * hw + i] =
+                        __float2bfloat16_rn(0.0f);
+                }
+                continue;
+            }
             const int q = qy * W + qx;
             const float h = p.taps[dy + r] * p.taps[dx + r];
             const float dl = fabsf(lum_c - luma(color, q, hw));
@@ -145,6 +177,9 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
                     w = h * expf(wz + wl) * wn;
                 }
             }
+            if (w_out) {
+                w_out[((dy + r) * side + (dx + r)) * hw + i] = __float2bfloat16_rn(w);
+            }
             acc0 = acc0 + w * color[q];
             acc1 = acc1 + w * color[hw + q];
             acc2 = acc2 + w * color[2 * hw + q];
@@ -157,6 +192,43 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
     color_out[hw + i] = acc1 / den;
     color_out[2 * hw + i] = acc2 / den;
     var_out[i] = acc_v / (den * den);
+    if (n_out) n_out[i] = den;
+}
+
+// K2: gather-form stored-weight adjoint (see the header).
+__global__ void atrous_bwd_stored_kernel(const __nv_bfloat16* __restrict__ w,
+                                         const float* __restrict__ norm,
+                                         const float* __restrict__ gc,
+                                         const float* __restrict__ gv,
+                                         float* __restrict__ dc,
+                                         float* __restrict__ dv,
+                                         int H, int W, int spacing, int r) {
+    int x = blockIdx.x * blockDim.x + threadIdx.x;
+    int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (x >= W || y >= H) return;
+    const int hw = H * W, i = y * W + x;
+    const int side = 2 * r + 1;
+    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f;
+    for (int dy = -r; dy <= r; ++dy) {
+        const int py = y - dy * spacing;
+        if (py < 0 || py >= H) continue;
+        for (int dx = -r; dx <= r; ++dx) {
+            const int px = x - dx * spacing;
+            if (px < 0 || px >= W) continue;
+            const int c = py * W + px;
+            const float wk = __bfloat162float(w[((dy + r) * side + (dx + r)) * hw + c]);
+            const float inv_n = 1.0f / fmaxf(norm[c], kEps);
+            const float u2 = gv[c] * (inv_n * inv_n);
+            acc0 = acc0 + wk * (gc[c] * inv_n);
+            acc1 = acc1 + wk * (gc[hw + c] * inv_n);
+            acc2 = acc2 + wk * (gc[2 * hw + c] * inv_n);
+            acc_v = acc_v + (wk * wk) * u2;
+        }
+    }
+    dc[i] = acc0;
+    dc[hw + i] = acc1;
+    dc[2 * hw + i] = acc2;
+    dv[i] = acc_v;
 }
 
 dim3 grid_for(int H, int W, dim3 block) {
@@ -177,14 +249,27 @@ extern "C" int rdt_zgrad(const float* depth, float* zgrad, int H, int W,
     return (int)cudaGetLastError();
 }
 
+// w_out and n_out null: inference; both set: store mode (K1 for training).
 extern "C" int rdt_atrous_level(const float* color, const float* var,
                                 const float* normal, const float* depth,
                                 const float* zgrad, float* color_out,
-                                float* var_out, const AtrousParams* params,
-                                void* stream) {
+                                float* var_out, void* w_out, float* n_out,
+                                const AtrousParams* params, void* stream) {
     dim3 block(32, 8);
     atrous_level_kernel<<<grid_for(params->H, params->W, block), block, 0,
                           (cudaStream_t)stream>>>(
-        color, var, normal, depth, zgrad, color_out, var_out, *params);
+        color, var, normal, depth, zgrad, color_out, var_out,
+        (__nv_bfloat16*)w_out, n_out, *params);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int rdt_atrous_bwd_stored(const void* w, const float* norm,
+                                     const float* gc, const float* gv,
+                                     float* dc, float* dv, int H, int W,
+                                     int spacing, int radius, void* stream) {
+    dim3 block(32, 8);
+    atrous_bwd_stored_kernel<<<grid_for(H, W, block), block, 0,
+                               (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)w, norm, gc, gv, dc, dv, H, W, spacing, radius);
     return (int)cudaGetLastError();
 }

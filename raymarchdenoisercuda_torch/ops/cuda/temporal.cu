@@ -1,4 +1,5 @@
-// K3: the fused inference temporal step of SVGF.
+// K3: the fused inference temporal step of SVGF, and K4-K6: the
+// differentiable reprojection of the training step and its adjoints.
 //
 // Replaces the TPU kernel raymarchdenoisercuda_tpu/ops/pallas/temporal_tpu.py
 // _make_kernel as called by temporal_accumulate_pallas.  Its plain twin is
@@ -22,6 +23,34 @@
 //
 // Bound on the card: memory (~20 floats read and 7 written per pixel); the
 // 7x7 window only runs on pixels whose history is short.
+//
+// K4 replaces temporal_tpu.py _make_gather_kernel (wrapper _gather_call):
+// the same bounded tent gather as K3's step 1, alone, for the 10-plane
+// history stack, so that the rest of the step can run in PyTorch, where
+// autograd differentiates it.  Plain twin: gather_ref in ops/temporal.py.
+// The TPU kernel loops over every integer offset that the band's motion
+// brackets; here each thread reads only its own <= 4 taps.  Bound: memory,
+// 88 B/px (40 in, 8 motion, 40 out).
+//
+// K5 and K6 replace _make_gather_bwd_kernel (_gather_bwd_call) and
+// _make_gather_bwd_hist_kernel (_gather_bwd_hist_call): one kernel here,
+// the motion term behind a flag.  Plain twin: gather_bwd_ref.
+//   d_hist: the TPU kernel restructures the transposed tent scatter as a
+//   gather over every offset the band brackets (up to (2M+2)^2 candidates).
+//   Here each source pixel scatters its tent-weighted cotangent into its
+//   <= 4 taps with atomicAdd, into an output the wrapper zeroed: 4 targets
+//   instead of 196 candidates, at the price of a summation order that is
+//   not fixed (at most 4 addends a target, so the results differ from the
+//   twin's by rounding only).  Only the leading grad_planes planes are
+//   written; the rest stay zero.
+//   d_motion (K5): a gather at the pixel itself over the offsets
+//   floor(m)-1 .. floor(m)+1 inside [-M, M+1]; at integer motion the tent
+//   derivative (JAX's kink convention: -sign with sign(0) = +1, half weight
+//   at |x| = 1) is nonzero on all three, which is why the TPU kernel keeps
+//   floor+1 upper bounds.
+// Bound: memory; K6 reads 6 cotangent planes and the motion and writes the
+// 10-plane d_hist (72 B/px); K5 also reads 6 history planes and writes
+// d_motion (104 B/px).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -185,6 +214,120 @@ __global__ void temporal_kernel(const float* __restrict__ render,
     out_length[i] = n_new;
 }
 
+
+// K4: bounded tent gather of the 10-plane stack (see the header).
+__global__ void gather_kernel(const float* __restrict__ stack,
+                              const float* __restrict__ motion,
+                              float* __restrict__ out, int H, int W, int M) {
+    int x = blockIdx.x * blockDim.x + threadIdx.x;
+    int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (x >= W || y >= H) return;
+    const int hw = H * W, i = y * W + x;
+    const float m0 = motion[i], m1 = motion[hw + i];
+    float g[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) g[k] = 0.0f;
+    if (fabsf(m0) <= (float)M && fabsf(m1) <= (float)M) {
+        const float y0 = floorf(m0), x0 = floorf(m1);
+        for (int ay = 0; ay <= 1; ++ay) {
+            const float dyf = y0 + (float)ay;
+            const float ty = fmaxf(1.0f - fabsf(m0 - dyf), 0.0f);
+            const int ry = y + (int)dyf;
+            for (int ax = 0; ax <= 1; ++ax) {
+                const float dxf = x0 + (float)ax;
+                const float tx = fmaxf(1.0f - fabsf(m1 - dxf), 0.0f);
+                const int rx = x + (int)dxf;
+                const bool inside = ry >= 0 && ry < H && rx >= 0 && rx < W;
+                const float w = ty * tx;
+                const int q = ry * W + rx;
+#pragma unroll
+                for (int k = 0; k < 10; ++k) {
+                    g[k] = __fmaf_rn(w, inside ? stack[k * hw + q] : 0.0f, g[k]);
+                }
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 10; ++k) out[k * hw + i] = g[k];
+}
+
+// d/dx max(0, 1 - |x|) with JAX's kink convention (ops.common.tent_prime).
+__device__ __forceinline__ float tent_prime(float x) {
+    const float a = fabsf(x);
+    const float sgn = x >= 0.0f ? 1.0f : -1.0f;
+    const float w = a < 1.0f ? 1.0f : (a == 1.0f ? 0.5f : 0.0f);
+    return -sgn * w;
+}
+
+__device__ __forceinline__ float tent(float x) {
+    return fmaxf(1.0f - fabsf(x), 0.0f);
+}
+
+// K5 (motion_grad = 1) / K6 (motion_grad = 0): adjoint of K4 (see the
+// header).  dh must be zeroed; hist may be null when motion_grad is 0.
+__global__ void gather_bwd_kernel(const float* __restrict__ hist,
+                                  const float* __restrict__ motion,
+                                  const float* __restrict__ g,
+                                  float* __restrict__ dh,
+                                  float* __restrict__ dm, int H, int W,
+                                  int M, int np, int motion_grad) {
+    int x = blockIdx.x * blockDim.x + threadIdx.x;
+    int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (x >= W || y >= H) return;
+    const int hw = H * W, i = y * W + x;
+    const float m0 = motion[i], m1 = motion[hw + i];
+    const bool within = fabsf(m0) <= (float)M && fabsf(m1) <= (float)M;
+    if (!within) {
+        if (motion_grad) {
+            dm[i] = 0.0f;
+            dm[hw + i] = 0.0f;
+        }
+        return;
+    }
+    const float y0 = floorf(m0), x0 = floorf(m1);
+    for (int ay = 0; ay <= 1; ++ay) {
+        const float dyf = y0 + (float)ay;
+        const float ty = tent(m0 - dyf);
+        const int ry = y + (int)dyf;
+        for (int ax = 0; ax <= 1; ++ax) {
+            const float dxf = x0 + (float)ax;
+            const float tx = tent(m1 - dxf);
+            const int rx = x + (int)dxf;
+            if (ry < 0 || ry >= H || rx < 0 || rx >= W) continue;
+            const float w = ty * tx;
+            const int q = ry * W + rx;
+            for (int c = 0; c < np; ++c) {
+                atomicAdd(&dh[c * hw + q], w * g[c * hw + i]);
+            }
+        }
+    }
+    if (!motion_grad) return;
+    float dm0 = 0.0f, dm1 = 0.0f;
+    for (int ay = -1; ay <= 1; ++ay) {
+        const float dyf = y0 + (float)ay;
+        const float ty = tent(m0 - dyf), typ = tent_prime(m0 - dyf);
+        const int ry = y + (int)dyf;
+        const bool row_ok = dyf >= (float)-M && dyf <= (float)(M + 1)
+            && ry >= 0 && ry < H;
+        for (int ax = -1; ax <= 1; ++ax) {
+            const float dxf = x0 + (float)ax;
+            const float tx = tent(m1 - dxf), txp = tent_prime(m1 - dxf);
+            const int rx = x + (int)dxf;
+            const bool ok = row_ok && dxf >= (float)-M && dxf <= (float)(M + 1)
+                && rx >= 0 && rx < W;
+            const int q = ry * W + rx;
+            float gdot = 0.0f;
+            for (int c = 0; c < np; ++c) {
+                gdot = gdot + g[c * hw + i] * (ok ? hist[c * hw + q] : 0.0f);
+            }
+            dm0 = dm0 + (typ * tx) * gdot;
+            dm1 = dm1 + (ty * txp) * gdot;
+        }
+    }
+    dm[i] = dm0;
+    dm[hw + i] = dm1;
+}
+
 }  // namespace
 
 extern "C" int rdt_temporal(const float* render, const float* motion,
@@ -201,5 +344,25 @@ extern "C" int rdt_temporal(const float* render, const float* motion,
     temporal_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
         render, motion, depth, normal, h_color, h_moments, h_length, h_depth,
         h_normal, out_integ, out_var, out_moments, out_length, *params);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int rdt_gather(const float* stack, const float* motion, float* out,
+                          int H, int W, int max_motion, void* stream) {
+    dim3 block(32, 8);
+    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+    gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        stack, motion, out, H, W, max_motion);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int rdt_gather_bwd(const float* hist, const float* motion,
+                              const float* g, float* dh, float* dm, int H,
+                              int W, int max_motion, int grad_planes,
+                              int motion_grad, void* stream) {
+    dim3 block(32, 8);
+    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+    gather_bwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        hist, motion, g, dh, dm, H, W, max_motion, grad_planes, motion_grad);
     return (int)cudaGetLastError();
 }

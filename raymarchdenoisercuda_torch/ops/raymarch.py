@@ -1,11 +1,17 @@
 """SDF raymarcher emitting a full G-buffer: scene model, camera, the plain
 PyTorch march and shading, and ``render_gbuffer``.
 
-Counterpart of ``raymarchdenoisercuda_tpu/ops/raymarch.py`` (forward only:
-the implicit-function adjoint comes with the training slice).  The plain
+Counterpart of ``raymarchdenoisercuda_tpu/ops/raymarch.py``.  The plain
 functions ``march_gbuf`` and ``shadow_shade`` are the CPU path and the
 oracles of the CUDA kernels K7 and K8 (``ops/cuda/raymarch.cu``); on the card
 ``render_gbuffer`` goes through the kernels (``ops/raymarch_cuda.py``).
+
+Gradients: the material tables, the light sample and the light reach the
+render through the shading (:func:`shade_epilogue`, differentiated by
+autograd, and on the card by K8's backward, which recomputes it); the
+visibility is piecewise constant.  The geometry adjoint (the march's
+implicit-function VJP) is not ported: the hit distance, normal and hit
+point carry no gradient to the scene's primitives or the camera.
 
 Per pixel: sphere-trace the primary ray (``max_steps``), take the material
 of the nearest primitive at the hit (first primitive on ties, in the order
@@ -278,8 +284,22 @@ def shadow_shade(scene: Scene, p: torch.Tensor, n: torch.Tensor,
             step_prev = new_step
             t = t + delta
     vis = (t >= dist_l - 0.03).to(p.dtype)
+    render, motion = shade_epilogue(p, n, light_p, albedo, emission, hit,
+                                    vis, light_consts, prev_consts, cam_wh)
+    return render, vis, motion
 
-    # direct light from p itself
+
+def shade_epilogue(p: torch.Tensor, n: torch.Tensor, light_p: torch.Tensor,
+                   albedo: torch.Tensor, emission: torch.Tensor,
+                   hit: torch.Tensor, vis: torch.Tensor,
+                   light_consts: torch.Tensor,
+                   prev_consts: Optional[torch.Tensor],
+                   cam_wh: Tuple[int, int]):
+    """K8's epilogue at a given visibility: direct light from ``p`` toward
+    the light sample, ``albedo·(L·vis·geom/π + 0.08) + emission``, and the
+    motion into the previous camera (None without ``prev_consts``).
+    Returns ``(render, motion)``.  The forward of ``shadow_shade`` and the
+    backward of K8 (``_shade_xla`` in the JAX package) both run it."""
     s = light_p - p
     dist2 = s[0] * s[0] + s[1] * s[1] + s[2] * s[2]
     sd = s / torch.clamp(torch.sqrt(dist2), min=1e-8)[None]
@@ -291,7 +311,7 @@ def shadow_shade(scene: Scene, p: torch.Tensor, n: torch.Tensor,
     render = albedo * (irr / math.pi + _AMBIENT) + emission
 
     if prev_consts is None:
-        return render, vis, None
+        return render, None
     ppos, pfwd, pright, pup = (prev_consts[0:3], prev_consts[3:6],
                                prev_consts[6:9], prev_consts[9:12])
     phw, phh = prev_consts[12], prev_consts[13]
@@ -308,7 +328,7 @@ def shadow_shade(scene: Scene, p: torch.Tensor, n: torch.Tensor,
     ix = torch.arange(p.shape[2], dtype=p.dtype, device=p.device)[None, :]
     hit_f = hit.to(p.dtype)
     motion = torch.stack([py - iy, px - ix]) * hit_f[None]
-    return render, vis, motion
+    return render, motion
 
 
 def sample_light(scene: Scene, generator: Optional[torch.Generator],
@@ -325,11 +345,33 @@ def sample_light(scene: Scene, generator: Optional[torch.Generator],
             + scene.light_v[:, None, None] * u[1][None])
 
 
+class _TableLookup(torch.autograd.Function):
+    """``table[idx]`` for a flat index map, as (C, N) planes.  The backward
+    sums the cotangent per row with one float32 matrix product against the
+    one-hot index map.  Autograd of the gather would scatter the N pixels
+    into the M rows with ``index_put_``, whose CUDA backward serialises the
+    duplicates: 53 ms of a 1080p training step on an NVIDIA H100
+    (``utils/profile.py``)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table.t()[:, idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        onehot = torch.nn.functional.one_hot(idx, ctx.rows).to(g.dtype)
+        return (g @ onehot).t(), None
+
+
 def _material_lookup(mat: torch.Tensor, *tables: torch.Tensor):
     """Per-pixel material-table lookup: ``tables[i]`` is (M, C); returns one
     (C, H, W) plane stack per table."""
-    idx = mat.long()
-    outs = [t.t()[:, idx] for t in tables]
+    idx = mat.long().reshape(-1)
+    outs = [_TableLookup.apply(t, idx).reshape((t.shape[1],) + mat.shape)
+            for t in tables]
     return outs if len(outs) > 1 else outs[0]
 
 
@@ -349,7 +391,9 @@ def render_gbuffer(
     ``light_sample`` (3, H, W) replaces the draw from ``generator`` (tests
     pass the reference's sample).  ``impl="auto"`` runs K7/K8 through their
     wrappers, which pick the CUDA kernel or the plain version by device;
-    ``impl="plain"`` runs the plain versions on any device.
+    ``impl="plain"`` runs the plain versions on any device.  The material
+    lookup, hit mask and depth stay in PyTorch, so gradients reach the
+    (M, 3) material tables.
     """
     # imported here: the wrappers' module imports this one
     from .raymarch_cuda import march_gbuf_cuda, shadow_shade_cuda

@@ -1,10 +1,18 @@
 """K7/K8 wrappers: the primary march and the shadow/shading pass through
 the CUDA kernels of ``ops/cuda/raymarch.cu``.
 
-Counterparts of ``_march_call(emit_normals=True)`` and ``_shade_call`` in
-``raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py``.  CUDA tensors run
-the kernels; CPU tensors run the plain versions ``ops.raymarch.march_gbuf``
-and ``ops.raymarch.shadow_shade``.
+Counterparts of ``_march_call(emit_normals=True)`` and
+``shadow_shade_pallas`` in ``raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py``.
+CUDA tensors run the kernels; CPU tensors run the plain versions
+``ops.raymarch.march_gbuf`` and ``ops.raymarch.shadow_shade``.
+
+:func:`shadow_shade_cuda` is a ``torch.autograd.Function``: its backward
+recomputes the shading and motion epilogue in PyTorch with the visibility
+held constant (``_shade_bwd`` in the JAX package) and returns gradients for
+the hit point, normal, light sample, albedo, emission and light constants;
+the previous camera's get none (the camera is never optimised).
+:func:`march_gbuf_cuda` has no backward yet (the geometry adjoint is a
+later slice): it raises if the scene's geometry or the rays require grad.
 """
 
 from __future__ import annotations
@@ -16,7 +24,7 @@ import torch
 
 from ..config import RaymarchParams
 from .cuda import _build
-from .raymarch import Scene, march_gbuf, shadow_shade
+from .raymarch import Scene, march_gbuf, shade_epilogue, shadow_shade
 
 
 class _MarchParams(ctypes.Structure):
@@ -58,6 +66,8 @@ def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     """Primary march + G-buffer normals; returns ``(t, hit, mat, normal)``
     as ``march_gbuf`` does.  Each launch adds one to
     ``march_gbuf_cuda.launches``."""
+    _build.check_no_grad("march_gbuf_cuda", ro, rd, scene.sphere_params,
+                         scene.box_params, scene.plane_params)
     if not ro.is_cuda:
         return march_gbuf(scene, ro, rd, params)
     H, W = ro.shape[-2:]
@@ -87,22 +97,13 @@ def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
 march_gbuf_cuda.launches = 0
 
 
-def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
-                      light_p: torch.Tensor, albedo: torch.Tensor,
-                      emission: torch.Tensor, hit: torch.Tensor,
-                      light_consts: torch.Tensor,
-                      prev_consts: Optional[torch.Tensor],
-                      params: RaymarchParams, cam_wh: Tuple[int, int]):
-    """Shadow ray + shading + motion; returns ``(render, vis, motion)`` as
-    ``shadow_shade`` does.  Each launch adds one to
-    ``shadow_shade_cuda.launches``."""
-    if not p.is_cuda:
-        return shadow_shade(scene, p, n, light_p, albedo, emission, hit,
-                            light_consts, prev_consts, params, cam_wh)
+def _shade_launch(scene, p, n, light_p, albedo, emission, hit, light_consts,
+                  prev_consts, params, cam_wh):
+    """One launch of K8; returns ``(render, vis, motion)``."""
     H, W = p.shape[-2:]
     dev = p.device
     f32 = torch.float32
-    sc = flatten_scene(scene)
+    sc = flatten_scene(scene).detach()
     planes = [(sc, "scene", sc.shape), (p, "p", (3, H, W)),
               (n, "n", (3, H, W)), (light_p, "light_p", (3, H, W)),
               (albedo, "albedo", (3, H, W)),
@@ -131,6 +132,65 @@ def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
     _build.check(rc, "rdt_shadow_shade")
     shadow_shade_cuda.launches += 1
     return render, vis, motion
+
+
+class _ShadowShade(torch.autograd.Function):
+    """K8 forward (or, on the CPU, the plain ``shadow_shade``), backward by
+    recomputing :func:`shade_epilogue` at the forward's visibility."""
+
+    @staticmethod
+    def forward(ctx, scene, p, n, light_p, albedo, emission, hit,
+                light_consts, prev_consts, params, cam_wh):
+        args = (scene, p, n, light_p, albedo, emission, hit, light_consts,
+                prev_consts, params, cam_wh)
+        render, vis, motion = (_shade_launch(*args) if p.is_cuda
+                               else shadow_shade(*args))
+        ctx.save_for_backward(p, n, light_p, albedo, emission, hit, vis,
+                              light_consts, prev_consts)
+        ctx.cam_wh = cam_wh
+        ctx.mark_non_differentiable(vis)
+        if motion is None:
+            return render, vis
+        return render, vis, motion
+
+    @staticmethod
+    def backward(ctx, g_render, _g_vis, g_motion=None):
+        p, n, light_p, albedo, emission, hit, vis, light_consts, prev = (
+            ctx.saved_tensors)
+        diff = (p, n, light_p, albedo, emission, light_consts)
+        need = ctx.needs_input_grad[1:6] + (ctx.needs_input_grad[7],)
+        if not any(need):
+            return (None,) * 11
+        with torch.enable_grad():
+            leaves = [x.detach().requires_grad_(nd) for x, nd in
+                      zip(diff, need)]
+            render, motion = shade_epilogue(
+                leaves[0], leaves[1], leaves[2], leaves[3], leaves[4], hit,
+                vis, leaves[5], prev, ctx.cam_wh)
+            outs, cots = [render], [g_render]
+            if motion is not None and g_motion is not None:
+                outs.append(motion)
+                cots.append(g_motion)
+            wanted = [x for x, nd in zip(leaves, need) if nd]
+            grads = iter(torch.autograd.grad(outs, wanted, cots,
+                                             allow_unused=True))
+        d = [next(grads) if nd else None for nd in need]
+        return (None, d[0], d[1], d[2], d[3], d[4], None, d[5], None, None,
+                None)
+
+
+def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
+                      light_p: torch.Tensor, albedo: torch.Tensor,
+                      emission: torch.Tensor, hit: torch.Tensor,
+                      light_consts: torch.Tensor,
+                      prev_consts: Optional[torch.Tensor],
+                      params: RaymarchParams, cam_wh: Tuple[int, int]):
+    """Shadow ray + shading + motion; returns ``(render, vis, motion)`` as
+    ``shadow_shade`` does, differentiable (see the module docstring).  Each
+    launch adds one to ``shadow_shade_cuda.launches``."""
+    out = _ShadowShade.apply(scene, p, n, light_p, albedo, emission, hit,
+                             light_consts, prev_consts, params, cam_wh)
+    return out if prev_consts is not None else (out[0], out[1], None)
 
 
 shadow_shade_cuda.launches = 0

@@ -2,7 +2,9 @@
 plain PyTorch version.
 
 Counterpart of ``raymarchdenoisercuda_tpu/ops/temporal.py``; the CPU path and
-the oracle of the CUDA kernel K3 (``ops/cuda/temporal.cu``).  Per frame:
+the oracle of the CUDA kernels K3 (the fused inference step) and K4-K6 (the
+differentiable reprojection and its adjoints, ``ops/cuda/temporal.cu``).
+Per frame:
 
 1. reproject: bilinearly sample the history at ``p + motion``; with a bound
    ``max_motion`` a pixel whose ``|m0|`` or ``|m1|`` exceeds it counts as
@@ -16,101 +18,206 @@ the oracle of the CUDA kernel K3 (``ops/cuda/temporal.cu``).  Per frame:
 
 Motion convention: ``motion[:, p] = (dy, dx)`` points from p to the matching
 pixel of the previous frame.
+
+Gradients: the bounded reprojection is a ``torch.autograd.Function``
+(:func:`reproject_gather`) whose backward is written out with JAX's kink
+conventions (``ops.common.tent_prime``), and the epilogue's maxima and
+clamps use ``torch.maximum``/``torch.minimum``, which split a tie's
+gradient 0.5/0.5 as ``jnp.maximum`` does; so autograd through
+:func:`temporal_accumulate` gives ``jax.grad``'s gradients of the JAX
+package's ``temporal_accumulate``.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Tuple
 
 import torch
 
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History, luminance
-from .common import fma, shift2d, valid_mask
+from .common import fma, shift2d, tent, tent_prime, valid_mask
+
+# stack order of the reprojected history planes: colour 3, moments 2,
+# length, previous depth, previous normal 3
+N_HIST_PLANES = 10
+# the epilogue's previous depth and normal (planes 6-9) feed boolean
+# validity tests only: their cotangent is identically zero
+GRAD_PLANES = 6
 
 
-def _stack_planes(planes) -> Tuple[torch.Tensor, List[int]]:
+def bilinear_gather_clamped(planes, motion: torch.Tensor):
+    """Unbounded reprojection (``max_motion=None``, the reference's
+    ``bilinear_gather_many``): bilinear sample of each (…, H, W) plane at
+    ``p + motion`` with the taps clamped to the image."""
     H, W = planes[0].shape[-2:]
-    chans, splits = [], []
-    for p in planes:
-        lead = p.shape[0] if p.dim() > 2 else 1
-        chans.append(p.reshape(lead, H, W))
-        splits.append(lead)
-    return torch.cat(chans, 0), splits
-
-
-def _unstack_planes(out: torch.Tensor, planes, splits):
-    results, o = [], 0
-    for p, lead in zip(planes, splits):
-        results.append(out[o:o + lead].reshape(p.shape))
-        o += lead
-    return results
-
-
-def bilinear_reproject(planes, motion: torch.Tensor, max_motion):
-    """Bilinear sample of each (…, H, W) plane at ``p + motion``.
-
-    With ``max_motion`` set: taps outside the image read zero, and pixels
-    with ``|m0| > max_motion`` or ``|m1| > max_motion`` are flagged in the
-    returned ``within`` mask (their samples are zero).  The four taps
-    accumulate by fused multiply-adds in the order (y0, x0), (y0, x0+1),
-    (y0+1, x0), (y0+1, x0+1) with tent weights ``max(0, 1 − |m − d|)``,
-    the order, weights and rounding of the reference's compiled
-    streaming-shift sum.  With ``max_motion=None`` the taps
-    clamp to the image instead (the reference's unbounded gather) and every
-    pixel is ``within``.  Returns ``(samples, within)``.
-    """
-    stack, splits = _stack_planes(planes)
-    P, H, W = stack.shape
-    m0, m1 = motion[0], motion[1]
-    dev = stack.device
-    iy = torch.arange(H, device=dev)[:, None]
-    ix = torch.arange(W, device=dev)[None, :]
+    chans = [p.reshape(-1, H, W) for p in planes]
+    stack = torch.cat(chans, 0)
+    P = stack.shape[0]
     flat = stack.reshape(P, H * W)
+    iy = torch.arange(H, device=stack.device)[:, None]
+    ix = torch.arange(W, device=stack.device)[None, :]
+    ys = iy.to(stack.dtype) + motion[0]
+    xs = ix.to(stack.dtype) + motion[1]
+    y0 = torch.floor(ys)
+    x0 = torch.floor(xs)
+    fy, fx = ys - y0, xs - x0
+    y0i = torch.clamp(y0.to(torch.int64), 0, H - 1)
+    x0i = torch.clamp(x0.to(torch.int64), 0, W - 1)
+    y1i = torch.clamp(y0i + 1, 0, H - 1)
+    x1i = torch.clamp(x0i + 1, 0, W - 1)
 
-    if max_motion is None:
-        ys = iy.to(stack.dtype) + m0
-        xs = ix.to(stack.dtype) + m1
-        y0 = torch.floor(ys)
-        x0 = torch.floor(xs)
-        fy, fx = ys - y0, xs - x0
-        y0i = torch.clamp(y0.to(torch.int64), 0, H - 1)
-        x0i = torch.clamp(x0.to(torch.int64), 0, W - 1)
-        y1i = torch.clamp(y0i + 1, 0, H - 1)
-        x1i = torch.clamp(x0i + 1, 0, W - 1)
+    def at(yi, xi):
+        return flat[:, (yi * W + xi).reshape(-1)].reshape(P, H, W)
 
-        def at(yi, xi):
-            return flat[:, (yi * W + xi).reshape(-1)].reshape(P, H, W)
+    # a·b + c·d rounds as the reference's compiled fma(a, b, c·d)
+    top = fma(at(y0i, x0i), 1 - fx, at(y0i, x1i) * fx)
+    bot = fma(at(y1i, x0i), 1 - fx, at(y1i, x1i) * fx)
+    out = fma(top, 1 - fy, bot * fy)
+    return [o.reshape(p.shape)
+            for o, p in zip(torch.split(out, [c.shape[0] for c in chans]),
+                            planes)]
 
-        # a·b + c·d rounds as the reference's compiled fma(a, b, c·d)
-        top = fma(at(y0i, x0i), 1 - fx, at(y0i, x1i) * fx)
-        bot = fma(at(y1i, x0i), 1 - fx, at(y1i, x1i) * fx)
-        out = fma(top, 1 - fy, bot * fy)
-        within = torch.ones((H, W), dtype=torch.bool, device=dev)
-        return _unstack_planes(out, planes, splits), within
 
+def _tap_geometry(motion: torch.Tensor, max_motion: int):
+    """Per-pixel reprojection state shared by the gather and its adjoint:
+    ``within`` (|m0|, |m1| <= M), the motion with rejected pixels zeroed
+    (their tap indices stay bounded; their samples are 0), its floors, and
+    the pixel coordinates."""
+    H, W = motion.shape[-2:]
+    m0, m1 = motion[0], motion[1]
     within = (torch.abs(m0) <= max_motion) & (torch.abs(m1) <= max_motion)
-    # keep the tap indices of rejected pixels bounded; their samples are 0
     m0w = torch.where(within, m0, torch.zeros_like(m0))
     m1w = torch.where(within, m1, torch.zeros_like(m1))
-    y0 = torch.floor(m0w)
-    x0 = torch.floor(m1w)
+    iy = torch.arange(H, device=motion.device)[:, None]
+    ix = torch.arange(W, device=motion.device)[None, :]
+    return within, m0w, m1w, torch.floor(m0w), torch.floor(m1w), iy, ix
+
+
+def _tap_index(iy, ix, dyf, dxf, H, W, ok):
+    """Flat index of the tap at offset (dyf, dxf) and whether it is read:
+    ``ok`` and inside the image."""
+    ry = iy + dyf.to(torch.int64)
+    rx = ix + dxf.to(torch.int64)
+    inside = (ry >= 0) & (ry < H) & (rx >= 0) & (rx < W) & ok
+    idx = torch.clamp(ry, 0, H - 1) * W + torch.clamp(rx, 0, W - 1)
+    return idx.reshape(-1), inside
+
+
+def gather_ref(stack: torch.Tensor, motion: torch.Tensor,
+               max_motion: int) -> torch.Tensor:
+    """Plain version of K4: the bounded-motion tent gather of a (P, H, W)
+    stack at ``p + motion``.  Pixels with ``|m0|`` or ``|m1| > max_motion``
+    read zero, as do taps outside the image.  The four taps (y0, x0),
+    (y0, x0+1), (y0+1, x0), (y0+1, x0+1) accumulate by fused multiply-adds
+    with tent weights ``max(0, 1 − |m − d|)``: the order, weights and
+    rounding of the reference's compiled sum."""
+    P, H, W = stack.shape
+    within, m0w, m1w, y0, x0, iy, ix = _tap_geometry(motion, max_motion)
+    flat = stack.reshape(P, H * W)
+    zero = torch.zeros((), dtype=stack.dtype, device=stack.device)
     out = torch.zeros_like(stack)
     for ay in (0, 1):
         dyf = y0 + ay
-        ty = torch.clamp(1.0 - torch.abs(m0w - dyf), min=0.0)
-        ry = iy + dyf.to(torch.int64)
+        ty = tent(m0w - dyf)
         for ax in (0, 1):
             dxf = x0 + ax
-            tx = torch.clamp(1.0 - torch.abs(m1w - dxf), min=0.0)
-            rx = ix + dxf.to(torch.int64)
-            inside = (ry >= 0) & (ry < H) & (rx >= 0) & (rx < W) & within
-            idx = (torch.clamp(ry, 0, H - 1) * W
-                   + torch.clamp(rx, 0, W - 1)).reshape(-1)
+            tx = tent(m1w - dxf)
+            idx, inside = _tap_index(iy, ix, dyf, dxf, H, W, within)
             val = torch.where(inside[None], flat[:, idx].reshape(P, H, W),
-                              torch.zeros((), dtype=stack.dtype, device=dev))
+                              zero)
             out = fma((ty * tx)[None], val, out)
-    return _unstack_planes(out, planes, splits), within
+    return out
+
+
+def gather_bwd_ref(stack, motion, g, max_motion: int, *, motion_grad: bool,
+                   grad_planes: int = N_HIST_PLANES):
+    """Plain version of K5 (``motion_grad=True``) and K6 (False): the
+    adjoint of :func:`gather_ref` for the cotangent ``g`` of its output.
+
+    ``d_hist`` is the transposed tent scatter: each source pixel adds its
+    tent-weighted cotangent into its (at most four) taps, for the leading
+    ``grad_planes`` planes; the rest are exact zeros (valid when their
+    cotangent is zero).  ``d_motion`` (zeros without ``motion_grad``) is,
+    per pixel, ``Σ_c g_c Σ_d (tent'(m0−dy)·tent(m1−dx),
+    tent(m0−dy)·tent'(m1−dx))·hist_c[p+d]`` over the offsets floor(m)−1 ..
+    floor(m)+1 that lie in [−M, M+1]: at integer motion tent' is nonzero
+    on all three (±0.5, −1, ±0.5, JAX's kink convention), which is why the
+    JAX package's adjoint keeps floor+1 upper bounds.  ``stack`` may be
+    None without ``motion_grad``.  Returns ``(d_hist, d_motion)``."""
+    P, H, W = g.shape
+    NP = min(grad_planes, P)
+    within, m0w, m1w, y0, x0, iy, ix = _tap_geometry(motion, max_motion)
+    gw = g[:NP]
+    dh = torch.zeros((P, H * W), dtype=g.dtype, device=g.device)
+    for ay in (0, 1):
+        dyf = y0 + ay
+        ty = tent(m0w - dyf)
+        for ax in (0, 1):
+            dxf = x0 + ax
+            tx = tent(m1w - dxf)
+            idx, inside = _tap_index(iy, ix, dyf, dxf, H, W, within)
+            sel = inside.reshape(-1)
+            contrib = ((ty * tx)[None] * gw).reshape(NP, H * W)
+            dh[:NP].index_add_(1, idx[sel], contrib[:, sel])
+    dh = dh.reshape(P, H, W)
+    dm = torch.zeros((2, H, W), dtype=g.dtype, device=g.device)
+    if not motion_grad:
+        return dh, dm
+    flat = stack[:NP].reshape(NP, H * W)
+    zero = torch.zeros((), dtype=g.dtype, device=g.device)
+    dm0 = dm1 = torch.zeros((H, W), dtype=g.dtype, device=g.device)
+    for ay in (-1, 0, 1):
+        dyf = y0 + ay
+        ty, typ = tent(m0w - dyf), tent_prime(m0w - dyf)
+        for ax in (-1, 0, 1):
+            dxf = x0 + ax
+            tx, txp = tent(m1w - dxf), tent_prime(m1w - dxf)
+            in_range = ((dyf >= -max_motion) & (dyf <= max_motion + 1)
+                        & (dxf >= -max_motion) & (dxf <= max_motion + 1))
+            idx, inside = _tap_index(iy, ix, dyf, dxf, H, W,
+                                     within & in_range)
+            val = torch.where(inside[None], flat[:, idx].reshape(NP, H, W),
+                              zero)
+            gdot = torch.zeros((H, W), dtype=g.dtype, device=g.device)
+            for c in range(NP):
+                gdot = gdot + gw[c] * val[c]
+            dm0 = dm0 + (typ * tx) * gdot
+            dm1 = dm1 + (ty * txp) * gdot
+    return dh, torch.stack([dm0, dm1])
+
+
+class _ReprojectGather(torch.autograd.Function):
+    """Bounded tent reprojection with a written-out adjoint; ``fwd`` and
+    ``bwd`` are the plain versions or the CUDA wrappers (K4, K5/K6)."""
+
+    @staticmethod
+    def forward(ctx, stack, motion, max_motion, motion_grad, grad_planes,
+                fwd, bwd):
+        ctx.save_for_backward(stack if motion_grad else None, motion)
+        ctx.args = (max_motion, motion_grad, grad_planes, bwd)
+        return fwd(stack, motion, max_motion)
+
+    @staticmethod
+    def backward(ctx, g):
+        stack, motion = ctx.saved_tensors
+        max_motion, motion_grad, grad_planes, bwd = ctx.args
+        dh, dm = bwd(stack, motion, g.contiguous(), max_motion,
+                     motion_grad=motion_grad, grad_planes=grad_planes)
+        return (dh, dm if motion_grad else None, None, None, None, None,
+                None)
+
+
+def reproject_gather(stack: torch.Tensor, motion: torch.Tensor,
+                     max_motion: int, *, motion_grad: bool = True,
+                     grad_planes: int = N_HIST_PLANES) -> torch.Tensor:
+    """Differentiable bounded reprojection of a (P, H, W) stack (the JAX
+    package's ``_reproject_gather``): forward :func:`gather_ref`, backward
+    :func:`gather_bwd_ref`.  ``motion_grad=False`` returns no motion
+    gradient (exact when the loss does not reach motion, as in
+    material-only training); ``grad_planes`` as in :func:`gather_bwd_ref`."""
+    return _ReprojectGather.apply(stack, motion, max_motion, motion_grad,
+                                  grad_planes, gather_ref, gather_bwd_ref)
 
 
 def _neighborhood_minmax(color: torch.Tensor, radius: int = 1):
@@ -159,6 +266,10 @@ def spatial_moments(lum: torch.Tensor, radius: int = 3):
     return winsum(lum) * inv_cnt, winsum(lum * lum) * inv_cnt
 
 
+def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
+    return torch.tensor(x, dtype=like.dtype, device=like.device)
+
+
 def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams):
     """Validity, history clamp, EMA accumulation, moments and variance."""
     color = gbuf.render
@@ -177,8 +288,9 @@ def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams):
 
     n_prev = torch.where(valid, prev_len, torch.zeros_like(prev_len))
     n_new = n_prev + 1.0
-    alpha = torch.clamp(1.0 / n_new, min=params.temporal_alpha)
-    alpha_m = torch.clamp(1.0 / n_new, min=params.temporal_moments_alpha)
+    alpha = torch.maximum(_scalar(params.temporal_alpha, n_new), 1.0 / n_new)
+    alpha_m = torch.maximum(_scalar(params.temporal_moments_alpha, n_new),
+                            1.0 / n_new)
 
     integrated = torch.where(
         valid[None], (1 - alpha)[None] * prev_color + alpha[None] * color,
@@ -191,10 +303,11 @@ def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams):
         (1 - alpha_m)[None] * prev_moments + alpha_m[None] * cur_moments,
         cur_moments)
 
-    variance = torch.clamp(moments[1] - moments[0] * moments[0], min=0.0)
+    zero = _scalar(0.0, lum)
+    variance = torch.maximum(moments[1] - moments[0] * moments[0], zero)
     if params.variance_boost_frames > 0:
         sm1, sm2 = spatial_moments(lum)
-        var_spatial = torch.clamp(sm2 - sm1 * sm1, min=0.0)
+        var_spatial = torch.maximum(sm2 - sm1 * sm1, zero)
         variance = torch.where(n_new < params.variance_boost_frames,
                                var_spatial, variance)
 
@@ -209,25 +322,75 @@ def temporal_accumulate(
     *,
     params: SVGFParams = SVGFParams(),
 ) -> Tuple[torch.Tensor, torch.Tensor, History]:
-    """One temporal step.
+    """One temporal step, differentiable by autograd.
 
     Returns ``(integrated_color, variance, new_history)``; the caller
     replaces ``new_history.color`` with the à-trous feedback level's output
     (``models/svgf.py``).
     """
-    H, W = gbuf.shape
-    color = gbuf.render
-    motion = (gbuf.motion if gbuf.motion is not None
-              else torch.zeros((2, H, W), dtype=color.dtype,
-                               device=color.device))
-    iy = torch.arange(H, dtype=color.dtype, device=color.device)[:, None]
-    ix = torch.arange(W, dtype=color.dtype, device=color.device)[None, :]
-    ys = iy + motion[0]
-    xs = ix + motion[1]
-    in_bounds = (ys >= 0) & (ys <= H - 1) & (xs >= 0) & (xs <= W - 1)
+    if params.max_motion is None:
+        motion = _motion(gbuf)
+        hist_planes = [history.color, history.moments, history.length,
+                       history.prev_depth, history.prev_normal]
+        gathered = bilinear_gather_clamped(hist_planes, motion)
+        return _temporal_epilogue(gbuf, gathered, _in_bounds(motion, None),
+                                  params)
+    return temporal_step_ad(gbuf, history, params, reproject_gather,
+                            motion_grad=True, grad_planes=N_HIST_PLANES)
 
-    hist_planes = [history.color, history.moments, history.length,
-                   history.prev_depth, history.prev_normal]
-    gathered, within = bilinear_reproject(hist_planes, motion,
-                                          params.max_motion)
-    return _temporal_epilogue(gbuf, gathered, in_bounds & within, params)
+
+def _motion(gbuf: GBuffer) -> torch.Tensor:
+    H, W = gbuf.shape
+    return (gbuf.motion if gbuf.motion is not None
+            else torch.zeros((2, H, W), dtype=gbuf.render.dtype,
+                             device=gbuf.render.device))
+
+
+def _in_bounds(motion: torch.Tensor, max_motion) -> torch.Tensor:
+    """Pixels whose reprojection lands inside the image and, with a bound,
+    whose |m0| and |m1| are within it."""
+    H, W = motion.shape[-2:]
+    iy = torch.arange(H, dtype=motion.dtype, device=motion.device)[:, None]
+    ix = torch.arange(W, dtype=motion.dtype, device=motion.device)[None, :]
+    ys, xs = iy + motion[0], ix + motion[1]
+    ok = (ys >= 0) & (ys <= H - 1) & (xs >= 0) & (xs <= W - 1)
+    if max_motion is None:
+        return ok
+    return (ok & (torch.abs(motion[0]) <= max_motion)
+            & (torch.abs(motion[1]) <= max_motion))
+
+
+def temporal_step_ad(gbuf: GBuffer, history: History, params: SVGFParams,
+                     gather, *, motion_grad: bool, grad_planes: int):
+    """The differentiable temporal step with bounded motion (the JAX
+    package's ``temporal_accumulate_pallas_ad``): stack the history planes,
+    reproject them with ``gather`` (:func:`reproject_gather` or its CUDA
+    counterpart), and run the shared epilogue."""
+    if params.max_motion is None:
+        raise ValueError("the differentiable temporal step requires "
+                         "SVGFParams.max_motion (bounded reprojection)")
+    motion = _motion(gbuf)
+    stack = torch.cat([history.color, history.moments, history.length[None],
+                       history.prev_depth[None], history.prev_normal])
+    gathered = gather(stack, motion, params.max_motion,
+                      motion_grad=motion_grad, grad_planes=grad_planes)
+    planes = (gathered[0:3], gathered[3:5], gathered[5], gathered[6],
+              gathered[7:10])
+    return _temporal_epilogue(gbuf, planes,
+                              _in_bounds(motion, params.max_motion), params)
+
+
+def temporal_accumulate_ad(
+    gbuf: GBuffer,
+    history: History,
+    *,
+    params: SVGFParams = SVGFParams(),
+    motion_grad: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, History]:
+    """The differentiable temporal step of training (plain version of the
+    K4-K6 path): the values of :func:`temporal_accumulate`, with the
+    adjoint limited to the ``GRAD_PLANES`` history planes that have a
+    gradient, and without the motion gradient if ``motion_grad`` is False.
+    Returns ``(integrated, variance, new_history)``."""
+    return temporal_step_ad(gbuf, history, params, reproject_gather,
+                            motion_grad=motion_grad, grad_planes=GRAD_PLANES)

@@ -1,0 +1,108 @@
+"""Profile the training step or the serving frame on one GPU.
+
+    python3 -m raymarchdenoisercuda_torch.utils.profile train   # config 4
+    python3 -m raymarchdenoisercuda_torch.utils.profile serve   # config 3
+
+At 1920x1080: runs 3 warm-up steps, times ``--steps`` more without the
+profiler, then traces as many with ``torch.profiler`` (CPU and CUDA
+activities) and prints: the card's name and power limit, the wall time per
+step, the device-busy time per step (the sum of the kernels' device time;
+overlapping kernels would count twice, and the port runs one stream), the
+busy share of the wall, and the ``--top`` operators and kernels with the
+most device time.  Needs a CUDA device; the CPU has nothing to measure
+here.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..config import CameraParams, RaymarchParams, SVGFParams
+from ..gbuffer import History
+from ..io.generate import orbit_camera
+from ..models.pipeline import (FramePipeline, init_train_state,
+                               make_train_step)
+from ..ops import raymarch
+from .timing import nvidia_smi_name_power
+
+
+def _train_runner(H, W, dev):
+    scene = raymarch.cornell_scene(device=dev)
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (3, H, W), dtype=np.float32)).to(dev)
+    step = make_train_step(scene, raymarch.cornell_camera(device=dev),
+                           target, cam_cfg=CameraParams(width=W, height=H),
+                           rm_params=RaymarchParams(),
+                           svgf_params=SVGFParams(iterations=5, radius=1))
+    state = [init_train_state(scene.materials.albedo, H, W,
+                              torch.Generator(dev).manual_seed(0))]
+
+    def run():
+        state[0], _ = step(state[0])
+    return run
+
+
+def _serve_runner(H, W, dev):
+    scene = raymarch.cornell_scene(device=dev)
+    pipe = FramePipeline(scene, CameraParams(width=W, height=H),
+                         RaymarchParams(), SVGFParams(radius=1),
+                         weight_math="fast")
+    gen = torch.Generator(dev).manual_seed(0)
+    carry = {"hist": History.zeros(H, W, device=dev), "prev": None, "f": 0}
+
+    def run():
+        cam = orbit_camera(carry["f"] / 16, device=dev)
+        _, carry["hist"] = pipe(cam, carry["prev"], carry["hist"], gen)
+        carry["prev"] = cam
+        carry["f"] += 1
+    return run
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("path", choices=("train", "serve"))
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--top", type=int, default=25)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("profile: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    H, W = 1080, 1920
+    run = (_train_runner if args.path == "train" else _serve_runner)(
+        H, W, dev)
+    for _ in range(3):
+        run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / args.steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(args.steps):
+            run()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    # kernels only: an operator's row repeats the time of its kernels
+    busy = sum(e.device_time_total for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e3 / args.steps
+    print(nvidia_smi_name_power())
+    print(f"{args.path} {W}x{H}: wall {wall:.3f} ms/step unprofiled; device "
+          f"busy {busy:.3f} ms/step under the profiler "
+          f"({100 * busy / wall:.1f} % of the unprofiled wall)")
+    print(events.table(sort_by="self_device_time_total", row_limit=args.top,
+                       max_name_column_width=60))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,7 +12,15 @@ Tolerances, each the one its CPU parity test uses against the JAX package:
 K1 rtol 5e-5 (exact weights) or atol 2e-4·max (fast weights); K3 rtol 1e-5,
 atol 1e-6, length exact; K7/K8 atol 1e-4 (normal atol 5e-4, rtol 5e-3)
 outside pixels whose hit, material or visibility flips on an ulp (at most
-0.1 %); the slice atol 1e-3·max on the denoised frame.
+0.1 %); the slice atol 1e-3·max on the denoised frame.  Training path:
+K1's stored bf16 weights within one bf16 step (rtol 2^-7: expf and
+torch.exp can round a weight to either side of a bf16 rounding boundary;
+fast weights also move by up to 1.4e-4 at the polynomial's seams) and N
+as K1's values; K2 rtol 1e-6 (same operations in the same order); K4 and
+K5/K6 rtol 1e-5, atol 1e-6 (K5/K6 add by atomics, in no fixed order); the
+2-step train step, kernel path against plain path, loss rtol 1e-5,
+albedo gradient atol 3e-3·max (the stored bf16 weights; the plain path
+differentiates the float weights), updated albedo atol 1e-5.
 """
 
 import numpy as np
@@ -23,11 +31,18 @@ from raymarchdenoisercuda_torch.config import (
     CameraParams, RaymarchParams, SVGFParams)
 from raymarchdenoisercuda_torch.gbuffer import GBuffer, History
 from raymarchdenoisercuda_torch.io.generate import orbit_camera
-from raymarchdenoisercuda_torch.models.pipeline import render_and_denoise
+from raymarchdenoisercuda_torch.models.pipeline import (
+    init_train_state, make_train_step, render_and_denoise)
 from raymarchdenoisercuda_torch.ops import atrous, raymarch, temporal
-from raymarchdenoisercuda_torch.ops.atrous_cuda import svgf_spatial_cuda
+from raymarchdenoisercuda_torch.ops.atrous_cuda import (
+    atrous_level_bwd_stored_cuda, atrous_level_cuda, svgf_spatial_cuda,
+    svgf_spatial_stored_cuda)
+from raymarchdenoisercuda_torch.ops.common import finite_diff_gradients
+from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
+    march_gbuf_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
-    temporal_accumulate_cuda)
+    gather_bwd_cuda, gather_bwd_hist_cuda, gather_cuda,
+    temporal_accumulate_ad_cuda, temporal_accumulate_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -177,10 +192,134 @@ def test_slice_kernel_path_matches_plain(dev):
 
 def test_wrappers_count_launches(dev):
     color, var, normal, depth = _planes(dev, 11, 16, 16)
-    before = svgf_spatial_cuda.launches
+    before = atrous_level_cuda.launches
     svgf_spatial_cuda(color, var, normal, depth,
                       params=SVGFParams(iterations=3))
-    assert svgf_spatial_cuda.launches == before + 3
-    before = svgf_spatial_cuda.launches
+    assert atrous_level_cuda.launches == before + 3
+    before = atrous_level_cuda.launches
     svgf_spatial_cuda(*(t.cpu() for t in (color, var, normal, depth)))
-    assert svgf_spatial_cuda.launches == before      # CPU: plain, no launch
+    assert atrous_level_cuda.launches == before      # CPU: plain, no launch
+
+
+@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("weight_math", ["exact", "fast"])
+def test_k1_store_mode_and_k2_match_plain(dev, radius, weight_math):
+    color, var, normal, depth = _planes(dev, 20 + radius)
+    zgrad = finite_diff_gradients(depth)
+    params = SVGFParams(radius=radius)
+    g = torch.Generator(dev).manual_seed(radius)
+    gc = torch.randn((3, H, W), generator=g, device=dev)
+    gv = torch.randn((H, W), generator=g, device=dev)
+    for level in (0, 3):
+        kw = dict(level=level, params=params, weight_math=weight_math)
+        c, v, w, norm = atrous_level_cuda(color, var, normal, depth, zgrad,
+                                          store=True, **kw)
+        c0, v0, w0, n0 = atrous.atrous_level_ref(
+            color, var, normal, depth, zgrad, return_weights=True, **kw)
+        tol = (dict(rtol=5e-5, atol=0) if weight_math == "exact"
+               else dict(rtol=0, atol=2e-4 * float(c0.abs().max())))
+        for a, b in ((c, c0), (norm, n0)):
+            np.testing.assert_allclose(_np(a), _np(b), **tol)
+        assert w.dtype == torch.bfloat16
+        np.testing.assert_allclose(_np(w.float()),
+                                   _np(w0.to(torch.bfloat16).float()),
+                                   rtol=2.0 ** -7, atol=1e-30)
+        # K2 and its twin on the same stored weights
+        got = atrous_level_bwd_stored_cuda(w, norm, gc, gv, level=level,
+                                           radius=radius)
+        want = atrous.atrous_level_bwd_stored_ref(w, norm, gc, gv,
+                                                  level=level, radius=radius)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(_np(a), _np(b), rtol=1e-6,
+                                       atol=1e-12 * float(b.abs().max()))
+
+
+def _motion(dev, kind, seed, M=6):
+    rng = np.random.default_rng(seed)
+    m = (rng.random((2, H, W)) - 0.5) * 2 * (M + 1)   # some beyond M
+    if kind == "zero":
+        m = np.zeros((2, H, W))
+    elif kind == "integer":
+        m = np.round(m)
+    return torch.from_numpy(m.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("kind", ["zero", "integer", "fractional"])
+def test_k4_k5_k6_match_plain(dev, kind):
+    rng = np.random.default_rng(30)
+    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    motion = _motion(dev, kind, 31)
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(_np(gather_cuda(stack, motion, 6)),
+                               _np(temporal.gather_ref(stack, motion, 6)),
+                               **tol)
+    for grad_planes in (6, 10):
+        got = gather_bwd_cuda(stack, motion, g, 6, grad_planes=grad_planes)
+        want = temporal.gather_bwd_ref(stack, motion, g, 6, motion_grad=True,
+                                       grad_planes=grad_planes)
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(_np(a), _np(b), **tol)
+        assert float(got[1].abs().max()) > 0
+        dh, dm = gather_bwd_hist_cuda(motion, g, 6, grad_planes=grad_planes)
+        np.testing.assert_allclose(_np(dh), _np(want[0]), **tol)
+        assert float(dm.abs().max()) == 0.0
+        assert float(dh[grad_planes:].abs().sum()) == 0.0
+
+
+def test_wrappers_keep_or_refuse_gradients(dev):
+    """Every kernel wrapper either returns a result with a ``grad_fn`` or
+    raises when an input requires grad: none loses a gradient silently."""
+    color, var, normal, depth = _planes(dev, 40, 16, 24)
+    c = color.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        svgf_spatial_cuda(c, var, normal, depth)
+    out, _ = svgf_spatial_stored_cuda(c, var, normal, depth)
+    assert out.grad_fn is not None
+    gb = GBuffer(render=c, albedo=color, normal=normal, depth=depth,
+                 motion=torch.zeros((2, 16, 24), device=dev))
+    hist = History.zeros(16, 24, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        temporal_accumulate_cuda(gb, hist)
+    integ, _, _ = temporal_accumulate_ad_cuda(gb, hist)
+    assert integ.grad_fn is not None
+    scene = raymarch.cornell_scene(device=dev)
+    cfg = CameraParams(width=24, height=16)
+    ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
+    with pytest.raises(RuntimeError, match="no backward"):
+        march_gbuf_cuda(scene, ro.requires_grad_(), rd, RaymarchParams())
+    t, hit, mat, n = march_gbuf_cuda(scene, ro.detach(), rd, RaymarchParams())
+    p = ro.detach() + t[None] * rd
+    alb = torch.full((3, 16, 24), 0.5, device=dev, requires_grad=True)
+    render, _, _ = shadow_shade_cuda(
+        scene, p, n, p + 1.0, alb, torch.zeros_like(p), hit,
+        raymarch.light_constants(scene), None, RaymarchParams(), (24, 16))
+    assert render.grad_fn is not None
+    render.sum().backward()
+    assert float(alb.grad.abs().max()) > 0
+
+
+def test_train_step_kernel_path_matches_plain(dev):
+    scene = raymarch.cornell_scene(device=dev)
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (3, H, W), dtype=np.float32)).to(dev)
+    kw = dict(cam_cfg=CameraParams(width=W, height=H),
+              rm_params=RaymarchParams(),
+              svgf_params=SVGFParams(iterations=5, radius=1))
+    runs = {}
+    for impl in ("auto", "plain"):
+        step = make_train_step(scene, raymarch.cornell_camera(device=dev),
+                               target, impl=impl, **kw)
+        state = init_train_state(scene.materials.albedo, H, W,
+                                 torch.Generator(dev).manual_seed(0))
+        runs[impl] = []
+        for _ in range(2):
+            state, loss = step(state)
+            runs[impl].append((float(loss), state.albedo.grad.clone(),
+                               state.albedo.detach().clone()))
+    for (lk, gk, ak), (lp, gp, ap) in zip(runs["auto"], runs["plain"]):
+        assert np.isfinite(lk) and abs(lk - lp) <= 1e-5 * abs(lp)
+        np.testing.assert_allclose(_np(gk), _np(gp), rtol=0,
+                                   atol=3e-3 * float(gp.abs().max()))
+        np.testing.assert_allclose(_np(ak), _np(ap), rtol=0, atol=1e-5)

@@ -1,0 +1,163 @@
+"""Gradients of the port's temporal step against ``jax.grad`` of the JAX
+package's.
+
+Tolerance: rtol 1e-5, atol 1e-6 on every gradient — the JAX package's own
+bound for its differentiable kernel against the oracle
+(``tests/test_temporal.py``); the sums run in another order, so the residue
+is rounding only.  The motion gradient is checked at zero, integer and
+fractional motion: at integer motion the tent's kinks decide it, and
+autograd of ``max(0, 1 − |x|)`` (tent'(0) = 0, tent'(±1) = ∓1) differs from
+JAX's convention (−1 and ∓0.5), which the port's written-out adjoint
+follows.  The CUDA kernels K4-K6 are held to these plain versions on the
+card (``tests/test_torch_cuda.py``).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from raymarchdenoisercuda_tpu.config import SVGFParams as JSVGFParams
+from raymarchdenoisercuda_tpu.gbuffer import GBuffer as JGBuffer
+from raymarchdenoisercuda_tpu.gbuffer import History as JHistory
+from raymarchdenoisercuda_tpu.ops.pallas.temporal_tpu import (
+    _tent_prime as j_tent_prime)
+from raymarchdenoisercuda_tpu.ops.temporal import (
+    bilinear_shift_sample_many as j_shift_sample,
+    temporal_accumulate as j_temporal_accumulate)
+from raymarchdenoisercuda_torch import convert
+from raymarchdenoisercuda_torch.config import SVGFParams
+from raymarchdenoisercuda_torch.ops import common, temporal
+from raymarchdenoisercuda_torch.ops.temporal_cuda import (
+    temporal_accumulate_ad_cuda, temporal_accumulate_cuda)
+
+H, W = 32, 40
+TOL = dict(rtol=1e-5, atol=1e-6)
+MOTIONS = {
+    "zero": lambda rng: np.zeros((2, H, W)),
+    "integer": lambda rng: np.round((rng.random((2, H, W)) - 0.5) * 8),
+    "fractional": lambda rng: (rng.random((2, H, W)) - 0.5) * 8,
+}
+NAMES = ("d_render", "d_hist_color", "d_hist_moments", "d_hist_length",
+         "d_motion")
+
+
+def _inputs(seed, motion):
+    rng = np.random.default_rng(seed)
+    n = rng.standard_normal((3, H, W)).astype(np.float32)
+    n[2] += 2.5
+    n /= np.sqrt((n ** 2).sum(0, keepdims=True))
+    depth = (0.5 + rng.random((H, W))).astype(np.float32)
+    g = dict(render=rng.random((3, H, W), dtype=np.float32),
+             albedo=np.full((3, H, W), 0.7, np.float32), normal=n,
+             depth=depth, motion=MOTIONS[motion](rng).astype(np.float32))
+    # lengths 0-5: prev_len 4 makes 1/n_new tie with temporal_alpha = 0.2
+    h = dict(color=rng.random((3, H, W), dtype=np.float32),
+             moments=rng.random((2, H, W), dtype=np.float32),
+             length=np.floor(rng.random((H, W)) * 6).astype(np.float32),
+             prev_depth=depth, prev_normal=n)
+    return g, h
+
+
+def _loss(i, v, nh):
+    return ((i ** 2).sum() + (v * 1.3).sum() + (nh.moments * 0.3).sum()
+            + (nh.length * 0.1).sum())
+
+
+def _jax_grads(g, h):
+    def loss(render, hc, hm, hl, mot):
+        gg = JGBuffer(**{k: jnp.asarray(v) for k, v in g.items()}).replace(
+            render=render, motion=mot)
+        hh = JHistory(**{k: jnp.asarray(v) for k, v in h.items()}).replace(
+            color=hc, moments=hm, length=hl)
+        return _loss(*j_temporal_accumulate(gg, hh, params=JSVGFParams()))
+
+    args = [jnp.asarray(x) for x in (g["render"], h["color"], h["moments"],
+                                     h["length"], g["motion"])]
+    return [np.asarray(x) for x in jax.grad(loss, argnums=range(5))(*args)]
+
+
+def _torch_run(fn, g, h, **kw):
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (
+        g["render"], h["color"], h["moments"], h["length"], g["motion"])]
+    gb = convert.gbuffer_from_numpy(g, "cpu").replace(render=leaves[0],
+                                                      motion=leaves[4])
+    hb = convert.history_from_numpy(h, "cpu").replace(
+        color=leaves[1], moments=leaves[2], length=leaves[3])
+    out = fn(gb, hb, params=SVGFParams(), **kw)
+    grads = torch.autograd.grad(_loss(*out), leaves, allow_unused=True)
+    return out, [None if x is None else x.numpy() for x in grads]
+
+
+@pytest.mark.parametrize("motion", list(MOTIONS))
+def test_temporal_gradients_match_jax(motion):
+    g, h = _inputs(1, motion)
+    want = _jax_grads(g, h)
+    _, got = _torch_run(temporal.temporal_accumulate, g, h)
+    for name, a, b in zip(NAMES, got, want):
+        np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+        assert np.abs(b).max() > 0, f"{name} trivially zero"
+
+
+@pytest.mark.parametrize("motion", ["integer", "fractional"])
+def test_temporal_ad_matches_temporal_accumulate(motion):
+    """The training step's temporal path (6 gradient planes): the values of
+    ``temporal_accumulate`` exactly, its gradients, and with
+    ``motion_grad=False`` no motion gradient.  On CPU tensors the CUDA
+    entry point runs the same plain twins."""
+    g, h = _inputs(2, motion)
+    ref, want = _torch_run(temporal.temporal_accumulate, g, h)
+    for fn in (temporal.temporal_accumulate_ad, temporal_accumulate_ad_cuda):
+        out, got = _torch_run(fn, g, h)
+        for a, b in zip((out[0], out[1], out[2].moments, out[2].length),
+                        (ref[0], ref[1], ref[2].moments, ref[2].length)):
+            assert torch.equal(a, b)
+        for name, a, b in zip(NAMES, got, want):
+            np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+        _, got = _torch_run(fn, g, h, motion_grad=False)
+        assert got[4] is None
+        for name, a, b in zip(NAMES[:4], got, want):
+            np.testing.assert_allclose(a, b, err_msg=name, **TOL)
+
+
+@pytest.mark.parametrize("motion", ["integer", "fractional"])
+def test_reproject_gather_vjp_matches_jax(motion):
+    """The reprojection alone, for an arbitrary cotangent, against the VJP
+    of the JAX package's ``bilinear_shift_sample_many`` (|motion| <= M, so
+    both define the same function)."""
+    M = 2
+    rng = np.random.default_rng(3)
+    stack = rng.random((10, 12, 16), dtype=np.float32)
+    scale = 2 * M if motion == "fractional" else 2 * M + 1
+    mot = (rng.random((2, 12, 16)) - 0.5) * scale
+    mot = (np.round(mot) if motion == "integer" else mot).astype(np.float32)
+    cot = rng.standard_normal((10, 12, 16)).astype(np.float32)
+    out, vjp = jax.vjp(jax.jit(lambda s, m: j_shift_sample([s], m, M)[0][0]),
+                       jnp.asarray(stack), jnp.asarray(mot))
+    want = vjp(jnp.asarray(cot))
+    s, m = (torch.from_numpy(x).requires_grad_() for x in (stack, mot))
+    got_out = temporal.reproject_gather(s, m, M)
+    got = torch.autograd.grad(got_out, (s, m), torch.from_numpy(cot))
+    np.testing.assert_allclose(got_out.detach().numpy(), np.asarray(out),
+                               **TOL)
+    for name, a, b in zip(("d_stack", "d_motion"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
+                                   **TOL)
+
+
+def test_tent_prime_matches_jax():
+    x = np.asarray([-2.0, -1.0, -0.75, -0.0, 0.0, 0.25, 1.0, 1.5],
+                   np.float32)
+    np.testing.assert_array_equal(
+        common.tent_prime(torch.from_numpy(x)).numpy(),
+        np.asarray(j_tent_prime(jnp.asarray(x))))
+
+
+def test_fused_step_refuses_gradients():
+    g, h = _inputs(4, "fractional")
+    gb = convert.gbuffer_from_numpy(g, "cpu")
+    hb = convert.history_from_numpy(h, "cpu")
+    with pytest.raises(RuntimeError, match="no backward"):
+        temporal_accumulate_cuda(gb.replace(render=gb.render.requires_grad_()),
+                                 hb)
