@@ -14,7 +14,10 @@ the script exits non-zero without printing a result):
    with CUDA events: K1 à-trous level (inference and store mode), K2
    stored-weight adjoint, K3 temporal step, K4 reprojection gather, K5/K6
    its adjoints (with ``grid_sample``'s forward and backward timed beside
-   them as the library yardstick), K7 march, K8 shadow + shading;
+   them as the library yardstick), K7 march, K8 shadow + shading, K10 box
+   filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
+   ``conv2d`` beside it), K12 cross-bilateral filter, K13 shadow
+   visibility (Cornell box and ``random_scene``);
 4. the serving path: 16 frames of the animated Cornell sequence at
    1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
    temporal -> 5-level à-trous, radius 1, fast weights); the first 3
@@ -25,10 +28,19 @@ the script exits non-zero without printing a result):
    (ms/step, peak memory); the first 2 steps match the plain path;
 6. the temporal gradient path: ``svgf_denoise_frame(temporal="ad")`` at
    1080p differentiated with respect to motion and history, with the motion
-   gradient (K5) and without it (K6); gradients match the plain path.
+   gradient (K5) and without it (K6); gradients match the plain path;
+7. the reference's own surface: the CLI's ``-t`` case runner
+   (``raymarchdenoisercuda_torch.cli``) on the 1920x1080 filter, spatial,
+   temporal, raymarch and device cases, on the card;
+8. the dataset: ``generate_sequence`` writes 2 frames at 1920x1080 and
+   16 light samples a pixel (K7, then K13 once a sample), read back with
+   ``load_float_frame`` (exactly) and ``load_frame`` (to the PNGs'
+   quantisation); frame 0 matches the plain path's render from the same
+   seed; ``apply_filter`` runs all four filter types on the loaded frame,
+   kernel path against plain path.
 
-Phases 4, 5 and 6 are the main paths: every kernel's launch count is set
-to 0 just before each and read just after, and each fails if one of its
+Phases 4 to 8 are the main paths: every kernel's launch count is set to 0
+just before each and read just after, and each fails if one of its
 kernels never launched.  The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 No JAX is imported.
@@ -39,26 +51,33 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from raymarchdenoisercuda_torch import cli
 from raymarchdenoisercuda_torch.config import (
-    CameraParams, RaymarchParams, SVGFParams)
+    CameraParams, FilterParams, FilterType, RaymarchParams, SVGFParams)
 from raymarchdenoisercuda_torch.gbuffer import GBuffer, History
-from raymarchdenoisercuda_torch.io.generate import orbit_camera
+from raymarchdenoisercuda_torch.io import load_frame
+from raymarchdenoisercuda_torch.io.generate import (
+    generate_sequence, load_float_frame, orbit_camera)
 from raymarchdenoisercuda_torch.models.pipeline import (
     FramePipeline, init_train_state, make_train_step)
 from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
-from raymarchdenoisercuda_torch.ops import atrous, raymarch, temporal
+from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
+                                            raymarch, temporal)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level_bwd_stored_cuda, atrous_level_cuda, svgf_spatial_cuda)
 from raymarchdenoisercuda_torch.ops.common import finite_diff_gradients
 from raymarchdenoisercuda_torch.ops.cuda import _build
+from raymarchdenoisercuda_torch.ops.filters_cuda import (
+    box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
-    march_gbuf_cuda, shadow_shade_cuda)
+    march_gbuf_cuda, shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     gather_bwd_cuda, gather_bwd_hist_cuda, gather_cuda,
     temporal_accumulate_cuda)
@@ -72,6 +91,10 @@ SERVING_WEIGHTS = "fast"             # ... with fast tap weights
 TRAIN = SVGFParams(iterations=5, radius=1)   # config 4, exact weights
 TRAIN_STEPS = 8                      # timed, after one warm-up step
 CHECK_STEPS = 2
+DATA_FRAMES = 2                      # phase 8: frames and light samples
+DATA_SPP = 16
+CLI_CASES = ("FILTER_BASELINE|FILTER_TILED|FILTER_CROSS|SVGF_SPATIAL|"
+             "RAYMARCH|TEMPORAL|DEVICE_STATS")
 M = SVGFParams().max_motion
 # H100 SXM data sheet: HBM rate and the float32 rate outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
@@ -79,7 +102,9 @@ F32_FLOPS_PER_S = 67e12
 WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K3": temporal_accumulate_cuda, "K4": gather_cuda,
             "K5": gather_bwd_cuda, "K6": gather_bwd_hist_cuda,
-            "K7": march_gbuf_cuda, "K8": shadow_shade_cuda}
+            "K7": march_gbuf_cuda, "K8": shadow_shade_cuda,
+            "K10": box_filter_cuda, "K11": gaussian_filter_cuda,
+            "K12": cross_bilateral_cuda, "K13": shadow_factor_cuda}
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
@@ -99,11 +124,20 @@ KERNELS = {
            PALLAS + "raymarch_tpu.py:115"),
     "K8": ("shadow_shade", CUDA_SRC + "raymarch.cu",
            PALLAS + "raymarch_tpu.py:468"),
+    "K10": ("box_level", CUDA_SRC + "filters.cu", PALLAS + "box_tpu.py:53"),
+    "K11": ("gauss_pass", CUDA_SRC + "filters.cu",
+            PALLAS + "filters_tpu.py:41"),
+    "K12": ("cross_bilateral", CUDA_SRC + "filters.cu",
+            PALLAS + "filters_tpu.py:135"),
+    "K13": ("shadow_visibility", CUDA_SRC + "raymarch.cu",
+            PALLAS + "raymarch_tpu.py:408"),
 }
-# per-tap float operations of K1's weight math and accumulation, and of
-# K2's tap, counted from the kernel sources (a transcendental counts as one)
+# per-tap float operations of K1's weight math and accumulation, of K2's
+# tap and of K12's tap (weights, three colour products, the sums), counted
+# from the kernel sources (a transcendental counts as one)
 K1_TAP_FLOPS = 40
 K2_TAP_FLOPS = 14
+K12_TAP_FLOPS = 37
 
 
 def phase(n, msg):
@@ -378,6 +412,84 @@ def check_k4_k5_k6(P, results):
              f"{lib6:.4f})")
 
 
+def check_filters(P, results):
+    """K10, K11 and K12 against their plain twins on the 1080p planes."""
+    x = P["color"]
+    HW = P["depth"].numel()
+    # K10 at the FILTER_TILED / apply_filter(AVERAGE) configuration and a
+    # deeper one; avg_pool2d computes the same function, a call a level
+    errs = []
+    for r, depth in ((2, 1), (1, 3)):
+        got = box_filter_cuda(x, radius=r, depth=depth)
+        want = boxfilter.box_filter(x, radius=r, depth=depth)
+        check_close(f"K10 r{r} d{depth}", got, want, atol=1e-6, rtol=1e-5)
+        errs.append(max_err(got, want))
+
+    def pool():
+        return F.avg_pool2d(x[None], 5, stride=1, padding=2,
+                            count_include_pad=False)[0]
+
+    check_close("avg_pool2d vs K10's twin", pool(),
+                boxfilter.box_filter(x, radius=2, depth=1), atol=1e-6,
+                rtol=1e-5)
+    ms = cuda_time_ms(lambda: box_filter_cuda(x, radius=2, depth=1),
+                      repeats=20)
+    plain = cuda_time_ms(lambda: boxfilter.box_filter(x, radius=2, depth=1),
+                         repeats=5)
+    lib = cuda_time_ms(pool, repeats=20)
+    # 3 planes in, 3 out; 25 adds a channel and a division
+    results["K10"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                          library_ms=lib, bytes=24 * HW, flops=78 * HW)
+    phase(3, f"K10: ok (r2 d1, r1 d3), max |err| {max(errs):.3g}, {ms:.4f} "
+             f"ms (r2 d1), plain {plain:.4f} ms, avg_pool2d {lib:.4f} ms")
+
+    # K11: r2 sigma 2 at depth 1 and 2; the yardstick is one depthwise
+    # conv2d with the 2-D gaussian (the numerator only: no border
+    # renormalisation), in full float32
+    errs = []
+    for depth in (1, 2):
+        got = gaussian_filter_cuda(x, radius=2, sigma=2.0, depth=depth)
+        want = filters.gaussian_filter(x, radius=2, sigma=2.0, depth=depth)
+        check_close(f"K11 depth {depth}", got, want, atol=1e-5)
+        errs.append(max_err(got, want))
+    taps = torch.tensor(filters._gauss_taps(2, 2.0), device=x.device)
+    w2 = (taps[:, None] * taps[None, :]).expand(3, 1, 5, 5).contiguous()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    lib = cuda_time_ms(lambda: F.conv2d(x[None], w2, padding=2, groups=3),
+                       repeats=20)
+    torch.backends.cudnn.allow_tf32 = tf32
+    ms = cuda_time_ms(lambda: gaussian_filter_cuda(x, radius=2, sigma=2.0),
+                      repeats=20)
+    plain = cuda_time_ms(lambda: filters.gaussian_filter(x, radius=2,
+                                                         sigma=2.0), repeats=5)
+    # an iteration: 3 planes in, 3 out; two passes of 5 taps (a product and
+    # two sums) and a division
+    results["K11"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
+                          library_ms=lib, bytes=24 * HW, flops=96 * HW)
+    phase(3, f"K11: ok (depth 1, 2), max |err| {max(errs):.3g}, {ms:.4f} ms "
+             f"an iteration (2 launches), plain {plain:.4f} ms, depthwise "
+             f"conv2d (numerator only) {lib:.4f} ms")
+
+    # K12 at FilterParams(CROSS): r2, sigma_n 128 (repeated squaring)
+    p = FilterParams(type=FilterType.CROSS)
+    albedo = P["h_color"]
+    args = (x, albedo, P["normal"], P["depth"])
+    got = cross_bilateral_cuda(*args, params=p)
+    want = filters.cross_bilateral_filter(*args, params=p)
+    check_close("K12", got, want, atol=5e-5)
+    err = max_err(got, want)
+    ms = cuda_time_ms(lambda: cross_bilateral_cuda(*args, params=p),
+                      repeats=20)
+    plain = cuda_time_ms(lambda: filters.cross_bilateral_filter(
+        *args, params=p), repeats=3)
+    # colour, albedo, normal, depth in (40 B), colour out (12 B)
+    results["K12"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                          bytes=52 * HW, flops=K12_TAP_FLOPS * 25 * HW)
+    phase(3, f"K12: ok, max |err| {err:.3g}, {ms:.4f} ms, plain "
+             f"{plain:.4f} ms")
+
+
 def sdf_flops(scene):
     """Float operations of one scene SDF evaluation in K7/K8 (sphere 10,
     box 22, plane 6, plus one compare each)."""
@@ -481,6 +593,41 @@ def check_k7_k8(H, W, dev, results):
                          * sdf_flops(scene) + 80 * HW)
     phase(3, f"K8: ok, {int((~same).sum())} flips, max |err| {err8:.3g}, "
              f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+
+
+def check_k13(H, W, dev, results):
+    """K13 against its plain twin at 1080p on the hit points of both
+    scenes (every pixel marches: K13 has no hit mask)."""
+    cfg = CameraParams(width=W, height=H)
+    rm = RaymarchParams()
+    HW = H * W
+    for name, scene in (("cornell", raymarch.cornell_scene(device=dev)),
+                        ("random", raymarch.random_scene(device=dev))):
+        ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
+        t, _hit, _mat, n = march_gbuf_cuda(scene, ro, rd, rm)
+        p = ro + t[None] * rd
+        lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(2),
+                                   (H, W))
+        got = shadow_factor_cuda(scene, p, n, lp, rm)
+        want = raymarch.shadow_factor(scene, p, n, lp, rm)
+        flips = int((got != want).sum())
+        if flips > 1e-3 * HW:
+            raise AssertionError(f"K13 {name}: {flips} visibility flips")
+        ms = cuda_time_ms(lambda: shadow_factor_cuda(scene, p, n, lp, rm),
+                          repeats=10)
+        plain = cuda_time_ms(lambda: raymarch.shadow_factor(
+            scene, p, n, lp, rm), repeats=2)
+        phase(3, f"K13 {name}: ok, {flips} flips, lit {float(got.mean()):.3f}"
+                 f", {ms:.4f} ms, plain {plain:.4f} ms")
+        if name == "cornell":
+            # p, n, light sample in; vis out; the shadow march's SDF
+            # evaluations on these inputs
+            everywhere = torch.ones((H, W), dtype=torch.bool, device=dev)
+            results["K13"] = dict(
+                max_abs_err=float((got - want).abs().max()), ms=ms,
+                plain_ms=plain, bytes=40 * HW,
+                flops=shadow_evals(scene, p, n, lp, everywhere, rm)
+                * sdf_flops(scene) + 20 * HW)
 
 
 def reset_counts():
@@ -656,6 +803,103 @@ def temporal_grad_phase(H, W, dev):
     return total
 
 
+def cli_phase():
+    """The CLI's cases on the card, as ``python -m
+    raymarchdenoisercuda_torch.cli -t`` runs them."""
+    reset_counts()
+    rc = cli.main(["-t", CLI_CASES])
+    counts = read_counts(7, ("K10", "K12", "K1", "K3", "K7", "K8"))
+    if rc != 0:
+        raise AssertionError(f"phase 7: the CLI returned {rc}")
+    phase(7, f"cli -t '{CLI_CASES}': all passed; launches {counts}")
+    return counts
+
+
+FILTER_TOLS = {FilterType.AVERAGE: dict(atol=1e-6, rtol=1e-5),
+               FilterType.GAUSSIAN: dict(atol=1e-5),
+               FilterType.CROSS: dict(atol=5e-5),
+               FilterType.WAVELET: dict(atol=0.0, rtol=5e-5)}
+
+
+def dataset_phase(H, W, dev):
+    """generate_sequence at spp > 1, the dataset read back, the spp render
+    against the plain path, and apply_filter on the loaded frame."""
+    cfg = CameraParams(width=W, height=H)
+    rm = RaymarchParams()
+    # the device time of one frame's render (K7, 16 x K13), without the
+    # host's PNG and npz writes
+    scene = raymarch.cornell_scene(device=dev)
+    cam = orbit_camera(0.0, device=dev)
+    with torch.no_grad():
+        raymarch.render_gbuffer(scene, cam, None, None, cam_cfg=cfg,
+                                params=rm, spp=DATA_SPP)
+        with CudaTimer() as tm:
+            raymarch.render_gbuffer(scene, cam, None, None, cam_cfg=cfg,
+                                    params=rm, spp=DATA_SPP)
+    with tempfile.TemporaryDirectory() as root:
+        reset_counts()
+        t0 = time.perf_counter()
+        frames = generate_sequence(root, "cornell_anim", DATA_FRAMES,
+                                   cam_cfg=cfg, rm_params=rm, spp=DATA_SPP,
+                                   seed=0, device=dev)
+        torch.cuda.synchronize()
+        gen_s = time.perf_counter() - t0
+        for f, g in enumerate(frames):
+            fl = load_float_frame(root, "cornell_anim", f + 1, device=dev)
+            for name in ("render", "albedo", "normal", "depth", "motion"):
+                if not torch.equal(getattr(fl, name), getattr(g, name)):
+                    raise AssertionError(f"frame {f}: planes.npz {name}")
+            png = load_frame(root, "cornell_anim", f + 1, device=dev)
+            for name in ("render", "albedo", "depth"):
+                check_close(f"frame {f} {name}.png", getattr(png, name),
+                            getattr(g, name).clamp(0.0, 1.0),
+                            atol=1.0 / 255)
+            # unit normals: 1/255 a component from the quantisation, and up
+            # to sqrt(3)/255 more from the renormalisation after loading
+            check_close(f"frame {f} normal.png", png.normal, g.normal,
+                        atol=3.0 / 255, mask=g.depth > 0)
+
+        # frame 0 against the plain path from the same seed
+        want = raymarch.render_gbuffer(
+            scene, cam, None, torch.Generator(dev).manual_seed(0),
+            cam_cfg=cfg, params=rm, spp=DATA_SPP, impl="plain")
+        got = frames[0]
+        # the render within atol 1e-4 except where a hit, a material or one
+        # sample's visibility flips on an ulp: at most 0.1 % of the frame
+        flipped = ((got.albedo - want.albedo).abs().amax(0) > 1e-4) | (
+            (got.depth - want.depth).abs() > 1e-4) | (
+            (got.render - want.render).abs().amax(0) > 1e-4)
+        if float(flipped.float().mean()) > 1e-3:
+            raise AssertionError(f"phase 8: {int(flipped.sum())} pixels "
+                                 f"flip against the plain render")
+        keep = ~flipped
+        for name in ("albedo", "depth", "motion"):
+            check_close(f"frame 0 {name} (kernel vs plain)",
+                        getattr(got, name), getattr(want, name), atol=1e-4,
+                        mask=keep)
+        check_close("frame 0 normal (kernel vs plain)", got.normal,
+                    want.normal, atol=5e-4, rtol=5e-3, mask=keep)
+
+        # the four filter types on the loaded frame, kernel vs plain
+        g = load_frame(root, "cornell_anim", 1, device=dev)
+        errs = {}
+        for ftype in FilterType:
+            p = FilterParams(type=ftype)
+            a = filters.apply_filter(g, p).denoised
+            b = filters.apply_filter(g, p, impl="plain").denoised
+            check_close(f"apply_filter {ftype.name}", a, b,
+                        **FILTER_TOLS[ftype])
+            errs[ftype.name] = max_err(a, b)
+    counts = read_counts(8, ("K7", "K11", "K13"))
+    phase(8, f"generate_sequence {DATA_FRAMES} frames {W}x{H} spp "
+             f"{DATA_SPP}: {gen_s:.3f} s host wall (PNG and npz writes "
+             f"included; one frame's render alone {tm.ms:.3f} ms device); "
+             f"read back exactly and to the PNG quantisation; "
+             f"frame 0 matches the plain path ({int(flipped.sum())} flips); "
+             f"apply_filter max |err| {errs}; launches {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--width", type=int, default=1920)
@@ -686,14 +930,18 @@ def main(argv=None) -> int:
     check_k1_store_k2(P, results)
     check_k3(P, results)
     check_k4_k5_k6(P, results)
+    check_filters(P, results)
     check_k7_k8(H, W, dev, results)
+    check_k13(H, W, dev, results)
     del P
     torch.cuda.synchronize()
 
     launches = {k: 0 for k in WRAPPERS}
-    for counts in (serving_phase(H, W, dev, args.frames),
-                   train_phase(H, W, dev), temporal_grad_phase(H, W, dev)):
-        for k, n in counts.items():
+    for run in (lambda: serving_phase(H, W, dev, args.frames),
+                lambda: train_phase(H, W, dev),
+                lambda: temporal_grad_phase(H, W, dev), cli_phase,
+                lambda: dataset_phase(H, W, dev)):
+        for k, n in run().items():
             launches[k] += n
 
     report = []

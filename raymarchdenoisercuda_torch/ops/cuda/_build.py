@@ -49,6 +49,10 @@ SIGNATURES = {
     "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,),
     "rdt_march": (_P,) * 9,
     "rdt_shadow_shade": (_P,) * 14,
+    "rdt_shadow": (_P,) * 7,
+    "rdt_box_level": (_P,) * 2 + (_I,) * 4 + (_P,),
+    "rdt_gauss_pass": (_P,) * 4,
+    "rdt_cross_bilateral": (_P,) * 7,
 }
 
 

@@ -1,11 +1,14 @@
-// K7 (primary march + G-buffer normals) and K8 (shadow ray + shading +
-// motion) of the SDF raymarcher.
+// K7 (primary march + G-buffer normals), K8 (shadow ray + shading +
+// motion) and K13 (shadow-ray visibility alone) of the SDF raymarcher.
 //
 // K7 replaces raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py
 // _make_march_kernel(emit_normals=True) (wrapper _march_call); its plain
 // twin is march_gbuf in ops/raymarch.py.  K8 replaces
 // _make_shadow_shade_kernel (wrapper _shade_call / shadow_shade_pallas);
-// its plain twin is shadow_shade.  Both follow their twins operation by
+// its plain twin is shadow_shade.  K13 replaces _make_shadow_kernel (wrapper
+// shadow_factor_pallas, raymarch_tpu.py:967); its plain twin is
+// shadow_factor.  K8 and K13 run one shadow march (shadow_visibility), so
+// the two loops cannot drift.  All follow their twins operation by
 // operation (the library is built with --fmad=false: no contracted
 // multiply-adds, and true division everywhere, which the motion
 // reprojection needs at zero motion).
@@ -79,6 +82,59 @@ struct Sdf {
         return (*this)(px, py, pz, nullptr);
     }
 };
+
+struct ShadowRay {
+    float ox, oy, oz;  // origin p + 0.02 n
+    float dx, dy, dz;  // unit direction toward the light sample
+    float dist;        // distance to the light sample
+};
+
+__device__ ShadowRay shadow_ray(float px, float py, float pz, float nx,
+                                float ny, float nz, float lx, float ly,
+                                float lz) {
+    ShadowRay r;
+    r.ox = px + 0.02f * nx;
+    r.oy = py + 0.02f * ny;
+    r.oz = pz + 0.02f * nz;
+    const float tlx = lx - r.ox, tly = ly - r.oy, tlz = lz - r.oz;
+    r.dist = sqrtf(tlx * tlx + tly * tly + tlz * tlz);
+    const float dl = fmaxf(r.dist, 1e-8f);
+    r.dx = tlx / dl;
+    r.dy = tly / dl;
+    r.dz = tlz / dl;
+    return r;
+}
+
+// The shadow march of K8 and K13 (the rule of _shadow_march in
+// ops/raymarch.py): minimum step 0.01, the relaxed branch for omega > 1;
+// returns the visibility t >= dist - 0.03 as 0 or 1.
+__device__ float shadow_visibility(const Sdf& sdf, const ShadowRay& r,
+                                   int steps, float hit_eps, float omega) {
+    float t = 0.0f;
+    if (omega <= 1.0f) {
+        for (int s = 0; s < steps; ++s) {
+            float d = sdf(r.ox + t * r.dx, r.oy + t * r.dy, r.oz + t * r.dz);
+            if (!(d > hit_eps && t < r.dist - 0.02f)) break;
+            t = t + fmaxf(d, kMinStep);
+        }
+    } else {
+        float d_prev = 0.0f, step_prev = 0.0f;
+        for (int s = 0; s < steps; ++s) {
+            float d = sdf(r.ox + t * r.dx, r.oy + t * r.dy, r.oz + t * r.dz);
+            float cons = fmaxf(d_prev, kMinStep);
+            bool fail = (d + d_prev) < step_prev && step_prev > cons;
+            bool active = d > hit_eps && t < r.dist - 0.02f && !fail;
+            if (!active && !fail) break;
+            float step = fmaxf(omega * d, kMinStep);
+            float delta = fail ? cons - step_prev : step;
+            float new_step = fail ? cons : step;
+            if (active) d_prev = d;
+            step_prev = new_step;
+            t = t + delta;
+        }
+    }
+    return t >= r.dist - 0.03f ? 1.0f : 0.0f;
+}
 
 // Copies the scene vector into shared memory; every thread of the block
 // must call it (it synchronises).
@@ -187,37 +243,10 @@ __global__ void shade_kernel(const float* __restrict__ scene,
 
     // shadow ray from p + 0.02 n toward the light sample; miss pixels get
     // dist_l = 0, so their march stops at once
-    const float ox = px + 0.02f * nx, oy = py + 0.02f * ny, oz = pz + 0.02f * nz;
-    const float tlx = lx - ox, tly = ly - oy, tlz = lz - oz;
-    float dist_l = sqrtf(tlx * tlx + tly * tly + tlz * tlz);
-    const float dl = fmaxf(dist_l, 1e-8f);
-    const float ldx = tlx / dl, ldy = tly / dl, ldz = tlz / dl;
-    if (!is_hit) dist_l = 0.0f;
-    float t = 0.0f;
-    if (p.relax_omega <= 1.0f) {
-        for (int s = 0; s < p.shadow_steps; ++s) {
-            float d = sdf(ox + t * ldx, oy + t * ldy, oz + t * ldz);
-            if (!(d > p.hit_eps && t < dist_l - 0.02f)) break;
-            t = t + fmaxf(d, kMinStep);
-        }
-    } else {
-        const float om = p.relax_omega;
-        float d_prev = 0.0f, step_prev = 0.0f;
-        for (int s = 0; s < p.shadow_steps; ++s) {
-            float d = sdf(ox + t * ldx, oy + t * ldy, oz + t * ldz);
-            float cons = fmaxf(d_prev, kMinStep);
-            bool fail = (d + d_prev) < step_prev && step_prev > cons;
-            bool active = d > p.hit_eps && t < dist_l - 0.02f && !fail;
-            if (!active && !fail) break;
-            float step = fmaxf(om * d, kMinStep);
-            float delta = fail ? cons - step_prev : step;
-            float new_step = fail ? cons : step;
-            if (active) d_prev = d;
-            step_prev = new_step;
-            t = t + delta;
-        }
-    }
-    const float vis = t >= dist_l - 0.03f ? 1.0f : 0.0f;
+    ShadowRay ray = shadow_ray(px, py, pz, nx, ny, nz, lx, ly, lz);
+    if (!is_hit) ray.dist = 0.0f;
+    const float vis = shadow_visibility(sdf, ray, p.shadow_steps, p.hit_eps,
+                                        p.relax_omega);
 
     // direct light from p itself
     const float sx = lx - px, sy = ly - py, sz = lz - pz;
@@ -247,6 +276,27 @@ __global__ void shade_kernel(const float* __restrict__ scene,
         motion[i] = (ppy - (float)y) * hit_f;
         motion[hw + i] = (ppx - (float)x) * hit_f;
     }
+}
+
+// K13: the shadow-ray visibility alone, for the spp > 1 render (one launch
+// per light sample).  Every pixel is marched, misses included.
+__global__ void shadow_kernel(const float* __restrict__ scene,
+                              const float* __restrict__ pos,
+                              const float* __restrict__ nrm,
+                              const float* __restrict__ light_p,
+                              float* __restrict__ vis_out, ShadeParams p) {
+    extern __shared__ float smem[];
+    const int n_sc = 5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl;
+    const Sdf sdf{stage_scene(scene, n_sc, smem), p.n_sph, p.n_box, p.n_pl};
+    int x = blockIdx.x * blockDim.x + threadIdx.x;
+    int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (x >= p.W || y >= p.H) return;
+    const int hw = p.H * p.W, i = y * p.W + x;
+    const ShadowRay ray = shadow_ray(
+        pos[i], pos[hw + i], pos[2 * hw + i], nrm[i], nrm[hw + i],
+        nrm[2 * hw + i], light_p[i], light_p[hw + i], light_p[2 * hw + i]);
+    vis_out[i] = shadow_visibility(sdf, ray, p.shadow_steps, p.hit_eps,
+                                   p.relax_omega);
 }
 
 dim3 grid_for(int H, int W, dim3 block) {
@@ -281,5 +331,18 @@ extern "C" int rdt_shadow_shade(const float* scene, const float* pos,
                    (cudaStream_t)stream>>>(scene, pos, normal, light_p, albedo,
                                            emission, hit, light, prev, render,
                                            vis, motion, *params);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int rdt_shadow(const float* scene, const float* pos,
+                          const float* normal, const float* light_p,
+                          float* vis, const ShadeParams* params,
+                          void* stream) {
+    dim3 block(16, 8);
+    size_t smem = sizeof(float)
+        * (5 * params->n_sph + 7 * params->n_box + 5 * params->n_pl);
+    shadow_kernel<<<grid_for(params->H, params->W, block), block, smem,
+                    (cudaStream_t)stream>>>(scene, pos, normal, light_p, vis,
+                                            *params);
     return (int)cudaGetLastError();
 }

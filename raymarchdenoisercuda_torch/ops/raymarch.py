@@ -2,9 +2,11 @@
 PyTorch march and shading, and ``render_gbuffer``.
 
 Counterpart of ``raymarchdenoisercuda_tpu/ops/raymarch.py``.  The plain
-functions ``march_gbuf`` and ``shadow_shade`` are the CPU path and the
-oracles of the CUDA kernels K7 and K8 (``ops/cuda/raymarch.cu``); on the card
-``render_gbuffer`` goes through the kernels (``ops/raymarch_cuda.py``).
+functions ``march_gbuf``, ``shadow_shade`` and ``shadow_factor`` are the
+CPU path and the oracles of the CUDA kernels K7, K8 and K13
+(``ops/cuda/raymarch.cu``); on the card ``render_gbuffer`` goes through the
+kernels (``ops/raymarch_cuda.py``).  The scene and camera constructors
+create their tensors on the CUDA card unless given ``device``.
 
 Gradients: the material tables, the light sample and the light reach the
 render through the shading (:func:`shade_epilogue`, differentiated by
@@ -16,10 +18,11 @@ point carry no gradient to the scene's primitives or the camera.
 Per pixel: sphere-trace the primary ray (``max_steps``), take the material
 of the nearest primitive at the hit (first primitive on ties, in the order
 spheres, boxes, planes), central-difference normal flipped toward the
-viewer; march one shadow ray to a sample on the rectangular area light
-(origin offset 0.02·n, minimum step 0.01); shade
-``albedo·(L·vis·geom/π + 0.08) + emission``; reproject the hit point into the
-previous camera for motion vectors (true division).
+viewer; march one shadow ray to each of ``spp`` samples on the rectangular
+area light (origin offset 0.02·n, minimum step 0.01); shade
+``albedo·(L·vis·geom/π + 0.08) + emission`` with the direct light averaged
+over the samples; reproject the hit point into the previous camera for
+motion vectors (true division).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from ..config import CameraParams, RaymarchParams
+from ..device import resolve_device
 from ..gbuffer import GBuffer
 
 _AMBIENT = 0.08
@@ -249,12 +253,30 @@ def shadow_shade(scene: Scene, p: torch.Tensor, n: torch.Tensor,
     ``prev_consts``.  Miss pixels get ``dist_l = 0`` (their visibility march
     is skipped, vis = 1); their albedo and emission are masked to zero, so
     their render is zero either way."""
-    zero = torch.zeros(p.shape[1:], dtype=p.dtype, device=p.device)
+    origin, ld, dist_l = _shadow_ray(p, n, light_p)
+    dist_l = torch.where(hit, dist_l, torch.zeros_like(dist_l))
+    vis = _shadow_march(scene, origin, ld, dist_l, params)
+    render, motion = shade_epilogue(p, n, light_p, albedo, emission, hit,
+                                    vis, light_consts, prev_consts, cam_wh)
+    return render, vis, motion
+
+
+def _shadow_ray(p: torch.Tensor, n: torch.Tensor, light_p: torch.Tensor):
+    """``(origin, direction, distance)`` of the shadow ray from ``p``
+    (offset 0.02·n along the normal) to the light sample."""
     origin = p + _SHADOW_OFFSET * n
     to_l = light_p - origin
     dist_l = _norm3(to_l)
-    ld = to_l / torch.clamp(dist_l, min=1e-8)[None]
-    dist_l = torch.where(hit, dist_l, zero)
+    return origin, to_l / torch.clamp(dist_l, min=1e-8)[None], dist_l
+
+
+def _shadow_march(scene: Scene, origin: torch.Tensor, ld: torch.Tensor,
+                  dist_l: torch.Tensor, params: RaymarchParams) -> torch.Tensor:
+    """The shadow march of K8 and K13 (minimum step 0.01, relaxed branch
+    for ``relax_omega > 1``); returns the visibility ``t ≥ dist_l − 0.03``
+    as 0/1 floats.  The loop ends once no ray moves, with the result of
+    running all ``shadow_steps``."""
+    zero = torch.zeros_like(dist_l)
     t = zero
     om = params.relax_omega
     if om <= 1.0:
@@ -283,10 +305,32 @@ def shadow_shade(scene: Scene, p: torch.Tensor, n: torch.Tensor,
             d_prev = torch.where(active, d, d_prev)
             step_prev = new_step
             t = t + delta
-    vis = (t >= dist_l - 0.03).to(p.dtype)
-    render, motion = shade_epilogue(p, n, light_p, albedo, emission, hit,
-                                    vis, light_consts, prev_consts, cam_wh)
-    return render, vis, motion
+    return (t >= dist_l - 0.03).to(dist_l.dtype)
+
+
+@torch.no_grad()
+def shadow_factor(scene: Scene, p: torch.Tensor, n: torch.Tensor,
+                  light_p: torch.Tensor, params: RaymarchParams) -> torch.Tensor:
+    """Plain version of K13: the (H, W) shadow-ray visibility alone (1 =
+    unoccluded), ``_shadow_factor`` of the JAX package.  Every pixel is
+    marched, misses included (no hit mask).  Visibility is piecewise
+    constant, so it carries no gradient."""
+    origin, ld, dist_l = _shadow_ray(p, n, light_p)
+    return _shadow_march(scene, origin, ld, dist_l, params)
+
+
+def direct_light(p: torch.Tensor, n: torch.Tensor, light_p: torch.Tensor,
+                 vis: torch.Tensor, light_consts: torch.Tensor) -> torch.Tensor:
+    """(3, H, W) irradiance ``L·vis·geom`` from ``p`` toward one light
+    sample (before the division by π)."""
+    s = light_p - p
+    dist2 = s[0] * s[0] + s[1] * s[1] + s[2] * s[2]
+    sd = s / torch.clamp(torch.sqrt(dist2), min=1e-8)[None]
+    cos_s = torch.clamp(_dot3(n, sd), min=0.0)
+    ln, rad, area = light_consts[0:3], light_consts[3:6], light_consts[6]
+    cos_l = torch.abs(ln[0] * sd[0] + ln[1] * sd[1] + ln[2] * sd[2])
+    geom = cos_s * cos_l * area / torch.clamp(dist2, min=1e-4)
+    return rad[:, None, None] * (vis * geom)[None]
 
 
 def shade_epilogue(p: torch.Tensor, n: torch.Tensor, light_p: torch.Tensor,
@@ -300,18 +344,18 @@ def shade_epilogue(p: torch.Tensor, n: torch.Tensor, light_p: torch.Tensor,
     motion into the previous camera (None without ``prev_consts``).
     Returns ``(render, motion)``.  The forward of ``shadow_shade`` and the
     backward of K8 (``_shade_xla`` in the JAX package) both run it."""
-    s = light_p - p
-    dist2 = s[0] * s[0] + s[1] * s[1] + s[2] * s[2]
-    sd = s / torch.clamp(torch.sqrt(dist2), min=1e-8)[None]
-    cos_s = torch.clamp(_dot3(n, sd), min=0.0)
-    ln, rad, area = light_consts[0:3], light_consts[3:6], light_consts[6]
-    cos_l = torch.abs(ln[0] * sd[0] + ln[1] * sd[1] + ln[2] * sd[2])
-    geom = cos_s * cos_l * area / torch.clamp(dist2, min=1e-4)
-    irr = rad[:, None, None] * (vis * geom)[None]
+    irr = direct_light(p, n, light_p, vis, light_consts)
     render = albedo * (irr / math.pi + _AMBIENT) + emission
+    return render, reprojection_motion(p, hit, prev_consts, cam_wh)
 
+
+def reprojection_motion(p: torch.Tensor, hit: torch.Tensor,
+                        prev_consts: Optional[torch.Tensor],
+                        cam_wh: Tuple[int, int]) -> Optional[torch.Tensor]:
+    """(2, H, W) motion (dy, dx) in pixels of each hit point into the
+    previous camera, zero at misses; None without ``prev_consts``."""
     if prev_consts is None:
-        return render, None
+        return None
     ppos, pfwd, pright, pup = (prev_consts[0:3], prev_consts[3:6],
                                prev_consts[6:9], prev_consts[9:12])
     phw, phh = prev_consts[12], prev_consts[13]
@@ -327,8 +371,7 @@ def shade_epilogue(p: torch.Tensor, n: torch.Tensor, light_p: torch.Tensor,
     iy = torch.arange(p.shape[1], dtype=p.dtype, device=p.device)[:, None]
     ix = torch.arange(p.shape[2], dtype=p.dtype, device=p.device)[None, :]
     hit_f = hit.to(p.dtype)
-    motion = torch.stack([py - iy, px - ix]) * hit_f[None]
-    return render, motion
+    return torch.stack([py - iy, px - ix]) * hit_f[None]
 
 
 def sample_light(scene: Scene, generator: Optional[torch.Generator],
@@ -384,28 +427,45 @@ def render_gbuffer(
     cam_cfg: CameraParams = CameraParams(),
     params: RaymarchParams = RaymarchParams(),
     light_sample: Optional[torch.Tensor] = None,
+    spp: int = 1,
     impl: str = "auto",
 ) -> GBuffer:
-    """Fused raymarch + G-buffer pass at one light sample per pixel.
+    """Fused raymarch + G-buffer pass; ``spp`` light samples per pixel
+    average into the noisy render plane (1 = the serving noise level; a
+    large ``spp`` approximates the clean image).
 
-    ``light_sample`` (3, H, W) replaces the draw from ``generator`` (tests
-    pass the reference's sample).  ``impl="auto"`` runs K7/K8 through their
-    wrappers, which pick the CUDA kernel or the plain version by device;
-    ``impl="plain"`` runs the plain versions on any device.  The material
-    lookup, hit mask and depth stay in PyTorch, so gradients reach the
-    (M, 3) material tables.
+    ``light_sample`` replaces the draws from ``generator`` (tests pass the
+    reference's samples): (3, H, W) at ``spp = 1``, (spp, 3, H, W) at any
+    ``spp``.  At ``spp = 1`` the shadow ray, shading and motion are one
+    pass (K8).  At ``spp > 1`` each sample marches its shadow ray (K13) and
+    its direct light is summed in PyTorch, sample by sample (stacking them
+    would hold spp·3·H·W floats); the sum is divided once by ``spp``.
+
+    ``impl="auto"`` runs K7/K8/K13 through their wrappers, which pick the
+    CUDA kernel or the plain version by device; ``impl="plain"`` runs the
+    plain versions on any device.  The material lookup, hit mask and depth
+    stay in PyTorch, so gradients reach the (M, 3) material tables.
     """
     # imported here: the wrappers' module imports this one
-    from .raymarch_cuda import march_gbuf_cuda, shadow_shade_cuda
+    from .raymarch_cuda import (march_gbuf_cuda, shadow_factor_cuda,
+                                shadow_shade_cuda)
 
     if impl not in ("auto", "plain"):
         raise ValueError(f"unknown impl: {impl!r}")
+    if spp < 1:
+        raise ValueError(f"spp must be >= 1, got {spp}")
     if params.coarse_seed:
         raise NotImplementedError("RaymarchParams.coarse_seed (the cone "
                                   "pre-march) is not ported")
-    march, shade = ((march_gbuf_cuda, shadow_shade_cuda) if impl == "auto"
-                    else (march_gbuf, shadow_shade))
+    march, shade, shadow = ((march_gbuf_cuda, shadow_shade_cuda,
+                             shadow_factor_cuda) if impl == "auto"
+                            else (march_gbuf, shadow_shade, shadow_factor))
     H, W = cam_cfg.height, cam_cfg.width
+    if light_sample is not None and light_sample.dim() == 3:
+        light_sample = light_sample[None]
+    if light_sample is not None and light_sample.shape != (spp, 3, H, W):
+        raise ValueError(f"light_sample: shape {tuple(light_sample.shape)}, "
+                         f"expected {(spp, 3, H, W)}")
     ro, rd, _basis = camera_rays(camera, cam_cfg)
     t, hit, mat, n = march(scene, ro, rd, params)
     p = ro + t[None] * rd
@@ -415,12 +475,25 @@ def render_gbuffer(
     albedo = albedo * hit_f
     emission = emission * hit_f
 
-    lp = (light_sample if light_sample is not None
-          else sample_light(scene, generator, (H, W)))
+    def sample(s):
+        return (light_sample[s] if light_sample is not None
+                else sample_light(scene, generator, (H, W)))
+
+    light = light_constants(scene)
     prev = (prev_camera_constants(prev_camera, cam_cfg)
             if prev_camera is not None else None)
-    render, _vis, motion = shade(scene, p, n, lp, albedo, emission, hit,
-                                 light_constants(scene), prev, params, (W, H))
+    if spp == 1:
+        render, _vis, motion = shade(scene, p, n, sample(0), albedo,
+                                     emission, hit, light, prev, params,
+                                     (W, H))
+    else:
+        irr = None
+        for s in range(spp):
+            lp = sample(s)
+            e = direct_light(p, n, lp, shadow(scene, p, n, lp, params), light)
+            irr = e if irr is None else irr + e
+        render = albedo * (irr / spp / math.pi + _AMBIENT) + emission
+        motion = reprojection_motion(p, hit, prev, (W, H))
     if motion is None:
         motion = torch.zeros((2, H, W), dtype=ro.dtype, device=ro.device)
     depth = torch.where(hit, t, torch.zeros_like(t))
@@ -434,6 +507,8 @@ def render_gbuffer(
 
 def _scene_from_arrays(device, *, spheres, sphere_mat, boxes, box_mat,
                        planes, plane_mat, albedo, emission, radiance) -> Scene:
+    device = resolve_device(device)
+
     def f(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
@@ -454,7 +529,7 @@ def _scene_from_arrays(device, *, spheres, sphere_mat, boxes, box_mat,
 
 def cornell_scene(
     *,
-    device="cpu",
+    device=None,
     left_color=(0.75, 0.08, 0.08),
     right_color=(0.08, 0.65, 0.08),
     white=(0.85, 0.85, 0.85),
@@ -462,7 +537,8 @@ def cornell_scene(
     light_radiance=(18.0, 18.0, 18.0),
 ) -> Scene:
     """Cornell box in [-1,1]^2 x [0,2]: 5 walls, tall box, short box, sphere,
-    ceiling rect light (x right, y up, z into the box; camera at -z)."""
+    ceiling rect light (x right, y up, z into the box; camera at -z).
+    ``device`` defaults to the CUDA card (see ``device.resolve_device``)."""
     albedo = np.asarray([white, left_color, right_color, box_color, white,
                          (0.0, 0.0, 0.0)], np.float32)
     emission = np.zeros_like(albedo)
@@ -482,7 +558,7 @@ def cornell_scene(
 
 def random_scene(n_spheres: int = 24, n_boxes: int = 24,
                  n_materials: int = 16, seed: int = 0, *,
-                 device="cpu") -> Scene:
+                 device=None) -> Scene:
     """Procedural stress scene: the Cornell shell plus ``n_spheres`` spheres
     and ``n_boxes`` boxes over ``n_materials`` random materials.  Draws the
     same numpy numbers in the same order as the reference, so one seed gives
@@ -515,12 +591,15 @@ def random_scene(n_spheres: int = 24, n_boxes: int = 24,
 
 
 def make_camera(position, look_at=(0.0, 0.0, 1.0), up=(0.0, 1.0, 0.0), *,
-                device="cpu") -> Camera:
+                device=None) -> Camera:
+    """A pinhole camera pose on ``device`` (default: the CUDA card)."""
+    device = resolve_device(device)
+
     def f(x):
         return torch.as_tensor(np.asarray(x, np.float32), device=device)
 
     return Camera(position=f(position), look_at=f(look_at), up=f(up))
 
 
-def cornell_camera(*, device="cpu") -> Camera:
+def cornell_camera(*, device=None) -> Camera:
     return make_camera([0.0, 0.0, -1.6], device=device)

@@ -1,17 +1,20 @@
-"""K7/K8 wrappers: the primary march and the shadow/shading pass through
-the CUDA kernels of ``ops/cuda/raymarch.cu``.
+"""K7/K8/K13 wrappers: the primary march, the shadow/shading pass and the
+shadow visibility alone through the CUDA kernels of ``ops/cuda/raymarch.cu``.
 
-Counterparts of ``_march_call(emit_normals=True)`` and
-``shadow_shade_pallas`` in ``raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py``.
-CUDA tensors run the kernels; CPU tensors run the plain versions
-``ops.raymarch.march_gbuf`` and ``ops.raymarch.shadow_shade``.
+Counterparts of ``_march_call(emit_normals=True)``, ``shadow_shade_pallas``
+and ``shadow_factor_pallas`` in
+``raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py``.  CUDA tensors run
+the kernels; CPU tensors run the plain versions ``ops.raymarch.march_gbuf``,
+``ops.raymarch.shadow_shade`` and ``ops.raymarch.shadow_factor``.
 
 :func:`shadow_shade_cuda` is a ``torch.autograd.Function``: its backward
 recomputes the shading and motion epilogue in PyTorch with the visibility
 held constant (``_shade_bwd`` in the JAX package) and returns gradients for
 the hit point, normal, light sample, albedo, emission and light constants;
 the previous camera's get none (the camera is never optimised).
-:func:`march_gbuf_cuda` has no backward yet (the geometry adjoint is a
+:func:`shadow_factor_cuda` (K13) returns a visibility that is piecewise
+constant and carries no gradient, as the JAX package's ``stop_gradient``
+makes it.  :func:`march_gbuf_cuda` has no backward yet (the geometry adjoint is a
 later slice): it raises if the scene's geometry or the rays require grad.
 """
 
@@ -24,7 +27,8 @@ import torch
 
 from ..config import RaymarchParams
 from .cuda import _build
-from .raymarch import Scene, march_gbuf, shade_epilogue, shadow_shade
+from .raymarch import (Scene, march_gbuf, shade_epilogue, shadow_factor,
+                       shadow_shade)
 
 
 class _MarchParams(ctypes.Structure):
@@ -194,3 +198,35 @@ def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
 
 
 shadow_shade_cuda.launches = 0
+
+
+def shadow_factor_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
+                       light_p: torch.Tensor,
+                       params: RaymarchParams) -> torch.Tensor:
+    """(H, W) shadow-ray visibility (K13), as ``shadow_factor`` returns it;
+    no gradient (the inputs are read detached).  Each launch adds one to
+    ``shadow_factor_cuda.launches``."""
+    if not p.is_cuda:
+        return shadow_factor(scene, p, n, light_p, params)
+    H, W = p.shape[-2:]
+    dev = p.device
+    f32 = torch.float32
+    sc = flatten_scene(scene).detach()
+    ptrs = [_build.check_input(t.detach(), nm, s, f32, dev) for t, nm, s in (
+        (sc, "scene", sc.shape), (p, "p", (3, H, W)), (n, "n", (3, H, W)),
+        (light_p, "light_p", (3, H, W)))]
+    vis = torch.empty((H, W), dtype=f32, device=dev)
+    n_sph, n_box, n_pl = _counts(scene)
+    prm = _ShadeParams(H=H, W=W, n_sph=n_sph, n_box=n_box, n_pl=n_pl,
+                       shadow_steps=params.shadow_steps, has_prev=0, cam_w=W,
+                       cam_h=H, hit_eps=params.hit_eps,
+                       relax_omega=params.relax_omega)
+    rc = _build.kernels().rdt_shadow(
+        *ptrs, vis.data_ptr(), ctypes.addressof(prm),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rdt_shadow")
+    shadow_factor_cuda.launches += 1
+    return vis
+
+
+shadow_factor_cuda.launches = 0

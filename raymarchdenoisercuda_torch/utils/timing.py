@@ -1,13 +1,21 @@
-"""Device timing and device information.
+"""Device timing, device information and metrics output.
 
 Times on the card come from CUDA events, never from a host clock without a
 synchronise (PyTorch returns before the device finishes).  Nothing here
-falls back to the CPU: without a card these functions raise.
+falls back to the CPU: a function given the card and finding none raises.
+:func:`time_fn` times CPU work on the host clock only when its caller says
+the work runs on the CPU.
+
+Counterpart of ``raymarchdenoisercuda_tpu/utils/timing.py`` (the
+reference's per-test timing, ``printGPUProperties`` and CSV dumps).
 """
 
 from __future__ import annotations
 
+import json
+import os
 import subprocess
+import time
 from typing import Callable
 
 import torch
@@ -43,6 +51,30 @@ def cuda_time_ms(fn: Callable[[], object], *, repeats: int = 10,
     return t.ms / repeats
 
 
+def time_fn(fn: Callable, *args, repeats: int = 10, warmup: int = 1,
+            device="cuda", **kw):
+    """``(seconds per call, last output)`` of ``fn(*args, **kw)`` after
+    ``warmup`` calls: CUDA events around ``repeats`` back-to-back calls when
+    ``device`` is a CUDA device, the host clock when it is the CPU."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args, **kw)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+        with CudaTimer() as t:
+            for _ in range(repeats):
+                out = fn(*args, **kw)
+        return t.ms / 1e3 / repeats, out
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        out = fn(*args, **kw)
+    return (time.perf_counter() - t0) / repeats, out
+
+
+def mpix_per_s(height: int, width: int, seconds: float) -> float:
+    return height * width / seconds / 1e6
+
+
 def nvidia_smi_name_power() -> str:
     """The card's name and power limit as
     ``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader`` prints
@@ -52,3 +84,49 @@ def nvidia_smi_name_power() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout
     return out.strip().splitlines()[0]
+
+
+def print_device_properties(device="cuda") -> dict:
+    """Print and return what the device is (the reference's
+    ``printGPUProperties``): for the card, every CUDA device's name, memory
+    and multiprocessor count from ``torch.cuda.get_device_properties``, and
+    ``nvidia-smi``'s name and power limit; for the CPU, its thread count."""
+    if torch.device(device).type != "cuda":
+        entry = {"id": 0, "platform": "cpu",
+                 "threads": torch.get_num_threads()}
+        print(f"device 0: cpu ({entry['threads']} threads)")
+        return {"devices": [entry]}
+    info = []
+    for i in range(torch.cuda.device_count()):
+        p = torch.cuda.get_device_properties(i)
+        entry = {"id": i, "platform": "gpu", "kind": p.name,
+                 "memory_bytes": p.total_memory,
+                 "multiprocessors": p.multi_processor_count,
+                 "capability": f"{p.major}.{p.minor}"}
+        info.append(entry)
+        print(f"device {i}: {p.name} (sm_{p.major}{p.minor}), "
+              f"{p.total_memory / 2**30:.1f} GiB, "
+              f"{p.multi_processor_count} multiprocessors")
+    smi = nvidia_smi_name_power()
+    print(f"nvidia-smi: {smi}")
+    return {"devices": info, "nvidia_smi": smi}
+
+
+class CsvDump:
+    """Pipe-separated benchmark dump (``label|ms|key=value...``)."""
+
+    def __init__(self, path: str):
+        self.path = path
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def row(self, label: str, ms: float, **extra):
+        with open(self.path, "a") as f:
+            cells = [label, f"{ms:.4f}"] + [f"{k}={v}" for k, v in extra.items()]
+            f.write("|".join(cells) + "\n")
+
+
+def write_metrics_json(path: str, metrics: dict) -> None:
+    """Write ``metrics`` as sorted, indented JSON."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(metrics, f, indent=2, sort_keys=True)

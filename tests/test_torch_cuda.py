@@ -20,7 +20,11 @@ as K1's values; K2 rtol 1e-6 (same operations in the same order); K4 and
 K5/K6 rtol 1e-5, atol 1e-6 (K5/K6 add by atomics, in no fixed order); the
 2-step train step, kernel path against plain path, loss rtol 1e-5,
 albedo gradient atol 3e-3·max (the stored bf16 weights; the plain path
-differentiates the float weights), updated albedo atol 1e-5.
+differentiates the float weights), updated albedo atol 1e-5.  Filters and
+K13 (the JAX package's kernel-vs-oracle tolerances): K10 rtol 1e-5, atol
+1e-6 (the kernel sums the 2-D window, its twin sums separably); K11 atol
+1e-5; K12 atol 5e-5 (exp2f of log2(e)-scaled arguments and repeated
+squaring against exp and pow); K13 at most 0.1 % visibility flips, as K8.
 """
 
 import numpy as np
@@ -28,18 +32,21 @@ import pytest
 import torch
 
 from raymarchdenoisercuda_torch.config import (
-    CameraParams, RaymarchParams, SVGFParams)
+    CameraParams, FilterParams, FilterType, RaymarchParams, SVGFParams)
 from raymarchdenoisercuda_torch.gbuffer import GBuffer, History
 from raymarchdenoisercuda_torch.io.generate import orbit_camera
 from raymarchdenoisercuda_torch.models.pipeline import (
     init_train_state, make_train_step, render_and_denoise)
-from raymarchdenoisercuda_torch.ops import atrous, raymarch, temporal
+from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
+                                            raymarch, temporal)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level_bwd_stored_cuda, atrous_level_cuda, svgf_spatial_cuda,
     svgf_spatial_stored_cuda)
 from raymarchdenoisercuda_torch.ops.common import finite_diff_gradients
+from raymarchdenoisercuda_torch.ops.filters_cuda import (
+    box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
-    march_gbuf_cuda, shadow_shade_cuda)
+    march_gbuf_cuda, shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     gather_bwd_cuda, gather_bwd_hist_cuda, gather_cuda,
     temporal_accumulate_ad_cuda, temporal_accumulate_cuda)
@@ -323,3 +330,91 @@ def test_train_step_kernel_path_matches_plain(dev):
         np.testing.assert_allclose(_np(gk), _np(gp), rtol=0,
                                    atol=3e-3 * float(gp.abs().max()))
         np.testing.assert_allclose(_np(ak), _np(ap), rtol=0, atol=1e-5)
+
+
+# (135, 240) is a multiple of neither block side (32x8 filters, 16x8
+# raymarch); (37, 53) is smaller than one block row
+SHAPES = [(H, W), (37, 53)]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("radius,depth", [(2, 1), (1, 3)])
+def test_k10_matches_plain(dev, shape, radius, depth):
+    x = _planes(dev, 50, *shape)[0]
+    before = box_filter_cuda.launches
+    got = box_filter_cuda(x, radius=radius, depth=depth)
+    assert box_filter_cuda.launches == before + depth
+    np.testing.assert_allclose(
+        _np(got), _np(boxfilter.box_filter(x, radius=radius, depth=depth)),
+        rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("depth", [1, 2])
+def test_k11_matches_plain(dev, shape, depth):
+    x = _planes(dev, 51, *shape)[0]
+    got = gaussian_filter_cuda(x, radius=2, sigma=2.0, depth=depth)
+    want = filters.gaussian_filter(x, radius=2, sigma=2.0, depth=depth)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("sigma_normal", [128.0, 3.0])
+def test_k12_matches_plain(dev, shape, sigma_normal):
+    color, _var, normal, depth = _planes(dev, 52, *shape)
+    albedo = _planes(dev, 53, *shape)[0]
+    p = FilterParams(type=FilterType.CROSS, sigma_normal=sigma_normal)
+    got = cross_bilateral_cuda(color, albedo, normal, depth, params=p)
+    want = filters.cross_bilateral_filter(color, albedo, normal, depth,
+                                          params=p)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=5e-5)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("omega", [1.0, 1.4])
+@pytest.mark.parametrize("scene_name", ["cornell", "random"])
+def test_k13_matches_plain(dev, shape, omega, scene_name):
+    h, w = shape
+    scene = (raymarch.cornell_scene(device=dev) if scene_name == "cornell"
+             else raymarch.random_scene(seed=3, device=dev))
+    rm = RaymarchParams(relax_omega=omega)
+    ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev),
+                                     CameraParams(width=w, height=h))
+    t, _hit, _mat, n = raymarch.march_gbuf(scene, ro, rd, rm)
+    p = ro + t[None] * rd
+    lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(1),
+                               (h, w))
+    got = shadow_factor_cuda(scene, p, n, lp, rm)
+    want = raymarch.shadow_factor(scene, p, n, lp, rm)
+    assert got.shape == (h, w)
+    assert float((got != want).float().mean()) <= 1e-3
+
+
+def test_spp_render_kernel_path_matches_plain(dev):
+    scene = raymarch.cornell_scene(device=dev)
+    cfg = CameraParams(width=W, height=H)
+    lp = torch.stack([raymarch.sample_light(
+        scene, torch.Generator(dev).manual_seed(s), (H, W)) for s in range(4)])
+    args = (scene, orbit_camera(0.25, device=dev),
+            orbit_camera(0.1875, device=dev))
+    before = shadow_factor_cuda.launches
+    got = raymarch.render_gbuffer(*args, cam_cfg=cfg, light_sample=lp, spp=4)
+    assert shadow_factor_cuda.launches == before + 4
+    want = raymarch.render_gbuffer(*args, cam_cfg=cfg, light_sample=lp, spp=4,
+                                   impl="plain")
+    _compare_gbuffers(got, want)
+
+
+@pytest.mark.parametrize("ftype", list(FilterType))
+def test_apply_filter_kernel_path_matches_plain(dev, ftype):
+    color, var, normal, depth = _planes(dev, 54)
+    g = GBuffer(render=color, albedo=_planes(dev, 55)[0], normal=normal,
+                depth=depth)
+    p = FilterParams(type=ftype, depth=2)
+    got = filters.apply_filter(g, p, var).denoised
+    want = filters.apply_filter(g, p, var, impl="plain").denoised
+    tol = {FilterType.AVERAGE: dict(rtol=1e-5, atol=1e-6),
+           FilterType.GAUSSIAN: dict(rtol=0, atol=1e-5),
+           FilterType.CROSS: dict(rtol=0, atol=5e-5),
+           FilterType.WAVELET: dict(rtol=5e-5, atol=0)}[ftype]
+    np.testing.assert_allclose(_np(got), _np(want), **tol)

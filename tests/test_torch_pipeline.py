@@ -82,7 +82,7 @@ def test_slice_matches_jax_over_three_frames():
     tainted = np.zeros((H, W), bool)
     for f in range(FRAMES):
         key, sub = jax.random.split(key)
-        jcam, cam = j_orbit(f / SEQ), orbit_camera(f / SEQ)
+        jcam, cam = j_orbit(f / SEQ), orbit_camera(f / SEQ, device="cpu")
         jout, jhist = j_render_and_denoise(jscene, jcam, jprev, jhist, sub,
                                            impl="reference", **jcfg)
         lp = torch.tensor(np.asarray(jrm.sample_light(
@@ -135,7 +135,7 @@ def test_denoise_sequence_matches_jax():
 
 
 def test_frame_pipeline_module_matches_function():
-    scene = trm.cornell_scene()
+    scene = trm.cornell_scene(device="cpu")
     cfg = CameraParams(width=32, height=24)
     rm = RaymarchParams(**RM)
     sv = SVGFParams(radius=1, iterations=3)
@@ -143,7 +143,7 @@ def test_frame_pipeline_module_matches_function():
     hist_m = hist_f = History.zeros(24, 32, device="cpu")
     prev = None
     for f in range(2):
-        cam = orbit_camera(f / SEQ)
+        cam = orbit_camera(f / SEQ, device="cpu")
         a, hist_m = module(cam, prev, hist_m, torch.Generator().manual_seed(f))
         b, hist_f = render_and_denoise(
             scene, cam, prev, hist_f, torch.Generator().manual_seed(f),

@@ -83,7 +83,7 @@ def jax_run():
 def _port_step(jscene, target, impl):
     scene = convert.scene_from_numpy(convert.fields_to_numpy(jscene), "cpu")
     return scene, make_train_step(
-        scene, trm.cornell_camera(), torch.from_numpy(target),
+        scene, trm.cornell_camera(device="cpu"), torch.from_numpy(target),
         cam_cfg=CameraParams(width=W, height=H),
         rm_params=RaymarchParams(**RM), svgf_params=SVGFParams(**SV),
         impl=impl)
