@@ -12,7 +12,9 @@ the script exits non-zero without printing a result):
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
-   stored-weight adjoint, K3 temporal step, K4 reprojection gather, K5/K6
+   stored-weight adjoint, K1b level with a given σ-denominator, K2b
+   stored adjoint from float32 weights, K14 recompute adjoint, K9 adjoint
+   through the weights, K3 temporal step, K4 reprojection gather, K5/K6
    its adjoints (with ``grid_sample``'s forward and backward timed beside
    them as the library yardstick), K7 march, K8 shadow + shading, K10 box
    filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
@@ -37,9 +39,16 @@ the script exits non-zero without printing a result):
    ``load_float_frame`` (exactly) and ``load_frame`` (to the PNGs'
    quantisation); frame 0 matches the plain path's render from the same
    seed; ``apply_filter`` runs all four filter types on the loaded frame,
-   kernel path against plain path.
+   kernel path against plain path;
+9. the spatial adjoints: ``svgf_spatial_ad_cuda``, the 5-level sweep
+   forward and backward at 1920x1080 with exact weights, at radius 1
+   (config 4's) and 2, in each adjoint mode (``stored``, ``stored_f32``,
+   ``recompute``, ``recompute`` with ``chained=False``,
+   ``weight_grads=True``), timed per forward+backward with peak memory;
+   gradients against the plain path (the whole sweep, except the radius-2
+   ``weight_grads`` one, which is held level by level).
 
-Phases 4 to 8 are the main paths: every kernel's launch count is set to 0
+Phases 4 to 9 are the main paths: every kernel's launch count is set to 0
 just before each and read just after, and each fails if one of its
 kernels never launched.  The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -71,7 +80,10 @@ from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
                                             raymarch, temporal)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
-    atrous_level_bwd_stored_cuda, atrous_level_cuda, svgf_spatial_cuda)
+    atrous_level, atrous_level_bwd_cuda, atrous_level_bwd_stored_cuda,
+    atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
+    atrous_level_fwd_cuda, atrous_level_wgrad_bwd_cuda, svgf_spatial_ad_cuda,
+    svgf_spatial_cuda)
 from raymarchdenoisercuda_torch.ops.common import finite_diff_gradients
 from raymarchdenoisercuda_torch.ops.cuda import _build
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
@@ -100,6 +112,9 @@ M = SVGFParams().max_motion
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
+            "K1b": atrous_level_fwd_cuda,
+            "K2b": atrous_level_bwd_stored_f32_cuda,
+            "K14": atrous_level_bwd_cuda, "K9": atrous_level_wgrad_bwd_cuda,
             "K3": temporal_accumulate_cuda, "K4": gather_cuda,
             "K5": gather_bwd_cuda, "K6": gather_bwd_hist_cuda,
             "K7": march_gbuf_cuda, "K8": shadow_shade_cuda,
@@ -112,6 +127,14 @@ KERNELS = {
            PALLAS + "atrous_tpu.py:172"),
     "K2": ("atrous_bwd_stored", CUDA_SRC + "atrous.cu",
            PALLAS + "atrous_tpu.py:361"),
+    "K1b": ("atrous_level_sigma", CUDA_SRC + "atrous.cu",
+            PALLAS + "atrous_tpu.py:780"),
+    "K2b": ("atrous_bwd_stored_f32", CUDA_SRC + "atrous.cu",
+            PALLAS + "atrous_tpu.py:661"),
+    "K14": ("atrous_bwd_recompute", CUDA_SRC + "atrous.cu",
+            PALLAS + "atrous_tpu.py:865"),
+    "K9": ("atrous_wgrad_bwd", CUDA_SRC + "atrous.cu",
+           PALLAS + "atrous_tpu.py:1465"),
     "K3": ("temporal_step", CUDA_SRC + "temporal.cu",
            PALLAS + "temporal_tpu.py:57"),
     "K4": ("reproject_gather", CUDA_SRC + "temporal.cu",
@@ -133,11 +156,22 @@ KERNELS = {
             PALLAS + "raymarch_tpu.py:408"),
 }
 # per-tap float operations of K1's weight math and accumulation, of K2's
-# tap and of K12's tap (weights, three colour products, the sums), counted
-# from the kernel sources (a transcendental counts as one)
+# tap, of K14's (the recomputed weight and K2's sum), of K9's two kernels
+# together and of K12's tap (weights, three colour products, the sums),
+# counted from the kernel sources (a transcendental counts as one)
 K1_TAP_FLOPS = 40
 K2_TAP_FLOPS = 14
+K14_TAP_FLOPS = 48
+K9_TAP_FLOPS = 169
 K12_TAP_FLOPS = 37
+# phase 9: the adjoint modes, and the fwd+bwd steps timed in each
+ADJOINT_MODES = (("stored", dict(bwd_impl="stored")),
+                 ("stored_f32", dict(bwd_impl="stored_f32")),
+                 ("recompute", dict(bwd_impl="recompute")),
+                 ("recompute chained=False", dict(bwd_impl="recompute",
+                                                  chained=False)),
+                 ("weight_grads", dict(weight_grads=True)))
+ADJOINT_STEPS = 5
 
 
 def phase(n, msg):
@@ -291,6 +325,119 @@ def check_k1_store_k2(P, results):
                     max_abs_err=errs[1], ms=ms2, plain_ms=plain2,
                     bytes=(2 * taps + 4 + 12 + 4 + 16) * HW,
                     flops=K2_TAP_FLOPS * taps * HW)
+
+
+def _level_inputs(P, radius, seed):
+    """One level's inputs on the 1080p planes: c, v, n, z, ∇z, σ, and
+    seeded cotangents gc, gv."""
+    color, var, normal, depth = (P["color"], P["variance"], P["normal"],
+                                 P["depth"])
+    g = torch.Generator(color.device).manual_seed(seed)
+    gc = torch.randn(color.shape, generator=g, device=color.device)
+    gv = torch.randn(var.shape, generator=g, device=color.device)
+    return (color, var, normal, depth, finite_diff_gradients(depth),
+            atrous.sigma_denominator(var, SVGFParams(radius=radius)), gc, gv)
+
+
+WGRAD_NAMES = ("d_color", "d_variance", "d_normal", "d_depth", "d_zgrad",
+               "d_sigma")
+
+
+def check_adjoint_kernels(P, results):
+    """K1b (a given σ-denominator, float32 weight store), K2b (float32
+    weights), K14 and K9 at level 1, radius 1 and 2, each against its plain
+    twin on the same inputs.  Tolerances: K1b rtol 5e-5 as K1's exact
+    weights (weights too: expf/powf against torch's, an ulp each); K2b
+    rtol 1e-6 as K2 (the same operations in the same order); K14 atol
+    1e-5·max (its weights are K1's, an ulp from the twin's, summed over
+    cotangents of both signs); K9 atol 1e-4·max on each of its six planes
+    (the same, through the products of the weight's derivatives)."""
+    HW = P["depth"].numel()
+    for radius in (1, 2):
+        taps = (2 * radius + 1) ** 2
+        params = SVGFParams(radius=radius)
+        kw = dict(level=1, params=params)
+        c, v, n, z, zg, sd, gc, gv = _level_inputs(P, radius, 10 + radius)
+        got = atrous_level_fwd_cuda(c, v, n, z, zg, sd, save_weights=True,
+                                    **kw)
+        want = atrous.atrous_level_ref(c, v, n, z, zg, sigma_denom=sd,
+                                       return_weights=True, **kw)
+        want = (want[0], want[1], want[3], want[2])     # c, v, N, w
+        for name, a, b in zip(("color", "variance", "N", "weights"), got,
+                              want):
+            check_close(f"K1b r{radius} {name}", a, b,
+                        atol=1e-12 * float(b.abs().max()), rtol=5e-5)
+        err1b = max(max_err(a, b) for a, b in zip(got, want))
+        oc, ov, norm, w = got
+        ms1b = cuda_time_ms(lambda: atrous_level_fwd_cuda(
+            c, v, n, z, zg, sd, **kw), repeats=20)
+        ms1b_w = cuda_time_ms(lambda: atrous_level_fwd_cuda(
+            c, v, n, z, zg, sd, save_weights=True, **kw), repeats=20)
+        plain1b = cuda_time_ms(lambda: atrous.atrous_level_ref(
+            c, v, n, z, zg, sigma_denom=sd, return_weights=True, **kw),
+            repeats=3)
+
+        k2b = atrous_level_bwd_stored_f32_cuda(w, norm, gc, gv, level=1,
+                                               radius=radius)
+        k2b_want = atrous.atrous_level_bwd_stored_ref(w, norm, gc, gv,
+                                                      level=1, radius=radius)
+        for name, a, b in zip(("d_color", "d_variance"), k2b, k2b_want):
+            check_close(f"K2b r{radius} {name}", a, b,
+                        atol=1e-12 * float(b.abs().max()), rtol=1e-6)
+        err2b = max(max_err(a, b) for a, b in zip(k2b, k2b_want))
+        ms2b = cuda_time_ms(lambda: atrous_level_bwd_stored_f32_cuda(
+            w, norm, gc, gv, level=1, radius=radius), repeats=20)
+        plain2b = cuda_time_ms(lambda: atrous.atrous_level_bwd_stored_ref(
+            w, norm, gc, gv, level=1, radius=radius), repeats=3)
+
+        k14 = atrous_level_bwd_cuda(c, n, z, zg, sd, norm, gc, gv, **kw)
+        k14_want = atrous.atrous_level_bwd_ref(c, n, z, zg, sd, norm, gc, gv,
+                                               **kw)
+        for name, a, b in zip(("d_color", "d_variance"), k14, k14_want):
+            check_close(f"K14 r{radius} {name}", a, b,
+                        atol=1e-5 * float(b.abs().max()))
+        err14 = max(max_err(a, b) for a, b in zip(k14, k14_want))
+        ms14 = cuda_time_ms(lambda: atrous_level_bwd_cuda(
+            c, n, z, zg, sd, norm, gc, gv, **kw), repeats=20)
+        plain14 = cuda_time_ms(lambda: atrous.atrous_level_bwd_ref(
+            c, n, z, zg, sd, norm, gc, gv, **kw), repeats=3)
+
+        wargs = (c, v, n, z, zg, sd, oc, ov, norm, gc, gv)
+        k9 = atrous_level_wgrad_bwd_cuda(*wargs, **kw)
+        k9_want = atrous.atrous_level_wgrad_bwd_ref(*wargs, **kw)
+        for name, a, b in zip(WGRAD_NAMES, k9, k9_want):
+            check_close(f"K9 r{radius} {name}", a, b,
+                        atol=1e-4 * float(b.abs().max()))
+        err9 = max(max_err(a, b) / float(b.abs().max())
+                   for a, b in zip(k9, k9_want))
+        ms9 = cuda_time_ms(lambda: atrous_level_wgrad_bwd_cuda(*wargs, **kw),
+                           repeats=20)
+        plain9 = cuda_time_ms(lambda: atrous.atrous_level_wgrad_bwd_ref(
+            *wargs, **kw), repeats=3)
+        phase(3, f"r{radius} level 1: K1b ok, max |err| {err1b:.3g}, "
+                 f"{ms1b:.4f} ms ({ms1b_w:.4f} with float32 weights), plain "
+                 f"{plain1b:.4f} ms; K2b ok, {err2b:.3g}, {ms2b:.4f} ms, "
+                 f"plain {plain2b:.4f} ms; K14 ok, {err14:.3g}, {ms14:.4f} "
+                 f"ms, plain {plain14:.4f} ms; K9 ok, max |err|/max "
+                 f"{err9:.3g}, {ms9:.4f} ms (2 kernels), plain {plain9:.4f} "
+                 f"ms")
+        # bytes a pixel, inputs once and outputs once: K1b c, v, n, z, ∇z,
+        # σ in, c, v, N out; K2b float32 weights, N, gc, gv in, dc, dv
+        # out; K14 c, n, z, ∇z, σ, N, gc, gv in, dc, dv out; K9 c, v, n,
+        # z, ∇z, σ, out_c, out_v, N, gc, gv in, its six gradients out
+        k9_err = max(max_err(a, b) for a, b in zip(k9, k9_want))
+        for k, (err, ms, plain, bytes_px, flops) in {
+                "K1b": (err1b, ms1b, plain1b, 64, K1_TAP_FLOPS),
+                "K2b": (err2b, ms2b, plain2b, 4 * taps + 36, K2_TAP_FLOPS),
+                "K14": (err14, ms14, plain14, 76, K14_TAP_FLOPS),
+                "K9": (k9_err, ms9, plain9, 124, K9_TAP_FLOPS)}.items():
+            cost = dict(bytes=bytes_px * HW, flops=flops * taps * HW)
+            b_ms, b_by = bound(cost["bytes"], cost["flops"])
+            phase(3, f"r{radius} {k} bound {b_ms:.4f} ms ({b_by}, "
+                     f"{bytes_px} B/px)")
+            if radius == TRAIN.radius:
+                results[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  **cost)
 
 
 def check_k3(P, results):
@@ -900,6 +1047,126 @@ def dataset_phase(H, W, dev):
     return counts
 
 
+def _sweep_grads(fn, ins, cots, diff, **kw):
+    """Gradients of sum(wc·c) + sum(wv·v) + sum(wf·feedback) of a sweep
+    with respect to the inputs at the indices ``diff``."""
+    ins = [t.detach().requires_grad_(k in diff) for k, t in enumerate(ins)]
+    oc, ov, fb = fn(*ins, return_feedback=True, **kw)
+    wc, wv, wf = cots
+    loss = (oc * wc).sum() + (ov * wv).sum() + (fb * wf).sum()
+    return torch.autograd.grad(loss, [ins[k] for k in diff])
+
+
+# tolerances of phase 9, relative to each gradient's max|·|: the bf16
+# stored weights as in phase 5; float weights at the JAX package's
+# stored_f32-vs-recompute bound; the full adjoint at its d_color,
+# d_variance and d_normal bounds, d_normal's for the depth planes
+SWEEP_TOLS = {"stored": (3e-3, 3e-3), "stored_f32": (2e-4, 2e-4),
+              "recompute": (2e-4, 2e-4),
+              "recompute chained=False": (2e-4, 2e-4),
+              "weight_grads": (1e-4, 1e-4, 5e-4, 5e-4)}
+LEVEL_TOLS = (1e-4, 1e-4, 5e-4, 5e-4, 5e-4, 5e-4)
+
+
+def check_wgrad_levels(c, v, normal, depth, params, cot_seed):
+    """The radius-2 full adjoint held level by level: the K1b/K9 level
+    (``atrous_level``) against autograd of the plain level through its
+    weights, on each level's inputs from the kernel path's forward; returns
+    the largest error relative to its plane's max."""
+    zgrad = finite_diff_gradients(depth)
+    worst = 0.0
+    for lvl in range(params.iterations):
+        sd = atrous.sigma_denominator(v, params)
+        g = torch.Generator(c.device).manual_seed(cot_seed + lvl)
+        gc = torch.randn(c.shape, generator=g, device=c.device)
+        gv = torch.randn(v.shape, generator=g, device=c.device)
+        grads = []
+        for level_fn in (
+                lambda *a: atrous_level(*a, lvl, params, True),
+                lambda c_, v_, n_, z_, zg_, sd_: atrous.atrous_level_ref(
+                    c_, v_, n_, z_, zg_, level=lvl, params=params,
+                    detach_weights=False, sigma_denom=sd_)):
+            ins = [t.detach().clone().requires_grad_()
+                   for t in (c, v, normal, depth, zgrad, sd)]
+            oc, ov = level_fn(*ins)
+            grads.append(torch.autograd.grad(
+                (oc * gc).sum() + (ov * gv).sum(), ins))
+        for name, a, b, tol in zip(WGRAD_NAMES, *grads, LEVEL_TOLS):
+            scale = float(b.abs().max())
+            check_close(f"weight_grads r{params.radius} level {lvl} {name}",
+                        a, b, atol=tol * scale)
+            worst = max(worst, max_err(a, b) / scale)
+        with torch.no_grad():
+            c, v = atrous_level(c, v, normal, depth, zgrad, sd, lvl, params)
+    return worst
+
+
+def adjoint_phase(H, W, dev):
+    """The 5-level sweep forward and backward at 1080p in every adjoint
+    mode of ``svgf_spatial_ad_cuda``, radius 1 and 2, exact weights."""
+    P = random_planes(H, W, dev, seed=9)
+    ins = (P["color"], P["variance"], P["normal"], P["depth"])
+    g = torch.Generator(dev).manual_seed(9)
+    cots = (torch.randn((3, H, W), generator=g, device=dev),
+            torch.randn((H, W), generator=g, device=dev),
+            torch.randn((3, H, W), generator=g, device=dev))
+    reset_counts()
+    lines = []
+    for radius in (1, 2):
+        params = SVGFParams(iterations=5, radius=radius)
+        detached = None
+        for name, kw in ADJOINT_MODES:
+            wg = kw.get("weight_grads", False)
+            diff = (0, 1, 2, 3) if wg else (0, 1)
+
+            def step():
+                return _sweep_grads(svgf_spatial_ad_cuda, ins, cots, diff,
+                                    params=params, **kw)
+
+            got = step()
+            for k, t in zip(diff, got):
+                if t.shape != ins[k].shape or not bool(
+                        torch.isfinite(t).all()):
+                    raise AssertionError(f"phase 9 {name} r{radius}: "
+                                         f"gradient {k} not finite")
+            if wg and radius == 2:
+                # the plain sweep through the weights at radius 2 holds
+                # ~25 GB of autograd state: held level by level instead
+                err = check_wgrad_levels(*ins, params, 90)
+                how = "levels held"
+            else:
+                if wg:
+                    want = _sweep_grads(atrous.svgf_spatial_ref, ins, cots,
+                                        diff, params=params,
+                                        detach_weights=False)
+                else:
+                    if detached is None:
+                        detached = _sweep_grads(atrous.svgf_spatial_ref, ins,
+                                                cots, diff, params=params)
+                    want = detached
+                err = 0.0
+                for k, a, b, tol in zip(diff, got, want, SWEEP_TOLS[name]):
+                    scale = float(b.abs().max())
+                    check_close(f"phase 9 {name} r{radius} gradient {k}", a,
+                                b, atol=tol * scale)
+                    err = max(err, max_err(a, b) / scale)
+                how = "sweep held"
+            del got
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = cuda_time_ms(step, repeats=ADJOINT_STEPS)
+            peak = torch.cuda.max_memory_allocated() - base
+            lines.append(f"r{radius} {name}: {ms:.3f} ms fwd+bwd, peak "
+                         f"{peak / 2**30:.3f} GiB, max |err|/max {err:.3g} "
+                         f"({how})")
+            phase(9, lines[-1])
+    counts = read_counts(9, ("K1", "K2", "K1b", "K2b", "K14", "K9"))
+    phase(9, f"spatial adjoints {W}x{H}, 5 levels, exact weights: all "
+             f"modes match the plain path; launches {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--width", type=int, default=1920)
@@ -928,6 +1195,7 @@ def main(argv=None) -> int:
     P = random_planes(H, W, dev, seed=0)
     check_k1(P, results)
     check_k1_store_k2(P, results)
+    check_adjoint_kernels(P, results)
     check_k3(P, results)
     check_k4_k5_k6(P, results)
     check_filters(P, results)
@@ -940,7 +1208,8 @@ def main(argv=None) -> int:
     for run in (lambda: serving_phase(H, W, dev, args.frames),
                 lambda: train_phase(H, W, dev),
                 lambda: temporal_grad_phase(H, W, dev), cli_phase,
-                lambda: dataset_phase(H, W, dev)):
+                lambda: dataset_phase(H, W, dev),
+                lambda: adjoint_phase(H, W, dev)):
         for k, n in run().items():
             launches[k] += n
 

@@ -11,9 +11,18 @@ for CPU tensors:
 * ``temporal="ad"``: the differentiable step (K4, adjoint K5/K6) and the
   stored-weight sweep (K1 in store mode, adjoint K2) — the training path.
 
+``spatial_bwd`` picks the sweep's adjoint as the JAX package's does
+(``svgf_spatial_ad_cuda``'s ``bwd_impl``): ``"auto"`` is ``"none"`` after
+the fused inference step and ``"stored"`` after ``temporal="ad"``;
+``"stored_f32"`` stores float32 weights (K2b), ``"recompute"`` re-derives
+them (K1b, K14).  The kernel path's sweep is detached, as the JAX
+package's is: the full adjoint through the weights is
+``svgf_spatial_ad_cuda(weight_grads=True)``.
+
 ``impl="plain"`` runs the plain PyTorch versions on any device, with
 autograd gradients (the JAX package's ``impl="reference"``; the on-card
-oracle of the kernel path); ``detach_weights`` applies to it.
+oracle of the kernel path); ``detach_weights`` applies to it, and
+``spatial_bwd`` does not.
 
 Albedo demodulation: SVGF filters irradiance ``render / max(albedo, eps)``
 and multiplies the albedo back afterwards, so texture is not blurred.
@@ -29,7 +38,7 @@ from torch import nn
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History
 from ..ops.atrous import svgf_spatial_ref
-from ..ops.atrous_cuda import svgf_spatial_cuda, svgf_spatial_stored_cuda
+from ..ops.atrous_cuda import BWD_IMPLS, svgf_spatial_ad_cuda
 from ..ops.temporal import temporal_accumulate, temporal_accumulate_ad
 from ..ops.temporal_cuda import (temporal_accumulate_ad_cuda,
                                  temporal_accumulate_cuda)
@@ -42,6 +51,7 @@ _EMISSIVE_THRESH = 0.02
 
 IMPLS = ("auto", "plain")
 TEMPORALS = ("auto", "fused", "ad")
+SPATIAL_BWDS = ("auto",) + BWD_IMPLS
 
 
 def demodulate(color: torch.Tensor, albedo: torch.Tensor) -> torch.Tensor:
@@ -66,6 +76,7 @@ def svgf_denoise_frame(
     impl: str = "auto",
     temporal: str = "auto",
     motion_grad: bool = True,
+    spatial_bwd: str = "auto",
 ) -> Tuple[GBuffer, History]:
     """Denoise one frame; returns (gbuffer with ``denoised``, new history).
 
@@ -73,16 +84,20 @@ def svgf_denoise_frame(
     of the sweep; its previous depth/normal are this frame's.  ``temporal``
     and ``impl`` are as in the module docstring; ``motion_grad=False`` drops
     the motion gradient of the differentiable step (exact when the loss does
-    not depend on motion through it, as in material-only training)."""
+    not depend on motion through it, as in material-only training);
+    ``spatial_bwd`` as in the module docstring."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
     if temporal not in TEMPORALS:
         raise ValueError(f"unknown temporal: {temporal!r}")
+    if spatial_bwd not in SPATIAL_BWDS:
+        raise ValueError(f"unknown spatial_bwd: {spatial_bwd!r}")
     if impl == "auto" and not detach_weights:
         raise ValueError("detach_weights=False needs impl='plain': the "
-                         "kernel path's adjoint treats the weights as "
-                         "constants (the weight-gradient adjoint K9 is not "
-                         "ported)")
+                         "kernel path of svgf_denoise_frame is detached, as "
+                         "the JAX package's is; the full adjoint through "
+                         "the weights is svgf_spatial_ad_cuda("
+                         "weight_grads=True)")
     ad = temporal == "ad"
     work = (gbuf.replace(render=demodulate(gbuf.render, gbuf.albedo))
             if demodulate_albedo else gbuf)
@@ -92,13 +107,15 @@ def svgf_denoise_frame(
         if ad:
             integrated, variance, new_history = temporal_accumulate_ad_cuda(
                 work, history, params=params, motion_grad=motion_grad)
-            spatial = svgf_spatial_stored_cuda
         else:
             integrated, variance, new_history = temporal_accumulate_cuda(
                 work, history, params=params)
-            spatial = svgf_spatial_cuda
-        filtered, _, feedback = spatial(integrated, variance, gbuf.normal,
-                                        gbuf.depth, **spatial_kw)
+        if spatial_bwd == "auto":
+            # the fused inference step makes the frame gradient-free
+            spatial_bwd = "stored" if ad else "none"
+        filtered, _, feedback = svgf_spatial_ad_cuda(
+            integrated, variance, gbuf.normal, gbuf.depth,
+            bwd_impl=spatial_bwd, **spatial_kw)
     else:
         if ad:
             integrated, variance, new_history = temporal_accumulate_ad(

@@ -2,9 +2,12 @@
 version.
 
 Counterpart of ``raymarchdenoisercuda_tpu/ops/atrous.py``.  It is the CPU
-path and the oracle that the CUDA kernels K1 (the level forward) and K2 (the
-stored-weight adjoint, ``ops/cuda/atrous.cu``) are held against on the card;
-it is never a fallback for a CUDA tensor.
+path and the oracle that the CUDA kernels of ``ops/cuda/atrous.cu`` are held
+against on the card: K1/K1b (the level forward, :func:`atrous_level_ref`),
+K2/K2b (the stored-weight adjoint, :func:`atrous_level_bwd_stored_ref`),
+K14 (the recompute adjoint, :func:`atrous_level_bwd_ref`) and K9 (the
+adjoint through the weights, :func:`atrous_level_wgrad_bwd_ref`).  It is
+never a fallback for a CUDA tensor.
 
 Per level, at tap spacing ``s = 2^level``, for centre p and tap q = p + s·d:
 
@@ -18,10 +21,13 @@ Out-of-image taps are dropped (zero weight).
 Gradients: with ``detach_weights=True`` (the default, as in the JAX package)
 the edge-stopping weights are constants for autograd, so a level is linear
 in its colour and variance; ``detach_weights=False`` differentiates through
-them.  The stored-weight adjoint (the kernel path's backward) is written out
-in :func:`atrous_level_bwd_stored_ref`; its forward half is
+them.  The kernels' adjoints are written out explicitly: from stored
+weights (:func:`atrous_level_bwd_stored_ref`, whose forward half is
 ``atrous_level_ref(..., return_weights=True)``, which also returns the tap
-weights and the normaliser N.
+weights and the normaliser N), with the weights recomputed
+(:func:`atrous_level_bwd_ref`), and through the weights
+(:func:`atrous_level_wgrad_bwd_ref`, the explicit form of autograd with
+``detach_weights=False`` and a given σ-denominator).
 
 ``weight_math="fast"`` is the plain version of the TPU kernel's fast tap
 weight (``ops/pallas/atrous_tpu.py`` ``_make_level_kernel(fast_weights=True)``),
@@ -37,12 +43,14 @@ import math
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..config import SVGFParams, WAVELET_SPLINE_5
 from ..gbuffer import luminance
 from .common import shift2d, valid_mask, finite_diff_gradients
 
 _EPS = 1e-8
+_LUMA = (0.2126, 0.7152, 0.0722)   # Rec.709, as gbuffer.luminance
 _LOG2E = 1.4426950408889634
 _LN2 = 0.6931471805599453
 # near-minimax degree-3 coefficients for exp(z) on [-ln2/2, ln2/2]; the
@@ -67,19 +75,32 @@ def _spline_taps(radius: int) -> Tuple[float, ...]:
 
 def variance_blur3x3(variance: torch.Tensor) -> torch.Tensor:
     """3x3 (¼,½,¼)² blur of the variance plane; border taps dropped and the
-    weights renormalised."""
+    weights renormalised.
+
+    The numerator adds the 9 taps of the zero-padded plane in tap order
+    (a dropped tap adds an exact zero, as K1's fused blur skips it); the
+    normaliser, the sum of the in-image taps' weights, is the product of
+    the row and column sums, exact in float (dyadic values).  Few launches:
+    this blur is glue on the card's recompute and weight-gradient paths."""
     H, W = variance.shape
     k1 = (0.25, 0.5, 0.25)
+    vp = F.pad(variance, (1, 1, 1, 1))
     num = torch.zeros_like(variance)
-    den = torch.zeros_like(variance)
     for dy in (-1, 0, 1):
         for dx in (-1, 0, 1):
             k = k1[dy + 1] * k1[dx + 1]
-            m = valid_mask(H, W, dy, dx, device=variance.device,
-                           dtype=variance.dtype)
-            num = num + k * m * shift2d(variance, dy, dx)
-            den = den + k * m
-    return num / den
+            num = num + k * vp[1 + dy:1 + dy + H, 1 + dx:1 + dx + W]
+    return num / (_edge_sums(H, variance)[:, None]
+                  * _edge_sums(W, variance)[None, :])
+
+
+def _edge_sums(n: int, like: torch.Tensor) -> torch.Tensor:
+    """Σ of the in-range (¼, ½, ¼) weights along an axis of length n: 1,
+    and ¾ at each end (½ where n = 1)."""
+    s = torch.ones(n, dtype=like.dtype, device=like.device)
+    s[0] -= 0.25
+    s[-1] -= 0.25
+    return s
 
 
 def _exp2_fast3(y: torch.Tensor) -> torch.Tensor:
@@ -96,40 +117,26 @@ def _exp2_fast3(y: torch.Tensor) -> torch.Tensor:
     return p * two_i
 
 
-def atrous_level_ref(
-    color: torch.Tensor,      # (3, H, W)
-    variance: torch.Tensor,   # (H, W)
-    normal: torch.Tensor,     # (3, H, W)
-    depth: torch.Tensor,      # (H, W)
-    zgrad: torch.Tensor = None,  # (2, H, W); computed if None
-    *,
-    level: int = 0,
-    params: SVGFParams = SVGFParams(),
-    weight_math: str = "exact",
-    detach_weights: bool = True,
-    return_weights: bool = False,
-):
-    """One à-trous level.  Returns (filtered colour, filtered variance), and
-    with ``return_weights`` also the (n_taps, H, W) float32 tap weights
-    (``h·mask`` included, so out-of-image taps are 0; tap k = (dy+r)(2r+1) +
-    (dx+r)) and the normaliser ``N = max(Σ w, ε)``, which the stored-weight
-    adjoint consumes."""
-    if weight_math not in WEIGHT_MATHS:
-        raise ValueError(f"unknown weight_math: {weight_math!r}")
-    fast = weight_math == "fast"
+def sigma_denominator(variance: torch.Tensor,
+                      params: SVGFParams) -> torch.Tensor:
+    """``σ_l·sqrt(max(blur3x3(var), 0)) + ε``: the luminance weight's
+    denominator of a level (what K1 fuses and K1b takes as an input)."""
+    return params.sigma_color * torch.sqrt(
+        torch.clamp(variance_blur3x3(variance), min=0.0)) + _EPS
+
+
+def _tap_weights(lum, normal, depth, zgrad, sden, *, level, params,
+                 weight_math="exact", luma_only=False):
+    """Yields ``(oy, ox, w)`` for each tap (dy-major, tap k = (dy+r)(2r+1) +
+    (dx+r)): the (H, W) weight of the centres' tap at offset (oy, ox), ``h``
+    and the border mask included.  The exact weight is
+    ``h·exp(wz + wl)·pow(max(ndot, 1e-20), σn)`` in the operation order of
+    K1 (``atrous.cu``), which K14 and K9 recompute."""
     H, W = depth.shape
     spacing = 1 << level
     r = params.radius
     taps1d = _spline_taps(r)
-    if zgrad is None:
-        zgrad = finite_diff_gradients(depth)
-
-    lum = luminance(color)
-    var_w = variance
-    if detach_weights:
-        lum, var_w = lum.detach(), variance.detach()
-    sden = params.sigma_color * torch.sqrt(
-        torch.clamp(variance_blur3x3(var_w), min=0.0)) + _EPS
+    fast = weight_math == "fast"
     if fast:
         # log2(e) folded into the reciprocal scales: the exponent is base 2
         isd2 = _LOG2E / torch.clamp(sden, min=_EPS)
@@ -137,14 +144,6 @@ def atrous_level_ref(
         eps2 = _EPS * _LN2
         c_s1 = params.sigma_normal * _LOG2E * 0.5
         c_s2 = params.sigma_normal * _LOG2E * 0.125
-
-    num_c = torch.zeros_like(color)
-    num_v = torch.zeros_like(variance)
-    den = torch.zeros_like(variance)
-
-    luma_only = (params.luma_only_from is not None
-                 and level >= params.luma_only_from)
-    weights = []
     for dy in range(-r, r + 1):
         for dx in range(-r, r + 1):
             oy, ox = dy * spacing, dx * spacing
@@ -178,14 +177,64 @@ def atrous_level_ref(
                     wn = torch.pow(torch.clamp(ndot, min=1e-20),
                                    params.sigma_normal)
                     w = h * m * torch.exp(wz_exp + wl_exp) * wn
-            if detach_weights:
-                w = w.detach()
-            if return_weights:
-                weights.append(w)
+            yield oy, ox, w
 
-            num_c = num_c + w[None] * shift2d(color, oy, ox)
-            num_v = num_v + (w * w) * shift2d(variance, oy, ox)
-            den = den + w
+
+def atrous_level_ref(
+    color: torch.Tensor,      # (3, H, W)
+    variance: torch.Tensor,   # (H, W)
+    normal: torch.Tensor,     # (3, H, W)
+    depth: torch.Tensor,      # (H, W)
+    zgrad: torch.Tensor = None,  # (2, H, W); computed if None
+    *,
+    level: int = 0,
+    params: SVGFParams = SVGFParams(),
+    weight_math: str = "exact",
+    detach_weights: bool = True,
+    return_weights: bool = False,
+    sigma_denom: torch.Tensor = None,  # (H, W); from the variance if None
+):
+    """One à-trous level.  Returns (filtered colour, filtered variance), and
+    with ``return_weights`` also the (n_taps, H, W) tap weights in the
+    input's dtype (``h·mask`` included, so out-of-image taps are 0; tap k =
+    (dy+r)(2r+1) + (dx+r)) and the normaliser ``N = max(Σ w, ε)``, which
+    the stored-weight adjoint consumes.
+
+    ``sigma_denom`` given: the luminance weight divides by it instead of
+    by :func:`sigma_denominator` of ``variance`` (``atrous_level_fwd_pallas``'s
+    input, K1b's); with ``detach_weights=False`` gradients then reach it,
+    and ``variance`` only through the data term."""
+    if weight_math not in WEIGHT_MATHS:
+        raise ValueError(f"unknown weight_math: {weight_math!r}")
+    if zgrad is None:
+        zgrad = finite_diff_gradients(depth)
+
+    lum = luminance(color)
+    var_w = variance
+    if detach_weights:
+        lum, var_w = lum.detach(), variance.detach()
+    sden = (sigma_denominator(var_w, params) if sigma_denom is None
+            else sigma_denom)
+
+    num_c = torch.zeros_like(color)
+    num_v = torch.zeros_like(variance)
+    den = torch.zeros_like(variance)
+
+    luma_only = (params.luma_only_from is not None
+                 and level >= params.luma_only_from)
+    weights = []
+    for oy, ox, w in _tap_weights(lum, normal, depth, zgrad, sden,
+                                  level=level, params=params,
+                                  weight_math=weight_math,
+                                  luma_only=luma_only):
+        if detach_weights:
+            w = w.detach()
+        if return_weights:
+            weights.append(w)
+
+        num_c = num_c + w[None] * shift2d(color, oy, ox)
+        num_v = num_v + (w * w) * shift2d(variance, oy, ox)
+        den = den + w
 
     den = torch.clamp(den, min=_EPS)
     if return_weights:
@@ -203,13 +252,13 @@ def atrous_level_bwd_stored_ref(
     level: int,
     radius: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of K2: the detached adjoint of one level from the
-    forward's stored weights.
+    """Plain version of K2 (bf16 weights) and K2b (float32 weights): the
+    detached adjoint of one level from the forward's stored weights.
 
     With ``u = gc/max(N, ε)`` and ``u2 = gv/max(N, ε)²`` at each centre p,
     ``dc_x = Σ_d w_{x−d}(d)·u_{x−d}`` and ``dv_x = Σ_d w_{x−d}(d)²·u2_{x−d}``
     (taps at spacing 2^level, summed in tap order, each weight widened to
-    float32 first).  Returns ``(d_color, d_variance)``."""
+    the cotangent's dtype first).  Returns ``(d_color, d_variance)``."""
     spacing = 1 << level
     r = radius
     inv_n = 1.0 / torch.clamp(norm, min=_EPS)
@@ -222,10 +271,149 @@ def atrous_level_bwd_stored_ref(
             k = (dy + r) * (2 * r + 1) + (dx + r)
             # centre p = x − d: read everything shifted by −d
             oy, ox = -dy * spacing, -dx * spacing
-            w_sh = shift2d(w[k].float(), oy, ox)
+            w_sh = shift2d(w[k].to(gc.dtype), oy, ox)
             acc_c = acc_c + w_sh[None] * shift2d(u, oy, ox)
             acc_v = acc_v + (w_sh * w_sh) * shift2d(u2, oy, ox)
     return acc_c, acc_v
+
+
+def atrous_level_bwd_ref(
+    color: torch.Tensor,        # (3, H, W) the level's input colour
+    normal: torch.Tensor,       # (3, H, W)
+    depth: torch.Tensor,        # (H, W)
+    zgrad: torch.Tensor,        # (2, H, W)
+    sigma_denom: torch.Tensor,  # (H, W) the forward's σ-denominator
+    norm: torch.Tensor,         # (H, W) N of the forward
+    gc: torch.Tensor,           # (3, H, W) cotangent of the filtered colour
+    gv: torch.Tensor,           # (H, W) cotangent of the filtered variance
+    *,
+    level: int,
+    params: SVGFParams,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K14: the detached adjoint of one level with the
+    weights recomputed (``atrous_level_bwd_pallas``; no weight storage).
+
+    Each tap's weight is recomputed at every centre p from p's luminance,
+    normal, depth, ∇z and σ-denominator and the neighbour's, by the exact
+    weight math of the forward (the same operations in the same order, so
+    the adjoint is the exact transpose of the forward's stencil), then
+    gathered as in :func:`atrous_level_bwd_stored_ref`: ``dc_x = Σ_d
+    w_{x−d}(d)·g_{x−d}/N_{x−d}`` and ``dv_x = Σ_d w_{x−d}(d)²·gv_{x−d}/
+    N_{x−d}²``.  Exact weights only, full (not luma-only) levels, as in the
+    JAX package.  Returns ``(d_color, d_variance)``."""
+    lum = luminance(color)
+    w = torch.stack([w for _, _, w in _tap_weights(
+        lum, normal, depth, zgrad, sigma_denom, level=level, params=params)])
+    return atrous_level_bwd_stored_ref(w, norm, gc, gv, level=level,
+                                       radius=params.radius)
+
+
+def atrous_level_wgrad_bwd_ref(
+    color, variance, normal, depth, zgrad, sigma_denom,
+    out_c, out_v, norm, gc, gv, *, level: int, params: SVGFParams,
+):
+    """Plain version of K9: the full adjoint of one level, through the
+    edge-stopping weights (``atrous_level_wgrad_bwd_pallas``), written out
+    as an explicit adjoint (not autograd) in the operations of the two CUDA
+    kernels.  Returns ``(d_color, d_variance, d_normal, d_depth, d_zgrad,
+    d_sigma_denom)``: the gradients of ``atrous_level_ref(...,
+    sigma_denom=σ, zgrad=∇z, detach_weights=False)`` with respect to its
+    inputs, for cotangents ``gc``, ``gv`` of its outputs ``out_c``,
+    ``out_v`` (and its normaliser ``norm``).
+
+    With ``A_p(d) = ∂L/∂w_p(d) = [gc_p·(c_q − out_c_p) + gv_p·(2·w·v_q/N_p
+    − 2·out_v_p)]/N_p`` for centre p and neighbour q = p + d·2^level, and
+    ``w = h·exp(−|z_p − z_q|·rz − |l_p − l_q|/σ_p)·max(n_p·n_q, 0)^σn``
+    with ``rz = 1/(σz·|∇z_p·d| + ε)``, each input gets ``Σ A·∂w/∂θ`` in two
+    shapes:
+
+    * centre terms (θ at p, over p's own taps; K9's first kernel): normal,
+      depth, ∇z, σ and luminance;
+    * neighbour terms (θ at q, gathered at x over the centres p = x − d;
+      K9's second kernel): normal, depth and luminance, with the detached
+      data stencil of colour and variance riding along.
+
+    The luminance gradient folds into d_color by the Rec.709 weights.  The
+    derivative of ``|·|`` at 0 is 0 (``sign(0)``), as in the TPU kernel and
+    in PyTorch's autograd; exact ``exp`` and ``pow``, not the TPU's
+    polynomial and Newton reciprocals."""
+    sz, sn = params.sigma_depth, params.sigma_normal
+    lum = luminance(color)
+    inv_n = 1.0 / torch.clamp(norm, min=_EPS)
+    isd = 1.0 / sigma_denom
+
+    # centre terms: x is the centre, q = x + d its neighbour
+    dn_c = torch.zeros_like(normal)
+    dz_c = torch.zeros_like(depth)
+    dzg0 = torch.zeros_like(depth)
+    dzg1 = torch.zeros_like(depth)
+    dsd = torch.zeros_like(depth)
+    dl_c = torch.zeros_like(depth)
+    for oy, ox, w in _tap_weights(lum, normal, depth, zgrad, sigma_denom,
+                                  level=level, params=params):
+        c_q = shift2d(color, oy, ox)
+        v_q = shift2d(variance, oy, ox)
+        n_q = shift2d(normal, oy, ox)
+        dz = depth - shift2d(depth, oy, ox)
+        dl = lum - shift2d(lum, oy, ox)
+        zs = zgrad[0] * oy + zgrad[1] * ox
+        rz = 1.0 / (sz * torch.abs(zs) + _EPS)
+        ndot = torch.clamp(normal[0] * n_q[0] + normal[1] * n_q[1]
+                           + normal[2] * n_q[2], min=0.0)
+        a = ((gc[0] * (c_q[0] - out_c[0]) + gc[1] * (c_q[1] - out_c[1])
+              + gc[2] * (c_q[2] - out_c[2]))
+             + gv * (2.0 * w * v_q * inv_n - 2.0 * out_v)) * inv_n
+        b = a * w
+        dz_c = dz_c - b * torch.sign(dz) * rz
+        dl_c = dl_c - b * torch.sign(dl) * isd
+        dsd = dsd + b * torch.abs(dl) * (isd * isd)
+        gz = b * torch.abs(dz) * (rz * rz) * sz * torch.sign(zs)
+        dzg0 = dzg0 + gz * oy
+        dzg1 = dzg1 + gz * ox
+        nf = b * sn / torch.clamp(ndot, min=1e-20)
+        dn_c = dn_c + nf[None] * n_q
+
+    # neighbour terms: x is the neighbour of the centres p = x − d; the
+    # centres' weights are the same planes, read shifted by −d
+    dc = torch.zeros_like(color)
+    dv = torch.zeros_like(variance)
+    dn_n = torch.zeros_like(normal)
+    dz_n = torch.zeros_like(depth)
+    dl_n = torch.zeros_like(depth)
+    u = gc * inv_n[None]
+    u2 = gv * (inv_n * inv_n)
+    for oy, ox, w in _tap_weights(lum, normal, depth, zgrad, sigma_denom,
+                                  level=level, params=params):
+        def at_p(t):
+            return shift2d(t, -oy, -ox)
+
+        w = at_p(w)
+        n_p, gc_p, oc_p, invn_p = at_p(normal), at_p(gc), at_p(out_c), at_p(
+            inv_n)
+        dz = at_p(depth) - depth
+        dl = at_p(lum) - lum
+        zg_p = at_p(zgrad)
+        rz = 1.0 / (sz * torch.abs(zg_p[0] * oy + zg_p[1] * ox) + _EPS)
+        ndot = torch.clamp(n_p[0] * normal[0] + n_p[1] * normal[1]
+                           + n_p[2] * normal[2], min=0.0)
+        # the detached data stencil (K14's sum)
+        dc = dc + w[None] * at_p(u)
+        dv = dv + (w * w) * at_p(u2)
+        a = ((gc_p[0] * (color[0] - oc_p[0]) + gc_p[1] * (color[1] - oc_p[1])
+              + gc_p[2] * (color[2] - oc_p[2]))
+             + at_p(gv) * (2.0 * w * variance * invn_p - 2.0 * at_p(out_v))
+             ) * invn_p
+        b = a * w
+        dz_n = dz_n + b * torch.sign(dz) * rz
+        dl_n = dl_n + b * torch.sign(dl) * at_p(isd)
+        nf = b * sn / torch.clamp(ndot, min=1e-20)
+        dn_n = dn_n + nf[None] * n_p
+
+    d_lum = dl_c + dl_n
+    d_color = torch.stack([dc[k] + lk * d_lum
+                           for k, lk in enumerate(_LUMA)])
+    return (d_color, dv, dn_c + dn_n, dz_c + dz_n,
+            torch.stack([dzg0, dzg1]), dsd)
 
 
 def svgf_spatial_ref(

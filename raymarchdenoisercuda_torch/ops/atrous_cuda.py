@@ -1,7 +1,8 @@
-"""K1/K2 wrappers: the à-trous SVGF sweep through the CUDA level kernels.
+"""The à-trous SVGF sweep through the CUDA level kernels, in every adjoint
+mode of ``svgf_spatial_pallas`` (``raymarchdenoisercuda_tpu/ops/pallas/
+atrous_tpu.py``).
 
-Counterpart of ``svgf_spatial_pallas`` in
-``raymarchdenoisercuda_tpu/ops/pallas/atrous_tpu.py`` on its chained path:
+Sweeps:
 
 * :func:`svgf_spatial_cuda` is ``bwd_impl="none"``, the inference sweep (K1
   without weight writes; no gradient: it raises on an input that requires
@@ -9,12 +10,21 @@ Counterpart of ``svgf_spatial_pallas`` in
 * :func:`svgf_spatial_stored_cuda` is ``bwd_impl="stored"``, the
   ``torch.autograd.Function`` counterpart of ``_svgf_chained``: K1 in store
   mode keeps each level's bf16 tap weights and N, and the backward runs K2
-  level by level in reverse.
+  level by level in reverse;
+* :func:`svgf_spatial_ad_cuda` has ``svgf_spatial_pallas``'s whole keyword
+  surface: the two above, ``"stored_f32"`` (K1 storing float weights, K2b),
+  ``"recompute"`` and ``chained=False`` (K1b, then K14), and
+  ``weight_grads=True`` (K1b, then K9: gradients through the weights).
 
-The per-level wrappers :func:`atrous_level_cuda` (K1) and
-:func:`atrous_level_bwd_stored_cuda` (K2) launch their kernel for CUDA
-tensors and run the plain twin from ``ops.atrous`` for CPU tensors, so both
-sweeps compute one algorithm on either device.
+Per-level wrappers, one for each JAX function: :func:`atrous_level_cuda`
+(K1, ``atrous_level_fwd_canvas``), :func:`atrous_level_fwd_cuda` (K1b,
+``atrous_level_fwd_pallas``), :func:`atrous_level_bwd_stored_cuda` (K2/K2b,
+``atrous_level_bwd_stored_canvas``/``_pallas``), :func:`atrous_level_bwd_cuda`
+(K14, ``atrous_level_bwd_pallas``) and :func:`atrous_level_wgrad_bwd_cuda`
+(K9, ``atrous_level_wgrad_bwd_pallas``).  Each launches its kernel for CUDA
+tensors and runs the plain twin from ``ops.atrous`` for CPU tensors, so the
+sweeps compute one algorithm on either device, and counts its launches in
+its ``launches`` attribute.
 """
 
 from __future__ import annotations
@@ -25,9 +35,14 @@ import torch
 
 from ..config import SVGFParams
 from .atrous import (WEIGHT_MATHS, _EPS, _LN2, _LOG2E, _spline_taps,
-                     atrous_level_bwd_stored_ref, atrous_level_ref)
+                     atrous_level_bwd_ref, atrous_level_bwd_stored_ref,
+                     atrous_level_ref, atrous_level_wgrad_bwd_ref,
+                     sigma_denominator)
 from .common import finite_diff_gradients
 from .cuda import _build
+
+BWD_IMPLS = ("stored", "stored_f32", "recompute", "none")
+PRECISIONS = ("f32", "bf16")
 
 
 class _AtrousParams(ctypes.Structure):
@@ -38,6 +53,33 @@ class _AtrousParams(ctypes.Structure):
         (n, ctypes.c_float) for n in
         ("sigma_color", "sigma_depth", "sigma_normal",
          "sz2", "eps2", "c_s1", "c_s2")] + [("taps", ctypes.c_float * 5)]
+
+
+def _launch_params(H, W, level, params, weight_math="exact"):
+    r = params.radius
+    return _AtrousParams(
+        H=H, W=W, spacing=1 << level, radius=r,
+        fast=int(weight_math == "fast"),
+        luma_only=int(params.luma_only_from is not None
+                      and level >= params.luma_only_from),
+        sigma_color=params.sigma_color, sigma_depth=params.sigma_depth,
+        sigma_normal=params.sigma_normal,
+        sz2=params.sigma_depth * _LN2, eps2=_EPS * _LN2,
+        c_s1=params.sigma_normal * _LOG2E * 0.5,
+        c_s2=params.sigma_normal * _LOG2E * 0.125,
+        taps=(ctypes.c_float * 5)(*_spline_taps(r)))
+
+
+def _planes(dev, H, W, named):
+    """Data pointers of ``(tensor, name, n_planes or None)`` triples, each
+    checked to be a contiguous float32 (n_planes, H, W) or (H, W) tensor on
+    ``dev``."""
+    return [_build.check_input(t, n, (H, W) if k is None else (k, H, W),
+                               torch.float32, dev) for t, n, k in named]
+
+
+def _stream(dev):
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_sweep(color, params: SVGFParams, weight_math: str) -> None:
@@ -62,18 +104,53 @@ def zgrad_cuda(depth: torch.Tensor) -> torch.Tensor:
                              depth.device)
     zgrad = torch.empty((2, H, W), dtype=torch.float32, device=depth.device)
     _build.check(_build.kernels().rdt_zgrad(
-        ptr, zgrad.data_ptr(), H, W,
-        torch.cuda.current_stream(depth.device).cuda_stream), "rdt_zgrad")
+        ptr, zgrad.data_ptr(), H, W, _stream(depth.device)), "rdt_zgrad")
     return zgrad
+
+
+def _launch_level(color, variance, normal, depth, zgrad, sigma_denom, *,
+                  level, params, weight_math, w_dtype, want_norm):
+    """One launch of the level kernel (K1 with ``sigma_denom`` None, else
+    K1b); returns ``(c, v, w or None, N or None)``."""
+    H, W = depth.shape
+    dev = color.device
+    f32 = torch.float32
+    ptrs = _planes(dev, H, W, (
+        (color, "color", 3), (variance, "variance", None),
+        (normal, "normal", 3), (depth, "depth", None), (zgrad, "zgrad", 2)))
+    sden_ptr = None
+    if sigma_denom is not None:
+        sden_ptr, = _planes(dev, H, W, ((sigma_denom, "sigma_denom", None),))
+    c_out = torch.empty((3, H, W), dtype=f32, device=dev)
+    v_out = torch.empty((H, W), dtype=f32, device=dev)
+    w = norm = None
+    if w_dtype is not None:
+        if w_dtype not in (torch.bfloat16, f32):
+            raise ValueError(f"weights: dtype {w_dtype}, expected bfloat16 "
+                             f"or float32")
+        w = torch.empty(((2 * params.radius + 1) ** 2, H, W), dtype=w_dtype,
+                        device=dev)
+    if want_norm:
+        norm = torch.empty((H, W), dtype=f32, device=dev)
+    p = _launch_params(H, W, level, params, weight_math)
+    rc = _build.kernels().rdt_atrous_level(
+        *ptrs, sden_ptr, c_out.data_ptr(), v_out.data_ptr(),
+        None if w is None else w.data_ptr(),
+        None if norm is None else norm.data_ptr(), int(w_dtype == f32),
+        ctypes.addressof(p), _stream(dev))
+    _build.check(rc, "rdt_atrous_level")
+    return c_out, v_out, w, norm
 
 
 def atrous_level_cuda(color, variance, normal, depth, zgrad, *, level: int,
                       params: SVGFParams, weight_math: str = "exact",
-                      store: bool = False):
-    """One level forward (K1).  Returns ``(c, v)``, and with ``store`` also
-    the (n_taps, H, W) bf16 tap weights and the (H, W) normaliser N that
-    the stored-weight adjoint reads.  No backward of its own (the sweeps
-    below own the gradient): it raises if an input requires grad.
+                      store: bool = False, store_dtype=torch.bfloat16):
+    """One level forward (K1, σ-denominator fused).  Returns ``(c, v)``, and
+    with ``store`` also the (n_taps, H, W) tap weights in ``store_dtype``
+    (bf16 for ``bwd_impl="stored"``, float32 for ``"stored_f32"``) and the
+    (H, W) normaliser N that the stored-weight adjoint reads.  No backward
+    of its own (the sweeps below own the gradient): it raises if an input
+    requires grad.
 
     Each launch adds one to ``atrous_level_cuda.launches``."""
     _build.check_no_grad("atrous_level_cuda", color, variance, normal, depth)
@@ -83,88 +160,239 @@ def atrous_level_cuda(color, variance, normal, depth, zgrad, *, level: int,
                                weight_math=weight_math, return_weights=store)
         if store:
             c, v, w, norm = out
-            return c, v, w.to(torch.bfloat16), norm
+            return c, v, w.to(store_dtype), norm
         return out
-    H, W = depth.shape
-    dev = color.device
-    f32 = torch.float32
-    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
-        (color, "color", (3, H, W)), (variance, "variance", (H, W)),
-        (normal, "normal", (3, H, W)), (depth, "depth", (H, W)),
-        (zgrad, "zgrad", (2, H, W)))]
-    r = params.radius
-    p = _AtrousParams(
-        H=H, W=W, spacing=1 << level, radius=r,
-        fast=int(weight_math == "fast"),
-        luma_only=int(params.luma_only_from is not None
-                      and level >= params.luma_only_from),
-        sigma_color=params.sigma_color, sigma_depth=params.sigma_depth,
-        sigma_normal=params.sigma_normal,
-        sz2=params.sigma_depth * _LN2, eps2=_EPS * _LN2,
-        c_s1=params.sigma_normal * _LOG2E * 0.5,
-        c_s2=params.sigma_normal * _LOG2E * 0.125,
-        taps=(ctypes.c_float * 5)(*_spline_taps(r)))
-    c_out = torch.empty((3, H, W), dtype=f32, device=dev)
-    v_out = torch.empty((H, W), dtype=f32, device=dev)
-    w = norm = None
-    if store:
-        w = torch.empty(((2 * r + 1) ** 2, H, W), dtype=torch.bfloat16,
-                        device=dev)
-        norm = torch.empty((H, W), dtype=f32, device=dev)
-    rc = _build.kernels().rdt_atrous_level(
-        *ptrs, c_out.data_ptr(), v_out.data_ptr(),
-        w.data_ptr() if store else None, norm.data_ptr() if store else None,
-        ctypes.addressof(p), torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rdt_atrous_level")
+    c, v, w, norm = _launch_level(
+        color, variance, normal, depth, zgrad, None, level=level,
+        params=params, weight_math=weight_math,
+        w_dtype=store_dtype if store else None, want_norm=store)
     atrous_level_cuda.launches += 1
-    return (c_out, v_out, w, norm) if store else (c_out, v_out)
+    return (c, v, w, norm) if store else (c, v)
 
 
 atrous_level_cuda.launches = 0
 
 
+def atrous_level_fwd_cuda(color, variance, normal, depth, zgrad, sigma_denom,
+                          *, level: int, params: SVGFParams,
+                          save_weights: bool = False):
+    """One level forward with a given σ-denominator (K1b, the counterpart of
+    ``atrous_level_fwd_pallas``; exact weights).  Returns ``(c, v, N)``,
+    and with ``save_weights`` also the (n_taps, H, W) float32 tap weights.
+    Raises if an input requires grad (:func:`atrous_level` owns the
+    gradient).
+
+    Each launch adds one to ``atrous_level_fwd_cuda.launches``."""
+    _build.check_no_grad("atrous_level_fwd_cuda", color, variance, normal,
+                         depth, zgrad, sigma_denom)
+    if not color.is_cuda:
+        c, v, w, norm = atrous_level_ref(
+            color, variance, normal, depth, zgrad, level=level,
+            params=params, sigma_denom=sigma_denom, return_weights=True)
+        return (c, v, norm, w) if save_weights else (c, v, norm)
+    c, v, w, norm = _launch_level(
+        color, variance, normal, depth, zgrad, sigma_denom, level=level,
+        params=params, weight_math="exact",
+        w_dtype=torch.float32 if save_weights else None, want_norm=True)
+    atrous_level_fwd_cuda.launches += 1
+    return (c, v, norm, w) if save_weights else (c, v, norm)
+
+
+atrous_level_fwd_cuda.launches = 0
+
+
+def _launch_bwd_stored(w, norm, gc, gv, level, radius):
+    H, W = gv.shape
+    dev = gc.device
+    ptrs = [_build.check_input(w, "w", ((2 * radius + 1) ** 2, H, W),
+                               w.dtype, dev)] + _planes(dev, H, W, (
+        (norm, "norm", None), (gc, "gc", 3), (gv, "gv", None)))
+    dc = torch.empty((3, H, W), dtype=torch.float32, device=dev)
+    dv = torch.empty((H, W), dtype=torch.float32, device=dev)
+    rc = _build.kernels().rdt_atrous_bwd_stored(
+        *ptrs, dc.data_ptr(), dv.data_ptr(), H, W, 1 << level, radius,
+        int(w.dtype == torch.float32), _stream(dev))
+    _build.check(rc, "rdt_atrous_bwd_stored")
+    return dc, dv
+
+
 def atrous_level_bwd_stored_cuda(w, norm, gc, gv, *, level: int,
                                  radius: int):
-    """One level of the stored-weight adjoint (K2); returns
-    ``(d_color, d_variance)`` as ``atrous_level_bwd_stored_ref`` does.
+    """One level of the stored-weight adjoint; returns ``(d_color,
+    d_variance)`` as ``atrous_level_bwd_stored_ref`` does.  bf16 weights
+    go to K2 (``atrous_level_bwd_stored_canvas``), float32 weights to K2b
+    (:func:`atrous_level_bwd_stored_f32_cuda`).
 
-    Each launch adds one to ``atrous_level_bwd_stored_cuda.launches``."""
+    Each K2 launch adds one to ``atrous_level_bwd_stored_cuda.launches``."""
+    if w.dtype == torch.float32:
+        return atrous_level_bwd_stored_f32_cuda(w, norm, gc, gv, level=level,
+                                                radius=radius)
     _build.check_no_grad("atrous_level_bwd_stored_cuda", w, norm, gc, gv)
     if not gc.is_cuda:
         return atrous_level_bwd_stored_ref(w, norm, gc, gv, level=level,
                                            radius=radius)
-    H, W = gv.shape
-    dev = gc.device
-    f32 = torch.float32
-    ptrs = [_build.check_input(w, "w", ((2 * radius + 1) ** 2, H, W),
-                               torch.bfloat16, dev)] + [
-        _build.check_input(t, n, s, f32, dev) for t, n, s in (
-            (norm, "norm", (H, W)), (gc, "gc", (3, H, W)),
-            (gv, "gv", (H, W)))]
-    dc = torch.empty((3, H, W), dtype=f32, device=dev)
-    dv = torch.empty((H, W), dtype=f32, device=dev)
-    rc = _build.kernels().rdt_atrous_bwd_stored(
-        *ptrs, dc.data_ptr(), dv.data_ptr(), H, W, 1 << level, radius,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rdt_atrous_bwd_stored")
+    if w.dtype != torch.bfloat16:
+        raise ValueError(f"w: dtype {w.dtype}, expected bfloat16 or float32")
+    out = _launch_bwd_stored(w, norm, gc, gv, level, radius)
     atrous_level_bwd_stored_cuda.launches += 1
-    return dc, dv
+    return out
 
 
 atrous_level_bwd_stored_cuda.launches = 0
 
 
+def atrous_level_bwd_stored_f32_cuda(w, norm, gc, gv, *, level: int,
+                                     radius: int):
+    """K2b, the stored-weight adjoint from float32 weights (the counterpart
+    of ``atrous_level_bwd_stored_pallas``; the ``bwd_impl="stored_f32"``
+    backward); returns ``(d_color, d_variance)``.
+
+    Each launch adds one to ``atrous_level_bwd_stored_f32_cuda.launches``."""
+    _build.check_no_grad("atrous_level_bwd_stored_f32_cuda", w, norm, gc, gv)
+    if not gc.is_cuda:
+        return atrous_level_bwd_stored_ref(w, norm, gc, gv, level=level,
+                                           radius=radius)
+    if w.dtype != torch.float32:
+        raise ValueError(f"w: dtype {w.dtype}, expected float32")
+    out = _launch_bwd_stored(w, norm, gc, gv, level, radius)
+    atrous_level_bwd_stored_f32_cuda.launches += 1
+    return out
+
+
+atrous_level_bwd_stored_f32_cuda.launches = 0
+
+
+def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
+                          g_color, g_var, *, level: int, params: SVGFParams):
+    """K14, the recompute adjoint of one level (the counterpart of
+    ``atrous_level_bwd_pallas``): the weights are re-derived from the
+    forward's inputs and its σ-denominator by the forward's exact weight
+    math.  Returns ``(d_color, d_variance)``.
+
+    Each launch adds one to ``atrous_level_bwd_cuda.launches``."""
+    _build.check_no_grad("atrous_level_bwd_cuda", color, normal, depth, zgrad,
+                         sigma_denom, norm, g_color, g_var)
+    if not g_color.is_cuda:
+        return atrous_level_bwd_ref(color, normal, depth, zgrad, sigma_denom,
+                                    norm, g_color, g_var, level=level,
+                                    params=params)
+    H, W = depth.shape
+    dev = g_color.device
+    ptrs = _planes(dev, H, W, (
+        (color, "color", 3), (normal, "normal", 3), (depth, "depth", None),
+        (zgrad, "zgrad", 2), (sigma_denom, "sigma_denom", None),
+        (norm, "norm", None), (g_color, "g_color", 3),
+        (g_var, "g_var", None)))
+    dc = torch.empty((3, H, W), dtype=torch.float32, device=dev)
+    dv = torch.empty((H, W), dtype=torch.float32, device=dev)
+    p = _launch_params(H, W, level, params)
+    rc = _build.kernels().rdt_atrous_bwd(
+        *ptrs, dc.data_ptr(), dv.data_ptr(), ctypes.addressof(p),
+        _stream(dev))
+    _build.check(rc, "rdt_atrous_bwd")
+    atrous_level_bwd_cuda.launches += 1
+    return dc, dv
+
+
+atrous_level_bwd_cuda.launches = 0
+
+
+def atrous_level_wgrad_bwd_cuda(color, variance, normal, depth, zgrad,
+                                sigma_denom, out_c, out_v, norm, g_color,
+                                g_var, *, level: int, params: SVGFParams):
+    """K9, the full adjoint of one level through its weights (the
+    counterpart of ``atrous_level_wgrad_bwd_pallas``): its centre and
+    neighbour kernels, launched back to back.  Returns ``(d_color,
+    d_variance, d_normal, d_depth, d_zgrad, d_sigma_denom)`` as
+    ``atrous_level_wgrad_bwd_ref`` does.
+
+    Each call adds one to ``atrous_level_wgrad_bwd_cuda.launches``."""
+    ins = (color, variance, normal, depth, zgrad, sigma_denom, out_c, out_v,
+           norm, g_color, g_var)
+    _build.check_no_grad("atrous_level_wgrad_bwd_cuda", *ins)
+    if not g_color.is_cuda:
+        return atrous_level_wgrad_bwd_ref(*ins, level=level, params=params)
+    H, W = depth.shape
+    dev = g_color.device
+    names = ("color", "variance", "normal", "depth", "zgrad", "sigma_denom",
+             "out_c", "out_v", "norm", "g_color", "g_var")
+    planes = (3, None, 3, None, 2, None, 3, None, None, 3, None)
+    ptrs = _planes(dev, H, W, zip(ins, names, planes))
+    outs = tuple(torch.empty((H, W) if k is None else (k, H, W),
+                             dtype=torch.float32, device=dev)
+                 for k in (3, None, 3, None, 2, None))
+    p = _launch_params(H, W, level, params)
+    rc = _build.kernels().rdt_atrous_wgrad_bwd(
+        *ptrs, *(t.data_ptr() for t in outs), ctypes.addressof(p),
+        _stream(dev))
+    _build.check(rc, "rdt_atrous_wgrad_bwd")
+    atrous_level_wgrad_bwd_cuda.launches += 1
+    return outs
+
+
+atrous_level_wgrad_bwd_cuda.launches = 0
+
+
+class _AtrousLevel(torch.autograd.Function):
+    """One level with a given σ-denominator and its hand-written adjoint
+    (the JAX custom-VJP ``atrous_level``): K1b forward; K9 backward with
+    ``weight_grads``, else K14 and zero gradients for the normal, depth,
+    ∇z and σ-denominator."""
+
+    @staticmethod
+    def forward(ctx, color, variance, normal, depth, zgrad, sigma_denom,
+                level, params, weight_grads):
+        c, v, norm = atrous_level_fwd_cuda(color, variance, normal, depth,
+                                           zgrad, sigma_denom, level=level,
+                                           params=params)
+        ctx.level, ctx.params, ctx.weight_grads = level, params, weight_grads
+        if weight_grads:
+            ctx.save_for_backward(color, variance, normal, depth, zgrad,
+                                  sigma_denom, c, v, norm)
+        else:
+            ctx.save_for_backward(color, normal, depth, zgrad, sigma_denom,
+                                  norm)
+        return c, v
+
+    @staticmethod
+    def backward(ctx, gc, gv):
+        kw = dict(level=ctx.level, params=ctx.params)
+        gc, gv = gc.contiguous(), gv.contiguous()
+        if ctx.weight_grads:
+            grads = atrous_level_wgrad_bwd_cuda(*ctx.saved_tensors, gc, gv,
+                                                **kw)
+        else:
+            color, normal, depth, zgrad, sden, norm = ctx.saved_tensors
+            dc, dv = atrous_level_bwd_cuda(color, normal, depth, zgrad, sden,
+                                           norm, gc, gv, **kw)
+            need = ctx.needs_input_grad
+            grads = (dc, dv) + tuple(
+                torch.zeros_like(t) if need[k] else None
+                for k, t in zip(range(2, 6), (normal, depth, zgrad, sden)))
+        return grads + (None, None, None)
+
+
+def atrous_level(color, variance, normal, depth, zgrad, sigma_denom, level,
+                 params, weight_grads: bool = False):
+    """One differentiable level, ``(c, v)``: K1b forward, K14 or (with
+    ``weight_grads``) K9 backward."""
+    return _AtrousLevel.apply(color, variance, normal, depth, zgrad,
+                              sigma_denom, level, params, weight_grads)
+
+
 def _sweep_forward(color, variance, normal, depth, params, weight_math,
-                   store):
-    """K1 over all levels; returns ``(c, v, feedback, per-level (w, N))``."""
+                   store_dtype):
+    """K1 over all levels, storing weights in ``store_dtype`` (None: no
+    store); returns ``(c, v, feedback, per-level (w, N))``."""
     zgrad = zgrad_cuda(depth)
     c, v = color, variance
     feedback = color
     saved = []
+    store = store_dtype is not None
     for lvl in range(params.iterations):
         out = atrous_level_cuda(c, v, normal, depth, zgrad, level=lvl,
                                 params=params, weight_math=weight_math,
-                                store=store)
+                                store=store, store_dtype=store_dtype)
         c, v = out[:2]
         if store:
             saved.append(out[2:])
@@ -180,25 +408,28 @@ def svgf_spatial_cuda(color: torch.Tensor, variance: torch.Tensor,
                       return_feedback: bool = False):
     """Multi-level à-trous sweep for inference.  Returns ``(c, v)`` or,
     with ``return_feedback``, ``(c, v, feedback)`` as ``svgf_spatial_ref``
-    does.  Raises if an input requires grad: the differentiable sweep is
-    :func:`svgf_spatial_stored_cuda`."""
+    does.  Raises if an input requires grad: the differentiable sweeps are
+    :func:`svgf_spatial_stored_cuda` and :func:`svgf_spatial_ad_cuda`."""
     _check_sweep(color, params, weight_math)
     _build.check_no_grad("svgf_spatial_cuda", color, variance, normal, depth)
     c, v, feedback, _ = _sweep_forward(color, variance, normal, depth,
-                                       params, weight_math, store=False)
+                                       params, weight_math, None)
     return (c, v, feedback) if return_feedback else (c, v)
 
 
 class _StoredSweep(torch.autograd.Function):
     """The chained sweep with the stored-weight adjoint (``_svgf_chained``
-    with ``bwd_impl="stored"``): detached-weight semantics, gradients reach
-    colour and variance; normal and depth get zero."""
+    with ``bwd_impl="stored"`` or ``"stored_f32"``): detached-weight
+    semantics, gradients reach colour and variance; normal and depth get
+    zero."""
 
     @staticmethod
-    def forward(ctx, color, variance, normal, depth, params, weight_math):
+    def forward(ctx, color, variance, normal, depth, params, weight_math,
+                store_dtype):
         store = any(ctx.needs_input_grad[:2])
         c, v, feedback, saved = _sweep_forward(
-            color, variance, normal, depth, params, weight_math, store)
+            color, variance, normal, depth, params, weight_math,
+            store_dtype if store else None)
         ctx.params = params
         ctx.saved_levels = saved
         # an output that aliases another output or an input gets its own
@@ -220,7 +451,7 @@ class _StoredSweep(torch.autograd.Function):
                 radius=params.radius)
         if not feed_used:
             gc = gc + gfeed
-        return gc, gv, None, None, None, None
+        return gc, gv, None, None, None, None, None
 
 
 def svgf_spatial_stored_cuda(color: torch.Tensor, variance: torch.Tensor,
@@ -232,7 +463,79 @@ def svgf_spatial_stored_cuda(color: torch.Tensor, variance: torch.Tensor,
     mode when colour or variance requires grad, K2 in the backward.
     Returns ``(c, v)`` or ``(c, v, feedback)``.  The gradients carry the
     bf16 rounding of the stored weights (≤ 2^-8 relative per weight)."""
+    return svgf_spatial_ad_cuda(color, variance, normal, depth, params=params,
+                                weight_math=weight_math,
+                                return_feedback=return_feedback,
+                                bwd_impl="stored")
+
+
+def svgf_spatial_ad_cuda(color: torch.Tensor, variance: torch.Tensor,
+                         normal: torch.Tensor, depth: torch.Tensor, *,
+                         params: SVGFParams = SVGFParams(),
+                         return_feedback: bool = False,
+                         precision: str = "f32", weight_grads: bool = False,
+                         chained: bool = True, bwd_impl: str = "stored",
+                         weight_math: str = "exact"):
+    """The multi-level sweep with ``svgf_spatial_pallas``'s keyword surface
+    and validation; returns ``(c, v)`` or ``(c, v, feedback)``.
+
+    * ``chained=True`` (and no ``weight_grads``): ``bwd_impl="stored"`` and
+      ``"stored_f32"`` run K1 with its fused σ-denominator, storing each
+      level's weights (bf16, or float32) and N, and K2 (or K2b) in the
+      backward; ``"none"`` is :func:`svgf_spatial_cuda` (no gradient).
+    * ``bwd_impl="recompute"``, or ``chained=False``: per level, the
+      σ-denominator of the detached variance in PyTorch, K1b with it, and
+      K14 in the backward, which re-derives the weights from the same
+      σ tensor.  ``chained=True`` and ``chained=False`` are this one code
+      path here: the JAX package holds its two bit-equal in recompute mode
+      (``tests/test_atrous_pallas.py``), and its per-level path always
+      recomputes, whatever ``bwd_impl`` says.
+    * ``weight_grads=True``: the full adjoint (``detach_weights=False``
+      semantics): per level, K1b and then K9; ∇z (``finite_diff_gradients``)
+      and the σ-denominator of the undetached variance are PyTorch
+      operations under autograd, so K9's d_zgrad and d_sigma reach the
+      depth and the variance as XLA chains them in JAX.
+
+    ``weight_math="fast"`` is taken on the chained stored and ``"none"``
+    paths only, ``luma_only_from`` on the chained stored and ``"none"``
+    paths only, as in JAX; ``pyramid_from`` and ``precision="bf16"`` are
+    not ported."""
+    if bwd_impl not in BWD_IMPLS:
+        raise ValueError(f"unknown bwd_impl: {bwd_impl!r}")
     _check_sweep(color, params, weight_math)
-    c, v, feedback = _StoredSweep.apply(color, variance, normal, depth,
-                                        params, weight_math)
+    if weight_math == "fast" and bwd_impl == "recompute":
+        raise ValueError("weight_math='fast' requires a stored bwd_impl")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision: {precision!r}")
+    if precision == "bf16":
+        raise NotImplementedError("precision='bf16' (bfloat16 kernel planes) "
+                                  "is not ported")
+    if params.luma_only_from is not None and (
+            bwd_impl == "recompute" or not chained or weight_grads):
+        raise ValueError("luma_only_from requires the chained f32 "
+                         "detached path with a stored or 'none' bwd_impl")
+    on_chained = chained and not weight_grads and params.iterations > 0
+    if weight_math == "fast" and not on_chained:
+        raise ValueError("weight_math='fast' is implemented on the chained "
+                         "f32 detached path only")
+    if on_chained and bwd_impl != "recompute":
+        if bwd_impl == "none":
+            return svgf_spatial_cuda(color, variance, normal, depth,
+                                     params=params, weight_math=weight_math,
+                                     return_feedback=return_feedback)
+        store_dtype = (torch.float32 if bwd_impl == "stored_f32"
+                       else torch.bfloat16)
+        c, v, feedback = _StoredSweep.apply(color, variance, normal, depth,
+                                            params, weight_math, store_dtype)
+        return (c, v, feedback) if return_feedback else (c, v)
+
+    zgrad = finite_diff_gradients(depth)
+    c, v = color, variance
+    feedback = color
+    for lvl in range(params.iterations):
+        sden = sigma_denominator(v if weight_grads else v.detach(), params)
+        c, v = atrous_level(c, v, normal, depth, zgrad, sden, lvl, params,
+                            weight_grads)
+        if lvl + 1 == params.feedback_level:
+            feedback = c
     return (c, v, feedback) if return_feedback else (c, v)

@@ -42,8 +42,10 @@ _I = ctypes.c_int
 # C entry points and their argument types; every one returns cudaError_t
 SIGNATURES = {
     "rdt_zgrad": (_P, _P, _I, _I, _P),
-    "rdt_atrous_level": (_P,) * 11,
-    "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "rdt_atrous_level": (_P,) * 10 + (_I,) + (_P,) * 2,
+    "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "rdt_atrous_bwd": (_P,) * 12,
+    "rdt_atrous_wgrad_bwd": (_P,) * 19,
     "rdt_temporal": (_P,) * 15,
     "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,),
     "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,),

@@ -1,7 +1,9 @@
-"""Profile the training step or the serving frame on one GPU.
+"""Profile the training step, the serving frame or the spatial sweep's
+forward and backward on one GPU.
 
     python3 -m raymarchdenoisercuda_torch.utils.profile train   # config 4
     python3 -m raymarchdenoisercuda_torch.utils.profile serve   # config 3
+    python3 -m raymarchdenoisercuda_torch.utils.profile spatial --mode recompute
 
 At 1920x1080: runs 3 warm-up steps, times ``--steps`` more without the
 profiler, then traces as many with ``torch.profiler`` (CPU and CUDA
@@ -30,6 +32,7 @@ from ..io.generate import orbit_camera
 from ..models.pipeline import (FramePipeline, init_train_state,
                                make_train_step)
 from ..ops import raymarch
+from ..ops.atrous_cuda import svgf_spatial_ad_cuda
 from .timing import nvidia_smi_name_power
 
 
@@ -65,9 +68,43 @@ def _serve_runner(H, W, dev):
     return run
 
 
+# the adjoint modes of svgf_spatial_ad_cuda, as chip_smoke.py's phase 9
+SPATIAL_MODES = {"stored": dict(bwd_impl="stored"),
+                 "stored_f32": dict(bwd_impl="stored_f32"),
+                 "recompute": dict(bwd_impl="recompute"),
+                 "weight_grads": dict(weight_grads=True)}
+
+
+def _spatial_runner(H, W, dev, mode, radius):
+    """The 5-level sweep forward and backward, exact weights, on seeded
+    planes (colour, variance, and with ``weight_grads`` normal and depth
+    differentiated)."""
+    g = torch.Generator(dev).manual_seed(9)
+    normal = torch.nn.functional.normalize(
+        torch.randn((3, H, W), generator=g, device=dev)
+        + torch.tensor([0.0, 0.0, 3.0], device=dev)[:, None, None], dim=0)
+    planes = (torch.rand((3, H, W), generator=g, device=dev),
+              0.02 * torch.rand((H, W), generator=g, device=dev), normal,
+              0.3 + 0.5 * torch.rand((H, W), generator=g, device=dev))
+    kw = SPATIAL_MODES[mode]
+    diff = 4 if kw.get("weight_grads") else 2
+    params = SVGFParams(iterations=5, radius=radius)
+
+    def run():
+        ins = [t.detach().requires_grad_(k < diff)
+               for k, t in enumerate(planes)]
+        c, v, fb = svgf_spatial_ad_cuda(*ins, params=params,
+                                        return_feedback=True, **kw)
+        torch.autograd.grad(c.sum() + v.sum() + fb.sum(), ins[:diff])
+    return run
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("path", choices=("train", "serve"))
+    ap.add_argument("path", choices=("train", "serve", "spatial"))
+    ap.add_argument("--mode", choices=tuple(SPATIAL_MODES),
+                    default="stored", help="spatial: the adjoint mode")
+    ap.add_argument("--radius", type=int, default=1, help="spatial: radius")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -76,8 +113,11 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     H, W = 1080, 1920
-    run = (_train_runner if args.path == "train" else _serve_runner)(
-        H, W, dev)
+    if args.path == "spatial":
+        run = _spatial_runner(H, W, dev, args.mode, args.radius)
+    else:
+        run = (_train_runner if args.path == "train" else _serve_runner)(
+            H, W, dev)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -96,7 +136,9 @@ def main(argv=None) -> int:
     busy = sum(e.device_time_total for e in prof.events()
                if e.device_type == DeviceType.CUDA) / 1e3 / args.steps
     print(nvidia_smi_name_power())
-    print(f"{args.path} {W}x{H}: wall {wall:.3f} ms/step unprofiled; device "
+    what = (f"spatial {args.mode} r{args.radius}" if args.path == "spatial"
+            else args.path)
+    print(f"{what} {W}x{H}: wall {wall:.3f} ms/step unprofiled; device "
           f"busy {busy:.3f} ms/step under the profiler "
           f"({100 * busy / wall:.1f} % of the unprofiled wall)")
     print(events.table(sort_by="self_device_time_total", row_limit=args.top,

@@ -25,6 +25,14 @@ K13 (the JAX package's kernel-vs-oracle tolerances): K10 rtol 1e-5, atol
 1e-6 (the kernel sums the 2-D window, its twin sums separably); K11 atol
 1e-5; K12 atol 5e-5 (exp2f of log2(e)-scaled arguments and repeated
 squaring against exp and pow); K13 at most 0.1 % visibility flips, as K8.
+The adjoints (``chip_smoke.py`` phase 3's tolerances): K1b rtol 5e-5 as K1,
+its float32 weights too; K2b rtol 1e-6 as K2; K14 atol 1e-5·max (K1's
+weights, an ulp from the twin's, over cotangents of both signs); K9 atol
+1e-4·max on each of its six planes.  The sweep of ``svgf_spatial_ad_cuda``,
+kernel path against plain path (phase 9's): ``stored`` atol 3e-3·max,
+``stored_f32``, ``recompute`` and ``chained=False`` 2e-4·max,
+``weight_grads`` d_color and d_variance 1e-4·max, d_normal and d_depth
+5e-4·max.
 """
 
 import numpy as np
@@ -40,8 +48,10 @@ from raymarchdenoisercuda_torch.models.pipeline import (
 from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
                                             raymarch, temporal)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
-    atrous_level_bwd_stored_cuda, atrous_level_cuda, svgf_spatial_cuda,
-    svgf_spatial_stored_cuda)
+    atrous_level, atrous_level_bwd_cuda, atrous_level_bwd_stored_cuda,
+    atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
+    atrous_level_fwd_cuda, atrous_level_wgrad_bwd_cuda, svgf_spatial_ad_cuda,
+    svgf_spatial_cuda, svgf_spatial_stored_cuda)
 from raymarchdenoisercuda_torch.ops.common import finite_diff_gradients
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
     box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
@@ -305,6 +315,31 @@ def test_wrappers_keep_or_refuse_gradients(dev):
     assert render.grad_fn is not None
     render.sum().backward()
     assert float(alb.grad.abs().max()) > 0
+    # the adjoint wrappers refuse; the level Function and sweep keep
+    zg = finite_diff_gradients(depth)
+    sd = atrous.sigma_denominator(var, SVGFParams())
+    c2, v2, norm = atrous_level_fwd_cuda(color, var, normal, depth, zg, sd,
+                                         level=0, params=SVGFParams())
+    for fn, args in (
+            (atrous_level_fwd_cuda, (c, var, normal, depth, zg, sd)),
+            (atrous_level_bwd_cuda, (c, normal, depth, zg, sd, norm, c2,
+                                     v2)),
+            (atrous_level_bwd_stored_f32_cuda, (
+                torch.ones((25, 16, 24), device=dev), norm, c, v2)),
+            (atrous_level_wgrad_bwd_cuda, (c, var, normal, depth, zg, sd,
+                                           c2, v2, norm, c2, v2))):
+        kw = (dict(level=0, radius=2) if fn is
+              atrous_level_bwd_stored_f32_cuda
+              else dict(level=0, params=SVGFParams()))
+        with pytest.raises(RuntimeError, match="no backward"):
+            fn(*args, **kw)
+    out, _ = atrous_level(c, var, normal, depth, zg, sd, 0, SVGFParams(),
+                          True)
+    assert out.grad_fn is not None
+    for kw in (dict(bwd_impl="recompute"), dict(bwd_impl="stored_f32"),
+               dict(weight_grads=True)):
+        out, _ = svgf_spatial_ad_cuda(c, var, normal, depth, **kw)
+        assert out.grad_fn is not None
 
 
 def test_train_step_kernel_path_matches_plain(dev):
@@ -418,3 +453,97 @@ def test_apply_filter_kernel_path_matches_plain(dev, ftype):
            FilterType.CROSS: dict(rtol=0, atol=5e-5),
            FilterType.WAVELET: dict(rtol=5e-5, atol=0)}[ftype]
     np.testing.assert_allclose(_np(got), _np(want), **tol)
+
+
+ADJ_SHAPES = [((H, W), 1), ((37, 53), 4)]   # at level 4, every tap reach
+                                            # crosses an image edge
+
+
+@pytest.mark.parametrize("shape,level", ADJ_SHAPES)
+@pytest.mark.parametrize("radius", [1, 2])
+def test_adjoint_kernels_match_plain(dev, shape, level, radius):
+    color, var, normal, depth = _planes(dev, 60 + radius, *shape)
+    zg = finite_diff_gradients(depth)
+    params = SVGFParams(radius=radius)
+    sd = atrous.sigma_denominator(var, params)
+    g = torch.Generator(dev).manual_seed(radius)
+    gc = torch.randn((3, *shape), generator=g, device=dev)
+    gv = torch.randn(shape, generator=g, device=dev)
+    kw = dict(level=level, params=params)
+    got = atrous_level_fwd_cuda(color, var, normal, depth, zg, sd,
+                                save_weights=True, **kw)
+    c0, v0, w0, n0 = atrous.atrous_level_ref(color, var, normal, depth, zg,
+                                             sigma_denom=sd,
+                                             return_weights=True, **kw)
+    for a, b in zip(got, (c0, v0, n0, w0)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=5e-5,
+                                   atol=1e-12 * float(b.abs().max()))
+    c, v, norm, w = got
+    before = atrous_level_bwd_stored_f32_cuda.launches
+    k2b = atrous_level_bwd_stored_cuda(w, norm, gc, gv, level=level,
+                                       radius=radius)
+    assert atrous_level_bwd_stored_f32_cuda.launches == before + 1
+    for a, b in zip(k2b, atrous.atrous_level_bwd_stored_ref(
+            w, norm, gc, gv, level=level, radius=radius)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-6,
+                                   atol=1e-12 * float(b.abs().max()))
+    k14 = atrous_level_bwd_cuda(color, normal, depth, zg, sd, norm, gc, gv,
+                                **kw)
+    for a, b in zip(k14, atrous.atrous_level_bwd_ref(
+            color, normal, depth, zg, sd, norm, gc, gv, **kw)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=1e-5 * float(b.abs().max()))
+    wargs = (color, var, normal, depth, zg, sd, c, v, norm, gc, gv)
+    k9 = atrous_level_wgrad_bwd_cuda(*wargs, **kw)
+    for a, b in zip(k9, atrous.atrous_level_wgrad_bwd_ref(*wargs, **kw)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))
+
+
+SWEEP_MODES = [("stored", dict(bwd_impl="stored"), (3e-3,) * 2),
+               ("stored_f32", dict(bwd_impl="stored_f32"), (2e-4,) * 2),
+               ("recompute", dict(bwd_impl="recompute"), (2e-4,) * 2),
+               ("unchained", dict(chained=False), (2e-4,) * 2),
+               ("weight_grads", dict(weight_grads=True),
+                (1e-4, 1e-4, 5e-4, 5e-4))]
+
+
+@pytest.mark.parametrize("name,kw,tols", SWEEP_MODES,
+                         ids=[m[0] for m in SWEEP_MODES])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_adjoint_sweep_kernel_path_matches_plain(dev, name, kw, tols,
+                                                 radius):
+    planes = _planes(dev, 70)
+    g = torch.Generator(dev).manual_seed(70)
+    cots = [torch.randn(t.shape, generator=g, device=dev)
+            for t in (planes[0], planes[1], planes[0])]
+    params = SVGFParams(radius=radius, iterations=5, feedback_level=1)
+    wg = kw.get("weight_grads", False)
+    grads = []
+    for fn, fkw in ((svgf_spatial_ad_cuda, kw), (
+            atrous.svgf_spatial_ref, dict(detach_weights=not wg))):
+        ins = [t.clone().requires_grad_(k < 2 or wg)
+               for k, t in enumerate(planes)]
+        oc, ov, fb = fn(*ins, params=params, return_feedback=True, **fkw)
+        loss = ((oc * cots[0]).sum() + (ov * cots[1]).sum()
+                + (fb * cots[2]).sum())
+        grads.append(torch.autograd.grad(loss, ins[:len(tols)]))
+    for a, b, tol in zip(*grads, tols):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=tol * float(b.abs().max()))
+
+
+def test_adjoint_sweep_counts_launches(dev):
+    planes = [t.requires_grad_() for t in _planes(dev, 71, 16, 16)]
+    params = SVGFParams(iterations=3)
+    for kw, wrappers in (
+            (dict(bwd_impl="stored_f32"),
+             (atrous_level_cuda, atrous_level_bwd_stored_f32_cuda)),
+            (dict(bwd_impl="recompute"),
+             (atrous_level_fwd_cuda, atrous_level_bwd_cuda)),
+            (dict(weight_grads=True),
+             (atrous_level_fwd_cuda, atrous_level_wgrad_bwd_cuda))):
+        before = [w.launches for w in wrappers]
+        oc, ov = svgf_spatial_ad_cuda(*planes, params=params, **kw)
+        (oc.sum() + ov.sum()).backward()
+        assert [w.launches for w in wrappers] == [b + 3 for b in before]
