@@ -46,11 +46,26 @@ the script exits non-zero without printing a result):
    ``recompute``, ``recompute`` with ``chained=False``,
    ``weight_grads=True``), timed per forward+backward with peak memory;
    gradients against the plain path (the whole sweep, except the radius-2
-   ``weight_grads`` one, which is held level by level).
+   ``weight_grads`` one, which is held level by level);
+10. the sharded path (``parallel/``) on this card's (1, 1, 1) mesh at
+   3840x2160: (a) the kernels' tile forms (K1, K1b, K2, K14 with a tile
+   origin, the frame's bounds and margin-writing adjoints; K3b, K4c,
+   K5c/K6c on history canvases) on a 4K frame cut into 2x2 tiles and into
+   8-row tiles, which the level-4 reach exceeds, each tile's canvas sliced
+   from the frame (zeros past its border), held against the plain twins
+   and the whole-frame kernels and timed with CUDA events (``grid_sample``
+   beside K4c-K6c), then the temporal gradient on the history canvas
+   (K4c; K5c with the motion gradient, K6c without) against the unsharded
+   one (K4, K5, K6); (b)
+   ``make_sharded_pipeline`` for 8 orbit frames against the unsharded
+   ``FramePipeline``; (c) ``make_sharded_train_step``, 1 warm-up and 5
+   timed steps, against ``make_train_step``; (d) ``cli -t
+   SHARDED_SPATIAL``.
 
-Phases 4 to 9 are the main paths: every kernel's launch count is set to 0
-just before each and read just after, and each fails if one of its
-kernels never launched.  The line before the last is a JSON object with
+Phases 4 to 9 and 10(a)'s temporal gradient, 10(b), (c) and (d) are the
+main paths: every kernel's launch count is set to 0 just before each and
+read just after, and each fails if one of its kernels never launched.
+The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 No JAX is imported.
 """
@@ -84,15 +99,20 @@ from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
     atrous_level_fwd_cuda, atrous_level_wgrad_bwd_cuda, svgf_spatial_ad_cuda,
     svgf_spatial_cuda)
-from raymarchdenoisercuda_torch.ops.common import finite_diff_gradients
+from raymarchdenoisercuda_torch.ops.common import (
+    Tile, finite_diff_gradients, frame_canvas)
 from raymarchdenoisercuda_torch.ops.cuda import _build
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
     box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     march_gbuf_cuda, shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
-    gather_bwd_cuda, gather_bwd_hist_cuda, gather_cuda,
+    gather_bwd_cuda, gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
+    gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
+    temporal_accumulate_ad_cuda, temporal_accumulate_canvas_cuda,
     temporal_accumulate_cuda)
+from raymarchdenoisercuda_torch.parallel import sharded
+from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
 from raymarchdenoisercuda_torch.utils.timing import (
     CudaTimer, cuda_time_ms, nvidia_smi_name_power)
 
@@ -119,7 +139,10 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K5": gather_bwd_cuda, "K6": gather_bwd_hist_cuda,
             "K7": march_gbuf_cuda, "K8": shadow_shade_cuda,
             "K10": box_filter_cuda, "K11": gaussian_filter_cuda,
-            "K12": cross_bilateral_cuda, "K13": shadow_factor_cuda}
+            "K12": cross_bilateral_cuda, "K13": shadow_factor_cuda,
+            "K3b": temporal_accumulate_canvas_cuda, "K4c": gather_canvas_cuda,
+            "K5c": gather_canvas_bwd_cuda,
+            "K6c": gather_canvas_bwd_hist_cuda}
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
@@ -154,6 +177,14 @@ KERNELS = {
             PALLAS + "filters_tpu.py:135"),
     "K13": ("shadow_visibility", CUDA_SRC + "raymarch.cu",
             PALLAS + "raymarch_tpu.py:408"),
+    "K3b": ("temporal_step_canvas", CUDA_SRC + "temporal.cu",
+            PALLAS + "temporal_tpu.py:861"),
+    "K4c": ("reproject_gather_canvas", CUDA_SRC + "temporal.cu",
+            PALLAS + "temporal_tpu.py:946"),
+    "K5c": ("reproject_gather_canvas_bwd", CUDA_SRC + "temporal.cu",
+            PALLAS + "temporal_tpu.py:987"),
+    "K6c": ("reproject_gather_canvas_bwd_hist", CUDA_SRC + "temporal.cu",
+            PALLAS + "temporal_tpu.py:1010"),
 }
 # per-tap float operations of K1's weight math and accumulation, of K2's
 # tap, of K14's (the recomputed weight and K2's sum), of K9's two kernels
@@ -172,6 +203,10 @@ ADJOINT_MODES = (("stored", dict(bwd_impl="stored")),
                                                   chained=False)),
                  ("weight_grads", dict(weight_grads=True)))
 ADJOINT_STEPS = 5
+# phase 10: the sharded path at 3840x2160 on the (1, 1, 1) mesh
+UHD_H, UHD_W = 2160, 3840
+UHD_FRAMES = 8
+UHD_STEPS = 5                        # timed, after one warm-up step
 
 
 def phase(n, msg):
@@ -793,6 +828,24 @@ def read_counts(n, expected):
     return counts
 
 
+def counted(fn, counts):
+    """Run ``fn`` with every launch count set to 0 and add its launches
+    to ``counts`` (a main path interleaved with its comparison runs)."""
+    reset_counts()
+    out = fn()
+    for k, w in WRAPPERS.items():
+        counts[k] += w.launches
+    return out
+
+
+def require_launched(n, counts, expected):
+    missing = [k for k in expected if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"phase {n}: kernels never launched on the "
+                             f"main path: {missing}")
+    return counts
+
+
 def run_sequence(pipe, n_frames, H, W, dev, keep):
     """Render + denoise ``n_frames`` orbit frames; returns the per-frame
     device times (ms) and the first ``keep`` denoised frames."""
@@ -1167,6 +1220,443 @@ def adjoint_phase(H, W, dev):
     return counts
 
 
+def _uhd_tiles(H, W):
+    """The 2x2 tiles of the frame, and three 8-row tiles (top, middle,
+    bottom) whose height the level-4 reach exceeds."""
+    th, tw = H // 2, W // 2
+    quads = [(Tile((iy * th, ix * tw), (H, W)), th, tw)
+             for iy in range(2) for ix in range(2)]
+    rows = [(Tile((y, 0), (H, W)), 8, W) for y in (0, H // 2, H - 8)]
+    return quads, rows
+
+
+def _crop(x, tile, th, tw):
+    gy, gx = tile.origin
+    return x[..., gy:gy + th, gx:gx + tw].contiguous()
+
+
+def _place(acc, x, tile, m):
+    """Add a tile's canvas-sized (margin m) output into a frame padded by
+    m (the adjoints' margin gradients add up across tiles)."""
+    gy, gx = tile.origin
+    acc[..., gy:gy + x.shape[-2], gx:gx + x.shape[-1]] += x
+
+
+def check_level_tiles(P, results, tile_ms):
+    """10(a), à-trous: K1 (fast, and exact storing bf16 weights), K1b, K2
+    and K14 with a tile origin and the frame's bounds at levels 1 and 4,
+    radius 1, on every tile: each tile's output bit-equal to the whole-
+    frame kernel's at its pixels, and within the phase-3 tolerances of its
+    plain twin; the adjoints' margin gradients summed over the 2x2 tiles
+    equal to the whole-frame adjoint (rtol 1e-5: the sums' order)."""
+    color, var, normal, depth = (P["color"], P["variance"], P["normal"],
+                                 P["depth"])
+    dev = color.device
+    H, W = depth.shape
+    params = SVGFParams(radius=1)
+    zg = finite_diff_gradients(depth)
+    sd = atrous.sigma_denominator(var, params)
+    g = torch.Generator(dev).manual_seed(10)
+    gc = torch.randn((3, H, W), generator=g, device=dev)
+    gv = torch.randn((H, W), generator=g, device=dev)
+    quads, rows = _uhd_tiles(H, W)
+    errs = {}
+    for level in (1, 4):
+        h = params.radius << level
+        kw = dict(level=level, params=params)
+        whole_f = atrous_level_cuda(color, var, normal, depth, zg,
+                                    weight_math="fast", **kw)
+        whole = atrous_level_cuda(color, var, normal, depth, zg, store=True,
+                                  **kw)
+        whole_b = atrous_level_fwd_cuda(color, var, normal, depth, zg, sd,
+                                        **kw)
+        whole_k2 = atrous_level_bwd_stored_cuda(whole[2], whole[3], gc, gv,
+                                                level=level, radius=1)
+        whole_k14 = atrous_level_bwd_cuda(color, normal, depth, zg, sd,
+                                          whole_b[2], gc, gv, **kw)
+        acc2 = [torch.zeros((3, H + 2 * h, W + 2 * h), device=dev),
+                torch.zeros((H + 2 * h, W + 2 * h), device=dev)]
+        acc14 = [torch.zeros_like(a) for a in acc2]
+        for k, (tile, th, tw) in enumerate(quads + rows):
+            cc, vc, nc, dc = (frame_canvas(x, tile, th, tw, h)
+                              for x in (color, var, normal, depth))
+            zg_t, sd_t, gc_t, gv_t = (_crop(x, tile, th, tw)
+                                      for x in (zg, sd, gc, gv))
+            lvl = (cc, vc, nc, dc, zg_t)
+            got_f = atrous_level_cuda(*lvl, weight_math="fast", tile=tile,
+                                      **kw)
+            got = atrous_level_cuda(*lvl, store=True, tile=tile, **kw)
+            got_b = atrous_level_fwd_cuda(*lvl, sd_t, tile=tile, **kw)
+            for a, w in zip(got_f + got + got_b, whole_f + whole + whole_b):
+                if not torch.equal(a, _crop(w, tile, th, tw)):
+                    raise AssertionError(f"phase 10 level {level} tile {k}: "
+                                         f"tile form != whole frame")
+            want_f = atrous.atrous_level_ref(*lvl, weight_math="fast",
+                                             tile=tile, **kw)
+            want = atrous.atrous_level_ref(*lvl, return_weights=True,
+                                           tile=tile, **kw)
+            want_b = atrous.atrous_level_ref(*lvl, sigma_denom=sd_t,
+                                             return_weights=True, tile=tile,
+                                             **kw)
+            for name, a, b in zip(("color", "variance"), got_f, want_f):
+                check_close(f"K1 tile fast l{level} {name}", a, b,
+                            atol=2e-4 * float(b.abs().max()))
+            for name, a, b in (("color", got[0], want[0]),
+                               ("variance", got[1], want[1]),
+                               ("N", got[3], want[3]),
+                               ("K1b color", got_b[0], want_b[0]),
+                               ("K1b N", got_b[2], want_b[3])):
+                check_close(f"K1 tile l{level} {name}", a, b, atol=0.0,
+                            rtol=5e-5)
+            check_close(f"K1 tile l{level} weights", got[2],
+                        want[2].to(torch.bfloat16), atol=1e-30,
+                        rtol=2.0 ** -7)
+            k2 = atrous_level_bwd_stored_cuda(got[2], got[3], gc_t, gv_t,
+                                              level=level, radius=1,
+                                              out_halo=h)
+            k2_want = atrous.atrous_level_bwd_stored_ref(
+                got[2], got[3], gc_t, gv_t, level=level, radius=1,
+                out_halo=h)
+            k14 = atrous_level_bwd_cuda(cc, nc, dc, zg_t, sd_t, got_b[2],
+                                        gc_t, gv_t, tile=tile, out_halo=h,
+                                        **kw)
+            k14_want = atrous.atrous_level_bwd_ref(
+                cc, nc, dc, zg_t, sd_t, got_b[2], gc_t, gv_t, tile=tile,
+                out_halo=h, **kw)
+            for name, a, b in zip(("d_color", "d_variance"), k2, k2_want):
+                check_close(f"K2 tile l{level} {name}", a, b,
+                            atol=1e-12 * float(b.abs().max()), rtol=1e-6)
+            for name, a, b in zip(("d_color", "d_variance"), k14, k14_want):
+                check_close(f"K14 tile l{level} {name}", a, b,
+                            atol=1e-5 * float(b.abs().max()))
+            errs[level] = max([errs.get(level, 0.0)] + [
+                max_err(a, b) for a, b in zip(k2 + k14, k2_want + k14_want)])
+            if k < len(quads):
+                for a, acc in zip(k2, acc2):
+                    _place(acc, a, tile, h)
+                for a, acc in zip(k14, acc14):
+                    _place(acc, a, tile, h)
+            if k == 0 and level == 1:
+                tile_ms["K1 fast"] = cuda_time_ms(lambda: atrous_level_cuda(
+                    *lvl, weight_math="fast", tile=tile, **kw), repeats=20)
+                tile_ms["K1 store"] = cuda_time_ms(lambda: atrous_level_cuda(
+                    *lvl, store=True, tile=tile, **kw), repeats=20)
+                tile_ms["K1b"] = cuda_time_ms(lambda: atrous_level_fwd_cuda(
+                    *lvl, sd_t, tile=tile, **kw), repeats=20)
+                w_t, n_t, nb_t = got[2], got[3], got_b[2]
+                tile_ms["K2"] = cuda_time_ms(
+                    lambda: atrous_level_bwd_stored_cuda(
+                        w_t, n_t, gc_t, gv_t, level=level, radius=1,
+                        out_halo=h), repeats=20)
+                tile_ms["K14"] = cuda_time_ms(lambda: atrous_level_bwd_cuda(
+                    cc, nc, dc, zg_t, sd_t, nb_t, gc_t, gv_t, tile=tile,
+                    out_halo=h, **kw), repeats=20)
+        for name, acc, w in zip(("K2 d_color", "K2 d_variance",
+                                 "K14 d_color", "K14 d_variance"),
+                                acc2 + acc14, whole_k2 + whole_k14):
+            check_close(f"{name} l{level}: tiles summed vs whole frame",
+                        acc[..., h:h + H, h:h + W], w, rtol=1e-5,
+                        atol=1e-6 * float(w.abs().max()))
+    phase(10, f"(a) K1 (fast; exact, bf16 store), K1b, K2, K14 tile forms, "
+              f"levels 1 and 4, on 4 quarter tiles and 3 8-row tiles of "
+              f"{W}x{H}: bit-equal to the whole frame, twins matched, "
+              f"margin gradients add up (adjoint max |err| vs twin "
+              f"{errs}); ms on a {W // 2}x{H // 2} tile: "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tile_ms.items()))
+
+
+def check_temporal_canvas_tiles(P, results, tile_ms):
+    """10(a), temporal: K3b, the tile form of K3, K4c and K5c/K6c on the
+    (10, th + 14, tw + 14) history canvas (max_motion 6) of every tile,
+    against the whole-frame K3/K4/K5 (bit-equal forwards; the adjoints'
+    canvases summed over the 2x2 tiles within the atomics' rounding) and
+    the plain twins (phase 3's tolerances); timed on a quarter tile,
+    ``grid_sample`` beside K4c-K6c."""
+    dev = P["color"].device
+    H, W = P["depth"].shape
+    params = SVGFParams()
+    M = params.max_motion
+    mh = M + 1
+    stack = torch.cat([P["h_color"], P["h_moments"], P["h_length"][None],
+                       P["depth"][None], P["normal"]]).contiguous()
+    rng = np.random.default_rng(11)
+    cot = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    motion = P["motion"]
+    g = GBuffer(render=P["color"], albedo=P["color"], normal=P["normal"],
+                depth=P["depth"], motion=motion)
+    hist = temporal.history_from_stack(stack)
+    whole = temporal_accumulate_cuda(g, hist, params=params)
+    whole4 = gather_cuda(stack, motion, M)
+    whole5 = gather_bwd_cuda(stack, motion, cot, M, grad_planes=6)
+    quads, rows = _uhd_tiles(H, W)
+    acc5 = torch.zeros((10, H + 2 * mh, W + 2 * mh), device=dev)
+    acc6 = torch.zeros_like(acc5)
+    errs = [0.0] * 4
+    tol = dict(atol=1e-6, rtol=1e-5)
+    for k, (tile, th, tw) in enumerate(quads + rows):
+        canvas = frame_canvas(stack, tile, th, tw, mh)
+        m_t, cot_t = _crop(motion, tile, th, tw), _crop(cot, tile, th, tw)
+        g_t = GBuffer(render=frame_canvas(P["color"], tile, th, tw, 3),
+                      albedo=None, normal=_crop(P["normal"], tile, th, tw),
+                      depth=_crop(P["depth"], tile, th, tw), motion=m_t)
+        got = temporal_accumulate_canvas_cuda(g_t, canvas, params=params,
+                                              tile=tile)
+        want = temporal.temporal_accumulate(
+            g_t, temporal.history_from_stack(canvas), params=params,
+            tile=tile)
+        for name, a, b, w in (
+                ("integrated", got[0], want[0], whole[0]),
+                ("variance", got[1], want[1], whole[1]),
+                ("moments", got[2].moments, want[2].moments,
+                 whole[2].moments),
+                ("length", got[2].length, want[2].length, whole[2].length)):
+            if not torch.equal(a, _crop(w, tile, th, tw)):
+                raise AssertionError(f"K3b tile {k} {name} != whole frame")
+            check_close(f"K3b tile {k} {name}", a, b,
+                        **(dict(atol=0.0) if name == "length" else tol))
+            errs[0] = max(errs[0], max_err(a, b))
+        k4 = gather_canvas_cuda(canvas, m_t, M, tile=tile)
+        if not torch.equal(k4, _crop(whole4, tile, th, tw)):
+            raise AssertionError(f"K4c tile {k} != whole frame")
+        k4_want = temporal.gather_ref(canvas, m_t, M, tile=tile)
+        check_close(f"K4c tile {k}", k4, k4_want, **tol)
+        errs[1] = max(errs[1], max_err(k4, k4_want))
+        k5 = gather_canvas_bwd_cuda(canvas, m_t, cot_t, M, tile=tile,
+                                    grad_planes=6)
+        k5_want = temporal.gather_bwd_ref(canvas, m_t, cot_t, M,
+                                          motion_grad=True, grad_planes=6,
+                                          tile=tile)
+        k6 = gather_canvas_bwd_hist_cuda(m_t, cot_t, M, tile=tile,
+                                         canvas_shape=canvas.shape,
+                                         grad_planes=6)
+        for name, a, b in zip(("d_canvas", "d_motion"), k5, k5_want):
+            check_close(f"K5c tile {k} {name}", a, b, **tol)
+        check_close(f"K6c tile {k} d_canvas", k6[0], k5_want[0], **tol)
+        check_close(f"K5c tile {k} d_motion vs whole frame", k5[1],
+                    _crop(whole5[1], tile, th, tw), **tol)
+        errs[2] = max(errs[2], max(max_err(a, b) for a, b in zip(k5,
+                                                                 k5_want)))
+        errs[3] = max(errs[3], max_err(k6[0], k5_want[0]))
+        if k < len(quads):
+            _place(acc5, k5[0], tile, mh)
+            _place(acc6, k6[0], tile, mh)
+        if k == 0:
+            ms3 = cuda_time_ms(lambda: temporal_accumulate_canvas_cuda(
+                g_t, canvas, params=params, tile=tile), repeats=20)
+            plain3 = cuda_time_ms(lambda: temporal.temporal_accumulate(
+                g_t, temporal.history_from_stack(canvas), params=params,
+                tile=tile), repeats=3)
+            ms4 = cuda_time_ms(lambda: gather_canvas_cuda(
+                canvas, m_t, M, tile=tile), repeats=20)
+            plain4 = cuda_time_ms(lambda: temporal.gather_ref(
+                canvas, m_t, M, tile=tile), repeats=3)
+            ms5 = cuda_time_ms(lambda: gather_canvas_bwd_cuda(
+                canvas, m_t, cot_t, M, tile=tile, grad_planes=6), repeats=20)
+            plain5 = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+                canvas, m_t, cot_t, M, motion_grad=True, grad_planes=6,
+                tile=tile), repeats=3)
+            ms6 = cuda_time_ms(lambda: gather_canvas_bwd_hist_cuda(
+                m_t, cot_t, M, tile=tile, canvas_shape=canvas.shape,
+                grad_planes=6), repeats=20)
+            plain6 = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+                None, m_t, cot_t, M, motion_grad=False, grad_planes=6,
+                tile=tile, canvas_shape=canvas.shape), repeats=3)
+            # library yardstick: grid_sample on the tile's centre stack
+            x = _crop(stack, tile, th, tw)[None].clone().requires_grad_()
+            grid = _grid(m_t).requires_grad_()
+            lib4 = cuda_time_ms(lambda: F.grid_sample(
+                x, grid, mode="bilinear", padding_mode="zeros",
+                align_corners=True), repeats=20)
+            y = F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                              align_corners=True)
+            lib5 = cuda_time_ms(lambda: torch.autograd.grad(
+                y, (x, grid), cot_t[None], retain_graph=True), repeats=20)
+            lib6 = cuda_time_ms(lambda: torch.autograd.grad(
+                y, x, cot_t[None], retain_graph=True), repeats=20)
+            HW = th * tw
+            frac = float(((m_t[0].abs() <= M) & (m_t[1].abs() <= M)).float()
+                         .mean())
+            short = float((got[2].length < params.variance_boost_frames)
+                          .float().mean())
+            # the same bytes and operations a pixel as K3, K4, K5, K6
+            results["K3b"] = dict(ms=ms3, plain_ms=plain3, bytes=104 * HW,
+                                  flops=(60 + 49 * 8 * short) * HW)
+            results["K4c"] = dict(ms=ms4, plain_ms=plain4, library_ms=lib4,
+                                  bytes=88 * HW,
+                                  flops=int(4 * (10 * 2 + 8) * frac * HW))
+            results["K5c"] = dict(ms=ms5, plain_ms=plain5, library_ms=lib5,
+                                  bytes=104 * HW,
+                                  flops=int((4 * 6 * 2 + 9 * (6 * 2 + 12))
+                                            * frac * HW))
+            results["K6c"] = dict(ms=ms6, plain_ms=plain6, library_ms=lib6,
+                                  bytes=72 * HW,
+                                  flops=int(4 * 6 * 2 * frac * HW))
+            tile_ms.update({"K3b": ms3, "K4c": ms4, "K5c": ms5, "K6c": ms6})
+    for name, acc in (("K5c", acc5), ("K6c", acc6)):
+        check_close(f"{name} canvases summed vs whole-frame K5", acc[
+            :, mh:mh + H, mh:mh + W], whole5[0], **tol)
+    for k, e in zip(("K3b", "K4c", "K5c", "K6c"), errs):
+        results[k]["max_abs_err"] = e
+    phase(10, "(a) K3b (and K3's tile form), K4c, K5c, K6c on 4 quarter "
+              "tiles and 3 8-row tiles: bit-equal forwards, canvases' "
+              "gradients add up to the whole frame's; " + ", ".join(
+                  f"{k} {results[k]['ms']:.4f} ms (plain "
+                  f"{results[k]['plain_ms']:.4f}"
+                  + (f", grid_sample {results[k]['library_ms']:.4f}"
+                     if "library_ms" in results[k] else "") + ")"
+                  for k in ("K3b", "K4c", "K5c", "K6c")))
+
+
+def sharded_temporal_grad_phase(P):
+    """10(a), main path: the differentiable temporal step on the (1, 1, 1)
+    mesh's history canvas at 4K (K4c; K5c with the motion gradient, K6c
+    without), its gradients with respect to motion and the history against
+    the unsharded step's (K4; K5, K6), atol 3e-3·max as phase 6."""
+    H, W = P["depth"].shape
+    mesh = make_mesh()
+    params = SVGFParams()
+    mh = params.max_motion + 1
+    motion = (P["motion"] * (params.max_motion / 7.0)).contiguous()
+    stack = torch.cat([P["h_color"], P["h_moments"], P["h_length"][None],
+                       P["depth"][None], P["normal"]]).contiguous()
+    total = {k: 0 for k in WRAPPERS}
+    for motion_grad in (True, False):
+        grads = {}
+        for path in ("sharded", "unsharded"):
+            m = motion.clone().requires_grad_(motion_grad)
+            g = GBuffer(render=P["color"], albedo=P["color"],
+                        normal=P["normal"], depth=P["depth"], motion=m)
+            if path == "sharded":
+                leaf = F.pad(stack, (mh, mh, mh, mh)).requires_grad_()
+                reset_counts()
+                integ, _, _ = sharded.temporal_accumulate_canvas_local(
+                    g, leaf, H, W, mesh=mesh, params=params,
+                    motion_grad=motion_grad)
+                (integ ** 2).mean().backward()
+                for k, n in read_counts(10, ("K4c",) + (
+                        ("K5c",) if motion_grad else ("K6c",))).items():
+                    total[k] += n
+                d_hist = leaf.grad[:, mh:mh + H, mh:mh + W]
+            else:
+                leaf = stack.clone().requires_grad_()
+                integ, _, _ = temporal_accumulate_ad_cuda(
+                    g, temporal.history_from_stack(leaf), params=params,
+                    motion_grad=motion_grad)
+                (integ ** 2).mean().backward()
+                d_hist = leaf.grad
+            grads[path] = (m.grad, d_hist)
+        (ms_, hs), (mu, hu) = grads["sharded"], grads["unsharded"]
+        check_close(f"canvas d_history (motion_grad={motion_grad})", hs, hu,
+                    atol=3e-3 * float(hu.abs().max()))
+        if motion_grad:
+            check_close("canvas d_motion", ms_, mu,
+                        atol=3e-3 * float(mu.abs().max()))
+    phase(10, f"(a) temporal gradient on the history canvas {W}x{H}: "
+              f"d_motion and d_history match the unsharded step; launches "
+              f"{ {k: n for k, n in total.items() if n} }")
+    return total
+
+
+def sharded_pipeline_phase(H, W, dev, n_frames):
+    """10(b): ``make_sharded_pipeline`` (K7/K8 windows, K3b on the history
+    canvas, the chained K1 sweep) on the (1, 1, 1) mesh against the
+    unsharded ``FramePipeline`` on the same frames and light samples."""
+    scene = raymarch.cornell_scene(device=dev)
+    mesh = make_mesh()
+    cfg = dict(cam_cfg=CameraParams(width=W, height=H),
+               rm_params=RaymarchParams(), svgf_params=SERVING)
+    run = sharded.make_sharded_pipeline(mesh, H, W,
+                                        weight_math=SERVING_WEIGHTS, **cfg)
+    pipe = FramePipeline(scene, weight_math=SERVING_WEIGHTS, **cfg)
+    hs = sharded.init_history_canvas(mesh, H, W, SERVING, device=dev)
+    hu = History.zeros(H, W, device=dev)
+    gen = torch.Generator(dev).manual_seed(0)
+    prev, times, utimes = None, [], []
+    counts = {k: 0 for k in WRAPPERS}
+    for f in range(n_frames):
+        cam = orbit_camera(f / SEQ_FRAMES, device=dev)
+        lp = raymarch.sample_light(scene, gen, (H, W))
+        with CudaTimer() as tm:
+            a, hs = counted(lambda: run(scene, cam, prev, hs,
+                                        light_sample=lp), counts)
+        times.append(tm.ms)
+        with torch.no_grad(), CudaTimer() as tm:
+            b, hu = pipe(cam, prev, hu, light_sample=lp)
+        utimes.append(tm.ms)
+        check_close(f"sharded frame {f} denoised (vs unsharded)", a.denoised,
+                    b.denoised, atol=1e-3 * float(b.denoised.abs().max()))
+        prev = cam
+    require_launched(10, counts, ("K1", "K3b", "K7", "K8"))
+    steady, usteady = times[1:] or times, utimes[1:] or utimes
+    phase(10, f"(b) sharded pipeline {W}x{H} on a {mesh.axis_sizes} mesh, "
+              f"{n_frames} frames: {sum(steady) / len(steady):.3f} ms/frame "
+              f"(frames 2-{n_frames}; unsharded "
+              f"{sum(usteady) / len(usteady):.3f}); every frame matches the unsharded path; launches {counts}")
+    return counts
+
+
+def sharded_train_phase(H, W, dev):
+    """10(c): ``make_sharded_train_step`` (K7/K8 windows, K4c, the stored
+    K1/K2 sweep with tile origins; the albedo is differentiated, not the
+    history carry, so no gather adjoint runs) on the (1, 1, 1) mesh against
+    ``make_train_step``: the same light samples, loss rtol 1e-5, albedo
+    gradient atol 3e-3·max, as phase 5."""
+    scene = raymarch.cornell_scene(device=dev)
+    mesh = make_mesh()
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (3, H, W), dtype=np.float32)).to(dev)
+    kw = dict(cam_cfg=CameraParams(width=W, height=H),
+              rm_params=RaymarchParams(), svgf_params=TRAIN)
+    cam = raymarch.cornell_camera(device=dev)
+    step_s = sharded.make_sharded_train_step(mesh, scene, cam, target, **kw)
+    step_u = make_train_step(scene, cam, target, **kw)
+    state_s = sharded.init_sharded_train_state(mesh, scene.materials.albedo,
+                                               H, W, TRAIN)
+    state_u = init_train_state(scene.materials.albedo, H, W)
+    gen = torch.Generator(dev).manual_seed(0)
+    times, utimes = [], []
+    counts = {k: 0 for k in WRAPPERS}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    for k in range(1 + UHD_STEPS):
+        lp = raymarch.sample_light(scene, gen, (H, W))
+        with CudaTimer() as tm:
+            state_s, ls = counted(lambda: step_s(state_s, light_sample=lp),
+                                  counts)
+        times.append(tm.ms)
+        with CudaTimer() as tm:
+            state_u, lu = step_u(state_u, light_sample=lp)
+        utimes.append(tm.ms)
+        if abs(float(ls) - float(lu)) > 1e-5 * abs(float(lu)):
+            raise AssertionError(f"sharded train step {k}: loss {float(ls)} "
+                                 f"vs unsharded {float(lu)}")
+        check_close(f"sharded train step {k} albedo gradient",
+                    state_s.albedo.grad, state_u.albedo.grad,
+                    atol=3e-3 * float(state_u.albedo.grad.abs().max()))
+    require_launched(10, counts, ("K1", "K2", "K4c", "K7", "K8"))
+    peak = torch.cuda.max_memory_allocated() - base
+    t, u = times[1:], utimes[1:]
+    phase(10, f"(c) sharded train step {W}x{H} on a {mesh.axis_sizes} mesh: "
+              f"{sum(t) / len(t):.3f} ms/step over {len(t)} steps after one "
+              f"(unsharded {sum(u) / len(u):.3f}); losses and gradients "
+              f"match the unsharded step; peak memory of both "
+              f"{peak / 2**30:.3f} GiB; launches {counts}")
+    return counts
+
+
+def sharded_cli_phase():
+    """10(d): the CLI's SHARDED_SPATIAL case on the card."""
+    reset_counts()
+    rc = cli.main(["-t", "SHARDED_SPATIAL"])
+    counts = read_counts(10, ("K1",))
+    if rc != 0:
+        raise AssertionError(f"phase 10: cli SHARDED_SPATIAL returned {rc}")
+    phase(10, f"(d) cli -t SHARDED_SPATIAL: passed; launches {counts}")
+    return counts
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--width", type=int, default=1920)
@@ -1210,6 +1700,20 @@ def main(argv=None) -> int:
                 lambda: temporal_grad_phase(H, W, dev), cli_phase,
                 lambda: dataset_phase(H, W, dev),
                 lambda: adjoint_phase(H, W, dev)):
+        for k, n in run().items():
+            launches[k] += n
+
+    UH, UW = UHD_H, UHD_W
+    P = random_planes(UH, UW, dev, seed=12)
+    tile_ms = {}
+    check_level_tiles(P, results, tile_ms)
+    check_temporal_canvas_tiles(P, results, tile_ms)
+    for k, n in sharded_temporal_grad_phase(P).items():
+        launches[k] += n
+    del P
+    torch.cuda.synchronize()
+    for run in (lambda: sharded_pipeline_phase(UH, UW, dev, UHD_FRAMES),
+                lambda: sharded_train_phase(UH, UW, dev), sharded_cli_phase):
         for k, n in run().items():
             launches[k] += n
 

@@ -10,10 +10,11 @@ device="cpu")`` runs them on the CPU through the plain versions.
 
 Cases: FILTER_BASELINE (the plain ``box_filter``), FILTER_TILED (K10),
 SVGF_SPATIAL (the K1 sweep), RAYMARCH (K7, K8 at 512x512), TEMPORAL (K3),
-FILTER_CROSS (K12), DEVICE_STATS, IMAGE and DENOISE_CORNELL.  The last two
+FILTER_CROSS (K12), SHARDED_SPATIAL (the sharded sweep on this process's
+mesh, a (1, 1, 1) mesh unless a process group is up, against the
+unsharded sweep), DEVICE_STATS, IMAGE and DENOISE_CORNELL.  The last two
 read the reference checkout's Cornell fixture from the directory named by
 the ``RDT_REFERENCE_ROOT`` environment variable and fail without it.
-SHARDED_SPATIAL is not registered: the multi-device path is not ported.
 """
 
 from __future__ import annotations
@@ -129,6 +130,30 @@ def _register_builtin_cases(device: torch.device):
                                                      depth, params=p), 5)
         _check(bool(torch.isfinite(out).all()), "non-finite output")
         print(f"\t{mpix_per_s(H, W, dt):.1f} Mpix/s ({kind})")
+
+    @case_("SHARDED_SPATIAL")
+    def sharded_spatial():
+        # the config-5 machinery end to end on this process's mesh, with a
+        # parity check against the unsharded sweep: on the card the tile
+        # forms of K1 at 1920x1080, on the CPU the oracle path at 128x128
+        from .ops.atrous import svgf_spatial_ref
+        from .ops.atrous_cuda import svgf_spatial_cuda
+        from .parallel.mesh import make_mesh
+        from .parallel.sharded import svgf_spatial_sharded
+        h, w = (H, W) if on_card else (128, 128)
+        planes = rand_planes(h, w)
+        params = SVGFParams(iterations=5, radius=1)
+        mesh = make_mesh()
+        with torch.no_grad():
+            want = (svgf_spatial_cuda(*planes, params=params) if on_card
+                    else svgf_spatial_ref(*planes, params=params))[0]
+        dt, (got, _v) = timed(lambda: svgf_spatial_sharded(
+            *planes, mesh=mesh, params=params,
+            impl="auto" if on_card else "plain", bwd_impl="none"), 3)
+        err = float((got - want).abs().max())
+        _check(err < 1e-3, f"sharded/unsharded mismatch {err}")
+        print(f"\t{mpix_per_s(h, w, dt):.1f} Mpix/s ({kind}) on a "
+              f"{mesh.axis_sizes} mesh (max |err| {err:.2e})")
 
     @case_("DEVICE_STATS")
     def device_stats():

@@ -29,6 +29,13 @@ weights and the normaliser N), with the weights recomputed
 (:func:`atrous_level_wgrad_bwd_ref`, the explicit form of autograd with
 ``detach_weights=False`` and a given σ-denominator).
 
+Tiles (``tile=Tile(origin, bounds)``, the sharded sweep's kernel forms):
+the level and its adjoints compute the centre of a tile of the frame, read
+the planes around a pixel from canvases (the tile plus a margin the halo
+exchange filled) and drop a tap whose global coordinate lies outside the
+frame, as the kernels do with their origin and bounds.  The adjoints can
+write the gradients of the canvas margins too (``out_halo``).
+
 ``weight_math="fast"`` is the plain version of the TPU kernel's fast tap
 weight (``ops/pallas/atrous_tpu.py`` ``_make_level_kernel(fast_weights=True)``),
 which has no jnp oracle in the JAX package: the exponent moves to base 2,
@@ -47,7 +54,8 @@ import torch.nn.functional as F
 
 from ..config import SVGFParams, WAVELET_SPLINE_5
 from ..gbuffer import luminance
-from .common import shift2d, valid_mask, finite_diff_gradients
+from .common import (Tile, canvas_margin, crop, finite_diff_gradients,
+                     global_mask, shift2d, valid_mask)
 
 _EPS = 1e-8
 _LUMA = (0.2126, 0.7152, 0.0722)   # Rec.709, as gbuffer.luminance
@@ -94,6 +102,26 @@ def variance_blur3x3(variance: torch.Tensor) -> torch.Tensor:
                   * _edge_sums(W, variance)[None, :])
 
 
+def variance_blur3x3_tile(variance: torch.Tensor, tile: Tile, H: int,
+                          W: int) -> torch.Tensor:
+    """:func:`variance_blur3x3` of an H x W tile from its variance canvas
+    (margin >= 1): the taps outside the frame are dropped and the weights
+    renormalised over the rest, in K1's order; a pixel outside the frame (a
+    padded tile) has no such tap and gets 0."""
+    m = canvas_margin(variance, H, W, "variance")
+    k1 = (0.25, 0.5, 0.25)
+    num = torch.zeros((H, W), dtype=variance.dtype, device=variance.device)
+    den = torch.zeros_like(num)
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            km = k1[dy + 1] * k1[dx + 1] * global_mask(
+                tile, H, W, dy, dx, device=variance.device,
+                dtype=variance.dtype)
+            num = num + km * crop(variance, m, dy, dx, H, W)
+            den = den + km
+    return num / torch.clamp(den, min=1e-20)
+
+
 def _edge_sums(n: int, like: torch.Tensor) -> torch.Tensor:
     """Σ of the in-range (¼, ½, ¼) weights along an axis of length n: 1,
     and ¾ at each end (½ where n = 1)."""
@@ -117,22 +145,52 @@ def _exp2_fast3(y: torch.Tensor) -> torch.Tensor:
     return p * two_i
 
 
-def sigma_denominator(variance: torch.Tensor,
-                      params: SVGFParams) -> torch.Tensor:
+def sigma_denominator(variance: torch.Tensor, params: SVGFParams, *,
+                      tile: Tile = None, shape=None) -> torch.Tensor:
     """``σ_l·sqrt(max(blur3x3(var), 0)) + ε``: the luminance weight's
-    denominator of a level (what K1 fuses and K1b takes as an input)."""
-    return params.sigma_color * torch.sqrt(
-        torch.clamp(variance_blur3x3(variance), min=0.0)) + _EPS
+    denominator of a level (what K1 fuses and K1b takes as an input); with
+    ``tile``, of the ``shape`` = (H, W) tile from its variance canvas."""
+    blur = (variance_blur3x3(variance) if tile is None
+            else variance_blur3x3_tile(variance, tile, *shape))
+    return params.sigma_color * torch.sqrt(torch.clamp(blur, min=0.0)) + _EPS
 
 
 def _tap_weights(lum, normal, depth, zgrad, sden, *, level, params,
-                 weight_math="exact", luma_only=False):
+                 weight_math="exact", luma_only=False, tile=None):
     """Yields ``(oy, ox, w)`` for each tap (dy-major, tap k = (dy+r)(2r+1) +
     (dx+r)): the (H, W) weight of the centres' tap at offset (oy, ox), ``h``
     and the border mask included.  The exact weight is
     ``h·exp(wz + wl)·pow(max(ndot, 1e-20), σn)`` in the operation order of
-    K1 (``atrous.cu``), which K14 and K9 recompute."""
-    H, W = depth.shape
+    K1 (``atrous.cu``), which K14 and K9 recompute.  With ``tile``,
+    ``lum``, ``normal`` and ``depth`` are canvases around the (H, W) tile
+    of ``zgrad``, and the mask is the frame's."""
+    H, W = zgrad.shape[-2:]
+    lum_q_of, normal_q_of, depth_q_of = lum, normal, depth
+    if tile is None:
+        def at_l(x, oy, ox):
+            return shift2d(x, oy, ox)
+
+        at_g = at_l
+
+        def mask(oy, ox):
+            return valid_mask(H, W, oy, ox, device=depth.device,
+                              dtype=depth.dtype)
+    else:
+        ml = canvas_margin(lum, H, W, "colour")
+        mg = canvas_margin(depth, H, W, "depth")
+
+        def at_l(x, oy, ox):
+            return crop(x, ml, oy, ox, H, W)
+
+        def at_g(x, oy, ox):
+            return crop(x, mg, oy, ox, H, W)
+
+        def mask(oy, ox):
+            return global_mask(tile, H, W, oy, ox, device=depth.device,
+                               dtype=depth.dtype)
+
+        lum, normal, depth = (at_l(lum, 0, 0), at_g(normal, 0, 0),
+                              at_g(depth, 0, 0))
     spacing = 1 << level
     r = params.radius
     taps1d = _spline_taps(r)
@@ -148,12 +206,11 @@ def _tap_weights(lum, normal, depth, zgrad, sden, *, level, params,
         for dx in range(-r, r + 1):
             oy, ox = dy * spacing, dx * spacing
             h = taps1d[dy + r] * taps1d[dx + r]
-            m = valid_mask(H, W, oy, ox, device=depth.device,
-                           dtype=depth.dtype)
-            l_q = shift2d(lum, oy, ox)
+            m = mask(oy, ox)
+            l_q = at_l(lum_q_of, oy, ox)
             if not luma_only:
-                z_q = shift2d(depth, oy, ox)
-                n_q = shift2d(normal, oy, ox)
+                z_q = at_g(depth_q_of, oy, ox)
+                n_q = at_g(normal_q_of, oy, ox)
                 zdot = torch.abs(zgrad[0] * oy + zgrad[1] * ox)
             if fast:
                 arg = -torch.abs(lum - l_q) * isd2
@@ -193,6 +250,7 @@ def atrous_level_ref(
     detach_weights: bool = True,
     return_weights: bool = False,
     sigma_denom: torch.Tensor = None,  # (H, W); from the variance if None
+    tile: Tile = None,
 ):
     """One à-trous level.  Returns (filtered colour, filtered variance), and
     with ``return_weights`` also the (n_taps, H, W) tap weights in the
@@ -203,22 +261,38 @@ def atrous_level_ref(
     ``sigma_denom`` given: the luminance weight divides by it instead of
     by :func:`sigma_denominator` of ``variance`` (``atrous_level_fwd_pallas``'s
     input, K1b's); with ``detach_weights=False`` gradients then reach it,
-    and ``variance`` only through the data term."""
+    and ``variance`` only through the data term.
+
+    ``tile`` given (K1's and K1b's tile form): ``color``/``variance`` and
+    ``normal``/``depth`` are canvases around the tile of ``zgrad`` (which
+    is then required), margins >= the level's reach r·2^level (and >= 1
+    for the fused σ blur); the outputs are the tile's."""
     if weight_math not in WEIGHT_MATHS:
         raise ValueError(f"unknown weight_math: {weight_math!r}")
     if zgrad is None:
+        if tile is not None:
+            raise ValueError("the tile form needs the tile's zgrad")
         zgrad = finite_diff_gradients(depth)
+    H, W = zgrad.shape[-2:]
+    if tile is None:
+        def at(x, oy, ox):
+            return shift2d(x, oy, ox)
+    else:
+        md = canvas_margin(color, H, W, "color")
+
+        def at(x, oy, ox):
+            return crop(x, md, oy, ox, H, W)
 
     lum = luminance(color)
     var_w = variance
     if detach_weights:
         lum, var_w = lum.detach(), variance.detach()
-    sden = (sigma_denominator(var_w, params) if sigma_denom is None
-            else sigma_denom)
+    sden = (sigma_denominator(var_w, params, tile=tile, shape=(H, W))
+            if sigma_denom is None else sigma_denom)
 
-    num_c = torch.zeros_like(color)
-    num_v = torch.zeros_like(variance)
-    den = torch.zeros_like(variance)
+    num_c = torch.zeros((3, H, W), dtype=color.dtype, device=color.device)
+    num_v = torch.zeros((H, W), dtype=color.dtype, device=color.device)
+    den = torch.zeros_like(num_v)
 
     luma_only = (params.luma_only_from is not None
                  and level >= params.luma_only_from)
@@ -226,14 +300,14 @@ def atrous_level_ref(
     for oy, ox, w in _tap_weights(lum, normal, depth, zgrad, sden,
                                   level=level, params=params,
                                   weight_math=weight_math,
-                                  luma_only=luma_only):
+                                  luma_only=luma_only, tile=tile):
         if detach_weights:
             w = w.detach()
         if return_weights:
             weights.append(w)
 
-        num_c = num_c + w[None] * shift2d(color, oy, ox)
-        num_v = num_v + (w * w) * shift2d(variance, oy, ox)
+        num_c = num_c + w[None] * at(color, oy, ox)
+        num_v = num_v + (w * w) * at(variance, oy, ox)
         den = den + w
 
     den = torch.clamp(den, min=_EPS)
@@ -251,6 +325,7 @@ def atrous_level_bwd_stored_ref(
     *,
     level: int,
     radius: int,
+    out_halo: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K2 (bf16 weights) and K2b (float32 weights): the
     detached adjoint of one level from the forward's stored weights.
@@ -258,7 +333,12 @@ def atrous_level_bwd_stored_ref(
     With ``u = gc/max(N, ε)`` and ``u2 = gv/max(N, ε)²`` at each centre p,
     ``dc_x = Σ_d w_{x−d}(d)·u_{x−d}`` and ``dv_x = Σ_d w_{x−d}(d)²·u2_{x−d}``
     (taps at spacing 2^level, summed in tap order, each weight widened to
-    the cotangent's dtype first).  Returns ``(d_color, d_variance)``."""
+    the cotangent's dtype first).  ``out_halo`` = o > 0 (the tile form):
+    the gradients of the (H + 2o, W + 2o) canvas around the tile, margins
+    included, from the tile's centres.  Returns ``(d_color, d_variance)``."""
+    if out_halo:
+        o = out_halo
+        w, norm, gc, gv = (F.pad(t, (o, o, o, o)) for t in (w, norm, gc, gv))
     spacing = 1 << level
     r = radius
     inv_n = 1.0 / torch.clamp(norm, min=_EPS)
@@ -289,9 +369,14 @@ def atrous_level_bwd_ref(
     *,
     level: int,
     params: SVGFParams,
+    tile: Tile = None,
+    out_halo: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K14: the detached adjoint of one level with the
     weights recomputed (``atrous_level_bwd_pallas``; no weight storage).
+    ``tile`` and ``out_halo`` as in :func:`atrous_level_ref` and
+    :func:`atrous_level_bwd_stored_ref` (``color``, ``normal`` and
+    ``depth`` are then canvases, margins >= the level's reach).
 
     Each tap's weight is recomputed at every centre p from p's luminance,
     normal, depth, ∇z and σ-denominator and the neighbour's, by the exact
@@ -303,9 +388,11 @@ def atrous_level_bwd_ref(
     JAX package.  Returns ``(d_color, d_variance)``."""
     lum = luminance(color)
     w = torch.stack([w for _, _, w in _tap_weights(
-        lum, normal, depth, zgrad, sigma_denom, level=level, params=params)])
+        lum, normal, depth, zgrad, sigma_denom, level=level, params=params,
+        tile=tile)])
     return atrous_level_bwd_stored_ref(w, norm, gc, gv, level=level,
-                                       radius=params.radius)
+                                       radius=params.radius,
+                                       out_halo=out_halo)
 
 
 def atrous_level_wgrad_bwd_ref(

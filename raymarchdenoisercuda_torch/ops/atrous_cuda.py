@@ -25,6 +25,15 @@ Per-level wrappers, one for each JAX function: :func:`atrous_level_cuda`
 tensors and runs the plain twin from ``ops.atrous`` for CPU tensors, so the
 sweeps compute one algorithm on either device, and counts its launches in
 its ``launches`` attribute.
+
+Tiles: K1, K1b and K14 take ``tile=Tile(origin, bounds)`` (the sharded
+sweep, ``parallel/sharded.py``): the colour/variance and normal/depth
+planes are then canvases around the tile of ``zgrad`` (views into larger
+canvases included), and a tap is dropped by its global coordinate, as
+``atrous_level_fwd_canvas`` and ``atrous_level_tile`` do with their origin
+and bounds; K2 and K14 take ``out_halo`` and then write the gradients of
+the canvas margins too (``atrous_level_bwd_stored_canvas``'s margin-
+writing form).  Without them every launch is the whole-frame one.
 """
 
 from __future__ import annotations
@@ -38,7 +47,7 @@ from .atrous import (WEIGHT_MATHS, _EPS, _LN2, _LOG2E, _spline_taps,
                      atrous_level_bwd_ref, atrous_level_bwd_stored_ref,
                      atrous_level_ref, atrous_level_wgrad_bwd_ref,
                      sigma_denominator)
-from .common import finite_diff_gradients
+from .common import Tile, canvas_margin, finite_diff_gradients
 from .cuda import _build
 
 BWD_IMPLS = ("stored", "stored_f32", "recompute", "none")
@@ -55,6 +64,20 @@ class _AtrousParams(ctypes.Structure):
          "sz2", "eps2", "c_s1", "c_s2")] + [("taps", ctypes.c_float * 5)]
 
 
+class _AtrousTile(ctypes.Structure):
+    """Mirror of ``struct AtrousTile`` in ``ops/cuda/atrous.cu``."""
+
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("Hg", "Wg", "gy0", "gx0", "d_rs", "d_ps", "d_m", "g_rs",
+                 "g_ps", "g_m", "o_m")]
+
+
+def _ref(struct):
+    """A pointer argument: the struct's address, or NULL for None (the
+    caller keeps the struct alive through the call)."""
+    return None if struct is None else ctypes.addressof(struct)
+
+
 def _launch_params(H, W, level, params, weight_math="exact"):
     r = params.radius
     return _AtrousParams(
@@ -68,6 +91,46 @@ def _launch_params(H, W, level, params, weight_math="exact"):
         c_s1=params.sigma_normal * _LOG2E * 0.5,
         c_s2=params.sigma_normal * _LOG2E * 0.125,
         taps=(ctypes.c_float * 5)(*_spline_taps(r)))
+
+
+def _neighbourhood(dev, H, W, tile, color, variance, normal, depth, reach,
+                   out_halo=0):
+    """Pointers of the planes a level reads around a pixel (colour,
+    variance, normal, depth; ``variance`` may be None) and the launch's
+    ``_AtrousTile`` (None: the whole frame).  Whole frame: contiguous
+    (…, H, W) planes.  Tile: two canvases, colour/variance and
+    normal/depth, each with one margin and one row stride, the margins >=
+    ``reach``."""
+    if tile is None:
+        if out_halo:
+            raise ValueError("out_halo needs a tile")
+        named = [(color, "color", 3), (variance, "variance", None),
+                 (normal, "normal", 3), (depth, "depth", None)]
+        return _planes(dev, H, W, [t for t in named if t[0] is not None]), \
+            None
+    md = canvas_margin(color, H, W, "color")
+    mg = canvas_margin(normal, H, W, "normal")
+    if min(md, mg) < reach:
+        raise ValueError(f"canvas margins {md}, {mg} < the reach {reach}")
+    ptrs = []
+    for t, name, k, m, ref in ((color, "color", 3, md, color),
+                               (variance, "variance", None, md, color),
+                               (normal, "normal", 3, mg, normal),
+                               (depth, "depth", None, mg, normal)):
+        if t is None:
+            continue
+        shape = (H + 2 * m, W + 2 * m)
+        ptrs.append(_build.check_canvas(t, name, shape if k is None
+                                        else (k,) + shape, torch.float32,
+                                        dev))
+        if t.stride(-2) != ref.stride(-2):
+            raise ValueError(f"{name}: row stride {t.stride(-2)}, expected "
+                             f"{ref.stride(-2)} (one canvas geometry)")
+    (gy0, gx0), (Hg, Wg) = tile.origin, tile.bounds
+    return ptrs, _AtrousTile(
+        Hg=Hg, Wg=Wg, gy0=gy0, gx0=gx0, d_rs=color.stride(1),
+        d_ps=color.stride(0), d_m=md, g_rs=normal.stride(1),
+        g_ps=normal.stride(0), g_m=mg, o_m=out_halo)
 
 
 def _planes(dev, H, W, named):
@@ -109,15 +172,16 @@ def zgrad_cuda(depth: torch.Tensor) -> torch.Tensor:
 
 
 def _launch_level(color, variance, normal, depth, zgrad, sigma_denom, *,
-                  level, params, weight_math, w_dtype, want_norm):
+                  level, params, weight_math, w_dtype, want_norm, tile):
     """One launch of the level kernel (K1 with ``sigma_denom`` None, else
     K1b); returns ``(c, v, w or None, N or None)``."""
-    H, W = depth.shape
+    H, W = zgrad.shape[-2:]
     dev = color.device
     f32 = torch.float32
-    ptrs = _planes(dev, H, W, (
-        (color, "color", 3), (variance, "variance", None),
-        (normal, "normal", 3), (depth, "depth", None), (zgrad, "zgrad", 2)))
+    reach = max(params.radius << level, int(sigma_denom is None))
+    ptrs, t = _neighbourhood(dev, H, W, tile, color, variance, normal,
+                             depth, reach)
+    ptrs += _planes(dev, H, W, ((zgrad, "zgrad", 2),))
     sden_ptr = None
     if sigma_denom is not None:
         sden_ptr, = _planes(dev, H, W, ((sigma_denom, "sigma_denom", None),))
@@ -137,27 +201,30 @@ def _launch_level(color, variance, normal, depth, zgrad, sigma_denom, *,
         *ptrs, sden_ptr, c_out.data_ptr(), v_out.data_ptr(),
         None if w is None else w.data_ptr(),
         None if norm is None else norm.data_ptr(), int(w_dtype == f32),
-        ctypes.addressof(p), _stream(dev))
+        ctypes.addressof(p), _ref(t), _stream(dev))
     _build.check(rc, "rdt_atrous_level")
     return c_out, v_out, w, norm
 
 
 def atrous_level_cuda(color, variance, normal, depth, zgrad, *, level: int,
                       params: SVGFParams, weight_math: str = "exact",
-                      store: bool = False, store_dtype=torch.bfloat16):
+                      store: bool = False, store_dtype=torch.bfloat16,
+                      tile: Tile = None):
     """One level forward (K1, σ-denominator fused).  Returns ``(c, v)``, and
     with ``store`` also the (n_taps, H, W) tap weights in ``store_dtype``
     (bf16 for ``bwd_impl="stored"``, float32 for ``"stored_f32"``) and the
     (H, W) normaliser N that the stored-weight adjoint reads.  No backward
     of its own (the sweeps below own the gradient): it raises if an input
-    requires grad.
+    requires grad.  ``tile``: see the module docstring (the canvases'
+    margins >= r·2^level).
 
     Each launch adds one to ``atrous_level_cuda.launches``."""
     _build.check_no_grad("atrous_level_cuda", color, variance, normal, depth)
     if not color.is_cuda:
         out = atrous_level_ref(color, variance, normal, depth, zgrad,
                                level=level, params=params,
-                               weight_math=weight_math, return_weights=store)
+                               weight_math=weight_math, return_weights=store,
+                               tile=tile)
         if store:
             c, v, w, norm = out
             return c, v, w.to(store_dtype), norm
@@ -165,7 +232,7 @@ def atrous_level_cuda(color, variance, normal, depth, zgrad, *, level: int,
     c, v, w, norm = _launch_level(
         color, variance, normal, depth, zgrad, None, level=level,
         params=params, weight_math=weight_math,
-        w_dtype=store_dtype if store else None, want_norm=store)
+        w_dtype=store_dtype if store else None, want_norm=store, tile=tile)
     atrous_level_cuda.launches += 1
     return (c, v, w, norm) if store else (c, v)
 
@@ -175,12 +242,12 @@ atrous_level_cuda.launches = 0
 
 def atrous_level_fwd_cuda(color, variance, normal, depth, zgrad, sigma_denom,
                           *, level: int, params: SVGFParams,
-                          save_weights: bool = False):
+                          save_weights: bool = False, tile: Tile = None):
     """One level forward with a given σ-denominator (K1b, the counterpart of
     ``atrous_level_fwd_pallas``; exact weights).  Returns ``(c, v, N)``,
     and with ``save_weights`` also the (n_taps, H, W) float32 tap weights.
     Raises if an input requires grad (:func:`atrous_level` owns the
-    gradient).
+    gradient).  ``tile`` as in :func:`atrous_level_cuda`.
 
     Each launch adds one to ``atrous_level_fwd_cuda.launches``."""
     _build.check_no_grad("atrous_level_fwd_cuda", color, variance, normal,
@@ -188,12 +255,14 @@ def atrous_level_fwd_cuda(color, variance, normal, depth, zgrad, sigma_denom,
     if not color.is_cuda:
         c, v, w, norm = atrous_level_ref(
             color, variance, normal, depth, zgrad, level=level,
-            params=params, sigma_denom=sigma_denom, return_weights=True)
+            params=params, sigma_denom=sigma_denom, return_weights=True,
+            tile=tile)
         return (c, v, norm, w) if save_weights else (c, v, norm)
     c, v, w, norm = _launch_level(
         color, variance, normal, depth, zgrad, sigma_denom, level=level,
         params=params, weight_math="exact",
-        w_dtype=torch.float32 if save_weights else None, want_norm=True)
+        w_dtype=torch.float32 if save_weights else None, want_norm=True,
+        tile=tile)
     atrous_level_fwd_cuda.launches += 1
     return (c, v, norm, w) if save_weights else (c, v, norm)
 
@@ -201,39 +270,51 @@ def atrous_level_fwd_cuda(color, variance, normal, depth, zgrad, sigma_denom,
 atrous_level_fwd_cuda.launches = 0
 
 
-def _launch_bwd_stored(w, norm, gc, gv, level, radius):
+def _out_region(H, W, out_halo, dev):
+    """Uninitialised output planes (3, …) and (…) of the centre-plus-halo
+    region an adjoint writes (every element is written)."""
+    shape = (H + 2 * out_halo, W + 2 * out_halo)
+    return (torch.empty((3,) + shape, dtype=torch.float32, device=dev),
+            torch.empty(shape, dtype=torch.float32, device=dev))
+
+
+def _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo):
     H, W = gv.shape
     dev = gc.device
     ptrs = [_build.check_input(w, "w", ((2 * radius + 1) ** 2, H, W),
                                w.dtype, dev)] + _planes(dev, H, W, (
         (norm, "norm", None), (gc, "gc", 3), (gv, "gv", None)))
-    dc = torch.empty((3, H, W), dtype=torch.float32, device=dev)
-    dv = torch.empty((H, W), dtype=torch.float32, device=dev)
+    dc, dv = _out_region(H, W, out_halo, dev)
+    # the margin-writing form is a tile launch; its other fields are unused
+    t = _AtrousTile(o_m=out_halo) if out_halo else None
     rc = _build.kernels().rdt_atrous_bwd_stored(
         *ptrs, dc.data_ptr(), dv.data_ptr(), H, W, 1 << level, radius,
-        int(w.dtype == torch.float32), _stream(dev))
+        int(w.dtype == torch.float32), _ref(t), _stream(dev))
     _build.check(rc, "rdt_atrous_bwd_stored")
     return dc, dv
 
 
 def atrous_level_bwd_stored_cuda(w, norm, gc, gv, *, level: int,
-                                 radius: int):
+                                 radius: int, out_halo: int = 0):
     """One level of the stored-weight adjoint; returns ``(d_color,
     d_variance)`` as ``atrous_level_bwd_stored_ref`` does.  bf16 weights
     go to K2 (``atrous_level_bwd_stored_canvas``), float32 weights to K2b
-    (:func:`atrous_level_bwd_stored_f32_cuda`).
+    (:func:`atrous_level_bwd_stored_f32_cuda`).  ``out_halo`` = o: the
+    gradients of the (H + 2o, W + 2o) canvas around the tile (the margin-
+    writing form of the sharded sweep).
 
     Each K2 launch adds one to ``atrous_level_bwd_stored_cuda.launches``."""
     if w.dtype == torch.float32:
         return atrous_level_bwd_stored_f32_cuda(w, norm, gc, gv, level=level,
-                                                radius=radius)
+                                                radius=radius,
+                                                out_halo=out_halo)
     _build.check_no_grad("atrous_level_bwd_stored_cuda", w, norm, gc, gv)
     if not gc.is_cuda:
         return atrous_level_bwd_stored_ref(w, norm, gc, gv, level=level,
-                                           radius=radius)
+                                           radius=radius, out_halo=out_halo)
     if w.dtype != torch.bfloat16:
         raise ValueError(f"w: dtype {w.dtype}, expected bfloat16 or float32")
-    out = _launch_bwd_stored(w, norm, gc, gv, level, radius)
+    out = _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo)
     atrous_level_bwd_stored_cuda.launches += 1
     return out
 
@@ -242,7 +323,7 @@ atrous_level_bwd_stored_cuda.launches = 0
 
 
 def atrous_level_bwd_stored_f32_cuda(w, norm, gc, gv, *, level: int,
-                                     radius: int):
+                                     radius: int, out_halo: int = 0):
     """K2b, the stored-weight adjoint from float32 weights (the counterpart
     of ``atrous_level_bwd_stored_pallas``; the ``bwd_impl="stored_f32"``
     backward); returns ``(d_color, d_variance)``.
@@ -251,10 +332,10 @@ def atrous_level_bwd_stored_f32_cuda(w, norm, gc, gv, *, level: int,
     _build.check_no_grad("atrous_level_bwd_stored_f32_cuda", w, norm, gc, gv)
     if not gc.is_cuda:
         return atrous_level_bwd_stored_ref(w, norm, gc, gv, level=level,
-                                           radius=radius)
+                                           radius=radius, out_halo=out_halo)
     if w.dtype != torch.float32:
         raise ValueError(f"w: dtype {w.dtype}, expected float32")
-    out = _launch_bwd_stored(w, norm, gc, gv, level, radius)
+    out = _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo)
     atrous_level_bwd_stored_f32_cuda.launches += 1
     return out
 
@@ -263,11 +344,14 @@ atrous_level_bwd_stored_f32_cuda.launches = 0
 
 
 def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
-                          g_color, g_var, *, level: int, params: SVGFParams):
+                          g_color, g_var, *, level: int, params: SVGFParams,
+                          tile: Tile = None, out_halo: int = 0):
     """K14, the recompute adjoint of one level (the counterpart of
     ``atrous_level_bwd_pallas``): the weights are re-derived from the
     forward's inputs and its σ-denominator by the forward's exact weight
-    math.  Returns ``(d_color, d_variance)``.
+    math.  Returns ``(d_color, d_variance)``.  ``tile`` as in
+    :func:`atrous_level_cuda` (canvas margins >= ``out_halo``) and
+    ``out_halo`` as in :func:`atrous_level_bwd_stored_cuda`.
 
     Each launch adds one to ``atrous_level_bwd_cuda.launches``."""
     _build.check_no_grad("atrous_level_bwd_cuda", color, normal, depth, zgrad,
@@ -275,19 +359,20 @@ def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
     if not g_color.is_cuda:
         return atrous_level_bwd_ref(color, normal, depth, zgrad, sigma_denom,
                                     norm, g_color, g_var, level=level,
-                                    params=params)
-    H, W = depth.shape
+                                    params=params, tile=tile,
+                                    out_halo=out_halo)
+    H, W = zgrad.shape[-2:]
     dev = g_color.device
-    ptrs = _planes(dev, H, W, (
-        (color, "color", 3), (normal, "normal", 3), (depth, "depth", None),
+    ptrs, t = _neighbourhood(dev, H, W, tile, color, None, normal, depth,
+                             out_halo, out_halo)
+    ptrs += _planes(dev, H, W, (
         (zgrad, "zgrad", 2), (sigma_denom, "sigma_denom", None),
         (norm, "norm", None), (g_color, "g_color", 3),
         (g_var, "g_var", None)))
-    dc = torch.empty((3, H, W), dtype=torch.float32, device=dev)
-    dv = torch.empty((H, W), dtype=torch.float32, device=dev)
+    dc, dv = _out_region(H, W, out_halo, dev)
     p = _launch_params(H, W, level, params)
     rc = _build.kernels().rdt_atrous_bwd(
-        *ptrs, dc.data_ptr(), dv.data_ptr(), ctypes.addressof(p),
+        *ptrs, dc.data_ptr(), dv.data_ptr(), ctypes.addressof(p), _ref(t),
         _stream(dev))
     _build.check(rc, "rdt_atrous_bwd")
     atrous_level_bwd_cuda.launches += 1

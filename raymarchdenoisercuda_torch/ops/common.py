@@ -7,10 +7,63 @@ weight, so normalisation divides by the sum of surviving weights only.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+@dataclasses.dataclass(frozen=True)
+class Tile:
+    """Where a tile lies in the frame: the global pixel of its (0, 0) and
+    the frame's (height, width).  The tile forms of the stencils drop a tap
+    whose GLOBAL coordinate falls outside the frame, so a tile computes at
+    its pixels what the whole frame computes there; the planes a stencil
+    reads around a pixel come as canvases, the tile plus a margin of m
+    pixels on every side that holds the neighbouring tiles' pixels (the
+    halo exchange fills it, ``parallel/halo.py``)."""
+
+    origin: Tuple[int, int]
+    bounds: Tuple[int, int]
+
+
+def canvas_margin(x: torch.Tensor, H: int, W: int, name: str) -> int:
+    """The margin m of a (…, H + 2m, W + 2m) canvas around an H x W tile."""
+    h, w = x.shape[-2:]
+    m = (h - H) // 2
+    if h != H + 2 * m or w != W + 2 * m or m < 0:
+        raise ValueError(f"{name}: shape {tuple(x.shape)} is not an "
+                         f"{H}x{W} tile with an equal margin on every side")
+    return m
+
+
+def crop(x: torch.Tensor, m: int, dy: int, dx: int, H: int,
+         W: int) -> torch.Tensor:
+    """The H x W window of a canvas with margin m at offset (dy, dx) from
+    the tile: ``crop(x, m, dy, dx, H, W)[..., i, j] = tile pixel (i+dy,
+    j+dx)`` (a view)."""
+    return x[..., m + dy:m + dy + H, m + dx:m + dx + W]
+
+
+def frame_canvas(x: torch.Tensor, tile: Tile, H: int, W: int,
+                 m: int) -> torch.Tensor:
+    """The canvas of the H x W tile ``tile`` cut from the whole (…, Hg, Wg)
+    frame ``x``: the tile and m of the frame's pixels on every side, zeros
+    past its border, which is what the halo exchange delivers."""
+    gy0, gx0 = tile.origin
+    xp = F.pad(x, (m, m, m, m))
+    return xp[..., gy0:gy0 + H + 2 * m, gx0:gx0 + W + 2 * m].contiguous()
+
+
+def global_mask(tile: Tile, H: int, W: int, dy: int, dx: int, *, device,
+                dtype=torch.float32) -> torch.Tensor:
+    """(H, W) mask of tile pixels whose (dy, dx)-shifted neighbour lies in
+    the frame (the tile form of :func:`valid_mask`)."""
+    (gy0, gx0), (Hg, Wg) = tile.origin, tile.bounds
+    iy = torch.arange(gy0 + dy, gy0 + dy + H, device=device)[:, None]
+    ix = torch.arange(gx0 + dx, gx0 + dx + W, device=device)[None, :]
+    return ((iy >= 0) & (iy < Hg) & (ix >= 0) & (ix < Wg)).to(dtype)
 
 
 def shift2d(x: torch.Tensor, dy: int, dx: int) -> torch.Tensor:

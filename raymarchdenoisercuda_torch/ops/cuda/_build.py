@@ -42,13 +42,13 @@ _I = ctypes.c_int
 # C entry points and their argument types; every one returns cudaError_t
 SIGNATURES = {
     "rdt_zgrad": (_P, _P, _I, _I, _P),
-    "rdt_atrous_level": (_P,) * 10 + (_I,) + (_P,) * 2,
-    "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 5 + (_P,),
-    "rdt_atrous_bwd": (_P,) * 12,
+    "rdt_atrous_level": (_P,) * 10 + (_I,) + (_P,) * 3,
+    "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 5 + (_P,) * 2,
+    "rdt_atrous_bwd": (_P,) * 13,
     "rdt_atrous_wgrad_bwd": (_P,) * 19,
-    "rdt_temporal": (_P,) * 15,
-    "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,),
-    "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,),
+    "rdt_temporal": (_P,) * 16,
+    "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,) * 2,
+    "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
     "rdt_march": (_P,) * 9,
     "rdt_shadow_shade": (_P,) * 14,
     "rdt_shadow": (_P,) * 7,
@@ -151,6 +151,22 @@ def check_no_grad(name: str, *tensors) -> None:
         raise RuntimeError(
             f"{name} has no backward: an input requires grad (run it under "
             f"torch.no_grad(), or use the differentiable entry point)")
+
+
+def check_canvas(t, name: str, shape, dtype, device) -> int:
+    """Validate a canvas handed to a kernel (a tile plus its margins) and
+    return its data pointer: as :func:`check_input`, but a view into a
+    larger tensor is taken as it is, provided its columns are contiguous
+    (the kernel reads it by its row and plane strides)."""
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name}: columns not contiguous")
+    return t.data_ptr()
 
 
 def check_input(t, name: str, shape, dtype, device) -> int:

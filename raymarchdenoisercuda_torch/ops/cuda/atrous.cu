@@ -90,6 +90,35 @@ struct AtrousParams {
     float taps[5];
 };
 
+// The tile of a launch, passed by pointer beside the parameters; a null
+// pointer is the whole frame.
+//
+// Tiles (the sharded sweep, parallel/sharded.py): a launch computes the
+// H x W centre of a tile whose pixel (0, 0) is the global pixel
+// (gy0, gx0) of an Hg x Wg frame.  A tap is dropped when its GLOBAL
+// coordinate falls outside the frame, so a tile gives what the whole
+// frame gives at its pixels.  The planes read around a pixel come as
+// canvases: the tile plus a margin of m pixels on every side, with their
+// own row and plane strides (a view into a larger canvas works as it is):
+// colour and variance share one canvas geometry (d_*), normal and depth
+// another (g_*).  The planes read at the pixel itself (depth gradient,
+// sigma denominator, N, cotangents, weights, outputs) are contiguous
+// H x W planes.  The adjoints K2 and K14 write an output region of the
+// centre plus o_m pixels on every side (the gradients of the canvas
+// margins, which the halo exchange's adjoint sends to the tiles that own
+// them).  A whole-frame launch runs the kernels' TILE = false
+// instantiation, which indexes and masks as if there were no tile, with
+// the parameters it had before tiles existed: putting the tile's fields
+// into AtrousParams made the whole-frame K1 and K14 14 % slower on an
+// H100 (the struct's size alone: the kernels index its taps at run time).
+// Both instantiations compute the same floats.
+struct AtrousTile {
+    int Hg, Wg, gy0, gx0;
+    int d_rs, d_ps, d_m;    // colour/variance canvas
+    int g_rs, g_ps, g_m;    // normal/depth canvas
+    int o_m;                // adjoints: the output region's margin
+};
+
 namespace {
 
 constexpr float kEps = 1e-8f;
@@ -110,6 +139,28 @@ __device__ __forceinline__ float exp2_fast3(float y) {
 
 __device__ __forceinline__ float luma(const float* c, int i, int hw) {
     return kL0 * c[i] + kL1 * c[hw + i] + kL2 * c[2 * hw + i];
+}
+
+// Index of tile pixel (y, x) (centre coordinates, negative in the margin)
+// in the colour/variance canvas and in the normal/depth canvas, and their
+// plane strides; W is the tile's width.
+template <bool TILE>
+__device__ __forceinline__ int didx(const AtrousTile& t, int W, int y, int x) {
+    return TILE ? (y + t.d_m) * t.d_rs + (x + t.d_m) : y * W + x;
+}
+template <bool TILE>
+__device__ __forceinline__ int gidx(const AtrousTile& t, int W, int y, int x) {
+    return TILE ? (y + t.g_m) * t.g_rs + (x + t.g_m) : y * W + x;
+}
+
+// Whether tile row y (of H) / column x (of W) lies in the frame.
+template <bool TILE>
+__device__ __forceinline__ bool row_in(const AtrousTile& t, int H, int y) {
+    return TILE ? t.gy0 + y >= 0 && t.gy0 + y < t.Hg : y >= 0 && y < H;
+}
+template <bool TILE>
+__device__ __forceinline__ bool col_in(const AtrousTile& t, int W, int x) {
+    return TILE ? t.gx0 + x >= 0 && t.gx0 + x < t.Wg : x >= 0 && x < W;
 }
 
 __global__ void zgrad_kernel(const float* __restrict__ z, float* __restrict__ g,
@@ -169,7 +220,7 @@ __device__ __forceinline__ float load_w(const float* w, int k) { return w[k]; }
 
 // K1 (sden_in null: the fused blur) and K1b (sden_in given); WT is the
 // stored weights' type.
-template <typename WT>
+template <typename WT, bool TILE>
 __global__ void atrous_level_kernel(const float* __restrict__ color,
                                     const float* __restrict__ var,
                                     const float* __restrict__ normal,
@@ -180,38 +231,42 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
                                     float* __restrict__ var_out,
                                     WT* __restrict__ w_out,
                                     float* __restrict__ n_out,
-                                    AtrousParams p) {
+                                    AtrousParams p, AtrousTile t) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
     const int H = p.H, W = p.W, hw = H * W;
     const int i = y * W + x;
+    const int dp = TILE ? t.d_ps : hw, gp = TILE ? t.g_ps : hw;
 
     float sden;
     if (sden_in) {
         sden = sden_in[i];
     } else {
         // fused sigma denominator: (1/4, 1/2, 1/4)^2 blur of the variance
-        // over in-image taps, renormalised (variance_blur3x3)
+        // over in-image taps, renormalised (variance_blur3x3); a tile pixel
+        // outside the frame (a padded tile) has no such tap and gets 0
         const float k1[3] = {0.25f, 0.5f, 0.25f};
         float num = 0.0f, kden = 0.0f;
         for (int dy = -1; dy <= 1; ++dy) {
-            int qy = y + dy;
             for (int dx = -1; dx <= 1; ++dx) {
-                int qx = x + dx;
-                if (qy < 0 || qy >= H || qx < 0 || qx >= W) continue;
+                if (!row_in<TILE>(t, H, y + dy) || !col_in<TILE>(t, W, x + dx))
+                    continue;
                 float k = k1[dy + 1] * k1[dx + 1];
-                num = num + k * var[qy * W + qx];
+                num = num + k * var[didx<TILE>(t, W, y + dy, x + dx)];
                 kden = kden + k;
             }
         }
+        if (TILE) kden = fmaxf(kden, 1e-20f);
         sden = p.sigma_color * sqrtf(fmaxf(num / kden, 0.0f)) + kEps;
     }
     const float isd2 = kLog2e / fmaxf(sden, kEps);
 
-    const float lum_c = luma(color, i, hw);
-    const float z_c = depth[i];
-    const float n0 = normal[i], n1 = normal[hw + i], n2 = normal[2 * hw + i];
+    const int dc = didx<TILE>(t, W, y, x), gc = gidx<TILE>(t, W, y, x);
+    const float lum_c = luma(color, dc, dp);
+    const float z_c = depth[gc];
+    const float n0 = normal[gc], n1 = normal[gp + gc],
+                n2 = normal[2 * gp + gc];
     const float zg0 = zgrad[i], zg1 = zgrad[hw + i];
 
     float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f, den = 0.0f;
@@ -220,28 +275,29 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
     for (int dy = -r; dy <= r; ++dy) {
         const int oy = dy * p.spacing;
         const int qy = y + oy;
-        const bool row_in = qy >= 0 && qy < H;
+        const bool rin = row_in<TILE>(t, H, qy);
         for (int dx = -r; dx <= r; ++dx) {
             const int ox = dx * p.spacing;
             const int qx = x + ox;
             const int k = ((dy + r) * side + (dx + r)) * hw + i;
-            if (!row_in || qx < 0 || qx >= W) {
+            if (!rin || !col_in<TILE>(t, W, qx)) {
                 // dropped tap: its stored weight is zero
                 if (w_out) store_w(w_out, k, 0.0f);
                 continue;
             }
-            const int q = qy * W + qx;
+            const int q = didx<TILE>(t, W, qy, qx);
+            const int g = gidx<TILE>(t, W, qy, qx);
             const float h = p.taps[dy + r] * p.taps[dx + r];
-            const float lum_q = luma(color, q, hw);
+            const float lum_q = luma(color, q, dp);
             float w;
             if (p.fast) {
                 float arg = -fabsf(lum_c - lum_q) * isd2;
                 if (!p.luma_only) {
                     float zdot = fabsf(zg0 * (float)oy + zg1 * (float)ox);
-                    float wz2 = -fabsf(z_c - depth[q]) / (p.sz2 * zdot + p.eps2);
-                    float d0 = n0 - normal[q];
-                    float d1 = n1 - normal[hw + q];
-                    float d2 = n2 - normal[2 * hw + q];
+                    float wz2 = -fabsf(z_c - depth[g]) / (p.sz2 * zdot + p.eps2);
+                    float d0 = n0 - normal[g];
+                    float d1 = n1 - normal[gp + g];
+                    float d2 = n2 - normal[2 * gp + g];
                     float s = d0 * d0 + d1 * d1 + d2 * d2;
                     arg = wz2 + arg - (p.c_s1 * s + p.c_s2 * (s * s));
                 }
@@ -249,14 +305,14 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
             } else if (p.luma_only) {
                 w = h * expf(-fabsf(lum_c - lum_q) / sden);
             } else {
-                w = exact_tap(h, lum_c, lum_q, sden, z_c, depth[q], zg0, zg1,
-                              oy, ox, n0, n1, n2, normal[q], normal[hw + q],
-                              normal[2 * hw + q], p).w;
+                w = exact_tap(h, lum_c, lum_q, sden, z_c, depth[g], zg0, zg1,
+                              oy, ox, n0, n1, n2, normal[g], normal[gp + g],
+                              normal[2 * gp + g], p).w;
             }
             if (w_out) store_w(w_out, k, w);
             acc0 = acc0 + w * color[q];
-            acc1 = acc1 + w * color[hw + q];
-            acc2 = acc2 + w * color[2 * hw + q];
+            acc1 = acc1 + w * color[dp + q];
+            acc2 = acc2 + w * color[2 * dp + q];
             acc_v = acc_v + (w * w) * var[q];
             den = den + w;
         }
@@ -271,18 +327,25 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
 
 // K2 (WT = bf16) and K2b (WT = float): gather-form stored-weight adjoint
 // (see the header).
-template <typename WT>
+template <typename WT, bool TILE>
 __global__ void atrous_bwd_stored_kernel(const WT* __restrict__ w,
                                          const float* __restrict__ norm,
                                          const float* __restrict__ gc,
                                          const float* __restrict__ gv,
                                          float* __restrict__ dc,
                                          float* __restrict__ dv,
-                                         int H, int W, int spacing, int r) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= W || y >= H) return;
-    const int hw = H * W, i = y * W + x;
+                                         int H, int W, int spacing, int r,
+                                         AtrousTile t) {
+    // output pixel (yo, xo) of the centre-plus-o_m region is tile pixel
+    // (y, x); its centres p = x - d lie in the tile (their weights hold the
+    // border mask)
+    const int om = TILE ? t.o_m : 0;
+    const int Ho = H + 2 * om, Wo = W + 2 * om;
+    int xo = blockIdx.x * blockDim.x + threadIdx.x;
+    int yo = blockIdx.y * blockDim.y + threadIdx.y;
+    if (xo >= Wo || yo >= Ho) return;
+    const int hw = H * W, hwo = Ho * Wo, i = yo * Wo + xo;
+    const int y = yo - om, x = xo - om;
     const int side = 2 * r + 1;
     float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f;
     for (int dy = -r; dy <= r; ++dy) {
@@ -302,12 +365,16 @@ __global__ void atrous_bwd_stored_kernel(const WT* __restrict__ w,
         }
     }
     dc[i] = acc0;
-    dc[hw + i] = acc1;
-    dc[2 * hw + i] = acc2;
+    dc[hwo + i] = acc1;
+    dc[2 * hwo + i] = acc2;
     dv[i] = acc_v;
 }
 
 // K14: the recompute adjoint (see the header).  Exact, full weights only.
+// Output pixel (yo, xo) of the centre-plus-o_m region is tile pixel (y, x);
+// a centre's tap to it was dropped in the forward when (y, x) lies outside
+// the frame, so such a pixel gets zero.
+template <bool TILE>
 __global__ void atrous_bwd_kernel(const float* __restrict__ color,
                                   const float* __restrict__ normal,
                                   const float* __restrict__ depth,
@@ -317,42 +384,55 @@ __global__ void atrous_bwd_kernel(const float* __restrict__ color,
                                   const float* __restrict__ gc,
                                   const float* __restrict__ gv,
                                   float* __restrict__ dc,
-                                  float* __restrict__ dv, AtrousParams p) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= p.W || y >= p.H) return;
-    const int H = p.H, W = p.W, hw = H * W, i = y * W + x;
-    const float lum_x = luma(color, i, hw);
-    const float z_x = depth[i];
-    const float n0 = normal[i], n1 = normal[hw + i], n2 = normal[2 * hw + i];
-    const int r = p.radius;
+                                  float* __restrict__ dv, AtrousParams p,
+                                  AtrousTile t) {
+    const int H = p.H, W = p.W, hw = H * W;
+    const int om = TILE ? t.o_m : 0;
+    const int Ho = H + 2 * om, Wo = W + 2 * om, hwo = Ho * Wo;
+    int xo = blockIdx.x * blockDim.x + threadIdx.x;
+    int yo = blockIdx.y * blockDim.y + threadIdx.y;
+    if (xo >= Wo || yo >= Ho) return;
+    const int i = yo * Wo + xo;
+    const int y = yo - om, x = xo - om;
     float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f;
-    for (int dy = -r; dy <= r; ++dy) {
-        const int oy = dy * p.spacing;
-        const int py = y - oy;
-        if (py < 0 || py >= H) continue;
-        for (int dx = -r; dx <= r; ++dx) {
-            const int ox = dx * p.spacing;
-            const int px = x - ox;
-            if (px < 0 || px >= W) continue;
-            const int c = py * W + px;
-            const float h = p.taps[dy + r] * p.taps[dx + r];
-            // centre p's weight for its tap (oy, ox), whose neighbour is x
-            const float wk = exact_tap(
-                h, luma(color, c, hw), lum_x, sden[c], depth[c], z_x,
-                zgrad[c], zgrad[hw + c], oy, ox, normal[c], normal[hw + c],
-                normal[2 * hw + c], n0, n1, n2, p).w;
-            const float inv_n = 1.0f / fmaxf(norm[c], kEps);
-            const float u2 = gv[c] * (inv_n * inv_n);
-            acc0 = acc0 + wk * (gc[c] * inv_n);
-            acc1 = acc1 + wk * (gc[hw + c] * inv_n);
-            acc2 = acc2 + wk * (gc[2 * hw + c] * inv_n);
-            acc_v = acc_v + (wk * wk) * u2;
+    if (!TILE || (row_in<TILE>(t, H, y) && col_in<TILE>(t, W, x))) {
+        const int dp = TILE ? t.d_ps : hw, gp = TILE ? t.g_ps : hw;
+        const int dx_ = didx<TILE>(t, W, y, x), gx_ = gidx<TILE>(t, W, y, x);
+        const float lum_x = luma(color, dx_, dp);
+        const float z_x = depth[gx_];
+        const float n0 = normal[gx_], n1 = normal[gp + gx_],
+                    n2 = normal[2 * gp + gx_];
+        const int r = p.radius;
+        for (int dy = -r; dy <= r; ++dy) {
+            const int oy = dy * p.spacing;
+            const int py = y - oy;
+            if (py < 0 || py >= H) continue;
+            for (int dx = -r; dx <= r; ++dx) {
+                const int ox = dx * p.spacing;
+                const int px = x - ox;
+                if (px < 0 || px >= W) continue;
+                const int c = py * W + px;
+                const int dq = didx<TILE>(t, W, py, px);
+                const int gq = gidx<TILE>(t, W, py, px);
+                const float h = p.taps[dy + r] * p.taps[dx + r];
+                // centre p's weight for its tap (oy, ox), whose neighbour
+                // is x
+                const float wk = exact_tap(
+                    h, luma(color, dq, dp), lum_x, sden[c], depth[gq], z_x,
+                    zgrad[c], zgrad[hw + c], oy, ox, normal[gq],
+                    normal[gp + gq], normal[2 * gp + gq], n0, n1, n2, p).w;
+                const float inv_n = 1.0f / fmaxf(norm[c], kEps);
+                const float u2 = gv[c] * (inv_n * inv_n);
+                acc0 = acc0 + wk * (gc[c] * inv_n);
+                acc1 = acc1 + wk * (gc[hw + c] * inv_n);
+                acc2 = acc2 + wk * (gc[2 * hw + c] * inv_n);
+                acc_v = acc_v + (wk * wk) * u2;
+            }
         }
     }
     dc[i] = acc0;
-    dc[hw + i] = acc1;
-    dc[2 * hw + i] = acc2;
+    dc[hwo + i] = acc1;
+    dc[2 * hwo + i] = acc2;
     dv[i] = acc_v;
 }
 
@@ -522,59 +602,76 @@ extern "C" int rdt_zgrad(const float* depth, float* zgrad, int H, int W,
 
 // K1/K1b.  sden null: the fused blur (K1), else read (K1b).  w_out and
 // n_out null: no store; n_out alone: N only; both: the weights too, float
-// if w_f32 else bf16.
+// if w_f32 else bf16.  tile null: the whole frame.
 extern "C" int rdt_atrous_level(const float* color, const float* var,
                                 const float* normal, const float* depth,
                                 const float* zgrad, const float* sden,
                                 float* color_out, float* var_out, void* w_out,
                                 float* n_out, int w_f32,
-                                const AtrousParams* params, void* stream) {
+                                const AtrousParams* params,
+                                const AtrousTile* tile, void* stream) {
     dim3 block(32, 8);
     dim3 grid = grid_for(params->H, params->W, block);
     cudaStream_t s = (cudaStream_t)stream;
+    const AtrousTile t = tile ? *tile : AtrousTile{};
+#define RDT_LEVEL(WT, T)                                                  \
+    atrous_level_kernel<WT, T><<<grid, block, 0, s>>>(                    \
+        color, var, normal, depth, zgrad, sden, color_out, var_out,       \
+        (WT*)w_out, n_out, *params, t)
     if (w_f32) {
-        atrous_level_kernel<float><<<grid, block, 0, s>>>(
-            color, var, normal, depth, zgrad, sden, color_out, var_out,
-            (float*)w_out, n_out, *params);
+        if (tile) RDT_LEVEL(float, true); else RDT_LEVEL(float, false);
     } else {
-        atrous_level_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-            color, var, normal, depth, zgrad, sden, color_out, var_out,
-            (__nv_bfloat16*)w_out, n_out, *params);
+        if (tile) RDT_LEVEL(__nv_bfloat16, true);
+        else RDT_LEVEL(__nv_bfloat16, false);
     }
+#undef RDT_LEVEL
     return (int)cudaGetLastError();
 }
 
-// K2 (bf16 weights) / K2b (w_f32: float weights).
+// K2 (bf16 weights) / K2b (w_f32: float weights); with a tile the grid
+// covers its output region (the centre plus o_m on every side).
 extern "C" int rdt_atrous_bwd_stored(const void* w, const float* norm,
                                      const float* gc, const float* gv,
                                      float* dc, float* dv, int H, int W,
                                      int spacing, int radius, int w_f32,
-                                     void* stream) {
+                                     const AtrousTile* tile, void* stream) {
     dim3 block(32, 8);
-    dim3 grid = grid_for(H, W, block);
+    const AtrousTile t = tile ? *tile : AtrousTile{};
+    dim3 grid = grid_for(H + 2 * t.o_m, W + 2 * t.o_m, block);
     cudaStream_t s = (cudaStream_t)stream;
+#define RDT_STORED(WT, T)                                                 \
+    atrous_bwd_stored_kernel<WT, T><<<grid, block, 0, s>>>(               \
+        (const WT*)w, norm, gc, gv, dc, dv, H, W, spacing, radius, t)
     if (w_f32) {
-        atrous_bwd_stored_kernel<float><<<grid, block, 0, s>>>(
-            (const float*)w, norm, gc, gv, dc, dv, H, W, spacing, radius);
+        if (tile) RDT_STORED(float, true); else RDT_STORED(float, false);
     } else {
-        atrous_bwd_stored_kernel<__nv_bfloat16><<<grid, block, 0, s>>>(
-            (const __nv_bfloat16*)w, norm, gc, gv, dc, dv, H, W, spacing,
-            radius);
+        if (tile) RDT_STORED(__nv_bfloat16, true);
+        else RDT_STORED(__nv_bfloat16, false);
     }
+#undef RDT_STORED
     return (int)cudaGetLastError();
 }
 
-// K14.
+// K14, over the output region as K2.
 extern "C" int rdt_atrous_bwd(const float* color, const float* normal,
                               const float* depth, const float* zgrad,
                               const float* sden, const float* norm,
                               const float* gc, const float* gv, float* dc,
                               float* dv, const AtrousParams* params,
-                              void* stream) {
+                              const AtrousTile* tile, void* stream) {
     dim3 block(32, 8);
-    atrous_bwd_kernel<<<grid_for(params->H, params->W, block), block, 0,
-                        (cudaStream_t)stream>>>(
-        color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv, *params);
+    const AtrousTile t = tile ? *tile : AtrousTile{};
+    dim3 grid = grid_for(params->H + 2 * t.o_m, params->W + 2 * t.o_m, block);
+    cudaStream_t s = (cudaStream_t)stream;
+    if (tile) {
+        atrous_bwd_kernel<true><<<grid, block, 0, s>>>(
+            color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv, *params,
+            t);
+    } else {
+        atrous_bwd_kernel<false><<<grid, block, 0, s>>>(
+            color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv, *params,
+            t);
+    }
     return (int)cudaGetLastError();
 }
 

@@ -35,6 +35,9 @@ struct MarchParams {
 
 struct ShadeParams {
     int H, W, n_sph, n_box, n_pl, shadow_steps, has_prev, cam_w, cam_h;
+    // global pixel of the window's (0, 0): the motion is taken against the
+    // pixel's coordinates in the whole frame
+    int row0, col0;
     float hit_eps, relax_omega;
 };
 
@@ -273,8 +276,8 @@ __global__ void shade_kernel(const float* __restrict__ scene,
         const float ppx = (xc / prev[12] * 0.5f + 0.5f) * (float)p.cam_w - 0.5f;
         const float ppy = (0.5f - yc / prev[13] * 0.5f) * (float)p.cam_h - 0.5f;
         const float hit_f = is_hit ? 1.0f : 0.0f;
-        motion[i] = (ppy - (float)y) * hit_f;
-        motion[hw + i] = (ppx - (float)x) * hit_f;
+        motion[i] = (ppy - (float)(p.row0 + y)) * hit_f;
+        motion[hw + i] = (ppx - (float)(p.col0 + x)) * hit_f;
     }
 }
 

@@ -51,6 +51,26 @@
 // Bound: memory; K6 reads 6 cotangent planes and the motion and writes the
 // 10-plane d_hist (72 B/px); K5 also reads 6 history planes and writes
 // d_motion (104 B/px).
+//
+// Tiles (the sharded pipeline, parallel/sharded.py).  Each kernel computes
+// the H x W centre of a tile whose pixel (0, 0) is the global pixel
+// (gy0, gx0) of an Hg x Wg frame, and tests every tap, and the reprojected
+// position, against the frame in global coordinates, so a tile gives what
+// the whole frame gives at its pixels.  The history planes come as a
+// canvas: the tile plus a margin of h_m >= max_motion + 1 pixels on every
+// side (row stride h_rs, plane stride h_ps), which the halo exchange has
+// filled from the neighbouring tiles; K3 reads the render the same way
+// (margin r_m >= 3, for the 3x3 clamp and the 7x7 window).  Motion, depth,
+// normal, cotangents and outputs are contiguous H x W planes, except K5's
+// and K6's d_hist, which covers the history canvas, margins included: the
+// gradients of the margins go back to the tiles that own them through the
+// exchange's adjoint.  These are the canvas forms of the TPU package: K3b
+// (temporal_accumulate_canvas_pallas), K4c (_gather_canvas_call) and
+// K5c/K6c (_gather_canvas_bwd_call).  The tile comes as a TemporalTile
+// passed beside the other parameters; a null pointer is the whole frame,
+// which runs the kernels' TILE = false instantiation: it indexes and
+// masks as if there were no tile, with the parameters it had before tiles
+// existed, and computes what it computed then, operation by operation.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -61,6 +81,13 @@ struct TemporalParams {
     float alpha, alpha_m;
 };
 
+// The tile of a launch of K3 or K4-K6 (the render canvas is K3's only).
+struct TemporalTile {
+    int Hg, Wg, gy0, gx0;
+    int h_rs, h_ps, h_m;    // history canvas (and K5/K6's d_hist)
+    int r_rs, r_ps, r_m;    // render canvas
+};
+
 namespace {
 
 constexpr float kL0 = 0.2126f, kL1 = 0.7152f, kL2 = 0.0722f;
@@ -69,20 +96,56 @@ __device__ __forceinline__ float luma_at(const float* c, int i, int hw) {
     return kL0 * c[i] + kL1 * c[hw + i] + kL2 * c[2 * hw + i];
 }
 
-// Column sum of the 7x7 window at column qx (zero outside the image), in the
-// order of spatial_moments: rows 0, +1, -1, +2, -2, +3, -3.
+// The frame's bounds and the tile's origin, and the index of tile pixel
+// (y, x) (centre coordinates, negative in the margin) in the history and
+// render canvases, with their plane strides, for a tile of H x W; TILE =
+// false: the whole frame, contiguous planes.
+template <bool TILE>
+__device__ __forceinline__ int bound_h(const TemporalTile& t, int H) {
+    return TILE ? t.Hg : H;
+}
+template <bool TILE>
+__device__ __forceinline__ int bound_w(const TemporalTile& t, int W) {
+    return TILE ? t.Wg : W;
+}
+template <bool TILE>
+__device__ __forceinline__ int origin_y(const TemporalTile& t) {
+    return TILE ? t.gy0 : 0;
+}
+template <bool TILE>
+__device__ __forceinline__ int origin_x(const TemporalTile& t) {
+    return TILE ? t.gx0 : 0;
+}
+template <bool TILE>
+__device__ __forceinline__ int hidx(const TemporalTile& t, int W, int y,
+                                    int x) {
+    return TILE ? (y + t.h_m) * t.h_rs + (x + t.h_m) : y * W + x;
+}
+template <bool TILE>
+__device__ __forceinline__ int ridx(const TemporalTile& t, int W, int y,
+                                    int x) {
+    return TILE ? (y + t.r_m) * t.r_rs + (x + t.r_m) : y * W + x;
+}
+
+// Column sum of the 7x7 window at tile column qx (zero outside the frame),
+// in the order of spatial_moments: rows 0, +1, -1, +2, -2, +3, -3.
+template <bool TILE>
 __device__ __forceinline__ void column_sums(const float* c, int y, int qx,
-                                            int H, int W, float* s1, float* s2) {
+                                            int H, int W,
+                                            const TemporalTile& t,
+                                            float* s1, float* s2) {
     *s1 = 0.0f;
     *s2 = 0.0f;
-    if (qx < 0 || qx >= W) return;
-    const int hw = H * W;
-    float l = luma_at(c, y * W + qx, hw);
+    const int gy = origin_y<TILE>(t) + y, gqx = origin_x<TILE>(t) + qx;
+    if (gqx < 0 || gqx >= bound_w<TILE>(t, W)) return;
+    const int ps = TILE ? t.r_ps : H * W;
+    float l = luma_at(c, ridx<TILE>(t, W, y, qx), ps);
     float a1 = l, a2 = l * l;
     for (int d = 1; d <= 3; ++d) {
         float lp = 0.0f, lm = 0.0f;
-        if (y + d < H) lp = luma_at(c, (y + d) * W + qx, hw);
-        if (y - d >= 0) lm = luma_at(c, (y - d) * W + qx, hw);
+        if (gy + d < bound_h<TILE>(t, H))
+            lp = luma_at(c, ridx<TILE>(t, W, y + d, qx), ps);
+        if (gy - d >= 0) lm = luma_at(c, ridx<TILE>(t, W, y - d, qx), ps);
         a1 = (a1 + lp) + lm;
         a2 = (a2 + lp * lp) + lm * lm;
     }
@@ -90,6 +153,7 @@ __device__ __forceinline__ void column_sums(const float* c, int y, int qx,
     *s2 = a2;
 }
 
+template <bool TILE>
 __global__ void temporal_kernel(const float* __restrict__ render,
                                 const float* __restrict__ motion,
                                 const float* __restrict__ depth,
@@ -103,25 +167,28 @@ __global__ void temporal_kernel(const float* __restrict__ render,
                                 float* __restrict__ out_var,
                                 float* __restrict__ out_moments,
                                 float* __restrict__ out_length,
-                                TemporalParams p) {
+                                TemporalParams p, TemporalTile t) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
     const int H = p.H, W = p.W, hw = H * W;
     const int i = y * W + x;
+    const int gy = origin_y<TILE>(t) + y, gx = origin_x<TILE>(t) + x;
+    const int Hg = bound_h<TILE>(t, H), Wg = bound_w<TILE>(t, W);
 
     const float m0 = motion[i], m1 = motion[hw + i];
-    const float ys = (float)y + m0, xs = (float)x + m1;
+    const float ys = (float)gy + m0, xs = (float)gx + m1;
     const bool within = fabsf(m0) <= (float)p.max_motion
         && fabsf(m1) <= (float)p.max_motion;
-    const bool in_bounds = ys >= 0.0f && ys <= (float)(H - 1)
-        && xs >= 0.0f && xs <= (float)(W - 1) && within;
+    const bool in_bounds = ys >= 0.0f && ys <= (float)(Hg - 1)
+        && xs >= 0.0f && xs <= (float)(Wg - 1) && within;
 
     // 1. reprojection: history planes in the order colour, moments, length,
     //    previous depth, previous normal
-    const float* planes[10] = {h_color, h_color + hw, h_color + 2 * hw,
-                               h_moments, h_moments + hw, h_length, h_depth,
-                               h_normal, h_normal + hw, h_normal + 2 * hw};
+    const int hps = TILE ? t.h_ps : hw;
+    const float* planes[10] = {h_color, h_color + hps, h_color + 2 * hps,
+                               h_moments, h_moments + hps, h_length, h_depth,
+                               h_normal, h_normal + hps, h_normal + 2 * hps};
     float g[10];
 #pragma unroll
     for (int k = 0; k < 10; ++k) g[k] = 0.0f;
@@ -135,9 +202,10 @@ __global__ void temporal_kernel(const float* __restrict__ render,
                 const float dxf = x0 + (float)ax;
                 const float tx = fmaxf(1.0f - fabsf(m1 - dxf), 0.0f);
                 const int rx = x + (int)dxf;
-                const bool inside = ry >= 0 && ry < H && rx >= 0 && rx < W;
+                const bool inside = gy + (int)dyf >= 0 && gy + (int)dyf < Hg
+                    && gx + (int)dxf >= 0 && gx + (int)dxf < Wg;
                 const float w = ty * tx;
-                const int q = ry * W + rx;
+                const int q = hidx<TILE>(t, W, ry, rx);
                 // explicit fused multiply-adds, as the plain version rounds
 #pragma unroll
                 for (int k = 0; k < 10; ++k) {
@@ -157,18 +225,17 @@ __global__ void temporal_kernel(const float* __restrict__ render,
     const bool valid = in_bounds && depth_ok && ndot > 0.8f && plen > 0.0f;
 
     // 3. clamp + blend
-    const float c[3] = {render[i], render[hw + i], render[2 * hw + i]};
+    const int rc = ridx<TILE>(t, W, y, x), rps = TILE ? t.r_ps : hw;
+    const float c[3] = {render[rc], render[rps + rc], render[2 * rps + rc]};
     float prev[3] = {pc[0], pc[1], pc[2]};
     if (p.history_clamp) {
         for (int k = 0; k < 3; ++k) {
             float lo = INFINITY, hi = -INFINITY;
             for (int dy = -1; dy <= 1; ++dy) {
-                int qy = y + dy;
-                if (qy < 0 || qy >= H) continue;
+                if (gy + dy < 0 || gy + dy >= Hg) continue;
                 for (int dx = -1; dx <= 1; ++dx) {
-                    int qx = x + dx;
-                    if (qx < 0 || qx >= W) continue;
-                    float v = render[k * hw + qy * W + qx];
+                    if (gx + dx < 0 || gx + dx >= Wg) continue;
+                    float v = render[k * rps + ridx<TILE>(t, W, y + dy, x + dx)];
                     lo = fminf(lo, v);
                     hi = fmaxf(hi, v);
                 }
@@ -192,18 +259,20 @@ __global__ void temporal_kernel(const float* __restrict__ render,
     float variance = fmaxf(mom1 - mom0 * mom0, 0.0f);
     if (p.boost_frames > 0 && n_new < (float)p.boost_frames) {
         float s1, s2, a, b;
-        column_sums(render, y, x, H, W, &s1, &s2);
+        column_sums<TILE>(render, y, x, H, W, t, &s1, &s2);
         for (int d = 1; d <= 3; ++d) {
-            column_sums(render, y, x + d, H, W, &a, &b);
+            column_sums<TILE>(render, y, x + d, H, W, t, &a, &b);
             s1 = s1 + a;
             s2 = s2 + b;
-            column_sums(render, y, x - d, H, W, &a, &b);
+            column_sums<TILE>(render, y, x - d, H, W, t, &a, &b);
             s1 = s1 + a;
             s2 = s2 + b;
         }
-        const float fy = (float)y, fx = (float)x;
-        const float cy = fminf(fy, 3.0f) + fminf((float)(H - 1) - fy, 3.0f) + 1.0f;
-        const float cx = fminf(fx, 3.0f) + fminf((float)(W - 1) - fx, 3.0f) + 1.0f;
+        const float fy = (float)gy, fx = (float)gx;
+        const float cy = fminf(fy, 3.0f)
+            + fminf((float)(Hg - 1) - fy, 3.0f) + 1.0f;
+        const float cx = fminf(fx, 3.0f)
+            + fminf((float)(Wg - 1) - fx, 3.0f) + 1.0f;
         const float inv_cnt = 1.0f / (cy * cx);
         const float sm1 = s1 * inv_cnt, sm2 = s2 * inv_cnt;
         variance = fmaxf(sm2 - sm1 * sm1, 0.0f);
@@ -216,13 +285,27 @@ __global__ void temporal_kernel(const float* __restrict__ render,
 
 
 // K4: bounded tent gather of the 10-plane stack (see the header).
+// Whether the tap at offset (dy, dx) of tile pixel (y, x) lies in the
+// frame.
+template <bool TILE>
+__device__ __forceinline__ bool tap_inside(const TemporalTile& t, int H,
+                                           int W, int y, int x, int dy,
+                                           int dx) {
+    const int gy = origin_y<TILE>(t) + y + dy;
+    const int gx = origin_x<TILE>(t) + x + dx;
+    return gy >= 0 && gy < bound_h<TILE>(t, H) && gx >= 0
+        && gx < bound_w<TILE>(t, W);
+}
+
+template <bool TILE>
 __global__ void gather_kernel(const float* __restrict__ stack,
                               const float* __restrict__ motion,
-                              float* __restrict__ out, int H, int W, int M) {
+                              float* __restrict__ out, int H, int W, int M,
+                              TemporalTile t) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= W || y >= H) return;
-    const int hw = H * W, i = y * W + x;
+    const int hw = H * W, i = y * W + x, hps = TILE ? t.h_ps : hw;
     const float m0 = motion[i], m1 = motion[hw + i];
     float g[10];
 #pragma unroll
@@ -237,12 +320,12 @@ __global__ void gather_kernel(const float* __restrict__ stack,
                 const float dxf = x0 + (float)ax;
                 const float tx = fmaxf(1.0f - fabsf(m1 - dxf), 0.0f);
                 const int rx = x + (int)dxf;
-                const bool inside = ry >= 0 && ry < H && rx >= 0 && rx < W;
+                const bool inside = tap_inside<TILE>(t, H, W, y, x, (int)dyf, (int)dxf);
                 const float w = ty * tx;
-                const int q = ry * W + rx;
+                const int q = hidx<TILE>(t, W, ry, rx);
 #pragma unroll
                 for (int k = 0; k < 10; ++k) {
-                    g[k] = __fmaf_rn(w, inside ? stack[k * hw + q] : 0.0f, g[k]);
+                    g[k] = __fmaf_rn(w, inside ? stack[k * hps + q] : 0.0f, g[k]);
                 }
             }
         }
@@ -265,16 +348,18 @@ __device__ __forceinline__ float tent(float x) {
 
 // K5 (motion_grad = 1) / K6 (motion_grad = 0): adjoint of K4 (see the
 // header).  dh must be zeroed; hist may be null when motion_grad is 0.
+template <bool TILE>
 __global__ void gather_bwd_kernel(const float* __restrict__ hist,
                                   const float* __restrict__ motion,
                                   const float* __restrict__ g,
                                   float* __restrict__ dh,
                                   float* __restrict__ dm, int H, int W,
-                                  int M, int np, int motion_grad) {
+                                  int M, int np, int motion_grad,
+                                  TemporalTile t) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= W || y >= H) return;
-    const int hw = H * W, i = y * W + x;
+    const int hw = H * W, i = y * W + x, hps = TILE ? t.h_ps : hw;
     const float m0 = motion[i], m1 = motion[hw + i];
     const bool within = fabsf(m0) <= (float)M && fabsf(m1) <= (float)M;
     if (!within) {
@@ -293,11 +378,11 @@ __global__ void gather_bwd_kernel(const float* __restrict__ hist,
             const float dxf = x0 + (float)ax;
             const float tx = tent(m1 - dxf);
             const int rx = x + (int)dxf;
-            if (ry < 0 || ry >= H || rx < 0 || rx >= W) continue;
+            if (!tap_inside<TILE>(t, H, W, y, x, (int)dyf, (int)dxf)) continue;
             const float w = ty * tx;
-            const int q = ry * W + rx;
+            const int q = hidx<TILE>(t, W, ry, rx);
             for (int c = 0; c < np; ++c) {
-                atomicAdd(&dh[c * hw + q], w * g[c * hw + i]);
+                atomicAdd(&dh[c * hps + q], w * g[c * hw + i]);
             }
         }
     }
@@ -307,18 +392,17 @@ __global__ void gather_bwd_kernel(const float* __restrict__ hist,
         const float dyf = y0 + (float)ay;
         const float ty = tent(m0 - dyf), typ = tent_prime(m0 - dyf);
         const int ry = y + (int)dyf;
-        const bool row_ok = dyf >= (float)-M && dyf <= (float)(M + 1)
-            && ry >= 0 && ry < H;
+        const bool row_ok = dyf >= (float)-M && dyf <= (float)(M + 1);
         for (int ax = -1; ax <= 1; ++ax) {
             const float dxf = x0 + (float)ax;
             const float tx = tent(m1 - dxf), txp = tent_prime(m1 - dxf);
             const int rx = x + (int)dxf;
             const bool ok = row_ok && dxf >= (float)-M && dxf <= (float)(M + 1)
-                && rx >= 0 && rx < W;
-            const int q = ry * W + rx;
+                && tap_inside<TILE>(t, H, W, y, x, (int)dyf, (int)dxf);
+            const int q = hidx<TILE>(t, W, ry, rx);
             float gdot = 0.0f;
             for (int c = 0; c < np; ++c) {
-                gdot = gdot + g[c * hw + i] * (ok ? hist[c * hw + q] : 0.0f);
+                gdot = gdot + g[c * hw + i] * (ok ? hist[c * hps + q] : 0.0f);
             }
             dm0 = dm0 + (typ * tx) * gdot;
             dm1 = dm1 + (ty * txp) * gdot;
@@ -330,6 +414,7 @@ __global__ void gather_bwd_kernel(const float* __restrict__ hist,
 
 }  // namespace
 
+// K3, K3b.
 extern "C" int rdt_temporal(const float* render, const float* motion,
                             const float* depth, const float* normal,
                             const float* h_color, const float* h_moments,
@@ -337,32 +422,59 @@ extern "C" int rdt_temporal(const float* render, const float* motion,
                             const float* h_normal, float* out_integ,
                             float* out_var, float* out_moments,
                             float* out_length, const TemporalParams* params,
-                            void* stream) {
+                            const TemporalTile* tile, void* stream) {
     dim3 block(32, 8);
     dim3 grid((params->W + block.x - 1) / block.x,
               (params->H + block.y - 1) / block.y);
-    temporal_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        render, motion, depth, normal, h_color, h_moments, h_length, h_depth,
-        h_normal, out_integ, out_var, out_moments, out_length, *params);
+    cudaStream_t s = (cudaStream_t)stream;
+    const TemporalTile t = tile ? *tile : TemporalTile{};
+#define RDT_TEMPORAL(T)                                                   \
+    temporal_kernel<T><<<grid, block, 0, s>>>(                            \
+        render, motion, depth, normal, h_color, h_moments, h_length,      \
+        h_depth, h_normal, out_integ, out_var, out_moments, out_length,   \
+        *params, t)
+    if (tile) RDT_TEMPORAL(true); else RDT_TEMPORAL(false);
+#undef RDT_TEMPORAL
     return (int)cudaGetLastError();
 }
 
+// K4, K4c (tile given).
 extern "C" int rdt_gather(const float* stack, const float* motion, float* out,
-                          int H, int W, int max_motion, void* stream) {
+                          int H, int W, int max_motion,
+                          const TemporalTile* tile, void* stream) {
     dim3 block(32, 8);
     dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-    gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        stack, motion, out, H, W, max_motion);
+    cudaStream_t s = (cudaStream_t)stream;
+    const TemporalTile t = tile ? *tile : TemporalTile{};
+    if (tile) {
+        gather_kernel<true><<<grid, block, 0, s>>>(stack, motion, out, H, W,
+                                                   max_motion, t);
+    } else {
+        gather_kernel<false><<<grid, block, 0, s>>>(stack, motion, out, H, W,
+                                                    max_motion, t);
+    }
     return (int)cudaGetLastError();
 }
 
+// K5/K6, K5c/K6c (tile given); dh (the history canvas's shape) must be
+// zeroed.
 extern "C" int rdt_gather_bwd(const float* hist, const float* motion,
                               const float* g, float* dh, float* dm, int H,
                               int W, int max_motion, int grad_planes,
-                              int motion_grad, void* stream) {
+                              int motion_grad, const TemporalTile* tile,
+                              void* stream) {
     dim3 block(32, 8);
     dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-    gather_bwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        hist, motion, g, dh, dm, H, W, max_motion, grad_planes, motion_grad);
+    cudaStream_t s = (cudaStream_t)stream;
+    const TemporalTile t = tile ? *tile : TemporalTile{};
+    if (tile) {
+        gather_bwd_kernel<true><<<grid, block, 0, s>>>(
+            hist, motion, g, dh, dm, H, W, max_motion, grad_planes,
+            motion_grad, t);
+    } else {
+        gather_bwd_kernel<false><<<grid, block, 0, s>>>(
+            hist, motion, g, dh, dm, H, W, max_motion, grad_planes,
+            motion_grad, t);
+    }
     return (int)cudaGetLastError();
 }

@@ -246,18 +246,21 @@ def shadow_shade(scene: Scene, p: torch.Tensor, n: torch.Tensor,
                  emission: torch.Tensor, hit: torch.Tensor,
                  light_consts: torch.Tensor,
                  prev_consts: Optional[torch.Tensor],
-                 params: RaymarchParams, cam_wh: Tuple[int, int]):
+                 params: RaymarchParams, cam_wh: Tuple[int, int],
+                 window: Tuple[int, int] = (0, 0)):
     """Plain version of K8: shadow ray, direct-light shading and motion.
 
     Returns ``(render, vis, motion)``; ``motion`` is None without
     ``prev_consts``.  Miss pixels get ``dist_l = 0`` (their visibility march
     is skipped, vis = 1); their albedo and emission are masked to zero, so
-    their render is zero either way."""
+    their render is zero either way.  ``window``: the global pixel of the
+    planes' (0, 0), against which the motion is taken."""
     origin, ld, dist_l = _shadow_ray(p, n, light_p)
     dist_l = torch.where(hit, dist_l, torch.zeros_like(dist_l))
     vis = _shadow_march(scene, origin, ld, dist_l, params)
     render, motion = shade_epilogue(p, n, light_p, albedo, emission, hit,
-                                    vis, light_consts, prev_consts, cam_wh)
+                                    vis, light_consts, prev_consts, cam_wh,
+                                    window)
     return render, vis, motion
 
 
@@ -338,7 +341,8 @@ def shade_epilogue(p: torch.Tensor, n: torch.Tensor, light_p: torch.Tensor,
                    hit: torch.Tensor, vis: torch.Tensor,
                    light_consts: torch.Tensor,
                    prev_consts: Optional[torch.Tensor],
-                   cam_wh: Tuple[int, int]):
+                   cam_wh: Tuple[int, int],
+                   window: Tuple[int, int] = (0, 0)):
     """K8's epilogue at a given visibility: direct light from ``p`` toward
     the light sample, ``albedo·(L·vis·geom/π + 0.08) + emission``, and the
     motion into the previous camera (None without ``prev_consts``).
@@ -346,14 +350,17 @@ def shade_epilogue(p: torch.Tensor, n: torch.Tensor, light_p: torch.Tensor,
     backward of K8 (``_shade_xla`` in the JAX package) both run it."""
     irr = direct_light(p, n, light_p, vis, light_consts)
     render = albedo * (irr / math.pi + _AMBIENT) + emission
-    return render, reprojection_motion(p, hit, prev_consts, cam_wh)
+    return render, reprojection_motion(p, hit, prev_consts, cam_wh, window)
 
 
 def reprojection_motion(p: torch.Tensor, hit: torch.Tensor,
                         prev_consts: Optional[torch.Tensor],
-                        cam_wh: Tuple[int, int]) -> Optional[torch.Tensor]:
+                        cam_wh: Tuple[int, int],
+                        window: Tuple[int, int] = (0, 0)
+                        ) -> Optional[torch.Tensor]:
     """(2, H, W) motion (dy, dx) in pixels of each hit point into the
-    previous camera, zero at misses; None without ``prev_consts``."""
+    previous camera, zero at misses; None without ``prev_consts``.  The
+    planes' pixel (0, 0) is the frame's pixel ``window``."""
     if prev_consts is None:
         return None
     ppos, pfwd, pright, pup = (prev_consts[0:3], prev_consts[3:6],
@@ -368,8 +375,11 @@ def reprojection_motion(p: torch.Tensor, hit: torch.Tensor,
     W, H = cam_wh
     px = (x / phw * 0.5 + 0.5) * W - 0.5
     py = (0.5 - y / phh * 0.5) * H - 0.5
-    iy = torch.arange(p.shape[1], dtype=p.dtype, device=p.device)[:, None]
-    ix = torch.arange(p.shape[2], dtype=p.dtype, device=p.device)[None, :]
+    row0, col0 = window
+    iy = (row0 + torch.arange(p.shape[1], dtype=p.dtype,
+                              device=p.device))[:, None]
+    ix = (col0 + torch.arange(p.shape[2], dtype=p.dtype,
+                              device=p.device))[None, :]
     hit_f = hit.to(p.dtype)
     return torch.stack([py - iy, px - ix]) * hit_f[None]
 
@@ -430,13 +440,41 @@ def render_gbuffer(
     spp: int = 1,
     impl: str = "auto",
 ) -> GBuffer:
+    """Fused raymarch + G-buffer pass of the whole frame: see
+    :func:`render_gbuffer_window`."""
+    return render_gbuffer_window(
+        scene, camera, prev_camera, generator, 0, 0, cam_cfg.height,
+        cam_cfg.width, cam_cfg=cam_cfg, params=params,
+        light_sample=light_sample, spp=spp, impl=impl)
+
+
+def render_gbuffer_window(
+    scene: Scene,
+    camera: Camera,
+    prev_camera: Optional[Camera],
+    generator: Optional[torch.Generator],
+    row0: int,
+    col0: int,
+    th: int,
+    tw: int,
+    *,
+    cam_cfg: CameraParams = CameraParams(),
+    params: RaymarchParams = RaymarchParams(),
+    light_sample: Optional[torch.Tensor] = None,
+    spp: int = 1,
+    impl: str = "auto",
+) -> GBuffer:
     """Fused raymarch + G-buffer pass; ``spp`` light samples per pixel
     average into the noisy render plane (1 = the serving noise level; a
-    large ``spp`` approximates the clean image).
+    large ``spp`` approximates the clean image).  The planes cover the
+    ``th`` x ``tw`` window of the frame at pixel (``row0``, ``col0``) (a
+    tile of the sharded pipeline; the JAX package's
+    ``render_gbuffer_window``): its rays, and its motion against the
+    frame's pixel coordinates.
 
     ``light_sample`` replaces the draws from ``generator`` (tests pass the
-    reference's samples): (3, H, W) at ``spp = 1``, (spp, 3, H, W) at any
-    ``spp``.  At ``spp = 1`` the shadow ray, shading and motion are one
+    reference's samples): (3, th, tw) at ``spp = 1``, (spp, 3, th, tw) at
+    any ``spp``.  At ``spp = 1`` the shadow ray, shading and motion are one
     pass (K8).  At ``spp > 1`` each sample marches its shadow ray (K13) and
     its direct light is summed in PyTorch, sample by sample (stacking them
     would hold spp·3·H·W floats); the sum is divided once by ``spp``.
@@ -460,13 +498,13 @@ def render_gbuffer(
     march, shade, shadow = ((march_gbuf_cuda, shadow_shade_cuda,
                              shadow_factor_cuda) if impl == "auto"
                             else (march_gbuf, shadow_shade, shadow_factor))
-    H, W = cam_cfg.height, cam_cfg.width
+    H, W = th, tw
     if light_sample is not None and light_sample.dim() == 3:
         light_sample = light_sample[None]
     if light_sample is not None and light_sample.shape != (spp, 3, H, W):
         raise ValueError(f"light_sample: shape {tuple(light_sample.shape)}, "
                          f"expected {(spp, 3, H, W)}")
-    ro, rd, _basis = camera_rays(camera, cam_cfg)
+    ro, rd, _basis = camera_rays_window(camera, cam_cfg, row0, col0, H, W)
     t, hit, mat, n = march(scene, ro, rd, params)
     p = ro + t[None] * rd
     albedo, emission = _material_lookup(mat, scene.materials.albedo,
@@ -485,7 +523,8 @@ def render_gbuffer(
     if spp == 1:
         render, _vis, motion = shade(scene, p, n, sample(0), albedo,
                                      emission, hit, light, prev, params,
-                                     (W, H))
+                                     (cam_cfg.width, cam_cfg.height),
+                                     (row0, col0))
     else:
         irr = None
         for s in range(spp):
@@ -493,7 +532,9 @@ def render_gbuffer(
             e = direct_light(p, n, lp, shadow(scene, p, n, lp, params), light)
             irr = e if irr is None else irr + e
         render = albedo * (irr / spp / math.pi + _AMBIENT) + emission
-        motion = reprojection_motion(p, hit, prev, (W, H))
+        motion = reprojection_motion(p, hit, prev,
+                                     (cam_cfg.width, cam_cfg.height),
+                                     (row0, col0))
     if motion is None:
         motion = torch.zeros((2, H, W), dtype=ro.dtype, device=ro.device)
     depth = torch.where(hit, t, torch.zeros_like(t))

@@ -45,7 +45,7 @@ class _ShadeParams(ctypes.Structure):
 
     _fields_ = [(n, ctypes.c_int) for n in
                 ("H", "W", "n_sph", "n_box", "n_pl", "shadow_steps",
-                 "has_prev", "cam_w", "cam_h")] + [
+                 "has_prev", "cam_w", "cam_h", "row0", "col0")] + [
         (n, ctypes.c_float) for n in ("hit_eps", "relax_omega")]
 
 
@@ -102,7 +102,7 @@ march_gbuf_cuda.launches = 0
 
 
 def _shade_launch(scene, p, n, light_p, albedo, emission, hit, light_consts,
-                  prev_consts, params, cam_wh):
+                  prev_consts, params, cam_wh, window):
     """One launch of K8; returns ``(render, vis, motion)``."""
     H, W = p.shape[-2:]
     dev = p.device
@@ -127,7 +127,8 @@ def _shade_launch(scene, p, n, light_p, albedo, emission, hit, light_consts,
     prm = _ShadeParams(H=H, W=W, n_sph=n_sph, n_box=n_box, n_pl=n_pl,
                        shadow_steps=params.shadow_steps,
                        has_prev=int(has_prev), cam_w=cam_wh[0],
-                       cam_h=cam_wh[1], hit_eps=params.hit_eps,
+                       cam_h=cam_wh[1], row0=window[0], col0=window[1],
+                       hit_eps=params.hit_eps,
                        relax_omega=params.relax_omega)
     rc = _build.kernels().rdt_shadow_shade(
         *ptrs, hit_ptr, light_ptr, prev_ptr, render.data_ptr(),
@@ -144,14 +145,14 @@ class _ShadowShade(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, scene, p, n, light_p, albedo, emission, hit,
-                light_consts, prev_consts, params, cam_wh):
+                light_consts, prev_consts, params, cam_wh, window):
         args = (scene, p, n, light_p, albedo, emission, hit, light_consts,
-                prev_consts, params, cam_wh)
+                prev_consts, params, cam_wh, window)
         render, vis, motion = (_shade_launch(*args) if p.is_cuda
                                else shadow_shade(*args))
         ctx.save_for_backward(p, n, light_p, albedo, emission, hit, vis,
                               light_consts, prev_consts)
-        ctx.cam_wh = cam_wh
+        ctx.cam_wh, ctx.window = cam_wh, window
         ctx.mark_non_differentiable(vis)
         if motion is None:
             return render, vis
@@ -164,13 +165,13 @@ class _ShadowShade(torch.autograd.Function):
         diff = (p, n, light_p, albedo, emission, light_consts)
         need = ctx.needs_input_grad[1:6] + (ctx.needs_input_grad[7],)
         if not any(need):
-            return (None,) * 11
+            return (None,) * 12
         with torch.enable_grad():
             leaves = [x.detach().requires_grad_(nd) for x, nd in
                       zip(diff, need)]
             render, motion = shade_epilogue(
                 leaves[0], leaves[1], leaves[2], leaves[3], leaves[4], hit,
-                vis, leaves[5], prev, ctx.cam_wh)
+                vis, leaves[5], prev, ctx.cam_wh, ctx.window)
             outs, cots = [render], [g_render]
             if motion is not None and g_motion is not None:
                 outs.append(motion)
@@ -180,7 +181,7 @@ class _ShadowShade(torch.autograd.Function):
                                              allow_unused=True))
         d = [next(grads) if nd else None for nd in need]
         return (None, d[0], d[1], d[2], d[3], d[4], None, d[5], None, None,
-                None)
+                None, None)
 
 
 def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
@@ -188,12 +189,15 @@ def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
                       emission: torch.Tensor, hit: torch.Tensor,
                       light_consts: torch.Tensor,
                       prev_consts: Optional[torch.Tensor],
-                      params: RaymarchParams, cam_wh: Tuple[int, int]):
+                      params: RaymarchParams, cam_wh: Tuple[int, int],
+                      window: Tuple[int, int] = (0, 0)):
     """Shadow ray + shading + motion; returns ``(render, vis, motion)`` as
-    ``shadow_shade`` does, differentiable (see the module docstring).  Each
-    launch adds one to ``shadow_shade_cuda.launches``."""
+    ``shadow_shade`` does, differentiable (see the module docstring);
+    ``window`` as there.  Each launch adds one to
+    ``shadow_shade_cuda.launches``."""
     out = _ShadowShade.apply(scene, p, n, light_p, albedo, emission, hit,
-                             light_consts, prev_consts, params, cam_wh)
+                             light_consts, prev_consts, params, cam_wh,
+                             tuple(window))
     return out if prev_consts is not None else (out[0], out[1], None)
 
 

@@ -19,6 +19,13 @@ Per frame:
 Motion convention: ``motion[:, p] = (dy, dx)`` points from p to the matching
 pixel of the previous frame.
 
+Tiles (``tile=Tile(origin, bounds)``, the sharded pipeline's kernel
+forms K3b, K4c, K5c/K6c): the history comes as a canvas around the tile
+(margin >= max_motion + 1) and the render as one with margin >= 3; every
+tap, the reprojected position and the 3x3/7x7 windows are tested against
+the frame in global coordinates, so a tile computes what the whole frame
+computes at its pixels.
+
 Gradients: the bounded reprojection is a ``torch.autograd.Function``
 (:func:`reproject_gather`) whose backward is written out with JAX's kink
 conventions (``ops.common.tent_prime``), and the epilogue's maxima and
@@ -36,7 +43,8 @@ import torch
 
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History, luminance
-from .common import fma, shift2d, tent, tent_prime, valid_mask
+from .common import (Tile, canvas_margin, crop, fma, shift2d,
+                     tent, tent_prime, valid_mask)
 
 # stack order of the reprojected history planes: colour 3, moments 2,
 # length, previous depth, previous normal 3
@@ -94,36 +102,65 @@ def _tap_geometry(motion: torch.Tensor, max_motion: int):
     return within, m0w, m1w, torch.floor(m0w), torch.floor(m1w), iy, ix
 
 
-def _tap_index(iy, ix, dyf, dxf, H, W, ok):
+def _tap_index(iy, ix, dyf, dxf, H, W, ok, canvas=None):
     """Flat index of the tap at offset (dyf, dxf) and whether it is read:
-    ``ok`` and inside the image."""
+    ``ok`` and inside the image.  ``canvas = (tile, margin, Hc, Wc)``: the
+    tap is read when inside the frame, from the canvas around the tile."""
     ry = iy + dyf.to(torch.int64)
     rx = ix + dxf.to(torch.int64)
-    inside = (ry >= 0) & (ry < H) & (rx >= 0) & (rx < W) & ok
-    idx = torch.clamp(ry, 0, H - 1) * W + torch.clamp(rx, 0, W - 1)
+    if canvas is None:
+        inside = (ry >= 0) & (ry < H) & (rx >= 0) & (rx < W) & ok
+        idx = torch.clamp(ry, 0, H - 1) * W + torch.clamp(rx, 0, W - 1)
+        return idx.reshape(-1), inside
+    tile, m, Hc, Wc = canvas
+    (gy0, gx0), (Hg, Wg) = tile.origin, tile.bounds
+    gy, gx = ry + gy0, rx + gx0
+    inside = (gy >= 0) & (gy < Hg) & (gx >= 0) & (gx < Wg) & ok
+    idx = (torch.clamp(ry + m, 0, Hc - 1) * Wc
+           + torch.clamp(rx + m, 0, Wc - 1))
     return idx.reshape(-1), inside
 
 
+def _canvas_of(shape, motion, max_motion, tile):
+    """``(tile, margin, Hc, Wc)`` of a history canvas of ``shape`` (…, Hc,
+    Wc) around the tile of ``motion`` (None without a tile); the margin
+    must hold every tap of an accepted motion (>= max_motion + 1)."""
+    if tile is None:
+        return None
+    H, W = motion.shape[-2:]
+    Hc, Wc = shape[-2:]
+    m = (Hc - H) // 2
+    if Hc != H + 2 * m or Wc != W + 2 * m or m < max_motion + 1:
+        raise ValueError(f"history canvas {tuple(shape)}: not a {H}x{W} "
+                         f"tile with a margin >= max_motion + 1 = "
+                         f"{max_motion + 1} on every side")
+    return tile, m, Hc, Wc
+
+
 def gather_ref(stack: torch.Tensor, motion: torch.Tensor,
-               max_motion: int) -> torch.Tensor:
+               max_motion: int, tile: Tile = None) -> torch.Tensor:
     """Plain version of K4: the bounded-motion tent gather of a (P, H, W)
     stack at ``p + motion``.  Pixels with ``|m0|`` or ``|m1| > max_motion``
     read zero, as do taps outside the image.  The four taps (y0, x0),
     (y0, x0+1), (y0+1, x0), (y0+1, x0+1) accumulate by fused multiply-adds
     with tent weights ``max(0, 1 − |m − d|)``: the order, weights and
-    rounding of the reference's compiled sum."""
-    P, H, W = stack.shape
+    rounding of the reference's compiled sum.  With ``tile`` (K4c),
+    ``stack`` is the history canvas around the tile of ``motion``; the
+    result is the tile's."""
+    P = stack.shape[0]
+    H, W = motion.shape[-2:]
+    canvas = _canvas_of(stack.shape, motion, max_motion, tile)
     within, m0w, m1w, y0, x0, iy, ix = _tap_geometry(motion, max_motion)
-    flat = stack.reshape(P, H * W)
+    flat = stack.reshape(P, -1)
     zero = torch.zeros((), dtype=stack.dtype, device=stack.device)
-    out = torch.zeros_like(stack)
+    out = torch.zeros((P, H, W), dtype=stack.dtype, device=stack.device)
     for ay in (0, 1):
         dyf = y0 + ay
         ty = tent(m0w - dyf)
         for ax in (0, 1):
             dxf = x0 + ax
             tx = tent(m1w - dxf)
-            idx, inside = _tap_index(iy, ix, dyf, dxf, H, W, within)
+            idx, inside = _tap_index(iy, ix, dyf, dxf, H, W, within, canvas)
             val = torch.where(inside[None], flat[:, idx].reshape(P, H, W),
                               zero)
             out = fma((ty * tx)[None], val, out)
@@ -131,7 +168,8 @@ def gather_ref(stack: torch.Tensor, motion: torch.Tensor,
 
 
 def gather_bwd_ref(stack, motion, g, max_motion: int, *, motion_grad: bool,
-                   grad_planes: int = N_HIST_PLANES):
+                   grad_planes: int = N_HIST_PLANES, tile: Tile = None,
+                   canvas_shape=None):
     """Plain version of K5 (``motion_grad=True``) and K6 (False): the
     adjoint of :func:`gather_ref` for the cotangent ``g`` of its output.
 
@@ -144,27 +182,33 @@ def gather_bwd_ref(stack, motion, g, max_motion: int, *, motion_grad: bool,
     floor(m)+1 that lie in [−M, M+1]: at integer motion tent' is nonzero
     on all three (±0.5, −1, ±0.5, JAX's kink convention), which is why the
     JAX package's adjoint keeps floor+1 upper bounds.  ``stack`` may be
-    None without ``motion_grad``.  Returns ``(d_hist, d_motion)``."""
+    None without ``motion_grad``.  With ``tile`` (K5c/K6c), ``d_hist`` is
+    the gradient of the whole history canvas, margins included, of shape
+    ``canvas_shape`` (P, Hc, Wc) (``stack``'s when given).  Returns
+    ``(d_hist, d_motion)``."""
     P, H, W = g.shape
     NP = min(grad_planes, P)
+    Hc, Wc = (H, W) if tile is None else tuple(
+        (stack.shape if stack is not None else canvas_shape)[-2:])
+    canvas = _canvas_of((Hc, Wc), motion, max_motion, tile)
     within, m0w, m1w, y0, x0, iy, ix = _tap_geometry(motion, max_motion)
     gw = g[:NP]
-    dh = torch.zeros((P, H * W), dtype=g.dtype, device=g.device)
+    dh = torch.zeros((P, Hc * Wc), dtype=g.dtype, device=g.device)
     for ay in (0, 1):
         dyf = y0 + ay
         ty = tent(m0w - dyf)
         for ax in (0, 1):
             dxf = x0 + ax
             tx = tent(m1w - dxf)
-            idx, inside = _tap_index(iy, ix, dyf, dxf, H, W, within)
+            idx, inside = _tap_index(iy, ix, dyf, dxf, H, W, within, canvas)
             sel = inside.reshape(-1)
             contrib = ((ty * tx)[None] * gw).reshape(NP, H * W)
             dh[:NP].index_add_(1, idx[sel], contrib[:, sel])
-    dh = dh.reshape(P, H, W)
+    dh = dh.reshape(P, Hc, Wc)
     dm = torch.zeros((2, H, W), dtype=g.dtype, device=g.device)
     if not motion_grad:
         return dh, dm
-    flat = stack[:NP].reshape(NP, H * W)
+    flat = stack[:NP].reshape(NP, Hc * Wc)
     zero = torch.zeros((), dtype=g.dtype, device=g.device)
     dm0 = dm1 = torch.zeros((H, W), dtype=g.dtype, device=g.device)
     for ay in (-1, 0, 1):
@@ -176,7 +220,7 @@ def gather_bwd_ref(stack, motion, g, max_motion: int, *, motion_grad: bool,
             in_range = ((dyf >= -max_motion) & (dyf <= max_motion + 1)
                         & (dxf >= -max_motion) & (dxf <= max_motion + 1))
             idx, inside = _tap_index(iy, ix, dyf, dxf, H, W,
-                                     within & in_range)
+                                     within & in_range, canvas)
             val = torch.where(inside[None], flat[:, idx].reshape(NP, H, W),
                               zero)
             gdot = torch.zeros((H, W), dtype=g.dtype, device=g.device)
@@ -193,31 +237,39 @@ class _ReprojectGather(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, stack, motion, max_motion, motion_grad, grad_planes,
-                fwd, bwd):
+                fwd, bwd, tile=None):
         ctx.save_for_backward(stack if motion_grad else None, motion)
-        ctx.args = (max_motion, motion_grad, grad_planes, bwd)
-        return fwd(stack, motion, max_motion)
+        ctx.args = (max_motion, motion_grad, grad_planes, bwd, tile,
+                    tuple(stack.shape))
+        if tile is None:
+            return fwd(stack, motion, max_motion)
+        return fwd(stack, motion, max_motion, tile=tile)
 
     @staticmethod
     def backward(ctx, g):
         stack, motion = ctx.saved_tensors
-        max_motion, motion_grad, grad_planes, bwd = ctx.args
+        max_motion, motion_grad, grad_planes, bwd, tile, shape = ctx.args
+        kw = {} if tile is None else dict(tile=tile, canvas_shape=shape)
         dh, dm = bwd(stack, motion, g.contiguous(), max_motion,
-                     motion_grad=motion_grad, grad_planes=grad_planes)
+                     motion_grad=motion_grad, grad_planes=grad_planes, **kw)
         return (dh, dm if motion_grad else None, None, None, None, None,
-                None)
+                None, None)
 
 
 def reproject_gather(stack: torch.Tensor, motion: torch.Tensor,
                      max_motion: int, *, motion_grad: bool = True,
-                     grad_planes: int = N_HIST_PLANES) -> torch.Tensor:
+                     grad_planes: int = N_HIST_PLANES,
+                     tile: Tile = None) -> torch.Tensor:
     """Differentiable bounded reprojection of a (P, H, W) stack (the JAX
     package's ``_reproject_gather``): forward :func:`gather_ref`, backward
     :func:`gather_bwd_ref`.  ``motion_grad=False`` returns no motion
     gradient (exact when the loss does not reach motion, as in
-    material-only training); ``grad_planes`` as in :func:`gather_bwd_ref`."""
+    material-only training); ``grad_planes`` as in :func:`gather_bwd_ref`.
+    With ``tile``, ``stack`` is the history canvas around the tile
+    (``_reproject_gather_canvas``); its gradient covers the canvas."""
     return _ReprojectGather.apply(stack, motion, max_motion, motion_grad,
-                                  grad_planes, gather_ref, gather_bwd_ref)
+                                  grad_planes, gather_ref, gather_bwd_ref,
+                                  tile)
 
 
 def _neighborhood_minmax(color: torch.Tensor, radius: int = 1):
@@ -239,6 +291,71 @@ def _neighborhood_minmax(color: torch.Tensor, radius: int = 1):
 
     cmin, cmax = one_axis(color, color, True)
     return one_axis(cmin, cmax, False)
+
+
+def _neighborhood_minmax_tile(color_c: torch.Tensor, tile: Tile, H: int,
+                              W: int, radius: int = 1):
+    """:func:`_neighborhood_minmax` of an H x W tile from its colour canvas
+    (margin >= radius), taps outside the frame dropped; rows, then
+    columns, in the same order."""
+    m = canvas_margin(color_c, H, W, "render canvas")
+    (gy0, gx0), (Hg, Wg) = tile.origin, tile.bounds
+    dev = color_c.device
+    inf = torch.tensor(float("inf"), dtype=color_c.dtype, device=dev)
+    rows = color_c[..., m:m + H, :]
+    lo = hi = rows
+    gy = torch.arange(gy0, gy0 + H, device=dev)[:, None]
+    for d in range(-radius, radius + 1):
+        if d == 0:
+            continue
+        ok = (gy + d >= 0) & (gy + d < Hg)
+        s = color_c[..., m + d:m + d + H, :]
+        lo = torch.minimum(lo, torch.where(ok, s, inf))
+        hi = torch.maximum(hi, torch.where(ok, s, -inf))
+    olo, ohi = lo[..., m:m + W], hi[..., m:m + W]
+    gx = torch.arange(gx0, gx0 + W, device=dev)[None, :]
+    for d in range(-radius, radius + 1):
+        if d == 0:
+            continue
+        ok = (gx + d >= 0) & (gx + d < Wg)
+        olo = torch.minimum(olo, torch.where(ok, lo[..., m + d:m + d + W],
+                                             inf))
+        ohi = torch.maximum(ohi, torch.where(ok, hi[..., m + d:m + d + W],
+                                             -inf))
+    return olo, ohi
+
+
+def _spatial_moments_tile(lum_c: torch.Tensor, tile: Tile, H: int, W: int,
+                          radius: int = 3):
+    """:func:`spatial_moments` of an H x W tile from its luminance canvas
+    (margin >= radius): taps outside the frame read zero and the count is
+    the frame's; the sums run in the same order."""
+    m = canvas_margin(lum_c, H, W, "luminance canvas")
+    (gy0, gx0), (Hg, Wg) = tile.origin, tile.bounds
+    Hc, Wc = lum_c.shape
+    dev, dt = lum_c.device, lum_c.dtype
+    cy = torch.arange(gy0 - m, gy0 - m + Hc, device=dev)[:, None]
+    cx = torch.arange(gx0 - m, gx0 - m + Wc, device=dev)[None, :]
+    inside = (cy >= 0) & (cy < Hg) & (cx >= 0) & (cx < Wg)
+    lum_c = torch.where(inside, lum_c, torch.zeros((), dtype=dt, device=dev))
+
+    def winsum(x):
+        rows = x[m:m + H]
+        for d in range(1, radius + 1):
+            rows = rows + x[m + d:m + d + H] + x[m - d:m - d + H]
+        out = rows[:, m:m + W]
+        for d in range(1, radius + 1):
+            out = out + rows[:, m + d:m + d + W] + rows[:, m - d:m - d + W]
+        return out
+
+    iy = torch.arange(gy0, gy0 + H, dtype=dt, device=dev)[:, None]
+    ix = torch.arange(gx0, gx0 + W, dtype=dt, device=dev)[None, :]
+    cnt_y = (torch.clamp(iy, max=float(radius))
+             + torch.clamp(Hg - 1 - iy, max=float(radius)) + 1.0)
+    cnt_x = (torch.clamp(ix, max=float(radius))
+             + torch.clamp(Wg - 1 - ix, max=float(radius)) + 1.0)
+    inv_cnt = 1.0 / (cnt_y * cnt_x)
+    return winsum(lum_c) * inv_cnt, winsum(lum_c * lum_c) * inv_cnt
 
 
 def spatial_moments(lum: torch.Tensor, radius: int = 3):
@@ -270,9 +387,16 @@ def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=like.dtype, device=like.device)
 
 
-def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams):
-    """Validity, history clamp, EMA accumulation, moments and variance."""
-    color = gbuf.render
+def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams,
+                       tile: Tile = None):
+    """Validity, history clamp, EMA accumulation, moments and variance.
+    With ``tile``, ``gbuf.render`` is the render canvas around the tile of
+    ``gbuf.depth`` (margin >= 3); the rest is the tile's."""
+    color = render_c = gbuf.render
+    if tile is not None:
+        H, W = gbuf.depth.shape
+        color = crop(render_c, canvas_margin(render_c, H, W, "render"), 0,
+                     0, H, W)
     prev_color, prev_moments, prev_len, prev_depth, prev_normal = gathered
 
     depth_ok = torch.abs(prev_depth - gbuf.depth) <= 0.1 * torch.clamp(
@@ -283,7 +407,8 @@ def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams):
     valid = in_bounds & depth_ok & (ndot > 0.8) & (prev_len > 0)
 
     if params.history_clamp:
-        cmin, cmax = _neighborhood_minmax(color, radius=1)
+        cmin, cmax = (_neighborhood_minmax(color, radius=1) if tile is None
+                      else _neighborhood_minmax_tile(render_c, tile, H, W))
         prev_color = torch.minimum(torch.maximum(prev_color, cmin), cmax)
 
     n_prev = torch.where(valid, prev_len, torch.zeros_like(prev_len))
@@ -306,7 +431,8 @@ def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams):
     zero = _scalar(0.0, lum)
     variance = torch.maximum(moments[1] - moments[0] * moments[0], zero)
     if params.variance_boost_frames > 0:
-        sm1, sm2 = spatial_moments(lum)
+        sm1, sm2 = (spatial_moments(lum) if tile is None else
+                    _spatial_moments_tile(luminance(render_c), tile, H, W))
         var_spatial = torch.maximum(sm2 - sm1 * sm1, zero)
         variance = torch.where(n_new < params.variance_boost_frames,
                                var_spatial, variance)
@@ -321,13 +447,24 @@ def temporal_accumulate(
     history: History,
     *,
     params: SVGFParams = SVGFParams(),
+    tile: Tile = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, History]:
     """One temporal step, differentiable by autograd.
 
     Returns ``(integrated_color, variance, new_history)``; the caller
     replaces ``new_history.color`` with the à-trous feedback level's output
     (``models/svgf.py``).
+
+    ``tile`` given (K3's tile form and K3b's plain version): the history
+    planes are canvases around the tile of ``gbuf.depth`` (margin >=
+    max_motion + 1; one (10, Hc, Wc) canvas is split by
+    :func:`history_from_stack`), ``gbuf.render`` a canvas with margin >= 3,
+    and motion, depth and normal the tile's; bounded motion only.
     """
+    if tile is not None:
+        return temporal_step_ad(gbuf, history, params, reproject_gather,
+                                motion_grad=True, grad_planes=N_HIST_PLANES,
+                                tile=tile)
     if params.max_motion is None:
         motion = _motion(gbuf)
         hist_planes = [history.color, history.moments, history.length,
@@ -340,44 +477,68 @@ def temporal_accumulate(
 
 
 def _motion(gbuf: GBuffer) -> torch.Tensor:
-    H, W = gbuf.shape
+    H, W = gbuf.depth.shape
     return (gbuf.motion if gbuf.motion is not None
             else torch.zeros((2, H, W), dtype=gbuf.render.dtype,
                              device=gbuf.render.device))
 
 
-def _in_bounds(motion: torch.Tensor, max_motion) -> torch.Tensor:
+def _in_bounds(motion: torch.Tensor, max_motion,
+               tile: Tile = None) -> torch.Tensor:
     """Pixels whose reprojection lands inside the image and, with a bound,
-    whose |m0| and |m1| are within it."""
+    whose |m0| and |m1| are within it (with ``tile``: inside the frame, in
+    global coordinates)."""
     H, W = motion.shape[-2:]
-    iy = torch.arange(H, dtype=motion.dtype, device=motion.device)[:, None]
-    ix = torch.arange(W, dtype=motion.dtype, device=motion.device)[None, :]
+    (gy0, gx0), (Hg, Wg) = ((0, 0), (H, W)) if tile is None else (
+        tile.origin, tile.bounds)
+    iy = torch.arange(gy0, gy0 + H, dtype=motion.dtype,
+                      device=motion.device)[:, None]
+    ix = torch.arange(gx0, gx0 + W, dtype=motion.dtype,
+                      device=motion.device)[None, :]
     ys, xs = iy + motion[0], ix + motion[1]
-    ok = (ys >= 0) & (ys <= H - 1) & (xs >= 0) & (xs <= W - 1)
+    ok = (ys >= 0) & (ys <= Hg - 1) & (xs >= 0) & (xs <= Wg - 1)
     if max_motion is None:
         return ok
     return (ok & (torch.abs(motion[0]) <= max_motion)
             & (torch.abs(motion[1]) <= max_motion))
 
 
-def temporal_step_ad(gbuf: GBuffer, history: History, params: SVGFParams,
-                     gather, *, motion_grad: bool, grad_planes: int):
+def history_stack(history: History) -> torch.Tensor:
+    """The (10, H, W) stack of the history planes, in the reprojection's
+    order."""
+    return torch.cat([history.color, history.moments, history.length[None],
+                      history.prev_depth[None], history.prev_normal])
+
+
+def history_from_stack(stack: torch.Tensor) -> History:
+    """The History whose planes are views of a (10, H, W) stack."""
+    return History(color=stack[0:3], moments=stack[3:5], length=stack[5],
+                   prev_depth=stack[6], prev_normal=stack[7:10])
+
+
+def temporal_step_ad(gbuf: GBuffer, history, params: SVGFParams,
+                     gather, *, motion_grad: bool, grad_planes: int,
+                     tile: Tile = None):
     """The differentiable temporal step with bounded motion (the JAX
     package's ``temporal_accumulate_pallas_ad``): stack the history planes,
     reproject them with ``gather`` (:func:`reproject_gather` or its CUDA
-    counterpart), and run the shared epilogue."""
+    counterpart), and run the shared epilogue.  ``history`` may be the
+    (10, …) stack itself; with ``tile``, a canvas (see
+    :func:`temporal_accumulate`)."""
     if params.max_motion is None:
         raise ValueError("the differentiable temporal step requires "
                          "SVGFParams.max_motion (bounded reprojection)")
     motion = _motion(gbuf)
-    stack = torch.cat([history.color, history.moments, history.length[None],
-                       history.prev_depth[None], history.prev_normal])
+    stack = (history if isinstance(history, torch.Tensor)
+             else history_stack(history))
+    kw = {} if tile is None else dict(tile=tile)
     gathered = gather(stack, motion, params.max_motion,
-                      motion_grad=motion_grad, grad_planes=grad_planes)
+                      motion_grad=motion_grad, grad_planes=grad_planes, **kw)
     planes = (gathered[0:3], gathered[3:5], gathered[5], gathered[6],
               gathered[7:10])
     return _temporal_epilogue(gbuf, planes,
-                              _in_bounds(motion, params.max_motion), params)
+                              _in_bounds(motion, params.max_motion, tile),
+                              params, tile)
 
 
 def temporal_accumulate_ad(

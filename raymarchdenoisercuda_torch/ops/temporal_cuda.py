@@ -10,6 +10,18 @@
   motion gradient, K6) plus the plain epilogue, which autograd
   differentiates.
 
+Tiles (the sharded pipeline, ``parallel/sharded.py``): K3 takes ``tile``
+(history planes and render as canvases around the tile: the
+``temporal_accumulate_tile`` path), and the canvas forms, the same kernels
+on the (10, Hc, Wc) history canvas, have wrappers of their own, each with
+its own launch count: :func:`temporal_accumulate_canvas_cuda` (K3b,
+``temporal_accumulate_canvas_pallas``), :func:`gather_canvas_cuda` (K4c,
+``_gather_canvas_call``), :func:`gather_canvas_bwd_cuda` and
+:func:`gather_canvas_bwd_hist_cuda` (K5c/K6c, ``_gather_canvas_bwd_call``),
+and :func:`reproject_gather_canvas_cuda` / 
+:func:`temporal_accumulate_canvas_ad_cuda`, the differentiable step on the
+canvas (``temporal_accumulate_canvas_local``).
+
 Every wrapper launches its kernel for CUDA tensors and runs its plain twin
 from ``ops.temporal`` for CPU tensors.
 """
@@ -23,9 +35,11 @@ import torch
 
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History
+from .common import Tile, canvas_margin
 from .cuda import _build
 from .temporal import (GRAD_PLANES, N_HIST_PLANES, _ReprojectGather,
-                       gather_bwd_ref, gather_ref, temporal_accumulate,
+                       _canvas_of, gather_bwd_ref, gather_ref,
+                       history_from_stack, temporal_accumulate,
                        temporal_step_ad)
 
 
@@ -37,63 +51,187 @@ class _TemporalParams(ctypes.Structure):
         ("alpha", ctypes.c_float), ("alpha_m", ctypes.c_float)]
 
 
+class _TemporalTile(ctypes.Structure):
+    """Mirror of ``struct TemporalTile`` in ``ops/cuda/temporal.cu``."""
+
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("Hg", "Wg", "gy0", "gx0", "h_rs", "h_ps", "h_m", "r_rs",
+                 "r_ps", "r_m")]
+
+
+def _tile_struct(tile, hist_strides, hm, render_strides=(0, 0), rm=0):
+    """The ``_TemporalTile`` of a launch from the history canvas's (row,
+    plane) strides and margin, and the render canvas's; None without a
+    tile."""
+    if tile is None:
+        return None
+    (gy0, gx0), (Hg, Wg) = tile.origin, tile.bounds
+    return _TemporalTile(Hg=Hg, Wg=Wg, gy0=gy0, gx0=gx0, h_rs=hist_strides[0],
+                         h_ps=hist_strides[1], h_m=hm,
+                         r_rs=render_strides[0], r_ps=render_strides[1],
+                         r_m=rm)
+
+
+def _ref(struct):
+    return None if struct is None else ctypes.addressof(struct)
+
+
+def _launch_temporal(gbuf, planes, *, params, tile):
+    """One launch of K3/K3b.  ``planes``: the 10 history planes as views
+    of one canvas geometry (whole frame: contiguous H x W planes) in the
+    order colour, moments, length, previous depth, previous normal."""
+    if params.max_motion is None:
+        raise ValueError("the CUDA temporal kernel requires "
+                         "SVGFParams.max_motion (bounded reprojection)")
+    H, W = gbuf.depth.shape
+    dev = gbuf.device
+    f32 = torch.float32
+    motion = (gbuf.motion if gbuf.motion is not None
+              else torch.zeros((2, H, W), dtype=f32, device=dev))
+    color, moments, length, prev_depth, prev_normal = planes
+    if tile is None:
+        rm = hm = 0
+        hist = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+            (color, "history.color", (3, H, W)),
+            (moments, "history.moments", (2, H, W)),
+            (length, "history.length", (H, W)),
+            (prev_depth, "history.prev_depth", (H, W)),
+            (prev_normal, "history.prev_normal", (3, H, W)))]
+        render = _build.check_input(gbuf.render, "render", (3, H, W), f32,
+                                    dev)
+    else:
+        rm = canvas_margin(gbuf.render, H, W, "render")
+        hm = _canvas_of(color.shape, motion, params.max_motion, tile)[1]
+        if rm < 3:
+            raise ValueError(f"render canvas margin {rm} < 3")
+        hc = (H + 2 * hm, W + 2 * hm)
+        hist = []
+        for t, n, k in ((color, "history.color", 3),
+                        (moments, "history.moments", 2),
+                        (length, "history.length", None),
+                        (prev_depth, "history.prev_depth", None),
+                        (prev_normal, "history.prev_normal", 3)):
+            hist.append(_build.check_canvas(
+                t, n, hc if k is None else (k,) + hc, f32, dev))
+            if t.stride(-2) != color.stride(-2) or (
+                    k is not None and t.stride(0) != color.stride(0)):
+                raise ValueError(f"{n}: not in history.color's canvas "
+                                 f"geometry")
+        render = _build.check_canvas(gbuf.render, "render",
+                                     (3, H + 2 * rm, W + 2 * rm), f32, dev)
+    centre = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+        (motion, "motion", (2, H, W)), (gbuf.depth, "depth", (H, W)),
+        (gbuf.normal, "normal", (3, H, W)))]
+    integ = torch.empty((3, H, W), dtype=f32, device=dev)
+    var = torch.empty((H, W), dtype=f32, device=dev)
+    mom = torch.empty((2, H, W), dtype=f32, device=dev)
+    n_new = torch.empty((H, W), dtype=f32, device=dev)
+    p = _TemporalParams(H=H, W=W, max_motion=params.max_motion,
+                        history_clamp=int(params.history_clamp),
+                        boost_frames=params.variance_boost_frames,
+                        alpha=params.temporal_alpha,
+                        alpha_m=params.temporal_moments_alpha)
+    t = _tile_struct(tile, (color.stride(-2), color.stride(0)), hm,
+                     (gbuf.render.stride(-2), gbuf.render.stride(0)), rm)
+    rc = _build.kernels().rdt_temporal(
+        render, *centre, *hist, integ.data_ptr(), var.data_ptr(),
+        mom.data_ptr(), n_new.data_ptr(), ctypes.addressof(p), _ref(t),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rdt_temporal")
+    new_history = History(color=integ, moments=mom, length=n_new,
+                          prev_depth=gbuf.depth, prev_normal=gbuf.normal)
+    return integ, var, new_history
+
+
 def temporal_accumulate_cuda(
     gbuf: GBuffer,
     history: History,
     *,
     params: SVGFParams = SVGFParams(),
+    tile: Tile = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, History]:
     """One temporal step; returns ``(integrated, variance, new_history)`` as
     ``temporal_accumulate`` does.  The kernel needs bounded motion
-    (``params.max_motion``), as the TPU kernel does.
+    (``params.max_motion``), as the TPU kernel does.  ``tile``: the
+    history planes are canvases of one geometry around the tile (margin >=
+    max_motion + 1) and the render a canvas with margin >= 3, as in
+    ``temporal_accumulate(tile=)``.
 
     Each launch adds one to ``temporal_accumulate_cuda.launches``."""
     _build.check_no_grad("temporal_accumulate_cuda", gbuf.render,
                          gbuf.motion, history.color, history.moments,
                          history.length)
     if not gbuf.render.is_cuda:
-        return temporal_accumulate(gbuf, history, params=params)
-    if params.max_motion is None:
-        raise ValueError("the CUDA temporal kernel requires "
-                         "SVGFParams.max_motion (bounded reprojection)")
-    H, W = gbuf.shape
-    dev = gbuf.device
-    f32 = torch.float32
-    motion = (gbuf.motion if gbuf.motion is not None
-              else torch.zeros((2, H, W), dtype=f32, device=dev))
-    ins = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
-        (gbuf.render, "render", (3, H, W)), (motion, "motion", (2, H, W)),
-        (gbuf.depth, "depth", (H, W)), (gbuf.normal, "normal", (3, H, W)),
-        (history.color, "history.color", (3, H, W)),
-        (history.moments, "history.moments", (2, H, W)),
-        (history.length, "history.length", (H, W)),
-        (history.prev_depth, "history.prev_depth", (H, W)),
-        (history.prev_normal, "history.prev_normal", (3, H, W)))]
-    integ = torch.empty((3, H, W), dtype=f32, device=dev)
-    var = torch.empty((H, W), dtype=f32, device=dev)
-    moments = torch.empty((2, H, W), dtype=f32, device=dev)
-    length = torch.empty((H, W), dtype=f32, device=dev)
-    p = _TemporalParams(H=H, W=W, max_motion=params.max_motion,
-                        history_clamp=int(params.history_clamp),
-                        boost_frames=params.variance_boost_frames,
-                        alpha=params.temporal_alpha,
-                        alpha_m=params.temporal_moments_alpha)
-    rc = _build.kernels().rdt_temporal(
-        *ins, integ.data_ptr(), var.data_ptr(), moments.data_ptr(),
-        length.data_ptr(), ctypes.addressof(p),
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, "rdt_temporal")
+        return temporal_accumulate(gbuf, history, params=params, tile=tile)
+    out = _launch_temporal(gbuf, (history.color, history.moments,
+                                  history.length, history.prev_depth,
+                                  history.prev_normal),
+                           params=params, tile=tile)
     temporal_accumulate_cuda.launches += 1
-    new_history = History(color=integ, moments=moments, length=length,
-                          prev_depth=gbuf.depth, prev_normal=gbuf.normal)
-    return integ, var, new_history
+    return out
 
 
 temporal_accumulate_cuda.launches = 0
 
 
+def temporal_accumulate_canvas_cuda(
+    gbuf: GBuffer,
+    canvas: torch.Tensor,
+    *,
+    params: SVGFParams,
+    tile: Tile,
+) -> Tuple[torch.Tensor, torch.Tensor, History]:
+    """K3b: the fused temporal step reading the (10, H + 2m, W + 2m)
+    history canvas (m >= max_motion + 1, margins holding the neighbours'
+    pixels) and a render canvas with margin >= 3; the tile's ``(integrated,
+    variance, new_history)``.  Inference only: it raises if an input
+    requires grad.
+
+    Each launch adds one to ``temporal_accumulate_canvas_cuda.launches``."""
+    _build.check_no_grad("temporal_accumulate_canvas_cuda", gbuf.render,
+                         gbuf.motion, canvas)
+    if not gbuf.render.is_cuda:
+        return temporal_accumulate(gbuf, history_from_stack(canvas),
+                                   params=params, tile=tile)
+    h = history_from_stack(canvas)
+    out = _launch_temporal(gbuf, (h.color, h.moments, h.length, h.prev_depth,
+                                  h.prev_normal), params=params, tile=tile)
+    temporal_accumulate_canvas_cuda.launches += 1
+    return out
+
+
+temporal_accumulate_canvas_cuda.launches = 0
+
+
 def _stream(t):
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _canvas_tile(shape, H, tile):
+    """The ``_TemporalTile`` of a contiguous history canvas of ``shape``
+    around a tile H rows high (None without a tile)."""
+    Hc, Wc = shape[-2:]
+    return _tile_struct(tile, (Wc, Hc * Wc), (Hc - H) // 2)
+
+
+def _launch_gather(stack, motion, max_motion, tile):
+    H, W = motion.shape[-2:]
+    dev = stack.device
+    f32 = torch.float32
+    shape = tuple(stack.shape)
+    if tile is not None:
+        _canvas_of(shape, motion, max_motion, tile)
+    elif shape[-2:] != (H, W):
+        raise ValueError(f"stack: shape {shape}, expected (10, {H}, {W})")
+    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+        (stack, "stack", (N_HIST_PLANES,) + shape[-2:]),
+        (motion, "motion", (2, H, W)))]
+    out = torch.empty((N_HIST_PLANES, H, W), dtype=f32, device=dev)
+    t = _canvas_tile(shape, H, tile)
+    rc = _build.kernels().rdt_gather(*ptrs, out.data_ptr(), H, W, max_motion,
+                                     _ref(t), _stream(stack))
+    _build.check(rc, "rdt_gather")
+    return out
 
 
 def gather_cuda(stack: torch.Tensor, motion: torch.Tensor,
@@ -107,15 +245,7 @@ def gather_cuda(stack: torch.Tensor, motion: torch.Tensor,
     _build.check_no_grad("gather_cuda", stack, motion)
     if not stack.is_cuda:
         return gather_ref(stack, motion, max_motion)
-    _, H, W = stack.shape
-    dev = stack.device
-    f32 = torch.float32
-    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
-        (stack, "stack", (N_HIST_PLANES, H, W)), (motion, "motion", (2, H, W)))]
-    out = torch.empty((N_HIST_PLANES, H, W), dtype=f32, device=dev)
-    rc = _build.kernels().rdt_gather(*ptrs, out.data_ptr(), H, W, max_motion,
-                                     _stream(stack))
-    _build.check(rc, "rdt_gather")
+    out = _launch_gather(stack, motion, max_motion, None)
     gather_cuda.launches += 1
     return out
 
@@ -123,23 +253,48 @@ def gather_cuda(stack: torch.Tensor, motion: torch.Tensor,
 gather_cuda.launches = 0
 
 
-def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes):
+def gather_canvas_cuda(canvas: torch.Tensor, motion: torch.Tensor,
+                       max_motion: int, *, tile: Tile) -> torch.Tensor:
+    """K4c: the tent gather of the tile from its (10, H + 2m, W + 2m)
+    history canvas (m >= max_motion + 1); returns the (10, H, W) gathered
+    stack as ``gather_ref(tile=)`` does.  No backward of its own
+    (:func:`reproject_gather_canvas_cuda` owns the gradient).
+
+    Each launch adds one to ``gather_canvas_cuda.launches``."""
+    _build.check_no_grad("gather_canvas_cuda", canvas, motion)
+    if not canvas.is_cuda:
+        return gather_ref(canvas, motion, max_motion, tile=tile)
+    out = _launch_gather(canvas, motion, max_motion, tile)
+    gather_canvas_cuda.launches += 1
+    return out
+
+
+gather_canvas_cuda.launches = 0
+
+
+def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
+                tile=None, canvas_shape=None):
     H, W = g.shape[-2:]
     dev = g.device
     f32 = torch.float32
     if not 1 <= grad_planes <= N_HIST_PLANES:
         raise ValueError(f"grad_planes must be in 1..{N_HIST_PLANES}, "
                          f"got {grad_planes}")
+    shape = (N_HIST_PLANES, H, W) if tile is None else tuple(
+        stack.shape if stack is not None else canvas_shape)
+    if tile is not None:
+        _canvas_of(shape, motion, max_motion, tile)
     ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
         (motion, "motion", (2, H, W)), (g, "g", (N_HIST_PLANES, H, W)))]
-    hist_ptr = (_build.check_input(stack, "stack", (N_HIST_PLANES, H, W),
-                                   f32, dev) if motion_grad else None)
-    dh = torch.zeros((N_HIST_PLANES, H, W), dtype=f32, device=dev)
+    hist_ptr = (_build.check_input(stack, "stack", shape, f32, dev)
+                if motion_grad else None)
+    dh = torch.zeros(shape, dtype=f32, device=dev)
     dm = (torch.empty if motion_grad else torch.zeros)(
         (2, H, W), dtype=f32, device=dev)
+    t = _canvas_tile(shape, H, tile)
     rc = _build.kernels().rdt_gather_bwd(
         hist_ptr, *ptrs, dh.data_ptr(), dm.data_ptr(), H, W, max_motion,
-        grad_planes, int(motion_grad), _stream(g))
+        grad_planes, int(motion_grad), _ref(t), _stream(g))
     _build.check(rc, "rdt_gather_bwd")
     return dh, dm
 
@@ -198,6 +353,68 @@ def reproject_gather_cuda(stack: torch.Tensor, motion: torch.Tensor,
                                   _reproject_bwd_cuda)
 
 
+def gather_canvas_bwd_cuda(canvas, motion, g, max_motion: int, *,
+                           tile: Tile, grad_planes: int = N_HIST_PLANES):
+    """K5c: the full adjoint of K4c, ``(d_canvas, d_motion)``; ``d_canvas``
+    covers the history canvas, margins included (``gather_bwd_ref(tile=,
+    motion_grad=True)``).  Each launch adds one to
+    ``gather_canvas_bwd_cuda.launches``."""
+    _build.check_no_grad("gather_canvas_bwd_cuda", canvas, motion, g)
+    if not g.is_cuda:
+        return gather_bwd_ref(canvas, motion, g, max_motion, motion_grad=True,
+                              grad_planes=grad_planes, tile=tile)
+    out = _gather_bwd(canvas, motion, g, max_motion, True, grad_planes, tile)
+    gather_canvas_bwd_cuda.launches += 1
+    return out
+
+
+gather_canvas_bwd_cuda.launches = 0
+
+
+def gather_canvas_bwd_hist_cuda(motion, g, max_motion: int, *, tile: Tile,
+                                canvas_shape, grad_planes: int = N_HIST_PLANES):
+    """K6c: the ``d_canvas``-only adjoint of K4c (``motion_grad=False``)
+    over a canvas of ``canvas_shape``; returns ``(d_canvas, zeros for
+    d_motion)``.  Each launch adds one to
+    ``gather_canvas_bwd_hist_cuda.launches``."""
+    _build.check_no_grad("gather_canvas_bwd_hist_cuda", motion, g)
+    if not g.is_cuda:
+        return gather_bwd_ref(None, motion, g, max_motion, motion_grad=False,
+                              grad_planes=grad_planes, tile=tile,
+                              canvas_shape=canvas_shape)
+    out = _gather_bwd(None, motion, g, max_motion, False, grad_planes, tile,
+                      canvas_shape)
+    gather_canvas_bwd_hist_cuda.launches += 1
+    return out
+
+
+gather_canvas_bwd_hist_cuda.launches = 0
+
+
+def _reproject_canvas_bwd_cuda(canvas, motion, g, max_motion, *, motion_grad,
+                               grad_planes, tile, canvas_shape):
+    if motion_grad:
+        return gather_canvas_bwd_cuda(canvas, motion, g, max_motion,
+                                      tile=tile, grad_planes=grad_planes)
+    return gather_canvas_bwd_hist_cuda(motion, g, max_motion, tile=tile,
+                                       canvas_shape=canvas_shape,
+                                       grad_planes=grad_planes)
+
+
+def reproject_gather_canvas_cuda(canvas: torch.Tensor, motion: torch.Tensor,
+                                 max_motion: int, *, tile: Tile,
+                                 motion_grad: bool = True,
+                                 grad_planes: int = N_HIST_PLANES
+                                 ) -> torch.Tensor:
+    """Differentiable bounded reprojection of the tile from its history
+    canvas (``_reproject_gather_canvas``): forward K4c, backward K5c, or
+    K6c when ``motion_grad`` is False; the canvas's gradient covers its
+    margins, which the halo exchange's adjoint sends to their owners."""
+    return _ReprojectGather.apply(canvas, motion, max_motion, motion_grad,
+                                  grad_planes, gather_canvas_cuda,
+                                  _reproject_canvas_bwd_cuda, tile)
+
+
 def temporal_accumulate_ad_cuda(
     gbuf: GBuffer,
     history: History,
@@ -211,3 +428,21 @@ def temporal_accumulate_ad_cuda(
     new_history)``."""
     return temporal_step_ad(gbuf, history, params, reproject_gather_cuda,
                             motion_grad=motion_grad, grad_planes=GRAD_PLANES)
+
+
+def temporal_accumulate_canvas_ad_cuda(
+    gbuf: GBuffer,
+    canvas: torch.Tensor,
+    *,
+    params: SVGFParams,
+    tile: Tile,
+    motion_grad: bool = True,
+) -> Tuple[torch.Tensor, torch.Tensor, History]:
+    """The differentiable temporal step of a tile on its history canvas
+    (``temporal_accumulate_canvas_local``): K4c, K5c/K6c in the backward,
+    and the plain epilogue on the render canvas (margin >= 3).  Returns
+    the tile's ``(integrated, variance, new_history)``."""
+    return temporal_step_ad(gbuf, canvas, params,
+                            reproject_gather_canvas_cuda,
+                            motion_grad=motion_grad, grad_planes=GRAD_PLANES,
+                            tile=tile)

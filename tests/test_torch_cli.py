@@ -76,8 +76,8 @@ def test_cli_registers_the_reference_cases():
     cli._register_builtin_cases(cli.resolve_device("cpu"))
     assert list(rt.registered_funcs) == [
         "FILTER_BASELINE", "FILTER_TILED", "SVGF_SPATIAL", "RAYMARCH",
-        "TEMPORAL", "FILTER_CROSS", "DEVICE_STATS", "IMAGE",
-        "DENOISE_CORNELL"]
+        "TEMPORAL", "FILTER_CROSS", "SHARDED_SPATIAL", "DEVICE_STATS",
+        "IMAGE", "DENOISE_CORNELL"]
 
 
 def test_cli_runs_filter_cases_on_the_cpu(capsys):

@@ -33,6 +33,20 @@ kernel path against plain path (phase 9's): ``stored`` atol 3e-3·max,
 ``stored_f32``, ``recompute`` and ``chained=False`` 2e-4·max,
 ``weight_grads`` d_color and d_variance 1e-4·max, d_normal and d_depth
 5e-4·max.
+
+The tile forms (the sharded path's K1, K1b, K2, K14 with a tile origin and
+the frame's bounds, K3b, K4c, K5c/K6c on canvases; ``chip_smoke.py``
+phase 10(a)'s check at a small size): a frame is cut into 2x2 tiles and
+into a row of tiles lower than the level-4 reach, each tile's canvas is
+sliced from the frame (zeros past its border: what the halo exchange
+delivers), and each kernel launched with the tile's origin is held to its
+plain twin at the tolerances above and to the whole-frame kernel: the
+forwards bit for bit at the tile's pixels; the adjoints, whose margin
+gradients the tiles add up, within the atomics' or the summation's
+rounding (rtol 1e-5).  The sharded paths on one card's (1, 1, 1) mesh
+against the unsharded ones: the sweep bit for bit, the pipeline atol
+1e-3·max, the train step as the unsharded one (loss rtol 1e-5, albedo
+gradient atol 3e-3·max).
 """
 
 import numpy as np
@@ -52,14 +66,19 @@ from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
     atrous_level_fwd_cuda, atrous_level_wgrad_bwd_cuda, svgf_spatial_ad_cuda,
     svgf_spatial_cuda, svgf_spatial_stored_cuda)
-from raymarchdenoisercuda_torch.ops.common import finite_diff_gradients
+from raymarchdenoisercuda_torch.ops.common import (
+    Tile, finite_diff_gradients, frame_canvas)
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
     box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     march_gbuf_cuda, shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
-    gather_bwd_cuda, gather_bwd_hist_cuda, gather_cuda,
-    temporal_accumulate_ad_cuda, temporal_accumulate_cuda)
+    gather_bwd_cuda, gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
+    gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
+    temporal_accumulate_ad_cuda, temporal_accumulate_canvas_cuda,
+    temporal_accumulate_cuda)
+from raymarchdenoisercuda_torch.parallel import sharded
+from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -547,3 +566,237 @@ def test_adjoint_sweep_counts_launches(dev):
         oc, ov = svgf_spatial_ad_cuda(*planes, params=params, **kw)
         (oc.sum() + ov.sum()).backward()
         assert [w.launches for w in wrappers] == [b + 3 for b in before]
+
+
+# -- the tile and canvas forms of the sharded path -------------------------
+
+TH, TW = 48, 64
+TILINGS = [(2, 2), (6, 1)]     # 24x32 tiles; 8-row tiles below the reach
+
+
+def _tiles(ny, nx):
+    th, tw = TH // ny, TW // nx
+    for iy in range(ny):
+        for ix in range(nx):
+            yield Tile((iy * th, ix * tw), (TH, TW)), th, tw
+
+
+def _crop(x, tile, th, tw):
+    gy, gx = tile.origin
+    return x[..., gy:gy + th, gx:gx + tw].contiguous()
+
+
+@pytest.mark.parametrize("tiling", TILINGS)
+@pytest.mark.parametrize("radius", [1, 2])
+def test_level_tile_forms_match_plain_and_whole_frame(dev, tiling, radius):
+    color, var, normal, depth = _planes(dev, 80 + radius, TH, TW)
+    params = SVGFParams(radius=radius)
+    zg = finite_diff_gradients(depth)
+    sd = atrous.sigma_denominator(var, params)
+    g = torch.Generator(dev).manual_seed(radius)
+    gc = torch.randn((3, TH, TW), generator=g, device=dev)
+    gv = torch.randn((TH, TW), generator=g, device=dev)
+    for level in (1, 4):
+        h = radius << level
+        kw = dict(level=level, params=params)
+        whole = atrous_level_cuda(color, var, normal, depth, zg, store=True,
+                                  **kw)
+        whole_b = atrous_level_fwd_cuda(color, var, normal, depth, zg, sd,
+                                        **kw)
+        whole_k2 = atrous_level_bwd_stored_cuda(whole[2], whole[3], gc, gv,
+                                                level=level, radius=radius)
+        whole_k14 = atrous_level_bwd_cuda(color, normal, depth, zg, sd,
+                                          whole_b[2], gc, gv, **kw)
+        acc = [torch.zeros((3, TH + 2 * h, TW + 2 * h), device=dev),
+               torch.zeros((TH + 2 * h, TW + 2 * h), device=dev)]
+        acc14 = [torch.zeros_like(a) for a in acc]
+        for tile, th, tw in _tiles(*tiling):
+            cc, vc = (frame_canvas(x, tile, th, tw, h) for x in (color, var))
+            # the guidance as views into a wider canvas (strides not the
+            # view's own shape)
+            nc, dc = (frame_canvas(x, tile, th, tw, h + 2)[..., 2:-2, 2:-2]
+                      for x in (normal, depth))
+            zg_t, sd_t, gc_t, gv_t = (_crop(x, tile, th, tw)
+                                      for x in (zg, sd, gc, gv))
+            got = atrous_level_cuda(cc, vc, nc, dc, zg_t, store=True,
+                                    tile=tile, **kw)
+            want = atrous.atrous_level_ref(cc, vc, nc, dc, zg_t,
+                                           return_weights=True, tile=tile,
+                                           **kw)
+            for a, b, w in zip(got, want, whole):
+                bf16 = a.dtype == torch.bfloat16
+                a, b, w = a.float(), b.to(a.dtype).float(), w.float()
+                np.testing.assert_array_equal(_np(a), _np(_crop(w, tile, th,
+                                                                tw)))
+                np.testing.assert_allclose(_np(a), _np(b), atol=1e-30,
+                                           rtol=2.0 ** -7 if bf16 else 5e-5)
+            got_b = atrous_level_fwd_cuda(cc, vc, nc, dc, zg_t, sd_t,
+                                          tile=tile, **kw)
+            for a, w in zip(got_b, whole_b):
+                np.testing.assert_array_equal(_np(a), _np(_crop(w, tile, th,
+                                                                tw)))
+            k2 = atrous_level_bwd_stored_cuda(got[2], got[3], gc_t, gv_t,
+                                              level=level, radius=radius,
+                                              out_halo=h)
+            k2_want = atrous.atrous_level_bwd_stored_ref(
+                got[2], got[3], gc_t, gv_t, level=level, radius=radius,
+                out_halo=h)
+            k14 = atrous_level_bwd_cuda(cc, nc, dc, zg_t, sd_t, got_b[2],
+                                        gc_t, gv_t, tile=tile, out_halo=h,
+                                        **kw)
+            k14_want = atrous.atrous_level_bwd_ref(
+                cc, nc, dc, zg_t, sd_t, got_b[2], gc_t, gv_t, tile=tile,
+                out_halo=h, **kw)
+            gy, gx = tile.origin
+            for a, b, w in zip(k2, k2_want, acc):
+                np.testing.assert_allclose(_np(a), _np(b), rtol=1e-6,
+                                           atol=1e-12 * float(b.abs().max()))
+                w[..., gy:gy + th + 2 * h, gx:gx + tw + 2 * h] += a
+            for a, b, w in zip(k14, k14_want, acc14):
+                np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                           atol=1e-5 * float(b.abs().max()))
+                w[..., gy:gy + th + 2 * h, gx:gx + tw + 2 * h] += a
+        # the tiles' margin gradients add up to the whole frame's adjoint
+        for a, w in zip(acc + acc14, whole_k2 + whole_k14):
+            np.testing.assert_allclose(_np(a[..., h:h + TH, h:h + TW]),
+                                       _np(w), rtol=1e-5,
+                                       atol=1e-6 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("tiling", TILINGS)
+def test_temporal_canvas_forms_match_plain_and_whole_frame(dev, tiling):
+    color, var, normal, depth = _planes(dev, 90, TH, TW)
+    M = SVGFParams().max_motion
+    params = SVGFParams()
+    rng = np.random.default_rng(91)
+    motion = torch.from_numpy(((rng.random((2, TH, TW)) - 0.5) * 2 * (M + 1))
+                              .astype(np.float32)).to(dev)
+    stack = torch.cat([color.flip(-1), torch.stack([var, var * 2]),
+                       torch.floor(var * 300)[None], depth[None],
+                       normal]).contiguous()
+    cot = torch.from_numpy(rng.standard_normal((10, TH, TW)).astype(
+        np.float32)).to(dev)
+    g = GBuffer(render=color, albedo=color, normal=normal, depth=depth,
+                motion=motion)
+    hist = temporal.history_from_stack(stack)
+    whole = temporal_accumulate_cuda(g, hist, params=params)
+    whole4 = gather_cuda(stack, motion, M)
+    whole5 = gather_bwd_cuda(stack, motion, cot, M, grad_planes=6)
+    mh = M + 1
+    acc5 = torch.zeros((10, TH + 2 * mh, TW + 2 * mh), device=dev)
+    acc6 = torch.zeros_like(acc5)
+    tol = dict(rtol=1e-5, atol=1e-6)
+    for tile, th, tw in _tiles(*tiling):
+        canvas = frame_canvas(stack, tile, th, tw, mh)
+        m_t, cot_t = _crop(motion, tile, th, tw), _crop(cot, tile, th, tw)
+        g_t = GBuffer(render=frame_canvas(color, tile, th, tw, 3),
+                      albedo=None, normal=_crop(normal, tile, th, tw),
+                      depth=_crop(depth, tile, th, tw), motion=m_t)
+        got = temporal_accumulate_canvas_cuda(g_t, canvas, params=params,
+                                              tile=tile)
+        # K3's tile form on separately exchanged planes: the same numbers
+        got3 = temporal_accumulate_cuda(
+            g_t, History(*(frame_canvas(getattr(hist, f), tile, th, tw, mh)
+                           for f in ("color", "moments", "length",
+                                     "prev_depth", "prev_normal"))),
+            params=params, tile=tile)
+        want = temporal.temporal_accumulate(
+            g_t, temporal.history_from_stack(canvas), params=params,
+            tile=tile)
+        for a, a3, b, w in ((got[0], got3[0], want[0], whole[0]),
+                            (got[1], got3[1], want[1], whole[1]),
+                            (got[2].moments, got3[2].moments,
+                             want[2].moments, whole[2].moments),
+                            (got[2].length, got3[2].length, want[2].length,
+                             whole[2].length)):
+            np.testing.assert_array_equal(_np(a), _np(_crop(w, tile, th,
+                                                            tw)))
+            np.testing.assert_array_equal(_np(a), _np(a3))
+            np.testing.assert_allclose(_np(a), _np(b), **tol)
+        k4 = gather_canvas_cuda(canvas, m_t, M, tile=tile)
+        np.testing.assert_array_equal(_np(k4), _np(_crop(whole4, tile, th,
+                                                         tw)))
+        np.testing.assert_allclose(
+            _np(k4), _np(temporal.gather_ref(canvas, m_t, M, tile=tile)),
+            **tol)
+        k5 = gather_canvas_bwd_cuda(canvas, m_t, cot_t, M, tile=tile,
+                                    grad_planes=6)
+        k5_want = temporal.gather_bwd_ref(canvas, m_t, cot_t, M,
+                                          motion_grad=True, grad_planes=6,
+                                          tile=tile)
+        k6 = gather_canvas_bwd_hist_cuda(m_t, cot_t, M, tile=tile,
+                                         canvas_shape=canvas.shape,
+                                         grad_planes=6)
+        for a, b in zip(k5, k5_want):
+            np.testing.assert_allclose(_np(a), _np(b), **tol)
+        np.testing.assert_allclose(_np(k6[0]), _np(k5_want[0]), **tol)
+        np.testing.assert_allclose(_np(k5[1]), _np(_crop(whole5[1], tile,
+                                                         th, tw)), **tol)
+        gy, gx = tile.origin
+        acc5[:, gy:gy + th + 2 * mh, gx:gx + tw + 2 * mh] += k5[0]
+        acc6[:, gy:gy + th + 2 * mh, gx:gx + tw + 2 * mh] += k6[0]
+    for acc in (acc5, acc6):
+        np.testing.assert_allclose(_np(acc[:, mh:mh + TH, mh:mh + TW]),
+                                   _np(whole5[0]), **tol)
+
+
+def test_sharded_paths_on_one_card(dev):
+    """The sharded sweep, pipeline and train step on the (1, 1, 1) mesh
+    against the unsharded paths, and the launches of the canvas forms."""
+    mesh = make_mesh()
+    planes = _planes(dev, 95, TH, TW)
+    params = SVGFParams(iterations=5, radius=1)
+    want = svgf_spatial_cuda(*planes, params=params)
+    for bwd in ("none", "stored", "recompute"):
+        got = sharded.svgf_spatial_sharded(*planes, mesh=mesh, params=params,
+                                           impl="auto", bwd_impl=bwd)
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(_np(a), _np(b))
+
+    scene = raymarch.cornell_scene(device=dev)
+    cfg = dict(cam_cfg=CameraParams(width=TW, height=TH),
+               rm_params=RaymarchParams(max_steps=48, shadow_steps=24),
+               svgf_params=SVGFParams(radius=1, iterations=3))
+    run = sharded.make_sharded_pipeline(mesh, TH, TW, **cfg,
+                                        weight_math="fast")
+    hs = sharded.init_history_canvas(mesh, TH, TW, cfg["svgf_params"],
+                                     device=dev)
+    hu = History.zeros(TH, TW, device=dev)
+    prev = None
+    before = temporal_accumulate_canvas_cuda.launches
+    for f in range(3):
+        cam = orbit_camera(f / 16, device=dev)
+        lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(f),
+                                   (TH, TW))
+        a, hs = run(scene, cam, prev, hs, light_sample=lp)
+        with torch.no_grad():
+            b, hu = render_and_denoise(scene, cam, prev, hu, light_sample=lp,
+                                       weight_math="fast", **cfg)
+        np.testing.assert_allclose(_np(a.denoised), _np(b.denoised), rtol=0,
+                                   atol=1e-3 * float(b.denoised.abs().max()))
+        prev = cam
+    assert temporal_accumulate_canvas_cuda.launches == before + 3
+
+    target = torch.rand((3, TH, TW), generator=torch.Generator(dev)
+                        .manual_seed(1), device=dev)
+    cam = raymarch.cornell_camera(device=dev)
+    step_s = sharded.make_sharded_train_step(mesh, scene, cam, target, **cfg)
+    step_u = make_train_step(scene, cam, target, **cfg)
+    state_s = sharded.init_sharded_train_state(
+        mesh, scene.materials.albedo, TH, TW, cfg["svgf_params"])
+    state_u = init_train_state(scene.materials.albedo, TH, TW)
+    counts = [w.launches for w in (gather_canvas_cuda,
+                                   gather_canvas_bwd_hist_cuda)]
+    for k in range(2):
+        lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(k),
+                                   (TH, TW))
+        state_s, ls = step_s(state_s, light_sample=lp)
+        state_u, lu = step_u(state_u, light_sample=lp)
+        assert abs(float(ls) - float(lu)) <= 1e-5 * abs(float(lu))
+        np.testing.assert_allclose(
+            _np(state_s.albedo.grad), _np(state_u.albedo.grad), rtol=0,
+            atol=3e-3 * float(state_u.albedo.grad.abs().max()))
+    # the step differentiates the albedo only: K4c runs, its adjoint not
+    assert [w.launches for w in (gather_canvas_cuda,
+                                 gather_canvas_bwd_hist_cuda)] == [
+        counts[0] + 2, counts[1]]
