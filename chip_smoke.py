@@ -19,7 +19,12 @@ the script exits non-zero without printing a result):
    them as the library yardstick), K7 march, K8 shadow + shading, K10 box
    filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
    ``conv2d`` beside it), K12 cross-bilateral filter, K13 shadow
-   visibility (Cornell box and ``random_scene``);
+   visibility (Cornell box and ``random_scene``), K1 at radius 0 and 3
+   beside 1 and 2, K15 cone seed (from ray planes, from the camera, on a
+   quarter tile of 3840x2160) and the seeded K7 on both scenes, with the
+   seeded march held to the unseeded one and K7 seeded and unseeded, K15
+   and the seed passes timed against their SDF-evaluation bounds, and the
+   clamped gather of unbounded motion (KG) and its adjoint (KGb);
 4. the serving path: 16 frames of the animated Cornell sequence at
    1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
    temporal -> 5-level à-trous, radius 1, fast weights); the first 3
@@ -60,9 +65,17 @@ the script exits non-zero without printing a result):
    ``make_sharded_pipeline`` for 8 orbit frames against the unsharded
    ``FramePipeline``; (c) ``make_sharded_train_step``, 1 warm-up and 5
    timed steps, against ``make_train_step``; (d) ``cli -t
-   SHARDED_SPATIAL``.
+   SHARDED_SPATIAL``;
+11. the seeded and unbounded paths: (a) phase 4's sequence with
+   ``RaymarchParams(coarse_seed=True)`` (K15, the seeded K7) alternating
+   with the unseeded one, ms/frame of both, frames held to the unseeded
+   ones; (b) the config-4 train step seeded against the unseeded one; (c)
+   a serving sequence and (d) a ``temporal="ad"`` gradient pass with
+   ``SVGFParams(max_motion=None)`` (KG, KGb) against the plain path; (e)
+   the sharded pipeline at 3840x2160 and (f) the sharded train step
+   (config 5), seeded, against the unsharded seeded ones.
 
-Phases 4 to 9 and 10(a)'s temporal gradient, 10(b), (c) and (d) are the
+Phases 4 to 9, 10(a)'s temporal gradient, 10(b), (c), (d) and 11 are the
 main paths: every kernel's launch count is set to 0 just before each and
 read just after, and each fails if one of its kernels never launched.
 The line before the last is a JSON object with
@@ -105,9 +118,11 @@ from raymarchdenoisercuda_torch.ops.cuda import _build
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
     box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
-    march_gbuf_cuda, shadow_factor_cuda, shadow_shade_cuda)
+    cone_launch, cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
+    shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
-    gather_bwd_cuda, gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
+    clamped_gather_bwd_cuda, clamped_gather_cuda, gather_bwd_cuda,
+    gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
     gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
     temporal_accumulate_ad_cuda, temporal_accumulate_canvas_cuda,
     temporal_accumulate_cuda)
@@ -142,7 +157,9 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K12": cross_bilateral_cuda, "K13": shadow_factor_cuda,
             "K3b": temporal_accumulate_canvas_cuda, "K4c": gather_canvas_cuda,
             "K5c": gather_canvas_bwd_cuda,
-            "K6c": gather_canvas_bwd_hist_cuda}
+            "K6c": gather_canvas_bwd_hist_cuda,
+            "K15": cone_seed_cuda, "K7s": march_gbuf_seeded_cuda,
+            "KG": clamped_gather_cuda, "KGb": clamped_gather_bwd_cuda}
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
@@ -185,6 +202,16 @@ KERNELS = {
             PALLAS + "temporal_tpu.py:987"),
     "K6c": ("reproject_gather_canvas_bwd_hist", CUDA_SRC + "temporal.cu",
             PALLAS + "temporal_tpu.py:1010"),
+    "K15": ("cone_seed", CUDA_SRC + "raymarch.cu",
+            PALLAS + "raymarch_tpu.py:214"),
+    "K7s": ("march_gbuf_seeded", CUDA_SRC + "raymarch.cu",
+            PALLAS + "raymarch_tpu.py:115"),
+    # no TPU kernel: with unbounded motion the JAX package runs jnp
+    # (bilinear_gather_many and its autodiff)
+    "KG": ("clamped_gather", CUDA_SRC + "temporal.cu",
+           "raymarchdenoisercuda_tpu/ops/temporal.py:41"),
+    "KGb": ("clamped_gather_bwd", CUDA_SRC + "temporal.cu",
+            "raymarchdenoisercuda_tpu/ops/temporal.py:41"),
 }
 # per-tap float operations of K1's weight math and accumulation, of K2's
 # tap, of K14's (the recomputed weight and K2's sum), of K9's two kernels
@@ -207,6 +234,12 @@ ADJOINT_STEPS = 5
 UHD_H, UHD_W = 2160, 3840
 UHD_FRAMES = 8
 UHD_STEPS = 5                        # timed, after one warm-up step
+# phase 11: the seeded and unbounded-motion paths
+SEEDED = RaymarchParams(coarse_seed=True)
+UNBOUNDED = SVGFParams(radius=1, max_motion=None)
+UNBOUNDED_FRAMES = 4
+SEEDED_UHD_FRAMES = 4
+SEEDED_UHD_STEPS = 2                 # timed, after one warm-up step
 
 
 def phase(n, msg):
@@ -263,7 +296,8 @@ def random_planes(H, W, dev, seed):
 def check_k1(P, results):
     args = (P["color"], P["variance"], P["normal"], P["depth"])
     HW = P["depth"].numel()
-    for radius in (1, 2):
+    # radius 0 (one tap) and 3 (the taps in device memory) beside 1 and 2
+    for radius in (0, 1, 2, 3):
         for wm in ("exact", "fast"):
             params = SVGFParams(radius=radius)
             got = svgf_spatial_cuda(*args, params=params, weight_math=wm,
@@ -679,10 +713,11 @@ def sdf_flops(scene):
             + 7 * scene.plane_params.shape[0])
 
 
-def march_evals(scene, ro, rd, rm):
-    """SDF evaluations K7 makes on these rays: the steps each ray takes
-    before it stops, one at the hit and six for the normal."""
-    t = torch.zeros(ro.shape[1:], device=ro.device)
+def march_steps(scene, ro, rd, rm, t0=None):
+    """(H, W) SDF evaluations of K7's march loop on these rays, each ray
+    from ``t0`` (its cone seed; default 0) until it stops."""
+    t = (torch.zeros(ro.shape[1:], device=ro.device) if t0 is None
+         else t0.clone())
     steps = torch.zeros_like(t)
     alive = torch.ones_like(t, dtype=torch.bool)
     for _ in range(rm.max_steps):
@@ -692,7 +727,30 @@ def march_evals(scene, ro, rd, rm):
         if not bool(alive.any()):
             break
         t = t + torch.where(alive, d, torch.zeros_like(d))
-    return float((steps + 7.0).sum())
+    return steps
+
+
+def march_evals(scene, ro, rd, rm, t0=None):
+    """SDF evaluations K7 makes on these rays: the steps each ray takes
+    before it stops, one at the hit and six for the normal."""
+    return float((march_steps(scene, ro, rd, rm, t0) + 7.0).sum())
+
+
+def cone_evals(scene, ro_c, rd_c, delta, base, rm):
+    """SDF evaluations K15 makes on these cones (the fattened march)."""
+    t = torch.zeros(ro_c.shape[1:], device=ro_c.device)
+    steps = torch.zeros_like(t)
+    alive = torch.ones_like(t, dtype=torch.bool)
+    for _ in range(rm.max_steps):
+        d = raymarch.sdf_scene(scene, ro_c + t[None] * rd_c, want_mat=False)
+        steps += alive.float()
+        margin = d - (rm.hit_eps + base) - t * delta
+        alive = alive & (margin > 0.0) & (t < rm.max_dist)
+        if not bool(alive.any()):
+            break
+        t = t + torch.where(alive, margin / (1.0 + delta),
+                            torch.zeros_like(d))
+    return float(steps.sum())
 
 
 def shadow_evals(scene, p, n, light_p, hit, rm):
@@ -812,6 +870,181 @@ def check_k13(H, W, dev, results):
                 * sdf_flops(scene) + 20 * HW)
 
 
+def check_cone_seed(H, W, dev, results):
+    """K15 (from ray planes; from the camera at window origin (0, 0); on a
+    quarter tile of 3840x2160 at (1080, 1920)) and the seeded K7 (given the
+    camera's seed grid) against their plain twins on the same inputs at
+    1080p, Cornell and ``random_scene``: atol 1e-4 as K7's t, the seeded
+    K7's normal and flips as K7's.  The seeded march against the unseeded
+    K7 by the CPU tests' properties: SDF at the seed >= 0.5·hit_eps, hit
+    agreement > 99.8 %, p99 |Δt| < 2·hit_eps, seed <= t + 1e-5.  Cornell:
+    the times of K7 unseeded and seeded, K15 alone and the seed passes
+    with their glue, each bound by this run's SDF evaluations, and the
+    mean march steps a pixel."""
+    cfg = CameraParams(width=W, height=H)
+    uhd = CameraParams(width=2 * W, height=2 * H)
+    rm0, rm1 = RaymarchParams(), SEEDED
+    HW = H * W
+    cam = orbit_camera(0.25, device=dev)
+    ro, rd, _ = raymarch.camera_rays(cam, cfg)
+    for name, scene in (("cornell", raymarch.cornell_scene(device=dev)),
+                        ("random", raymarch.random_scene(device=dev))):
+        routes = {
+            "planes": (raymarch.cone_rays(ro, rd), dict(ro=ro, rd=rd)),
+            "camera": (raymarch.cone_rays_analytic(cam, cfg, 0, 0, H, W),
+                       dict(camera=cam, cam_cfg=cfg, shape=(H, W))),
+            "4K quarter tile": (
+                raymarch.cone_rays_analytic(cam, uhd, H, W, H, W),
+                dict(camera=cam, cam_cfg=uhd, window=(H, W), shape=(H, W)))}
+        err15 = 0.0
+        for route, (cones, kw) in routes.items():
+            got = cone_seed_cuda(scene, rm1, **kw)
+            want = raymarch.cone_march(scene, *cones, rm1)
+            check_close(f"K15 {name} {route}", got[0], want, atol=1e-4)
+            for a, b in zip(got[1:], cones[2:]):
+                check_close(f"K15 {name} {route} delta/base", a, b, atol=0.0)
+            err15 = max(err15, max_err(got[0], want))
+        t_c = cone_seed_cuda(scene, rm1, camera=cam, cam_cfg=cfg,
+                             shape=(H, W))[0]
+        got = march_gbuf_seeded_cuda(scene, ro, rd, t_c, rm1)
+        want = raymarch.march_gbuf(scene, ro, rd, rm1, seed=t_c)
+        same = (got[1] == want[1]) & (got[2] == want[2])
+        if float((~same).float().mean()) > 1e-3:
+            raise AssertionError(f"K7s {name}: {int((~same).sum())} flips")
+        check_close(f"K7s {name} t", got[0], want[0], atol=1e-4, mask=same)
+        check_close(f"K7s {name} normal", got[3], want[3], atol=5e-4,
+                    rtol=5e-3, mask=same)
+        err7s = max(max_err(got[0], want[0], same),
+                    max_err(got[3], want[3], same))
+        # the seeded march against the unseeded K7
+        seed = raymarch.seed_plane(t_c, H, W)
+        d_at = raymarch.sdf_scene(scene, ro + seed[None] * rd,
+                                  want_mat=False)
+        live = seed < rm1.max_dist
+        clear = float(d_at[live].min()) / rm1.hit_eps
+        t0, h0, _m0, _n0 = march_gbuf_cuda(scene, ro, rd, rm0)
+        agree = float((h0 == got[1]).float().mean())
+        both = h0 & got[1]
+        p99 = float(torch.quantile((t0 - got[0]).abs()[both][::7], 0.99))
+        overshoot = float((seed - got[0]).max())
+        if (clear < 0.5 or agree <= 0.998 or p99 >= 2 * rm1.hit_eps
+                or overshoot > 1e-5):
+            raise AssertionError(
+                f"seeded march {name}: SDF at the seed {clear:.3g}·hit_eps,"
+                f" hit agreement {agree:.5f}, p99 |Δt| {p99:.3g}, seed - t "
+                f"{overshoot:.3g}")
+        steps0 = march_steps(scene, ro, rd, rm0)
+        steps1 = march_steps(scene, ro, rd, rm1, seed)
+        phase(3, f"K15 {name}: planes, camera, 4K quarter tile ok, max "
+                 f"|err| {err15:.3g}, delta "
+                 f"{float(cone_seed_cuda(scene, rm1, ro=ro, rd=rd)[1]):.5f} "
+                 f"(planes) / {float(routes['camera'][0][2]):.5f} (camera); "
+                 f"K7s: ok, {int((~same).sum())} flips, max |err| "
+                 f"{err7s:.3g}; seeded vs unseeded: SDF at the seed >= "
+                 f"{clear:.3g}·hit_eps, hits agree {agree:.5f}, p99 |Δt| "
+                 f"{p99:.3g}, max(seed - t) {overshoot:.3g}; march steps a "
+                 f"pixel {float(steps0.mean()):.3f} unseeded, "
+                 f"{float(steps1.mean()):.3f} seeded")
+        if name != "cornell":
+            continue
+        cones = routes["camera"][0]
+        cells = cones[0].shape[1] * cones[0].shape[2]
+        ms7 = cuda_time_ms(lambda: march_gbuf_cuda(scene, ro, rd, rm0),
+                           repeats=20)
+        ms7s = cuda_time_ms(lambda: march_gbuf_seeded_cuda(
+            scene, ro, rd, t_c, rm1), repeats=20)
+        ms15 = cuda_time_ms(lambda: cone_launch(scene, *cones, rm1),
+                            repeats=20)
+        pass_cam = cuda_time_ms(lambda: cone_seed_cuda(
+            scene, rm1, camera=cam, cam_cfg=cfg, shape=(H, W)), repeats=20)
+        pass_planes = cuda_time_ms(lambda: cone_seed_cuda(
+            scene, rm1, ro=ro, rd=rd), repeats=20)
+        march_seeded = cuda_time_ms(lambda: march_gbuf_cuda(
+            scene, ro, rd, rm1, camera=cam, cam_cfg=cfg), repeats=20)
+        plain15 = cuda_time_ms(lambda: raymarch.cone_march(scene, *cones,
+                                                           rm1), repeats=3)
+        plain7s = cuda_time_ms(lambda: raymarch.march_gbuf(
+            scene, ro, rd, rm1, seed=t_c), repeats=2)
+        sdf = sdf_flops(scene)
+        evals0 = float((steps0 + 7.0).sum())
+        evals1 = float((steps1 + 7.0).sum())
+        evals15 = cone_evals(scene, *cones, rm1)
+        # K15: six cone planes in, the stops out; K7s as K7 and the seeds
+        results["K15"] = dict(max_abs_err=err15, ms=ms15, plain_ms=plain15,
+                              bytes=28 * cells, flops=evals15 * sdf
+                              + 20 * cells)
+        results["K7s"] = dict(max_abs_err=err7s, ms=ms7s, plain_ms=plain7s,
+                              bytes=45 * HW + 4 * cells,
+                              flops=evals1 * sdf + 20 * HW)
+        b7 = bound(45 * HW, evals0 * sdf + 20 * HW)
+        b7s = bound(45 * HW + 4 * cells, evals1 * sdf + 20 * HW)
+        b15 = bound(28 * cells, evals15 * sdf + 20 * cells)
+        phase(3, f"seed timing cornell {W}x{H}: K7 unseeded {ms7:.4f} ms "
+                 f"(bound {b7[0]:.4f}, {evals0 / HW:.3f} SDF evaluations a "
+                 f"pixel), K7 seeded {ms7s:.4f} ms (bound {b7s[0]:.4f}, "
+                 f"{evals1 / HW:.3f}), K15 alone {ms15:.4f} ms (bound "
+                 f"{b15[0]:.4f}, {evals15 / cells:.3f} a cell, {cells} "
+                 f"cells), seed pass with its glue {pass_cam:.4f} ms from "
+                 f"the camera, {pass_planes:.4f} ms from the planes; seeded "
+                 f"march_gbuf_cuda (camera seed + K7s) {march_seeded:.4f} ms;"
+                 f" plain K15 {plain15:.4f}, plain seeded K7 {plain7s:.4f}")
+
+
+def check_clamped_gather(H, W, dev, results):
+    """The clamped gather (KG) and its adjoint (KGb) at 1080p against the
+    plain twin (under autograd, float64 for the adjoint: its atomics add in
+    no fixed order; at the kernel's float32 coordinates p + motion, since
+    float64 ones move the bilinear fractions by an ulp of a coordinate),
+    motion out to ±28 pixels (taps clamp at the border): rtol 1e-5, atol
+    1e-6 (·max for the adjoint); the cotangent on the training path's 6
+    planes."""
+    rng = np.random.default_rng(13)
+    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
+    motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * 56.0)
+                              .astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    g[6:] = 0.0
+    got = clamped_gather_cuda(stack, motion)
+    want = temporal.bilinear_gather_clamped(stack, motion)
+    check_close("KG", got, want, atol=1e-6, rtol=1e-5)
+    err = max_err(got, want)
+    iy = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
+    ix = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
+    s64 = stack.double().requires_grad_()
+    m64 = torch.stack([(iy + motion[0]).double() - iy.double(),
+                       (ix + motion[1]).double() - ix.double()]
+                      ).requires_grad_()
+    want_b = torch.autograd.grad(temporal.bilinear_gather_clamped(s64, m64),
+                                 (s64, m64), g.double())
+    got_b = clamped_gather_bwd_cuda(stack, motion, g, grad_planes=6)
+    for name, a, b in zip(("d_stack", "d_motion"), got_b, want_b):
+        check_close(f"KGb {name}", a, b, atol=1e-6 * float(b.abs().max()),
+                    rtol=1e-5)
+    err_b = max(max_err(a, b) for a, b in zip(got_b, want_b))
+    del s64, m64, want_b
+    ms = cuda_time_ms(lambda: clamped_gather_cuda(stack, motion), repeats=20)
+    plain = cuda_time_ms(lambda: temporal.bilinear_gather_clamped(
+        stack, motion), repeats=3)
+    ms_b = cuda_time_ms(lambda: clamped_gather_bwd_cuda(
+        stack, motion, g, grad_planes=6), repeats=20)
+    s, m = (t.clone().requires_grad_() for t in (stack, motion))
+    out = temporal.bilinear_gather_clamped(s, m)
+    plain_b = cuda_time_ms(lambda: torch.autograd.grad(
+        out, (s, m), g, retain_graph=True), repeats=3)
+    HW = H * W
+    # KG: 10 planes and the motion in, 10 out, ~4 multiply-adds a plane;
+    # KGb: motion, 6 cotangent and 6 history planes in, 6 gradients and
+    # the motion's out, ~20 operations a plane
+    results["KG"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                         bytes=88 * HW, flops=(10 * 6 + 20) * HW)
+    results["KGb"] = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
+                          bytes=88 * HW, flops=(6 * 20 + 20) * HW)
+    phase(3, f"KG: ok, max |err| {err:.3g}, {ms:.4f} ms, plain {plain:.4f} "
+             f"ms; KGb: ok (float64 twin), max |err| {err_b:.3g}, "
+             f"{ms_b:.4f} ms, plain (autograd) {plain_b:.4f} ms")
+
+
 def reset_counts():
     for wrapper in WRAPPERS.values():
         wrapper.launches = 0
@@ -848,7 +1081,8 @@ def require_launched(n, counts, expected):
 
 def run_sequence(pipe, n_frames, H, W, dev, keep):
     """Render + denoise ``n_frames`` orbit frames; returns the per-frame
-    device times (ms) and the first ``keep`` denoised frames."""
+    device times (ms) and the first ``keep`` frames' G-buffers (with
+    ``denoised``)."""
     gen = torch.Generator(dev).manual_seed(0)
     hist = History.zeros(H, W, device=dev)
     prev, times, kept = None, [], []
@@ -862,15 +1096,19 @@ def run_sequence(pipe, n_frames, H, W, dev, keep):
         if out.denoised.shape != (3, H, W):
             raise AssertionError(f"frame {f}: shape {out.denoised.shape}")
         if f < keep:
-            kept.append(out.denoised.clone())
+            kept.append(out)
         prev = cam
     return times, kept
 
 
-def serving_phase(H, W, dev, n_frames):
+def serving_phase(H, W, dev, n_frames, svgf=SERVING, n=4, label="",
+                  expected=("K1", "K3", "K7", "K8")):
+    """Phase 4's sequence through ``FramePipeline`` with ``svgf`` (phase
+    11(c): unbounded motion), its first frames against the plain path at
+    atol 1e-3·max."""
     scene = raymarch.cornell_scene(device=dev)
     pipe_cfg = dict(cam_cfg=CameraParams(width=W, height=H),
-                    rm_params=RaymarchParams(), svgf_params=SERVING,
+                    rm_params=RaymarchParams(), svgf_params=svgf,
                     weight_math=SERVING_WEIGHTS)
     kernel_pipe = FramePipeline(scene, impl="auto", **pipe_cfg)
     plain_pipe = FramePipeline(scene, impl="plain", **pipe_cfg)
@@ -878,18 +1116,78 @@ def serving_phase(H, W, dev, n_frames):
     reset_counts()
     times, kernel_frames = run_sequence(kernel_pipe, n_frames, H, W, dev,
                                         keep)
-    counts = read_counts(4, ("K1", "K3", "K7", "K8"))
+    counts = read_counts(n, expected)
     plain_times, plain_frames = run_sequence(plain_pipe, keep, H, W, dev,
                                              keep)
     for f, (a, b) in enumerate(zip(kernel_frames, plain_frames)):
-        check_close(f"frame {f} denoised (kernel vs plain)", a, b,
-                    atol=1e-3 * float(b.abs().max()))
+        check_close(f"frame {f} denoised (kernel vs plain)", a.denoised,
+                    b.denoised, atol=1e-3 * float(b.denoised.abs().max()))
     steady = times[1:] or times
-    phase(4, f"{n_frames} frames {W}x{H}: kernel path "
+    phase(n, f"{label}{n_frames} frames {W}x{H}: kernel path "
              f"{sum(times) / len(times):.3f} ms/frame (frames 2-{n_frames}:"
              f" {sum(steady) / len(steady):.3f}), plain path "
              f"{sum(plain_times) / len(plain_times):.3f} ms/frame over "
              f"{keep}; first {keep} frames match; launches {counts}")
+    return counts
+
+
+def compare_seeded(name, a, b, hit_eps):
+    """A seeded frame ``a`` against the unseeded ``b`` (both G-buffers with
+    ``denoised``): a seeded march stops elsewhere in the hit_eps shell, so
+    at most 0.5 % of the pixels may flip their hit or material; on the
+    others the depth's p99 |Δ| < 2·hit_eps and the denoised frame's p99 <
+    2e-3·max (``tests/test_torch_sharded_train.py``'s bounds; its largest
+    |Δ| is not bounded here: the history carries an edge pixel's
+    difference into later frames).  Returns that largest denoised |Δ|,
+    relative to the frame's max."""
+    same = (a.albedo == b.albedo).all(0) & ((a.depth > 0) == (b.depth > 0))
+    flips = float((~same).float().mean())
+    dz = (a.depth - b.depth).abs()[same]
+    dd = (a.denoised - b.denoised).abs().amax(0)[same]
+    scale = float(b.denoised.abs().max())
+    q = [float(torch.quantile(x[::11], 0.99)) for x in (dz, dd)]
+    rel = float(dd.max()) / scale
+    if flips > 5e-3 or q[0] >= 2 * hit_eps or q[1] >= 2e-3 * scale:
+        raise AssertionError(
+            f"{name}: seeded vs unseeded: flips {flips:.4%}, depth p99 "
+            f"{q[0]:.3g}, denoised p99 {q[1] / scale:.3g}·max, max "
+            f"{rel:.3g}·max")
+    return rel
+
+
+def seeded_serving_phase(H, W, dev, n_frames):
+    """11(a): phase 4's sequence with ``coarse_seed=True`` (K15 from the
+    camera and the seeded K7 instead of K7), alternating with the unseeded
+    pipeline (unseeded, seeded, unseeded, seeded); the seeded frames held
+    to the unseeded ones by :func:`compare_seeded`."""
+    scene = raymarch.cornell_scene(device=dev)
+    kw = dict(cam_cfg=CameraParams(width=W, height=H), svgf_params=SERVING,
+              weight_math=SERVING_WEIGHTS)
+    pipes = {False: FramePipeline(scene, rm_params=RaymarchParams(), **kw),
+             True: FramePipeline(scene, rm_params=SEEDED, **kw)}
+    keep = min(CHECK_FRAMES, n_frames)
+    counts = {k: 0 for k in WRAPPERS}
+    times, frames = {False: [], True: []}, {}
+    for seeded in (False, True, False, True):
+        if seeded:
+            t, frames[seeded] = counted(lambda: run_sequence(
+                pipes[True], n_frames, H, W, dev, keep), counts)
+        else:
+            t, frames[seeded] = run_sequence(pipes[False], n_frames, H, W,
+                                             dev, keep)
+        times[seeded].append(t[1:] or t)
+    require_launched(11, counts, ("K1", "K3", "K15", "K7s", "K8"))
+    if counts["K7"]:
+        raise AssertionError("phase 11: the seeded path launched K7")
+    worst = max(compare_seeded(f"serving frame {f}", a, b, SEEDED.hit_eps)
+                for f, (a, b) in enumerate(zip(frames[True], frames[False])))
+    ms = {k: [sum(t) / len(t) for t in v] for k, v in times.items()}
+    phase(11, f"(a) serving {W}x{H} with coarse_seed, {n_frames} frames "
+              f"twice, frames 2-{n_frames}: seeded "
+              f"{ms[True][0]:.3f} / {ms[True][1]:.3f} ms/frame against "
+              f"unseeded {ms[False][0]:.3f} / {ms[False][1]:.3f}; first "
+              f"{keep} frames match the unseeded ones (largest denoised "
+              f"|Δ| {worst:.3g}·max); launches {counts}")
     return counts
 
 
@@ -959,12 +1257,67 @@ def train_phase(H, W, dev):
     return counts
 
 
-def temporal_grad_phase(H, W, dev):
+def seeded_train_phase(H, W, dev):
+    """11(b): the config-4 train step with ``coarse_seed=True`` (K15 from
+    the camera, the seeded K7), one warm-up and two timed steps, against
+    the unseeded kernel step from the same state: the loss within rtol
+    1e-2.  The seeded render moves hit points inside the hit_eps shell and
+    flips the hit of ~0.03 % of the pixels; at the light's edge a flip
+    moves a squared error by up to 18² a channel, which took the loss
+    3.7e-3 (relative) off on an H100.  The albedo gradient's difference is
+    printed, not bounded: a material that covers few pixels at an edge
+    moves by several per cent (3.8e-2·max at 160x96 on the CPU); 11(f)
+    holds the seeded step's gradient to the sharded one at phase 5's
+    bound."""
+    scene = raymarch.cornell_scene(device=dev)
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (3, H, W), dtype=np.float32)).to(dev)
+    cam = raymarch.cornell_camera(device=dev)
+    runs = {}
+    counts = {k: 0 for k in WRAPPERS}
+    for seeded in (False, True):
+        step = make_train_step(scene, cam, target, cam_cfg=CameraParams(
+            width=W, height=H), rm_params=SEEDED if seeded
+            else RaymarchParams(), svgf_params=TRAIN)
+        state = init_train_state(scene.materials.albedo, H, W,
+                                 torch.Generator(dev).manual_seed(0))
+        if seeded:
+            state, dev_ms, _h, kept = counted(lambda: run_train(
+                step, state, 3, 3), counts)
+        else:
+            state, dev_ms, _h, kept = run_train(step, state, 3, 3)
+        runs[seeded] = (dev_ms[1:], kept)
+        del step, state
+    require_launched(11, counts, ("K1", "K2", "K4", "K15", "K7s", "K8"))
+    if counts["K7"]:
+        raise AssertionError("phase 11: the seeded train step launched K7")
+    grad_rel = 0.0
+    for k, (a, b) in enumerate(zip(runs[True][1], runs[False][1])):
+        if abs(a[0] - b[0]) > 1e-2 * abs(b[0]):
+            raise AssertionError(f"seeded train step {k}: loss {a[0]} vs "
+                                 f"unseeded {b[0]}")
+        grad_rel = max(grad_rel, max_err(a[1], b[1])
+                       / float(b[1].abs().max()))
+    (sd, sk), (ud, uk) = runs[True], runs[False]
+    phase(11, f"(b) train step {W}x{H} (config 4) with coarse_seed: "
+              f"{sum(sd) / len(sd):.3f} ms/step device over {len(sd)} "
+              f"steps after one, unseeded {sum(ud) / len(ud):.3f}; losses "
+              f"{[round(x[0], 6) for x in sk]} vs unseeded "
+              f"{[round(x[0], 6) for x in uk]}, albedo gradients apart by "
+              f"{grad_rel:.3g}·max; launches {counts}")
+    return counts
+
+
+def temporal_grad_phase(H, W, dev, params=TRAIN, motion_scale=M / 7.0,
+                        n=6, label="",
+                        expected=lambda mg: ("K1", "K2", "K4") + (
+                            ("K5",) if mg else ("K6",))):
     """Differentiate the denoised frame with respect to motion and the
     history through ``svgf_denoise_frame(temporal="ad")``: K5 with the
-    motion gradient, K6 without it."""
+    motion gradient, K6 without it; with ``params.max_motion`` None (phase
+    11(d)) the clamped gather and its adjoint, motion out to ±28 pixels."""
     P = random_planes(H, W, dev, seed=5)
-    motion = (P["motion"] * (M / 7.0)).contiguous()   # |motion| <= M
+    motion = (P["motion"] * motion_scale).contiguous()
     total = {k: 0 for k in WRAPPERS}
     grads = {}
     for impl in ("auto", "plain"):
@@ -979,15 +1332,14 @@ def temporal_grad_phase(H, W, dev):
                         prev_normal=P["normal"])
             if impl == "auto":
                 reset_counts()
-            out, _ = svgf_denoise_frame(g, h, params=TRAIN, impl=impl,
+            out, _ = svgf_denoise_frame(g, h, params=params, impl=impl,
                                         temporal="ad",
                                         motion_grad=motion_grad)
             (out.denoised ** 2).mean().backward()
             if impl == "auto":
-                counts = read_counts(6, ("K1", "K2", "K4") + (
-                    ("K5",) if motion_grad else ("K6",)))
-                for k, n in counts.items():
-                    total[k] += n
+                counts = read_counts(n, expected(motion_grad))
+                for k, c in counts.items():
+                    total[k] += c
             grads[impl, motion_grad] = (hc.grad, m.grad)
     for motion_grad in (True, False):
         (hk, mk), (hp, mp) = grads["auto", motion_grad], grads["plain",
@@ -998,8 +1350,9 @@ def temporal_grad_phase(H, W, dev):
             check_close("d_motion", mk, mp, atol=3e-3 * float(mp.abs().max()))
         elif mk is not None:
             raise AssertionError("motion gradient without motion_grad")
-    phase(6, f"temporal gradient path {W}x{H}: d_motion and d_history match "
-             f"the plain path; launches {total}")
+    phase(n, f"{label}temporal gradient path {W}x{H}: d_motion and "
+             f"d_history match the plain path; launches "
+             f"{ {k: v for k, v in total.items() if v} }")
     return total
 
 
@@ -1156,7 +1509,8 @@ def check_wgrad_levels(c, v, normal, depth, params, cot_seed):
 
 def adjoint_phase(H, W, dev):
     """The 5-level sweep forward and backward at 1080p in every adjoint
-    mode of ``svgf_spatial_ad_cuda``, radius 1 and 2, exact weights."""
+    mode of ``svgf_spatial_ad_cuda``, radius 0 to 3, exact weights (radius
+    3: the taps in device memory)."""
     P = random_planes(H, W, dev, seed=9)
     ins = (P["color"], P["variance"], P["normal"], P["depth"])
     g = torch.Generator(dev).manual_seed(9)
@@ -1165,7 +1519,7 @@ def adjoint_phase(H, W, dev):
             torch.randn((3, H, W), generator=g, device=dev))
     reset_counts()
     lines = []
-    for radius in (1, 2):
+    for radius in (0, 1, 2, 3):
         params = SVGFParams(iterations=5, radius=radius)
         detached = None
         for name, kw in ADJOINT_MODES:
@@ -1182,7 +1536,7 @@ def adjoint_phase(H, W, dev):
                         torch.isfinite(t).all()):
                     raise AssertionError(f"phase 9 {name} r{radius}: "
                                          f"gradient {k} not finite")
-            if wg and radius == 2:
+            if wg and radius >= 2:
                 # the plain sweep through the weights at radius 2 holds
                 # ~25 GB of autograd state: held level by level instead
                 err = check_wgrad_levels(*ins, params, 90)
@@ -1199,6 +1553,15 @@ def adjoint_phase(H, W, dev):
                     want = detached
                 err = 0.0
                 for k, a, b, tol in zip(diff, got, want, SWEEP_TOLS[name]):
+                    if radius == 0 and k >= 2:
+                        # one tap: the output is its own input whatever the
+                        # weight, so d_normal and d_depth are 0 but for
+                        # rounding (sigma_n = 128 magnifies it) in both
+                        floor = 1e-3 * float(want[0].abs().max())
+                        for x in (a, b):
+                            check_close(f"phase 9 {name} r0 gradient {k}",
+                                        x, torch.zeros_like(x), atol=floor)
+                        continue
                     scale = float(b.abs().max())
                     check_close(f"phase 9 {name} r{radius} gradient {k}", a,
                                 b, atol=tol * scale)
@@ -1558,14 +1921,17 @@ def sharded_temporal_grad_phase(P):
     return total
 
 
-def sharded_pipeline_phase(H, W, dev, n_frames):
+def sharded_pipeline_phase(H, W, dev, n_frames, rm=RaymarchParams(), n=10,
+                           label="(b)", expected=("K1", "K3b", "K7", "K8")):
     """10(b): ``make_sharded_pipeline`` (K7/K8 windows, K3b on the history
     canvas, the chained K1 sweep) on the (1, 1, 1) mesh against the
-    unsharded ``FramePipeline`` on the same frames and light samples."""
+    unsharded ``FramePipeline`` on the same frames and light samples; 11(e)
+    the same with ``coarse_seed`` (each tile seeded from the camera at its
+    window origin; K15, K7s)."""
     scene = raymarch.cornell_scene(device=dev)
     mesh = make_mesh()
-    cfg = dict(cam_cfg=CameraParams(width=W, height=H),
-               rm_params=RaymarchParams(), svgf_params=SERVING)
+    cfg = dict(cam_cfg=CameraParams(width=W, height=H), rm_params=rm,
+               svgf_params=SERVING)
     run = sharded.make_sharded_pipeline(mesh, H, W,
                                         weight_math=SERVING_WEIGHTS, **cfg)
     pipe = FramePipeline(scene, weight_math=SERVING_WEIGHTS, **cfg)
@@ -1587,27 +1953,30 @@ def sharded_pipeline_phase(H, W, dev, n_frames):
         check_close(f"sharded frame {f} denoised (vs unsharded)", a.denoised,
                     b.denoised, atol=1e-3 * float(b.denoised.abs().max()))
         prev = cam
-    require_launched(10, counts, ("K1", "K3b", "K7", "K8"))
+    require_launched(n, counts, expected)
     steady, usteady = times[1:] or times, utimes[1:] or utimes
-    phase(10, f"(b) sharded pipeline {W}x{H} on a {mesh.axis_sizes} mesh, "
+    phase(n, f"{label} sharded pipeline {W}x{H} on a {mesh.axis_sizes} mesh, "
               f"{n_frames} frames: {sum(steady) / len(steady):.3f} ms/frame "
               f"(frames 2-{n_frames}; unsharded "
               f"{sum(usteady) / len(usteady):.3f}); every frame matches the unsharded path; launches {counts}")
     return counts
 
 
-def sharded_train_phase(H, W, dev):
+def sharded_train_phase(H, W, dev, rm=RaymarchParams(), steps=UHD_STEPS,
+                        n=10, label="(c)",
+                        expected=("K1", "K2", "K4c", "K7", "K8")):
     """10(c): ``make_sharded_train_step`` (K7/K8 windows, K4c, the stored
     K1/K2 sweep with tile origins; the albedo is differentiated, not the
     history carry, so no gather adjoint runs) on the (1, 1, 1) mesh against
     ``make_train_step``: the same light samples, loss rtol 1e-5, albedo
-    gradient atol 3e-3·max, as phase 5."""
+    gradient atol 3e-3·max, as phase 5; 11(f) the same with
+    ``coarse_seed`` (config 5's step; K15, K7s)."""
     scene = raymarch.cornell_scene(device=dev)
     mesh = make_mesh()
     target = torch.from_numpy(np.random.default_rng(0).random(
         (3, H, W), dtype=np.float32)).to(dev)
-    kw = dict(cam_cfg=CameraParams(width=W, height=H),
-              rm_params=RaymarchParams(), svgf_params=TRAIN)
+    kw = dict(cam_cfg=CameraParams(width=W, height=H), rm_params=rm,
+              svgf_params=TRAIN)
     cam = raymarch.cornell_camera(device=dev)
     step_s = sharded.make_sharded_train_step(mesh, scene, cam, target, **kw)
     step_u = make_train_step(scene, cam, target, **kw)
@@ -1620,7 +1989,7 @@ def sharded_train_phase(H, W, dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
-    for k in range(1 + UHD_STEPS):
+    for k in range(1 + steps):
         lp = raymarch.sample_light(scene, gen, (H, W))
         with CudaTimer() as tm:
             state_s, ls = counted(lambda: step_s(state_s, light_sample=lp),
@@ -1635,10 +2004,11 @@ def sharded_train_phase(H, W, dev):
         check_close(f"sharded train step {k} albedo gradient",
                     state_s.albedo.grad, state_u.albedo.grad,
                     atol=3e-3 * float(state_u.albedo.grad.abs().max()))
-    require_launched(10, counts, ("K1", "K2", "K4c", "K7", "K8"))
+    require_launched(n, counts, expected)
     peak = torch.cuda.max_memory_allocated() - base
     t, u = times[1:], utimes[1:]
-    phase(10, f"(c) sharded train step {W}x{H} on a {mesh.axis_sizes} mesh: "
+    phase(n, f"{label} sharded train step {W}x{H} on a {mesh.axis_sizes} "
+             f"mesh: "
               f"{sum(t) / len(t):.3f} ms/step over {len(t)} steps after one "
               f"(unsharded {sum(u) / len(u):.3f}); losses and gradients "
               f"match the unsharded step; peak memory of both "
@@ -1691,6 +2061,8 @@ def main(argv=None) -> int:
     check_filters(P, results)
     check_k7_k8(H, W, dev, results)
     check_k13(H, W, dev, results)
+    check_cone_seed(H, W, dev, results)
+    check_clamped_gather(H, W, dev, results)
     del P
     torch.cuda.synchronize()
 
@@ -1699,7 +2071,19 @@ def main(argv=None) -> int:
                 lambda: train_phase(H, W, dev),
                 lambda: temporal_grad_phase(H, W, dev), cli_phase,
                 lambda: dataset_phase(H, W, dev),
-                lambda: adjoint_phase(H, W, dev)):
+                lambda: adjoint_phase(H, W, dev),
+                lambda: seeded_serving_phase(H, W, dev, args.frames),
+                lambda: seeded_train_phase(H, W, dev),
+                lambda: serving_phase(
+                    H, W, dev, UNBOUNDED_FRAMES, svgf=UNBOUNDED, n=11,
+                    label="(c) unbounded motion (max_motion=None), ",
+                    expected=("K1", "KG", "K7", "K8")),
+                lambda: temporal_grad_phase(
+                    H, W, dev, params=SVGFParams(iterations=5, radius=1,
+                                                 max_motion=None),
+                    motion_scale=4.0, n=11,
+                    label="(d) unbounded motion (max_motion=None), ",
+                    expected=lambda mg: ("K1", "K2", "KG", "KGb"))):
         for k, n in run().items():
             launches[k] += n
 
@@ -1713,7 +2097,15 @@ def main(argv=None) -> int:
     del P
     torch.cuda.synchronize()
     for run in (lambda: sharded_pipeline_phase(UH, UW, dev, UHD_FRAMES),
-                lambda: sharded_train_phase(UH, UW, dev), sharded_cli_phase):
+                lambda: sharded_train_phase(UH, UW, dev), sharded_cli_phase,
+                lambda: sharded_pipeline_phase(
+                    UH, UW, dev, SEEDED_UHD_FRAMES, rm=SEEDED, n=11,
+                    label="(e) coarse_seed:",
+                    expected=("K1", "K3b", "K15", "K7s", "K8")),
+                lambda: sharded_train_phase(
+                    UH, UW, dev, rm=SEEDED, steps=SEEDED_UHD_STEPS, n=11,
+                    label="(f) coarse_seed:",
+                    expected=("K1", "K2", "K4c", "K15", "K7s", "K8"))):
         for k, n in run().items():
             launches[k] += n
 

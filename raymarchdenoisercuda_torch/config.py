@@ -110,7 +110,10 @@ class RaymarchParams:
     # Over-relaxed sphere tracing (Keinert et al.): step ω·d with an overlap
     # test that rolls a failed step back.  1.0 disables relaxation.
     relax_omega: float = 1.0
-    # Half-resolution cone pre-march seed: not ported yet (kernel K15).
+    # Cone pre-march seed: one cone a 4x4 pixel block is marched against the
+    # distance fattened by the block's ray spread (kernel K15), and each
+    # pixel's primary march starts at its block's stop instead of 0.  Off by
+    # default; the plain renderer (impl="plain") ignores it.
     coarse_seed: bool = False
 
 

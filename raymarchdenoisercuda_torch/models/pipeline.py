@@ -5,6 +5,10 @@ Counterpart of ``raymarchdenoisercuda_tpu/models/pipeline.py``:
 animated raymarched scene, temporally accumulated and denoised);
 ``make_train_step`` is config 4 (a pixel loss through SVGF and the
 raymarcher's shading, optimising the material albedo table with Adam).
+Each takes ``rm_params`` to the renderer as it is: with
+``RaymarchParams(coarse_seed=True)`` (off by default) the kernel path
+marches from the cone seed (K15, then the seeded K7); the plain path
+ignores the flag.
 """
 
 from __future__ import annotations

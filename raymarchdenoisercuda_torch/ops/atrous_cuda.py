@@ -78,8 +78,32 @@ def _ref(struct):
     return None if struct is None else ctypes.addressof(struct)
 
 
+# the largest radius whose 1-D taps ride in AtrousParams.taps
+_STRUCT_RADIUS = 2
+_wide_taps_cache = {}
+
+
+def _wide_taps(radius, dev):
+    """The device array of a radius's 2r+1 taps for the kernels' WIDE
+    instantiation, or None (NULL) for a radius whose taps ride in
+    ``AtrousParams``; one array a (radius, device), kept for reuse."""
+    if radius <= _STRUCT_RADIUS:
+        return None
+    key = (radius, str(dev))
+    if key not in _wide_taps_cache:
+        _wide_taps_cache[key] = torch.tensor(_spline_taps(radius),
+                                             dtype=torch.float32, device=dev)
+    return _wide_taps_cache[key]
+
+
+def _taps_ptr(radius, dev):
+    taps = _wide_taps(radius, dev)
+    return None if taps is None else taps.data_ptr()
+
+
 def _launch_params(H, W, level, params, weight_math="exact"):
     r = params.radius
+    struct_taps = _spline_taps(r) if r <= _STRUCT_RADIUS else ()
     return _AtrousParams(
         H=H, W=W, spacing=1 << level, radius=r,
         fast=int(weight_math == "fast"),
@@ -90,7 +114,7 @@ def _launch_params(H, W, level, params, weight_math="exact"):
         sz2=params.sigma_depth * _LN2, eps2=_EPS * _LN2,
         c_s1=params.sigma_normal * _LOG2E * 0.5,
         c_s2=params.sigma_normal * _LOG2E * 0.125,
-        taps=(ctypes.c_float * 5)(*_spline_taps(r)))
+        taps=(ctypes.c_float * 5)(*struct_taps))
 
 
 def _neighbourhood(dev, H, W, tile, color, variance, normal, depth, reach,
@@ -151,9 +175,6 @@ def _check_sweep(color, params: SVGFParams, weight_math: str) -> None:
     if params.pyramid_from is not None:
         raise NotImplementedError("pyramid_from (half-resolution deep levels) "
                                   "is not ported")
-    if color.is_cuda and params.radius not in (1, 2):
-        raise ValueError(f"the CUDA level kernel takes radius 1 or 2, "
-                         f"got {params.radius}")
 
 
 def zgrad_cuda(depth: torch.Tensor) -> torch.Tensor:
@@ -201,7 +222,8 @@ def _launch_level(color, variance, normal, depth, zgrad, sigma_denom, *,
         *ptrs, sden_ptr, c_out.data_ptr(), v_out.data_ptr(),
         None if w is None else w.data_ptr(),
         None if norm is None else norm.data_ptr(), int(w_dtype == f32),
-        ctypes.addressof(p), _ref(t), _stream(dev))
+        ctypes.addressof(p), _ref(t), _taps_ptr(params.radius, dev),
+        _stream(dev))
     _build.check(rc, "rdt_atrous_level")
     return c_out, v_out, w, norm
 
@@ -373,7 +395,7 @@ def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
     p = _launch_params(H, W, level, params)
     rc = _build.kernels().rdt_atrous_bwd(
         *ptrs, dc.data_ptr(), dv.data_ptr(), ctypes.addressof(p), _ref(t),
-        _stream(dev))
+        _taps_ptr(params.radius, dev), _stream(dev))
     _build.check(rc, "rdt_atrous_bwd")
     atrous_level_bwd_cuda.launches += 1
     return dc, dv
@@ -409,7 +431,7 @@ def atrous_level_wgrad_bwd_cuda(color, variance, normal, depth, zgrad,
     p = _launch_params(H, W, level, params)
     rc = _build.kernels().rdt_atrous_wgrad_bwd(
         *ptrs, *(t.data_ptr() for t in outs), ctypes.addressof(p),
-        _stream(dev))
+        _taps_ptr(params.radius, dev), _stream(dev))
     _build.check(rc, "rdt_atrous_wgrad_bwd")
     atrous_level_wgrad_bwd_cuda.launches += 1
     return outs

@@ -42,14 +42,17 @@ _I = ctypes.c_int
 # C entry points and their argument types; every one returns cudaError_t
 SIGNATURES = {
     "rdt_zgrad": (_P, _P, _I, _I, _P),
-    "rdt_atrous_level": (_P,) * 10 + (_I,) + (_P,) * 3,
+    "rdt_atrous_level": (_P,) * 10 + (_I,) + (_P,) * 4,
     "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 5 + (_P,) * 2,
-    "rdt_atrous_bwd": (_P,) * 13,
-    "rdt_atrous_wgrad_bwd": (_P,) * 19,
+    "rdt_atrous_bwd": (_P,) * 14,
+    "rdt_atrous_wgrad_bwd": (_P,) * 20,
     "rdt_temporal": (_P,) * 16,
     "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,) * 2,
     "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
-    "rdt_march": (_P,) * 9,
+    "rdt_clamped_gather": (_P,) * 3 + (_I,) * 3 + (_P,),
+    "rdt_clamped_gather_bwd": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "rdt_march": (_P,) * 10,
+    "rdt_cone_seed": (_P,) * 6,
     "rdt_shadow_shade": (_P,) * 14,
     "rdt_shadow": (_P,) * 7,
     "rdt_box_level": (_P,) * 2 + (_I,) * 4 + (_P,),

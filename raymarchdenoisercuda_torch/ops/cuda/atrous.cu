@@ -76,6 +76,13 @@
 // atrous_level_wgrad_bwd_ref.  Bound: 124 B/px of inputs and outputs, and
 // ~150 flops a tap (two kernels), so memory at radius 1 and the float32
 // rate at radius 2.
+//
+// Radius: K1/K1b, K14 and K9 take any r >= 0 ((2r+1) taps a row, from
+// _spline_taps).  Up to r = 2 the 1-D taps ride in AtrousParams.taps[5];
+// a larger radius passes them as a small device array (wide_taps) and runs
+// the kernels' WIDE = true instantiation, so the launches at r <= 2 keep
+// their parameter struct, code and time.  K2/K2b read their stored weights
+// and need no taps.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -205,6 +212,15 @@ __device__ __forceinline__ Tap exact_tap(float h, float l_a, float l_b,
     return t;
 }
 
+// The 2-D tap weight h of offset (dy + r, dx + r): from the parameters'
+// taps, or (WIDE) from the device array of a radius above 2.
+template <bool WIDE>
+__device__ __forceinline__ float tap_h(const AtrousParams& p,
+                                       const float* __restrict__ wide_taps,
+                                       int ky, int kx) {
+    return WIDE ? wide_taps[ky] * wide_taps[kx] : p.taps[ky] * p.taps[kx];
+}
+
 __device__ __forceinline__ float sgnf(float x) {
     return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
@@ -220,7 +236,7 @@ __device__ __forceinline__ float load_w(const float* w, int k) { return w[k]; }
 
 // K1 (sden_in null: the fused blur) and K1b (sden_in given); WT is the
 // stored weights' type.
-template <typename WT, bool TILE>
+template <typename WT, bool TILE, bool WIDE>
 __global__ void atrous_level_kernel(const float* __restrict__ color,
                                     const float* __restrict__ var,
                                     const float* __restrict__ normal,
@@ -231,7 +247,8 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
                                     float* __restrict__ var_out,
                                     WT* __restrict__ w_out,
                                     float* __restrict__ n_out,
-                                    AtrousParams p, AtrousTile t) {
+                                    AtrousParams p, AtrousTile t,
+                                    const float* __restrict__ wide_taps) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
@@ -287,7 +304,7 @@ __global__ void atrous_level_kernel(const float* __restrict__ color,
             }
             const int q = didx<TILE>(t, W, qy, qx);
             const int g = gidx<TILE>(t, W, qy, qx);
-            const float h = p.taps[dy + r] * p.taps[dx + r];
+            const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
             const float lum_q = luma(color, q, dp);
             float w;
             if (p.fast) {
@@ -374,7 +391,7 @@ __global__ void atrous_bwd_stored_kernel(const WT* __restrict__ w,
 // Output pixel (yo, xo) of the centre-plus-o_m region is tile pixel (y, x);
 // a centre's tap to it was dropped in the forward when (y, x) lies outside
 // the frame, so such a pixel gets zero.
-template <bool TILE>
+template <bool TILE, bool WIDE>
 __global__ void atrous_bwd_kernel(const float* __restrict__ color,
                                   const float* __restrict__ normal,
                                   const float* __restrict__ depth,
@@ -385,7 +402,8 @@ __global__ void atrous_bwd_kernel(const float* __restrict__ color,
                                   const float* __restrict__ gv,
                                   float* __restrict__ dc,
                                   float* __restrict__ dv, AtrousParams p,
-                                  AtrousTile t) {
+                                  AtrousTile t,
+                                  const float* __restrict__ wide_taps) {
     const int H = p.H, W = p.W, hw = H * W;
     const int om = TILE ? t.o_m : 0;
     const int Ho = H + 2 * om, Wo = W + 2 * om, hwo = Ho * Wo;
@@ -414,7 +432,7 @@ __global__ void atrous_bwd_kernel(const float* __restrict__ color,
                 const int c = py * W + px;
                 const int dq = didx<TILE>(t, W, py, px);
                 const int gq = gidx<TILE>(t, W, py, px);
-                const float h = p.taps[dy + r] * p.taps[dx + r];
+                const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
                 // centre p's weight for its tap (oy, ox), whose neighbour
                 // is x
                 const float wk = exact_tap(
@@ -439,6 +457,7 @@ __global__ void atrous_bwd_kernel(const float* __restrict__ color,
 // K9, first kernel: the centre terms at x over x's own taps.  Writes its
 // partial d_normal and d_depth into those outputs and its partial d_lum
 // into d_color's first plane; the second kernel completes them.
+template <bool WIDE>
 __global__ void wgrad_center_kernel(
     const float* __restrict__ color, const float* __restrict__ var,
     const float* __restrict__ normal, const float* __restrict__ depth,
@@ -448,7 +467,7 @@ __global__ void wgrad_center_kernel(
     const float* __restrict__ gv, float* __restrict__ d_color,
     float* __restrict__ d_normal, float* __restrict__ d_depth,
     float* __restrict__ d_zgrad, float* __restrict__ d_sden,
-    AtrousParams p) {
+    AtrousParams p, const float* __restrict__ wide_taps) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
@@ -475,7 +494,7 @@ __global__ void wgrad_center_kernel(
             const int qx = x + ox;
             if (qx < 0 || qx >= W) continue;
             const int q = qy * W + qx;
-            const float h = p.taps[dy + r] * p.taps[dx + r];
+            const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
             const float nq0 = normal[q], nq1 = normal[hw + q],
                         nq2 = normal[2 * hw + q];
             const Tap t = exact_tap(h, lum_x, luma(color, q, hw), sd, z_x,
@@ -513,6 +532,7 @@ __global__ void wgrad_center_kernel(
 // K9, second kernel: the neighbour terms at x over the centres p = x - d,
 // the detached data stencil, and the sums with the first kernel's partial
 // planes (read and written at x only).
+template <bool WIDE>
 __global__ void wgrad_neighbor_kernel(
     const float* __restrict__ color, const float* __restrict__ var,
     const float* __restrict__ normal, const float* __restrict__ depth,
@@ -521,7 +541,8 @@ __global__ void wgrad_neighbor_kernel(
     const float* __restrict__ norm, const float* __restrict__ gc,
     const float* __restrict__ gv, float* __restrict__ d_color,
     float* __restrict__ d_var, float* __restrict__ d_normal,
-    float* __restrict__ d_depth, AtrousParams p) {
+    float* __restrict__ d_depth, AtrousParams p,
+    const float* __restrict__ wide_taps) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
@@ -542,7 +563,7 @@ __global__ void wgrad_neighbor_kernel(
             const int px = x - ox;
             if (px < 0 || px >= W) continue;
             const int c = py * W + px;
-            const float h = p.taps[dy + r] * p.taps[dx + r];
+            const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
             const float np0 = normal[c], np1 = normal[hw + c],
                         np2 = normal[2 * hw + c];
             const float sd = sden[c];
@@ -602,28 +623,36 @@ extern "C" int rdt_zgrad(const float* depth, float* zgrad, int H, int W,
 
 // K1/K1b.  sden null: the fused blur (K1), else read (K1b).  w_out and
 // n_out null: no store; n_out alone: N only; both: the weights too, float
-// if w_f32 else bf16.  tile null: the whole frame.
+// if w_f32 else bf16.  tile null: the whole frame.  wide_taps null: the
+// taps of params (radius <= 2), else the 2r+1 taps of a larger radius.
 extern "C" int rdt_atrous_level(const float* color, const float* var,
                                 const float* normal, const float* depth,
                                 const float* zgrad, const float* sden,
                                 float* color_out, float* var_out, void* w_out,
                                 float* n_out, int w_f32,
                                 const AtrousParams* params,
-                                const AtrousTile* tile, void* stream) {
+                                const AtrousTile* tile,
+                                const float* wide_taps, void* stream) {
     dim3 block(32, 8);
     dim3 grid = grid_for(params->H, params->W, block);
     cudaStream_t s = (cudaStream_t)stream;
     const AtrousTile t = tile ? *tile : AtrousTile{};
-#define RDT_LEVEL(WT, T)                                                  \
-    atrous_level_kernel<WT, T><<<grid, block, 0, s>>>(                    \
+#define RDT_LEVEL(WT, T, WI)                                              \
+    atrous_level_kernel<WT, T, WI><<<grid, block, 0, s>>>(                \
         color, var, normal, depth, zgrad, sden, color_out, var_out,       \
-        (WT*)w_out, n_out, *params, t)
-    if (w_f32) {
-        if (tile) RDT_LEVEL(float, true); else RDT_LEVEL(float, false);
+        (WT*)w_out, n_out, *params, t, wide_taps)
+#define RDT_LEVEL_T(WT, WI)                                               \
+    if (tile) RDT_LEVEL(WT, true, WI); else RDT_LEVEL(WT, false, WI)
+#define RDT_LEVEL_WT(WI)                                                  \
+    if (w_f32) { RDT_LEVEL_T(float, WI); }                                \
+    else { RDT_LEVEL_T(__nv_bfloat16, WI); }
+    if (wide_taps) {
+        RDT_LEVEL_WT(true)
     } else {
-        if (tile) RDT_LEVEL(__nv_bfloat16, true);
-        else RDT_LEVEL(__nv_bfloat16, false);
+        RDT_LEVEL_WT(false)
     }
+#undef RDT_LEVEL_WT
+#undef RDT_LEVEL_T
 #undef RDT_LEVEL
     return (int)cudaGetLastError();
 }
@@ -652,47 +681,69 @@ extern "C" int rdt_atrous_bwd_stored(const void* w, const float* norm,
     return (int)cudaGetLastError();
 }
 
-// K14, over the output region as K2.
+// K14, over the output region as K2; wide_taps as in rdt_atrous_level.
 extern "C" int rdt_atrous_bwd(const float* color, const float* normal,
                               const float* depth, const float* zgrad,
                               const float* sden, const float* norm,
                               const float* gc, const float* gv, float* dc,
                               float* dv, const AtrousParams* params,
-                              const AtrousTile* tile, void* stream) {
+                              const AtrousTile* tile, const float* wide_taps,
+                              void* stream) {
     dim3 block(32, 8);
     const AtrousTile t = tile ? *tile : AtrousTile{};
     dim3 grid = grid_for(params->H + 2 * t.o_m, params->W + 2 * t.o_m, block);
     cudaStream_t s = (cudaStream_t)stream;
-    if (tile) {
-        atrous_bwd_kernel<true><<<grid, block, 0, s>>>(
-            color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv, *params,
-            t);
+#define RDT_BWD(T, WI)                                                    \
+    atrous_bwd_kernel<T, WI><<<grid, block, 0, s>>>(                      \
+        color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv, *params, \
+        t, wide_taps)
+    if (wide_taps) {
+        if (tile) RDT_BWD(true, true); else RDT_BWD(false, true);
     } else {
-        atrous_bwd_kernel<false><<<grid, block, 0, s>>>(
-            color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv, *params,
-            t);
+        if (tile) RDT_BWD(true, false); else RDT_BWD(false, false);
     }
+#undef RDT_BWD
     return (int)cudaGetLastError();
 }
 
-// K9: the centre kernel, then the neighbour kernel on the same stream.
+// K9: the centre kernel, then the neighbour kernel on the same stream;
+// wide_taps as in rdt_atrous_level.
+template <bool WIDE>
+cudaError_t wgrad_launch(dim3 grid, dim3 block, cudaStream_t s,
+                         const float* color, const float* var,
+                         const float* normal, const float* depth,
+                         const float* zgrad, const float* sden,
+                         const float* out_c, const float* out_v,
+                         const float* norm, const float* gc, const float* gv,
+                         float* d_color, float* d_var, float* d_normal,
+                         float* d_depth, float* d_zgrad, float* d_sden,
+                         const AtrousParams& p, const float* wide_taps) {
+    wgrad_center_kernel<WIDE><<<grid, block, 0, s>>>(
+        color, var, normal, depth, zgrad, sden, out_c, out_v, norm, gc, gv,
+        d_color, d_normal, d_depth, d_zgrad, d_sden, p, wide_taps);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    wgrad_neighbor_kernel<WIDE><<<grid, block, 0, s>>>(
+        color, var, normal, depth, zgrad, sden, out_c, out_v, norm, gc, gv,
+        d_color, d_var, d_normal, d_depth, p, wide_taps);
+    return cudaGetLastError();
+}
+
 extern "C" int rdt_atrous_wgrad_bwd(
     const float* color, const float* var, const float* normal,
     const float* depth, const float* zgrad, const float* sden,
     const float* out_c, const float* out_v, const float* norm,
     const float* gc, const float* gv, float* d_color, float* d_var,
     float* d_normal, float* d_depth, float* d_zgrad, float* d_sden,
-    const AtrousParams* params, void* stream) {
+    const AtrousParams* params, const float* wide_taps, void* stream) {
     dim3 block(32, 8);
     dim3 grid = grid_for(params->H, params->W, block);
     cudaStream_t s = (cudaStream_t)stream;
-    wgrad_center_kernel<<<grid, block, 0, s>>>(
-        color, var, normal, depth, zgrad, sden, out_c, out_v, norm, gc, gv,
-        d_color, d_normal, d_depth, d_zgrad, d_sden, *params);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    wgrad_neighbor_kernel<<<grid, block, 0, s>>>(
-        color, var, normal, depth, zgrad, sden, out_c, out_v, norm, gc, gv,
-        d_color, d_var, d_normal, d_depth, *params);
-    return (int)cudaGetLastError();
+#define RDT_WGRAD(WI)                                                     \
+    wgrad_launch<WI>(grid, block, s, color, var, normal, depth, zgrad,    \
+                     sden, out_c, out_v, norm, gc, gv, d_color, d_var,    \
+                     d_normal, d_depth, d_zgrad, d_sden, *params, wide_taps)
+    const cudaError_t err = wide_taps ? RDT_WGRAD(true) : RDT_WGRAD(false);
+#undef RDT_WGRAD
+    return (int)err;
 }

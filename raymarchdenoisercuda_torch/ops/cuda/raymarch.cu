@@ -23,6 +23,23 @@
 // have no counterpart.  Bound on the card: SDF evaluations (~10 flops per
 // primitive and step); warps diverge where neighbouring rays need different
 // step counts, which 16x8 blocks keep local.
+//
+// The cone pre-march seed (RaymarchParams.coarse_seed).  K15, cone_kernel,
+// replaces _make_cone_kernel (wrappers _cone_seed_coarse and
+// _cone_seed_coarse_analytic, raymarch_tpu.py:214-393); its plain twin is
+// cone_march in ops/raymarch.py.  One thread a coarse cell (a 4x4 pixel
+// block) sphere-traces the block's cone against the fattened distance
+// margin = d - (hit_eps + base) - t * delta in steps of margin / (1 + delta),
+// so that sdf >= hit_eps + base + s * delta along the marched segment and
+// the stop is a skip-free start for every ray of the block.  delta and
+// base are global maxima that PyTorch reduces on the device; as on the TPU
+// they ride after the scene scalars in the flat scene vector, so the host
+// never reads them.  Bound: its SDF evaluations (1/16 of the pixels).
+// The seeded K7 (_make_march_kernel(seeded=True)) is march_kernel given the
+// coarse grid of stops: each pixel starts at its own block's stop.  The TPU
+// kernel takes the minimum over each 32x256 band because a tile reads one
+// SMEM scalar; a thread here reads its own block's.  A null seed is the
+// unseeded launch (t = 0).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -44,6 +61,7 @@ struct ShadeParams {
 namespace {
 
 constexpr float kMinStep = 0.01f;
+constexpr int kSeedBlock = 4;    // pixels a coarse cell's side (SEED_BLOCK)
 constexpr float kPi = 3.141592653589793f;
 
 struct Sdf {
@@ -153,6 +171,7 @@ __device__ const float* stage_scene(const float* scene, int n, float* smem) {
 __global__ void march_kernel(const float* __restrict__ scene,
                              const float* __restrict__ ro,
                              const float* __restrict__ rd,
+                             const float* __restrict__ seed,
                              float* __restrict__ t_out,
                              bool* __restrict__ hit_out,
                              int* __restrict__ mat_out,
@@ -168,7 +187,8 @@ __global__ void march_kernel(const float* __restrict__ scene,
     const float rox = ro[i], roy = ro[hw + i], roz = ro[2 * hw + i];
     const float rdx = rd[i], rdy = rd[hw + i], rdz = rd[2 * hw + i];
 
-    float t = 0.0f;
+    const int seed_w = (p.W + kSeedBlock - 1) / kSeedBlock;
+    float t = seed ? seed[(y / kSeedBlock) * seed_w + x / kSeedBlock] : 0.0f;
     if (p.relax_omega <= 1.0f) {
         for (int s = 0; s < p.max_steps; ++s) {
             float d = sdf(rox + t * rdx, roy + t * rdy, roz + t * rdz);
@@ -215,6 +235,36 @@ __global__ void march_kernel(const float* __restrict__ scene,
     n_out[i] = nx;
     n_out[hw + i] = ny;
     n_out[2 * hw + i] = nz;
+}
+
+// K15: the cone march of the coarse cells (see the header).  The scene
+// vector carries delta and base after the primitives; p.H x p.W is the
+// coarse grid.
+__global__ void cone_kernel(const float* __restrict__ scene,
+                            const float* __restrict__ ro,
+                            const float* __restrict__ rd,
+                            float* __restrict__ t_out, MarchParams p) {
+    extern __shared__ float smem[];
+    const int n_sc = 5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl;
+    const float* sc = stage_scene(scene, n_sc + 2, smem);
+    const Sdf sdf{sc, p.n_sph, p.n_box, p.n_pl};
+    int x = blockIdx.x * blockDim.x + threadIdx.x;
+    int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (x >= p.W || y >= p.H) return;
+    const int hw = p.H * p.W, i = y * p.W + x;
+    const float rox = ro[i], roy = ro[hw + i], roz = ro[2 * hw + i];
+    const float rdx = rd[i], rdy = rd[hw + i], rdz = rd[2 * hw + i];
+    const float delta = sc[n_sc];
+    const float clear0 = p.hit_eps + sc[n_sc + 1];
+    const float inv_g = 1.0f / (1.0f + delta);
+    float t = 0.0f;
+    for (int s = 0; s < p.max_steps; ++s) {
+        const float d = sdf(rox + t * rdx, roy + t * rdy, roz + t * rdz);
+        const float margin = d - clear0 - t * delta;
+        if (!(margin > 0.0f && t < p.max_dist)) break;
+        t = t + margin * inv_g;
+    }
+    t_out[i] = t;
 }
 
 // light: normal (3), radiance (3), area; prev: position, fwd, right, up
@@ -308,15 +358,31 @@ dim3 grid_for(int H, int W, dim3 block) {
 
 }  // namespace
 
+// K7; seed null: every ray starts at 0, else at its block's cone stop
+// (the (ceil(H/4), ceil(W/4)) grid of K15).
 extern "C" int rdt_march(const float* scene, const float* ro, const float* rd,
-                         float* t, bool* hit, int* mat, float* normal,
-                         const MarchParams* params, void* stream) {
+                         const float* seed, float* t, bool* hit, int* mat,
+                         float* normal, const MarchParams* params,
+                         void* stream) {
     dim3 block(16, 8);
     size_t smem = sizeof(float)
         * (5 * params->n_sph + 7 * params->n_box + 5 * params->n_pl);
     march_kernel<<<grid_for(params->H, params->W, block), block, smem,
-                   (cudaStream_t)stream>>>(scene, ro, rd, t, hit, mat, normal,
-                                           *params);
+                   (cudaStream_t)stream>>>(scene, ro, rd, seed, t, hit, mat,
+                                           normal, *params);
+    return (int)cudaGetLastError();
+}
+
+// K15 over the coarse grid params->H x params->W; scene: the flat scene
+// vector followed by delta and base.
+extern "C" int rdt_cone_seed(const float* scene, const float* ro,
+                             const float* rd, float* t,
+                             const MarchParams* params, void* stream) {
+    dim3 block(16, 8);
+    size_t smem = sizeof(float)
+        * (5 * params->n_sph + 7 * params->n_box + 5 * params->n_pl + 2);
+    cone_kernel<<<grid_for(params->H, params->W, block), block, smem,
+                  (cudaStream_t)stream>>>(scene, ro, rd, t, *params);
     return (int)cudaGetLastError();
 }
 

@@ -71,6 +71,22 @@
 // which runs the kernels' TILE = false instantiation: it indexes and
 // masks as if there were no tile, with the parameters it had before tiles
 // existed, and computes what it computed then, operation by operation.
+//
+// The clamped gather and its adjoint (no TPU kernel: with
+// SVGFParams.max_motion = None the JAX package runs its jnp step,
+// raymarchdenoisercuda_tpu/ops/temporal.py bilinear_gather_many, beside the
+// Pallas sweep).  clamped_gather_kernel is the unbounded reprojection of
+// the P history planes: one thread a pixel samples p + motion bilinearly
+// with its four taps clamped to the image (floor, clamp, and the sums as
+// fused multiply-adds, as the plain twin bilinear_gather_clamped in
+// ops/temporal.py rounds them).  clamped_gather_bwd_kernel is its adjoint:
+// each pixel scatters its bilinear-weighted cotangent into its four
+// clamped taps with atomicAdd (as K5 does; coinciding clamped taps add
+// up), and takes the motion cotangent from the derivative of the bilinear
+// weights, sum over planes of g.(d out/d fy, d out/d fx).  Bound: memory,
+// 88 B/px forward (10 planes and the motion in, 10 out) and 88 B/px
+// backward at 6 planes with both gradients (motion, 6 cotangent and 6
+// history planes in; 6 history gradients and the motion's out).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -412,7 +428,115 @@ __global__ void gather_bwd_kernel(const float* __restrict__ hist,
     dm[hw + i] = dm1;
 }
 
+// The clamped gather's tap geometry at pixel (y, x) of an H x W frame:
+// the four clamped tap indices and the bilinear fractions.
+struct ClampedTaps {
+    int i00, i01, i10, i11;
+    float fy, fx;
+};
+
+__device__ __forceinline__ ClampedTaps clamped_taps(const float* motion,
+                                                    int H, int W, int y,
+                                                    int x) {
+    const int hw = H * W, i = y * W + x;
+    const float ys = (float)y + motion[i], xs = (float)x + motion[hw + i];
+    const float y0 = floorf(ys), x0 = floorf(xs);
+    ClampedTaps c;
+    c.fy = ys - y0;
+    c.fx = xs - x0;
+    // floor is integral: clamping in float, then converting, is the
+    // twin's clamp of the converted index
+    const int y0i = (int)fminf(fmaxf(y0, 0.0f), (float)(H - 1));
+    const int x0i = (int)fminf(fmaxf(x0, 0.0f), (float)(W - 1));
+    const int y1i = min(y0i + 1, H - 1), x1i = min(x0i + 1, W - 1);
+    c.i00 = y0i * W + x0i;
+    c.i01 = y0i * W + x1i;
+    c.i10 = y1i * W + x0i;
+    c.i11 = y1i * W + x1i;
+    return c;
+}
+
+__global__ void clamped_gather_kernel(const float* __restrict__ stack,
+                                      const float* __restrict__ motion,
+                                      float* __restrict__ out, int H, int W,
+                                      int P) {
+    int x = blockIdx.x * blockDim.x + threadIdx.x;
+    int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (x >= W || y >= H) return;
+    const int hw = H * W, i = y * W + x;
+    const ClampedTaps c = clamped_taps(motion, H, W, y, x);
+    const float gx = 1.0f - c.fx, gy = 1.0f - c.fy;
+    for (int k = 0; k < P; ++k) {
+        const float* a = stack + k * hw;
+        const float top = __fmaf_rn(a[c.i00], gx, a[c.i01] * c.fx);
+        const float bot = __fmaf_rn(a[c.i10], gx, a[c.i11] * c.fx);
+        out[k * hw + i] = __fmaf_rn(top, gy, bot * c.fy);
+    }
+}
+
+// d_stack (zeroed, may be null: no history gradient) gets the leading np
+// planes' scatter; d_motion (may be null) the motion cotangent over them.
+__global__ void clamped_gather_bwd_kernel(const float* __restrict__ stack,
+                                          const float* __restrict__ motion,
+                                          const float* __restrict__ g,
+                                          float* __restrict__ d_stack,
+                                          float* __restrict__ d_motion,
+                                          int H, int W, int np) {
+    int x = blockIdx.x * blockDim.x + threadIdx.x;
+    int y = blockIdx.y * blockDim.y + threadIdx.y;
+    if (x >= W || y >= H) return;
+    const int hw = H * W, i = y * W + x;
+    const ClampedTaps c = clamped_taps(motion, H, W, y, x);
+    const float gx = 1.0f - c.fx, gy = 1.0f - c.fy;
+    float dfy = 0.0f, dfx = 0.0f;
+    for (int k = 0; k < np; ++k) {
+        const float gk = g[k * hw + i];
+        if (d_stack) {
+            float* d = d_stack + k * hw;
+            atomicAdd(&d[c.i00], gk * (gy * gx));
+            atomicAdd(&d[c.i01], gk * (gy * c.fx));
+            atomicAdd(&d[c.i10], gk * (c.fy * gx));
+            atomicAdd(&d[c.i11], gk * (c.fy * c.fx));
+        }
+        if (d_motion) {
+            const float* a = stack + k * hw;
+            const float a00 = a[c.i00], a01 = a[c.i01], a10 = a[c.i10],
+                        a11 = a[c.i11];
+            const float top = __fmaf_rn(a00, gx, a01 * c.fx);
+            const float bot = __fmaf_rn(a10, gx, a11 * c.fx);
+            dfy = dfy + gk * (bot - top);
+            dfx = dfx + gk * (gy * (a01 - a00) + c.fy * (a11 - a10));
+        }
+    }
+    if (d_motion) {
+        d_motion[i] = dfy;
+        d_motion[hw + i] = dfx;
+    }
+}
+
 }  // namespace
+
+// The clamped gather of P planes, and its adjoint (see the header).
+extern "C" int rdt_clamped_gather(const float* stack, const float* motion,
+                                  float* out, int H, int W, int P,
+                                  void* stream) {
+    dim3 block(32, 8);
+    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+    clamped_gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        stack, motion, out, H, W, P);
+    return (int)cudaGetLastError();
+}
+
+extern "C" int rdt_clamped_gather_bwd(const float* stack, const float* motion,
+                                      const float* g, float* d_stack,
+                                      float* d_motion, int H, int W,
+                                      int grad_planes, void* stream) {
+    dim3 block(32, 8);
+    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+    clamped_gather_bwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        stack, motion, g, d_stack, d_motion, H, W, grad_planes);
+    return (int)cudaGetLastError();
+}
 
 // K3, K3b.
 extern "C" int rdt_temporal(const float* render, const float* motion,

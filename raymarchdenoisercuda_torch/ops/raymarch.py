@@ -2,10 +2,12 @@
 PyTorch march and shading, and ``render_gbuffer``.
 
 Counterpart of ``raymarchdenoisercuda_tpu/ops/raymarch.py``.  The plain
-functions ``march_gbuf``, ``shadow_shade`` and ``shadow_factor`` are the
-CPU path and the oracles of the CUDA kernels K7, K8 and K13
-(``ops/cuda/raymarch.cu``); on the card ``render_gbuffer`` goes through the
-kernels (``ops/raymarch_cuda.py``).  The scene and camera constructors
+functions ``march_gbuf``, ``shadow_shade``, ``shadow_factor`` and
+``cone_march`` are the CPU path and the oracles of the CUDA kernels K7, K8,
+K13 and K15 (``ops/cuda/raymarch.cu``); on the card ``render_gbuffer`` goes
+through the kernels (``ops/raymarch_cuda.py``).  The cone seed's glue
+(``cone_rays`` from ray planes, ``cone_rays_analytic`` from the camera) is
+PyTorch on either device.  The scene and camera constructors
 create their tensors on the CUDA card unless given ``device``.
 
 Gradients: the material tables, the light sample and the light reach the
@@ -144,8 +146,10 @@ def camera_basis(camera: Camera, cfg: CameraParams):
     # screen-right = up x fwd: +x world appears on screen right
     right = _normalize(_cross(camera.up, fwd))
     up = _cross(fwd, right)
-    half_h = torch.tan(torch.tensor(cfg.fov_y / 2.0, dtype=fwd.dtype,
-                                    device=fwd.device))
+    # torch.full fills on the device; a tensor made from a Python number
+    # is copied from the host, which waits for the stream on the card
+    half_h = torch.tan(torch.full((), cfg.fov_y / 2.0, dtype=fwd.dtype,
+                                  device=fwd.device))
     half_w = half_h * (cfg.width / cfg.height)
     return fwd, right, up, half_w, half_h
 
@@ -173,16 +177,18 @@ def camera_rays(camera: Camera, cfg: CameraParams):
 
 
 def _raymarch_loop(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
-                   params: RaymarchParams) -> torch.Tensor:
+                   params: RaymarchParams,
+                   t0: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Sphere-trace all rays in lock-step; returns t.  A ray that stops
     (converged or escaped) never moves again, so the loop ends as soon as no
     ray moved, with the result of running all ``max_steps``.
 
-    ``relax_omega > 1``: over-relaxed tracing with rollback (a step whose
-    end sphere does not overlap the start sphere goes back to the
-    conservative step)."""
+    ``t0``: each ray's start (the cone seed; default 0).  ``relax_omega >
+    1``: over-relaxed tracing with rollback (a step whose end sphere does
+    not overlap the start sphere goes back to the conservative step); it
+    starts with no previous step at the seed too."""
     zero = torch.zeros(ro.shape[1:], dtype=ro.dtype, device=ro.device)
-    t = zero
+    t = zero if t0 is None else t0
     om = params.relax_omega
     if om <= 1.0:
         for _ in range(params.max_steps):
@@ -209,15 +215,155 @@ def _raymarch_loop(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     return t
 
 
+# ---------------------------------------------------------------------------
+# the cone pre-march seed (RaymarchParams.coarse_seed; kernel K15)
+# ---------------------------------------------------------------------------
+
+# one cone a SEED_BLOCK x SEED_BLOCK pixel block (_SEED_BLOCK of the JAX
+# package's raymarch_tpu.py)
+SEED_BLOCK = 4
+
+
+def seed_grid_shape(H: int, W: int) -> Tuple[int, int]:
+    """(Hc, Wc): the coarse grid of an H x W frame, one cell a block."""
+    return -(-H // SEED_BLOCK), -(-W // SEED_BLOCK)
+
+
+def _upsample_blocks(x: torch.Tensor) -> torch.Tensor:
+    """Each cell of (..., Hc, Wc) repeated over its block."""
+    B = SEED_BLOCK
+    return x.repeat_interleave(B, -2).repeat_interleave(B, -1)
+
+
+def seed_plane(t_c: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """The (H, W) per-pixel seed: each pixel takes its block's stop (the
+    nearest upsample of the coarse grid)."""
+    return _upsample_blocks(t_c)[:H, :W]
+
+
+def cone_rays(ro: torch.Tensor, rd: torch.Tensor):
+    """The coarse cones of ray planes (3, H, W): ``(ro_c, rd_c, delta,
+    base)``.  A block's apex is the mean of its origins and its axis the
+    renormalised sum of its directions (the planes edge-replicated to whole
+    blocks); ``delta`` and ``base`` are the GLOBAL maxima of each pixel's
+    direction and origin deviation from its block's, 0-d tensors."""
+    B = SEED_BLOCK
+    H, W = ro.shape[-2:]
+    Hc, Wc = seed_grid_shape(H, W)
+    pad = (0, B * Wc - W, 0, B * Hc - H)
+    rop = torch.nn.functional.pad(ro[None], pad, mode="replicate")[0]
+    rdp = torch.nn.functional.pad(rd[None], pad, mode="replicate")[0]
+    ro_c = rop.reshape(3, Hc, B, Wc, B).mean(dim=(2, 4))
+    rd_sum = rdp.reshape(3, Hc, B, Wc, B).sum(dim=(2, 4))
+    rd_c = rd_sum / torch.clamp(_norm3(rd_sum), min=1e-8)[None]
+
+    def deviation(full, centre):
+        diff = full - _upsample_blocks(centre)
+        return torch.sqrt(torch.amax(_dot3(diff, diff)))
+
+    return ro_c, rd_c, deviation(rdp, rd_c), deviation(rop, ro_c)
+
+
+def rays_at_pixels(camera: Camera, cfg: CameraParams, rows: torch.Tensor,
+                   cols: torch.Tensor) -> torch.Tensor:
+    """Unit rays through (possibly fractional) GLOBAL pixel coordinates:
+    ``rows`` (..., n) by ``cols`` (..., m) with the same leading shape ->
+    (3, ..., n, m)."""
+    fwd, right, up, half_w, half_h = camera_basis(camera, cfg)
+    ys = (0.5 - (rows + 0.5) / cfg.height) * 2 * half_h
+    xs = ((cols + 0.5) / cfg.width - 0.5) * 2 * half_w
+
+    def vec(v):
+        return v.reshape((3,) + (1,) * (ys.dim() + 1))
+
+    dirs = (vec(fwd) + vec(up) * ys[None, ..., :, None]
+            + vec(right) * xs[None, ..., None, :])
+    return _normalize(dirs)
+
+
+def cone_rays_analytic(camera: Camera, cfg: CameraParams, row0: int,
+                       col0: int, th: int, tw: int):
+    """The coarse cones of the th x tw window at GLOBAL pixel (row0, col0),
+    straight from the camera: ``(ro_c, rd_c, delta, base)``.  Each block's
+    axis is the ray through its centre pixel; ``base`` = 0 (one pinhole
+    origin); ``delta`` is the largest deviation of a block's 4 corner
+    pixels' rays from its axis (a ray's deviation grows with its offset on
+    the screen, so the corners bound the block)."""
+    B = SEED_BLOCK
+    Hc, Wc = seed_grid_shape(th, tw)
+    c = (B - 1) / 2.0
+    dev, dt = camera.position.device, camera.position.dtype
+    # block-centre pixel coordinates (small integers and halves: exact in
+    # any order), made on the device
+    rows = torch.arange(Hc, dtype=dt, device=dev) * B + (row0 + c)
+    cols = torch.arange(Wc, dtype=dt, device=dev) * B + (col0 + c)
+    # the centre, then the four corners (dy, dx) in (-c, c)^2
+    rd5 = rays_at_pixels(
+        camera, cfg, torch.stack([rows, rows - c, rows - c, rows + c,
+                                  rows + c]),
+        torch.stack([cols, cols - c, cols + c, cols - c, cols + c]))
+    # rd5: (3, 5, Hc, Wc)
+    rd_c = rd5[:, 0].contiguous()
+    diff = rd5[:, 1:] - rd_c[:, None]
+    delta = torch.sqrt(torch.amax(_dot3(diff, diff)))
+    ro_c = camera.position[:, None, None].expand(3, Hc, Wc).contiguous()
+    return ro_c, rd_c, delta, torch.zeros((), dtype=dt, device=dev)
+
+
+def cone_march(scene: Scene, ro_c: torch.Tensor, rd_c: torch.Tensor,
+               delta: torch.Tensor, base: torch.Tensor,
+               params: RaymarchParams) -> torch.Tensor:
+    """Plain version of K15: sphere-trace each cone against the fattened
+    distance, margin = d − (hit_eps + base) − t·delta, with steps of
+    margin / (1 + delta), until margin <= 0, t >= max_dist or max_steps;
+    returns the (Hc, Wc) stops.  Along the marched segment sdf >= hit_eps +
+    base + s·delta, so a stop is a skip-free start for every ray of its
+    block."""
+    zero = torch.zeros(ro_c.shape[1:], dtype=ro_c.dtype, device=ro_c.device)
+    t = zero
+    clear0 = params.hit_eps + base
+    inv_g = 1.0 / (1.0 + delta)
+    for _ in range(params.max_steps):
+        d = sdf_scene(scene, ro_c + t[None] * rd_c, want_mat=False)
+        margin = d - clear0 - t * delta
+        active = (margin > 0.0) & (t < params.max_dist)
+        if not bool(active.any()):
+            break
+        t = t + torch.where(active, margin * inv_g, zero)
+    return t
+
+
+def cone_seed_coarse(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                     params: RaymarchParams):
+    """The coarse seed grid of ray planes (``_cone_seed_coarse`` of the JAX
+    package, unpadded): ``(t_c, delta, base)``, t_c (Hc, Wc)."""
+    ro_c, rd_c, delta, base = cone_rays(ro, rd)
+    return cone_march(scene, ro_c, rd_c, delta, base, params), delta, base
+
+
+def cone_seed_coarse_analytic(scene: Scene, camera: Camera,
+                              cfg: CameraParams, row0: int, col0: int,
+                              th: int, tw: int, params: RaymarchParams):
+    """The coarse seed grid of a camera window
+    (``_cone_seed_coarse_analytic`` of the JAX package, unpadded):
+    ``(t_c, delta, base)``."""
+    ro_c, rd_c, delta, base = cone_rays_analytic(camera, cfg, row0, col0,
+                                                 th, tw)
+    return cone_march(scene, ro_c, rd_c, delta, base, params), delta, base
+
+
 def march_gbuf(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
-               params: RaymarchParams):
+               params: RaymarchParams, seed: Optional[torch.Tensor] = None):
     """Plain version of K7: the primary march plus its G-buffer epilogue.
 
     Returns ``(t, hit, mat, normal)``: hit distance, hit mask
     (``d <= 4·hit_eps`` and ``t < max_dist``), int32 material id at the
     final point, and the unit central-difference normal flipped toward the
-    viewer (not masked by ``hit``)."""
-    t = _raymarch_loop(scene, ro, rd, params)
+    viewer (not masked by ``hit``).  ``seed``: the coarse (Hc, Wc) grid of
+    cone stops; each pixel's march starts at its block's stop."""
+    H, W = ro.shape[-2:]
+    t0 = None if seed is None else seed_plane(seed, H, W)
+    t = _raymarch_loop(scene, ro, rd, params, t0)
     p = ro + t[None] * rd
     d_final, mat = sdf_scene(scene, p)
     hit = (d_final <= params.hit_eps * 4.0) & (t < params.max_dist)
@@ -480,9 +626,13 @@ def render_gbuffer_window(
     would hold spp·3·H·W floats); the sum is divided once by ``spp``.
 
     ``impl="auto"`` runs K7/K8/K13 through their wrappers, which pick the
-    CUDA kernel or the plain version by device; ``impl="plain"`` runs the
-    plain versions on any device.  The material lookup, hit mask and depth
-    stay in PyTorch, so gradients reach the (M, 3) material tables.
+    CUDA kernel or the plain version by device; with
+    ``params.coarse_seed`` the march starts at the window's cone seed,
+    taken from the camera (K15, then the seeded K7).  ``impl="plain"``
+    runs the plain versions on any device and ignores ``coarse_seed``, as
+    the JAX package's ``impl="jnp"`` does.  The material lookup, hit mask
+    and depth stay in PyTorch, so gradients reach the (M, 3) material
+    tables.
     """
     # imported here: the wrappers' module imports this one
     from .raymarch_cuda import (march_gbuf_cuda, shadow_factor_cuda,
@@ -492,12 +642,8 @@ def render_gbuffer_window(
         raise ValueError(f"unknown impl: {impl!r}")
     if spp < 1:
         raise ValueError(f"spp must be >= 1, got {spp}")
-    if params.coarse_seed:
-        raise NotImplementedError("RaymarchParams.coarse_seed (the cone "
-                                  "pre-march) is not ported")
-    march, shade, shadow = ((march_gbuf_cuda, shadow_shade_cuda,
-                             shadow_factor_cuda) if impl == "auto"
-                            else (march_gbuf, shadow_shade, shadow_factor))
+    shade, shadow = ((shadow_shade_cuda, shadow_factor_cuda)
+                     if impl == "auto" else (shadow_shade, shadow_factor))
     H, W = th, tw
     if light_sample is not None and light_sample.dim() == 3:
         light_sample = light_sample[None]
@@ -505,7 +651,13 @@ def render_gbuffer_window(
         raise ValueError(f"light_sample: shape {tuple(light_sample.shape)}, "
                          f"expected {(spp, 3, H, W)}")
     ro, rd, _basis = camera_rays_window(camera, cam_cfg, row0, col0, H, W)
-    t, hit, mat, n = march(scene, ro, rd, params)
+    if impl == "auto":
+        # with coarse_seed, the window's cone seed comes from the camera
+        t, hit, mat, n = march_gbuf_cuda(scene, ro, rd, params,
+                                         camera=camera, cam_cfg=cam_cfg,
+                                         window=(row0, col0))
+    else:
+        t, hit, mat, n = march_gbuf(scene, ro, rd, params)
     p = ro + t[None] * rd
     albedo, emission = _material_lookup(mat, scene.materials.albedo,
                                         scene.materials.emission)

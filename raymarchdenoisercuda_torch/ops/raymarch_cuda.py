@@ -1,11 +1,20 @@
-"""K7/K8/K13 wrappers: the primary march, the shadow/shading pass and the
-shadow visibility alone through the CUDA kernels of ``ops/cuda/raymarch.cu``.
+"""K7/K8/K13/K15 wrappers: the primary march, the shadow/shading pass, the
+shadow visibility alone and the cone pre-march seed through the CUDA
+kernels of ``ops/cuda/raymarch.cu``.
 
-Counterparts of ``_march_call(emit_normals=True)``, ``shadow_shade_pallas``
-and ``shadow_factor_pallas`` in
+Counterparts of ``_march_call(emit_normals=True)`` (unseeded and seeded),
+``shadow_shade_pallas``, ``shadow_factor_pallas``, ``_cone_seed_coarse``
+and ``_cone_seed_coarse_analytic`` in
 ``raymarchdenoisercuda_tpu/ops/pallas/raymarch_tpu.py``.  CUDA tensors run
 the kernels; CPU tensors run the plain versions ``ops.raymarch.march_gbuf``,
-``ops.raymarch.shadow_shade`` and ``ops.raymarch.shadow_factor``.
+``ops.raymarch.shadow_shade``, ``ops.raymarch.shadow_factor`` and
+``ops.raymarch.cone_march``.
+
+With ``RaymarchParams.coarse_seed``, :func:`march_gbuf_cuda` first takes
+the coarse grid of cone stops (:func:`cone_seed_cuda`: from the camera
+when it is given, as ``raymarch_pallas_gbuf`` does, else from the ray
+planes) and then marches each pixel from its block's stop
+(:func:`march_gbuf_seeded_cuda`).
 
 :func:`shadow_shade_cuda` is a ``torch.autograd.Function``: its backward
 recomputes the shading and motion epilogue in PyTorch with the visibility
@@ -14,8 +23,9 @@ the hit point, normal, light sample, albedo, emission and light constants;
 the previous camera's get none (the camera is never optimised).
 :func:`shadow_factor_cuda` (K13) returns a visibility that is piecewise
 constant and carries no gradient, as the JAX package's ``stop_gradient``
-makes it.  :func:`march_gbuf_cuda` has no backward yet (the geometry adjoint is a
-later slice): it raises if the scene's geometry or the rays require grad.
+makes it.  :func:`march_gbuf_cuda` has no backward yet (the geometry
+adjoint is a later slice): it raises if the scene's geometry or the rays
+require grad, seeded or not.
 """
 
 from __future__ import annotations
@@ -25,10 +35,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..config import RaymarchParams
+from ..config import CameraParams, RaymarchParams
 from .cuda import _build
-from .raymarch import (Scene, march_gbuf, shade_epilogue, shadow_factor,
-                       shadow_shade)
+from .raymarch import (Camera, Scene, cone_march, cone_rays,
+                       cone_rays_analytic, march_gbuf, seed_grid_shape,
+                       shade_epilogue, shadow_factor, shadow_shade)
 
 
 class _MarchParams(ctypes.Structure):
@@ -65,40 +76,137 @@ def _counts(scene: Scene):
             scene.plane_params.shape[0])
 
 
-def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
-                    params: RaymarchParams):
-    """Primary march + G-buffer normals; returns ``(t, hit, mat, normal)``
-    as ``march_gbuf`` does.  Each launch adds one to
-    ``march_gbuf_cuda.launches``."""
-    _build.check_no_grad("march_gbuf_cuda", ro, rd, scene.sphere_params,
-                         scene.box_params, scene.plane_params)
-    if not ro.is_cuda:
-        return march_gbuf(scene, ro, rd, params)
+def _march_params(H, W, scene, params):
+    n_sph, n_box, n_pl = _counts(scene)
+    return _MarchParams(H=H, W=W, n_sph=n_sph, n_box=n_box, n_pl=n_pl,
+                        max_steps=params.max_steps, max_dist=params.max_dist,
+                        hit_eps=params.hit_eps, hit_eps4=params.hit_eps * 4.0,
+                        normal_eps=params.normal_eps,
+                        relax_omega=params.relax_omega)
+
+
+def _march_launch(scene, ro, rd, params, seed):
+    """One launch of K7 (``seed`` None: from 0); ``(t, hit, mat, n)``."""
     H, W = ro.shape[-2:]
     dev = ro.device
     f32 = torch.float32
     sc = flatten_scene(scene)
     ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
         (sc, "scene", sc.shape), (ro, "ro", (3, H, W)), (rd, "rd", (3, H, W)))]
+    seed_ptr = (None if seed is None else _build.check_input(
+        seed, "seed", seed_grid_shape(H, W), f32, dev))
     t = torch.empty((H, W), dtype=f32, device=dev)
     hit = torch.empty((H, W), dtype=torch.bool, device=dev)
     mat = torch.empty((H, W), dtype=torch.int32, device=dev)
     n = torch.empty((3, H, W), dtype=f32, device=dev)
-    n_sph, n_box, n_pl = _counts(scene)
-    p = _MarchParams(H=H, W=W, n_sph=n_sph, n_box=n_box, n_pl=n_pl,
-                     max_steps=params.max_steps, max_dist=params.max_dist,
-                     hit_eps=params.hit_eps, hit_eps4=params.hit_eps * 4.0,
-                     normal_eps=params.normal_eps,
-                     relax_omega=params.relax_omega)
+    p = _march_params(H, W, scene, params)
     rc = _build.kernels().rdt_march(
-        *ptrs, t.data_ptr(), hit.data_ptr(), mat.data_ptr(), n.data_ptr(),
-        ctypes.addressof(p), torch.cuda.current_stream(dev).cuda_stream)
+        *ptrs[:3], seed_ptr, t.data_ptr(), hit.data_ptr(), mat.data_ptr(),
+        n.data_ptr(), ctypes.addressof(p),
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rdt_march")
-    march_gbuf_cuda.launches += 1
     return t, hit, mat, n
 
 
+def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                    params: RaymarchParams, *, camera: Optional[Camera] = None,
+                    cam_cfg: Optional[CameraParams] = None,
+                    window: Tuple[int, int] = (0, 0)):
+    """Primary march + G-buffer normals; returns ``(t, hit, mat, normal)``
+    as ``march_gbuf`` does.  With ``params.coarse_seed`` the march is
+    seeded: the cone stops come from ``camera`` (whose window at GLOBAL
+    pixel ``window`` the rays ``ro``, ``rd`` must be; ``cam_cfg`` its
+    configuration), or from the ray planes without a camera, and
+    :func:`march_gbuf_seeded_cuda` marches.  Each unseeded launch adds one
+    to ``march_gbuf_cuda.launches``."""
+    _build.check_no_grad("march_gbuf_cuda", ro, rd, scene.sphere_params,
+                         scene.box_params, scene.plane_params)
+    if params.coarse_seed:
+        H, W = ro.shape[-2:]
+        if camera is not None:
+            seed, _delta, _base = cone_seed_cuda(
+                scene, params, camera=camera, cam_cfg=cam_cfg,
+                window=window, shape=(H, W))
+        else:
+            seed, _delta, _base = cone_seed_cuda(scene, params, ro, rd)
+        return march_gbuf_seeded_cuda(scene, ro, rd, seed, params)
+    if not ro.is_cuda:
+        return march_gbuf(scene, ro, rd, params)
+    out = _march_launch(scene, ro, rd, params, None)
+    march_gbuf_cuda.launches += 1
+    return out
+
+
 march_gbuf_cuda.launches = 0
+
+
+def march_gbuf_seeded_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                           seed: torch.Tensor, params: RaymarchParams):
+    """The seeded K7: the march of ``march_gbuf`` with each pixel started
+    at its block's stop in the (ceil(H/4), ceil(W/4)) grid ``seed``
+    (``march_gbuf(seed=)`` on CPU tensors).  Each launch adds one to
+    ``march_gbuf_seeded_cuda.launches``."""
+    _build.check_no_grad("march_gbuf_seeded_cuda", ro, rd, seed,
+                         scene.sphere_params, scene.box_params,
+                         scene.plane_params)
+    if not ro.is_cuda:
+        return march_gbuf(scene, ro, rd, params, seed=seed)
+    out = _march_launch(scene, ro, rd, params, seed)
+    march_gbuf_seeded_cuda.launches += 1
+    return out
+
+
+march_gbuf_seeded_cuda.launches = 0
+
+
+def cone_seed_cuda(scene: Scene, params: RaymarchParams,
+                   ro: Optional[torch.Tensor] = None,
+                   rd: Optional[torch.Tensor] = None, *,
+                   camera: Optional[Camera] = None,
+                   cam_cfg: Optional[CameraParams] = None,
+                   window: Tuple[int, int] = (0, 0),
+                   shape: Optional[Tuple[int, int]] = None):
+    """The coarse grid of cone stops, ``(t_c, delta, base)`` with t_c of
+    shape (ceil(H/4), ceil(W/4)).  Two routes: from the ray planes ``ro``,
+    ``rd`` (``_cone_seed_coarse``), or from ``camera`` for the ``shape`` =
+    (th, tw) window at GLOBAL pixel ``window`` (``_cone_seed_coarse_
+    analytic``).  The cones' glue is PyTorch on the rays' device; the march
+    is K15 on CUDA tensors and ``cone_march`` on CPU tensors.  delta and
+    base stay 0-d tensors on the device.  Each launch adds one to
+    ``cone_seed_cuda.launches``."""
+    if camera is not None:
+        ro_c, rd_c, delta, base = cone_rays_analytic(
+            camera, cam_cfg, window[0], window[1], *shape)
+    else:
+        ro_c, rd_c, delta, base = cone_rays(ro, rd)
+    if not ro_c.is_cuda:
+        return cone_march(scene, ro_c, rd_c, delta, base, params), delta, base
+    t_c = cone_launch(scene, ro_c, rd_c, delta, base, params)
+    cone_seed_cuda.launches += 1
+    return t_c, delta, base
+
+
+cone_seed_cuda.launches = 0
+
+
+def cone_launch(scene, ro_c, rd_c, delta, base, params):
+    """One launch of K15 on the cones of either route (``cone_march`` of
+    CUDA tensors); counted by its caller, :func:`cone_seed_cuda`."""
+    Hc, Wc = ro_c.shape[-2:]
+    dev = ro_c.device
+    f32 = torch.float32
+    sc = torch.cat([flatten_scene(scene), delta.reshape(1).to(f32),
+                    base.reshape(1).to(f32)])
+    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+        (sc, "scene", sc.shape), (ro_c, "ro_c", (3, Hc, Wc)),
+        (rd_c, "rd_c", (3, Hc, Wc)))]
+    t_c = torch.empty((Hc, Wc), dtype=f32, device=dev)
+    p = _march_params(Hc, Wc, scene, params)
+    rc = _build.kernels().rdt_cone_seed(
+        *ptrs, t_c.data_ptr(), ctypes.addressof(p),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rdt_cone_seed")
+    return t_c
 
 
 def _shade_launch(scene, p, n, light_p, albedo, emission, hit, light_consts,

@@ -26,6 +26,10 @@ tap, the reprojected position and the 3x3/7x7 windows are tested against
 the frame in global coordinates, so a tile computes what the whole frame
 computes at its pixels.
 
+Unbounded motion (``max_motion=None``): the reprojection is the clamped
+bilinear gather (:func:`bilinear_gather_clamped`; the CUDA wrapper runs
+its kernel and a hand-written adjoint), then the same epilogue.
+
 Gradients: the bounded reprojection is a ``torch.autograd.Function``
 (:func:`reproject_gather`) whose backward is written out with JAX's kink
 conventions (``ops.common.tent_prime``), and the epilogue's maxima and
@@ -54,14 +58,13 @@ N_HIST_PLANES = 10
 GRAD_PLANES = 6
 
 
-def bilinear_gather_clamped(planes, motion: torch.Tensor):
+def bilinear_gather_clamped(stack: torch.Tensor,
+                            motion: torch.Tensor) -> torch.Tensor:
     """Unbounded reprojection (``max_motion=None``, the reference's
-    ``bilinear_gather_many``): bilinear sample of each (…, H, W) plane at
-    ``p + motion`` with the taps clamped to the image."""
-    H, W = planes[0].shape[-2:]
-    chans = [p.reshape(-1, H, W) for p in planes]
-    stack = torch.cat(chans, 0)
-    P = stack.shape[0]
+    ``bilinear_gather_many``): bilinear sample of each plane of a (P, H, W)
+    stack at ``p + motion`` with the taps clamped to the image.  The plain
+    version of the clamped-gather kernel; autograd gives its adjoint."""
+    P, H, W = stack.shape
     flat = stack.reshape(P, H * W)
     iy = torch.arange(H, device=stack.device)[:, None]
     ix = torch.arange(W, device=stack.device)[None, :]
@@ -81,10 +84,7 @@ def bilinear_gather_clamped(planes, motion: torch.Tensor):
     # a·b + c·d rounds as the reference's compiled fma(a, b, c·d)
     top = fma(at(y0i, x0i), 1 - fx, at(y0i, x1i) * fx)
     bot = fma(at(y1i, x0i), 1 - fx, at(y1i, x1i) * fx)
-    out = fma(top, 1 - fy, bot * fy)
-    return [o.reshape(p.shape)
-            for o, p in zip(torch.split(out, [c.shape[0] for c in chans]),
-                            planes)]
+    return fma(top, 1 - fy, bot * fy)
 
 
 def _tap_geometry(motion: torch.Tensor, max_motion: int):
@@ -466,12 +466,8 @@ def temporal_accumulate(
                                 motion_grad=True, grad_planes=N_HIST_PLANES,
                                 tile=tile)
     if params.max_motion is None:
-        motion = _motion(gbuf)
-        hist_planes = [history.color, history.moments, history.length,
-                       history.prev_depth, history.prev_normal]
-        gathered = bilinear_gather_clamped(hist_planes, motion)
-        return _temporal_epilogue(gbuf, gathered, _in_bounds(motion, None),
-                                  params)
+        return temporal_step_clamped(gbuf, history, params,
+                                     bilinear_gather_clamped)
     return temporal_step_ad(gbuf, history, params, reproject_gather,
                             motion_grad=True, grad_planes=N_HIST_PLANES)
 
@@ -516,6 +512,19 @@ def history_from_stack(stack: torch.Tensor) -> History:
                    prev_depth=stack[6], prev_normal=stack[7:10])
 
 
+def temporal_step_clamped(gbuf: GBuffer, history: History,
+                          params: SVGFParams, gather):
+    """The temporal step with unbounded motion (``max_motion=None``, the JAX
+    package's jnp ``temporal_accumulate``): the clamped bilinear gather of
+    the history stack by ``gather(stack, motion)``
+    (:func:`bilinear_gather_clamped` or its CUDA counterpart), then the
+    shared epilogue; differentiable when ``gather`` is."""
+    motion = _motion(gbuf)
+    g = gather(history_stack(history), motion)
+    planes = (g[0:3], g[3:5], g[5], g[6], g[7:10])
+    return _temporal_epilogue(gbuf, planes, _in_bounds(motion, None), params)
+
+
 def temporal_step_ad(gbuf: GBuffer, history, params: SVGFParams,
                      gather, *, motion_grad: bool, grad_planes: int,
                      tile: Tile = None):
@@ -552,6 +561,12 @@ def temporal_accumulate_ad(
     K4-K6 path): the values of :func:`temporal_accumulate`, with the
     adjoint limited to the ``GRAD_PLANES`` history planes that have a
     gradient, and without the motion gradient if ``motion_grad`` is False.
+    With ``max_motion=None`` it is :func:`temporal_accumulate`'s clamped
+    step under autograd (the JAX package differentiates its jnp step
+    there), whose motion gradient flows wherever motion requires grad.
     Returns ``(integrated, variance, new_history)``."""
+    if params.max_motion is None:
+        return temporal_step_clamped(gbuf, history, params,
+                                     bilinear_gather_clamped)
     return temporal_step_ad(gbuf, history, params, reproject_gather,
                             motion_grad=motion_grad, grad_planes=GRAD_PLANES)

@@ -22,6 +22,15 @@ and :func:`reproject_gather_canvas_cuda` /
 :func:`temporal_accumulate_canvas_ad_cuda`, the differentiable step on the
 canvas (``temporal_accumulate_canvas_local``).
 
+Unbounded motion (``SVGFParams.max_motion=None``): the TPU kernels and
+K3-K6 take bounded motion only, and the JAX package runs its jnp step
+there.  :func:`temporal_accumulate_cuda` and
+:func:`temporal_accumulate_ad_cuda` then run the clamped bilinear gather
+(:func:`clamped_gather_cuda`, with the hand-written adjoint
+:func:`clamped_gather_bwd_cuda`, both in one autograd Function,
+:func:`reproject_clamped_cuda`) and the shared epilogue.  K3 itself, its
+tile form and K3b keep refusing unbounded motion, as the TPU kernel does.
+
 Every wrapper launches its kernel for CUDA tensors and runs its plain twin
 from ``ops.temporal`` for CPU tensors.
 """
@@ -29,6 +38,7 @@ from ``ops.temporal`` for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -38,9 +48,9 @@ from ..gbuffer import GBuffer, History
 from .common import Tile, canvas_margin
 from .cuda import _build
 from .temporal import (GRAD_PLANES, N_HIST_PLANES, _ReprojectGather,
-                       _canvas_of, gather_bwd_ref, gather_ref,
-                       history_from_stack, temporal_accumulate,
-                       temporal_step_ad)
+                       _canvas_of, bilinear_gather_clamped, gather_bwd_ref,
+                       gather_ref, history_from_stack, temporal_accumulate,
+                       temporal_step_ad, temporal_step_clamped)
 
 
 class _TemporalParams(ctypes.Structure):
@@ -157,12 +167,18 @@ def temporal_accumulate_cuda(
     max_motion + 1) and the render a canvas with margin >= 3, as in
     ``temporal_accumulate(tile=)``.
 
-    Each launch adds one to ``temporal_accumulate_cuda.launches``."""
+    With ``max_motion=None`` (and no tile) it runs the clamped gather and
+    the plain epilogue instead (see the module docstring).
+
+    Each launch of K3 adds one to ``temporal_accumulate_cuda.launches``."""
     _build.check_no_grad("temporal_accumulate_cuda", gbuf.render,
                          gbuf.motion, history.color, history.moments,
                          history.length)
     if not gbuf.render.is_cuda:
         return temporal_accumulate(gbuf, history, params=params, tile=tile)
+    if params.max_motion is None and tile is None:
+        return temporal_step_clamped(gbuf, history, params,
+                                     reproject_clamped_cuda)
     out = _launch_temporal(gbuf, (history.color, history.moments,
                                   history.length, history.prev_depth,
                                   history.prev_normal),
@@ -415,6 +431,123 @@ def reproject_gather_canvas_cuda(canvas: torch.Tensor, motion: torch.Tensor,
                                   _reproject_canvas_bwd_cuda, tile)
 
 
+def _launch_clamped(stack, motion):
+    P = stack.shape[0]
+    H, W = motion.shape[-2:]
+    dev = stack.device
+    f32 = torch.float32
+    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+        (stack, "stack", (P, H, W)), (motion, "motion", (2, H, W)))]
+    out = torch.empty((P, H, W), dtype=f32, device=dev)
+    rc = _build.kernels().rdt_clamped_gather(*ptrs, out.data_ptr(), H, W, P,
+                                             _stream(stack))
+    _build.check(rc, "rdt_clamped_gather")
+    return out
+
+
+def clamped_gather_cuda(stack: torch.Tensor,
+                        motion: torch.Tensor) -> torch.Tensor:
+    """The clamped bilinear gather of a (P, H, W) stack at ``p + motion``
+    (unbounded motion; ``ops.temporal.bilinear_gather_clamped``).  No
+    backward of its own (:func:`reproject_clamped_cuda` owns the gradient): it
+    raises if an input requires grad.
+
+    Each launch adds one to ``clamped_gather_cuda.launches``."""
+    _build.check_no_grad("clamped_gather_cuda", stack, motion)
+    if not stack.is_cuda:
+        return bilinear_gather_clamped(stack, motion)
+    out = _launch_clamped(stack, motion)
+    clamped_gather_cuda.launches += 1
+    return out
+
+
+clamped_gather_cuda.launches = 0
+
+
+def clamped_gather_bwd_cuda(stack, motion, g, *,
+                            grad_planes: int = N_HIST_PLANES,
+                            history_grad: bool = True,
+                            motion_grad: bool = True):
+    """The adjoint of :func:`clamped_gather_cuda` for the cotangent ``g``
+    of its output: ``(d_stack, d_motion)``, each None when not asked for.
+    ``d_stack`` sums by atomics, in no fixed order; only its leading
+    ``grad_planes`` planes are written (the rest are zeros, exact when
+    their cotangent is zero), and ``d_motion`` sums over those planes.  CPU
+    tensors: autograd of ``bilinear_gather_clamped``.
+
+    Each launch adds one to ``clamped_gather_bwd_cuda.launches``."""
+    _build.check_no_grad("clamped_gather_bwd_cuda", stack, motion, g)
+    if not 1 <= grad_planes <= stack.shape[0]:
+        raise ValueError(f"grad_planes must be in 1..{stack.shape[0]}, "
+                         f"got {grad_planes}")
+    if not (history_grad or motion_grad):
+        return None, None
+    if not g.is_cuda:
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(need) for t, need in
+                      ((stack, history_grad), (motion, motion_grad))]
+            out = bilinear_gather_clamped(*leaves)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in leaves if t.requires_grad], g))
+        return tuple(next(grads) if need else None
+                     for need in (history_grad, motion_grad))
+    P = stack.shape[0]
+    H, W = motion.shape[-2:]
+    dev = g.device
+    f32 = torch.float32
+    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+        (stack, "stack", (P, H, W)), (motion, "motion", (2, H, W)),
+        (g, "g", (P, H, W)))]
+    dh = (torch.zeros((P, H, W), dtype=f32, device=dev) if history_grad
+          else None)
+    dm = (torch.empty((2, H, W), dtype=f32, device=dev) if motion_grad
+          else None)
+    rc = _build.kernels().rdt_clamped_gather_bwd(
+        *ptrs, None if dh is None else dh.data_ptr(),
+        None if dm is None else dm.data_ptr(), H, W, grad_planes,
+        _stream(g))
+    _build.check(rc, "rdt_clamped_gather_bwd")
+    clamped_gather_bwd_cuda.launches += 1
+    return dh, dm
+
+
+clamped_gather_bwd_cuda.launches = 0
+
+
+class _ClampedGather(torch.autograd.Function):
+    """The clamped gather with its hand-written adjoint: forward
+    :func:`clamped_gather_cuda`, backward :func:`clamped_gather_bwd_cuda`
+    (autograd of the gather's index arithmetic would scatter through
+    ``index_put_``, the path that cost 53 ms a training step in the
+    material lookup)."""
+
+    @staticmethod
+    def forward(ctx, stack, motion, grad_planes):
+        ctx.save_for_backward(stack, motion)
+        ctx.grad_planes = grad_planes
+        return clamped_gather_cuda(stack, motion)
+
+    @staticmethod
+    def backward(ctx, g):
+        stack, motion = ctx.saved_tensors
+        dh, dm = clamped_gather_bwd_cuda(
+            stack, motion, g.contiguous(), grad_planes=ctx.grad_planes,
+            history_grad=ctx.needs_input_grad[0],
+            motion_grad=ctx.needs_input_grad[1])
+        return dh, dm, None
+
+
+def reproject_clamped_cuda(stack: torch.Tensor, motion: torch.Tensor, *,
+                           grad_planes: int = N_HIST_PLANES) -> torch.Tensor:
+    """Differentiable unbounded reprojection of a (P, H, W) stack: the
+    clamped-gather kernel and its adjoint on CUDA tensors, the plain
+    ``bilinear_gather_clamped`` under autograd on CPU tensors.
+    ``grad_planes``: the leading planes whose cotangent can be nonzero."""
+    if not stack.is_cuda:
+        return bilinear_gather_clamped(stack, motion)
+    return _ClampedGather.apply(stack, motion, grad_planes)
+
+
 def temporal_accumulate_ad_cuda(
     gbuf: GBuffer,
     history: History,
@@ -425,7 +558,13 @@ def temporal_accumulate_ad_cuda(
     """The differentiable temporal step (``temporal_accumulate_pallas_ad``):
     the K4-K6 reprojection, then the plain epilogue.  Values as
     ``temporal_accumulate``; returns ``(integrated, variance,
-    new_history)``."""
+    new_history)``.  With ``max_motion=None``: the clamped gather and its
+    adjoint (:func:`reproject_clamped_cuda`), whose motion gradient flows
+    wherever motion requires grad, as in ``temporal_accumulate_ad``."""
+    if params.max_motion is None:
+        return temporal_step_clamped(
+            gbuf, history, params, functools.partial(
+                reproject_clamped_cuda, grad_planes=GRAD_PLANES))
     return temporal_step_ad(gbuf, history, params, reproject_gather_cuda,
                             motion_grad=motion_grad, grad_planes=GRAD_PLANES)
 

@@ -520,7 +520,9 @@ def pipeline_local(scene, camera, prev_camera, history, Hg: int, Wg: int, *,
     step, the sweep; returns the tile's ``(gbuffer with denoised,
     new_history)`` (a canvas on the canvas temporal paths).
 
-    The render needs no exchange (each rank marches its own pixels);
+    The render needs no exchange (each rank marches its own pixels; with
+    ``rm_params.coarse_seed`` it seeds them from the camera at its window
+    origin);
     ``light_sample`` is the GLOBAL sample, of which the rank takes its
     window (tests pass the JAX package's), else ``generator`` folded with
     the rank's tile index draws it.  ``impl`` ("plain" or "auto") picks the

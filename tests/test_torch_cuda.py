@@ -59,6 +59,7 @@ from raymarchdenoisercuda_torch.gbuffer import GBuffer, History
 from raymarchdenoisercuda_torch.io.generate import orbit_camera
 from raymarchdenoisercuda_torch.models.pipeline import (
     init_train_state, make_train_step, render_and_denoise)
+from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
                                             raymarch, temporal)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
@@ -71,18 +72,23 @@ from raymarchdenoisercuda_torch.ops.common import (
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
     box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
-    march_gbuf_cuda, shadow_factor_cuda, shadow_shade_cuda)
+    cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
+    shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
-    gather_bwd_cuda, gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
+    clamped_gather_bwd_cuda, clamped_gather_cuda, gather_bwd_cuda,
+    gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
     gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
-    temporal_accumulate_ad_cuda, temporal_accumulate_canvas_cuda,
-    temporal_accumulate_cuda)
+    reproject_clamped_cuda, temporal_accumulate_ad_cuda,
+    temporal_accumulate_canvas_cuda, temporal_accumulate_cuda)
 from raymarchdenoisercuda_torch.parallel import sharded
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
 
 pytestmark = pytest.mark.cuda
 
 H, W = 135, 240
+# every radius the level kernels take: 1 and 2 ride in the parameter
+# struct, 0 has one tap, 3 runs the WIDE instantiation (taps in memory)
+RADII = [0, 1, 2, 3]
 
 
 @pytest.fixture
@@ -109,7 +115,7 @@ def _np(x):
     return x.detach().cpu().numpy()
 
 
-@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("radius", RADII)
 @pytest.mark.parametrize("weight_math", ["exact", "fast"])
 @pytest.mark.parametrize("luma_only_from", [None, 3])
 def test_k1_matches_plain(dev, radius, weight_math, luma_only_from):
@@ -137,9 +143,6 @@ def test_k1_rejects_bad_inputs(dev):
         svgf_spatial_cuda(color.transpose(1, 2).contiguous().transpose(1, 2),
                           var.t().contiguous().t(), normal,
                           depth.t().contiguous().t())
-    with pytest.raises(ValueError, match="radius"):
-        svgf_spatial_cuda(color, var, normal, depth,
-                          params=SVGFParams(radius=3))
 
 
 @pytest.mark.parametrize("motion_scale", [0.0, 3.0, 14.0])
@@ -166,11 +169,25 @@ def test_k3_matches_plain(dev, motion_scale, boost):
 
 
 def test_k3_rejects_unbounded_motion(dev):
+    """K3 itself takes bounded motion only, as the TPU kernel does: its
+    tile form and K3b refuse ``max_motion=None``; the whole-frame wrapper
+    runs the clamped gather instead and launches no K3."""
     color, var, normal, depth = _planes(dev, 9, 8, 8)
     g = GBuffer(render=color, albedo=color, normal=normal, depth=depth)
+    unbounded = SVGFParams(max_motion=None)
+    tile = Tile((0, 0), (8, 8))
+    with pytest.raises(ValueError, match="max_motion"):
+        temporal_accumulate_canvas_cuda(
+            g, torch.zeros((10, 16, 16), device=dev), params=unbounded,
+            tile=tile)
     with pytest.raises(ValueError, match="max_motion"):
         temporal_accumulate_cuda(g, History.zeros(8, 8, device=dev),
-                                 params=SVGFParams(max_motion=None))
+                                 params=unbounded, tile=tile)
+    before = (temporal_accumulate_cuda.launches, clamped_gather_cuda.launches)
+    temporal_accumulate_cuda(g, History.zeros(8, 8, device=dev),
+                             params=unbounded)
+    assert (temporal_accumulate_cuda.launches,
+            clamped_gather_cuda.launches) == (before[0], before[1] + 1)
 
 
 def _compare_gbuffers(got, want):
@@ -237,7 +254,7 @@ def test_wrappers_count_launches(dev):
     assert atrous_level_cuda.launches == before      # CPU: plain, no launch
 
 
-@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("radius", RADII)
 @pytest.mark.parametrize("weight_math", ["exact", "fast"])
 def test_k1_store_mode_and_k2_match_plain(dev, radius, weight_math):
     color, var, normal, depth = _planes(dev, 20 + radius)
@@ -479,7 +496,7 @@ ADJ_SHAPES = [((H, W), 1), ((37, 53), 4)]   # at level 4, every tap reach
 
 
 @pytest.mark.parametrize("shape,level", ADJ_SHAPES)
-@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("radius", RADII)
 def test_adjoint_kernels_match_plain(dev, shape, level, radius):
     color, var, normal, depth = _planes(dev, 60 + radius, *shape)
     zg = finite_diff_gradients(depth)
@@ -529,7 +546,7 @@ SWEEP_MODES = [("stored", dict(bwd_impl="stored"), (3e-3,) * 2),
 
 @pytest.mark.parametrize("name,kw,tols", SWEEP_MODES,
                          ids=[m[0] for m in SWEEP_MODES])
-@pytest.mark.parametrize("radius", [1, 2])
+@pytest.mark.parametrize("radius", RADII)
 def test_adjoint_sweep_kernel_path_matches_plain(dev, name, kw, tols,
                                                  radius):
     planes = _planes(dev, 70)
@@ -547,7 +564,14 @@ def test_adjoint_sweep_kernel_path_matches_plain(dev, name, kw, tols,
         loss = ((oc * cots[0]).sum() + (ov * cots[1]).sum()
                 + (fb * cots[2]).sum())
         grads.append(torch.autograd.grad(loss, ins[:len(tols)]))
-    for a, b, tol in zip(*grads, tols):
+    for k, (a, b, tol) in enumerate(zip(*grads, tols)):
+        if radius == 0 and k >= 2:
+            # one tap: the output is its input whatever the weight, so
+            # d_normal and d_depth are 0 but for rounding in both
+            floor = 1e-3 * float(grads[1][0].abs().max())
+            for x in (a, b):
+                assert float(x.abs().max()) <= floor
+            continue
         np.testing.assert_allclose(_np(a), _np(b), rtol=0,
                                    atol=tol * float(b.abs().max()))
 
@@ -800,3 +824,202 @@ def test_sharded_paths_on_one_card(dev):
     assert [w.launches for w in (gather_canvas_cuda,
                                  gather_canvas_bwd_hist_cuda)] == [
         counts[0] + 2, counts[1]]
+
+
+# ---------------------------------------------------------------------------
+# the cone pre-march seed (K15, the seeded K7) and unbounded motion
+# ---------------------------------------------------------------------------
+
+def _cone_inputs(dev, scene_name):
+    scene = (raymarch.cornell_scene(device=dev) if scene_name == "cornell"
+             else raymarch.random_scene(seed=3, device=dev))
+    cfg = CameraParams(width=W, height=H)
+    cam = orbit_camera(0.25, device=dev)
+    ro, rd, _ = raymarch.camera_rays(cam, cfg)
+    return scene, cfg, cam, ro, rd
+
+
+@pytest.mark.parametrize("route", ["planes", "camera", "window"])
+@pytest.mark.parametrize("scene_name", ["cornell", "random"])
+def test_k15_matches_plain(dev, scene_name, route):
+    """K15 from ray planes and from the camera (origin (0, 0), and a
+    window of a 4x frame at a non-zero origin) against ``cone_march`` on
+    the same cones: the same operations in the same order, so atol 1e-4
+    as K7's t."""
+    scene, cfg, cam, ro, rd = _cone_inputs(dev, scene_name)
+    params = RaymarchParams(coarse_seed=True)
+    if route == "planes":
+        cones = raymarch.cone_rays(ro, rd)
+        kw = {}
+    else:
+        big = CameraParams(width=2 * W, height=2 * H)
+        window = (0, 0) if route == "camera" else (H, W // 2)
+        cfg = cfg if route == "camera" else big
+        cones = raymarch.cone_rays_analytic(cam, cfg, *window, H, W)
+        kw = dict(camera=cam, cam_cfg=cfg, window=window, shape=(H, W))
+    before = cone_seed_cuda.launches
+    t_c, delta, base = cone_seed_cuda(scene, params, ro, rd, **kw)
+    assert cone_seed_cuda.launches == before + 1
+    assert delta.is_cuda and base.is_cuda and t_c.shape == (34, 60)
+    want = raymarch.cone_march(scene, *cones, params)
+    np.testing.assert_allclose(_np(t_c), _np(want), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("omega", [1.0, 1.4])
+@pytest.mark.parametrize("scene_name", ["cornell", "random"])
+def test_seeded_k7_matches_plain_and_unseeded(dev, scene_name, omega):
+    """The seeded K7 against the plain seeded march on the same seed grid
+    (K7's tolerances), and against the unseeded K7 by the properties of
+    ``tests/test_torch_cone_seed.py``."""
+    scene, cfg, cam, ro, rd = _cone_inputs(dev, scene_name)
+    p0 = RaymarchParams(relax_omega=omega)
+    p1 = RaymarchParams(relax_omega=omega, coarse_seed=True)
+    t_c = cone_seed_cuda(scene, p1, camera=cam, cam_cfg=cfg,
+                         shape=(H, W))[0]
+    before = march_gbuf_seeded_cuda.launches
+    got = march_gbuf_seeded_cuda(scene, ro, rd, t_c, p1)
+    assert march_gbuf_seeded_cuda.launches == before + 1
+    want = raymarch.march_gbuf(scene, ro, rd, p1, seed=t_c)
+    same = (got[1] == want[1]) & (got[2] == want[2])
+    assert float((~same).float().mean()) <= 1e-3
+    np.testing.assert_allclose(_np(got[0])[_np(same)],
+                               _np(want[0])[_np(same)], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(_np(got[3])[:, _np(same)],
+                               _np(want[3])[:, _np(same)], rtol=5e-3,
+                               atol=5e-4)
+    # the route of render_gbuffer: the same seeded launch
+    routed = march_gbuf_cuda(scene, ro, rd, p1, camera=cam, cam_cfg=cfg)
+    assert torch.equal(routed[0], got[0])
+    seed = raymarch.seed_plane(t_c, H, W)
+    d_at = raymarch.sdf_scene(scene, ro + seed[None] * rd, want_mat=False)
+    live = seed < p1.max_dist
+    assert float(d_at[live].min()) >= 0.5 * p1.hit_eps
+    t0, h0, _m0, _n0 = march_gbuf_cuda(scene, ro, rd, p0)
+    assert float((h0 == got[1]).float().mean()) > 0.998
+    both = h0 & got[1]
+    dt = _np((t0 - got[0]).abs()[both])
+    assert np.percentile(dt, 99) < 2 * p1.hit_eps
+    assert bool((seed <= got[0] + 1e-5).all())
+
+
+def test_seeded_render_and_pipeline_on_the_card(dev):
+    """``render_and_denoise`` with ``coarse_seed`` launches K15 and the
+    seeded K7 (and no unseeded K7), and denoises within the slice's
+    atol 1e-3·max of the unseeded kernel path outside the pixels whose
+    hit or material differs."""
+    scene = raymarch.cornell_scene(device=dev)
+    kw = dict(cam_cfg=CameraParams(width=W, height=H),
+              svgf_params=SVGFParams(radius=1), weight_math="fast")
+    cam = orbit_camera(0.0, device=dev)
+    lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(0),
+                               (H, W))
+    before = (cone_seed_cuda.launches, march_gbuf_seeded_cuda.launches,
+              march_gbuf_cuda.launches)
+    empty = History.zeros(H, W, device=dev)
+    a, _ = render_and_denoise(scene, cam, None, empty, light_sample=lp,
+                              rm_params=RaymarchParams(coarse_seed=True), **kw)
+    assert (cone_seed_cuda.launches, march_gbuf_seeded_cuda.launches,
+            march_gbuf_cuda.launches) == (before[0] + 1, before[1] + 1,
+                                          before[2])
+    b, _ = render_and_denoise(scene, cam, None, empty, light_sample=lp,
+                              rm_params=RaymarchParams(), **kw)
+    same = (a.albedo == b.albedo).all(0) & ((a.depth > 0) == (b.depth > 0))
+    assert float((~same).float().mean()) <= 2e-3
+    assert np.isfinite(_np(a.denoised)).all()
+    d = _np((a.denoised - b.denoised).abs().amax(0))[_np(same)]
+    assert np.percentile(d, 99) < 1e-3 * float(b.denoised.abs().max())
+
+
+def _f64_motion(motion):
+    """The float64 motion whose coordinates p + motion are the float32
+    coordinates the kernel samples at (exact: both sums fit a double)."""
+    H, W = motion.shape[-2:]
+    iy = torch.arange(H, dtype=torch.float32, device=motion.device)[:, None]
+    ix = torch.arange(W, dtype=torch.float32, device=motion.device)[None, :]
+    return torch.stack([(iy + motion[0]).double() - iy.double(),
+                        (ix + motion[1]).double() - ix.double()])
+
+
+@pytest.mark.parametrize("kind", ["zero", "fractional", "outside"])
+def test_clamped_gather_and_adjoint_match_plain(dev, kind):
+    """The clamped gather against ``bilinear_gather_clamped`` (rtol 1e-5, atol
+    1e-6: the same fused multiply-adds), its adjoint against float64
+    autograd of the plain twin (the atomics add in no fixed order; rtol
+    1e-5, atol 1e-6·max), with the cotangent on every plane and on the
+    first 6; motion out to ±40 pixels clamps taps at the border.  The
+    float64 twin samples at the kernel's float32 coordinates p + motion
+    (:func:`_f64_motion`): float64 coordinates move the bilinear fractions
+    by up to an ulp of a float32 coordinate (7.6e-6 at x ~ 100), a
+    difference of arithmetic, not of the sums' order."""
+    rng = np.random.default_rng(31)
+    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
+    scale = {"zero": 0.0, "fractional": 7.0, "outside": 80.0}[kind]
+    motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * scale)
+                              .astype(np.float32)).to(dev)
+    cot = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    before = clamped_gather_cuda.launches
+    got = clamped_gather_cuda(stack, motion)
+    assert clamped_gather_cuda.launches == before + 1
+    np.testing.assert_allclose(_np(got), _np(temporal.bilinear_gather_clamped(
+        stack, motion)), rtol=1e-5, atol=1e-6)
+    for planes in (10, 6):
+        g = cot.clone()
+        g[planes:] = 0
+        s64 = stack.double().requires_grad_()
+        m64 = _f64_motion(motion).requires_grad_()
+        want = torch.autograd.grad(temporal.bilinear_gather_clamped(s64, m64),
+                                   (s64, m64), g.double())
+        before = clamped_gather_bwd_cuda.launches
+        got = clamped_gather_bwd_cuda(stack, motion, g, grad_planes=planes)
+        assert clamped_gather_bwd_cuda.launches == before + 1
+        for name, a, b in zip(("d_stack", "d_motion"), got, want):
+            np.testing.assert_allclose(_np(a), _np(b.float()), rtol=1e-5,
+                                       atol=1e-6 * float(b.abs().max()),
+                                       err_msg=f"{name} ({planes} planes)")
+    # through autograd: the Function's backward is the kernel
+    s, m = (t.clone().requires_grad_() for t in (stack, motion))
+    out = reproject_clamped_cuda(s, m)
+    d = torch.autograd.grad(out, (s, m), cot)
+    for a, b in zip(d, clamped_gather_bwd_cuda(stack, motion, cot)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("temporal_mode", ["auto", "ad"])
+def test_unbounded_motion_frame_matches_plain(dev, temporal_mode):
+    """``svgf_denoise_frame(impl="auto")`` with ``max_motion=None`` (the
+    clamped gather, its adjoint for ``"ad"``, the sweep) against
+    ``impl="plain"``: the frame atol 1e-3·max as the slice's; for ``"ad"``
+    the gradients of the history colour and the motion at the training
+    path's 3e-3·max (the stored bf16 sweep weights)."""
+    color, var, normal, depth = _planes(dev, 40)
+    rng = np.random.default_rng(41)
+    motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * 30.0)
+                              .astype(np.float32)).to(dev)
+    params = SVGFParams(radius=1, max_motion=None)
+    outs, grads = [], []
+    for impl in ("auto", "plain"):
+        ad = temporal_mode == "ad"
+        m = motion.clone().requires_grad_(ad)
+        hc = color.flip(-1).contiguous().requires_grad_(ad)
+        g = GBuffer(render=color, albedo=torch.full_like(color, 0.7),
+                    normal=normal, depth=depth, motion=m)
+        h = History(color=hc, moments=torch.stack([var, var * 2]),
+                    length=torch.floor(var * 300), prev_depth=depth,
+                    prev_normal=normal)
+        before = (clamped_gather_cuda.launches,
+                  clamped_gather_bwd_cuda.launches)
+        out, _ = svgf_denoise_frame(g, h, params=params, impl=impl,
+                                    temporal=temporal_mode)
+        outs.append(out.denoised)
+        if ad:
+            grads.append(torch.autograd.grad((out.denoised ** 2).mean(),
+                                             (hc, m)))
+        if impl == "auto":
+            assert clamped_gather_cuda.launches == before[0] + 1
+            assert clamped_gather_bwd_cuda.launches == before[1] + int(ad)
+    a, b = _np(outs[0]), _np(outs[1])
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-3 * np.abs(b).max())
+    for x, y in zip(*grads):
+        np.testing.assert_allclose(_np(x), _np(y), rtol=0,
+                                   atol=3e-3 * float(y.abs().max()))
