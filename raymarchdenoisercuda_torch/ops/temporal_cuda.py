@@ -38,7 +38,6 @@ from ``ops.temporal`` for CPU tensors.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Tuple
 
 import torch
@@ -465,24 +464,26 @@ clamped_gather_cuda.launches = 0
 
 
 def clamped_gather_bwd_cuda(stack, motion, g, *,
-                            grad_planes: int = N_HIST_PLANES,
                             history_grad: bool = True,
                             motion_grad: bool = True):
     """The adjoint of :func:`clamped_gather_cuda` for the cotangent ``g``
     of its output: ``(d_stack, d_motion)``, each None when not asked for.
-    ``d_stack`` sums by atomics, in no fixed order; only its leading
-    ``grad_planes`` planes are written (the rest are zeros, exact when
-    their cotangent is zero), and ``d_motion`` sums over those planes.  CPU
-    tensors: autograd of ``bilinear_gather_clamped``.
+    Only the leading ``GRAD_PLANES`` planes of ``g`` count (the temporal
+    epilogue's previous depth and normal, planes 6-9, feed validity tests
+    only, so their cotangent is zero): ``d_stack`` is zero beyond them and
+    ``d_motion`` sums over them.  ``d_stack`` sums by atomics, in no fixed
+    order.  CPU tensors: autograd of ``bilinear_gather_clamped`` for ``g``
+    cut to those planes.
 
     Each launch adds one to ``clamped_gather_bwd_cuda.launches``."""
     _build.check_no_grad("clamped_gather_bwd_cuda", stack, motion, g)
-    if not 1 <= grad_planes <= stack.shape[0]:
-        raise ValueError(f"grad_planes must be in 1..{stack.shape[0]}, "
-                         f"got {grad_planes}")
+    if stack.shape[0] < GRAD_PLANES:
+        raise ValueError(f"stack needs at least {GRAD_PLANES} planes, got "
+                         f"{stack.shape[0]}")
     if not (history_grad or motion_grad):
         return None, None
     if not g.is_cuda:
+        g = torch.cat([g[:GRAD_PLANES], torch.zeros_like(g[GRAD_PLANES:])])
         with torch.enable_grad():
             leaves = [t.detach().requires_grad_(need) for t, need in
                       ((stack, history_grad), (motion, motion_grad))]
@@ -504,7 +505,7 @@ def clamped_gather_bwd_cuda(stack, motion, g, *,
           else None)
     rc = _build.kernels().rdt_clamped_gather_bwd(
         *ptrs, None if dh is None else dh.data_ptr(),
-        None if dm is None else dm.data_ptr(), H, W, grad_planes,
+        None if dm is None else dm.data_ptr(), H, W, GRAD_PLANES,
         _stream(g))
     _build.check(rc, "rdt_clamped_gather_bwd")
     clamped_gather_bwd_cuda.launches += 1
@@ -522,30 +523,29 @@ class _ClampedGather(torch.autograd.Function):
     material lookup)."""
 
     @staticmethod
-    def forward(ctx, stack, motion, grad_planes):
+    def forward(ctx, stack, motion):
         ctx.save_for_backward(stack, motion)
-        ctx.grad_planes = grad_planes
         return clamped_gather_cuda(stack, motion)
 
     @staticmethod
     def backward(ctx, g):
         stack, motion = ctx.saved_tensors
-        dh, dm = clamped_gather_bwd_cuda(
-            stack, motion, g.contiguous(), grad_planes=ctx.grad_planes,
+        return clamped_gather_bwd_cuda(
+            stack, motion, g.contiguous(),
             history_grad=ctx.needs_input_grad[0],
             motion_grad=ctx.needs_input_grad[1])
-        return dh, dm, None
 
 
-def reproject_clamped_cuda(stack: torch.Tensor, motion: torch.Tensor, *,
-                           grad_planes: int = N_HIST_PLANES) -> torch.Tensor:
-    """Differentiable unbounded reprojection of a (P, H, W) stack: the
-    clamped-gather kernel and its adjoint on CUDA tensors, the plain
-    ``bilinear_gather_clamped`` under autograd on CPU tensors.
-    ``grad_planes``: the leading planes whose cotangent can be nonzero."""
+def reproject_clamped_cuda(stack: torch.Tensor,
+                           motion: torch.Tensor) -> torch.Tensor:
+    """Differentiable unbounded reprojection of the (10, H, W) history
+    stack: the clamped-gather kernel and its adjoint on CUDA tensors (the
+    cotangent of planes ``GRAD_PLANES`` on is taken as zero, see
+    :func:`clamped_gather_bwd_cuda`), the plain ``bilinear_gather_clamped``
+    under autograd on CPU tensors."""
     if not stack.is_cuda:
         return bilinear_gather_clamped(stack, motion)
-    return _ClampedGather.apply(stack, motion, grad_planes)
+    return _ClampedGather.apply(stack, motion)
 
 
 def temporal_accumulate_ad_cuda(
@@ -562,9 +562,8 @@ def temporal_accumulate_ad_cuda(
     adjoint (:func:`reproject_clamped_cuda`), whose motion gradient flows
     wherever motion requires grad, as in ``temporal_accumulate_ad``."""
     if params.max_motion is None:
-        return temporal_step_clamped(
-            gbuf, history, params, functools.partial(
-                reproject_clamped_cuda, grad_planes=GRAD_PLANES))
+        return temporal_step_clamped(gbuf, history, params,
+                                     reproject_clamped_cuda)
     return temporal_step_ad(gbuf, history, params, reproject_gather_cuda,
                             motion_grad=motion_grad, grad_planes=GRAD_PLANES)
 

@@ -945,9 +945,10 @@ def test_clamped_gather_and_adjoint_match_plain(dev, kind):
     """The clamped gather against ``bilinear_gather_clamped`` (rtol 1e-5, atol
     1e-6: the same fused multiply-adds), its adjoint against float64
     autograd of the plain twin (the atomics add in no fixed order; rtol
-    1e-5, atol 1e-6·max), with the cotangent on every plane and on the
-    first 6; motion out to ±40 pixels clamps taps at the border.  The
-    float64 twin samples at the kernel's float32 coordinates p + motion
+    1e-5, atol 1e-6·max), with the cotangent on the first ``GRAD_PLANES``
+    planes (the adjoint's rule: a cotangent on the others is ignored);
+    motion out to ±40 pixels clamps taps at the border.  The float64 twin
+    samples at the kernel's float32 coordinates p + motion
     (:func:`_f64_motion`): float64 coordinates move the bilinear fractions
     by up to an ulp of a float32 coordinate (7.6e-6 at x ~ 100), a
     difference of arithmetic, not of the sums' order."""
@@ -963,25 +964,28 @@ def test_clamped_gather_and_adjoint_match_plain(dev, kind):
     assert clamped_gather_cuda.launches == before + 1
     np.testing.assert_allclose(_np(got), _np(temporal.bilinear_gather_clamped(
         stack, motion)), rtol=1e-5, atol=1e-6)
-    for planes in (10, 6):
-        g = cot.clone()
-        g[planes:] = 0
-        s64 = stack.double().requires_grad_()
-        m64 = _f64_motion(motion).requires_grad_()
-        want = torch.autograd.grad(temporal.bilinear_gather_clamped(s64, m64),
-                                   (s64, m64), g.double())
-        before = clamped_gather_bwd_cuda.launches
-        got = clamped_gather_bwd_cuda(stack, motion, g, grad_planes=planes)
-        assert clamped_gather_bwd_cuda.launches == before + 1
-        for name, a, b in zip(("d_stack", "d_motion"), got, want):
-            np.testing.assert_allclose(_np(a), _np(b.float()), rtol=1e-5,
-                                       atol=1e-6 * float(b.abs().max()),
-                                       err_msg=f"{name} ({planes} planes)")
+    g = cot.clone()
+    g[temporal.GRAD_PLANES:] = 0
+    s64 = stack.double().requires_grad_()
+    m64 = _f64_motion(motion).requires_grad_()
+    want = torch.autograd.grad(temporal.bilinear_gather_clamped(s64, m64),
+                               (s64, m64), g.double())
+    before = clamped_gather_bwd_cuda.launches
+    got = clamped_gather_bwd_cuda(stack, motion, g)
+    assert clamped_gather_bwd_cuda.launches == before + 1
+    for name, a, b in zip(("d_stack", "d_motion"), got, want):
+        np.testing.assert_allclose(_np(a), _np(b.float()), rtol=1e-5,
+                                   atol=1e-6 * float(b.abs().max()),
+                                   err_msg=name)
+    # a cotangent on planes 6-9 changes nothing
+    for a, b in zip(clamped_gather_bwd_cuda(stack, motion, cot), got):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
+    assert float(got[0][temporal.GRAD_PLANES:].abs().sum()) == 0.0
     # through autograd: the Function's backward is the kernel
     s, m = (t.clone().requires_grad_() for t in (stack, motion))
     out = reproject_clamped_cuda(s, m)
-    d = torch.autograd.grad(out, (s, m), cot)
-    for a, b in zip(d, clamped_gather_bwd_cuda(stack, motion, cot)):
+    d = torch.autograd.grad(out, (s, m), g)
+    for a, b in zip(d, got):
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
 
 

@@ -47,6 +47,7 @@ from raymarchdenoisercuda_torch.ops import atrous_cuda
 from raymarchdenoisercuda_torch.ops.atrous import _spline_taps
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     svgf_spatial_ad_cuda, svgf_spatial_cuda)
+from raymarchdenoisercuda_torch.ops.temporal import GRAD_PLANES
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     clamped_gather_bwd_cuda, clamped_gather_cuda, reproject_clamped_cuda)
 
@@ -126,13 +127,17 @@ def test_wide_taps_ride_outside_the_parameter_struct(radius):
 
 @pytest.mark.parametrize("scale", [0.0, 7.0, 80.0])
 def test_clamped_gather_vjp_matches_jax(scale):
-    """The clamped gather and its adjoint's plain form, for an arbitrary
-    cotangent, against ``jax.vjp`` of ``bilinear_gather_many`` (motion out
-    to ±40 pixels clamps taps at the border)."""
+    """The clamped gather and its adjoint's plain form, for a cotangent on
+    the first ``GRAD_PLANES`` planes (the adjoint's rule), against
+    ``jax.vjp`` of ``bilinear_gather_many`` (motion out to ±40 pixels
+    clamps taps at the border); a cotangent on the other planes is
+    ignored."""
     rng = np.random.default_rng(5)
     stack = rng.random((10, 12, 16), dtype=np.float32)
     mot = ((rng.random((2, 12, 16)) - 0.5) * scale).astype(np.float32)
-    cot = rng.standard_normal((10, 12, 16)).astype(np.float32)
+    full = rng.standard_normal((10, 12, 16)).astype(np.float32)
+    cot = full.copy()
+    cot[GRAD_PLANES:] = 0.0
     iy = np.arange(12, dtype=np.float32)[:, None]
     ix = np.arange(16, dtype=np.float32)[None, :]
 
@@ -156,6 +161,9 @@ def test_clamped_gather_vjp_matches_jax(scale):
     for a, b in zip(d, got):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-6,
                                    atol=1e-7)
+    for a, b in zip(clamped_gather_bwd_cuda(s, m, torch.from_numpy(full)),
+                    got):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert clamped_gather_bwd_cuda(s, m, torch.from_numpy(cot),
                                    history_grad=False)[0] is None
 
