@@ -8,7 +8,9 @@ the script exits non-zero without printing a result):
 
 1. require CUDA; print the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``
-   (one nvcc per source, in parallel);
+   (one nvcc per source, in parallel) and print ptxas's registers, stack
+   and spills of the à-trous level forward's instantiations (K1/K1b, each
+   radius) and of K9's; fail if one at radius <= 2 uses local memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -16,7 +18,8 @@ the script exits non-zero without printing a result):
    stored adjoint from float32 weights, K14 recompute adjoint, K9 adjoint
    through the weights, K3 temporal step, K4 reprojection gather, K5/K6
    its adjoints (with ``grid_sample``'s forward and backward timed beside
-   them as the library yardstick), K7 march, K8 shadow + shading, K10 box
+   them as the library yardstick), K1 in the serving mode at each level
+   0-4, K7 march, K8 shadow + shading, K10 box
    filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
    ``conv2d`` beside it), K12 cross-bilateral filter, K13 shadow
    visibility (Cornell box and ``random_scene``), K1 at radius 0 and 3
@@ -91,6 +94,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import sys
 import tempfile
 import time
@@ -168,11 +172,11 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
-    "K1": ("atrous_level", CUDA_SRC + "atrous.cu",
+    "K1": ("atrous_level", CUDA_SRC + "atrous_level.cuh",
            PALLAS + "atrous_tpu.py:172"),
     "K2": ("atrous_bwd_stored", CUDA_SRC + "atrous.cu",
            PALLAS + "atrous_tpu.py:361"),
-    "K1b": ("atrous_level_sigma", CUDA_SRC + "atrous.cu",
+    "K1b": ("atrous_level_sigma", CUDA_SRC + "atrous_level.cuh",
             PALLAS + "atrous_tpu.py:780"),
     "K2b": ("atrous_bwd_stored_f32", CUDA_SRC + "atrous.cu",
             PALLAS + "atrous_tpu.py:661"),
@@ -219,7 +223,7 @@ KERNELS = {
             "raymarchdenoisercuda_tpu/ops/temporal.py:41"),
 }
 # per-tap float operations of K1's weight math and accumulation, of K2's
-# tap, of K14's (the recomputed weight and K2's sum), of K9's two kernels
+# tap, of K14's (the recomputed weight and K2's sum), of K9's two passes
 # together and of K12's tap (weights, three colour products, the sums),
 # counted from the kernel sources (a transcendental counts as one)
 K1_TAP_FLOPS = 40
@@ -245,6 +249,17 @@ UNBOUNDED = SVGFParams(radius=1, max_motion=None)
 UNBOUNDED_FRAMES = 4
 SEEDED_UHD_FRAMES = 4
 SEEDED_UHD_STEPS = 2                 # timed, after one warm-up step
+
+
+# ptxas's names of the level forward's instantiations, level_kernel<R,
+# MATH, SDEN, STORE, TILE> or level_kernel_2b (R = -1: the taps in device
+# memory), and of the weight-gradient adjoint's, wgrad_kernel<R, STAGED>
+# (ops/cuda/atrous*.cu*)
+K1_MANGLED = re.compile(r"(?:12level_kernel|15level_kernel_2b)ILi(n?\d+)ELi"
+                        r"(\d+)ELb([01])ELi(\d+)ELb([01])EE")
+K9_MANGLED = re.compile(r"12wgrad_kernelILi(n?\d+)ELb([01])EE")
+K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
+K1_STORES = ("none", "N", "bf16", "f32")
 
 
 def phase(n, msg):
@@ -298,6 +313,45 @@ def random_planes(H, W, dev, seed):
                 h_length=t(np.floor(rng.random((H, W)) * 6)))
 
 
+def report_resources():
+    """Print ptxas's registers, stack and spills of K1/K1b's and K9's
+    instantiations (the build's report); raise if one at radius <= 2 uses
+    local memory."""
+    k1, k9 = {}, {}
+    for name, res in _build.resource_report().items():
+        m = K1_MANGLED.search(name)
+        if m:
+            R, math, sden, store, tile = (int(v.replace("n", "-"))
+                                          for v in m.groups())
+            k1.setdefault(R, {})[(math, sden, store, tile)] = res
+        m = K9_MANGLED.search(name)
+        if m:
+            k9[(int(m.group(1).replace("n", "-")), int(m.group(2)))] = res
+    if not k1 or not k9:
+        raise AssertionError("phase 2: no K1 or K9 kernel in ptxas's report")
+    local = []
+    for R, found in sorted(k1.items()):
+        regs = [res[0] for res in found.values()]
+        frame = max(res[1] for res in found.values())
+        spill = max(res[2] + res[3] for res in found.values())
+        main = ", ".join(
+            f"{'K1b' if sden else 'K1'} {K1_MATHS[math]} "
+            f"{K1_STORES[store]}{' tile' if tile else ''} {res[0]}"
+            for (math, sden, store, tile), res in sorted(found.items())
+            if (math, sden, store) in ((0, 0, 0), (2, 0, 2), (2, 1, 1)))
+        phase(2, f"K1 r{R if R >= 0 else '>2'}: {len(found)} "
+                 f"instantiations, {min(regs)}-{max(regs)} registers, stack "
+                 f"<= {frame} B, spills <= {spill} B; registers: {main}")
+        if R >= 0 and (frame or spill):
+            local.append(f"K1 r{R}")
+    for (R, staged), (regs, frame, st, ld) in sorted(k9.items()):
+        phase(2, f"K9 r{R if R >= 0 else '>2'}"
+                 f"{' staged' if staged else ''}: {regs} registers, stack "
+                 f"{frame} B, spills {st + ld} B")
+    if local:
+        raise AssertionError(f"phase 2: local memory in {local}")
+
+
 def check_k1(P, results):
     args = (P["color"], P["variance"], P["normal"], P["depth"])
     HW = P["depth"].numel()
@@ -328,6 +382,19 @@ def check_k1(P, results):
                     max_abs_err=err, ms=ms / SERVING.iterations,
                     plain_ms=plain_ms / SERVING.iterations,
                     bytes=56 * HW, flops=K1_TAP_FLOPS * 9 * HW)
+    # the serving mode at each level: the row-lattice tile's halo and the
+    # reach of its taps grow with the spacing
+    zgrad = finite_diff_gradients(P["depth"])
+    b_ms, b_by = bound(56 * HW, K1_TAP_FLOPS * 9 * HW)
+    per_level = []
+    for level in range(SERVING.iterations):
+        per_level.append(cuda_time_ms(lambda: atrous_level_cuda(
+            *args, zgrad, level=level, params=SERVING,
+            weight_math=SERVING_WEIGHTS), repeats=20))
+    phase(3, f"K1 r{SERVING.radius} {SERVING_WEIGHTS} a level, levels 0-"
+             f"{SERVING.iterations - 1}: "
+             + ", ".join(f"{ms:.4f}" for ms in per_level)
+             + f" ms; bound {b_ms:.4f} ms ({b_by}, 56 B/px)")
 
 
 def check_k1_store_k2(P, results):
@@ -389,8 +456,12 @@ def check_k1_store_k2(P, results):
                 w, norm, gc, gv, level=0, radius=radius), repeats=20)
             plain2 = cuda_time_ms(lambda: atrous.atrous_level_bwd_stored_ref(
                 w, norm, gc, gv, level=0, radius=radius), repeats=3)
+            # inputs 10 floats, outputs c, v, N and the bf16 weights
+            st_bytes = 60 + 2 * taps
+            st_ms, st_by = bound(st_bytes * HW, K1_TAP_FLOPS * taps * HW)
             phase(3, f"K1 store r{radius} {wm}: ok (5 levels), max |err| "
-                     f"weights {errs[0]:.3g}, {ms:.4f} ms/level, plain "
+                     f"weights {errs[0]:.3g}, {ms:.4f} ms/level (bound "
+                     f"{st_ms:.4f}, {st_by}, {st_bytes} B/px), plain "
                      f"{plain_ms:.4f} ms; K2: ok, max |err| {errs[1]:.3g}, "
                      f"{ms2:.4f} ms/level, plain {plain2:.4f} ms")
             if radius == TRAIN.radius and wm == "exact":
@@ -493,8 +564,7 @@ def check_adjoint_kernels(P, results):
                  f"{plain1b:.4f} ms; K2b ok, {err2b:.3g}, {ms2b:.4f} ms, "
                  f"plain {plain2b:.4f} ms; K14 ok, {err14:.3g}, {ms14:.4f} "
                  f"ms, plain {plain14:.4f} ms; K9 ok, max |err|/max "
-                 f"{err9:.3g}, {ms9:.4f} ms (2 kernels), plain {plain9:.4f} "
-                 f"ms")
+                 f"{err9:.3g}, {ms9:.4f} ms, plain {plain9:.4f} ms")
         # bytes a pixel, inputs once and outputs once: K1b c, v, n, z, ∇z,
         # σ in, c, v, N out; K2b float32 weights, N, gc, gv in, dc, dv
         # out; K14 c, n, z, ∇z, σ, N, gc, gv in, dc, dv out; K9 c, v, n,
@@ -502,6 +572,8 @@ def check_adjoint_kernels(P, results):
         k9_err = max(max_err(a, b) for a, b in zip(k9, k9_want))
         for k, (err, ms, plain, bytes_px, flops) in {
                 "K1b": (err1b, ms1b, plain1b, 64, K1_TAP_FLOPS),
+                "K1b float weights": (err1b, ms1b_w, plain1b,
+                                      64 + 4 * taps, K1_TAP_FLOPS),
                 "K2b": (err2b, ms2b, plain2b, 4 * taps + 36, K2_TAP_FLOPS),
                 "K14": (err14, ms14, plain14, 76, K14_TAP_FLOPS),
                 "K9": (k9_err, ms9, plain9, 124, K9_TAP_FLOPS)}.items():
@@ -509,7 +581,7 @@ def check_adjoint_kernels(P, results):
             b_ms, b_by = bound(cost["bytes"], cost["flops"])
             phase(3, f"r{radius} {k} bound {b_ms:.4f} ms ({b_by}, "
                      f"{bytes_px} B/px)")
-            if radius == TRAIN.radius:
+            if radius == TRAIN.radius and k in KERNELS:
                 results[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                   **cost)
 
@@ -2125,6 +2197,7 @@ def main(argv=None) -> int:
     lib = _build.build(verbose=args.verbose_build)
     _build.kernels()
     phase(2, f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    report_resources()
 
     results = {}
     P = random_planes(H, W, dev, seed=0)

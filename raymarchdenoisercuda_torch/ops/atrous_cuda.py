@@ -408,12 +408,12 @@ def atrous_level_wgrad_bwd_cuda(color, variance, normal, depth, zgrad,
                                 sigma_denom, out_c, out_v, norm, g_color,
                                 g_var, *, level: int, params: SVGFParams):
     """K9, the full adjoint of one level through its weights (the
-    counterpart of ``atrous_level_wgrad_bwd_pallas``): its centre and
-    neighbour kernels, launched back to back.  Returns ``(d_color,
+    counterpart of ``atrous_level_wgrad_bwd_pallas``): one kernel, the
+    centre and neighbour terms of each pixel.  Returns ``(d_color,
     d_variance, d_normal, d_depth, d_zgrad, d_sigma_denom)`` as
     ``atrous_level_wgrad_bwd_ref`` does.
 
-    Each call adds one to ``atrous_level_wgrad_bwd_cuda.launches``."""
+    Each launch adds one to ``atrous_level_wgrad_bwd_cuda.launches``."""
     ins = (color, variance, normal, depth, zgrad, sigma_denom, out_c, out_v,
            norm, g_color, g_var)
     _build.check_no_grad("atrous_level_wgrad_bwd_cuda", *ins)

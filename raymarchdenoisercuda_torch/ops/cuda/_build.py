@@ -1,7 +1,9 @@
 """Build the port's CUDA kernels on first use and load them with ctypes.
 
 Every ``*.cu`` file beside this module is compiled by ``nvcc`` for Hopper
-(``sm_90a``), one ``nvcc`` process per source, all started together, and
+(``sm_90a``), one ``nvcc`` process per source, all started together (the
+à-trous level forward's instantiations are split one radius a source for
+that reason; the ``*.cuh`` headers they share are hashed with them), and
 the objects are linked into ONE shared library with a plain C interface,
 which ``ctypes`` loads.  The sources include no PyTorch headers, which keeps
 the build short (seconds; ``chip_smoke.py`` prints the time), where a source
@@ -25,6 +27,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -65,6 +68,11 @@ def sources():
     return sorted(_SRC_DIR.glob("*.cu"))
 
 
+def headers():
+    """The ``*.cuh`` headers the sources include (hashed with them)."""
+    return sorted(_SRC_DIR.glob("*.cuh"))
+
+
 def nvcc_path() -> str:
     cuda_home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
     nvcc = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
@@ -75,7 +83,7 @@ def nvcc_path() -> str:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sources() + headers():
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"rdt_kernels_{h.hexdigest()[:16]}.so"
@@ -83,9 +91,11 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernels unless the library for these sources exists:
-    one ``nvcc -c`` per source, run in parallel, then one link.
-    ``verbose`` adds ``-Xptxas=-v`` (registers, spills) and prints nvcc's
-    output.  Returns the library's path."""
+    one ``nvcc -c`` per source, run in parallel, then one link.  ptxas
+    reports each kernel's registers, stack and spills (``-Xptxas=-v``);
+    the report is kept beside the library (:func:`resource_report` reads
+    it), and ``verbose`` prints it with the rest of nvcc's output.  Returns
+    the library's path."""
     out = library_path()
     if out.exists():
         return out
@@ -97,15 +107,15 @@ def build(verbose: bool = False) -> Path:
         objs, procs = [], []
         for src in sources():
             obj = os.path.join(tmp, src.stem + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas=-v"] if verbose else []),
-                   "-c", "-o", obj, str(src)]
+            cmd = [nvcc, *NVCC_FLAGS, "-Xptxas=-v", "-c", "-o", obj, str(src)]
             procs.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
             objs.append(obj)
-        failed = []
+        failed, logs = [], []
         for cmd, proc in procs:
             log = proc.communicate()[0]
+            logs.append(log)
             if verbose or proc.returncode != 0:
                 print(log, flush=True)
             if proc.returncode != 0:
@@ -119,8 +129,46 @@ def build(verbose: bool = False) -> Path:
         if res.returncode != 0:
             print(res.stdout + res.stderr, flush=True)
             raise RuntimeError(f"nvcc link failed: {' '.join(cmd)}")
+        report_path(out).write_text("\n".join(logs))
         os.replace(lib, out)
     return out
+
+
+def report_path(lib: Path) -> Path:
+    """Where :func:`build` keeps ptxas's report of the library ``lib``."""
+    return lib.with_suffix(".ptxas.txt")
+
+
+_ENTRY = re.compile(r"Compiling entry function '(\w+)'")
+_FRAME = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                    r"(\d+) bytes spill loads")
+_REGS = re.compile(r"Used (\d+) registers")
+
+
+def parse_resources(text: str) -> dict:
+    """``{mangled kernel name: (registers, stack bytes, spill-store bytes,
+    spill-load bytes)}`` from ptxas's ``-v`` output."""
+    found, name, frame = {}, None, (0, 0, 0)
+    for line in text.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name, frame = m.group(1), (0, 0, 0)
+            continue
+        m = _FRAME.search(line)
+        if m and name:
+            frame = tuple(int(v) for v in m.groups())
+            continue
+        m = _REGS.search(line)
+        if m and name:
+            found[name] = (int(m.group(1)),) + frame
+            name = None
+    return found
+
+
+def resource_report() -> dict:
+    """:func:`parse_resources` of the built library's report (building it
+    first if needed)."""
+    return parse_resources(report_path(build()).read_text())
 
 
 @functools.lru_cache(maxsize=None)

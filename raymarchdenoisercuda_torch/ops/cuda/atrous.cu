@@ -15,26 +15,38 @@
 // multiply-add is contracted), which keeps the kernel within float
 // rounding of the twin.
 //
-// One thread per output pixel.  The TPU kernel's row bands, 128-lane
-// canvases, manual DMA and lane rolls do not carry over: a thread reads its
-// (2r+1)^2 taps at spacing 2^level straight from global memory with bounds
-// checks, and a tap outside the image is dropped (zero weight), which is
-// what the TPU kernel's border mask achieves.  The 3x3 variance blur that
-// sets the luminance sigma is fused in, as on the TPU, unless a sigma
-// denominator is given (K1b).
-//
-// Store mode (w_out and n_out non-null, the training forward): the thread
-// also writes its (2r+1)^2 tap weights, h and the border mask included, as
-// bf16 (round to nearest even) or float, and N = max(sum w, eps) as float.
-// The colour and variance use the float weights, and N is their float sum;
-// only the adjoint sees the rounded weights, as on the TPU.
-//
-// Bound on the card: memory.  Per pixel and level the taps read
-// (2r+1)^2 x 9 floats (colour, variance, normal, depth) that neighbouring
-// threads share through L1/L2; the weight math is ~40 flops a tap.  The
-// least traffic is 56 B/px (inputs once, outputs once), 78 B/px in store mode
-// at radius 1; K1b 64 B/px, 100 (r1) or 164 (r2) with float weights.  This
-// first version leaves the reuse to the caches (no shared-memory tiling).
+// K1/K1b (atrous_level.cuh, one source a radius: atrous_level_r*.cu) is
+// one body specialised at compile time on the radius (0, 1, 2), the weight
+// math (fast, fast luminance-only, exact, exact luminance-only), a fused
+// or given sigma denominator, the store (none, N, bf16 or float weights
+// and N) and the tile form: the tap loops unroll, p.taps is indexed by
+// constants, and no mode is tested inside the loop.  A block owns a
+// row-lattice tile: 64 columns by 8 lattice rows of one residue modulo the
+// spacing s = 2^level, whose taps all lie on the same lattice (Lattice in
+// atrous_common.cuh).  It stages, once per pixel of the tile plus its halo
+// (r lattice rows, r*min(s, 64) columns a side), colour and variance,
+// the luminance (computed once, the same float as the per-tap
+// expression), normal and depth: 36 B a pixel in shared memory (20 with
+// the luminance-only weights), read with coalesced loads.  The taps then
+// read shared memory only; a tap outside the image (tile: the frame) is
+// dropped by its coordinate, with a zero stored weight.  Each thread
+// computes two pixels (the tile holds 512).  The 3x3 variance blur that
+// sets the luminance sigma (K1) and the depth gradient are read through
+// the caches (staging them too was slower).  Radius 0 stages nothing (a
+// neighbour is read once).  The radius-2 fast weights run with a bound of
+// two blocks an SM: ptxas's own choice spilled.  Bit-equality: every
+// weight goes through the same operations in the same order (tap_weight,
+// exact_tap), every sum adds its taps in the same (dy, dx) order, and a
+// value staged once per pixel is the float the per-tap expression gave,
+// so the outputs are those of the one-thread-per-pixel kernel this design
+// replaced, bit for bit.  Bound on the card: memory would allow 56 B/px
+// (inputs once, outputs once), 78 B/px in store mode at radius 1 (bf16
+// weights), and for K1b 64 B/px, 100 (r1) or 164 (r2) with float weights;
+// the kernel is held by its instructions instead: ~70 a fast tap (a true
+// division, the polynomial exp with two conversions), ~130 an exact one.
+// Radius > 2 (R = -1, the WIDE instantiation): taps from a device array,
+// neighbours read through the caches (a staged tile at r = 3 would need up
+// to 226 KB).
 //
 // K2 (bf16 weights) and K2b (float weights) replace
 // _make_level_kernel(mode="stored") as called by
@@ -59,115 +71,72 @@
 // memory, 76 B/px (colour, normal, depth, zgrad, sigma, N, gc, gv in; dc,
 // dv out); ~40 flops a tap.
 //
-// K9 replaces _make_wgrad_center_kernel and _make_wgrad_neighbor_kernel as
+// K9 replaces the TPU package's two weight-gradient kernels, centre and
+// neighbour (_make_wgrad_*_kernel, atrous_tpu.py:1196 and :1326), as
 // called by atrous_level_wgrad_bwd_pallas: the adjoint of one level
 // through its weights.  With A_p(d) = dL/dw_p(d), every input theta gets
-// sum A dw/dtheta in two shapes, each a gather with one thread per pixel
-// and no atomics:
-//  * wgrad_center_kernel, x as the centre, over its own taps: the normal,
-//    depth, depth-gradient, sigma and luminance terms;
-//  * wgrad_neighbor_kernel, x as the neighbour of the centres p = x - d:
-//    the normal, depth and luminance terms, and the detached data stencil
-//    of colour and variance (K14's sum).  It adds the centre kernel's
-//    partial planes at x (left in the output buffers) and folds the
-//    luminance gradient into d_color by the Rec.709 weights.
-// The weights are K1's exact ones (expf, powf), not the TPU's polynomial
-// exp and Newton reciprocals; the derivative of |.| at 0 is 0.  Plain twin:
-// atrous_level_wgrad_bwd_ref.  Bound: 124 B/px of inputs and outputs, and
-// ~150 flops a tap (two kernels), so memory at radius 1 and the float32
-// rate at radius 2.
+// sum A dw/dtheta in two shapes, both gathers without atomics: the centre
+// terms, x over its own taps q = x + d (normal, depth, depth gradient,
+// sigma and luminance), and the neighbour terms, x as the tap of the
+// centres p = x - d (normal, depth, luminance, and the detached data
+// stencil of colour and variance, K14's sum).  One kernel, one launch: a
+// block owns a row-lattice tile of 32 columns by 8 lattice rows and runs
+// two warp groups over it, one thread a pixel in each; the first computes
+// the centre terms and hands d_normal, d_depth and d_lum to the second
+// through shared memory, the second computes the neighbour terms, adds
+// them in the order of the two-kernel form it replaced (d_lum = centre +
+// neighbour, then folded into d_color by the Rec.709 weights) and writes
+// the outputs; no partial plane goes through device memory.  One thread
+// doing both passes held both passes' accumulators and its own values at
+// once: ptxas gave it 64 registers with spills, or fewer blocks an SM,
+// and it lost to the two kernels at radius 2 and above.  Both groups read
+// one staged tile: colour and variance, normal and depth, luminance,
+// sigma, 1/sigma and 1/max(N, eps), the cotangents, the forward's outputs
+// and the depth gradient, 88 B a pixel (u = gc/N' and u2 = gv/N'^2 are one
+// multiply a tap from these, the same floats); a tile above 110 KB (two
+// blocks an SM; radius 3 at spacing 16) and radius 0 read through the
+// caches instead.  Radius 2 runs its rows as a loop (unrolled, its 25
+// taps spilled more).  The weights are K1's exact ones (expf, powf), not
+// the TPU's polynomial exp and Newton reciprocals; the derivative of |.|
+// at 0 is 0.  Plain twin: atrous_level_wgrad_bwd_ref.  Bound: 124 B/px of
+// inputs and outputs, and ~169 flops a tap (two exact weights), so the
+// float32 rate from radius 2; the kernel is held by its instructions
+// (~4100 a pixel at radius 1: divisions, powf, expf) and their latency.
 //
 // Radius: K1/K1b, K14 and K9 take any r >= 0 ((2r+1) taps a row, from
 // _spline_taps).  Up to r = 2 the 1-D taps ride in AtrousParams.taps[5];
 // a larger radius passes them as a small device array (wide_taps) and runs
-// the kernels' WIDE = true instantiation, so the launches at r <= 2 keep
-// their parameter struct, code and time.  K2/K2b read their stored weights
-// and need no taps.
+// the kernels' WIDE instantiation.  K2/K2b read their stored weights and
+// need no taps.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-
-// Launch parameters, passed by pointer from ops/atrous_cuda.py (ctypes).
-struct AtrousParams {
-    int H, W, spacing, radius, fast, luma_only;
-    float sigma_color, sigma_depth, sigma_normal;
-    // fast weights: log2(e)-folded constants, rounded from double on the host
-    float sz2, eps2, c_s1, c_s2;
-    float taps[5];
-};
-
-// The tile of a launch, passed by pointer beside the parameters; a null
-// pointer is the whole frame.
-//
-// Tiles (the sharded sweep, parallel/sharded.py): a launch computes the
-// H x W centre of a tile whose pixel (0, 0) is the global pixel
-// (gy0, gx0) of an Hg x Wg frame.  A tap is dropped when its GLOBAL
-// coordinate falls outside the frame, so a tile gives what the whole
-// frame gives at its pixels.  The planes read around a pixel come as
-// canvases: the tile plus a margin of m pixels on every side, with their
-// own row and plane strides (a view into a larger canvas works as it is):
-// colour and variance share one canvas geometry (d_*), normal and depth
-// another (g_*).  The planes read at the pixel itself (depth gradient,
-// sigma denominator, N, cotangents, weights, outputs) are contiguous
-// H x W planes.  The adjoints K2 and K14 write an output region of the
-// centre plus o_m pixels on every side (the gradients of the canvas
-// margins, which the halo exchange's adjoint sends to the tiles that own
-// them).  A whole-frame launch runs the kernels' TILE = false
-// instantiation, which indexes and masks as if there were no tile, with
-// the parameters it had before tiles existed: putting the tile's fields
-// into AtrousParams made the whole-frame K1 and K14 14 % slower on an
-// H100 (the struct's size alone: the kernels index its taps at run time).
-// Both instantiations compute the same floats.
-struct AtrousTile {
-    int Hg, Wg, gy0, gx0;
-    int d_rs, d_ps, d_m;    // colour/variance canvas
-    int g_rs, g_ps, g_m;    // normal/depth canvas
-    int o_m;                // adjoints: the output region's margin
-};
+#include "atrous_common.cuh"
 
 namespace {
 
-constexpr float kEps = 1e-8f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-constexpr float kL0 = 0.2126f, kL1 = 0.7152f, kL2 = 0.0722f;
-
-// 2^y for y <= 0 with the degree-3 near-minimax polynomial of the TPU
-// kernel's _exp2_fast3 (max relative error 1.37e-4).
-__device__ __forceinline__ float exp2_fast3(float y) {
-    float yi = floorf(y + 0.5f);
-    float z = (y - yi) * kLn2;
-    float p = 0.999951338657045f
-        + z * (1.0001527445243588f + z * (0.5042261676140843f + z * 0.16524081962961631f));
-    int i = (int)fmaxf(yi, -126.0f);
-    return p * __int_as_float((i + 127) << 23);
+__device__ __forceinline__ float sgnf(float x) {
+    return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
 }
 
-__device__ __forceinline__ float luma(const float* c, int i, int hw) {
-    return kL0 * c[i] + kL1 * c[hw + i] + kL2 * c[2 * hw + i];
+__device__ __forceinline__ float load_w(const __nv_bfloat16* w, int k) {
+    return __bfloat162float(w[k]);
+}
+__device__ __forceinline__ float load_w(const float* w, int k) { return w[k]; }
+
+// f(dy) for dy = -r..r: unrolled, or (ROLL) as a loop, which keeps fewer
+// taps' values live at once.
+template <bool ROLL, typename F>
+__device__ __forceinline__ void for_rows(int r, F&& f) {
+    if constexpr (ROLL) {
+#pragma unroll 1
+        for (int dy = -r; dy <= r; ++dy) f(dy);
+    } else {
+#pragma unroll
+        for (int dy = -r; dy <= r; ++dy) f(dy);
+    }
 }
 
-// Index of tile pixel (y, x) (centre coordinates, negative in the margin)
-// in the colour/variance canvas and in the normal/depth canvas, and their
-// plane strides; W is the tile's width.
-template <bool TILE>
-__device__ __forceinline__ int didx(const AtrousTile& t, int W, int y, int x) {
-    return TILE ? (y + t.d_m) * t.d_rs + (x + t.d_m) : y * W + x;
-}
-template <bool TILE>
-__device__ __forceinline__ int gidx(const AtrousTile& t, int W, int y, int x) {
-    return TILE ? (y + t.g_m) * t.g_rs + (x + t.g_m) : y * W + x;
-}
-
-// Whether tile row y (of H) / column x (of W) lies in the frame.
-template <bool TILE>
-__device__ __forceinline__ bool row_in(const AtrousTile& t, int H, int y) {
-    return TILE ? t.gy0 + y >= 0 && t.gy0 + y < t.Hg : y >= 0 && y < H;
-}
-template <bool TILE>
-__device__ __forceinline__ bool col_in(const AtrousTile& t, int W, int x) {
-    return TILE ? t.gx0 + x >= 0 && t.gx0 + x < t.Wg : x >= 0 && x < W;
+dim3 grid_for(int H, int W, dim3 block) {
+    return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
 }
 
 __global__ void zgrad_kernel(const float* __restrict__ z, float* __restrict__ g,
@@ -184,162 +153,6 @@ __global__ void zgrad_kernel(const float* __restrict__ z, float* __restrict__ g,
     float bwd_x = zc - (x > 0 ? z[i - 1] : 0.0f);
     g[i] = y == 0 ? fwd_y : (y == H - 1 ? bwd_y : 0.5f * (fwd_y + bwd_y));
     g[H * W + i] = x == 0 ? fwd_x : (x == W - 1 ? bwd_x : 0.5f * (fwd_x + bwd_x));
-}
-
-// The exact weight of centre a for its tap at offset (oy, ox), whose
-// neighbour is b, with the intermediate values the adjoints reuse.  K1,
-// K14 and K9 all go through this one function, so K14's and K9's
-// recomputed weights are bit-equal to the forward's.
-struct Tap {
-    float w, dz, dl, zs, ndot;
-};
-
-__device__ __forceinline__ Tap exact_tap(float h, float l_a, float l_b,
-                                         float sden_a, float z_a, float z_b,
-                                         float zg0_a, float zg1_a, int oy,
-                                         int ox, float na0, float na1,
-                                         float na2, float nb0, float nb1,
-                                         float nb2, const AtrousParams& p) {
-    Tap t;
-    t.dl = l_a - l_b;
-    t.dz = z_a - z_b;
-    t.zs = zg0_a * (float)oy + zg1_a * (float)ox;
-    float wl = -fabsf(t.dl) / sden_a;
-    float wz = -fabsf(t.dz) / (p.sigma_depth * fabsf(t.zs) + kEps);
-    t.ndot = fmaxf(na0 * nb0 + na1 * nb1 + na2 * nb2, 0.0f);
-    float wn = powf(fmaxf(t.ndot, 1e-20f), p.sigma_normal);
-    t.w = h * expf(wz + wl) * wn;
-    return t;
-}
-
-// The 2-D tap weight h of offset (dy + r, dx + r): from the parameters'
-// taps, or (WIDE) from the device array of a radius above 2.
-template <bool WIDE>
-__device__ __forceinline__ float tap_h(const AtrousParams& p,
-                                       const float* __restrict__ wide_taps,
-                                       int ky, int kx) {
-    return WIDE ? wide_taps[ky] * wide_taps[kx] : p.taps[ky] * p.taps[kx];
-}
-
-__device__ __forceinline__ float sgnf(float x) {
-    return x > 0.0f ? 1.0f : (x < 0.0f ? -1.0f : 0.0f);
-}
-
-__device__ __forceinline__ void store_w(__nv_bfloat16* w, int k, float v) {
-    w[k] = __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ void store_w(float* w, int k, float v) { w[k] = v; }
-__device__ __forceinline__ float load_w(const __nv_bfloat16* w, int k) {
-    return __bfloat162float(w[k]);
-}
-__device__ __forceinline__ float load_w(const float* w, int k) { return w[k]; }
-
-// K1 (sden_in null: the fused blur) and K1b (sden_in given); WT is the
-// stored weights' type.
-template <typename WT, bool TILE, bool WIDE>
-__global__ void atrous_level_kernel(const float* __restrict__ color,
-                                    const float* __restrict__ var,
-                                    const float* __restrict__ normal,
-                                    const float* __restrict__ depth,
-                                    const float* __restrict__ zgrad,
-                                    const float* __restrict__ sden_in,
-                                    float* __restrict__ color_out,
-                                    float* __restrict__ var_out,
-                                    WT* __restrict__ w_out,
-                                    float* __restrict__ n_out,
-                                    AtrousParams p, AtrousTile t,
-                                    const float* __restrict__ wide_taps) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= p.W || y >= p.H) return;
-    const int H = p.H, W = p.W, hw = H * W;
-    const int i = y * W + x;
-    const int dp = TILE ? t.d_ps : hw, gp = TILE ? t.g_ps : hw;
-
-    float sden;
-    if (sden_in) {
-        sden = sden_in[i];
-    } else {
-        // fused sigma denominator: (1/4, 1/2, 1/4)^2 blur of the variance
-        // over in-image taps, renormalised (variance_blur3x3); a tile pixel
-        // outside the frame (a padded tile) has no such tap and gets 0
-        const float k1[3] = {0.25f, 0.5f, 0.25f};
-        float num = 0.0f, kden = 0.0f;
-        for (int dy = -1; dy <= 1; ++dy) {
-            for (int dx = -1; dx <= 1; ++dx) {
-                if (!row_in<TILE>(t, H, y + dy) || !col_in<TILE>(t, W, x + dx))
-                    continue;
-                float k = k1[dy + 1] * k1[dx + 1];
-                num = num + k * var[didx<TILE>(t, W, y + dy, x + dx)];
-                kden = kden + k;
-            }
-        }
-        if (TILE) kden = fmaxf(kden, 1e-20f);
-        sden = p.sigma_color * sqrtf(fmaxf(num / kden, 0.0f)) + kEps;
-    }
-    const float isd2 = kLog2e / fmaxf(sden, kEps);
-
-    const int dc = didx<TILE>(t, W, y, x), gc = gidx<TILE>(t, W, y, x);
-    const float lum_c = luma(color, dc, dp);
-    const float z_c = depth[gc];
-    const float n0 = normal[gc], n1 = normal[gp + gc],
-                n2 = normal[2 * gp + gc];
-    const float zg0 = zgrad[i], zg1 = zgrad[hw + i];
-
-    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f, den = 0.0f;
-    const int r = p.radius;
-    const int side = 2 * r + 1;
-    for (int dy = -r; dy <= r; ++dy) {
-        const int oy = dy * p.spacing;
-        const int qy = y + oy;
-        const bool rin = row_in<TILE>(t, H, qy);
-        for (int dx = -r; dx <= r; ++dx) {
-            const int ox = dx * p.spacing;
-            const int qx = x + ox;
-            const int k = ((dy + r) * side + (dx + r)) * hw + i;
-            if (!rin || !col_in<TILE>(t, W, qx)) {
-                // dropped tap: its stored weight is zero
-                if (w_out) store_w(w_out, k, 0.0f);
-                continue;
-            }
-            const int q = didx<TILE>(t, W, qy, qx);
-            const int g = gidx<TILE>(t, W, qy, qx);
-            const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
-            const float lum_q = luma(color, q, dp);
-            float w;
-            if (p.fast) {
-                float arg = -fabsf(lum_c - lum_q) * isd2;
-                if (!p.luma_only) {
-                    float zdot = fabsf(zg0 * (float)oy + zg1 * (float)ox);
-                    float wz2 = -fabsf(z_c - depth[g]) / (p.sz2 * zdot + p.eps2);
-                    float d0 = n0 - normal[g];
-                    float d1 = n1 - normal[gp + g];
-                    float d2 = n2 - normal[2 * gp + g];
-                    float s = d0 * d0 + d1 * d1 + d2 * d2;
-                    arg = wz2 + arg - (p.c_s1 * s + p.c_s2 * (s * s));
-                }
-                w = h * exp2_fast3(arg);
-            } else if (p.luma_only) {
-                w = h * expf(-fabsf(lum_c - lum_q) / sden);
-            } else {
-                w = exact_tap(h, lum_c, lum_q, sden, z_c, depth[g], zg0, zg1,
-                              oy, ox, n0, n1, n2, normal[g], normal[gp + g],
-                              normal[2 * gp + g], p).w;
-            }
-            if (w_out) store_w(w_out, k, w);
-            acc0 = acc0 + w * color[q];
-            acc1 = acc1 + w * color[dp + q];
-            acc2 = acc2 + w * color[2 * dp + q];
-            acc_v = acc_v + (w * w) * var[q];
-            den = den + w;
-        }
-    }
-    den = fmaxf(den, kEps);
-    color_out[i] = acc0 / den;
-    color_out[hw + i] = acc1 / den;
-    color_out[2 * hw + i] = acc2 / den;
-    var_out[i] = acc_v / (den * den);
-    if (n_out) n_out[i] = den;
 }
 
 // K2 (WT = bf16) and K2b (WT = float): gather-form stored-weight adjoint
@@ -454,157 +267,257 @@ __global__ void atrous_bwd_kernel(const float* __restrict__ color,
     dv[i] = acc_v;
 }
 
-// K9, first kernel: the centre terms at x over x's own taps.  Writes its
-// partial d_normal and d_depth into those outputs and its partial d_lum
-// into d_color's first plane; the second kernel completes them.
-template <bool WIDE>
-__global__ void wgrad_center_kernel(
-    const float* __restrict__ color, const float* __restrict__ var,
-    const float* __restrict__ normal, const float* __restrict__ depth,
-    const float* __restrict__ zgrad, const float* __restrict__ sden,
-    const float* __restrict__ out_c, const float* __restrict__ out_v,
-    const float* __restrict__ norm, const float* __restrict__ gc,
-    const float* __restrict__ gv, float* __restrict__ d_color,
+// K9's inputs.
+struct WgradIn {
+    const float *color, *var, *normal, *depth, *zgrad, *sden, *out_c, *out_v,
+        *norm, *gc, *gv;
+};
+
+// One pixel's values as K9's passes read them.
+struct WgradPix {
+    float4 cv;    // colour, variance
+    float4 nz;    // normal, depth
+    float4 ls;    // luminance, sigma, 1/sigma, 1/max(N, eps)
+    float4 g;     // cotangents gc, gv
+    float4 o;     // the forward's outputs out_c, out_v
+    float2 zg;    // depth gradient
+};
+
+__device__ __forceinline__ WgradPix wgrad_load(const WgradIn& in, int q,
+                                               int hw) {
+    WgradPix v;
+    v.cv = make_float4(in.color[q], in.color[hw + q], in.color[2 * hw + q],
+                       in.var[q]);
+    v.nz = make_float4(in.normal[q], in.normal[hw + q],
+                       in.normal[2 * hw + q], in.depth[q]);
+    const float sd = in.sden[q];
+    v.ls = make_float4(luma3(v.cv.x, v.cv.y, v.cv.z), sd, 1.0f / sd,
+                       1.0f / fmaxf(in.norm[q], kEps));
+    v.g = make_float4(in.gc[q], in.gc[hw + q], in.gc[2 * hw + q], in.gv[q]);
+    v.o = make_float4(in.out_c[q], in.out_c[hw + q], in.out_c[2 * hw + q],
+                      in.out_v[q]);
+    v.zg = make_float2(in.zgrad[q], in.zgrad[hw + q]);
+    return v;
+}
+
+// The centre terms of x (own values in x) over its tap q at (oy, ox).
+struct WgradCentre {
+    float dn0, dn1, dn2, dz, dzg0, dzg1, dsd, dl;
+};
+
+__device__ __forceinline__ void wgrad_centre_tap(WgradCentre& a,
+                                                 const WgradPix& x,
+                                                 const WgradPix& q, float h,
+                                                 int oy, int ox,
+                                                 const AtrousParams& p) {
+    const float isd = x.ls.z, inv_n = x.ls.w;
+    const Tap t = exact_tap(h, x.ls.x, q.ls.x, x.ls.y, x.nz.w, q.nz.w,
+                            x.zg.x, x.zg.y, oy, ox, x.nz.x, x.nz.y, x.nz.z,
+                            q.nz.x, q.nz.y, q.nz.z, p);
+    const float rz = 1.0f / (p.sigma_depth * fabsf(t.zs) + kEps);
+    const float aa =
+        ((x.g.x * (q.cv.x - x.o.x) + x.g.y * (q.cv.y - x.o.y)
+          + x.g.z * (q.cv.z - x.o.z))
+         + x.g.w * (2.0f * t.w * q.cv.w * inv_n - 2.0f * x.o.w)) * inv_n;
+    const float b = aa * t.w;
+    a.dz = a.dz - b * sgnf(t.dz) * rz;
+    a.dl = a.dl - b * sgnf(t.dl) * isd;
+    a.dsd = a.dsd + b * fabsf(t.dl) * (isd * isd);
+    const float gz = b * fabsf(t.dz) * (rz * rz) * p.sigma_depth
+                     * sgnf(t.zs);
+    a.dzg0 = a.dzg0 + gz * (float)oy;
+    a.dzg1 = a.dzg1 + gz * (float)ox;
+    const float nf = b * p.sigma_normal / fmaxf(t.ndot, 1e-20f);
+    a.dn0 = a.dn0 + nf * q.nz.x;
+    a.dn1 = a.dn1 + nf * q.nz.y;
+    a.dn2 = a.dn2 + nf * q.nz.z;
+}
+
+// The neighbour terms of x as the tap (oy, ox) of the centre c = x - d.
+struct WgradNeighbour {
+    float acc0, acc1, acc2, acc_v, dn0, dn1, dn2, dz, dl;
+};
+
+__device__ __forceinline__ void wgrad_neighbour_tap(WgradNeighbour& a,
+                                                    const WgradPix& x,
+                                                    const WgradPix& c,
+                                                    float h, int oy, int ox,
+                                                    const AtrousParams& p) {
+    const Tap t = exact_tap(h, c.ls.x, x.ls.x, c.ls.y, c.nz.w, x.nz.w,
+                            c.zg.x, c.zg.y, oy, ox, c.nz.x, c.nz.y, c.nz.z,
+                            x.nz.x, x.nz.y, x.nz.z, p);
+    const float inv_n = c.ls.w;
+    const float u2 = c.g.w * (inv_n * inv_n);
+    a.acc0 = a.acc0 + t.w * (c.g.x * inv_n);
+    a.acc1 = a.acc1 + t.w * (c.g.y * inv_n);
+    a.acc2 = a.acc2 + t.w * (c.g.z * inv_n);
+    a.acc_v = a.acc_v + (t.w * t.w) * u2;
+    const float rz = 1.0f / (p.sigma_depth * fabsf(t.zs) + kEps);
+    const float aa =
+        ((c.g.x * (x.cv.x - c.o.x) + c.g.y * (x.cv.y - c.o.y)
+          + c.g.z * (x.cv.z - c.o.z))
+         + c.g.w * (2.0f * t.w * x.cv.w * inv_n - 2.0f * c.o.w)) * inv_n;
+    const float b = aa * t.w;
+    a.dz = a.dz + b * sgnf(t.dz) * rz;
+    a.dl = a.dl + b * sgnf(t.dl) * c.ls.z;
+    const float nf = b * p.sigma_normal / fmaxf(t.ndot, 1e-20f);
+    a.dn0 = a.dn0 + nf * c.nz.x;
+    a.dn1 = a.dn1 + nf * c.nz.y;
+    a.dn2 = a.dn2 + nf * c.nz.z;
+}
+
+// K9's block: a tile of 32 columns by 8 lattice rows, and two warp groups
+// of 32 x 8 threads over it, one thread a pixel in each: the first group
+// computes the pixels' centre terms, the second their neighbour terms and
+// the outputs (see the header for why).
+constexpr int K9_TW = 32, K9_TR = 8, K9_THREADS = 2 * K9_TW * K9_TR;
+// bytes a staged pixel: five float4 and a float2
+constexpr int K9_STAGED_BYTES = 5 * 16 + 8;
+
+// The largest staged tile K9 takes: two blocks an SM.
+constexpr size_t K9_MAX_STAGED = 110 * 1024;
+
+// K9 (see the header): R >= 0 the radius, R = -1 any radius with the taps
+// in wide_taps; STAGED: the neighbourhood staged over the row-lattice
+// tile, else read through the caches.
+template <int R, bool STAGED>
+__global__ void __launch_bounds__(K9_THREADS) wgrad_kernel(
+    WgradIn in, float* __restrict__ d_color, float* __restrict__ d_var,
     float* __restrict__ d_normal, float* __restrict__ d_depth,
-    float* __restrict__ d_zgrad, float* __restrict__ d_sden,
-    AtrousParams p, const float* __restrict__ wide_taps) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= p.W || y >= p.H) return;
-    const int H = p.H, W = p.W, hw = H * W, i = y * W + x;
-    const float lum_x = luma(color, i, hw);
-    const float z_x = depth[i];
-    const float n0 = normal[i], n1 = normal[hw + i], n2 = normal[2 * hw + i];
-    const float zg0 = zgrad[i], zg1 = zgrad[hw + i];
-    const float sd = sden[i];
-    const float isd = 1.0f / sd;
-    const float inv_n = 1.0f / fmaxf(norm[i], kEps);
-    const float g0 = gc[i], g1 = gc[hw + i], g2 = gc[2 * hw + i], g_v = gv[i];
-    const float oc0 = out_c[i], oc1 = out_c[hw + i], oc2 = out_c[2 * hw + i];
-    const float ov = out_v[i];
-    float dn0 = 0.0f, dn1 = 0.0f, dn2 = 0.0f, dz = 0.0f, dzg0 = 0.0f,
-          dzg1 = 0.0f, dsd = 0.0f, dl = 0.0f;
-    const int r = p.radius;
-    for (int dy = -r; dy <= r; ++dy) {
-        const int oy = dy * p.spacing;
-        const int qy = y + oy;
-        if (qy < 0 || qy >= H) continue;
-        for (int dx = -r; dx <= r; ++dx) {
-            const int ox = dx * p.spacing;
-            const int qx = x + ox;
-            if (qx < 0 || qx >= W) continue;
-            const int q = qy * W + qx;
-            const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
-            const float nq0 = normal[q], nq1 = normal[hw + q],
-                        nq2 = normal[2 * hw + q];
-            const Tap t = exact_tap(h, lum_x, luma(color, q, hw), sd, z_x,
-                                    depth[q], zg0, zg1, oy, ox, n0, n1, n2,
-                                    nq0, nq1, nq2, p);
-            const float rz = 1.0f / (p.sigma_depth * fabsf(t.zs) + kEps);
-            const float a =
-                ((g0 * (color[q] - oc0) + g1 * (color[hw + q] - oc1)
-                  + g2 * (color[2 * hw + q] - oc2))
-                 + g_v * (2.0f * t.w * var[q] * inv_n - 2.0f * ov)) * inv_n;
-            const float b = a * t.w;
-            dz = dz - b * sgnf(t.dz) * rz;
-            dl = dl - b * sgnf(t.dl) * isd;
-            dsd = dsd + b * fabsf(t.dl) * (isd * isd);
-            const float gz = b * fabsf(t.dz) * (rz * rz) * p.sigma_depth
-                             * sgnf(t.zs);
-            dzg0 = dzg0 + gz * (float)oy;
-            dzg1 = dzg1 + gz * (float)ox;
-            const float nf = b * p.sigma_normal / fmaxf(t.ndot, 1e-20f);
-            dn0 = dn0 + nf * nq0;
-            dn1 = dn1 + nf * nq1;
-            dn2 = dn2 + nf * nq2;
-        }
-    }
-    d_normal[i] = dn0;
-    d_normal[hw + i] = dn1;
-    d_normal[2 * hw + i] = dn2;
-    d_depth[i] = dz;
-    d_zgrad[i] = dzg0;
-    d_zgrad[hw + i] = dzg1;
-    d_sden[i] = dsd;
-    d_color[i] = dl;
-}
-
-// K9, second kernel: the neighbour terms at x over the centres p = x - d,
-// the detached data stencil, and the sums with the first kernel's partial
-// planes (read and written at x only).
-template <bool WIDE>
-__global__ void wgrad_neighbor_kernel(
-    const float* __restrict__ color, const float* __restrict__ var,
-    const float* __restrict__ normal, const float* __restrict__ depth,
-    const float* __restrict__ zgrad, const float* __restrict__ sden,
-    const float* __restrict__ out_c, const float* __restrict__ out_v,
-    const float* __restrict__ norm, const float* __restrict__ gc,
-    const float* __restrict__ gv, float* __restrict__ d_color,
-    float* __restrict__ d_var, float* __restrict__ d_normal,
-    float* __restrict__ d_depth, AtrousParams p,
+    float* __restrict__ d_zgrad, float* __restrict__ d_sden, AtrousParams p,
     const float* __restrict__ wide_taps) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= p.W || y >= p.H) return;
-    const int H = p.H, W = p.W, hw = H * W, i = y * W + x;
-    const float c0 = color[i], c1 = color[hw + i], c2 = color[2 * hw + i];
-    const float lum_x = luma(color, i, hw);
-    const float z_x = depth[i], v_x = var[i];
-    const float n0 = normal[i], n1 = normal[hw + i], n2 = normal[2 * hw + i];
-    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f;
-    float dn0 = 0.0f, dn1 = 0.0f, dn2 = 0.0f, dz = 0.0f, dl = 0.0f;
-    const int r = p.radius;
-    for (int dy = -r; dy <= r; ++dy) {
-        const int oy = dy * p.spacing;
-        const int py = y - oy;
-        if (py < 0 || py >= H) continue;
-        for (int dx = -r; dx <= r; ++dx) {
-            const int ox = dx * p.spacing;
-            const int px = x - ox;
-            if (px < 0 || px >= W) continue;
-            const int c = py * W + px;
-            const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
-            const float np0 = normal[c], np1 = normal[hw + c],
-                        np2 = normal[2 * hw + c];
-            const float sd = sden[c];
-            const Tap t = exact_tap(h, luma(color, c, hw), lum_x, sd, depth[c],
-                                    z_x, zgrad[c], zgrad[hw + c], oy, ox, np0,
-                                    np1, np2, n0, n1, n2, p);
-            const float inv_n = 1.0f / fmaxf(norm[c], kEps);
-            const float gp0 = gc[c], gp1 = gc[hw + c], gp2 = gc[2 * hw + c];
-            const float gpv = gv[c];
-            const float u2 = gpv * (inv_n * inv_n);
-            acc0 = acc0 + t.w * (gp0 * inv_n);
-            acc1 = acc1 + t.w * (gp1 * inv_n);
-            acc2 = acc2 + t.w * (gp2 * inv_n);
-            acc_v = acc_v + (t.w * t.w) * u2;
-            const float rz = 1.0f / (p.sigma_depth * fabsf(t.zs) + kEps);
-            const float a =
-                ((gp0 * (c0 - out_c[c]) + gp1 * (c1 - out_c[hw + c])
-                  + gp2 * (c2 - out_c[2 * hw + c]))
-                 + gpv * (2.0f * t.w * v_x * inv_n - 2.0f * out_v[c])) * inv_n;
-            const float b = a * t.w;
-            dz = dz + b * sgnf(t.dz) * rz;
-            dl = dl + b * sgnf(t.dl) * (1.0f / sd);
-            const float nf = b * p.sigma_normal / fmaxf(t.ndot, 1e-20f);
-            dn0 = dn0 + nf * np0;
-            dn1 = dn1 + nf * np1;
-            dn2 = dn2 + nf * np2;
+    constexpr bool WIDE = R < 0;
+    // radius 2 runs its rows as a loop: fewer taps' values live at once
+    // (unrolled, its 25 taps spilled twice as many bytes at ptxas's 64
+    // registers and ran 12-24 % slower)
+    constexpr bool ROLL = R == 2;
+    const int H = p.H, W = p.W, hw = H * W;
+    const int r = WIDE ? p.radius : R;
+    const Lattice<K9_TW, K9_TR> L(p.spacing, r);
+    const int tx = threadIdx.x, kl = threadIdx.y % K9_TR;
+    const bool neighbour = threadIdx.y >= K9_TR;
+
+    extern __shared__ float4 smem[];
+    // the centre terms each neighbour-group thread adds: d_normal,
+    // d_depth, d_lum
+    __shared__ float s_centre[5][K9_TR][K9_TW];
+    const int n = L.sw * L.sh;
+    float4 *s_cv = smem, *s_nz = smem + n, *s_ls = smem + 2 * n,
+           *s_g = smem + 3 * n, *s_o = smem + 4 * n;
+    float2* s_zg = (float2*)(smem + 5 * n);
+    if (STAGED) {
+        for (int j = threadIdx.y; j < L.sh; j += 2 * K9_TR) {
+            const int y = L.row(j);
+            for (int c = tx; c < L.sw; c += K9_TW) {
+                const int x = L.col(c);
+                const WgradPix v = in_canvas(H, W, 0, y, x)
+                                       ? wgrad_load(in, y * W + x, hw)
+                                       : WgradPix{};
+                const int e = j * L.sw + c;
+                s_cv[e] = v.cv;
+                s_nz[e] = v.nz;
+                s_ls[e] = v.ls;
+                s_g[e] = v.g;
+                s_o[e] = v.o;
+                s_zg[e] = v.zg;
+            }
         }
+        __syncthreads();
     }
-    const float d_lum = d_color[i] + dl;
-    d_color[i] = acc0 + kL0 * d_lum;
-    d_color[hw + i] = acc1 + kL1 * d_lum;
-    d_color[2 * hw + i] = acc2 + kL2 * d_lum;
-    d_var[i] = acc_v;
-    d_normal[i] = d_normal[i] + dn0;
-    d_normal[hw + i] = d_normal[hw + i] + dn1;
-    d_normal[2 * hw + i] = d_normal[2 * hw + i] + dn2;
-    d_depth[i] = d_depth[i] + dz;
+    auto staged = [&](int e) {
+        WgradPix v;
+        v.cv = s_cv[e];
+        v.nz = s_nz[e];
+        v.ls = s_ls[e];
+        v.g = s_g[e];
+        v.o = s_o[e];
+        v.zg = s_zg[e];
+        return v;
+    };
+
+    const int y = L.out_row(kl), x = L.x0 + tx;
+    const bool valid = y < H && x < W;
+    const int i = y * W + x;
+    WgradNeighbour nb = {};
+    if (valid && !neighbour) {
+        const WgradPix me = STAGED ? staged(L.at(kl, tx, 0, 0))
+                                   : wgrad_load(in, i, hw);
+        WgradCentre ce = {};
+        for_rows<ROLL>(r, [&](int dy) {
+            const int oy = dy * L.s;
+            const int qy = y + oy;
+            if (qy < 0 || qy >= H) return;
+#pragma unroll
+            for (int dx = -r; dx <= r; ++dx) {
+                const int ox = dx * L.s;
+                const int qx = x + ox;
+                if (qx < 0 || qx >= W) continue;
+                const WgradPix q = STAGED ? staged(L.at(kl, tx, dy, dx))
+                                          : wgrad_load(in, qy * W + qx, hw);
+                wgrad_centre_tap(ce, me, q,
+                                 tap_h<WIDE>(p, wide_taps, dy + r, dx + r),
+                                 oy, ox, p);
+            }
+        });
+        d_zgrad[i] = ce.dzg0;
+        d_zgrad[hw + i] = ce.dzg1;
+        d_sden[i] = ce.dsd;
+        s_centre[0][kl][tx] = ce.dn0;
+        s_centre[1][kl][tx] = ce.dn1;
+        s_centre[2][kl][tx] = ce.dn2;
+        s_centre[3][kl][tx] = ce.dz;
+        s_centre[4][kl][tx] = ce.dl;
+    } else if (valid) {
+        const WgradPix me = STAGED ? staged(L.at(kl, tx, 0, 0))
+                                   : wgrad_load(in, i, hw);
+        for_rows<ROLL>(r, [&](int dy) {
+            const int oy = dy * L.s;
+            const int py = y - oy;
+            if (py < 0 || py >= H) return;
+#pragma unroll
+            for (int dx = -r; dx <= r; ++dx) {
+                const int ox = dx * L.s;
+                const int px = x - ox;
+                if (px < 0 || px >= W) continue;
+                const WgradPix c = STAGED ? staged(L.at(kl, tx, -dy, -dx))
+                                          : wgrad_load(in, py * W + px, hw);
+                wgrad_neighbour_tap(nb, me, c,
+                                    tap_h<WIDE>(p, wide_taps, dy + r, dx + r),
+                                    oy, ox, p);
+            }
+        });
+    }
+    __syncthreads();
+    if (!valid || !neighbour) return;
+    // the sums in the order of the two-kernel form: centre + neighbour
+    const float d_lum = s_centre[4][kl][tx] + nb.dl;
+    d_color[i] = nb.acc0 + kL0 * d_lum;
+    d_color[hw + i] = nb.acc1 + kL1 * d_lum;
+    d_color[2 * hw + i] = nb.acc2 + kL2 * d_lum;
+    d_var[i] = nb.acc_v;
+    d_normal[i] = s_centre[0][kl][tx] + nb.dn0;
+    d_normal[hw + i] = s_centre[1][kl][tx] + nb.dn1;
+    d_normal[2 * hw + i] = s_centre[2][kl][tx] + nb.dn2;
+    d_depth[i] = s_centre[3][kl][tx] + nb.dz;
 }
 
-dim3 grid_for(int H, int W, dim3 block) {
-    return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+template <int R, bool STAGED>
+cudaError_t launch_wgrad(const WgradIn& in, float* d_color, float* d_var,
+                         float* d_normal, float* d_depth, float* d_zgrad,
+                         float* d_sden, const AtrousParams& p,
+                         const float* wide_taps, cudaStream_t s) {
+    auto kernel = wgrad_kernel<R, STAGED>;
+    const size_t bytes = STAGED ? lattice_entries<K9_TW, K9_TR>(
+                                      p.spacing, p.radius) * K9_STAGED_BYTES
+                                : 0;
+    static size_t opted = 0;
+    cudaError_t err = allow_smem(kernel, bytes, opted);
+    if (err != cudaSuccess) return err;
+    kernel<<<lattice_grid<K9_TW, K9_TR>(p.H, p.W, p.spacing),
+             dim3(K9_TW, 2 * K9_TR), bytes, s>>>(
+        in, d_color, d_var, d_normal, d_depth, d_zgrad, d_sden, p,
+        wide_taps);
+    return cudaGetLastError();
 }
 
 }  // namespace
@@ -621,10 +534,12 @@ extern "C" int rdt_zgrad(const float* depth, float* zgrad, int H, int W,
     return (int)cudaGetLastError();
 }
 
-// K1/K1b.  sden null: the fused blur (K1), else read (K1b).  w_out and
-// n_out null: no store; n_out alone: N only; both: the weights too, float
-// if w_f32 else bf16.  tile null: the whole frame.  wide_taps null: the
-// taps of params (radius <= 2), else the 2r+1 taps of a larger radius.
+// K1/K1b.  sden null: the fused blur (K1), else read (K1b).  K1: w_out and
+// n_out null (no store), or both (the weights, float if w_f32 else bf16,
+// and N); K1b: n_out alone (N), or both with w_f32 (float weights and N),
+// exact weights only.  Any other combination returns cudaErrorNotSupported
+// (no wrapper launches it).  tile null: the whole frame.  wide_taps null:
+// the taps of params (radius <= 2), else the 2r+1 taps of a larger radius.
 extern "C" int rdt_atrous_level(const float* color, const float* var,
                                 const float* normal, const float* depth,
                                 const float* zgrad, const float* sden,
@@ -633,28 +548,16 @@ extern "C" int rdt_atrous_level(const float* color, const float* var,
                                 const AtrousParams* params,
                                 const AtrousTile* tile,
                                 const float* wide_taps, void* stream) {
-    dim3 block(32, 8);
-    dim3 grid = grid_for(params->H, params->W, block);
-    cudaStream_t s = (cudaStream_t)stream;
-    const AtrousTile t = tile ? *tile : AtrousTile{};
-#define RDT_LEVEL(WT, T, WI)                                              \
-    atrous_level_kernel<WT, T, WI><<<grid, block, 0, s>>>(                \
-        color, var, normal, depth, zgrad, sden, color_out, var_out,       \
-        (WT*)w_out, n_out, *params, t, wide_taps)
-#define RDT_LEVEL_T(WT, WI)                                               \
-    if (tile) RDT_LEVEL(WT, true, WI); else RDT_LEVEL(WT, false, WI)
-#define RDT_LEVEL_WT(WI)                                                  \
-    if (w_f32) { RDT_LEVEL_T(float, WI); }                                \
-    else { RDT_LEVEL_T(__nv_bfloat16, WI); }
-    if (wide_taps) {
-        RDT_LEVEL_WT(true)
-    } else {
-        RDT_LEVEL_WT(false)
+    const LevelArgs a{color, var, normal, depth, zgrad, sden, color_out,
+                      var_out, w_out, n_out, w_f32, params, tile, wide_taps,
+                      (cudaStream_t)stream};
+    if (wide_taps) return (int)launch_level_radius<-1>(a);
+    switch (params->radius) {
+    case 0: return (int)launch_level_radius<0>(a);
+    case 1: return (int)launch_level_radius<1>(a);
+    case 2: return (int)launch_level_radius<2>(a);
+    default: return (int)cudaErrorInvalidValue;
     }
-#undef RDT_LEVEL_WT
-#undef RDT_LEVEL_T
-#undef RDT_LEVEL
-    return (int)cudaGetLastError();
 }
 
 // K2 (bf16 weights) / K2b (w_f32: float weights); with a tile the grid
@@ -706,29 +609,7 @@ extern "C" int rdt_atrous_bwd(const float* color, const float* normal,
     return (int)cudaGetLastError();
 }
 
-// K9: the centre kernel, then the neighbour kernel on the same stream;
-// wide_taps as in rdt_atrous_level.
-template <bool WIDE>
-cudaError_t wgrad_launch(dim3 grid, dim3 block, cudaStream_t s,
-                         const float* color, const float* var,
-                         const float* normal, const float* depth,
-                         const float* zgrad, const float* sden,
-                         const float* out_c, const float* out_v,
-                         const float* norm, const float* gc, const float* gv,
-                         float* d_color, float* d_var, float* d_normal,
-                         float* d_depth, float* d_zgrad, float* d_sden,
-                         const AtrousParams& p, const float* wide_taps) {
-    wgrad_center_kernel<WIDE><<<grid, block, 0, s>>>(
-        color, var, normal, depth, zgrad, sden, out_c, out_v, norm, gc, gv,
-        d_color, d_normal, d_depth, d_zgrad, d_sden, p, wide_taps);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-    wgrad_neighbor_kernel<WIDE><<<grid, block, 0, s>>>(
-        color, var, normal, depth, zgrad, sden, out_c, out_v, norm, gc, gv,
-        d_color, d_var, d_normal, d_depth, p, wide_taps);
-    return cudaGetLastError();
-}
-
+// K9, one launch; wide_taps as in rdt_atrous_level.
 extern "C" int rdt_atrous_wgrad_bwd(
     const float* color, const float* var, const float* normal,
     const float* depth, const float* zgrad, const float* sden,
@@ -736,14 +617,32 @@ extern "C" int rdt_atrous_wgrad_bwd(
     const float* gc, const float* gv, float* d_color, float* d_var,
     float* d_normal, float* d_depth, float* d_zgrad, float* d_sden,
     const AtrousParams* params, const float* wide_taps, void* stream) {
-    dim3 block(32, 8);
-    dim3 grid = grid_for(params->H, params->W, block);
-    cudaStream_t s = (cudaStream_t)stream;
-#define RDT_WGRAD(WI)                                                     \
-    wgrad_launch<WI>(grid, block, s, color, var, normal, depth, zgrad,    \
-                     sden, out_c, out_v, norm, gc, gv, d_color, d_var,    \
-                     d_normal, d_depth, d_zgrad, d_sden, *params, wide_taps)
-    const cudaError_t err = wide_taps ? RDT_WGRAD(true) : RDT_WGRAD(false);
+    const WgradIn in{color, var, normal, depth, zgrad, sden, out_c, out_v,
+                     norm, gc, gv};
+    const cudaStream_t s = (cudaStream_t)stream;
+    // radius 0 reads each neighbour once a pass: nothing to stage; a tile
+    // above K9_MAX_STAGED (radius 3 and more at spacing 16) is not staged
+    const bool staged =
+        params->radius > 0
+        && lattice_entries<K9_TW, K9_TR>(params->spacing, params->radius)
+                   * K9_STAGED_BYTES
+               <= K9_MAX_STAGED;
+#define RDT_WGRAD(R, S)                                                   \
+    launch_wgrad<R, S>(in, d_color, d_var, d_normal, d_depth, d_zgrad,    \
+                       d_sden, *params, wide_taps, s)
+    cudaError_t err;
+    if (wide_taps) {
+        err = staged ? RDT_WGRAD(-1, true) : RDT_WGRAD(-1, false);
+    } else {
+        switch (params->radius) {
+        case 0: err = RDT_WGRAD(0, false); break;
+        case 1: err = staged ? RDT_WGRAD(1, true) : RDT_WGRAD(1, false);
+            break;
+        case 2: err = staged ? RDT_WGRAD(2, true) : RDT_WGRAD(2, false);
+            break;
+        default: err = cudaErrorInvalidValue;
+        }
+    }
 #undef RDT_WGRAD
     return (int)err;
 }

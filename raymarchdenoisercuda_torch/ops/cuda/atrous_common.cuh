@@ -1,0 +1,214 @@
+// Declarations and device helpers shared by the à-trous kernels: atrous.cu
+// (the entry points, K2/K2b, K14, K9) and the level forward K1/K1b
+// (atrous_level.cuh, instantiated in atrous_level_r*.cu).  See atrous.cu's
+// header for the kernels' design.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+// Launch parameters, passed by pointer from ops/atrous_cuda.py (ctypes).
+struct AtrousParams {
+    int H, W, spacing, radius, fast, luma_only;
+    float sigma_color, sigma_depth, sigma_normal;
+    // fast weights: log2(e)-folded constants, rounded from double on the host
+    float sz2, eps2, c_s1, c_s2;
+    float taps[5];
+};
+
+// The tile of a launch, passed by pointer beside the parameters; a null
+// pointer is the whole frame.
+//
+// Tiles (the sharded sweep, parallel/sharded.py): a launch computes the
+// H x W centre of a tile whose pixel (0, 0) is the global pixel
+// (gy0, gx0) of an Hg x Wg frame.  A tap is dropped when its GLOBAL
+// coordinate falls outside the frame, so a tile gives what the whole
+// frame gives at its pixels.  The planes read around a pixel come as
+// canvases: the tile plus a margin of m pixels on every side, with their
+// own row and plane strides (a view into a larger canvas works as it is):
+// colour and variance share one canvas geometry (d_*), normal and depth
+// another (g_*).  The planes read at the pixel itself (depth gradient,
+// sigma denominator, N, cotangents, weights, outputs) are contiguous
+// H x W planes.  The adjoints K2 and K14 write an output region of the
+// centre plus o_m pixels on every side (the gradients of the canvas
+// margins, which the halo exchange's adjoint sends to the tiles that own
+// them).  A whole-frame launch runs the kernels' TILE = false
+// instantiation, which indexes and masks as if there were no tile.  Both
+// instantiations compute the same floats.
+struct AtrousTile {
+    int Hg, Wg, gy0, gx0;
+    int d_rs, d_ps, d_m;    // colour/variance canvas
+    int g_rs, g_ps, g_m;    // normal/depth canvas
+    int o_m;                // adjoints: the output region's margin
+};
+
+// The pointers and parameters of one K1/K1b launch (rdt_atrous_level's
+// arguments), handed to the instantiations of each radius.
+struct LevelArgs {
+    const float *color, *var, *normal, *depth, *zgrad, *sden;
+    float *color_out, *var_out;
+    void* w_out;
+    float* n_out;
+    int w_f32;
+    const AtrousParams* params;
+    const AtrousTile* tile;
+    const float* wide_taps;
+    cudaStream_t stream;
+};
+
+// K1/K1b at radius R (0, 1, 2), or R = -1: any radius, taps in wide_taps;
+// defined in atrous_level.cuh, instantiated one radius a source.
+template <int R>
+cudaError_t launch_level_radius(const LevelArgs& a);
+
+namespace {
+
+constexpr float kEps = 1e-8f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr float kL0 = 0.2126f, kL1 = 0.7152f, kL2 = 0.0722f;
+
+// Rec.709 luminance, rounded op by op (no contraction: --fmad=false).
+__device__ __forceinline__ float luma3(float c0, float c1, float c2) {
+    return kL0 * c0 + kL1 * c1 + kL2 * c2;
+}
+
+__device__ __forceinline__ float luma(const float* c, int i, int hw) {
+    return luma3(c[i], c[hw + i], c[2 * hw + i]);
+}
+
+// Index of tile pixel (y, x) (centre coordinates, negative in the margin)
+// in the colour/variance canvas and in the normal/depth canvas, and their
+// plane strides; W is the tile's width.
+template <bool TILE>
+__device__ __forceinline__ int didx(const AtrousTile& t, int W, int y, int x) {
+    return TILE ? (y + t.d_m) * t.d_rs + (x + t.d_m) : y * W + x;
+}
+template <bool TILE>
+__device__ __forceinline__ int gidx(const AtrousTile& t, int W, int y, int x) {
+    return TILE ? (y + t.g_m) * t.g_rs + (x + t.g_m) : y * W + x;
+}
+
+// Whether tile row y (of H) / column x (of W) lies in the frame.
+template <bool TILE>
+__device__ __forceinline__ bool row_in(const AtrousTile& t, int H, int y) {
+    return TILE ? t.gy0 + y >= 0 && t.gy0 + y < t.Hg : y >= 0 && y < H;
+}
+template <bool TILE>
+__device__ __forceinline__ bool col_in(const AtrousTile& t, int W, int x) {
+    return TILE ? t.gx0 + x >= 0 && t.gx0 + x < t.Wg : x >= 0 && x < W;
+}
+
+// Whether tile pixel (y, x) lies in a canvas of margin m (the image when
+// m = 0): the memory a staged entry may be read from.
+__device__ __forceinline__ bool in_canvas(int H, int W, int m, int y, int x) {
+    return y >= -m && y < H + m && x >= -m && x < W + m;
+}
+
+// The exact weight of centre a for its tap at offset (oy, ox), whose
+// neighbour is b, with the intermediate values the adjoints reuse.  K1,
+// K14 and K9 all go through this one function, so K14's and K9's
+// recomputed weights are bit-equal to the forward's.
+struct Tap {
+    float w, dz, dl, zs, ndot;
+};
+
+__device__ __forceinline__ Tap exact_tap(float h, float l_a, float l_b,
+                                         float sden_a, float z_a, float z_b,
+                                         float zg0_a, float zg1_a, int oy,
+                                         int ox, float na0, float na1,
+                                         float na2, float nb0, float nb1,
+                                         float nb2, const AtrousParams& p) {
+    Tap t;
+    t.dl = l_a - l_b;
+    t.dz = z_a - z_b;
+    t.zs = zg0_a * (float)oy + zg1_a * (float)ox;
+    float wl = -fabsf(t.dl) / sden_a;
+    float wz = -fabsf(t.dz) / (p.sigma_depth * fabsf(t.zs) + kEps);
+    t.ndot = fmaxf(na0 * nb0 + na1 * nb1 + na2 * nb2, 0.0f);
+    float wn = powf(fmaxf(t.ndot, 1e-20f), p.sigma_normal);
+    t.w = h * expf(wz + wl) * wn;
+    return t;
+}
+
+// The 2-D tap weight h of offset (dy + r, dx + r): from the parameters'
+// taps, or (WIDE) from the device array of a radius above 2.
+template <bool WIDE>
+__device__ __forceinline__ float tap_h(const AtrousParams& p,
+                                       const float* __restrict__ wide_taps,
+                                       int ky, int kx) {
+    return WIDE ? wide_taps[ky] * wide_taps[kx] : p.taps[ky] * p.taps[kx];
+}
+
+// The row-lattice tile of K1 and K9.  At spacing s = 2^level every tap of
+// pixel (y, x) lies on the rows y + k*s, so a block owns the output pixels
+// of the TW columns x0 + [0, TW) on the TR lattice rows k0 + [0, TR) of one
+// residue rho (image rows rho + s*k).  Its taps then touch TR + 2r rows of
+// the same lattice (the row halo is r at every level) and, along a row,
+// the columns x0 + dx*s + [0, TW), |dx| <= r: staged as TW + 2r*sp
+// columns, sp = min(s, TW) -- one contiguous run while s <= TW, else 2r+1
+// runs of TW.  Staged rows and columns are read along the image rows, so
+// the loads that fill the tile stay coalesced.
+template <int TW, int TR>
+struct Lattice {
+    int s, r, sp, lsp, sw, sh, x0, k0, rho;
+
+    __device__ __forceinline__ Lattice(int spacing, int radius)
+        : s(spacing), r(radius) {
+        sp = spacing < TW ? spacing : TW;
+        lsp = __ffs(sp) - 1;
+        sw = TW + 2 * radius * sp;
+        sh = TR + 2 * radius;
+        x0 = blockIdx.x * TW;
+        k0 = blockIdx.y * TR;
+        rho = blockIdx.z;
+    }
+    // the image row of staged row j and the image column of staged column c
+    __device__ __forceinline__ int row(int j) const {
+        return rho + s * (k0 - r + j);
+    }
+    __device__ __forceinline__ int col(int c) const {
+        return x0 + ((c >> lsp) - r) * s + (c & (sp - 1));
+    }
+    // the image row of the block's lattice row kl
+    __device__ __forceinline__ int out_row(int kl) const {
+        return rho + s * (k0 + kl);
+    }
+    // the staged entry of the tap (dy, dx) of the output at lattice row kl,
+    // column x0 + tx
+    __device__ __forceinline__ int at(int kl, int tx, int dy, int dx) const {
+        return (kl + dy + r) * sw + tx + (dx + r) * sp;
+    }
+};
+
+// The grid of a lattice launch: column bands, lattice-row groups of the
+// longest residue, residues (a spacing above H leaves the rest empty).
+template <int TW, int TR>
+dim3 lattice_grid(int H, int W, int spacing) {
+    return dim3((W + TW - 1) / TW, ((H + spacing - 1) / spacing + TR - 1) / TR,
+                spacing < H ? spacing : H);
+}
+
+// Entries of a block's staged tile (0 without staging: radius < 0).
+template <int TW, int TR>
+size_t lattice_entries(int spacing, int radius) {
+    if (radius < 0) return 0;
+    const int sp = spacing < TW ? spacing : TW;
+    return (size_t)(TW + 2 * radius * sp) * (TR + 2 * radius);
+}
+
+// Raise a kernel's dynamic shared-memory limit to ``bytes`` (the default
+// leaves 48 KB to static and dynamic shared memory together); ``opted`` is
+// the limit already set for that kernel.
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes, size_t& opted) {
+    if (bytes <= opted) return cudaSuccess;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err == cudaSuccess) opted = bytes;
+    return err;
+}
+
+}  // namespace

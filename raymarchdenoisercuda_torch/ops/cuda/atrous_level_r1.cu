@@ -1,0 +1,5 @@
+// K1/K1b at radius 1 (atrous_level.cuh); one source a radius, so nvcc
+// compiles the instantiations of each in parallel.
+#include "atrous_level.cuh"
+
+template cudaError_t launch_level_radius<1>(const LevelArgs&);

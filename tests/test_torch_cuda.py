@@ -536,6 +536,134 @@ def test_adjoint_kernels_match_plain(dev, shape, level, radius):
                                    atol=1e-4 * float(b.abs().max()))
 
 
+# every level of the level kernels, whole frame and tiles: shapes that are
+# not multiples of the kernels' row-lattice tiles (64 or 32 columns by 8
+# lattice rows), and a 20x20 frame, whose every tap reach at level 4
+# (s = 16) leaves the frame
+LEVEL_SHAPES = [(37, 53), (20, 20)]
+LEVEL_MATHS = [("fast", None), ("exact", None), ("fast", 0), ("exact", 0)]
+STORES = [None, torch.bfloat16, torch.float32]
+
+
+def _level_tol(weight_math, ref):
+    return (dict(rtol=5e-5, atol=0) if weight_math == "exact"
+            else dict(rtol=0, atol=2e-4 * float(ref.abs().max())))
+
+
+def _quarter_tiles(shape):
+    Hg, Wg = shape
+    th, tw = (Hg + 1) // 2, (Wg + 1) // 2
+    for gy in (0, th):
+        for gx in (0, tw):
+            yield Tile((gy, gx), (Hg, Wg)), min(th, Hg - gy), min(tw, Wg - gx)
+
+
+@pytest.mark.parametrize("store", STORES, ids=["none", "bf16", "f32"])
+@pytest.mark.parametrize("weight_math,luma_only_from", LEVEL_MATHS,
+                         ids=["fast", "exact", "fast-luma", "exact-luma"])
+@pytest.mark.parametrize("radius", RADII)
+@pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=["37x53", "20x20"])
+def test_k1_every_level_whole_and_tiles(dev, shape, radius, weight_math,
+                                        luma_only_from, store):
+    """K1 at levels 0-4 against its plain twin (values and N at K1's
+    tolerances, stored weights within one bf16 step or at rtol 5e-5), and
+    its tile form on 2x2 tiles bit-equal to the whole-frame kernel."""
+    color, var, normal, depth = _planes(dev, 100 + radius, *shape)
+    zgrad = finite_diff_gradients(depth)
+    params = SVGFParams(radius=radius, luma_only_from=luma_only_from)
+    extra = dict(store=True, store_dtype=store) if store else {}
+    for level in range(5):
+        kw = dict(level=level, params=params, weight_math=weight_math)
+        got = atrous_level_cuda(color, var, normal, depth, zgrad, **extra,
+                                **kw)
+        want = atrous.atrous_level_ref(color, var, normal, depth, zgrad,
+                                       return_weights=bool(store), **kw)
+        if store:
+            want = (want[0], want[1], want[2].to(store), want[3])
+        for k, (a, b) in enumerate(zip(got, want)):
+            a, b = a.float(), b.float()
+            if k == 2 and store == torch.bfloat16:
+                # one bf16 step, as test_k1_store_mode_and_k2_match_plain
+                tol = dict(rtol=2.0 ** -7, atol=1e-30)
+            elif k == 2 and weight_math == "exact":
+                # float weights as K1b's
+                tol = dict(rtol=5e-5, atol=1e-12 * float(b.abs().max()))
+            else:
+                tol = _level_tol(weight_math, b)
+            np.testing.assert_allclose(_np(a), _np(b), **tol)
+        m = max(radius << level, 1)
+        for tile, th, tw in _quarter_tiles(shape):
+            lvl = [frame_canvas(x, tile, th, tw, m)
+                   for x in (color, var, normal, depth)]
+            gy, gx = tile.origin
+            zg_t = zgrad[..., gy:gy + th, gx:gx + tw].contiguous()
+            got_t = atrous_level_cuda(*lvl, zg_t, tile=tile, **extra, **kw)
+            for a, w in zip(got_t, got):
+                np.testing.assert_array_equal(
+                    _np(a.float()), _np(w[..., gy:gy + th, gx:gx + tw].float()))
+
+
+@pytest.mark.parametrize("save_weights", [False, True], ids=["N", "f32"])
+@pytest.mark.parametrize("radius", RADII)
+@pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=["37x53", "20x20"])
+def test_k1b_every_level_whole_and_tiles(dev, shape, radius, save_weights):
+    """K1b (a given sigma denominator) at levels 0-4 against its plain twin
+    at rtol 5e-5 (weights too), and its tile form bit-equal to the
+    whole-frame kernel."""
+    color, var, normal, depth = _planes(dev, 110 + radius, *shape)
+    zgrad = finite_diff_gradients(depth)
+    params = SVGFParams(radius=radius)
+    sd = atrous.sigma_denominator(var, params)
+    for level in range(5):
+        kw = dict(level=level, params=params)
+        got = atrous_level_fwd_cuda(color, var, normal, depth, zgrad, sd,
+                                    save_weights=save_weights, **kw)
+        c0, v0, w0, n0 = atrous.atrous_level_ref(
+            color, var, normal, depth, zgrad, sigma_denom=sd,
+            return_weights=True, **kw)
+        for a, b in zip(got, (c0, v0, n0, w0)):
+            np.testing.assert_allclose(_np(a), _np(b), rtol=5e-5,
+                                       atol=1e-12 * float(b.abs().max()))
+        m = max(radius << level, 1)
+        for tile, th, tw in _quarter_tiles(shape):
+            lvl = [frame_canvas(x, tile, th, tw, m)
+                   for x in (color, var, normal, depth)]
+            gy, gx = tile.origin
+            crop = [x[..., gy:gy + th, gx:gx + tw].contiguous()
+                    for x in (zgrad, sd)]
+            got_t = atrous_level_fwd_cuda(*lvl, *crop, tile=tile,
+                                          save_weights=save_weights, **kw)
+            for a, w in zip(got_t, got):
+                np.testing.assert_array_equal(
+                    _np(a), _np(w[..., gy:gy + th, gx:gx + tw]))
+
+
+@pytest.mark.parametrize("radius", RADII)
+@pytest.mark.parametrize("shape", [(37, 53), (1080, 1920)],
+                         ids=["37x53", "1080p"])
+def test_k9_every_level_matches_plain(dev, shape, radius):
+    """K9, one launch a call, at levels 0-4 against its plain twin (atol
+    1e-4·max on each of its six planes)."""
+    color, var, normal, depth = _planes(dev, 120 + radius, *shape)
+    zg = finite_diff_gradients(depth)
+    params = SVGFParams(radius=radius)
+    sd = atrous.sigma_denominator(var, params)
+    g = torch.Generator(dev).manual_seed(radius)
+    gc = torch.randn((3, *shape), generator=g, device=dev)
+    gv = torch.randn(shape, generator=g, device=dev)
+    for level in range(5):
+        kw = dict(level=level, params=params)
+        c, v, norm = atrous_level_fwd_cuda(color, var, normal, depth, zg, sd,
+                                           **kw)
+        wargs = (color, var, normal, depth, zg, sd, c, v, norm, gc, gv)
+        before = atrous_level_wgrad_bwd_cuda.launches
+        got = atrous_level_wgrad_bwd_cuda(*wargs, **kw)
+        assert atrous_level_wgrad_bwd_cuda.launches == before + 1
+        for a, b in zip(got, atrous.atrous_level_wgrad_bwd_ref(*wargs, **kw)):
+            np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                       atol=1e-4 * float(b.abs().max()))
+
+
 SWEEP_MODES = [("stored", dict(bwd_impl="stored"), (3e-3,) * 2),
                ("stored_f32", dict(bwd_impl="stored_f32"), (2e-4,) * 2),
                ("recompute", dict(bwd_impl="recompute"), (2e-4,) * 2),
