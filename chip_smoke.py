@@ -10,7 +10,8 @@ the script exits non-zero without printing a result):
 2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``
    (one nvcc per source, in parallel) and print ptxas's registers, stack
    and spills of the à-trous level forward's instantiations (K1/K1b, each
-   radius) and of K9's; fail if one at radius <= 2 uses local memory;
+   radius), of K9's, K14's and K8's; fail if one of K1/K1b at radius <= 2
+   uses local memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -19,7 +20,8 @@ the script exits non-zero without printing a result):
    through the weights, K3 temporal step, K4 reprojection gather, K5/K6
    its adjoints (with ``grid_sample``'s forward and backward timed beside
    them as the library yardstick), K1 in the serving mode at each level
-   0-4, K7 march, K8 shadow + shading, K10 box
+   0-4, K7 march, K8 shadow + shading (the Cornell box and
+   ``random_scene``, each in its compiled instantiation, named), K10 box
    filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
    ``conv2d`` beside it), K12 cross-bilateral filter, K13 shadow
    visibility (Cornell box and ``random_scene``), K1 at radius 0 and 3
@@ -258,6 +260,10 @@ SEEDED_UHD_STEPS = 2                 # timed, after one warm-up step
 K1_MANGLED = re.compile(r"(?:12level_kernel|15level_kernel_2b)ILi(n?\d+)ELi"
                         r"(\d+)ELb([01])ELi(\d+)ELb([01])EE")
 K9_MANGLED = re.compile(r"12wgrad_kernelILi(n?\d+)ELb([01])EE")
+# the recompute adjoint's, atrous_bwd_kernel<R, STAGED, TILE>, and the
+# shading pass's, shade_kernel<NS, NB, NP> (-1: counts known at run time)
+K14_MANGLED = re.compile(r"17atrous_bwd_kernelILi(n?\d+)ELb([01])ELb([01])EE")
+K8_MANGLED = re.compile(r"12shade_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
 
@@ -314,11 +320,24 @@ def random_planes(H, W, dev, seed):
 
 
 def report_resources():
-    """Print ptxas's registers, stack and spills of K1/K1b's and K9's
-    instantiations (the build's report); raise if one at radius <= 2 uses
-    local memory."""
+    """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's
+    and K8's instantiations (the build's report); raise if one of K1/K1b
+    at radius <= 2 uses local memory."""
     k1, k9 = {}, {}
-    for name, res in _build.resource_report().items():
+    for name, res in sorted(_build.resource_report().items()):
+        m = K14_MANGLED.search(name)
+        if m:
+            R, staged, tile = (int(v.replace("n", "-")) for v in m.groups())
+            phase(2, f"K14 r{R if R >= 0 else '>2'}"
+                     f"{' staged' if staged else ''}{' tile' if tile else ''}"
+                     f": {res[0]} registers, stack {res[1]} B, spills "
+                     f"{res[2] + res[3]} B")
+        m = K8_MANGLED.search(name)
+        if m:
+            counts = tuple(int(v.replace("n", "-")) for v in m.groups())
+            phase(2, f"K8 {counts if counts[0] >= 0 else 'runtime counts'}"
+                     f": {res[0]} registers, stack {res[1]} B, spills "
+                     f"{res[2] + res[3]} B")
         m = K1_MANGLED.search(name)
         if m:
             R, math, sden, store, tile = (int(v.replace("n", "-"))
@@ -830,8 +849,24 @@ def cone_evals(scene, ro_c, rd_c, delta, base, rm):
     return float(steps.sum())
 
 
+def lanes_busy(steps):
+    """The share of SIMD lanes busy in a march of ``steps`` (H, W) SDF
+    evaluations a pixel, run as K7/K8 run it: 16x8 blocks, so a warp is 16
+    columns by 2 rows, and each warp steps as long as its longest lane."""
+    pad = F.pad(steps, (0, (-steps.shape[1]) % 16, 0, (-steps.shape[0]) % 2))
+    warps = pad.reshape(pad.shape[0] // 2, 2, pad.shape[1] // 16, 16)
+    longest = warps.amax(dim=(1, 3))
+    return float(steps.sum() / (32.0 * longest.sum())), float(longest.mean())
+
+
 def shadow_evals(scene, p, n, light_p, hit, rm):
     """SDF evaluations of K8's shadow march on these inputs."""
+    return float(shadow_steps(scene, p, n, light_p, hit, rm)[0].sum())
+
+
+def shadow_steps(scene, p, n, light_p, hit, rm):
+    """(H, W) SDF evaluations of K8's shadow march on these inputs, and
+    whether each march ran to the ``shadow_steps`` cap."""
     origin = p + 0.02 * n
     to_l = light_p - origin
     dist_l = torch.sqrt((to_l * to_l).sum(0))
@@ -848,7 +883,7 @@ def shadow_evals(scene, p, n, light_p, hit, rm):
             break
         t = t + torch.where(alive, torch.clamp(d, min=0.01),
                             torch.zeros_like(d))
-    return float(steps.sum())
+    return steps, alive
 
 
 def check_k7_k8(H, W, dev, results):
@@ -877,8 +912,13 @@ def check_k7_k8(H, W, dev, results):
                          bytes=45 * HW,
                          flops=march_evals(scene, ro, rd, rm)
                          * sdf_flops(scene) + 20 * HW)
+    steps = march_steps(scene, ro, rd, rm)
+    busy, longest = lanes_busy(steps)
     phase(3, f"K7: ok, {int((~same).sum())} flips, max |err| {err7:.3g}, "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+             f"{ms:.4f} ms, plain {plain_ms:.4f} ms; march loop "
+             f"{float(steps.mean()):.2f} SDF evaluations a pixel, "
+             f"{longest:.2f} for a warp's longest lane ({busy:.3f} of the "
+             f"lanes busy)")
 
     # K8 on the plain march's outputs, so both versions see one input
     t, hit, mat, n = want
@@ -893,23 +933,61 @@ def check_k7_k8(H, W, dev, results):
     prev = raymarch.prev_camera_constants(orbit_camera(0.1875, device=dev),
                                           cfg)
     args = (scene, p, n, lp, alb, em, hit, light, prev, rm, (W, H))
+    results["K8"] = check_k8(args, "cornell", rtol=0.0)
+    # the random scene: K8's other compiled instantiation, on its own march;
+    # its bodies next to the light render up to ~1e3, where the plain
+    # twin's reciprocal multiply by 1/pi (PyTorch on CUDA divides by a
+    # Python scalar so) and the kernel's division differ by an ulp or two
+    # (2.4e-4 at two pixels of 1080p): rtol 1e-6 beside atol 1e-4
+    scene = raymarch.random_scene(seed=3, device=dev)
+    t, hit, mat, n = raymarch.march_gbuf(scene, ro, rd, rm)
+    alb, em = raymarch._material_lookup(mat, scene.materials.albedo,
+                                        scene.materials.emission)
+    hit_f = hit.float()[None]
+    lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(0),
+                               (H, W))
+    check_k8((scene, ro + t[None] * rd, n, lp, alb * hit_f, em * hit_f, hit,
+              raymarch.light_constants(scene), prev, rm, (W, H)), "random",
+             rtol=1e-6)
+
+
+def check_k8(args, label, rtol):
+    """K8 on ``args`` against its plain twin (render atol 1e-4 and
+    ``rtol`` outside visibility flips, at most 0.1 %; motion atol 1e-4),
+    timed; prints the instantiation that ran (``shade_scene_key``) and
+    returns the result entry."""
+    scene, p, n, lp, alb, em, hit, light, prev, rm, _ = args
+    before = dict(shadow_shade_cuda.by_key)
     got = shadow_shade_cuda(*args)
+    key = [k for k, v in shadow_shade_cuda.by_key.items()
+           if v != before.get(k, 0)]
     want = raymarch.shadow_shade(*args)
-    same = got[1] == want[1]            # visibility flips, as above
+    same = got[1] == want[1]            # visibility flips, as K7's
     if float((~same).float().mean()) > 1e-3:
-        raise AssertionError(f"K8: {int((~same).sum())} visibility flips")
-    check_close("K8 render", got[0], want[0], atol=1e-4, mask=same)
-    check_close("K8 motion", got[2], want[2], atol=1e-4)
+        raise AssertionError(f"K8 {label}: {int((~same).sum())} visibility "
+                             f"flips")
+    check_close(f"K8 {label} render", got[0], want[0], atol=1e-4, rtol=rtol,
+                mask=same)
+    check_close(f"K8 {label} motion", got[2], want[2], atol=1e-4)
     err8 = max(max_err(got[0], want[0], same), max_err(got[2], want[2]))
     ms = cuda_time_ms(lambda: shadow_shade_cuda(*args), repeats=10)
     plain_ms = cuda_time_ms(lambda: raymarch.shadow_shade(*args), repeats=2)
+    HW = hit.numel()
+    steps, capped = shadow_steps(scene, p, n, lp, hit, rm)
+    evals = float(steps.sum())
+    busy, longest = lanes_busy(steps)
+    counts = tuple(x.shape[0] for x in (scene.sphere_params,
+                                        scene.box_params, scene.plane_params))
+    phase(3, f"K8 {label}: ok, instantiation key {key} (counts {counts}), "
+             f"{int((~same).sum())} flips, max |err| {err8:.3g}, {ms:.4f} "
+             f"ms, plain {plain_ms:.4f} ms; shadow march {evals / HW:.2f} "
+             f"SDF evaluations a pixel, {longest:.2f} for a warp's longest "
+             f"lane ({busy:.3f} of the lanes busy), "
+             f"{100 * float(capped.float().mean()):.2f} % of the pixels at "
+             f"the {rm.shadow_steps}-step cap")
     # p, n, light sample, albedo, emission, hit in; render, vis, motion out
-    results["K8"] = dict(max_abs_err=err8, ms=ms, plain_ms=plain_ms,
-                         bytes=85 * HW,
-                         flops=shadow_evals(scene, p, n, lp, hit, rm)
-                         * sdf_flops(scene) + 80 * HW)
-    phase(3, f"K8: ok, {int((~same).sum())} flips, max |err| {err8:.3g}, "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms")
+    return dict(max_abs_err=err8, ms=ms, plain_ms=plain_ms, bytes=85 * HW,
+                flops=evals * sdf_flops(scene) + 80 * HW)
 
 
 def check_k13(H, W, dev, results):

@@ -53,10 +53,10 @@ SIGNATURES = {
     "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,) * 2,
     "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
     "rdt_clamped_gather": (_P,) * 3 + (_I,) * 3 + (_P,),
-    "rdt_clamped_gather_bwd": (_P,) * 5 + (_I,) * 3 + (_P,),
+    "rdt_clamped_gather_bwd": (_P,) * 6 + (_I,) * 4 + (_P,),
     "rdt_march": (_P,) * 10,
     "rdt_cone_seed": (_P,) * 6,
-    "rdt_shadow_shade": (_P,) * 14,
+    "rdt_shadow_shade": (_P,) * 13 + (_I, _P),
     "rdt_shadow": (_P,) * 7,
     "rdt_box_level": (_P,) * 2 + (_I,) * 4 + (_P,),
     "rdt_gauss_pass": (_P,) * 4,

@@ -69,7 +69,25 @@
 // transpose of K1's stencil.  Luminance, 1/N, u and u2 are derived in the
 // kernel (no PyTorch pass).  Plain twin: atrous_level_bwd_ref.  Bound:
 // memory, 76 B/px (colour, normal, depth, zgrad, sigma, N, gc, gv in; dc,
-// dv out); ~40 flops a tap.
+// dv out); ~40 flops a tap, and ~130 instructions (exact_tap's powf, expf
+// and two divisions), which hold it.  Design: K1's row-lattice tile (64
+// columns by 8 lattice rows) laid over the OUTPUT region (the tile form:
+// the centre plus o_m), since the centres p = x - d*2^level of an output
+// lie on its own lattice.  A block stages once per centre of its tile and
+// halo, with coalesced loads, what every tap of that centre reads: normal
+// and depth, u = gc/max(N, eps) and u2 = gv/max(N, eps)^2, luminance
+// (luma3, the float the per-tap expression gives), sigma and depth
+// gradient, 48 B, so that a tap reads three float4 from shared memory in
+// place of ~15 plane reads, a luminance and a 1/N; each thread then
+// computes two outputs.  x's own luminance, depth and normal stay in
+// registers.  Specialised at compile time on the radius (0 stages
+// nothing, 1, 2; above 2 the WIDE instantiation, taps in device memory)
+// and the tile form.  Radius 0, WIDE and a tile above K14_MAX_STAGED read
+// the centres through the caches, one output a thread (two a thread made
+// radius 3 5-16 % slower than the kernel this one replaced).  Every
+// weight goes through exact_tap unchanged and every sum adds its taps in
+// the same (dy, dx) order, so the outputs are those of the one-thread-per-
+// pixel kernel it replaced, bit for bit.
 //
 // K9 replaces the TPU package's two weight-gradient kernels, centre and
 // neighbour (_make_wgrad_*_kernel, atrous_tpu.py:1196 and :1326), as
@@ -200,71 +218,187 @@ __global__ void atrous_bwd_stored_kernel(const WT* __restrict__ w,
     dv[i] = acc_v;
 }
 
+// K14's block: 64 columns by 8 lattice rows of outputs; staged, K1's 64
+// x 4 threads, two lattice rows a thread, else 64 x 8 threads, one each.
+constexpr int K14_TW = 64, K14_TR = 8;
+template <bool STAGED>
+struct K14Rows {
+    static constexpr int PY = STAGED ? 2 : 1;      // lattice rows a thread
+    static constexpr int TY = K14_TR / PY;         // thread rows a block
+    static constexpr int THREADS = K14_TW * TY;
+};
+// bytes a staged centre: three float4
+constexpr int K14_STAGED_BYTES = 48;
+// the largest staged tile (two blocks an SM): radius 2 up to spacing 32;
+// radius 1's is at most 92 KB at any spacing
+constexpr size_t K14_MAX_STAGED = 110 * 1024;
+
+// What K14's taps read of a centre p: normal and depth; u = gc/N' and
+// u2 = gv/N'^2 (N' = max(N, eps)); luminance, sigma, depth gradient.
+struct BwdCentre {
+    float4 nz, u, ls;
+};
+
+template <bool TILE>
+__device__ __forceinline__ BwdCentre bwd_centre(
+    const float* __restrict__ color, const float* __restrict__ normal,
+    const float* __restrict__ depth, const float* __restrict__ zgrad,
+    const float* __restrict__ sden, const float* __restrict__ norm,
+    const float* __restrict__ gc, const float* __restrict__ gv,
+    const AtrousTile& t, int W, int hw, int dp, int gp, int py, int px) {
+    BwdCentre v;
+    const int c = py * W + px;
+    const int dq = didx<TILE>(t, W, py, px), gq = gidx<TILE>(t, W, py, px);
+    v.nz = make_float4(normal[gq], normal[gp + gq], normal[2 * gp + gq],
+                       depth[gq]);
+    const float inv_n = 1.0f / fmaxf(norm[c], kEps);
+    v.u = make_float4(gc[c] * inv_n, gc[hw + c] * inv_n,
+                      gc[2 * hw + c] * inv_n, gv[c] * (inv_n * inv_n));
+    v.ls = make_float4(luma(color, dq, dp), sden[c], zgrad[c],
+                       zgrad[hw + c]);
+    return v;
+}
+
 // K14: the recompute adjoint (see the header).  Exact, full weights only.
-// Output pixel (yo, xo) of the centre-plus-o_m region is tile pixel (y, x);
-// a centre's tap to it was dropped in the forward when (y, x) lies outside
-// the frame, so such a pixel gets zero.
-template <bool TILE, bool WIDE>
-__global__ void atrous_bwd_kernel(const float* __restrict__ color,
-                                  const float* __restrict__ normal,
-                                  const float* __restrict__ depth,
-                                  const float* __restrict__ zgrad,
-                                  const float* __restrict__ sden,
-                                  const float* __restrict__ norm,
-                                  const float* __restrict__ gc,
-                                  const float* __restrict__ gv,
-                                  float* __restrict__ dc,
-                                  float* __restrict__ dv, AtrousParams p,
-                                  AtrousTile t,
-                                  const float* __restrict__ wide_taps) {
+// R: the radius, or -1 (any radius, taps in wide_taps); STAGED: the
+// centres staged over the block's lattice tile, else read through the
+// caches.  Output pixel (yo, xo) of the centre-plus-o_m region is tile
+// pixel (y, x); its centres p = x - d lie in the tile, and a centre's tap
+// to x was dropped in the forward when (y, x) lies outside the frame, so
+// such a pixel gets zero.
+template <int R, bool STAGED, bool TILE>
+__global__ void __launch_bounds__(K14Rows<STAGED>::THREADS) atrous_bwd_kernel(
+    const float* __restrict__ color, const float* __restrict__ normal,
+    const float* __restrict__ depth, const float* __restrict__ zgrad,
+    const float* __restrict__ sden, const float* __restrict__ norm,
+    const float* __restrict__ gc, const float* __restrict__ gv,
+    float* __restrict__ dc, float* __restrict__ dv, AtrousParams p,
+    AtrousTile t, const float* __restrict__ wide_taps) {
+    constexpr bool WIDE = R < 0;
+    constexpr int PY = K14Rows<STAGED>::PY, TY = K14Rows<STAGED>::TY;
     const int H = p.H, W = p.W, hw = H * W;
     const int om = TILE ? t.o_m : 0;
     const int Ho = H + 2 * om, Wo = W + 2 * om, hwo = Ho * Wo;
-    int xo = blockIdx.x * blockDim.x + threadIdx.x;
-    int yo = blockIdx.y * blockDim.y + threadIdx.y;
-    if (xo >= Wo || yo >= Ho) return;
-    const int i = yo * Wo + xo;
-    const int y = yo - om, x = xo - om;
-    float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f;
-    if (!TILE || (row_in<TILE>(t, H, y) && col_in<TILE>(t, W, x))) {
-        const int dp = TILE ? t.d_ps : hw, gp = TILE ? t.g_ps : hw;
-        const int dx_ = didx<TILE>(t, W, y, x), gx_ = gidx<TILE>(t, W, y, x);
-        const float lum_x = luma(color, dx_, dp);
-        const float z_x = depth[gx_];
-        const float n0 = normal[gx_], n1 = normal[gp + gx_],
-                    n2 = normal[2 * gp + gx_];
-        const int r = p.radius;
-        for (int dy = -r; dy <= r; ++dy) {
-            const int oy = dy * p.spacing;
-            const int py = y - oy;
-            if (py < 0 || py >= H) continue;
-            for (int dx = -r; dx <= r; ++dx) {
-                const int ox = dx * p.spacing;
-                const int px = x - ox;
-                if (px < 0 || px >= W) continue;
-                const int c = py * W + px;
-                const int dq = didx<TILE>(t, W, py, px);
-                const int gq = gidx<TILE>(t, W, py, px);
-                const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
-                // centre p's weight for its tap (oy, ox), whose neighbour
-                // is x
-                const float wk = exact_tap(
-                    h, luma(color, dq, dp), lum_x, sden[c], depth[gq], z_x,
-                    zgrad[c], zgrad[hw + c], oy, ox, normal[gq],
-                    normal[gp + gq], normal[2 * gp + gq], n0, n1, n2, p).w;
-                const float inv_n = 1.0f / fmaxf(norm[c], kEps);
-                const float u2 = gv[c] * (inv_n * inv_n);
-                acc0 = acc0 + wk * (gc[c] * inv_n);
-                acc1 = acc1 + wk * (gc[hw + c] * inv_n);
-                acc2 = acc2 + wk * (gc[2 * hw + c] * inv_n);
-                acc_v = acc_v + (wk * wk) * u2;
+    const int dp = TILE ? t.d_ps : hw, gp = TILE ? t.g_ps : hw;
+    const int r = WIDE ? p.radius : R;
+    // the lattice of the output region: its staged rows and columns are
+    // output coordinates, a centre's tile coordinates those less om
+    const Lattice<K14_TW, K14_TR> L(p.spacing, r);
+    const int tx = threadIdx.x;
+
+    extern __shared__ float4 smem[];
+    const int n = L.sw * L.sh;
+    float4 *s_nz = smem, *s_u = smem + n, *s_ls = smem + 2 * n;
+    if (STAGED) {
+        for (int j = threadIdx.y; j < L.sh; j += TY) {
+            const int py = L.row(j) - om;
+            for (int c = tx; c < L.sw; c += K14_TW) {
+                const int px = L.col(c) - om;
+                // a centre outside the tile is never read (its taps are
+                // dropped by their coordinate)
+                const BwdCentre v =
+                    py >= 0 && py < H && px >= 0 && px < W
+                        ? bwd_centre<TILE>(color, normal, depth, zgrad, sden,
+                                           norm, gc, gv, t, W, hw, dp, gp,
+                                           py, px)
+                        : BwdCentre{};
+                const int e = j * L.sw + c;
+                s_nz[e] = v.nz;
+                s_u[e] = v.u;
+                s_ls[e] = v.ls;
             }
         }
+        __syncthreads();
     }
-    dc[i] = acc0;
-    dc[hwo + i] = acc1;
-    dc[2 * hwo + i] = acc2;
-    dv[i] = acc_v;
+
+#pragma unroll 1
+    for (int jj = 0; jj < PY; ++jj) {
+        const int kl = threadIdx.y + jj * TY;
+        const int yo = L.out_row(kl), xo = L.x0 + tx;
+        if (yo >= Ho || xo >= Wo) continue;
+        const int i = yo * Wo + xo;
+        const int y = yo - om, x = xo - om;
+        float acc0 = 0.0f, acc1 = 0.0f, acc2 = 0.0f, acc_v = 0.0f;
+        if (!TILE || (row_in<TILE>(t, H, y) && col_in<TILE>(t, W, x))) {
+            const int dx_ = didx<TILE>(t, W, y, x),
+                      gx_ = gidx<TILE>(t, W, y, x);
+            const float lum_x = luma(color, dx_, dp);
+            const float z_x = depth[gx_];
+            const float n0 = normal[gx_], n1 = normal[gp + gx_],
+                        n2 = normal[2 * gp + gx_];
+#pragma unroll
+            for (int dy = -r; dy <= r; ++dy) {
+                const int oy = dy * L.s;
+                const int py = y - oy;
+                if (py < 0 || py >= H) continue;
+#pragma unroll
+                for (int dx = -r; dx <= r; ++dx) {
+                    const int ox = dx * L.s;
+                    const int px = x - ox;
+                    if (px < 0 || px >= W) continue;
+                    BwdCentre q;
+                    if (STAGED) {
+                        const int e = L.at(kl, tx, -dy, -dx);
+                        q.nz = s_nz[e];
+                        q.u = s_u[e];
+                        q.ls = s_ls[e];
+                    } else {
+                        q = bwd_centre<TILE>(color, normal, depth, zgrad,
+                                             sden, norm, gc, gv, t, W, hw,
+                                             dp, gp, py, px);
+                    }
+                    const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
+                    // centre p's weight for its tap (oy, ox), whose
+                    // neighbour is x
+                    const float wk = exact_tap(
+                        h, q.ls.x, lum_x, q.ls.y, q.nz.w, z_x, q.ls.z,
+                        q.ls.w, oy, ox, q.nz.x, q.nz.y, q.nz.z, n0, n1, n2,
+                        p).w;
+                    acc0 = acc0 + wk * q.u.x;
+                    acc1 = acc1 + wk * q.u.y;
+                    acc2 = acc2 + wk * q.u.z;
+                    acc_v = acc_v + (wk * wk) * q.u.w;
+                }
+            }
+        }
+        dc[i] = acc0;
+        dc[hwo + i] = acc1;
+        dc[2 * hwo + i] = acc2;
+        dv[i] = acc_v;
+    }
+}
+
+// K14's arguments, handed to the instantiation a launch picks.
+struct BwdArgs {
+    const float *color, *normal, *depth, *zgrad, *sden, *norm, *gc, *gv;
+    float *dc, *dv;
+    const float* wide_taps;
+};
+
+template <int R, bool STAGED, bool TILE>
+cudaError_t launch_bwd(const BwdArgs& a, const AtrousParams& p,
+                       const AtrousTile& t, cudaStream_t s) {
+    auto kernel = atrous_bwd_kernel<R, STAGED, TILE>;
+    const size_t bytes = STAGED ? lattice_entries<K14_TW, K14_TR>(
+                                      p.spacing, p.radius) * K14_STAGED_BYTES
+                                : 0;
+    static size_t opted = 0;
+    cudaError_t err = allow_smem(kernel, bytes, opted);
+    if (err != cudaSuccess) return err;
+    const int om = TILE ? t.o_m : 0;
+    kernel<<<lattice_grid<K14_TW, K14_TR>(p.H + 2 * om, p.W + 2 * om,
+                                          p.spacing),
+             dim3(K14_TW, K14Rows<STAGED>::TY), bytes, s>>>(
+        a.color, a.normal, a.depth, a.zgrad, a.sden, a.norm, a.gc, a.gv,
+        a.dc, a.dv, p, t, a.wide_taps);
+    return cudaGetLastError();
+}
+
+template <int R, bool STAGED>
+cudaError_t launch_bwd_tile(const BwdArgs& a, const AtrousParams& p,
+                            const AtrousTile* tile, cudaStream_t s) {
+    return tile ? launch_bwd<R, STAGED, true>(a, p, *tile, s)
+                : launch_bwd<R, STAGED, false>(a, p, AtrousTile{}, s);
 }
 
 // K9's inputs.
@@ -592,21 +726,28 @@ extern "C" int rdt_atrous_bwd(const float* color, const float* normal,
                               float* dv, const AtrousParams* params,
                               const AtrousTile* tile, const float* wide_taps,
                               void* stream) {
-    dim3 block(32, 8);
-    const AtrousTile t = tile ? *tile : AtrousTile{};
-    dim3 grid = grid_for(params->H + 2 * t.o_m, params->W + 2 * t.o_m, block);
-    cudaStream_t s = (cudaStream_t)stream;
-#define RDT_BWD(T, WI)                                                    \
-    atrous_bwd_kernel<T, WI><<<grid, block, 0, s>>>(                      \
-        color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv, *params, \
-        t, wide_taps)
+    const BwdArgs a{color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv,
+                    wide_taps};
+    const AtrousParams& p = *params;
+    const cudaStream_t s = (cudaStream_t)stream;
+    // radius 0 reads each centre once: nothing to stage
+    const bool staged = lattice_entries<K14_TW, K14_TR>(p.spacing, p.radius)
+                            * K14_STAGED_BYTES
+                        <= K14_MAX_STAGED;
+    cudaError_t err;
     if (wide_taps) {
-        if (tile) RDT_BWD(true, true); else RDT_BWD(false, true);
+        err = launch_bwd_tile<-1, false>(a, p, tile, s);
     } else {
-        if (tile) RDT_BWD(true, false); else RDT_BWD(false, false);
+        switch (p.radius) {
+        case 0: err = launch_bwd_tile<0, false>(a, p, tile, s); break;
+        case 1: err = launch_bwd_tile<1, true>(a, p, tile, s); break;
+        case 2: err = staged ? launch_bwd_tile<2, true>(a, p, tile, s)
+                             : launch_bwd_tile<2, false>(a, p, tile, s);
+            break;
+        default: err = cudaErrorInvalidValue;
+        }
     }
-#undef RDT_BWD
-    return (int)cudaGetLastError();
+    return (int)err;
 }
 
 // K9, one launch; wide_taps as in rdt_atrous_level.

@@ -17,6 +17,32 @@
 // (Nb x 6), planes (Np x 4), then the material ids of spheres, boxes and
 // planes as floats.  Each block stages it in shared memory.
 //
+// K8's SDF is specialised on the scene's primitive counts (FixedSdf<NS,
+// NB, NP>): its loops unroll, and each primitive's parameters are
+// constant-bank operands at offsets fixed at compile time (c_scene, which
+// the launch fills from the scene vector, device to device, on its
+// stream): no load and no register a parameter.  The runtime-count SDF
+// (Sdf) reads every parameter from shared memory at each evaluation, 42
+// loads on the Cornell box, with the loops' own overhead.  Holding the
+// Cornell box's 42 floats in registers instead took 88 registers a thread
+// (42 with the constant bank) and ran 0.31 against 0.27 ms at 1080p;
+// random_scene's 260 floats read from shared memory at fixed offsets
+// were hoisted into registers and spilled (255 registers, 4.9 ms against
+// 2.6).  K8 is compiled for the Cornell box (1, 3, 5), the scene of every
+// main path, and random_scene's default (24, 24, 5); any other scene runs
+// the runtime-count instantiation of the same kernel (shade_kernel<-1,
+// -1, -1>).  The wrapper picks the instantiation from the scene's counts
+// (raymarch_cuda.SHADE_SCENES names the same triples).  Both SDFs take
+// the minimum in the same order (spheres, boxes, planes; the first
+// primitive on ties) with the same operations, so the instantiations give
+// the same floats.  K7, K13 and K15 keep the runtime-count SDF.  A shadow
+// march's warps diverge (a random light sample a pixel: the rays of a
+// warp are not coherent; on a 1080p Cornell frame 15.1 steps a pixel, 18.9
+// for a 16 x 2 warp's longest lane, 0.80 of the SIMD lanes busy).
+// Persistent warps that refill their stopped lanes from the block's tile
+// once half of them stopped (shading those together) ran 1.5-1.7x slower
+// on the Cornell box, and were dropped.
+//
 // One thread per pixel, each marching with its own early exit: a ray that
 // stops never moves again, so stopping the loop gives the result of the
 // lock-step loop, and the TPU kernel's per-band while-loop and tile padding
@@ -104,6 +130,59 @@ struct Sdf {
     }
 };
 
+// K8's compiled scene: the primitives' parameters (spheres, boxes,
+// planes, as in the flat scene vector) of the largest scene K8 is compiled
+// for, random_scene's default (24, 24, 5).  launch_shade copies them from
+// the device's scene vector before each launch (device to device, on the
+// launch's stream), so a kernel reads the scene its own launch was given;
+// two launches on streams that run concurrently would share the buffer
+// (the port launches every kernel on the current stream).
+constexpr int kConstSceneFloats = 4 * 24 + 6 * 24 + 4 * 5;
+__constant__ float c_scene[kConstSceneFloats];
+
+// The scene SDF of NS spheres, NB boxes and NP planes, known at compile
+// time (see the header): the loops unroll, and every parameter is a
+// constant-bank operand at a fixed offset of c_scene (no load, no register
+// held); distances only (the shadow march needs no material), each
+// primitive as Sdf computes it.
+template <int NS, int NB, int NP>
+struct FixedSdf {
+    static constexpr int kOb = 4 * NS, kOp = kOb + 6 * NB, kN = kOp + 4 * NP;
+    static_assert(kN <= kConstSceneFloats, "scene larger than c_scene");
+
+    __device__ __forceinline__ float operator()(float px, float py,
+                                                float pz) const {
+        // c_scene indexed by constants: constant-bank operands
+        const float* c = c_scene;
+        float d = INFINITY;
+#pragma unroll
+        for (int k = 0; k < NS; ++k) {
+            const int o = 4 * k;
+            float dx = px - c[o], dy = py - c[o + 1], dz = pz - c[o + 2];
+            float di = sqrtf(dx * dx + dy * dy + dz * dz) - c[o + 3];
+            if (di < d) d = di;
+        }
+#pragma unroll
+        for (int k = 0; k < NB; ++k) {
+            const int o = kOb + 6 * k;
+            float qx = fabsf(px - c[o]) - c[o + 3];
+            float qy = fabsf(py - c[o + 1]) - c[o + 4];
+            float qz = fabsf(pz - c[o + 2]) - c[o + 5];
+            float ox = fmaxf(qx, 0.0f), oy = fmaxf(qy, 0.0f), oz = fmaxf(qz, 0.0f);
+            float di = sqrtf(ox * ox + oy * oy + oz * oz)
+                + fminf(fmaxf(qx, fmaxf(qy, qz)), 0.0f);
+            if (di < d) d = di;
+        }
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+            const int o = kOp + 4 * k;
+            float di = c[o] * px + c[o + 1] * py + c[o + 2] * pz + c[o + 3];
+            if (di < d) d = di;
+        }
+        return d;
+    }
+};
+
 struct ShadowRay {
     float ox, oy, oz;  // origin p + 0.02 n
     float dx, dy, dz;  // unit direction toward the light sample
@@ -129,7 +208,8 @@ __device__ ShadowRay shadow_ray(float px, float py, float pz, float nx,
 // The shadow march of K8 and K13 (the rule of _shadow_march in
 // ops/raymarch.py): minimum step 0.01, the relaxed branch for omega > 1;
 // returns the visibility t >= dist - 0.03 as 0 or 1.
-__device__ float shadow_visibility(const Sdf& sdf, const ShadowRay& r,
+template <typename SDF>
+__device__ float shadow_visibility(const SDF& sdf, const ShadowRay& r,
                                    int steps, float hit_eps, float omega) {
     float t = 0.0f;
     if (omega <= 1.0f) {
@@ -267,8 +347,27 @@ __global__ void cone_kernel(const float* __restrict__ scene,
     t_out[i] = t;
 }
 
+// K8's SDF: FixedSdf (in c_scene), or (NS < 0) the runtime-count one on
+// the scene staged in shared memory.
+template <int NS, int NB, int NP>
+struct ShadeSdf {
+    __device__ static FixedSdf<NS, NB, NP> make(const float*, float*,
+                                                const ShadeParams&) {
+        return {};
+    }
+};
+template <>
+struct ShadeSdf<-1, -1, -1> {
+    __device__ static Sdf make(const float* scene, float* smem,
+                               const ShadeParams& p) {
+        const int n_sc = 5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl;
+        return Sdf{stage_scene(scene, n_sc, smem), p.n_sph, p.n_box, p.n_pl};
+    }
+};
+
 // light: normal (3), radiance (3), area; prev: position, fwd, right, up
 // (3 each), half_w, half_h of the previous camera
+template <int NS, int NB, int NP>
 __global__ void shade_kernel(const float* __restrict__ scene,
                              const float* __restrict__ pos,
                              const float* __restrict__ nrm,
@@ -283,8 +382,7 @@ __global__ void shade_kernel(const float* __restrict__ scene,
                              float* __restrict__ motion,
                              ShadeParams p) {
     extern __shared__ float smem[];
-    const int n_sc = 5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl;
-    const Sdf sdf{stage_scene(scene, n_sc, smem), p.n_sph, p.n_box, p.n_pl};
+    const auto sdf = ShadeSdf<NS, NB, NP>::make(scene, smem, p);
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
@@ -356,6 +454,34 @@ dim3 grid_for(int H, int W, dim3 block) {
     return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
 }
 
+template <int NS, int NB, int NP>
+cudaError_t launch_shade(const float* scene, const float* pos,
+                         const float* normal, const float* light_p,
+                         const float* albedo, const float* emission,
+                         const bool* hit, const float* light,
+                         const float* prev, float* render, float* vis,
+                         float* motion, const ShadeParams& p,
+                         cudaStream_t stream) {
+    size_t smem = 0;
+    if constexpr (NS >= 0) {
+        // a compiled scene runs only the counts it was compiled for
+        if (p.n_sph != NS || p.n_box != NB || p.n_pl != NP)
+            return cudaErrorInvalidValue;
+        cudaError_t err = cudaMemcpyToSymbolAsync(
+            c_scene, scene, sizeof(float) * FixedSdf<NS, NB, NP>::kN, 0,
+            cudaMemcpyDeviceToDevice, stream);
+        if (err != cudaSuccess) return err;
+    } else {
+        smem = sizeof(float) * (5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl);
+    }
+    dim3 block(16, 8);
+    shade_kernel<NS, NB, NP><<<grid_for(p.H, p.W, block), block, smem,
+                               stream>>>(scene, pos, normal, light_p, albedo,
+                                         emission, hit, light, prev, render,
+                                         vis, motion, p);
+    return cudaGetLastError();
+}
+
 }  // namespace
 
 // K7; seed null: every ray starts at 0, else at its block's cone stop
@@ -386,21 +512,26 @@ extern "C" int rdt_cone_seed(const float* scene, const float* ro,
     return (int)cudaGetLastError();
 }
 
+// K8.  scene_key picks the instantiation: 0 the runtime counts, else the
+// compiled scene of that key (raymarch_cuda.SHADE_SCENES, in this order).
 extern "C" int rdt_shadow_shade(const float* scene, const float* pos,
                                 const float* normal, const float* light_p,
                                 const float* albedo, const float* emission,
                                 const bool* hit, const float* light,
                                 const float* prev, float* render, float* vis,
                                 float* motion, const ShadeParams* params,
-                                void* stream) {
-    dim3 block(16, 8);
-    size_t smem = sizeof(float)
-        * (5 * params->n_sph + 7 * params->n_box + 5 * params->n_pl);
-    shade_kernel<<<grid_for(params->H, params->W, block), block, smem,
-                   (cudaStream_t)stream>>>(scene, pos, normal, light_p, albedo,
-                                           emission, hit, light, prev, render,
-                                           vis, motion, *params);
-    return (int)cudaGetLastError();
+                                int scene_key, void* stream) {
+#define RDT_SHADE(NS, NB, NP)                                              \
+    launch_shade<NS, NB, NP>(scene, pos, normal, light_p, albedo, emission,\
+                             hit, light, prev, render, vis, motion,        \
+                             *params, (cudaStream_t)stream)
+    switch (scene_key) {
+    case 0: return (int)RDT_SHADE(-1, -1, -1);
+    case 1: return (int)RDT_SHADE(1, 3, 5);
+    case 2: return (int)RDT_SHADE(24, 24, 5);
+    default: return (int)cudaErrorInvalidValue;
+    }
+#undef RDT_SHADE
 }
 
 extern "C" int rdt_shadow(const float* scene, const float* pos,

@@ -81,12 +81,20 @@
 // fused multiply-adds, as the plain twin bilinear_gather_clamped in
 // ops/temporal.py rounds them).  clamped_gather_bwd_kernel is its adjoint:
 // each pixel scatters its bilinear-weighted cotangent into its four
-// clamped taps with atomicAdd (as K5 does; coinciding clamped taps add
-// up), and takes the motion cotangent from the derivative of the bilinear
-// weights, sum over planes of g.(d out/d fy, d out/d fx).  Bound: memory,
-// 88 B/px forward (10 planes and the motion in, 10 out) and 88 B/px
-// backward at 6 planes with both gradients (motion, 6 cotangent and 6
-// history planes in; 6 history gradients and the motion's out).
+// clamped taps (coinciding clamped taps add up), and takes the motion
+// cotangent from the derivative of the bilinear weights, sum over planes
+// of g.(d out/d fy, d out/d fx).  A texel at the border takes the taps of
+// every pixel whose motion clamps there, hundreds of addends, so a float
+// sum in the atomics' order changes from run to run; the scatter adds the
+// float products into a float64 scratch instead (atomicAdd on double is
+// native on sm_90), where the order moves the sum by ~1e-16 of it, and
+// round_planes_kernel rounds it once to float32 (and zeroes the planes
+// beyond the scattered ones): two runs agree to within that one
+// rounding.  Bound: memory, 88 B/px forward (10 planes and the motion in,
+// 10 out) and 88 B/px backward at 6 planes with both gradients (motion, 6
+// cotangent and 6 history planes in; 6 history gradients and the
+// motion's out), plus the scratch: 48 B/px zeroed, scattered and read
+// back.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -474,12 +482,13 @@ __global__ void clamped_gather_kernel(const float* __restrict__ stack,
     }
 }
 
-// d_stack (zeroed, may be null: no history gradient) gets the leading np
-// planes' scatter; d_motion (may be null) the motion cotangent over them.
+// scratch (zeroed, np float64 planes; may be null: no history gradient)
+// gets the leading np planes' scatter; d_motion (may be null) the motion
+// cotangent over them.
 __global__ void clamped_gather_bwd_kernel(const float* __restrict__ stack,
                                           const float* __restrict__ motion,
                                           const float* __restrict__ g,
-                                          float* __restrict__ d_stack,
+                                          double* __restrict__ scratch,
                                           float* __restrict__ d_motion,
                                           int H, int W, int np) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
@@ -491,12 +500,12 @@ __global__ void clamped_gather_bwd_kernel(const float* __restrict__ stack,
     float dfy = 0.0f, dfx = 0.0f;
     for (int k = 0; k < np; ++k) {
         const float gk = g[k * hw + i];
-        if (d_stack) {
-            float* d = d_stack + k * hw;
-            atomicAdd(&d[c.i00], gk * (gy * gx));
-            atomicAdd(&d[c.i01], gk * (gy * c.fx));
-            atomicAdd(&d[c.i10], gk * (c.fy * gx));
-            atomicAdd(&d[c.i11], gk * (c.fy * c.fx));
+        if (scratch) {
+            double* d = scratch + k * hw;
+            atomicAdd(&d[c.i00], (double)(gk * (gy * gx)));
+            atomicAdd(&d[c.i01], (double)(gk * (gy * c.fx)));
+            atomicAdd(&d[c.i10], (double)(gk * (c.fy * gx)));
+            atomicAdd(&d[c.i11], (double)(gk * (c.fy * c.fx)));
         }
         if (d_motion) {
             const float* a = stack + k * hw;
@@ -514,6 +523,17 @@ __global__ void clamped_gather_bwd_kernel(const float* __restrict__ stack,
     }
 }
 
+// d_stack's P planes of n elements: the first np rounded once from the
+// float64 scratch, the rest zero.
+__global__ void round_planes_kernel(const double* __restrict__ scratch,
+                                    float* __restrict__ d_stack, int n,
+                                    int np, int P) {
+    const int e = blockIdx.x * blockDim.x + threadIdx.x;
+    if (e >= n) return;
+    for (int k = 0; k < P; ++k)
+        d_stack[k * n + e] = k < np ? (float)scratch[k * n + e] : 0.0f;
+}
+
 }  // namespace
 
 // The clamped gather of P planes, and its adjoint (see the header).
@@ -527,14 +547,25 @@ extern "C" int rdt_clamped_gather(const float* stack, const float* motion,
     return (int)cudaGetLastError();
 }
 
+// d_stack (P planes; may be null) needs scratch, grad_planes zeroed
+// float64 planes.
 extern "C" int rdt_clamped_gather_bwd(const float* stack, const float* motion,
                                       const float* g, float* d_stack,
-                                      float* d_motion, int H, int W,
-                                      int grad_planes, void* stream) {
+                                      double* scratch, float* d_motion,
+                                      int H, int W, int grad_planes, int P,
+                                      void* stream) {
     dim3 block(32, 8);
     dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
-    clamped_gather_bwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        stack, motion, g, d_stack, d_motion, H, W, grad_planes);
+    const cudaStream_t s = (cudaStream_t)stream;
+    if (d_stack && !scratch) return (int)cudaErrorInvalidValue;
+    clamped_gather_bwd_kernel<<<grid, block, 0, s>>>(
+        stack, motion, g, d_stack ? scratch : nullptr, d_motion, H, W,
+        grad_planes);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || !d_stack) return (int)err;
+    const int n = H * W;
+    round_planes_kernel<<<(n + 255) / 256, 256, 0, s>>>(scratch, d_stack, n,
+                                                       grad_planes, P);
     return (int)cudaGetLastError();
 }
 

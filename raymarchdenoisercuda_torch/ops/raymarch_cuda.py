@@ -16,6 +16,11 @@ when it is given, as ``raymarch_pallas_gbuf`` does, else from the ray
 planes) and then marches each pixel from its block's stop
 (:func:`march_gbuf_seeded_cuda`).
 
+K8 is compiled for the primitive counts of the scenes in
+:data:`SHADE_SCENES` (its SDF unrolled, the parameters in the constant
+bank) and once for counts known only at run time; :func:`shade_scene_key`
+picks the instantiation.
+
 :func:`shadow_shade_cuda` is a ``torch.autograd.Function``: its backward
 recomputes the shading and motion epilogue in PyTorch with the visibility
 held constant (``_shade_bwd`` in the JAX package) and returns gradients for
@@ -30,6 +35,7 @@ require grad, seeded or not.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Optional, Tuple
 
@@ -74,6 +80,20 @@ def flatten_scene(scene: Scene) -> torch.Tensor:
 def _counts(scene: Scene):
     return (scene.sphere_params.shape[0], scene.box_params.shape[0],
             scene.plane_params.shape[0])
+
+
+# the (spheres, boxes, planes) counts K8 is compiled for, in the order of
+# rdt_shadow_shade's scene keys 1, 2, ... (ops/cuda/raymarch.cu): the
+# Cornell box of every main path and random_scene's default
+SHADE_SCENES = ((1, 3, 5), (24, 24, 5))
+
+
+def shade_scene_key(scene: Scene) -> int:
+    """K8's instantiation for ``scene``: the 1-based index of its counts
+    in :data:`SHADE_SCENES`, or 0, the instantiation for any counts."""
+    counts = _counts(scene)
+    return (SHADE_SCENES.index(counts) + 1 if counts in SHADE_SCENES
+            else 0)
 
 
 def _march_params(H, W, scene, params):
@@ -238,12 +258,15 @@ def _shade_launch(scene, p, n, light_p, albedo, emission, hit, light_consts,
                        cam_h=cam_wh[1], row0=window[0], col0=window[1],
                        hit_eps=params.hit_eps,
                        relax_omega=params.relax_omega)
+    key = shade_scene_key(scene)
     rc = _build.kernels().rdt_shadow_shade(
         *ptrs, hit_ptr, light_ptr, prev_ptr, render.data_ptr(),
         vis.data_ptr(), motion.data_ptr() if has_prev else None,
-        ctypes.addressof(prm), torch.cuda.current_stream(dev).cuda_stream)
+        ctypes.addressof(prm), key,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rdt_shadow_shade")
     shadow_shade_cuda.launches += 1
+    shadow_shade_cuda.by_key[key] += 1
     return render, vis, motion
 
 
@@ -302,7 +325,8 @@ def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
     """Shadow ray + shading + motion; returns ``(render, vis, motion)`` as
     ``shadow_shade`` does, differentiable (see the module docstring);
     ``window`` as there.  Each launch adds one to
-    ``shadow_shade_cuda.launches``."""
+    ``shadow_shade_cuda.launches`` and to ``shadow_shade_cuda.by_key``
+    under its instantiation's :func:`shade_scene_key`."""
     out = _ShadowShade.apply(scene, p, n, light_p, albedo, emission, hit,
                              light_consts, prev_consts, params, cam_wh,
                              tuple(window))
@@ -310,6 +334,7 @@ def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
 
 
 shadow_shade_cuda.launches = 0
+shadow_shade_cuda.by_key = collections.Counter()
 
 
 def shadow_factor_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,

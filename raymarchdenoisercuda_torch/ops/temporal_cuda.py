@@ -471,9 +471,10 @@ def clamped_gather_bwd_cuda(stack, motion, g, *,
     Only the leading ``GRAD_PLANES`` planes of ``g`` count (the temporal
     epilogue's previous depth and normal, planes 6-9, feed validity tests
     only, so their cotangent is zero): ``d_stack`` is zero beyond them and
-    ``d_motion`` sums over them.  ``d_stack`` sums by atomics, in no fixed
-    order.  CPU tensors: autograd of ``bilinear_gather_clamped`` for ``g``
-    cut to those planes.
+    ``d_motion`` sums over them.  ``d_stack`` sums by atomics into a
+    float64 scratch, rounded once to float32: the same on every run to
+    within that rounding.  CPU tensors: autograd of
+    ``bilinear_gather_clamped`` for ``g`` cut to those planes.
 
     Each launch adds one to ``clamped_gather_bwd_cuda.launches``."""
     _build.check_no_grad("clamped_gather_bwd_cuda", stack, motion, g)
@@ -499,13 +500,16 @@ def clamped_gather_bwd_cuda(stack, motion, g, *,
     ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
         (stack, "stack", (P, H, W)), (motion, "motion", (2, H, W)),
         (g, "g", (P, H, W)))]
-    dh = (torch.zeros((P, H, W), dtype=f32, device=dev) if history_grad
+    dh = (torch.empty((P, H, W), dtype=f32, device=dev) if history_grad
           else None)
+    scratch = (torch.zeros((GRAD_PLANES, H, W), dtype=torch.float64,
+                           device=dev) if history_grad else None)
     dm = (torch.empty((2, H, W), dtype=f32, device=dev) if motion_grad
           else None)
     rc = _build.kernels().rdt_clamped_gather_bwd(
         *ptrs, None if dh is None else dh.data_ptr(),
-        None if dm is None else dm.data_ptr(), H, W, GRAD_PLANES,
+        None if scratch is None else scratch.data_ptr(),
+        None if dm is None else dm.data_ptr(), H, W, GRAD_PLANES, P,
         _stream(g))
     _build.check(rc, "rdt_clamped_gather_bwd")
     clamped_gather_bwd_cuda.launches += 1

@@ -1,7 +1,7 @@
-"""The à-trous level kernels of this tree against another tree's, on one GPU.
+"""The redesigned kernels of this tree against another tree's, on one GPU.
 
     python3 -m raymarchdenoisercuda_torch.utils.kernel_ab --parent DIR \\
-        [--out build/kernel_ab.json]
+        [--out build/kernel_ab.json] [--only REGEX]
 
 ``DIR`` holds another checkout of the repository (an earlier commit,
 unpacked with ``git archive``).  Its package is imported beside this one
@@ -9,15 +9,22 @@ under another name, each builds its kernels from its own sources into its
 own ``build/``, and both run in this one process on the same inputs:
 K1 (every radius 0-3, fast, exact and luminance-only weights, at every
 level 0-4, with no store and with bf16 and float weight stores), K1b (with
-and without float weights), K9, the tile forms of K1/K1b on a quarter tile
-of a 3840x2160 frame at levels 1 and 4, and the 5-level inference sweep as
-``chip_smoke.py`` phase 3 runs it, all at 1920x1080 on seeded planes.  For
-each case it prints whether every output is bit-equal to the other tree's
-(``torch.equal``) and the largest difference, and times both trees in turn
-with CUDA events (this, other, this, other; 20 launches each).  It prints
-ptxas's registers, stack and spills of the à-trous kernels of each tree it
-builds (a library built before is loaded as it is), and the card's name
-and power limit.  It exits non-zero if an output differs.
+and without float weights), K9, K14 (every radius 0-3 at every level 0-4),
+the tile forms of K1/K1b/K14 on a quarter tile of a 3840x2160 frame at
+levels 1 and 4, and the 5-level inference sweep as ``chip_smoke.py`` phase
+3 runs it, all at 1920x1080 on seeded planes; K8 on the G-buffers of the
+Cornell box, ``random_scene`` and a scene of other primitive counts (its
+runtime-count instantiation), with ``relax_omega`` 1.0 and 1.5, with and
+without the previous camera, and on a window of the frame (the sharded
+path's launch); and KGb, the clamped gather's adjoint, whose float64 sum
+is compared to within rounding, not bit for bit.  For each case it prints
+whether every output is bit-equal to the other tree's (``torch.equal``)
+and the largest difference, and times both trees in turn with CUDA events
+(this, other, this, other; 20 launches each).  It prints ptxas's
+registers, stack and spills of the à-trous and shading kernels of each
+tree it builds (a library built before is loaded as it is), and the
+card's name and power limit.  It exits non-zero if an output of a
+bit-equal case differs, or if KGb's differs by more than rtol 1e-5.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from .timing import cuda_time_ms, nvidia_smi_name_power
 
 PACKAGE = "raymarchdenoisercuda_torch"
 REPEATS = 20
+FRAME = (1080, 1920)                 # the main paths' frame (H, W)
 
 
 def load_tree(root: Path, alias: str):
@@ -62,6 +70,10 @@ class Tree:
         self.common = importlib.import_module(name + ".ops.common")
         self.build = importlib.import_module(name + ".ops.cuda._build")
         self.SVGFParams = importlib.import_module(name + ".config").SVGFParams
+        self.raymarch_cuda = importlib.import_module(
+            name + ".ops.raymarch_cuda")
+        self.temporal_cuda = importlib.import_module(
+            name + ".ops.temporal_cuda")
 
 
 def planes(H, W, dev, seed):
@@ -79,9 +91,48 @@ def planes(H, W, dev, seed):
             t(0.3 + 0.5 * rng.random((H, W))))
 
 
-def cases(P, U, cots):
-    """``(name, fn)``: ``fn(tree)`` is a zero-argument launch returning a
-    tuple of tensors."""
+# K8's scenes: the two it is compiled for, and one of other counts
+SHADE_SCENES = (("cornell", {}), ("random", dict(seed=3)),
+                ("odd", dict(n_spheres=7, n_boxes=4, seed=5)))
+
+
+def shade_inputs(dev):
+    """``{scene name: (scene, p, n, light sample, albedo, emission, hit,
+    light constants, previous camera constants)}``: K8's inputs at
+    1920x1080, from this tree's march of ``chip_smoke.py`` phase 3's
+    camera."""
+    from ..config import CameraParams, RaymarchParams
+    from ..io.generate import orbit_camera
+    from ..ops import raymarch
+    H, W = FRAME
+    cfg = CameraParams(width=W, height=H)
+    out = {}
+    for name, kw in SHADE_SCENES:
+        scene = (raymarch.cornell_scene(device=dev) if name == "cornell"
+                 else raymarch.random_scene(device=dev, **kw))
+        ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
+        t, hit, mat, n = raymarch.march_gbuf(scene, ro, rd, RaymarchParams())
+        alb, em = raymarch._material_lookup(mat, scene.materials.albedo,
+                                            scene.materials.emission)
+        hit_f = hit.float()[None]
+        lp = raymarch.sample_light(
+            scene, torch.Generator(dev).manual_seed(0), (H, W))
+        out[name] = (scene, ro + t[None] * rd, n, lp, alb * hit_f,
+                     em * hit_f, hit, raymarch.light_constants(scene),
+                     raymarch.prev_camera_constants(
+                         orbit_camera(0.1875, device=dev), cfg))
+    return out
+
+
+def cases(P, U, cots, S):
+    """``(name, fn, exact)``: ``fn(tree)`` is a zero-argument launch
+    returning a tuple of tensors; ``exact``: the two trees' outputs must be
+    bit-equal (else within rounding)."""
+    for case in _cases(P, U, cots, S):
+        yield case if len(case) == 3 else case + (True,)
+
+
+def _cases(P, U, cots, S):
     c, v, n, z = P
 
     def level(tree, r, level, wm, luma=None, store=None):
@@ -142,7 +193,7 @@ def cases(P, U, cots):
                    lambda t, r=r, lvl=lvl: k9(t, r, lvl))
 
     def tile(tree, kind, r, lvl):
-        uc, uv, un, uz = U
+        uc, uv, un, uz, ucots = U
         H, W = uz.shape
         th, tw = H // 2, W // 2
         p = tree.SVGFParams(radius=r)
@@ -161,15 +212,74 @@ def cases(P, U, cots):
         if kind == "K1 store":
             return lambda: tuple(fn.atrous_level_cuda(
                 cc, vc, nc, dc, zgr, store=True, **kw))
+        if kind == "K14":
+            sd = tree.atrous.sigma_denominator(uv, p)[:th, tw:].contiguous()
+            _, _, norm = fn.atrous_level_fwd_cuda(cc, vc, nc, dc, zgr, sd,
+                                                  **kw)
+            gc, gv = (x[..., :th, tw:].contiguous() for x in ucots)
+            return lambda: tuple(fn.atrous_level_bwd_cuda(
+                cc, nc, dc, zgr, sd, norm, gc, gv, out_halo=h, **kw))
         return lambda: tuple(fn.atrous_level_cuda(
             cc, vc, nc, dc, zgr, weight_math="fast", **kw))
 
-    for kind in ("K1 fast", "K1 store", "K1b"):
+    def k14(tree, r, lvl):
+        p = tree.SVGFParams(radius=r)
+        zgr = tree.common.finite_diff_gradients(z)
+        sd = tree.atrous.sigma_denominator(v, p)
+        _, _, norm = tree.atrous_cuda.atrous_level_fwd_cuda(
+            c, v, n, z, zgr, sd, level=lvl, params=p)
+        return lambda: tuple(tree.atrous_cuda.atrous_level_bwd_cuda(
+            c, n, z, zgr, sd, norm, *cots, level=lvl, params=p))
+
+    for r in (0, 1, 2, 3):
+        for lvl in range(5):
+            yield (f"K14 r{r} l{lvl}",
+                   lambda t, r=r, lvl=lvl: k14(t, r, lvl))
+
+    for kind in ("K1 fast", "K1 store", "K1b", "K14"):
         for r in (1, 2):
             for lvl in (1, 4):
                 yield (f"tile {kind} r{r} l{lvl}",
                        lambda t, kind=kind, r=r, lvl=lvl: tile(t, kind, r,
                                                                  lvl))
+
+    def k8(tree, name, omega, prev, window):
+        rm = tree.raymarch_cuda.RaymarchParams(relax_omega=omega)
+        scene, *planes, light, prev_c = S[name]
+        H, W = FRAME
+        # the window: the frame's lower right quarter
+        origin = (H // 2, W // 2) if window else (0, 0)
+        planes = [x[..., origin[0]:, origin[1]:].contiguous()
+                  for x in planes]
+        return lambda: tuple(x for x in tree.raymarch_cuda.shadow_shade_cuda(
+            scene, *planes, light, prev_c if prev else None, rm, (W, H),
+            origin) if x is not None)
+
+    for name, _ in SHADE_SCENES:
+        for omega in (1.0, 1.5):
+            for prev in (True, False):
+                yield (f"K8 {name} omega {omega}"
+                       f"{'' if prev else ' no prev'}",
+                       lambda t, name=name, omega=omega, prev=prev: k8(
+                           t, name, omega, prev, False))
+        yield (f"K8 {name} window",
+               lambda t, name=name: k8(t, name, 1.0, True, True))
+
+    def kgb(tree):
+        # chip_smoke.py phase 3's inputs: motion to ±28 pixels
+        rng = np.random.default_rng(13)
+        dev = c.device
+        stack = torch.from_numpy(rng.random((10, *FRAME),
+                                            dtype=np.float32)).to(dev)
+        motion = torch.from_numpy(((rng.random((2, *FRAME)) - 0.5)
+                                   * 56.0).astype(np.float32)).to(dev)
+        g = torch.from_numpy(rng.standard_normal((10, *FRAME)).astype(
+            np.float32)).to(dev)
+        g[6:] = 0.0
+        return lambda: tuple(tree.temporal_cuda.clamped_gather_bwd_cuda(
+            stack, motion, g))
+
+    yield "KGb (within rounding)", kgb, False
     for r in (0, 1, 2, 3):
         for wm in ("exact", "fast"):
             yield (f"sweep r{r} {wm} (phase 3)",
@@ -187,13 +297,13 @@ def compare(a, b):
     return equal, diff
 
 
-_ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel)I"
-                     r"\w*?EE")
+_ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
+                     r"shade_kernel)I\w*?EE")
 
 
 def resources(text_or_dict):
     """``{short kernel name: (registers, stack, spill st, spill ld)}`` of
-    the à-trous kernels in a ptxas report."""
+    the à-trous and shading kernels in a ptxas report."""
     out = {}
     for name, res in text_or_dict.items():
         m = _ATROUS.search(name)
@@ -234,26 +344,39 @@ def main(argv=None) -> int:
             print(f"  {label} {name}: {regs} registers, stack {frame} B, "
                   f"spills {st + ld} B")
 
-    P = planes(1080, 1920, dev, 0)
-    U = planes(2160, 3840, dev, 12)
+    H, W = FRAME
+    P = planes(H, W, dev, 0)
     g = torch.Generator(dev).manual_seed(11)
-    cots = (torch.randn((3, 1080, 1920), generator=g, device=dev),
-            torch.randn((1080, 1920), generator=g, device=dev))
+    cots = (torch.randn((3, H, W), generator=g, device=dev),
+            torch.randn((H, W), generator=g, device=dev))
+    U = planes(2 * H, 2 * W, dev, 12) + ((
+        torch.randn((3, 2 * H, 2 * W), generator=g, device=dev),
+        torch.randn((2 * H, 2 * W), generator=g, device=dev)),)
     rows, bad = [], []
     with torch.no_grad():
-        for name, make in cases(P, U, cots):
+        S = shade_inputs(dev)
+        for name, make, exact in cases(P, U, cots, S):
             if args.only and not re.search(args.only, name):
                 continue
             fa, fb = make(this), make(other)
-            equal, diff = compare(fa(), fb())
+            a, b = fa(), fb()
+            equal, diff = compare(a, b)
+            # a case compared within rounding: KGb's tolerance against its
+            # float64 twin (rtol 1e-5, atol 1e-6·max)
+            ok = equal or not exact and all(
+                torch.allclose(x, y, rtol=1e-5,
+                               atol=1e-6 * float(y.abs().max()))
+                for x, y in zip(a, b))
             ms = [cuda_time_ms(f, repeats=REPEATS) for f in (fa, fb, fa, fb)]
-            rows.append(dict(case=name, equal=equal, max_diff=diff,
+            rows.append(dict(case=name, equal=equal, ok=ok, max_diff=diff,
                              ms_this=ms[0::2], ms_other=ms[1::2]))
-            print(f"{name}: {'bit-equal' if equal else 'DIFFERS'} (max "
-                  f"|diff| {diff:.3g}); ms this {ms[0]:.4f} {ms[2]:.4f}, "
-                  f"other {ms[1]:.4f} {ms[3]:.4f}, ratio "
-                  f"{(ms[0] + ms[2]) / (ms[1] + ms[3]):.3f}", flush=True)
-            if not equal:
+            verdict = ("bit-equal" if equal else "within rounding" if ok
+                       else "DIFFERS")
+            print(f"{name}: {verdict} (max |diff| {diff:.3g}); ms this "
+                  f"{ms[0]:.4f} {ms[2]:.4f}, other {ms[1]:.4f} {ms[3]:.4f}, "
+                  f"ratio {(ms[0] + ms[2]) / (ms[1] + ms[3]):.3f}",
+                  flush=True)
+            if not ok:
                 bad.append(name)
             del fa, fb
     if args.out:
@@ -261,8 +384,10 @@ def main(argv=None) -> int:
         args.out.write_text(json.dumps(dict(
             card=nvidia_smi_name_power(), resources=report, cases=rows),
             indent=1))
-    print(f"kernel_ab: {len(rows) - len(bad)} of {len(rows)} cases "
-          f"bit-equal" + (f"; differ: {bad}" if bad else ""), flush=True)
+    n_equal = sum(row["equal"] for row in rows)
+    print(f"kernel_ab: {n_equal} of {len(rows)} cases bit-equal, "
+          f"{len(rows) - len(bad)} as required" +
+          (f"; differ: {bad}" if bad else ""), flush=True)
     return 1 if bad else 0
 
 

@@ -1,9 +1,16 @@
-"""The ctypes declarations of the CUDA kernels' C entry points.
+"""The ctypes declarations of the CUDA kernels' C entry points, and K8's
+compiled scenes.
 
 ``ops/cuda/_build.py`` declares the argument types of every ``rdt_*``
 function the ``.cu`` sources export.  A missing or wrong declaration makes
 ctypes pass a pointer as a 32-bit int, which faults on the card only; this
 check reads the sources here, without a compiler.
+
+K8 (``rdt_shadow_shade``) is compiled for the primitive counts of the
+scenes in ``raymarch_cuda.SHADE_SCENES``; the wrapper passes the key of
+the instantiation and the C entry point maps each key to a template
+instantiation.  The two tables are held to each other by parsing the
+source, and the wrapper's choice is checked on CPU scenes.
 """
 
 import ctypes
@@ -11,7 +18,10 @@ import re
 
 import pytest
 
+from raymarchdenoisercuda_torch.ops import raymarch
 from raymarchdenoisercuda_torch.ops.cuda import _build
+from raymarchdenoisercuda_torch.ops.raymarch_cuda import (SHADE_SCENES,
+                                                          shade_scene_key)
 
 _EXPORT = re.compile(r'extern "C" int (rdt_\w+)\(([^)]*)\)', re.S)
 
@@ -51,3 +61,44 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
 """
     assert _build.parse_resources(text) == {"_Z1aPf": (58, 0, 0, 0),
                                             "_Z1bPf": (64, 24, 20, 24)}
+
+
+# arguments added to entry points after they were first declared: the
+# shading pass's instantiation key and the clamped-gather adjoint's float64
+# scratch with its plane count
+@pytest.mark.parametrize("name,index,ctype", [
+    ("rdt_shadow_shade", 13, ctypes.c_int),
+    ("rdt_clamped_gather_bwd", 4, ctypes.c_void_p),
+    ("rdt_clamped_gather_bwd", 9, ctypes.c_int)],
+    ids=["shade scene_key", "gather_bwd scratch", "gather_bwd P"])
+def test_added_arguments_are_declared(name, index, ctype):
+    assert _build.SIGNATURES[name][index] is ctype
+    assert _exports()[name][index] is ctype
+
+
+_SHADE_CASE = re.compile(
+    r"case (\d+): return \(int\)RDT_SHADE\((-?\d+), (-?\d+), (-?\d+)\);")
+
+
+def test_shade_keys_match_the_compiled_scenes():
+    """rdt_shadow_shade's switch maps key 0 to the runtime-count
+    instantiation (-1, -1, -1) and key k to ``SHADE_SCENES[k - 1]``."""
+    src = (_build._SRC_DIR / "raymarch.cu").read_text()
+    cases = {int(k): tuple(int(v) for v in counts)
+             for k, *counts in _SHADE_CASE.findall(src)}
+    assert cases == {0: (-1, -1, -1),
+                     **{k + 1: c for k, c in enumerate(SHADE_SCENES)}}
+
+
+@pytest.mark.parametrize("make,key", [
+    (lambda: raymarch.cornell_scene(device="cpu"), 1),
+    (lambda: raymarch.random_scene(seed=3, device="cpu"), 2),
+    (lambda: raymarch.random_scene(n_spheres=7, n_boxes=4, seed=5,
+                                   device="cpu"), 0),
+    (lambda: raymarch.random_scene(n_spheres=1, n_boxes=3, n_materials=6,
+                                   seed=1, device="cpu"), 1)],
+    ids=["cornell", "random", "odd", "cornell-counts"])
+def test_shade_scene_key_follows_the_counts(make, key):
+    """The key depends on the counts alone: a random scene of the Cornell
+    box's counts runs the Cornell instantiation."""
+    assert shade_scene_key(make()) == key

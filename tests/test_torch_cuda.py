@@ -34,6 +34,14 @@ kernel path against plain path (phase 9's): ``stored`` atol 3e-3·max,
 ``weight_grads`` d_color and d_variance 1e-4·max, d_normal and d_depth
 5e-4·max.
 
+K14 at every radius and level, whole frame and 2x2 tiles, as K1/K1b:
+atol 1e-5·max against the twin, the tiles' margin gradients summed against
+the whole frame at rtol 1e-5.  K8 in each of its instantiations (the
+Cornell box, ``random_scene``, and a scene of other counts: the runtime-
+count one) at K7/K8's tolerance, its window bit-equal to the whole frame's
+crop.  KGb run 20 times: every history gradient within one float32 ulp
+of the first (its float64 sum is rounded once), the motion's bit-equal.
+
 The tile forms (the sharded path's K1, K1b, K2, K14 with a tile origin and
 the frame's bounds, K3b, K4c, K5c/K6c on canvases; ``chip_smoke.py``
 phase 10(a)'s check at a small size): a frame is cut into 2x2 tiles and
@@ -73,7 +81,7 @@ from raymarchdenoisercuda_torch.ops.filters_cuda import (
     box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
-    shadow_factor_cuda, shadow_shade_cuda)
+    shade_scene_key, shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     clamped_gather_bwd_cuda, clamped_gather_cuda, gather_bwd_cuda,
     gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
@@ -1155,3 +1163,156 @@ def test_unbounded_motion_frame_matches_plain(dev, temporal_mode):
     for x, y in zip(*grads):
         np.testing.assert_allclose(_np(x), _np(y), rtol=0,
                                    atol=3e-3 * float(y.abs().max()))
+
+
+def test_clamped_gather_adjoint_is_repeatable(dev):
+    """KGb 20 times on ``test_clamped_gather_and_adjoint_match_plain``'s
+    ``outside`` inputs (motion to ±40 pixels: border texels take hundreds
+    of addends): every ``d_stack`` within one float32 ulp of the first run's
+    or equal to it (the float64 scratch is rounded once; the atomics' order
+    moves the float64 sum by ~1e-16 of it), ``d_motion`` bit-equal (a
+    gather, no atomics)."""
+    rng = np.random.default_rng(31)
+    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
+    motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * 80.0)
+                              .astype(np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    g[temporal.GRAD_PLANES:] = 0
+    first = clamped_gather_bwd_cuda(stack, motion, g)
+    for run in range(1, 20):
+        d_stack, d_motion = clamped_gather_bwd_cuda(stack, motion, g)
+        ulps = (d_stack.view(torch.int32).long()
+                - first[0].view(torch.int32).long()).abs()
+        ok = (d_stack == first[0]) | (ulps <= 1)
+        assert bool(ok.all()), (run, int((~ok).sum()))
+        assert torch.equal(d_motion, first[1]), run
+
+
+@pytest.mark.parametrize("radius", RADII)
+@pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=["37x53", "20x20"])
+def test_k14_every_level_whole_and_tiles(dev, shape, radius):
+    """K14 at levels 0-4 against its plain twin (atol 1e-5·max), whole
+    frame and on 2x2 tiles with the margin gradients (out_halo = the
+    level's reach r·2^level); the tiles' outputs summed over the canvas
+    equal the whole frame's at rtol 1e-5 (the margins' sums in another
+    order)."""
+    _check_k14_levels(dev, shape, radius, range(5))
+
+
+@pytest.mark.parametrize("level", [5, 6])
+def test_k14_radius2_wide_spacing(dev, level):
+    """K14 at radius 2 on a 150x170 frame at spacing 32 (its largest
+    staged tile) and 64 (the centres read through the caches), as
+    ``test_k14_every_level_whole_and_tiles``."""
+    _check_k14_levels(dev, (150, 170), 2, (level,))
+
+
+def _check_k14_levels(dev, shape, radius, levels):
+    color, var, normal, depth = _planes(dev, 130 + radius, *shape)
+    zg = finite_diff_gradients(depth)
+    params = SVGFParams(radius=radius)
+    sd = atrous.sigma_denominator(var, params)
+    g = torch.Generator(dev).manual_seed(30 + radius)
+    gc = torch.randn((3, *shape), generator=g, device=dev)
+    gv = torch.randn(shape, generator=g, device=dev)
+    Hs, Ws = shape
+    for level in levels:
+        kw = dict(level=level, params=params)
+        norm = atrous_level_fwd_cuda(color, var, normal, depth, zg, sd,
+                                     **kw)[2]
+        before = atrous_level_bwd_cuda.launches
+        whole = atrous_level_bwd_cuda(color, normal, depth, zg, sd, norm, gc,
+                                      gv, **kw)
+        assert atrous_level_bwd_cuda.launches == before + 1
+        for a, b in zip(whole, atrous.atrous_level_bwd_ref(
+                color, normal, depth, zg, sd, norm, gc, gv, **kw)):
+            np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                       atol=1e-5 * float(b.abs().max()))
+        h = radius << level
+        acc = [torch.zeros((3, Hs + 2 * h, Ws + 2 * h), device=dev),
+               torch.zeros((Hs + 2 * h, Ws + 2 * h), device=dev)]
+        for tile, th, tw in _quarter_tiles(shape):
+            cc, nc, dc = (frame_canvas(x, tile, th, tw, max(h, 1))
+                          for x in (color, normal, depth))
+            gy, gx = tile.origin
+            zg_t, sd_t, n_t, gc_t, gv_t = (
+                x[..., gy:gy + th, gx:gx + tw].contiguous()
+                for x in (zg, sd, norm, gc, gv))
+            args = (cc, nc, dc, zg_t, sd_t, n_t, gc_t, gv_t)
+            got = atrous_level_bwd_cuda(*args, tile=tile, out_halo=h, **kw)
+            want = atrous.atrous_level_bwd_ref(*args, tile=tile, out_halo=h,
+                                               **kw)
+            for a, b, sum_ in zip(got, want, acc):
+                np.testing.assert_allclose(
+                    _np(a), _np(b), rtol=0,
+                    atol=1e-5 * max(float(b.abs().max()), 1e-30))
+                sum_[..., gy:gy + th + 2 * h, gx:gx + tw + 2 * h] += a
+        for sum_, w in zip(acc, whole):
+            np.testing.assert_allclose(
+                _np(sum_[..., h:h + Hs, h:h + Ws]), _np(w), rtol=1e-5,
+                atol=1e-6 * float(w.abs().max()))
+
+
+# K8's scenes: the two it is compiled for and one of other counts (its
+# runtime-count instantiation), with the key each runs
+SHADE_SCENES = [("cornell", 1), ("random", 2), ("odd", 0)]
+
+
+def _shade_scene(name, dev):
+    if name == "cornell":
+        return raymarch.cornell_scene(device=dev)
+    if name == "random":
+        return raymarch.random_scene(seed=3, device=dev)
+    return raymarch.random_scene(n_spheres=7, n_boxes=4, seed=5, device=dev)
+
+
+@pytest.mark.parametrize("omega", [1.0, 1.5])
+@pytest.mark.parametrize("scene_name,key", SHADE_SCENES,
+                         ids=[s[0] for s in SHADE_SCENES])
+def test_k8_instantiations_match_plain(dev, scene_name, key, omega):
+    """K8 in each instantiation, with and without the previous camera, on
+    the whole frame and on a window (the sharded path's launch), against
+    ``raymarch.shadow_shade`` on the same inputs: render and motion atol
+    1e-4 outside visibility flips (at most 0.1 %), as
+    ``test_k7_k8_match_plain``; the window bit-equal to the whole frame's
+    crop; each launch counted under the scene's key."""
+    scene = _shade_scene(scene_name, dev)
+    assert shade_scene_key(scene) == key
+    cfg = CameraParams(width=W, height=H)
+    rm = RaymarchParams(relax_omega=omega)
+    ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
+    t, hit, mat, n = raymarch.march_gbuf(scene, ro, rd, rm)
+    alb, em = raymarch._material_lookup(mat, scene.materials.albedo,
+                                        scene.materials.emission)
+    hit_f = hit.float()[None]
+    lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(0),
+                               (H, W))
+    planes = (ro + t[None] * rd, n, lp, alb * hit_f, em * hit_f, hit)
+    light = raymarch.light_constants(scene)
+    prev = raymarch.prev_camera_constants(orbit_camera(0.1875, device=dev),
+                                          cfg)
+    for prev_c in (prev, None):
+        whole = None
+        for y0, x0 in ((0, 0), (H // 2, W // 3)):
+            win = [x[..., y0:, x0:].contiguous() for x in planes]
+            args = (scene, *win, light, prev_c, rm, (W, H), (y0, x0))
+            before = shadow_shade_cuda.by_key[key]
+            got = shadow_shade_cuda(*args)
+            assert shadow_shade_cuda.by_key[key] == before + 1
+            want = raymarch.shadow_shade(*args)
+            same = got[1] == want[1]
+            assert float((~same).float().mean()) <= 1e-3, int((~same).sum())
+            np.testing.assert_allclose(_np(got[0])[:, _np(same)],
+                                       _np(want[0])[:, _np(same)], rtol=0,
+                                       atol=1e-4)
+            assert (got[2] is None) == (prev_c is None)
+            if prev_c is not None:
+                np.testing.assert_allclose(_np(got[2]), _np(want[2]),
+                                           rtol=0, atol=1e-4)
+            if whole is None:
+                whole = got
+                continue
+            for a, b in zip(got, whole):
+                if a is not None:
+                    assert torch.equal(a, b[..., y0:, x0:])
