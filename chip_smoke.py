@@ -10,8 +10,8 @@ the script exits non-zero without printing a result):
 2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``
    (one nvcc per source, in parallel) and print ptxas's registers, stack
    and spills of the à-trous level forward's instantiations (K1/K1b, each
-   radius), of K9's, K14's and K8's; fail if one of K1/K1b at radius <= 2
-   uses local memory;
+   radius), of K9's, K14's, K2/K2b's, K7's and K8's; fail if one of K1/K1b
+   or K2/K2b at radius <= 2, or K7 on a compiled scene, uses local memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -20,16 +20,18 @@ the script exits non-zero without printing a result):
    through the weights, K3 temporal step, K4 reprojection gather, K5/K6
    its adjoints (with ``grid_sample``'s forward and backward timed beside
    them as the library yardstick), K1 in the serving mode at each level
-   0-4, K7 march, K8 shadow + shading (the Cornell box and
-   ``random_scene``, each in its compiled instantiation, named), K10 box
-   filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
+   0-4, K7 march (the Cornell box, ``random_scene`` and a scene of other
+   counts) and K8 shadow + shading (the Cornell box and ``random_scene``),
+   each naming its instantiation (compiled scene or runtime counts), K10
+   box filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
    ``conv2d`` beside it), K12 cross-bilateral filter, K13 shadow
    visibility (Cornell box and ``random_scene``), K1 at radius 0 and 3
    beside 1 and 2, K15 cone seed (from ray planes, from the camera, on a
-   quarter tile of 3840x2160) and the seeded K7 on both scenes, with the
-   seeded march held to the unseeded one and K7 seeded and unseeded, K15
-   and the seed passes timed against their SDF-evaluation bounds, and the
-   clamped gather of unbounded motion (KG) and its adjoint (KGb);
+   quarter tile of 3840x2160) and the seeded K7 on both scenes (its
+   instantiation named), with the seeded march held to the unseeded one
+   and K7 seeded and unseeded, K15 and the seed passes timed against
+   their SDF-evaluation bounds, and the clamped gather of unbounded motion
+   (KG) and its adjoint (KGb);
 4. the serving path: 16 frames of the animated Cornell sequence at
    1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
    temporal -> 5-level à-trous, radius 1, fast weights); the first 3
@@ -260,9 +262,15 @@ SEEDED_UHD_STEPS = 2                 # timed, after one warm-up step
 K1_MANGLED = re.compile(r"(?:12level_kernel|15level_kernel_2b)ILi(n?\d+)ELi"
                         r"(\d+)ELb([01])ELi(\d+)ELb([01])EE")
 K9_MANGLED = re.compile(r"12wgrad_kernelILi(n?\d+)ELb([01])EE")
-# the recompute adjoint's, atrous_bwd_kernel<R, STAGED, TILE>, and the
-# shading pass's, shade_kernel<NS, NB, NP> (-1: counts known at run time)
+# the recompute adjoint's, atrous_bwd_kernel<R, STAGED, TILE>, the
+# stored-weight adjoint's, atrous_bwd_stored_kernel<WT, R, TILE> (through
+# the caches; R = -1: any radius) and atrous_bwd_stored_staged_kernel<WT,
+# R, TILE>, and the march's and the shading pass's, march_kernel and
+# shade_kernel<NS, NB, NP> (-1: counts known at run time)
 K14_MANGLED = re.compile(r"17atrous_bwd_kernelILi(n?\d+)ELb([01])ELb([01])EE")
+K2_MANGLED = re.compile(r"(24atrous_bwd_stored|31atrous_bwd_stored_staged)"
+                        r"_kernelI(13__nv_bfloat16|f)Li(n?\d+)ELb([01])EE")
+K7_MANGLED = re.compile(r"12march_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 K8_MANGLED = re.compile(r"12shade_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
@@ -320,11 +328,31 @@ def random_planes(H, W, dev, seed):
 
 
 def report_resources():
-    """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's
-    and K8's instantiations (the build's report); raise if one of K1/K1b
-    at radius <= 2 uses local memory."""
-    k1, k9 = {}, {}
+    """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
+    K2/K2b's, K7's and K8's instantiations (the build's report); raise if
+    one of K1/K1b or K2/K2b at radius <= 2, or K7 on a compiled scene,
+    uses local memory."""
+    k1, k9, local = {}, {}, []
     for name, res in sorted(_build.resource_report().items()):
+        m = K2_MANGLED.search(name)
+        if m:
+            staged = m.group(1).startswith("31")
+            kernel = "K2" if m.group(2).startswith("13") else "K2b"
+            R, tile = int(m.group(3).replace("n", "-")), int(m.group(4))
+            phase(2, f"{kernel} r{R if R >= 0 else '>2'}"
+                     f"{' staged' if staged else ''}{' tile' if tile else ''}"
+                     f": {res[0]} registers, stack {res[1]} B, spills "
+                     f"{res[2] + res[3]} B")
+            if R >= 0 and (res[1] or res[2] or res[3]):
+                local.append(f"{kernel} r{R}{' tile' if tile else ''}")
+        m = K7_MANGLED.search(name)
+        if m:
+            counts = tuple(int(v.replace("n", "-")) for v in m.groups())
+            phase(2, f"K7 {counts if counts[0] >= 0 else 'runtime counts'}"
+                     f": {res[0]} registers, stack {res[1]} B, spills "
+                     f"{res[2] + res[3]} B")
+            if counts[0] >= 0 and (res[1] or res[2] or res[3]):
+                local.append(f"K7 {counts}")
         m = K14_MANGLED.search(name)
         if m:
             R, staged, tile = (int(v.replace("n", "-")) for v in m.groups())
@@ -348,7 +376,6 @@ def report_resources():
             k9[(int(m.group(1).replace("n", "-")), int(m.group(2)))] = res
     if not k1 or not k9:
         raise AssertionError("phase 2: no K1 or K9 kernel in ptxas's report")
-    local = []
     for R, found in sorted(k1.items()):
         regs = [res[0] for res in found.values()]
         frame = max(res[1] for res in found.values())
@@ -826,12 +853,6 @@ def march_steps(scene, ro, rd, rm, t0=None):
     return steps
 
 
-def march_evals(scene, ro, rd, rm, t0=None):
-    """SDF evaluations K7 makes on these rays: the steps each ray takes
-    before it stops, one at the hit and six for the normal."""
-    return float((march_steps(scene, ro, rd, rm, t0) + 7.0).sum())
-
-
 def cone_evals(scene, ro_c, rd_c, delta, base, rm):
     """SDF evaluations K15 makes on these cones (the fattened march)."""
     t = torch.zeros(ro_c.shape[1:], device=ro_c.device)
@@ -886,39 +907,53 @@ def shadow_steps(scene, p, n, light_p, hit, rm):
     return steps, alive
 
 
+def check_k7(scene, label, ro, rd, rm, time_plain=False):
+    """K7 on ``scene`` against its plain twin (t atol 1e-4, normal atol
+    5e-4 rtol 5e-3, outside hit or material flips on an ulp: an exact tie
+    between two primitives, at most 0.1 % of the frame), timed; prints the
+    instantiation that ran (``scene_key``) and returns the plain outputs
+    and the result entry."""
+    before = dict(march_gbuf_cuda.by_key)
+    got = march_gbuf_cuda(scene, ro, rd, rm)
+    key = [k for k, v in march_gbuf_cuda.by_key.items()
+           if v != before.get(k, 0)]
+    want = raymarch.march_gbuf(scene, ro, rd, rm)
+    same = (got[1] == want[1]) & (got[2] == want[2])
+    if float((~same).float().mean()) > 1e-3:
+        raise AssertionError(f"K7 {label}: {int((~same).sum())} hit/material "
+                             f"flips")
+    check_close(f"K7 {label} t", got[0], want[0], atol=1e-4, mask=same)
+    check_close(f"K7 {label} normal", got[3], want[3], atol=5e-4, rtol=5e-3,
+                mask=same)
+    err7 = max(max_err(got[0], want[0], same), max_err(got[3], want[3], same))
+    ms = cuda_time_ms(lambda: march_gbuf_cuda(scene, ro, rd, rm), repeats=10)
+    plain_ms = (cuda_time_ms(lambda: raymarch.march_gbuf(scene, ro, rd, rm),
+                             repeats=2) if time_plain else None)
+    HW = ro[0].numel()
+    steps = march_steps(scene, ro, rd, rm)
+    busy, longest = lanes_busy(steps)
+    counts = tuple(x.shape[0] for x in (scene.sphere_params,
+                                        scene.box_params, scene.plane_params))
+    plain_txt = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+    phase(3, f"K7 {label}: ok, instantiation key {key} (counts {counts}), "
+             f"{int((~same).sum())} flips, max |err| {err7:.3g}, {ms:.4f} "
+             f"ms{plain_txt}; march loop {float(steps.mean()):.2f} SDF "
+             f"evaluations a pixel, {longest:.2f} for a warp's longest lane "
+             f"({busy:.3f} of the lanes busy)")
+    # ro, rd in; t, hit (1 byte), material, normal out
+    return want, dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
+                      bytes=45 * HW,
+                      flops=float((steps + 7.0).sum()) * sdf_flops(scene)
+                      + 20 * HW)
+
+
 def check_k7_k8(H, W, dev, results):
     scene = raymarch.cornell_scene(device=dev)
     cfg = CameraParams(width=W, height=H)
     rm = RaymarchParams()
     ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
-    HW = H * W
-
-    got = march_gbuf_cuda(scene, ro, rd, rm)
-    want = raymarch.march_gbuf(scene, ro, rd, rm)
-    # a pixel whose hit or material flips on an ulp (an exact tie between
-    # two primitives) is left out: at most 0.1 % of the frame
-    same = (got[1] == want[1]) & (got[2] == want[2])
-    if float((~same).float().mean()) > 1e-3:
-        raise AssertionError(f"K7: {int((~same).sum())} hit/material flips")
-    check_close("K7 t", got[0], want[0], atol=1e-4, mask=same)
-    check_close("K7 normal", got[3], want[3], atol=5e-4, rtol=5e-3,
-                mask=same)
-    err7 = max(max_err(got[0], want[0], same), max_err(got[3], want[3], same))
-    ms = cuda_time_ms(lambda: march_gbuf_cuda(scene, ro, rd, rm), repeats=10)
-    plain_ms = cuda_time_ms(lambda: raymarch.march_gbuf(scene, ro, rd, rm),
-                            repeats=2)
-    # ro, rd in; t, hit (1 byte), material, normal out
-    results["K7"] = dict(max_abs_err=err7, ms=ms, plain_ms=plain_ms,
-                         bytes=45 * HW,
-                         flops=march_evals(scene, ro, rd, rm)
-                         * sdf_flops(scene) + 20 * HW)
-    steps = march_steps(scene, ro, rd, rm)
-    busy, longest = lanes_busy(steps)
-    phase(3, f"K7: ok, {int((~same).sum())} flips, max |err| {err7:.3g}, "
-             f"{ms:.4f} ms, plain {plain_ms:.4f} ms; march loop "
-             f"{float(steps.mean()):.2f} SDF evaluations a pixel, "
-             f"{longest:.2f} for a warp's longest lane ({busy:.3f} of the "
-             f"lanes busy)")
+    want, results["K7"] = check_k7(scene, "cornell", ro, rd, rm,
+                                   time_plain=True)
 
     # K8 on the plain march's outputs, so both versions see one input
     t, hit, mat, n = want
@@ -940,7 +975,10 @@ def check_k7_k8(H, W, dev, results):
     # Python scalar so) and the kernel's division differ by an ulp or two
     # (2.4e-4 at two pixels of 1080p): rtol 1e-6 beside atol 1e-4
     scene = raymarch.random_scene(seed=3, device=dev)
-    t, hit, mat, n = raymarch.march_gbuf(scene, ro, rd, rm)
+    (t, hit, mat, n), _ = check_k7(scene, "random", ro, rd, rm)
+    # K7's runtime-count instantiation: a scene of other counts
+    check_k7(raymarch.random_scene(n_spheres=7, n_boxes=4, seed=5,
+                                   device=dev), "odd counts", ro, rd, rm)
     alb, em = raymarch._material_lookup(mat, scene.materials.albedo,
                                         scene.materials.emission)
     hit_f = hit.float()[None]
@@ -954,7 +992,7 @@ def check_k7_k8(H, W, dev, results):
 def check_k8(args, label, rtol):
     """K8 on ``args`` against its plain twin (render atol 1e-4 and
     ``rtol`` outside visibility flips, at most 0.1 %; motion atol 1e-4),
-    timed; prints the instantiation that ran (``shade_scene_key``) and
+    timed; prints the instantiation that ran (``scene_key``) and
     returns the result entry."""
     scene, p, n, lp, alb, em, hit, light, prev, rm, _ = args
     before = dict(shadow_shade_cuda.by_key)
@@ -1061,7 +1099,10 @@ def check_cone_seed(H, W, dev, results):
             err15 = max(err15, max_err(got[0], want))
         t_c = cone_seed_cuda(scene, rm1, camera=cam, cam_cfg=cfg,
                              shape=(H, W))[0]
+        before = dict(march_gbuf_seeded_cuda.by_key)
         got = march_gbuf_seeded_cuda(scene, ro, rd, t_c, rm1)
+        key = [k for k, v in march_gbuf_seeded_cuda.by_key.items()
+               if v != before.get(k, 0)]
         want = raymarch.march_gbuf(scene, ro, rd, rm1, seed=t_c)
         same = (got[1] == want[1]) & (got[2] == want[2])
         if float((~same).float().mean()) > 1e-3:
@@ -1094,7 +1135,8 @@ def check_cone_seed(H, W, dev, results):
                  f"|err| {err15:.3g}, delta "
                  f"{float(cone_seed_cuda(scene, rm1, ro=ro, rd=rd)[1]):.5f} "
                  f"(planes) / {float(routes['camera'][0][2]):.5f} (camera); "
-                 f"K7s: ok, {int((~same).sum())} flips, max |err| "
+                 f"K7s: ok, instantiation key {key}, "
+                 f"{int((~same).sum())} flips, max |err| "
                  f"{err7s:.3g}; seeded vs unseeded: SDF at the seed >= "
                  f"{clear:.3g}·hit_eps, hits agree {agree:.5f}, p99 |Δt| "
                  f"{p99:.3g}, max(seed - t) {overshoot:.3g}; march steps a "

@@ -54,7 +54,7 @@ SIGNATURES = {
     "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
     "rdt_clamped_gather": (_P,) * 3 + (_I,) * 3 + (_P,),
     "rdt_clamped_gather_bwd": (_P,) * 6 + (_I,) * 4 + (_P,),
-    "rdt_march": (_P,) * 10,
+    "rdt_march": (_P,) * 9 + (_I, _P),
     "rdt_cone_seed": (_P,) * 6,
     "rdt_shadow_shade": (_P,) * 13 + (_I, _P),
     "rdt_shadow": (_P,) * 7,

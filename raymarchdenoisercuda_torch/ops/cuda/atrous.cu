@@ -58,8 +58,32 @@
 // u2 = gv_p / max(N_p, eps)^2.  A gather needs no atomics, so the sum is
 // deterministic and in the twin's tap order.  Bound: memory, 54 (K2 r1),
 // 86 (K2 r2), 72 (K2b r1) or 136 (K2b r2) B/px (weights, N, gc, gv in; dc,
-// dv out); the centres' reads are shared between threads through the
-// caches.
+// dv out).  Design at radius 1 and 2 (compile time): K14's row-lattice
+// tile (64 columns by 8 lattice rows) laid over the OUTPUT region, whose
+// centres p = x - d*2^level lie on the output's own lattice.  A block
+// stages once per centre of its tile and halo one float4, (u, u2) =
+// (gc0, gc1, gc2, gv) scaled by inv_n = 1/max(N, eps) and inv_n^2: the
+// floats each tap's own expression gave, so a tap reads one float4 from
+// shared memory and its stored weight, where it read N, gc and gv and
+// divided.  The raw planes are staged by cp.async (all of a thread's
+// copies in flight at once, no register held) and each thread then scales
+// the entries it copied.  The weights are read from device memory: each is
+// read once across the grid.  Each thread computes two horizontally
+// adjacent outputs, so that one load brings both outputs' weights of a tap
+// (a bf16 pair, a float2) where the pair is aligned (not at spacing 1 for
+// dx != 0).  Measured on the H100 at 1080p: one output a thread, a warp's
+// 2-byte weight loads held the bf16 kernel to ~1.5 TB/s; two outputs 32
+// columns or 4 lattice rows apart ran 5-25 % slower, and the tile form of
+// the latter up to 30 % slower than its whole frame; staging with plain
+// loads and stores, or loading a thread's weights into registers first,
+// 10-55 % slower; staged rows split into even and odd columns (no bank
+// conflicts for the pairs' reads) 1-4 % slower.  At most 75 KB a block
+// (radius 2 at spacing 64 and above).  Radius 0 (one tap, each centre read
+// once) and above 2 read the centres through the caches, one output a
+// thread in 32 x 8 blocks, as the kernel this design replaced.  Every sum
+// adds its taps in the same (dy, dx) order, and an out-of-frame centre is
+// dropped by its coordinate, so the outputs are bit-equal to that
+// kernel's and to the twin's.
 //
 // K14 replaces _make_level_kernel(mode="bwd") as called by
 // atrous_level_bwd_pallas and atrous_level_bwd_canvas: the same gather as
@@ -173,20 +197,21 @@ __global__ void zgrad_kernel(const float* __restrict__ z, float* __restrict__ g,
     g[H * W + i] = x == 0 ? fwd_x : (x == W - 1 ? bwd_x : 0.5f * (fwd_x + bwd_x));
 }
 
-// K2 (WT = bf16) and K2b (WT = float): gather-form stored-weight adjoint
-// (see the header).
-template <typename WT, bool TILE>
+// K2 (WT = bf16) and K2b (WT = float), the centres read through the
+// caches: radius R (0) at compile time, or (R = -1) any radius r.
+template <typename WT, int R, bool TILE>
 __global__ void atrous_bwd_stored_kernel(const WT* __restrict__ w,
                                          const float* __restrict__ norm,
                                          const float* __restrict__ gc,
                                          const float* __restrict__ gv,
                                          float* __restrict__ dc,
                                          float* __restrict__ dv,
-                                         int H, int W, int spacing, int r,
+                                         int H, int W, int spacing, int r_,
                                          AtrousTile t) {
     // output pixel (yo, xo) of the centre-plus-o_m region is tile pixel
     // (y, x); its centres p = x - d lie in the tile (their weights hold the
     // border mask)
+    const int r = R < 0 ? r_ : R;
     const int om = TILE ? t.o_m : 0;
     const int Ho = H + 2 * om, Wo = W + 2 * om;
     int xo = blockIdx.x * blockDim.x + threadIdx.x;
@@ -232,6 +257,209 @@ constexpr int K14_STAGED_BYTES = 48;
 // the largest staged tile (two blocks an SM): radius 2 up to spacing 32;
 // radius 1's is at most 92 KB at any spacing
 constexpr size_t K14_MAX_STAGED = 110 * 1024;
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src));
+}
+
+// The two weights of tap plane k at the horizontally adjacent centres
+// (py, px) and (py, px + 1), each read only where in0 / in1 (the other is
+// 0): one 4-byte (bf16) or 8-byte (float) load where both are wanted and
+// the pair is aligned, else one load each.
+__device__ __forceinline__ float2 load_w2(const __nv_bfloat16* w, int idx,
+                                          bool in0, bool in1) {
+    if (in0 && in1 && !((size_t)(w + idx) & 3)) {
+        const __nv_bfloat162 v = *(const __nv_bfloat162*)(w + idx);
+        return make_float2(__low2float(v), __high2float(v));
+    }
+    return make_float2(in0 ? load_w(w, idx) : 0.0f,
+                       in1 ? load_w(w, idx + 1) : 0.0f);
+}
+__device__ __forceinline__ float2 load_w2(const float* w, int idx, bool in0,
+                                          bool in1) {
+    if (in0 && in1 && !((size_t)(w + idx) & 7))
+        return *(const float2*)(w + idx);
+    return make_float2(in0 ? w[idx] : 0.0f, in1 ? w[idx + 1] : 0.0f);
+}
+
+// K2/K2b's block: 64 columns by 8 lattice rows of outputs (K14's tile), 32
+// x 8 threads, each computing two horizontally adjacent outputs.
+constexpr int K2_TX = 32, K2_TY = 8;
+
+// Stage (u, u2) of the block's centres: raw gc, gv and N by cp.async (no
+// register holds them in flight), then each thread scales the entries it
+// copied: u = gc * inv_n, u2 = gv * (inv_n * inv_n), inv_n = 1/max(N, eps),
+// the floats of the per-tap expression.  The block's 256 threads walk the
+// staged tile as 64 columns by 4 rows, so that a warp reads one run of a
+// staged row.  A centre outside the tile is never read (its taps are
+// dropped by their coordinate): zero.
+__device__ __forceinline__ void stage_u(float4* s_u, float* s_n,
+                                        const Lattice<K14_TW, K14_TR>& L,
+                                        const float* __restrict__ norm,
+                                        const float* __restrict__ gc,
+                                        const float* __restrict__ gv, int H,
+                                        int W, int om) {
+    const int hw = H * W;
+    const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+    const int c0 = tid % K14_TW, j0 = tid / K14_TW;
+    constexpr int kRows = K2_TX * K2_TY / K14_TW;
+    for (int j = j0; j < L.sh; j += kRows) {
+        const int py = L.row(j) - om;
+        for (int c = c0; c < L.sw; c += K14_TW) {
+            const int px = L.col(c) - om;
+            const int e = j * L.sw + c;
+            if (py >= 0 && py < H && px >= 0 && px < W) {
+                const int q = py * W + px;
+                float* u = (float*)(s_u + e);
+                cp_async4(u, gc + q);
+                cp_async4(u + 1, gc + hw + q);
+                cp_async4(u + 2, gc + 2 * hw + q);
+                cp_async4(u + 3, gv + q);
+                cp_async4(s_n + e, norm + q);
+            } else {
+                s_u[e] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+                s_n[e] = 1.0f;
+            }
+        }
+    }
+    // a thread's own copies are visible to it once they complete
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    for (int j = j0; j < L.sh; j += kRows) {
+        for (int c = c0; c < L.sw; c += K14_TW) {
+            const int e = j * L.sw + c;
+            const float inv_n = 1.0f / fmaxf(s_n[e], kEps);
+            const float4 g = s_u[e];
+            s_u[e] = make_float4(g.x * inv_n, g.y * inv_n, g.z * inv_n,
+                                 g.w * (inv_n * inv_n));
+        }
+    }
+    __syncthreads();
+}
+
+// K2/K2b at radius R (1, 2) on K14's row-lattice tile over the output
+// region (see the header).
+template <typename WT, int R, bool TILE>
+__global__ void __launch_bounds__(K2_TX * K2_TY)
+    atrous_bwd_stored_staged_kernel(const WT* __restrict__ w,
+                                    const float* __restrict__ norm,
+                                    const float* __restrict__ gc,
+                                    const float* __restrict__ gv,
+                                    float* __restrict__ dc,
+                                    float* __restrict__ dv, int H, int W,
+                                    int spacing, AtrousTile t) {
+    constexpr int SIDE = 2 * R + 1;
+    const int hw = H * W;
+    const int om = TILE ? t.o_m : 0;
+    const int Ho = H + 2 * om, Wo = W + 2 * om, hwo = Ho * Wo;
+    // the lattice of the output region: its staged rows and columns are
+    // output coordinates, a centre's tile coordinates those less om
+    const Lattice<K14_TW, K14_TR> L(spacing, R);
+    const int tx = threadIdx.x, kl = threadIdx.y;
+    extern __shared__ float4 s_u[];
+    stage_u(s_u, (float*)(s_u + L.sw * L.sh), L, norm, gc, gv, H, W, om);
+
+    // outputs (yo, xo) and (yo, xo + 1)
+    const int yo = L.out_row(kl), xo = L.x0 + 2 * tx;
+    if (yo >= Ho || xo >= Wo) return;
+    const bool two = xo + 1 < Wo;
+    const int y = yo - om, x = xo - om;
+    float a0[2] = {0.0f, 0.0f}, a1[2] = {0.0f, 0.0f}, a2[2] = {0.0f, 0.0f},
+          av[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int dy = -R; dy <= R; ++dy) {
+        const int py = y - dy * L.s;
+        if (py < 0 || py >= H) continue;
+#pragma unroll
+        for (int dx = -R; dx <= R; ++dx) {
+            const int px = x - dx * L.s;
+            const bool in0 = px >= 0 && px < W;
+            const bool in1 = two && px + 1 >= 0 && px + 1 < W;
+            if (!in0 && !in1) continue;
+            const int k = (dy + R) * SIDE + (dx + R);
+            const float2 wk = load_w2(w, k * hw + py * W + px, in0, in1);
+            const int e = L.at(kl, 2 * tx, -dy, -dx);
+            if (in0) {
+                const float4 u = s_u[e];
+                a0[0] = a0[0] + wk.x * u.x;
+                a1[0] = a1[0] + wk.x * u.y;
+                a2[0] = a2[0] + wk.x * u.z;
+                av[0] = av[0] + (wk.x * wk.x) * u.w;
+            }
+            if (in1) {
+                const float4 u = s_u[e + 1];
+                a0[1] = a0[1] + wk.y * u.x;
+                a1[1] = a1[1] + wk.y * u.y;
+                a2[1] = a2[1] + wk.y * u.z;
+                av[1] = av[1] + (wk.y * wk.y) * u.w;
+            }
+        }
+    }
+    const int i = yo * Wo + xo;
+    if (two && !(((size_t)(dc + i) | (size_t)(dc + hwo + i)
+                  | (size_t)(dv + i)) & 7)) {
+        *(float2*)(dc + i) = make_float2(a0[0], a0[1]);
+        *(float2*)(dc + hwo + i) = make_float2(a1[0], a1[1]);
+        *(float2*)(dc + 2 * hwo + i) = make_float2(a2[0], a2[1]);
+        *(float2*)(dv + i) = make_float2(av[0], av[1]);
+    } else {
+        dc[i] = a0[0];
+        dc[hwo + i] = a1[0];
+        dc[2 * hwo + i] = a2[0];
+        dv[i] = av[0];
+        if (two) {
+            dc[i + 1] = a0[1];
+            dc[hwo + i + 1] = a1[1];
+            dc[2 * hwo + i + 1] = a2[1];
+            dv[i + 1] = av[1];
+        }
+    }
+}
+
+// K2/K2b's arguments, handed to the instantiation a launch picks.
+struct StoredArgs {
+    const void* w;
+    const float *norm, *gc, *gv;
+    float *dc, *dv;
+    int H, W, spacing, radius;
+};
+
+template <typename WT, int R, bool TILE>
+cudaError_t launch_stored(const StoredArgs& a, const AtrousTile& t,
+                          cudaStream_t s) {
+    const int Ho = a.H + 2 * t.o_m, Wo = a.W + 2 * t.o_m;
+    if constexpr (R == 1 || R == 2) {
+        auto kernel = atrous_bwd_stored_staged_kernel<WT, R, TILE>;
+        const size_t bytes = lattice_entries<K14_TW, K14_TR>(a.spacing, R)
+                             * (sizeof(float4) + sizeof(float));
+        static size_t opted = 0;
+        cudaError_t err = allow_smem(kernel, bytes, opted);
+        if (err != cudaSuccess) return err;
+        kernel<<<lattice_grid<K14_TW, K14_TR>(Ho, Wo, a.spacing),
+                 dim3(K2_TX, K2_TY), bytes, s>>>(
+            (const WT*)a.w, a.norm, a.gc, a.gv, a.dc, a.dv, a.H, a.W,
+            a.spacing, t);
+    } else {
+        dim3 block(32, 8);
+        atrous_bwd_stored_kernel<WT, R, TILE><<<grid_for(Ho, Wo, block),
+                                                block, 0, s>>>(
+            (const WT*)a.w, a.norm, a.gc, a.gv, a.dc, a.dv, a.H, a.W,
+            a.spacing, a.radius, t);
+    }
+    return cudaGetLastError();
+}
+
+template <typename WT, bool TILE>
+cudaError_t launch_stored_radius(const StoredArgs& a, const AtrousTile& t,
+                                 cudaStream_t s) {
+    switch (a.radius) {
+    case 0: return launch_stored<WT, 0, TILE>(a, t, s);
+    case 1: return launch_stored<WT, 1, TILE>(a, t, s);
+    case 2: return launch_stored<WT, 2, TILE>(a, t, s);
+    default: return launch_stored<WT, -1, TILE>(a, t, s);
+    }
+}
 
 // What K14's taps read of a centre p: normal and depth; u = gc/N' and
 // u2 = gv/N'^2 (N' = max(N, eps)); luminance, sigma, depth gradient.
@@ -701,21 +929,15 @@ extern "C" int rdt_atrous_bwd_stored(const void* w, const float* norm,
                                      float* dc, float* dv, int H, int W,
                                      int spacing, int radius, int w_f32,
                                      const AtrousTile* tile, void* stream) {
-    dim3 block(32, 8);
+    const StoredArgs a{w, norm, gc, gv, dc, dv, H, W, spacing, radius};
     const AtrousTile t = tile ? *tile : AtrousTile{};
-    dim3 grid = grid_for(H + 2 * t.o_m, W + 2 * t.o_m, block);
-    cudaStream_t s = (cudaStream_t)stream;
-#define RDT_STORED(WT, T)                                                 \
-    atrous_bwd_stored_kernel<WT, T><<<grid, block, 0, s>>>(               \
-        (const WT*)w, norm, gc, gv, dc, dv, H, W, spacing, radius, t)
+    const cudaStream_t s = (cudaStream_t)stream;
     if (w_f32) {
-        if (tile) RDT_STORED(float, true); else RDT_STORED(float, false);
-    } else {
-        if (tile) RDT_STORED(__nv_bfloat16, true);
-        else RDT_STORED(__nv_bfloat16, false);
+        return (int)(tile ? launch_stored_radius<float, true>(a, t, s)
+                          : launch_stored_radius<float, false>(a, t, s));
     }
-#undef RDT_STORED
-    return (int)cudaGetLastError();
+    return (int)(tile ? launch_stored_radius<__nv_bfloat16, true>(a, t, s)
+                      : launch_stored_radius<__nv_bfloat16, false>(a, t, s));
 }
 
 // K14, over the output region as K2; wide_taps as in rdt_atrous_level.

@@ -15,33 +15,38 @@
 //
 // The scene is the flat vector of flatten_scene: spheres (Ns x 4), boxes
 // (Nb x 6), planes (Np x 4), then the material ids of spheres, boxes and
-// planes as floats.  Each block stages it in shared memory.
+// planes as floats.  A runtime-count instantiation stages it in shared
+// memory; a compiled one reads it from the constant bank (below).
 //
-// K8's SDF is specialised on the scene's primitive counts (FixedSdf<NS,
-// NB, NP>): its loops unroll, and each primitive's parameters are
-// constant-bank operands at offsets fixed at compile time (c_scene, which
-// the launch fills from the scene vector, device to device, on its
-// stream): no load and no register a parameter.  The runtime-count SDF
-// (Sdf) reads every parameter from shared memory at each evaluation, 42
-// loads on the Cornell box, with the loops' own overhead.  Holding the
-// Cornell box's 42 floats in registers instead took 88 registers a thread
-// (42 with the constant bank) and ran 0.31 against 0.27 ms at 1080p;
-// random_scene's 260 floats read from shared memory at fixed offsets
-// were hoisted into registers and spilled (255 registers, 4.9 ms against
-// 2.6).  K8 is compiled for the Cornell box (1, 3, 5), the scene of every
-// main path, and random_scene's default (24, 24, 5); any other scene runs
-// the runtime-count instantiation of the same kernel (shade_kernel<-1,
-// -1, -1>).  The wrapper picks the instantiation from the scene's counts
-// (raymarch_cuda.SHADE_SCENES names the same triples).  Both SDFs take
-// the minimum in the same order (spheres, boxes, planes; the first
-// primitive on ties) with the same operations, so the instantiations give
-// the same floats.  K7, K13 and K15 keep the runtime-count SDF.  A shadow
-// march's warps diverge (a random light sample a pixel: the rays of a
-// warp are not coherent; on a 1080p Cornell frame 15.1 steps a pixel, 18.9
-// for a 16 x 2 warp's longest lane, 0.80 of the SIMD lanes busy).
-// Persistent warps that refill their stopped lanes from the block's tile
-// once half of them stopped (shading those together) ran 1.5-1.7x slower
-// on the Cornell box, and were dropped.
+// K7's and K8's SDF is specialised on the scene's primitive counts
+// (FixedSdf<NS, NB, NP>): its loops unroll, and each primitive's
+// parameters and material id are constant-bank operands at offsets fixed
+// at compile time (c_scene, which the launch fills from the scene vector,
+// device to device, on its stream): no load and no register a parameter.
+// The runtime-count SDF (Sdf) reads every parameter from shared memory at
+// each evaluation, 42 loads on the Cornell box, with the loops' own
+// overhead.  Holding the Cornell box's 42 floats in registers instead took
+// 88 registers a thread in K8 (42 with the constant bank) and ran 0.31
+// against 0.27 ms at 1080p; random_scene's 260 floats read from shared
+// memory at fixed offsets were hoisted into registers and spilled (255
+// registers, 4.9 ms against 2.6).  K7 and K8 are compiled for the Cornell
+// box (1, 3, 5), the scene of every main path, and random_scene's default
+// (24, 24, 5); any other scene runs the runtime-count instantiation of the
+// same kernel (march_kernel / shade_kernel<-1, -1, -1>).  The wrapper picks
+// the instantiation from the scene's counts (raymarch_cuda.SHADE_SCENES
+// names the same triples).  Both SDFs take the minimum in the same order
+// (spheres, boxes, planes; the first primitive on ties) with the same
+// operations, and convert the winner's id with (int), so the
+// instantiations give the same floats and ids.  K7 runs ~22 SDF
+// evaluations a pixel on the Cornell box (15.1 march steps, the material,
+// six for the normal) with 0.95 of its lanes busy: it is held by the SDF's
+// instructions, not by divergence.  K13 and K15 keep the runtime-count
+// SDF.  A shadow march's warps diverge (a random light sample a pixel: the
+// rays of a warp are not coherent; on a 1080p Cornell frame 15.1 steps a
+// pixel, 18.9 for a 16 x 2 warp's longest lane, 0.80 of the SIMD lanes
+// busy).  Persistent warps that refill their stopped lanes from the
+// block's tile once half of them stopped (shading those together) ran
+// 1.5-1.7x slower on the Cornell box, and were dropped.
 //
 // One thread per pixel, each marching with its own early exit: a ray that
 // stops never moves again, so stopping the loop gives the result of the
@@ -130,28 +135,31 @@ struct Sdf {
     }
 };
 
-// K8's compiled scene: the primitives' parameters (spheres, boxes,
-// planes, as in the flat scene vector) of the largest scene K8 is compiled
-// for, random_scene's default (24, 24, 5).  launch_shade copies them from
-// the device's scene vector before each launch (device to device, on the
-// launch's stream), so a kernel reads the scene its own launch was given;
-// two launches on streams that run concurrently would share the buffer
-// (the port launches every kernel on the current stream).
-constexpr int kConstSceneFloats = 4 * 24 + 6 * 24 + 4 * 5;
+// The compiled scene of K7 and K8: the flat scene vector (parameters of
+// spheres, boxes, planes, then their material ids) of the largest scene
+// they are compiled for, random_scene's default (24, 24, 5).  fill_scene
+// copies it from the device's scene vector before each launch (device to
+// device, on the launch's stream), so a kernel reads the scene its own
+// launch was given; two launches on streams that run concurrently would
+// share the buffer (the port launches every kernel on the current stream).
+constexpr int kConstSceneFloats = 5 * 24 + 7 * 24 + 5 * 5;
 __constant__ float c_scene[kConstSceneFloats];
 
 // The scene SDF of NS spheres, NB boxes and NP planes, known at compile
-// time (see the header): the loops unroll, and every parameter is a
-// constant-bank operand at a fixed offset of c_scene (no load, no register
-// held); distances only (the shadow march needs no material), each
-// primitive as Sdf computes it.
+// time (see the header): the loops unroll, and every parameter and id is
+// a constant-bank operand at a fixed offset of c_scene (no load, no
+// register held); each primitive as Sdf computes it.  The material form
+// keeps the improving primitive's id as the float it is stored as and
+// converts the winner's once, which gives Sdf's int.
 template <int NS, int NB, int NP>
 struct FixedSdf {
     static constexpr int kOb = 4 * NS, kOp = kOb + 6 * NB, kN = kOp + 4 * NP;
-    static_assert(kN <= kConstSceneFloats, "scene larger than c_scene");
+    static constexpr int kAll = kN + NS + NB + NP;    // the ids after kN
+    static_assert(kAll <= kConstSceneFloats, "scene larger than c_scene");
 
-    __device__ __forceinline__ float operator()(float px, float py,
-                                                float pz) const {
+    template <bool MAT>
+    __device__ __forceinline__ float eval(float px, float py, float pz,
+                                          float& m) const {
         // c_scene indexed by constants: constant-bank operands
         const float* c = c_scene;
         float d = INFINITY;
@@ -160,7 +168,10 @@ struct FixedSdf {
             const int o = 4 * k;
             float dx = px - c[o], dy = py - c[o + 1], dz = pz - c[o + 2];
             float di = sqrtf(dx * dx + dy * dy + dz * dz) - c[o + 3];
-            if (di < d) d = di;
+            if (di < d) {
+                d = di;
+                if (MAT) m = c[kN + k];
+            }
         }
 #pragma unroll
         for (int k = 0; k < NB; ++k) {
@@ -171,14 +182,35 @@ struct FixedSdf {
             float ox = fmaxf(qx, 0.0f), oy = fmaxf(qy, 0.0f), oz = fmaxf(qz, 0.0f);
             float di = sqrtf(ox * ox + oy * oy + oz * oz)
                 + fminf(fmaxf(qx, fmaxf(qy, qz)), 0.0f);
-            if (di < d) d = di;
+            if (di < d) {
+                d = di;
+                if (MAT) m = c[kN + NS + k];
+            }
         }
 #pragma unroll
         for (int k = 0; k < NP; ++k) {
             const int o = kOp + 4 * k;
             float di = c[o] * px + c[o + 1] * py + c[o + 2] * pz + c[o + 3];
-            if (di < d) d = di;
+            if (di < d) {
+                d = di;
+                if (MAT) m = c[kN + NS + NB + k];
+            }
         }
+        return d;
+    }
+
+    __device__ __forceinline__ float operator()(float px, float py,
+                                                float pz) const {
+        float m;
+        return eval<false>(px, py, pz, m);
+    }
+
+    // distance; *mat gets the nearest primitive's material id
+    __device__ __forceinline__ float operator()(float px, float py, float pz,
+                                                int* mat) const {
+        float m = 0.0f;
+        const float d = eval<true>(px, py, pz, m);
+        *mat = (int)m;
         return d;
     }
 };
@@ -248,6 +280,35 @@ __device__ const float* stage_scene(const float* scene, int n, float* smem) {
     return smem;
 }
 
+// The SDF of K7 and K8: FixedSdf (the scene in c_scene), or (NS < 0) the
+// runtime-count one on the scene staged in shared memory (every thread of
+// the block must call make: it synchronises).
+template <int NS, int NB, int NP>
+struct SceneSdf {
+    __device__ static FixedSdf<NS, NB, NP> make(const float*, float*, int,
+                                                int, int) {
+        return {};
+    }
+};
+template <>
+struct SceneSdf<-1, -1, -1> {
+    __device__ static Sdf make(const float* scene, float* smem, int n_sph,
+                               int n_box, int n_pl) {
+        const int n_sc = 5 * n_sph + 7 * n_box + 5 * n_pl;
+        return Sdf{stage_scene(scene, n_sc, smem), n_sph, n_box, n_pl};
+    }
+};
+
+// K7's normal evaluates the SDF six times.  Unrolled, a compiled scene of
+// up to this many primitives keeps them in flight together (the Cornell
+// box's 9: 72 registers, 0.294 against 0.315 ms one at a time on the H100
+// at 1080p); a larger scene (random_scene's 53 took 255 registers and
+// spilled: 6.9 against 2.9 ms) and the runtime-count loops (0.84 against
+// 0.78 ms) evaluate them one at a time.
+constexpr int kUnrollNormalMax = 16;
+
+// K7 on the compiled scene <NS, NB, NP> or (-1) any counts.
+template <int NS, int NB, int NP>
 __global__ void march_kernel(const float* __restrict__ scene,
                              const float* __restrict__ ro,
                              const float* __restrict__ rd,
@@ -258,8 +319,8 @@ __global__ void march_kernel(const float* __restrict__ scene,
                              float* __restrict__ n_out,
                              MarchParams p) {
     extern __shared__ float smem[];
-    const int n_sc = 5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl;
-    const Sdf sdf{stage_scene(scene, n_sc, smem), p.n_sph, p.n_box, p.n_pl};
+    const auto sdf =
+        SceneSdf<NS, NB, NP>::make(scene, smem, p.n_sph, p.n_box, p.n_pl);
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
@@ -300,9 +361,30 @@ __global__ void march_kernel(const float* __restrict__ scene,
 
     // central-difference normal, normalised, flipped toward the viewer
     const float e = p.normal_eps;
-    float nx = sdf(px + e, py, pz) - sdf(px - e, py, pz);
-    float ny = sdf(px, py + e, pz) - sdf(px, py - e, pz);
-    float nz = sdf(px, py, pz + e) - sdf(px, py, pz - e);
+    float nx, ny, nz;
+    if constexpr (NS >= 0 && NS + NB + NP <= kUnrollNormalMax) {
+        nx = sdf(px + e, py, pz) - sdf(px - e, py, pz);
+        ny = sdf(px, py + e, pz) - sdf(px, py - e, pz);
+        nz = sdf(px, py, pz + e) - sdf(px, py, pz - e);
+    } else {
+        // the six evaluations one at a time (px + (-e) is px - e)
+        float d_plus = 0.0f;
+#pragma unroll 1
+        for (int k = 0; k < 6; ++k) {
+            const int a = k >> 1;
+            const float o = (k & 1) ? -e : e;
+            const float d = sdf(a == 0 ? px + o : px, a == 1 ? py + o : py,
+                                a == 2 ? pz + o : pz);
+            if (!(k & 1)) {
+                d_plus = d;
+                continue;
+            }
+            const float g = d_plus - d;
+            if (a == 0) nx = g;
+            else if (a == 1) ny = g;
+            else nz = g;
+        }
+    }
     const float nn = fmaxf(sqrtf(nx * nx + ny * ny + nz * nz), 1e-8f);
     nx = nx / nn;
     ny = ny / nn;
@@ -347,24 +429,6 @@ __global__ void cone_kernel(const float* __restrict__ scene,
     t_out[i] = t;
 }
 
-// K8's SDF: FixedSdf (in c_scene), or (NS < 0) the runtime-count one on
-// the scene staged in shared memory.
-template <int NS, int NB, int NP>
-struct ShadeSdf {
-    __device__ static FixedSdf<NS, NB, NP> make(const float*, float*,
-                                                const ShadeParams&) {
-        return {};
-    }
-};
-template <>
-struct ShadeSdf<-1, -1, -1> {
-    __device__ static Sdf make(const float* scene, float* smem,
-                               const ShadeParams& p) {
-        const int n_sc = 5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl;
-        return Sdf{stage_scene(scene, n_sc, smem), p.n_sph, p.n_box, p.n_pl};
-    }
-};
-
 // light: normal (3), radiance (3), area; prev: position, fwd, right, up
 // (3 each), half_w, half_h of the previous camera
 template <int NS, int NB, int NP>
@@ -382,7 +446,8 @@ __global__ void shade_kernel(const float* __restrict__ scene,
                              float* __restrict__ motion,
                              ShadeParams p) {
     extern __shared__ float smem[];
-    const auto sdf = ShadeSdf<NS, NB, NP>::make(scene, smem, p);
+    const auto sdf =
+        SceneSdf<NS, NB, NP>::make(scene, smem, p.n_sph, p.n_box, p.n_pl);
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
@@ -454,6 +519,42 @@ dim3 grid_for(int H, int W, dim3 block) {
     return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
 }
 
+// Before a launch of the instantiation <NS, NB, NP>: a compiled scene
+// checks the counts it was compiled for and copies the scene vector to
+// c_scene on the launch's stream; the runtime-count one sets *smem to the
+// bytes it stages.
+template <int NS, int NB, int NP>
+cudaError_t fill_scene(const float* scene, int n_sph, int n_box, int n_pl,
+                       cudaStream_t stream, size_t* smem) {
+    if constexpr (NS >= 0) {
+        *smem = 0;
+        if (n_sph != NS || n_box != NB || n_pl != NP)
+            return cudaErrorInvalidValue;
+        return cudaMemcpyToSymbolAsync(
+            c_scene, scene, sizeof(float) * FixedSdf<NS, NB, NP>::kAll, 0,
+            cudaMemcpyDeviceToDevice, stream);
+    } else {
+        *smem = sizeof(float) * (5 * n_sph + 7 * n_box + 5 * n_pl);
+        return cudaSuccess;
+    }
+}
+
+template <int NS, int NB, int NP>
+cudaError_t launch_march(const float* scene, const float* ro, const float* rd,
+                         const float* seed, float* t, bool* hit, int* mat,
+                         float* normal, const MarchParams& p,
+                         cudaStream_t stream) {
+    size_t smem;
+    cudaError_t err = fill_scene<NS, NB, NP>(scene, p.n_sph, p.n_box, p.n_pl,
+                                             stream, &smem);
+    if (err != cudaSuccess) return err;
+    dim3 block(16, 8);
+    march_kernel<NS, NB, NP><<<grid_for(p.H, p.W, block), block, smem,
+                               stream>>>(scene, ro, rd, seed, t, hit, mat,
+                                         normal, p);
+    return cudaGetLastError();
+}
+
 template <int NS, int NB, int NP>
 cudaError_t launch_shade(const float* scene, const float* pos,
                          const float* normal, const float* light_p,
@@ -462,18 +563,10 @@ cudaError_t launch_shade(const float* scene, const float* pos,
                          const float* prev, float* render, float* vis,
                          float* motion, const ShadeParams& p,
                          cudaStream_t stream) {
-    size_t smem = 0;
-    if constexpr (NS >= 0) {
-        // a compiled scene runs only the counts it was compiled for
-        if (p.n_sph != NS || p.n_box != NB || p.n_pl != NP)
-            return cudaErrorInvalidValue;
-        cudaError_t err = cudaMemcpyToSymbolAsync(
-            c_scene, scene, sizeof(float) * FixedSdf<NS, NB, NP>::kN, 0,
-            cudaMemcpyDeviceToDevice, stream);
-        if (err != cudaSuccess) return err;
-    } else {
-        smem = sizeof(float) * (5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl);
-    }
+    size_t smem;
+    cudaError_t err = fill_scene<NS, NB, NP>(scene, p.n_sph, p.n_box, p.n_pl,
+                                             stream, &smem);
+    if (err != cudaSuccess) return err;
     dim3 block(16, 8);
     shade_kernel<NS, NB, NP><<<grid_for(p.H, p.W, block), block, smem,
                                stream>>>(scene, pos, normal, light_p, albedo,
@@ -485,18 +578,22 @@ cudaError_t launch_shade(const float* scene, const float* pos,
 }  // namespace
 
 // K7; seed null: every ray starts at 0, else at its block's cone stop
-// (the (ceil(H/4), ceil(W/4)) grid of K15).
+// (the (ceil(H/4), ceil(W/4)) grid of K15).  scene_key picks the
+// instantiation as in rdt_shadow_shade.
 extern "C" int rdt_march(const float* scene, const float* ro, const float* rd,
                          const float* seed, float* t, bool* hit, int* mat,
                          float* normal, const MarchParams* params,
-                         void* stream) {
-    dim3 block(16, 8);
-    size_t smem = sizeof(float)
-        * (5 * params->n_sph + 7 * params->n_box + 5 * params->n_pl);
-    march_kernel<<<grid_for(params->H, params->W, block), block, smem,
-                   (cudaStream_t)stream>>>(scene, ro, rd, seed, t, hit, mat,
-                                           normal, *params);
-    return (int)cudaGetLastError();
+                         int scene_key, void* stream) {
+#define RDT_MARCH(NS, NB, NP)                                              \
+    launch_march<NS, NB, NP>(scene, ro, rd, seed, t, hit, mat, normal,     \
+                             *params, (cudaStream_t)stream)
+    switch (scene_key) {
+    case 0: return (int)RDT_MARCH(-1, -1, -1);
+    case 1: return (int)RDT_MARCH(1, 3, 5);
+    case 2: return (int)RDT_MARCH(24, 24, 5);
+    default: return (int)cudaErrorInvalidValue;
+    }
+#undef RDT_MARCH
 }
 
 // K15 over the coarse grid params->H x params->W; scene: the flat scene

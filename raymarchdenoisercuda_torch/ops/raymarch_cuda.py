@@ -16,10 +16,10 @@ when it is given, as ``raymarch_pallas_gbuf`` does, else from the ray
 planes) and then marches each pixel from its block's stop
 (:func:`march_gbuf_seeded_cuda`).
 
-K8 is compiled for the primitive counts of the scenes in
-:data:`SHADE_SCENES` (its SDF unrolled, the parameters in the constant
-bank) and once for counts known only at run time; :func:`shade_scene_key`
-picks the instantiation.
+K7 (seeded or not) and K8 are compiled for the primitive counts of the
+scenes in :data:`SHADE_SCENES` (their SDF unrolled, the parameters and
+material ids in the constant bank) and once for counts known only at run
+time; :func:`scene_key` picks the instantiation.
 
 :func:`shadow_shade_cuda` is a ``torch.autograd.Function``: its backward
 recomputes the shading and motion epilogue in PyTorch with the visibility
@@ -82,15 +82,17 @@ def _counts(scene: Scene):
             scene.plane_params.shape[0])
 
 
-# the (spheres, boxes, planes) counts K8 is compiled for, in the order of
-# rdt_shadow_shade's scene keys 1, 2, ... (ops/cuda/raymarch.cu): the
-# Cornell box of every main path and random_scene's default
+# the (spheres, boxes, planes) counts K7 and K8 are compiled for, in the
+# order of rdt_march's and rdt_shadow_shade's scene keys 1, 2, ...
+# (ops/cuda/raymarch.cu): the Cornell box of every main path and
+# random_scene's default
 SHADE_SCENES = ((1, 3, 5), (24, 24, 5))
 
 
-def shade_scene_key(scene: Scene) -> int:
-    """K8's instantiation for ``scene``: the 1-based index of its counts
-    in :data:`SHADE_SCENES`, or 0, the instantiation for any counts."""
+def scene_key(scene: Scene) -> int:
+    """K7's and K8's instantiation for ``scene``: the 1-based index of its
+    counts in :data:`SHADE_SCENES`, or 0, the instantiation for any
+    counts."""
     counts = _counts(scene)
     return (SHADE_SCENES.index(counts) + 1 if counts in SHADE_SCENES
             else 0)
@@ -105,8 +107,10 @@ def _march_params(H, W, scene, params):
                         relax_omega=params.relax_omega)
 
 
-def _march_launch(scene, ro, rd, params, seed):
-    """One launch of K7 (``seed`` None: from 0); ``(t, hit, mat, n)``."""
+def _march_launch(scene, ro, rd, params, seed, key=None):
+    """One launch of K7 (``seed`` None: from 0) in the instantiation
+    ``key`` (default :func:`scene_key`; a compiled key given other counts
+    raises); returns ``((t, hit, mat, n), key)``."""
     H, W = ro.shape[-2:]
     dev = ro.device
     f32 = torch.float32
@@ -120,12 +124,13 @@ def _march_launch(scene, ro, rd, params, seed):
     mat = torch.empty((H, W), dtype=torch.int32, device=dev)
     n = torch.empty((3, H, W), dtype=f32, device=dev)
     p = _march_params(H, W, scene, params)
+    key = scene_key(scene) if key is None else key
     rc = _build.kernels().rdt_march(
         *ptrs[:3], seed_ptr, t.data_ptr(), hit.data_ptr(), mat.data_ptr(),
-        n.data_ptr(), ctypes.addressof(p),
+        n.data_ptr(), ctypes.addressof(p), key,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rdt_march")
-    return t, hit, mat, n
+    return (t, hit, mat, n), key
 
 
 def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
@@ -138,7 +143,8 @@ def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     pixel ``window`` the rays ``ro``, ``rd`` must be; ``cam_cfg`` its
     configuration), or from the ray planes without a camera, and
     :func:`march_gbuf_seeded_cuda` marches.  Each unseeded launch adds one
-    to ``march_gbuf_cuda.launches``."""
+    to ``march_gbuf_cuda.launches`` and to ``march_gbuf_cuda.by_key`` under
+    its instantiation's :func:`scene_key`."""
     _build.check_no_grad("march_gbuf_cuda", ro, rd, scene.sphere_params,
                          scene.box_params, scene.plane_params)
     if params.coarse_seed:
@@ -152,12 +158,14 @@ def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
         return march_gbuf_seeded_cuda(scene, ro, rd, seed, params)
     if not ro.is_cuda:
         return march_gbuf(scene, ro, rd, params)
-    out = _march_launch(scene, ro, rd, params, None)
+    out, key = _march_launch(scene, ro, rd, params, None)
     march_gbuf_cuda.launches += 1
+    march_gbuf_cuda.by_key[key] += 1
     return out
 
 
 march_gbuf_cuda.launches = 0
+march_gbuf_cuda.by_key = collections.Counter()
 
 
 def march_gbuf_seeded_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
@@ -165,18 +173,21 @@ def march_gbuf_seeded_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     """The seeded K7: the march of ``march_gbuf`` with each pixel started
     at its block's stop in the (ceil(H/4), ceil(W/4)) grid ``seed``
     (``march_gbuf(seed=)`` on CPU tensors).  Each launch adds one to
-    ``march_gbuf_seeded_cuda.launches``."""
+    ``march_gbuf_seeded_cuda.launches`` and to its ``by_key``, as
+    :func:`march_gbuf_cuda`'s."""
     _build.check_no_grad("march_gbuf_seeded_cuda", ro, rd, seed,
                          scene.sphere_params, scene.box_params,
                          scene.plane_params)
     if not ro.is_cuda:
         return march_gbuf(scene, ro, rd, params, seed=seed)
-    out = _march_launch(scene, ro, rd, params, seed)
+    out, key = _march_launch(scene, ro, rd, params, seed)
     march_gbuf_seeded_cuda.launches += 1
+    march_gbuf_seeded_cuda.by_key[key] += 1
     return out
 
 
 march_gbuf_seeded_cuda.launches = 0
+march_gbuf_seeded_cuda.by_key = collections.Counter()
 
 
 def cone_seed_cuda(scene: Scene, params: RaymarchParams,
@@ -258,7 +269,7 @@ def _shade_launch(scene, p, n, light_p, albedo, emission, hit, light_consts,
                        cam_h=cam_wh[1], row0=window[0], col0=window[1],
                        hit_eps=params.hit_eps,
                        relax_omega=params.relax_omega)
-    key = shade_scene_key(scene)
+    key = scene_key(scene)
     rc = _build.kernels().rdt_shadow_shade(
         *ptrs, hit_ptr, light_ptr, prev_ptr, render.data_ptr(),
         vis.data_ptr(), motion.data_ptr() if has_prev else None,
@@ -326,7 +337,7 @@ def shadow_shade_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
     ``shadow_shade`` does, differentiable (see the module docstring);
     ``window`` as there.  Each launch adds one to
     ``shadow_shade_cuda.launches`` and to ``shadow_shade_cuda.by_key``
-    under its instantiation's :func:`shade_scene_key`."""
+    under its instantiation's :func:`scene_key`."""
     out = _ShadowShade.apply(scene, p, n, light_p, albedo, emission, hit,
                              light_consts, prev_consts, params, cam_wh,
                              tuple(window))

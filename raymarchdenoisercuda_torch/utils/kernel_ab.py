@@ -11,18 +11,23 @@ K1 (every radius 0-3, fast, exact and luminance-only weights, at every
 level 0-4, with no store and with bf16 and float weight stores), K1b (with
 and without float weights), K9, K14 (every radius 0-3 at every level 0-4),
 the tile forms of K1/K1b/K14 on a quarter tile of a 3840x2160 frame at
-levels 1 and 4, and the 5-level inference sweep as ``chip_smoke.py`` phase
-3 runs it, all at 1920x1080 on seeded planes; K8 on the G-buffers of the
-Cornell box, ``random_scene`` and a scene of other primitive counts (its
-runtime-count instantiation), with ``relax_omega`` 1.0 and 1.5, with and
-without the previous camera, and on a window of the frame (the sharded
-path's launch); and KGb, the clamped gather's adjoint, whose float64 sum
-is compared to within rounding, not bit for bit.  For each case it prints
-whether every output is bit-equal to the other tree's (``torch.equal``)
-and the largest difference, and times both trees in turn with CUDA events
+levels 1 and 4, K2/K2b (every radius 0-3 at every level 0-4, bf16 and
+float weights, and the tile form at radius 1, levels 1 and 4) and the
+5-level inference sweep as ``chip_smoke.py`` phase 3 runs it, all at
+1920x1080 on seeded planes; K7 on the rays of phase 3's camera and K8 on
+the G-buffers, of the Cornell box, ``random_scene`` and a scene of other
+primitive counts (their runtime-count instantiation): K7 with
+``relax_omega`` 1.0 and 1.4, unseeded and seeded (both trees given the
+seed grid of the other tree's K15), and on a quarter window of the frame;
+K8 with ``relax_omega`` 1.0 and 1.5, with and without the previous
+camera, and on a window of the frame (the sharded path's launch); and KGb,
+the clamped gather's adjoint, whose float64 sum is compared to within
+rounding, not bit for bit.  For each case it prints whether every
+output is bit-equal to the other tree's (``torch.equal``) and the largest
+difference, and times both trees in turn with CUDA events
 (this, other, this, other; 20 launches each).  It prints ptxas's
-registers, stack and spills of the à-trous and shading kernels of each
-tree it builds (a library built before is loaded as it is), and the
+registers, stack and spills of the à-trous, march and shading kernels of
+each tree it builds (a library built before is loaded as it is), and the
 card's name and power limit.  It exits non-zero if an output of a
 bit-equal case differs, or if KGb's differs by more than rtol 1e-5.
 """
@@ -91,9 +96,37 @@ def planes(H, W, dev, seed):
             t(0.3 + 0.5 * rng.random((H, W))))
 
 
-# K8's scenes: the two it is compiled for, and one of other counts
-SHADE_SCENES = (("cornell", {}), ("random", dict(seed=3)),
-                ("odd", dict(n_spheres=7, n_boxes=4, seed=5)))
+# K7's and K8's scenes: the two they are compiled for, and one of other
+# counts
+SCENES = (("cornell", {}), ("random", dict(seed=3)),
+          ("odd", dict(n_spheres=7, n_boxes=4, seed=5)))
+
+
+def _scene(raymarch, name, kw, dev):
+    return (raymarch.cornell_scene(device=dev) if name == "cornell"
+            else raymarch.random_scene(device=dev, **kw))
+
+
+def march_inputs(dev, seed_tree):
+    """``{scene name: (scene, ro, rd, seed grid)}``: K7's inputs at
+    1920x1080, the rays of ``chip_smoke.py`` phase 3's camera and the
+    coarse seed grid from that camera by ``seed_tree``'s K15 (the seed does
+    not depend on ``relax_omega``)."""
+    from ..config import CameraParams, RaymarchParams
+    from ..io.generate import orbit_camera
+    from ..ops import raymarch
+    H, W = FRAME
+    cfg = CameraParams(width=W, height=H)
+    cam = orbit_camera(0.25, device=dev)
+    ro, rd, _ = raymarch.camera_rays(cam, cfg)
+    out = {}
+    for name, kw in SCENES:
+        scene = _scene(raymarch, name, kw, dev)
+        seed = seed_tree.raymarch_cuda.cone_seed_cuda(
+            scene, RaymarchParams(coarse_seed=True), camera=cam, cam_cfg=cfg,
+            shape=(H, W))[0]
+        out[name] = (scene, ro, rd, seed)
+    return out
 
 
 def shade_inputs(dev):
@@ -107,9 +140,8 @@ def shade_inputs(dev):
     H, W = FRAME
     cfg = CameraParams(width=W, height=H)
     out = {}
-    for name, kw in SHADE_SCENES:
-        scene = (raymarch.cornell_scene(device=dev) if name == "cornell"
-                 else raymarch.random_scene(device=dev, **kw))
+    for name, kw in SCENES:
+        scene = _scene(raymarch, name, kw, dev)
         ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
         t, hit, mat, n = raymarch.march_gbuf(scene, ro, rd, RaymarchParams())
         alb, em = raymarch._material_lookup(mat, scene.materials.albedo,
@@ -124,15 +156,15 @@ def shade_inputs(dev):
     return out
 
 
-def cases(P, U, cots, S):
+def cases(P, U, cots, S, M):
     """``(name, fn, exact)``: ``fn(tree)`` is a zero-argument launch
     returning a tuple of tensors; ``exact``: the two trees' outputs must be
     bit-equal (else within rounding)."""
-    for case in _cases(P, U, cots, S):
+    for case in _cases(P, U, cots, S, M):
         yield case if len(case) == 3 else case + (True,)
 
 
-def _cases(P, U, cots, S):
+def _cases(P, U, cots, S, M):
     c, v, n, z = P
 
     def level(tree, r, level, wm, luma=None, store=None):
@@ -243,6 +275,55 @@ def _cases(P, U, cots, S):
                        lambda t, kind=kind, r=r, lvl=lvl: tile(t, kind, r,
                                                                  lvl))
 
+    def k2(tree, r, lvl, dt, halo=False):
+        # seeded weights (no border mask: the kernel drops an out-of-frame
+        # centre by its coordinate), N and cotangents; a tile launch (a
+        # quarter of the larger frame's cotangents) also writes its output
+        # region's margins
+        H, W = z.shape
+        g = torch.Generator(z.device).manual_seed(100 * r + lvl)
+        w = torch.rand(((2 * r + 1) ** 2, H, W), generator=g,
+                       device=z.device).to(dt)
+        norm = 0.2 + 2.0 * torch.rand((H, W), generator=g, device=z.device)
+        gc, gv = (x[..., :H, :W].contiguous()
+                  for x in (U[4] if halo else cots))
+        return lambda: tuple(tree.atrous_cuda.atrous_level_bwd_stored_cuda(
+            w, norm, gc, gv, level=lvl, radius=r,
+            out_halo=r << lvl if halo else 0))
+
+    for r in (0, 1, 2, 3):
+        for dt, kn in ((torch.bfloat16, "K2"), (torch.float32, "K2b")):
+            for lvl in range(5):
+                yield (f"{kn} r{r} l{lvl}",
+                       lambda t, r=r, dt=dt, lvl=lvl: k2(t, r, lvl, dt))
+    for dt, kn in ((torch.bfloat16, "K2"), (torch.float32, "K2b")):
+        for lvl in (1, 4):
+            yield (f"tile {kn} r1 l{lvl}",
+                   lambda t, dt=dt, lvl=lvl: k2(t, 1, lvl, dt, halo=True))
+
+    def k7(tree, name, omega, seeded, window):
+        rc = tree.raymarch_cuda
+        rm = rc.RaymarchParams(relax_omega=omega)
+        scene, ro, rd, seed = M[name]
+        if window:
+            # the frame's lower right quarter
+            H, W = FRAME
+            ro, rd = (x[:, H // 2:, W // 2:].contiguous() for x in (ro, rd))
+        if seeded:
+            return lambda: tuple(rc.march_gbuf_seeded_cuda(scene, ro, rd,
+                                                           seed, rm))
+        return lambda: tuple(rc.march_gbuf_cuda(scene, ro, rd, rm))
+
+    for name, _ in SCENES:
+        for omega in (1.0, 1.4):
+            for seeded in (False, True):
+                yield (f"K7 {name} omega {omega}"
+                       f"{' seeded' if seeded else ''}",
+                       lambda t, name=name, omega=omega, seeded=seeded: k7(
+                           t, name, omega, seeded, False))
+        yield (f"K7 {name} window",
+               lambda t, name=name: k7(t, name, 1.0, False, True))
+
     def k8(tree, name, omega, prev, window):
         rm = tree.raymarch_cuda.RaymarchParams(relax_omega=omega)
         scene, *planes, light, prev_c = S[name]
@@ -255,7 +336,7 @@ def _cases(P, U, cots, S):
             scene, *planes, light, prev_c if prev else None, rm, (W, H),
             origin) if x is not None)
 
-    for name, _ in SHADE_SCENES:
+    for name, _ in SCENES:
         for omega in (1.0, 1.5):
             for prev in (True, False):
                 yield (f"K8 {name} omega {omega}"
@@ -298,12 +379,13 @@ def compare(a, b):
 
 
 _ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
-                     r"shade_kernel)I\w*?EE")
+                     r"shade_kernel|march_kernel)(I\w*?EE)?")
 
 
 def resources(text_or_dict):
     """``{short kernel name: (registers, stack, spill st, spill ld)}`` of
-    the à-trous and shading kernels in a ptxas report."""
+    the à-trous, march and shading kernels in a ptxas report (a kernel that
+    is not a template by its name alone)."""
     out = {}
     for name, res in text_or_dict.items():
         m = _ATROUS.search(name)
@@ -355,7 +437,8 @@ def main(argv=None) -> int:
     rows, bad = [], []
     with torch.no_grad():
         S = shade_inputs(dev)
-        for name, make, exact in cases(P, U, cots, S):
+        M = march_inputs(dev, other)
+        for name, make, exact in cases(P, U, cots, S, M):
             if args.only and not re.search(args.only, name):
                 continue
             fa, fb = make(this), make(other)

@@ -1,16 +1,16 @@
-"""The ctypes declarations of the CUDA kernels' C entry points, and K8's
-compiled scenes.
+"""The ctypes declarations of the CUDA kernels' C entry points, and the
+compiled scenes of K7 and K8.
 
 ``ops/cuda/_build.py`` declares the argument types of every ``rdt_*``
 function the ``.cu`` sources export.  A missing or wrong declaration makes
 ctypes pass a pointer as a 32-bit int, which faults on the card only; this
 check reads the sources here, without a compiler.
 
-K8 (``rdt_shadow_shade``) is compiled for the primitive counts of the
-scenes in ``raymarch_cuda.SHADE_SCENES``; the wrapper passes the key of
-the instantiation and the C entry point maps each key to a template
-instantiation.  The two tables are held to each other by parsing the
-source, and the wrapper's choice is checked on CPU scenes.
+K7 (``rdt_march``) and K8 (``rdt_shadow_shade``) are compiled for the
+primitive counts of the scenes in ``raymarch_cuda.SHADE_SCENES``; the
+wrappers pass the key of the instantiation and each C entry point maps
+each key to a template instantiation.  The tables are held to each other
+by parsing the source, and the wrappers' choice is checked on CPU scenes.
 """
 
 import ctypes
@@ -21,7 +21,7 @@ import pytest
 from raymarchdenoisercuda_torch.ops import raymarch
 from raymarchdenoisercuda_torch.ops.cuda import _build
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (SHADE_SCENES,
-                                                          shade_scene_key)
+                                                          scene_key)
 
 _EXPORT = re.compile(r'extern "C" int (rdt_\w+)\(([^)]*)\)', re.S)
 
@@ -64,30 +64,42 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
 
 
 # arguments added to entry points after they were first declared: the
-# shading pass's instantiation key and the clamped-gather adjoint's float64
-# scratch with its plane count
+# shading pass's and the march's instantiation keys and the clamped-gather
+# adjoint's float64 scratch with its plane count
 @pytest.mark.parametrize("name,index,ctype", [
     ("rdt_shadow_shade", 13, ctypes.c_int),
+    ("rdt_march", 9, ctypes.c_int),
     ("rdt_clamped_gather_bwd", 4, ctypes.c_void_p),
     ("rdt_clamped_gather_bwd", 9, ctypes.c_int)],
-    ids=["shade scene_key", "gather_bwd scratch", "gather_bwd P"])
+    ids=["shade scene_key", "march scene_key", "gather_bwd scratch",
+         "gather_bwd P"])
 def test_added_arguments_are_declared(name, index, ctype):
     assert _build.SIGNATURES[name][index] is ctype
     assert _exports()[name][index] is ctype
 
 
-_SHADE_CASE = re.compile(
-    r"case (\d+): return \(int\)RDT_SHADE\((-?\d+), (-?\d+), (-?\d+)\);")
+def _switch_cases(macro):
+    """``{key: counts}`` of the switch whose cases call ``macro`` in
+    ``raymarch.cu``."""
+    case = re.compile(r"case (\d+): return \(int\)" + macro
+                      + r"\((-?\d+), (-?\d+), (-?\d+)\);")
+    src = (_build._SRC_DIR / "raymarch.cu").read_text()
+    return {int(k): tuple(int(v) for v in counts)
+            for k, *counts in case.findall(src)}
 
 
 def test_shade_keys_match_the_compiled_scenes():
     """rdt_shadow_shade's switch maps key 0 to the runtime-count
     instantiation (-1, -1, -1) and key k to ``SHADE_SCENES[k - 1]``."""
-    src = (_build._SRC_DIR / "raymarch.cu").read_text()
-    cases = {int(k): tuple(int(v) for v in counts)
-             for k, *counts in _SHADE_CASE.findall(src)}
-    assert cases == {0: (-1, -1, -1),
-                     **{k + 1: c for k, c in enumerate(SHADE_SCENES)}}
+    assert _switch_cases("RDT_SHADE") == {
+        0: (-1, -1, -1), **{k + 1: c for k, c in enumerate(SHADE_SCENES)}}
+
+
+def test_march_keys_match_the_compiled_scenes():
+    """rdt_march's switch (K7, seeded or not) maps the keys as
+    rdt_shadow_shade's does: one list of compiled scenes serves both."""
+    assert _switch_cases("RDT_MARCH") == {
+        0: (-1, -1, -1), **{k + 1: c for k, c in enumerate(SHADE_SCENES)}}
 
 
 @pytest.mark.parametrize("make,key", [
@@ -101,4 +113,4 @@ def test_shade_keys_match_the_compiled_scenes():
 def test_shade_scene_key_follows_the_counts(make, key):
     """The key depends on the counts alone: a random scene of the Cornell
     box's counts runs the Cornell instantiation."""
-    assert shade_scene_key(make()) == key
+    assert scene_key(make()) == key

@@ -41,6 +41,12 @@ Cornell box, ``random_scene``, and a scene of other counts: the runtime-
 count one) at K7/K8's tolerance, its window bit-equal to the whole frame's
 crop.  KGb run 20 times: every history gradient within one float32 ulp
 of the first (its float64 sum is rounded once), the motion's bit-equal.
+K7, seeded or not, in each compiled instantiation bit-equal to the
+runtime-count instantiation on the same scene (the two SDFs do the same
+operations in the same order), and a scene of other counts at K7's
+tolerance against the twin.  K2 and K2b at every radius and level, whole
+frame and tile form, bit-equal to the twin, which adds the same products
+in the same tap order (a dropped tap adds an exact zero there).
 
 The tile forms (the sharded path's K1, K1b, K2, K14 with a tile origin and
 the frame's bounds, K3b, K4c, K5c/K6c on canvases; ``chip_smoke.py``
@@ -69,7 +75,7 @@ from raymarchdenoisercuda_torch.models.pipeline import (
     init_train_state, make_train_step, render_and_denoise)
 from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
-                                            raymarch, temporal)
+                                            raymarch, raymarch_cuda, temporal)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level, atrous_level_bwd_cuda, atrous_level_bwd_stored_cuda,
     atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
@@ -81,7 +87,7 @@ from raymarchdenoisercuda_torch.ops.filters_cuda import (
     box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
-    shade_scene_key, shadow_factor_cuda, shadow_shade_cuda)
+    scene_key, shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     clamped_gather_bwd_cuda, clamped_gather_cuda, gather_bwd_cuda,
     gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
@@ -1278,7 +1284,7 @@ def test_k8_instantiations_match_plain(dev, scene_name, key, omega):
     ``test_k7_k8_match_plain``; the window bit-equal to the whole frame's
     crop; each launch counted under the scene's key."""
     scene = _shade_scene(scene_name, dev)
-    assert shade_scene_key(scene) == key
+    assert scene_key(scene) == key
     cfg = CameraParams(width=W, height=H)
     rm = RaymarchParams(relax_omega=omega)
     ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
@@ -1316,3 +1322,85 @@ def test_k8_instantiations_match_plain(dev, scene_name, key, omega):
             for a, b in zip(got, whole):
                 if a is not None:
                     assert torch.equal(a, b[..., y0:, x0:])
+
+
+# K7's compiled scenes, with the key each runs
+MARCH_SCENES = [("cornell", 1), ("random", 2)]
+
+
+@pytest.mark.parametrize("seeded", [False, True], ids=["unseeded", "seeded"])
+@pytest.mark.parametrize("omega", [1.0, 1.4])
+@pytest.mark.parametrize("scene_name,key", MARCH_SCENES,
+                         ids=[s[0] for s in MARCH_SCENES])
+def test_k7_compiled_scene_matches_runtime_counts(dev, scene_name, key,
+                                                  omega, seeded):
+    """K7 in the instantiation compiled for the scene (through the public
+    wrappers, counted under its key) is ``torch.equal`` to the runtime-
+    count instantiation on the same rays and seed grid, in t, hit,
+    material and normal."""
+    scene, cfg, cam, ro, rd = _cone_inputs(dev, scene_name)
+    rm = RaymarchParams(relax_omega=omega, coarse_seed=seeded)
+    seed = (cone_seed_cuda(scene, rm, camera=cam, cam_cfg=cfg,
+                           shape=(H, W))[0] if seeded else None)
+    wrapper = march_gbuf_seeded_cuda if seeded else march_gbuf_cuda
+    assert scene_key(scene) == key
+    before = wrapper.by_key[key]
+    got = (march_gbuf_seeded_cuda(scene, ro, rd, seed, rm) if seeded
+           else march_gbuf_cuda(scene, ro, rd, rm))
+    assert wrapper.by_key[key] == before + 1
+    runtime, ran = raymarch_cuda._march_launch(scene, ro, rd, rm, seed,
+                                               key=0)
+    assert ran == 0
+    for name, a, b in zip(("t", "hit", "mat", "normal"), got, runtime):
+        assert torch.equal(a, b), name
+
+
+def test_k7_other_counts_run_the_runtime_instantiation(dev):
+    """A scene of other counts runs key 0 and matches the twin at K7's
+    tolerance; a compiled key given other counts raises (never falls back
+    to another instantiation)."""
+    scene = _shade_scene("odd", dev)
+    assert scene_key(scene) == 0
+    cfg = CameraParams(width=W, height=H)
+    rm = RaymarchParams()
+    ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
+    before = march_gbuf_cuda.by_key[0]
+    got = march_gbuf_cuda(scene, ro, rd, rm)
+    assert march_gbuf_cuda.by_key[0] == before + 1
+    want = raymarch.march_gbuf(scene, ro, rd, rm)
+    same = (got[1] == want[1]) & (got[2] == want[2])
+    assert float((~same).float().mean()) <= 1e-3
+    np.testing.assert_allclose(_np(got[0])[_np(same)],
+                               _np(want[0])[_np(same)], rtol=0, atol=1e-4)
+    np.testing.assert_allclose(_np(got[3])[:, _np(same)],
+                               _np(want[3])[:, _np(same)], rtol=5e-3,
+                               atol=5e-4)
+    for key in (1, 2):
+        with pytest.raises(RuntimeError, match="rdt_march"):
+            raymarch_cuda._march_launch(scene, ro, rd, rm, None, key=key)
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["whole", "tile"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["K2", "K2b"])
+@pytest.mark.parametrize("radius", RADII)
+def test_k2_bit_equal_to_twin(dev, radius, dtype, tiled):
+    """K2 (bf16 weights) and K2b (float weights) at every level 0-4, on
+    a frame that is no multiple of the row-lattice tile and on one whose
+    every tap reach at level 4 leaves it, whole frame and tile form (the
+    output region's margins): ``torch.equal`` to
+    ``atrous_level_bwd_stored_ref``."""
+    for shape in LEVEL_SHAPES:
+        g = torch.Generator(dev).manual_seed(30 + radius)
+        taps = (2 * radius + 1) ** 2
+        w = torch.rand((taps, *shape), generator=g, device=dev).to(dtype)
+        norm = 0.2 + 2.0 * torch.rand(shape, generator=g, device=dev)
+        gc = torch.randn((3, *shape), generator=g, device=dev)
+        gv = torch.randn(shape, generator=g, device=dev)
+        for level in range(5):
+            kw = dict(level=level, radius=radius,
+                      out_halo=(radius << level) if tiled else 0)
+            got = atrous_level_bwd_stored_cuda(w, norm, gc, gv, **kw)
+            want = atrous.atrous_level_bwd_stored_ref(w, norm, gc, gv, **kw)
+            for name, a, b in zip(("d_color", "d_variance"), got, want):
+                assert torch.equal(a, b), (shape, level, name)

@@ -4,8 +4,9 @@ On the card the script holds this tree's kernels against another tree's
 bit for bit.  Here each case's launch runs through the wrappers, which
 take their plain twins for CPU tensors: this checks that every case
 builds its inputs and calls its wrapper with the arguments the wrapper
-takes (K14 whole frame and tile form, K8 on each scene, KGb), and that the
-outputs are finite and of the expected shapes.  No timing, no other tree.
+takes (K14 and K2/K2b whole frame and tile form, K7 unseeded, seeded
+and on a window, K8 on each scene, KGb), and that the outputs are finite
+and of the expected shapes.  No timing, no other tree.
 """
 
 import re
@@ -33,7 +34,8 @@ def inputs():
         torch.randn((2 * H, 2 * W), generator=g)),)
     with torch.no_grad():
         S = kernel_ab.shade_inputs(dev)
-    yield kernel_ab.planes(H, W, dev, 0), U, cots, S
+        M = kernel_ab.march_inputs(dev, kernel_ab.Tree(kernel_ab.PACKAGE))
+    yield kernel_ab.planes(H, W, dev, 0), U, cots, S, M
     torch.set_num_threads(threads)
     kernel_ab.FRAME = frame
 
@@ -43,6 +45,9 @@ FAMILIES = {
     "K14": (r"^K14 ", 20, [(3, *FRAME), FRAME]),
     "K14 tile": (r"^tile K14 ", 4, [(3, 28, 44), (28, 44)]),
     "K8": (r"^K8 ", 15, [(3, *FRAME), FRAME, (2, *FRAME)]),
+    "K7": (r"^K7 ", 15, [FRAME, FRAME, FRAME, (3, *FRAME)]),
+    "K2": (r"^K2b? r", 40, [(3, *FRAME), FRAME]),
+    "K2 tile": (r"^tile K2b? ", 4, [(3, 28, 44), (28, 44)]),
     "KGb": (r"^KGb", 1, [(10, *FRAME), (2, *FRAME)]),
 }
 
