@@ -10,8 +10,9 @@ the script exits non-zero without printing a result):
 2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``
    (one nvcc per source, in parallel) and print ptxas's registers, stack
    and spills of the à-trous level forward's instantiations (K1/K1b, each
-   radius), of K9's, K14's, K2/K2b's, K7's and K8's; fail if one of K1/K1b
-   or K2/K2b at radius <= 2, or K7 on a compiled scene, uses local memory;
+   radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's and K3/K3b's; fail
+   if one of K1/K1b or K2/K2b at radius <= 2, K7 or K13 on a compiled
+   scene, or K3/K3b uses local memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -25,7 +26,8 @@ the script exits non-zero without printing a result):
    each naming its instantiation (compiled scene or runtime counts), K10
    box filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
    ``conv2d`` beside it), K12 cross-bilateral filter, K13 shadow
-   visibility (Cornell box and ``random_scene``), K1 at radius 0 and 3
+   visibility (Cornell box and ``random_scene``, each naming its
+   instantiation), K1 at radius 0 and 3
    beside 1 and 2, K15 cone seed (from ray planes, from the camera, on a
    quarter tile of 3840x2160) and the seeded K7 on both scenes (its
    instantiation named), with the seeded march held to the unseeded one
@@ -132,7 +134,7 @@ from raymarchdenoisercuda_torch.ops.filters_cuda import (
     box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     cone_launch, cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
-    shadow_factor_cuda, shadow_shade_cuda)
+    scene_key, shadow_factor_cuda, shadow_shade_cuda)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     clamped_gather_bwd_cuda, clamped_gather_cuda, gather_bwd_cuda,
     gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
@@ -272,6 +274,11 @@ K2_MANGLED = re.compile(r"(24atrous_bwd_stored|31atrous_bwd_stored_staged)"
                         r"_kernelI(13__nv_bfloat16|f)Li(n?\d+)ELb([01])EE")
 K7_MANGLED = re.compile(r"12march_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 K8_MANGLED = re.compile(r"12shade_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
+# the shadow pass's, shadow_kernel<NS, NB, NP>, and the temporal step's,
+# temporal_kernel<TILE, PX> (TILE: K3's tile form and K3b; PX pixels a
+# thread)
+K13_MANGLED = re.compile(r"13shadow_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
+K3_MANGLED = re.compile(r"15temporal_kernelILb([01])ELi\d+EE")
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
 
@@ -329,10 +336,11 @@ def random_planes(H, W, dev, seed):
 
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
-    K2/K2b's, K7's and K8's instantiations (the build's report); raise if
-    one of K1/K1b or K2/K2b at radius <= 2, or K7 on a compiled scene,
-    uses local memory."""
-    k1, k9, local = {}, {}, []
+    K2/K2b's, K7's, K8's, K13's and K3/K3b's instantiations (the build's
+    report); raise if one of K1/K1b or K2/K2b at radius <= 2, K7 or K13 on
+    a compiled scene, or K3/K3b uses local memory, or if K3/K3b or a
+    compiled K13 is missing from the report."""
+    k1, k9, local, k3, k13 = {}, {}, [], [], []
     for name, res in sorted(_build.resource_report().items()):
         m = K2_MANGLED.search(name)
         if m:
@@ -366,6 +374,24 @@ def report_resources():
             phase(2, f"K8 {counts if counts[0] >= 0 else 'runtime counts'}"
                      f": {res[0]} registers, stack {res[1]} B, spills "
                      f"{res[2] + res[3]} B")
+        m = K13_MANGLED.search(name)
+        if m:
+            counts = tuple(int(v.replace("n", "-")) for v in m.groups())
+            phase(2, f"K13 {counts if counts[0] >= 0 else 'runtime counts'}"
+                     f": {res[0]} registers, stack {res[1]} B, spills "
+                     f"{res[2] + res[3]} B")
+            if counts[0] >= 0:
+                k13.append(counts)
+                if res[1] or res[2] or res[3]:
+                    local.append(f"K13 {counts}")
+        m = K3_MANGLED.search(name)
+        if m:
+            form = "K3 tile/K3b" if m.group(1) == "1" else "K3"
+            phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
+                     f"spills {res[2] + res[3]} B")
+            k3.append(form)
+            if res[1] or res[2] or res[3]:
+                local.append(form)
         m = K1_MANGLED.search(name)
         if m:
             R, math, sden, store, tile = (int(v.replace("n", "-"))
@@ -376,6 +402,9 @@ def report_resources():
             k9[(int(m.group(1).replace("n", "-")), int(m.group(2)))] = res
     if not k1 or not k9:
         raise AssertionError("phase 2: no K1 or K9 kernel in ptxas's report")
+    if sorted(k3) != ["K3", "K3 tile/K3b"] or len(k13) != 2:
+        raise AssertionError(f"phase 2: K3/K3b {k3} or compiled K13 {k13} "
+                             f"missing from ptxas's report")
     for R, found in sorted(k1.items()):
         regs = [res[0] for res in found.values()]
         frame = max(res[1] for res in found.values())
@@ -1041,7 +1070,11 @@ def check_k13(H, W, dev, results):
         p = ro + t[None] * rd
         lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(2),
                                    (H, W))
+        key = scene_key(scene)
+        before = shadow_factor_cuda.by_key[key]
         got = shadow_factor_cuda(scene, p, n, lp, rm)
+        if shadow_factor_cuda.by_key[key] != before + 1:
+            raise AssertionError(f"K13 {name}: not counted under key {key}")
         want = raymarch.shadow_factor(scene, p, n, lp, rm)
         flips = int((got != want).sum())
         if flips > 1e-3 * HW:
@@ -1050,7 +1083,8 @@ def check_k13(H, W, dev, results):
                           repeats=10)
         plain = cuda_time_ms(lambda: raymarch.shadow_factor(
             scene, p, n, lp, rm), repeats=2)
-        phase(3, f"K13 {name}: ok, {flips} flips, lit {float(got.mean()):.3f}"
+        phase(3, f"K13 {name}: ok, instantiation key {key}, {flips} flips, "
+                 f"lit {float(got.mean()):.3f}"
                  f", {ms:.4f} ms, plain {plain:.4f} ms")
         if name == "cornell":
             # p, n, light sample in; vis out; the shadow march's SDF

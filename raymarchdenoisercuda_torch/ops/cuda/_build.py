@@ -57,7 +57,7 @@ SIGNATURES = {
     "rdt_march": (_P,) * 9 + (_I, _P),
     "rdt_cone_seed": (_P,) * 6,
     "rdt_shadow_shade": (_P,) * 13 + (_I, _P),
-    "rdt_shadow": (_P,) * 7,
+    "rdt_shadow": (_P,) * 6 + (_I, _P),
     "rdt_box_level": (_P,) * 2 + (_I,) * 4 + (_P,),
     "rdt_gauss_pass": (_P,) * 4,
     "rdt_cross_bilateral": (_P,) * 7,

@@ -18,7 +18,7 @@
 // planes as floats.  A runtime-count instantiation stages it in shared
 // memory; a compiled one reads it from the constant bank (below).
 //
-// K7's and K8's SDF is specialised on the scene's primitive counts
+// K7's, K8's and K13's SDF is specialised on the scene's primitive counts
 // (FixedSdf<NS, NB, NP>): its loops unroll, and each primitive's
 // parameters and material id are constant-bank operands at offsets fixed
 // at compile time (c_scene, which the launch fills from the scene vector,
@@ -29,24 +29,26 @@
 // 88 registers a thread in K8 (42 with the constant bank) and ran 0.31
 // against 0.27 ms at 1080p; random_scene's 260 floats read from shared
 // memory at fixed offsets were hoisted into registers and spilled (255
-// registers, 4.9 ms against 2.6).  K7 and K8 are compiled for the Cornell
-// box (1, 3, 5), the scene of every main path, and random_scene's default
-// (24, 24, 5); any other scene runs the runtime-count instantiation of the
-// same kernel (march_kernel / shade_kernel<-1, -1, -1>).  The wrapper picks
-// the instantiation from the scene's counts (raymarch_cuda.SHADE_SCENES
-// names the same triples).  Both SDFs take the minimum in the same order
-// (spheres, boxes, planes; the first primitive on ties) with the same
-// operations, and convert the winner's id with (int), so the
-// instantiations give the same floats and ids.  K7 runs ~22 SDF
-// evaluations a pixel on the Cornell box (15.1 march steps, the material,
-// six for the normal) with 0.95 of its lanes busy: it is held by the SDF's
-// instructions, not by divergence.  K13 and K15 keep the runtime-count
-// SDF.  A shadow march's warps diverge (a random light sample a pixel: the
-// rays of a warp are not coherent; on a 1080p Cornell frame 15.1 steps a
-// pixel, 18.9 for a 16 x 2 warp's longest lane, 0.80 of the SIMD lanes
-// busy).  Persistent warps that refill their stopped lanes from the
-// block's tile once half of them stopped (shading those together) ran
-// 1.5-1.7x slower on the Cornell box, and were dropped.
+// registers, 4.9 ms against 2.6).  K7, K8 and K13 are compiled for the
+// Cornell box (1, 3, 5), the scene of every main path, and random_scene's
+// default (24, 24, 5); any other scene runs the runtime-count
+// instantiation of the same kernel (march_kernel / shade_kernel /
+// shadow_kernel<-1, -1, -1>).  The wrapper picks the instantiation from
+// the scene's counts (raymarch_cuda.SHADE_SCENES names the same triples).
+// Both SDFs take the minimum in the same order (spheres, boxes, planes;
+// the first primitive on ties) with the same operations, and convert the
+// winner's id with (int), so the instantiations give the same floats and
+// ids.  K7 runs ~22 SDF evaluations a pixel on the Cornell box (15.1 march
+// steps, the material, six for the normal) with 0.95 of its lanes busy:
+// it is held by the SDF's instructions, not by divergence; K13 on the
+// compiled Cornell box took 0.68x its runtime-count time (0.25 against
+// 0.36 ms at 1080p).  K15 keeps the runtime-count SDF.  A shadow march's
+// warps diverge (a random light sample a pixel: the rays of a warp are
+// not coherent; on a 1080p Cornell frame 15.1 steps a pixel, 18.9 for a
+// 16 x 2 warp's longest lane, 0.80 of the SIMD lanes busy).  Persistent
+// warps that refill their stopped lanes from the block's tile once half
+// of them stopped (shading those together) ran 1.5-1.7x slower on the
+// Cornell box, and were dropped.
 //
 // One thread per pixel, each marching with its own early exit: a ray that
 // stops never moves again, so stopping the loop gives the result of the
@@ -74,6 +76,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <mutex>
 
 // Launch parameters, passed by pointer from ops/raymarch_cuda.py (ctypes).
 struct MarchParams {
@@ -135,13 +139,13 @@ struct Sdf {
     }
 };
 
-// The compiled scene of K7 and K8: the flat scene vector (parameters of
-// spheres, boxes, planes, then their material ids) of the largest scene
-// they are compiled for, random_scene's default (24, 24, 5).  fill_scene
+// The compiled scene of K7, K8 and K13: the flat scene vector (parameters
+// of spheres, boxes, planes, then their material ids) of the largest scene
+// they are compiled for, random_scene's default (24, 24, 5).  launch_scene
 // copies it from the device's scene vector before each launch (device to
 // device, on the launch's stream), so a kernel reads the scene its own
-// launch was given; two launches on streams that run concurrently would
-// share the buffer (the port launches every kernel on the current stream).
+// launch was given.  One buffer serves every stream of the device, so
+// launch_scene orders the launches that read it across streams (below).
 constexpr int kConstSceneFloats = 5 * 24 + 7 * 24 + 5 * 5;
 __constant__ float c_scene[kConstSceneFloats];
 
@@ -280,7 +284,7 @@ __device__ const float* stage_scene(const float* scene, int n, float* smem) {
     return smem;
 }
 
-// The SDF of K7 and K8: FixedSdf (the scene in c_scene), or (NS < 0) the
+// The SDF of K7, K8 and K13: FixedSdf (the scene in c_scene), or (NS < 0) the
 // runtime-count one on the scene staged in shared memory (every thread of
 // the block must call make: it synchronises).
 template <int NS, int NB, int NP>
@@ -495,15 +499,18 @@ __global__ void shade_kernel(const float* __restrict__ scene,
 }
 
 // K13: the shadow-ray visibility alone, for the spp > 1 render (one launch
-// per light sample).  Every pixel is marched, misses included.
+// per light sample), on the compiled scene <NS, NB, NP> or (-1) any
+// counts.  Every pixel is marched, misses included (K8 gives a miss
+// dist = 0).
+template <int NS, int NB, int NP>
 __global__ void shadow_kernel(const float* __restrict__ scene,
                               const float* __restrict__ pos,
                               const float* __restrict__ nrm,
                               const float* __restrict__ light_p,
                               float* __restrict__ vis_out, ShadeParams p) {
     extern __shared__ float smem[];
-    const int n_sc = 5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl;
-    const Sdf sdf{stage_scene(scene, n_sc, smem), p.n_sph, p.n_box, p.n_pl};
+    const auto sdf =
+        SceneSdf<NS, NB, NP>::make(scene, smem, p.n_sph, p.n_box, p.n_pl);
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
@@ -519,22 +526,62 @@ dim3 grid_for(int H, int W, dim3 block) {
     return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
 }
 
-// Before a launch of the instantiation <NS, NB, NP>: a compiled scene
-// checks the counts it was compiled for and copies the scene vector to
-// c_scene on the launch's stream; the runtime-count one sets *smem to the
-// bytes it stages.
-template <int NS, int NB, int NP>
-cudaError_t fill_scene(const float* scene, int n_sph, int n_box, int n_pl,
-                       cudaStream_t stream, size_t* smem) {
-    if constexpr (NS >= 0) {
-        *smem = 0;
+// The order of the launches that read c_scene on one device.  A fill on
+// one stream while a kernel of another stream reads the buffer would hand
+// that kernel the other launch's scene, so each compiled-scene launch
+// records an event after its kernel, and a fill on another stream than
+// the last such launch's waits on that event first.  Each launch thus
+// runs after the one issued before it (by stream order on the same
+// stream, by the wait across streams), so every launch before it is done.
+// On one stream the cost is the record alone: no wait is issued.
+constexpr int kMaxDevices = 64;
+struct SceneOrder {
+    cudaEvent_t done = nullptr;    // recorded after the last launch
+    cudaStream_t stream = nullptr; // that launch's stream
+    bool any = false;              // a launch was recorded
+};
+std::mutex g_scene_mutex;
+SceneOrder g_scene_order[kMaxDevices];
+
+// Launches the instantiation <NS, NB, NP> by launch(smem bytes) on
+// stream: a compiled scene checks the counts it was compiled for, copies
+// the scene vector to c_scene and launches, ordered as above; the
+// runtime-count one launches with the bytes it stages.
+template <int NS, int NB, int NP, typename Launch>
+cudaError_t launch_scene(const float* scene, int n_sph, int n_box, int n_pl,
+                         cudaStream_t stream, Launch launch) {
+    if constexpr (NS < 0) {
+        launch(sizeof(float) * (5 * n_sph + 7 * n_box + 5 * n_pl));
+        return cudaGetLastError();
+    } else {
         if (n_sph != NS || n_box != NB || n_pl != NP)
             return cudaErrorInvalidValue;
-        return cudaMemcpyToSymbolAsync(
+        int dev;
+        cudaError_t err = cudaGetDevice(&dev);
+        if (err != cudaSuccess) return err;
+        if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+        std::lock_guard<std::mutex> lock(g_scene_mutex);
+        SceneOrder& order = g_scene_order[dev];
+        if (!order.done) {
+            err = cudaEventCreateWithFlags(&order.done,
+                                           cudaEventDisableTiming);
+            if (err != cudaSuccess) return err;
+        }
+        if (order.any && order.stream != stream) {
+            err = cudaStreamWaitEvent(stream, order.done, 0);
+            if (err != cudaSuccess) return err;
+        }
+        err = cudaMemcpyToSymbolAsync(
             c_scene, scene, sizeof(float) * FixedSdf<NS, NB, NP>::kAll, 0,
             cudaMemcpyDeviceToDevice, stream);
-    } else {
-        *smem = sizeof(float) * (5 * n_sph + 7 * n_box + 5 * n_pl);
+        if (err != cudaSuccess) return err;
+        launch(size_t{0});
+        err = cudaGetLastError();
+        if (err != cudaSuccess) return err;
+        err = cudaEventRecord(order.done, stream);
+        if (err != cudaSuccess) return err;
+        order.stream = stream;
+        order.any = true;
         return cudaSuccess;
     }
 }
@@ -544,15 +591,12 @@ cudaError_t launch_march(const float* scene, const float* ro, const float* rd,
                          const float* seed, float* t, bool* hit, int* mat,
                          float* normal, const MarchParams& p,
                          cudaStream_t stream) {
-    size_t smem;
-    cudaError_t err = fill_scene<NS, NB, NP>(scene, p.n_sph, p.n_box, p.n_pl,
-                                             stream, &smem);
-    if (err != cudaSuccess) return err;
-    dim3 block(16, 8);
-    march_kernel<NS, NB, NP><<<grid_for(p.H, p.W, block), block, smem,
-                               stream>>>(scene, ro, rd, seed, t, hit, mat,
-                                         normal, p);
-    return cudaGetLastError();
+    const dim3 block(16, 8), grid = grid_for(p.H, p.W, block);
+    return launch_scene<NS, NB, NP>(
+        scene, p.n_sph, p.n_box, p.n_pl, stream, [&](size_t smem) {
+            march_kernel<NS, NB, NP><<<grid, block, smem, stream>>>(
+                scene, ro, rd, seed, t, hit, mat, normal, p);
+        });
 }
 
 template <int NS, int NB, int NP>
@@ -563,16 +607,26 @@ cudaError_t launch_shade(const float* scene, const float* pos,
                          const float* prev, float* render, float* vis,
                          float* motion, const ShadeParams& p,
                          cudaStream_t stream) {
-    size_t smem;
-    cudaError_t err = fill_scene<NS, NB, NP>(scene, p.n_sph, p.n_box, p.n_pl,
-                                             stream, &smem);
-    if (err != cudaSuccess) return err;
-    dim3 block(16, 8);
-    shade_kernel<NS, NB, NP><<<grid_for(p.H, p.W, block), block, smem,
-                               stream>>>(scene, pos, normal, light_p, albedo,
-                                         emission, hit, light, prev, render,
-                                         vis, motion, p);
-    return cudaGetLastError();
+    const dim3 block(16, 8), grid = grid_for(p.H, p.W, block);
+    return launch_scene<NS, NB, NP>(
+        scene, p.n_sph, p.n_box, p.n_pl, stream, [&](size_t smem) {
+            shade_kernel<NS, NB, NP><<<grid, block, smem, stream>>>(
+                scene, pos, normal, light_p, albedo, emission, hit, light,
+                prev, render, vis, motion, p);
+        });
+}
+
+template <int NS, int NB, int NP>
+cudaError_t launch_shadow(const float* scene, const float* pos,
+                          const float* normal, const float* light_p,
+                          float* vis, const ShadeParams& p,
+                          cudaStream_t stream) {
+    const dim3 block(16, 8), grid = grid_for(p.H, p.W, block);
+    return launch_scene<NS, NB, NP>(
+        scene, p.n_sph, p.n_box, p.n_pl, stream, [&](size_t smem) {
+            shadow_kernel<NS, NB, NP><<<grid, block, smem, stream>>>(
+                scene, pos, normal, light_p, vis, p);
+        });
 }
 
 }  // namespace
@@ -631,15 +685,19 @@ extern "C" int rdt_shadow_shade(const float* scene, const float* pos,
 #undef RDT_SHADE
 }
 
+// K13; scene_key picks the instantiation as in rdt_shadow_shade.
 extern "C" int rdt_shadow(const float* scene, const float* pos,
                           const float* normal, const float* light_p,
                           float* vis, const ShadeParams* params,
-                          void* stream) {
-    dim3 block(16, 8);
-    size_t smem = sizeof(float)
-        * (5 * params->n_sph + 7 * params->n_box + 5 * params->n_pl);
-    shadow_kernel<<<grid_for(params->H, params->W, block), block, smem,
-                    (cudaStream_t)stream>>>(scene, pos, normal, light_p, vis,
-                                            *params);
-    return (int)cudaGetLastError();
+                          int scene_key, void* stream) {
+#define RDT_SHADOW(NS, NB, NP)                                             \
+    launch_shadow<NS, NB, NP>(scene, pos, normal, light_p, vis, *params,   \
+                              (cudaStream_t)stream)
+    switch (scene_key) {
+    case 0: return (int)RDT_SHADOW(-1, -1, -1);
+    case 1: return (int)RDT_SHADOW(1, 3, 5);
+    case 2: return (int)RDT_SHADOW(24, 24, 5);
+    default: return (int)cudaErrorInvalidValue;
+    }
+#undef RDT_SHADOW
 }

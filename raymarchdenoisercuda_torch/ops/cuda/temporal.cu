@@ -7,7 +7,7 @@
 // function operation by operation (built with --fmad=false; the one fused
 // multiply-add, in the reprojection sum, is explicit on both sides).
 //
-// One thread per pixel:
+// Per pixel:
 //   1. bounded-motion bilinear reprojection of the 10 history planes
 //      (colour 3, moments 2, length, previous depth, previous normal 3):
 //      |m0| or |m1| > max_motion counts as disocclusion; taps outside the
@@ -21,8 +21,22 @@
 // The TPU kernel's per-band offset ranges and lane rolls exist because a TPU
 // has no cheap gather; here each thread gathers its own four taps.
 //
-// Bound on the card: memory (~20 floats read and 7 written per pixel); the
-// 7x7 window only runs on pixels whose history is short.
+// Bound on the card: memory, 104 B a pixel (render, motion, depth, normal
+// and the 10 history planes read once, 7 planes written).  Read through
+// the caches pixel by pixel, the 3x3 clamp takes 27 render values and the
+// 7x7 window 147 values and 49 lumas, each column sum recomputed by 7
+// neighbouring pixels (0.24 ms against the bound's 0.064 at 1080p).  So a
+// block of 32 x 8 threads stages its tile's render with a 3-pixel halo in
+// shared memory (cp.async, in flight while the threads gather their
+// history; plain loads ran 1.07x slower on a served frame's inputs and
+// K3b's tiles, 0.9x on small random motion), the clamp reads it there,
+// and only a block with a short pixel (__syncthreads_or) takes each
+// staged pixel's luma and each 7-row column sum once; the short pixels add
+// seven column sums (temporal_kernel).  The tent gather stays in the
+// caches: staging the history window too ((32 + 13) x (8 + 13) pixels of
+// 10 planes, 37.8 KB a block) took 0.73x the time on uniform random
+// motion but 1.33x on a served frame's inputs, whose motion is coherent,
+// and was dropped.
 //
 // K4 replaces temporal_tpu.py _make_gather_kernel (wrapper _gather_call):
 // the same bounded tent gather as K3's step 1, alone, for the 10-plane
@@ -116,10 +130,6 @@ namespace {
 
 constexpr float kL0 = 0.2126f, kL1 = 0.7152f, kL2 = 0.0722f;
 
-__device__ __forceinline__ float luma_at(const float* c, int i, int hw) {
-    return kL0 * c[i] + kL1 * c[hw + i] + kL2 * c[2 * hw + i];
-}
-
 // The frame's bounds and the tile's origin, and the index of tile pixel
 // (y, x) (centre coordinates, negative in the margin) in the history and
 // render canvases, with their plane strides, for a tile of H x W; TILE =
@@ -151,61 +161,89 @@ __device__ __forceinline__ int ridx(const TemporalTile& t, int W, int y,
     return TILE ? (y + t.r_m) * t.r_rs + (x + t.r_m) : y * W + x;
 }
 
-// Column sum of the 7x7 window at tile column qx (zero outside the frame),
-// in the order of spatial_moments: rows 0, +1, -1, +2, -2, +3, -3.
-template <bool TILE>
-__device__ __forceinline__ void column_sums(const float* c, int y, int qx,
-                                            int H, int W,
-                                            const TemporalTile& t,
-                                            float* s1, float* s2) {
-    *s1 = 0.0f;
-    *s2 = 0.0f;
-    const int gy = origin_y<TILE>(t) + y, gqx = origin_x<TILE>(t) + qx;
-    if (gqx < 0 || gqx >= bound_w<TILE>(t, W)) return;
-    const int ps = TILE ? t.r_ps : H * W;
-    float l = luma_at(c, ridx<TILE>(t, W, y, qx), ps);
-    float a1 = l, a2 = l * l;
-    for (int d = 1; d <= 3; ++d) {
-        float lp = 0.0f, lm = 0.0f;
-        if (gy + d < bound_h<TILE>(t, H))
-            lp = luma_at(c, ridx<TILE>(t, W, y + d, qx), ps);
-        if (gy - d >= 0) lm = luma_at(c, ridx<TILE>(t, W, y - d, qx), ps);
-        a1 = (a1 + lp) + lm;
-        a2 = (a2 + lp * lp) + lm * lm;
-    }
-    *s1 = a1;
-    *s2 = a2;
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(d), "l"(src));
 }
 
-template <bool TILE>
-__global__ void temporal_kernel(const float* __restrict__ render,
-                                const float* __restrict__ motion,
-                                const float* __restrict__ depth,
-                                const float* __restrict__ normal,
-                                const float* __restrict__ h_color,
-                                const float* __restrict__ h_moments,
-                                const float* __restrict__ h_length,
-                                const float* __restrict__ h_depth,
-                                const float* __restrict__ h_normal,
-                                float* __restrict__ out_integ,
-                                float* __restrict__ out_var,
-                                float* __restrict__ out_moments,
-                                float* __restrict__ out_length,
-                                TemporalParams p, TemporalTile t) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= p.W || y >= p.H) return;
-    const int H = p.H, W = p.W, hw = H * W;
-    const int i = y * W + x;
-    const int gy = origin_y<TILE>(t) + y, gx = origin_x<TILE>(t) + x;
-    const int Hg = bound_h<TILE>(t, H), Wg = bound_w<TILE>(t, W);
+// K3's block: 32 x 8 threads, each computing PX pixels 32 columns apart
+// (a (32 PX) x 8 output tile); its render is staged with a 3-pixel halo,
+// the reach of the 7x7 window.  The launches take one pixel a thread: two
+// ran 1.14-1.19x faster on uniform random motion but 0.92x on a served
+// frame's inputs (H100, 1080p).  The same body written for one pixel
+// without the loop over PX compiled to code of the same length, scheduled
+// otherwise, and ran 1.05-1.2x slower.
+constexpr int K3_TX = 32, K3_TY = 8, K3_HALO = 3;
+constexpr int K3_PX = 1;
 
-    const float m0 = motion[i], m1 = motion[hw + i];
-    const float ys = (float)gy + m0, xs = (float)gx + m1;
-    const bool within = fabsf(m0) <= (float)p.max_motion
-        && fabsf(m1) <= (float)p.max_motion;
-    const bool in_bounds = ys >= 0.0f && ys <= (float)(Hg - 1)
-        && xs >= 0.0f && xs <= (float)(Wg - 1) && within;
+template <int PX>
+struct K3Tile {
+    static constexpr int TW = K3_TX * PX;
+    static constexpr int SW = TW + 2 * K3_HALO, SH = K3_TY + 2 * K3_HALO;
+    float c[3][SH][SW];     // the render (zero where not read)
+    float l[SH][SW];        // its luma (zero outside the frame)
+    float s1[K3_TY][SW];    // 7-row column sums of luma and luma^2 at
+    float s2[K3_TY][SW];    // each output row (zero outside the frame)
+};
+
+// K3/K3b (see the header): the render tile is staged by cp.async while
+// each thread gathers its pixels' history through the caches; the 3x3
+// clamp then reads the staged render, and a block any of whose pixels
+// needs the 7x7 variance boost computes each staged pixel's luma once
+// and each (output row, staged column) 7-row sum once, which its short
+// pixels add up: the floats of the per-pixel loops, in their order (rows
+// 0, +1, -1, +2, -2, +3, -3 of a column, with + 0.0f for a row outside
+// the frame; columns x, x+1, x-1, ..., x-3, a column outside the frame
+// adding 0).  Threads outside the tile stay through every barrier.
+template <bool TILE, int PX>
+__global__ void __launch_bounds__(K3_TX * K3_TY)
+temporal_kernel(const float* __restrict__ render,
+                const float* __restrict__ motion,
+                const float* __restrict__ depth,
+                const float* __restrict__ normal,
+                const float* __restrict__ h_color,
+                const float* __restrict__ h_moments,
+                const float* __restrict__ h_length,
+                const float* __restrict__ h_depth,
+                const float* __restrict__ h_normal,
+                float* __restrict__ out_integ,
+                float* __restrict__ out_var,
+                float* __restrict__ out_moments,
+                float* __restrict__ out_length,
+                TemporalParams p, TemporalTile t) {
+    using Tl = K3Tile<PX>;
+    __shared__ Tl sm;
+    const int H = p.H, W = p.W, hw = H * W;
+    const int Hg = bound_h<TILE>(t, H), Wg = bound_w<TILE>(t, W);
+    const int oy = origin_y<TILE>(t), ox = origin_x<TILE>(t);
+    const int bx0 = blockIdx.x * Tl::TW, by0 = blockIdx.y * K3_TY;
+    const int tid = threadIdx.y * K3_TX + threadIdx.x;
+    const int rps = TILE ? t.r_ps : hw;
+
+    // the render tile and its halo, where it lies in the frame (and, for
+    // a tile, in the render canvas: only threads outside the tile reach
+    // past its margin)
+    for (int e = tid; e < Tl::SH * Tl::SW; e += K3_TX * K3_TY) {
+        const int sy = e / Tl::SW, sx = e - sy * Tl::SW;
+        const int ry = by0 + sy - K3_HALO, rx = bx0 + sx - K3_HALO;
+        bool in = oy + ry >= 0 && oy + ry < Hg && ox + rx >= 0
+            && ox + rx < Wg;
+        if (TILE) {
+            in = in && ry >= -t.r_m && ry < H + t.r_m && rx >= -t.r_m
+                && rx < W + t.r_m;
+        }
+        if (in) {
+            const int q = ridx<TILE>(t, W, ry, rx);
+            cp_async4(&sm.c[0][sy][sx], render + q);
+            cp_async4(&sm.c[1][sy][sx], render + rps + q);
+            cp_async4(&sm.c[2][sy][sx], render + 2 * rps + q);
+        } else {
+            sm.c[0][sy][sx] = 0.0f;
+            sm.c[1][sy][sx] = 0.0f;
+            sm.c[2][sy][sx] = 0.0f;
+        }
+    }
 
     // 1. reprojection: history planes in the order colour, moments, length,
     //    previous depth, previous normal
@@ -213,10 +251,25 @@ __global__ void temporal_kernel(const float* __restrict__ render,
     const float* planes[10] = {h_color, h_color + hps, h_color + 2 * hps,
                                h_moments, h_moments + hps, h_length, h_depth,
                                h_normal, h_normal + hps, h_normal + 2 * hps};
-    float g[10];
+    const int y = by0 + threadIdx.y, gy = oy + y;
+    bool live[PX], in_bounds[PX];
+    float g[PX][10];
 #pragma unroll
-    for (int k = 0; k < 10; ++k) g[k] = 0.0f;
-    if (within) {
+    for (int k = 0; k < PX; ++k) {
+        const int x = bx0 + threadIdx.x + K3_TX * k, gx = ox + x;
+        live[k] = x < W && y < H;
+        in_bounds[k] = false;
+#pragma unroll
+        for (int j = 0; j < 10; ++j) g[k][j] = 0.0f;
+        if (!live[k]) continue;
+        const int i = y * W + x;
+        const float m0 = motion[i], m1 = motion[hw + i];
+        const float ys = (float)gy + m0, xs = (float)gx + m1;
+        const bool within = fabsf(m0) <= (float)p.max_motion
+            && fabsf(m1) <= (float)p.max_motion;
+        in_bounds[k] = ys >= 0.0f && ys <= (float)(Hg - 1)
+            && xs >= 0.0f && xs <= (float)(Wg - 1) && within;
+        if (!within) continue;
         const float y0 = floorf(m0), x0 = floorf(m1);
         for (int ay = 0; ay <= 1; ++ay) {
             const float dyf = y0 + (float)ay;
@@ -232,79 +285,133 @@ __global__ void temporal_kernel(const float* __restrict__ render,
                 const int q = hidx<TILE>(t, W, ry, rx);
                 // explicit fused multiply-adds, as the plain version rounds
 #pragma unroll
-                for (int k = 0; k < 10; ++k) {
-                    g[k] = __fmaf_rn(w, inside ? planes[k][q] : 0.0f, g[k]);
+                for (int j = 0; j < 10; ++j) {
+                    g[k][j] = __fmaf_rn(w, inside ? planes[j][q] : 0.0f,
+                                        g[k][j]);
                 }
             }
         }
     }
-    const float pc[3] = {g[0], g[1], g[2]};
-    const float pm0 = g[3], pm1 = g[4], plen = g[5], pdepth = g[6];
+    // a thread's own copies are visible to it once they complete, the
+    // others' after the barrier
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
 
-    // 2. validity
-    const float z = depth[i];
-    const float n0 = normal[i], n1 = normal[hw + i], n2 = normal[2 * hw + i];
-    const bool depth_ok = fabsf(pdepth - z) <= 0.1f * fmaxf(fabsf(z), 1e-3f);
-    const float ndot = g[7] * n0 + g[8] * n1 + g[9] * n2;
-    const bool valid = in_bounds && depth_ok && ndot > 0.8f && plen > 0.0f;
+    // 2.-4. validity, clamp + blend, moments and variance
+    float var[PX];
+    bool short_px[PX], any_short = false;
+#pragma unroll
+    for (int k = 0; k < PX; ++k) {
+        short_px[k] = false;
+        var[k] = 0.0f;
+        if (!live[k]) continue;
+        const int lx = threadIdx.x + K3_TX * k + K3_HALO;
+        const int ly = threadIdx.y + K3_HALO;
+        const int x = bx0 + threadIdx.x + K3_TX * k, gx = ox + x;
+        const int i = y * W + x;
+        const float pm0 = g[k][3], pm1 = g[k][4], plen = g[k][5];
+        const float pdepth = g[k][6];
+        const float z = depth[i];
+        const float n0 = normal[i], n1 = normal[hw + i],
+                    n2 = normal[2 * hw + i];
+        const bool depth_ok =
+            fabsf(pdepth - z) <= 0.1f * fmaxf(fabsf(z), 1e-3f);
+        const float ndot = g[k][7] * n0 + g[k][8] * n1 + g[k][9] * n2;
+        const bool valid =
+            in_bounds[k] && depth_ok && ndot > 0.8f && plen > 0.0f;
 
-    // 3. clamp + blend
-    const int rc = ridx<TILE>(t, W, y, x), rps = TILE ? t.r_ps : hw;
-    const float c[3] = {render[rc], render[rps + rc], render[2 * rps + rc]};
-    float prev[3] = {pc[0], pc[1], pc[2]};
-    if (p.history_clamp) {
-        for (int k = 0; k < 3; ++k) {
-            float lo = INFINITY, hi = -INFINITY;
-            for (int dy = -1; dy <= 1; ++dy) {
-                if (gy + dy < 0 || gy + dy >= Hg) continue;
-                for (int dx = -1; dx <= 1; ++dx) {
-                    if (gx + dx < 0 || gx + dx >= Wg) continue;
-                    float v = render[k * rps + ridx<TILE>(t, W, y + dy, x + dx)];
-                    lo = fminf(lo, v);
-                    hi = fmaxf(hi, v);
+        const float c[3] = {sm.c[0][ly][lx], sm.c[1][ly][lx],
+                            sm.c[2][ly][lx]};
+        float prev[3] = {g[k][0], g[k][1], g[k][2]};
+        if (p.history_clamp) {
+            for (int ch = 0; ch < 3; ++ch) {
+                float lo = INFINITY, hi = -INFINITY;
+                for (int dy = -1; dy <= 1; ++dy) {
+                    if (gy + dy < 0 || gy + dy >= Hg) continue;
+                    for (int dx = -1; dx <= 1; ++dx) {
+                        if (gx + dx < 0 || gx + dx >= Wg) continue;
+                        const float v = sm.c[ch][ly + dy][lx + dx];
+                        lo = fminf(lo, v);
+                        hi = fmaxf(hi, v);
+                    }
+                }
+                prev[ch] = fminf(fmaxf(prev[ch], lo), hi);
+            }
+        }
+        const float n_new = (valid ? plen : 0.0f) + 1.0f;
+        const float alpha = fmaxf(1.0f / n_new, p.alpha);
+        const float alpha_m = fmaxf(1.0f / n_new, p.alpha_m);
+        for (int ch = 0; ch < 3; ++ch) {
+            out_integ[ch * hw + i] = valid
+                ? (1.0f - alpha) * prev[ch] + alpha * c[ch] : c[ch];
+        }
+        const float lum = kL0 * c[0] + kL1 * c[1] + kL2 * c[2];
+        const float lum2 = lum * lum;
+        const float mom0 =
+            valid ? (1.0f - alpha_m) * pm0 + alpha_m * lum : lum;
+        const float mom1 =
+            valid ? (1.0f - alpha_m) * pm1 + alpha_m * lum2 : lum2;
+        var[k] = fmaxf(mom1 - mom0 * mom0, 0.0f);
+        out_moments[i] = mom0;
+        out_moments[hw + i] = mom1;
+        out_length[i] = n_new;
+        short_px[k] = p.boost_frames > 0 && n_new < (float)p.boost_frames;
+        any_short = any_short || short_px[k];
+    }
+
+    // the 7x7 variance boost, where the new history is short
+    if (__syncthreads_or(any_short)) {
+        for (int e = tid; e < Tl::SH * Tl::SW; e += K3_TX * K3_TY) {
+            const int sy = e / Tl::SW, sx = e - sy * Tl::SW;
+            sm.l[sy][sx] = kL0 * sm.c[0][sy][sx] + kL1 * sm.c[1][sy][sx]
+                + kL2 * sm.c[2][sy][sx];
+        }
+        __syncthreads();
+        for (int e = tid; e < K3_TY * Tl::SW; e += K3_TX * K3_TY) {
+            const int r = e / Tl::SW, sx = e - r * Tl::SW;
+            const int gqx = ox + bx0 + sx - K3_HALO;
+            float a1 = 0.0f, a2 = 0.0f;
+            if (gqx >= 0 && gqx < Wg) {
+                const int sy = r + K3_HALO;
+                a1 = sm.l[sy][sx];
+                a2 = a1 * a1;
+                for (int d = 1; d <= K3_HALO; ++d) {
+                    // rows outside the frame hold a luma of 0
+                    const float lp = sm.l[sy + d][sx], lm = sm.l[sy - d][sx];
+                    a1 = (a1 + lp) + lm;
+                    a2 = (a2 + lp * lp) + lm * lm;
                 }
             }
-            prev[k] = fminf(fmaxf(prev[k], lo), hi);
+            sm.s1[r][sx] = a1;
+            sm.s2[r][sx] = a2;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < PX; ++k) {
+            if (!short_px[k]) continue;
+            const int r = threadIdx.y, sx = threadIdx.x + K3_TX * k + K3_HALO;
+            const int gx = ox + bx0 + threadIdx.x + K3_TX * k;
+            float s1 = sm.s1[r][sx], s2 = sm.s2[r][sx];
+            for (int d = 1; d <= K3_HALO; ++d) {
+                s1 = s1 + sm.s1[r][sx + d];
+                s2 = s2 + sm.s2[r][sx + d];
+                s1 = s1 + sm.s1[r][sx - d];
+                s2 = s2 + sm.s2[r][sx - d];
+            }
+            const float fy = (float)gy, fx = (float)gx;
+            const float cy = fminf(fy, 3.0f)
+                + fminf((float)(Hg - 1) - fy, 3.0f) + 1.0f;
+            const float cx = fminf(fx, 3.0f)
+                + fminf((float)(Wg - 1) - fx, 3.0f) + 1.0f;
+            const float inv_cnt = 1.0f / (cy * cx);
+            const float sm1 = s1 * inv_cnt, sm2 = s2 * inv_cnt;
+            var[k] = fmaxf(sm2 - sm1 * sm1, 0.0f);
         }
     }
-    const float n_new = (valid ? plen : 0.0f) + 1.0f;
-    const float alpha = fmaxf(1.0f / n_new, p.alpha);
-    const float alpha_m = fmaxf(1.0f / n_new, p.alpha_m);
-    for (int k = 0; k < 3; ++k) {
-        out_integ[k * hw + i] = valid
-            ? (1.0f - alpha) * prev[k] + alpha * c[k] : c[k];
+#pragma unroll
+    for (int k = 0; k < PX; ++k) {
+        if (live[k]) out_var[y * W + bx0 + threadIdx.x + K3_TX * k] = var[k];
     }
-
-    // 4. moments and variance
-    const float lum = kL0 * c[0] + kL1 * c[1] + kL2 * c[2];
-    const float lum2 = lum * lum;
-    const float mom0 = valid ? (1.0f - alpha_m) * pm0 + alpha_m * lum : lum;
-    const float mom1 = valid ? (1.0f - alpha_m) * pm1 + alpha_m * lum2 : lum2;
-    float variance = fmaxf(mom1 - mom0 * mom0, 0.0f);
-    if (p.boost_frames > 0 && n_new < (float)p.boost_frames) {
-        float s1, s2, a, b;
-        column_sums<TILE>(render, y, x, H, W, t, &s1, &s2);
-        for (int d = 1; d <= 3; ++d) {
-            column_sums<TILE>(render, y, x + d, H, W, t, &a, &b);
-            s1 = s1 + a;
-            s2 = s2 + b;
-            column_sums<TILE>(render, y, x - d, H, W, t, &a, &b);
-            s1 = s1 + a;
-            s2 = s2 + b;
-        }
-        const float fy = (float)gy, fx = (float)gx;
-        const float cy = fminf(fy, 3.0f)
-            + fminf((float)(Hg - 1) - fy, 3.0f) + 1.0f;
-        const float cx = fminf(fx, 3.0f)
-            + fminf((float)(Wg - 1) - fx, 3.0f) + 1.0f;
-        const float inv_cnt = 1.0f / (cy * cx);
-        const float sm1 = s1 * inv_cnt, sm2 = s2 * inv_cnt;
-        variance = fmaxf(sm2 - sm1 * sm1, 0.0f);
-    }
-    out_var[i] = variance;
-    out_moments[i] = mom0;
-    out_moments[hw + i] = mom1;
-    out_length[i] = n_new;
 }
 
 
@@ -578,13 +685,14 @@ extern "C" int rdt_temporal(const float* render, const float* motion,
                             float* out_var, float* out_moments,
                             float* out_length, const TemporalParams* params,
                             const TemporalTile* tile, void* stream) {
-    dim3 block(32, 8);
-    dim3 grid((params->W + block.x - 1) / block.x,
-              (params->H + block.y - 1) / block.y);
+    constexpr int PX = K3_PX;
+    const dim3 block(K3_TX, K3_TY);
+    const dim3 grid((params->W + K3Tile<PX>::TW - 1) / K3Tile<PX>::TW,
+                    (params->H + K3_TY - 1) / K3_TY);
     cudaStream_t s = (cudaStream_t)stream;
     const TemporalTile t = tile ? *tile : TemporalTile{};
 #define RDT_TEMPORAL(T)                                                   \
-    temporal_kernel<T><<<grid, block, 0, s>>>(                            \
+    temporal_kernel<T, PX><<<grid, block, 0, s>>>(                        \
         render, motion, depth, normal, h_color, h_moments, h_length,      \
         h_depth, h_normal, out_integ, out_var, out_moments, out_length,   \
         *params, t)

@@ -16,8 +16,8 @@ when it is given, as ``raymarch_pallas_gbuf`` does, else from the ray
 planes) and then marches each pixel from its block's stop
 (:func:`march_gbuf_seeded_cuda`).
 
-K7 (seeded or not) and K8 are compiled for the primitive counts of the
-scenes in :data:`SHADE_SCENES` (their SDF unrolled, the parameters and
+K7 (seeded or not), K8 and K13 are compiled for the primitive counts of
+the scenes in :data:`SHADE_SCENES` (their SDF unrolled, the parameters and
 material ids in the constant bank) and once for counts known only at run
 time; :func:`scene_key` picks the instantiation.
 
@@ -82,17 +82,17 @@ def _counts(scene: Scene):
             scene.plane_params.shape[0])
 
 
-# the (spheres, boxes, planes) counts K7 and K8 are compiled for, in the
-# order of rdt_march's and rdt_shadow_shade's scene keys 1, 2, ...
-# (ops/cuda/raymarch.cu): the Cornell box of every main path and
+# the (spheres, boxes, planes) counts K7, K8 and K13 are compiled for, in
+# the order of rdt_march's, rdt_shadow_shade's and rdt_shadow's scene keys
+# 1, 2, ... (ops/cuda/raymarch.cu): the Cornell box of every main path and
 # random_scene's default
 SHADE_SCENES = ((1, 3, 5), (24, 24, 5))
 
 
 def scene_key(scene: Scene) -> int:
-    """K7's and K8's instantiation for ``scene``: the 1-based index of its
-    counts in :data:`SHADE_SCENES`, or 0, the instantiation for any
-    counts."""
+    """K7's, K8's and K13's instantiation for ``scene``: the 1-based
+    index of its counts in :data:`SHADE_SCENES`, or 0, the instantiation
+    for any counts."""
     counts = _counts(scene)
     return (SHADE_SCENES.index(counts) + 1 if counts in SHADE_SCENES
             else 0)
@@ -353,7 +353,8 @@ def shadow_factor_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
                        params: RaymarchParams) -> torch.Tensor:
     """(H, W) shadow-ray visibility (K13), as ``shadow_factor`` returns it;
     no gradient (the inputs are read detached).  Each launch adds one to
-    ``shadow_factor_cuda.launches``."""
+    ``shadow_factor_cuda.launches`` and to ``shadow_factor_cuda.by_key``
+    under its instantiation's :func:`scene_key`."""
     if not p.is_cuda:
         return shadow_factor(scene, p, n, light_p, params)
     H, W = p.shape[-2:]
@@ -369,12 +370,15 @@ def shadow_factor_cuda(scene: Scene, p: torch.Tensor, n: torch.Tensor,
                        shadow_steps=params.shadow_steps, has_prev=0, cam_w=W,
                        cam_h=H, hit_eps=params.hit_eps,
                        relax_omega=params.relax_omega)
+    key = scene_key(scene)
     rc = _build.kernels().rdt_shadow(
-        *ptrs, vis.data_ptr(), ctypes.addressof(prm),
+        *ptrs, vis.data_ptr(), ctypes.addressof(prm), key,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rdt_shadow")
     shadow_factor_cuda.launches += 1
+    shadow_factor_cuda.by_key[key] += 1
     return vis
 
 
 shadow_factor_cuda.launches = 0
+shadow_factor_cuda.by_key = collections.Counter()

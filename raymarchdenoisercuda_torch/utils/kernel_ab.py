@@ -20,16 +20,24 @@ primitive counts (their runtime-count instantiation): K7 with
 ``relax_omega`` 1.0 and 1.4, unseeded and seeded (both trees given the
 seed grid of the other tree's K15), and on a quarter window of the frame;
 K8 with ``relax_omega`` 1.0 and 1.5, with and without the previous
-camera, and on a window of the frame (the sharded path's launch); and KGb,
-the clamped gather's adjoint, whose float64 sum is compared to within
-rounding, not bit for bit.  For each case it prints whether every
-output is bit-equal to the other tree's (``torch.equal``) and the largest
-difference, and times both trees in turn with CUDA events
-(this, other, this, other; 20 launches each).  It prints ptxas's
-registers, stack and spills of the à-trous, march and shading kernels of
-each tree it builds (a library built before is loaded as it is), and the
-card's name and power limit.  It exits non-zero if an output of a
-bit-equal case differs, or if KGb's differs by more than rtol 1e-5.
+camera, and on a window of the frame (the sharded path's launch); K13 on
+K8's inputs of the three scenes with ``relax_omega`` 1.0 and 1.4; K3 on
+``chip_smoke.py`` phase 3's kind of input (uniform random motion, short
+histories) with motion scales 0, 3 and 14, the variance boost on and off,
+the history clamp off, on a frame whose sides are no multiple of the
+tile, on histories where a few pixels of each block are short and where
+none is, and on a served frame's inputs (the ninth frame of phase 4's
+orbit through this tree's pipeline); K3b on the quarter tiles of a
+3840x2160 frame (phase 10(a)); and KGb, the clamped gather's adjoint,
+whose float64 sum is compared to within rounding, not bit for bit.  For
+each case it prints whether every output is bit-equal to the other
+tree's (``torch.equal``) and the largest difference, and times both trees
+in turn with CUDA events (this, other, this, other; 20 launches each).
+It prints ptxas's registers, stack and spills of the à-trous, march,
+shading, shadow and temporal kernels of each tree it builds (a library
+built before is loaded as it is), and the card's name and power limit.
+It exits non-zero if an output of a bit-equal case differs, or if KGb's
+differs by more than rtol 1e-5.
 """
 
 from __future__ import annotations
@@ -156,15 +164,78 @@ def shade_inputs(dev):
     return out
 
 
-def cases(P, U, cots, S, M):
+def temporal_planes(H, W, dev, seed):
+    """Seeded inputs of the temporal step (``chip_smoke.py``'s
+    ``random_planes``): render, normal, depth, motion to ±7 pixels, and
+    the history's colour, moments and lengths 0-5."""
+    rng = np.random.default_rng(seed)
+    n = rng.standard_normal((3, H, W)).astype(np.float32)
+    n[2] += 3.0
+    n /= np.sqrt((n ** 2).sum(0, keepdims=True))
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    return dict(color=t(rng.random((3, H, W))), normal=t(n),
+                depth=t(0.3 + 0.5 * rng.random((H, W))),
+                motion=t((rng.random((2, H, W)) - 0.5) * 14.0),
+                h_color=t(rng.random((3, H, W))),
+                h_moments=t(rng.random((2, H, W))),
+                h_length=t(np.floor(rng.random((H, W)) * 6)))
+
+
+SERVED_FRAME = 8                     # K3's served frame: its orbit index
+ORBIT_FRAMES = 16                    # frames a turn of phase 4's orbit
+
+
+def served_inputs(dev):
+    """``(gbuf, history)``: the served frame's K3 inputs, the Cornell box at
+    ``FRAME`` through this tree's ``FramePipeline`` (``chip_smoke.py``
+    phase 4's settings) for the orbit frames before ``SERVED_FRAME``."""
+    from ..config import CameraParams, RaymarchParams, SVGFParams
+    from ..gbuffer import History
+    from ..io.generate import orbit_camera
+    from ..models.pipeline import FramePipeline
+    from ..ops import raymarch
+    H, W = FRAME
+    pipe = FramePipeline(raymarch.cornell_scene(device=dev),
+                         cam_cfg=CameraParams(width=W, height=H),
+                         rm_params=RaymarchParams(),
+                         svgf_params=SVGFParams(radius=1),
+                         weight_math="fast")
+    gen = torch.Generator(dev).manual_seed(0)
+    hist, prev = History.zeros(H, W, device=dev), None
+    for f in range(SERVED_FRAME + 1):
+        cam = orbit_camera(f / ORBIT_FRAMES, device=dev)
+        if f == SERVED_FRAME:
+            return pipe.renderer(cam, prev, gen), hist
+        _, hist = pipe(cam, prev, hist, gen)
+        prev = cam
+
+
+def temporal_inputs(dev):
+    """K3's and K3b's inputs: :func:`temporal_planes` at ``FRAME`` and at
+    twice its sides, and the served frame's."""
+    H, W = FRAME
+    return dict(frame=temporal_planes(H, W, dev, 21),
+                uhd=temporal_planes(2 * H, 2 * W, dev, 22),
+                served=served_inputs(dev))
+
+
+def cases(P, U, cots, S, M, T):
     """``(name, fn, exact)``: ``fn(tree)`` is a zero-argument launch
     returning a tuple of tensors; ``exact``: the two trees' outputs must be
     bit-equal (else within rounding)."""
-    for case in _cases(P, U, cots, S, M):
+    for case in _cases(P, U, cots, S, M, T):
         yield case if len(case) == 3 else case + (True,)
 
 
-def _cases(P, U, cots, S, M):
+def _step_outputs(out):
+    integ, var, h = out
+    return integ, var, h.moments, h.length
+
+
+def _cases(P, U, cots, S, M, T):
     c, v, n, z = P
 
     def level(tree, r, level, wm, luma=None, store=None):
@@ -346,6 +417,88 @@ def _cases(P, U, cots, S, M):
         yield (f"K8 {name} window",
                lambda t, name=name: k8(t, name, 1.0, True, True))
 
+    def k13(tree, name, omega):
+        rm = tree.raymarch_cuda.RaymarchParams(relax_omega=omega)
+        scene, p, nrm, lp = S[name][:4]
+        return lambda: (tree.raymarch_cuda.shadow_factor_cuda(
+            scene, p, nrm, lp, rm),)
+
+    for name, _ in SCENES:
+        for omega in (1.0, 1.4):
+            yield (f"K13 {name} omega {omega}",
+                   lambda t, name=name, omega=omega: k13(t, name, omega))
+
+    def k3(tree, kind, scale=14.0, boost=4, clamp=True):
+        # phase 3's kind of input with the motion scaled (0: every pixel
+        # reprojects onto itself); "few": long valid histories (zero
+        # motion, the current depth and normal) except one pixel in 256,
+        # "none": no pixel short; "odd": a frame of sides 1079 x 1917;
+        # "served": the served frame's inputs
+        from ..gbuffer import GBuffer, History
+        p = tree.SVGFParams(variance_boost_frames=boost, history_clamp=clamp)
+        if kind == "served":
+            g, h = T["served"]
+            return lambda: _step_outputs(
+                tree.temporal_cuda.temporal_accumulate_cuda(g, h, params=p))
+        F = T["frame"]
+        motion = F["motion"] * (scale / 14.0)
+        length = F["h_length"]
+        if kind in ("few", "none"):
+            motion = torch.zeros_like(motion)
+            length = torch.full_like(length, 10.0)
+            if kind == "few":
+                length[3::16, 17::16] = 0.0
+        planes = dict(F, motion=motion, h_length=length)
+        if kind == "odd":
+            planes = {k: x[..., :1079, :1917].contiguous()
+                      for k, x in planes.items()}
+        g = GBuffer(render=planes["color"], albedo=planes["color"],
+                    normal=planes["normal"], depth=planes["depth"],
+                    motion=planes["motion"])
+        h = History(color=planes["h_color"], moments=planes["h_moments"],
+                    length=planes["h_length"], prev_depth=planes["depth"],
+                    prev_normal=planes["normal"])
+        return lambda: _step_outputs(
+            tree.temporal_cuda.temporal_accumulate_cuda(g, h, params=p))
+
+    for scale in (0.0, 3.0, 14.0):
+        for boost in (4, 0):
+            yield (f"K3 motion {scale:g} boost {boost}",
+                   lambda t, scale=scale, boost=boost: k3(
+                       t, "random", scale, boost))
+    yield "K3 motion 14 no clamp", lambda t: k3(t, "random", clamp=False)
+    for kind in ("odd", "few", "none", "served"):
+        yield f"K3 {kind}", lambda t, kind=kind: k3(t, kind)
+
+    def k3b(tree, k):
+        # the history canvas (margin max_motion + 1) and the render canvas
+        # (margin 3) of quarter tile k of the larger frame
+        from ..gbuffer import GBuffer
+        Q = T["uhd"]
+        H2, W2 = Q["depth"].shape
+        th, tw = H2 // 2, W2 // 2
+        p = tree.SVGFParams()
+        tile = tree.common.Tile(((k // 2) * th, (k % 2) * tw), (H2, W2))
+        stack = torch.cat([Q["h_color"], Q["h_moments"], Q["h_length"][None],
+                           Q["depth"][None], Q["normal"]])
+        canvas = tree.common.frame_canvas(stack, tile, th, tw,
+                                          p.max_motion + 1)
+        gy, gx = tile.origin
+
+        def crop(x):
+            return x[..., gy:gy + th, gx:gx + tw].contiguous()
+
+        g = GBuffer(render=tree.common.frame_canvas(Q["color"], tile, th, tw,
+                                                    3),
+                    albedo=None, normal=crop(Q["normal"]),
+                    depth=crop(Q["depth"]), motion=crop(Q["motion"]))
+        return lambda: _step_outputs(
+            tree.temporal_cuda.temporal_accumulate_canvas_cuda(
+                g, canvas, params=p, tile=tile))
+
+    for k in range(4):
+        yield f"K3b quarter tile {k}", lambda t, k=k: k3b(t, k)
+
     def kgb(tree):
         # chip_smoke.py phase 3's inputs: motion to ±28 pixels
         rng = np.random.default_rng(13)
@@ -379,13 +532,14 @@ def compare(a, b):
 
 
 _ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
-                     r"shade_kernel|march_kernel)(I\w*?EE)?")
+                     r"shade_kernel|march_kernel|shadow_kernel|"
+                     r"temporal_kernel)(I\w*?EE)?")
 
 
 def resources(text_or_dict):
     """``{short kernel name: (registers, stack, spill st, spill ld)}`` of
-    the à-trous, march and shading kernels in a ptxas report (a kernel that
-    is not a template by its name alone)."""
+    the à-trous, march, shading, shadow and temporal kernels in a ptxas
+    report (a kernel that is not a template by its name alone)."""
     out = {}
     for name, res in text_or_dict.items():
         m = _ATROUS.search(name)
@@ -438,7 +592,8 @@ def main(argv=None) -> int:
     with torch.no_grad():
         S = shade_inputs(dev)
         M = march_inputs(dev, other)
-        for name, make, exact in cases(P, U, cots, S, M):
+        T = temporal_inputs(dev)
+        for name, make, exact in cases(P, U, cots, S, M, T):
             if args.only and not re.search(args.only, name):
                 continue
             fa, fb = make(this), make(other)

@@ -6,8 +6,9 @@ function the ``.cu`` sources export.  A missing or wrong declaration makes
 ctypes pass a pointer as a 32-bit int, which faults on the card only; this
 check reads the sources here, without a compiler.
 
-K7 (``rdt_march``) and K8 (``rdt_shadow_shade``) are compiled for the
-primitive counts of the scenes in ``raymarch_cuda.SHADE_SCENES``; the
+K7 (``rdt_march``), K8 (``rdt_shadow_shade``) and K13 (``rdt_shadow``)
+are compiled for the primitive counts of the scenes in
+``raymarch_cuda.SHADE_SCENES``; the
 wrappers pass the key of the instantiation and each C entry point maps
 each key to a template instantiation.  The tables are held to each other
 by parsing the source, and the wrappers' choice is checked on CPU scenes.
@@ -64,15 +65,16 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
 
 
 # arguments added to entry points after they were first declared: the
-# shading pass's and the march's instantiation keys and the clamped-gather
-# adjoint's float64 scratch with its plane count
+# shading pass's, the march's and the shadow pass's instantiation keys and
+# the clamped-gather adjoint's float64 scratch with its plane count
 @pytest.mark.parametrize("name,index,ctype", [
     ("rdt_shadow_shade", 13, ctypes.c_int),
     ("rdt_march", 9, ctypes.c_int),
+    ("rdt_shadow", 6, ctypes.c_int),
     ("rdt_clamped_gather_bwd", 4, ctypes.c_void_p),
     ("rdt_clamped_gather_bwd", 9, ctypes.c_int)],
-    ids=["shade scene_key", "march scene_key", "gather_bwd scratch",
-         "gather_bwd P"])
+    ids=["shade scene_key", "march scene_key", "shadow scene_key",
+         "gather_bwd scratch", "gather_bwd P"])
 def test_added_arguments_are_declared(name, index, ctype):
     assert _build.SIGNATURES[name][index] is ctype
     assert _exports()[name][index] is ctype
@@ -92,6 +94,14 @@ def test_shade_keys_match_the_compiled_scenes():
     """rdt_shadow_shade's switch maps key 0 to the runtime-count
     instantiation (-1, -1, -1) and key k to ``SHADE_SCENES[k - 1]``."""
     assert _switch_cases("RDT_SHADE") == {
+        0: (-1, -1, -1), **{k + 1: c for k, c in enumerate(SHADE_SCENES)}}
+
+
+def test_shadow_keys_match_the_compiled_scenes():
+    """rdt_shadow's switch (K13) maps the keys as rdt_shadow_shade's
+    does."""
+    assert _switch_cases("RDT_SHADOW") == _switch_cases("RDT_SHADE")
+    assert _switch_cases("RDT_SHADOW") == {
         0: (-1, -1, -1), **{k + 1: c for k, c in enumerate(SHADE_SCENES)}}
 
 

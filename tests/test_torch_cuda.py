@@ -24,7 +24,11 @@ differentiates the float weights), updated albedo atol 1e-5.  Filters and
 K13 (the JAX package's kernel-vs-oracle tolerances): K10 rtol 1e-5, atol
 1e-6 (the kernel sums the 2-D window, its twin sums separably); K11 atol
 1e-5; K12 atol 5e-5 (exp2f of log2(e)-scaled arguments and repeated
-squaring against exp and pow); K13 at most 0.1 % visibility flips, as K8.
+squaring against exp and pow); K13 at most 0.1 % visibility flips, as K8,
+in each of its instantiations (counted under the key the scene's counts
+pick).  K3 also on a frame of sides no multiple of its 32 x 8 tile, with
+the history clamp off, and with one short pixel in the whole frame (one
+block runs the 7x7 boost).
 The adjoints (``chip_smoke.py`` phase 3's tolerances): K1b rtol 5e-5 as K1,
 its float32 weights too; K2b rtol 1e-6 as K2; K14 atol 1e-5·max (K1's
 weights, an ulp from the twin's, over cotangents of both signs); K9 atol
@@ -41,6 +45,9 @@ Cornell box, ``random_scene``, and a scene of other counts: the runtime-
 count one) at K7/K8's tolerance, its window bit-equal to the whole frame's
 crop.  KGb run 20 times: every history gradient within one float32 ulp
 of the first (its float64 sum is rounded once), the motion's bit-equal.
+K7, K8 and K13 on two scenes of the Cornell box's counts (one
+constant buffer of compiled scene parameters a device) launched on three
+streams at once: every output bit-equal to the same launch alone.
 K7, seeded or not, in each compiled instantiation bit-equal to the
 runtime-count instantiation on the same scene (the two SDFs do the same
 operations in the same order), and a scene of other counts at K7's
@@ -62,6 +69,8 @@ against the unsharded ones: the sweep bit for bit, the pipeline atol
 1e-3·max, the train step as the unsharded one (loss rtol 1e-5, albedo
 gradient atol 3e-3·max).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -159,20 +168,36 @@ def test_k1_rejects_bad_inputs(dev):
                           depth.t().contiguous().t())
 
 
-@pytest.mark.parametrize("motion_scale", [0.0, 3.0, 14.0])
-@pytest.mark.parametrize("boost", [4, 0])
-def test_k3_matches_plain(dev, motion_scale, boost):
-    color, var, normal, depth = _planes(dev, 7)
+# K3's inputs: motion scale, variance boost and kind: "frame" (135 x 240,
+# 135 no multiple of the block's 8 rows), "odd" (133 x 237, neither side
+# a multiple of the 32 x 8 tile), "no clamp" (history_clamp off) and "one
+# short" (long valid histories, zero motion, one pixel of one block with
+# a history of length 0: that block alone runs the 7x7 boost)
+K3_CASES = [(scale, boost, "frame") for scale in (0.0, 3.0, 14.0)
+            for boost in (4, 0)] + [
+    (14.0, 4, "odd"), (3.0, 4, "no clamp"), (14.0, 0, "no clamp"),
+    (0.0, 4, "one short")]
+
+
+@pytest.mark.parametrize("motion_scale,boost,kind", K3_CASES,
+                         ids=[f"{k} m{m:g} b{b}" for m, b, k in K3_CASES])
+def test_k3_matches_plain(dev, motion_scale, boost, kind):
+    h_, w_ = (133, 237) if kind == "odd" else (H, W)
+    color, var, normal, depth = _planes(dev, 7, h_, w_)
     rng = np.random.default_rng(8)
-    motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * motion_scale)
-                              .astype(np.float32)).to(dev)
+    motion = torch.from_numpy(((rng.random((2, h_, w_)) - 0.5)
+                               * motion_scale).astype(np.float32)).to(dev)
     g = GBuffer(render=color, albedo=color, normal=normal, depth=depth,
                 motion=motion)
+    length = torch.floor(var * 300)
+    if kind == "one short":
+        length = torch.full_like(length, 10.0)
+        length[37, 101] = 0.0
     h = History(color=color.flip(-1).contiguous(),
                 moments=torch.stack([var, var * 2]),
-                length=torch.floor(var * 300), prev_depth=depth,
-                prev_normal=normal)
-    params = SVGFParams(variance_boost_frames=boost)
+                length=length, prev_depth=depth, prev_normal=normal)
+    params = SVGFParams(variance_boost_frames=boost,
+                        history_clamp=kind != "no clamp")
     got = temporal_accumulate_cuda(g, h, params=params)
     want = temporal.temporal_accumulate(g, h, params=params)
     tol = dict(rtol=1e-5, atol=1e-6)
@@ -180,6 +205,9 @@ def test_k3_matches_plain(dev, motion_scale, boost):
                  (got[2].moments, want[2].moments)):
         np.testing.assert_allclose(_np(a), _np(b), **tol)
     np.testing.assert_array_equal(_np(got[2].length), _np(want[2].length))
+    if kind == "one short":
+        short = got[2].length < boost
+        assert int(short.sum()) == 1 and bool(short[37, 101])
 
 
 def test_k3_rejects_unbounded_motion(dev):
@@ -455,13 +483,21 @@ def test_k12_matches_plain(dev, shape, sigma_normal):
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=5e-5)
 
 
+# K13's scenes: the two it is compiled for and one of other counts (the
+# runtime-count instantiation), with the key each runs
+K13_SCENES = [("cornell", 1), ("random", 2), ("odd", 0)]
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 @pytest.mark.parametrize("omega", [1.0, 1.4])
-@pytest.mark.parametrize("scene_name", ["cornell", "random"])
-def test_k13_matches_plain(dev, shape, omega, scene_name):
+@pytest.mark.parametrize("scene_name,key", K13_SCENES,
+                         ids=[s[0] for s in K13_SCENES])
+def test_k13_matches_plain(dev, shape, omega, scene_name, key):
+    """K13 in each instantiation against ``raymarch.shadow_factor``, each
+    launch counted under the key the scene's counts pick."""
     h, w = shape
-    scene = (raymarch.cornell_scene(device=dev) if scene_name == "cornell"
-             else raymarch.random_scene(seed=3, device=dev))
+    scene = _shade_scene(scene_name, dev)
+    assert scene_key(scene) == key
     rm = RaymarchParams(relax_omega=omega)
     ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev),
                                      CameraParams(width=w, height=h))
@@ -469,7 +505,9 @@ def test_k13_matches_plain(dev, shape, omega, scene_name):
     p = ro + t[None] * rd
     lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(1),
                                (h, w))
+    before = shadow_factor_cuda.by_key[key]
     got = shadow_factor_cuda(scene, p, n, lp, rm)
+    assert shadow_factor_cuda.by_key[key] == before + 1
     want = raymarch.shadow_factor(scene, p, n, lp, rm)
     assert got.shape == (h, w)
     assert float((got != want).float().mean()) <= 1e-3
@@ -1404,3 +1442,78 @@ def test_k2_bit_equal_to_twin(dev, radius, dtype, tiled):
             want = atrous.atrous_level_bwd_stored_ref(w, norm, gc, gv, **kw)
             for name, a, b in zip(("d_color", "d_variance"), got, want):
                 assert torch.equal(a, b), (shape, level, name)
+
+
+def _stream_scene_inputs(scene, ro, rd, rm, cfg, dev):
+    """K8's and K13's inputs on ``scene``'s G-buffer (the plain march)."""
+    H_, W_ = ro.shape[-2:]
+    t, hit, mat, n = raymarch.march_gbuf(scene, ro, rd, rm)
+    alb, em = raymarch._material_lookup(mat, scene.materials.albedo,
+                                        scene.materials.emission)
+    hit_f = hit.float()[None]
+    lp = raymarch.sample_light(scene, torch.Generator(dev).manual_seed(4),
+                               (H_, W_))
+    return (ro + t[None] * rd, n, lp, alb * hit_f, em * hit_f, hit,
+            raymarch.light_constants(scene),
+            raymarch.prev_camera_constants(orbit_camera(0.1875, device=dev),
+                                           cfg))
+
+
+def test_compiled_scene_launches_on_concurrent_streams(dev):
+    """The compiled scene's constant buffer (``c_scene``, one a device) is
+    filled before every K7, K8 and K13 launch on a compiled scene.  Two
+    scenes of the Cornell box's counts that differ in one sphere: a first
+    stream queues two 1080p K7 launches on one scene, which hold every SM
+    for ~0.6 ms; a second stream then launches K7, K8 or K13 on the other
+    scene, whose kernel waits for SMs after its fill, and a third stream
+    the same kernel on the first scene, whose fill would land in that
+    wait.  Each round runs both ways round; every output is
+    ``torch.equal`` to the same launch alone on one stream: no kernel
+    reads another launch's scene."""
+    a = raymarch.cornell_scene(device=dev)
+    b = dataclasses.replace(a, sphere_params=torch.tensor(
+        [[0.1, -0.65, 0.9, 0.35]], device=dev))
+    scenes = dict(a=a, b=b)
+    assert scene_key(a) == scene_key(b) == 1
+    Hs, Ws = 1080, 1920
+    cfg = CameraParams(width=Ws, height=Hs)
+    rm = RaymarchParams()
+    ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
+    with torch.no_grad():
+        ins = {k: _stream_scene_inputs(s, ro, rd, rm, cfg, dev)
+               for k, s in scenes.items()}
+
+        def k7(k):
+            return tuple(march_gbuf_cuda(scenes[k], ro, rd, rm))
+
+        def k8(k):
+            return tuple(shadow_shade_cuda(scenes[k], *ins[k], rm,
+                                           (Ws, Hs)))
+
+        def k13(k):
+            return (shadow_factor_cuda(scenes[k], *ins[k][:3], rm),)
+
+        kernels = dict(K7=k7, K8=k8, K13=k13)
+        alone = {(name, k): fn(k) for name, fn in kernels.items()
+                 for k in scenes}
+        for name in kernels:
+            assert not all(torch.equal(x, y) for x, y in zip(
+                alone[name, "a"], alone[name, "b"])), name
+        torch.cuda.synchronize()
+        streams = [torch.cuda.Stream() for _ in range(3)]
+        for name, fn in kernels.items():
+            for x, y in (("a", "b"), ("b", "a")):
+                for s in streams:
+                    s.wait_stream(torch.cuda.current_stream())
+                outs = []
+                for s, k, launch in ((streams[0], x, k7),
+                                     (streams[0], x, k7),
+                                     (streams[1], y, fn),
+                                     (streams[2], x, fn)):
+                    with torch.cuda.stream(s):
+                        outs.append((launch, k, launch(k)))
+                torch.cuda.synchronize()
+                for j, (launch, k, out) in enumerate(outs):
+                    want = alone[launch.__name__.upper(), k]
+                    for u, v in zip(out, want):
+                        assert torch.equal(u, v), (name, x, j)

@@ -5,8 +5,10 @@ bit for bit.  Here each case's launch runs through the wrappers, which
 take their plain twins for CPU tensors: this checks that every case
 builds its inputs and calls its wrapper with the arguments the wrapper
 takes (K14 and K2/K2b whole frame and tile form, K7 unseeded, seeded
-and on a window, K8 on each scene, KGb), and that the outputs are finite
-and of the expected shapes.  No timing, no other tree.
+and on a window, K8 and K13 on each scene, K3 on every input kind, the
+served frame's among them, K3b on the quarter tiles, KGb), and that the
+outputs are finite and of the expected shapes.  No timing, no other
+tree.
 """
 
 import re
@@ -35,7 +37,8 @@ def inputs():
     with torch.no_grad():
         S = kernel_ab.shade_inputs(dev)
         M = kernel_ab.march_inputs(dev, kernel_ab.Tree(kernel_ab.PACKAGE))
-    yield kernel_ab.planes(H, W, dev, 0), U, cots, S, M
+        T = kernel_ab.temporal_inputs(dev)
+    yield kernel_ab.planes(H, W, dev, 0), U, cots, S, M, T
     torch.set_num_threads(threads)
     kernel_ab.FRAME = frame
 
@@ -49,6 +52,9 @@ FAMILIES = {
     "K2": (r"^K2b? r", 40, [(3, *FRAME), FRAME]),
     "K2 tile": (r"^tile K2b? ", 4, [(3, 28, 44), (28, 44)]),
     "KGb": (r"^KGb", 1, [(10, *FRAME), (2, *FRAME)]),
+    "K13": (r"^K13 ", 6, [FRAME]),
+    "K3": (r"^K3 ", 11, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
+    "K3b": (r"^K3b ", 4, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
 }
 
 
