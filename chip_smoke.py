@@ -10,9 +10,11 @@ the script exits non-zero without printing a result):
 2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``
    (one nvcc per source, in parallel) and print ptxas's registers, stack
    and spills of the à-trous level forward's instantiations (K1/K1b, each
-   radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's and K3/K3b's; fail
-   if one of K1/K1b or K2/K2b at radius <= 2, K7 or K13 on a compiled
-   scene, or K3/K3b uses local memory;
+   radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's
+   (both routes, and the camera route's first launch) and K12's staged
+   form (r <= 4); fail if one of K1/K1b or K2/K2b at radius <= 2, K7, K13
+   or K15 on a compiled scene, K3/K3b, K15's first camera launch or a
+   staged K12 uses local memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -25,7 +27,8 @@ the script exits non-zero without printing a result):
    counts) and K8 shadow + shading (the Cornell box and ``random_scene``),
    each naming its instantiation (compiled scene or runtime counts), K10
    box filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
-   ``conv2d`` beside it), K12 cross-bilateral filter, K13 shadow
+   ``conv2d`` beside it), K12 cross-bilateral filter (r2; r1 and r4, the
+   staged form's widest, beside it), K13 shadow
    visibility (Cornell box and ``random_scene``, each naming its
    instantiation), K1 at radius 0 and 3
    beside 1 and 2, K15 cone seed (from ray planes, from the camera, on a
@@ -279,6 +282,14 @@ K8_MANGLED = re.compile(r"12shade_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 # thread)
 K13_MANGLED = re.compile(r"13shadow_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 K3_MANGLED = re.compile(r"15temporal_kernelILb([01])ELi\d+EE")
+# the cone seed's march, cone_kernel<NS, NB, NP, CAMERA> (CAMERA: its cones
+# from the camera), and its first launch on that route, cone_delta_kernel;
+# the cross-bilateral filter's staged form, cross_bilateral_staged_kernel<R,
+# PX> (r <= 4)
+K15_MANGLED = re.compile(r"11cone_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)ELb"
+                         r"([01])EE")
+K15_DELTA_MANGLED = re.compile(r"17cone_delta_kernel")
+K12_MANGLED = re.compile(r"29cross_bilateral_staged_kernelILi(\d+)ELi(\d+)EE")
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
 
@@ -336,12 +347,38 @@ def random_planes(H, W, dev, seed):
 
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
-    K2/K2b's, K7's, K8's, K13's and K3/K3b's instantiations (the build's
-    report); raise if one of K1/K1b or K2/K2b at radius <= 2, K7 or K13 on
-    a compiled scene, or K3/K3b uses local memory, or if K3/K3b or a
-    compiled K13 is missing from the report."""
-    k1, k9, local, k3, k13 = {}, {}, [], [], []
+    K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's and K12's staged
+    instantiations (the build's report); raise if one of K1/K1b or K2/K2b
+    at radius <= 2, K7, K13 or K15 on a compiled scene, K3/K3b, K15's first
+    camera launch or K12's staged form uses local memory, or if K3/K3b, a
+    compiled K13 or K15 or a staged K12 is missing from the report."""
+    k1, k9, local, k3, k13, k15, k12 = {}, {}, [], [], [], [], []
     for name, res in sorted(_build.resource_report().items()):
+        m = K15_MANGLED.search(name)
+        if m:
+            counts = tuple(int(v.replace("n", "-")) for v in m.groups()[:3])
+            route = "camera" if m.group(4) == "1" else "planes"
+            phase(2, f"K15 {counts if counts[0] >= 0 else 'runtime counts'}"
+                     f" {route}: {res[0]} registers, stack {res[1]} B, "
+                     f"spills {res[2] + res[3]} B")
+            if counts[0] >= 0:
+                k15.append((counts, route))
+                if res[1] or res[2] or res[3]:
+                    local.append(f"K15 {counts} {route}")
+        if K15_DELTA_MANGLED.search(name):
+            phase(2, f"K15 camera delta launch: {res[0]} registers, stack "
+                     f"{res[1]} B, spills {res[2] + res[3]} B")
+            if res[1] or res[2] or res[3]:
+                local.append("K15 camera delta launch")
+        m = K12_MANGLED.search(name)
+        if m:
+            R, px = int(m.group(1)), int(m.group(2))
+            phase(2, f"K12 staged r{R} ({px} pixel{'s' if px > 1 else ''} a"
+                     f" thread): {res[0]} registers, stack {res[1]} B, "
+                     f"spills {res[2] + res[3]} B")
+            k12.append(R)
+            if res[1] or res[2] or res[3]:
+                local.append(f"K12 staged r{R}")
         m = K2_MANGLED.search(name)
         if m:
             staged = m.group(1).startswith("31")
@@ -405,6 +442,9 @@ def report_resources():
     if sorted(k3) != ["K3", "K3 tile/K3b"] or len(k13) != 2:
         raise AssertionError(f"phase 2: K3/K3b {k3} or compiled K13 {k13} "
                              f"missing from ptxas's report")
+    if len(k15) != 4 or sorted(k12) != [0, 1, 2, 3, 4]:
+        raise AssertionError(f"phase 2: compiled K15 {k15} or staged K12 "
+                             f"{sorted(k12)} missing from ptxas's report")
     for R, found in sorted(k1.items()):
         regs = [res[0] for res in found.values()]
         frame = max(res[1] for res in found.values())
@@ -839,7 +879,8 @@ def check_filters(P, results):
              f"an iteration (2 launches), plain {plain:.4f} ms, depthwise "
              f"conv2d (numerator only) {lib:.4f} ms")
 
-    # K12 at FilterParams(CROSS): r2, sigma_n 128 (repeated squaring)
+    # K12 at FilterParams(CROSS): r2, sigma_n 128 (repeated squaring); r1
+    # and r4 (the staged form's widest) checked and timed beside it
     p = FilterParams(type=FilterType.CROSS)
     albedo = P["h_color"]
     args = (x, albedo, P["normal"], P["depth"])
@@ -849,13 +890,23 @@ def check_filters(P, results):
     err = max_err(got, want)
     ms = cuda_time_ms(lambda: cross_bilateral_cuda(*args, params=p),
                       repeats=20)
+    others = []
+    for r in (1, 4):
+        pr = dataclasses.replace(p, radius=r)
+        got = cross_bilateral_cuda(*args, params=pr)
+        want = filters.cross_bilateral_filter(*args, params=pr)
+        check_close(f"K12 r{r}", got, want, atol=5e-5)
+        kms = cuda_time_ms(lambda: cross_bilateral_cuda(*args, params=pr),
+                           repeats=20)
+        others.append(f"r{r} {kms:.4f} ms (max |err| "
+                      f"{max_err(got, want):.3g})")
     plain = cuda_time_ms(lambda: filters.cross_bilateral_filter(
         *args, params=p), repeats=3)
     # colour, albedo, normal, depth in (40 B), colour out (12 B)
     results["K12"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                           bytes=52 * HW, flops=K12_TAP_FLOPS * 25 * HW)
     phase(3, f"K12: ok, max |err| {err:.3g}, {ms:.4f} ms, plain "
-             f"{plain:.4f} ms")
+             f"{plain:.4f} ms; {', '.join(others)}")
 
 
 def sdf_flops(scene):
@@ -1215,10 +1266,12 @@ def check_cone_seed(H, W, dev, results):
                  f"pixel), K7 seeded {ms7s:.4f} ms (bound {b7s[0]:.4f}, "
                  f"{evals1 / HW:.3f}), K15 alone {ms15:.4f} ms (bound "
                  f"{b15[0]:.4f}, {evals15 / cells:.3f} a cell, {cells} "
-                 f"cells), seed pass with its glue {pass_cam:.4f} ms from "
-                 f"the camera, {pass_planes:.4f} ms from the planes; seeded "
-                 f"march_gbuf_cuda (camera seed + K7s) {march_seeded:.4f} ms;"
-                 f" plain K15 {plain15:.4f}, plain seeded K7 {plain7s:.4f}")
+                 f"cells), seed pass {pass_cam:.4f} ms from the camera "
+                 f"(K15's two launches), {pass_planes:.4f} ms from the "
+                 f"planes (PyTorch's cones + K15); seeded march_gbuf_cuda "
+                 f"(camera seed + K7s) {march_seeded:.4f} ms against the "
+                 f"unseeded K7's {ms7:.4f} ({march_seeded / ms7:.3f}x); "
+                 f"plain K15 {plain15:.4f}, plain seeded K7 {plain7s:.4f}")
 
 
 def check_cone_seed_uhd(H, W, dev):

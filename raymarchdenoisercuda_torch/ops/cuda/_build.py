@@ -55,7 +55,8 @@ SIGNATURES = {
     "rdt_clamped_gather": (_P,) * 3 + (_I,) * 3 + (_P,),
     "rdt_clamped_gather_bwd": (_P,) * 6 + (_I,) * 4 + (_P,),
     "rdt_march": (_P,) * 9 + (_I, _P),
-    "rdt_cone_seed": (_P,) * 6,
+    "rdt_cone_seed": (_P,) * 7 + (_I, _P),
+    "rdt_cone_seed_camera": (_P,) * 8 + (_I, _P),
     "rdt_shadow_shade": (_P,) * 13 + (_I, _P),
     "rdt_shadow": (_P,) * 6 + (_I, _P),
     "rdt_box_level": (_P,) * 2 + (_I,) * 4 + (_P,),

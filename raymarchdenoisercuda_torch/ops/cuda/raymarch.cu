@@ -42,10 +42,11 @@
 // steps, the material, six for the normal) with 0.95 of its lanes busy:
 // it is held by the SDF's instructions, not by divergence; K13 on the
 // compiled Cornell box took 0.68x its runtime-count time (0.25 against
-// 0.36 ms at 1080p).  K15 keeps the runtime-count SDF.  A shadow march's
-// warps diverge (a random light sample a pixel: the rays of a warp are
-// not coherent; on a 1080p Cornell frame 15.1 steps a pixel, 18.9 for a
-// 16 x 2 warp's longest lane, 0.80 of the SIMD lanes busy).  Persistent
+// 0.36 ms at 1080p), K15 0.64x (54 against 85 us from the camera).  A
+// shadow march's warps diverge (a random light sample a pixel: the rays
+// of a warp are not coherent; on a 1080p Cornell frame 15.1 steps a
+// pixel, 18.9 for a 16 x 2 warp's longest lane, 0.80 of the SIMD lanes
+// busy).  Persistent
 // warps that refill their stopped lanes from the block's tile once half
 // of them stopped (shading those together) ran 1.5-1.7x slower on the
 // Cornell box, and were dropped.
@@ -65,9 +66,21 @@
 // margin = d - (hit_eps + base) - t * delta in steps of margin / (1 + delta),
 // so that sdf >= hit_eps + base + s * delta along the marched segment and
 // the stop is a skip-free start for every ray of the block.  delta and
-// base are global maxima that PyTorch reduces on the device; as on the TPU
-// they ride after the scene scalars in the flat scene vector, so the host
-// never reads them.  Bound: its SDF evaluations (1/16 of the pixels).
+// base are global maxima, read from the device (the host never reads
+// them).  K15 is compiled per scene as K7, K8 and K13 are (FixedSdf
+// through launch_scene; Sdf for other counts).  From ray planes, PyTorch
+// builds the cones and reduces delta and base (cone_rays).  From the
+// camera (the route of every seeded path), K15 builds its cones itself:
+// a first launch (cone_delta_kernel) computes each block's centre ray and
+// its four corner rays, as camera_basis and rays_at_pixels compute them
+// operation by operation, and takes the GLOBAL maximum of the squared
+// corner deviations by atomicMax on their bit patterns (non-negative
+// floats order as their bits: the maximum is exact in any order) into a
+// scratch from PyTorch's allocator; the march launch recomputes its
+// centre ray and takes delta = sqrt(max), base = 0 from that scratch.
+// The pass is then a memset and two launches, where ~40 small PyTorch ops
+// of glue held it on the host.  Bound: the SDF evaluations (1/16 of the
+// pixels).
 // The seeded K7 (_make_march_kernel(seeded=True)) is march_kernel given the
 // coarse grid of stops: each pixel starts at its own block's stop.  The TPU
 // kernel takes the minimum over each 32x256 band because a tile reads one
@@ -83,6 +96,17 @@
 struct MarchParams {
     int H, W, n_sph, n_box, n_pl, max_steps;
     float max_dist, hit_eps, hit_eps4, normal_eps, relax_omega;
+};
+
+// K15 from the camera (rdt_cone_seed_camera): the camera's frame, its
+// vertical field of view and the window, passed by pointer from
+// ops/raymarch_cuda.py; the coarse grid is MarchParams' H x W (MarchParams
+// stays the struct K7 takes).
+struct ConeCamera {
+    int cam_h, cam_w;    // the camera's frame
+    int row0, col0;      // GLOBAL pixel of the window's (0, 0)
+    float half_fov;      // fov_y / 2 as float32 (what torch.full stores)
+    float aspect;        // cam_w / cam_h rounded once to float32
 };
 
 struct ShadeParams {
@@ -403,25 +427,149 @@ __global__ void march_kernel(const float* __restrict__ scene,
     n_out[2 * hw + i] = nz;
 }
 
-// K15: the cone march of the coarse cells (see the header).  The scene
-// vector carries delta and base after the primitives; p.H x p.W is the
-// coarse grid.
+// K15's cones: from ray planes (ro, rd and the device scalars delta and
+// base, which PyTorch reduced), or from the camera (its three vectors on
+// the device, the configuration, and the scratch [max squared deviation,
+// delta, base] that cone_delta_kernel fills; base stays the memset's 0).
+struct ConeArgs {
+    const float* ro;
+    const float* rd;
+    const float* delta;
+    const float* base;
+    const float* position;
+    const float* look_at;
+    const float* up;
+    float* scratch;
+    ConeCamera cam;
+};
+
+__device__ __forceinline__ void normalize3(float& x, float& y, float& z) {
+    // _normalize: the norm in the order x, y, z, clamped, true division
+    const float n = fmaxf(sqrtf(x * x + y * y + z * z), 1e-8f);
+    x = x / n;
+    y = y / n;
+    z = z / n;
+}
+
+// The camera of camera_basis and rays_at_pixels (ops/raymarch.py), each
+// PyTorch op one rounding here (--fmad=false keeps every product and sum
+// apart).  (rows + 0.5) / H is a division by a Python int, which PyTorch
+// on the card does as a multiply by the float reciprocal 1 / H; the
+// basis's divisions are by tensors, true divisions.
+struct ConeRays {
+    float fx, fy, fz, rx, ry, rz, ux, uy, uz;
+    float half_w, half_h, inv_h, inv_w;
+
+    __device__ explicit ConeRays(const ConeArgs& a) {
+        const float* o = a.position;
+        const float* l = a.look_at;
+        const float* u = a.up;
+        fx = l[0] - o[0];
+        fy = l[1] - o[1];
+        fz = l[2] - o[2];
+        normalize3(fx, fy, fz);
+        // right = normalize(up x fwd), up' = fwd x right (_cross)
+        rx = u[1] * fz - u[2] * fy;
+        ry = u[2] * fx - u[0] * fz;
+        rz = u[0] * fy - u[1] * fx;
+        normalize3(rx, ry, rz);
+        ux = fy * rz - fz * ry;
+        uy = fz * rx - fx * rz;
+        uz = fx * ry - fy * rx;
+        half_h = tanf(a.cam.half_fov);
+        half_w = half_h * a.cam.aspect;
+        inv_h = 1.0f / (float)a.cam.cam_h;
+        inv_w = 1.0f / (float)a.cam.cam_w;
+    }
+
+    // the unit ray through GLOBAL pixel (row, col)
+    __device__ void ray(float row, float col, float& dx, float& dy,
+                        float& dz) const {
+        const float ys = (0.5f - (row + 0.5f) * inv_h) * 2.0f * half_h;
+        const float xs = ((col + 0.5f) * inv_w - 0.5f) * 2.0f * half_w;
+        dx = fx + ux * ys + rx * xs;
+        dy = fy + uy * ys + ry * xs;
+        dz = fz + uz * ys + rz * xs;
+        normalize3(dx, dy, dz);
+    }
+};
+
+// The GLOBAL pixel of coarse cell (y, x)'s centre: cell * 4 + (origin +
+// 1.5), as cone_rays_analytic makes it (small integers and halves: exact)
+__device__ __forceinline__ float cell_centre(int cell, int origin) {
+    return (float)(kSeedBlock * cell)
+        + ((float)origin + 0.5f * (float)(kSeedBlock - 1));
+}
+
+// The first launch of K15 from the camera: the largest squared deviation
+// of a block's four corner rays from its centre ray, over the window's
+// coarse grid p.H x p.W, into scratch[0] (zeroed before the launch).
+// Every thread of a warp reaches the reduction, in the grid or not.
+__global__ void cone_delta_kernel(MarchParams p, ConeArgs a) {
+    const ConeRays cam(a);
+    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
+    unsigned m = 0u;
+    if (x < p.W && y < p.H) {
+        const float row = cell_centre(y, a.cam.row0);
+        const float col = cell_centre(x, a.cam.col0);
+        const float c = 0.5f * (float)(kSeedBlock - 1);
+        float cx, cy, cz;
+        cam.ray(row, col, cx, cy, cz);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            float dx, dy, dz;
+            cam.ray(k < 2 ? row - c : row + c, (k & 1) ? col + c : col - c,
+                    dx, dy, dz);
+            dx = dx - cx;
+            dy = dy - cy;
+            dz = dz - cz;
+            m = max(m, __float_as_uint(dx * dx + dy * dy + dz * dz));
+        }
+    }
+    m = __reduce_max_sync(0xffffffffu, m);
+    if (((threadIdx.y * blockDim.x + threadIdx.x) & 31) == 0) {
+        atomicMax(reinterpret_cast<unsigned*>(a.scratch), m);
+    }
+}
+
+// K15: the cone march of the coarse cells p.H x p.W (see the header), on
+// the compiled scene <NS, NB, NP> or (-1) any counts; CAMERA: the cones
+// from the camera (after cone_delta_kernel), else from the ray planes.
+template <int NS, int NB, int NP, bool CAMERA>
 __global__ void cone_kernel(const float* __restrict__ scene,
-                            const float* __restrict__ ro,
-                            const float* __restrict__ rd,
-                            float* __restrict__ t_out, MarchParams p) {
+                            float* __restrict__ t_out, MarchParams p,
+                            ConeArgs a) {
     extern __shared__ float smem[];
-    const int n_sc = 5 * p.n_sph + 7 * p.n_box + 5 * p.n_pl;
-    const float* sc = stage_scene(scene, n_sc + 2, smem);
-    const Sdf sdf{sc, p.n_sph, p.n_box, p.n_pl};
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
+    const auto sdf =
+        SceneSdf<NS, NB, NP>::make(scene, smem, p.n_sph, p.n_box, p.n_pl);
+    const int x = blockIdx.x * blockDim.x + threadIdx.x;
+    const int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
-    const int hw = p.H * p.W, i = y * p.W + x;
-    const float rox = ro[i], roy = ro[hw + i], roz = ro[2 * hw + i];
-    const float rdx = rd[i], rdy = rd[hw + i], rdz = rd[2 * hw + i];
-    const float delta = sc[n_sc];
-    const float clear0 = p.hit_eps + sc[n_sc + 1];
+    const int i = y * p.W + x;
+    float rox, roy, roz, rdx, rdy, rdz, delta, base;
+    if constexpr (CAMERA) {
+        const ConeRays cam(a);
+        rox = a.position[0];
+        roy = a.position[1];
+        roz = a.position[2];
+        cam.ray(cell_centre(y, a.cam.row0), cell_centre(x, a.cam.col0), rdx,
+                rdy, rdz);
+        delta = sqrtf(a.scratch[0]);
+        base = a.scratch[2];
+        if (i == 0) a.scratch[1] = delta;
+    } else {
+        const int hw = p.H * p.W;
+        rox = a.ro[i];
+        roy = a.ro[hw + i];
+        roz = a.ro[2 * hw + i];
+        rdx = a.rd[i];
+        rdy = a.rd[hw + i];
+        rdz = a.rd[2 * hw + i];
+        delta = *a.delta;
+        base = *a.base;
+    }
+    const float clear0 = p.hit_eps + base;
     const float inv_g = 1.0f / (1.0f + delta);
     float t = 0.0f;
     for (int s = 0; s < p.max_steps; ++s) {
@@ -599,6 +747,37 @@ cudaError_t launch_march(const float* scene, const float* ro, const float* rd,
         });
 }
 
+// K15's block of coarse cells (both launches): 8 x 4, 8 x 8 and 32 x 4
+// blocks ran the Cornell camera route's march within 0.5 % of 16 x 8 at
+// 1080p on the H100 (53.7-54.0 us)
+constexpr int kConeBX = 16, kConeBY = 8;
+
+template <int NS, int NB, int NP, bool CAMERA>
+cudaError_t launch_cone(const float* scene, float* t, const MarchParams& p,
+                        const ConeArgs& a, cudaStream_t stream) {
+    const dim3 block(kConeBX, kConeBY), grid = grid_for(p.H, p.W, block);
+    return launch_scene<NS, NB, NP>(
+        scene, p.n_sph, p.n_box, p.n_pl, stream, [&](size_t smem) {
+            cone_kernel<NS, NB, NP, CAMERA>
+                <<<grid, block, smem, stream>>>(scene, t, p, a);
+        });
+}
+
+// K15's march in the instantiation scene_key picks (as rdt_shadow_shade's)
+template <bool CAMERA>
+int launch_cone_key(const float* scene, float* t, const MarchParams& p,
+                    const ConeArgs& a, int scene_key, cudaStream_t stream) {
+#define RDT_CONE(NS, NB, NP)                                               \
+    launch_cone<NS, NB, NP, CAMERA>(scene, t, p, a, stream)
+    switch (scene_key) {
+    case 0: return (int)RDT_CONE(-1, -1, -1);
+    case 1: return (int)RDT_CONE(1, 3, 5);
+    case 2: return (int)RDT_CONE(24, 24, 5);
+    default: return (int)cudaErrorInvalidValue;
+    }
+#undef RDT_CONE
+}
+
 template <int NS, int NB, int NP>
 cudaError_t launch_shade(const float* scene, const float* pos,
                          const float* normal, const float* light_p,
@@ -650,17 +829,47 @@ extern "C" int rdt_march(const float* scene, const float* ro, const float* rd,
 #undef RDT_MARCH
 }
 
-// K15 over the coarse grid params->H x params->W; scene: the flat scene
-// vector followed by delta and base.
+// K15 from ray planes: the cones ro, rd (3 x H x W over the coarse grid
+// params->H x params->W) and the device scalars delta and base; scene_key
+// picks the instantiation as in rdt_shadow_shade.
 extern "C" int rdt_cone_seed(const float* scene, const float* ro,
-                             const float* rd, float* t,
-                             const MarchParams* params, void* stream) {
-    dim3 block(16, 8);
-    size_t smem = sizeof(float)
-        * (5 * params->n_sph + 7 * params->n_box + 5 * params->n_pl + 2);
-    cone_kernel<<<grid_for(params->H, params->W, block), block, smem,
-                  (cudaStream_t)stream>>>(scene, ro, rd, t, *params);
-    return (int)cudaGetLastError();
+                             const float* rd, const float* delta,
+                             const float* base, float* t,
+                             const MarchParams* params, int scene_key,
+                             void* stream) {
+    ConeArgs a{};
+    a.ro = ro;
+    a.rd = rd;
+    a.delta = delta;
+    a.base = base;
+    return launch_cone_key<false>(scene, t, *params, a, scene_key,
+                                  (cudaStream_t)stream);
+}
+
+// K15 from the camera: its position, look_at and up (3 floats each, on the
+// device) and configuration cam, over the window's coarse grid params->H x
+// params->W; scratch (3 floats) gets [max squared deviation, delta, base =
+// 0].  A memset, cone_delta_kernel, then the march.
+extern "C" int rdt_cone_seed_camera(const float* scene, const float* position,
+                                    const float* look_at, const float* up,
+                                    const ConeCamera* cam, float* scratch,
+                                    float* t, const MarchParams* params,
+                                    int scene_key, void* stream) {
+    const cudaStream_t s = (cudaStream_t)stream;
+    ConeArgs a{};
+    a.position = position;
+    a.look_at = look_at;
+    a.up = up;
+    a.scratch = scratch;
+    a.cam = *cam;
+    cudaError_t err = cudaMemsetAsync(scratch, 0, 3 * sizeof(float), s);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 block(kConeBX, kConeBY);
+    cone_delta_kernel<<<grid_for(params->H, params->W, block), block, 0, s>>>(
+        *params, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    return launch_cone_key<true>(scene, t, *params, a, scene_key, s);
 }
 
 // K8.  scene_key picks the instantiation: 0 the runtime counts, else the

@@ -7,7 +7,9 @@ functions ``march_gbuf``, ``shadow_shade``, ``shadow_factor`` and
 K13 and K15 (``ops/cuda/raymarch.cu``); on the card ``render_gbuffer`` goes
 through the kernels (``ops/raymarch_cuda.py``).  The cone seed's glue
 (``cone_rays`` from ray planes, ``cone_rays_analytic`` from the camera) is
-PyTorch on either device.  The scene and camera constructors
+PyTorch; on the card K15 builds the camera's cones itself, with the glue's
+floats, and only the ray-plane route runs ``cone_rays``.  The scene and
+camera constructors
 create their tensors on the CUDA card unless given ``device``.
 
 Gradients: the material tables, the light sample and the light reach the

@@ -16,10 +16,10 @@ when it is given, as ``raymarch_pallas_gbuf`` does, else from the ray
 planes) and then marches each pixel from its block's stop
 (:func:`march_gbuf_seeded_cuda`).
 
-K7 (seeded or not), K8 and K13 are compiled for the primitive counts of
-the scenes in :data:`SHADE_SCENES` (their SDF unrolled, the parameters and
-material ids in the constant bank) and once for counts known only at run
-time; :func:`scene_key` picks the instantiation.
+K7 (seeded or not), K8, K13 and K15 are compiled for the primitive counts
+of the scenes in :data:`SHADE_SCENES` (their SDF unrolled, the parameters
+and material ids in the constant bank) and once for counts known only at
+run time; :func:`scene_key` picks the instantiation.
 
 :func:`shadow_shade_cuda` is a ``torch.autograd.Function``: its backward
 recomputes the shading and motion epilogue in PyTorch with the visibility
@@ -82,15 +82,15 @@ def _counts(scene: Scene):
             scene.plane_params.shape[0])
 
 
-# the (spheres, boxes, planes) counts K7, K8 and K13 are compiled for, in
-# the order of rdt_march's, rdt_shadow_shade's and rdt_shadow's scene keys
-# 1, 2, ... (ops/cuda/raymarch.cu): the Cornell box of every main path and
-# random_scene's default
+# the (spheres, boxes, planes) counts K7, K8, K13 and K15 are compiled for,
+# in the order of rdt_march's, rdt_shadow_shade's, rdt_shadow's and
+# rdt_cone_seed(_camera)'s scene keys 1, 2, ... (ops/cuda/raymarch.cu): the
+# Cornell box of every main path and random_scene's default
 SHADE_SCENES = ((1, 3, 5), (24, 24, 5))
 
 
 def scene_key(scene: Scene) -> int:
-    """K7's, K8's and K13's instantiation for ``scene``: the 1-based
+    """K7's, K8's, K13's and K15's instantiation for ``scene``: the 1-based
     index of its counts in :data:`SHADE_SCENES`, or 0, the instantiation
     for any counts."""
     counts = _counts(scene)
@@ -201,43 +201,105 @@ def cone_seed_cuda(scene: Scene, params: RaymarchParams,
     shape (ceil(H/4), ceil(W/4)).  Two routes: from the ray planes ``ro``,
     ``rd`` (``_cone_seed_coarse``), or from ``camera`` for the ``shape`` =
     (th, tw) window at GLOBAL pixel ``window`` (``_cone_seed_coarse_
-    analytic``).  The cones' glue is PyTorch on the rays' device; the march
-    is K15 on CUDA tensors and ``cone_march`` on CPU tensors.  delta and
-    base stay 0-d tensors on the device.  Each launch adds one to
-    ``cone_seed_cuda.launches``."""
+    analytic``).  On CUDA tensors K15 runs in the instantiation
+    :func:`scene_key` picks: from the planes on the cones of PyTorch's
+    ``cone_rays``; from the camera on cones it builds itself (two
+    launches, no PyTorch glue; delta and base are the ones
+    ``cone_rays_analytic`` gives, bit for bit).  CPU tensors take the glue
+    and ``cone_march``.  delta and base stay 0-d tensors on the device.
+    Each seed pass adds one to ``cone_seed_cuda.launches``, to its
+    ``by_key`` under the instantiation and to its ``by_route`` under
+    "camera" or "planes"."""
     if camera is not None:
+        if camera.position.is_cuda:
+            out = _cone_camera_launch(scene, camera, cam_cfg, window, shape,
+                                      params)
+            _count_cone(scene, "camera")
+            return out
         ro_c, rd_c, delta, base = cone_rays_analytic(
             camera, cam_cfg, window[0], window[1], *shape)
     else:
         ro_c, rd_c, delta, base = cone_rays(ro, rd)
-    if not ro_c.is_cuda:
-        return cone_march(scene, ro_c, rd_c, delta, base, params), delta, base
     t_c = cone_launch(scene, ro_c, rd_c, delta, base, params)
-    cone_seed_cuda.launches += 1
+    if ro_c.is_cuda:
+        _count_cone(scene, "planes")
     return t_c, delta, base
 
 
 cone_seed_cuda.launches = 0
+cone_seed_cuda.by_key = collections.Counter()
+cone_seed_cuda.by_route = collections.Counter()
 
 
-def cone_launch(scene, ro_c, rd_c, delta, base, params):
-    """One launch of K15 on the cones of either route (``cone_march`` of
-    CUDA tensors); counted by its caller, :func:`cone_seed_cuda`."""
+def _count_cone(scene, route):
+    cone_seed_cuda.launches += 1
+    cone_seed_cuda.by_key[scene_key(scene)] += 1
+    cone_seed_cuda.by_route[route] += 1
+
+
+class _ConeCamera(ctypes.Structure):
+    """Mirror of ``struct ConeCamera`` in ``ops/cuda/raymarch.cu``."""
+
+    _fields_ = [(n, ctypes.c_int) for n in
+                ("cam_h", "cam_w", "row0", "col0")] + [
+        (n, ctypes.c_float) for n in ("half_fov", "aspect")]
+
+
+def cone_launch(scene, ro_c, rd_c, delta, base, params, key=None):
+    """One launch of K15 on cones from ray planes (``cone_march`` of CUDA
+    tensors) in the instantiation ``key`` (default :func:`scene_key`; a
+    compiled key given other counts raises); counted by its caller,
+    :func:`cone_seed_cuda`.  CPU tensors run ``cone_march``."""
+    if not ro_c.is_cuda:
+        return cone_march(scene, ro_c, rd_c, delta, base, params)
     Hc, Wc = ro_c.shape[-2:]
     dev = ro_c.device
     f32 = torch.float32
-    sc = torch.cat([flatten_scene(scene), delta.reshape(1).to(f32),
-                    base.reshape(1).to(f32)])
+    sc = flatten_scene(scene)
     ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
         (sc, "scene", sc.shape), (ro_c, "ro_c", (3, Hc, Wc)),
-        (rd_c, "rd_c", (3, Hc, Wc)))]
+        (rd_c, "rd_c", (3, Hc, Wc)), (delta, "delta", ()),
+        (base, "base", ()))]
     t_c = torch.empty((Hc, Wc), dtype=f32, device=dev)
     p = _march_params(Hc, Wc, scene, params)
+    key = scene_key(scene) if key is None else key
     rc = _build.kernels().rdt_cone_seed(
-        *ptrs, t_c.data_ptr(), ctypes.addressof(p),
+        *ptrs, t_c.data_ptr(), ctypes.addressof(p), key,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rdt_cone_seed")
     return t_c
+
+
+def _cone_camera_launch(scene, camera, cam_cfg, window, shape, params):
+    """K15 from the camera on the card: ``(t_c, delta, base)`` of the
+    ``shape`` window at GLOBAL pixel ``window``, the cones built on the
+    device (``rdt_cone_seed_camera``)."""
+    dev = camera.position.device
+    f32 = torch.float32
+    Hc, Wc = seed_grid_shape(*shape)
+    sc = flatten_scene(scene)
+    # held until the launch: a copy made by contiguous() must outlive it
+    vecs = [v.detach().contiguous() for v in (camera.position,
+                                               camera.look_at, camera.up)]
+    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+        (sc, "scene", sc.shape), (vecs[0], "position", (3,)),
+        (vecs[1], "look_at", (3,)), (vecs[2], "up", (3,)))]
+    # ctypes rounds each Python float to float32 once, as torch.full and
+    # PyTorch's multiply by a Python scalar do in the glue
+    cam = _ConeCamera(cam_h=cam_cfg.height, cam_w=cam_cfg.width,
+                      row0=window[0], col0=window[1],
+                      half_fov=cam_cfg.fov_y / 2.0,
+                      aspect=cam_cfg.width / cam_cfg.height)
+    # [max squared deviation, delta, base]
+    scratch = torch.empty(3, dtype=f32, device=dev)
+    t_c = torch.empty((Hc, Wc), dtype=f32, device=dev)
+    p = _march_params(Hc, Wc, scene, params)
+    rc = _build.kernels().rdt_cone_seed_camera(
+        *ptrs, ctypes.addressof(cam), scratch.data_ptr(),
+        t_c.data_ptr(), ctypes.addressof(p), scene_key(scene),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(rc, "rdt_cone_seed_camera")
+    return t_c, scratch[1], scratch[2]
 
 
 def _shade_launch(scene, p, n, light_p, albedo, emission, hit, light_consts,

@@ -18,7 +18,8 @@ float weights, and the tile form at radius 1, levels 1 and 4) and the
 the G-buffers, of the Cornell box, ``random_scene`` and a scene of other
 primitive counts (their runtime-count instantiation): K7 with
 ``relax_omega`` 1.0 and 1.4, unseeded and seeded (both trees given the
-seed grid of the other tree's K15), and on a quarter window of the frame;
+seed grid of the other tree's K15), on a quarter window of the frame, and
+seeded from the camera (each tree's K15, then its seeded march);
 K8 with ``relax_omega`` 1.0 and 1.5, with and without the previous
 camera, and on a window of the frame (the sharded path's launch); K13 on
 K8's inputs of the three scenes with ``relax_omega`` 1.0 and 1.4; K3 on
@@ -28,13 +29,21 @@ the history clamp off, on a frame whose sides are no multiple of the
 tile, on histories where a few pixels of each block are short and where
 none is, and on a served frame's inputs (the ninth frame of phase 4's
 orbit through this tree's pipeline); K3b on the quarter tiles of a
-3840x2160 frame (phase 10(a)); and KGb, the clamped gather's adjoint,
+3840x2160 frame (phase 10(a)); K15 on each of the three scenes from
+the camera (phase 3's, the frame's window at (0, 0) and a quarter window
+of a 3840x2160 frame at (1080, 1920)), from phase 3's ray planes (outputs
+t_c, delta and base) and the march launch alone on the camera's cones;
+K12 at radius 0, 1, 2, 3, 4, 5 and 16 with
+sigma_n 128 (repeated squaring) and 100 (powf), on a frame of sides
+1079 x 1917 (no multiple of the tile) at radius 2 and 4, and at depth 2
+through ``apply_filter(CROSS)``; and KGb, the clamped gather's adjoint,
 whose float64 sum is compared to within rounding, not bit for bit.  For
 each case it prints whether every output is bit-equal to the other
 tree's (``torch.equal``) and the largest difference, and times both trees
 in turn with CUDA events (this, other, this, other; 20 launches each).
 It prints ptxas's registers, stack and spills of the à-trous, march,
-shading, shadow and temporal kernels of each tree it builds (a library
+shading, shadow, temporal, cone and cross-bilateral kernels of each tree
+it builds (a library
 built before is loaded as it is), and the card's name and power limit.
 It exits non-zero if an output of a bit-equal case differs, or if KGb's
 differs by more than rtol 1e-5.
@@ -87,6 +96,10 @@ class Tree:
             name + ".ops.raymarch_cuda")
         self.temporal_cuda = importlib.import_module(
             name + ".ops.temporal_cuda")
+        self.filters_cuda = importlib.import_module(name + ".ops.filters_cuda")
+        self.filters = importlib.import_module(name + ".ops.filters")
+        self.config = importlib.import_module(name + ".config")
+        self.GBuffer = importlib.import_module(name + ".gbuffer").GBuffer
 
 
 def planes(H, W, dev, seed):
@@ -372,10 +385,20 @@ def _cases(P, U, cots, S, M, T):
             yield (f"tile {kn} r1 l{lvl}",
                    lambda t, dt=dt, lvl=lvl: k2(t, 1, lvl, dt, halo=True))
 
-    def k7(tree, name, omega, seeded, window):
+    def k7(tree, name, omega, seeded, window, camera=False):
         rc = tree.raymarch_cuda
         rm = rc.RaymarchParams(relax_omega=omega)
         scene, ro, rd, seed = M[name]
+        if camera:
+            # the seeded path of render_gbuffer: K15 from the camera, then
+            # the seeded march (phase 3's camera)
+            from ..io.generate import orbit_camera
+            H, W = FRAME
+            cam = orbit_camera(0.25, device=ro.device)
+            cfg = tree.config.CameraParams(width=W, height=H)
+            rm = rc.RaymarchParams(coarse_seed=True)
+            return lambda: tuple(rc.march_gbuf_cuda(scene, ro, rd, rm,
+                                                    camera=cam, cam_cfg=cfg))
         if window:
             # the frame's lower right quarter
             H, W = FRAME
@@ -394,6 +417,8 @@ def _cases(P, U, cots, S, M, T):
                            t, name, omega, seeded, False))
         yield (f"K7 {name} window",
                lambda t, name=name: k7(t, name, 1.0, False, True))
+        yield (f"K7 {name} seeded from the camera",
+               lambda t, name=name: k7(t, name, 1.0, True, False, True))
 
     def k8(tree, name, omega, prev, window):
         rm = tree.raymarch_cuda.RaymarchParams(relax_omega=omega)
@@ -514,6 +539,61 @@ def _cases(P, U, cots, S, M, T):
             stack, motion, g))
 
     yield "KGb (within rounding)", kgb, False
+
+    def k15(tree, name, route):
+        # phase 3's camera and rays; "quarter": the window at (H, W) of a
+        # frame of twice the sides
+        from ..io.generate import orbit_camera
+        rm = tree.config.RaymarchParams(coarse_seed=True)
+        scene, ro, rd, _ = M[name]
+        H, W = FRAME
+        cone = tree.raymarch_cuda.cone_seed_cuda
+        if route == "planes":
+            return lambda: tuple(cone(scene, rm, ro, rd))
+        cam = orbit_camera(0.25, device=ro.device)
+        if route == "alone":
+            # the march launch alone, on the camera glue's cones
+            from ..ops import raymarch
+            cones = raymarch.cone_rays_analytic(
+                cam, tree.config.CameraParams(width=W, height=H), 0, 0, H, W)
+            return lambda: (tree.raymarch_cuda.cone_launch(scene, *cones,
+                                                           rm),)
+        scale, window = (2, (H, W)) if route == "quarter" else (1, (0, 0))
+        cfg = tree.config.CameraParams(width=scale * W, height=scale * H)
+        return lambda: tuple(cone(scene, rm, camera=cam, cam_cfg=cfg,
+                                  window=window, shape=(H, W)))
+
+    for name, _ in SCENES:
+        for route in ("camera", "quarter", "planes", "alone"):
+            yield (f"K15 {name} {route}",
+                   lambda t, name=name, route=route: k15(t, name, route))
+
+    def k12(tree, r, sigma_n, odd=False, depth=None):
+        # chip_smoke.py phase 3's planes (the albedo a plane of its own);
+        # "odd": sides one and three short of the frame's
+        cfg = tree.config
+        p = cfg.FilterParams(type=cfg.FilterType.CROSS, radius=r,
+                             sigma_normal=sigma_n, depth=depth or 1)
+        planes = (c, T["frame"]["h_color"], n, z)
+        if odd:
+            H, W = z.shape
+            planes = tuple(x[..., :H - 1, :W - 3].contiguous()
+                           for x in planes)
+        if depth:
+            g = tree.GBuffer(render=planes[0], albedo=planes[1],
+                             normal=planes[2], depth=planes[3])
+            return lambda: (tree.filters.apply_filter(g, p).denoised,)
+        return lambda: (tree.filters_cuda.cross_bilateral_cuda(*planes,
+                                                               params=p),)
+
+    for r in (0, 1, 2, 3, 4, 5, 16):
+        for sigma_n in (128.0, 100.0):
+            yield (f"K12 r{r} sigma_n {sigma_n:g}",
+                   lambda t, r=r, sigma_n=sigma_n: k12(t, r, sigma_n))
+    for r in (2, 4):
+        yield (f"K12 r{r} odd frame",
+               lambda t, r=r: k12(t, r, 128.0, odd=True))
+    yield "K12 apply_filter depth 2", lambda t: k12(t, 2, 128.0, depth=2)
     for r in (0, 1, 2, 3):
         for wm in ("exact", "fast"):
             yield (f"sweep r{r} {wm} (phase 3)",
@@ -533,13 +613,15 @@ def compare(a, b):
 
 _ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
                      r"shade_kernel|march_kernel|shadow_kernel|"
-                     r"temporal_kernel)(I\w*?EE)?")
+                     r"temporal_kernel|cone\w*kernel|cross_bilateral\w*kernel)"
+                     r"(I\w*?EE)?")
 
 
 def resources(text_or_dict):
     """``{short kernel name: (registers, stack, spill st, spill ld)}`` of
-    the à-trous, march, shading, shadow and temporal kernels in a ptxas
-    report (a kernel that is not a template by its name alone)."""
+    the à-trous, march, shading, shadow, temporal, cone and cross-bilateral
+    kernels in a ptxas report (a kernel that is not a template by its name
+    alone)."""
     out = {}
     for name, res in text_or_dict.items():
         m = _ATROUS.search(name)

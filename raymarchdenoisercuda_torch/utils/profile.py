@@ -3,6 +3,7 @@ forward and backward on one GPU.
 
     python3 -m raymarchdenoisercuda_torch.utils.profile train   # config 4
     python3 -m raymarchdenoisercuda_torch.utils.profile serve   # config 3
+    python3 -m raymarchdenoisercuda_torch.utils.profile serve --seeded
     python3 -m raymarchdenoisercuda_torch.utils.profile spatial --mode recompute
 
 At 1920x1080: runs 3 warm-up steps, times ``--steps`` more without the
@@ -11,8 +12,9 @@ activities) and prints: the card's name and power limit, the wall time per
 step, the device-busy time per step (the sum of the kernels' device time;
 overlapping kernels would count twice, and the port runs one stream), the
 busy share of the wall, and the ``--top`` operators and kernels with the
-most device time.  Needs a CUDA device; the CPU has nothing to measure
-here.
+most device time.  ``--seeded`` serves with ``RaymarchParams(coarse_seed=
+True)`` (the cone seed from the camera, K15, and the seeded march).  Needs
+a CUDA device; the CPU has nothing to measure here.
 """
 
 from __future__ import annotations
@@ -52,11 +54,11 @@ def _train_runner(H, W, dev):
     return run
 
 
-def _serve_runner(H, W, dev):
+def _serve_runner(H, W, dev, seeded=False):
     scene = raymarch.cornell_scene(device=dev)
     pipe = FramePipeline(scene, CameraParams(width=W, height=H),
-                         RaymarchParams(), SVGFParams(radius=1),
-                         weight_math="fast")
+                         RaymarchParams(coarse_seed=seeded),
+                         SVGFParams(radius=1), weight_math="fast")
     gen = torch.Generator(dev).manual_seed(0)
     carry = {"hist": History.zeros(H, W, device=dev), "prev": None, "f": 0}
 
@@ -105,6 +107,8 @@ def main(argv=None) -> int:
     ap.add_argument("--mode", choices=tuple(SPATIAL_MODES),
                     default="stored", help="spatial: the adjoint mode")
     ap.add_argument("--radius", type=int, default=1, help="spatial: radius")
+    ap.add_argument("--seeded", action="store_true",
+                    help="serve: with the cone seed (coarse_seed)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -115,9 +119,10 @@ def main(argv=None) -> int:
     H, W = 1080, 1920
     if args.path == "spatial":
         run = _spatial_runner(H, W, dev, args.mode, args.radius)
+    elif args.path == "serve":
+        run = _serve_runner(H, W, dev, args.seeded)
     else:
-        run = (_train_runner if args.path == "train" else _serve_runner)(
-            H, W, dev)
+        run = _train_runner(H, W, dev)
     for _ in range(3):
         run()
     torch.cuda.synchronize()
@@ -137,6 +142,7 @@ def main(argv=None) -> int:
                if e.device_type == DeviceType.CUDA) / 1e3 / args.steps
     print(nvidia_smi_name_power())
     what = (f"spatial {args.mode} r{args.radius}" if args.path == "spatial"
+            else "serve seeded" if args.path == "serve" and args.seeded
             else args.path)
     print(f"{what} {W}x{H}: wall {wall:.3f} ms/step unprofiled; device "
           f"busy {busy:.3f} ms/step under the profiler "

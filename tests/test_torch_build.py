@@ -1,13 +1,14 @@
 """The ctypes declarations of the CUDA kernels' C entry points, and the
-compiled scenes of K7 and K8.
+compiled scenes of K7, K8, K13 and K15.
 
 ``ops/cuda/_build.py`` declares the argument types of every ``rdt_*``
 function the ``.cu`` sources export.  A missing or wrong declaration makes
 ctypes pass a pointer as a 32-bit int, which faults on the card only; this
 check reads the sources here, without a compiler.
 
-K7 (``rdt_march``), K8 (``rdt_shadow_shade``) and K13 (``rdt_shadow``)
-are compiled for the primitive counts of the scenes in
+K7 (``rdt_march``), K8 (``rdt_shadow_shade``), K13 (``rdt_shadow``) and
+K15 (``rdt_cone_seed``, ``rdt_cone_seed_camera``) are compiled for the
+primitive counts of the scenes in
 ``raymarch_cuda.SHADE_SCENES``; the
 wrappers pass the key of the instantiation and each C entry point maps
 each key to a template instantiation.  The tables are held to each other
@@ -65,16 +66,24 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
 
 
 # arguments added to entry points after they were first declared: the
-# shading pass's, the march's and the shadow pass's instantiation keys and
-# the clamped-gather adjoint's float64 scratch with its plane count
+# shading pass's, the march's, the shadow pass's and the cone seed's
+# instantiation keys, the cone seed's delta and base pointers, and the
+# clamped-gather adjoint's float64 scratch with its plane count; and the
+# cone seed's camera route (its scratch and key)
 @pytest.mark.parametrize("name,index,ctype", [
     ("rdt_shadow_shade", 13, ctypes.c_int),
     ("rdt_march", 9, ctypes.c_int),
     ("rdt_shadow", 6, ctypes.c_int),
+    ("rdt_cone_seed", 3, ctypes.c_void_p),
+    ("rdt_cone_seed", 4, ctypes.c_void_p),
+    ("rdt_cone_seed", 7, ctypes.c_int),
+    ("rdt_cone_seed_camera", 5, ctypes.c_void_p),
+    ("rdt_cone_seed_camera", 8, ctypes.c_int),
     ("rdt_clamped_gather_bwd", 4, ctypes.c_void_p),
     ("rdt_clamped_gather_bwd", 9, ctypes.c_int)],
     ids=["shade scene_key", "march scene_key", "shadow scene_key",
-         "gather_bwd scratch", "gather_bwd P"])
+         "cone delta", "cone base", "cone scene_key", "cone camera scratch",
+         "cone camera scene_key", "gather_bwd scratch", "gather_bwd P"])
 def test_added_arguments_are_declared(name, index, ctype):
     assert _build.SIGNATURES[name][index] is ctype
     assert _exports()[name][index] is ctype
@@ -109,6 +118,13 @@ def test_march_keys_match_the_compiled_scenes():
     """rdt_march's switch (K7, seeded or not) maps the keys as
     rdt_shadow_shade's does: one list of compiled scenes serves both."""
     assert _switch_cases("RDT_MARCH") == {
+        0: (-1, -1, -1), **{k + 1: c for k, c in enumerate(SHADE_SCENES)}}
+
+
+def test_cone_keys_match_the_compiled_scenes():
+    """K15's switch (both routes: ``launch_cone_key``) maps the keys as
+    rdt_shadow_shade's does."""
+    assert _switch_cases("RDT_CONE") == {
         0: (-1, -1, -1), **{k + 1: c for k, c in enumerate(SHADE_SCENES)}}
 
 

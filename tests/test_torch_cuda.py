@@ -24,7 +24,9 @@ differentiates the float weights), updated albedo atol 1e-5.  Filters and
 K13 (the JAX package's kernel-vs-oracle tolerances): K10 rtol 1e-5, atol
 1e-6 (the kernel sums the 2-D window, its twin sums separably); K11 atol
 1e-5; K12 atol 5e-5 (exp2f of log2(e)-scaled arguments and repeated
-squaring against exp and pow); K13 at most 0.1 % visibility flips, as K8,
+squaring against exp and pow) at radii 0-4 (its staged form) and 5 and 16
+(one thread a pixel), on a 1079 x 1917 frame too; K13 at most 0.1 %
+visibility flips, as K8,
 in each of its instantiations (counted under the key the scene's counts
 pick).  K3 also on a frame of sides no multiple of its 32 x 8 tile, with
 the history clamp off, and with one short pixel in the whole frame (one
@@ -45,9 +47,14 @@ Cornell box, ``random_scene``, and a scene of other counts: the runtime-
 count one) at K7/K8's tolerance, its window bit-equal to the whole frame's
 crop.  KGb run 20 times: every history gradient within one float32 ulp
 of the first (its float64 sum is rounded once), the motion's bit-equal.
-K7, K8 and K13 on two scenes of the Cornell box's counts (one
+K7, K8, K13 and K15 on two scenes of the Cornell box's counts (one
 constant buffer of compiled scene parameters a device) launched on three
-streams at once: every output bit-equal to the same launch alone.
+streams at once: every output bit-equal to the same launch alone.  K15
+in each instantiation and from the camera on windows up to a quarter of
+3840x2160: delta and base bit-equal to the PyTorch glue's, the glue not
+called on the card, the stops atol 1e-4 against ``cone_march`` and
+bit-equal to the runtime-count instantiation and to K15 on the glue's
+cones.
 K7, seeded or not, in each compiled instantiation bit-equal to the
 runtime-count instantiation on the same scene (the two SDFs do the same
 operations in the same order), and a scene of other counts at K7's
@@ -471,12 +478,22 @@ def test_k11_matches_plain(dev, shape, depth):
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+# K12's radii: 0-4 run the staged form, 5 and 16 (the largest) the
+# one-thread-a-pixel body
+K12_RADII = [0, 1, 2, 3, 4, 5, 16]
+
+
+@pytest.mark.parametrize("radius", K12_RADII)
+@pytest.mark.parametrize("shape", SHAPES + [(1079, 1917)])
 @pytest.mark.parametrize("sigma_normal", [128.0, 3.0])
-def test_k12_matches_plain(dev, shape, sigma_normal):
+def test_k12_matches_plain(dev, shape, sigma_normal, radius):
+    """K12 at every form's radii, on frames whose sides are no multiple of
+    its 32 x 8 tile (one smaller than a tile), sigma_n by repeated
+    squaring and by powf."""
     color, _var, normal, depth = _planes(dev, 52, *shape)
     albedo = _planes(dev, 53, *shape)[0]
-    p = FilterParams(type=FilterType.CROSS, sigma_normal=sigma_normal)
+    p = FilterParams(type=FilterType.CROSS, sigma_normal=sigma_normal,
+                     radius=radius)
     got = cross_bilateral_cuda(color, albedo, normal, depth, params=p)
     want = filters.cross_bilateral_filter(color, albedo, normal, depth,
                                           params=p)
@@ -1010,39 +1027,124 @@ def test_sharded_paths_on_one_card(dev):
 # the cone pre-march seed (K15, the seeded K7) and unbounded motion
 # ---------------------------------------------------------------------------
 
+# K8's and K15's scenes: the two they are compiled for and one of other
+# counts (their runtime-count instantiation), with the key each runs
+SHADE_SCENES = [("cornell", 1), ("random", 2), ("odd", 0)]
+
+
+def _shade_scene(name, dev):
+    if name == "cornell":
+        return raymarch.cornell_scene(device=dev)
+    if name == "random":
+        return raymarch.random_scene(seed=3, device=dev)
+    return raymarch.random_scene(n_spheres=7, n_boxes=4, seed=5, device=dev)
+
+
 def _cone_inputs(dev, scene_name):
-    scene = (raymarch.cornell_scene(device=dev) if scene_name == "cornell"
-             else raymarch.random_scene(seed=3, device=dev))
+    scene = _shade_scene(scene_name, dev)
     cfg = CameraParams(width=W, height=H)
     cam = orbit_camera(0.25, device=dev)
     ro, rd, _ = raymarch.camera_rays(cam, cfg)
     return scene, cfg, cam, ro, rd
 
 
-@pytest.mark.parametrize("route", ["planes", "camera", "window"])
-@pytest.mark.parametrize("scene_name", ["cornell", "random"])
-def test_k15_matches_plain(dev, scene_name, route):
-    """K15 from ray planes and from the camera (origin (0, 0), and a
-    window of a 4x frame at a non-zero origin) against ``cone_march`` on
-    the same cones: the same operations in the same order, so atol 1e-4
-    as K7's t."""
+# K15's windows from the camera: (camera frame, window origin, window
+# shape); "quarter4k" is the lower right quarter of a 3840x2160 frame, the
+# sharded path's window on a 2x2 mesh
+CONE_WINDOWS = {"camera": ((H, W), (0, 0), (H, W)),
+                "window": ((2 * H, 2 * W), (H, W // 2), (H, W)),
+                "quarter4k": ((2160, 3840), (1080, 1920), (1080, 1920))}
+
+
+@pytest.mark.parametrize("route", ["planes", "camera", "window",
+                                   "quarter4k"])
+@pytest.mark.parametrize("scene_name,key", SHADE_SCENES,
+                         ids=[s[0] for s in SHADE_SCENES])
+def test_k15_matches_plain(dev, scene_name, key, route):
+    """K15 from ray planes and from the camera (origin (0, 0), a window of
+    a 4x frame at a non-zero origin, and a quarter of a 3840x2160 frame) in
+    each instantiation (the compiled scenes and the runtime counts, counted
+    under the key the scene's counts pick) against ``cone_march`` on the
+    glue's cones: the same operations in the same order, so atol 1e-4 as
+    K7's t; delta and base bit-equal to the glue's (the camera route
+    builds its cones on the card)."""
     scene, cfg, cam, ro, rd = _cone_inputs(dev, scene_name)
     params = RaymarchParams(coarse_seed=True)
+    assert scene_key(scene) == key
     if route == "planes":
         cones = raymarch.cone_rays(ro, rd)
         kw = {}
+        shape = (H, W)
     else:
-        big = CameraParams(width=2 * W, height=2 * H)
-        window = (0, 0) if route == "camera" else (H, W // 2)
-        cfg = cfg if route == "camera" else big
-        cones = raymarch.cone_rays_analytic(cam, cfg, *window, H, W)
-        kw = dict(camera=cam, cam_cfg=cfg, window=window, shape=(H, W))
-    before = cone_seed_cuda.launches
+        (ch, cw), window, shape = CONE_WINDOWS[route]
+        cfg = CameraParams(width=cw, height=ch)
+        cones = raymarch.cone_rays_analytic(cam, cfg, *window, *shape)
+        kw = dict(camera=cam, cam_cfg=cfg, window=window, shape=shape)
+    kind = "planes" if route == "planes" else "camera"
+
+    def counts():
+        return (cone_seed_cuda.launches, cone_seed_cuda.by_key[key],
+                cone_seed_cuda.by_route[kind])
+
+    before = counts()
     t_c, delta, base = cone_seed_cuda(scene, params, ro, rd, **kw)
-    assert cone_seed_cuda.launches == before + 1
-    assert delta.is_cuda and base.is_cuda and t_c.shape == (34, 60)
+    assert counts() == tuple(v + 1 for v in before)
+    assert delta.is_cuda and base.is_cuda
+    assert t_c.shape == raymarch.seed_grid_shape(*shape)
+    assert torch.equal(delta, cones[2]) and torch.equal(base, cones[3])
     want = raymarch.cone_march(scene, *cones, params)
     np.testing.assert_allclose(_np(t_c), _np(want), rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("fov_y", [0.3, 0.6911, 1.2])
+@pytest.mark.parametrize("frame,window,shape", [
+    ((1080, 1920), (0, 0), (1080, 1920)),
+    ((1080, 1920), (5, 7), (137, 243)),
+    ((2160, 3840), (1080, 0), (1080, 1920))],
+    ids=["1080p", "odd window", "4k lower left"])
+def test_k15_camera_route_runs_on_the_card(dev, monkeypatch, fov_y, frame,
+                                           window, shape):
+    """With ``camera=``, K15 builds its cones on the card: the PyTorch glue
+    (``cone_rays_analytic``) is not called, the pass counts one camera
+    launch, and its delta and base are bit-equal to the glue's at several
+    fields of view and windows (the glue's tan, reciprocal multiplies and
+    true divisions, operation by operation); its stops are those of K15
+    on the glue's cones, bit for bit."""
+    scene = raymarch.cornell_scene(device=dev)
+    cam = orbit_camera(0.4, device=dev)
+    cfg = CameraParams(width=frame[1], height=frame[0], fov_y=fov_y)
+    params = RaymarchParams(coarse_seed=True)
+    cones = raymarch.cone_rays_analytic(cam, cfg, *window, *shape)
+
+    def glue(*args):
+        raise AssertionError("the camera route ran the PyTorch glue")
+
+    monkeypatch.setattr(raymarch_cuda, "cone_rays_analytic", glue)
+    before = cone_seed_cuda.by_route["camera"]
+    t_c, delta, base = cone_seed_cuda(scene, params, camera=cam,
+                                      cam_cfg=cfg, window=window, shape=shape)
+    assert cone_seed_cuda.by_route["camera"] == before + 1
+    assert torch.equal(delta, cones[2]) and torch.equal(base, cones[3])
+    assert torch.equal(t_c, raymarch_cuda.cone_launch(scene, *cones,
+                                                      params))
+
+
+@pytest.mark.parametrize("scene_name,key", SHADE_SCENES[:2],
+                         ids=[s[0] for s in SHADE_SCENES[:2]])
+def test_k15_compiled_scene_matches_runtime_counts(dev, scene_name, key):
+    """K15 in the instantiation compiled for the scene is ``torch.equal``
+    to the runtime-count instantiation on the same cones (the two SDFs do
+    the same operations in the same order); a compiled key given other
+    counts raises."""
+    scene, cfg, cam, ro, rd = _cone_inputs(dev, scene_name)
+    params = RaymarchParams(coarse_seed=True)
+    for cones in (raymarch.cone_rays(ro, rd),
+                  raymarch.cone_rays_analytic(cam, cfg, 0, 0, H, W)):
+        got = raymarch_cuda.cone_launch(scene, *cones, params)
+        runtime = raymarch_cuda.cone_launch(scene, *cones, params, key=0)
+        assert torch.equal(got, runtime)
+        with pytest.raises(RuntimeError, match="rdt_cone_seed"):
+            raymarch_cuda.cone_launch(scene, *cones, params, key=3 - key)
 
 
 @pytest.mark.parametrize("omega", [1.0, 1.4])
@@ -1298,19 +1400,6 @@ def _check_k14_levels(dev, shape, radius, levels):
                 atol=1e-6 * float(w.abs().max()))
 
 
-# K8's scenes: the two it is compiled for and one of other counts (its
-# runtime-count instantiation), with the key each runs
-SHADE_SCENES = [("cornell", 1), ("random", 2), ("odd", 0)]
-
-
-def _shade_scene(name, dev):
-    if name == "cornell":
-        return raymarch.cornell_scene(device=dev)
-    if name == "random":
-        return raymarch.random_scene(seed=3, device=dev)
-    return raymarch.random_scene(n_spheres=7, n_boxes=4, seed=5, device=dev)
-
-
 @pytest.mark.parametrize("omega", [1.0, 1.5])
 @pytest.mark.parametrize("scene_name,key", SHADE_SCENES,
                          ids=[s[0] for s in SHADE_SCENES])
@@ -1461,15 +1550,15 @@ def _stream_scene_inputs(scene, ro, rd, rm, cfg, dev):
 
 def test_compiled_scene_launches_on_concurrent_streams(dev):
     """The compiled scene's constant buffer (``c_scene``, one a device) is
-    filled before every K7, K8 and K13 launch on a compiled scene.  Two
-    scenes of the Cornell box's counts that differ in one sphere: a first
-    stream queues two 1080p K7 launches on one scene, which hold every SM
-    for ~0.6 ms; a second stream then launches K7, K8 or K13 on the other
-    scene, whose kernel waits for SMs after its fill, and a third stream
-    the same kernel on the first scene, whose fill would land in that
-    wait.  Each round runs both ways round; every output is
-    ``torch.equal`` to the same launch alone on one stream: no kernel
-    reads another launch's scene."""
+    filled before every K7, K8, K13 and K15 launch on a compiled scene.
+    Two scenes of the Cornell box's counts that differ in one sphere: a
+    first stream queues two 1080p K7 launches on one scene, which hold
+    every SM for ~0.6 ms; a second stream then launches K7, K8, K13 or
+    K15 (from the camera) on the other scene, whose kernel waits for SMs
+    after its fill, and a third stream the same kernel on the first scene,
+    whose fill would land in that wait.  Each round runs both ways round;
+    every output is ``torch.equal`` to the same launch alone on one
+    stream: no kernel reads another launch's scene."""
     a = raymarch.cornell_scene(device=dev)
     b = dataclasses.replace(a, sphere_params=torch.tensor(
         [[0.1, -0.65, 0.9, 0.35]], device=dev))
@@ -1477,8 +1566,9 @@ def test_compiled_scene_launches_on_concurrent_streams(dev):
     assert scene_key(a) == scene_key(b) == 1
     Hs, Ws = 1080, 1920
     cfg = CameraParams(width=Ws, height=Hs)
-    rm = RaymarchParams()
-    ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
+    rm, seeded = RaymarchParams(), RaymarchParams(coarse_seed=True)
+    cam = orbit_camera(0.25, device=dev)
+    ro, rd, _ = raymarch.camera_rays(cam, cfg)
     with torch.no_grad():
         ins = {k: _stream_scene_inputs(s, ro, rd, rm, cfg, dev)
                for k, s in scenes.items()}
@@ -1493,7 +1583,11 @@ def test_compiled_scene_launches_on_concurrent_streams(dev):
         def k13(k):
             return (shadow_factor_cuda(scenes[k], *ins[k][:3], rm),)
 
-        kernels = dict(K7=k7, K8=k8, K13=k13)
+        def k15(k):
+            return tuple(cone_seed_cuda(scenes[k], seeded, camera=cam,
+                                        cam_cfg=cfg, shape=(Hs, Ws)))
+
+        kernels = dict(K7=k7, K8=k8, K13=k13, K15=k15)
         alone = {(name, k): fn(k) for name, fn in kernels.items()
                  for k in scenes}
         for name in kernels:

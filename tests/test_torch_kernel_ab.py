@@ -6,8 +6,12 @@ take their plain twins for CPU tensors: this checks that every case
 builds its inputs and calls its wrapper with the arguments the wrapper
 takes (K14 and K2/K2b whole frame and tile form, K7 unseeded, seeded
 and on a window, K8 and K13 on each scene, K3 on every input kind, the
-served frame's among them, K3b on the quarter tiles, KGb), and that the
-outputs are finite and of the expected shapes.  No timing, no other
+served frame's among them, K3b on the quarter tiles, KGb, K15 from the
+camera, a quarter window and the ray planes and alone on each scene, K7
+seeded from the camera, K12 at every
+radius and both sigma_n forms, on the odd frame and through
+``apply_filter``), and that the outputs are finite and of the expected
+shapes.  No timing, no other
 tree.
 """
 
@@ -48,13 +52,17 @@ FAMILIES = {
     "K14": (r"^K14 ", 20, [(3, *FRAME), FRAME]),
     "K14 tile": (r"^tile K14 ", 4, [(3, 28, 44), (28, 44)]),
     "K8": (r"^K8 ", 15, [(3, *FRAME), FRAME, (2, *FRAME)]),
-    "K7": (r"^K7 ", 15, [FRAME, FRAME, FRAME, (3, *FRAME)]),
+    "K7": (r"^K7 ", 18, [FRAME, FRAME, FRAME, (3, *FRAME)]),
     "K2": (r"^K2b? r", 40, [(3, *FRAME), FRAME]),
     "K2 tile": (r"^tile K2b? ", 4, [(3, 28, 44), (28, 44)]),
     "KGb": (r"^KGb", 1, [(10, *FRAME), (2, *FRAME)]),
     "K13": (r"^K13 ", 6, [FRAME]),
     "K3": (r"^K3 ", 11, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
     "K3b": (r"^K3b ", 4, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
+    "K15": (r"^K15 ", 12, [(6, 10), (), ()]),
+    "K12": (r"^K12 r\d+ sigma", 14, [(3, *FRAME)]),
+    "K12 odd": (r"^K12 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
+    "K12 apply_filter": (r"^K12 apply", 1, [(3, *FRAME)]),
 }
 
 
