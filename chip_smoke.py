@@ -11,10 +11,11 @@ the script exits non-zero without printing a result):
    (one nvcc per source, in parallel) and print ptxas's registers, stack
    and spills of the à-trous level forward's instantiations (K1/K1b, each
    radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's
-   (both routes, and the camera route's first launch) and K12's staged
-   form (r <= 4); fail if one of K1/K1b or K2/K2b at radius <= 2, K7, K13
-   or K15 on a compiled scene, K3/K3b, K15's first camera launch or a
-   staged K12 uses local memory;
+   (both routes, and the camera route's first launch), K12's staged
+   form (r <= 4), KG's, KGb's (and its rounding pass) and KGp's; fail if
+   one of K1/K1b or K2/K2b at radius <= 2, K7, K13 or K15 on a compiled
+   scene, K3/K3b, K15's first camera launch, a staged K12 or a KG, KGb
+   or KGp kernel uses local memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -36,7 +37,10 @@ the script exits non-zero without printing a result):
    instantiation named), with the seeded march held to the unseeded one
    and K7 seeded and unseeded, K15 and the seed passes timed against
    their SDF-evaluation bounds, and the clamped gather of unbounded motion
-   (KG) and its adjoint (KGb);
+   (KG) and its adjoint (KGb) on the channel-minor stack that KGp builds
+   (bit-equal to its plain twin) and on a planar one (laid out by KGp in
+   the wrappers), timed on phase 3's and a served frame's input, KGb
+   split into its kernels by the profiler;
 4. the serving path: 16 frames of the animated Cornell sequence at
    1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
    temporal -> 5-level à-trous, radius 1, fast weights); the first 3
@@ -86,7 +90,7 @@ the script exits non-zero without printing a result):
    differences); (b) the config-4 train step seeded against the unseeded
    one, its first frame held by the same bounds; (c)
    a serving sequence and (d) a ``temporal="ad"`` gradient pass with
-   ``SVGFParams(max_motion=None)`` (KG, KGb) against the plain path; (e)
+   ``SVGFParams(max_motion=None)`` (KGp, KG, KGb) against the plain path; (e)
    the sharded pipeline at 3840x2160 and (f) the sharded train step
    (config 5), seeded, against the unsharded seeded ones.
 
@@ -142,10 +146,13 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     clamped_gather_bwd_cuda, clamped_gather_cuda, gather_bwd_cuda,
     gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
     gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
-    temporal_accumulate_ad_cuda, temporal_accumulate_canvas_cuda,
-    temporal_accumulate_cuda)
+    history_stack_channel_minor_cuda, temporal_accumulate_ad_cuda,
+    temporal_accumulate_canvas_cuda, temporal_accumulate_cuda)
 from raymarchdenoisercuda_torch.parallel import sharded
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
+from raymarchdenoisercuda_torch.utils.profile import clamped_split
+from raymarchdenoisercuda_torch.utils.seeded_inputs import (
+    clamped_inputs, served_clamped_inputs)
 from raymarchdenoisercuda_torch.utils.timing import (
     CudaTimer, cuda_time_ms, nvidia_smi_name_power)
 
@@ -177,7 +184,8 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K5c": gather_canvas_bwd_cuda,
             "K6c": gather_canvas_bwd_hist_cuda,
             "K15": cone_seed_cuda, "K7s": march_gbuf_seeded_cuda,
-            "KG": clamped_gather_cuda, "KGb": clamped_gather_bwd_cuda}
+            "KG": clamped_gather_cuda, "KGb": clamped_gather_bwd_cuda,
+            "KGp": history_stack_channel_minor_cuda}
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
@@ -230,6 +238,9 @@ KERNELS = {
            "raymarchdenoisercuda_tpu/ops/temporal.py:41"),
     "KGb": ("clamped_gather_bwd", CUDA_SRC + "temporal.cu",
             "raymarchdenoisercuda_tpu/ops/temporal.py:41"),
+    # the channel-minor stack that bilinear_gather_many builds
+    "KGp": ("clamped_gather_stack", CUDA_SRC + "temporal.cu",
+            "raymarchdenoisercuda_tpu/ops/temporal.py:57"),
 }
 # per-tap float operations of K1's weight math and accumulation, of K2's
 # tap, of K14's (the recomputed weight and K2's sum), of K9's two passes
@@ -290,6 +301,13 @@ K15_MANGLED = re.compile(r"11cone_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)ELb"
                          r"([01])EE")
 K15_DELTA_MANGLED = re.compile(r"17cone_delta_kernel")
 K12_MANGLED = re.compile(r"29cross_bilateral_staged_kernelILi(\d+)ELi(\d+)EE")
+# the clamped gather's (KG, the 10 planes channel-minor), its adjoint's
+# (KGb) and the adjoint's rounding pass, and the channel-minor stack's
+# (KGp)
+KG_KERNELS = {re.compile(r"21clamped_gather_kernelE"): "KG",
+              re.compile(r"25clamped_gather_bwd_kernelE"): "KGb",
+              re.compile(r"19round_planes_kernel"): "KGb round",
+              re.compile(r"26stack_channel_minor_kernel"): "KGp"}
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
 
@@ -347,13 +365,22 @@ def random_planes(H, W, dev, seed):
 
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
-    K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's and K12's staged
-    instantiations (the build's report); raise if one of K1/K1b or K2/K2b
-    at radius <= 2, K7, K13 or K15 on a compiled scene, K3/K3b, K15's first
-    camera launch or K12's staged form uses local memory, or if K3/K3b, a
-    compiled K13 or K15 or a staged K12 is missing from the report."""
-    k1, k9, local, k3, k13, k15, k12 = {}, {}, [], [], [], [], []
+    K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K12's staged, KG's,
+    KGb's and KGp's instantiations (the build's report); raise if one of
+    K1/K1b or K2/K2b at radius <= 2, K7, K13 or K15 on a compiled scene,
+    K3/K3b, K15's first camera launch, K12's staged form or a KG, KGb or
+    KGp kernel uses local memory, or if K3/K3b, a compiled K13 or K15, a
+    staged K12 or a KG, KGb or KGp kernel is missing from the report."""
+    k1, k9, local, k3, k13, k15, k12, kg = {}, {}, [], [], [], [], [], []
     for name, res in sorted(_build.resource_report().items()):
+        form = next((f for r, f in KG_KERNELS.items() if r.search(name)),
+                    None)
+        if form:
+            phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
+                     f"spills {res[2] + res[3]} B")
+            kg.append(form)
+            if res[1] or res[2] or res[3]:
+                local.append(form)
         m = K15_MANGLED.search(name)
         if m:
             counts = tuple(int(v.replace("n", "-")) for v in m.groups()[:3])
@@ -445,6 +472,9 @@ def report_resources():
     if len(k15) != 4 or sorted(k12) != [0, 1, 2, 3, 4]:
         raise AssertionError(f"phase 2: compiled K15 {k15} or staged K12 "
                              f"{sorted(k12)} missing from ptxas's report")
+    if sorted(kg) != sorted(KG_KERNELS.values()):
+        raise AssertionError(f"phase 2: KG/KGb/KGp kernels {kg} in ptxas's "
+                             f"report, expected {list(KG_KERNELS.values())}")
     for R, found in sorted(k1.items()):
         regs = [res[0] for res in found.values()]
         frame = max(res[1] for res in found.values())
@@ -1316,6 +1346,13 @@ def check_cone_seed_uhd(H, W, dev):
               f"|err| {err7s:.3g}, flips {flips}")
 
 
+def channel_minor(stack):
+    """The (10, H, W) stack laid out channel-minor by KGp (strides (1,
+    10·W, 10)), as the main paths stack the history on the card."""
+    return history_stack_channel_minor_cuda(temporal.history_from_stack(
+        stack))
+
+
 def check_clamped_gather(H, W, dev, results):
     """The clamped gather (KG) and its adjoint (KGb) at 1080p against the
     plain twin (under autograd, float64 for the adjoint: its atomics add in
@@ -1323,18 +1360,25 @@ def check_clamped_gather(H, W, dev, results):
     float64 ones move the bilinear fractions by an ulp of a coordinate),
     motion out to ±28 pixels (taps clamp at the border): rtol 1e-5, atol
     1e-6 (·max for the adjoint); the cotangent on the training path's 6
-    planes."""
-    rng = np.random.default_rng(13)
-    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
-    motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * 56.0)
-                              .astype(np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
-        np.float32)).to(dev)
-    g[6:] = 0.0
-    got = clamped_gather_cuda(stack, motion)
+    planes; the stack channel-minor (the main paths' layout), which KGp
+    builds bit for bit as its plain twin does, and planar (the wrappers
+    lay it out with KGp: the same values, d_motion bit for bit).  The
+    kernels are timed on the channel-minor stack of phase 3's input and of
+    a served frame's (the ninth orbit frame with ``max_motion=None``), and
+    KGb is split into its memsets, scatter and rounding pass by the
+    profiler."""
+    stack, motion, g = clamped_inputs(H, W, dev)
+    hist = temporal.history_from_stack(stack)
+    cm = history_stack_channel_minor_cuda(hist)
+    want_p = temporal.history_stack_channel_minor(hist)
+    if cm.stride() != want_p.stride() or not torch.equal(cm, want_p):
+        raise AssertionError("KGp: not its plain twin's stack")
     want = temporal.bilinear_gather_clamped(stack, motion)
-    check_close("KG", got, want, atol=1e-6, rtol=1e-5)
-    err = max_err(got, want)
+    err = 0.0
+    for layout, s in (("planar", stack), ("channel-minor", cm)):
+        got = clamped_gather_cuda(s, motion)
+        check_close(f"KG {layout}", got, want, atol=1e-6, rtol=1e-5)
+        err = max(err, max_err(got, want))
     iy = torch.arange(H, dtype=torch.float32, device=dev)[:, None]
     ix = torch.arange(W, dtype=torch.float32, device=dev)[None, :]
     s64 = stack.double().requires_grad_()
@@ -1343,32 +1387,69 @@ def check_clamped_gather(H, W, dev, results):
                       ).requires_grad_()
     want_b = torch.autograd.grad(temporal.bilinear_gather_clamped(s64, m64),
                                  (s64, m64), g.double())
-    got_b = clamped_gather_bwd_cuda(stack, motion, g)
-    for name, a, b in zip(("d_stack", "d_motion"), got_b, want_b):
-        check_close(f"KGb {name}", a, b, atol=1e-6 * float(b.abs().max()),
-                    rtol=1e-5)
-    err_b = max(max_err(a, b) for a, b in zip(got_b, want_b))
-    del s64, m64, want_b
-    ms = cuda_time_ms(lambda: clamped_gather_cuda(stack, motion), repeats=20)
+    err_b, got_b = 0.0, {}
+    for layout, s in (("planar", stack), ("channel-minor", cm)):
+        got_b[layout] = clamped_gather_bwd_cuda(s, motion, g)
+        for name, a, b in zip(("d_stack", "d_motion"), got_b[layout],
+                              want_b):
+            check_close(f"KGb {layout} {name}", a, b,
+                        atol=1e-6 * float(b.abs().max()), rtol=1e-5)
+        err_b = max(err_b, *(max_err(a, b)
+                             for a, b in zip(got_b[layout], want_b)))
+    if not torch.equal(got_b["planar"][1], got_b["channel-minor"][1]):
+        raise AssertionError("KGb d_motion depends on the stack's layout")
+    del s64, m64, want_b, got_b
+    ins = {"±28 px": (cm, motion, g),
+           "served frame": served_clamped_inputs(H, W, dev)}
+    ins["served frame"] = (channel_minor(ins["served frame"][0]),
+                           *ins["served frame"][1:])
+    ms = {}
+    for label, (s, m, gg) in ins.items():
+        ms["KG", label] = cuda_time_ms(lambda: clamped_gather_cuda(s, m),
+                                       repeats=20)
+        ms["KGb", label] = cuda_time_ms(
+            lambda: clamped_gather_bwd_cuda(s, m, gg), repeats=20)
     plain = cuda_time_ms(lambda: temporal.bilinear_gather_clamped(
         stack, motion), repeats=3)
-    ms_b = cuda_time_ms(lambda: clamped_gather_bwd_cuda(stack, motion, g),
-                        repeats=20)
     s, m = (t.clone().requires_grad_() for t in (stack, motion))
     out = temporal.bilinear_gather_clamped(s, m)
     plain_b = cuda_time_ms(lambda: torch.autograd.grad(
         out, (s, m), g, retain_graph=True), repeats=3)
+    ms_p = cuda_time_ms(lambda: history_stack_channel_minor_cuda(hist),
+                        repeats=20)
+    plain_p = cuda_time_ms(lambda: temporal.history_stack_channel_minor(
+        hist), repeats=20)
+    # the one PyTorch call that builds the same stack: a stack along the
+    # last axis of the ten planes
+    planes = stack.unbind(0)
+    lib_p = cuda_time_ms(lambda: torch.stack(planes, dim=-1), repeats=20)
     HW = H * W
     # KG: 10 planes and the motion in, 10 out, ~4 multiply-adds a plane;
     # KGb: motion, 6 cotangent and 6 history planes in, 6 gradients and
-    # the motion's out, ~20 operations a plane
-    results["KG"] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
-                         bytes=88 * HW, flops=(10 * 6 + 20) * HW)
-    results["KGb"] = dict(max_abs_err=err_b, ms=ms_b, plain_ms=plain_b,
-                          bytes=88 * HW, flops=(6 * 20 + 20) * HW)
-    phase(3, f"KG: ok, max |err| {err:.3g}, {ms:.4f} ms, plain {plain:.4f} "
-             f"ms; KGb: ok (float64 twin), max |err| {err_b:.3g}, "
-             f"{ms_b:.4f} ms, plain (autograd) {plain_b:.4f} ms")
+    # the motion's out, ~20 operations a plane; KGp: 10 planes in and out;
+    # timed on phase 3's input
+    results["KG"] = dict(max_abs_err=err, ms=ms["KG", "±28 px"],
+                         plain_ms=plain, bytes=88 * HW,
+                         flops=(10 * 6 + 20) * HW)
+    results["KGb"] = dict(max_abs_err=err_b, ms=ms["KGb", "±28 px"],
+                          plain_ms=plain_b, bytes=88 * HW,
+                          flops=(6 * 20 + 20) * HW)
+    results["KGp"] = dict(max_abs_err=max_err(cm, want_p), ms=ms_p,
+                          plain_ms=plain_p, library_ms=lib_p, bytes=80 * HW,
+                          flops=0)
+    phase(3, f"KG: ok (both layouts), max |err| {err:.3g}, plain "
+             f"{plain:.4f} ms; KGb: ok (float64 twin, d_motion the same "
+             f"on both layouts), max |err| {err_b:.3g}, plain (autograd) "
+             f"{plain_b:.4f} ms; KGp: bit-equal, {ms_p:.4f} ms, plain "
+             f"{plain_p:.4f} ms, torch.stack {lib_p:.4f} ms")
+    for (k, label), t in ms.items():
+        phase(3, f"{k} {label}: {t:.4f} ms")
+    for label, (s, m, gg) in ins.items():
+        split = dict(clamped_split(s, m, gg, 10))
+        parts = ", ".join(f"{name[:40]} {t:.4f}" for name, t in sorted(
+            split["KGb"].items(), key=lambda kv: -kv[1]))
+        phase(3, f"KGb {label}, device ms a call by kernel (profiler): "
+                 f"{parts}")
 
 
 def reset_counts():
@@ -2432,13 +2513,14 @@ def main(argv=None) -> int:
                 lambda: serving_phase(
                     H, W, dev, UNBOUNDED_FRAMES, svgf=UNBOUNDED, n=11,
                     label="(c) unbounded motion (max_motion=None), ",
-                    expected=("K1", "KG", "K7", "K8")),
+                    expected=("K1", "KG", "KGp", "K7", "K8")),
                 lambda: temporal_grad_phase(
                     H, W, dev, params=SVGFParams(iterations=5, radius=1,
                                                  max_motion=None),
                     motion_scale=4.0, n=11,
                     label="(d) unbounded motion (max_motion=None), ",
-                    expected=lambda mg: ("K1", "K2", "KG", "KGb"))):
+                    expected=lambda mg: ("K1", "K2", "KG", "KGb",
+                                         "KGp"))):
         for k, n in run().items():
             launches[k] += n
 

@@ -52,8 +52,9 @@ SIGNATURES = {
     "rdt_temporal": (_P,) * 16,
     "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,) * 2,
     "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
-    "rdt_clamped_gather": (_P,) * 3 + (_I,) * 3 + (_P,),
-    "rdt_clamped_gather_bwd": (_P,) * 6 + (_I,) * 4 + (_P,),
+    "rdt_clamped_gather": (_P,) * 3 + (_I,) * 4 + (_P,),
+    "rdt_clamped_gather_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
+    "rdt_stack_channel_minor": (_P,) * 6 + (_I, _P),
     "rdt_march": (_P,) * 9 + (_I, _P),
     "rdt_cone_seed": (_P,) * 7 + (_I, _P),
     "rdt_cone_seed_camera": (_P,) * 8 + (_I, _P),

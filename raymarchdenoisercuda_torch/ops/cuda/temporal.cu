@@ -89,26 +89,47 @@
 // The clamped gather and its adjoint (no TPU kernel: with
 // SVGFParams.max_motion = None the JAX package runs its jnp step,
 // raymarchdenoisercuda_tpu/ops/temporal.py bilinear_gather_many, beside the
-// Pallas sweep).  clamped_gather_kernel is the unbounded reprojection of
-// the P history planes: one thread a pixel samples p + motion bilinearly
-// with its four taps clamped to the image (floor, clamp, and the sums as
-// fused multiply-adds, as the plain twin bilinear_gather_clamped in
-// ops/temporal.py rounds them).  clamped_gather_bwd_kernel is its adjoint:
-// each pixel scatters its bilinear-weighted cotangent into its four
-// clamped taps (coinciding clamped taps add up), and takes the motion
+// Pallas sweep).  clamped_gather_kernel (KG) is the unbounded reprojection
+// of the 10 history planes: one thread a pixel samples p + motion
+// bilinearly with its four taps clamped to the image (floor, clamp, and the
+// sums as fused multiply-adds, as the plain twin bilinear_gather_clamped in
+// ops/temporal.py rounds them).  clamped_gather_bwd_kernel (KGb) is its
+// adjoint: each pixel scatters its bilinear-weighted cotangent into its
+// four clamped taps (coinciding clamped taps add up), and takes the motion
 // cotangent from the derivative of the bilinear weights, sum over planes
-// of g.(d out/d fy, d out/d fx).  A texel at the border takes the taps of
-// every pixel whose motion clamps there, hundreds of addends, so a float
-// sum in the atomics' order changes from run to run; the scatter adds the
-// float products into a float64 scratch instead (atomicAdd on double is
-// native on sm_90), where the order moves the sum by ~1e-16 of it, and
-// round_planes_kernel rounds it once to float32 (and zeroes the planes
-// beyond the scattered ones): two runs agree to within that one
-// rounding.  Bound: memory, 88 B/px forward (10 planes and the motion in,
-// 10 out) and 88 B/px backward at 6 planes with both gradients (motion, 6
-// cotangent and 6 history planes in; 6 history gradients and the
-// motion's out), plus the scratch: 48 B/px zeroed, scattered and read
-// back.
+// of g.(d out/d fy, d out/d fx).  Bound: memory, 88 B/px forward (10
+// planes and the motion in, 10 out) and 88 B/px backward at 6 planes with
+// both gradients (motion, 6 cotangent and 6 history planes in; 6 history
+// gradients and the motion's out).
+//
+// The kernels read the stack channel-minor (a texel's 10 planes
+// contiguous: the temporal step builds it so on the card with
+// stack_channel_minor_kernel, KGp, as the JAX package stacks its planes
+// (H*W, 10) for its gather; the wrappers lay a planar stack out with KGp
+// first).  Planar, each tap would read one float from each of 10 planes,
+// 10 sectors through L2 for 4 useful bytes each; channel-minor, a tap's
+// 10 planes are 40 contiguous bytes and the right tap's follow them.  On
+// random motion the gather is held by the cache lines a load instruction
+// touches (one a lane), so KG loads a row's two taps as one 80-byte run
+// in 16-byte loads where the run's alignment allows.
+//
+// KGb's history gradient: a texel at the border takes the taps of every
+// pixel whose motion clamps there, hundreds of addends, so a float sum in
+// the atomics' order changes from run to run; the float products are
+// added into a float64 scratch instead (atomicAdd on double is native on
+// sm_90), where the order moves the sum by ~1e-16 of it, and
+// round_planes_kernel rounds it once to float32: two runs agree to within
+// that one rounding.  The scratch, zeroed by a memset in the C entry, is
+// channel-minor (48 B a texel).  A thread first adds, in fixed order, the
+// addends that meet on one texel: its own taps clamped together, its
+// right taps with the next lane's left taps, and its top taps with the
+// bottom taps of the pixel above, one warp up (on coherent motion every
+// pixel's right and bottom taps are its neighbours' left and top ones:
+// a texel then takes one atomic instead of four); then the warp issues
+// each tap's addends through shared memory so that consecutive lanes add
+// into consecutive doubles: a RED instruction covers ~5 texels' contiguous
+// 48 bytes instead of 32 scattered sectors.  The planes beyond the
+// scattered ones are zeroed by a memset, not written by the round.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -571,108 +592,380 @@ __device__ __forceinline__ ClampedTaps clamped_taps(const float* motion,
     return c;
 }
 
-__global__ void clamped_gather_kernel(const float* __restrict__ stack,
-                                      const float* __restrict__ motion,
-                                      float* __restrict__ out, int H, int W,
-                                      int P) {
+constexpr int KG_PLANES = 10;
+
+// The NP leading planes of texel q of the channel-minor stack, in float2
+// loads (a texel's 40 bytes are 8-byte aligned: the launch checks the
+// stack's start).
+template <int NP>
+__device__ __forceinline__ void load_texel(const float* __restrict__ s,
+                                           int q, float (&a)[NP]) {
+    static_assert(NP % 2 == 0 && NP <= KG_PLANES, "whole float2 of a texel");
+    const float2* v = reinterpret_cast<const float2*>(s + q * KG_PLANES);
+#pragma unroll
+    for (int j = 0; j < NP / 2; ++j) {
+        const float2 t = v[j];
+        a[2 * j] = t.x;
+        a[2 * j + 1] = t.y;
+    }
+}
+
+// KG on the channel-minor stack of the 10 history planes: one thread a
+// pixel, its 40 loads issued before its multiply-adds.  A tap's planes
+// are 40 bytes at 40 q, and the right tap's follow them: a row's two taps
+// are one run of 80 bytes, which starts 16-byte aligned at an even q
+// (five float4 loads) and 8 bytes past at an odd one (a float2, four
+// float4, a float2).  So a pixel issues 10-12 loads, not 20 float2, and a
+// warp's load instruction, whose lanes take one side of the parity each,
+// touches about half the cache lines: on random motion the lines a load
+// instruction touches (one a lane) are what holds the gather.  A tap
+// clamped onto its neighbour (the last column) loads its texel alone.
+__device__ __forceinline__ void load_run(const float* __restrict__ s, int q,
+                                         float (&a)[KG_PLANES],
+                                         float (&b)[KG_PLANES]) {
+    const float* r = s + q * KG_PLANES;
+    float v[2 * KG_PLANES];
+    if ((q & 1) == 0) {
+#pragma unroll
+        for (int j = 0; j < 5; ++j) {
+            const float4 t = reinterpret_cast<const float4*>(r)[j];
+            v[4 * j] = t.x;
+            v[4 * j + 1] = t.y;
+            v[4 * j + 2] = t.z;
+            v[4 * j + 3] = t.w;
+        }
+    } else {
+        const float2 h = reinterpret_cast<const float2*>(r)[0];
+        const float2 e = reinterpret_cast<const float2*>(r)[9];
+        v[0] = h.x;
+        v[1] = h.y;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float4 t = reinterpret_cast<const float4*>(r + 2)[j];
+            v[2 + 4 * j] = t.x;
+            v[3 + 4 * j] = t.y;
+            v[4 + 4 * j] = t.z;
+            v[5 + 4 * j] = t.w;
+        }
+        v[18] = e.x;
+        v[19] = e.y;
+    }
+#pragma unroll
+    for (int k = 0; k < KG_PLANES; ++k) {
+        a[k] = v[k];
+        b[k] = v[KG_PLANES + k];
+    }
+}
+
+__global__ void __launch_bounds__(256)
+clamped_gather_kernel(const float* __restrict__ stack,
+                      const float* __restrict__ motion,
+                      float* __restrict__ out, int H, int W) {
     int x = blockIdx.x * blockDim.x + threadIdx.x;
     int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= W || y >= H) return;
     const int hw = H * W, i = y * W + x;
     const ClampedTaps c = clamped_taps(motion, H, W, y, x);
     const float gx = 1.0f - c.fx, gy = 1.0f - c.fy;
-    for (int k = 0; k < P; ++k) {
-        const float* a = stack + k * hw;
-        const float top = __fmaf_rn(a[c.i00], gx, a[c.i01] * c.fx);
-        const float bot = __fmaf_rn(a[c.i10], gx, a[c.i11] * c.fx);
+    float a00[KG_PLANES], a01[KG_PLANES], a10[KG_PLANES], a11[KG_PLANES];
+    if (c.i01 == c.i00 + 1) {
+        load_run(stack, c.i00, a00, a01);
+        load_run(stack, c.i10, a10, a11);
+    } else {
+        load_texel(stack, c.i00, a00);
+        load_texel(stack, c.i01, a01);
+        load_texel(stack, c.i10, a10);
+        load_texel(stack, c.i11, a11);
+    }
+#pragma unroll
+    for (int k = 0; k < KG_PLANES; ++k) {
+        const float top = __fmaf_rn(a00[k], gx, a01[k] * c.fx);
+        const float bot = __fmaf_rn(a10[k], gx, a11[k] * c.fx);
         out[k * hw + i] = __fmaf_rn(top, gy, bot * c.fy);
     }
 }
 
-// scratch (zeroed, np float64 planes; may be null: no history gradient)
-// gets the leading np planes' scatter; d_motion (may be null) the motion
-// cotangent over them.
-__global__ void clamped_gather_bwd_kernel(const float* __restrict__ stack,
-                                          const float* __restrict__ motion,
-                                          const float* __restrict__ g,
-                                          double* __restrict__ scratch,
-                                          float* __restrict__ d_motion,
-                                          int H, int W, int np) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= W || y >= H) return;
-    const int hw = H * W, i = y * W + x;
-    const ClampedTaps c = clamped_taps(motion, H, W, y, x);
-    const float gx = 1.0f - c.fx, gy = 1.0f - c.fy;
-    float dfy = 0.0f, dfx = 0.0f;
-    for (int k = 0; k < np; ++k) {
-        const float gk = g[k * hw + i];
-        if (scratch) {
-            double* d = scratch + k * hw;
-            atomicAdd(&d[c.i00], (double)(gk * (gy * gx)));
-            atomicAdd(&d[c.i01], (double)(gk * (gy * c.fx)));
-            atomicAdd(&d[c.i10], (double)(gk * (c.fy * gx)));
-            atomicAdd(&d[c.i11], (double)(gk * (c.fy * c.fx)));
-        }
-        if (d_motion) {
-            const float* a = stack + k * hw;
-            const float a00 = a[c.i00], a01 = a[c.i01], a10 = a[c.i10],
-                        a11 = a[c.i11];
-            const float top = __fmaf_rn(a00, gx, a01 * c.fx);
-            const float bot = __fmaf_rn(a10, gx, a11 * c.fx);
-            dfy = dfy + gk * (bot - top);
-            dfx = dfx + gk * (gy * (a01 - a00) + c.fy * (a11 - a10));
+// KGb's block: 32 x 8 threads, a warp a row of 32 pixels.  The history
+// gradient has kGradPlanes planes (the temporal epilogue's).
+constexpr int KGB_TX = 32, KGB_TY = 8;
+constexpr int kGradPlanes = 6;
+
+// KGb's scatter of a pixel's four clamped taps (c, weights from gx, gy)
+// times its cotangent gk into the channel-minor float64 scratch (see the
+// header); every thread of the block calls it, or none (dead pixels with
+// c's taps at -1).
+__device__ __forceinline__ void scatter_clamped_taps(
+        const ClampedTaps& c, const float (&gk)[kGradPlanes], float gx,
+        float gy, double* __restrict__ scratch) {
+    constexpr int NP = kGradPlanes;
+    constexpr unsigned kFull = 0xffffffffu;
+    const int lane = threadIdx.x, wy = threadIdx.y;
+    // a warp's addends of one tap, pixel-major (lane p's plane k at
+    // p * NP + k), and their texels (-1: none); each warp's taps and its
+    // bottom taps' addends for the warp below
+    __shared__ double s_val[KGB_TY][KGB_TX * NP];
+    __shared__ int s_q[KGB_TY][KGB_TX];
+    __shared__ int s_taps[KGB_TY][4][KGB_TX];
+    __shared__ double s_bottom[KGB_TY][2][NP][KGB_TX];
+
+    // the float products, each added in float64 (taps 00, 01, 10, 11)
+    int q[4] = {c.i00, c.i01, c.i10, c.i11};
+    const float w[4] = {gy * gx, gy * c.fx, c.fy * gx, c.fy * c.fx};
+    double v[4][NP];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+#pragma unroll
+        for (int k = 0; k < NP; ++k) v[t][k] = (double)(gk[k] * w[t]);
+    }
+    // taps clamped onto one texel (at the last column 00 = 01 and 10 = 11,
+    // at the last row 00 = 10 and 01 = 11) add up in the thread, into the
+    // first of them
+#pragma unroll
+    for (int t = 1; t < 4; ++t) {
+#pragma unroll
+        for (int s = 0; s < t; ++s) {
+            if (q[t] >= 0 && q[s] == q[t]) {
+#pragma unroll
+                for (int k = 0; k < NP; ++k) v[s][k] += v[t][k];
+                q[t] = -1;
+            }
         }
     }
-    if (d_motion) {
-        d_motion[i] = dfy;
-        d_motion[hw + i] = dfx;
+    // a lane's right taps (01, 11) are often the next lane's left taps
+    // (00, 10): where they are, the lane adds the next lane's addends after
+    // its own, and the next lane drops them
+#pragma unroll
+    for (int r = 0; r < 4; r += 2) {
+        const int q_next = __shfl_down_sync(kFull, q[r], 1);
+        const int q_prev = __shfl_up_sync(kFull, q[r + 1], 1);
+        const bool take = lane < 31 && q[r + 1] >= 0 && q_next == q[r + 1];
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+            const double nb = __shfl_down_sync(kFull, v[r][k], 1);
+            if (take) v[r + 1][k] += nb;
+        }
+        if (lane > 0 && q[r] >= 0 && q_prev == q[r]) q[r] = -1;
+    }
+    // a pixel's bottom taps (10, 11) are often the top taps (00, 01) of
+    // the pixel below it, the same lane of the next warp: where they are,
+    // the lower pixel adds the upper one's addends after its own, and the
+    // upper one drops them
+#pragma unroll
+    for (int t = 0; t < 4; ++t) s_taps[wy][t][lane] = q[t];
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+#pragma unroll
+        for (int k = 0; k < NP; ++k) s_bottom[wy][b][k][lane] = v[2 + b][k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int b = 0; b < 2; ++b) {
+        if (wy > 0 && q[b] >= 0 && q[b] == s_taps[wy - 1][2 + b][lane]) {
+#pragma unroll
+            for (int k = 0; k < NP; ++k)
+                v[b][k] += s_bottom[wy - 1][b][k][lane];
+        }
+        if (wy < KGB_TY - 1 && q[2 + b] >= 0
+            && q[2 + b] == s_taps[wy + 1][b][lane]) {
+            q[2 + b] = -1;
+        }
+    }
+    // one tap at a time, the warp issues the tap's 32 x NP addends so that
+    // consecutive lanes add into consecutive doubles of the scratch (NP
+    // instructions, each over about 32 / NP texels, where one plane a lane
+    // would touch 32)
+    double* sv = s_val[wy];
+    int* sq = s_q[wy];
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+        __syncwarp();
+#pragma unroll
+        for (int k = 0; k < NP; ++k) sv[lane * NP + k] = v[t][k];
+        sq[lane] = q[t];
+        __syncwarp();
+#pragma unroll
+        for (int e0 = 0; e0 < KGB_TX * NP; e0 += KGB_TX) {
+            const int e = e0 + lane, p = e / NP;
+            const int qt = sq[p];
+            if (qt >= 0) atomicAdd(scratch + qt * NP + (e - p * NP), sv[e]);
+        }
     }
 }
 
-// d_stack's P planes of n elements: the first np rounded once from the
-// float64 scratch, the rest zero.
+// KGb (see the header).  scratch (channel-minor, kGradPlanes doubles a
+// texel, zeroed; null: no history gradient) gets the scatter; d_motion
+// (null: no motion gradient) the motion cotangent over those planes, read
+// from the channel-minor stack in float2 loads.  A launch without the
+// scatter keeps its shared memory: an instantiation without it (39
+// registers against 64) ran 1.2x slower on random motion (H100).
+__global__ void __launch_bounds__(KGB_TX * KGB_TY)
+clamped_gather_bwd_kernel(const float* __restrict__ stack,
+                          const float* __restrict__ motion,
+                          const float* __restrict__ g,
+                          double* __restrict__ scratch,
+                          float* __restrict__ d_motion, int H, int W) {
+    constexpr int NP = kGradPlanes;
+    const int x = blockIdx.x * KGB_TX + threadIdx.x;
+    const int y = blockIdx.y * KGB_TY + threadIdx.y;
+    const bool live = x < W && y < H;
+    const int hw = H * W, i = y * W + x;
+    ClampedTaps c = {-1, -1, -1, -1, 0.0f, 0.0f};
+    float gk[NP];
+#pragma unroll
+    for (int k = 0; k < NP; ++k) gk[k] = 0.0f;
+    if (live) {
+        c = clamped_taps(motion, H, W, y, x);
+#pragma unroll
+        for (int k = 0; k < NP; ++k) gk[k] = g[k * hw + i];
+    }
+    const float gx = 1.0f - c.fx, gy = 1.0f - c.fy;
+    if (d_motion && live) {
+        float a00[NP], a01[NP], a10[NP], a11[NP];
+        load_texel(stack, c.i00, a00);
+        load_texel(stack, c.i01, a01);
+        load_texel(stack, c.i10, a10);
+        load_texel(stack, c.i11, a11);
+        float dfy = 0.0f, dfx = 0.0f;
+#pragma unroll
+        for (int k = 0; k < NP; ++k) {
+            const float top = __fmaf_rn(a00[k], gx, a01[k] * c.fx);
+            const float bot = __fmaf_rn(a10[k], gx, a11[k] * c.fx);
+            dfy = dfy + gk[k] * (bot - top);
+            dfx = dfx + gk[k] * (gy * (a01[k] - a00[k])
+                                 + c.fy * (a11[k] - a10[k]));
+        }
+        d_motion[i] = dfy;
+        d_motion[hw + i] = dfx;
+    }
+    if (scratch) scatter_clamped_taps(c, gk, gx, gy, scratch);
+}
+
+// KGp: the channel-minor stack of the 10 history planes (colour 3,
+// moments 2, length, previous depth, previous normal 3) that KG and KGb
+// read.  A block of KGP_TEXELS threads reads its texels' planes coalesced,
+// one texel a thread, transposes them in shared memory and writes the
+// block's contiguous 40 * KGP_TEXELS bytes as float4 (a thread writing
+// its own texel's 40 bytes as float2 wrote each sector in five pieces and
+// ran at 2.4x the bound on an H100).  Bound: memory, 80 B/px.
+constexpr int KGP_TEXELS = 256;
+
+__global__ void __launch_bounds__(KGP_TEXELS)
+stack_channel_minor_kernel(const float* __restrict__ color,
+                           const float* __restrict__ moments,
+                           const float* __restrict__ length,
+                           const float* __restrict__ depth,
+                           const float* __restrict__ normal,
+                           float* __restrict__ out, int n) {
+    __shared__ float4 tile4[KGP_TEXELS * KG_PLANES / 4];
+    float* tile = reinterpret_cast<float*>(tile4);
+    const int e0 = blockIdx.x * KGP_TEXELS, e = e0 + threadIdx.x;
+    if (e < n) {
+        const float v[KG_PLANES] = {color[e], color[n + e],
+                                    color[2 * n + e], moments[e],
+                                    moments[n + e], length[e], depth[e],
+                                    normal[e], normal[n + e],
+                                    normal[2 * n + e]};
+#pragma unroll
+        for (int k = 0; k < KG_PLANES; ++k)
+            tile[threadIdx.x * KG_PLANES + k] = v[k];
+    }
+    __syncthreads();
+    // the block's floats: whole float4 (its start is 16-byte aligned: 40
+    // bytes a texel, KGP_TEXELS texels a block), then any tail
+    const int m = min(KGP_TEXELS, n - e0) * KG_PLANES;
+    float4* o4 = reinterpret_cast<float4*>(out + e0 * KG_PLANES);
+    for (int j = threadIdx.x; j < m / 4; j += KGP_TEXELS) o4[j] = tile4[j];
+    for (int j = m / 4 * 4 + threadIdx.x; j < m; j += KGP_TEXELS)
+        out[e0 * KG_PLANES + j] = tile[j];
+}
+
+// d_stack's first kGradPlanes planes of n elements, rounded once from the
+// channel-minor float64 scratch.
 __global__ void round_planes_kernel(const double* __restrict__ scratch,
-                                    float* __restrict__ d_stack, int n,
-                                    int np, int P) {
+                                    float* __restrict__ d_stack, int n) {
     const int e = blockIdx.x * blockDim.x + threadIdx.x;
     if (e >= n) return;
-    for (int k = 0; k < P; ++k)
-        d_stack[k * n + e] = k < np ? (float)scratch[k * n + e] : 0.0f;
+    const double2* s = reinterpret_cast<const double2*>(
+        scratch + e * kGradPlanes);
+#pragma unroll
+    for (int j = 0; j < kGradPlanes / 2; ++j) {
+        const double2 v = s[j];
+        d_stack[2 * j * n + e] = (float)v.x;
+        d_stack[(2 * j + 1) * n + e] = (float)v.y;
+    }
+}
+
+bool aligned(const void* p, unsigned long long bytes) {
+    return ((unsigned long long)p & (bytes - 1)) == 0;
+}
+
+// Whether the kernels take a stack of P planes with texel stride ts: the
+// 10 history planes channel-minor, 16-byte aligned (KG's float4 loads).
+bool channel_minor_stack(const float* stack, int P, int ts) {
+    return P == KG_PLANES && ts == KG_PLANES && aligned(stack, 16);
 }
 
 }  // namespace
 
-// The clamped gather of P planes, and its adjoint (see the header).
+// The clamped gather of the P = 10 history planes, channel-minor (texel
+// stride ts = 10; any other stack is refused), and its adjoint (see the
+// header).
 extern "C" int rdt_clamped_gather(const float* stack, const float* motion,
-                                  float* out, int H, int W, int P,
+                                  float* out, int H, int W, int P, int ts,
                                   void* stream) {
+    if (!channel_minor_stack(stack, P, ts)) {
+        return (int)cudaErrorInvalidValue;
+    }
     dim3 block(32, 8);
     dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
     clamped_gather_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
-        stack, motion, out, H, W, P);
+        stack, motion, out, H, W);
     return (int)cudaGetLastError();
 }
 
-// d_stack (P planes; may be null) needs scratch, grad_planes zeroed
-// float64 planes.
+// d_stack (P planes, planar; may be null) needs scratch, room for
+// grad_planes (kGradPlanes) float64 planes, which the call zeroes.
 extern "C" int rdt_clamped_gather_bwd(const float* stack, const float* motion,
                                       const float* g, float* d_stack,
                                       double* scratch, float* d_motion,
                                       int H, int W, int grad_planes, int P,
-                                      void* stream) {
-    dim3 block(32, 8);
-    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+                                      int ts, void* stream) {
+    if (!channel_minor_stack(stack, P, ts) || grad_planes != kGradPlanes
+        || (d_stack && !scratch)) {
+        return (int)cudaErrorInvalidValue;
+    }
     const cudaStream_t s = (cudaStream_t)stream;
-    if (d_stack && !scratch) return (int)cudaErrorInvalidValue;
-    clamped_gather_bwd_kernel<<<grid, block, 0, s>>>(
-        stack, motion, g, d_stack ? scratch : nullptr, d_motion, H, W,
-        grad_planes);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess || !d_stack) return (int)err;
     const int n = H * W;
-    round_planes_kernel<<<(n + 255) / 256, 256, 0, s>>>(scratch, d_stack, n,
-                                                       grad_planes, P);
+    if (d_stack) {
+        cudaError_t err = cudaMemsetAsync(
+            scratch, 0, sizeof(double) * kGradPlanes * (size_t)n, s);
+        if (err == cudaSuccess) {
+            err = cudaMemsetAsync(d_stack + (size_t)kGradPlanes * n, 0,
+                                  sizeof(float) * (KG_PLANES - kGradPlanes)
+                                  * (size_t)n, s);
+        }
+        if (err != cudaSuccess) return (int)err;
+    }
+    dim3 block(KGB_TX, KGB_TY);
+    dim3 grid((W + KGB_TX - 1) / KGB_TX, (H + KGB_TY - 1) / KGB_TY);
+    clamped_gather_bwd_kernel<<<grid, block, 0, s>>>(
+        stack, motion, g, d_stack ? scratch : nullptr, d_motion, H, W);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess || !d_stack) return (int)err;
+    round_planes_kernel<<<(n + 255) / 256, 256, 0, s>>>(scratch, d_stack, n);
+    return (int)cudaGetLastError();
+}
+
+// KGp: out (16-byte aligned) gets the n texels' 10 planes, channel-minor.
+extern "C" int rdt_stack_channel_minor(const float* color,
+                                       const float* moments,
+                                       const float* length, const float* depth,
+                                       const float* normal, float* out, int n,
+                                       void* stream) {
+    if (!aligned(out, 16)) return (int)cudaErrorInvalidValue;
+    stack_channel_minor_kernel<<<(n + KGP_TEXELS - 1) / KGP_TEXELS,
+                                 KGP_TEXELS, 0, (cudaStream_t)stream>>>(
+        color, moments, length, depth, normal, out, n);
     return (int)cudaGetLastError();
 }
 

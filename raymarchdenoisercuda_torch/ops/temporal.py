@@ -506,6 +506,18 @@ def history_stack(history: History) -> torch.Tensor:
                       history.prev_depth[None], history.prev_normal])
 
 
+def history_stack_channel_minor(history: History) -> torch.Tensor:
+    """:func:`history_stack`'s (10, H, W) stack laid out channel-minor,
+    strides (1, 10·W, 10): a texel's 10 planes contiguous, as the clamped
+    gather reads them on the card (the JAX package's ``bilinear_gather_many``
+    stacks its planes (H·W, 10) for the same reason).  One copy, as
+    :func:`history_stack`'s ``cat`` is; differentiable."""
+    planes = (*history.color.unbind(0), *history.moments.unbind(0),
+              history.length, history.prev_depth,
+              *history.prev_normal.unbind(0))
+    return torch.stack(planes, dim=-1).permute(2, 0, 1)
+
+
 def history_from_stack(stack: torch.Tensor) -> History:
     """The History whose planes are views of a (10, H, W) stack."""
     return History(color=stack[0:3], moments=stack[3:5], length=stack[5],
@@ -513,14 +525,15 @@ def history_from_stack(stack: torch.Tensor) -> History:
 
 
 def temporal_step_clamped(gbuf: GBuffer, history: History,
-                          params: SVGFParams, gather):
+                          params: SVGFParams, gather, stack=history_stack):
     """The temporal step with unbounded motion (``max_motion=None``, the JAX
     package's jnp ``temporal_accumulate``): the clamped bilinear gather of
-    the history stack by ``gather(stack, motion)``
+    the history stack, ``stack(history)`` (:func:`history_stack`, or on the
+    card :func:`history_stack_channel_minor`), by ``gather(stack, motion)``
     (:func:`bilinear_gather_clamped` or its CUDA counterpart), then the
     shared epilogue; differentiable when ``gather`` is."""
     motion = _motion(gbuf)
-    g = gather(history_stack(history), motion)
+    g = gather(stack(history), motion)
     planes = (g[0:3], g[3:5], g[5], g[6], g[7:10])
     return _temporal_epilogue(gbuf, planes, _in_bounds(motion, None), params)
 

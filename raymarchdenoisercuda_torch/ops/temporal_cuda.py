@@ -28,8 +28,13 @@ there.  :func:`temporal_accumulate_cuda` and
 :func:`temporal_accumulate_ad_cuda` then run the clamped bilinear gather
 (:func:`clamped_gather_cuda`, with the hand-written adjoint
 :func:`clamped_gather_bwd_cuda`, both in one autograd Function,
-:func:`reproject_clamped_cuda`) and the shared epilogue.  K3 itself, its
-tile form and K3b keep refusing unbounded motion, as the TPU kernel does.
+:func:`reproject_clamped_cuda`) and the shared epilogue.  On the card they
+stack the history channel-minor, which the gather reads a texel at a time:
+:func:`history_stack_channel_minor_cuda` (KGp, one pass, as the planar
+``cat`` is; its plain twin is ``history_stack_channel_minor``); the
+clamped wrappers lay a planar stack out with KGp first.  K3 itself, its
+tile form and K3b keep refusing unbounded motion, as the TPU kernel
+does.
 
 Every wrapper launches its kernel for CUDA tensors and runs its plain twin
 from ``ops.temporal`` for CPU tensors.
@@ -48,7 +53,8 @@ from .common import Tile, canvas_margin
 from .cuda import _build
 from .temporal import (GRAD_PLANES, N_HIST_PLANES, _ReprojectGather,
                        _canvas_of, bilinear_gather_clamped, gather_bwd_ref,
-                       gather_ref, history_from_stack, temporal_accumulate,
+                       gather_ref, history_from_stack, history_stack,
+                       history_stack_channel_minor, temporal_accumulate,
                        temporal_step_ad, temporal_step_clamped)
 
 
@@ -176,8 +182,7 @@ def temporal_accumulate_cuda(
     if not gbuf.render.is_cuda:
         return temporal_accumulate(gbuf, history, params=params, tile=tile)
     if params.max_motion is None and tile is None:
-        return temporal_step_clamped(gbuf, history, params,
-                                     reproject_clamped_cuda)
+        return _clamped_step(gbuf, history, params)
     out = _launch_temporal(gbuf, (history.color, history.moments,
                                   history.length, history.prev_depth,
                                   history.prev_normal),
@@ -430,16 +435,38 @@ def reproject_gather_canvas_cuda(canvas: torch.Tensor, motion: torch.Tensor,
                                   _reproject_canvas_bwd_cuda, tile)
 
 
+def _as_channel_minor(stack):
+    """A planar (contiguous) CUDA stack of the 10 history planes laid out
+    channel-minor by KGp, strides (1, 10·W, 10), as the clamped kernels
+    read it; any other stack as it is."""
+    if stack.shape[0] == N_HIST_PLANES and stack.is_contiguous():
+        return history_stack_channel_minor_cuda(history_from_stack(stack))
+    return stack
+
+
+def _clamped_stack(stack, H, W, dev):
+    """``(stack, data pointer, texel stride)`` of a (10, H, W) stack for the
+    clamped kernels (:func:`_as_channel_minor`); a layout other than
+    channel-minor raises here, a plane count other than 10 in the C entry.
+    Keep the returned stack alive until the launch."""
+    stack = _as_channel_minor(stack)
+    P = stack.shape[0]
+    ptr = _build.check_input(stack.permute(1, 2, 0),
+                             "stack (channel-minor, as (H, W, P))",
+                             (H, W, P), torch.float32, dev)
+    return stack, ptr, P
+
+
 def _launch_clamped(stack, motion):
     P = stack.shape[0]
     H, W = motion.shape[-2:]
     dev = stack.device
     f32 = torch.float32
-    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
-        (stack, "stack", (P, H, W)), (motion, "motion", (2, H, W)))]
+    stack, ptr, ts = _clamped_stack(stack, H, W, dev)
+    mptr = _build.check_input(motion, "motion", (2, H, W), f32, dev)
     out = torch.empty((P, H, W), dtype=f32, device=dev)
-    rc = _build.kernels().rdt_clamped_gather(*ptrs, out.data_ptr(), H, W, P,
-                                             _stream(stack))
+    rc = _build.kernels().rdt_clamped_gather(ptr, mptr, out.data_ptr(), H, W,
+                                             P, ts, _stream(stack))
     _build.check(rc, "rdt_clamped_gather")
     return out
 
@@ -447,9 +474,12 @@ def _launch_clamped(stack, motion):
 def clamped_gather_cuda(stack: torch.Tensor,
                         motion: torch.Tensor) -> torch.Tensor:
     """The clamped bilinear gather of a (P, H, W) stack at ``p + motion``
-    (unbounded motion; ``ops.temporal.bilinear_gather_clamped``).  No
-    backward of its own (:func:`reproject_clamped_cuda` owns the gradient): it
-    raises if an input requires grad.
+    (unbounded motion; ``ops.temporal.bilinear_gather_clamped``); the output
+    is planar, contiguous.  On the card the stack is the 10 history planes,
+    channel-minor, or planar and then laid out by KGp first
+    (:func:`history_stack_channel_minor_cuda`, one more launch); another
+    stack raises.  No backward of its own (:func:`reproject_clamped_cuda`
+    owns the gradient): it raises if an input requires grad.
 
     Each launch adds one to ``clamped_gather_cuda.launches``."""
     _build.check_no_grad("clamped_gather_cuda", stack, motion)
@@ -467,7 +497,9 @@ def clamped_gather_bwd_cuda(stack, motion, g, *,
                             history_grad: bool = True,
                             motion_grad: bool = True):
     """The adjoint of :func:`clamped_gather_cuda` for the cotangent ``g``
-    of its output: ``(d_stack, d_motion)``, each None when not asked for.
+    of its output: ``(d_stack, d_motion)``, each None when not asked for;
+    ``stack`` as :func:`clamped_gather_cuda` takes it (a planar one is laid
+    out by KGp first), ``d_stack`` planar, contiguous.
     Only the leading ``GRAD_PLANES`` planes of ``g`` count (the temporal
     epilogue's previous depth and normal, planes 6-9, feed validity tests
     only, so their cotangent is zero): ``d_stack`` is zero beyond them and
@@ -497,19 +529,20 @@ def clamped_gather_bwd_cuda(stack, motion, g, *,
     H, W = motion.shape[-2:]
     dev = g.device
     f32 = torch.float32
+    stack, sptr, ts = _clamped_stack(stack, H, W, dev)
     ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
-        (stack, "stack", (P, H, W)), (motion, "motion", (2, H, W)),
-        (g, "g", (P, H, W)))]
+        (motion, "motion", (2, H, W)), (g, "g", (P, H, W)))]
     dh = (torch.empty((P, H, W), dtype=f32, device=dev) if history_grad
           else None)
-    scratch = (torch.zeros((GRAD_PLANES, H, W), dtype=torch.float64,
+    # zeroed by the C entry
+    scratch = (torch.empty((H, W, GRAD_PLANES), dtype=torch.float64,
                            device=dev) if history_grad else None)
     dm = (torch.empty((2, H, W), dtype=f32, device=dev) if motion_grad
           else None)
     rc = _build.kernels().rdt_clamped_gather_bwd(
-        *ptrs, None if dh is None else dh.data_ptr(),
+        sptr, *ptrs, None if dh is None else dh.data_ptr(),
         None if scratch is None else scratch.data_ptr(),
-        None if dm is None else dm.data_ptr(), H, W, GRAD_PLANES, P,
+        None if dm is None else dm.data_ptr(), H, W, GRAD_PLANES, P, ts,
         _stream(g))
     _build.check(rc, "rdt_clamped_gather_bwd")
     clamped_gather_bwd_cuda.launches += 1
@@ -543,13 +576,67 @@ class _ClampedGather(torch.autograd.Function):
 def reproject_clamped_cuda(stack: torch.Tensor,
                            motion: torch.Tensor) -> torch.Tensor:
     """Differentiable unbounded reprojection of the (10, H, W) history
-    stack: the clamped-gather kernel and its adjoint on CUDA tensors (the
-    cotangent of planes ``GRAD_PLANES`` on is taken as zero, see
-    :func:`clamped_gather_bwd_cuda`), the plain ``bilinear_gather_clamped``
-    under autograd on CPU tensors."""
+    stack, channel-minor or planar: the clamped-gather kernel and its
+    adjoint on CUDA tensors (the cotangent of planes ``GRAD_PLANES`` on is
+    taken as zero, see :func:`clamped_gather_bwd_cuda`; a planar stack is
+    laid out by KGp once, under autograd), the plain
+    ``bilinear_gather_clamped`` under autograd on CPU tensors."""
     if not stack.is_cuda:
         return bilinear_gather_clamped(stack, motion)
-    return _ClampedGather.apply(stack, motion)
+    return _ClampedGather.apply(_as_channel_minor(stack), motion)
+
+
+class _StackChannelMinor(torch.autograd.Function):
+    """KGp with its adjoint: the stack's gradient, cut back into the
+    history planes (views; KGb's gradient is planar)."""
+
+    @staticmethod
+    def forward(ctx, color, moments, length, prev_depth, prev_normal):
+        H, W = length.shape
+        dev = length.device
+        f32 = torch.float32
+        ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+            (color, "history.color", (3, H, W)),
+            (moments, "history.moments", (2, H, W)),
+            (length, "history.length", (H, W)),
+            (prev_depth, "history.prev_depth", (H, W)),
+            (prev_normal, "history.prev_normal", (3, H, W)))]
+        out = torch.empty((H, W, N_HIST_PLANES), dtype=f32, device=dev)
+        rc = _build.kernels().rdt_stack_channel_minor(
+            *ptrs, out.data_ptr(), H * W, _stream(length))
+        _build.check(rc, "rdt_stack_channel_minor")
+        history_stack_channel_minor_cuda.launches += 1
+        return out.permute(2, 0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[0:3], g[3:5], g[5], g[6], g[7:10]
+
+
+def history_stack_channel_minor_cuda(history: History) -> torch.Tensor:
+    """KGp: the (10, H, W) history stack laid out channel-minor, strides
+    (1, 10·W, 10), as ``history_stack_channel_minor`` builds it (its plain
+    twin, which CPU tensors run).  Differentiable.
+
+    Each launch adds one to ``history_stack_channel_minor_cuda.launches``."""
+    if not history.length.is_cuda:
+        return history_stack_channel_minor(history)
+    return _StackChannelMinor.apply(history.color, history.moments,
+                                    history.length, history.prev_depth,
+                                    history.prev_normal)
+
+
+history_stack_channel_minor_cuda.launches = 0
+
+
+def _clamped_step(gbuf, history, params):
+    """The unbounded-motion step through :func:`reproject_clamped_cuda`, on
+    the history stacked channel-minor by KGp on the card (planar, as the
+    plain step stacks it, on the CPU)."""
+    return temporal_step_clamped(
+        gbuf, history, params, reproject_clamped_cuda,
+        history_stack_channel_minor_cuda if gbuf.render.is_cuda
+        else history_stack)
 
 
 def temporal_accumulate_ad_cuda(
@@ -566,8 +653,7 @@ def temporal_accumulate_ad_cuda(
     adjoint (:func:`reproject_clamped_cuda`), whose motion gradient flows
     wherever motion requires grad, as in ``temporal_accumulate_ad``."""
     if params.max_motion is None:
-        return temporal_step_clamped(gbuf, history, params,
-                                     reproject_clamped_cuda)
+        return _clamped_step(gbuf, history, params)
     return temporal_step_ad(gbuf, history, params, reproject_gather_cuda,
                             motion_grad=motion_grad, grad_planes=GRAD_PLANES)
 

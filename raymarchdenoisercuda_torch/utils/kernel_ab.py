@@ -1,7 +1,8 @@
 """The redesigned kernels of this tree against another tree's, on one GPU.
 
     python3 -m raymarchdenoisercuda_torch.utils.kernel_ab --parent DIR \\
-        [--out build/kernel_ab.json] [--only REGEX]
+        [--out build/kernel_ab.json] [--only REGEX] [--rounds N]
+        [--device-time]
 
 ``DIR`` holds another checkout of the repository (an earlier commit,
 unpacked with ``git archive``).  Its package is imported beside this one
@@ -36,17 +37,30 @@ t_c, delta and base) and the march launch alone on the camera's cones;
 K12 at radius 0, 1, 2, 3, 4, 5 and 16 with
 sigma_n 128 (repeated squaring) and 100 (powf), on a frame of sides
 1079 x 1917 (no multiple of the tile) at radius 2 and 4, and at depth 2
-through ``apply_filter(CROSS)``; and KGb, the clamped gather's adjoint,
-whose float64 sum is compared to within rounding, not bit for bit.  For
-each case it prints whether every output is bit-equal to the other
-tree's (``torch.equal``) and the largest difference, and times both trees
-in turn with CUDA events (this, other, this, other; 20 launches each).
+through ``apply_filter(CROSS)``; KG, the clamped gather of unbounded
+motion, on ``chip_smoke.py`` phase 3's input (uniform random motion to
+±28 pixels), on motion 0, ±3 and ±80 pixels (taps clamped at the
+border), on the served frame's input with ``max_motion=None`` and on a
+frame one row and three columns short, each with a planar and a
+channel-minor stack (a tree whose clamped gather takes planar stacks
+only is given the planar one), and after the served step's stack (each
+tree's: KGp, or the planar ``cat``); and KGb, its adjoint, on the same
+inputs and layouts with both gradients, the history's only and the
+motion's only: its motion gradient bit for bit, its history gradient (a
+float64 sum in the atomics' order) to within rounding.  For each case it
+prints whether every output is bit-equal to the other tree's
+(``torch.equal``) and the largest difference, and times both trees in
+turn, ``--rounds`` times each (default 2: this, other, this, other; with
+more, the medians and spreads too), 20 launches a time, by CUDA events
+around the launches or, with ``--device-time``, by the device time of
+their kernels and memsets under the profiler (without the host's work,
+which the events' wall holds for a short kernel).
 It prints ptxas's registers, stack and spills of the à-trous, march,
-shading, shadow, temporal, cone and cross-bilateral kernels of each tree
-it builds (a library
+shading, shadow, temporal, cone, cross-bilateral and clamped-gather
+kernels of each tree it builds (a library
 built before is loaded as it is), and the card's name and power limit.
-It exits non-zero if an output of a bit-equal case differs, or if KGb's
-differs by more than rtol 1e-5.
+It exits non-zero if an output held bit for bit differs, or if KGb's
+history gradient differs by more than rtol 1e-5.
 """
 
 from __future__ import annotations
@@ -65,7 +79,9 @@ import numpy as np
 import torch
 
 from ..ops.cuda._build import parse_resources
-from .timing import cuda_time_ms, nvidia_smi_name_power
+from .seeded_inputs import (clamped_inputs, served_clamped_inputs,
+                            served_inputs)
+from .timing import cuda_time_ms, device_ms, nvidia_smi_name_power
 
 PACKAGE = "raymarchdenoisercuda_torch"
 REPEATS = 20
@@ -96,6 +112,10 @@ class Tree:
             name + ".ops.raymarch_cuda")
         self.temporal_cuda = importlib.import_module(
             name + ".ops.temporal_cuda")
+        self.temporal = importlib.import_module(name + ".ops.temporal")
+        # whether its clamped gather takes a channel-minor stack
+        self.channel_minor = hasattr(self.temporal,
+                                     "history_stack_channel_minor")
         self.filters_cuda = importlib.import_module(name + ".ops.filters_cuda")
         self.filters = importlib.import_module(name + ".ops.filters")
         self.config = importlib.import_module(name + ".config")
@@ -197,48 +217,27 @@ def temporal_planes(H, W, dev, seed):
                 h_length=t(np.floor(rng.random((H, W)) * 6)))
 
 
-SERVED_FRAME = 8                     # K3's served frame: its orbit index
-ORBIT_FRAMES = 16                    # frames a turn of phase 4's orbit
-
-
-def served_inputs(dev):
-    """``(gbuf, history)``: the served frame's K3 inputs, the Cornell box at
-    ``FRAME`` through this tree's ``FramePipeline`` (``chip_smoke.py``
-    phase 4's settings) for the orbit frames before ``SERVED_FRAME``."""
-    from ..config import CameraParams, RaymarchParams, SVGFParams
-    from ..gbuffer import History
-    from ..io.generate import orbit_camera
-    from ..models.pipeline import FramePipeline
-    from ..ops import raymarch
-    H, W = FRAME
-    pipe = FramePipeline(raymarch.cornell_scene(device=dev),
-                         cam_cfg=CameraParams(width=W, height=H),
-                         rm_params=RaymarchParams(),
-                         svgf_params=SVGFParams(radius=1),
-                         weight_math="fast")
-    gen = torch.Generator(dev).manual_seed(0)
-    hist, prev = History.zeros(H, W, device=dev), None
-    for f in range(SERVED_FRAME + 1):
-        cam = orbit_camera(f / ORBIT_FRAMES, device=dev)
-        if f == SERVED_FRAME:
-            return pipe.renderer(cam, prev, gen), hist
-        _, hist = pipe(cam, prev, hist, gen)
-        prev = cam
-
-
 def temporal_inputs(dev):
     """K3's and K3b's inputs: :func:`temporal_planes` at ``FRAME`` and at
-    twice its sides, and the served frame's."""
+    twice its sides, and the served frame's; KG's and KGb's under
+    ``"clamped"``: phase 3's (uniform random motion to ±28 pixels), motion
+    0, ±3 and ±80 pixels, the served frame's (``max_motion=None``) and
+    phase 3's on a frame one row and three columns short."""
     H, W = FRAME
+    clamped = {f"motion {m:g}": clamped_inputs(H, W, dev, 2.0 * m)
+               for m in (28, 0, 3, 80)}
+    clamped["served"] = served_clamped_inputs(H, W, dev)
+    clamped["odd frame"] = clamped_inputs(H - 1, W - 3, dev)
     return dict(frame=temporal_planes(H, W, dev, 21),
                 uhd=temporal_planes(2 * H, 2 * W, dev, 22),
-                served=served_inputs(dev))
+                served=served_inputs(H, W, dev), clamped=clamped)
 
 
 def cases(P, U, cots, S, M, T):
     """``(name, fn, exact)``: ``fn(tree)`` is a zero-argument launch
     returning a tuple of tensors; ``exact``: the two trees' outputs must be
-    bit-equal (else within rounding)."""
+    bit-equal (else within rounding), or a tuple of that for each
+    output."""
     for case in _cases(P, U, cots, S, M, T):
         yield case if len(case) == 3 else case + (True,)
 
@@ -524,21 +523,52 @@ def _cases(P, U, cots, S, M, T):
     for k in range(4):
         yield f"K3b quarter tile {k}", lambda t, k=k: k3b(t, k)
 
-    def kgb(tree):
-        # chip_smoke.py phase 3's inputs: motion to ±28 pixels
-        rng = np.random.default_rng(13)
-        dev = c.device
-        stack = torch.from_numpy(rng.random((10, *FRAME),
-                                            dtype=np.float32)).to(dev)
-        motion = torch.from_numpy(((rng.random((2, *FRAME)) - 0.5)
-                                   * 56.0).astype(np.float32)).to(dev)
-        g = torch.from_numpy(rng.standard_normal((10, *FRAME)).astype(
-            np.float32)).to(dev)
-        g[6:] = 0.0
-        return lambda: tuple(tree.temporal_cuda.clamped_gather_bwd_cuda(
-            stack, motion, g))
+    def clamped(tree, kind, layout, grads=None):
+        # KG (grads None) or KGb with (history_grad, motion_grad) on the
+        # stack in ``layout``; a tree that takes planar stacks only gets
+        # the planar one
+        stack, motion, g = T["clamped"][kind]
+        if layout == "channel-minor" and tree.channel_minor:
+            stack = stack.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+        tc = tree.temporal_cuda
+        if grads is None:
+            return lambda: (tc.clamped_gather_cuda(stack, motion),)
+        hg, mg = grads
+        return lambda: tuple(x for x in tc.clamped_gather_bwd_cuda(
+            stack, motion, g, history_grad=hg, motion_grad=mg)
+            if x is not None)
 
-    yield "KGb (within rounding)", kgb, False
+    for kind in T["clamped"]:
+        for layout in ("planar", "channel-minor"):
+            yield (f"KG {kind} {layout}",
+                   lambda t, kind=kind, layout=layout: clamped(t, kind,
+                                                               layout))
+
+    def served_step(tree):
+        # the served frame's history stacked as the tree's unbounded step
+        # stacks it on the card (KGp; a tree without it: the planar
+        # ``cat``), then KG: the step's whole cost of the gather
+        stack, motion, _ = T["clamped"]["served"]
+        hist = tree.temporal.history_from_stack(stack)
+        build = getattr(tree.temporal_cuda,
+                        "history_stack_channel_minor_cuda",
+                        tree.temporal.history_stack)
+        gather = tree.temporal_cuda.clamped_gather_cuda
+        return lambda: (gather(build(hist), motion),)
+
+    yield "KG served with the step's stack", served_step
+    # KGb: d_motion bit-equal, d_stack (a float64 sum in the atomics'
+    # order) within rounding
+    for kind in T["clamped"]:
+        for layout in ("planar", "channel-minor"):
+            for grads, label in (((True, True), ""),
+                                 ((True, False), " history only"),
+                                 ((False, True), " motion only")):
+                yield (f"KGb {kind} {layout}{label}",
+                       lambda t, kind=kind, layout=layout, grads=grads:
+                       clamped(t, kind, layout, grads),
+                       tuple(ex for ex, keep in zip((False, True), grads)
+                             if keep))
 
     def k15(tree, name, route):
         # phase 3's camera and rays; "quarter": the window at (H, W) of a
@@ -613,21 +643,27 @@ def compare(a, b):
 
 _ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
                      r"shade_kernel|march_kernel|shadow_kernel|"
-                     r"temporal_kernel|cone\w*kernel|cross_bilateral\w*kernel)"
+                     r"temporal_kernel|cone\w*kernel|cross_bilateral\w*kernel|"
+                     r"clamped_gather\w*kernel|round_planes_kernel)"
                      r"(I\w*?EE)?")
 
 
 def resources(text_or_dict):
     """``{short kernel name: (registers, stack, spill st, spill ld)}`` of
-    the à-trous, march, shading, shadow, temporal, cone and cross-bilateral
-    kernels in a ptxas report (a kernel that is not a template by its name
-    alone)."""
+    the à-trous, march, shading, shadow, temporal, cone, cross-bilateral
+    and clamped-gather kernels in a ptxas report (a kernel that is not a
+    template by its name alone)."""
     out = {}
     for name, res in text_or_dict.items():
         m = _ATROUS.search(name)
         if m:
             out[m.group(0)] = res
     return out
+
+
+def _spread(ms):
+    """(max - min) / median of one tree's times."""
+    return (max(ms) - min(ms)) / float(np.median(ms))
 
 
 def main(argv=None) -> int:
@@ -638,6 +674,12 @@ def main(argv=None) -> int:
                     help="write the results as JSON here")
     ap.add_argument("--only", default=None,
                     help="run the cases whose name matches this regex")
+    ap.add_argument("--rounds", type=int, default=2,
+                    help="time this tree, then the other, this many times")
+    ap.add_argument("--device-time", action="store_true",
+                    help="time a call by its device time under the "
+                         "profiler (kernels and memsets), not by CUDA "
+                         "events around back-to-back calls")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -671,6 +713,12 @@ def main(argv=None) -> int:
         torch.randn((3, 2 * H, 2 * W), generator=g, device=dev),
         torch.randn((2 * H, 2 * W), generator=g, device=dev)),)
     rows, bad = [], []
+
+    def time(f):
+        if args.device_time:
+            return device_ms(f, REPEATS)
+        return cuda_time_ms(f, repeats=REPEATS)
+
     with torch.no_grad():
         S = shade_inputs(dev)
         M = march_inputs(dev, other)
@@ -681,21 +729,26 @@ def main(argv=None) -> int:
             fa, fb = make(this), make(other)
             a, b = fa(), fb()
             equal, diff = compare(a, b)
-            # a case compared within rounding: KGb's tolerance against its
-            # float64 twin (rtol 1e-5, atol 1e-6·max)
-            ok = equal or not exact and all(
-                torch.allclose(x, y, rtol=1e-5,
-                               atol=1e-6 * float(y.abs().max()))
-                for x, y in zip(a, b))
-            ms = [cuda_time_ms(f, repeats=REPEATS) for f in (fa, fb, fa, fb)]
+            # an output compared within rounding: KGb's tolerance against
+            # its float64 twin (rtol 1e-5, atol 1e-6·max)
+            exacts = exact if isinstance(exact, tuple) else (exact,) * len(a)
+            ok = all(torch.equal(x, y) or not ex and torch.allclose(
+                x, y, rtol=1e-5, atol=1e-6 * float(y.abs().max()))
+                for x, y, ex in zip(a, b, exacts))
+            ms = [time(f) for _ in range(args.rounds) for f in (fa, fb)]
+            mine, theirs = ms[0::2], ms[1::2]
             rows.append(dict(case=name, equal=equal, ok=ok, max_diff=diff,
-                             ms_this=ms[0::2], ms_other=ms[1::2]))
+                             ms_this=mine, ms_other=theirs))
             verdict = ("bit-equal" if equal else "within rounding" if ok
                        else "DIFFERS")
             print(f"{name}: {verdict} (max |diff| {diff:.3g}); ms this "
-                  f"{ms[0]:.4f} {ms[2]:.4f}, other {ms[1]:.4f} {ms[3]:.4f}, "
-                  f"ratio {(ms[0] + ms[2]) / (ms[1] + ms[3]):.3f}",
-                  flush=True)
+                  f"{' '.join(f'{t:.4f}' for t in mine)}, other "
+                  f"{' '.join(f'{t:.4f}' for t in theirs)}, ratio "
+                  f"{sum(mine) / sum(theirs):.3f}" + (
+                      f", medians {np.median(mine):.4f} / "
+                      f"{np.median(theirs):.4f} (spread "
+                      f"{_spread(mine):.1%} / {_spread(theirs):.1%})"
+                      if args.rounds > 2 else ""), flush=True)
             if not ok:
                 bad.append(name)
             del fa, fb

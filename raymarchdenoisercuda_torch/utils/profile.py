@@ -4,7 +4,9 @@ forward and backward on one GPU.
     python3 -m raymarchdenoisercuda_torch.utils.profile train   # config 4
     python3 -m raymarchdenoisercuda_torch.utils.profile serve   # config 3
     python3 -m raymarchdenoisercuda_torch.utils.profile serve --seeded
+    python3 -m raymarchdenoisercuda_torch.utils.profile serve --unbounded
     python3 -m raymarchdenoisercuda_torch.utils.profile spatial --mode recompute
+    python3 -m raymarchdenoisercuda_torch.utils.profile clamped
 
 At 1920x1080: runs 3 warm-up steps, times ``--steps`` more without the
 profiler, then traces as many with ``torch.profiler`` (CPU and CUDA
@@ -13,8 +15,20 @@ step, the device-busy time per step (the sum of the kernels' device time;
 overlapping kernels would count twice, and the port runs one stream), the
 busy share of the wall, and the ``--top`` operators and kernels with the
 most device time.  ``--seeded`` serves with ``RaymarchParams(coarse_seed=
-True)`` (the cone seed from the camera, K15, and the seeded march).  Needs
-a CUDA device; the CPU has nothing to measure here.
+True)`` (the cone seed from the camera, K15, and the seeded march);
+``--unbounded`` with ``SVGFParams(max_motion=None)`` (the clamped gather,
+KG, in place of K3).
+
+``clamped`` times the clamped gather (KG) and its adjoint (KGb) alone, by
+kernel (device time a call under the profiler, ``--steps`` calls), on
+``chip_smoke.py`` phase 3's input (uniform random motion to ±28 pixels)
+and on a served frame's (the ninth orbit frame through ``FramePipeline``
+with ``max_motion=None``), the history stacked channel-minor by KGp as the
+unbounded step stacks it: the stack's build (KGp, and the planar ``cat``
+of ``history_stack`` that the bounded paths make), KG, and KGb with both
+gradients, with the history's only and with the motion's only, each split
+into its kernels, memsets and fills.  Needs a CUDA device; the CPU has
+nothing to measure here.
 """
 
 from __future__ import annotations
@@ -35,7 +49,11 @@ from ..models.pipeline import (FramePipeline, init_train_state,
                                make_train_step)
 from ..ops import raymarch
 from ..ops.atrous_cuda import svgf_spatial_ad_cuda
-from .timing import nvidia_smi_name_power
+from ..ops.temporal import history_from_stack, history_stack
+from ..ops.temporal_cuda import (clamped_gather_bwd_cuda, clamped_gather_cuda,
+                                 history_stack_channel_minor_cuda)
+from .seeded_inputs import clamped_inputs, served_clamped_inputs
+from .timing import device_ms_by_kernel, nvidia_smi_name_power
 
 
 def _train_runner(H, W, dev):
@@ -54,11 +72,13 @@ def _train_runner(H, W, dev):
     return run
 
 
-def _serve_runner(H, W, dev, seeded=False):
+def _serve_runner(H, W, dev, seeded=False, unbounded=False):
     scene = raymarch.cornell_scene(device=dev)
+    svgf = (SVGFParams(radius=1, max_motion=None) if unbounded
+            else SVGFParams(radius=1))
     pipe = FramePipeline(scene, CameraParams(width=W, height=H),
-                         RaymarchParams(coarse_seed=seeded),
-                         SVGFParams(radius=1), weight_math="fast")
+                         RaymarchParams(coarse_seed=seeded), svgf,
+                         weight_math="fast")
     gen = torch.Generator(dev).manual_seed(0)
     carry = {"hist": History.zeros(H, W, device=dev), "prev": None, "f": 0}
 
@@ -101,14 +121,45 @@ def _spatial_runner(H, W, dev, mode, radius):
     return run
 
 
+def clamped_split(stack, motion, g, calls):
+    """``[(what, {kernel: ms})]``: KG and KGb (both gradients, the history's
+    only, the motion's only) on one input, by kernel."""
+    runs = [("KG", lambda: clamped_gather_cuda(stack, motion))]
+    for hg, mg, what in ((True, True, "KGb"), (True, False, "KGb history"),
+                         (False, True, "KGb motion")):
+        runs.append((what, lambda hg=hg, mg=mg: clamped_gather_bwd_cuda(
+            stack, motion, g, history_grad=hg, motion_grad=mg)))
+    return [(what, device_ms_by_kernel(fn, calls)) for what, fn in runs]
+
+
+def _clamped(H, W, dev, calls):
+    for label, (stack, motion, g) in (
+            ("random motion ±28 px", clamped_inputs(H, W, dev)),
+            ("served frame", served_clamped_inputs(H, W, dev))):
+        hist = history_from_stack(stack)
+        runs = [("stack KGp", device_ms_by_kernel(
+                    lambda: history_stack_channel_minor_cuda(hist), calls)),
+                ("stack cat (planar)", device_ms_by_kernel(
+                    lambda: history_stack(hist), calls))]
+        runs += clamped_split(history_stack_channel_minor_cuda(hist), motion,
+                              g, calls)
+        for what, split in runs:
+            parts = ", ".join(f"{k[:48]} {v:.4f}" for k, v in sorted(
+                split.items(), key=lambda kv: -kv[1]))
+            print(f"{label}: {what} {sum(split.values()):.4f} ms a call "
+                  f"(device): {parts}", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("path", choices=("train", "serve", "spatial"))
+    ap.add_argument("path", choices=("train", "serve", "spatial", "clamped"))
     ap.add_argument("--mode", choices=tuple(SPATIAL_MODES),
                     default="stored", help="spatial: the adjoint mode")
     ap.add_argument("--radius", type=int, default=1, help="spatial: radius")
     ap.add_argument("--seeded", action="store_true",
                     help="serve: with the cone seed (coarse_seed)")
+    ap.add_argument("--unbounded", action="store_true",
+                    help="serve: with SVGFParams(max_motion=None)")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -117,10 +168,15 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     H, W = 1080, 1920
+    if args.path == "clamped":
+        print(nvidia_smi_name_power())
+        with torch.no_grad():
+            _clamped(H, W, dev, args.steps)
+        return 0
     if args.path == "spatial":
         run = _spatial_runner(H, W, dev, args.mode, args.radius)
     elif args.path == "serve":
-        run = _serve_runner(H, W, dev, args.seeded)
+        run = _serve_runner(H, W, dev, args.seeded, args.unbounded)
     else:
         run = _train_runner(H, W, dev)
     for _ in range(3):
@@ -142,7 +198,8 @@ def main(argv=None) -> int:
                if e.device_type == DeviceType.CUDA) / 1e3 / args.steps
     print(nvidia_smi_name_power())
     what = (f"spatial {args.mode} r{args.radius}" if args.path == "spatial"
-            else "serve seeded" if args.path == "serve" and args.seeded
+            else args.path + " seeded" * args.seeded
+            + " unbounded" * args.unbounded if args.path == "serve"
             else args.path)
     print(f"{what} {W}x{H}: wall {wall:.3f} ms/step unprofiled; device "
           f"busy {busy:.3f} ms/step under the profiler "

@@ -51,6 +51,33 @@ def cuda_time_ms(fn: Callable[[], object], *, repeats: int = 10,
     return t.ms / repeats
 
 
+def device_ms_by_kernel(fn: Callable[[], object],
+                        calls: int) -> dict:
+    """``{kernel name: device ms a call}`` of ``calls`` calls of ``fn``
+    under ``torch.profiler`` (after one call outside it); memsets and fills
+    count as kernels here."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0.0) + e.device_time_total / 1e3
+    return {k: v / calls for k, v in out.items()}
+
+
+def device_ms(fn: Callable[[], object], calls: int) -> float:
+    """Device milliseconds a call of ``fn``, every kernel and memset summed
+    (:func:`device_ms_by_kernel`): the card's work without the host's."""
+    return sum(device_ms_by_kernel(fn, calls).values())
+
+
 def time_fn(fn: Callable, *args, repeats: int = 10, warmup: int = 1,
             device="cuda", **kw):
     """``(seconds per call, last output)`` of ``fn(*args, **kw)`` after

@@ -68,8 +68,9 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
 # arguments added to entry points after they were first declared: the
 # shading pass's, the march's, the shadow pass's and the cone seed's
 # instantiation keys, the cone seed's delta and base pointers, and the
-# clamped-gather adjoint's float64 scratch with its plane count; and the
-# cone seed's camera route (its scratch and key)
+# clamped-gather adjoint's float64 scratch with its plane count; the cone
+# seed's camera route (its scratch and key); and the clamped gather's and
+# its adjoint's stack layout (texel stride)
 @pytest.mark.parametrize("name,index,ctype", [
     ("rdt_shadow_shade", 13, ctypes.c_int),
     ("rdt_march", 9, ctypes.c_int),
@@ -80,10 +81,13 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
     ("rdt_cone_seed_camera", 5, ctypes.c_void_p),
     ("rdt_cone_seed_camera", 8, ctypes.c_int),
     ("rdt_clamped_gather_bwd", 4, ctypes.c_void_p),
-    ("rdt_clamped_gather_bwd", 9, ctypes.c_int)],
+    ("rdt_clamped_gather_bwd", 9, ctypes.c_int),
+    ("rdt_clamped_gather", 6, ctypes.c_int),
+    ("rdt_clamped_gather_bwd", 10, ctypes.c_int)],
     ids=["shade scene_key", "march scene_key", "shadow scene_key",
          "cone delta", "cone base", "cone scene_key", "cone camera scratch",
-         "cone camera scene_key", "gather_bwd scratch", "gather_bwd P"])
+         "cone camera scene_key", "gather_bwd scratch", "gather_bwd P",
+         "clamped gather layout", "clamped gather_bwd layout"])
 def test_added_arguments_are_declared(name, index, ctype):
     assert _build.SIGNATURES[name][index] is ctype
     assert _exports()[name][index] is ctype

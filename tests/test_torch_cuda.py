@@ -46,7 +46,9 @@ the whole frame at rtol 1e-5.  K8 in each of its instantiations (the
 Cornell box, ``random_scene``, and a scene of other counts: the runtime-
 count one) at K7/K8's tolerance, its window bit-equal to the whole frame's
 crop.  KGb run 20 times: every history gradient within one float32 ulp
-of the first (its float64 sum is rounded once), the motion's bit-equal.
+of the first (its float64 sum is rounded once), the motion's bit-equal,
+on a channel-minor stack (the unbounded-motion frame's) and on a planar
+one (the wrappers lay it out with KGp); any other stack raises.
 K7, K8, K13 and K15 on two scenes of the Cornell box's counts (one
 constant buffer of compiled scene parameters a device) launched on three
 streams at once: every output bit-equal to the same launch alone.  K15
@@ -108,8 +110,9 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     clamped_gather_bwd_cuda, clamped_gather_cuda, gather_bwd_cuda,
     gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
     gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
-    reproject_clamped_cuda, temporal_accumulate_ad_cuda,
-    temporal_accumulate_canvas_cuda, temporal_accumulate_cuda)
+    history_stack_channel_minor_cuda, reproject_clamped_cuda,
+    temporal_accumulate_ad_cuda, temporal_accumulate_canvas_cuda,
+    temporal_accumulate_cuda)
 from raymarchdenoisercuda_torch.parallel import sharded
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
 
@@ -1222,39 +1225,61 @@ def _f64_motion(motion):
                         (ix + motion[1]).double() - ix.double()])
 
 
+def _stack_in(stack, layout):
+    """``stack`` as given (planar) or laid out channel-minor, strides (1,
+    P·W, P), as the main paths stack the history on the card."""
+    if layout == "planar":
+        return stack
+    return stack.permute(1, 2, 0).contiguous().permute(2, 0, 1)
+
+
+@pytest.mark.parametrize("layout", ["planar", "channel-minor"])
 @pytest.mark.parametrize("kind", ["zero", "fractional", "outside"])
-def test_clamped_gather_and_adjoint_match_plain(dev, kind):
+def test_clamped_gather_and_adjoint_match_plain(dev, kind, layout):
     """The clamped gather against ``bilinear_gather_clamped`` (rtol 1e-5, atol
     1e-6: the same fused multiply-adds), its adjoint against float64
     autograd of the plain twin (the atomics add in no fixed order; rtol
     1e-5, atol 1e-6·max), with the cotangent on the first ``GRAD_PLANES``
     planes (the adjoint's rule: a cotangent on the others is ignored);
-    motion out to ±40 pixels clamps taps at the border.  The float64 twin
+    motion out to ±40 pixels clamps taps at the border; the stack
+    channel-minor, or planar and laid out by KGp in the wrappers (one KGp
+    launch each).  The float64 twin
     samples at the kernel's float32 coordinates p + motion
     (:func:`_f64_motion`): float64 coordinates move the bilinear fractions
     by up to an ulp of a float32 coordinate (7.6e-6 at x ~ 100), a
     difference of arithmetic, not of the sums' order."""
     rng = np.random.default_rng(31)
-    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
+    planar = torch.from_numpy(rng.random((10, H, W),
+                                         dtype=np.float32)).to(dev)
+    stack = _stack_in(planar, layout)
     scale = {"zero": 0.0, "fractional": 7.0, "outside": 80.0}[kind]
     motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * scale)
                               .astype(np.float32)).to(dev)
     cot = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
         np.float32)).to(dev)
-    before = clamped_gather_cuda.launches
+    relayouts = int(layout == "planar")
+    before = (clamped_gather_cuda.launches,
+              history_stack_channel_minor_cuda.launches)
     got = clamped_gather_cuda(stack, motion)
-    assert clamped_gather_cuda.launches == before + 1
+    assert (clamped_gather_cuda.launches,
+            history_stack_channel_minor_cuda.launches) == (
+        before[0] + 1, before[1] + relayouts)
+    assert got.is_contiguous()
     np.testing.assert_allclose(_np(got), _np(temporal.bilinear_gather_clamped(
-        stack, motion)), rtol=1e-5, atol=1e-6)
+        planar, motion)), rtol=1e-5, atol=1e-6)
     g = cot.clone()
     g[temporal.GRAD_PLANES:] = 0
-    s64 = stack.double().requires_grad_()
+    s64 = planar.double().requires_grad_()
     m64 = _f64_motion(motion).requires_grad_()
     want = torch.autograd.grad(temporal.bilinear_gather_clamped(s64, m64),
                                (s64, m64), g.double())
-    before = clamped_gather_bwd_cuda.launches
+    before = (clamped_gather_bwd_cuda.launches,
+              history_stack_channel_minor_cuda.launches)
     got = clamped_gather_bwd_cuda(stack, motion, g)
-    assert clamped_gather_bwd_cuda.launches == before + 1
+    assert (clamped_gather_bwd_cuda.launches,
+            history_stack_channel_minor_cuda.launches) == (
+        before[0] + 1, before[1] + relayouts)
+    assert got[0].is_contiguous()
     for name, a, b in zip(("d_stack", "d_motion"), got, want):
         np.testing.assert_allclose(_np(a), _np(b.float()), rtol=1e-5,
                                    atol=1e-6 * float(b.abs().max()),
@@ -1263,18 +1288,73 @@ def test_clamped_gather_and_adjoint_match_plain(dev, kind):
     for a, b in zip(clamped_gather_bwd_cuda(stack, motion, cot), got):
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
     assert float(got[0][temporal.GRAD_PLANES:].abs().sum()) == 0.0
-    # through autograd: the Function's backward is the kernel
+    # through autograd: the Function's backward is the kernel (a planar
+    # stack laid out once, its gradient back through KGp's adjoint)
     s, m = (t.clone().requires_grad_() for t in (stack, motion))
+    before = history_stack_channel_minor_cuda.launches
     out = reproject_clamped_cuda(s, m)
     d = torch.autograd.grad(out, (s, m), g)
+    assert history_stack_channel_minor_cuda.launches == before + relayouts
     for a, b in zip(d, got):
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
+
+
+def test_clamped_gather_refuses_other_stacks(dev):
+    """KG and KGb take the 10 history planes channel-minor (or planar, laid
+    out by KGp): another plane count, another layout or a channel-minor
+    stack off its 16-byte alignment raises, from the wrapper or from the
+    C entry, and launches nothing."""
+    rng = np.random.default_rng(33)
+    motion = torch.zeros((2, H, W), device=dev)
+    planar = torch.from_numpy(rng.random((10, H, W),
+                                         dtype=np.float32)).to(dev)
+    buf = torch.empty(10 * H * W + 1, device=dev)
+    shifted = buf[1:].view(H, W, 10).permute(2, 0, 1)
+    shifted.copy_(planar)
+    stacks = {"8 planes planar": planar[:8],
+              "8 planes channel-minor": _stack_in(planar[:8], "channel-minor"),
+              "transposed": planar.transpose(1, 2).contiguous()
+              .transpose(1, 2),
+              "off its alignment": shifted}
+    for name, stack in stacks.items():
+        before = (clamped_gather_cuda.launches,
+                  clamped_gather_bwd_cuda.launches)
+        with pytest.raises((ValueError, RuntimeError)):
+            clamped_gather_cuda(stack, motion)
+        with pytest.raises((ValueError, RuntimeError)):
+            clamped_gather_bwd_cuda(stack, motion, torch.zeros(
+                stack.shape, device=dev))
+        assert (clamped_gather_cuda.launches,
+                clamped_gather_bwd_cuda.launches) == before, name
+
+
+def test_channel_minor_stack_matches_plain(dev):
+    """KGp: the history's channel-minor stack bit-equal to
+    ``history_stack_channel_minor`` (a copy), strides (1, 10·W, 10),
+    counted; the gradient of a loss on it reaches the history planes as
+    the stack's gradient cut back into them."""
+    rng = np.random.default_rng(35)
+    planes = [torch.from_numpy(rng.random(s, dtype=np.float32)).to(dev)
+              for s in ((3, H, W), (2, H, W), (H, W), (H, W), (3, H, W))]
+    color = planes[0].clone().requires_grad_()
+    h = History(color, *planes[1:])
+    before = history_stack_channel_minor_cuda.launches
+    got = history_stack_channel_minor_cuda(h)
+    assert history_stack_channel_minor_cuda.launches == before + 1
+    want = temporal.history_stack_channel_minor(h)
+    assert got.stride() == (1, 10 * W, 10)
+    assert torch.equal(got, want)
+    cot = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    d_color, = torch.autograd.grad(got, (color,), cot)
+    assert torch.equal(d_color, cot[:3])
 
 
 @pytest.mark.parametrize("temporal_mode", ["auto", "ad"])
 def test_unbounded_motion_frame_matches_plain(dev, temporal_mode):
     """``svgf_denoise_frame(impl="auto")`` with ``max_motion=None`` (the
-    clamped gather, its adjoint for ``"ad"``, the sweep) against
+    clamped gather on the channel-minor history stack from KGp, its
+    adjoint for ``"ad"``, the sweep) against
     ``impl="plain"``: the frame atol 1e-3·max as the slice's; for ``"ad"``
     the gradients of the history colour and the motion at the training
     path's 3e-3·max (the stored bf16 sweep weights)."""
@@ -1294,7 +1374,8 @@ def test_unbounded_motion_frame_matches_plain(dev, temporal_mode):
                     length=torch.floor(var * 300), prev_depth=depth,
                     prev_normal=normal)
         before = (clamped_gather_cuda.launches,
-                  clamped_gather_bwd_cuda.launches)
+                  clamped_gather_bwd_cuda.launches,
+                  history_stack_channel_minor_cuda.launches)
         out, _ = svgf_denoise_frame(g, h, params=params, impl=impl,
                                     temporal=temporal_mode)
         outs.append(out.denoised)
@@ -1304,6 +1385,10 @@ def test_unbounded_motion_frame_matches_plain(dev, temporal_mode):
         if impl == "auto":
             assert clamped_gather_cuda.launches == before[0] + 1
             assert clamped_gather_bwd_cuda.launches == before[1] + int(ad)
+            # the history stacked channel-minor by KGp once, so that the
+            # wrappers lay nothing out again (they would launch KGp for a
+            # planar stack)
+            assert history_stack_channel_minor_cuda.launches == before[2] + 1
     a, b = _np(outs[0]), _np(outs[1])
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-3 * np.abs(b).max())
     for x, y in zip(*grads):
@@ -1311,15 +1396,17 @@ def test_unbounded_motion_frame_matches_plain(dev, temporal_mode):
                                    atol=3e-3 * float(y.abs().max()))
 
 
-def test_clamped_gather_adjoint_is_repeatable(dev):
+@pytest.mark.parametrize("layout", ["planar", "channel-minor"])
+def test_clamped_gather_adjoint_is_repeatable(dev, layout):
     """KGb 20 times on ``test_clamped_gather_and_adjoint_match_plain``'s
     ``outside`` inputs (motion to ±40 pixels: border texels take hundreds
     of addends): every ``d_stack`` within one float32 ulp of the first run's
     or equal to it (the float64 scratch is rounded once; the atomics' order
     moves the float64 sum by ~1e-16 of it), ``d_motion`` bit-equal (a
-    gather, no atomics)."""
+    gather, no atomics); on a planar and a channel-minor stack."""
     rng = np.random.default_rng(31)
-    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
+    stack = _stack_in(torch.from_numpy(
+        rng.random((10, H, W), dtype=np.float32)).to(dev), layout)
     motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * 80.0)
                               .astype(np.float32)).to(dev)
     g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(

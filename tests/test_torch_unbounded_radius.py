@@ -14,7 +14,10 @@ Tolerances:
   VJP);
 * the clamped gather and its VJP against ``jax.vjp`` of
   ``bilinear_gather_many``: rtol 1e-5, atol 1e-6 (the same sums; the
-  port rounds the bilinear sums as fused multiply-adds, as XLA does);
+  port rounds the bilinear sums as fused multiply-adds, as XLA does), on
+  a planar stack and on the channel-minor history stack that the card's
+  route builds (``history_stack_channel_minor``: ``history_stack``'s
+  values exactly);
 * ``svgf_denoise_frame(impl="auto", max_motion=None)`` against JAX's
   ``impl="reference"``: the frame and history rtol 5e-5, atol 1e-6 (the
   sweep's bound); for ``temporal="ad"`` the gradients of the loss with
@@ -42,14 +45,17 @@ from raymarchdenoisercuda_tpu.ops.temporal import (
     bilinear_gather_many as j_bilinear_gather_many)
 from raymarchdenoisercuda_torch import convert
 from raymarchdenoisercuda_torch.config import SVGFParams
+from raymarchdenoisercuda_torch.gbuffer import History
 from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import atrous_cuda
 from raymarchdenoisercuda_torch.ops.atrous import _spline_taps
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     svgf_spatial_ad_cuda, svgf_spatial_cuda)
-from raymarchdenoisercuda_torch.ops.temporal import GRAD_PLANES
+from raymarchdenoisercuda_torch.ops.temporal import (
+    GRAD_PLANES, history_stack, history_stack_channel_minor)
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
-    clamped_gather_bwd_cuda, clamped_gather_cuda, reproject_clamped_cuda)
+    clamped_gather_bwd_cuda, clamped_gather_cuda,
+    history_stack_channel_minor_cuda, reproject_clamped_cuda)
 
 H, W = 32, 48
 SH, SW = 24, 32          # the sweep's shape (49 taps a level at r = 3)
@@ -166,6 +172,63 @@ def test_clamped_gather_vjp_matches_jax(scale):
         np.testing.assert_array_equal(a.numpy(), b.numpy())
     assert clamped_gather_bwd_cuda(s, m, torch.from_numpy(cot),
                                    history_grad=False)[0] is None
+
+
+def test_channel_minor_stack_matches_history_stack_and_jax():
+    """``history_stack_channel_minor`` on CPU tensors holds
+    ``history_stack``'s values with strides (1, 10·W, 10), and the plain
+    gather and its adjoint given it match ``jax.vjp`` of
+    ``bilinear_gather_many`` (motion to ±10 pixels clamps taps at the
+    border); the history colour's gradient through the stack builder is
+    the adjoint's first three planes; KGp's wrapper returns this stack on
+    the CPU.  5 x 7 pixels, one torch thread."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        h, w = 5, 7
+        rng = np.random.default_rng(9)
+        planes = {k: rng.random(s, dtype=np.float32) for k, s in (
+            ("color", (3, h, w)), ("moments", (2, h, w)),
+            ("length", (h, w)), ("prev_depth", (h, w)),
+            ("prev_normal", (3, h, w)))}
+        color = torch.from_numpy(planes["color"]).requires_grad_()
+        hist = History(**{k: torch.from_numpy(v) for k, v in
+                          planes.items()}).replace(color=color)
+        stack = history_stack_channel_minor(hist)
+        assert stack.shape == (10, h, w)
+        assert stack.stride() == (1, 10 * w, 10)
+        planar = history_stack(hist).detach()
+        np.testing.assert_array_equal(stack.detach().numpy(),
+                                      planar.numpy())
+        # the card's wrapper (KGp) runs this twin on CPU tensors
+        assert torch.equal(history_stack_channel_minor_cuda(hist), stack)
+        mot = ((rng.random((2, h, w)) - 0.5) * 20.0).astype(np.float32)
+        cot = rng.standard_normal((10, h, w)).astype(np.float32)
+        cot[GRAD_PLANES:] = 0.0
+        iy = np.arange(h, dtype=np.float32)[:, None]
+        ix = np.arange(w, dtype=np.float32)[None, :]
+
+        def j_gather(s, m):
+            return j_bilinear_gather_many([s], iy + m[0], ix + m[1])[0]
+
+        out, vjp = jax.vjp(jax.jit(j_gather), jnp.asarray(planar.numpy()),
+                           jnp.asarray(mot))
+        want = vjp(jnp.asarray(cot))
+        m = torch.from_numpy(mot)
+        with torch.no_grad():
+            got_out = clamped_gather_cuda(stack, m)
+            got = clamped_gather_bwd_cuda(stack, m, torch.from_numpy(cot))
+        np.testing.assert_allclose(got_out.numpy(), np.asarray(out),
+                                   rtol=1e-5, atol=1e-6)
+        for name, a, b in zip(("d_stack", "d_motion"), got, want):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                       atol=1e-6, err_msg=name)
+        d_color, = torch.autograd.grad(reproject_clamped_cuda(stack, m),
+                                       (color,), torch.from_numpy(cot))
+        np.testing.assert_allclose(d_color.numpy(), got[0][:3].numpy(),
+                                   rtol=1e-6, atol=1e-7)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def _frame_inputs(seed):
