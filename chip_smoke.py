@@ -12,18 +12,21 @@ the script exits non-zero without printing a result):
    and spills of the à-trous level forward's instantiations (K1/K1b, each
    radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's
    (both routes, and the camera route's first launch), K12's staged
-   form (r <= 4), KG's, KGb's (and its rounding pass) and KGp's; fail if
-   one of K1/K1b or K2/K2b at radius <= 2, K7, K13 or K15 on a compiled
-   scene, K3/K3b, K15's first camera launch, a staged K12 or a KG, KGb
-   or KGp kernel uses local memory;
+   form (r <= 4), KG's, KGb's (and its rounding pass), KGp's, K4/K4c's
+   and K5/K6's (K5c/K6c; 6 and 10 gradient planes); fail if one of
+   K1/K1b or K2/K2b at radius <= 2, K7, K13 or K15 on a compiled scene,
+   K3/K3b, K15's first camera launch, a staged K12, a KG, KGb or KGp
+   kernel or a K4-K6 kernel uses local memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
    stored-weight adjoint, K1b level with a given σ-denominator, K2b
    stored adjoint from float32 weights, K14 recompute adjoint, K9 adjoint
    through the weights, K3 temporal step, K4 reprojection gather, K5/K6
-   its adjoints (with ``grid_sample``'s forward and backward timed beside
-   them as the library yardstick), K1 in the serving mode at each level
+   its adjoints (on random, integer, zero and a served frame's motion,
+   their history gradient the same on a second launch, timed on the random
+   and the served input, with ``grid_sample``'s forward and backward timed
+   beside them as the library yardstick), K1 in the serving mode at each level
    0-4, K7 march (the Cornell box, ``random_scene`` and a scene of other
    counts) and K8 shadow + shading (the Cornell box and ``random_scene``),
    each naming its instantiation (compiled scene or runtime counts), K10
@@ -75,7 +78,8 @@ the script exits non-zero without printing a result):
    8-row tiles, which the level-4 reach exceeds, each tile's canvas sliced
    from the frame (zeros past its border), held against the plain twins
    and the whole-frame kernels and timed with CUDA events (``grid_sample``
-   beside K4c-K6c), then the temporal gradient on the history canvas
+   beside K4c-K6c; K4c-K6c also on the served frame's first quarter tile
+   at this size), then the temporal gradient on the history canvas
    (K4c; K5c with the motion gradient, K6c without) against the unsharded
    one (K4, K5, K6), and K15 from the camera and the seeded K7 on whole
    3840x2160 frames against their plain twins (the shapes of 11(e), (f)); (b)
@@ -152,7 +156,7 @@ from raymarchdenoisercuda_torch.parallel import sharded
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
 from raymarchdenoisercuda_torch.utils.profile import clamped_split
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
-    clamped_inputs, served_clamped_inputs)
+    clamped_inputs, gather_inputs, served_clamped_inputs)
 from raymarchdenoisercuda_torch.utils.timing import (
     CudaTimer, cuda_time_ms, nvidia_smi_name_power)
 
@@ -308,6 +312,11 @@ KG_KERNELS = {re.compile(r"21clamped_gather_kernelE"): "KG",
               re.compile(r"25clamped_gather_bwd_kernelE"): "KGb",
               re.compile(r"19round_planes_kernel"): "KGb round",
               re.compile(r"26stack_channel_minor_kernel"): "KGp"}
+# the bounded gather's, gather_kernel<TILE> (K4; K4c), and its adjoint's,
+# gather_bwd_kernel<TILE, MG, NP> (K5 with the motion term MG, K6 without;
+# K5c/K6c; NP: 6 or 10 gradient planes compiled)
+K4_MANGLED = re.compile(r"13gather_kernelILb([01])EE")
+K5_MANGLED = re.compile(r"17gather_bwd_kernelILb([01])ELb([01])ELi(\d+)EE")
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
 
@@ -366,13 +375,26 @@ def random_planes(H, W, dev, seed):
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
     K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K12's staged, KG's,
-    KGb's and KGp's instantiations (the build's report); raise if one of
-    K1/K1b or K2/K2b at radius <= 2, K7, K13 or K15 on a compiled scene,
-    K3/K3b, K15's first camera launch, K12's staged form or a KG, KGb or
-    KGp kernel uses local memory, or if K3/K3b, a compiled K13 or K15, a
-    staged K12 or a KG, KGb or KGp kernel is missing from the report."""
+    KGb's, KGp's, K4/K4c's and K5/K6's instantiations (the build's
+    report); raise if one of K1/K1b or K2/K2b at radius <= 2, K7, K13 or
+    K15 on a compiled scene, K3/K3b, K15's first camera launch, K12's
+    staged form, a KG, KGb or KGp kernel or a K4-K6 kernel uses local
+    memory, or if K3/K3b, a compiled K13 or K15, a staged K12, a KG, KGb or
+    KGp kernel or a K4-K6 instantiation is missing from the report."""
     k1, k9, local, k3, k13, k15, k12, kg = {}, {}, [], [], [], [], [], []
+    k456 = []
     for name, res in sorted(_build.resource_report().items()):
+        m = K4_MANGLED.search(name) or K5_MANGLED.search(name)
+        if m:
+            tile = " tile" if m.group(1) == "1" else ""
+            form = (f"K4{tile}" if m.re is K4_MANGLED else
+                    f"K{5 if m.group(2) == '1' else 6}{tile} NP "
+                    f"{m.group(3)}")
+            phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
+                     f"spills {res[2] + res[3]} B")
+            k456.append(form)
+            if res[1] or res[2] or res[3]:
+                local.append(form)
         form = next((f for r, f in KG_KERNELS.items() if r.search(name)),
                     None)
         if form:
@@ -472,6 +494,10 @@ def report_resources():
     if len(k15) != 4 or sorted(k12) != [0, 1, 2, 3, 4]:
         raise AssertionError(f"phase 2: compiled K15 {k15} or staged K12 "
                              f"{sorted(k12)} missing from ptxas's report")
+    if len(set(k456)) != 10:
+        raise AssertionError(f"phase 2: K4/K4c and K5/K6 (K5c/K6c) "
+                             f"instantiations {sorted(k456)} in ptxas's "
+                             f"report, expected 2 and 8")
     if sorted(kg) != sorted(KG_KERNELS.values()):
         raise AssertionError(f"phase 2: KG/KGb/KGp kernels {kg} in ptxas's "
                              f"report, expected {list(KG_KERNELS.values())}")
@@ -772,7 +798,23 @@ def _grid(motion):
     return torch.stack([gx, gy], -1)[None]
 
 
+def _time_k4_k5_k6(stack, motion, g, repeats=20):
+    """(K4, K5, K6) ms a launch on one input, CUDA events."""
+    return (cuda_time_ms(lambda: gather_cuda(stack, motion, M),
+                         repeats=repeats),
+            cuda_time_ms(lambda: gather_bwd_cuda(stack, motion, g, M,
+                                                 grad_planes=6),
+                         repeats=repeats),
+            cuda_time_ms(lambda: gather_bwd_hist_cuda(motion, g, M,
+                                                      grad_planes=6),
+                         repeats=repeats))
+
+
 def check_k4_k5_k6(P, results):
+    """K4, K5 and K6 against their twins on random (±7 px: some pixels
+    beyond max_motion), integer and zero motion and on the served frame's
+    (the camera's, coherent), K5's and K6's history gradient the same on a
+    second launch; timed on the random and the served input."""
     dev = P["color"].device
     H, W = P["depth"].shape
     HW = H * W
@@ -782,39 +824,43 @@ def check_k4_k5_k6(P, results):
     g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
         np.float32)).to(dev)
     rand = (rng.random((2, H, W)) - 0.5) * 2 * (M + 1)   # some beyond M
-    motions = {"random": rand, "integer": np.round(rand),
-               "zero": np.zeros((2, H, W))}
+    served = gather_inputs(H, W, dev, "served")
+    inputs = {kind: (stack, torch.from_numpy(m.astype(np.float32)).to(dev),
+                     g)
+              for kind, m in (("random", rand), ("integer", np.round(rand)),
+                              ("zero", np.zeros((2, H, W))))}
+    inputs["served"] = served
     tol = dict(atol=1e-6, rtol=1e-5)
     errs = [0.0, 0.0, 0.0]
-    for kind, m in motions.items():
-        motion = torch.from_numpy(m.astype(np.float32)).to(dev)
-        a, b = gather_cuda(stack, motion, M), temporal.gather_ref(
-            stack, motion, M)
+    for kind, (st, motion, cot) in inputs.items():
+        a, b = gather_cuda(st, motion, M), temporal.gather_ref(st, motion, M)
         check_close(f"K4 {kind}", a, b, **tol)
         errs[0] = max(errs[0], max_err(a, b))
-        k5 = gather_bwd_cuda(stack, motion, g, M, grad_planes=6)
-        want = temporal.gather_bwd_ref(stack, motion, g, M, motion_grad=True,
+        k5 = gather_bwd_cuda(st, motion, cot, M, grad_planes=6)
+        want = temporal.gather_bwd_ref(st, motion, cot, M, motion_grad=True,
                                        grad_planes=6)
         for name, a, b in zip(("d_hist", "d_motion"), k5, want):
             check_close(f"K5 {kind} {name}", a, b, **tol)
         errs[1] = max(errs[1], max(max_err(a, b) for a, b in zip(k5, want)))
-        k6 = gather_bwd_hist_cuda(motion, g, M, grad_planes=6)
+        k6 = gather_bwd_hist_cuda(motion, cot, M, grad_planes=6)
         check_close(f"K6 {kind} d_hist", k6[0], want[0], **tol)
         errs[2] = max(errs[2], max_err(k6[0], want[0]))
         if float(k6[1].abs().max()) != 0.0:
             raise AssertionError("K6: nonzero d_motion")
-    motion = torch.from_numpy(motions["random"].astype(np.float32)).to(dev)
+        again = (gather_bwd_cuda(st, motion, cot, M, grad_planes=6)[0],
+                 gather_bwd_hist_cuda(motion, cot, M, grad_planes=6)[0])
+        if not (torch.equal(again[0], k5[0]) and torch.equal(again[1],
+                                                             k6[0])):
+            raise AssertionError(f"K5/K6 {kind}: d_hist differs between "
+                                 f"two launches")
+    motion = inputs["random"][1]
     inside = ((motion[0].abs() <= M) & (motion[1].abs() <= M)).float().mean()
     # a within pixel reads its <= 4 taps; count the pixels this input has
     frac = float(inside)
-    ms4 = cuda_time_ms(lambda: gather_cuda(stack, motion, M), repeats=20)
+    ms4, ms5, ms6 = _time_k4_k5_k6(stack, motion, g)
+    served_ms = _time_k4_k5_k6(*served)
     plain4 = cuda_time_ms(lambda: temporal.gather_ref(stack, motion, M),
                           repeats=3)
-    ms5 = cuda_time_ms(lambda: gather_bwd_cuda(stack, motion, g, M,
-                                               grad_planes=6), repeats=20)
-    ms6 = cuda_time_ms(lambda: gather_bwd_hist_cuda(motion, g, M,
-                                                    grad_planes=6),
-                       repeats=20)
     plain5 = cuda_time_ms(lambda: temporal.gather_bwd_ref(
         stack, motion, g, M, motion_grad=True, grad_planes=6), repeats=3)
     plain6 = cuda_time_ms(lambda: temporal.gather_bwd_ref(
@@ -842,12 +888,14 @@ def check_k4_k5_k6(P, results):
     results["K6"] = dict(max_abs_err=errs[2], ms=ms6, plain_ms=plain6,
                          library_ms=lib6, bytes=72 * HW,
                          flops=int(4 * 6 * 2 * frac * HW))
-    phase(3, f"K4/K5/K6: ok on random, integer and zero motion, max |err| "
-             f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}; K4 {ms4:.4f} ms "
-             f"(plain {plain4:.4f}, grid_sample {lib4:.4f}); K5 {ms5:.4f} ms "
-             f"(plain {plain5:.4f}, grid_sample bwd {lib5:.4f}); K6 "
-             f"{ms6:.4f} ms (plain {plain6:.4f}, grid_sample bwd input-only "
-             f"{lib6:.4f})")
+    phase(3, f"K4/K5/K6: ok on random, integer, zero and served motion "
+             f"(K5/K6 d_hist repeatable), max |err| "
+             f"{errs[0]:.3g}/{errs[1]:.3g}/{errs[2]:.3g}; random: K4 "
+             f"{ms4:.4f} ms (plain {plain4:.4f}, grid_sample {lib4:.4f}); K5 "
+             f"{ms5:.4f} ms (plain {plain5:.4f}, grid_sample bwd {lib5:.4f}); "
+             f"K6 {ms6:.4f} ms (plain {plain6:.4f}, grid_sample bwd "
+             f"input-only {lib6:.4f}); served frame: K4 {served_ms[0]:.4f}, "
+             f"K5 {served_ms[1]:.4f}, K6 {served_ms[2]:.4f} ms")
 
 
 def check_filters(P, results):
@@ -2294,6 +2342,31 @@ def check_temporal_canvas_tiles(P, results, tile_ms):
     for name, acc in (("K5c", acc5), ("K6c", acc6)):
         check_close(f"{name} canvases summed vs whole-frame K5", acc[
             :, mh:mh + H, mh:mh + W], whole5[0], **tol)
+    # the served frame's history and motion at this size (the camera's
+    # motion, coherent) on the first quarter tile: K4c bit-equal to K4,
+    # the adjoints against their twins; timed beside the random input
+    stack_s, motion_s, cot_s = gather_inputs(H, W, dev, "served")
+    tile, th, tw = quads[0]
+    canvas = frame_canvas(stack_s, tile, th, tw, mh)
+    m_t, cot_t = _crop(motion_s, tile, th, tw), _crop(cot_s, tile, th, tw)
+    k4 = gather_canvas_cuda(canvas, m_t, M, tile=tile)
+    if not torch.equal(k4, _crop(gather_cuda(stack_s, motion_s, M), tile, th,
+                                 tw)):
+        raise AssertionError("K4c served tile != whole frame")
+    k5 = gather_canvas_bwd_cuda(canvas, m_t, cot_t, M, tile=tile,
+                                grad_planes=6)
+    k5_want = temporal.gather_bwd_ref(canvas, m_t, cot_t, M, motion_grad=True,
+                                      grad_planes=6, tile=tile)
+    for name, a, b in zip(("d_canvas", "d_motion"), k5, k5_want):
+        check_close(f"K5c served tile {name}", a, b, **tol)
+    served_ms = (
+        cuda_time_ms(lambda: gather_canvas_cuda(canvas, m_t, M, tile=tile),
+                     repeats=20),
+        cuda_time_ms(lambda: gather_canvas_bwd_cuda(
+            canvas, m_t, cot_t, M, tile=tile, grad_planes=6), repeats=20),
+        cuda_time_ms(lambda: gather_canvas_bwd_hist_cuda(
+            m_t, cot_t, M, tile=tile, canvas_shape=canvas.shape,
+            grad_planes=6), repeats=20))
     for k, e in zip(("K3b", "K4c", "K5c", "K6c"), errs):
         results[k]["max_abs_err"] = e
     phase(10, "(a) K3b (and K3's tile form), K4c, K5c, K6c on 4 quarter "
@@ -2303,7 +2376,10 @@ def check_temporal_canvas_tiles(P, results, tile_ms):
                   f"{results[k]['plain_ms']:.4f}"
                   + (f", grid_sample {results[k]['library_ms']:.4f}"
                      if "library_ms" in results[k] else "") + ")"
-                  for k in ("K3b", "K4c", "K5c", "K6c")))
+                  for k in ("K3b", "K4c", "K5c", "K6c"))
+              + "; served frame's tile: " + ", ".join(
+                  f"{k} {t:.4f} ms" for k, t in zip(("K4c", "K5c", "K6c"),
+                                                    served_ms)))
 
 
 def sharded_temporal_grad_phase(P):

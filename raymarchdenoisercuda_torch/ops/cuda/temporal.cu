@@ -42,29 +42,60 @@
 // the same bounded tent gather as K3's step 1, alone, for the 10-plane
 // history stack, so that the rest of the step can run in PyTorch, where
 // autograd differentiates it.  Plain twin: gather_ref in ops/temporal.py.
-// The TPU kernel loops over every integer offset that the band's motion
-// brackets; here each thread reads only its own <= 4 taps.  Bound: memory,
-// 88 B/px (40 in, 8 motion, 40 out).
+// Bound: memory, 88 B/px (40 in, 8 motion, 40 out).  The TPU kernel loops
+// over every integer offset that its band's motion brackets; here each
+// thread reads its own <= 4 taps through the caches (on random motion one
+// line a lane, out of L1: a block's window of taps fits there).  The
+// canvas's margin and strides come in once and each tap is one offset from
+// the pixel's address, so K4c costs what K4 does; all 40 loads go out
+// before the multiply-adds, in the parent's order, by the same fused
+// multiply-adds: K4 and K4c are bit-equal to the kernels they replace.  A
+// block that staged the window its pixels' floors span (cp.async, zeros
+// outside the frame) ran 1.28x slower than the parent on random motion and
+// 1.30x on a served frame's (H100), and was dropped.
 //
 // K5 and K6 replace _make_gather_bwd_kernel (_gather_bwd_call) and
 // _make_gather_bwd_hist_kernel (_gather_bwd_hist_call): one kernel here,
-// the motion term behind a flag.  Plain twin: gather_bwd_ref.
-//   d_hist: the TPU kernel restructures the transposed tent scatter as a
-//   gather over every offset the band brackets (up to (2M+2)^2 candidates).
-//   Here each source pixel scatters its tent-weighted cotangent into its
-//   <= 4 taps with atomicAdd, into an output the wrapper zeroed: 4 targets
-//   instead of 196 candidates, at the price of a summation order that is
-//   not fixed (at most 4 addends a target, so the results differ from the
-//   twin's by rounding only).  Only the leading grad_planes planes are
-//   written; the rest stay zero.
+// gather_bwd_kernel<TILE, MG, NP>, the motion term compiled in (MG) or
+// not, NP (6 or 10) gradient planes compiled, the leading np <= NP of
+// them computed.  Plain twin: gather_bwd_ref.
+//   d_hist: the transposed tent scatter, restructured as a gather, as the
+//   TPU kernel does: a texel q takes w * g[p] from every source p with
+//   q - p - floor(m_p) in {0, 1}^2, each texel's addends in one fixed
+//   order (offset rows, then columns, ascending), so every launch gives
+//   the same bits (an atomic scatter did not: uniform random motion brings
+//   up to (2M + 2)^2 = 196 candidates a texel, and even a served frame's
+//   coherent motion changed between launches).  A block of 32 x 8 texels
+//   stages the motion of the (9 + 2M) x (33 + 2M) sources that can reach
+//   it (cp.async), codes each one's floors in shared memory (a packed int,
+//   kNoSource when rejected or reaching no texel of the block), reduces
+//   the floor range of those that reach it, and each thread scans the
+//   candidate offsets of that range only (3 x 3 or so on coherent motion,
+//   14 x 14 on uniform random motion at max_motion 6): per row of offsets
+//   it marks its matches in a bit mask (one subtraction and one mask test
+//   a candidate), then adds them in order, the weight
+//   tent(m0 - oy) * tent(m1 - ox) and the products rounded as the twin
+//   rounds them.  Every texel is written once (the planes beyond np as
+//   zeros): no zeroing pass.
 //   d_motion (K5): a gather at the pixel itself over the offsets
 //   floor(m)-1 .. floor(m)+1 inside [-M, M+1]; at integer motion the tent
 //   derivative (JAX's kink convention: -sign with sign(0) = +1, half weight
 //   at |x| = 1) is nonzero on all three, which is why the TPU kernel keeps
-//   floor+1 upper bounds.
+//   floor+1 upper bounds.  The same thread computes it after its texel's
+//   d_hist, in the parent's loops and order (bit-equal to it).
 // Bound: memory; K6 reads 6 cotangent planes and the motion and writes the
 // 10-plane d_hist (72 B/px); K5 also reads 6 history planes and writes
-// d_motion (104 B/px).
+// d_motion (104 B/px).  The gather costs more instructions than the
+// parent's atomics, which a coherent frame's motion keeps cheap: on a
+// served frame the staging and coding of 3.7 sources a texel and the
+// writes take most of the time (H100), and on uniform random motion the
+// candidate scan.  Tried and dropped (H100, served frame / random, against
+// this kernel): two texels a thread, 1.14x / 1.0x (a wider tile widens
+// the floor range); a first pass of codes and block ranges with the scan
+// reading them through the caches, 1.17x / 1.15x; every match's loads
+// unrolled over a 3 x 3 window, 1.42x served; the motion term in a kernel
+// of its own, 1.10x served; its blocks interleaved with the gather's, 0.98x
+// served but 1.04x random; more blocks an SM by launch bounds spilled.
 //
 // Tiles (the sharded pipeline, parallel/sharded.py).  Each kernel computes
 // the H x W centre of a tile whose pixel (0, 0) is the global pixel
@@ -436,7 +467,12 @@ temporal_kernel(const float* __restrict__ render,
 }
 
 
-// K4: bounded tent gather of the 10-plane stack (see the header).
+// K4-K6's block: KT_X x KT_Y threads (one row a warp), one pixel (K4, and
+// K5's motion term) or one history texel (K5/K6's d_hist) a thread.
+constexpr int KT_X = 32, KT_Y = 8;
+// A block's floor range: none of its pixels accepted when lo > hi.
+constexpr int kNoLo = 0x7fffffff, kNoHi = -0x7fffffff - 1;
+
 // Whether the tap at offset (dy, dx) of tile pixel (y, x) lies in the
 // frame.
 template <bool TILE>
@@ -449,41 +485,8 @@ __device__ __forceinline__ bool tap_inside(const TemporalTile& t, int H,
         && gx < bound_w<TILE>(t, W);
 }
 
-template <bool TILE>
-__global__ void gather_kernel(const float* __restrict__ stack,
-                              const float* __restrict__ motion,
-                              float* __restrict__ out, int H, int W, int M,
-                              TemporalTile t) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= W || y >= H) return;
-    const int hw = H * W, i = y * W + x, hps = TILE ? t.h_ps : hw;
-    const float m0 = motion[i], m1 = motion[hw + i];
-    float g[10];
-#pragma unroll
-    for (int k = 0; k < 10; ++k) g[k] = 0.0f;
-    if (fabsf(m0) <= (float)M && fabsf(m1) <= (float)M) {
-        const float y0 = floorf(m0), x0 = floorf(m1);
-        for (int ay = 0; ay <= 1; ++ay) {
-            const float dyf = y0 + (float)ay;
-            const float ty = fmaxf(1.0f - fabsf(m0 - dyf), 0.0f);
-            const int ry = y + (int)dyf;
-            for (int ax = 0; ax <= 1; ++ax) {
-                const float dxf = x0 + (float)ax;
-                const float tx = fmaxf(1.0f - fabsf(m1 - dxf), 0.0f);
-                const int rx = x + (int)dxf;
-                const bool inside = tap_inside<TILE>(t, H, W, y, x, (int)dyf, (int)dxf);
-                const float w = ty * tx;
-                const int q = hidx<TILE>(t, W, ry, rx);
-#pragma unroll
-                for (int k = 0; k < 10; ++k) {
-                    g[k] = __fmaf_rn(w, inside ? stack[k * hps + q] : 0.0f, g[k]);
-                }
-            }
-        }
-    }
-#pragma unroll
-    for (int k = 0; k < 10; ++k) out[k * hw + i] = g[k];
+__device__ __forceinline__ float tent(float x) {
+    return fmaxf(1.0f - fabsf(x), 0.0f);
 }
 
 // d/dx max(0, 1 - |x|) with JAX's kink convention (ops.common.tent_prime).
@@ -494,51 +497,128 @@ __device__ __forceinline__ float tent_prime(float x) {
     return -sgn * w;
 }
 
-__device__ __forceinline__ float tent(float x) {
-    return fmaxf(1.0f - fabsf(x), 0.0f);
+// The motion floors' range over a K5/K6 block: each thread gives its own
+// (lo, hi) pairs (kNoLo, kNoHi for none), the warps reduce them and put
+// one value each in ``red``; every thread reads the block's.  Holds a
+// __syncthreads, so every thread of the block must call it.
+struct FloorRange {
+    int y_lo, y_hi, x_lo, x_hi;
+};
+
+__device__ __forceinline__ FloorRange block_floor_range(
+    int y_lo, int y_hi, int x_lo, int x_hi, int (*red)[4]) {
+    const unsigned full = 0xffffffffu;
+    y_lo = __reduce_min_sync(full, y_lo);
+    y_hi = __reduce_max_sync(full, y_hi);
+    x_lo = __reduce_min_sync(full, x_lo);
+    x_hi = __reduce_max_sync(full, x_hi);
+    if (threadIdx.x == 0) {
+        red[threadIdx.y][0] = y_lo;
+        red[threadIdx.y][1] = y_hi;
+        red[threadIdx.y][2] = x_lo;
+        red[threadIdx.y][3] = x_hi;
+    }
+    __syncthreads();
+    FloorRange r = {kNoLo, kNoHi, kNoLo, kNoHi};
+#pragma unroll
+    for (int w = 0; w < KT_Y; ++w) {
+        r.y_lo = min(r.y_lo, red[w][0]);
+        r.y_hi = max(r.y_hi, red[w][1]);
+        r.x_lo = min(r.x_lo, red[w][2]);
+        r.x_hi = max(r.x_hi, red[w][3]);
+    }
+    return r;
 }
 
-// K5 (motion_grad = 1) / K6 (motion_grad = 0): adjoint of K4 (see the
-// header).  dh must be zeroed; hist may be null when motion_grad is 0.
+// 4 bytes to shared memory, or 4 zero bytes when ``fill`` is false (src
+// then only has to be a valid address: nothing is read).
+__device__ __forceinline__ void cp_async4_or_zero(void* dst, const void* src,
+                                                  bool fill) {
+    const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+                 :: "r"(d), "l"(src), "r"(fill ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// K4/K4c: bounded tent gather of the 10-plane stack (see the header).
+// The canvas's margin and strides come in once; each tap's address is one
+// offset from the pixel's, and all four taps' loads go out before the
+// multiply-adds.
 template <bool TILE>
-__global__ void gather_bwd_kernel(const float* __restrict__ hist,
-                                  const float* __restrict__ motion,
-                                  const float* __restrict__ g,
-                                  float* __restrict__ dh,
-                                  float* __restrict__ dm, int H, int W,
-                                  int M, int np, int motion_grad,
-                                  TemporalTile t) {
-    int x = blockIdx.x * blockDim.x + threadIdx.x;
-    int y = blockIdx.y * blockDim.y + threadIdx.y;
+__global__ void __launch_bounds__(KT_X * KT_Y)
+gather_kernel(const float* __restrict__ stack,
+              const float* __restrict__ motion, float* __restrict__ out,
+              int H, int W, int M, TemporalTile t) {
+    const int x = blockIdx.x * KT_X + threadIdx.x;
+    const int y = blockIdx.y * KT_Y + threadIdx.y;
     if (x >= W || y >= H) return;
-    const int hw = H * W, i = y * W + x, hps = TILE ? t.h_ps : hw;
+    const int hw = H * W, i = y * W + x;
+    // the history canvas: margin, row and plane strides
+    const int hm = TILE ? t.h_m : 0, rs = TILE ? t.h_rs : W;
+    const int ps = TILE ? t.h_ps : hw;
     const float m0 = motion[i], m1 = motion[hw + i];
-    const bool within = fabsf(m0) <= (float)M && fabsf(m1) <= (float)M;
-    if (!within) {
-        if (motion_grad) {
-            dm[i] = 0.0f;
-            dm[hw + i] = 0.0f;
+    float g[10];
+#pragma unroll
+    for (int k = 0; k < 10; ++k) g[k] = 0.0f;
+    if (fabsf(m0) <= (float)M && fabsf(m1) <= (float)M) {
+        const float y0 = floorf(m0), x0 = floorf(m1);
+        const int fy = (int)y0, fx = (int)x0;
+        const float* p = stack + (y + fy + hm) * rs + x + fx + hm;
+        float v[4][10], w[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+            const int ay = a >> 1, ax = a & 1;
+            const float ty = fmaxf(1.0f - fabsf(m0 - (y0 + (float)ay)), 0.0f);
+            const float tx = fmaxf(1.0f - fabsf(m1 - (x0 + (float)ax)), 0.0f);
+            w[a] = ty * tx;
+            const bool in = tap_inside<TILE>(t, H, W, y, x, fy + ay, fx + ax);
+            const float* q = p + ay * rs + ax;
+#pragma unroll
+            for (int k = 0; k < 10; ++k) v[a][k] = in ? q[k * ps] : 0.0f;
         }
+        // the taps in the parent's order, by the same fused multiply-adds
+#pragma unroll
+        for (int a = 0; a < 4; ++a) {
+#pragma unroll
+            for (int k = 0; k < 10; ++k) g[k] = __fmaf_rn(w[a], v[a][k], g[k]);
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < 10; ++k) out[k * hw + i] = g[k];
+}
+
+// K5/K6's source codes: a source's motion floors (fy, fx) packed as
+// ((fy + kCodeBias) << 16) + fx + kCodeBias, and kNoSource for a pixel
+// that adds to no texel of the block (rejected, outside the tile, or
+// reaching no texel of the block).  For candidate offset (oy, ox),
+// d = ((oy + kCodeBias) << 16) + ox + kCodeBias - code is
+// ((oy - fy) << 16) + (ox - fx), which is 0, 1, 0x10000 or 0x10001
+// exactly when (oy - fy, ox - fx) is in {0, 1}^2: one subtraction and one
+// mask a candidate.
+constexpr int kCodeBias = 1024;
+constexpr int kNoSource = 0x7fff7fff;
+
+// K5's motion term at pixel (y, x) of the tile: the sums of the kernel
+// that this one replaced, in its order and in its loops (with the
+// cotangents held in registers, K5 ran 1.06x slower on a served frame).
+template <bool TILE>
+__device__ __forceinline__ void motion_term(
+    const float* __restrict__ hist, const float* __restrict__ motion,
+    const float* __restrict__ g, float* __restrict__ dm, int H, int W,
+    int M, int np, const TemporalTile& t, int y, int x) {
+    const int hw = H * W, i = y * W + x;
+    const int hm = TILE ? t.h_m : 0, rs = TILE ? t.h_rs : W;
+    const int ps = TILE ? t.h_ps : hw;
+    const float m0 = motion[i], m1 = motion[hw + i];
+    if (!(fabsf(m0) <= (float)M && fabsf(m1) <= (float)M)) {
+        dm[i] = 0.0f;
+        dm[hw + i] = 0.0f;
         return;
     }
     const float y0 = floorf(m0), x0 = floorf(m1);
-    for (int ay = 0; ay <= 1; ++ay) {
-        const float dyf = y0 + (float)ay;
-        const float ty = tent(m0 - dyf);
-        const int ry = y + (int)dyf;
-        for (int ax = 0; ax <= 1; ++ax) {
-            const float dxf = x0 + (float)ax;
-            const float tx = tent(m1 - dxf);
-            const int rx = x + (int)dxf;
-            if (!tap_inside<TILE>(t, H, W, y, x, (int)dyf, (int)dxf)) continue;
-            const float w = ty * tx;
-            const int q = hidx<TILE>(t, W, ry, rx);
-            for (int c = 0; c < np; ++c) {
-                atomicAdd(&dh[c * hps + q], w * g[c * hw + i]);
-            }
-        }
-    }
-    if (!motion_grad) return;
     float dm0 = 0.0f, dm1 = 0.0f;
     for (int ay = -1; ay <= 1; ++ay) {
         const float dyf = y0 + (float)ay;
@@ -551,10 +631,10 @@ __global__ void gather_bwd_kernel(const float* __restrict__ hist,
             const int rx = x + (int)dxf;
             const bool ok = row_ok && dxf >= (float)-M && dxf <= (float)(M + 1)
                 && tap_inside<TILE>(t, H, W, y, x, (int)dyf, (int)dxf);
-            const int q = hidx<TILE>(t, W, ry, rx);
+            const int q = (ry + hm) * rs + rx + hm;
             float gdot = 0.0f;
             for (int c = 0; c < np; ++c) {
-                gdot = gdot + g[c * hw + i] * (ok ? hist[c * hps + q] : 0.0f);
+                gdot = gdot + g[c * hw + i] * (ok ? hist[c * ps + q] : 0.0f);
             }
             dm0 = dm0 + (typ * tx) * gdot;
             dm1 = dm1 + (ty * txp) * gdot;
@@ -562,6 +642,118 @@ __global__ void gather_bwd_kernel(const float* __restrict__ hist,
     }
     dm[i] = dm0;
     dm[hw + i] = dm1;
+}
+
+// K5 (MG, with hist) / K6: the adjoint of K4 (see the header), d_hist's
+// leading np <= NP planes (the others 0), every texel of dh written once,
+// then K5's motion term at the texel's pixel of the tile.  A block is a
+// KT_X x KT_Y tile of texels of the history canvas.  Shared memory, for
+// the block's source region: its motion planes (staged by cp.async), then
+// the sources' codes.
+template <bool TILE, bool MG, int NP>
+__global__ void __launch_bounds__(KT_X * KT_Y)
+gather_bwd_kernel(const float* __restrict__ hist,
+                  const float* __restrict__ motion,
+                  const float* __restrict__ g, float* __restrict__ dh,
+                  float* __restrict__ dm, int H, int W, int M, int np,
+                  TemporalTile t) {
+    extern __shared__ float sm[];
+    __shared__ int red[KT_Y][4];
+    const int hw = H * W;
+    const int hm = TILE ? t.h_m : 0, rs = TILE ? t.h_rs : W;
+    const int ps = TILE ? t.h_ps : hw;
+    // the block's first texel of the history canvas at (cy0, cx0), at
+    // (qy0, qx0) in tile coordinates
+    const int cx0 = blockIdx.x * KT_X, cy0 = blockIdx.y * KT_Y;
+    const int qx0 = cx0 - hm, qy0 = cy0 - hm;
+    // the sources that can reach the block: rows qy0 - M - 1 .. qy0 +
+    // KT_Y - 1 + M, columns likewise
+    const int rh = KT_Y + 2 * M + 1, rw = KT_X + 2 * M + 1, n = rh * rw;
+    const int ry0 = qy0 - M - 1, rx0 = qx0 - M - 1;
+    float* s0 = sm;
+    float* s1 = sm + n;
+    int* code = reinterpret_cast<int*>(sm + 2 * n);
+    for (int ry = threadIdx.y; ry < rh; ry += KT_Y) {
+        const int sy = ry0 + ry;
+        for (int rx = threadIdx.x; rx < rw; rx += KT_X) {
+            const int sx = rx0 + rx;
+            const bool in = sy >= 0 && sy < H && sx >= 0 && sx < W;
+            const float* src = motion + (in ? sy * W + sx : 0);
+            cp_async4_or_zero(s0 + ry * rw + rx, src, in);
+            cp_async4_or_zero(s1 + ry * rw + rx, src + hw, in);
+        }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    int y_lo = kNoLo, y_hi = kNoHi, x_lo = kNoLo, x_hi = kNoHi;
+    for (int ry = threadIdx.y; ry < rh; ry += KT_Y) {
+        const int sy = ry0 + ry;
+        for (int rx = threadIdx.x; rx < rw; rx += KT_X) {
+            const int sx = rx0 + rx, e = ry * rw + rx;
+            const float m0 = s0[e], m1 = s1[e];
+            int c = kNoSource;
+            if (sy >= 0 && sy < H && sx >= 0 && sx < W
+                && fabsf(m0) <= (float)M && fabsf(m1) <= (float)M) {
+                const int fy = (int)floorf(m0), fx = (int)floorf(m1);
+                // its taps' top left, relative to the block
+                const int ay = sy + fy - qy0, ax = sx + fx - qx0;
+                if (ay >= -1 && ay < KT_Y && ax >= -1 && ax < KT_X) {
+                    c = ((fy + kCodeBias) << 16) + fx + kCodeBias;
+                    y_lo = min(y_lo, fy);
+                    y_hi = max(y_hi, fy);
+                    x_lo = min(x_lo, fx);
+                    x_hi = max(x_hi, fx);
+                }
+            }
+            code[e] = c;
+        }
+    }
+    const FloorRange r = block_floor_range(y_lo, y_hi, x_lo, x_hi, red);
+    const int cx = cx0 + threadIdx.x, cy = cy0 + threadIdx.y;
+    if (cy >= H + 2 * hm || cx >= W + 2 * hm) return;
+    const int qx = qx0 + threadIdx.x, qy = qy0 + threadIdx.y;
+    float acc[NP];
+#pragma unroll
+    for (int c = 0; c < NP; ++c) acc[c] = 0.0f;
+    if (!TILE || tap_inside<TILE>(t, H, W, qy, qx, 0, 0)) {
+        // candidate offsets o = q - p: floor .. floor + 1 of the block's
+        // floors; for each row of offsets, the lanes mark their matches in
+        // a mask (32 offsets at a time), then add them in order (offset
+        // rows, then columns, ascending)
+        const int nx = r.x_hi - r.x_lo + 2;
+        for (int oy = r.y_lo; oy <= r.y_hi + 1; ++oy) {
+            const int ty = ((oy + kCodeBias) << 16) + kCodeBias;
+            // the region index of source (qy - oy, qx)
+            const int row = (qy - oy - ry0) * rw + qx - rx0;
+            for (int k0 = 0; k0 < nx; k0 += 32) {
+                const int kn = min(nx - k0, 32);
+                const int ox0 = r.x_lo + k0;
+                unsigned mask = 0u;
+                for (int k = 0; k < kn; ++k) {
+                    const int d = ty + ox0 + k - code[row - ox0 - k];
+                    mask |= ((d & 0xfffefffe) == 0 ? 1u : 0u) << k;
+                }
+                while (mask) {
+                    const int k = __ffs(mask) - 1;
+                    mask &= mask - 1u;
+                    const int ox = ox0 + k, e = row - ox;
+                    // the twin's weight: tent(m0 - dyf) * tent(m1 - dxf)
+                    const float w = tent(s0[e] - (float)oy)
+                        * tent(s1[e] - (float)ox);
+                    const float* gs = g + (qy - oy) * W + qx - ox;
+#pragma unroll
+                    for (int c = 0; c < NP; ++c) {
+                        if (c < np) acc[c] = acc[c] + w * gs[c * hw];
+                    }
+                }
+            }
+        }
+    }
+    float* d = dh + cy * rs + cx;
+#pragma unroll
+    for (int c = 0; c < 10; ++c) d[c * ps] = c < NP ? acc[c] : 0.0f;
+    if (MG && qy >= 0 && qy < H && qx >= 0 && qx < W)
+        motion_term<TILE>(hist, motion, g, dm, H, W, M, np, t, qy, qx);
 }
 
 // The clamped gather's tap geometry at pixel (y, x) of an H x W frame:
@@ -998,8 +1190,8 @@ extern "C" int rdt_temporal(const float* render, const float* motion,
 extern "C" int rdt_gather(const float* stack, const float* motion, float* out,
                           int H, int W, int max_motion,
                           const TemporalTile* tile, void* stream) {
-    dim3 block(32, 8);
-    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+    const dim3 block(KT_X, KT_Y);
+    const dim3 grid((W + KT_X - 1) / KT_X, (H + KT_Y - 1) / KT_Y);
     cudaStream_t s = (cudaStream_t)stream;
     const TemporalTile t = tile ? *tile : TemporalTile{};
     if (tile) {
@@ -1012,25 +1204,60 @@ extern "C" int rdt_gather(const float* stack, const float* motion, float* out,
     return (int)cudaGetLastError();
 }
 
-// K5/K6, K5c/K6c (tile given); dh (the history canvas's shape) must be
-// zeroed.
+// K5/K6's shared memory: the motion (two floats) and the code of each of
+// a gather block's (KT_Y + 2M + 1) x (KT_X + 2M + 1) sources.
+static size_t gather_bwd_smem(int M) {
+    const size_t n = (size_t)(KT_Y + 2 * M + 1) * (KT_X + 2 * M + 1);
+    return (2 * sizeof(float) + sizeof(int)) * n;
+}
+
+template <bool TILE, bool MG, int NP>
+static int launch_gather_bwd(const float* hist, const float* motion,
+                             const float* g, float* dh, float* dm, int H,
+                             int W, int M, int np, const TemporalTile& t,
+                             cudaStream_t s) {
+    const size_t smem = gather_bwd_smem(M);
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            gather_bwd_kernel<TILE, MG, NP>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int hm = TILE ? t.h_m : 0;
+    const dim3 block(KT_X, KT_Y);
+    const dim3 grid((W + 2 * hm + KT_X - 1) / KT_X,
+                    (H + 2 * hm + KT_Y - 1) / KT_Y);
+    gather_bwd_kernel<TILE, MG, NP><<<grid, block, smem, s>>>(
+        hist, motion, g, dh, dm, H, W, M, np, t);
+    return (int)cudaGetLastError();
+}
+
+// K5/K6, K5c/K6c (tile given): dh (the history canvas's shape) is written
+// whole; dm is written by K5 (motion_grad) only.
 extern "C" int rdt_gather_bwd(const float* hist, const float* motion,
                               const float* g, float* dh, float* dm, int H,
                               int W, int max_motion, int grad_planes,
                               int motion_grad, const TemporalTile* tile,
                               void* stream) {
-    dim3 block(32, 8);
-    dim3 grid((W + block.x - 1) / block.x, (H + block.y - 1) / block.y);
+    if (grad_planes < 1 || grad_planes > 10 || max_motion < 0
+        || max_motion > kCodeBias - 2) {
+        return (int)cudaErrorInvalidValue;
+    }
     cudaStream_t s = (cudaStream_t)stream;
     const TemporalTile t = tile ? *tile : TemporalTile{};
+    const int M = max_motion, np = grad_planes;
+#define RDT_GATHER_BWD(T, MG, NP)                                          \
+    return launch_gather_bwd<T, MG, NP>(hist, motion, g, dh, dm, H, W, M,  \
+                                         np, t, s)
+#define RDT_GATHER_BWD_NP(T, MG)                                           \
+    if (np <= 6) { RDT_GATHER_BWD(T, MG, 6); }                             \
+    RDT_GATHER_BWD(T, MG, 10)
     if (tile) {
-        gather_bwd_kernel<true><<<grid, block, 0, s>>>(
-            hist, motion, g, dh, dm, H, W, max_motion, grad_planes,
-            motion_grad, t);
-    } else {
-        gather_bwd_kernel<false><<<grid, block, 0, s>>>(
-            hist, motion, g, dh, dm, H, W, max_motion, grad_planes,
-            motion_grad, t);
+        if (motion_grad) { RDT_GATHER_BWD_NP(true, true); }
+        RDT_GATHER_BWD_NP(true, false);
     }
-    return (int)cudaGetLastError();
+    if (motion_grad) { RDT_GATHER_BWD_NP(false, true); }
+    RDT_GATHER_BWD_NP(false, false);
+#undef RDT_GATHER_BWD_NP
+#undef RDT_GATHER_BWD
 }

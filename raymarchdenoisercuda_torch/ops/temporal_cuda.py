@@ -292,6 +292,11 @@ def gather_canvas_cuda(canvas: torch.Tensor, motion: torch.Tensor,
 gather_canvas_cuda.launches = 0
 
 
+# K5/K6 stage the motion and codes of a 32 x 8 block's (9 + 2M) x (33 + 2M)
+# sources, 12 bytes each, in the 227 KB of shared memory a block can have
+GATHER_BWD_MAX_MOTION = 59
+
+
 def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
                 tile=None, canvas_shape=None):
     H, W = g.shape[-2:]
@@ -300,6 +305,10 @@ def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
     if not 1 <= grad_planes <= N_HIST_PLANES:
         raise ValueError(f"grad_planes must be in 1..{N_HIST_PLANES}, "
                          f"got {grad_planes}")
+    if max_motion > GATHER_BWD_MAX_MOTION:
+        raise ValueError(f"the card's K5/K6 take max_motion <= "
+                         f"{GATHER_BWD_MAX_MOTION} (a block's sources in "
+                         f"shared memory), got {max_motion}")
     shape = (N_HIST_PLANES, H, W) if tile is None else tuple(
         stack.shape if stack is not None else canvas_shape)
     if tile is not None:
@@ -308,7 +317,8 @@ def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
         (motion, "motion", (2, H, W)), (g, "g", (N_HIST_PLANES, H, W)))]
     hist_ptr = (_build.check_input(stack, "stack", shape, f32, dev)
                 if motion_grad else None)
-    dh = torch.zeros(shape, dtype=f32, device=dev)
+    # the kernel writes every texel of d_hist, zeros beyond grad_planes
+    dh = torch.empty(shape, dtype=f32, device=dev)
     dm = (torch.empty if motion_grad else torch.zeros)(
         (2, H, W), dtype=f32, device=dev)
     t = _canvas_tile(shape, H, tile)
@@ -322,8 +332,9 @@ def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
 def gather_bwd_cuda(stack, motion, g, max_motion: int, *,
                     grad_planes: int = N_HIST_PLANES):
     """K5: the full adjoint of K4 (``d_hist`` and ``d_motion``), as
-    ``gather_bwd_ref(motion_grad=True)``.  ``d_hist`` sums by atomics, in
-    no fixed order.  Each launch adds one to ``gather_bwd_cuda.launches``."""
+    ``gather_bwd_ref(motion_grad=True)``.  ``d_hist`` is a gather, each
+    texel's addends in a fixed order: the same on every launch.  Each
+    launch adds one to ``gather_bwd_cuda.launches``."""
     _build.check_no_grad("gather_bwd_cuda", stack, motion, g)
     if not g.is_cuda:
         return gather_bwd_ref(stack, motion, g, max_motion, motion_grad=True,

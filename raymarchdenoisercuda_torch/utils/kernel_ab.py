@@ -2,7 +2,7 @@
 
     python3 -m raymarchdenoisercuda_torch.utils.kernel_ab --parent DIR \\
         [--out build/kernel_ab.json] [--only REGEX] [--rounds N]
-        [--device-time]
+        [--device-time] [--by-kernel]
 
 ``DIR`` holds another checkout of the repository (an earlier commit,
 unpacked with ``git archive``).  Its package is imported beside this one
@@ -47,20 +47,30 @@ only is given the planar one), and after the served step's stack (each
 tree's: KGp, or the planar ``cat``); and KGb, its adjoint, on the same
 inputs and layouts with both gradients, the history's only and the
 motion's only: its motion gradient bit for bit, its history gradient (a
-float64 sum in the atomics' order) to within rounding.  For each case it
+float64 sum in the atomics' order) to within rounding; K4, K5 and K6 (6
+gradient planes) on uniform random motion to ±7 pixels (``chip_smoke.py``
+phase 3's kind), its rounding, zero motion and the served frame's, and
+K4c, K5c and K6c on the history canvases of the quarter tiles of a frame
+of twice the sides (random and served motion, phase 10(a)'s cut): K4,
+K4c and the motion gradients bit for bit, the history gradients to within
+rounding (an earlier tree's K5/K6 add by atomics, in no fixed order).
+For each case it
 prints whether every output is bit-equal to the other tree's
 (``torch.equal``) and the largest difference, and times both trees in
 turn, ``--rounds`` times each (default 2: this, other, this, other; with
 more, the medians and spreads too), 20 launches a time, by CUDA events
 around the launches or, with ``--device-time``, by the device time of
 their kernels and memsets under the profiler (without the host's work,
-which the events' wall holds for a short kernel).
+which the events' wall holds for a short kernel); ``--rounds 0`` compares
+the outputs only, and ``--by-kernel`` prints each tree's device time a
+call by kernel (and memset or fill) under the profiler.
 It prints ptxas's registers, stack and spills of the à-trous, march,
 shading, shadow, temporal, cone, cross-bilateral and clamped-gather
 kernels of each tree it builds (a library
 built before is loaded as it is), and the card's name and power limit.
-It exits non-zero if an output held bit for bit differs, or if KGb's
-history gradient differs by more than rtol 1e-5.
+It exits non-zero if an output held bit for bit differs, or if one held
+within rounding differs by more than rtol 1e-5 (atol 1e-6 of its largest
+magnitude).
 """
 
 from __future__ import annotations
@@ -79,13 +89,18 @@ import numpy as np
 import torch
 
 from ..ops.cuda._build import parse_resources
-from .seeded_inputs import (clamped_inputs, served_clamped_inputs,
-                            served_inputs)
-from .timing import cuda_time_ms, device_ms, nvidia_smi_name_power
+from .seeded_inputs import (clamped_inputs, gather_inputs,
+                            served_clamped_inputs, served_inputs)
+from .timing import (cuda_time_ms, device_ms, device_ms_by_kernel,
+                     nvidia_smi_name_power)
 
 PACKAGE = "raymarchdenoisercuda_torch"
 REPEATS = 20
 FRAME = (1080, 1920)                 # the main paths' frame (H, W)
+# K4-K6's motions at FRAME, and K4c-K6c's on the quarter tiles of a frame
+# of twice its sides (seeded_inputs.gather_inputs)
+GATHER_KINDS = ("random", "integer", "zero", "served")
+GATHER_KINDS_UHD = ("random", "served")
 
 
 def load_tree(root: Path, alias: str):
@@ -222,7 +237,10 @@ def temporal_inputs(dev):
     twice its sides, and the served frame's; KG's and KGb's under
     ``"clamped"``: phase 3's (uniform random motion to ±28 pixels), motion
     0, ±3 and ±80 pixels, the served frame's (``max_motion=None``) and
-    phase 3's on a frame one row and three columns short."""
+    phase 3's on a frame one row and three columns short; K4-K6's under
+    ``"gather"`` (random motion to ±7 pixels, integer, zero and the served
+    frame's) and K4c-K6c's under ``"gather uhd"`` (random and served, at
+    twice the sides)."""
     H, W = FRAME
     clamped = {f"motion {m:g}": clamped_inputs(H, W, dev, 2.0 * m)
                for m in (28, 0, 3, 80)}
@@ -230,7 +248,10 @@ def temporal_inputs(dev):
     clamped["odd frame"] = clamped_inputs(H - 1, W - 3, dev)
     return dict(frame=temporal_planes(H, W, dev, 21),
                 uhd=temporal_planes(2 * H, 2 * W, dev, 22),
-                served=served_inputs(H, W, dev), clamped=clamped)
+                served=served_inputs(H, W, dev), clamped=clamped,
+                gather={k: gather_inputs(H, W, dev, k) for k in GATHER_KINDS},
+                gather_uhd={k: gather_inputs(2 * H, 2 * W, dev, k)
+                            for k in GATHER_KINDS_UHD})
 
 
 def cases(P, U, cots, S, M, T):
@@ -570,6 +591,54 @@ def _cases(P, U, cots, S, M, T):
                        tuple(ex for ex, keep in zip((False, True), grads)
                              if keep))
 
+    def gather(tree, kind, k, quarter=None):
+        # K4 (k = 4), K5 (5) or K6 (6), 6 gradient planes; with
+        # ``quarter``, K4c/K5c/K6c on the history canvas (margin
+        # max_motion + 1) of that quarter tile of the frame of twice the
+        # sides, as chip_smoke.py phase 10(a) cuts it
+        M = tree.SVGFParams().max_motion
+        tc = tree.temporal_cuda
+        if quarter is None:
+            stack, motion, g = T["gather"][kind]
+            if k == 4:
+                return lambda: (tc.gather_cuda(stack, motion, M),)
+            if k == 5:
+                return lambda: tuple(tc.gather_bwd_cuda(
+                    stack, motion, g, M, grad_planes=6))
+            return lambda: tuple(tc.gather_bwd_hist_cuda(
+                motion, g, M, grad_planes=6))
+        stack, motion, g = T["gather_uhd"][kind]
+        H2, W2 = motion.shape[-2:]
+        th, tw = H2 // 2, W2 // 2
+        tile = tree.common.Tile(((quarter // 2) * th, (quarter % 2) * tw),
+                                (H2, W2))
+        canvas = tree.common.frame_canvas(stack, tile, th, tw, M + 1)
+        gy, gx = tile.origin
+        m_t, g_t = (x[..., gy:gy + th, gx:gx + tw].contiguous()
+                    for x in (motion, g))
+        if k == 4:
+            return lambda: (tc.gather_canvas_cuda(canvas, m_t, M,
+                                                  tile=tile),)
+        if k == 5:
+            return lambda: tuple(tc.gather_canvas_bwd_cuda(
+                canvas, m_t, g_t, M, tile=tile, grad_planes=6))
+        return lambda: tuple(tc.gather_canvas_bwd_hist_cuda(
+            m_t, g_t, M, tile=tile, canvas_shape=canvas.shape,
+            grad_planes=6))
+
+    # K4/K4c and the motion gradient bit-equal; the history gradient within
+    # rounding (the parent's adjoint adds by atomics, in no fixed order)
+    for k in (4, 5, 6):
+        exact = True if k == 4 else (False, True)
+        for kind in GATHER_KINDS:
+            yield (f"K{k} {kind}",
+                   lambda t, kind=kind, k=k: gather(t, kind, k), exact)
+        for kind in GATHER_KINDS_UHD:
+            for q in range(4):
+                yield (f"K{k}c {kind} quarter tile {q}",
+                       lambda t, kind=kind, k=k, q=q: gather(t, kind, k, q),
+                       exact)
+
     def k15(tree, name, route):
         # phase 3's camera and rays; "quarter": the window at (H, W) of a
         # frame of twice the sides
@@ -644,7 +713,7 @@ def compare(a, b):
 _ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
                      r"shade_kernel|march_kernel|shadow_kernel|"
                      r"temporal_kernel|cone\w*kernel|cross_bilateral\w*kernel|"
-                     r"clamped_gather\w*kernel|round_planes_kernel)"
+                     r"(clamped_)?gather\w*kernel|round_planes_kernel)"
                      r"(I\w*?EE)?")
 
 
@@ -675,11 +744,15 @@ def main(argv=None) -> int:
     ap.add_argument("--only", default=None,
                     help="run the cases whose name matches this regex")
     ap.add_argument("--rounds", type=int, default=2,
-                    help="time this tree, then the other, this many times")
+                    help="time this tree, then the other, this many times "
+                         "(0: compare the outputs only)")
     ap.add_argument("--device-time", action="store_true",
                     help="time a call by its device time under the "
                          "profiler (kernels and memsets), not by CUDA "
                          "events around back-to-back calls")
+    ap.add_argument("--by-kernel", action="store_true",
+                    help="print each tree's device time a call by kernel "
+                         "(and memset or fill) under the profiler")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("kernel_ab: no CUDA device", file=sys.stderr)
@@ -741,14 +814,21 @@ def main(argv=None) -> int:
                              ms_this=mine, ms_other=theirs))
             verdict = ("bit-equal" if equal else "within rounding" if ok
                        else "DIFFERS")
-            print(f"{name}: {verdict} (max |diff| {diff:.3g}); ms this "
-                  f"{' '.join(f'{t:.4f}' for t in mine)}, other "
-                  f"{' '.join(f'{t:.4f}' for t in theirs)}, ratio "
-                  f"{sum(mine) / sum(theirs):.3f}" + (
-                      f", medians {np.median(mine):.4f} / "
-                      f"{np.median(theirs):.4f} (spread "
-                      f"{_spread(mine):.1%} / {_spread(theirs):.1%})"
-                      if args.rounds > 2 else ""), flush=True)
+            print(f"{name}: {verdict} (max |diff| {diff:.3g})" + (
+                f"; ms this {' '.join(f'{t:.4f}' for t in mine)}, other "
+                f"{' '.join(f'{t:.4f}' for t in theirs)}, ratio "
+                f"{sum(mine) / sum(theirs):.3f}" if ms else "") + (
+                    f", medians {np.median(mine):.4f} / "
+                    f"{np.median(theirs):.4f} (spread "
+                    f"{_spread(mine):.1%} / {_spread(theirs):.1%})"
+                    if args.rounds > 2 else ""), flush=True)
+            if args.by_kernel:
+                for label, f in (("this", fa), ("other", fb)):
+                    split = device_ms_by_kernel(f, REPEATS)
+                    print(f"  {label} by kernel: " + ", ".join(
+                        f"{k[:60]} {v:.4f}" for k, v in sorted(
+                            split.items(), key=lambda kv: -kv[1])),
+                        flush=True)
             if not ok:
                 bad.append(name)
             del fa, fb

@@ -7,6 +7,7 @@ forward and backward on one GPU.
     python3 -m raymarchdenoisercuda_torch.utils.profile serve --unbounded
     python3 -m raymarchdenoisercuda_torch.utils.profile spatial --mode recompute
     python3 -m raymarchdenoisercuda_torch.utils.profile clamped
+    python3 -m raymarchdenoisercuda_torch.utils.profile temporal [--served]
 
 At 1920x1080: runs 3 warm-up steps, times ``--steps`` more without the
 profiler, then traces as many with ``torch.profiler`` (CPU and CUDA
@@ -27,8 +28,13 @@ with ``max_motion=None``), the history stacked channel-minor by KGp as the
 unbounded step stacks it: the stack's build (KGp, and the planar ``cat``
 of ``history_stack`` that the bounded paths make), KG, and KGb with both
 gradients, with the history's only and with the motion's only, each split
-into its kernels, memsets and fills.  Needs a CUDA device; the CPU has
-nothing to measure here.
+into its kernels, memsets and fills.  ``temporal`` profiles
+``chip_smoke.py`` phase 6's gradient pass, ``svgf_denoise_frame(temporal=
+"ad")`` forward and backward with respect to motion and the history's
+colour (K4, then K5) on seeded planes with uniform random motion to ±6
+pixels or, with ``--served``, on the served frame's inputs (the ninth
+orbit frame's).  Needs a CUDA device; the CPU
+has nothing to measure here.
 """
 
 from __future__ import annotations
@@ -121,6 +127,45 @@ def _spatial_runner(H, W, dev, mode, radius):
     return run
 
 
+def _temporal_runner(H, W, dev, served):
+    """Phase 6's K5 pass: the denoised frame's mean square differentiated
+    with respect to the motion and the history's colour through
+    ``svgf_denoise_frame(temporal="ad")`` (config 4's SVGF)."""
+    from ..gbuffer import GBuffer
+    from ..models.svgf import svgf_denoise_frame
+    from .seeded_inputs import served_inputs
+    params = SVGFParams(iterations=5, radius=1)
+    if served:
+        gbuf, hist = served_inputs(H, W, dev)
+    else:
+        rng = np.random.default_rng(5)
+
+        def t(a):
+            return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+        n = rng.standard_normal((3, H, W))
+        n[2] += 3.0
+        n /= np.sqrt((n ** 2).sum(0, keepdims=True))
+        color, depth = t(rng.random((3, H, W))), t(0.3 + 0.5 * rng.random(
+            (H, W)))
+        gbuf = GBuffer(render=color, albedo=torch.full_like(color, 0.7),
+                       normal=t(n), depth=depth,
+                       motion=t((rng.random((2, H, W)) - 0.5) * 12.0))
+        hist = History(color=t(rng.random((3, H, W))),
+                       moments=t(rng.random((2, H, W))),
+                       length=t(np.floor(rng.random((H, W)) * 6)),
+                       prev_depth=depth, prev_normal=gbuf.normal)
+
+    def run():
+        m = gbuf.motion.detach().requires_grad_()
+        hc = hist.color.detach().requires_grad_()
+        out, _ = svgf_denoise_frame(gbuf.replace(motion=m),
+                                    hist.replace(color=hc), params=params,
+                                    temporal="ad")
+        (out.denoised ** 2).mean().backward()
+    return run
+
+
 def clamped_split(stack, motion, g, calls):
     """``[(what, {kernel: ms})]``: KG and KGb (both gradients, the history's
     only, the motion's only) on one input, by kernel."""
@@ -152,7 +197,8 @@ def _clamped(H, W, dev, calls):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("path", choices=("train", "serve", "spatial", "clamped"))
+    ap.add_argument("path", choices=("train", "serve", "spatial", "clamped",
+                                     "temporal"))
     ap.add_argument("--mode", choices=tuple(SPATIAL_MODES),
                     default="stored", help="spatial: the adjoint mode")
     ap.add_argument("--radius", type=int, default=1, help="spatial: radius")
@@ -160,6 +206,8 @@ def main(argv=None) -> int:
                     help="serve: with the cone seed (coarse_seed)")
     ap.add_argument("--unbounded", action="store_true",
                     help="serve: with SVGFParams(max_motion=None)")
+    ap.add_argument("--served", action="store_true",
+                    help="temporal: on the served frame's inputs")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
     args = ap.parse_args(argv)
@@ -177,6 +225,8 @@ def main(argv=None) -> int:
         run = _spatial_runner(H, W, dev, args.mode, args.radius)
     elif args.path == "serve":
         run = _serve_runner(H, W, dev, args.seeded, args.unbounded)
+    elif args.path == "temporal":
+        run = _temporal_runner(H, W, dev, args.served)
     else:
         run = _train_runner(H, W, dev)
     for _ in range(3):
@@ -200,7 +250,8 @@ def main(argv=None) -> int:
     what = (f"spatial {args.mode} r{args.radius}" if args.path == "spatial"
             else args.path + " seeded" * args.seeded
             + " unbounded" * args.unbounded if args.path == "serve"
-            else args.path)
+            else args.path + " served" * args.served
+            if args.path == "temporal" else args.path)
     print(f"{what} {W}x{H}: wall {wall:.3f} ms/step unprofiled; device "
           f"busy {busy:.3f} ms/step under the profiler "
           f"({100 * busy / wall:.1f} % of the unprofiled wall)")

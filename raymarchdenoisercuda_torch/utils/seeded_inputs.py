@@ -1,9 +1,10 @@
 """Seeded inputs of the temporal kernels, as ``chip_smoke.py`` phase 3,
 ``utils/kernel_ab.py`` and ``utils/profile.py clamped`` give them: the
 served frame's (the Cornell box through ``FramePipeline`` for the orbit
-frames before the ninth) and the clamped gather's (KG, KGb) on random
-motion and on the served frame.  Each takes the frame's sides and the
-device; the same arguments give the same tensors.
+frames before the ninth), the bounded gather's (K4-K6) and the clamped
+gather's (KG, KGb), each on random motion and on the served frame.  Each
+takes the frame's sides and the device; the same arguments give the same
+tensors.
 """
 
 from __future__ import annotations
@@ -61,6 +62,29 @@ def clamped_inputs(H, W, dev, scale=56.0):
     motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5)
                                * scale).astype(np.float32)).to(dev)
     return stack, motion, _cotangent(rng, H, W, dev)
+
+
+def gather_inputs(H, W, dev, kind="random", max_motion=6):
+    """``(stack, motion, g)``: the bounded gather's (K4) and its adjoints'
+    (K5/K6) inputs, a seeded planar (10, H, W) history stack, motion and a
+    cotangent of the 10 planes.  ``kind``: "random", uniform random motion
+    to ±(max_motion + 1) pixels (``chip_smoke.py`` phase 3's kind: some
+    pixels beyond max_motion); "integer", the same rounded; "zero";
+    "served", the served frame's history stack and motion (the camera's,
+    coherent) in place of the seeded ones."""
+    rng = np.random.default_rng(15)
+    stack = torch.from_numpy(rng.random((10, H, W),
+                                        dtype=np.float32)).to(dev)
+    m = (rng.random((2, H, W)) - 0.5) * 2 * (max_motion + 1)
+    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    if kind == "served":
+        from ..ops.temporal import history_stack
+        gbuf, hist = served_inputs(H, W, dev)
+        return history_stack(hist), gbuf.motion, g
+    m = {"random": m, "integer": np.round(m),
+         "zero": np.zeros_like(m)}[kind]
+    return stack, torch.from_numpy(m.astype(np.float32)).to(dev), g
 
 
 def served_clamped_inputs(H, W, dev):

@@ -17,7 +17,11 @@ K1's stored bf16 weights within one bf16 step (rtol 2^-7: expf and
 torch.exp can round a weight to either side of a bf16 rounding boundary;
 fast weights also move by up to 1.4e-4 at the polynomial's seams) and N
 as K1's values; K2 rtol 1e-6 (same operations in the same order); K4 and
-K5/K6 rtol 1e-5, atol 1e-6 (K5/K6 add by atomics, in no fixed order); the
+K5/K6 rtol 1e-5, atol 1e-6 (K5/K6 add a texel's addends in another order
+than the twin's), on random, integer, zero and the served frame's motion,
+motion at ±M and ±(M + 1), a 1079 x 1917 frame and the canvas forms at the
+frame's corners; K5, K6, K5c and K6c bit-equal on a second and third
+launch (a fixed summation order) at 1080p; the
 2-step train step, kernel path against plain path, loss rtol 1e-5,
 albedo gradient atol 3e-3·max (the stored bf16 weights; the plain path
 differentiates the float weights), updated albedo atol 1e-5.  Filters and
@@ -115,6 +119,7 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     temporal_accumulate_cuda)
 from raymarchdenoisercuda_torch.parallel import sharded
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
+from raymarchdenoisercuda_torch.utils.seeded_inputs import gather_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -339,24 +344,92 @@ def test_k1_store_mode_and_k2_match_plain(dev, radius, weight_math):
                                        atol=1e-12 * float(b.abs().max()))
 
 
-def _motion(dev, kind, seed, M=6):
+def _motion(dev, kind, seed, M=6, H=H, W=W):
     rng = np.random.default_rng(seed)
     m = (rng.random((2, H, W)) - 0.5) * 2 * (M + 1)   # some beyond M
     if kind == "zero":
         m = np.zeros((2, H, W))
     elif kind == "integer":
         m = np.round(m)
+    elif kind == "at M and M+1":
+        # a third of the pixels exactly at ±M (accepted; the upper tap's
+        # weight is 0) or ±(M + 1) (rejected) on either axis
+        edge = rng.choice([-M - 1.0, -M, M, M + 1.0], size=(2, H, W))
+        m = np.where(rng.random((2, H, W)) < 1 / 3, edge, m)
     return torch.from_numpy(m.astype(np.float32)).to(dev)
 
 
-@pytest.mark.parametrize("kind", ["zero", "integer", "fractional"])
+_SERVED = {}
+
+
+def _served_gather_inputs(dev, H, W):
+    """The served frame's history stack and motion (the camera's) with a
+    seeded cotangent, computed once a size."""
+    if (H, W) not in _SERVED:
+        _SERVED[H, W] = gather_inputs(H, W, dev, "served")
+    return _SERVED[H, W]
+
+
+def _corner_tiles(H, W):
+    """Tiles of ``H // 2 x W // 2`` at the frame's four corners."""
+    th, tw = H // 2, W // 2
+    for gy, gx in ((0, 0), (0, W - tw), (H - th, 0), (H - th, W - tw)):
+        yield Tile((gy, gx), (H, W)), th, tw
+
+
+def _check_canvas_gathers(stack, motion, g, M, tiles, tol):
+    """K4c, K5c and K6c on each tile's history canvas (margin M + 1) against
+    their twins, K4c bit-equal to the whole frame's K4 and K5c's motion
+    gradient to the whole frame's K5 within ``tol``."""
+    whole4 = gather_cuda(stack, motion, M)
+    whole5 = gather_bwd_cuda(stack, motion, g, M, grad_planes=6)
+    for tile, th, tw in tiles:
+        canvas = frame_canvas(stack, tile, th, tw, M + 1)
+        m_t, g_t = _crop(motion, tile, th, tw), _crop(g, tile, th, tw)
+        k4 = gather_canvas_cuda(canvas, m_t, M, tile=tile)
+        np.testing.assert_array_equal(_np(k4), _np(_crop(whole4, tile, th,
+                                                         tw)))
+        np.testing.assert_allclose(
+            _np(k4), _np(temporal.gather_ref(canvas, m_t, M, tile=tile)),
+            **tol)
+        k5 = gather_canvas_bwd_cuda(canvas, m_t, g_t, M, tile=tile,
+                                    grad_planes=6)
+        want = temporal.gather_bwd_ref(canvas, m_t, g_t, M, motion_grad=True,
+                                       grad_planes=6, tile=tile)
+        for a, b in zip(k5, want):
+            np.testing.assert_allclose(_np(a), _np(b), **tol)
+        k6 = gather_canvas_bwd_hist_cuda(m_t, g_t, M, tile=tile,
+                                         canvas_shape=canvas.shape,
+                                         grad_planes=6)
+        np.testing.assert_allclose(_np(k6[0]), _np(want[0]), **tol)
+        assert float(k6[1].abs().max()) == 0.0
+        np.testing.assert_allclose(_np(k5[1]), _np(_crop(whole5[1], tile, th,
+                                                         tw)), **tol)
+
+
+K456_KINDS = ["zero", "integer", "fractional", "served", "at M and M+1",
+              "odd frame", "corner tiles"]
+
+
+@pytest.mark.parametrize("kind", K456_KINDS)
 def test_k4_k5_k6_match_plain(dev, kind):
+    """K4, K5 and K6 against their twins on zero, integer and fractional
+    motion, the served frame's (coherent), motion exactly at ±M and
+    ±(M + 1), on a 1079 x 1917 frame (sides no multiple of a block), and
+    the canvas forms K4c-K6c on tiles at the frame's four corners."""
+    h, w = (1079, 1917) if kind in ("odd frame", "corner tiles") else (H, W)
     rng = np.random.default_rng(30)
-    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+    stack = torch.from_numpy(rng.random((10, h, w), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((10, h, w)).astype(
         np.float32)).to(dev)
-    motion = _motion(dev, kind, 31)
+    if kind == "served":
+        stack, motion, g = _served_gather_inputs(dev, h, w)
+    else:
+        motion = _motion(dev, kind, 31, H=h, W=w)
     tol = dict(rtol=1e-5, atol=1e-6)
+    if kind == "corner tiles":
+        _check_canvas_gathers(stack, motion, g, 6, _corner_tiles(h, w), tol)
+        return
     np.testing.assert_allclose(_np(gather_cuda(stack, motion, 6)),
                                _np(temporal.gather_ref(stack, motion, 6)),
                                **tol)
@@ -371,6 +444,61 @@ def test_k4_k5_k6_match_plain(dev, kind):
         np.testing.assert_allclose(_np(dh), _np(want[0]), **tol)
         assert float(dm.abs().max()) == 0.0
         assert float(dh[grad_planes:].abs().sum()) == 0.0
+
+
+@pytest.mark.parametrize("max_motion", [30, 59, 60])
+def test_k5_k6_wide_max_motion(dev, max_motion):
+    """K5/K6 at a max_motion whose source region needs more than 48 KB of
+    shared memory (the launch's attribute; 59 needs 225 KB) against the
+    twin, on motion to ±(max_motion + 1); beyond 59 the wrapper raises."""
+    rng = np.random.default_rng(32)
+    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    motion = _motion(dev, "fractional", 33, M=max_motion)
+    if max_motion > 59:
+        with pytest.raises(ValueError, match="max_motion"):
+            gather_bwd_cuda(stack, motion, g, max_motion, grad_planes=6)
+        return
+    got = gather_bwd_cuda(stack, motion, g, max_motion, grad_planes=6)
+    want = temporal.gather_bwd_ref(stack, motion, g, max_motion,
+                                   motion_grad=True, grad_planes=6)
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
+    dh, _ = gather_bwd_hist_cuda(motion, g, max_motion, grad_planes=6)
+    np.testing.assert_allclose(_np(dh), _np(want[0]), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("kind", ["random", "served"])
+@pytest.mark.parametrize("kernel", ["K5", "K6", "K5c", "K6c"])
+def test_gather_adjoint_is_repeatable(dev, kernel, kind):
+    """K5, K6, K5c and K6c launched three times at 1920x1080 on
+    ``chip_smoke.py`` phase 3's kind of input (uniform random motion to ±7
+    pixels, up to 196 sources a texel) and on the served frame's: every
+    output bit-equal to the first launch's.  The canvas forms run on the
+    frame's upper right quarter tile."""
+    M = SVGFParams().max_motion
+    if kind == "served":
+        stack, motion, g = _served_gather_inputs(dev, 1080, 1920)
+    else:
+        stack, motion, g = gather_inputs(1080, 1920, dev, kind)
+    if kernel.endswith("c"):
+        tile, th, tw = Tile((0, 960), (1080, 1920)), 540, 960
+        stack = frame_canvas(stack, tile, th, tw, M + 1)
+        motion, g = _crop(motion, tile, th, tw), _crop(g, tile, th, tw)
+    launch = {
+        "K5": lambda: gather_bwd_cuda(stack, motion, g, M, grad_planes=6),
+        "K6": lambda: gather_bwd_hist_cuda(motion, g, M, grad_planes=6),
+        "K5c": lambda: gather_canvas_bwd_cuda(stack, motion, g, M, tile=tile,
+                                              grad_planes=6),
+        "K6c": lambda: gather_canvas_bwd_hist_cuda(
+            motion, g, M, tile=tile, canvas_shape=stack.shape,
+            grad_planes=6)}[kernel]
+    first = launch()
+    for run in (1, 2):
+        for name, a, b in zip(("d_hist", "d_motion"), launch(), first):
+            diff = int((a != b).sum())
+            assert torch.equal(a, b), (run, name, diff)
 
 
 def test_wrappers_keep_or_refuse_gradients(dev):

@@ -8,7 +8,8 @@ takes (K14 and K2/K2b whole frame and tile form, K7 unseeded, seeded
 and on a window, K8 and K13 on each scene, K3 on every input kind, the
 served frame's among them, K3b on the quarter tiles, KG and KGb on each
 input and stack layout (KGb with each pair of gradients) and KG after the
-served step's stack, K15 from the
+served step's stack, K4, K5 and K6 on each motion and K4c, K5c and K6c on
+the quarter tiles, K15 from the
 camera, a quarter window and the ray planes and alone on each scene, K7
 seeded from the camera, K12 at every
 radius and both sigma_n forms, on the odd frame and through
@@ -66,7 +67,20 @@ FAMILIES = {
     "K12": (r"^K12 r\d+ sigma", 14, [(3, *FRAME)]),
     "K12 odd": (r"^K12 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
     "K12 apply_filter": (r"^K12 apply", 1, [(3, *FRAME)]),
+    "K4": (r"^K4 ", 4, [(10, *FRAME)]),
+    "K5": (r"^K5 ", 4, [(10, *FRAME), (2, *FRAME)]),
+    "K6": (r"^K6 ", 4, [(10, *FRAME), (2, *FRAME)]),
+    # quarter tiles of a frame of twice the sides; the adjoints' history
+    # gradient covers the canvas (margin max_motion + 1 = 7)
+    "K4c": (r"^K4c ", 8, [(10, *FRAME)]),
+    "K5c": (r"^K5c ", 8, [(10, FRAME[0] + 14, FRAME[1] + 14), (2, *FRAME)]),
+    "K6c": (r"^K6c ", 8, [(10, FRAME[0] + 14, FRAME[1] + 14), (2, *FRAME)]),
 }
+# the outputs held bit for bit (True) or within rounding (False): KGb's
+# and K5/K6's history gradients within rounding, every other output exact
+EXACT = {"KGb": (False, True), "KGb history only": (False,),
+         "KGb motion only": (True,), "K5": (False, True),
+         "K6": (False, True), "K5c": (False, True), "K6c": (False, True)}
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))
@@ -80,11 +94,10 @@ def test_kernel_ab_cases_run_on_the_cpu(inputs, family):
     with torch.no_grad():
         for k, (name, make, exact) in enumerate(found):
             out = make(this)()
-            # KGb: d_stack within rounding, d_motion bit-equal
-            assert exact == (True if family != "KGb" else
-                             (False,) if "history only" in name else
-                             (True,) if "motion only" in name else
-                             (False, True)), name
+            form = next((f"{family} {only}" for only in ("history only",
+                                                         "motion only")
+                         if only in name), family)
+            assert exact == EXACT.get(form, True), name
             assert all(bool(torch.isfinite(x.float()).all()) for x in out), \
                 name
             if k == 0:

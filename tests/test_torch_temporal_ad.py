@@ -121,20 +121,50 @@ def test_temporal_ad_matches_temporal_accumulate(motion):
             np.testing.assert_allclose(a, b, err_msg=name, **TOL)
 
 
-@pytest.mark.parametrize("motion", ["integer", "fractional"])
+def _gather_motion(kind, rng, M, H, W):
+    """Motion of the reprojection's parity cases: inside ±M ("integer",
+    "fractional"); a smooth, coherent field (a camera's: floors shared by
+    neighbours); a third of the pixels exactly at ±M or ±(M + 1) on either
+    axis ("at M and M+1"); uniform to ±(M + 1), some pixels beyond M
+    ("beyond M")."""
+    m = (rng.random((2, H, W)) - 0.5)
+    if kind == "integer":
+        m = np.round(m * (2 * M + 1))
+    elif kind == "fractional":
+        m = m * 2 * M
+    elif kind == "smooth":
+        iy, ix = np.mgrid[0:H, 0:W]
+        m = np.stack([0.9 * M * np.sin(0.21 * ix + 0.1 * iy) - 0.35,
+                      0.6 * M * np.cos(0.17 * iy) + 0.03 * ix - 0.6])
+    elif kind == "at M and M+1":
+        edge = rng.choice([-M - 1.0, -M, M, M + 1.0], size=(2, H, W))
+        m = np.where(rng.random((2, H, W)) < 1 / 3, edge, m * 2 * M)
+    else:
+        m = m * 2 * (M + 1)
+    return m.astype(np.float32)
+
+
+@pytest.mark.parametrize("motion", ["integer", "fractional", "smooth",
+                                    "at M and M+1", "beyond M"])
 def test_reproject_gather_vjp_matches_jax(motion):
     """The reprojection alone, for an arbitrary cotangent, against the VJP
-    of the JAX package's ``bilinear_shift_sample_many`` (|motion| <= M, so
-    both define the same function)."""
+    of the JAX package's ``bilinear_shift_sample_many`` with its samples
+    beyond ±M zeroed by its ``within`` mask (the port's bounded gather
+    reads zero there), on the motions whose floor ranges the card's
+    adjoint reduces per block: a smooth field, motion exactly at ±M and
+    ±(M + 1), and pixels beyond M."""
     M = 2
     rng = np.random.default_rng(3)
     stack = rng.random((10, 12, 16), dtype=np.float32)
-    scale = 2 * M if motion == "fractional" else 2 * M + 1
-    mot = (rng.random((2, 12, 16)) - 0.5) * scale
-    mot = (np.round(mot) if motion == "integer" else mot).astype(np.float32)
+    mot = _gather_motion(motion, rng, M, 12, 16)
     cot = rng.standard_normal((10, 12, 16)).astype(np.float32)
-    out, vjp = jax.vjp(jax.jit(lambda s, m: j_shift_sample([s], m, M)[0][0]),
-                       jnp.asarray(stack), jnp.asarray(mot))
+
+    def bounded(s, m):
+        (out,), within = j_shift_sample([s], m, M)
+        return jnp.where(within[None], out, 0.0)
+
+    out, vjp = jax.vjp(jax.jit(bounded), jnp.asarray(stack),
+                       jnp.asarray(mot))
     want = vjp(jnp.asarray(cot))
     s, m = (torch.from_numpy(x).requires_grad_() for x in (stack, mot))
     got_out = temporal.reproject_gather(s, m, M)
@@ -144,6 +174,7 @@ def test_reproject_gather_vjp_matches_jax(motion):
     for name, a, b in zip(("d_stack", "d_motion"), got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), err_msg=name,
                                    **TOL)
+        assert np.abs(np.asarray(b)).max() > 0, f"{name} trivially zero"
 
 
 def test_tent_prime_matches_jax():
