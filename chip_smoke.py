@@ -11,12 +11,13 @@ the script exits non-zero without printing a result):
    (one nvcc per source, in parallel) and print ptxas's registers, stack
    and spills of the à-trous level forward's instantiations (K1/K1b, each
    radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's
-   (both routes, and the camera route's first launch), K12's staged
-   form (r <= 4), KG's, KGb's (and its rounding pass), KGp's, K4/K4c's
-   and K5/K6's (K5c/K6c; 6 and 10 gradient planes); fail if one of
-   K1/K1b or K2/K2b at radius <= 2, K7, K13 or K15 on a compiled scene,
-   K3/K3b, K15's first camera launch, a staged K12, a KG, KGb or KGp
-   kernel or a K4-K6 kernel uses local memory;
+   (both routes, and the camera route's first launch), K10's and K11's
+   (r 0-4 and the generic radius), K12's staged form (r <= 4), KG's,
+   KGb's (and its rounding pass), KGp's, K4/K4c's and K5/K6's (K5c/K6c;
+   6 and 10 gradient planes); fail if one of K1/K1b or K2/K2b at radius
+   <= 2, K7, K13 or K15 on a compiled scene, K3/K3b, K15's first camera
+   launch, K10 or K11 at r <= 4, a staged K12, a KG, KGb or KGp kernel or
+   a K4-K6 kernel uses local memory;
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -30,8 +31,11 @@ the script exits non-zero without printing a result):
    0-4, K7 march (the Cornell box, ``random_scene`` and a scene of other
    counts) and K8 shadow + shading (the Cornell box and ``random_scene``),
    each naming its instantiation (compiled scene or runtime counts), K10
-   box filter (``avg_pool2d`` beside it), K11 gaussian (a depthwise
-   ``conv2d`` beside it), K12 cross-bilateral filter (r2; r1 and r4, the
+   box filter at r2 d1, r1 d3 and r2 d3 (a deeper call bit-equal to its
+   levels launched one at a time; ``avg_pool2d`` beside r2 d1), K11
+   gaussian at depth 1 and 2 (bit-equal to its twin; a depthwise
+   ``conv2d`` beside it), each timed by CUDA events and by device time
+   under the profiler beside its bound, K12 cross-bilateral filter (r2; r1 and r4, the
    staged form's widest, beside it), K13 shadow
    visibility (Cornell box and ``random_scene``, each naming its
    instantiation), K1 at radius 0 and 3
@@ -142,7 +146,8 @@ from raymarchdenoisercuda_torch.ops.common import (
     Tile, finite_diff_gradients, frame_canvas)
 from raymarchdenoisercuda_torch.ops.cuda import _build
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
-    box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
+    box_filter_cuda, box_level_groups, cross_bilateral_cuda,
+    gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     cone_launch, cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
     scene_key, shadow_factor_cuda, shadow_shade_cuda)
@@ -158,7 +163,7 @@ from raymarchdenoisercuda_torch.utils.profile import clamped_split
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
     clamped_inputs, gather_inputs, served_clamped_inputs)
 from raymarchdenoisercuda_torch.utils.timing import (
-    CudaTimer, cuda_time_ms, nvidia_smi_name_power)
+    CudaTimer, cuda_time_ms, device_ms, nvidia_smi_name_power)
 
 SEQ_FRAMES = 16
 CHECK_FRAMES = 3
@@ -217,8 +222,8 @@ KERNELS = {
            PALLAS + "raymarch_tpu.py:115"),
     "K8": ("shadow_shade", CUDA_SRC + "raymarch.cu",
            PALLAS + "raymarch_tpu.py:468"),
-    "K10": ("box_level", CUDA_SRC + "filters.cu", PALLAS + "box_tpu.py:53"),
-    "K11": ("gauss_pass", CUDA_SRC + "filters.cu",
+    "K10": ("box_filter", CUDA_SRC + "filters.cu", PALLAS + "box_tpu.py:53"),
+    "K11": ("gaussian_filter", CUDA_SRC + "filters.cu",
             PALLAS + "filters_tpu.py:41"),
     "K12": ("cross_bilateral", CUDA_SRC + "filters.cu",
             PALLAS + "filters_tpu.py:135"),
@@ -305,6 +310,9 @@ K15_MANGLED = re.compile(r"11cone_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)ELb"
                          r"([01])EE")
 K15_DELTA_MANGLED = re.compile(r"17cone_delta_kernel")
 K12_MANGLED = re.compile(r"29cross_bilateral_staged_kernelILi(\d+)ELi(\d+)EE")
+# the box filter's, box_filter_kernel<R> (K10), and the gaussian's,
+# gaussian_filter_kernel<R> (K11); R = -1: the generic radius
+K10_MANGLED = re.compile(r"(17box_filter|22gaussian_filter)_kernelILi(n?\d+)EE")
 # the clamped gather's (KG, the 10 planes channel-minor), its adjoint's
 # (KGb) and the adjoint's rounding pass, and the channel-minor stack's
 # (KGp)
@@ -374,16 +382,27 @@ def random_planes(H, W, dev, seed):
 
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
-    K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K12's staged, KG's,
-    KGb's, KGp's, K4/K4c's and K5/K6's instantiations (the build's
-    report); raise if one of K1/K1b or K2/K2b at radius <= 2, K7, K13 or
-    K15 on a compiled scene, K3/K3b, K15's first camera launch, K12's
-    staged form, a KG, KGb or KGp kernel or a K4-K6 kernel uses local
-    memory, or if K3/K3b, a compiled K13 or K15, a staged K12, a KG, KGb or
-    KGp kernel or a K4-K6 instantiation is missing from the report."""
+    K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K10's, K11's, K12's
+    staged, KG's, KGb's, KGp's, K4/K4c's and K5/K6's instantiations (the
+    build's report); raise if one of K1/K1b or K2/K2b at radius <= 2, K7,
+    K13 or K15 on a compiled scene, K3/K3b, K15's first camera launch, K10
+    or K11 at a compiled radius, K12's staged form, a KG, KGb or KGp
+    kernel or a K4-K6 kernel uses local memory, or if K3/K3b, a compiled
+    K13 or K15, a K10 or K11, a staged K12, a KG, KGb or KGp kernel or a
+    K4-K6 instantiation is missing from the report."""
     k1, k9, local, k3, k13, k15, k12, kg = {}, {}, [], [], [], [], [], []
-    k456 = []
+    k456, k1011 = [], []
     for name, res in sorted(_build.resource_report().items()):
+        m = K10_MANGLED.search(name)
+        if m:
+            kernel = "K10" if m.group(1).startswith("17") else "K11"
+            R = int(m.group(2).replace("n", "-"))
+            phase(2, f"{kernel} {f'r{R}' if R >= 0 else 'r > 4'}: {res[0]} "
+                     f"registers, stack {res[1]} B, spills "
+                     f"{res[2] + res[3]} B")
+            k1011.append((kernel, R))
+            if R >= 0 and (res[1] or res[2] or res[3]):
+                local.append(f"{kernel} r{R}")
         m = K4_MANGLED.search(name) or K5_MANGLED.search(name)
         if m:
             tile = " tile" if m.group(1) == "1" else ""
@@ -498,6 +517,11 @@ def report_resources():
         raise AssertionError(f"phase 2: K4/K4c and K5/K6 (K5c/K6c) "
                              f"instantiations {sorted(k456)} in ptxas's "
                              f"report, expected 2 and 8")
+    want = sorted((k, R) for k in ("K10", "K11") for R in range(-1, 5))
+    if sorted(k1011) != want:
+        raise AssertionError(f"phase 2: K10/K11 instantiations "
+                             f"{sorted(k1011)} in ptxas's report, expected "
+                             f"{want}")
     if sorted(kg) != sorted(KG_KERNELS.values()):
         raise AssertionError(f"phase 2: KG/KGb/KGp kernels {kg} in ptxas's "
                              f"report, expected {list(KG_KERNELS.values())}")
@@ -902,42 +926,55 @@ def check_filters(P, results):
     """K10, K11 and K12 against their plain twins on the 1080p planes."""
     x = P["color"]
     HW = P["depth"].numel()
-    # K10 at the FILTER_TILED / apply_filter(AVERAGE) configuration and a
-    # deeper one; avg_pool2d computes the same function, a call a level
-    errs = []
-    for r, depth in ((2, 1), (1, 3)):
-        got = box_filter_cuda(x, radius=r, depth=depth)
-        want = boxfilter.box_filter(x, radius=r, depth=depth)
-        check_close(f"K10 r{r} d{depth}", got, want, atol=1e-6, rtol=1e-5)
-        errs.append(max_err(got, want))
 
     def pool():
         return F.avg_pool2d(x[None], 5, stride=1, padding=2,
                             count_include_pad=False)[0]
 
+    # K10 at the FILTER_TILED / apply_filter(AVERAGE) configuration (r2 d1)
+    # and two deeper calls, whose levels run in one launch (bit for bit the
+    # per-level launches); avg_pool2d computes the same function at depth 1
     check_close("avg_pool2d vs K10's twin", pool(),
                 boxfilter.box_filter(x, radius=2, depth=1), atol=1e-6,
                 rtol=1e-5)
-    ms = cuda_time_ms(lambda: box_filter_cuda(x, radius=2, depth=1),
-                      repeats=20)
-    plain = cuda_time_ms(lambda: boxfilter.box_filter(x, radius=2, depth=1),
-                         repeats=5)
     lib = cuda_time_ms(pool, repeats=20)
-    # 3 planes in, 3 out; 25 adds a channel and a division
-    results["K10"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                          library_ms=lib, bytes=24 * HW, flops=78 * HW)
-    phase(3, f"K10: ok (r2 d1, r1 d3), max |err| {max(errs):.3g}, {ms:.4f} "
-             f"ms (r2 d1), plain {plain:.4f} ms, avg_pool2d {lib:.4f} ms")
-
-    # K11: r2 sigma 2 at depth 1 and 2; the yardstick is one depthwise
-    # conv2d with the 2-D gaussian (the numerator only: no border
-    # renormalisation), in full float32
-    errs = []
-    for depth in (1, 2):
-        got = gaussian_filter_cuda(x, radius=2, sigma=2.0, depth=depth)
-        want = filters.gaussian_filter(x, radius=2, sigma=2.0, depth=depth)
-        check_close(f"K11 depth {depth}", got, want, atol=1e-5)
+    errs, lines = [], []
+    for r, depth in ((2, 1), (1, 3), (2, 3)):
+        got = box_filter_cuda(x, radius=r, depth=depth)
+        want = boxfilter.box_filter(x, radius=r, depth=depth)
+        check_close(f"K10 r{r} d{depth}", got, want, atol=1e-6, rtol=1e-5)
         errs.append(max_err(got, want))
+        one = x
+        for _ in range(depth):
+            one = box_filter_cuda(one, radius=r, depth=1)
+        if not torch.equal(got, one):
+            raise AssertionError(f"K10 r{r} d{depth}: not the per-level "
+                                 f"launches' floats")
+
+        def call():
+            return box_filter_cuda(x, radius=r, depth=depth)
+
+        ms = cuda_time_ms(call, repeats=20)
+        dev = device_ms(call, 20)
+        plain = cuda_time_ms(lambda: boxfilter.box_filter(
+            x, radius=r, depth=depth), repeats=5)
+        # 3 planes in, 3 out a call; (2r+1)^2 adds and a division a level
+        flops = 3 * depth * ((2 * r + 1) ** 2 + 1) * HW
+        b_ms, b_by = bound(24 * HW, flops)
+        if (r, depth) == (2, 1):
+            results["K10"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
+                                  bytes=24 * HW, flops=flops)
+        lines.append(f"r{r} d{depth} {ms:.4f} ms (device {dev:.4f}, "
+                     f"launches {len(box_level_groups(r, depth))}), bound "
+                     f"{b_ms:.4f} ({b_by}), plain {plain:.4f}")
+    results["K10"]["max_abs_err"] = max(errs)
+    phase(3, f"K10: ok (each deeper call the per-level launches' floats), "
+             f"max |err| {max(errs):.3g}; " + "; ".join(lines)
+             + f"; avg_pool2d r2 d1 {lib:.4f} ms")
+
+    # K11: r2 sigma 2 at depth 1 and 2, one launch an iteration, its twin's
+    # floats; the yardstick is one depthwise conv2d with the 2-D gaussian
+    # (the numerator only: no border renormalisation), in full float32
     taps = torch.tensor(filters._gauss_taps(2, 2.0), device=x.device)
     w2 = (taps[:, None] * taps[None, :]).expand(3, 1, 5, 5).contiguous()
     tf32 = torch.backends.cudnn.allow_tf32
@@ -945,17 +982,34 @@ def check_filters(P, results):
     lib = cuda_time_ms(lambda: F.conv2d(x[None], w2, padding=2, groups=3),
                        repeats=20)
     torch.backends.cudnn.allow_tf32 = tf32
-    ms = cuda_time_ms(lambda: gaussian_filter_cuda(x, radius=2, sigma=2.0),
-                      repeats=20)
-    plain = cuda_time_ms(lambda: filters.gaussian_filter(x, radius=2,
-                                                         sigma=2.0), repeats=5)
-    # an iteration: 3 planes in, 3 out; two passes of 5 taps (a product and
-    # two sums) and a division
-    results["K11"] = dict(max_abs_err=max(errs), ms=ms, plain_ms=plain,
-                          library_ms=lib, bytes=24 * HW, flops=96 * HW)
-    phase(3, f"K11: ok (depth 1, 2), max |err| {max(errs):.3g}, {ms:.4f} ms "
-             f"an iteration (2 launches), plain {plain:.4f} ms, depthwise "
-             f"conv2d (numerator only) {lib:.4f} ms")
+    lines = []
+    for depth in (1, 2):
+        got = gaussian_filter_cuda(x, radius=2, sigma=2.0, depth=depth)
+        want = filters.gaussian_filter(x, radius=2, sigma=2.0, depth=depth)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K11 depth {depth}: not its twin's floats "
+                                 f"(max |diff| {max_err(got, want):.3g})")
+
+        def call():
+            return gaussian_filter_cuda(x, radius=2, sigma=2.0, depth=depth)
+
+        ms = cuda_time_ms(call, repeats=20)
+        dev = device_ms(call, 20)
+        plain = cuda_time_ms(lambda: filters.gaussian_filter(
+            x, radius=2, sigma=2.0, depth=depth), repeats=5)
+        # an iteration: 3 planes in, 3 out; two passes of 5 taps (a
+        # product and two sums) and a division
+        b_ms, b_by = bound(24 * HW * depth, 96 * HW * depth)
+        if depth == 1:
+            results["K11"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain,
+                                  library_ms=lib, bytes=24 * HW,
+                                  flops=96 * HW)
+        lines.append(f"depth {depth} {ms:.4f} ms (device {dev:.4f}, "
+                     f"launches {depth}), bound {b_ms:.4f} ({b_by}), plain "
+                     f"{plain:.4f}")
+    phase(3, "K11: ok (its twin's floats at depth 1 and 2); "
+             + "; ".join(lines)
+             + f"; depthwise conv2d (numerator only) {lib:.4f} ms")
 
     # K12 at FilterParams(CROSS): r2, sigma_n 128 (repeated squaring); r1
     # and r4 (the staged form's widest) checked and timed beside it

@@ -60,8 +60,8 @@ SIGNATURES = {
     "rdt_cone_seed_camera": (_P,) * 8 + (_I, _P),
     "rdt_shadow_shade": (_P,) * 13 + (_I, _P),
     "rdt_shadow": (_P,) * 6 + (_I, _P),
-    "rdt_box_level": (_P,) * 2 + (_I,) * 4 + (_P,),
-    "rdt_gauss_pass": (_P,) * 4,
+    "rdt_box_filter": (_P,) * 2 + (_I,) * 5 + (_P,),
+    "rdt_gaussian_filter": (_P,) * 4,
     "rdt_cross_bilateral": (_P,) * 7,
 }
 

@@ -9,17 +9,36 @@
 // gaussian_filter and cross_bilateral_filter in ops/filters.py.
 //
 // The TPU kernels stage halo-extended row bands in VMEM (K10 runs all
-// levels on one band with a halo of r·depth); that is a layout of the TPU's
-// memory.  K10 and K11 are one thread per output pixel with bounds-checked
-// loads, the neighbouring taps from L1/L2; K12 stages its tile:
+// levels on one band with a halo of r·depth, K11 both passes of an
+// iteration); the bands' 128-lane padding and VMEM-sized heights are the
+// TPU's layout and are not carried over.  K10 and K11 share one design
+// here: a block owns a 128 x 32 output tile of one plane and stages it
+// with its halo in shared memory by cp.async (zeros beyond the frame: the
+// cooperative halo load of the reference's filterKernelTiled,
+// src/filter.cu:60-158, whose unused cacheBuffer flag would keep the
+// levels there), and a thread computes four outputs along a row from
+// float4 windows of the staged rows, so a row's values, loaded once,
+// serve all of its taps.  Where a tile's outputs and their taps all lie
+// in the frame, the tap count or weight sum is the full one, computed
+// once.  The radius is a template parameter for r <= 4; a generic body
+// takes r up to 16.
 //
-// * K10: one launch per level (ping-pong buffers in the wrapper), one
-//   thread per pixel and channel; the in-range taps are summed dy-major,
-//   dx-minor (the TPU kernel's order) and divided by their count.
-// * K11: a row pass and a column pass, each a launch; each divides by the
-//   sum of its in-range 1-D tap weights (the taps are launch arguments).
-//   The plain twin adds the same products in the same order, so the two
-//   agree to the bit (the library is built with --fmad=false).
+// * K10: all the levels of a launch in shared memory (ping-pong between
+//   two staged buffers), the halo r·levels; only the last level's tile is
+//   written.  The wrapper gives a launch as many levels as keep r·levels
+//   within BOX_HALO_CAP = 8 (ops/filters_cuda.py, box_level_groups, with
+//   the measurement behind it; one level a launch where r alone exceeds
+//   it).  Each output adds its taps dy-major, dx-minor (the TPU kernel's
+//   order and the per-level kernel's before it; a staged zero adds +0.0)
+//   and divides by the in-range tap count: the per-level launches'
+//   floats bit for bit at any depth.
+// * K11: one launch an iteration: the pass along y over the tile and its
+//   x-halo into shared memory, then the pass along x from there.  Each
+//   divides by the ordered sum of its in-range 1-D tap weights (the taps
+//   are launch arguments), and the intermediate is rounded to float as
+//   the two-launch kernel's global buffer was.  The plain twin adds the
+//   same products in the same order, so the two agree to the bit (the
+//   library is built with --fmad=false).
 // * K12: all (2r+1)^2 taps directly; the albedo and depth terms share one
 //   exp2f of log2(e)-scaled arguments, and the normal term is repeated
 //   squaring for a power-of-two sigma_n up to 1024, else powf.  For r <= 4
@@ -35,20 +54,24 @@
 //   in the same order (dy-major, dx-minor, taps beyond the frame
 //   skipped), so they agree to the bit.
 //
-// Bound on the card: bytes (K10, K11: 24 B a pixel and level or pass of
-// three planes; K12: 52 B a pixel), with K12 close to its operation bound
-// (~37 flops a tap); the staged K12 is held by its instructions (~50 a tap
+// Bound on the card: bytes (K10, K11: 24 B a pixel of three planes, for a
+// launch of any depth or an iteration; K12: 52 B a pixel), with K12 close
+// to its operation bound (~37 flops a tap).  K10 at r2 and K11 reach
+// about half the HBM rate: their adds, divisions and shared-memory loads
+// (~35 instructions an output) do not overlap the staging fully; the
+// staged K12 is held by its instructions (~50 a tap
 // with --fmad=false) and its shared-memory reads (40 B a staged tap, 24 B
 // a pixel's tap at r2 with two pixels a thread).
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 constexpr int kMaxTaps = 33;  // radius <= 16
 
 // Launch parameters, passed by pointer from ops/filters_cuda.py (ctypes).
 struct GaussParams {
-    int C, H, W, radius, axis;  // axis 0: taps along y, 1: along x
+    int C, H, W, radius;
     float taps[kMaxTaps];       // _gauss_taps(radius, sigma)
 };
 
@@ -62,47 +85,6 @@ struct CrossParams {
 };
 
 namespace {
-
-__global__ void box_level_kernel(const float* __restrict__ in,
-                                 float* __restrict__ out, int H, int W,
-                                 int r) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= W || y >= H) return;
-    const size_t hw = (size_t)H * W;
-    const float* plane = in + blockIdx.z * hw;
-    float acc = 0.0f, cnt = 0.0f;
-    for (int dy = -r; dy <= r; ++dy) {
-        const int yy = y + dy;
-        if (yy < 0 || yy >= H) continue;
-        for (int dx = -r; dx <= r; ++dx) {
-            const int xx = x + dx;
-            if (xx < 0 || xx >= W) continue;
-            acc = acc + plane[(size_t)yy * W + xx];
-            cnt = cnt + 1.0f;
-        }
-    }
-    out[blockIdx.z * hw + (size_t)y * W + x] = acc / cnt;
-}
-
-__global__ void gauss_pass_kernel(const float* __restrict__ in,
-                                  float* __restrict__ out, GaussParams p) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= p.W || y >= p.H) return;
-    const size_t hw = (size_t)p.H * p.W;
-    const float* plane = in + blockIdx.z * hw;
-    float num = 0.0f, den = 0.0f;
-    for (int k = 0; k <= 2 * p.radius; ++k) {
-        const int d = k - p.radius;
-        const int yy = p.axis == 0 ? y + d : y;
-        const int xx = p.axis == 0 ? x : x + d;
-        if (yy < 0 || yy >= p.H || xx < 0 || xx >= p.W) continue;
-        num = num + p.taps[k] * plane[(size_t)yy * p.W + xx];
-        den = den + p.taps[k];
-    }
-    out[blockIdx.z * hw + (size_t)y * p.W + x] = num / den;
-}
 
 __device__ float pow_sigma_n(float x, const CrossParams& p) {
     if (p.pow2_steps < 0) return powf(fmaxf(x, 1e-20f), p.sigma_normal);
@@ -303,26 +285,384 @@ cross_bilateral_staged_kernel(const float* __restrict__ color,
     }
 }
 
+// K10 and K11: a block owns a KF_TW x KF_TH output tile of one plane; a
+// thread computes KF_PX outputs along a row (K11's pass along y: four
+// columns of one row).  K10 runs 512 threads a block, K11 256 (measured
+// against 64 x 32, 64 x 64, 128 x 16, 128 x 64 and 256 x 16 tiles, eight
+// outputs a thread, K11 one, two or four rows a thread and the other
+// thread count: PERF.md, PR 15).
+constexpr int KF_TW = 128, KF_TH = 32, KF_PX = 4;
+constexpr int K10_THREADS = 512, K11_THREADS = 256;
+
+// The row stride of a staged region `cols` wide: a multiple of four floats
+// (16-byte rows), with room for the float4 window of a row's last group,
+// which reads up to KF_PX + 1 columns past the region.
+__host__ __device__ __forceinline__ int staged_stride(int cols) {
+    return (cols + KF_PX + 2 + 3) & ~3;
+}
+
+// Stages frame rows [fy0, fy0 + rows) x columns [fx0, fx0 + cols) of one
+// plane into s (row stride sw) by cp.async, a warp a row (NT threads a
+// block), with zeros beyond the frame; returns with the block
+// synchronised.
+template <int NT>
+__device__ void stage_plane(float* s, int sw, const float* __restrict__ plane,
+                            int H, int W, int fy0, int fx0, int rows,
+                            int cols) {
+    const int lane = threadIdx.x & 31;
+    for (int i = threadIdx.x >> 5; i < rows; i += NT / 32) {
+        const int y = fy0 + i;
+        float* row = s + i * sw;
+        if (y < 0 || y >= H) {
+            for (int j = lane; j < cols; j += 32) row[j] = 0.0f;
+            continue;
+        }
+        const float* src = plane + (size_t)y * W;
+        for (int j = lane; j < cols; j += 32) {
+            const int x = fx0 + j;
+            if (x >= 0 && x < W) {
+                cp_async4(row + j, src + x);
+            } else {
+                row[j] = 0.0f;
+            }
+        }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+}
+
+template <typename F>
+__device__ __forceinline__ void window_quad(float4 q, int c, int span, F& f) {
+    const float v[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+#pragma unroll
+        for (int k = 0; k < KF_PX; ++k) {
+            const int d = 4 * c + e - k;
+            if (d >= 0 && d <= span) f(k, d, v[e]);
+        }
+    }
+}
+
+// Feeds one staged row's window to KF_PX outputs along it: output k takes
+// the row's columns k + d, d = 0..2r in that order (r = R, or the runtime
+// radius when R < 0), through f(k, d, value).  `row` is 16-byte aligned;
+// the window's KF_PX + 2r floats are loaded once, as float4.
+template <int R, typename F>
+__device__ __forceinline__ void row_window(const float* row, int r, F&& f) {
+    const float4* q = reinterpret_cast<const float4*>(row);
+    if constexpr (R >= 0) {
+#pragma unroll
+        for (int c = 0; c < (KF_PX + 2 * R + 3) / 4; ++c) {
+            window_quad(q[c], c, 2 * R, f);
+        }
+    } else {
+        for (int c = 0; c < (KF_PX + 2 * r + 3) / 4; ++c) {
+            window_quad(q[c], c, 2 * r, f);
+        }
+    }
+}
+
+// Stores a thread's KF_PX outputs at o, the first `room` of them (all when
+// room >= KF_PX), as float4 where `vec` says o is 16-byte aligned.
+__device__ __forceinline__ void store_outputs(float* o, const float* res,
+                                              int room, bool vec) {
+    if (vec && room >= KF_PX) {
+#pragma unroll
+        for (int q = 0; q < KF_PX; q += 4) {
+            *reinterpret_cast<float4*>(o + q) =
+                make_float4(res[q], res[q + 1], res[q + 2], res[q + 3]);
+        }
+    } else {
+#pragma unroll
+        for (int q = 0; q < KF_PX; ++q) {
+            if (q < room) o[q] = res[q];
+        }
+    }
+}
+
+// K10: `levels` levels of the (2r+1)^2 box average (r = R, or `radius`
+// when R < 0) on one plane's tile.  The block stages the tile and a halo
+// of h = r·levels (zeros beyond the frame) and runs the levels in shared
+// memory, ping-pong: level l over the tile grown by r·(levels - l), its
+// pixels beyond the frame stored as 0; the last level's tile goes to
+// `out`.  Each output adds its taps dy-major, dx-minor (a staged zero adds
+// +0.0 to a sum that starts at +0.0: the per-level kernel's sum of the
+// in-range taps, bit for bit) and divides by the in-range tap count.
+template <int R>
+__global__ void __launch_bounds__(K10_THREADS)
+box_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
+                  int H, int W, int radius, int levels, bool vec_out) {
+    extern __shared__ float4 kf_smem[];
+    const int r = R >= 0 ? R : radius;
+    const int h = r * levels;
+    const int sw = staged_stride(KF_TW + 2 * h);
+    float* src = reinterpret_cast<float*>(kf_smem);   // KF_TH + 2h rows
+    float* dst = src + (KF_TH + 2 * h) * sw;          // KF_TH + 2(h - r)
+    const int x0 = blockIdx.x * KF_TW, y0 = blockIdx.y * KF_TH;
+    const size_t hw = (size_t)H * W;
+    stage_plane<K10_THREADS>(src, sw, in + blockIdx.z * hw, H, W, y0 - h,
+                             x0 - h, KF_TH + 2 * h, KF_TW + 2 * h);
+    float* plane_out = out + blockIdx.z * hw;
+    for (int l = 1; l <= levels; ++l) {
+        const int g = r * (levels - l);
+        const bool last = l == levels;
+        // every output of the level and every tap of it in the frame
+        const bool inner = y0 - g - r >= 0 && y0 + KF_TH + g + r <= H
+            && x0 - g - r >= 0 && x0 + KF_TW + g + r <= W;
+        const float full = (float)((2 * r + 1) * (2 * r + 1));
+        // the outputs at region row i, columns c.. of the level
+        auto item = [&](int i, int c) {
+            float acc[KF_PX];
+#pragma unroll
+            for (int k = 0; k < KF_PX; ++k) acc[k] = 0.0f;
+#pragma unroll
+            for (int dy = 0; dy <= 2 * r; ++dy) {
+                row_window<R>(src + (i + dy) * sw + c, r,
+                              [&](int k, int, float v) { acc[k] = acc[k] + v; });
+            }
+            const int y = y0 - g + i, x = x0 - g + c;
+            const bool y_in = y >= 0 && y < H;
+            float res[KF_PX];
+            if (inner) {
+#pragma unroll
+                for (int k = 0; k < KF_PX; ++k) res[k] = acc[k] / full;
+            } else {
+                const int ny = min(y + r, H - 1) - max(y - r, 0) + 1;
+#pragma unroll
+                for (int k = 0; k < KF_PX; ++k) {
+                    const int xk = x + k;
+                    const int nx = min(xk + r, W - 1) - max(xk - r, 0) + 1;
+                    res[k] = y_in && xk >= 0 && xk < W
+                        ? acc[k] / (float)(ny * nx) : 0.0f;
+                }
+            }
+            if (!last) {
+                store_outputs(dst + i * sw + c, res, KF_PX, true);
+            } else if (y_in) {
+                store_outputs(plane_out + (size_t)y * W + x, res, W - x,
+                              vec_out);
+            }
+        };
+        if (last) {
+            constexpr int groups = KF_TW / KF_PX;
+            for (int it = threadIdx.x; it < KF_TH * groups;
+                 it += K10_THREADS) {
+                item(it / groups, it % groups * KF_PX);
+            }
+        } else {
+            const int groups = (KF_TW + 2 * g + KF_PX - 1) / KF_PX;
+            for (int it = threadIdx.x; it < (KF_TH + 2 * g) * groups;
+                 it += K10_THREADS) {
+                const int i = it / groups;
+                item(i, (it - i * groups) * KF_PX);
+            }
+            __syncthreads();
+            float* t = src;
+            src = dst;
+            dst = t;
+        }
+    }
+}
+
+// K11: one iteration of the border-renormalised separable gaussian (r = R,
+// or p.radius when R < 0) on one plane's tile.  The block stages the tile
+// and an r-pixel halo (zeros beyond the frame), computes the pass along y
+// over the tile's width and its x-halo into shared memory (a column beyond
+// the frame holds 0), then the pass along x from there, and writes the
+// result once.  Each pass adds tap·value for k = 0..2r in order and divides
+// by the ordered sum of its in-range taps, as the row and column launches
+// did (a staged zero adds +0.0; the intermediate is rounded to float as
+// their global buffer was): bit for bit the same floats.
+template <int R>
+__global__ void __launch_bounds__(K11_THREADS)
+gaussian_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
+                       GaussParams p, bool vec_out) {
+    extern __shared__ float4 kf_smem[];
+    const int r = R >= 0 ? R : p.radius;
+    const int H = p.H, W = p.W;
+    const int sw = staged_stride(KF_TW + 2 * r);
+    float* s = reinterpret_cast<float*>(kf_smem);   // KF_TH + 2r rows
+    float* v = s + (KF_TH + 2 * r) * sw;            // KF_TH rows
+    float* taps = v + KF_TH * sw;                   // kMaxTaps
+    if (threadIdx.x == 0) {
+#pragma unroll
+        for (int k = 0; k < kMaxTaps; ++k) taps[k] = p.taps[k];
+    }
+    const int x0 = blockIdx.x * KF_TW, y0 = blockIdx.y * KF_TH;
+    const size_t hw = (size_t)H * W;
+    stage_plane<K11_THREADS>(s, sw, in + blockIdx.z * hw, H, W, y0 - r,
+                             x0 - r, KF_TH + 2 * r, KF_TW + 2 * r);
+    // the taps in registers at a compiled radius
+    float t[R >= 0 ? 2 * R + 1 : 1];
+    if constexpr (R >= 0) {
+#pragma unroll
+        for (int k = 0; k <= 2 * R; ++k) t[k] = taps[k];
+    }
+    auto tap = [&](int k) {
+        if constexpr (R >= 0) {
+            return t[k];
+        } else {
+            return taps[k];
+        }
+    };
+    // the denominator where every tap lies in the frame
+    float den_all = 0.0f;
+#pragma unroll
+    for (int k = 0; k <= 2 * r; ++k) den_all = den_all + tap(k);
+
+    // pass along y: a column quad of one row a thread
+    const int quads = (KF_TW + 2 * r + 3) / 4;
+    for (int it = threadIdx.x; it < KF_TH * quads; it += K11_THREADS) {
+        const int i = it / quads, c = (it - i * quads) * 4;
+        float num[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int k = 0; k <= 2 * r; ++k) {
+            const float4 q = *reinterpret_cast<const float4*>(
+                s + (i + k) * sw + c);
+            const float tk = tap(k);
+            num[0] = num[0] + tk * q.x;
+            num[1] = num[1] + tk * q.y;
+            num[2] = num[2] + tk * q.z;
+            num[3] = num[3] + tk * q.w;
+        }
+        const int y = y0 + i;
+        float den = den_all;
+        if (y - r < 0 || y + r >= H) {
+            den = 0.0f;
+#pragma unroll
+            for (int k = 0; k <= 2 * r; ++k) {
+                const int yy = y + k - r;
+                den = den + (yy >= 0 && yy < H ? tap(k) : 0.0f);
+            }
+        }
+        float res[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int x = x0 - r + c + e;
+            res[e] = x >= 0 && x < W ? num[e] / den : 0.0f;
+        }
+        *reinterpret_cast<float4*>(v + i * sw + c) =
+            make_float4(res[0], res[1], res[2], res[3]);
+    }
+    __syncthreads();
+
+    // pass along x: KF_PX outputs along a row a thread
+    float* plane_out = out + blockIdx.z * hw;
+    constexpr int groups = KF_TW / KF_PX;
+    for (int it = threadIdx.x; it < KF_TH * groups; it += K11_THREADS) {
+        const int i = it / groups, c = (it - i * groups) * KF_PX;
+        const int y = y0 + i, x = x0 + c;
+        if (y >= H) continue;
+        float num[KF_PX];
+#pragma unroll
+        for (int k = 0; k < KF_PX; ++k) num[k] = 0.0f;
+        row_window<R>(v + i * sw + c, r, [&](int k, int d, float val) {
+            num[k] = num[k] + tap(d) * val;
+        });
+        const bool inner = x - r >= 0 && x + KF_PX + r <= W;
+        float res[KF_PX];
+#pragma unroll
+        for (int k = 0; k < KF_PX; ++k) {
+            float den = den_all;
+            if (!inner) {
+                den = 0.0f;
+#pragma unroll
+                for (int d = 0; d <= 2 * r; ++d) {
+                    const int xx = x + k + d - r;
+                    den = den + (xx >= 0 && xx < W ? tap(d) : 0.0f);
+                }
+            }
+            res[k] = num[k] / den;
+        }
+        store_outputs(plane_out + (size_t)y * W + x, res, W - x, vec_out);
+    }
+}
+
+// Dynamic shared memory above the default 48 KB needs the kernel's
+// attribute raised first; a size the card cannot give fails here.
+template <typename K>
+static cudaError_t allow_smem(K kernel, size_t smem) {
+    if (smem <= 48 * 1024) return cudaSuccess;
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+static bool vec_aligned(const float* out, int W) {
+    return W % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+}
+
+template <int R>
+static int launch_box(const float* in, float* out, int C, int H, int W,
+                      int radius, int levels, cudaStream_t s) {
+    const int h = radius * levels;
+    const size_t rows = (KF_TH + 2 * h)
+        + (levels > 1 ? KF_TH + 2 * (h - radius) : 0);
+    const size_t smem = sizeof(float) * staged_stride(KF_TW + 2 * h) * rows;
+    const cudaError_t err = allow_smem(box_filter_kernel<R>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((W + KF_TW - 1) / KF_TW, (H + KF_TH - 1) / KF_TH, C);
+    box_filter_kernel<R><<<grid, K10_THREADS, smem, s>>>(
+        in, out, H, W, radius, levels, vec_aligned(out, W));
+    return (int)cudaGetLastError();
+}
+
+template <int R>
+static int launch_gaussian(const float* in, float* out, const GaussParams& p,
+                           cudaStream_t s) {
+    const int r = p.radius;
+    const size_t smem = sizeof(float)
+        * ((size_t)staged_stride(KF_TW + 2 * r) * (2 * KF_TH + 2 * r)
+           + kMaxTaps);
+    const cudaError_t err = allow_smem(gaussian_filter_kernel<R>, smem);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((p.W + KF_TW - 1) / KF_TW, (p.H + KF_TH - 1) / KF_TH,
+                    p.C);
+    gaussian_filter_kernel<R><<<grid, K11_THREADS, smem, s>>>(
+        in, out, p, vec_aligned(out, p.W));
+    return (int)cudaGetLastError();
+}
+
 dim3 grid_for(int H, int W, int C, dim3 block) {
     return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y, C);
 }
 
 }  // namespace
 
-extern "C" int rdt_box_level(const float* in, float* out, int C, int H, int W,
-                             int radius, void* stream) {
-    dim3 block(32, 8);
-    box_level_kernel<<<grid_for(H, W, C, block), block, 0,
-                       (cudaStream_t)stream>>>(in, out, H, W, radius);
-    return (int)cudaGetLastError();
+// K10: `levels` levels of the box average in one launch (the radius
+// compiled for r <= 4).
+extern "C" int rdt_box_filter(const float* in, float* out, int C, int H,
+                              int W, int radius, int levels, void* stream) {
+    if (radius < 0 || radius > kMaxTaps / 2 || levels < 1) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (radius) {
+    case 0: return launch_box<0>(in, out, C, H, W, radius, levels, s);
+    case 1: return launch_box<1>(in, out, C, H, W, radius, levels, s);
+    case 2: return launch_box<2>(in, out, C, H, W, radius, levels, s);
+    case 3: return launch_box<3>(in, out, C, H, W, radius, levels, s);
+    case 4: return launch_box<4>(in, out, C, H, W, radius, levels, s);
+    default: return launch_box<-1>(in, out, C, H, W, radius, levels, s);
+    }
 }
 
-extern "C" int rdt_gauss_pass(const float* in, float* out,
-                              const GaussParams* params, void* stream) {
-    dim3 block(32, 8);
-    gauss_pass_kernel<<<grid_for(params->H, params->W, params->C, block), block,
-                        0, (cudaStream_t)stream>>>(in, out, *params);
-    return (int)cudaGetLastError();
+// K11: one iteration of the gaussian, both passes (the radius compiled for
+// r <= 4).
+extern "C" int rdt_gaussian_filter(const float* in, float* out,
+                                   const GaussParams* params, void* stream) {
+    if (params->radius < 0 || params->radius > kMaxTaps / 2) {
+        return (int)cudaErrorInvalidValue;
+    }
+    const cudaStream_t s = (cudaStream_t)stream;
+    switch (params->radius) {
+    case 0: return launch_gaussian<0>(in, out, *params, s);
+    case 1: return launch_gaussian<1>(in, out, *params, s);
+    case 2: return launch_gaussian<2>(in, out, *params, s);
+    case 3: return launch_gaussian<3>(in, out, *params, s);
+    case 4: return launch_gaussian<4>(in, out, *params, s);
+    default: return launch_gaussian<-1>(in, out, *params, s);
+    }
 }
 
 // K12: the staged form for r <= kMaxStagedRadius, else one thread a pixel

@@ -23,13 +23,19 @@ from .cuda import _build
 from .filters import _gauss_taps, cross_bilateral_filter, gaussian_filter
 
 MAX_RADIUS = 16   # kMaxTaps = 33 in filters.cu
+# The largest halo r·levels that one K10 launch stages.  On the H100
+# (``utils/profile.py box``, PERF.md PR 15) a call split so that each
+# launch's halo is at most 8 ran no slower than any finer split (r1 d3-d8,
+# r2 d2-d4, r3 d2, r4 d2 in one launch; r2 d5 as 3 + 2 levels, r3 d3 as
+# 2 + 1); halos of 10-16 lost (r2 d5 in one launch 1.03x, r3 d3 1.02x,
+# r8 d2 1.35x the split).
+BOX_HALO_CAP = 8
 
 
 class _GaussParams(ctypes.Structure):
     """Mirror of ``struct GaussParams`` in ``ops/cuda/filters.cu``."""
 
-    _fields_ = [(n, ctypes.c_int) for n in ("C", "H", "W", "radius",
-                                            "axis")] + [
+    _fields_ = [(n, ctypes.c_int) for n in ("C", "H", "W", "radius")] + [
         ("taps", ctypes.c_float * (2 * MAX_RADIUS + 1))]
 
 
@@ -55,25 +61,51 @@ def _planes(x: torch.Tensor, name: str, radius: int, depth: int):
     return x3, _build.check_input(x3, name, x3.shape, torch.float32, x.device)
 
 
+def box_level_groups(radius: int, depth: int,
+                     cap: int = BOX_HALO_CAP) -> list:
+    """The levels each K10 launch runs for a ``depth``-level call: as few
+    launches as keep every launch's halo ``radius · levels`` within ``cap``
+    (one level a launch where the radius alone exceeds it), the levels
+    spread evenly over them."""
+    most = depth if radius == 0 else max(1, cap // radius)
+    n = -(-depth // most)
+    q, extra = divmod(depth, n)
+    return [q + 1] * extra + [q] * (n - extra)
+
+
+def _ping_pong(n: int, out: torch.Tensor):
+    """The destinations of ``n`` chained launches that end in ``out``: it
+    and, only where ``n > 1``, one intermediate buffer, alternating."""
+    tmp = torch.empty_like(out) if n > 1 else None
+    return [out if (n - 1 - i) % 2 == 0 else tmp for i in range(n)]
+
+
 def box_filter_cuda(x: torch.Tensor, radius: int = 2,
                     depth: int = 1) -> torch.Tensor:
     """Iterated (2r+1)² box average on planar (..., H, W), as ``box_filter``
-    returns it: K10, one launch per level.  Each launch adds one to
+    returns it: K10, which runs the levels of a launch in shared memory,
+    as many as :func:`box_level_groups` gives it.  Each launch adds one to
     ``box_filter_cuda.launches``."""
     _build.check_no_grad("box_filter_cuda", x)
     if not x.is_cuda:
         return box_filter(x, radius=radius, depth=depth)
-    src, ptr = _planes(x, "x", radius, depth)
+    return _box_launches(x, radius, box_level_groups(radius, depth))
+
+
+def _box_launches(x: torch.Tensor, radius: int, groups) -> torch.Tensor:
+    """K10 on a CUDA tensor, launch i running ``groups[i]`` levels: the
+    same floats for any grouping of ``sum(groups)`` levels."""
+    src, ptr = _planes(x, "x", radius, sum(groups))
     C, H, W = src.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    bufs = [torch.empty_like(src) for _ in range(min(depth, 2))]
-    for level in range(depth):
-        dst = bufs[level % 2]
-        _build.check(_build.kernels().rdt_box_level(
-            ptr, dst.data_ptr(), C, H, W, radius, stream), "rdt_box_level")
+    out = torch.empty_like(src)
+    for levels, dst in zip(groups, _ping_pong(len(groups), out)):
+        _build.check(_build.kernels().rdt_box_filter(
+            ptr, dst.data_ptr(), C, H, W, radius, levels, stream),
+            "rdt_box_filter")
         box_filter_cuda.launches += 1
         ptr = dst.data_ptr()
-    return dst.reshape(x.shape)
+    return out.reshape(x.shape)
 
 
 box_filter_cuda.launches = 0
@@ -82,26 +114,24 @@ box_filter_cuda.launches = 0
 def gaussian_filter_cuda(x: torch.Tensor, radius: int = 2,
                          sigma: float = 2.0, depth: int = 1) -> torch.Tensor:
     """Separable gaussian on planar (..., H, W), iterated ``depth`` times,
-    as ``gaussian_filter`` returns it: K11, a row pass and a column pass
-    an iteration.  Each launch (pass) adds one to
-    ``gaussian_filter_cuda.launches``."""
+    as ``gaussian_filter`` returns it: K11, both passes of an iteration in
+    one launch.  Each launch adds one to ``gaussian_filter_cuda.launches``."""
     _build.check_no_grad("gaussian_filter_cuda", x)
     if not x.is_cuda:
         return gaussian_filter(x, radius=radius, sigma=sigma, depth=depth)
     src, ptr = _planes(x, "x", radius, depth)
     C, H, W = src.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    taps = (ctypes.c_float * (2 * MAX_RADIUS + 1))(*_gauss_taps(radius, sigma))
-    tmp, out = torch.empty_like(src), torch.empty_like(src)
-    for _ in range(depth):
-        for axis, dst in ((0, tmp), (1, out)):
-            p = _GaussParams(C=C, H=H, W=W, radius=radius, axis=axis,
-                             taps=taps)
-            _build.check(_build.kernels().rdt_gauss_pass(
-                ptr, dst.data_ptr(), ctypes.addressof(p), stream),
-                "rdt_gauss_pass")
-            gaussian_filter_cuda.launches += 1
-            ptr = dst.data_ptr()
+    p = _GaussParams(C=C, H=H, W=W, radius=radius,
+                     taps=(ctypes.c_float * (2 * MAX_RADIUS + 1))(
+                         *_gauss_taps(radius, sigma)))
+    out = torch.empty_like(src)
+    for dst in _ping_pong(depth, out):
+        _build.check(_build.kernels().rdt_gaussian_filter(
+            ptr, dst.data_ptr(), ctypes.addressof(p), stream),
+            "rdt_gaussian_filter")
+        gaussian_filter_cuda.launches += 1
+        ptr = dst.data_ptr()
     return out.reshape(x.shape)
 
 

@@ -37,7 +37,15 @@ t_c, delta and base) and the march launch alone on the camera's cones;
 K12 at radius 0, 1, 2, 3, 4, 5 and 16 with
 sigma_n 128 (repeated squaring) and 100 (powf), on a frame of sides
 1079 x 1917 (no multiple of the tile) at radius 2 and 4, and at depth 2
-through ``apply_filter(CROSS)``; KG, the clamped gather of unbounded
+through ``apply_filter(CROSS)``; K10 on ``chip_smoke.py`` phase 3's
+colour planes at radius 0, 1, 2, 3, 4, 8 and 16 with depth 1, at r1 and
+r2 with depth 3, r2 with depth 5 and r8 with depth 2 (the last two past
+the halo one launch stages), on the frame one row and three columns
+short at r2 with depth 1 and 3, and at depth 2 through
+``apply_filter(AVERAGE)``; K11 at radius 0, 1, 2, 4 and 16 with sigma
+0.5, 2 and 8 at depth 1 and 2, on the short frame at r2 with depth 1 and
+2, and at depth 2 through ``apply_filter(GAUSSIAN)``; KG, the clamped
+gather of unbounded
 motion, on ``chip_smoke.py`` phase 3's input (uniform random motion to
 ±28 pixels), on motion 0, ±3 and ±80 pixels (taps clamped at the
 border), on the served frame's input with ``max_motion=None`` and on a
@@ -65,8 +73,8 @@ which the events' wall holds for a short kernel); ``--rounds 0`` compares
 the outputs only, and ``--by-kernel`` prints each tree's device time a
 call by kernel (and memset or fill) under the profiler.
 It prints ptxas's registers, stack and spills of the à-trous, march,
-shading, shadow, temporal, cone, cross-bilateral and clamped-gather
-kernels of each tree it builds (a library
+shading, shadow, temporal, cone, box, gaussian, cross-bilateral and
+clamped-gather kernels of each tree it builds (a library
 built before is loaded as it is), and the card's name and power limit.
 It exits non-zero if an output held bit for bit differs, or if one held
 within rounding differs by more than rtol 1e-5 (atol 1e-6 of its largest
@@ -693,6 +701,50 @@ def _cases(P, U, cots, S, M, T):
         yield (f"K12 r{r} odd frame",
                lambda t, r=r: k12(t, r, 128.0, odd=True))
     yield "K12 apply_filter depth 2", lambda t: k12(t, 2, 128.0, depth=2)
+
+    def smooth(tree, ftype, r, depth, sigma=2.0, odd=False, apply=False):
+        # K10 (AVERAGE) and K11 (GAUSSIAN) on chip_smoke.py phase 3's
+        # colour planes; "odd": sides one and three short of the frame's
+        x = c
+        if odd:
+            H, W = c.shape[-2:]
+            x = c[..., :H - 1, :W - 3].contiguous()
+        if apply:
+            cfg = tree.config
+            p = cfg.FilterParams(type=getattr(cfg.FilterType, ftype),
+                                 radius=r, sigma_space=sigma, depth=depth)
+            g = tree.GBuffer(render=x, albedo=T["frame"]["h_color"],
+                             normal=n, depth=z)
+            return lambda: (tree.filters.apply_filter(g, p).denoised,)
+        if ftype == "AVERAGE":
+            return lambda: (tree.filters_cuda.box_filter_cuda(
+                x, radius=r, depth=depth),)
+        return lambda: (tree.filters_cuda.gaussian_filter_cuda(
+            x, radius=r, sigma=sigma, depth=depth),)
+
+    # K10 at depth 1 (r 0-4 compiled, 8 and 16 the generic body), deeper
+    # (r2 d5 and r8 d2 past the halo cap), on the odd frame and through
+    # apply_filter
+    box_cases = [(r, 1) for r in (0, 1, 2, 3, 4, 8, 16)]
+    for r, d in box_cases + [(1, 3), (2, 3), (2, 5), (8, 2)]:
+        yield (f"K10 r{r} d{d}",
+               lambda t, r=r, d=d: smooth(t, "AVERAGE", r, d))
+    for d in (1, 3):
+        yield (f"K10 r2 d{d} odd frame",
+               lambda t, d=d: smooth(t, "AVERAGE", 2, d, odd=True))
+    yield ("K10 apply_filter depth 2",
+           lambda t: smooth(t, "AVERAGE", 2, 2, apply=True))
+    for r in (0, 1, 2, 4, 16):
+        for sigma in (0.5, 2.0, 8.0):
+            for d in (1, 2):
+                yield (f"K11 r{r} sigma {sigma:g} d{d}",
+                       lambda t, r=r, sigma=sigma, d=d: smooth(
+                           t, "GAUSSIAN", r, d, sigma))
+    for d in (1, 2):
+        yield (f"K11 r2 sigma 2 d{d} odd frame",
+               lambda t, d=d: smooth(t, "GAUSSIAN", 2, d, odd=True))
+    yield ("K11 apply_filter depth 2",
+           lambda t: smooth(t, "GAUSSIAN", 2, 2, apply=True))
     for r in (0, 1, 2, 3):
         for wm in ("exact", "fast"):
             yield (f"sweep r{r} {wm} (phase 3)",
@@ -713,14 +765,15 @@ def compare(a, b):
 _ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
                      r"shade_kernel|march_kernel|shadow_kernel|"
                      r"temporal_kernel|cone\w*kernel|cross_bilateral\w*kernel|"
-                     r"(clamped_)?gather\w*kernel|round_planes_kernel)"
+                     r"(clamped_)?gather\w*kernel|round_planes_kernel|"
+                     r"box\w*kernel|gauss\w*kernel)"
                      r"(I\w*?EE)?")
 
 
 def resources(text_or_dict):
     """``{short kernel name: (registers, stack, spill st, spill ld)}`` of
-    the à-trous, march, shading, shadow, temporal, cone, cross-bilateral
-    and clamped-gather kernels in a ptxas report (a kernel that is not a
+    the à-trous, march, shading, shadow, temporal, cone, box, gaussian,
+    cross-bilateral and clamped-gather kernels in a ptxas report (a kernel that is not a
     template by its name alone)."""
     out = {}
     for name, res in text_or_dict.items():

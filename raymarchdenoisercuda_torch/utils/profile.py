@@ -8,6 +8,7 @@ forward and backward on one GPU.
     python3 -m raymarchdenoisercuda_torch.utils.profile spatial --mode recompute
     python3 -m raymarchdenoisercuda_torch.utils.profile clamped
     python3 -m raymarchdenoisercuda_torch.utils.profile temporal [--served]
+    python3 -m raymarchdenoisercuda_torch.utils.profile box
 
 At 1920x1080: runs 3 warm-up steps, times ``--steps`` more without the
 profiler, then traces as many with ``torch.profiler`` (CPU and CUDA
@@ -33,8 +34,13 @@ into its kernels, memsets and fills.  ``temporal`` profiles
 "ad")`` forward and backward with respect to motion and the history's
 colour (K4, then K5) on seeded planes with uniform random motion to ±6
 pixels or, with ``--served``, on the served frame's inputs (the ninth
-orbit frame's).  Needs a CUDA device; the CPU
-has nothing to measure here.
+orbit frame's).  ``box`` times K10 (``box_filter_cuda``) on three
+seeded 1920x1080 planes, by device time a call (``--steps`` calls under
+the profiler), at each radius and depth of ``BOX_CASES`` and each way of
+splitting its levels into launches that a halo cap in ``BOX_CAPS`` gives
+(cap 0: one level a launch), the ways in turn three times, and prints
+the medians: the measurement behind ``BOX_HALO_CAP``.  Needs a
+CUDA device; the CPU has nothing to measure here.
 """
 
 from __future__ import annotations
@@ -53,7 +59,7 @@ from ..gbuffer import History
 from ..io.generate import orbit_camera
 from ..models.pipeline import (FramePipeline, init_train_state,
                                make_train_step)
-from ..ops import raymarch
+from ..ops import filters_cuda, raymarch
 from ..ops.atrous_cuda import svgf_spatial_ad_cuda
 from ..ops.temporal import history_from_stack, history_stack
 from ..ops.temporal_cuda import (clamped_gather_bwd_cuda, clamped_gather_cuda,
@@ -195,10 +201,38 @@ def _clamped(H, W, dev, calls):
                   f"(device): {parts}", flush=True)
 
 
+# K10's (radius, depth) cases and halo caps for ``box``
+BOX_CASES = ((0, 3), (1, 2), (1, 3), (1, 4), (1, 6), (1, 8), (2, 2), (2, 3),
+             (2, 4), (2, 5), (3, 2), (3, 3), (4, 2), (8, 2))
+BOX_CAPS = (0, 2, 4, 6, 8, 12, 16)
+BOX_ROUNDS = 3
+
+
+def _box(H, W, dev, calls):
+    x = torch.from_numpy(np.random.default_rng(0).random(
+        (3, H, W), dtype=np.float32)).to(dev)
+    for r, depth in BOX_CASES:
+        # the groupings the caps give, each with the smallest cap
+        ways = {}
+        for cap in BOX_CAPS:
+            ways.setdefault(tuple(filters_cuda.box_level_groups(
+                r, depth, cap)), cap)
+        ms = {g: [] for g in ways}
+        for _ in range(BOX_ROUNDS):
+            for g in ways:
+                ms[g].append(sum(device_ms_by_kernel(
+                    lambda: filters_cuda._box_launches(x, r, g),
+                    calls).values()))
+        print(f"K10 r{r} d{depth}, device ms a call (median of "
+              f"{BOX_ROUNDS}): " + "; ".join(
+                  f"launches {list(g)} (cap {cap}) {np.median(ms[g]):.4f}"
+                  for g, cap in ways.items()), flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("path", choices=("train", "serve", "spatial", "clamped",
-                                     "temporal"))
+                                     "temporal", "box"))
     ap.add_argument("--mode", choices=tuple(SPATIAL_MODES),
                     default="stored", help="spatial: the adjoint mode")
     ap.add_argument("--radius", type=int, default=1, help="spatial: radius")
@@ -216,10 +250,13 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     H, W = 1080, 1920
-    if args.path == "clamped":
+    if args.path in ("clamped", "box"):
         print(nvidia_smi_name_power())
         with torch.no_grad():
-            _clamped(H, W, dev, args.steps)
+            if args.path == "clamped":
+                _clamped(H, W, dev, args.steps)
+            else:
+                _box(H, W, dev, args.steps)
         return 0
     if args.path == "spatial":
         run = _spatial_runner(H, W, dev, args.mode, args.radius)

@@ -26,8 +26,11 @@ launch (a fixed summation order) at 1080p; the
 albedo gradient atol 3e-3·max (the stored bf16 weights; the plain path
 differentiates the float weights), updated albedo atol 1e-5.  Filters and
 K13 (the JAX package's kernel-vs-oracle tolerances): K10 rtol 1e-5, atol
-1e-6 (the kernel sums the 2-D window, its twin sums separably); K11 atol
-1e-5; K12 atol 5e-5 (exp2f of log2(e)-scaled arguments and repeated
+1e-6 (the kernel sums the 2-D window, its twin sums separably), at every
+compiled radius and the generic body's, at depths split into launches
+past the halo cap, and bit-equal to one level a call; K11 atol 1e-5, and
+bit-equal to its twin (the same products in the same order); K12 atol
+5e-5 (exp2f of log2(e)-scaled arguments and repeated
 squaring against exp and pow) at radii 0-4 (its staged form) and 5 and 16
 (one thread a pixel), on a 1079 x 1917 frame too; K13 at most 0.1 %
 visibility flips, as K8,
@@ -106,7 +109,8 @@ from raymarchdenoisercuda_torch.ops.atrous_cuda import (
 from raymarchdenoisercuda_torch.ops.common import (
     Tile, finite_diff_gradients, frame_canvas)
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
-    box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
+    box_filter_cuda, box_level_groups, cross_bilateral_cuda,
+    gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
     scene_key, shadow_factor_cuda, shadow_shade_cuda)
@@ -583,30 +587,74 @@ def test_train_step_kernel_path_matches_plain(dev):
         np.testing.assert_allclose(_np(ak), _np(ap), rtol=0, atol=1e-5)
 
 
-# (135, 240) is a multiple of neither block side (32x8 filters, 16x8
-# raymarch); (37, 53) is smaller than one block row
+# (135, 240) is a multiple of neither tile side (64x32 K10/K11, 32x16
+# K12, 16x8 raymarch); (37, 53) is smaller than one tile row
 SHAPES = [(H, W), (37, 53)]
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("radius,depth", [(2, 1), (1, 3)])
+# K10's cases: every compiled radius (0-4) and the generic body (8, 16) at
+# depth 1, and deeper calls, r2 d5 and r8 d2 past the halo one launch
+# stages; K11's radii; both also on a frame of odd sides
+K10_CASES = [(r, 1) for r in (0, 1, 2, 3, 4, 8, 16)] + [
+    (1, 3), (2, 3), (2, 5), (8, 2)]
+K11_RADII = [0, 1, 2, 4, 16]
+FILTER_SHAPES = SHAPES + [(1079, 1917)]
+
+
+@pytest.mark.parametrize("shape", FILTER_SHAPES)
+@pytest.mark.parametrize("radius,depth", K10_CASES)
 def test_k10_matches_plain(dev, shape, radius, depth):
+    """K10 against its twin (which sums separably), launched as many
+    times as ``box_level_groups`` splits the depth."""
     x = _planes(dev, 50, *shape)[0]
     before = box_filter_cuda.launches
     got = box_filter_cuda(x, radius=radius, depth=depth)
-    assert box_filter_cuda.launches == before + depth
+    assert box_filter_cuda.launches == before + len(
+        box_level_groups(radius, depth))
     np.testing.assert_allclose(
         _np(got), _np(boxfilter.box_filter(x, radius=radius, depth=depth)),
         rtol=1e-5, atol=1e-6)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", FILTER_SHAPES)
+@pytest.mark.parametrize("radius,depth", [(0, 3), (1, 3), (2, 3), (2, 5),
+                                          (3, 4), (8, 2)])
+def test_k10_levels_of_one_launch_match_per_level_launches(dev, shape,
+                                                           radius, depth):
+    """Levels run in one launch's shared memory, and a call split into
+    launches past the halo cap, are ``depth`` calls of one level bit for
+    bit (the same taps, summed in the same order)."""
+    x = _planes(dev, 56, *shape)[0] - 0.5
+    want = x
+    for _ in range(depth):
+        want = box_filter_cuda(want, radius=radius, depth=1)
+    assert torch.equal(box_filter_cuda(x, radius=radius, depth=depth), want)
+
+
+@pytest.mark.parametrize("shape", FILTER_SHAPES)
+@pytest.mark.parametrize("radius", K11_RADII)
 @pytest.mark.parametrize("depth", [1, 2])
-def test_k11_matches_plain(dev, shape, depth):
+def test_k11_matches_plain(dev, shape, radius, depth):
+    """K11 against its twin, one launch an iteration."""
     x = _planes(dev, 51, *shape)[0]
-    got = gaussian_filter_cuda(x, radius=2, sigma=2.0, depth=depth)
-    want = filters.gaussian_filter(x, radius=2, sigma=2.0, depth=depth)
+    before = gaussian_filter_cuda.launches
+    got = gaussian_filter_cuda(x, radius=radius, sigma=2.0, depth=depth)
+    assert gaussian_filter_cuda.launches == before + depth
+    want = filters.gaussian_filter(x, radius=radius, sigma=2.0, depth=depth)
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape", FILTER_SHAPES)
+@pytest.mark.parametrize("radius", K11_RADII)
+@pytest.mark.parametrize("sigma", [0.5, 2.0, 8.0])
+def test_k11_bit_equal_to_twin(dev, shape, radius, sigma):
+    """K11 adds its twin's products in its twin's order and divides as it
+    does (the library built with --fmad=false): the same floats."""
+    x = _planes(dev, 57, *shape)[0] - 0.5
+    for depth in (1, 2):
+        got = gaussian_filter_cuda(x, radius=radius, sigma=sigma, depth=depth)
+        assert torch.equal(got, filters.gaussian_filter(
+            x, radius=radius, sigma=sigma, depth=depth)), depth
 
 
 # K12's radii: 0-4 run the staged form, 5 and 16 (the largest) the

@@ -36,7 +36,8 @@ from raymarchdenoisercuda_torch.config import FilterParams, FilterType
 from raymarchdenoisercuda_torch.io import native
 from raymarchdenoisercuda_torch.ops import boxfilter, filters
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
-    box_filter_cuda, cross_bilateral_cuda, gaussian_filter_cuda)
+    BOX_HALO_CAP, box_filter_cuda, box_level_groups, cross_bilateral_cuda,
+    gaussian_filter_cuda)
 
 U8_CASES = [(2, 1, False), (2, 1, True), (1, 3, False), (3, 2, True),
             (0, 1, False)]
@@ -87,6 +88,25 @@ def test_box_filter_matches_jax_and_pallas(shape, radius, depth):
                                    interpret=True)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2, 3, 4, 8, 9, 16])
+@pytest.mark.parametrize("cap", [BOX_HALO_CAP, 0, 12])
+def test_box_level_groups(radius, cap):
+    """K10's launches for a call: the levels add up to the depth, no
+    launch's halo r·levels exceeds the cap unless the radius alone does
+    (then one level a launch), no fewer levels a launch could keep within
+    it, and the levels differ by at most one between launches."""
+    for depth in range(1, 13):
+        groups = box_level_groups(radius, depth, cap)
+        assert sum(groups) == depth and min(groups) >= 1
+        assert max(groups) - min(groups) <= 1
+        if radius > cap:
+            assert groups == [1] * depth
+        else:
+            assert all(radius * levels <= cap for levels in groups)
+            most = depth if radius == 0 else cap // radius
+            assert len(groups) == -(-depth // most)
 
 
 @pytest.mark.parametrize("depth", [1, 2])

@@ -13,7 +13,9 @@ the quarter tiles, K15 from the
 camera, a quarter window and the ray planes and alone on each scene, K7
 seeded from the camera, K12 at every
 radius and both sigma_n forms, on the odd frame and through
-``apply_filter``), and that the outputs are finite and of the expected
+``apply_filter``, K10 at every radius and depth, K11 at every radius,
+sigma and depth, both on the odd frame and through ``apply_filter``),
+and that the outputs are finite and of the expected
 shapes.  No timing, no other
 tree.
 """
@@ -67,6 +69,14 @@ FAMILIES = {
     "K12": (r"^K12 r\d+ sigma", 14, [(3, *FRAME)]),
     "K12 odd": (r"^K12 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
     "K12 apply_filter": (r"^K12 apply", 1, [(3, *FRAME)]),
+    # K10 at r 0-4, 8, 16 (depth 1) and four deeper calls; K11 at five
+    # radii, three sigmas, depth 1 and 2
+    "K10": (r"^K10 r\d+ d\d+$", 11, [(3, *FRAME)]),
+    "K10 odd": (r"^K10 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
+    "K10 apply_filter": (r"^K10 apply", 1, [(3, *FRAME)]),
+    "K11": (r"^K11 r\d+ sigma \S+ d\d$", 30, [(3, *FRAME)]),
+    "K11 odd": (r"^K11 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
+    "K11 apply_filter": (r"^K11 apply", 1, [(3, *FRAME)]),
     "K4": (r"^K4 ", 4, [(10, *FRAME)]),
     "K5": (r"^K5 ", 4, [(10, *FRAME), (2, *FRAME)]),
     "K6": (r"^K6 ", 4, [(10, *FRAME), (2, *FRAME)]),
