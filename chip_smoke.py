@@ -14,10 +14,14 @@ the script exits non-zero without printing a result):
    (both routes, and the camera route's first launch), K10's and K11's
    (r 0-4 and the generic radius), K12's staged form (r <= 4), KG's,
    KGb's (and its rounding pass), KGp's, K4/K4c's and K5/K6's (K5c/K6c;
-   6 and 10 gradient planes); fail if one of K1/K1b or K2/K2b at radius
-   <= 2, K7, K13 or K15 on a compiled scene, K3/K3b, K15's first camera
-   launch, K10 or K11 at r <= 4, a staged K12, a KG, KGb or KGp kernel or
-   a K4-K6 kernel uses local memory;
+   6 and 10 gradient planes, and their banded form past max_motion 59),
+   K10's and K11's 1-D passes past r 16 and K12's one-thread-a-pixel body
+   (its taps in the struct or in memory); fail if one of K1/K1b, K2/K2b or
+   K14 at a compiled radius, K9 at r <= 1, K7, K8, K13 or K15 on a
+   compiled scene, K3/K3b, K15's first camera launch, K10 or K11 at r <=
+   4 or in a 1-D pass, a K12 form, a KG, KGb or KGp kernel or a
+   K4-K6 kernel (banded ones included) uses local memory (K9 at r2 and
+   wider spills: printed, not failed);
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -47,7 +51,12 @@ the script exits non-zero without printing a result):
    (KG) and its adjoint (KGb) on the channel-minor stack that KGp builds
    (bit-equal to its plain twin) and on a planar one (laid out by KGp in
    the wrappers), timed on phase 3's and a served frame's input, KGb
-   split into its kernels by the profiler;
+   split into its kernels by the profiler; the wide forms beside their
+   bounds: K5/K6 at max_motion 60 and 96 (row bands) on random motion to
+   ±7 and ±(M + 1) px, repeatable, K5c/K6c on a quarter tile's canvas,
+   K10, K11 and K12 at radius 17 and 24 and K10 and K11 at radius 90
+   (K10 and K11 as two 1-D passes a level, the gaussian taps in a device
+   array), each against its twin;
 4. the serving path: 16 frames of the animated Cornell sequence at
    1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
    temporal -> 5-level à-trous, radius 1, fast weights); the first 3
@@ -90,7 +99,10 @@ the script exits non-zero without printing a result):
    ``make_sharded_pipeline`` for 8 orbit frames against the unsharded
    ``FramePipeline``; (c) ``make_sharded_train_step``, 1 warm-up and 5
    timed steps, against ``make_train_step``; (d) ``cli -t
-   SHARDED_SPATIAL``;
+   SHARDED_SPATIAL``; (e) the weak-scaling harness's one-rank row
+   (``parallel.scaling``: the sweep forward and backward on a 3840x2160
+   tile; one card, so t(1), not a scaling number), and the same step on
+   one NCCL rank spawned by ``parallel.distributed.spawn_group``;
 11. the seeded and unbounded paths: (a) phase 4's sequence with
    ``RaymarchParams(coarse_seed=True)`` (K15, the seeded K7) alternating
    with the unseeded one, ms/frame of both, frames held to the unseeded
@@ -100,10 +112,20 @@ the script exits non-zero without printing a result):
    a serving sequence and (d) a ``temporal="ad"`` gradient pass with
    ``SVGFParams(max_motion=None)`` (KGp, KG, KGb) against the plain path; (e)
    the sharded pipeline at 3840x2160 and (f) the sharded train step
-   (config 5), seeded, against the unsharded seeded ones.
+   (config 5), seeded, against the unsharded seeded ones;
+12. the geometry gradient at 1920x1080 through the implicit-function
+   adjoint: ``render_gbuffer``'s loss differentiated with respect to the
+   spheres, boxes and planes through K7 and K8 against the plain path,
+   the same with ``coarse_seed`` (K15, K7s), and the seeded march alone
+   against the plain seeded march (atol 2e-3·max);
+13. the denoiser-quality gate (``utils/denoise_quality.py``): Cornell and
+   clutter orbits at 256², 16 frames, 1024-sample references (K7, K13),
+   SVGF with fast weights at r1 and r2, 5 iterations; PSNR and SSIM of
+   input and output printed; fails below ``tests/test_quality.py``'s
+   thresholds.
 
-Phases 4 to 9, 10(a)'s temporal gradient, 10(b), (c), (d) and 11 are the
-main paths: every kernel's launch count is set to 0 just before each and
+Phases 4 to 9, 10(a)'s temporal gradient, 10(b)-(e), 11, 12 and 13 are
+the main paths: every kernel's launch count is set to 0 just before each and
 read just after, and each fails if one of its kernels never launched.
 The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
@@ -157,8 +179,10 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
     history_stack_channel_minor_cuda, temporal_accumulate_ad_cuda,
     temporal_accumulate_canvas_cuda, temporal_accumulate_cuda)
-from raymarchdenoisercuda_torch.parallel import sharded
+from raymarchdenoisercuda_torch.parallel import scaling, sharded
+from raymarchdenoisercuda_torch.parallel.distributed import spawn_group
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
+from raymarchdenoisercuda_torch.utils import denoise_quality
 from raymarchdenoisercuda_torch.utils.profile import clamped_split
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
     clamped_inputs, gather_inputs, served_clamped_inputs)
@@ -278,6 +302,23 @@ UNBOUNDED = SVGFParams(radius=1, max_motion=None)
 UNBOUNDED_FRAMES = 4
 SEEDED_UHD_FRAMES = 4
 SEEDED_UHD_STEPS = 2                 # timed, after one warm-up step
+# phase 3's wide forms: K5/K6 past max_motion 59 (row bands), K10-K12 past
+# radius 16 (K10 and K11 as 1-D passes, the taps in a device array)
+WIDE_MOTIONS = (60, 96)
+WIDE_RADII = (17, 24)
+WIDEST_RADIUS = 90                   # K10 and K11 only
+# phase 10: the weak-scaling harness's one-rank row (a tile of the frame)
+SCALING_STEPS = 3
+# phase 12: the geometry gradient; phase 13: the quality gate at the card
+# size (tools/denoise_quality.py's defaults, fast weights) and its
+# thresholds (tests/test_quality.py's)
+GEOMETRY = ("sphere_params", "box_params", "plane_params")
+GEOMETRY_TOL = 2e-3
+GATE = dict(size=256, frames=16, spp_ref=1024, warmup=4)
+GATE_CASES = (("r1", dict(radius=1, iterations=5)),
+              ("r2", dict(radius=2, iterations=5)))
+GATE_BARS = {"cornell": dict(gain=2.2, ssim=0.96, ssim_gain=0.05),
+             "clutter": dict(gain=-0.3, ssim=0.945, ssim_gain=0.10)}
 
 
 # ptxas's names of the level forward's instantiations, level_kernel<R,
@@ -325,6 +366,15 @@ KG_KERNELS = {re.compile(r"21clamped_gather_kernelE"): "KG",
 # K5c/K6c; NP: 6 or 10 gradient planes compiled)
 K4_MANGLED = re.compile(r"13gather_kernelILb([01])EE")
 K5_MANGLED = re.compile(r"17gather_bwd_kernelILb([01])ELb([01])ELi(\d+)EE")
+# past max_motion 59: the banded d_hist, gather_bwd_banded_kernel<TILE, NP>,
+# and K5's motion term, motion_term_kernel<TILE>
+K5_BANDED = re.compile(r"24gather_bwd_banded_kernelILb([01])ELi(\d+)EE")
+K5_MOTION = re.compile(r"18motion_term_kernelILb([01])EE")
+# K10's and K11's 1-D passes past r 16, sep_pass_kernel<GAUSS, ALONG_Y>,
+# and K12's one-thread-a-pixel body, cross_bilateral_kernel<WIDE> (WIDE:
+# the taps in a device array)
+K1011_PASS = re.compile(r"15sep_pass_kernelILb([01])ELb([01])EE")
+K12_GENERIC = re.compile(r"22cross_bilateral_kernelILb([01])EE")
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
 
@@ -382,13 +432,15 @@ def random_planes(H, W, dev, seed):
 
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
-    K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K10's, K11's, K12's
-    staged, KG's, KGb's, KGp's, K4/K4c's and K5/K6's instantiations (the
-    build's report); raise if one of K1/K1b or K2/K2b at radius <= 2, K7,
+    K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K10's, K11's (and their
+    1-D passes), K12's, KG's, KGb's, KGp's, K4/K4c's and K5/K6's
+    (staged and banded) instantiations (the build's report); raise if one
+    of K1/K1b, K2/K2b or K14 at a compiled radius, K9 at r <= 1, K7, K8,
     K13 or K15 on a compiled scene, K3/K3b, K15's first camera launch, K10
-    or K11 at a compiled radius, K12's staged form, a KG, KGb or KGp
-    kernel or a K4-K6 kernel uses local memory, or if K3/K3b, a compiled
-    K13 or K15, a K10 or K11, a staged K12, a KG, KGb or KGp kernel or a
+    or K11 at a compiled radius or in a 1-D pass, a K12 form, a KG, KGb
+    or KGp kernel or a K4-K6 kernel uses local memory, or if K3/K3b, a
+    compiled
+    K13 or K15, a K10 or K11, a K12 form, a KG, KGb or KGp kernel or a
     K4-K6 instantiation is missing from the report."""
     k1, k9, local, k3, k13, k15, k12, kg = {}, {}, [], [], [], [], [], []
     k456, k1011 = [], []
@@ -403,12 +455,15 @@ def report_resources():
             k1011.append((kernel, R))
             if R >= 0 and (res[1] or res[2] or res[3]):
                 local.append(f"{kernel} r{R}")
-        m = K4_MANGLED.search(name) or K5_MANGLED.search(name)
+        m = (K4_MANGLED.search(name) or K5_MANGLED.search(name)
+             or K5_BANDED.search(name) or K5_MOTION.search(name))
         if m:
             tile = " tile" if m.group(1) == "1" else ""
             form = (f"K4{tile}" if m.re is K4_MANGLED else
-                    f"K{5 if m.group(2) == '1' else 6}{tile} NP "
-                    f"{m.group(3)}")
+                    f"K{5 if m.group(2) == '1' else 6}{tile} NP {m.group(3)}"
+                    if m.re is K5_MANGLED else
+                    f"K5/K6{tile} NP {m.group(2)} banded"
+                    if m.re is K5_BANDED else f"K5{tile} motion term")
             phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
                      f"spills {res[2] + res[3]} B")
             k456.append(form)
@@ -438,6 +493,18 @@ def report_resources():
                      f"{res[1]} B, spills {res[2] + res[3]} B")
             if res[1] or res[2] or res[3]:
                 local.append("K15 camera delta launch")
+        m = K1011_PASS.search(name) or K12_GENERIC.search(name)
+        if m:
+            form = (f"{'K11' if m.group(1) == '1' else 'K10'} pass along "
+                    f"{'y' if m.group(2) == '1' else 'x'}"
+                    if m.re is K1011_PASS else
+                    "K12 r > 4" + (" (taps in memory)" if m.group(1) == "1"
+                                   else ""))
+            phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
+                     f"spills {res[2] + res[3]} B")
+            k1011.append(form)
+            if res[1] or res[2] or res[3]:
+                local.append(form)
         m = K12_MANGLED.search(name)
         if m:
             R, px = int(m.group(1)), int(m.group(2))
@@ -473,12 +540,17 @@ def report_resources():
                      f"{' staged' if staged else ''}{' tile' if tile else ''}"
                      f": {res[0]} registers, stack {res[1]} B, spills "
                      f"{res[2] + res[3]} B")
+            if R >= 0 and (res[1] or res[2] or res[3]):
+                local.append(f"K14 r{R}{' staged' if staged else ''}"
+                             f"{' tile' if tile else ''}")
         m = K8_MANGLED.search(name)
         if m:
             counts = tuple(int(v.replace("n", "-")) for v in m.groups())
             phase(2, f"K8 {counts if counts[0] >= 0 else 'runtime counts'}"
                      f": {res[0]} registers, stack {res[1]} B, spills "
                      f"{res[2] + res[3]} B")
+            if counts[0] >= 0 and (res[1] or res[2] or res[3]):
+                local.append(f"K8 {counts}")
         m = K13_MANGLED.search(name)
         if m:
             counts = tuple(int(v.replace("n", "-")) for v in m.groups())
@@ -513,12 +585,16 @@ def report_resources():
     if len(k15) != 4 or sorted(k12) != [0, 1, 2, 3, 4]:
         raise AssertionError(f"phase 2: compiled K15 {k15} or staged K12 "
                              f"{sorted(k12)} missing from ptxas's report")
-    if len(set(k456)) != 10:
+    if len(set(k456)) != 16:
         raise AssertionError(f"phase 2: K4/K4c and K5/K6 (K5c/K6c) "
                              f"instantiations {sorted(k456)} in ptxas's "
-                             f"report, expected 2 and 8")
-    want = sorted((k, R) for k in ("K10", "K11") for R in range(-1, 5))
-    if sorted(k1011) != want:
+                             f"report, expected 2, 8, 4 banded and 2 "
+                             f"motion terms")
+    want = sorted([(k, R) for k in ("K10", "K11") for R in range(-1, 5)]
+                  + [f"K1{k} pass along {a}" for k in (0, 1) for a in "xy"]
+                  + ["K12 r > 4",
+                     "K12 r > 4 (taps in memory)"], key=str)
+    if sorted(k1011, key=str) != want:
         raise AssertionError(f"phase 2: K10/K11 instantiations "
                              f"{sorted(k1011)} in ptxas's report, expected "
                              f"{want}")
@@ -543,6 +619,10 @@ def report_resources():
         phase(2, f"K9 r{R if R >= 0 else '>2'}"
                  f"{' staged' if staged else ''}: {regs} registers, stack "
                  f"{frame} B, spills {st + ld} B")
+        # K9 at r2 and with its taps in memory spills 36-40 B (PERF.md,
+        # section 7): printed, not failed; r0-r1 must have none
+        if 0 <= R <= 1 and (frame or st or ld):
+            local.append(f"K9 r{R}{' staged' if staged else ''}")
     if local:
         raise AssertionError(f"phase 2: local memory in {local}")
 
@@ -958,8 +1038,9 @@ def check_filters(P, results):
         dev = device_ms(call, 20)
         plain = cuda_time_ms(lambda: boxfilter.box_filter(
             x, radius=r, depth=depth), repeats=5)
-        # 3 planes in, 3 out a call; (2r+1)^2 adds and a division a level
-        flops = 3 * depth * ((2 * r + 1) ** 2 + 1) * HW
+        # 3 planes in, 3 out a call; the separable work, 2(2r + 1) adds
+        # and a division an output a level
+        flops = 3 * depth * (2 * (2 * r + 1) + 1) * HW
         b_ms, b_by = bound(24 * HW, flops)
         if (r, depth) == (2, 1):
             results["K10"] = dict(ms=ms, plain_ms=plain, library_ms=lib,
@@ -1039,6 +1120,123 @@ def check_filters(P, results):
                           bytes=52 * HW, flops=K12_TAP_FLOPS * 25 * HW)
     phase(3, f"K12: ok, max |err| {err:.3g}, {ms:.4f} ms, plain "
              f"{plain:.4f} ms; {', '.join(others)}")
+
+
+def check_wide_forms(P):
+    """Phase 3's wide forms against their twins on the 1080p planes, each
+    timed beside its bound: K5/K6 at max_motion 60 and 96 (a block's
+    sources staged in row bands) on phase 3's random motion (±7 px) and on
+    motion to ±(M + 1), repeated bit-equal, K5c/K6c on the canvas of the
+    frame's lower right quarter tile; K10, K11 and K12 at radius 17 and 24
+    and K10 and K11 at radius 90 (K10 and K11 as a pass along y and one
+    along x a level, the taps of K11 and K12 in a device array); K10 and
+    K11 bit-equal to their twins, K12 atol 5e-5, K5/K6 rtol 1e-5, atol
+    1e-6.  The bounds count the separable work: 2(2r + 1) adds and a
+    division an output for K10, 6(2r + 1) operations and two divisions for
+    K11."""
+    dev = P["color"].device
+    H, W = P["depth"].shape
+    HW = H * W
+    rng = np.random.default_rng(40)
+    stack = torch.cat([P["h_color"], P["h_moments"], P["h_length"][None],
+                       P["depth"][None], P["normal"]]).contiguous()
+    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    tol = dict(atol=1e-6, rtol=1e-5)
+    lines = []
+    for Mw in WIDE_MOTIONS:
+        for kind, scale in (("±7 px", 7.0), (f"±{Mw + 1} px", Mw + 1.0)):
+            motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * 2
+                                       * scale).astype(np.float32)).to(dev)
+            k5 = gather_bwd_cuda(stack, motion, g, Mw, grad_planes=6)
+            want = temporal.gather_bwd_ref(stack, motion, g, Mw,
+                                           motion_grad=True, grad_planes=6)
+            for name, a, b in zip(("d_hist", "d_motion"), k5, want):
+                check_close(f"K5 M{Mw} {kind} {name}", a, b, **tol)
+            k6 = gather_bwd_hist_cuda(motion, g, Mw, grad_planes=6)
+            check_close(f"K6 M{Mw} {kind}", k6[0], want[0], **tol)
+            again = gather_bwd_cuda(stack, motion, g, Mw, grad_planes=6)
+            if not all(torch.equal(a, b) for a, b in zip(again, k5)):
+                raise AssertionError(f"K5 M{Mw} {kind}: differs between "
+                                     f"launches")
+            err = max(max_err(a, b) for a, b in zip(k5, want))
+            ms5 = cuda_time_ms(lambda: gather_bwd_cuda(
+                stack, motion, g, Mw, grad_planes=6), repeats=5)
+            ms6 = cuda_time_ms(lambda: gather_bwd_hist_cuda(
+                motion, g, Mw, grad_planes=6), repeats=5)
+            plain = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+                stack, motion, g, Mw, motion_grad=True, grad_planes=6),
+                repeats=2)
+            b5, _ = bound(104 * HW, 0)
+            b6, _ = bound(72 * HW, 0)
+            lines.append(f"K5/K6 M{Mw} {kind}: max |err| {err:.3g}, K5 "
+                         f"{ms5:.4f} ms (bound {b5:.4f}, plain {plain:.4f}), "
+                         f"K6 {ms6:.4f} ms (bound {b6:.4f})")
+        # the canvas forms on the lower right quarter tile
+        th, tw = H // 2, W // 2
+        tile = Tile((H - th, W - tw), (H, W))
+        canvas = frame_canvas(stack, tile, th, tw, Mw + 1)
+        m_t, g_t = (x[..., H - th:, W - tw:].contiguous()
+                    for x in (motion, g))
+        k5c = gather_canvas_bwd_cuda(canvas, m_t, g_t, Mw, tile=tile,
+                                     grad_planes=6)
+        want = temporal.gather_bwd_ref(canvas, m_t, g_t, Mw, motion_grad=True,
+                                       grad_planes=6, tile=tile)
+        for name, a, b in zip(("d_canvas", "d_motion"), k5c, want):
+            check_close(f"K5c M{Mw} {name}", a, b, **tol)
+        k6c = gather_canvas_bwd_hist_cuda(m_t, g_t, Mw, tile=tile,
+                                          canvas_shape=canvas.shape,
+                                          grad_planes=6)
+        check_close(f"K6c M{Mw}", k6c[0], want[0], **tol)
+        ms5c = cuda_time_ms(lambda: gather_canvas_bwd_cuda(
+            canvas, m_t, g_t, Mw, tile=tile, grad_planes=6), repeats=5)
+        lines.append(f"K5c/K6c M{Mw} quarter tile: ok, K5c {ms5c:.4f} ms")
+    phase(3, "wide K5/K6 (row bands past max_motion 59): ok, repeatable; "
+             + "; ".join(lines))
+
+    x = P["color"]
+    albedo = P["h_color"]
+    lines = []
+    for r in WIDE_RADII + (WIDEST_RADIUS,):
+        taps = 2 * r + 1
+        got = box_filter_cuda(x, radius=r)
+        want = boxfilter.box_filter(x, radius=r)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K10 r{r}: not its twin's floats (max "
+                                 f"|diff| {max_err(got, want):.3g})")
+        ms10 = cuda_time_ms(lambda: box_filter_cuda(x, radius=r), repeats=5)
+        plain10 = cuda_time_ms(lambda: boxfilter.box_filter(x, radius=r),
+                               repeats=2)
+        b10, by10 = bound(24 * HW, 3 * (2 * taps + 1) * HW)
+        got = gaussian_filter_cuda(x, radius=r, sigma=r / 2.0)
+        want = filters.gaussian_filter(x, radius=r, sigma=r / 2.0)
+        if not torch.equal(got, want):
+            raise AssertionError(f"K11 r{r}: not its twin's floats (max "
+                                 f"|diff| {max_err(got, want):.3g})")
+        ms11 = cuda_time_ms(lambda: gaussian_filter_cuda(
+            x, radius=r, sigma=r / 2.0), repeats=5)
+        plain11 = cuda_time_ms(lambda: filters.gaussian_filter(
+            x, radius=r, sigma=r / 2.0), repeats=2)
+        b11, by11 = bound(24 * HW, 3 * (6 * taps + 2) * HW)
+        line = (f"r{r}: K10 {ms10:.4f} ms (bound {b10:.4f} {by10}, plain "
+                f"{plain10:.4f}), K11 {ms11:.4f} ms (bound {b11:.4f} "
+                f"{by11}, plain {plain11:.4f})")
+        if r in WIDE_RADII:
+            p = FilterParams(type=FilterType.CROSS, radius=r)
+            args = (x, albedo, P["normal"], P["depth"])
+            got = cross_bilateral_cuda(*args, params=p)
+            want = filters.cross_bilateral_filter(*args, params=p)
+            check_close(f"K12 r{r}", got, want, atol=5e-5)
+            ms12 = cuda_time_ms(lambda: cross_bilateral_cuda(*args,
+                                                             params=p),
+                                repeats=3)
+            b12, by12 = bound(52 * HW, K12_TAP_FLOPS * taps * taps * HW)
+            line += (f", K12 {ms12:.4f} ms (bound {b12:.4f} {by12}; max "
+                     f"|err| {max_err(got, want):.3g})")
+        lines.append(line)
+    phase(3, "wide K10/K11/K12 (K10 and K11 bit-equal to their twins as "
+             "two 1-D passes a level past r 16, the taps in a device "
+             "array): ok; " + "; ".join(lines))
 
 
 def sdf_flops(scene):
@@ -2581,6 +2779,169 @@ def sharded_train_phase(H, W, dev, rm=RaymarchParams(), steps=UHD_STEPS,
     return counts
 
 
+def scaling_phase(H, W, dev):
+    """10(e): the weak-scaling harness's one-rank row
+    (``parallel.scaling.weak_scaling`` on this card's (1, 1, 1) mesh, a
+    3840x2160 tile, the 5-level sweep forward and backward on the chained
+    kernels), and the same step on one rank that
+    ``parallel.distributed.spawn_group`` starts on the card (the NCCL
+    route of more ranks).  One card: the row is t(1), not a scaling
+    number."""
+    kw = dict(tile=(H, W), steps=SCALING_STEPS)
+    reset_counts()
+    row = scaling.weak_scaling([1], device=dev, **kw)[0]
+    counts = read_counts(10, ("K1b", "K14"))
+    spawned = spawn_group(1, "nccl", scaling._step_rank, kw,
+                          join_timeout=300)[0]["seconds"]
+    if not row["sec_per_step"] > 0 or not spawned > 0:
+        raise AssertionError(f"phase 10(e): times {row['sec_per_step']}, "
+                             f"{spawned}")
+    phase(10, f"(e) weak-scaling row, one rank (not a scaling number): "
+              f"{json.dumps(row)}; launches {counts}; one NCCL rank "
+              f"spawned: {spawned:.6f} s a step")
+    return counts
+
+
+def _geometry_leaves(scene):
+    geo = [getattr(scene, k).clone().requires_grad_() for k in GEOMETRY]
+    return dataclasses.replace(scene, **dict(zip(GEOMETRY, geo))), geo
+
+
+def _check_grads(label, got, want, names, tol=GEOMETRY_TOL):
+    errs = []
+    for name, a, b in zip(names, got, want):
+        scale = float(b.abs().max())
+        check_close(f"{label} d_{name}", a, b, atol=tol * scale)
+        errs.append(max_err(a, b) / max(scale, 1e-30))
+    return max(errs)
+
+
+def geometry_grad_phase(H, W, dev):
+    """12: gradients with respect to the scene's geometry (spheres, boxes,
+    planes) at 1920x1080 through the implicit-function adjoint: (a)
+    ``render_gbuffer`` (K7, then K8, whose backward hands the hit point's
+    and the normal's cotangents to the march) against ``impl="plain"`` on
+    the card, d(Σ w·render + Σ depth + Σ w_m·motion); (b) the same with
+    ``coarse_seed`` (K15, then K7s): finite, its gap to (a) printed, not
+    bounded (the seeded hit points differ within hit_eps); (c) the seeded
+    march alone (K7s) against the plain seeded march, d(Σ w_t·t + Σ
+    w_n·n) with respect to the geometry and rd.  Bounded: atol 2e-3·max of
+    each gradient (the CPU tests' bound against JAX), pixels whose hit,
+    material, depth or render differs on an ulp carrying no weight."""
+    base = raymarch.cornell_scene(device=dev)
+    cfg = CameraParams(width=W, height=H)
+    cams = (orbit_camera(0.25, device=dev), orbit_camera(0.1875, device=dev))
+    lp = raymarch.sample_light(base, torch.Generator(dev).manual_seed(0),
+                               (H, W))
+    with torch.no_grad():
+        a, b = (raymarch.render_gbuffer(base, *cams, cam_cfg=cfg,
+                                        params=RaymarchParams(),
+                                        light_sample=lp, impl=impl)
+                for impl in ("auto", "plain"))
+    keep = ~(((a.albedo - b.albedo).abs().amax(0) > 1e-4)
+             | ((a.depth - b.depth).abs() > 1e-4)
+             | ((a.render - b.render).abs().amax(0) > 1e-2))
+    gen = torch.Generator(dev).manual_seed(6)
+    w = torch.rand((3, H, W), generator=gen, device=dev) * keep
+    w_m = torch.rand((2, H, W), generator=gen, device=dev) * keep * 1e-3
+
+    def render_grads(impl, rm):
+        scene, geo = _geometry_leaves(base)
+        g = raymarch.render_gbuffer(scene, *cams, cam_cfg=cfg, params=rm,
+                                    light_sample=lp, impl=impl)
+        ((w * g.render).sum() + (keep * g.depth).sum()
+         + (w_m * g.motion).sum()).backward()
+        return [x.grad for x in geo]
+
+    counts = {k: 0 for k in WRAPPERS}
+    with CudaTimer() as tm:
+        kern = counted(lambda: render_grads("auto", RaymarchParams()),
+                       counts)
+    plain = render_grads("plain", RaymarchParams())
+    err_a = _check_grads("12(a) render_gbuffer", kern, plain, GEOMETRY)
+    seeded = counted(lambda: render_grads("auto", SEEDED), counts)
+    if not all(bool(torch.isfinite(x).all()) for x in seeded):
+        raise AssertionError("12(b): seeded geometry gradient not finite")
+    gap_b = max(max_err(x, y) / float(y.abs().max())
+                for x, y in zip(seeded, kern))
+
+    ro, rd, _ = raymarch.camera_rays(cams[0], cfg)
+    t_c = cone_seed_cuda(base, SEEDED, camera=cams[0], cam_cfg=cfg,
+                         shape=(H, W))[0]
+    with torch.no_grad():
+        k = march_gbuf_seeded_cuda(base, ro, rd, t_c, SEEDED)
+        q = raymarch.march_gbuf(base, ro, rd, SEEDED, seed=t_c)
+    keep_m = ((k[1] == q[1]) & (k[2] == q[2])
+              & ((k[3] - q[3]).abs() <= 5e-4 + 5e-3 * q[3].abs()).all(0))
+    w_t = (torch.rand((H, W), generator=gen, device=dev) + 0.5) * keep_m
+    w_n = (torch.rand((3, H, W), generator=gen, device=dev) - 0.5) * keep_m
+
+    def march_grads(fn):
+        scene, geo = _geometry_leaves(base)
+        rdv = rd.clone().requires_grad_()
+        t, _hit, _mat, n = fn(scene, rdv)
+        ((w_t * t).sum() + (w_n * n).sum()).backward()
+        return [x.grad for x in geo] + [rdv.grad]
+
+    kern_c = counted(lambda: march_grads(
+        lambda sc, rdv: march_gbuf_seeded_cuda(sc, ro, rdv, t_c, SEEDED)),
+        counts)
+    plain_c = march_grads(lambda sc, rdv: raymarch.march_gbuf(
+        sc, ro, rdv, SEEDED, seed=t_c))
+    err_c = _check_grads("12(c) seeded march", kern_c, plain_c,
+                         GEOMETRY + ("rd",))
+    require_launched(12, counts, ("K7", "K8", "K15", "K7s"))
+    phase(12, f"geometry gradients {W}x{H} through the implicit-function "
+              f"adjoint: (a) render_gbuffer K7+K8 vs plain, max |err| "
+              f"{err_a:.3g}·max (bound {GEOMETRY_TOL:g}), forward+backward "
+              f"{tm.ms:.3f} ms; (b) coarse_seed (K15, K7s): finite, gap to "
+              f"(a) {gap_b:.3g}·max (not bounded); (c) seeded march K7s vs "
+              f"plain {err_c:.3g}·max; {int((~keep).sum())} and "
+              f"{int((~keep_m).sum())} flipped pixels unweighted; launches "
+              f"{counts}")
+    return counts
+
+
+def quality_phase(dev):
+    """13: the denoiser-quality gate at the card size
+    (``utils/denoise_quality.py``): the Cornell and clutter orbits at
+    256², 16 frames, 1024-sample converged renders (K7, then K13 once a
+    sample), scored after 4 frames through ``svgf_denoise_frame`` (K3,
+    K1) with fast weights, r1 and r2 at 5 iterations; fails below
+    ``tests/test_quality.py``'s thresholds."""
+    counts = {k: 0 for k in WRAPPERS}
+    lines = []
+    for scene_kind in ("cornell", "clutter"):
+        t0 = time.perf_counter()
+        seq = counted(lambda: denoise_quality.render_sequence(
+            scene_kind=scene_kind, device=dev, **GATE), counts)
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - t0
+        bars = GATE_BARS[scene_kind]
+        for label, kw in GATE_CASES:
+            t0 = time.perf_counter()
+            q = counted(lambda: denoise_quality.score(
+                seq, weight_math="fast", **kw), counts)
+            t_score = time.perf_counter() - t0
+            if not (q["psnr_gain_db"] > bars["gain"]
+                    and q["output_ssim"] > bars["ssim"]
+                    and q["output_ssim"] > q["input_ssim"]
+                    + bars["ssim_gain"]):
+                raise AssertionError(f"phase 13: {scene_kind} {label} "
+                                     f"below the gate {bars}: {q}")
+            lines.append(f"{scene_kind} {label} fast: PSNR "
+                         f"{q['input_psnr_db']} -> {q['output_psnr_db']} dB "
+                         f"(gain {q['psnr_gain_db']}), SSIM "
+                         f"{q['input_ssim']} -> {q['output_ssim']}, scored "
+                         f"in {t_score:.2f} s")
+        lines.append(f"{scene_kind} rendered in {t_render:.2f} s")
+    require_launched(13, counts, ("K1", "K3", "K7", "K8", "K13"))
+    phase(13, f"quality gate {GATE['size']}^2, {GATE['frames']} frames, "
+              f"{GATE['spp_ref']}-spp references, warm-up {GATE['warmup']}: "
+              + "; ".join(lines) + f"; launches {counts}")
+    return counts
+
+
 def sharded_cli_phase():
     """10(d): the CLI's SHARDED_SPATIAL case on the card."""
     reset_counts()
@@ -2625,6 +2986,7 @@ def main(argv=None) -> int:
     check_k3(P, results)
     check_k4_k5_k6(P, results)
     check_filters(P, results)
+    check_wide_forms(P)
     check_k7_k8(H, W, dev, results)
     check_k13(H, W, dev, results)
     check_cone_seed(H, W, dev, results)
@@ -2673,7 +3035,10 @@ def main(argv=None) -> int:
                 lambda: sharded_train_phase(
                     UH, UW, dev, rm=SEEDED, steps=SEEDED_UHD_STEPS, n=11,
                     label="(f) coarse_seed:",
-                    expected=("K1", "K2", "K4c", "K15", "K7s", "K8"))):
+                    expected=("K1", "K2", "K4c", "K15", "K7s", "K8")),
+                lambda: scaling_phase(UH, UW, dev),
+                lambda: geometry_grad_phase(H, W, dev),
+                lambda: quality_phase(dev)):
         for k, n in run().items():
             launches[k] += n
 

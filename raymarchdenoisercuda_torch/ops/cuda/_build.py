@@ -62,7 +62,8 @@ SIGNATURES = {
     "rdt_shadow": (_P,) * 6 + (_I, _P),
     "rdt_box_filter": (_P,) * 2 + (_I,) * 5 + (_P,),
     "rdt_gaussian_filter": (_P,) * 4,
-    "rdt_cross_bilateral": (_P,) * 7,
+    "rdt_filter_pass": (_P,) * 2 + (_I,) * 4 + (_P, _I, _P),
+    "rdt_cross_bilateral": (_P,) * 8,
 }
 
 

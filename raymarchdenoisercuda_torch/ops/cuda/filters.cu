@@ -21,7 +21,12 @@
 // serve all of its taps.  Where a tile's outputs and their taps all lie
 // in the frame, the tap count or weight sum is the full one, computed
 // once.  The radius is a template parameter for r <= 4; a generic body
-// takes r up to 16.
+// takes r up to 16.  Past r 16, K10 and K11 run as their twins do: two
+// 1-D passes (sep_pass_kernel), along y into a global intermediate and
+// along x from it, each tap read through the caches (O(r) work an output
+// where a staged tile would hold a halo of 2r rows); K12's one-thread-a-
+// pixel body reads its gaussian taps from a device array there (the
+// à-trous WIDE instantiation's way), not from the launch's parameter struct.
 //
 // * K10: all the levels of a launch in shared memory (ping-pong between
 //   two staged buffers), the halo r·levels; only the last level's tile is
@@ -67,12 +72,12 @@
 #include <math.h>
 #include <stdint.h>
 
-constexpr int kMaxTaps = 33;  // radius <= 16
+constexpr int kMaxTaps = 33;  // the taps a parameter struct holds: r <= 16
 
 // Launch parameters, passed by pointer from ops/filters_cuda.py (ctypes).
 struct GaussParams {
     int C, H, W, radius;
-    float taps[kMaxTaps];       // _gauss_taps(radius, sigma)
+    float taps[kMaxTaps];       // _gauss_taps(radius, sigma), r <= 16
 };
 
 struct CrossParams {
@@ -81,7 +86,7 @@ struct CrossParams {
     float inv_2sa2;   // log2(e) / (2 sigma_albedo^2 + eps)
     float inv_sz;     // log2(e) / (sigma_depth + eps)
     float sigma_normal, eps;
-    float gt[kMaxTaps];  // _gauss_taps(radius, sigma_space)
+    float gt[kMaxTaps];  // _gauss_taps(radius, sigma_space), r <= 16
 };
 
 namespace {
@@ -92,13 +97,16 @@ __device__ float pow_sigma_n(float x, const CrossParams& p) {
     return x;
 }
 
-// color, albedo, normal (3, H, W) and depth (H, W) -> out (3, H, W)
+// color, albedo, normal (3, H, W) and depth (H, W) -> out (3, H, W); the
+// spatial taps from p.gt, or (WIDE, r > 16) from the device array wide_gt
+template <bool WIDE>
 __global__ void cross_bilateral_kernel(const float* __restrict__ color,
                                        const float* __restrict__ albedo,
                                        const float* __restrict__ normal,
                                        const float* __restrict__ depth,
                                        float* __restrict__ out,
-                                       CrossParams p) {
+                                       CrossParams p,
+                                       const float* __restrict__ wide_gt) {
     const int x = blockIdx.x * blockDim.x + threadIdx.x;
     const int y = blockIdx.y * blockDim.y + threadIdx.y;
     if (x >= p.W || y >= p.H) return;
@@ -122,8 +130,9 @@ __global__ void cross_bilateral_kernel(const float* __restrict__ color,
                 n0 * normal[q] + n1 * normal[hw + q] + n2 * normal[2 * hw + q],
                 0.0f);
             const float arg = -(da2 * p.inv_2sa2 + fabsf(z - depth[q]) * p.inv_sz);
-            const float w = p.gt[dy + r] * p.gt[dx + r] * exp2f(arg)
-                * pow_sigma_n(ndot, p);
+            const float gy = WIDE ? wide_gt[dy + r] : p.gt[dy + r];
+            const float gx = WIDE ? wide_gt[dx + r] : p.gt[dx + r];
+            const float w = gy * gx * exp2f(arg) * pow_sigma_n(ndot, p);
             num0 = num0 + w * color[q];
             num1 = num1 + w * color[hw + q];
             num2 = num2 + w * color[2 * hw + q];
@@ -579,6 +588,55 @@ gaussian_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
     }
 }
 
+// K10 and K11 past r 16: one 1-D pass of the twins (box_filter in
+// ops/boxfilter.py, gaussian_filter in ops/filters.py), one output a
+// thread (KS_TX x KS_TY a block, one plane a grid layer), every tap read
+// through the caches: a warp's loads of one tap are one row segment.
+// GAUSS: tap·value for the in-range taps k = 0..2r in order, divided by
+// the ordered sum of those taps (the pass along y rounded to float in the
+// intermediate).  The box: the centre, then the values at +d and -d for
+// d = 1..r (0 beyond the frame), the twin's order; the pass along x
+// divides by the in-range tap count.  The twins' floats, bit for bit.
+constexpr int KS_TX = 32, KS_TY = 8;
+
+template <bool GAUSS, bool ALONG_Y>
+__global__ void __launch_bounds__(KS_TX * KS_TY)
+sep_pass_kernel(const float* __restrict__ in, float* __restrict__ out,
+                int H, int W, int r, const float* __restrict__ taps) {
+    const int x = blockIdx.x * KS_TX + threadIdx.x;
+    const int y = blockIdx.y * KS_TY + threadIdx.y;
+    if (x >= W || y >= H) return;
+    const size_t o = blockIdx.z * (size_t)H * W + (size_t)y * W + x;
+    const float* c = in + o;
+    const int pos = ALONG_Y ? y : x, n = ALONG_Y ? H : W;
+    const ptrdiff_t step = ALONG_Y ? W : 1;
+    float res;
+    if constexpr (GAUSS) {
+        float num = 0.0f, den = 0.0f;
+        const int k1 = min(2 * r, n - 1 - pos + r);
+        for (int k = max(r - pos, 0); k <= k1; ++k) {
+            num = num + taps[k] * c[(k - r) * step];
+            den = den + taps[k];
+        }
+        res = num / den;
+    } else {
+        float acc = c[0];
+        for (int d = 1; d <= r; ++d) {
+            const float a = pos + d < n ? c[d * step] : 0.0f;
+            const float b = pos - d >= 0 ? c[-d * step] : 0.0f;
+            acc = acc + a + b;
+        }
+        if constexpr (ALONG_Y) {
+            res = acc;
+        } else {
+            const int ny = min(y + r, H - 1) - max(y - r, 0) + 1;
+            const int nx = min(x + r, W - 1) - max(x - r, 0) + 1;
+            res = acc / (float)(ny * nx);
+        }
+    }
+    out[o] = res;
+}
+
 // Dynamic shared memory above the default 48 KB needs the kernel's
 // attribute raised first; a size the card cannot give fails here.
 template <typename K>
@@ -665,28 +723,63 @@ extern "C" int rdt_gaussian_filter(const float* in, float* out,
     }
 }
 
+// K10 and K11 past r 16: one 1-D pass, the gaussian's with its 2r + 1
+// taps from the device array `taps`, the box's where taps is NULL.
+extern "C" int rdt_filter_pass(const float* in, float* out, int C, int H,
+                               int W, int radius, const float* taps,
+                               int along_y, void* stream) {
+    if (radius < 0) return (int)cudaErrorInvalidValue;
+    const cudaStream_t s = (cudaStream_t)stream;
+    const dim3 block(KS_TX, KS_TY), grid = grid_for(H, W, C, block);
+    if (taps && along_y) {
+        sep_pass_kernel<true, true><<<grid, block, 0, s>>>(in, out, H, W,
+                                                           radius, taps);
+    } else if (taps) {
+        sep_pass_kernel<true, false><<<grid, block, 0, s>>>(in, out, H, W,
+                                                            radius, taps);
+    } else if (along_y) {
+        sep_pass_kernel<false, true><<<grid, block, 0, s>>>(in, out, H, W,
+                                                            radius, taps);
+    } else {
+        sep_pass_kernel<false, false><<<grid, block, 0, s>>>(in, out, H, W,
+                                                             radius, taps);
+    }
+    return (int)cudaGetLastError();
+}
+
 // K12: the staged form for r <= kMaxStagedRadius, else one thread a pixel
+// (r > 16: the spatial taps from the device array wide_gt, NULL below)
 extern "C" int rdt_cross_bilateral(const float* color, const float* albedo,
                                    const float* normal, const float* depth,
                                    float* out, const CrossParams* params,
-                                   void* stream) {
+                                   const float* wide_gt, void* stream) {
     const cudaStream_t s = (cudaStream_t)stream;
-    const int H = params->H, W = params->W;
+    const int H = params->H, W = params->W, r = params->radius;
+    if (r < 0 || (r > kMaxTaps / 2 && !wide_gt)) {
+        return (int)cudaErrorInvalidValue;
+    }
     const dim3 block(K12_TX, K12_TY);
     const dim3 staged((W + K12_TX - 1) / K12_TX,
                       (H + K12_TY * kCrossPx - 1) / (K12_TY * kCrossPx));
 #define RDT_CROSS(R)                                                       \
     cross_bilateral_staged_kernel<R, kCrossPx><<<staged, block, 0, s>>>(   \
         color, albedo, normal, depth, out, *params)
-    switch (params->radius) {
+    switch (r) {
     case 0: RDT_CROSS(0); break;
     case 1: RDT_CROSS(1); break;
     case 2: RDT_CROSS(2); break;
     case 3: RDT_CROSS(3); break;
     case 4: RDT_CROSS(4); break;
     default:
-        cross_bilateral_kernel<<<grid_for(H, W, 1, block), block, 0, s>>>(
-            color, albedo, normal, depth, out, *params);
+        if (r > kMaxTaps / 2) {
+            cross_bilateral_kernel<true>
+                <<<grid_for(H, W, 1, block), block, 0, s>>>(
+                    color, albedo, normal, depth, out, *params, wide_gt);
+        } else {
+            cross_bilateral_kernel<false>
+                <<<grid_for(H, W, 1, block), block, 0, s>>>(
+                    color, albedo, normal, depth, out, *params, nullptr);
+        }
     }
 #undef RDT_CROSS
     return (int)cudaGetLastError();

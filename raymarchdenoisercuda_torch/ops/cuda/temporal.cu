@@ -96,6 +96,18 @@
 // unrolled over a 3 x 3 window, 1.42x served; the motion term in a kernel
 // of its own, 1.10x served; its blocks interleaved with the gather's, 0.98x
 // served but 1.04x random; more blocks an SM by launch bounds spilled.
+//   Above max_motion 59 a block's (9 + 2M) x (33 + 2M) sources no longer
+//   fit in the 227 KB of shared memory a block can have.  There
+//   gather_bwd_banded_kernel stages them in row bands of at most
+//   kBandBytes, one band after another from the region's last row to its
+//   first: a texel's candidate offset rows oy = q - p then still ascend
+//   across the bands, each band scans the floor range of its own sources,
+//   and the sums stay in registers, so every texel adds the same addends
+//   in the same order as one band of the whole region would (any band
+//   split gives the same floats, and launches repeat them).  K5's motion
+//   term runs there in a kernel of its own (motion_term_kernel, the same
+//   sums): inlined after the banded gather, the canvas form with 10
+//   planes spilled.
 //
 // Tiles (the sharded pipeline, parallel/sharded.py).  Each kernel computes
 // the H x W centre of a tile whose pixel (0, 0) is the global pixel
@@ -164,6 +176,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <algorithm>
 
 // Launch parameters, passed by pointer from ops/temporal_cuda.py (ctypes).
 struct TemporalParams {
@@ -597,8 +611,10 @@ gather_kernel(const float* __restrict__ stack,
 // d = ((oy + kCodeBias) << 16) + ox + kCodeBias - code is
 // ((oy - fy) << 16) + (ox - fx), which is 0, 1, 0x10000 or 0x10001
 // exactly when (oy - fy, ox - fx) is in {0, 1}^2: one subtraction and one
-// mask a candidate.
-constexpr int kCodeBias = 1024;
+// mask a candidate.  The bias takes max_motion up to 8190 (the wrapper
+// bounds it by the frame's larger side plus one, beyond which no source
+// reaches the frame).
+constexpr int kCodeBias = 8192;
 constexpr int kNoSource = 0x7fff7fff;
 
 // K5's motion term at pixel (y, x) of the tile: the sums of the kernel
@@ -754,6 +770,131 @@ gather_bwd_kernel(const float* __restrict__ hist,
     for (int c = 0; c < 10; ++c) d[c * ps] = c < NP ? acc[c] : 0.0f;
     if (MG && qy >= 0 && qy < H && qx >= 0 && qx < W)
         motion_term<TILE>(hist, motion, g, dm, H, W, M, np, t, qy, qx);
+}
+
+// K5/K6 (K5c/K6c) above max_motion 59: gather_bwd_kernel's d_hist with
+// the block's source region staged in bands of `band_rows` rows (see the
+// header), from the region's last band to its first; shared memory holds
+// one band's motion planes and codes.  K5's motion term follows in
+// motion_term_kernel.
+template <bool TILE, int NP>
+__global__ void __launch_bounds__(KT_X * KT_Y)
+gather_bwd_banded_kernel(const float* __restrict__ motion,
+                         const float* __restrict__ g, float* __restrict__ dh,
+                         int H, int W, int M, int np, TemporalTile t,
+                         int band_rows) {
+    extern __shared__ float sm[];
+    __shared__ int red[KT_Y][4];
+    const int hm = TILE ? t.h_m : 0;
+    const int cx0 = blockIdx.x * KT_X, cy0 = blockIdx.y * KT_Y;
+    const int qx0 = cx0 - hm, qy0 = cy0 - hm;
+    const int rh = KT_Y + 2 * M + 1, rw = KT_X + 2 * M + 1;
+    const int ry0 = qy0 - M - 1, rx0 = qx0 - M - 1;
+    const int nb = band_rows * rw;
+    const int hw = H * W;
+    const int rs = TILE ? t.h_rs : W, ps = TILE ? t.h_ps : hw;
+    float* s0 = sm;
+    float* s1 = sm + nb;
+    int* code = reinterpret_cast<int*>(sm + 2 * nb);
+    const int cx = cx0 + threadIdx.x, cy = cy0 + threadIdx.y;
+    const int qx = qx0 + threadIdx.x, qy = qy0 + threadIdx.y;
+    const bool live = cy < H + 2 * hm && cx < W + 2 * hm;
+    const bool gather = live
+        && (!TILE || tap_inside<TILE>(t, H, W, qy, qx, 0, 0));
+    float acc[NP];
+#pragma unroll
+    for (int c = 0; c < NP; ++c) acc[c] = 0.0f;
+#pragma unroll 1
+    for (int b1 = rh; b1 > 0; b1 -= band_rows) {
+        // region rows [b0, b1): frame rows ry0 + b0 .. ry0 + b1 - 1
+        const int b0 = max(b1 - band_rows, 0), bh = b1 - b0;
+        const int sy0 = ry0 + b0;
+        __syncthreads();   // the previous band's readers are done
+        for (int ry = threadIdx.y; ry < bh; ry += KT_Y) {
+            const int sy = sy0 + ry;
+            for (int rx = threadIdx.x; rx < rw; rx += KT_X) {
+                const int sx = rx0 + rx;
+                const bool in = sy >= 0 && sy < H && sx >= 0 && sx < W;
+                const float* src = motion + (in ? sy * W + sx : 0);
+                cp_async4_or_zero(s0 + ry * rw + rx, src, in);
+                cp_async4_or_zero(s1 + ry * rw + rx, src + hw, in);
+            }
+        }
+        cp_async_wait_all();
+        __syncthreads();
+        int y_lo = kNoLo, y_hi = kNoHi, x_lo = kNoLo, x_hi = kNoHi;
+        for (int ry = threadIdx.y; ry < bh; ry += KT_Y) {
+            const int sy = sy0 + ry;
+            for (int rx = threadIdx.x; rx < rw; rx += KT_X) {
+                const int sx = rx0 + rx, e = ry * rw + rx;
+                const float m0 = s0[e], m1 = s1[e];
+                int c = kNoSource;
+                if (sy >= 0 && sy < H && sx >= 0 && sx < W
+                    && fabsf(m0) <= (float)M && fabsf(m1) <= (float)M) {
+                    const int fy = (int)floorf(m0), fx = (int)floorf(m1);
+                    const int ay = sy + fy - qy0, ax = sx + fx - qx0;
+                    if (ay >= -1 && ay < KT_Y && ax >= -1 && ax < KT_X) {
+                        c = ((fy + kCodeBias) << 16) + fx + kCodeBias;
+                        y_lo = min(y_lo, fy);
+                        y_hi = max(y_hi, fy);
+                        x_lo = min(x_lo, fx);
+                        x_hi = max(x_hi, fx);
+                    }
+                }
+                code[e] = c;
+            }
+        }
+        const FloorRange r = block_floor_range(y_lo, y_hi, x_lo, x_hi, red);
+        if (!gather || r.y_lo > r.y_hi) continue;
+        // the offset rows whose source row qy - oy lies in the band,
+        // ascending, as gather_bwd_kernel scans them
+        const int oy_lo = max(r.y_lo, qy - (sy0 + bh - 1));
+        const int oy_hi = min(r.y_hi + 1, qy - sy0);
+        const int nx = r.x_hi - r.x_lo + 2;
+        for (int oy = oy_lo; oy <= oy_hi; ++oy) {
+            const int ty = ((oy + kCodeBias) << 16) + kCodeBias;
+            const int row = (qy - oy - sy0) * rw + qx - rx0;
+            for (int k0 = 0; k0 < nx; k0 += 32) {
+                const int kn = min(nx - k0, 32);
+                const int ox0 = r.x_lo + k0;
+                unsigned mask = 0u;
+                for (int k = 0; k < kn; ++k) {
+                    const int d = ty + ox0 + k - code[row - ox0 - k];
+                    mask |= ((d & 0xfffefffe) == 0 ? 1u : 0u) << k;
+                }
+                while (mask) {
+                    const int k = __ffs(mask) - 1;
+                    mask &= mask - 1u;
+                    const int ox = ox0 + k, e = row - ox;
+                    const float w = tent(s0[e] - (float)oy)
+                        * tent(s1[e] - (float)ox);
+                    const float* gs = g + (qy - oy) * W + qx - ox;
+#pragma unroll
+                    for (int c = 0; c < NP; ++c) {
+                        if (c < np) acc[c] = acc[c] + w * gs[c * hw];
+                    }
+                }
+            }
+        }
+    }
+    if (!live) return;
+    float* d = dh + cy * rs + cx;
+#pragma unroll
+    for (int c = 0; c < 10; ++c) d[c * ps] = c < NP ? acc[c] : 0.0f;
+}
+
+// K5's motion term (motion_term) at every pixel of the tile, one a thread:
+// the banded K5's second launch.
+template <bool TILE>
+__global__ void __launch_bounds__(KT_X * KT_Y)
+motion_term_kernel(const float* __restrict__ hist,
+                   const float* __restrict__ motion,
+                   const float* __restrict__ g, float* __restrict__ dm,
+                   int H, int W, int M, int np, TemporalTile t) {
+    const int x = blockIdx.x * KT_X + threadIdx.x;
+    const int y = blockIdx.y * KT_Y + threadIdx.y;
+    if (x < W && y < H) motion_term<TILE>(hist, motion, g, dm, H, W, M, np,
+                                          t, y, x);
 }
 
 // The clamped gather's tap geometry at pixel (y, x) of an H x W frame:
@@ -1211,12 +1352,52 @@ static size_t gather_bwd_smem(int M) {
     return (2 * sizeof(float) + sizeof(int)) * n;
 }
 
+// The shared memory a block can have (sm_90), and the banded form's
+// budget a band: two blocks an SM.
+constexpr size_t kSmemOptin = 227 * 1024;
+constexpr size_t kBandBytes = 96 * 1024;
+
+template <bool TILE, bool MG, int NP>
+static int launch_gather_bwd_banded(const float* hist, const float* motion,
+                                    const float* g, float* dh, float* dm,
+                                    int H, int W, int M, int np,
+                                    const TemporalTile& t, cudaStream_t s) {
+    const int rh = KT_Y + 2 * M + 1, rw = KT_X + 2 * M + 1;
+    const size_t row_bytes = (2 * sizeof(float) + sizeof(int)) * rw;
+    const int band_rows = std::max(
+        1, std::min(rh, (int)(kBandBytes / row_bytes)));
+    const size_t smem = row_bytes * band_rows;
+    if (smem > 48 * 1024) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            gather_bwd_banded_kernel<TILE, NP>,
+            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        if (err != cudaSuccess) return (int)err;
+    }
+    const int hm = TILE ? t.h_m : 0;
+    const dim3 block(KT_X, KT_Y);
+    const dim3 grid((W + 2 * hm + KT_X - 1) / KT_X,
+                    (H + 2 * hm + KT_Y - 1) / KT_Y);
+    gather_bwd_banded_kernel<TILE, NP><<<grid, block, smem, s>>>(
+        motion, g, dh, H, W, M, np, t, band_rows);
+    if (MG) {
+        const dim3 px((W + KT_X - 1) / KT_X, (H + KT_Y - 1) / KT_Y);
+        motion_term_kernel<TILE><<<px, block, 0, s>>>(hist, motion, g, dm, H,
+                                                      W, M, np, t);
+    }
+    return (int)cudaGetLastError();
+}
+
 template <bool TILE, bool MG, int NP>
 static int launch_gather_bwd(const float* hist, const float* motion,
                              const float* g, float* dh, float* dm, int H,
                              int W, int M, int np, const TemporalTile& t,
                              cudaStream_t s) {
     const size_t smem = gather_bwd_smem(M);
+    if (smem > kSmemOptin) {
+        // max_motion > 59: the region in row bands
+        return launch_gather_bwd_banded<TILE, MG, NP>(hist, motion, g, dh,
+                                                      dm, H, W, M, np, t, s);
+    }
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             gather_bwd_kernel<TILE, MG, NP>,

@@ -15,9 +15,15 @@ create their tensors on the CUDA card unless given ``device``.
 Gradients: the material tables, the light sample and the light reach the
 render through the shading (:func:`shade_epilogue`, differentiated by
 autograd, and on the card by K8's backward, which recomputes it); the
-visibility is piecewise constant.  The geometry adjoint (the march's
-implicit-function VJP) is not ported: the hit distance, normal and hit
-point carry no gradient to the scene's primitives or the camera.
+visibility is piecewise constant.  The hit distance reaches the scene's
+primitives and the rays through the march's implicit-function adjoint
+(:func:`raymarch`, the JAX package's ``raymarch`` with ``_raymarch_bwd``):
+one SDF evaluation at the hit point, not autograd through the loop.  The
+normal is differentiated by autograd of :func:`sdf_normal` at the hit
+point, or, where the march emitted it fused (K7), by recomputing that
+chain in the backward (``_gbuf_fused_bwd`` in the JAX package).  The SDF's
+kinks take JAX's derivatives: d|x|/dx = +1 at 0, and ``max``/``min`` ties
+split evenly; a norm's derivative at 0 is 0, where JAX's is NaN.
 
 Per pixel: sphere-trace the primary ray (``max_steps``), take the material
 of the nearest primitive at the hit (first primitive on ties, in the order
@@ -81,9 +87,33 @@ class Camera:
     up: torch.Tensor        # (3,)
 
 
+def _norm3_plain(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+
+
+class _Norm3(torch.autograd.Function):
+    """:func:`_norm3` with the derivative v/|v|, and 0 where |v| = 0.
+    Autograd of the square root gives 0/0 there: a central-difference
+    stencil point that lands exactly on a box's face (max(q, 0) = 0)
+    turns every geometry gradient NaN (1080p Cornell frames have such
+    pixels; the JAX package's ``jnp.linalg.norm`` gives NaN there too)."""
+
+    @staticmethod
+    def forward(ctx, v):
+        r = _norm3_plain(v)
+        ctx.save_for_backward(v, r)
+        return r
+
+    @staticmethod
+    def backward(ctx, g):
+        v, r = ctx.saved_tensors
+        scale = torch.where(r > 0, g / torch.where(r > 0, r, 1.0), 0.0)
+        return v * scale[None]
+
+
 def _norm3(v: torch.Tensor) -> torch.Tensor:
     """Euclidean norm over the leading axis of size 3 (explicit order)."""
-    return torch.sqrt(v[0] * v[0] + v[1] * v[1] + v[2] * v[2])
+    return _Norm3.apply(v) if v.requires_grad else _norm3_plain(v)
 
 
 def _normalize(v: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
@@ -100,8 +130,25 @@ def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         a[0] * b[1] - a[1] * b[0]])
 
 
+class _Abs(torch.autograd.Function):
+    """|x| with JAX's derivative at the kink: +1 at x = 0 (and at -0.0),
+    where ``torch.abs`` gives 0."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
 def sdf_scene(scene: Scene, p: torch.Tensor, want_mat: bool = True):
-    """Signed distance (and material id) at points ``p`` (3, ...)."""
+    """Signed distance (and material id) at points ``p`` (3, ...).  Its
+    derivatives at the kinks are JAX's: ``_Abs``, ``maximum``/``minimum``
+    against 0 and ``amax``/``amin`` split ties evenly."""
     sp = scene.sphere_params
     c = sp[:, :3].reshape(sp.shape[0], 3, *([1] * (p.dim() - 1)))
     d_sph = _norm3((p[None] - c).transpose(0, 1)) - sp[:, 3].reshape(
@@ -110,9 +157,12 @@ def sdf_scene(scene: Scene, p: torch.Tensor, want_mat: bool = True):
     bp = scene.box_params
     cb = bp[:, :3].reshape(bp.shape[0], 3, *([1] * (p.dim() - 1)))
     hb = bp[:, 3:].reshape(bp.shape[0], 3, *([1] * (p.dim() - 1)))
-    q = (torch.abs(p[None] - cb) - hb).transpose(0, 1)        # (3, Nb, ...)
-    d_box = _norm3(torch.clamp(q, min=0.0)) + torch.clamp(
-        torch.maximum(q[0], torch.maximum(q[1], q[2])), max=0.0)
+    rel = p[None] - cb
+    q = ((_Abs.apply(rel) if rel.requires_grad else torch.abs(rel))
+         - hb).transpose(0, 1)                                 # (3, Nb, ...)
+    zero = q.new_zeros(())
+    d_box = _norm3(torch.maximum(q, zero)) + torch.minimum(
+        torch.amax(q, 0), zero)
 
     pp = scene.plane_params
     shape = (-1,) + (1,) * (p.dim() - 1)
@@ -354,6 +404,118 @@ def cone_seed_coarse_analytic(scene: Scene, camera: Camera,
     return cone_march(scene, ro_c, rd_c, delta, base, params), delta, base
 
 
+def _march_plain(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+                 params: RaymarchParams, t0: Optional[torch.Tensor],
+                 normal: bool):
+    """The plain march and its G-buffer epilogue without autograd: ``(t,
+    hit, mat, n)``, ``n`` None unless ``normal``."""
+    t = _raymarch_loop(scene, ro, rd, params, t0)
+    p = ro + t[None] * rd
+    d_final, mat = sdf_scene(scene, p)
+    hit = (d_final <= params.hit_eps * 4.0) & (t < params.max_dist)
+    n = _flipped_normal(scene, p, rd, params.normal_eps) if normal else None
+    return t, hit, mat.to(torch.int32), n
+
+
+def _flipped_normal(scene: Scene, p: torch.Tensor, rd: torch.Tensor,
+                    eps: float) -> torch.Tensor:
+    """The unit central-difference normal at ``p``, flipped toward the
+    viewer."""
+    n = sdf_normal(scene, p, eps)
+    return torch.where(_dot3(n, rd)[None] > 0, -n, n)
+
+
+class _March(torch.autograd.Function):
+    """The primary march with the implicit-function adjoint of the hit
+    distance (``raymarch``'s custom VJP in the JAX package).
+
+    Forward (no autograd): ``launch()`` returns ``(t, hit, mat, n)`` (the
+    plain march, or K7/K7s on the card); the outputs are ``(t, hit, mat)``,
+    with ``n`` after them where ``fused`` (the normal emitted by the march
+    itself).  Backward, in PyTorch on either device: at p = ro + t·rd,
+    denom = ∇f·rd from one SDF evaluation (its magnitude clamped at 1e-2,
+    sign kept), s = -g_t / denom on hits and 0 elsewhere, then d_scene =
+    f_θᵀs, d_ro = ∇f·s and d_rd = t·∇f·s (``_raymarch_bwd``).  Where
+    ``fused``, the normal chain is recomputed first and its hit-point
+    cotangent d_p folded in: g_t += Σ d_p·rd, d_ro += d_p, d_rd += t·d_p
+    (``_gbuf_fused_bwd``).  A march seed does not enter the adjoint; the
+    material ids and the hit mask carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, sphere_params, box_params, plane_params, ro, rd, scene,
+                params, launch, fused):
+        t, hit, mat, n = launch()
+        ctx.save_for_backward(sphere_params, box_params, plane_params, ro,
+                              rd, t, hit)
+        ctx.scene, ctx.params, ctx.fused = scene, params, fused
+        ctx.mark_non_differentiable(hit, mat)
+        return (t, hit, mat, n) if fused else (t, hit, mat)
+
+    @staticmethod
+    def backward(ctx, g_t, _g_hit, _g_mat, g_n=None):
+        sph, box, pl, ro, rd, t, hit = ctx.saved_tensors
+        if not any(ctx.needs_input_grad[:5]):
+            return (None,) * 9
+        with torch.enable_grad():
+            geo = [x.detach().requires_grad_() for x in (sph, box, pl)]
+            scene = dataclasses.replace(ctx.scene, sphere_params=geo[0],
+                                        box_params=geo[1],
+                                        plane_params=geo[2])
+            p = (ro + t[None] * rd).detach()
+            d_geo, d_p = [0.0, 0.0, 0.0], None
+            if ctx.fused:
+                pn = p.clone().requires_grad_()
+                n = _flipped_normal(scene, pn, rd, ctx.params.normal_eps)
+                *d_geo, d_p = _grads(n, geo + [pn], g_n)
+                g_t = g_t + _dot3(d_p, rd)
+            pf = p.clone().requires_grad_()
+            f = sdf_scene(scene, pf, want_mat=False)
+            (grad_f,) = torch.autograd.grad(f, pf, torch.ones_like(f),
+                                            retain_graph=True)
+            denom = _dot3(grad_f, rd)
+            lim = torch.full_like(denom, 1e-2)
+            safe = torch.where(denom.abs() < 1e-2,
+                               torch.where(denom < 0, -lim, lim), denom)
+            s = torch.where(hit, -g_t / safe, torch.zeros_like(g_t))
+            *d_scene, d_pt = _grads(f, geo + [pf], s)
+        d_geo = [a + b for a, b in zip(d_scene, d_geo)]
+        if d_p is not None:
+            d_pt = d_pt + d_p
+        d_ro, d_rd = d_pt, t[None] * d_pt
+        need = ctx.needs_input_grad
+        return tuple(g if nd else None for g, nd in zip(
+            d_geo + [d_ro, d_rd], need[:5])) + (None,) * 4
+
+
+def _grads(out, inputs, cot):
+    """``torch.autograd.grad`` of ``out`` against ``cot``, zeros for inputs
+    that ``out`` does not reach."""
+    gs = torch.autograd.grad(out, inputs, cot, allow_unused=True)
+    return [torch.zeros_like(x) if g is None else g
+            for g, x in zip(gs, inputs)]
+
+
+def march(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+          params: RaymarchParams, launch=None, fused: bool = False):
+    """The differentiable march (:class:`_March`): ``launch()`` gives its
+    forward's ``(t, hit, mat, n)`` (default: the plain march from 0);
+    returns ``(t, hit, mat)``, and ``n`` after them where ``fused``."""
+    if launch is None:
+        def launch():
+            return _march_plain(scene, ro, rd, params, None, fused)
+    return _March.apply(scene.sphere_params, scene.box_params,
+                        scene.plane_params, ro, rd, scene, params, launch,
+                        fused)
+
+
+def raymarch(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
+             params: RaymarchParams):
+    """``(t, hit)`` of the plain march, differentiable by the implicit-
+    function adjoint: the JAX package's ``raymarch``."""
+    t, hit, _mat = march(scene, ro, rd, params)
+    return t, hit
+
+
 def march_gbuf(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
                params: RaymarchParams, seed: Optional[torch.Tensor] = None):
     """Plain version of K7: the primary march plus its G-buffer epilogue.
@@ -362,16 +524,21 @@ def march_gbuf(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     (``d <= 4·hit_eps`` and ``t < max_dist``), int32 material id at the
     final point, and the unit central-difference normal flipped toward the
     viewer (not masked by ``hit``).  ``seed``: the coarse (Hc, Wc) grid of
-    cone stops; each pixel's march starts at its block's stop."""
+    cone stops; each pixel's march starts at its block's stop.
+
+    Differentiable in the scene's geometry and the rays: ``t`` by the
+    implicit-function adjoint, the normal by autograd of ``sdf_normal`` at
+    p = ro + t·rd (the JAX package's jnp path; K7's form, the normal
+    recomputed in the backward, is ``march(..., fused=True)``)."""
     H, W = ro.shape[-2:]
     t0 = None if seed is None else seed_plane(seed, H, W)
-    t = _raymarch_loop(scene, ro, rd, params, t0)
-    p = ro + t[None] * rd
-    d_final, mat = sdf_scene(scene, p)
-    hit = (d_final <= params.hit_eps * 4.0) & (t < params.max_dist)
-    n = sdf_normal(scene, p, params.normal_eps)
-    n = torch.where(_dot3(n, rd)[None] > 0, -n, n)
-    return t, hit, mat.to(torch.int32), n
+
+    def launch():
+        return _march_plain(scene, ro, rd, params, t0, False)
+
+    t, hit, mat = march(scene, ro, rd, params, launch)
+    n = _flipped_normal(scene, ro + t[None] * rd, rd, params.normal_eps)
+    return t, hit, mat, n
 
 
 def light_constants(scene: Scene) -> torch.Tensor:
@@ -403,9 +570,12 @@ def shadow_shade(scene: Scene, p: torch.Tensor, n: torch.Tensor,
     is skipped, vis = 1); their albedo and emission are masked to zero, so
     their render is zero either way.  ``window``: the global pixel of the
     planes' (0, 0), against which the motion is taken."""
-    origin, ld, dist_l = _shadow_ray(p, n, light_p)
-    dist_l = torch.where(hit, dist_l, torch.zeros_like(dist_l))
-    vis = _shadow_march(scene, origin, ld, dist_l, params)
+    # the visibility is piecewise constant (the JAX package's
+    # stop_gradient): its march records no graph
+    with torch.no_grad():
+        origin, ld, dist_l = _shadow_ray(p, n, light_p)
+        dist_l = torch.where(hit, dist_l, torch.zeros_like(dist_l))
+        vis = _shadow_march(scene, origin, ld, dist_l, params)
     render, motion = shade_epilogue(p, n, light_p, albedo, emission, hit,
                                     vis, light_consts, prev_consts, cam_wh,
                                     window)

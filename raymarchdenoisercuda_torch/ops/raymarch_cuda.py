@@ -28,9 +28,12 @@ the hit point, normal, light sample, albedo, emission and light constants;
 the previous camera's get none (the camera is never optimised).
 :func:`shadow_factor_cuda` (K13) returns a visibility that is piecewise
 constant and carries no gradient, as the JAX package's ``stop_gradient``
-makes it.  :func:`march_gbuf_cuda` has no backward yet (the geometry
-adjoint is a later slice): it raises if the scene's geometry or the rays
-require grad, seeded or not.
+makes it.  :func:`march_gbuf_cuda` and :func:`march_gbuf_seeded_cuda` run
+K7 (K7s) as the forward of ``ops.raymarch._March``: the hit distance and
+the fused normal are differentiable in the scene's geometry and the rays,
+by the implicit-function adjoint and the recomputed normal chain, in
+PyTorch (``_gbuf_fused_bwd`` in the JAX package, which computes it in XLA,
+not in a kernel).  The cone seed does not enter that adjoint.
 """
 
 from __future__ import annotations
@@ -44,8 +47,9 @@ import torch
 from ..config import CameraParams, RaymarchParams
 from .cuda import _build
 from .raymarch import (Camera, Scene, cone_march, cone_rays,
-                       cone_rays_analytic, march_gbuf, seed_grid_shape,
-                       shade_epilogue, shadow_factor, shadow_shade)
+                       cone_rays_analytic, march, march_gbuf,
+                       seed_grid_shape, shade_epilogue, shadow_factor,
+                       shadow_shade)
 
 
 class _MarchParams(ctypes.Structure):
@@ -144,9 +148,8 @@ def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     configuration), or from the ray planes without a camera, and
     :func:`march_gbuf_seeded_cuda` marches.  Each unseeded launch adds one
     to ``march_gbuf_cuda.launches`` and to ``march_gbuf_cuda.by_key`` under
-    its instantiation's :func:`scene_key`."""
-    _build.check_no_grad("march_gbuf_cuda", ro, rd, scene.sphere_params,
-                         scene.box_params, scene.plane_params)
+    its instantiation's :func:`scene_key`.  Differentiable in the scene's
+    geometry and the rays (see the module docstring)."""
     if params.coarse_seed:
         H, W = ro.shape[-2:]
         if camera is not None:
@@ -158,10 +161,15 @@ def march_gbuf_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
         return march_gbuf_seeded_cuda(scene, ro, rd, seed, params)
     if not ro.is_cuda:
         return march_gbuf(scene, ro, rd, params)
-    out, key = _march_launch(scene, ro, rd, params, None)
-    march_gbuf_cuda.launches += 1
-    march_gbuf_cuda.by_key[key] += 1
-    return out
+
+    def launch():
+        out, key = _march_launch(scene, ro.detach(), rd.detach(), params,
+                                 None)
+        march_gbuf_cuda.launches += 1
+        march_gbuf_cuda.by_key[key] += 1
+        return out
+
+    return march(scene, ro, rd, params, launch, fused=True)
 
 
 march_gbuf_cuda.launches = 0
@@ -174,16 +182,19 @@ def march_gbuf_seeded_cuda(scene: Scene, ro: torch.Tensor, rd: torch.Tensor,
     at its block's stop in the (ceil(H/4), ceil(W/4)) grid ``seed``
     (``march_gbuf(seed=)`` on CPU tensors).  Each launch adds one to
     ``march_gbuf_seeded_cuda.launches`` and to its ``by_key``, as
-    :func:`march_gbuf_cuda`'s."""
-    _build.check_no_grad("march_gbuf_seeded_cuda", ro, rd, seed,
-                         scene.sphere_params, scene.box_params,
-                         scene.plane_params)
+    :func:`march_gbuf_cuda`'s.  Differentiable as :func:`march_gbuf_cuda`
+    is, the seed held constant."""
     if not ro.is_cuda:
-        return march_gbuf(scene, ro, rd, params, seed=seed)
-    out, key = _march_launch(scene, ro, rd, params, seed)
-    march_gbuf_seeded_cuda.launches += 1
-    march_gbuf_seeded_cuda.by_key[key] += 1
-    return out
+        return march_gbuf(scene, ro, rd, params, seed=seed.detach())
+
+    def launch():
+        out, key = _march_launch(scene, ro.detach(), rd.detach(), params,
+                                 seed.detach())
+        march_gbuf_seeded_cuda.launches += 1
+        march_gbuf_seeded_cuda.by_key[key] += 1
+        return out
+
+    return march(scene, ro, rd, params, launch, fused=True)
 
 
 march_gbuf_seeded_cuda.launches = 0

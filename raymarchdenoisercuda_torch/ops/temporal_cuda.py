@@ -292,9 +292,10 @@ def gather_canvas_cuda(canvas: torch.Tensor, motion: torch.Tensor,
 gather_canvas_cuda.launches = 0
 
 
-# K5/K6 stage the motion and codes of a 32 x 8 block's (9 + 2M) x (33 + 2M)
-# sources, 12 bytes each, in the 227 KB of shared memory a block can have
-GATHER_BWD_MAX_MOTION = 59
+# the largest max_motion K5/K6's source codes take (kCodeBias - 2 in
+# ops/cuda/temporal.cu); a larger bound is cut to the frame's larger side
+# plus one, which accepts and rejects the same sources' taps in the frame
+GATHER_BWD_CODE_MOTION = 8190
 
 
 def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
@@ -305,14 +306,17 @@ def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
     if not 1 <= grad_planes <= N_HIST_PLANES:
         raise ValueError(f"grad_planes must be in 1..{N_HIST_PLANES}, "
                          f"got {grad_planes}")
-    if max_motion > GATHER_BWD_MAX_MOTION:
-        raise ValueError(f"the card's K5/K6 take max_motion <= "
-                         f"{GATHER_BWD_MAX_MOTION} (a block's sources in "
-                         f"shared memory), got {max_motion}")
     shape = (N_HIST_PLANES, H, W) if tile is None else tuple(
         stack.shape if stack is not None else canvas_shape)
     if tile is not None:
         _canvas_of(shape, motion, max_motion, tile)
+    # a source moved by more than the frame's larger side reaches no texel
+    # of it and gives its pixel no motion gradient, accepted or not
+    frame = (H, W) if tile is None else tile.bounds
+    max_motion = min(max_motion, max(frame) + 1)
+    if max_motion > GATHER_BWD_CODE_MOTION:
+        raise ValueError(f"the card's K5/K6 take frames of sides up to "
+                         f"{GATHER_BWD_CODE_MOTION - 1}, got {frame}")
     ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
         (motion, "motion", (2, H, W)), (g, "g", (N_HIST_PLANES, H, W)))]
     hist_ptr = (_build.check_input(stack, "stack", shape, f32, dev)

@@ -5,16 +5,25 @@ Counterpart of ``raymarchdenoisercuda_tpu/parallel/distributed.py``, on
 (NCCL where CUDA is present, gloo otherwise), after which
 ``parallel.mesh.make_mesh`` lays the ranks out as ('data', 'y', 'x').  A
 process that never calls it runs the sharded functions on a (1, 1, 1) mesh.
+:func:`spawn_group` starts a group of ranks on one host, one process a
+rank, and gathers what a function returns on each.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
-from typing import Optional
+import pickle
+import tempfile
+import time
+import traceback
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.distributed as dist
+
+# the timeout of a spawned rank's rendezvous and of each of its collectives
+COLLECTIVE_TIMEOUT_S = 120.0
 
 
 def initialize(backend: Optional[str] = None, *,
@@ -64,3 +73,72 @@ def runtime_info() -> dict:
         "local_devices": torch.cuda.device_count() if cuda else 1,
         "platform": "gpu" if cuda else "cpu",
     }
+
+
+def _rank_main(rank, world, backend, workdir, data, fn, kwargs):
+    from .mesh import make_mesh
+
+    result = {}
+    try:
+        torch.set_num_threads(1)
+        initialize(backend, init_method=f"file://{workdir}/init",
+                   world_size=world, rank=rank,
+                   timeout_s=COLLECTIVE_TIMEOUT_S)
+        device = (torch.device("cuda", torch.cuda.current_device())
+                  if backend == "nccl" else torch.device("cpu"))
+        result = fn(make_mesh(world, data=data), device, **kwargs)
+        dist.barrier()
+    except BaseException:
+        result = {"error": traceback.format_exc()}
+    finally:
+        with open(os.path.join(workdir, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(result, f)
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def spawn_group(n: int, backend: str, fn: Callable[..., Dict],
+                kwargs: Optional[Dict] = None, *, data: int = 1,
+                join_timeout: float = 600.0,
+                workdir: Optional[str] = None) -> List[Dict]:
+    """Run ``fn(mesh, device, **kwargs)`` on a group of ``n`` ranks, one
+    spawned process a rank (``backend`` "nccl": rank r on card r; "gloo":
+    CPU ranks, one torch thread each), laid out by ``make_mesh(n, data=
+    data)`` and joined through a file in a temporary directory (under
+    ``workdir`` if given).  ``fn`` is a module-level function (a rank
+    imports it by name) that returns a picklable dict; returns the ranks'
+    dicts in rank order.  Rendezvous and collectives time out after
+    :data:`COLLECTIVE_TIMEOUT_S`; ranks that outlive ``join_timeout``
+    seconds are killed.  Raises with the ranks' tracebacks if one failed,
+    hung or died."""
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory(dir=workdir) as tmp:
+        procs = [ctx.Process(target=_rank_main, args=(
+            r, n, backend, tmp, data, fn, kwargs or {}), daemon=True)
+            for r in range(n)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + join_timeout
+        for p in procs:
+            p.join(max(1.0, deadline - time.monotonic()))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if hung:
+            raise RuntimeError(f"{fn.__name__} on {n} ranks: ranks {hung} "
+                               f"still running after {join_timeout} s")
+        results = []
+        for r, p in enumerate(procs):
+            path = os.path.join(tmp, f"rank{r}.pkl")
+            if not os.path.exists(path):
+                raise RuntimeError(f"{fn.__name__} on {n} ranks: rank {r} "
+                                   f"died (exit code {p.exitcode})")
+            with open(path, "rb") as f:
+                results.append(pickle.load(f))
+    errors = [f"rank {r}:\n{res['error']}" for r, res in enumerate(results)
+              if "error" in res]
+    if errors:
+        raise RuntimeError("\n".join(errors))
+    return results

@@ -62,6 +62,14 @@ K4c, K5c and K6c on the history canvases of the quarter tiles of a frame
 of twice the sides (random and served motion, phase 10(a)'s cut): K4,
 K4c and the motion gradients bit for bit, the history gradients to within
 rounding (an earlier tree's K5/K6 add by atomics, in no fixed order).
+The wide forms, which an earlier tree refuses, are held against this
+tree's plain twins on the card instead (``K5w``/``K6w`` at max_motion 60
+and 96 on the random motion and on motion to ±(M + 1); ``K5cw``/``K6cw``
+on a quarter tile's canvas: rtol 1e-5, atol 1e-6 of the largest
+magnitude; ``K10w`` at radius 17, 24 and 90 and ``K11w`` at 17, 24 and 90
+with sigma r / 2, two 1-D passes a level: bit-equal; ``K12w`` at 17 and
+24: atol 5e-5): ``--only '^K[56]'`` and
+``--only '^K1[012]'`` run them beside the cases held to the other tree.
 For each case it
 prints whether every output is bit-equal to the other tree's
 (``torch.equal``) and the largest difference, and times both trees in
@@ -109,6 +117,22 @@ FRAME = (1080, 1920)                 # the main paths' frame (H, W)
 # of twice its sides (seeded_inputs.gather_inputs)
 GATHER_KINDS = ("random", "integer", "zero", "served")
 GATHER_KINDS_UHD = ("random", "served")
+
+
+class Twin:
+    """A case held against this tree's plain twin on the same inputs (a
+    form the other tree refuses): ``launch(tree)`` gives the twin's
+    zero-argument call; outputs within ``rtol`` and ``atol`` (absolute, or
+    of the twin's largest magnitude with ``relative``)."""
+
+    def __init__(self, launch, rtol=1e-5, atol=1e-6, relative=True):
+        self.launch, self.rtol, self.atol = launch, rtol, atol
+        self.relative = relative
+
+    def close(self, a, b):
+        return all(torch.allclose(x, y, rtol=self.rtol, atol=self.atol * (
+            float(y.abs().max()) if self.relative else 1.0))
+            for x, y in zip(a, b))
 
 
 def load_tree(root: Path, alias: str):
@@ -647,6 +671,66 @@ def _cases(P, U, cots, S, M, T):
                        lambda t, kind=kind, k=k, q=q: gather(t, kind, k, q),
                        exact)
 
+    def wide_gather(tree, k, Mw, kind, canvas=False):
+        # K5/K6 (k = 5, 6) at a max_motion past the staged region, on
+        # phase 3's random motion (±7 px) or on motion to ±(Mw + 1); with
+        # ``canvas``, K5c/K6c on the lower right quarter tile's canvas
+        tc = tree.temporal_cuda
+        stack, motion, g = T["gather"]["random"]
+        if kind == "wide":
+            motion = motion * ((Mw + 1.0) / 7.0)
+        if not canvas:
+            if k == 5:
+                return lambda: tuple(tc.gather_bwd_cuda(
+                    stack, motion, g, Mw, grad_planes=6))
+            return lambda: tuple(tc.gather_bwd_hist_cuda(
+                motion, g, Mw, grad_planes=6))
+        H, W = motion.shape[-2:]
+        th, tw = H // 2, W // 2
+        tile = tree.common.Tile((H - th, W - tw), (H, W))
+        cv = tree.common.frame_canvas(stack, tile, th, tw, Mw + 1)
+        m_t, g_t = (x[..., H - th:, W - tw:].contiguous() for x in (motion,
+                                                                   g))
+        if k == 5:
+            return lambda: tuple(tc.gather_canvas_bwd_cuda(
+                cv, m_t, g_t, Mw, tile=tile, grad_planes=6))
+        return lambda: tuple(tc.gather_canvas_bwd_hist_cuda(
+            m_t, g_t, Mw, tile=tile, canvas_shape=cv.shape, grad_planes=6))
+
+    def wide_gather_twin(k, Mw, kind, canvas=False):
+        def launch(tree):
+            # the twin on the same inputs: the CPU path of the wrapper on
+            # the card's tensors is the kernel, so call gather_bwd_ref
+            t = tree.temporal
+            stack, motion, g = T["gather"]["random"]
+            if kind == "wide":
+                motion = motion * ((Mw + 1.0) / 7.0)
+            if not canvas:
+                return lambda: tuple(t.gather_bwd_ref(
+                    stack if k == 5 else None, motion, g, Mw,
+                    motion_grad=k == 5, grad_planes=6))
+            H, W = motion.shape[-2:]
+            th, tw = H // 2, W // 2
+            tile = tree.common.Tile((H - th, W - tw), (H, W))
+            cv = tree.common.frame_canvas(stack, tile, th, tw, Mw + 1)
+            m_t, g_t = (x[..., H - th:, W - tw:].contiguous()
+                        for x in (motion, g))
+            return lambda: tuple(t.gather_bwd_ref(
+                cv if k == 5 else None, m_t, g_t, Mw, motion_grad=k == 5,
+                grad_planes=6, tile=tile, canvas_shape=cv.shape))
+        return Twin(launch)
+
+    for k in (5, 6):
+        for Mw in (60, 96):
+            for kind in ("random", "wide"):
+                yield (f"K{k}w M{Mw} {kind}",
+                       lambda t, k=k, Mw=Mw, kind=kind: wide_gather(
+                           t, k, Mw, kind),
+                       wide_gather_twin(k, Mw, kind))
+            yield (f"K{k}cw M{Mw} wide quarter tile 3",
+                   lambda t, k=k, Mw=Mw: wide_gather(t, k, Mw, "wide", True),
+                   wide_gather_twin(k, Mw, "wide", True))
+
     def k15(tree, name, route):
         # phase 3's camera and rays; "quarter": the window at (H, W) of a
         # frame of twice the sides
@@ -697,6 +781,18 @@ def _cases(P, U, cots, S, M, T):
         for sigma_n in (128.0, 100.0):
             yield (f"K12 r{r} sigma_n {sigma_n:g}",
                    lambda t, r=r, sigma_n=sigma_n: k12(t, r, sigma_n))
+
+    def k12_twin(r):
+        def launch(tree):
+            p = tree.config.FilterParams(type=tree.config.FilterType.CROSS,
+                                         radius=r, sigma_normal=128.0)
+            return lambda: (tree.filters.cross_bilateral_filter(
+                c, T["frame"]["h_color"], n, z, params=p),)
+        return Twin(launch, rtol=0.0, atol=5e-5, relative=False)
+
+    for r in (17, 24):
+        yield (f"K12w r{r} sigma_n 128", lambda t, r=r: k12(t, r, 128.0),
+               k12_twin(r))
     for r in (2, 4):
         yield (f"K12 r{r} odd frame",
                lambda t, r=r: k12(t, r, 128.0, odd=True))
@@ -743,6 +839,23 @@ def _cases(P, U, cots, S, M, T):
     for d in (1, 2):
         yield (f"K11 r2 sigma 2 d{d} odd frame",
                lambda t, d=d: smooth(t, "GAUSSIAN", 2, d, odd=True))
+
+    def smooth_twin(ftype, r, sigma):
+        def launch(tree):
+            if ftype == "AVERAGE":
+                from ..ops.boxfilter import box_filter
+                return lambda: (box_filter(c, radius=r, depth=1),)
+            return lambda: (tree.filters.gaussian_filter(
+                c, radius=r, sigma=sigma, depth=1),)
+        # past r 16 both add their twin's terms in its order: held exactly
+        return Twin(launch, rtol=0.0, atol=0.0)
+
+    for r in (17, 24, 90):
+        yield (f"K10w r{r} d1", lambda t, r=r: smooth(t, "AVERAGE", r, 1),
+               smooth_twin("AVERAGE", r, 2.0))
+        yield (f"K11w r{r} sigma {r / 2:g} d1",
+               lambda t, r=r: smooth(t, "GAUSSIAN", r, 1, r / 2.0),
+               smooth_twin("GAUSSIAN", r, r / 2.0))
     yield ("K11 apply_filter depth 2",
            lambda t: smooth(t, "GAUSSIAN", 2, 2, apply=True))
     for r in (0, 1, 2, 3):
@@ -852,31 +965,48 @@ def main(argv=None) -> int:
         for name, make, exact in cases(P, U, cots, S, M, T):
             if args.only and not re.search(args.only, name):
                 continue
-            fa, fb = make(this), make(other)
+            twin = isinstance(exact, Twin)
+            fa = make(this)
+            fb = exact.launch(this) if twin else make(other)
             a, b = fa(), fb()
             equal, diff = compare(a, b)
-            # an output compared within rounding: KGb's tolerance against
-            # its float64 twin (rtol 1e-5, atol 1e-6·max)
-            exacts = exact if isinstance(exact, tuple) else (exact,) * len(a)
-            ok = all(torch.equal(x, y) or not ex and torch.allclose(
-                x, y, rtol=1e-5, atol=1e-6 * float(y.abs().max()))
-                for x, y, ex in zip(a, b, exacts))
-            ms = [time(f) for _ in range(args.rounds) for f in (fa, fb)]
-            mine, theirs = ms[0::2], ms[1::2]
+            if twin:
+                ok = exact.close(a, b)
+            else:
+                # an output compared within rounding: KGb's tolerance
+                # against its float64 twin (rtol 1e-5, atol 1e-6·max)
+                exacts = (exact if isinstance(exact, tuple)
+                          else (exact,) * len(a))
+                ok = all(torch.equal(x, y) or not ex and torch.allclose(
+                    x, y, rtol=1e-5, atol=1e-6 * float(y.abs().max()))
+                    for x, y, ex in zip(a, b, exacts))
+            # a twin is the CPU oracle run on the card: only the kernel
+            # is timed
+            ms = [time(f) for _ in range(args.rounds)
+                  for f in ((fa,) if twin else (fa, fb))]
+            mine, theirs = (ms, []) if twin else (ms[0::2], ms[1::2])
             rows.append(dict(case=name, equal=equal, ok=ok, max_diff=diff,
-                             ms_this=mine, ms_other=theirs))
+                             ms_this=mine, ms_other=theirs,
+                             other="this tree's twin" if twin else "other"))
             verdict = ("bit-equal" if equal else "within rounding" if ok
-                       else "DIFFERS")
-            print(f"{name}: {verdict} (max |diff| {diff:.3g})" + (
-                f"; ms this {' '.join(f'{t:.4f}' for t in mine)}, other "
-                f"{' '.join(f'{t:.4f}' for t in theirs)}, ratio "
-                f"{sum(mine) / sum(theirs):.3f}" if ms else "") + (
-                    f", medians {np.median(mine):.4f} / "
-                    f"{np.median(theirs):.4f} (spread "
-                    f"{_spread(mine):.1%} / {_spread(theirs):.1%})"
-                    if args.rounds > 2 else ""), flush=True)
+                       else "DIFFERS") + (" to the twin" if twin else "")
+            if twin:
+                print(f"{name}: {verdict} (max |diff| {diff:.3g})" + (
+                    f"; ms this {' '.join(f'{t:.4f}' for t in mine)}, "
+                    f"median {np.median(mine):.4f}" if ms else ""),
+                    flush=True)
+            else:
+                print(f"{name}: {verdict} (max |diff| {diff:.3g})" + (
+                    f"; ms this {' '.join(f'{t:.4f}' for t in mine)}, other "
+                    f"{' '.join(f'{t:.4f}' for t in theirs)}, ratio "
+                    f"{sum(mine) / sum(theirs):.3f}" if ms else "") + (
+                        f", medians {np.median(mine):.4f} / "
+                        f"{np.median(theirs):.4f} (spread "
+                        f"{_spread(mine):.1%} / {_spread(theirs):.1%})"
+                        if args.rounds > 2 else ""), flush=True)
             if args.by_kernel:
-                for label, f in (("this", fa), ("other", fb)):
+                for label, f in ((("this", fa),) if twin else
+                                 (("this", fa), ("other", fb))):
                     split = device_ms_by_kernel(f, REPEATS)
                     print(f"  {label} by kernel: " + ", ".join(
                         f"{k[:60]} {v:.4f}" for k, v in sorted(

@@ -39,8 +39,10 @@ seeded 1920x1080 planes, by device time a call (``--steps`` calls under
 the profiler), at each radius and depth of ``BOX_CASES`` and each way of
 splitting its levels into launches that a halo cap in ``BOX_CAPS`` gives
 (cap 0: one level a launch), the ways in turn three times, and prints
-the medians: the measurement behind ``BOX_HALO_CAP``.  Needs a
-CUDA device; the CPU has nothing to measure here.
+the medians: the measurement behind ``BOX_HALO_CAP``.  ``--trace DIR``
+(train, serve, spatial, temporal) also writes the profiled steps as a
+Chrome trace, ``DIR/<path>.json`` (``timing.trace``).  Needs a CUDA
+device; the CPU has nothing to measure here.
 """
 
 from __future__ import annotations
@@ -65,7 +67,7 @@ from ..ops.temporal import history_from_stack, history_stack
 from ..ops.temporal_cuda import (clamped_gather_bwd_cuda, clamped_gather_cuda,
                                  history_stack_channel_minor_cuda)
 from .seeded_inputs import clamped_inputs, served_clamped_inputs
-from .timing import device_ms_by_kernel, nvidia_smi_name_power
+from .timing import device_ms_by_kernel, nvidia_smi_name_power, trace
 
 
 def _train_runner(H, W, dev):
@@ -244,7 +246,13 @@ def main(argv=None) -> int:
                     help="temporal: on the served frame's inputs")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--top", type=int, default=25)
+    ap.add_argument("--trace", metavar="DIR", default=None,
+                    help="train, serve, spatial, temporal: write the "
+                         "profiled steps as a Chrome trace into DIR")
     args = ap.parse_args(argv)
+    if args.trace and args.path in ("clamped", "box"):
+        ap.error(f"--trace: {args.path} times its kernels under a profiler "
+                 f"of its own")
     if not torch.cuda.is_available():
         print("profile: no CUDA device", file=sys.stderr)
         return 1
@@ -274,8 +282,14 @@ def main(argv=None) -> int:
         run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3 / args.steps
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    what = (f"spatial {args.mode} r{args.radius}" if args.path == "spatial"
+            else args.path + " seeded" * args.seeded
+            + " unbounded" * args.unbounded if args.path == "serve"
+            else args.path + " served" * args.served
+            if args.path == "temporal" else args.path)
+    with (trace(args.trace, what.replace(" ", "_")) if args.trace else
+          profile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA])) as prof:
         for _ in range(args.steps):
             run()
         torch.cuda.synchronize()
@@ -284,11 +298,6 @@ def main(argv=None) -> int:
     busy = sum(e.device_time_total for e in prof.events()
                if e.device_type == DeviceType.CUDA) / 1e3 / args.steps
     print(nvidia_smi_name_power())
-    what = (f"spatial {args.mode} r{args.radius}" if args.path == "spatial"
-            else args.path + " seeded" * args.seeded
-            + " unbounded" * args.unbounded if args.path == "serve"
-            else args.path + " served" * args.served
-            if args.path == "temporal" else args.path)
     print(f"{what} {W}x{H}: wall {wall:.3f} ms/step unprofiled; device "
           f"busy {busy:.3f} ms/step under the profiler "
           f"({100 * busy / wall:.1f} % of the unprofiled wall)")

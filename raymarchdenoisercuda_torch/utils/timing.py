@@ -7,11 +7,13 @@ falls back to the CPU: a function given the card and finding none raises.
 the work runs on the CPU.
 
 Counterpart of ``raymarchdenoisercuda_tpu/utils/timing.py`` (the
-reference's per-test timing, ``printGPUProperties`` and CSV dumps).
+reference's per-test timing, ``printGPUProperties`` and CSV dumps, and
+:func:`trace`, the profiler trace of a block of work).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -76,6 +78,26 @@ def device_ms(fn: Callable[[], object], calls: int) -> float:
     """Device milliseconds a call of ``fn``, every kernel and memset summed
     (:func:`device_ms_by_kernel`): the card's work without the host's."""
     return sum(device_ms_by_kernel(fn, calls).values())
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, name: str = "trace"):
+    """``torch.profiler`` over the work inside the block (the host's
+    operators, and the card's kernels and copies where CUDA is available),
+    written on exit as a Chrome trace, ``<log_dir>/<name>.json`` (open it
+    in Perfetto or chrome://tracing).  Yields the profiler; the JAX
+    package's ``trace`` is the same context over ``jax.profiler``.  Name a
+    span with ``torch.profiler.record_function``."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.cuda.is_available()
+    activities = [ProfilerActivity.CPU] + (
+        [ProfilerActivity.CUDA] if cuda else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if cuda:
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(log_dir, f"{name}.json"))
 
 
 def time_fn(fn: Callable, *args, repeats: int = 10, warmup: int = 1,

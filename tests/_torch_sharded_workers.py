@@ -2,57 +2,33 @@
 
 The sharded test files (``tests/test_torch_halo.py``,
 ``tests/test_torch_sharded.py``, ``tests/test_torch_sharded_train.py``)
-spawn one process a rank with :func:`run_group`; each joins a gloo
-process group through a file in the test's temporary directory, lays the
-ranks out with ``parallel.mesh.make_mesh`` and runs one of the workers
-below, which does many checks in one group (a group costs seconds to
-start).  A worker returns a dict of numpy arrays; :func:`run_group` hands
-the parent one such dict a rank, and the parent holds them against the JAX
-package.  Nothing here imports jax: the spawned ranks import only torch and
-the port.
+spawn one process a rank with :func:`run_group`, through the port's
+``parallel.distributed.spawn_group``: each joins a gloo process group
+through a file in the test's temporary directory, lays the ranks out with
+``parallel.mesh.make_mesh`` and runs one of the workers below, which does
+many checks in one group (a group costs seconds to start).  A worker
+returns a dict of numpy arrays; :func:`run_group` hands the parent one
+such dict a rank, and the parent holds them against the JAX package.
+Nothing here imports jax: the spawned ranks import only torch and the
+port.
 
-Every group has a hard deadline: ``init_process_group`` and every
-collective time out after :data:`COLLECTIVE_TIMEOUT_S`, and the parent
-kills the ranks that outlive ``join_timeout``, so a hung exchange fails
-its test instead of eating the suite's time limit.
+Every group has a hard deadline: the rendezvous and every collective time
+out after ``spawn_group``'s ``COLLECTIVE_TIMEOUT_S``, and the parent kills
+the ranks that outlive ``join_timeout``, so a hung exchange fails its test
+instead of eating the suite's time limit.
 """
 
 from __future__ import annotations
 
-import datetime
-import os
-import pickle
-import traceback
-
 import numpy as np
 import torch
 
-COLLECTIVE_TIMEOUT_S = 120
+from raymarchdenoisercuda_torch.parallel.distributed import spawn_group
 
 
-def _entry(rank, world, data, init_file, out_dir, worker, kwargs):
-    import torch.distributed as dist
-
-    from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
-
-    torch.set_num_threads(1)
-    result = {}
-    try:
-        dist.init_process_group(
-            "gloo", init_method=f"file://{init_file}", world_size=world,
-            rank=rank,
-            timeout=datetime.timedelta(seconds=COLLECTIVE_TIMEOUT_S))
-        mesh = make_mesh(world, data=data)
-        result = {k: np.asarray(v) for k, v in
-                  globals()[worker](mesh, **kwargs).items()}
-        dist.barrier()
-    except BaseException:
-        result = {"error": traceback.format_exc()}
-    finally:
-        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as f:
-            pickle.dump(result, f)
-        if dist.is_initialized():
-            dist.destroy_process_group()
+def _run_worker(mesh, device, worker, kwargs):
+    return {k: np.asarray(v) for k, v in
+            globals()[worker](mesh, **kwargs).items()}
 
 
 def run_group(tmp_path, mesh_shape, worker, join_timeout=300, **kwargs):
@@ -61,40 +37,9 @@ def run_group(tmp_path, mesh_shape, worker, join_timeout=300, **kwargs):
     rank order.  Raises with the ranks' tracebacks if one failed, and
     kills them if they outlive ``join_timeout`` seconds."""
     data, ny, nx = mesh_shape
-    world = data * ny * nx
-    out_dir = tmp_path / f"{worker}_{data}x{ny}x{nx}"
-    out_dir.mkdir()
-    ctx = torch.multiprocessing.get_context("spawn")
-    procs = [ctx.Process(target=_entry, args=(
-        r, world, data, str(out_dir / "init"), str(out_dir), worker,
-        kwargs), daemon=True) for r in range(world)]
-    for p in procs:
-        p.start()
-    deadline = datetime.datetime.now() + datetime.timedelta(
-        seconds=join_timeout)
-    for p in procs:
-        p.join(max(1.0, (deadline - datetime.datetime.now()).total_seconds()))
-    hung = [r for r, p in enumerate(procs) if p.is_alive()]
-    for p in procs:
-        if p.is_alive():
-            p.kill()
-            p.join()
-    if hung:
-        raise AssertionError(f"{worker} on mesh {mesh_shape}: ranks {hung} "
-                             f"still running after {join_timeout} s")
-    results = []
-    for r in range(world):
-        path = out_dir / f"rank{r}.pkl"
-        if not path.exists():
-            raise AssertionError(f"{worker} on mesh {mesh_shape}: rank {r} "
-                                 f"died (exit code {procs[r].exitcode})")
-        with open(path, "rb") as f:
-            results.append(pickle.load(f))
-    errors = [f"rank {r}:\n{res['error']}" for r, res in enumerate(results)
-              if "error" in res]
-    if errors:
-        raise AssertionError("\n".join(errors))
-    return results
+    return spawn_group(data * ny * nx, "gloo", _run_worker,
+                       dict(worker=worker, kwargs=kwargs), data=data,
+                       join_timeout=join_timeout, workdir=str(tmp_path))
 
 
 def _t(a):
@@ -321,3 +266,23 @@ def multi_worker(mesh, jobs):
         for k, v in globals()[worker](mesh, **kwargs).items():
             out[f"{name}/{k}"] = v
     return out
+
+
+def scaling_worker(mesh, tile, iterations, steps):
+    """``parallel.scaling.time_sharded_step`` on this group (the plain
+    sweep on gloo CPU ranks), and this rank's forward output of the same
+    sweep on its tile of the harness's inputs, for the layout check."""
+    from raymarchdenoisercuda_torch.config import SVGFParams
+    from raymarchdenoisercuda_torch.parallel import scaling
+    from raymarchdenoisercuda_torch.parallel.sharded import (
+        svgf_spatial_local)
+
+    seconds = scaling.time_sharded_step(mesh, tile=tile,
+                                        iterations=iterations, steps=steps,
+                                        impl="plain", device="cpu")
+    _, ny, nx = mesh.shape
+    c, v, n, z = scaling._inputs(tile, tile, mesh.coords, "cpu")
+    out, _ = svgf_spatial_local(c, v, n, z, tile * ny, tile * nx, mesh=mesh,
+                                params=SVGFParams(iterations=iterations))
+    return {"seconds": seconds, "coords": np.asarray(mesh.coords),
+            "out": _n(out)}

@@ -250,7 +250,14 @@ def test_seeded_wrappers_launch_nothing_on_the_cpu():
     assert counts == (cone_seed_cuda.launches,
                       march_gbuf_seeded_cuda.launches,
                       march_gbuf_cuda.launches)
-    with pytest.raises(RuntimeError, match="no backward"):
-        ro, rd, _ = trm.camera_rays(cam, cfg)
-        march_gbuf_cuda(scene, ro, rd.requires_grad_(),
-                        RaymarchParams(coarse_seed=True))
+    # the seeded march is differentiable (the implicit-function adjoint,
+    # the seed held constant), and still launches nothing here
+    ro, rd, _ = trm.camera_rays(cam, cfg)
+    t, _hit, _mat, n = march_gbuf_cuda(scene, ro, rd.requires_grad_(),
+                                       RaymarchParams(coarse_seed=True))
+    (t.sum() + n.sum()).backward()
+    assert bool(torch.isfinite(rd.grad).all())
+    assert float(rd.grad.abs().max()) > 0
+    assert counts == (cone_seed_cuda.launches,
+                      march_gbuf_seeded_cuda.launches,
+                      march_gbuf_cuda.launches)

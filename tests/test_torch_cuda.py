@@ -21,7 +21,9 @@ K5/K6 rtol 1e-5, atol 1e-6 (K5/K6 add a texel's addends in another order
 than the twin's), on random, integer, zero and the served frame's motion,
 motion at ±M and ±(M + 1), a 1079 x 1917 frame and the canvas forms at the
 frame's corners; K5, K6, K5c and K6c bit-equal on a second and third
-launch (a fixed summation order) at 1080p; the
+launch (a fixed summation order) at 1080p, and past max_motion 59 (60
+and 96, the source region in row bands) against the twin at the same
+tolerances and repeated bit-equal, the canvas forms too; the
 2-step train step, kernel path against plain path, loss rtol 1e-5,
 albedo gradient atol 3e-3·max (the stored bf16 weights; the plain path
 differentiates the float weights), updated albedo atol 1e-5.  Filters and
@@ -32,7 +34,10 @@ past the halo cap, and bit-equal to one level a call; K11 atol 1e-5, and
 bit-equal to its twin (the same products in the same order); K12 atol
 5e-5 (exp2f of log2(e)-scaled arguments and repeated
 squaring against exp and pow) at radii 0-4 (its staged form) and 5 and 16
-(one thread a pixel), on a 1079 x 1917 frame too; K13 at most 0.1 %
+(one thread a pixel), on a 1079 x 1917 frame too, and 17 and 24 (its
+taps in a device array); K10 and K11 at radius 17, 24 and 90 (two 1-D
+passes a level, K11's taps in a device array), bit-equal to their twins
+(the same sums in the same order); K13 at most 0.1 %
 visibility flips, as K8,
 in each of its instantiations (counted under the key the scene's counts
 pick).  K3 also on a frame of sides no multiple of its 32 x 8 tile, with
@@ -70,6 +75,14 @@ operations in the same order), and a scene of other counts at K7's
 tolerance against the twin.  K2 and K2b at every radius and level, whole
 frame and tile form, bit-equal to the twin, which adds the same products
 in the same tap order (a dropped tap adds an exact zero there).
+
+The geometry adjoint: K7 and K7s (seeded from the camera) as the forward
+of the implicit-function adjoint against the plain march on the card,
+d(Σ w_t·t + Σ w_n·n) with respect to the spheres, boxes, planes and rd,
+and ``render_gbuffer``'s loss (K7, then K8's hit-point and normal
+cotangents) against ``impl="plain"``, atol 2e-3·max (the CPU tests'
+bound against JAX), pixels whose hit, material or normal flips on an ulp
+left out of the loss.
 
 The tile forms (the sharded path's K1, K1b, K2, K14 with a tile origin and
 the frame's bounds, K3b, K4c, K5c/K6c on canvases; ``chip_smoke.py``
@@ -450,20 +463,18 @@ def test_k4_k5_k6_match_plain(dev, kind):
         assert float(dh[grad_planes:].abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("max_motion", [30, 59, 60])
+@pytest.mark.parametrize("max_motion", [30, 59, 60, 96])
 def test_k5_k6_wide_max_motion(dev, max_motion):
     """K5/K6 at a max_motion whose source region needs more than 48 KB of
-    shared memory (the launch's attribute; 59 needs 225 KB) against the
-    twin, on motion to ±(max_motion + 1); beyond 59 the wrapper raises."""
+    shared memory (the launch's attribute; 59 needs 225 KB), and beyond
+    59, where a block stages its region in row bands, against the twin, on
+    motion to ±(max_motion + 1); a second and third launch bit-equal to
+    the first (the bands keep each texel's order of additions)."""
     rng = np.random.default_rng(32)
     stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
     g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
         np.float32)).to(dev)
     motion = _motion(dev, "fractional", 33, M=max_motion)
-    if max_motion > 59:
-        with pytest.raises(ValueError, match="max_motion"):
-            gather_bwd_cuda(stack, motion, g, max_motion, grad_planes=6)
-        return
     got = gather_bwd_cuda(stack, motion, g, max_motion, grad_planes=6)
     want = temporal.gather_bwd_ref(stack, motion, g, max_motion,
                                    motion_grad=True, grad_planes=6)
@@ -471,6 +482,34 @@ def test_k5_k6_wide_max_motion(dev, max_motion):
         np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
     dh, _ = gather_bwd_hist_cuda(motion, g, max_motion, grad_planes=6)
     np.testing.assert_allclose(_np(dh), _np(want[0]), rtol=1e-5, atol=1e-6)
+    for _ in range(2):
+        again = gather_bwd_cuda(stack, motion, g, max_motion, grad_planes=6)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+        assert torch.equal(gather_bwd_hist_cuda(motion, g, max_motion,
+                                                grad_planes=6)[0], dh)
+
+
+@pytest.mark.parametrize("max_motion", [60, 96])
+def test_k5c_k6c_wide_max_motion(dev, max_motion):
+    """K5c/K6c (and K4c) past max_motion 59 on the canvases of the frame's
+    corner tiles, against their twins and the whole frame's kernels
+    (``test_k4_k5_k6_match_plain``'s corner tiles), repeated bit-equal."""
+    rng = np.random.default_rng(34)
+    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+        np.float32)).to(dev)
+    motion = _motion(dev, "fractional", 35, M=max_motion)
+    tiles = list(_corner_tiles(H, W))
+    _check_canvas_gathers(stack, motion, g, max_motion, tiles,
+                          dict(rtol=1e-5, atol=1e-6))
+    tile, th, tw = tiles[3]
+    canvas = frame_canvas(stack, tile, th, tw, max_motion + 1)
+    m_t, g_t = _crop(motion, tile, th, tw), _crop(g, tile, th, tw)
+    first = gather_canvas_bwd_cuda(canvas, m_t, g_t, max_motion, tile=tile,
+                                   grad_planes=6)
+    again = gather_canvas_bwd_cuda(canvas, m_t, g_t, max_motion, tile=tile,
+                                   grad_planes=6)
+    assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 @pytest.mark.parametrize("kind", ["random", "served"])
@@ -524,10 +563,11 @@ def test_wrappers_keep_or_refuse_gradients(dev):
     scene = raymarch.cornell_scene(device=dev)
     cfg = CameraParams(width=24, height=16)
     ro, rd, _ = raymarch.camera_rays(orbit_camera(0.25, device=dev), cfg)
-    with pytest.raises(RuntimeError, match="no backward"):
-        march_gbuf_cuda(scene, ro.requires_grad_(), rd, RaymarchParams())
-    t, hit, mat, n = march_gbuf_cuda(scene, ro.detach(), rd, RaymarchParams())
-    p = ro.detach() + t[None] * rd
+    t, hit, mat, n = march_gbuf_cuda(scene, ro.clone().requires_grad_(), rd,
+                                     RaymarchParams())
+    assert t.grad_fn is not None and n.grad_fn is not None
+    t, hit, mat, n = march_gbuf_cuda(scene, ro, rd, RaymarchParams())
+    p = ro + t[None] * rd
     alb = torch.full((3, 16, 24), 0.5, device=dev, requires_grad=True)
     render, _, _ = shadow_shade_cuda(
         scene, p, n, p + 1.0, alb, torch.zeros_like(p), hit,
@@ -595,9 +635,9 @@ SHAPES = [(H, W), (37, 53)]
 # K10's cases: every compiled radius (0-4) and the generic body (8, 16) at
 # depth 1, and deeper calls, r2 d5 and r8 d2 past the halo one launch
 # stages; K11's radii; both also on a frame of odd sides
-K10_CASES = [(r, 1) for r in (0, 1, 2, 3, 4, 8, 16)] + [
-    (1, 3), (2, 3), (2, 5), (8, 2)]
-K11_RADII = [0, 1, 2, 4, 16]
+K10_CASES = [(r, 1) for r in (0, 1, 2, 3, 4, 8, 16, 17, 24)] + [
+    (1, 3), (2, 3), (2, 5), (8, 2), (17, 2)]
+K11_RADII = [0, 1, 2, 4, 16, 17, 24]
 FILTER_SHAPES = SHAPES + [(1079, 1917)]
 
 
@@ -609,8 +649,9 @@ def test_k10_matches_plain(dev, shape, radius, depth):
     x = _planes(dev, 50, *shape)[0]
     before = box_filter_cuda.launches
     got = box_filter_cuda(x, radius=radius, depth=depth)
-    assert box_filter_cuda.launches == before + len(
-        box_level_groups(radius, depth))
+    # past r 16 two 1-D passes a level
+    assert box_filter_cuda.launches == before + (
+        len(box_level_groups(radius, depth)) if radius <= 16 else 2 * depth)
     np.testing.assert_allclose(
         _np(got), _np(boxfilter.box_filter(x, radius=radius, depth=depth)),
         rtol=1e-5, atol=1e-6)
@@ -618,7 +659,7 @@ def test_k10_matches_plain(dev, shape, radius, depth):
 
 @pytest.mark.parametrize("shape", FILTER_SHAPES)
 @pytest.mark.parametrize("radius,depth", [(0, 3), (1, 3), (2, 3), (2, 5),
-                                          (3, 4), (8, 2)])
+                                          (3, 4), (8, 2), (24, 2)])
 def test_k10_levels_of_one_launch_match_per_level_launches(dev, shape,
                                                            radius, depth):
     """Levels run in one launch's shared memory, and a call split into
@@ -635,11 +676,13 @@ def test_k10_levels_of_one_launch_match_per_level_launches(dev, shape,
 @pytest.mark.parametrize("radius", K11_RADII)
 @pytest.mark.parametrize("depth", [1, 2])
 def test_k11_matches_plain(dev, shape, radius, depth):
-    """K11 against its twin, one launch an iteration."""
+    """K11 against its twin, one launch an iteration (past r 16, one a
+    pass)."""
     x = _planes(dev, 51, *shape)[0]
     before = gaussian_filter_cuda.launches
     got = gaussian_filter_cuda(x, radius=radius, sigma=2.0, depth=depth)
-    assert gaussian_filter_cuda.launches == before + depth
+    assert gaussian_filter_cuda.launches == before + depth * (
+        1 if radius <= 16 else 2)
     want = filters.gaussian_filter(x, radius=radius, sigma=2.0, depth=depth)
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
 
@@ -657,9 +700,28 @@ def test_k11_bit_equal_to_twin(dev, shape, radius, sigma):
             x, radius=radius, sigma=sigma, depth=depth)), depth
 
 
-# K12's radii: 0-4 run the staged form, 5 and 16 (the largest) the
-# one-thread-a-pixel body
-K12_RADII = [0, 1, 2, 3, 4, 5, 16]
+# K12's radii: 0-4 run the staged form, 5 and 16 the one-thread-a-pixel
+# body with the taps in its parameter struct, 17 and 24 with the taps in a
+# device array
+K12_RADII = [0, 1, 2, 3, 4, 5, 16, 17, 24]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("radius", [17, 90])
+def test_k10_k11_separable_passes_bit_equal_to_twins(dev, shape, radius):
+    """Past r 16 K10 and K11 run as their twins do, a pass along y and a
+    pass along x a level, each adding the twin's terms in the twin's order:
+    bit-equal to the twins at depth 1 and 2 (r 90 is wider than the
+    (37, 53) frame)."""
+    x = _planes(dev, 58, *shape)[0] - 0.5
+    for depth in (1, 2):
+        assert torch.equal(
+            box_filter_cuda(x, radius=radius, depth=depth),
+            boxfilter.box_filter(x, radius=radius, depth=depth)), depth
+        assert torch.equal(
+            gaussian_filter_cuda(x, radius=radius, sigma=30.0, depth=depth),
+            filters.gaussian_filter(x, radius=radius, sigma=30.0,
+                                    depth=depth)), depth
 
 
 @pytest.mark.parametrize("radius", K12_RADII)
@@ -1361,6 +1423,101 @@ def test_seeded_k7_matches_plain_and_unseeded(dev, scene_name, omega):
     dt = _np((t0 - got[0]).abs()[both])
     assert np.percentile(dt, 99) < 2 * p1.hit_eps
     assert bool((seed <= got[0] + 1e-5).all())
+
+
+GEOMETRY = ("sphere_params", "box_params", "plane_params")
+
+
+def _geometry_leaves(scene):
+    geo = [getattr(scene, k).clone().requires_grad_() for k in GEOMETRY]
+    return dataclasses.replace(scene, **dict(zip(GEOMETRY, geo))), geo
+
+
+def _assert_grads_close(got, want, names, tol=2e-3):
+    for name, a, b in zip(names, got, want):
+        assert bool(torch.isfinite(a).all()), name
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=tol * float(b.abs().max()),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("seeded", [False, True])
+@pytest.mark.parametrize("scene_name", ["cornell", "random"])
+def test_k7_geometry_gradients_match_plain(dev, scene_name, seeded):
+    """K7 (K7s with the camera's seed) as the forward of the implicit-
+    function adjoint, its normal's chain recomputed in the backward,
+    against the plain march on the card (the normal by autograd at the hit
+    point): d(Σ w_t·t + Σ w_n·n) with respect to the spheres, boxes,
+    planes and rd at atol 2e-3·scale, the CPU tests' bound against JAX.
+    Pixels whose hit, material or normal differs on an ulp (K7's tolerance,
+    at most 0.1 %) carry no weight."""
+    base, cfg, cam, ro, rd = _cone_inputs(dev, scene_name)
+    rm = RaymarchParams(coarse_seed=seeded)
+    seed = (cone_seed_cuda(base, rm, camera=cam, cam_cfg=cfg,
+                           shape=(H, W))[0] if seeded else None)
+
+    def kernel(scene, rdv):
+        if seeded:
+            return march_gbuf_seeded_cuda(scene, ro, rdv, seed, rm)
+        return march_gbuf_cuda(scene, ro, rdv, rm)
+
+    with torch.no_grad():
+        k, q = kernel(base, rd), raymarch.march_gbuf(base, ro, rd, rm,
+                                                     seed=seed)
+    keep = ((k[1] == q[1]) & (k[2] == q[2]) & (
+        (k[3] - q[3]).abs() <= 5e-4 + 5e-3 * q[3].abs()).all(0))
+    assert float((~keep).float().mean()) <= 1e-3
+    g = torch.Generator(dev).manual_seed(5)
+    w_t = (torch.rand((H, W), generator=g, device=dev) + 0.5) * keep
+    w_n = (torch.rand((3, H, W), generator=g, device=dev) - 0.5) * keep
+    grads = []
+    for impl in ("kernel", "plain"):
+        scene, geo = _geometry_leaves(base)
+        rdv = rd.clone().requires_grad_()
+        counts = (march_gbuf_cuda.launches, march_gbuf_seeded_cuda.launches)
+        t, _hit, _mat, n = (kernel(scene, rdv) if impl == "kernel" else
+                            raymarch.march_gbuf(scene, ro, rdv, rm,
+                                                seed=seed))
+        ((w_t * t).sum() + (w_n * n).sum()).backward()
+        grads.append([x.grad for x in geo] + [rdv.grad])
+        if impl == "kernel":
+            assert (march_gbuf_cuda.launches + march_gbuf_seeded_cuda.launches
+                    == sum(counts) + 1)
+    _assert_grads_close(grads[0], grads[1], GEOMETRY + ("rd",))
+
+
+def test_render_gbuffer_geometry_gradient_matches_plain(dev):
+    """``render_gbuffer`` on the card (K7, then K8, whose backward gives
+    the hit point's and the normal's cotangents) against ``impl="plain"``
+    on the card: d(Σ w·render + Σ depth + Σ w_m·motion) with respect to
+    the scene's geometry at atol 2e-3·scale; flipped pixels as in
+    ``test_k7_k8_match_plain`` carry no weight."""
+    base = raymarch.cornell_scene(device=dev)
+    cfg = CameraParams(width=W, height=H)
+    rm = RaymarchParams()
+    lp = raymarch.sample_light(base, torch.Generator(dev).manual_seed(0),
+                               (H, W))
+    cams = (orbit_camera(0.25, device=dev), orbit_camera(0.1875, device=dev))
+    with torch.no_grad():
+        a, b = (raymarch.render_gbuffer(base, *cams, cam_cfg=cfg, params=rm,
+                                        light_sample=lp, impl=impl)
+                for impl in ("auto", "plain"))
+    keep = ~(((a.albedo - b.albedo).abs().amax(0) > 1e-4)
+             | ((a.depth - b.depth).abs() > 1e-4)
+             | ((a.render - b.render).abs().amax(0) > 1e-2))
+    assert float((~keep).float().mean()) <= 1e-3
+    gen = torch.Generator(dev).manual_seed(6)
+    w = torch.rand((3, H, W), generator=gen, device=dev) * keep
+    w_m = torch.rand((2, H, W), generator=gen, device=dev) * keep * 1e-3
+    grads = []
+    for impl in ("auto", "plain"):
+        scene, geo = _geometry_leaves(base)
+        gb = raymarch.render_gbuffer(scene, *cams, cam_cfg=cfg, params=rm,
+                                     light_sample=lp, impl=impl)
+        ((w * gb.render).sum() + (keep * gb.depth).sum()
+         + (w_m * gb.motion).sum()).backward()
+        grads.append([x.grad for x in geo])
+    _assert_grads_close(grads[0], grads[1], GEOMETRY)
 
 
 def test_seeded_render_and_pipeline_on_the_card(dev):

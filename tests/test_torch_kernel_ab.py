@@ -14,7 +14,9 @@ camera, a quarter window and the ray planes and alone on each scene, K7
 seeded from the camera, K12 at every
 radius and both sigma_n forms, on the odd frame and through
 ``apply_filter``, K10 at every radius and depth, K11 at every radius,
-sigma and depth, both on the odd frame and through ``apply_filter``),
+sigma and depth, both on the odd frame and through ``apply_filter``;
+and the wide forms held to this tree's twins: K5/K6 past max_motion 59,
+K5c/K6c on a quarter tile's canvas, K10, K11 and K12 past radius 16),
 and that the outputs are finite and of the expected
 shapes.  No timing, no other
 tree.
@@ -85,6 +87,18 @@ FAMILIES = {
     "K4c": (r"^K4c ", 8, [(10, *FRAME)]),
     "K5c": (r"^K5c ", 8, [(10, FRAME[0] + 14, FRAME[1] + 14), (2, *FRAME)]),
     "K6c": (r"^K6c ", 8, [(10, FRAME[0] + 14, FRAME[1] + 14), (2, *FRAME)]),
+    # the wide forms, held to this tree's twin: max_motion 60 and 96 (the
+    # canvas of the lower right quarter tile, margin 61 at M 60), radius
+    # 17, 24 and 90 (K12: 17 and 24)
+    "K5w": (r"^K5w ", 4, [(10, *FRAME), (2, *FRAME)]),
+    "K6w": (r"^K6w ", 4, [(10, *FRAME), (2, *FRAME)]),
+    "K5cw": (r"^K5cw ", 2, [(10, FRAME[0] // 2 + 122, FRAME[1] // 2 + 122),
+                            (2, FRAME[0] // 2, FRAME[1] // 2)]),
+    "K6cw": (r"^K6cw ", 2, [(10, FRAME[0] // 2 + 122, FRAME[1] // 2 + 122),
+                            (2, FRAME[0] // 2, FRAME[1] // 2)]),
+    "K10w": (r"^K10w ", 3, [(3, *FRAME)]),
+    "K11w": (r"^K11w ", 3, [(3, *FRAME)]),
+    "K12w": (r"^K12w ", 2, [(3, *FRAME)]),
 }
 # the outputs held bit for bit (True) or within rounding (False): KGb's
 # and K5/K6's history gradients within rounding, every other output exact
@@ -107,7 +121,13 @@ def test_kernel_ab_cases_run_on_the_cpu(inputs, family):
             form = next((f"{family} {only}" for only in ("history only",
                                                          "motion only")
                          if only in name), family)
-            assert exact == EXACT.get(form, True), name
+            if isinstance(exact, kernel_ab.Twin):
+                # the kernel's twin on the same inputs (here both are the
+                # plain path)
+                assert family.endswith("w"), name
+                assert exact.close(out, exact.launch(this)()), name
+            else:
+                assert exact == EXACT.get(form, True), name
             assert all(bool(torch.isfinite(x.float()).all()) for x in out), \
                 name
             if k == 0:
