@@ -16,12 +16,13 @@ the script exits non-zero without printing a result):
    KGb's (and its rounding pass), KGp's, K4/K4c's and K5/K6's (K5c/K6c;
    6 and 10 gradient planes, and their banded form past max_motion 59),
    K10's and K11's 1-D passes past r 16 and K12's one-thread-a-pixel body
-   (its taps in the struct or in memory); fail if one of K1/K1b, K2/K2b or
-   K14 at a compiled radius, K9 at r <= 1, K7, K8, K13 or K15 on a
-   compiled scene, K3/K3b, K15's first camera launch, K10 or K11 at r <=
-   4 or in a 1-D pass, a K12 form, a KG, KGb or KGp kernel or a
-   K4-K6 kernel (banded ones included) uses local memory (K9 at r2 and
-   wider spills: printed, not failed);
+   (its taps in the struct or in memory), and of K1b's and K14's bf16
+   forms (each radius, staged or not); fail if one of K1/K1b, K2/K2b or
+   K14 (their bf16 forms too) at a compiled radius, K9 at r <= 1, K7, K8,
+   K13 or K15 on a compiled scene, K3/K3b, K15's first camera launch, K10
+   or K11 at r <= 4 or in a 1-D pass, a K12 form, a KG, KGb or KGp kernel
+   or a K4-K6 kernel (banded ones included) uses local memory (K9 at r2
+   and wider spills: printed, not failed);
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -56,7 +57,9 @@ the script exits non-zero without printing a result):
    ±7 and ±(M + 1) px, repeatable, K5c/K6c on a quarter tile's canvas,
    K10, K11 and K12 at radius 17 and 24 and K10 and K11 at radius 90
    (K10 and K11 as two 1-D passes a level, the gaussian taps in a device
-   array), each against its twin;
+   array), each against its twin; K1b's and K14's bf16 forms
+   (``precision="bf16"``) at level 1, r1 and r2, against their twins,
+   timed by CUDA events and by device time beside the float32 forms;
 4. the serving path: 16 frames of the animated Cornell sequence at
    1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
    temporal -> 5-level à-trous, radius 1, fast weights); the first 3
@@ -83,7 +86,11 @@ the script exits non-zero without printing a result):
    ``recompute``, ``recompute`` with ``chained=False``,
    ``weight_grads=True``), timed per forward+backward with peak memory;
    gradients against the plain path (the whole sweep, except the radius-2
-   ``weight_grads`` one, which is held level by level);
+   ``weight_grads`` one, which is held level by level); and the
+   ``precision="bf16"`` sweep (K1b-bf16, K14-bf16) at r1 and r2, timed
+   with peak memory, gradients against the plain bf16 path (the twins
+   level by level), its colour gradient at cosine >= 0.99 against the
+   float32 recompute sweep's (``tools/quality_eval.py``'s criterion);
 10. the sharded path (``parallel/``) on this card's (1, 1, 1) mesh at
    3840x2160: (a) the kernels' tile forms (K1, K1b, K2, K14 with a tile
    origin, the frame's bounds and margin-writing adjoints; K3b, K4c,
@@ -122,11 +129,19 @@ the script exits non-zero without printing a result):
    clutter orbits at 256², 16 frames, 1024-sample references (K7, K13),
    SVGF with fast weights at r1 and r2, 5 iterations; PSNR and SSIM of
    input and output printed; fails below ``tests/test_quality.py``'s
-   thresholds.
+   thresholds;
+14. ``precision="bf16"`` serving: 8 Cornell orbit frames at 1920x1080
+   through ``FramePipeline(precision="bf16")`` (K3, then K1b-bf16 level by
+   level; radius 1, exact weights) beside the float32 pipeline on the same
+   frames, each bf16 frame's PSNR against the float32 frame >= 45 dB
+   (``tools/quality_eval.py``'s criterion, peak the float32 frame's max);
+   and the half-resolution deep levels (``pyramid_from=3``) on phase 13's
+   Cornell orbit through the plain path (``score(impl="plain")``), printed
+   beside the same plain sweep without them and phase 13's kernel path.
 
-Phases 4 to 9, 10(a)'s temporal gradient, 10(b)-(e), 11, 12 and 13 are
-the main paths: every kernel's launch count is set to 0 just before each and
-read just after, and each fails if one of its kernels never launched.
+Phases 4 to 9, 10(a)'s temporal gradient, 10(b)-(e), 11, 12, 13 and 14
+are the main paths: every kernel's launch count is set to 0 just before
+each and read just after, and each fails if one of its kernels never launched.
 The line before the last is a JSON object with
 one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
 No JAX is imported.
@@ -218,7 +233,10 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K6c": gather_canvas_bwd_hist_cuda,
             "K15": cone_seed_cuda, "K7s": march_gbuf_seeded_cuda,
             "KG": clamped_gather_cuda, "KGb": clamped_gather_bwd_cuda,
-            "KGp": history_stack_channel_minor_cuda}
+            "KGp": history_stack_channel_minor_cuda,
+            # the bf16 forms count apart from their float32 wrappers
+            "K1b-bf16": atrous_level_fwd_cuda.bf16,
+            "K14-bf16": atrous_level_bwd_cuda.bf16}
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
@@ -274,6 +292,11 @@ KERNELS = {
     # the channel-minor stack that bilinear_gather_many builds
     "KGp": ("clamped_gather_stack", CUDA_SRC + "temporal.cu",
             "raymarchdenoisercuda_tpu/ops/temporal.py:57"),
+    # precision="bf16" of atrous_level_fwd_pallas / atrous_level_bwd_pallas
+    "K1b-bf16": ("atrous_level_sigma_bf16", CUDA_SRC + "atrous_level.cuh",
+                 PALLAS + "atrous_tpu.py:780"),
+    "K14-bf16": ("atrous_bwd_recompute_bf16", CUDA_SRC + "atrous.cu",
+                 PALLAS + "atrous_tpu.py:865"),
 }
 # per-tap float operations of K1's weight math and accumulation, of K2's
 # tap, of K14's (the recomputed weight and K2's sum), of K9's two passes
@@ -319,6 +342,14 @@ GATE_CASES = (("r1", dict(radius=1, iterations=5)),
               ("r2", dict(radius=2, iterations=5)))
 GATE_BARS = {"cornell": dict(gain=2.2, ssim=0.96, ssim_gain=0.05),
              "clutter": dict(gain=-0.3, ssim=0.945, ssim_gain=0.10)}
+# phases 9 and 14: precision="bf16" against float32, the criteria of
+# tools/quality_eval.py (frame PSNR and gradient cosine); phase 14's
+# serving frames and the pyramid's first half-resolution level
+BF16_PSNR_DB = 45.0
+BF16_GRAD_COS = 0.99
+BF16_FRAMES = 8
+BF16_SERVING = SVGFParams(radius=1)          # exact weights: bf16 has no fast
+PYRAMID_FROM = 3
 
 
 # ptxas's names of the level forward's instantiations, level_kernel<R,
@@ -375,6 +406,12 @@ K5_MOTION = re.compile(r"18motion_term_kernelILb([01])EE")
 # the taps in a device array)
 K1011_PASS = re.compile(r"15sep_pass_kernelILb([01])ELb([01])EE")
 K12_GENERIC = re.compile(r"22cross_bilateral_kernelILb([01])EE")
+# the bf16 forms: level_bf16_kernel<R, STAGED, STORE> (K1b-bf16) and
+# atrous_bwd_bf16_kernel<R, STAGED> (K14-bf16); R = -1: any radius
+K1B_BF16_MANGLED = re.compile(r"17level_bf16_kernelILi(n?\d+)ELb([01])ELb"
+                              r"([01])EE")
+K14_BF16_MANGLED = re.compile(r"22atrous_bwd_bf16_kernelILi(n?\d+)ELb([01])"
+                              r"EE")
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
 
@@ -433,17 +470,17 @@ def random_planes(H, W, dev, seed):
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
     K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K10's, K11's (and their
-    1-D passes), K12's, KG's, KGb's, KGp's, K4/K4c's and K5/K6's
-    (staged and banded) instantiations (the build's report); raise if one
-    of K1/K1b, K2/K2b or K14 at a compiled radius, K9 at r <= 1, K7, K8,
-    K13 or K15 on a compiled scene, K3/K3b, K15's first camera launch, K10
-    or K11 at a compiled radius or in a 1-D pass, a K12 form, a KG, KGb
-    or KGp kernel or a K4-K6 kernel uses local memory, or if K3/K3b, a
-    compiled
-    K13 or K15, a K10 or K11, a K12 form, a KG, KGb or KGp kernel or a
-    K4-K6 instantiation is missing from the report."""
+    1-D passes), K12's, KG's, KGb's, KGp's, K4/K4c's, K5/K6's (staged and
+    banded) and K1b-bf16's and K14-bf16's instantiations (the build's
+    report); raise if one of K1/K1b, K2/K2b or K14 (or a bf16 form) at a
+    compiled radius, K9 at r <= 1, K7, K8, K13 or K15 on a compiled scene,
+    K3/K3b, K15's first camera launch, K10 or K11 at a compiled radius or
+    in a 1-D pass, a K12 form, a KG, KGb or KGp kernel or a K4-K6 kernel
+    uses local memory, or if K3/K3b, a compiled K13 or K15, a K10 or K11,
+    a K12 form, a KG, KGb or KGp kernel, a K4-K6 instantiation or a bf16
+    form is missing from the report."""
     k1, k9, local, k3, k13, k15, k12, kg = {}, {}, [], [], [], [], [], []
-    k456, k1011 = [], []
+    k456, k1011, bf16 = [], [], []
     for name, res in sorted(_build.resource_report().items()):
         m = K10_MANGLED.search(name)
         if m:
@@ -569,6 +606,19 @@ def report_resources():
             k3.append(form)
             if res[1] or res[2] or res[3]:
                 local.append(form)
+        m = K1B_BF16_MANGLED.search(name) or K14_BF16_MANGLED.search(name)
+        if m:
+            R, staged = int(m.group(1).replace("n", "-")), m.group(2) == "1"
+            form = (("K1b-bf16" if m.re is K1B_BF16_MANGLED else "K14-bf16")
+                    + f" r{R if R >= 0 else '>2'}"
+                    + ("" if staged else " unstaged")
+                    + (" float weights" if m.re is K1B_BF16_MANGLED
+                       and m.group(3) == "1" else ""))
+            phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
+                     f"spills {res[2] + res[3]} B")
+            bf16.append(form)
+            if R >= 0 and (res[1] or res[2] or res[3]):
+                local.append(form)
         m = K1_MANGLED.search(name)
         if m:
             R, math, sden, store, tile = (int(v.replace("n", "-"))
@@ -598,6 +648,13 @@ def report_resources():
         raise AssertionError(f"phase 2: K10/K11 instantiations "
                              f"{sorted(k1011)} in ptxas's report, expected "
                              f"{want}")
+    # K1b-bf16: r0-r2 and the wide radius staged, the wide one unstaged
+    # too, each with and without float weights (10); K14-bf16: 5
+    if (sum(f.startswith("K1b-bf16") for f in bf16) != 10
+            or sum(f.startswith("K14-bf16") for f in bf16) != 5):
+        raise AssertionError(f"phase 2: bf16 forms {sorted(bf16)} in "
+                             f"ptxas's report, expected 10 K1b-bf16 and 5 "
+                             f"K14-bf16 instantiations")
     if sorted(kg) != sorted(KG_KERNELS.values()):
         raise AssertionError(f"phase 2: KG/KGb/KGp kernels {kg} in ptxas's "
                              f"report, expected {list(KG_KERNELS.values())}")
@@ -858,6 +915,73 @@ def check_adjoint_kernels(P, results):
                      f"{bytes_px} B/px)")
             if radius == TRAIN.radius and k in KERNELS:
                 results[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
+                                  **cost)
+
+
+# the bf16 forms against their twins: the same bf16 operations in the same
+# order, bit-equal but where a weight-times-value product falls below
+# float32's normal range (the kernel's fma, the twin's product and sum)
+BF16_TWIN_TOL = dict(atol=1e-37, rtol=2.0 ** -23)
+
+
+def check_bf16_kernels(P, results):
+    """K1b-bf16 and K14-bf16 (``precision="bf16"``) at level 1, radius 1
+    and 2, against their twins on the same inputs (``BF16_TWIN_TOL``), and
+    timed beside the float32 forms on those inputs, by CUDA events and by
+    device time under the profiler.  Their bound is the float32 forms':
+    the planes are read as float32 and rounded as they are staged, so the
+    bytes are the same (64 and 76 B/px); the operations, counted as the
+    float32 forms' at the float32 rate, bound neither."""
+    HW = P["depth"].numel()
+    for radius in (1, 2):
+        taps = (2 * radius + 1) ** 2
+        params = SVGFParams(radius=radius)
+        kw = dict(level=1, params=params)
+        kb = dict(kw, precision="bf16")
+        c, v, n, z, zg, sd, gc, gv = _level_inputs(P, radius, 10 + radius)
+        got = atrous_level_fwd_cuda(c, v, n, z, zg, sd, **kb)
+        want = atrous.atrous_level_ref(c, v, n, z, zg, sigma_denom=sd,
+                                       return_weights=True, **kb)
+        want = (want[0], want[1], want[3])              # c, v, N
+        for name, a, b in zip(("color", "variance", "N"), got, want):
+            check_close(f"K1b-bf16 r{radius} {name}", a, b, **BF16_TWIN_TOL)
+        err1b = max(max_err(a, b) for a, b in zip(got, want))
+        norm = got[2]
+        k14 = atrous_level_bwd_cuda(c, n, z, zg, sd, norm, gc, gv, **kb)
+        k14_want = atrous.atrous_level_bwd_ref(c, n, z, zg, sd, norm, gc, gv,
+                                               **kb)
+        for name, a, b in zip(("d_color", "d_variance"), k14, k14_want):
+            check_close(f"K14-bf16 r{radius} {name}", a, b, **BF16_TWIN_TOL)
+        err14 = max(max_err(a, b) for a, b in zip(k14, k14_want))
+        calls = {
+            "K1b-bf16": lambda: atrous_level_fwd_cuda(c, v, n, z, zg, sd,
+                                                      **kb),
+            "K1b": lambda: atrous_level_fwd_cuda(c, v, n, z, zg, sd, **kw),
+            "K14-bf16": lambda: atrous_level_bwd_cuda(c, n, z, zg, sd, norm,
+                                                      gc, gv, **kb),
+            "K14": lambda: atrous_level_bwd_cuda(c, n, z, zg, sd, norm, gc,
+                                                 gv, **kw)}
+        ms = {k: cuda_time_ms(f, repeats=20) for k, f in calls.items()}
+        dms = {k: device_ms(f, 20) for k, f in calls.items()}
+        plain1b = cuda_time_ms(lambda: atrous.atrous_level_ref(
+            c, v, n, z, zg, sigma_denom=sd, **kb), repeats=3)
+        plain14 = cuda_time_ms(lambda: atrous.atrous_level_bwd_ref(
+            c, n, z, zg, sd, norm, gc, gv, **kb), repeats=3)
+        for k, (err, plain, bytes_px, flops) in {
+                "K1b-bf16": (err1b, plain1b, 64, K1_TAP_FLOPS),
+                "K14-bf16": (err14, plain14, 76, K14_TAP_FLOPS)}.items():
+            f32 = k.split("-")[0]
+            cost = dict(bytes=bytes_px * HW, flops=flops * taps * HW)
+            b_ms, b_by = bound(cost["bytes"], cost["flops"])
+            phase(3, f"r{radius} level 1 {k}: ok, max |err| {err:.3g}; "
+                     f"{ms[k]:.4f} ms events, {dms[k]:.4f} ms device "
+                     f"({b_ms / dms[k]:.2f} of the bound); float32 {f32} "
+                     f"{ms[f32]:.4f} ms events, {dms[f32]:.4f} ms device "
+                     f"(bf16/f32 {dms[k] / dms[f32]:.3f}); bound "
+                     f"{b_ms:.4f} ms ({b_by}, {bytes_px} B/px); plain "
+                     f"{plain:.4f} ms")
+            if radius == TRAIN.radius:
+                results[k] = dict(max_abs_err=err, ms=ms[k], plain_ms=plain,
                                   **cost)
 
 
@@ -2312,10 +2436,88 @@ def adjoint_phase(H, W, dev):
                          f"{peak / 2**30:.3f} GiB, max |err|/max {err:.3g} "
                          f"({how})")
             phase(9, lines[-1])
-    counts = read_counts(9, ("K1", "K2", "K1b", "K2b", "K14", "K9"))
+    for radius in (1, 2):
+        lines.append(bf16_sweep_case(ins, cots, radius))
+        phase(9, lines[-1])
+    counts = read_counts(9, ("K1", "K2", "K1b", "K2b", "K14", "K9",
+                             "K1b-bf16", "K14-bf16"))
     phase(9, f"spatial adjoints {W}x{H}, 5 levels, exact weights: all "
              f"modes match the plain path; launches {counts}")
     return counts
+
+
+def plain_bf16_sweep_grads(ins, cots, params):
+    """The ``precision="bf16"`` sweep's colour and variance gradients by
+    the plain twins alone: the level forwards (``atrous_level_ref(...,
+    precision="bf16")``, each level's σ-denominator of its detached
+    variance), then their adjoints in reverse (``atrous_level_bwd_ref(...,
+    precision="bf16")``), the feedback's cotangent joining at its level."""
+    color, var, normal, depth = (t.detach() for t in ins)
+    zg = finite_diff_gradients(depth)
+    c, v, saved = color, var, []
+    with torch.no_grad():
+        for lvl in range(params.iterations):
+            sd = atrous.sigma_denominator(v, params)
+            oc, ov, _, norm = atrous.atrous_level_ref(
+                c, v, normal, depth, zg, level=lvl, params=params,
+                sigma_denom=sd, return_weights=True, precision="bf16")
+            saved.append((c, sd, norm))
+            c, v = oc, ov
+        gc, gv = cots[0], cots[1]
+        for lvl in reversed(range(params.iterations)):
+            if lvl + 1 == params.feedback_level:
+                gc = gc + cots[2]
+            c_in, sd, norm = saved[lvl]
+            gc, gv = atrous.atrous_level_bwd_ref(
+                c_in, normal, depth, zg, sd, norm, gc, gv, level=lvl,
+                params=params, precision="bf16")
+    return gc, gv
+
+
+def bf16_sweep_case(ins, cots, radius):
+    """Phase 9's ``precision="bf16"`` sweep at ``radius``: fwd+bwd through
+    K1b-bf16 and K14-bf16 against the plain bf16 path at atol 2^-7·max
+    (measured: equal), timed (events, and device time under the profiler:
+    the walls hold the per-level host work) with peak memory beside the
+    float32 recompute sweep (K1b, K14), its colour gradient at cosine >=
+    0.99 against that sweep's."""
+    params = SVGFParams(iterations=5, radius=radius)
+
+    def step(precision):
+        return _sweep_grads(svgf_spatial_ad_cuda, ins, cots, (0, 1),
+                            params=params, bwd_impl="recompute",
+                            precision=precision)
+
+    got = step("bf16")
+    want = plain_bf16_sweep_grads(ins, cots, params)
+    err = 0.0
+    for k, a, b in zip((0, 1), got, want):
+        scale = float(b.abs().max())
+        check_close(f"phase 9 bf16 r{radius} gradient {k}", a, b,
+                    atol=2.0 ** -7 * scale)
+        err = max(err, max_err(a, b) / scale)
+    g32 = step("f32")[0]
+    cos = float((got[0] * g32).sum()
+                / (got[0].norm() * g32.norm()).clamp_min(1e-30))
+    if cos < BF16_GRAD_COS:
+        raise AssertionError(f"phase 9 bf16 r{radius}: colour gradient "
+                             f"cosine {cos:.6f} < {BF16_GRAD_COS} against "
+                             f"the float32 sweep")
+    del got, want, g32
+    out = []
+    for precision in ("bf16", "f32"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ms = cuda_time_ms(lambda: step(precision), repeats=ADJOINT_STEPS)
+        peak = torch.cuda.max_memory_allocated() - base
+        dms = device_ms(lambda: step(precision), ADJOINT_STEPS)
+        out.append(f"{precision} {ms:.3f} ms fwd+bwd ({dms:.3f} ms device), "
+                   f"peak {peak / 2**30:.3f} GiB")
+    return (f"r{radius} precision='bf16' (recompute, per level): "
+            f"{out[0]}; float32 recompute {out[1]}; max |err|/max {err:.3g} "
+            f"against the plain bf16 path; colour gradient cosine "
+            f"{cos:.6f} against the float32 sweep's")
 
 
 def _uhd_tiles(H, W):
@@ -2902,13 +3104,14 @@ def geometry_grad_phase(H, W, dev):
     return counts
 
 
-def quality_phase(dev):
+def quality_phase(dev, kept):
     """13: the denoiser-quality gate at the card size
     (``utils/denoise_quality.py``): the Cornell and clutter orbits at
     256², 16 frames, 1024-sample converged renders (K7, then K13 once a
     sample), scored after 4 frames through ``svgf_denoise_frame`` (K3,
     K1) with fast weights, r1 and r2 at 5 iterations; fails below
-    ``tests/test_quality.py``'s thresholds."""
+    ``tests/test_quality.py``'s thresholds.  Keeps the Cornell sequence
+    and its r1 score in ``kept`` for phase 14."""
     counts = {k: 0 for k in WRAPPERS}
     lines = []
     for scene_kind in ("cornell", "clutter"):
@@ -2929,6 +3132,8 @@ def quality_phase(dev):
                     + bars["ssim_gain"]):
                 raise AssertionError(f"phase 13: {scene_kind} {label} "
                                      f"below the gate {bars}: {q}")
+            if scene_kind == "cornell" and label == "r1":
+                kept.update(cornell=seq, cornell_r1=q)
             lines.append(f"{scene_kind} {label} fast: PSNR "
                          f"{q['input_psnr_db']} -> {q['output_psnr_db']} dB "
                          f"(gain {q['psnr_gain_db']}), SSIM "
@@ -2939,6 +3144,67 @@ def quality_phase(dev):
     phase(13, f"quality gate {GATE['size']}^2, {GATE['frames']} frames, "
               f"{GATE['spp_ref']}-spp references, warm-up {GATE['warmup']}: "
               + "; ".join(lines) + f"; launches {counts}")
+    return counts
+
+
+def bf16_serving_phase(H, W, dev, kept):
+    """14: ``FramePipeline(precision="bf16")`` serves ``BF16_FRAMES`` orbit
+    frames beside the float32 pipeline (the same configuration: radius 1,
+    exact weights); each bf16 frame's PSNR against the float32 frame
+    (peak: the float32 frame's max, as ``tools/quality_eval.py``) >=
+    ``BF16_PSNR_DB``.  Then the half-resolution deep levels on phase 13's
+    Cornell orbit: ``score(pyramid_from=PYRAMID_FROM, impl="plain")``
+    beside the plain sweep without them (r1, exact weights, the JAX tool's
+    reference path) and phase 13's kernel-path r1 score."""
+    scene = raymarch.cornell_scene(device=dev)
+    cfg = dict(cam_cfg=CameraParams(width=W, height=H),
+               rm_params=RaymarchParams(), svgf_params=BF16_SERVING,
+               weight_math="exact")
+    reset_counts()
+    times16, frames16 = run_sequence(
+        FramePipeline(scene, precision="bf16", **cfg), BF16_FRAMES, H, W,
+        dev, BF16_FRAMES)
+    counts = read_counts(14, ("K1b-bf16", "K3", "K7", "K8"))
+    if counts["K1b"] or counts["K1"]:
+        raise AssertionError(f"phase 14: the bf16 pipeline launched a "
+                             f"float32 level: {counts}")
+    times32, frames32 = run_sequence(FramePipeline(scene, **cfg),
+                                     BF16_FRAMES, H, W, dev, BF16_FRAMES)
+    dbs = []
+    for f, (a, b) in enumerate(zip(frames16, frames32)):
+        want = b.denoised.double()
+        mse = float(((a.denoised.double() - want) ** 2).mean())
+        peak = float(want.max())
+        dbs.append(99.0 if mse == 0 else 10.0 * np.log10(peak * peak / mse))
+        if dbs[-1] < BF16_PSNR_DB:
+            raise AssertionError(f"phase 14: frame {f} bf16 PSNR "
+                                 f"{dbs[-1]:.2f} dB < {BF16_PSNR_DB} "
+                                 f"against the float32 frame")
+    steady16, steady32 = times16[1:], times32[1:]
+    phase(14, f"bf16 serving {BF16_FRAMES} frames {W}x{H} (r1, exact): "
+              f"{sum(steady16) / len(steady16):.3f} ms/frame (frames 2-"
+              f"{BF16_FRAMES}), float32 {sum(steady32) / len(steady32):.3f};"
+              f" PSNR against the float32 frames "
+              + ", ".join(f"{d:.2f}" for d in dbs)
+              + f" dB (min {min(dbs):.2f}); launches {counts}")
+    seq = kept["cornell"]
+    t0 = time.perf_counter()
+    pyr = denoise_quality.score(seq, iterations=5, radius=1,
+                                pyramid_from=PYRAMID_FROM, impl="plain")
+    t_pyr = time.perf_counter() - t0
+    flat = denoise_quality.score(seq, iterations=5, radius=1, impl="plain")
+    for q in (pyr, flat):
+        if not np.isfinite(q["output_psnr_db"]):
+            raise AssertionError(f"phase 14: non-finite score {q}")
+    k13 = kept["cornell_r1"]
+    phase(14, f"pyramid_from={PYRAMID_FROM} (plain path) on phase 13's "
+              f"Cornell orbit, r1 exact: PSNR {pyr['input_psnr_db']} -> "
+              f"{pyr['output_psnr_db']} dB (gain {pyr['psnr_gain_db']}), "
+              f"SSIM {pyr['output_ssim']}, scored in {t_pyr:.2f} s; without "
+              f"it (plain): {flat['output_psnr_db']} dB (gain "
+              f"{flat['psnr_gain_db']}), SSIM {flat['output_ssim']}; phase "
+              f"13 kernel path r1 fast: {k13['output_psnr_db']} dB (gain "
+              f"{k13['psnr_gain_db']})")
     return counts
 
 
@@ -2983,6 +3249,7 @@ def main(argv=None) -> int:
     check_k1(P, results)
     check_k1_store_k2(P, results)
     check_adjoint_kernels(P, results)
+    check_bf16_kernels(P, results)
     check_k3(P, results)
     check_k4_k5_k6(P, results)
     check_filters(P, results)
@@ -3017,6 +3284,7 @@ def main(argv=None) -> int:
             launches[k] += n
 
     UH, UW = UHD_H, UHD_W
+    kept = {}
     P = random_planes(UH, UW, dev, seed=12)
     tile_ms = {}
     check_level_tiles(P, results, tile_ms)
@@ -3038,7 +3306,8 @@ def main(argv=None) -> int:
                     expected=("K1", "K2", "K4c", "K15", "K7s", "K8")),
                 lambda: scaling_phase(UH, UW, dev),
                 lambda: geometry_grad_phase(H, W, dev),
-                lambda: quality_phase(dev)):
+                lambda: quality_phase(dev, kept),
+                lambda: bf16_serving_phase(H, W, dev, kept)):
         for k, n in run().items():
             launches[k] += n
 

@@ -40,20 +40,23 @@ def render_and_denoise(
     impl: str = "auto",
     temporal: str = "auto",
     motion_grad: bool = True,
+    precision: str = "f32",
 ) -> Tuple[GBuffer, History]:
     """One frame: render the G-buffer, then denoise it.
 
     The defaults are the reference's (exact weights, radius 2); the adopted
     serving mode is ``weight_math="fast"`` with ``SVGFParams(radius=1)``.
     ``light_sample`` and ``impl`` are as in ``render_gbuffer``;
-    ``temporal`` and ``motion_grad`` as in ``svgf_denoise_frame``
-    (``temporal="ad"`` is the differentiable path)."""
+    ``temporal``, ``motion_grad`` and ``precision`` as in
+    ``svgf_denoise_frame`` (``temporal="ad"`` is the differentiable path;
+    ``precision="bf16"`` the sweep's bfloat16 kernels, exact weights)."""
     gbuf = render_gbuffer(scene, camera, prev_camera, generator,
                           cam_cfg=cam_cfg, params=rm_params,
                           light_sample=light_sample, impl=impl)
     return svgf_denoise_frame(gbuf, history, params=svgf_params,
                               weight_math=weight_math, impl=impl,
-                              temporal=temporal, motion_grad=motion_grad)
+                              temporal=temporal, motion_grad=motion_grad,
+                              precision=precision)
 
 
 class TrainState(NamedTuple):
@@ -164,10 +167,12 @@ class FramePipeline(nn.Module):
     def __init__(self, scene: Scene, cam_cfg: CameraParams = CameraParams(),
                  rm_params: RaymarchParams = RaymarchParams(),
                  svgf_params: SVGFParams = SVGFParams(),
-                 weight_math: str = "exact", impl: str = "auto"):
+                 weight_math: str = "exact", impl: str = "auto",
+                 precision: str = "f32"):
         super().__init__()
         self.renderer = Renderer(scene, cam_cfg, rm_params, impl=impl)
-        self.denoiser = SVGFDenoiser(svgf_params, weight_math, impl=impl)
+        self.denoiser = SVGFDenoiser(svgf_params, weight_math, impl=impl,
+                                     precision=precision)
 
     def forward(self, camera: Camera, prev_camera: Optional[Camera],
                 history: History,

@@ -19,10 +19,18 @@ them (K1b, K14).  The kernel path's sweep is detached, as the JAX
 package's is: the full adjoint through the weights is
 ``svgf_spatial_ad_cuda(weight_grads=True)``.
 
+``precision="bf16"`` runs the kernel path's sweep level by level through
+the bfloat16 forms of K1b and K14 (``svgf_spatial_ad_cuda(precision=
+"bf16")``, the JAX package's ``svgf_spatial_pallas(precision="bf16")``),
+whatever ``spatial_bwd`` says, as JAX's per-level path does.
+
 ``impl="plain"`` runs the plain PyTorch versions on any device, with
 autograd gradients (the JAX package's ``impl="reference"``; the on-card
 oracle of the kernel path); ``detach_weights`` applies to it, and
-``spatial_bwd`` does not.
+``spatial_bwd`` and ``precision`` do not: it is the float32 sweep whatever
+``precision`` says, as JAX's ``impl="reference"`` ignores it.  It is also
+the path that runs ``SVGFParams.pyramid_from`` (the kernel path refuses
+it, as JAX's ``impl="pallas"`` does).
 
 Albedo demodulation: SVGF filters irradiance ``render / max(albedo, eps)``
 and multiplies the albedo back afterwards, so texture is not blurred.
@@ -37,7 +45,7 @@ from torch import nn
 
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History
-from ..ops.atrous import svgf_spatial_ref
+from ..ops.atrous import PRECISIONS, svgf_spatial_ref
 from ..ops.atrous_cuda import BWD_IMPLS, svgf_spatial_ad_cuda
 from ..ops.temporal import temporal_accumulate, temporal_accumulate_ad
 from ..ops.temporal_cuda import (temporal_accumulate_ad_cuda,
@@ -77,6 +85,7 @@ def svgf_denoise_frame(
     temporal: str = "auto",
     motion_grad: bool = True,
     spatial_bwd: str = "auto",
+    precision: str = "f32",
 ) -> Tuple[GBuffer, History]:
     """Denoise one frame; returns (gbuffer with ``denoised``, new history).
 
@@ -85,9 +94,12 @@ def svgf_denoise_frame(
     and ``impl`` are as in the module docstring; ``motion_grad=False`` drops
     the motion gradient of the differentiable step (exact when the loss does
     not depend on motion through it, as in material-only training);
-    ``spatial_bwd`` as in the module docstring."""
+    ``spatial_bwd`` and ``precision`` (``"f32"`` or ``"bf16"``; ignored by
+    ``impl="plain"``) as in the module docstring."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision: {precision!r}")
     if temporal not in TEMPORALS:
         raise ValueError(f"unknown temporal: {temporal!r}")
     if spatial_bwd not in SPATIAL_BWDS:
@@ -115,7 +127,7 @@ def svgf_denoise_frame(
             spatial_bwd = "stored" if ad else "none"
         filtered, _, feedback = svgf_spatial_ad_cuda(
             integrated, variance, gbuf.normal, gbuf.depth,
-            bwd_impl=spatial_bwd, **spatial_kw)
+            bwd_impl=spatial_bwd, precision=precision, **spatial_kw)
     else:
         if ad:
             integrated, variance, new_history = temporal_accumulate_ad(
@@ -148,16 +160,17 @@ class SVGFDenoiser(nn.Module):
 
     def __init__(self, params: SVGFParams = SVGFParams(),
                  weight_math: str = "exact", demodulate_albedo: bool = True,
-                 impl: str = "auto"):
+                 impl: str = "auto", precision: str = "f32"):
         super().__init__()
         self.params = params
         self.weight_math = weight_math
         self.demodulate_albedo = demodulate_albedo
         self.impl = impl
+        self.precision = precision
 
     def forward(self, gbuf: GBuffer,
                 history: History) -> Tuple[GBuffer, History]:
         return svgf_denoise_frame(gbuf, history, params=self.params,
                                   weight_math=self.weight_math,
                                   demodulate_albedo=self.demodulate_albedo,
-                                  impl=self.impl)
+                                  impl=self.impl, precision=self.precision)

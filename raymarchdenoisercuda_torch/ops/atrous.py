@@ -42,6 +42,19 @@ which has no jnp oracle in the JAX package: the exponent moves to base 2,
 the normal weight folds into it as ``−(c1·s + c2·s²)`` with
 ``s = |n_p − n_q|²`` (no ``max(n·n_q, 0)`` clamp), and one degree-3
 polynomial ``2^y`` (``_exp2_fast3``) replaces exp and pow.
+
+``precision="bf16"`` (K1b's and K14's bfloat16 form, the TPU kernel's
+``dtype=jnp.bfloat16`` branch): the staged planes and the tap math are
+bfloat16, each operation rounded once, the accumulators float32; the
+normal weight is the exp-form one above, inside a degree-3 ``2^y`` built
+in bfloat16 (:func:`exp2_fast_bf16`).  It has no jnp oracle either; its
+twins (:func:`atrous_level_ref` and :func:`atrous_level_bwd_ref` with
+``precision="bf16"``) follow the Pallas body operation by operation and
+are held against the kernel in interpret mode.
+
+``pyramid_from`` (``SVGFParams``): the levels from ``pyramid_from`` on run
+at half resolution (:func:`_pyramid_deep_levels`), in the plain sweep only,
+as in the JAX package.
 """
 
 from __future__ import annotations
@@ -67,6 +80,7 @@ _EXP3_C = (0.999951338657045, 1.0001527445243588,
            0.5042261676140843, 0.16524081962961631)
 
 WEIGHT_MATHS = ("exact", "fast")
+PRECISIONS = ("f32", "bf16")
 
 
 def _spline_taps(radius: int) -> Tuple[float, ...]:
@@ -143,6 +157,194 @@ def _exp2_fast3(y: torch.Tensor) -> torch.Tensor:
     i = torch.clamp(yi, min=-126.0).to(torch.int32)
     two_i = torch.bitwise_left_shift(i + 127, 23).view(torch.float32)
     return p * two_i
+
+
+def bf16_round(x: float) -> float:
+    """``x`` rounded to the nearest bfloat16 (ties to even), from the
+    double: the value the JAX package's bf16 kernel gives a Python
+    constant, and the float that K1b's and K14's bf16 forms receive for
+    it (exactly representable, so the card's conversion is exact)."""
+    if x == 0.0 or not math.isfinite(x):
+        return x
+    _, e = math.frexp(x)
+    return round(x * 2.0 ** (8 - e)) * 2.0 ** (e - 8)
+
+
+def bf16_constants(params: SVGFParams) -> dict:
+    """The constants of the bf16 tap math, each rounded by
+    :func:`bf16_round`: the Rec.709 weights (``l0``-``l2``), ``ln2``,
+    ``sixth`` (the Taylor term 1/6), ``floor`` (the exponent's clamp,
+    −1e4), and the base-2 weight scales ``sz2`` = σz·ln2, ``eps2`` = ε·ln2,
+    ``c_s1`` = σn·log2(e)/2 and ``c_s2`` = σn·log2(e)/8."""
+    return {k: bf16_round(v) for k, v in (
+        ("l0", _LUMA[0]), ("l1", _LUMA[1]), ("l2", _LUMA[2]),
+        ("ln2", _LN2), ("sixth", 1.0 / 6.0), ("floor", -1e4),
+        ("sz2", params.sigma_depth * _LN2), ("eps2", _EPS * _LN2),
+        ("c_s1", params.sigma_normal * _LOG2E * 0.5),
+        ("c_s2", params.sigma_normal * _LOG2E * 0.125))}
+
+
+def exp2_fast_bf16(y: torch.Tensor, k: dict) -> torch.Tensor:
+    """``2^y`` in bfloat16 for y <= 0 (the TPU kernel's ``_exp2_fast_bf16``),
+    each operation rounded to bfloat16: y clamped at ``k["floor"]``,
+    ``i = floor(y + ½)``, the degree-3 Taylor polynomial of ``e^z`` at
+    ``z = (y − i)·ln2``, times ``2^i`` assembled in the bfloat16 bit layout
+    (exponent field ``i + 127``, mantissa shift 7; i clipped to
+    [−126, 127]).  ``k``: :func:`bf16_constants` as bfloat16 tensors."""
+    y = torch.maximum(y, k["floor"])
+    yi = torch.floor(y + k["half"])
+    z = (y - yi) * k["ln2"]
+    p = k["one"] + z * (k["one"] + z * (k["half"] + z * k["sixth"]))
+    i = torch.clamp(yi.to(torch.int32), -126, 127)
+    two_i = torch.bitwise_left_shift(i + 127, 7).to(torch.int16).view(
+        torch.bfloat16)
+    return p * two_i
+
+
+def _bf16_tensors(params: SVGFParams, device) -> dict:
+    """:func:`bf16_constants` (and ½, 1) as 0-dim bfloat16 tensors: a
+    Python float in a bfloat16 operation would enter at float precision."""
+    k = dict(bf16_constants(params), half=0.5, one=1.0)
+    return {n: torch.tensor(v, dtype=torch.bfloat16, device=device)
+            for n, v in k.items()}
+
+
+def _bf16_taps(radius: int, device) -> Tuple[torch.Tensor, ...]:
+    return tuple(torch.tensor(bf16_round(t), dtype=torch.bfloat16,
+                              device=device) for t in _spline_taps(radius))
+
+
+def _edge_weight_bf16(wz2, wl2, n_a, n_b, hfm, k):
+    """``hfm·2^(wz2 + wl2 − (c1·s + c2·s²))``, ``s = |n_a − n_b|²``: the bf16
+    tap weight of the TPU kernel's ``edge_weight``, in its operation order."""
+    d0 = n_a[0] - n_b[0]
+    d1 = n_a[1] - n_b[1]
+    d2 = n_a[2] - n_b[2]
+    s = d0 * d0 + d1 * d1 + d2 * d2
+    arg = wz2 + wl2 - (k["c_s1"] * s + k["c_s2"] * (s * s))
+    e = exp2_fast_bf16(arg, k)
+    return hfm * e, hfm.to(torch.float32) * e.to(torch.float32)
+
+
+def _log2e_over(sden: torch.Tensor) -> torch.Tensor:
+    """``log2(e) / max(σ, ε)`` by a true float32 division, rounded to
+    bfloat16 (the JAX package computes it outside the kernel and casts)."""
+    return (torch.tensor(_LOG2E, dtype=torch.float32, device=sden.device)
+            / torch.clamp(sden, min=_EPS)).to(torch.bfloat16)
+
+
+def _atrous_level_bf16(color, variance, normal, depth, zgrad, sden, *,
+                       level, params, return_weights):
+    """K1b's bf16 form (``atrous_level_fwd_pallas(precision="bf16")``).
+
+    Colour, variance, normal, depth and ``log2(e)/max(σ, ε)`` enter rounded
+    to bfloat16; ∇z stays float32.  The luminance is Rec.709 in bfloat16
+    from the rounded colour.  Per tap (dy-major), in bfloat16:
+    ``hfm = (h_y·row mask)·(h_x·column mask)``, ``wl2 = −|l_c − l_q|·isd2``,
+    ``wz2 = −|z_c − z_q|·rz`` with ``rz = 1/(sz2·|∇z·d| + eps2)`` taken in
+    float32 and rounded, and the weight of :func:`_edge_weight_bf16`; each
+    product ``w·c_q`` and ``(w·w)·v_q`` is rounded to bfloat16 and added to
+    a float32 sum, as is ``w`` to N.  The end is float32: ``N = max(N, ε)``,
+    ``c = Σ·(1/N)``, ``v = Σ·(1/N)²``.
+
+    Both divisions in float32 (rz and 1/N) are true divisions here and in
+    the kernel; the TPU kernel takes a Newton step from a bf16 reciprocal
+    (``_recip``, ~2^-16 relative), which moves rz by a bfloat16 ulp now
+    and then and the outputs by ~2^-16 relative.  Returns ``(c, v, N)``,
+    or ``(c, v, weights, N)`` with the float32 values of the bf16 weights."""
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = color.device
+    H, W = depth.shape
+    k = _bf16_tensors(params, dev)
+    c, v = color.to(bf), variance.to(bf)
+    n, z = normal.to(bf), depth.to(bf)
+    lum = k["l0"] * c[0] + k["l1"] * c[1] + k["l2"] * c[2]
+    isd2 = _log2e_over(sden)
+    sz2 = torch.tensor(params.sigma_depth * _LN2, dtype=f32, device=dev)
+    eps2 = torch.tensor(_EPS * _LN2, dtype=f32, device=dev)
+    spacing, r = 1 << level, params.radius
+    taps = _bf16_taps(r, dev)
+    acc_c = torch.zeros((3, H, W), dtype=f32, device=dev)
+    acc_v = torch.zeros((H, W), dtype=f32, device=dev)
+    den = torch.zeros((H, W), dtype=f32, device=dev)
+    weights = []
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            oy, ox = dy * spacing, dx * spacing
+            hfm = ((taps[dy + r] * valid_mask(H, 1, oy, 0, device=dev,
+                                              dtype=bf))
+                   * (taps[dx + r] * valid_mask(1, W, 0, ox, device=dev,
+                                                dtype=bf)))
+            c_q, v_q = shift2d(c, oy, ox), shift2d(v, oy, ox)
+            l_q, n_q = shift2d(lum, oy, ox), shift2d(n, oy, ox)
+            wl2 = -torch.abs(lum - l_q) * isd2
+            rz = torch.reciprocal(
+                sz2 * torch.abs(zgrad[0] * oy + zgrad[1] * ox) + eps2).to(bf)
+            wz2 = -torch.abs(z - shift2d(z, oy, ox)) * rz
+            w, w_f = _edge_weight_bf16(wz2, wl2, n, n_q, hfm, k)
+            if return_weights:
+                weights.append(w_f)
+            acc_c = acc_c + w.to(f32)[None] * c_q.to(f32)
+            acc_v = acc_v + (w * w).to(f32) * v_q.to(f32)
+            den = den + w_f
+    den = torch.clamp(den, min=_EPS)
+    inv = torch.reciprocal(den)
+    c_out, v_out = acc_c * inv[None], acc_v * (inv * inv)
+    if return_weights:
+        return c_out, v_out, torch.stack(weights), den
+    return c_out, v_out, den
+
+
+def _atrous_level_bwd_bf16(color, normal, depth, zgrad, sden, norm, gc, gv, *,
+                           level, params):
+    """K14's bf16 form (``atrous_level_bwd_pallas(precision="bf16")``).
+
+    Enter rounded to bfloat16: the float32 luminance, normal, depth,
+    ``log2(e)/max(σ, ε)``, ∇z, ``u = gc/max(N, ε)`` and ``u2 = gv/max(N, ε)²``
+    (the quotients in float32, true divisions).  Per tap d (dy-major), for
+    the centre p = x − d·2^level, in bfloat16: the masks of p (in the
+    image), ``rz = 1/(sz2·|∇z_p·d| + eps2)`` (the bfloat16 quotient),
+    ``wz2 = −|z_p − z_x|·rz``, ``wl2 = −|l_p − l_x|·isd2_p`` and p's weight
+    of :func:`_edge_weight_bf16`; each product ``w·u_p`` and ``(w·w)·u2_p``
+    is rounded to bfloat16 and added to a float32 sum.  Returns
+    ``(d_color, d_variance)``."""
+    bf, f32 = torch.bfloat16, torch.float32
+    dev = color.device
+    H, W = depth.shape
+    k = _bf16_tensors(params, dev)
+    lum = luminance(color).to(bf)
+    n, z, zg = normal.to(bf), depth.to(bf), zgrad.to(bf)
+    isd2 = _log2e_over(sden)
+    inv_n = torch.reciprocal(torch.clamp(norm, min=_EPS))
+    u = (gc * inv_n[None]).to(bf)
+    u2 = (gv * (inv_n * inv_n)).to(bf)
+    spacing, r = 1 << level, params.radius
+    taps = _bf16_taps(r, dev)
+    acc_c = torch.zeros((3, H, W), dtype=f32, device=dev)
+    acc_v = torch.zeros((H, W), dtype=f32, device=dev)
+    for dy in range(-r, r + 1):
+        for dx in range(-r, r + 1):
+            oy, ox = dy * spacing, dx * spacing
+
+            def at_p(x):
+                return shift2d(x, -oy, -ox)
+
+            hfm = ((taps[dy + r] * valid_mask(H, 1, -oy, 0, device=dev,
+                                              dtype=bf))
+                   * (taps[dx + r] * valid_mask(1, W, 0, -ox, device=dev,
+                                                dtype=bf)))
+            zg_p = at_p(zg)
+            dz2 = (k["sz2"] * torch.abs(
+                zg_p[0] * torch.tensor(float(oy), dtype=bf, device=dev)
+                + zg_p[1] * torch.tensor(float(ox), dtype=bf, device=dev))
+                + k["eps2"])
+            rz = k["one"] / dz2
+            wz2 = -torch.abs(at_p(z) - z) * rz
+            wl2 = -torch.abs(at_p(lum) - lum) * at_p(isd2)
+            w, _ = _edge_weight_bf16(wz2, wl2, at_p(n), n, hfm, k)
+            acc_c = acc_c + w.to(f32)[None] * at_p(u).to(f32)
+            acc_v = acc_v + (w * w).to(f32) * at_p(u2).to(f32)
+    return acc_c, acc_v
 
 
 def sigma_denominator(variance: torch.Tensor, params: SVGFParams, *,
@@ -251,6 +453,7 @@ def atrous_level_ref(
     return_weights: bool = False,
     sigma_denom: torch.Tensor = None,  # (H, W); from the variance if None
     tile: Tile = None,
+    precision: str = "f32",
 ):
     """One à-trous level.  Returns (filtered colour, filtered variance), and
     with ``return_weights`` also the (n_taps, H, W) tap weights in the
@@ -266,9 +469,28 @@ def atrous_level_ref(
     ``tile`` given (K1's and K1b's tile form): ``color``/``variance`` and
     ``normal``/``depth`` are canvases around the tile of ``zgrad`` (which
     is then required), margins >= the level's reach r·2^level (and >= 1
-    for the fused σ blur); the outputs are the tile's."""
+    for the fused σ blur); the outputs are the tile's.
+
+    ``precision="bf16"``: K1b's bfloat16 form (:func:`_atrous_level_bf16`),
+    with a given ``sigma_denom`` and exact-mode weights, on the whole
+    frame, without gradients (the weights are detached; as in the JAX
+    package, the bf16 level is differentiated by its adjoint kernels)."""
     if weight_math not in WEIGHT_MATHS:
         raise ValueError(f"unknown weight_math: {weight_math!r}")
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision: {precision!r}")
+    if precision == "bf16":
+        if sigma_denom is None or weight_math != "exact" or tile is not None:
+            raise ValueError("precision='bf16' is the per-level form: it "
+                             "takes a sigma_denom, exact weight_math and "
+                             "the whole frame")
+        if zgrad is None:
+            zgrad = finite_diff_gradients(depth)
+        with torch.no_grad():
+            out = _atrous_level_bf16(color, variance, normal, depth, zgrad,
+                                     sigma_denom, level=level, params=params,
+                                     return_weights=return_weights)
+        return out if return_weights else out[:2]
     if zgrad is None:
         if tile is not None:
             raise ValueError("the tile form needs the tile's zgrad")
@@ -371,6 +593,7 @@ def atrous_level_bwd_ref(
     params: SVGFParams,
     tile: Tile = None,
     out_halo: int = 0,
+    precision: str = "f32",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K14: the detached adjoint of one level with the
     weights recomputed (``atrous_level_bwd_pallas``; no weight storage).
@@ -385,7 +608,20 @@ def atrous_level_bwd_ref(
     gathered as in :func:`atrous_level_bwd_stored_ref`: ``dc_x = Σ_d
     w_{x−d}(d)·g_{x−d}/N_{x−d}`` and ``dv_x = Σ_d w_{x−d}(d)²·gv_{x−d}/
     N_{x−d}²``.  Exact weights only, full (not luma-only) levels, as in the
-    JAX package.  Returns ``(d_color, d_variance)``."""
+    JAX package.  Returns ``(d_color, d_variance)``.
+
+    ``precision="bf16"``: K14's bfloat16 form (:func:`_atrous_level_bwd_bf16`),
+    the adjoint of ``atrous_level_ref(..., precision="bf16")``'s stencil,
+    on the whole frame."""
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision: {precision!r}")
+    if precision == "bf16":
+        if tile is not None or out_halo:
+            raise ValueError("precision='bf16' takes the whole frame (no "
+                             "tile or out_halo)")
+        return _atrous_level_bwd_bf16(color, normal, depth, zgrad,
+                                      sigma_denom, norm, gc, gv, level=level,
+                                      params=params)
     lum = luminance(color)
     w = torch.stack([w for _, _, w in _tap_weights(
         lum, normal, depth, zgrad, sigma_denom, level=level, params=params,
@@ -520,19 +756,81 @@ def svgf_spatial_ref(
     Returns the denoised colour and variance, and with ``return_feedback``
     also the colour after ``params.feedback_level`` levels, which SVGF feeds
     into the next frame's history instead of the fully filtered image.
+
+    With ``params.pyramid_from`` = P below ``iterations``, levels P and up
+    run at half resolution (:func:`_pyramid_deep_levels`); the feedback
+    level must then be a full-resolution one (``feedback_level <= P``, else
+    ``ValueError``, as in the JAX package).
     """
-    if params.pyramid_from is not None:
-        raise NotImplementedError("pyramid_from (half-resolution deep levels) "
-                                  "is not ported")
     zgrad = finite_diff_gradients(depth)
     c, v = color, variance
     feedback = color
-    for lvl in range(params.iterations):
+    pf = params.pyramid_from
+    n_full = params.iterations if pf is None else min(pf, params.iterations)
+    for lvl in range(n_full):
         c, v = atrous_level_ref(c, v, normal, depth, zgrad, level=lvl,
                                 params=params, weight_math=weight_math,
                                 detach_weights=detach_weights)
         if lvl + 1 == params.feedback_level:
             feedback = c
+    if pf is not None and pf < params.iterations:
+        if params.feedback_level > pf:
+            raise ValueError("pyramid_from requires feedback_level <= "
+                             "pyramid_from (the feedback plane must be a "
+                             "full-resolution level)")
+        c, v = _pyramid_deep_levels(c, v, normal, depth, params=params,
+                                    weight_math=weight_math,
+                                    detach_weights=detach_weights)
     if return_feedback:
         return c, v, feedback
     return c, v
+
+
+def _down2(x: torch.Tensor) -> torch.Tensor:
+    """2x2-mean downsample of a (…, H, W) plane; an odd extent repeats its
+    last row (column) first."""
+    H, W = x.shape[-2:]
+    if H % 2:
+        x = torch.cat([x, x[..., -1:, :]], dim=-2)
+    if W % 2:
+        x = torch.cat([x, x[..., :, -1:]], dim=-1)
+    Hp, Wp = x.shape[-2:]
+    x = x.reshape(x.shape[:-2] + (Hp // 2, 2, Wp // 2, 2))
+    return x.mean(dim=(-3, -1))
+
+
+def _up2(x: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """Bilinear 2x upsample of a (…, h, w) plane at half-pixel centres (the
+    phase of :func:`_down2`; ``jax.image.resize(..., "bilinear")``, whose
+    dropped border taps renormalise to the edge sample as the clamped
+    source index does here), cropped to H x W."""
+    lead = x.shape[:-2]
+    y = F.interpolate(x.reshape((1, -1) + x.shape[-2:]), scale_factor=2,
+                      mode="bilinear", align_corners=False)
+    return y.reshape(lead + y.shape[-2:])[..., :H, :W]
+
+
+def _pyramid_deep_levels(c, v, normal, depth, *, params, weight_math,
+                         detach_weights):
+    """The levels ``pyramid_from…iterations−1`` at half resolution
+    (``SVGFParams.pyramid_from``, the JAX package's experiment): colour,
+    variance, normal (renormalised, ``max(‖n‖, 1e-8)``) and depth are 2x2-
+    mean downsampled, ∇z taken of the coarse depth, each level runs with
+    its index less one (the same footprint in the image at half the
+    pixels), and the coarse levels' change is upsampled and added to the
+    full-resolution planes (the variance clamped at 0)."""
+    H, W = depth.shape
+    cd, vd = _down2(c), _down2(v)
+    nd = _down2(normal)
+    nd = nd / torch.clamp(torch.linalg.vector_norm(nd, dim=0, keepdim=True),
+                          min=1e-8)
+    zd = _down2(depth)
+    zgd = finite_diff_gradients(zd)
+    c2, v2 = cd, vd
+    for lvl in range(params.pyramid_from, params.iterations):
+        c2, v2 = atrous_level_ref(c2, v2, nd, zd, zgd, level=lvl - 1,
+                                  params=params, weight_math=weight_math,
+                                  detach_weights=detach_weights)
+    c_out = c + _up2(c2 - cd, H, W)
+    v_out = torch.clamp(v + _up2(v2 - vd, H, W), min=0.0)
+    return c_out, v_out

@@ -13,8 +13,9 @@ Sweeps:
   level by level in reverse;
 * :func:`svgf_spatial_ad_cuda` has ``svgf_spatial_pallas``'s whole keyword
   surface: the two above, ``"stored_f32"`` (K1 storing float weights, K2b),
-  ``"recompute"`` and ``chained=False`` (K1b, then K14), and
-  ``weight_grads=True`` (K1b, then K9: gradients through the weights).
+  ``"recompute"`` and ``chained=False`` (K1b, then K14),
+  ``weight_grads=True`` (K1b, then K9: gradients through the weights), and
+  ``precision="bf16"`` (the bfloat16 forms of K1b and K14, level by level).
 
 Per-level wrappers, one for each JAX function: :func:`atrous_level_cuda`
 (K1, ``atrous_level_fwd_canvas``), :func:`atrous_level_fwd_cuda` (K1b,
@@ -24,7 +25,11 @@ Per-level wrappers, one for each JAX function: :func:`atrous_level_cuda`
 (K9, ``atrous_level_wgrad_bwd_pallas``).  Each launches its kernel for CUDA
 tensors and runs the plain twin from ``ops.atrous`` for CPU tensors, so the
 sweeps compute one algorithm on either device, and counts its launches in
-its ``launches`` attribute.
+its ``launches`` attribute.  K1b's and K14's wrappers take ``precision``:
+their bfloat16 forms (the TPU kernels' ``precision="bf16"``, one
+``__nv_bfloat162`` pair of pixels a thread on the card; plain twins
+``atrous_level_ref`` / ``atrous_level_bwd_ref`` with ``precision="bf16"``)
+count on ``.bf16.launches`` instead.
 
 Tiles: K1, K1b and K14 take ``tile=Tile(origin, bounds)`` (the sharded
 sweep, ``parallel/sharded.py``): the colour/variance and normal/depth
@@ -43,15 +48,15 @@ import ctypes
 import torch
 
 from ..config import SVGFParams
-from .atrous import (WEIGHT_MATHS, _EPS, _LN2, _LOG2E, _spline_taps,
-                     atrous_level_bwd_ref, atrous_level_bwd_stored_ref,
-                     atrous_level_ref, atrous_level_wgrad_bwd_ref,
+from .atrous import (PRECISIONS, WEIGHT_MATHS, _EPS, _LN2, _LOG2E,
+                     _spline_taps, atrous_level_bwd_ref,
+                     atrous_level_bwd_stored_ref, atrous_level_ref,
+                     atrous_level_wgrad_bwd_ref, bf16_constants,
                      sigma_denominator)
 from .common import Tile, canvas_margin, finite_diff_gradients
 from .cuda import _build
 
 BWD_IMPLS = ("stored", "stored_f32", "recompute", "none")
-PRECISIONS = ("f32", "bf16")
 
 
 class _AtrousParams(ctypes.Structure):
@@ -70,6 +75,28 @@ class _AtrousTile(ctypes.Structure):
     _fields_ = [(n, ctypes.c_int) for n in
                 ("Hg", "Wg", "gy0", "gx0", "d_rs", "d_ps", "d_m", "g_rs",
                  "g_ps", "g_m", "o_m")]
+
+
+class _AtrousBf16(ctypes.Structure):
+    """Mirror of ``struct AtrousBf16`` in ``ops/cuda/atrous_common.cuh``:
+    the bf16 forms' constants (``ops.atrous.bf16_constants``), each a float
+    that bfloat16 represents exactly."""
+
+    _fields_ = [(n, ctypes.c_float) for n in
+                ("l0", "l1", "l2", "ln2", "sixth", "floor", "sz2", "eps2",
+                 "c_s1", "c_s2")]
+
+
+def _bf16_params(params):
+    return _AtrousBf16(**bf16_constants(params))
+
+
+class LaunchCount:
+    """The launch count of one form of a wrapper's kernel (``.launches``),
+    kept apart from the wrapper's own."""
+
+    def __init__(self):
+        self.launches = 0
 
 
 def _ref(struct):
@@ -173,8 +200,19 @@ def _check_sweep(color, params: SVGFParams, weight_math: str) -> None:
     if weight_math not in WEIGHT_MATHS:
         raise ValueError(f"unknown weight_math: {weight_math!r}")
     if params.pyramid_from is not None:
-        raise NotImplementedError("pyramid_from (half-resolution deep levels) "
-                                  "is not ported")
+        raise NotImplementedError(
+            "pyramid_from (half-res deep levels) is a plain-path experiment "
+            "only — it FAILED the two-scene quality gate (−0.48/−0.60 dB) "
+            "and was closed; unset it for the kernel path (the plain path, "
+            "impl='plain', runs it)")
+
+
+def _check_precision(precision, tile=None, out_halo=0):
+    if precision not in PRECISIONS:
+        raise ValueError(f"unknown precision: {precision!r}")
+    if precision == "bf16" and (tile is not None or out_halo):
+        raise ValueError("precision='bf16' is the whole-frame per-level "
+                         "form: no tile or out_halo")
 
 
 def zgrad_cuda(depth: torch.Tensor) -> torch.Tensor:
@@ -262,34 +300,73 @@ def atrous_level_cuda(color, variance, normal, depth, zgrad, *, level: int,
 atrous_level_cuda.launches = 0
 
 
+def _launch_level_bf16(color, variance, normal, depth, zgrad, sigma_denom,
+                       *, level, params, save_weights):
+    """One launch of K1b's bf16 form; returns ``(c, v, w or None, N)``."""
+    H, W = depth.shape
+    dev = color.device
+    f32 = torch.float32
+    ptrs = _planes(dev, H, W, (
+        (color, "color", 3), (variance, "variance", None),
+        (normal, "normal", 3), (depth, "depth", None), (zgrad, "zgrad", 2),
+        (sigma_denom, "sigma_denom", None)))
+    c_out = torch.empty((3, H, W), dtype=f32, device=dev)
+    v_out = torch.empty((H, W), dtype=f32, device=dev)
+    norm = torch.empty((H, W), dtype=f32, device=dev)
+    w = (torch.empty(((2 * params.radius + 1) ** 2, H, W), dtype=f32,
+                     device=dev) if save_weights else None)
+    p, b = _launch_params(H, W, level, params), _bf16_params(params)
+    rc = _build.kernels().rdt_atrous_level_bf16(
+        *ptrs, c_out.data_ptr(), v_out.data_ptr(),
+        None if w is None else w.data_ptr(), norm.data_ptr(),
+        ctypes.addressof(p), ctypes.addressof(b),
+        _taps_ptr(params.radius, dev), _stream(dev))
+    _build.check(rc, "rdt_atrous_level_bf16")
+    return c_out, v_out, w, norm
+
+
 def atrous_level_fwd_cuda(color, variance, normal, depth, zgrad, sigma_denom,
                           *, level: int, params: SVGFParams,
-                          save_weights: bool = False, tile: Tile = None):
+                          save_weights: bool = False, tile: Tile = None,
+                          precision: str = "f32"):
     """One level forward with a given σ-denominator (K1b, the counterpart of
     ``atrous_level_fwd_pallas``; exact weights).  Returns ``(c, v, N)``,
     and with ``save_weights`` also the (n_taps, H, W) float32 tap weights.
     Raises if an input requires grad (:func:`atrous_level` owns the
     gradient).  ``tile`` as in :func:`atrous_level_cuda`.
 
-    Each launch adds one to ``atrous_level_fwd_cuda.launches``."""
+    ``precision="bf16"``: K1b's bfloat16 form on the whole frame (the
+    planes rounded to bf16 as the kernel stages them, the tap math in
+    bf16, float32 sums; ``atrous_level_ref(..., precision="bf16")``).
+
+    Each float32 launch adds one to ``atrous_level_fwd_cuda.launches``, each
+    bf16 launch to ``atrous_level_fwd_cuda.bf16.launches``."""
+    _check_precision(precision, tile)
     _build.check_no_grad("atrous_level_fwd_cuda", color, variance, normal,
                          depth, zgrad, sigma_denom)
     if not color.is_cuda:
         c, v, w, norm = atrous_level_ref(
             color, variance, normal, depth, zgrad, level=level,
             params=params, sigma_denom=sigma_denom, return_weights=True,
-            tile=tile)
+            tile=tile, precision=precision)
         return (c, v, norm, w) if save_weights else (c, v, norm)
-    c, v, w, norm = _launch_level(
-        color, variance, normal, depth, zgrad, sigma_denom, level=level,
-        params=params, weight_math="exact",
-        w_dtype=torch.float32 if save_weights else None, want_norm=True,
-        tile=tile)
-    atrous_level_fwd_cuda.launches += 1
+    if precision == "bf16":
+        c, v, w, norm = _launch_level_bf16(
+            color, variance, normal, depth, zgrad, sigma_denom, level=level,
+            params=params, save_weights=save_weights)
+        atrous_level_fwd_cuda.bf16.launches += 1
+    else:
+        c, v, w, norm = _launch_level(
+            color, variance, normal, depth, zgrad, sigma_denom, level=level,
+            params=params, weight_math="exact",
+            w_dtype=torch.float32 if save_weights else None, want_norm=True,
+            tile=tile)
+        atrous_level_fwd_cuda.launches += 1
     return (c, v, norm, w) if save_weights else (c, v, norm)
 
 
 atrous_level_fwd_cuda.launches = 0
+atrous_level_fwd_cuda.bf16 = LaunchCount()
 
 
 def _out_region(H, W, out_halo, dev):
@@ -367,7 +444,8 @@ atrous_level_bwd_stored_f32_cuda.launches = 0
 
 def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
                           g_color, g_var, *, level: int, params: SVGFParams,
-                          tile: Tile = None, out_halo: int = 0):
+                          tile: Tile = None, out_halo: int = 0,
+                          precision: str = "f32"):
     """K14, the recompute adjoint of one level (the counterpart of
     ``atrous_level_bwd_pallas``): the weights are re-derived from the
     forward's inputs and its σ-denominator by the forward's exact weight
@@ -375,16 +453,35 @@ def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
     :func:`atrous_level_cuda` (canvas margins >= ``out_halo``) and
     ``out_halo`` as in :func:`atrous_level_bwd_stored_cuda`.
 
-    Each launch adds one to ``atrous_level_bwd_cuda.launches``."""
+    ``precision="bf16"``: K14's bfloat16 form on the whole frame, the
+    adjoint of K1b's (``atrous_level_bwd_ref(..., precision="bf16")``).
+
+    Each float32 launch adds one to ``atrous_level_bwd_cuda.launches``, each
+    bf16 launch to ``atrous_level_bwd_cuda.bf16.launches``."""
+    _check_precision(precision, tile, out_halo)
     _build.check_no_grad("atrous_level_bwd_cuda", color, normal, depth, zgrad,
                          sigma_denom, norm, g_color, g_var)
     if not g_color.is_cuda:
         return atrous_level_bwd_ref(color, normal, depth, zgrad, sigma_denom,
                                     norm, g_color, g_var, level=level,
                                     params=params, tile=tile,
-                                    out_halo=out_halo)
+                                    out_halo=out_halo, precision=precision)
     H, W = zgrad.shape[-2:]
     dev = g_color.device
+    if precision == "bf16":
+        ptrs = _planes(dev, H, W, (
+            (color, "color", 3), (normal, "normal", 3),
+            (depth, "depth", None), (zgrad, "zgrad", 2),
+            (sigma_denom, "sigma_denom", None), (norm, "norm", None),
+            (g_color, "g_color", 3), (g_var, "g_var", None)))
+        dc, dv = _out_region(H, W, 0, dev)
+        p, b = _launch_params(H, W, level, params), _bf16_params(params)
+        rc = _build.kernels().rdt_atrous_bwd_bf16(
+            *ptrs, dc.data_ptr(), dv.data_ptr(), ctypes.addressof(p),
+            ctypes.addressof(b), _taps_ptr(params.radius, dev), _stream(dev))
+        _build.check(rc, "rdt_atrous_bwd_bf16")
+        atrous_level_bwd_cuda.bf16.launches += 1
+        return dc, dv
     ptrs, t = _neighbourhood(dev, H, W, tile, color, None, normal, depth,
                              out_halo, out_halo)
     ptrs += _planes(dev, H, W, (
@@ -402,6 +499,7 @@ def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
 
 
 atrous_level_bwd_cuda.launches = 0
+atrous_level_bwd_cuda.bf16 = LaunchCount()
 
 
 def atrous_level_wgrad_bwd_cuda(color, variance, normal, depth, zgrad,
@@ -442,17 +540,19 @@ atrous_level_wgrad_bwd_cuda.launches = 0
 
 class _AtrousLevel(torch.autograd.Function):
     """One level with a given σ-denominator and its hand-written adjoint
-    (the JAX custom-VJP ``atrous_level``): K1b forward; K9 backward with
-    ``weight_grads``, else K14 and zero gradients for the normal, depth,
-    ∇z and σ-denominator."""
+    (the JAX custom-VJP ``atrous_level``): K1b forward (in ``precision``);
+    K9 backward with ``weight_grads`` (float32, whatever the forward's
+    precision, as ``_atrous_bwd`` does), else K14 (in ``precision``) and
+    zero gradients for the normal, depth, ∇z and σ-denominator."""
 
     @staticmethod
     def forward(ctx, color, variance, normal, depth, zgrad, sigma_denom,
-                level, params, weight_grads):
+                level, params, weight_grads, precision):
         c, v, norm = atrous_level_fwd_cuda(color, variance, normal, depth,
                                            zgrad, sigma_denom, level=level,
-                                           params=params)
+                                           params=params, precision=precision)
         ctx.level, ctx.params, ctx.weight_grads = level, params, weight_grads
+        ctx.precision = precision
         if weight_grads:
             ctx.save_for_backward(color, variance, normal, depth, zgrad,
                                   sigma_denom, c, v, norm)
@@ -471,20 +571,23 @@ class _AtrousLevel(torch.autograd.Function):
         else:
             color, normal, depth, zgrad, sden, norm = ctx.saved_tensors
             dc, dv = atrous_level_bwd_cuda(color, normal, depth, zgrad, sden,
-                                           norm, gc, gv, **kw)
+                                           norm, gc, gv,
+                                           precision=ctx.precision, **kw)
             need = ctx.needs_input_grad
             grads = (dc, dv) + tuple(
                 torch.zeros_like(t) if need[k] else None
                 for k, t in zip(range(2, 6), (normal, depth, zgrad, sden)))
-        return grads + (None, None, None)
+        return grads + (None, None, None, None)
 
 
 def atrous_level(color, variance, normal, depth, zgrad, sigma_denom, level,
-                 params, weight_grads: bool = False):
+                 params, weight_grads: bool = False, precision: str = "f32"):
     """One differentiable level, ``(c, v)``: K1b forward, K14 or (with
-    ``weight_grads``) K9 backward."""
+    ``weight_grads``) K9 backward; ``precision="bf16"``: their bf16 forms
+    (K9 stays float32)."""
     return _AtrousLevel.apply(color, variance, normal, depth, zgrad,
-                              sigma_denom, level, params, weight_grads)
+                              sigma_denom, level, params, weight_grads,
+                              precision)
 
 
 def _sweep_forward(color, variance, normal, depth, params, weight_math,
@@ -602,26 +705,27 @@ def svgf_spatial_ad_cuda(color: torch.Tensor, variance: torch.Tensor,
       and the σ-denominator of the undetached variance are PyTorch
       operations under autograd, so K9's d_zgrad and d_sigma reach the
       depth and the variance as XLA chains them in JAX.
+    * ``precision="bf16"``: the per-level path above, through the bfloat16
+      forms of K1b and K14 (K9 with ``weight_grads``, as in JAX), whatever
+      ``chained`` and ``bwd_impl`` say: JAX's chained path is float32 only.
 
-    ``weight_math="fast"`` is taken on the chained stored and ``"none"``
-    paths only, ``luma_only_from`` on the chained stored and ``"none"``
-    paths only, as in JAX; ``pyramid_from`` and ``precision="bf16"`` are
-    not ported."""
+    ``weight_math="fast"`` is taken on the chained f32 stored and
+    ``"none"`` paths only, ``luma_only_from`` on the chained f32 stored and
+    ``"none"`` paths only, as in JAX; ``pyramid_from`` raises (the plain
+    sweep runs it, as JAX's jnp oracle does)."""
     if bwd_impl not in BWD_IMPLS:
         raise ValueError(f"unknown bwd_impl: {bwd_impl!r}")
     _check_sweep(color, params, weight_math)
     if weight_math == "fast" and bwd_impl == "recompute":
         raise ValueError("weight_math='fast' requires a stored bwd_impl")
-    if precision not in PRECISIONS:
-        raise ValueError(f"unknown precision: {precision!r}")
-    if precision == "bf16":
-        raise NotImplementedError("precision='bf16' (bfloat16 kernel planes) "
-                                  "is not ported")
+    _check_precision(precision)
     if params.luma_only_from is not None and (
-            bwd_impl == "recompute" or not chained or weight_grads):
+            bwd_impl == "recompute" or not chained or weight_grads
+            or precision != "f32"):
         raise ValueError("luma_only_from requires the chained f32 "
                          "detached path with a stored or 'none' bwd_impl")
-    on_chained = chained and not weight_grads and params.iterations > 0
+    on_chained = (chained and not weight_grads and precision == "f32"
+                  and params.iterations > 0)
     if weight_math == "fast" and not on_chained:
         raise ValueError("weight_math='fast' is implemented on the chained "
                          "f32 detached path only")
@@ -642,7 +746,7 @@ def svgf_spatial_ad_cuda(color: torch.Tensor, variance: torch.Tensor,
     for lvl in range(params.iterations):
         sden = sigma_denominator(v if weight_grads else v.detach(), params)
         c, v = atrous_level(c, v, normal, depth, zgrad, sden, lvl, params,
-                            weight_grads)
+                            weight_grads, precision)
         if lvl + 1 == params.feedback_level:
             feedback = c
     return (c, v, feedback) if return_feedback else (c, v)

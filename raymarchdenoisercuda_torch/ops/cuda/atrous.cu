@@ -629,6 +629,204 @@ cudaError_t launch_bwd_tile(const BwdArgs& a, const AtrousParams& p,
                 : launch_bwd<R, STAGED, false>(a, p, AtrousTile{}, s);
 }
 
+// ---------------------------------------------------------------------
+// K14's bf16 form (precision="bf16"; _make_level_kernel(mode="bwd",
+// dtype=jnp.bfloat16) as called by atrous_level_bwd_pallas): the adjoint of
+// K1b's bf16 stencil, weights recomputed in bf16.  Plain twin:
+// atrous_level_bwd_ref(..., precision="bf16").  Design: K1b-bf16's (the
+// row-lattice tile over the output, 32 x 8 threads, two adjacent outputs a
+// thread in the lanes of an __nv_bfloat162).  A block stages once per
+// centre of its tile and halo the twelve bf16 values its taps read,
+// rounded from what the TPU kernel's wrapper computes in float32 before
+// casting: luminance (luma3), normal, depth, log2(e)/max(sigma, eps),
+// depth gradient, u = gc/max(N, eps) and u2 = gv/max(N, eps)^2 (true
+// divisions), 24 B a centre.  Per tap: rz = 1/(sz2*|dz_p.d| + eps2) in
+// bf16 (the bf16 quotient: float32 reciprocal, then rounded), the weight
+// as in K1b-bf16, and each lane's w*u_p and (w*w)*u2_p (w*w rounded) by
+// one float32 fma.  Bound: memory as K14, 76 B/px.  R: 0, 1, 2, or -1
+// (wide_taps); STAGED false for a WIDE tile above kBf16BwdMaxStaged.
+constexpr int KB_BWD_PLANES = 12;   // lum n0 n1 n2 z isd2 zg0 zg1 u0 u1 u2 uv
+constexpr size_t kBf16BwdMaxStaged = 200 * 1024;
+
+struct BwdPixBf16 {
+    __nv_bfloat16 a[KB_BWD_PLANES];
+};
+
+__device__ __forceinline__ BwdPixBf16 bwd_centre_bf16(
+    const float* __restrict__ color, const float* __restrict__ normal,
+    const float* __restrict__ depth, const float* __restrict__ zgrad,
+    const float* __restrict__ sden, const float* __restrict__ norm,
+    const float* __restrict__ gc, const float* __restrict__ gv, int H, int W,
+    int y, int x) {
+    BwdPixBf16 v;
+    if (y < 0 || y >= H || x < 0 || x >= W) {
+        const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+#pragma unroll
+        for (int q = 0; q < KB_BWD_PLANES; ++q) v.a[q] = zero;
+        return v;
+    }
+    const int hw = H * W, i = y * W + x;
+    const float inv_n = 1.0f / fmaxf(norm[i], kEps);
+    const float vals[KB_BWD_PLANES] = {
+        luma(color, i, hw), normal[i], normal[hw + i], normal[2 * hw + i],
+        depth[i], kLog2e / fmaxf(sden[i], kEps), zgrad[i], zgrad[hw + i],
+        gc[i] * inv_n, gc[hw + i] * inv_n, gc[2 * hw + i] * inv_n,
+        gv[i] * (inv_n * inv_n)};
+#pragma unroll
+    for (int q = 0; q < KB_BWD_PLANES; ++q)
+        v.a[q] = __float2bfloat16_rn(vals[q]);
+    return v;
+}
+
+template <int R, bool STAGED>
+__global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
+    const float* __restrict__ color, const float* __restrict__ normal,
+    const float* __restrict__ depth, const float* __restrict__ zgrad,
+    const float* __restrict__ sden, const float* __restrict__ norm,
+    const float* __restrict__ gc, const float* __restrict__ gv,
+    float* __restrict__ dc, float* __restrict__ dv, AtrousParams p,
+    AtrousBf16 kb, const float* __restrict__ wide_taps) {
+    constexpr bool WIDE = R < 0;
+    const int H = p.H, W = p.W, hw = H * W;
+    const int r = WIDE ? p.radius : R;
+    const Lattice<K14_TW, K14_TR> L(p.spacing, r);
+    const Bf16K k = bf16_k(kb);
+    const int tx = threadIdx.x;
+
+    extern __shared__ float4 smem[];
+    __nv_bfloat16* s_b = (__nv_bfloat16*)smem;
+    const int n = L.sw * L.sh;
+    if (STAGED) {
+        const int tid = threadIdx.y * KB_TX + tx;
+        for (int j = tid / K14_TW; j < L.sh; j += KB_TX * KB_TY / K14_TW) {
+            const int y = L.row(j);
+            for (int c = tid % K14_TW; c < L.sw; c += K14_TW) {
+                const BwdPixBf16 v = bwd_centre_bf16(
+                    color, normal, depth, zgrad, sden, norm, gc, gv, H, W, y,
+                    L.col(c));
+                const int e = j * L.sw + c;
+#pragma unroll
+                for (int q = 0; q < KB_BWD_PLANES; ++q)
+                    s_b[q * n + e] = v.a[q];
+            }
+        }
+        __syncthreads();
+    }
+
+    const int kl = threadIdx.y;
+    const int y = L.out_row(kl), x = L.x0 + 2 * tx;
+    if (y >= H || x >= W) return;
+    const bool in1 = x + 1 < W;
+    const int i = y * W + x;
+    // the outputs' own luminance, normal and depth (staged at d = 0)
+    bf2 own[5];
+    if (STAGED) {
+        const int e = L.at(kl, 2 * tx, 0, 0);
+#pragma unroll
+        for (int q = 0; q < 5; ++q)
+            own[q] = lds_pair(s_b + q * n, e, e & 1);
+    } else {
+        const BwdPixBf16 a = bwd_centre_bf16(color, normal, depth, zgrad,
+                                             sden, norm, gc, gv, H, W, y, x);
+        const BwdPixBf16 b = bwd_centre_bf16(color, normal, depth, zgrad,
+                                             sden, norm, gc, gv, H, W, y,
+                                             x + 1);
+#pragma unroll
+        for (int q = 0; q < 5; ++q)
+            own[q] = __halves2bfloat162(a.a[q], b.a[q]);
+    }
+
+    float a00 = 0.0f, a01 = 0.0f, a02 = 0.0f, av0 = 0.0f;
+    float a10 = 0.0f, a11 = 0.0f, a12 = 0.0f, av1 = 0.0f;
+#pragma unroll
+    for (int dy = -r; dy <= r; ++dy) {
+        const int oy = dy * L.s;
+        const int py = y - oy;
+        if (py < 0 || py >= H) continue;
+#pragma unroll
+        for (int dx = -r; dx <= r; ++dx) {
+            const int ox = dx * L.s;
+            // the centres p = x - d of the two lanes
+            const bool m0 = x - ox >= 0 && x - ox < W;
+            const bool m1 = x + 1 - ox >= 0 && x + 1 - ox < W;
+            if (!m0 && !m1) continue;
+            bf2 q[KB_BWD_PLANES];
+            if (STAGED) {
+                const int e = L.at(kl, 2 * tx, -dy, -dx);
+                const bool odd = e & 1;
+#pragma unroll
+                for (int t = 0; t < KB_BWD_PLANES; ++t)
+                    q[t] = lds_pair(s_b + t * n, e, odd);
+            } else {
+                const BwdPixBf16 a = bwd_centre_bf16(
+                    color, normal, depth, zgrad, sden, norm, gc, gv, H, W, py,
+                    x - ox);
+                const BwdPixBf16 b = bwd_centre_bf16(
+                    color, normal, depth, zgrad, sden, norm, gc, gv, H, W, py,
+                    x + 1 - ox);
+#pragma unroll
+                for (int t = 0; t < KB_BWD_PLANES; ++t)
+                    q[t] = __halves2bfloat162(a.a[t], b.a[t]);
+            }
+            const float hy = WIDE ? wide_taps[dy + r] : p.taps[dy + r];
+            const float hx = WIDE ? wide_taps[dx + r] : p.taps[dx + r];
+            const bf2 hfm = tap_hfm(hy, hx, m0, m1);
+            // centre p's weight for its tap d, whose neighbour is x
+            const bf2 dz2 = add2(
+                mul2(k.sz2, __habs2(add2(mul2(q[6], bf2_splat((float)oy)),
+                                         mul2(q[7], bf2_splat((float)ox))))),
+                k.eps2);
+            const float2 dzf = __bfloat1622float2(dz2);
+            const bf2 rz = __floats2bfloat162_rn(__frcp_rn(dzf.x),
+                                                 __frcp_rn(dzf.y));
+            const bf2 wz2 = mul2(neg_abs2(sub2(q[4], own[4])), rz);
+            const bf2 wl2 = mul2(neg_abs2(sub2(q[0], own[0])), q[5]);
+            const bf2 w = mul2(hfm, edge_exp_bf16x2(wz2, wl2, q[1], q[2], q[3],
+                                                    own[1], own[2], own[3],
+                                                    k));
+            const float2 wr = __bfloat1622float2(w);
+            const float2 ww = __bfloat1622float2(mul2(w, w));
+            const float2 u0 = __bfloat1622float2(q[8]);
+            const float2 u1 = __bfloat1622float2(q[9]);
+            const float2 u2 = __bfloat1622float2(q[10]);
+            const float2 uv = __bfloat1622float2(q[11]);
+            a00 = __fmaf_rn(wr.x, u0.x, a00);
+            a01 = __fmaf_rn(wr.x, u1.x, a01);
+            a02 = __fmaf_rn(wr.x, u2.x, a02);
+            av0 = __fmaf_rn(ww.x, uv.x, av0);
+            a10 = __fmaf_rn(wr.y, u0.y, a10);
+            a11 = __fmaf_rn(wr.y, u1.y, a11);
+            a12 = __fmaf_rn(wr.y, u2.y, a12);
+            av1 = __fmaf_rn(ww.y, uv.y, av1);
+        }
+    }
+    dc[i] = a00;
+    dc[hw + i] = a01;
+    dc[2 * hw + i] = a02;
+    dv[i] = av0;
+    if (in1) {
+        dc[i + 1] = a10;
+        dc[hw + i + 1] = a11;
+        dc[2 * hw + i + 1] = a12;
+        dv[i + 1] = av1;
+    }
+}
+
+template <int R, bool STAGED>
+cudaError_t launch_bwd_bf16(const BwdArgs& a, const AtrousParams& p,
+                            const AtrousBf16& kb, size_t bytes,
+                            cudaStream_t s) {
+    auto kernel = atrous_bwd_bf16_kernel<R, STAGED>;
+    static size_t opted = 0;
+    cudaError_t err = allow_smem(kernel, bytes, opted);
+    if (err != cudaSuccess) return err;
+    kernel<<<lattice_grid<K14_TW, K14_TR>(p.H, p.W, p.spacing),
+             dim3(KB_TX, KB_TY), bytes, s>>>(
+        a.color, a.normal, a.depth, a.zgrad, a.sden, a.norm, a.gc, a.gv,
+        a.dc, a.dv, p, kb, a.wide_taps);
+    return cudaGetLastError();
+}
+
 // K9's inputs.
 struct WgradIn {
     const float *color, *var, *normal, *depth, *zgrad, *sden, *out_c, *out_v,
@@ -966,6 +1164,54 @@ extern "C" int rdt_atrous_bwd(const float* color, const float* normal,
         case 2: err = staged ? launch_bwd_tile<2, true>(a, p, tile, s)
                              : launch_bwd_tile<2, false>(a, p, tile, s);
             break;
+        default: err = cudaErrorInvalidValue;
+        }
+    }
+    return (int)err;
+}
+
+// K1b's bf16 form: n_out always, w_out null or float weights (h*2^arg,
+// exact in float32); bf16 holds the bf16 constants; whole frame only.
+extern "C" int rdt_atrous_level_bf16(const float* color, const float* var,
+                                     const float* normal, const float* depth,
+                                     const float* zgrad, const float* sden,
+                                     float* color_out, float* var_out,
+                                     float* w_out, float* n_out,
+                                     const AtrousParams* params,
+                                     const AtrousBf16* bf16,
+                                     const float* wide_taps, void* stream) {
+    const LevelArgs a{color, var, normal, depth, zgrad, sden, color_out,
+                      var_out, w_out, n_out, 1, params, nullptr, wide_taps,
+                      (cudaStream_t)stream};
+    return (int)launch_level_bf16(a, *bf16);
+}
+
+// K14's bf16 form, whole frame; bf16 and wide_taps as above.
+extern "C" int rdt_atrous_bwd_bf16(const float* color, const float* normal,
+                                   const float* depth, const float* zgrad,
+                                   const float* sden, const float* norm,
+                                   const float* gc, const float* gv,
+                                   float* dc, float* dv,
+                                   const AtrousParams* params,
+                                   const AtrousBf16* bf16,
+                                   const float* wide_taps, void* stream) {
+    const BwdArgs a{color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv,
+                    wide_taps};
+    const AtrousParams& p = *params;
+    const cudaStream_t s = (cudaStream_t)stream;
+    const size_t staged = lattice_entries<K14_TW, K14_TR>(p.spacing,
+                                                          p.radius)
+                          * KB_BWD_PLANES * sizeof(__nv_bfloat16);
+    cudaError_t err;
+    if (wide_taps) {
+        err = staged <= kBf16BwdMaxStaged
+                  ? launch_bwd_bf16<-1, true>(a, p, *bf16, staged, s)
+                  : launch_bwd_bf16<-1, false>(a, p, *bf16, 0, s);
+    } else {
+        switch (p.radius) {
+        case 0: err = launch_bwd_bf16<0, true>(a, p, *bf16, staged, s); break;
+        case 1: err = launch_bwd_bf16<1, true>(a, p, *bf16, staged, s); break;
+        case 2: err = launch_bwd_bf16<2, true>(a, p, *bf16, staged, s); break;
         default: err = cudaErrorInvalidValue;
         }
     }

@@ -63,6 +63,18 @@ struct LevelArgs {
 template <int R>
 cudaError_t launch_level_radius(const LevelArgs& a);
 
+// The constants of K1b's and K14's bf16 forms (ops.atrous.bf16_constants),
+// passed by pointer beside AtrousParams (which stays as it is): each a
+// float that bfloat16 represents exactly, rounded from the double on the
+// host as the JAX package rounds its Python constants.
+struct AtrousBf16 {
+    float l0, l1, l2, ln2, sixth, floor, sz2, eps2, c_s1, c_s2;
+};
+
+// K1b's bf16 form (atrous_level.cuh, instantiated in atrous_level_bf16.cu):
+// a.sden and a.n_out set, a.w_out null or float weights, no tile.
+cudaError_t launch_level_bf16(const LevelArgs& a, const AtrousBf16& kb);
+
 namespace {
 
 constexpr float kEps = 1e-8f;
@@ -197,6 +209,109 @@ size_t lattice_entries(int spacing, int radius) {
     if (radius < 0) return 0;
     const int sp = spacing < TW ? spacing : TW;
     return (size_t)(TW + 2 * radius * sp) * (TR + 2 * radius);
+}
+
+// ---------------------------------------------------------------------
+// The bf16 forms (K1b, K14 with precision="bf16"): two horizontally
+// adjacent pixels a thread, one in each lane of an __nv_bfloat162, every
+// operation rounded once to bfloat16 as the TPU kernel's bf16 body rounds
+// it (PTX add/sub/mul .rn.bf16x2, which are never contracted into an fma).
+using bf2 = __nv_bfloat162;
+// Their block: 32 pairs of columns by 8 lattice rows (Lattice<64, 8>).
+constexpr int KB_TX = 32, KB_TY = 8;
+
+__device__ __forceinline__ unsigned bf2_bits(bf2 a) {
+    return *reinterpret_cast<unsigned*>(&a);
+}
+__device__ __forceinline__ bf2 bf2_of(unsigned u) {
+    return *reinterpret_cast<bf2*>(&u);
+}
+__device__ __forceinline__ bf2 add2(bf2 a, bf2 b) {
+    unsigned d;
+    asm("add.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bf2_bits(a)),
+        "r"(bf2_bits(b)));
+    return bf2_of(d);
+}
+__device__ __forceinline__ bf2 sub2(bf2 a, bf2 b) {
+    unsigned d;
+    asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bf2_bits(a)),
+        "r"(bf2_bits(b)));
+    return bf2_of(d);
+}
+__device__ __forceinline__ bf2 mul2(bf2 a, bf2 b) {
+    unsigned d;
+    asm("mul.rn.bf16x2 %0, %1, %2;" : "=r"(d) : "r"(bf2_bits(a)),
+        "r"(bf2_bits(b)));
+    return bf2_of(d);
+}
+// -|a| (exact)
+__device__ __forceinline__ bf2 neg_abs2(bf2 a) {
+    return bf2_of(bf2_bits(a) | 0x80008000u);
+}
+__device__ __forceinline__ bf2 bf2_splat(float x) {
+    return __float2bfloat162_rn(x);
+}
+
+// The bf16 constants as lane pairs, and 1/2 and 1.
+struct Bf16K {
+    bf2 l0, l1, l2, ln2, sixth, floor, sz2, eps2, c_s1, c_s2, half, one;
+};
+
+__device__ __forceinline__ Bf16K bf16_k(const AtrousBf16& b) {
+    return Bf16K{bf2_splat(b.l0), bf2_splat(b.l1), bf2_splat(b.l2),
+                 bf2_splat(b.ln2), bf2_splat(b.sixth), bf2_splat(b.floor),
+                 bf2_splat(b.sz2), bf2_splat(b.eps2), bf2_splat(b.c_s1),
+                 bf2_splat(b.c_s2), bf2_splat(0.5f), bf2_splat(1.0f)};
+}
+
+// 2^y in bfloat16, y <= 0 (the TPU kernel's _exp2_fast_bf16,
+// ops.atrous.exp2_fast_bf16): y clamped at -1e4 (its bf16 value), i =
+// floor(y + 1/2), the degree-3 Taylor polynomial at z = (y - i)*ln2, times
+// 2^i built in the bf16 bit layout (exponent i + 127, i in [-126, 127]).
+__device__ __forceinline__ bf2 exp2_fast_bf16x2(bf2 y, const Bf16K& k) {
+    y = __hmax2(y, k.floor);
+    const bf2 yi = h2floor(add2(y, k.half));
+    const bf2 z = mul2(sub2(y, yi), k.ln2);
+    bf2 p = add2(k.half, mul2(z, k.sixth));
+    p = add2(k.one, mul2(z, p));
+    p = add2(k.one, mul2(z, p));
+    const float2 yf = __bfloat1622float2(yi);
+    const int i0 = max(-126, min(127, (int)yf.x));
+    const int i1 = max(-126, min(127, (int)yf.y));
+    const unsigned two_i = ((unsigned)(i0 + 127) << 7)
+                           | ((unsigned)(i1 + 127) << 23);
+    return mul2(p, bf2_of(two_i));
+}
+
+// The bf16 tap weight's exponential, 2^(wz2 + wl2 - (c1*s + c2*s^2)) with
+// s = |n_a - n_b|^2 (the exp-form normal weight; edge_weight's bf16
+// branch, in its operation order).  The weight is hfm times it.
+__device__ __forceinline__ bf2 edge_exp_bf16x2(bf2 wz2, bf2 wl2, bf2 a0,
+                                               bf2 a1, bf2 a2, bf2 b0,
+                                               bf2 b1, bf2 b2,
+                                               const Bf16K& k) {
+    const bf2 d0 = sub2(a0, b0), d1 = sub2(a1, b1), d2 = sub2(a2, b2);
+    const bf2 s = add2(add2(mul2(d0, d0), mul2(d1, d1)), mul2(d2, d2));
+    const bf2 arg = sub2(add2(wz2, wl2),
+                         add2(mul2(k.c_s1, s), mul2(k.c_s2, mul2(s, s))));
+    return exp2_fast_bf16x2(arg, k);
+}
+
+// hfm of a tap for the two lanes: h = h_y*h_x in bf16 where the lane's
+// tap lies in the frame (m0, m1), else +0.
+__device__ __forceinline__ bf2 tap_hfm(float hy, float hx, bool m0, bool m1) {
+    const bf2 h = mul2(bf2_splat(hy), bf2_splat(hx));
+    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+    return __halves2bfloat162(m0 ? __low2bfloat16(h) : zero,
+                              m1 ? __high2bfloat16(h) : zero);
+}
+
+// A pair of adjacent bf16 entries of a staged plane: one 4-byte load where
+// the pair is aligned, else two.
+__device__ __forceinline__ bf2 lds_pair(const __nv_bfloat16* plane, int e,
+                                        bool odd) {
+    if (!odd) return *reinterpret_cast<const bf2*>(plane + e);
+    return __halves2bfloat162(plane[e], plane[e + 1]);
 }
 
 // Raise a kernel's dynamic shared-memory limit to ``bytes`` (the default

@@ -327,6 +327,265 @@ cudaError_t launch_level_store(const LevelArgs& a) {
     return cudaErrorNotSupported;
 }
 
+// ---------------------------------------------------------------------
+// K1b's bf16 form (precision="bf16"; the TPU kernel _make_level_kernel(
+// mode="fwd", dtype=jnp.bfloat16) as called by atrous_level_fwd_pallas).
+// Plain twin: atrous_level_ref(..., precision="bf16") in ops/atrous.py.
+//
+// Design: K1's row-lattice tile (Lattice<64, 8>: 64 columns by 8 lattice
+// rows of one residue modulo the spacing), 32 x 8 threads, each computing
+// the two horizontally adjacent pixels (x, x + 1) of one lattice row in
+// the two lanes of an __nv_bfloat162.  A block stages once per pixel of
+// its tile and halo the nine bf16 values a tap reads (colour, variance,
+// luminance, normal, depth), rounded from the f32 planes as they are
+// loaded (no separate cast pass over the planes), 18 B a pixel as nine
+// planes, so a tap reads nine lane pairs: one 4-byte load each where the
+// pair is aligned (spacing >= 2; at spacing 1 every other dx), else two.
+// The tap math then runs on both pixels at once in packed bf16 (PTX
+// add/sub/mul.rn.bf16x2: each operation rounded once, as the TPU body
+// rounds it; no fma where it rounds twice); the depth weight's scale rz =
+// 1/(sz2*|dz.d| + eps2) is a true float32 division a lane, rounded to
+// bf16 (the TPU kernel's Newton reciprocal from a bf16 seed differs by
+// ~2^-16 before that rounding; the twin divides as the kernel does), and
+// shared between a tap and its mirror (the same expression).  Sums are
+// float32: each lane's weight times its neighbour's value is exact in
+// float32 and enters by one fma (the JAX kernel keeps these products
+// unrounded: XLA drops their bf16 round trip into the float32 sum; w*w is
+// rounded), N adds the weight's exact float32 value h*2^arg.  The end is
+// float32: N = max(N, eps), c = sum*(1/N), v = sum_v*(1/N)^2, true
+// division.  Bound: memory as K1b's f32 form, 64 B/px (the planes are read
+// as f32 and rounded on staging); the lever over it is the instruction
+// count (two pixels an instruction in the tap math).  R: 0, 1, 2 at
+// compile time, or -1: any radius, taps from wide_taps; STAGED false (a
+// WIDE tile above kBf16MaxStaged): each tap reads its two neighbours
+// through the caches and rounds them there.
+constexpr int KB_FWD_PLANES = 9;         // c0 c1 c2 v lum n0 n1 n2 z
+constexpr size_t kBf16MaxStaged = 200 * 1024;
+
+// One pixel's bf16 values for the forward's taps; zero outside the frame.
+struct FwdPixBf16 {
+    __nv_bfloat16 a[KB_FWD_PLANES];
+};
+
+__device__ __forceinline__ FwdPixBf16 fwd_pixel_bf16(
+    const float* __restrict__ color, const float* __restrict__ var,
+    const float* __restrict__ normal, const float* __restrict__ depth,
+    int H, int W, int y, int x, const Bf16K& k) {
+    FwdPixBf16 v;
+    if (y < 0 || y >= H || x < 0 || x >= W) {
+        const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+#pragma unroll
+        for (int q = 0; q < KB_FWD_PLANES; ++q) v.a[q] = zero;
+        return v;
+    }
+    const int hw = H * W, i = y * W + x;
+    // colour rounded, then its luminance in bf16: (l0*c0 + l1*c1) + l2*c2
+    const bf2 c01 = __floats2bfloat162_rn(color[i], color[hw + i]);
+    const bf2 c2v = __floats2bfloat162_rn(color[2 * hw + i], var[i]);
+    const bf2 lum = add2(add2(mul2(k.l0, __low2bfloat162(c01)),
+                              mul2(k.l1, __high2bfloat162(c01))),
+                         mul2(k.l2, __low2bfloat162(c2v)));
+    const bf2 n01 = __floats2bfloat162_rn(normal[i], normal[hw + i]);
+    const bf2 n2z = __floats2bfloat162_rn(normal[2 * hw + i], depth[i]);
+    v.a[0] = __low2bfloat16(c01);
+    v.a[1] = __high2bfloat16(c01);
+    v.a[2] = __low2bfloat16(c2v);
+    v.a[3] = __high2bfloat16(c2v);
+    v.a[4] = __low2bfloat16(lum);
+    v.a[5] = __low2bfloat16(n01);
+    v.a[6] = __high2bfloat16(n01);
+    v.a[7] = __low2bfloat16(n2z);
+    v.a[8] = __high2bfloat16(n2z);
+    return v;
+}
+
+// The lane pairs of a tap's two neighbours.
+struct FwdPairBf16 {
+    bf2 a[KB_FWD_PLANES];
+};
+
+template <int R, bool STAGED, bool STORE>
+__global__ void __launch_bounds__(KB_TX * KB_TY) level_bf16_kernel(
+    const float* __restrict__ color, const float* __restrict__ var,
+    const float* __restrict__ normal, const float* __restrict__ depth,
+    const float* __restrict__ zgrad, const float* __restrict__ sden,
+    float* __restrict__ color_out, float* __restrict__ var_out,
+    float* __restrict__ w_out, float* __restrict__ n_out, AtrousParams p,
+    AtrousBf16 kb, const float* __restrict__ wide_taps) {
+    constexpr bool WIDE = R < 0;
+    const int H = p.H, W = p.W, hw = H * W;
+    const int r = WIDE ? p.radius : R;
+    const int side = 2 * r + 1;
+    const Lattice<K1_TW, K1_TR> L(p.spacing, r);
+    const Bf16K k = bf16_k(kb);
+    const int tx = threadIdx.x;
+
+    extern __shared__ float4 smem[];
+    __nv_bfloat16* s_b = (__nv_bfloat16*)smem;
+    const int n = L.sw * L.sh;
+    if (STAGED) {
+        const int tid = threadIdx.y * KB_TX + tx;
+        for (int j = tid / K1_TW; j < L.sh; j += KB_TX * KB_TY / K1_TW) {
+            const int y = L.row(j);
+            for (int c = tid % K1_TW; c < L.sw; c += K1_TW) {
+                const FwdPixBf16 v = fwd_pixel_bf16(color, var, normal,
+                                                    depth, H, W, y, L.col(c),
+                                                    k);
+                const int e = j * L.sw + c;
+#pragma unroll
+                for (int q = 0; q < KB_FWD_PLANES; ++q)
+                    s_b[q * n + e] = v.a[q];
+            }
+        }
+        __syncthreads();
+    }
+
+    const int kl = threadIdx.y;
+    const int y = L.out_row(kl), x = L.x0 + 2 * tx;
+    if (y >= H || x >= W) return;
+    const bool in1 = x + 1 < W;
+    const int i = y * W + x;
+    // the pair's own values (the tap d = 0)
+    FwdPairBf16 c;
+    if (STAGED) {
+        const int e = L.at(kl, 2 * tx, 0, 0);
+#pragma unroll
+        for (int q = 0; q < KB_FWD_PLANES; ++q)
+            c.a[q] = lds_pair(s_b + q * n, e, e & 1);
+    } else {
+        const FwdPixBf16 a = fwd_pixel_bf16(color, var, normal, depth, H, W,
+                                            y, x, k);
+        const FwdPixBf16 b = fwd_pixel_bf16(color, var, normal, depth, H, W,
+                                            y, x + 1, k);
+#pragma unroll
+        for (int q = 0; q < KB_FWD_PLANES; ++q)
+            c.a[q] = __halves2bfloat162(a.a[q], b.a[q]);
+    }
+    const float zg00 = zgrad[i], zg10 = zgrad[hw + i];
+    const float zg01 = in1 ? zgrad[i + 1] : 0.0f;
+    const float zg11 = in1 ? zgrad[hw + i + 1] : 0.0f;
+    const bf2 isd2 = __floats2bfloat162_rn(
+        kLog2e / fmaxf(sden[i], kEps),
+        kLog2e / fmaxf(in1 ? sden[i + 1] : 0.0f, kEps));
+
+    float a00 = 0.0f, a01 = 0.0f, a02 = 0.0f, av0 = 0.0f, den0 = 0.0f;
+    float a10 = 0.0f, a11 = 0.0f, a12 = 0.0f, av1 = 0.0f, den1 = 0.0f;
+#pragma unroll
+    for (int dy = -r; dy <= r; ++dy) {
+        const int oy = dy * L.s;
+        const bool rin = y + oy >= 0 && y + oy < H;
+#pragma unroll
+        for (int dx = -r; dx <= r; ++dx) {
+            const int ox = dx * L.s;
+            const int kidx = ((dy + r) * side + (dx + r)) * hw + i;
+            const bool m0 = rin && x + ox >= 0 && x + ox < W;
+            const bool m1 = rin && x + 1 + ox >= 0 && x + 1 + ox < W;
+            if (!m0 && !m1) {
+                if (STORE) {
+                    w_out[kidx] = 0.0f;
+                    if (in1) w_out[kidx + 1] = 0.0f;
+                }
+                continue;
+            }
+            FwdPairBf16 q;
+            if (STAGED) {
+                const int e = L.at(kl, 2 * tx, dy, dx);
+                const bool odd = e & 1;
+#pragma unroll
+                for (int t = 0; t < KB_FWD_PLANES; ++t)
+                    q.a[t] = lds_pair(s_b + t * n, e, odd);
+            } else {
+                const FwdPixBf16 a = fwd_pixel_bf16(
+                    color, var, normal, depth, H, W, y + oy, x + ox, k);
+                const FwdPixBf16 b = fwd_pixel_bf16(
+                    color, var, normal, depth, H, W, y + oy, x + 1 + ox, k);
+#pragma unroll
+                for (int t = 0; t < KB_FWD_PLANES; ++t)
+                    q.a[t] = __halves2bfloat162(a.a[t], b.a[t]);
+            }
+            const float hy = WIDE ? wide_taps[dy + r] : p.taps[dy + r];
+            const float hx = WIDE ? wide_taps[dx + r] : p.taps[dx + r];
+            const bf2 hfm = tap_hfm(hy, hx, m0, m1);
+            // |dz.d| of a tap and its mirror is one expression
+            const bool pos = dy > 0 || (dy == 0 && dx >= 0);
+            const float ky = (float)(pos ? oy : -oy);
+            const float kx = (float)(pos ? ox : -ox);
+            const float rz0 = 1.0f / (p.sz2 * fabsf(zg00 * ky + zg10 * kx)
+                                      + p.eps2);
+            const float rz1 = 1.0f / (p.sz2 * fabsf(zg01 * ky + zg11 * kx)
+                                      + p.eps2);
+            const bf2 rz = __floats2bfloat162_rn(rz0, rz1);
+            const bf2 wl2 = mul2(neg_abs2(sub2(c.a[4], q.a[4])), isd2);
+            const bf2 wz2 = mul2(neg_abs2(sub2(c.a[8], q.a[8])), rz);
+            const bf2 e2 = edge_exp_bf16x2(wz2, wl2, c.a[5], c.a[6], c.a[7],
+                                           q.a[5], q.a[6], q.a[7], k);
+            const bf2 w = mul2(hfm, e2);
+            const float2 hf = __bfloat1622float2(hfm);
+            const float2 ef = __bfloat1622float2(e2);
+            // h*2^arg exact in float32: N's addend and the stored weight
+            const float wf0 = hf.x * ef.x, wf1 = hf.y * ef.y;
+            if (STORE) {
+                w_out[kidx] = wf0;
+                if (in1) w_out[kidx + 1] = wf1;
+            }
+            den0 = den0 + wf0;
+            den1 = den1 + wf1;
+            const float2 wr = __bfloat1622float2(w);
+            const float2 ww = __bfloat1622float2(mul2(w, w));
+            const float2 q0 = __bfloat1622float2(q.a[0]);
+            const float2 q1 = __bfloat1622float2(q.a[1]);
+            const float2 q2 = __bfloat1622float2(q.a[2]);
+            const float2 qv = __bfloat1622float2(q.a[3]);
+            a00 = __fmaf_rn(wr.x, q0.x, a00);
+            a01 = __fmaf_rn(wr.x, q1.x, a01);
+            a02 = __fmaf_rn(wr.x, q2.x, a02);
+            av0 = __fmaf_rn(ww.x, qv.x, av0);
+            a10 = __fmaf_rn(wr.y, q0.y, a10);
+            a11 = __fmaf_rn(wr.y, q1.y, a11);
+            a12 = __fmaf_rn(wr.y, q2.y, a12);
+            av1 = __fmaf_rn(ww.y, qv.y, av1);
+        }
+    }
+    den0 = fmaxf(den0, kEps);
+    const float inv0 = 1.0f / den0;
+    color_out[i] = a00 * inv0;
+    color_out[hw + i] = a01 * inv0;
+    color_out[2 * hw + i] = a02 * inv0;
+    var_out[i] = av0 * (inv0 * inv0);
+    n_out[i] = den0;
+    if (in1) {
+        den1 = fmaxf(den1, kEps);
+        const float inv1 = 1.0f / den1;
+        color_out[i + 1] = a10 * inv1;
+        color_out[hw + i + 1] = a11 * inv1;
+        color_out[2 * hw + i + 1] = a12 * inv1;
+        var_out[i + 1] = av1 * (inv1 * inv1);
+        n_out[i + 1] = den1;
+    }
+}
+
+template <int R, bool STAGED, bool STORE>
+cudaError_t launch_level_bf16_kernel(const LevelArgs& a,
+                                     const AtrousBf16& kb, size_t bytes) {
+    const AtrousParams& p = *a.params;
+    auto kernel = level_bf16_kernel<R, STAGED, STORE>;
+    static size_t opted = 0;
+    cudaError_t err = allow_smem(kernel, bytes, opted);
+    if (err != cudaSuccess) return err;
+    kernel<<<lattice_grid<K1_TW, K1_TR>(p.H, p.W, p.spacing),
+             dim3(KB_TX, KB_TY), bytes, a.stream>>>(
+        a.color, a.var, a.normal, a.depth, a.zgrad, a.sden, a.color_out,
+        a.var_out, (float*)a.w_out, a.n_out, p, kb, a.wide_taps);
+    return cudaGetLastError();
+}
+
+template <int R, bool STAGED>
+cudaError_t launch_level_bf16_store(const LevelArgs& a, const AtrousBf16& kb,
+                                    size_t bytes) {
+    return a.w_out ? launch_level_bf16_kernel<R, STAGED, true>(a, kb, bytes)
+                   : launch_level_bf16_kernel<R, STAGED, false>(a, kb, bytes);
+}
+
 }  // namespace
 
 template <int R>

@@ -190,7 +190,8 @@ def svgf_spatial_local(color, variance, normal, depth, Hg: int, Wg: int, *,
         raise ValueError(f"unknown bwd_impl: {bwd_impl!r}")
     th, tw = depth.shape
     if params.pyramid_from is not None:
-        raise NotImplementedError("pyramid_from is not ported")
+        raise NotImplementedError(
+            "pyramid_from is an unsharded plain-path experiment only")
     if bwd_impl == "auto":
         bwd_impl = ("stored" if params.luma_only_from is not None
                     else "recompute")

@@ -19,12 +19,18 @@ the digit; the gate holds the thresholds of ``tests/test_quality.py``
 
     python -m raymarchdenoisercuda_torch.utils.denoise_quality \\
         [--size 256 --frames 16 --spp-ref 1024 --iters 5 --radius 2
-         --luma-from N --wmath exact|fast --impl cuda|cpu
+         --luma-from N --pyramid-from N --wmath exact|fast
+         --impl cuda|cpu|reference --svgf-impl auto|plain
          --scene cornell|clutter --clutter-seed 5]
 
 prints one JSON line.  ``--impl`` picks the device (default the card;
-``cpu`` runs the plain PyTorch versions, the JAX tool's ``reference``);
-``--pyramid-from`` is not ported (it raises).
+``cpu`` runs the kernel wrappers' plain twins; ``reference``, the JAX
+tool's name, is the plain path on the CPU); ``--svgf-impl`` the
+denoiser's path (``svgf_denoise_frame``'s ``impl``: ``auto``, the kernel
+wrappers, or ``plain``, the plain PyTorch sweep with autograd, on either
+device).  ``--pyramid-from`` (half-resolution deep levels) runs on the
+plain path only, as in the JAX tool (``impl="reference"``); the kernel
+path refuses it.
 """
 
 from __future__ import annotations
@@ -131,29 +137,23 @@ def render_sequence(size: int = 256, frames: int = 16, spp_ref: int = 1024,
                     f"{size}^2 ({device.type}, {scene_kind})")
 
 
-def _no_pyramid(pyramid_from):
-    if pyramid_from is not None:
-        raise NotImplementedError(
-            "pyramid_from is not ported: it failed the two-scene quality "
-            "gate in the JAX package")
-
-
 def score(seq: Sequence, iterations: int = 5, radius: int = 2,
           weight_math: str = "exact", luma_only_from: Optional[int] = None,
-          pyramid_from: Optional[int] = None) -> Dict:
-    """``svgf_denoise_frame`` over the sequence's noisy frames from an empty
-    history; the mean PSNR and SSIM of input and output against the
-    references (the JAX tool's keys and rounding)."""
-    _no_pyramid(pyramid_from)
+          pyramid_from: Optional[int] = None, impl: str = "auto") -> Dict:
+    """``svgf_denoise_frame(impl=impl)`` over the sequence's noisy frames
+    from an empty history; the mean PSNR and SSIM of input and output
+    against the references (the JAX tool's keys and rounding).
+    ``pyramid_from`` needs ``impl="plain"`` (the kernel path raises)."""
     sv = SVGFParams(iterations=iterations, radius=radius,
-                    luma_only_from=luma_only_from)
+                    luma_only_from=luma_only_from, pyramid_from=pyramid_from)
     H, W = seq.frames[0].depth.shape
     hist = History.zeros(H, W, device=seq.frames[0].depth.device)
     m = {k: [] for k in ("in_psnr", "out_psnr", "in_ssim", "out_ssim")}
     with torch.no_grad():
         for f, g in enumerate(seq.frames):
             out, hist = svgf_denoise_frame(g, hist, params=sv,
-                                           weight_math=weight_math)
+                                           weight_math=weight_math,
+                                           impl=impl)
             if f < seq.warmup:
                 continue
             tgt = seq.refs[f]
@@ -168,7 +168,9 @@ def score(seq: Sequence, iterations: int = 5, radius: int = 2,
         "metric": f"denoiser quality vs {seq.label}, r{radius} "
                   f"{iterations} iterations, {weight_math} weights"
                   + (f", luma-only from {luma_only_from}"
-                     if luma_only_from is not None else ""),
+                     if luma_only_from is not None else "")
+                  + (f", half resolution from {pyramid_from}"
+                     if pyramid_from is not None else ""),
         "input_psnr_db": round(mean["in_psnr"], 2),
         "output_psnr_db": round(mean["out_psnr"], 2),
         "psnr_gain_db": round(mean["out_psnr"] - mean["in_psnr"], 2),
@@ -180,15 +182,19 @@ def score(seq: Sequence, iterations: int = 5, radius: int = 2,
 def run_eval(size=256, frames=16, spp_ref=1024, warmup=4, impl=None,
              iterations=5, radius=2, weight_math="exact",
              luma_only_from=None, scene_kind="cornell", pyramid_from=None,
-             clutter_seed=5) -> Dict:
+             clutter_seed=5, svgf_impl="auto") -> Dict:
     """:func:`render_sequence`, then :func:`score`; ``impl`` is the device
     ("cuda", "cpu"; None: the card; the JAX tool's "reference" is the
-    CPU's plain path)."""
-    _no_pyramid(pyramid_from)
-    device = "cpu" if impl == "reference" else impl
+    plain path on the CPU), ``svgf_impl`` the denoiser's path ("auto" or
+    "plain"; "plain" with ``impl="reference"``)."""
+    if impl == "reference":
+        device, svgf_impl = "cpu", "plain"
+    else:
+        device = impl
     seq = render_sequence(size, frames, spp_ref, warmup, scene_kind,
                           clutter_seed, device=device)
-    return score(seq, iterations, radius, weight_math, luma_only_from)
+    return score(seq, iterations, radius, weight_math, luma_only_from,
+                 pyramid_from, impl=svgf_impl)
 
 
 def main(argv=None) -> int:
@@ -207,7 +213,10 @@ def main(argv=None) -> int:
     ap.add_argument("--scene", default="cornell",
                     choices=["cornell", "clutter"])
     ap.add_argument("--pyramid-from", type=int, default=None,
-                    help="not ported: raises")
+                    help="half-resolution levels from N (needs the plain "
+                         "path: --svgf-impl plain or --impl reference)")
+    ap.add_argument("--svgf-impl", default="auto", choices=["auto", "plain"],
+                    help="the denoiser's path (svgf_denoise_frame's impl)")
     ap.add_argument("--clutter-seed", type=int, default=5)
     args = ap.parse_args(argv)
     print(json.dumps(run_eval(
@@ -215,7 +224,8 @@ def main(argv=None) -> int:
         warmup=args.warmup, impl=args.impl, iterations=args.iters,
         radius=args.radius, weight_math=args.wmath,
         luma_only_from=args.luma_from, scene_kind=args.scene,
-        pyramid_from=args.pyramid_from, clutter_seed=args.clutter_seed)))
+        pyramid_from=args.pyramid_from, clutter_seed=args.clutter_seed,
+        svgf_impl=args.svgf_impl)))
     return 0
 
 

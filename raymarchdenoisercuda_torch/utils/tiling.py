@@ -1,0 +1,129 @@
+"""Analytical à-trous tiling and memory model of the port's kernels.
+
+Counterpart of ``raymarchdenoisercuda_tpu/utils/tiling.py`` (the
+reference's design notebook, ``notebooks/tile.ipynb`` cells 197-205, in
+code): dilation spacing, halo radius and tile extent are the same
+functions; the memory budgets are the port's own.
+
+* :func:`smem_budget`: the shared memory a block of the level kernels
+  stages a level.  K1/K1b (``ops/cuda/atrous_level.cuh``), K14 and the
+  bf16 forms lay a row-lattice tile over the frame: at spacing s = 2^level
+  a block owns 64 columns by 8 lattice rows of one residue modulo s (image
+  rows rho + s·k), whose taps lie on the same lattice, so it stages
+  ``8 + 2r`` lattice rows by ``64 + 2r·min(s, 64)`` columns (``Lattice``
+  and ``lattice_entries`` in ``ops/cuda/atrous_common.cuh``), times the
+  bytes it keeps a pixel (:data:`STAGED_PIXEL_BYTES`).
+* :func:`halo_budget`: the bytes a rank receives in the sharded sweep's
+  halo exchange (``parallel/halo.py``: rows, then columns of the row-
+  extended tile, so the corners come along) for a level's reach r·2^level.
+
+Numbers here are counts from shapes; none is a measurement.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List
+
+# the level kernels' block tile: columns by lattice rows (K1_TW and K1_TR
+# of atrous_level.cuh, K14_TW and K14_TR of atrous.cu)
+TILE_COLS = 64
+TILE_ROWS = 8
+# bytes a block stages a pixel: K1/K1b (colour and variance, luminance,
+# normal and depth), K1 with luminance-only weights, K14 (normal and
+# depth, u and u2, luminance, sigma, depth gradient), and the bf16 forms
+# (nine and twelve bf16 planes)
+STAGED_PIXEL_BYTES = {"K1": 36, "K1 luma-only": 20, "K14": 48,
+                      "K1b bf16": 18, "K14 bf16": 24}
+# the shared memory a block may use on an H100 (227 KB)
+SMEM_PER_BLOCK = 232448
+
+
+def spacing(level: int) -> int:
+    """À-trous hole size at ``level`` (SVGF convention: 2^level; the
+    notebook's ``space(n) = 2^(n-1)`` with n from 1)."""
+    return 1 << level
+
+
+def halo_radius(radius: int, level: int) -> int:
+    """Pixels of halo a level-``level`` pass needs beyond a tile edge."""
+    return radius * spacing(level)
+
+
+def tile_extent(radius: int, level: int, block: int) -> int:
+    """Full extent of a block's input window (the notebook's ``tileRad``)."""
+    return 2 * halo_radius(radius, level) + block
+
+
+@dataclasses.dataclass(frozen=True)
+class LevelBudget:
+    level: int
+    spacing: int
+    halo: int
+    staged_rows: int        # lattice rows a block stages (its 8 and halo)
+    staged_cols: int        # columns a block stages (its 64 and halo)
+    smem_bytes: int         # shared memory a block stages
+    halo_bytes: int         # halo-exchange bytes a rank (sharded sweep)
+
+
+def staged_tile(radius: int, level: int):
+    """(lattice rows, columns) of a level kernel block's staged tile."""
+    sp = min(spacing(level), TILE_COLS)
+    return TILE_ROWS + 2 * radius, TILE_COLS + 2 * radius * sp
+
+
+def smem_budget(radius: int, levels: int,
+                kernel: str = "K1") -> List[LevelBudget]:
+    """Per-level shared memory of one block of ``kernel`` (a key of
+    :data:`STAGED_PIXEL_BYTES`)."""
+    px = STAGED_PIXEL_BYTES[kernel]
+    out = []
+    for lvl in range(levels):
+        rows, cols = staged_tile(radius, lvl)
+        out.append(LevelBudget(
+            level=lvl, spacing=spacing(lvl), halo=halo_radius(radius, lvl),
+            staged_rows=rows, staged_cols=cols,
+            smem_bytes=rows * cols * px, halo_bytes=0))
+    return out
+
+
+def halo_budget(tile_h: int, tile_w: int, radius: int, levels: int,
+                n_planes: int = 9, dtype_bytes: int = 4) -> List[LevelBudget]:
+    """Per-level halo-exchange bytes a rank receives for a (tile_h, tile_w)
+    tile: 2h rows of the tile's width, then 2h columns of the row-extended
+    height (corners included), ``n_planes`` planes of ``dtype_bytes``."""
+    out = []
+    for lvl in range(levels):
+        h = halo_radius(radius, lvl)
+        cells = 2 * h * tile_w + 2 * h * (tile_h + 2 * h)
+        out.append(LevelBudget(
+            level=lvl, spacing=spacing(lvl), halo=h,
+            staged_rows=tile_h + 2 * h, staged_cols=tile_w + 2 * h,
+            smem_bytes=0, halo_bytes=n_planes * cells * dtype_bytes))
+    return out
+
+
+def print_model(width: int = 1920, height: int = 1080, radius: int = 2,
+                levels: int = 5, kernel: str = "K1") -> None:
+    """Human-readable dump (the notebook's printed tables): per level, the
+    staged tile and shared memory of a block of ``kernel``, the blocks a
+    frame launches and how many fit an SM by shared memory, and the halo
+    bytes a rank of a 2x2 mesh receives."""
+    th, tw = -(-height // 2), -(-width // 2)
+    halo = halo_budget(th, tw, radius, levels)
+    print(f"à-trous model: {width}x{height}, r={radius}, {kernel} block "
+          f"{TILE_COLS} columns x {TILE_ROWS} lattice rows")
+    for b, x in zip(smem_budget(radius, levels, kernel), halo):
+        s = b.spacing
+        blocks = (-(-width // TILE_COLS)
+                  * -(-(-(-height // s)) // TILE_ROWS) * min(s, height))
+        print(f"  level {b.level}: spacing {s:2d}, halo {b.halo:3d}, "
+              f"staged {b.staged_rows:2d} x {b.staged_cols:3d}, "
+              f"{b.smem_bytes / 1024:6.1f} KB a block "
+              f"({SMEM_PER_BLOCK // b.smem_bytes} an SM by shared memory), "
+              f"{blocks} blocks; halo {x.halo_bytes / 2**20:.2f} MiB a rank "
+              f"of 2x2 ({th}x{tw} tiles)")
+
+
+if __name__ == "__main__":
+    print_model()

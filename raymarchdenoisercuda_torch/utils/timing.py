@@ -7,8 +7,8 @@ falls back to the CPU: a function given the card and finding none raises.
 the work runs on the CPU.
 
 Counterpart of ``raymarchdenoisercuda_tpu/utils/timing.py`` (the
-reference's per-test timing, ``printGPUProperties`` and CSV dumps, and
-:func:`trace`, the profiler trace of a block of work).
+reference's per-test timing, :class:`Timer`, ``printGPUProperties`` and
+CSV dumps, and :func:`trace`, the profiler trace of a block of work).
 """
 
 from __future__ import annotations
@@ -21,6 +21,39 @@ import time
 from typing import Callable
 
 import torch
+
+
+class Timer:
+    """Wall-clock timer of a block of work (``with Timer() as t: ...``, then
+    ``t.ms``), the JAX package's ``Timer``: on exit it waits for the card's
+    outstanding work first (PyTorch returns before the device finishes), on
+    the device of the result registered by :meth:`sync`, or on every card
+    when none was; work on the CPU needs no wait.  A host clock: for a
+    kernel's own time use :class:`CudaTimer` or :func:`device_ms`."""
+
+    def __init__(self):
+        self.ms = 0.0
+        self._out = None
+
+    def sync(self, out):
+        """Register the work's result to wait on at exit; returns it."""
+        self._out = out
+        return out
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            out = self._out
+            if isinstance(out, torch.Tensor):
+                if out.is_cuda:
+                    torch.cuda.synchronize(out.device)
+            elif torch.cuda.is_available():
+                torch.cuda.synchronize()
+        self.ms = (time.perf_counter() - self._t0) * 1e3
+        return False
 
 
 class CudaTimer:

@@ -2031,3 +2031,133 @@ def test_compiled_scene_launches_on_concurrent_streams(dev):
                     want = alone[launch.__name__.upper(), k]
                     for u, v in zip(out, want):
                         assert torch.equal(u, v), (name, x, j)
+
+
+# precision="bf16": K1b's and K14's bfloat16 forms against their twins,
+# which run the same bf16 operations in the same order (PyTorch rounds
+# each bf16 operation once, as the kernels' PTX .rn.bf16x2 operations
+# do): bit-equal but where a weight-times-value product falls below
+# float32's normal range, where the kernel's fma and the twin's product
+# and sum may round the sum apart by one float32 ulp.
+BF16_SHAPES = [(37, 53), (20, 20), (1080, 1920)]
+
+
+def _assert_bf16_twin(got, want, name):
+    """Equal to one float32 ulp of the twin (rtol 2^-23, atol 1e-37)."""
+    d = (got.float() - want.float()).abs()
+    bad = d > 1e-37 + 2.0 ** -23 * want.float().abs()
+    assert not bool(bad.any()), (
+        f"{name}: {int(bad.sum())} of {bad.numel()} elements differ, max "
+        f"{float(d.max()):.3g}")
+    assert bool(torch.isfinite(got).all()), name
+
+
+@pytest.mark.parametrize("radius", RADII)
+@pytest.mark.parametrize("shape", BF16_SHAPES,
+                         ids=["37x53", "20x20", "1080p"])
+def test_k1b_k14_bf16_every_level_match_twins(dev, shape, radius):
+    """K1b-bf16 (with N; with its float32 weights too) and K14-bf16 at
+    levels 0-4, an odd width (the last lane pair half outside the frame)
+    included, against the twins; each launch counted on ``.bf16``."""
+    color, var, normal, depth = _planes(dev, 130 + radius, *shape)
+    zgrad = finite_diff_gradients(depth)
+    params = SVGFParams(radius=radius)
+    sd = atrous.sigma_denominator(var, params)
+    g = torch.Generator(dev).manual_seed(radius)
+    gc = torch.randn((3, *shape), generator=g, device=dev)
+    gv = torch.randn(shape, generator=g, device=dev)
+    for level in range(5):
+        kw = dict(level=level, params=params, precision="bf16")
+        f32_before = atrous_level_fwd_cuda.launches
+        before = atrous_level_fwd_cuda.bf16.launches
+        got = atrous_level_fwd_cuda(color, var, normal, depth, zgrad, sd,
+                                    save_weights=True, **kw)
+        assert atrous_level_fwd_cuda.bf16.launches == before + 1
+        assert atrous_level_fwd_cuda.launches == f32_before
+        c0, v0, w0, n0 = atrous.atrous_level_ref(
+            color, var, normal, depth, zgrad, sigma_denom=sd,
+            return_weights=True, **kw)
+        for name, a, b in zip(("c", "v", "N", "w"), got, (c0, v0, n0, w0)):
+            _assert_bf16_twin(a, b, f"K1b-bf16 l{level} {name}")
+        c1, v1, n1 = atrous_level_fwd_cuda(color, var, normal, depth, zgrad,
+                                           sd, **kw)
+        for a, b in zip((c1, v1, n1), got):
+            assert torch.equal(a, b)
+        before = atrous_level_bwd_cuda.bf16.launches
+        dc, dv = atrous_level_bwd_cuda(color, normal, depth, zgrad, sd, n1,
+                                       gc, gv, **kw)
+        assert atrous_level_bwd_cuda.bf16.launches == before + 1
+        dc0, dv0 = atrous.atrous_level_bwd_ref(color, normal, depth, zgrad,
+                                               sd, n1, gc, gv, **kw)
+        _assert_bf16_twin(dc, dc0, f"K14-bf16 l{level} dc")
+        _assert_bf16_twin(dv, dv0, f"K14-bf16 l{level} dv")
+
+
+@pytest.mark.parametrize("shape", [(37, 53), (1080, 1920)],
+                         ids=["37x53", "1080p"])
+def test_k1b_k14_bf16_wide_radius_staged_and_not(dev, shape):
+    """Radius 5 (the WIDE instantiation, taps in device memory) at levels
+    4-6: staged up to spacing 32, read through the caches at spacing 64
+    (a staged tile above 200 KB); against the twins as above."""
+    color, var, normal, depth = _planes(dev, 150, *shape)
+    zgrad = finite_diff_gradients(depth)
+    params = SVGFParams(radius=5)
+    sd = atrous.sigma_denominator(var, params)
+    g = torch.Generator(dev).manual_seed(5)
+    gc = torch.randn((3, *shape), generator=g, device=dev)
+    gv = torch.randn(shape, generator=g, device=dev)
+    for level in (4, 5, 6):
+        kw = dict(level=level, params=params, precision="bf16")
+        got = atrous_level_fwd_cuda(color, var, normal, depth, zgrad, sd,
+                                    **kw)
+        c0, v0, _, n0 = atrous.atrous_level_ref(
+            color, var, normal, depth, zgrad, sigma_denom=sd,
+            return_weights=True, **kw)
+        for name, a, b in zip(("c", "v", "N"), got, (c0, v0, n0)):
+            _assert_bf16_twin(a, b, f"K1b-bf16 r5 l{level} {name}")
+        dc, dv = atrous_level_bwd_cuda(color, normal, depth, zgrad, sd,
+                                       got[2], gc, gv, **kw)
+        dc0, dv0 = atrous.atrous_level_bwd_ref(color, normal, depth, zgrad,
+                                               sd, got[2], gc, gv, **kw)
+        _assert_bf16_twin(dc, dc0, f"K14-bf16 r5 l{level} dc")
+        _assert_bf16_twin(dv, dv0, f"K14-bf16 r5 l{level} dv")
+
+
+@pytest.mark.parametrize("kw,tols", [
+    (dict(), (2.0 ** -7,) * 2),
+    (dict(weight_grads=True), (1e-4, 1e-4, 5e-4, 5e-4))],
+    ids=["recompute", "weight_grads"])
+@pytest.mark.parametrize("radius", [1, 2])
+def test_bf16_sweep_kernel_path_matches_plain(dev, kw, tols, radius):
+    """``svgf_spatial_ad_cuda(precision="bf16")`` on the card (K1b-bf16,
+    then K14-bf16, or K9 with ``weight_grads``) against the same call on
+    CPU copies (the twins): values and gradients at atol 2^-7·max (a bf16
+    step: a level's last-bit difference in the σ-denominator, PyTorch's
+    on either device, may move a later level's bf16 rounding), and K9's
+    float32 adjoint at its own sweep tolerances."""
+    planes = _planes(dev, 140 + radius)
+    g = torch.Generator(dev).manual_seed(140)
+    cots = [torch.randn(t.shape, generator=g, device=dev)
+            for t in (planes[0], planes[1], planes[0])]
+    params = SVGFParams(radius=radius, iterations=5)
+    wg = kw.get("weight_grads", False)
+    outs, grads = [], []
+    for d in (dev, torch.device("cpu")):
+        ins = [t.to(d).clone().requires_grad_(k < 2 or wg)
+               for k, t in enumerate(planes)]
+        before = atrous_level_bwd_cuda.bf16.launches
+        oc, ov, fb = svgf_spatial_ad_cuda(*ins, params=params,
+                                          return_feedback=True,
+                                          precision="bf16", **kw)
+        loss = sum(((o * c.to(d)).sum() for o, c in zip((oc, ov, fb), cots)))
+        grads.append([x.cpu() for x in torch.autograd.grad(
+            loss, ins[:len(tols)])])
+        outs.append([x.detach().cpu() for x in (oc, ov, fb)])
+        if d.type == "cuda" and not wg:
+            assert atrous_level_bwd_cuda.bf16.launches == before + 5
+    for a, b in zip(*outs):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=2.0 ** -7 * float(b.abs().max()))
+    for a, b, tol in zip(*grads, tols):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=0,
+                                   atol=tol * float(b.abs().max()))

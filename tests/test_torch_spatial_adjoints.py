@@ -306,7 +306,7 @@ def test_recompute_level_gives_zero_guidance_gradients():
      ValueError, "luma_only_from"),
     (dict(params=SVGFParams(pyramid_from=2)), NotImplementedError,
      "pyramid_from"),
-    (dict(precision="bf16"), NotImplementedError, "bf16"),
+    (dict(precision="bf16", weight_math="fast"), ValueError, "chained"),
     (dict(precision="f16"), ValueError, "precision"),
 ])
 def test_sweep_validation_raises(kw, err, match):

@@ -1,0 +1,99 @@
+"""The port's tiling model (``utils/tiling.py``) against the JAX package's
+(``raymarchdenoisercuda_tpu/utils/tiling.py``) and the kernels' sources,
+and ``utils.timing.Timer``.
+
+Spacing, halo radius, tile extent and the halo-exchange bytes a rank are
+the same functions in both packages: equal for every argument here.  The
+shared-memory budget is the port's own (the JAX package budgets VMEM row
+bands): it is held to the tile constants parsed from
+``ops/cuda/atrous_level.cuh`` and ``atrous.cu`` and to the staged
+neighbourhood of ``Lattice`` (r lattice rows, r·min(s, 64) columns a
+side)."""
+
+import re
+import time
+
+import pytest
+import torch
+
+from raymarchdenoisercuda_tpu.utils import tiling as jtiling
+from raymarchdenoisercuda_torch.ops.cuda import _build
+from raymarchdenoisercuda_torch.utils import tiling
+from raymarchdenoisercuda_torch.utils.timing import Timer
+
+
+@pytest.mark.parametrize("radius", [0, 1, 2, 3])
+@pytest.mark.parametrize("level", [0, 1, 4, 7])
+def test_spacing_halo_extent_match_jax(radius, level):
+    assert tiling.spacing(level) == jtiling.spacing(level)
+    assert tiling.halo_radius(radius, level) == jtiling.halo_radius(
+        radius, level)
+    for block in (8, 64, 112):
+        assert tiling.tile_extent(radius, level, block) == \
+            jtiling.tile_extent(radius, level, block)
+
+
+@pytest.mark.parametrize("tile", [(540, 960), (8, 3840), (1080, 1920)])
+@pytest.mark.parametrize("radius,planes,nbytes", [(1, 9, 4), (2, 4, 4),
+                                                  (3, 9, 2)])
+def test_halo_bytes_match_jax(tile, radius, planes, nbytes):
+    got = tiling.halo_budget(*tile, radius, 5, n_planes=planes,
+                             dtype_bytes=nbytes)
+    want = jtiling.ici_budget(*tile, radius, 5, n_planes=planes,
+                              dtype_bytes=nbytes)
+    assert [b.halo_bytes for b in got] == [b.ici_bytes for b in want]
+    assert [(b.level, b.spacing, b.halo) for b in got] == [
+        (b.level, b.spacing, b.halo) for b in want]
+
+
+def _constants():
+    src = {p.name: p.read_text() for p in _build.headers() + _build.sources()}
+    k1 = re.search(r"constexpr int K1_TW = (\d+), K1_TY = (\d+), "
+                   r"K1_PY = (\d+)", src["atrous_level.cuh"])
+    k14 = re.search(r"constexpr int K14_TW = (\d+), K14_TR = (\d+)",
+                    src["atrous.cu"])
+    return (int(k1[1]), int(k1[2]) * int(k1[3])), (int(k14[1]), int(k14[2]))
+
+
+def test_tile_constants_are_the_kernels():
+    k1, k14 = _constants()
+    assert k1 == k14 == (tiling.TILE_COLS, tiling.TILE_ROWS)
+
+
+@pytest.mark.parametrize("kernel", sorted(tiling.STAGED_PIXEL_BYTES))
+@pytest.mark.parametrize("radius", [1, 2, 3])
+def test_smem_budget_is_the_lattice_tile(kernel, radius):
+    """Staged entries = (8 + 2r)·(64 + 2r·min(s, 64)), lattice_entries of
+    atrous_common.cuh, times the kernel's bytes a pixel."""
+    px = tiling.STAGED_PIXEL_BYTES[kernel]
+    for b in tiling.smem_budget(radius, 8, kernel):
+        s = 1 << b.level
+        assert (b.staged_rows, b.staged_cols) == (8 + 2 * radius,
+                                                  64 + 2 * radius * min(s, 64))
+        assert b.smem_bytes == b.staged_rows * b.staged_cols * px
+
+
+def test_smem_budget_marks_the_kernels_staging_limits():
+    """K14 stages radius 2 up to spacing 32 (K14_MAX_STAGED, 110 KB); the
+    bf16 forms stage radius 3 at every spacing (under 200 KB)."""
+    k14 = tiling.smem_budget(2, 7, "K14")
+    assert k14[5].smem_bytes <= 110 * 1024 < k14[6].smem_bytes
+    for kernel in ("K1b bf16", "K14 bf16"):
+        assert tiling.smem_budget(3, 8, kernel)[-1].smem_bytes <= 200 * 1024
+
+
+def test_print_model_prints_the_ports_numbers(capsys):
+    tiling.print_model(1920, 1080, radius=1, levels=5, kernel="K1b bf16")
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 6 and "K1b bf16" in out[0]
+    assert "level 4: spacing 16" in out[5]
+    assert not any(w in "\n".join(out) for w in ("VMEM", "TPU", "ICI"))
+
+
+def test_timer_measures_the_block():
+    with Timer() as t:
+        time.sleep(0.02)
+    assert 20.0 <= t.ms < 2000.0
+    with Timer() as t2:
+        out = t2.sync(torch.ones(4) * 2)
+    assert t2.ms >= 0.0 and float(out.sum()) == 8.0
