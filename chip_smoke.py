@@ -17,12 +17,16 @@ the script exits non-zero without printing a result):
    6 and 10 gradient planes, and their banded form past max_motion 59),
    K10's and K11's 1-D passes past r 16 and K12's one-thread-a-pixel body
    (its taps in the struct or in memory), and of K1b's and K14's bf16
-   forms (each radius, staged or not); fail if one of K1/K1b, K2/K2b or
+   forms (each radius, staged or not, spacing 1 apart, K1b's with the
+   σ-denominator fused too), and print the bf16 forms' SASS instruction
+   mix a tap (``utils/profile.py sass``; a reading, it fails nothing);
+   fail if one of K1/K1b, K2/K2b or
    K14 (their bf16 forms too) at a compiled radius, K9 at r <= 1, K7, K8,
    K13 or K15 on a compiled scene, K3/K3b, K15's first camera launch, K10
    or K11 at r <= 4 or in a 1-D pass, a K12 form, a KG, KGb or KGp kernel
    or a K4-K6 kernel (banded ones included) uses local memory (K9 at r2
-   and wider spills: printed, not failed);
+   and wider spills: printed, not failed; the wide bf16 forms fail above
+   ``BF16_WIDE_LOCAL_B`` of stack and spills);
 3. hold each kernel against its plain PyTorch version on the card at the
    1080p shapes of the main paths, values and gradients, and time both
    with CUDA events: K1 à-trous level (inference and store mode), K2
@@ -58,8 +62,10 @@ the script exits non-zero without printing a result):
    K10, K11 and K12 at radius 17 and 24 and K10 and K11 at radius 90
    (K10 and K11 as two 1-D passes a level, the gaussian taps in a device
    array), each against its twin; K1b's and K14's bf16 forms
-   (``precision="bf16"``) at level 1, r1 and r2, against their twins,
-   timed by CUDA events and by device time beside the float32 forms;
+   (``precision="bf16"``; K1b's with the σ-denominator given, and fused,
+   written and not, bit-equal to ``sigma_denominator``'s) at level 1, r1
+   and r2, against their twins, timed by CUDA events and by device time
+   beside the float32 forms (K1 beside the fused one);
 4. the serving path: 16 frames of the animated Cornell sequence at
    1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
    temporal -> 5-level à-trous, radius 1, fast weights); the first 3
@@ -87,8 +93,9 @@ the script exits non-zero without printing a result):
    ``weight_grads=True``), timed per forward+backward with peak memory;
    gradients against the plain path (the whole sweep, except the radius-2
    ``weight_grads`` one, which is held level by level); and the
-   ``precision="bf16"`` sweep (K1b-bf16, K14-bf16) at r1 and r2, timed
-   with peak memory, gradients against the plain bf16 path (the twins
+   ``precision="bf16"`` sweep (K1b-bf16 with σ fused and written,
+   K14-bf16) at r1 and r2, timed (events and device time) with peak
+   memory, gradients against the plain bf16 path (the twins
    level by level), its colour gradient at cosine >= 0.99 against the
    float32 recompute sweep's (``tools/quality_eval.py``'s criterion);
 10. the sharded path (``parallel/``) on this card's (1, 1, 1) mesh at
@@ -132,9 +139,13 @@ the script exits non-zero without printing a result):
    thresholds;
 14. ``precision="bf16"`` serving: 8 Cornell orbit frames at 1920x1080
    through ``FramePipeline(precision="bf16")`` (K3, then K1b-bf16 level by
-   level; radius 1, exact weights) beside the float32 pipeline on the same
+   level with the σ-denominator fused: every level launches the fused
+   form, and ``sigma_denominator`` never runs on the card; radius 1,
+   exact weights) beside the float32 pipeline on the same
    frames, each bf16 frame's PSNR against the float32 frame >= 45 dB
-   (``tools/quality_eval.py``'s criterion, peak the float32 frame's max);
+   (``tools/quality_eval.py``'s criterion, peak the float32 frame's max),
+   the two pipelines' walls in ``BF16_WALL_ROUNDS`` rounds of turns (bf16,
+   f32, f32, bf16), their medians and quartiles;
    and the half-resolution deep levels (``pyramid_from=3``) on phase 13's
    Cornell orbit through the plain path (``score(impl="plain")``), printed
    beside the same plain sweep without them and phase 13's kernel path.
@@ -142,8 +153,10 @@ the script exits non-zero without printing a result):
 Phases 4 to 9, 10(a)'s temporal gradient, 10(b)-(e), 11, 12, 13 and 14
 are the main paths: every kernel's launch count is set to 0 just before
 each and read just after, and each fails if one of its kernels never launched.
-The line before the last is a JSON object with
-one entry per kernel; the last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object with one entry per kernel (an
+entry that is a form of another entry's kernel, its launches counted on
+both, names that kernel under ``"form_of"``); the last line is
+``{"ok": true, "device": {...}}``.
 No JAX is imported.
 """
 
@@ -172,8 +185,8 @@ from raymarchdenoisercuda_torch.io.generate import (
 from raymarchdenoisercuda_torch.models.pipeline import (
     FramePipeline, init_train_state, make_train_step, render_and_denoise)
 from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
-from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
-                                            raymarch, temporal)
+from raymarchdenoisercuda_torch.ops import (atrous, atrous_cuda, boxfilter,
+                                            filters, raymarch, temporal)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level, atrous_level_bwd_cuda, atrous_level_bwd_stored_cuda,
     atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
@@ -198,7 +211,7 @@ from raymarchdenoisercuda_torch.parallel import scaling, sharded
 from raymarchdenoisercuda_torch.parallel.distributed import spawn_group
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
 from raymarchdenoisercuda_torch.utils import denoise_quality
-from raymarchdenoisercuda_torch.utils.profile import clamped_split
+from raymarchdenoisercuda_torch.utils.profile import clamped_split, sass_lines
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
     clamped_inputs, gather_inputs, served_clamped_inputs)
 from raymarchdenoisercuda_torch.utils.timing import (
@@ -234,8 +247,11 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K15": cone_seed_cuda, "K7s": march_gbuf_seeded_cuda,
             "KG": clamped_gather_cuda, "KGb": clamped_gather_bwd_cuda,
             "KGp": history_stack_channel_minor_cuda,
-            # the bf16 forms count apart from their float32 wrappers
+            # the bf16 forms count apart from their float32 wrappers; the
+            # fused-σ launches of K1b-bf16 count on both of its counts (the
+            # kernels line marks the fused form "form_of" K1b-bf16)
             "K1b-bf16": atrous_level_fwd_cuda.bf16,
+            "K1b-bf16-fused": atrous_level_fwd_cuda.bf16_fused,
             "K14-bf16": atrous_level_bwd_cuda.bf16}
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
@@ -295,9 +311,17 @@ KERNELS = {
     # precision="bf16" of atrous_level_fwd_pallas / atrous_level_bwd_pallas
     "K1b-bf16": ("atrous_level_sigma_bf16", CUDA_SRC + "atrous_level.cuh",
                  PALLAS + "atrous_tpu.py:780"),
+    # ... with the σ-denominator fused (the bf16 sweep's route on the card)
+    "K1b-bf16-fused": ("atrous_level_bf16_fused_sigma",
+                       CUDA_SRC + "atrous_level.cuh",
+                       PALLAS + "atrous_tpu.py:780"),
     "K14-bf16": ("atrous_bwd_recompute_bf16", CUDA_SRC + "atrous.cu",
                  PALLAS + "atrous_tpu.py:865"),
 }
+# an instantiation of another entry's kernel whose launches that entry's
+# count holds too: its line names the kernel ("form_of"), so a sum of the
+# line's launches counts the entries without it
+FORM_OF = {"K1b-bf16-fused": "K1b-bf16"}
 # per-tap float operations of K1's weight math and accumulation, of K2's
 # tap, of K14's (the recomputed weight and K2's sum), of K9's two passes
 # together and of K12's tap (weights, three colour products, the sums),
@@ -348,6 +372,11 @@ GATE_BARS = {"cornell": dict(gain=2.2, ssim=0.96, ssim_gain=0.05),
 BF16_PSNR_DB = 45.0
 BF16_GRAD_COS = 0.99
 BF16_FRAMES = 8
+# the walls of phase 14 in rounds of turns bf16, f32, f32, bf16
+BF16_WALL_ROUNDS = 5
+# the wide-radius (R = -1) bf16 forms spill: stack plus spills up to 32 B
+# at the time of writing (PERF.md, section 7); phase 2 fails above it
+BF16_WIDE_LOCAL_B = 32
 BF16_SERVING = SVGFParams(radius=1)          # exact weights: bf16 has no fast
 PYRAMID_FROM = 3
 
@@ -406,12 +435,13 @@ K5_MOTION = re.compile(r"18motion_term_kernelILb([01])EE")
 # the taps in a device array)
 K1011_PASS = re.compile(r"15sep_pass_kernelILb([01])ELb([01])EE")
 K12_GENERIC = re.compile(r"22cross_bilateral_kernelILb([01])EE")
-# the bf16 forms: level_bf16_kernel<R, STAGED, STORE> (K1b-bf16) and
-# atrous_bwd_bf16_kernel<R, STAGED> (K14-bf16); R = -1: any radius
+# the bf16 forms: level_bf16_kernel<R, STAGED, STORE, FUSED, S1> (K1b-bf16;
+# FUSED: the σ-denominator fused; S1: spacing 1) and
+# atrous_bwd_bf16_kernel<R, STAGED, S1> (K14-bf16); R = -1: any radius
 K1B_BF16_MANGLED = re.compile(r"17level_bf16_kernelILi(n?\d+)ELb([01])ELb"
-                              r"([01])EE")
+                              r"([01])ELb([01])ELb([01])EE")
 K14_BF16_MANGLED = re.compile(r"22atrous_bwd_bf16_kernelILi(n?\d+)ELb([01])"
-                              r"EE")
+                              r"ELb([01])EE")
 K1_MATHS = ("fast", "fast luma", "exact", "exact luma")
 K1_STORES = ("none", "N", "bf16", "f32")
 
@@ -613,12 +643,18 @@ def report_resources():
                     + f" r{R if R >= 0 else '>2'}"
                     + ("" if staged else " unstaged")
                     + (" float weights" if m.re is K1B_BF16_MANGLED
-                       and m.group(3) == "1" else ""))
+                       and m.group(3) == "1" else "")
+                    + (" spacing 1" if m.groups()[-1] == "1" else "")
+                    + (" fused σ" if m.re is K1B_BF16_MANGLED
+                       and m.group(4) == "1" else ""))
             phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
                      f"spills {res[2] + res[3]} B")
             bf16.append(form)
             if R >= 0 and (res[1] or res[2] or res[3]):
                 local.append(form)
+            if R < 0 and sum(res[1:4]) > BF16_WIDE_LOCAL_B:
+                local.append(f"{form} (stack and spills {sum(res[1:4])} B "
+                             f"> {BF16_WIDE_LOCAL_B})")
         m = K1_MANGLED.search(name)
         if m:
             R, math, sden, store, tile = (int(v.replace("n", "-"))
@@ -648,13 +684,17 @@ def report_resources():
         raise AssertionError(f"phase 2: K10/K11 instantiations "
                              f"{sorted(k1011)} in ptxas's report, expected "
                              f"{want}")
-    # K1b-bf16: r0-r2 and the wide radius staged, the wide one unstaged
-    # too, each with and without float weights (10); K14-bf16: 5
-    if (sum(f.startswith("K1b-bf16") for f in bf16) != 10
-            or sum(f.startswith("K14-bf16") for f in bf16) != 5):
+    # K1b-bf16: r0-r2 (r1 and r2 at spacing 1 apart) and the wide radius
+    # staged, the wide one unstaged too (7), each with and without float
+    # weights (14), and each with the σ-denominator fused (7); K14-bf16: 7
+    fused = sum(f.startswith("K1b-bf16") and f.endswith("fused σ")
+                for f in bf16)
+    if (sum(f.startswith("K1b-bf16") for f in bf16) != 21 or fused != 7
+            or sum(f.startswith("K14-bf16") for f in bf16) != 7):
         raise AssertionError(f"phase 2: bf16 forms {sorted(bf16)} in "
-                             f"ptxas's report, expected 10 K1b-bf16 and 5 "
-                             f"K14-bf16 instantiations")
+                             f"ptxas's report, expected 21 K1b-bf16 (7 "
+                             f"with the σ fused) and 7 K14-bf16 "
+                             f"instantiations")
     if sorted(kg) != sorted(KG_KERNELS.values()):
         raise AssertionError(f"phase 2: KG/KGb/KGp kernels {kg} in ptxas's "
                              f"report, expected {list(KG_KERNELS.values())}")
@@ -682,6 +722,19 @@ def report_resources():
             local.append(f"K9 r{R}{' staged' if staged else ''}")
     if local:
         raise AssertionError(f"phase 2: local memory in {local}")
+
+
+def report_sass_mix():
+    """Print the bf16 forms' SASS instruction mix, each class's static
+    count over the taps of a compiled radius (``utils/profile.py``'s
+    ``sass``): a reading only; nothing fails on it."""
+    try:
+        lines = list(sass_lines())
+    except (OSError, RuntimeError) as e:
+        phase(2, f"SASS instruction mix not read: {e}")
+        return
+    for line in lines:
+        phase(2, f"SASS {line}")
 
 
 def check_k1(P, results):
@@ -925,13 +978,16 @@ BF16_TWIN_TOL = dict(atol=1e-37, rtol=2.0 ** -23)
 
 
 def check_bf16_kernels(P, results):
-    """K1b-bf16 and K14-bf16 (``precision="bf16"``) at level 1, radius 1
-    and 2, against their twins on the same inputs (``BF16_TWIN_TOL``), and
-    timed beside the float32 forms on those inputs, by CUDA events and by
-    device time under the profiler.  Their bound is the float32 forms':
+    """K1b-bf16 (σ given; σ fused, written and not) and K14-bf16
+    (``precision="bf16"``) at level 1, radius 1 and 2, against their twins
+    on the same inputs (``BF16_TWIN_TOL``; the fused σ bit-equal to
+    ``sigma_denominator``'s), and timed beside the float32 forms on those
+    inputs (K1b, and for the fused form K1 with its fused σ, exact weights;
+    K14), by CUDA events and by device time under the profiler.  Bounds:
     the planes are read as float32 and rounded as they are staged, so the
-    bytes are the same (64 and 76 B/px); the operations, counted as the
-    float32 forms' at the float32 rate, bound neither."""
+    bytes are the float32 forms' (64 B/px, K14 76), and the fused form
+    reads no σ (60 B/px, 64 with σ written); the operations, counted as
+    the float32 forms' at the float32 rate, bound neither."""
     HW = P["depth"].numel()
     for radius in (1, 2):
         taps = (2 * radius + 1) ** 2
@@ -946,6 +1002,21 @@ def check_bf16_kernels(P, results):
         for name, a, b in zip(("color", "variance", "N"), got, want):
             check_close(f"K1b-bf16 r{radius} {name}", a, b, **BF16_TWIN_TOL)
         err1b = max(max_err(a, b) for a, b in zip(got, want))
+        fw = atrous_level_fwd_cuda(c, v, n, z, zg, None,
+                                   return_sigma_denom=True, **kb)
+        fn = atrous_level_fwd_cuda(c, v, n, z, zg, None, **kb)
+        if not torch.equal(fw[3], sd):
+            raise AssertionError(f"phase 3: K1b-bf16 r{radius}: the fused "
+                                 f"σ-denominator differs from "
+                                 f"sigma_denominator's (max |diff| "
+                                 f"{max_err(fw[3], sd):.3g})")
+        for name, a, b, x in zip(("color", "variance", "N"), fw, want, fn):
+            check_close(f"K1b-bf16 fused r{radius} {name}", a, b,
+                        **BF16_TWIN_TOL)
+            if not torch.equal(a, x):
+                raise AssertionError(f"phase 3: K1b-bf16 fused r{radius} "
+                                     f"{name}: σ written and not differ")
+        errf = max(max_err(a, b) for a, b in zip(fw, want))
         norm = got[2]
         k14 = atrous_level_bwd_cuda(c, n, z, zg, sd, norm, gc, gv, **kb)
         k14_want = atrous.atrous_level_bwd_ref(c, n, z, zg, sd, norm, gc, gv,
@@ -956,7 +1027,12 @@ def check_bf16_kernels(P, results):
         calls = {
             "K1b-bf16": lambda: atrous_level_fwd_cuda(c, v, n, z, zg, sd,
                                                       **kb),
+            "K1b-bf16-fused": lambda: atrous_level_fwd_cuda(
+                c, v, n, z, zg, None, **kb),
+            "K1b-bf16-fused σ written": lambda: atrous_level_fwd_cuda(
+                c, v, n, z, zg, None, return_sigma_denom=True, **kb),
             "K1b": lambda: atrous_level_fwd_cuda(c, v, n, z, zg, sd, **kw),
+            "K1": lambda: atrous_level_cuda(c, v, n, z, zg, **kw),
             "K14-bf16": lambda: atrous_level_bwd_cuda(c, n, z, zg, sd, norm,
                                                       gc, gv, **kb),
             "K14": lambda: atrous_level_bwd_cuda(c, n, z, zg, sd, norm, gc,
@@ -965,12 +1041,17 @@ def check_bf16_kernels(P, results):
         dms = {k: device_ms(f, 20) for k, f in calls.items()}
         plain1b = cuda_time_ms(lambda: atrous.atrous_level_ref(
             c, v, n, z, zg, sigma_denom=sd, **kb), repeats=3)
+        plainf = cuda_time_ms(lambda: atrous.atrous_level_ref(
+            c, v, n, z, zg, sigma_denom=atrous.sigma_denominator(v, params),
+            **kb), repeats=3)
         plain14 = cuda_time_ms(lambda: atrous.atrous_level_bwd_ref(
             c, n, z, zg, sd, norm, gc, gv, **kb), repeats=3)
-        for k, (err, plain, bytes_px, flops) in {
-                "K1b-bf16": (err1b, plain1b, 64, K1_TAP_FLOPS),
-                "K14-bf16": (err14, plain14, 76, K14_TAP_FLOPS)}.items():
-            f32 = k.split("-")[0]
+        for k, (err, plain, bytes_px, f32) in {
+                "K1b-bf16": (err1b, plain1b, 64, "K1b"),
+                "K1b-bf16-fused": (errf, plainf, 60, "K1"),
+                "K1b-bf16-fused σ written": (errf, plainf, 64, "K1"),
+                "K14-bf16": (err14, plain14, 76, "K14")}.items():
+            flops = K14_TAP_FLOPS if f32 == "K14" else K1_TAP_FLOPS
             cost = dict(bytes=bytes_px * HW, flops=flops * taps * HW)
             b_ms, b_by = bound(cost["bytes"], cost["flops"])
             phase(3, f"r{radius} level 1 {k}: ok, max |err| {err:.3g}; "
@@ -980,7 +1061,7 @@ def check_bf16_kernels(P, results):
                      f"(bf16/f32 {dms[k] / dms[f32]:.3f}); bound "
                      f"{b_ms:.4f} ms ({b_by}, {bytes_px} B/px); plain "
                      f"{plain:.4f} ms")
-            if radius == TRAIN.radius:
+            if radius == TRAIN.radius and k in KERNELS:
                 results[k] = dict(max_abs_err=err, ms=ms[k], plain_ms=plain,
                                   **cost)
 
@@ -2440,7 +2521,7 @@ def adjoint_phase(H, W, dev):
         lines.append(bf16_sweep_case(ins, cots, radius))
         phase(9, lines[-1])
     counts = read_counts(9, ("K1", "K2", "K1b", "K2b", "K14", "K9",
-                             "K1b-bf16", "K14-bf16"))
+                             "K1b-bf16", "K1b-bf16-fused", "K14-bf16"))
     phase(9, f"spatial adjoints {W}x{H}, 5 levels, exact weights: all "
              f"modes match the plain path; launches {counts}")
     return counts
@@ -2476,7 +2557,8 @@ def plain_bf16_sweep_grads(ins, cots, params):
 
 def bf16_sweep_case(ins, cots, radius):
     """Phase 9's ``precision="bf16"`` sweep at ``radius``: fwd+bwd through
-    K1b-bf16 and K14-bf16 against the plain bf16 path at atol 2^-7·max
+    K1b-bf16 (σ fused and written) and K14-bf16 against the plain bf16
+    path at atol 2^-7·max
     (measured: equal), timed (events, and device time under the profiler:
     the walls hold the per-level host work) with peak memory beside the
     float32 recompute sweep (K1b, K14), its colour gradient at cosine >=
@@ -3152,22 +3234,45 @@ def bf16_serving_phase(H, W, dev, kept):
     frames beside the float32 pipeline (the same configuration: radius 1,
     exact weights); each bf16 frame's PSNR against the float32 frame
     (peak: the float32 frame's max, as ``tools/quality_eval.py``) >=
-    ``BF16_PSNR_DB``.  Then the half-resolution deep levels on phase 13's
-    Cornell orbit: ``score(pyramid_from=PYRAMID_FROM, impl="plain")``
+    ``BF16_PSNR_DB``; the walls (host-bound) in ``BF16_WALL_ROUNDS``
+    rounds of turns bf16, f32, f32, bf16, their medians and quartiles of
+    the runs' steady means.  Then the half-resolution deep levels on phase
+    13's Cornell orbit: ``score(pyramid_from=PYRAMID_FROM, impl="plain")``
     beside the plain sweep without them (r1, exact weights, the JAX tool's
     reference path) and phase 13's kernel-path r1 score."""
     scene = raymarch.cornell_scene(device=dev)
     cfg = dict(cam_cfg=CameraParams(width=W, height=H),
                rm_params=RaymarchParams(), svgf_params=BF16_SERVING,
                weight_math="exact")
+    # the σ-denominator's PyTorch glue, counted where it runs on the card
+    glue = {"sigma_denominator": 0}
+    plain_sigma = atrous_cuda.sigma_denominator
+
+    def counted_sigma(variance, params, **kw):
+        glue["sigma_denominator"] += int(variance.is_cuda)
+        return plain_sigma(variance, params, **kw)
+
     reset_counts()
-    times16, frames16 = run_sequence(
-        FramePipeline(scene, precision="bf16", **cfg), BF16_FRAMES, H, W,
-        dev, BF16_FRAMES)
-    counts = read_counts(14, ("K1b-bf16", "K3", "K7", "K8"))
+    atrous_cuda.sigma_denominator = counted_sigma
+    try:
+        times16, frames16 = run_sequence(
+            FramePipeline(scene, precision="bf16", **cfg), BF16_FRAMES, H,
+            W, dev, BF16_FRAMES)
+    finally:
+        atrous_cuda.sigma_denominator = plain_sigma
+    counts = read_counts(14, ("K1b-bf16", "K1b-bf16-fused", "K3", "K7",
+                              "K8"))
     if counts["K1b"] or counts["K1"]:
         raise AssertionError(f"phase 14: the bf16 pipeline launched a "
                              f"float32 level: {counts}")
+    levels = BF16_FRAMES * BF16_SERVING.iterations
+    if (counts["K1b-bf16-fused"] != levels or counts["K1b-bf16"] != levels
+            or glue["sigma_denominator"]):
+        raise AssertionError(f"phase 14: the bf16 route launched "
+                             f"{counts['K1b-bf16-fused']} fused-σ levels of "
+                             f"{counts['K1b-bf16']} (expected {levels}) and "
+                             f"ran sigma_denominator {glue} times on the "
+                             f"card (expected 0)")
     times32, frames32 = run_sequence(FramePipeline(scene, **cfg),
                                      BF16_FRAMES, H, W, dev, BF16_FRAMES)
     dbs = []
@@ -3180,13 +3285,35 @@ def bf16_serving_phase(H, W, dev, kept):
             raise AssertionError(f"phase 14: frame {f} bf16 PSNR "
                                  f"{dbs[-1]:.2f} dB < {BF16_PSNR_DB} "
                                  f"against the float32 frame")
-    steady16, steady32 = times16[1:], times32[1:]
-    phase(14, f"bf16 serving {BF16_FRAMES} frames {W}x{H} (r1, exact): "
-              f"{sum(steady16) / len(steady16):.3f} ms/frame (frames 2-"
-              f"{BF16_FRAMES}), float32 {sum(steady32) / len(steady32):.3f};"
+    walls = {"bf16": [times16], "f32": [times32]}
+    # the first round's bf16 and f32 runs are the checked ones above
+    turns = (("f32", "bf16")
+             + ("bf16", "f32", "f32", "bf16") * (BF16_WALL_ROUNDS - 1))
+    for precision in turns:
+        pipe = FramePipeline(scene, **cfg, **(
+            {"precision": precision} if precision == "bf16" else {}))
+        walls[precision].append(run_sequence(pipe, BF16_FRAMES, H, W, dev,
+                                             0)[0])
+    steady = {k: [sum(t[1:]) / len(t[1:]) for t in v]
+              for k, v in walls.items()}
+    q = {k: np.percentile(v, (25, 50, 75)) for k, v in steady.items()}
+    verdict = ("bf16 faster (its upper quartile under f32's lower)"
+               if q["bf16"][2] < q["f32"][0] else
+               "bf16 slower (its lower quartile over f32's upper)"
+               if q["bf16"][0] > q["f32"][2] else
+               "unresolved (the quartiles overlap)")
+    runs = {k: ", ".join(f"{t:.3f}" for t in v) for k, v in steady.items()}
+    phase(14, f"bf16 serving {BF16_FRAMES} frames {W}x{H} (r1, exact), "
+              f"ms/frame (frames 2-{BF16_FRAMES}), {len(steady['bf16'])} "
+              f"runs each in rounds of turns bf16, f32, f32, bf16: bf16 "
+              f"median {q['bf16'][1]:.3f} (quartiles {q['bf16'][0]:.3f}-"
+              f"{q['bf16'][2]:.3f}), float32 median {q['f32'][1]:.3f} "
+              f"(quartiles {q['f32'][0]:.3f}-{q['f32'][2]:.3f}): {verdict}; "
+              f"runs bf16 [{runs['bf16']}], float32 [{runs['f32']}];"
               f" PSNR against the float32 frames "
               + ", ".join(f"{d:.2f}" for d in dbs)
-              + f" dB (min {min(dbs):.2f}); launches {counts}")
+              + f" dB (min {min(dbs):.2f}); σ fused in all {levels} levels, "
+              f"sigma_denominator on the card 0 times; launches {counts}")
     seq = kept["cornell"]
     t0 = time.perf_counter()
     pyr = denoise_quality.score(seq, iterations=5, radius=1,
@@ -3243,6 +3370,7 @@ def main(argv=None) -> int:
     _build.kernels()
     phase(2, f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
     report_resources()
+    report_sass_mix()
 
     results = {}
     P = random_planes(H, W, dev, seed=0)
@@ -3320,7 +3448,9 @@ def main(argv=None) -> int:
                            max_abs_err=r["max_abs_err"], ms=r["ms"],
                            plain_ms=r["plain_ms"], bound_ms=bound_ms,
                            bound_by=bound_by,
-                           library_ms=r.get("library_ms")))
+                           library_ms=r.get("library_ms"),
+                           **({"form_of": KERNELS[FORM_OF[k]][0]}
+                              if k in FORM_OF else {})))
     print(json.dumps({"kernels": report}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -230,6 +230,26 @@ def zgrad_cuda(depth: torch.Tensor) -> torch.Tensor:
     return zgrad
 
 
+def bf16_bit_formulas_cuda(device) -> torch.Tensor:
+    """The bf16 forms' bit tricks beside the formulas they replaced, on
+    every bf16 pattern (``rdt_bf16_formulas``, card only): a (4, 65536)
+    int32 tensor of packed lane pairs, the rows ``exp2_fast_bf16x2`` with
+    2^i by conversion and clamp, the same from the bf16 bits, the
+    reciprocal rounded from ``__frcp_rn`` and from ``rcp.approx.f32``;
+    column j's low lane takes pattern j, its high lane (j·40503) mod 2^16.
+    The constants are ``SVGFParams()``'s."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError("bf16_bit_formulas_cuda probes the card's "
+                         "arithmetic: a CUDA device only")
+    out = torch.empty((4, 65536), dtype=torch.int32, device=device)
+    b = _bf16_params(SVGFParams())
+    _build.check(_build.kernels().rdt_bf16_formulas(
+        out.data_ptr(), ctypes.addressof(b), _stream(device)),
+        "rdt_bf16_formulas")
+    return out
+
+
 def _launch_level(color, variance, normal, depth, zgrad, sigma_denom, *,
                   level, params, weight_math, w_dtype, want_norm, tile):
     """One launch of the level kernel (K1 with ``sigma_denom`` None, else
@@ -301,34 +321,43 @@ atrous_level_cuda.launches = 0
 
 
 def _launch_level_bf16(color, variance, normal, depth, zgrad, sigma_denom,
-                       *, level, params, save_weights):
-    """One launch of K1b's bf16 form; returns ``(c, v, w or None, N)``."""
+                       *, level, params, save_weights, write_sigma):
+    """One launch of K1b's bf16 form (``sigma_denom`` None: the σ-
+    denominator fused, written to a plane with ``write_sigma``); returns
+    ``(c, v, w or None, N, σ or None)``."""
     H, W = depth.shape
     dev = color.device
     f32 = torch.float32
-    ptrs = _planes(dev, H, W, (
-        (color, "color", 3), (variance, "variance", None),
-        (normal, "normal", 3), (depth, "depth", None), (zgrad, "zgrad", 2),
-        (sigma_denom, "sigma_denom", None)))
+    named = [(color, "color", 3), (variance, "variance", None),
+             (normal, "normal", 3), (depth, "depth", None),
+             (zgrad, "zgrad", 2)]
+    if sigma_denom is not None:
+        named.append((sigma_denom, "sigma_denom", None))
+    ptrs = _planes(dev, H, W, named)
+    sden_ptr = ptrs.pop() if sigma_denom is not None else None
     c_out = torch.empty((3, H, W), dtype=f32, device=dev)
     v_out = torch.empty((H, W), dtype=f32, device=dev)
     norm = torch.empty((H, W), dtype=f32, device=dev)
     w = (torch.empty(((2 * params.radius + 1) ** 2, H, W), dtype=f32,
                      device=dev) if save_weights else None)
+    sden = (torch.empty((H, W), dtype=f32, device=dev) if write_sigma
+            else None)
     p, b = _launch_params(H, W, level, params), _bf16_params(params)
     rc = _build.kernels().rdt_atrous_level_bf16(
-        *ptrs, c_out.data_ptr(), v_out.data_ptr(),
+        *ptrs, sden_ptr, None if sden is None else sden.data_ptr(),
+        c_out.data_ptr(), v_out.data_ptr(),
         None if w is None else w.data_ptr(), norm.data_ptr(),
         ctypes.addressof(p), ctypes.addressof(b),
         _taps_ptr(params.radius, dev), _stream(dev))
     _build.check(rc, "rdt_atrous_level_bf16")
-    return c_out, v_out, w, norm
+    return c_out, v_out, w, norm, sden
 
 
 def atrous_level_fwd_cuda(color, variance, normal, depth, zgrad, sigma_denom,
                           *, level: int, params: SVGFParams,
                           save_weights: bool = False, tile: Tile = None,
-                          precision: str = "f32"):
+                          precision: str = "f32",
+                          return_sigma_denom: bool = False):
     """One level forward with a given σ-denominator (K1b, the counterpart of
     ``atrous_level_fwd_pallas``; exact weights).  Returns ``(c, v, N)``,
     and with ``save_weights`` also the (n_taps, H, W) float32 tap weights.
@@ -338,23 +367,41 @@ def atrous_level_fwd_cuda(color, variance, normal, depth, zgrad, sigma_denom,
     ``precision="bf16"``: K1b's bfloat16 form on the whole frame (the
     planes rounded to bf16 as the kernel stages them, the tap math in
     bf16, float32 sums; ``atrous_level_ref(..., precision="bf16")``).
+    With ``sigma_denom=None`` (bf16 only, no ``save_weights``) the kernel
+    computes the σ-denominator itself from the variance (as K1 fuses it;
+    the same floats as :func:`~.atrous.sigma_denominator`, which the CPU
+    path computes and feeds the twin), and ``return_sigma_denom`` appends
+    it, written by the kernel, to the outputs (K14's bf16 form reads it).
 
-    Each float32 launch adds one to ``atrous_level_fwd_cuda.launches``, each
-    bf16 launch to ``atrous_level_fwd_cuda.bf16.launches``."""
+    Each float32 launch adds one to ``atrous_level_fwd_cuda.launches``,
+    each bf16 launch to ``atrous_level_fwd_cuda.bf16.launches``, and each
+    bf16 launch with the σ-denominator fused also to
+    ``atrous_level_fwd_cuda.bf16_fused.launches``."""
     _check_precision(precision, tile)
+    fused = sigma_denom is None
+    if fused and (precision != "bf16" or save_weights):
+        raise ValueError("sigma_denom=None (the fused σ-denominator) is "
+                         "K1b's bf16 form without save_weights")
+    if return_sigma_denom and not fused:
+        raise ValueError("return_sigma_denom needs sigma_denom=None")
     _build.check_no_grad("atrous_level_fwd_cuda", color, variance, normal,
                          depth, zgrad, sigma_denom)
     if not color.is_cuda:
+        sd = sigma_denominator(variance, params) if fused else sigma_denom
         c, v, w, norm = atrous_level_ref(
             color, variance, normal, depth, zgrad, level=level,
-            params=params, sigma_denom=sigma_denom, return_weights=True,
+            params=params, sigma_denom=sd, return_weights=True,
             tile=tile, precision=precision)
-        return (c, v, norm, w) if save_weights else (c, v, norm)
+        out = (c, v, norm, w) if save_weights else (c, v, norm)
+        return out + (sd,) if return_sigma_denom else out
     if precision == "bf16":
-        c, v, w, norm = _launch_level_bf16(
+        c, v, w, norm, sd = _launch_level_bf16(
             color, variance, normal, depth, zgrad, sigma_denom, level=level,
-            params=params, save_weights=save_weights)
+            params=params, save_weights=save_weights,
+            write_sigma=return_sigma_denom)
         atrous_level_fwd_cuda.bf16.launches += 1
+        if fused:
+            atrous_level_fwd_cuda.bf16_fused.launches += 1
     else:
         c, v, w, norm = _launch_level(
             color, variance, normal, depth, zgrad, sigma_denom, level=level,
@@ -362,11 +409,13 @@ def atrous_level_fwd_cuda(color, variance, normal, depth, zgrad, sigma_denom,
             w_dtype=torch.float32 if save_weights else None, want_norm=True,
             tile=tile)
         atrous_level_fwd_cuda.launches += 1
-    return (c, v, norm, w) if save_weights else (c, v, norm)
+    out = (c, v, norm, w) if save_weights else (c, v, norm)
+    return out + (sd,) if return_sigma_denom else out
 
 
 atrous_level_fwd_cuda.launches = 0
 atrous_level_fwd_cuda.bf16 = LaunchCount()
+atrous_level_fwd_cuda.bf16_fused = LaunchCount()
 
 
 def _out_region(H, W, out_halo, dev):
@@ -543,22 +592,28 @@ class _AtrousLevel(torch.autograd.Function):
     (the JAX custom-VJP ``atrous_level``): K1b forward (in ``precision``);
     K9 backward with ``weight_grads`` (float32, whatever the forward's
     precision, as ``_atrous_bwd`` does), else K14 (in ``precision``) and
-    zero gradients for the normal, depth, ∇z and σ-denominator."""
+    zero gradients for the normal, depth, ∇z and σ-denominator.  A σ of
+    None (bf16, no ``weight_grads``) is fused into the forward, which
+    writes it for K14 when an input requires grad."""
 
     @staticmethod
     def forward(ctx, color, variance, normal, depth, zgrad, sigma_denom,
                 level, params, weight_grads, precision):
-        c, v, norm = atrous_level_fwd_cuda(color, variance, normal, depth,
-                                           zgrad, sigma_denom, level=level,
-                                           params=params, precision=precision)
+        fused = sigma_denom is None
+        write = fused and any(ctx.needs_input_grad)
+        out = atrous_level_fwd_cuda(color, variance, normal, depth, zgrad,
+                                    sigma_denom, level=level, params=params,
+                                    precision=precision,
+                                    return_sigma_denom=write)
+        c, v, norm = out[:3]
+        sden = out[3] if write else sigma_denom
         ctx.level, ctx.params, ctx.weight_grads = level, params, weight_grads
         ctx.precision = precision
         if weight_grads:
             ctx.save_for_backward(color, variance, normal, depth, zgrad,
-                                  sigma_denom, c, v, norm)
+                                  sden, c, v, norm)
         else:
-            ctx.save_for_backward(color, normal, depth, zgrad, sigma_denom,
-                                  norm)
+            ctx.save_for_backward(color, normal, depth, zgrad, sden, norm)
         return c, v
 
     @staticmethod
@@ -584,7 +639,10 @@ def atrous_level(color, variance, normal, depth, zgrad, sigma_denom, level,
                  params, weight_grads: bool = False, precision: str = "f32"):
     """One differentiable level, ``(c, v)``: K1b forward, K14 or (with
     ``weight_grads``) K9 backward; ``precision="bf16"``: their bf16 forms
-    (K9 stays float32)."""
+    (K9 stays float32), and ``sigma_denom=None`` fuses the σ-denominator
+    into K1b-bf16 (no ``weight_grads``)."""
+    if sigma_denom is None and weight_grads:
+        raise ValueError("weight_grads needs the σ-denominator tensor")
     return _AtrousLevel.apply(color, variance, normal, depth, zgrad,
                               sigma_denom, level, params, weight_grads,
                               precision)
@@ -708,6 +766,12 @@ def svgf_spatial_ad_cuda(color: torch.Tensor, variance: torch.Tensor,
     * ``precision="bf16"``: the per-level path above, through the bfloat16
       forms of K1b and K14 (K9 with ``weight_grads``, as in JAX), whatever
       ``chained`` and ``bwd_impl`` say: JAX's chained path is float32 only.
+      Without ``weight_grads`` each level is one K1b-bf16 launch with the
+      σ-denominator fused (it writes σ for K14-bf16 when an input requires
+      grad) and ∇z comes from :func:`zgrad_cuda`: no PyTorch glue a level
+      on the card (on the CPU the plain twin is fed
+      :func:`~.atrous.sigma_denominator`).  With ``weight_grads`` σ is
+      the PyTorch :func:`~.atrous.sigma_denominator` as above.
 
     ``weight_math="fast"`` is taken on the chained f32 stored and
     ``"none"`` paths only, ``luma_only_from`` on the chained f32 stored and
@@ -740,11 +804,16 @@ def svgf_spatial_ad_cuda(color: torch.Tensor, variance: torch.Tensor,
                                             params, weight_math, store_dtype)
         return (c, v, feedback) if return_feedback else (c, v)
 
-    zgrad = finite_diff_gradients(depth)
+    # bf16: σ fused into each K1b-bf16 launch, ∇z one kernel (its gradient
+    # is zero off the weight_grads path)
+    fused = precision == "bf16" and not weight_grads
+    zgrad = (zgrad_cuda(depth.detach()) if fused
+             else finite_diff_gradients(depth))
     c, v = color, variance
     feedback = color
     for lvl in range(params.iterations):
-        sden = sigma_denominator(v if weight_grads else v.detach(), params)
+        sden = (None if fused else
+                sigma_denominator(v if weight_grads else v.detach(), params))
         c, v = atrous_level(c, v, normal, depth, zgrad, sden, lvl, params,
                             weight_grads, precision)
         if lvl + 1 == params.feedback_level:

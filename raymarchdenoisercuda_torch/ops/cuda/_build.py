@@ -49,8 +49,9 @@ SIGNATURES = {
     "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 5 + (_P,) * 2,
     "rdt_atrous_bwd": (_P,) * 14,
     "rdt_atrous_wgrad_bwd": (_P,) * 20,
-    "rdt_atrous_level_bf16": (_P,) * 14,
+    "rdt_atrous_level_bf16": (_P,) * 15,
     "rdt_atrous_bwd_bf16": (_P,) * 14,
+    "rdt_bf16_formulas": (_P,) * 3,
     "rdt_temporal": (_P,) * 16,
     "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,) * 2,
     "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,

@@ -636,19 +636,35 @@ cudaError_t launch_bwd_tile(const BwdArgs& a, const AtrousParams& p,
 // atrous_level_bwd_ref(..., precision="bf16").  Design: K1b-bf16's (the
 // row-lattice tile over the output, 32 x 8 threads, two adjacent outputs a
 // thread in the lanes of an __nv_bfloat162).  A block stages once per
-// centre of its tile and halo the twelve bf16 values its taps read,
-// rounded from what the TPU kernel's wrapper computes in float32 before
-// casting: luminance (luma3), normal, depth, log2(e)/max(sigma, eps),
-// depth gradient, u = gc/max(N, eps) and u2 = gv/max(N, eps)^2 (true
-// divisions), 24 B a centre.  Per tap: rz = 1/(sz2*|dz_p.d| + eps2) in
-// bf16 (the bf16 quotient: float32 reciprocal, then rounded), the weight
-// as in K1b-bf16, and each lane's w*u_p and (w*w)*u2_p (w*w rounded) by
-// one float32 fma.  Bound: memory as K14, 76 B/px.  R: 0, 1, 2, or -1
-// (wide_taps); STAGED false for a WIDE tile above kBf16BwdMaxStaged.
-constexpr int KB_BWD_PLANES = 12;   // lum n0 n1 n2 z isd2 zg0 zg1 u0 u1 u2 uv
-constexpr size_t kBf16BwdMaxStaged = 200 * 1024;
+// centre of its tile and halo the values its taps read, rounded from what
+// the TPU kernel's wrapper computes in float32 before casting: u =
+// gc/max(N, eps) and u2 = gv/max(N, eps)^2 (true divisions) as float32
+// values already rounded to bf16 (four float planes: they feed only the
+// float32 fmas, so a tap reads them with no unpacking), and luminance
+// (luma3), normal, depth, log2(e)/max(sigma, eps) and depth gradient as
+// eight bf16 planes: 32 B a centre.  The sigma is the one K1b-bf16 read or
+// (fused) wrote.  Per tap: dz2 = sz2*|dz_p.d| + eps2 in bf16 (d in bf16,
+// converted once a thread at a compiled radius) and rz its bf16 quotient:
+// the reciprocal by rcp.approx.f32 (no .ftz; 1 ulp), rounded to bf16,
+// which equals the correctly rounded reciprocal rounded to bf16 for every
+// positive bf16 dz2 (the exact 1/dz2 lies > 128 float32 ulps from every
+// bf16 rounding midpoint: tests/test_torch_bf16_bits.py; the card test
+// test_bf16_bit_formulas_equal_on_every_pattern checks the two device
+// formulas on all 65,536 patterns); then the weight as in K1b-bf16, and
+// each lane's w*u_p and (w*w)*u2_p (w*w rounded) by one float32 fma.
+// h_y*h_x in bf16 and the lane masks of the columns once a thread, as in
+// K1b-bf16; a dropped centre is masked, not skipped, and radius 1 and 2
+// compile spacing 1 apart (S1).  Bound: memory as K14, 76 B/px.  R: 0, 1,
+// 2, or -1 (wide_taps; the offsets converted a tap); STAGED false for a
+// WIDE tile above kBf16BwdMaxStaged.
+constexpr int KB_BWD_F32 = 4;       // u0 u1 u2 uv, rounded to bf16
+constexpr int KB_BWD_PLANES = 8;    // lum n0 n1 n2 z isd2 zg0 zg1
+constexpr size_t KB_BWD_BYTES =
+    KB_BWD_F32 * sizeof(float) + KB_BWD_PLANES * sizeof(__nv_bfloat16);
+constexpr size_t kBf16BwdMaxStaged = 220 * 1024;
 
 struct BwdPixBf16 {
+    float f[KB_BWD_F32];
     __nv_bfloat16 a[KB_BWD_PLANES];
 };
 
@@ -662,6 +678,8 @@ __device__ __forceinline__ BwdPixBf16 bwd_centre_bf16(
     if (y < 0 || y >= H || x < 0 || x >= W) {
         const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
 #pragma unroll
+        for (int q = 0; q < KB_BWD_F32; ++q) v.f[q] = 0.0f;
+#pragma unroll
         for (int q = 0; q < KB_BWD_PLANES; ++q) v.a[q] = zero;
         return v;
     }
@@ -669,16 +687,31 @@ __device__ __forceinline__ BwdPixBf16 bwd_centre_bf16(
     const float inv_n = 1.0f / fmaxf(norm[i], kEps);
     const float vals[KB_BWD_PLANES] = {
         luma(color, i, hw), normal[i], normal[hw + i], normal[2 * hw + i],
-        depth[i], kLog2e / fmaxf(sden[i], kEps), zgrad[i], zgrad[hw + i],
-        gc[i] * inv_n, gc[hw + i] * inv_n, gc[2 * hw + i] * inv_n,
-        gv[i] * (inv_n * inv_n)};
+        depth[i], kLog2e / fmaxf(sden[i], kEps), zgrad[i], zgrad[hw + i]};
 #pragma unroll
     for (int q = 0; q < KB_BWD_PLANES; ++q)
         v.a[q] = __float2bfloat16_rn(vals[q]);
+    v.f[0] = bf16_value(gc[i] * inv_n);
+    v.f[1] = bf16_value(gc[hw + i] * inv_n);
+    v.f[2] = bf16_value(gc[2 * hw + i] * inv_n);
+    v.f[3] = bf16_value(gv[i] * (inv_n * inv_n));
     return v;
 }
 
-template <int R, bool STAGED>
+// rcp.approx.f32 without .ftz: within 1 ulp of 1/x, subnormals kept.
+__device__ __forceinline__ float rcp_approx(float x) {
+    float r;
+    asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+    return r;
+}
+
+// The bf16 quotient 1/dz2 of both lanes (see K14-bf16's design).
+__device__ __forceinline__ bf2 rcp_bf16x2(bf2 dz2) {
+    const float2 f = bf2_floats(dz2);
+    return __floats2bfloat162_rn(rcp_approx(f.x), rcp_approx(f.y));
+}
+
+template <int R, bool STAGED, bool S1>
 __global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
     const float* __restrict__ color, const float* __restrict__ normal,
     const float* __restrict__ depth, const float* __restrict__ zgrad,
@@ -693,9 +726,12 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
     const Bf16K k = bf16_k(kb);
     const int tx = threadIdx.x;
 
+    // four float planes, then eight bf16 planes (an even tile width: every
+    // plane's pairs align alike)
     extern __shared__ float4 smem[];
-    __nv_bfloat16* s_b = (__nv_bfloat16*)smem;
     const int n = L.sw * L.sh;
+    float* s_f = (float*)smem;
+    __nv_bfloat16* s_b = (__nv_bfloat16*)(s_f + KB_BWD_F32 * n);
     if (STAGED) {
         const int tid = threadIdx.y * KB_TX + tx;
         for (int j = tid / K14_TW; j < L.sh; j += KB_TX * KB_TY / K14_TW) {
@@ -705,6 +741,8 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
                     color, normal, depth, zgrad, sden, norm, gc, gv, H, W, y,
                     L.col(c));
                 const int e = j * L.sw + c;
+#pragma unroll
+                for (int q = 0; q < KB_BWD_F32; ++q) s_f[q * n + e] = v.f[q];
 #pragma unroll
                 for (int q = 0; q < KB_BWD_PLANES; ++q)
                     s_b[q * n + e] = v.a[q];
@@ -724,7 +762,7 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
         const int e = L.at(kl, 2 * tx, 0, 0);
 #pragma unroll
         for (int q = 0; q < 5; ++q)
-            own[q] = lds_pair(s_b + q * n, e, e & 1);
+            own[q] = lds_pair(s_b + q * n, e, bf16_pair_odd<R, S1>(e, 0));
     } else {
         const BwdPixBf16 a = bwd_centre_bf16(color, normal, depth, zgrad,
                                              sden, norm, gc, gv, H, W, y, x);
@@ -735,6 +773,26 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
         for (int q = 0; q < 5; ++q)
             own[q] = __halves2bfloat162(a.a[q], b.a[q]);
     }
+    // a compiled radius, once a thread: the tap offsets d*s in bf16 (exact:
+    // r <= 2 times a power of two), h_y*h_x of each |dy|, |dx| (the taps
+    // are symmetric) and the lane mask of each column dx (its centres')
+    bf2 off[WIDE ? 1 : 2 * R + 1], h_t[WIDE ? 1 : (R + 1) * (R + 1)];
+    unsigned cmask[WIDE ? 1 : 2 * R + 1];
+    if constexpr (!WIDE) {
+#pragma unroll
+        for (int dx = -R; dx <= R; ++dx) {
+            const int ox = dx * L.s;
+            cmask[dx + R] = lane_mask(x - ox >= 0 && x - ox < W,
+                                      x + 1 - ox >= 0 && x + 1 - ox < W);
+        }
+#pragma unroll
+        for (int d = -R; d <= R; ++d) off[d + R] = bf2_splat((float)(d * L.s));
+#pragma unroll
+        for (int a = 0; a <= R; ++a)
+#pragma unroll
+            for (int b = 0; b <= R; ++b)
+                h_t[a * (R + 1) + b] = tap_h2(p.taps[R + a], p.taps[R + b]);
+    }
 
     float a00 = 0.0f, a01 = 0.0f, a02 = 0.0f, av0 = 0.0f;
     float a10 = 0.0f, a11 = 0.0f, a12 = 0.0f, av1 = 0.0f;
@@ -742,18 +800,30 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
     for (int dy = -r; dy <= r; ++dy) {
         const int oy = dy * L.s;
         const int py = y - oy;
-        if (py < 0 || py >= H) continue;
+        const bool rin = py >= 0 && py < H;
 #pragma unroll
         for (int dx = -r; dx <= r; ++dx) {
             const int ox = dx * L.s;
-            // the centres p = x - d of the two lanes
-            const bool m0 = x - ox >= 0 && x - ox < W;
-            const bool m1 = x + 1 - ox >= 0 && x + 1 - ox < W;
-            if (!m0 && !m1) continue;
+            // the centres p = x - d of the two lanes; no branch: a dropped
+            // centre reads the staged zeros of the frame's outside, weighs
+            // +0 and adds exact zeros (K1b-bf16's dropped taps)
+            unsigned mask = 0u;
+            if (rin) {
+                if constexpr (WIDE)
+                    mask = lane_mask(x - ox >= 0 && x - ox < W,
+                                     x + 1 - ox >= 0 && x + 1 - ox < W);
+                else
+                    mask = cmask[dx + R];
+            }
+            float2 u0, u1, u2, uv;
             bf2 q[KB_BWD_PLANES];
             if (STAGED) {
                 const int e = L.at(kl, 2 * tx, -dy, -dx);
-                const bool odd = e & 1;
+                const bool odd = bf16_pair_odd<R, S1>(e, -dx);
+                u0 = lds_pair_f32(s_f, e, odd);
+                u1 = lds_pair_f32(s_f + n, e, odd);
+                u2 = lds_pair_f32(s_f + 2 * n, e, odd);
+                uv = lds_pair_f32(s_f + 3 * n, e, odd);
 #pragma unroll
                 for (int t = 0; t < KB_BWD_PLANES; ++t)
                     q[t] = lds_pair(s_b + t * n, e, odd);
@@ -764,32 +834,37 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
                 const BwdPixBf16 b = bwd_centre_bf16(
                     color, normal, depth, zgrad, sden, norm, gc, gv, H, W, py,
                     x + 1 - ox);
+                u0 = make_float2(a.f[0], b.f[0]);
+                u1 = make_float2(a.f[1], b.f[1]);
+                u2 = make_float2(a.f[2], b.f[2]);
+                uv = make_float2(a.f[3], b.f[3]);
 #pragma unroll
                 for (int t = 0; t < KB_BWD_PLANES; ++t)
                     q[t] = __halves2bfloat162(a.a[t], b.a[t]);
             }
-            const float hy = WIDE ? wide_taps[dy + r] : p.taps[dy + r];
-            const float hx = WIDE ? wide_taps[dx + r] : p.taps[dx + r];
-            const bf2 hfm = tap_hfm(hy, hx, m0, m1);
+            bf2 h, oyb, oxb;
+            if constexpr (!WIDE) {
+                h = h_t[(dy < 0 ? -dy : dy) * (R + 1) + (dx < 0 ? -dx : dx)];
+                oyb = off[dy + R];
+                oxb = off[dx + R];
+            } else {
+                h = tap_h2(wide_taps[dy + r], wide_taps[dx + r]);
+                oyb = bf2_splat((float)oy);
+                oxb = bf2_splat((float)ox);
+            }
+            const bf2 hfm = tap_hfm(h, mask);
             // centre p's weight for its tap d, whose neighbour is x
             const bf2 dz2 = add2(
-                mul2(k.sz2, __habs2(add2(mul2(q[6], bf2_splat((float)oy)),
-                                         mul2(q[7], bf2_splat((float)ox))))),
+                mul2(k.sz2, __habs2(add2(mul2(q[6], oyb), mul2(q[7], oxb)))),
                 k.eps2);
-            const float2 dzf = __bfloat1622float2(dz2);
-            const bf2 rz = __floats2bfloat162_rn(__frcp_rn(dzf.x),
-                                                 __frcp_rn(dzf.y));
+            const bf2 rz = rcp_bf16x2(dz2);
             const bf2 wz2 = mul2(neg_abs2(sub2(q[4], own[4])), rz);
             const bf2 wl2 = mul2(neg_abs2(sub2(q[0], own[0])), q[5]);
             const bf2 w = mul2(hfm, edge_exp_bf16x2(wz2, wl2, q[1], q[2], q[3],
                                                     own[1], own[2], own[3],
                                                     k));
-            const float2 wr = __bfloat1622float2(w);
-            const float2 ww = __bfloat1622float2(mul2(w, w));
-            const float2 u0 = __bfloat1622float2(q[8]);
-            const float2 u1 = __bfloat1622float2(q[9]);
-            const float2 u2 = __bfloat1622float2(q[10]);
-            const float2 uv = __bfloat1622float2(q[11]);
+            const float2 wr = bf2_floats(w);
+            const float2 ww = bf2_floats(mul2(w, w));
             a00 = __fmaf_rn(wr.x, u0.x, a00);
             a01 = __fmaf_rn(wr.x, u1.x, a01);
             a02 = __fmaf_rn(wr.x, u2.x, a02);
@@ -800,23 +875,17 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) atrous_bwd_bf16_kernel(
             av1 = __fmaf_rn(ww.y, uv.y, av1);
         }
     }
-    dc[i] = a00;
-    dc[hw + i] = a01;
-    dc[2 * hw + i] = a02;
-    dv[i] = av0;
-    if (in1) {
-        dc[i + 1] = a10;
-        dc[hw + i + 1] = a11;
-        dc[2 * hw + i + 1] = a12;
-        dv[i + 1] = av1;
-    }
+    store_pair(dc, i, a00, a10, in1);
+    store_pair(dc, hw + i, a01, a11, in1);
+    store_pair(dc, 2 * hw + i, a02, a12, in1);
+    store_pair(dv, i, av0, av1, in1);
 }
 
-template <int R, bool STAGED>
+template <int R, bool STAGED, bool S1 = false>
 cudaError_t launch_bwd_bf16(const BwdArgs& a, const AtrousParams& p,
                             const AtrousBf16& kb, size_t bytes,
                             cudaStream_t s) {
-    auto kernel = atrous_bwd_bf16_kernel<R, STAGED>;
+    auto kernel = atrous_bwd_bf16_kernel<R, STAGED, S1>;
     static size_t opted = 0;
     cudaError_t err = allow_smem(kernel, bytes, opted);
     if (err != cudaSuccess) return err;
@@ -825,6 +894,43 @@ cudaError_t launch_bwd_bf16(const BwdArgs& a, const AtrousParams& p,
         a.color, a.normal, a.depth, a.zgrad, a.sden, a.norm, a.gc, a.gv,
         a.dc, a.dv, p, kb, a.wide_taps);
     return cudaGetLastError();
+}
+
+// The bf16 forms' bit tricks against the formulas they replaced, on every
+// bf16 pattern (tests/test_torch_cuda.py): thread j takes pattern j in its
+// low lane and pattern (j * 40503) mod 2^16 in its high lane (a
+// permutation), and writes the lane pair of exp2_fast_bf16x2 with 2^i by
+// conversion, clamp and shift (the replaced assembly) and from the bf16
+// bits (exp2_fast_bf16x2's), and of the reciprocal by __frcp_rn (the
+// replaced one) and by rcp.approx (rcp_bf16x2), each rounded to bf16.
+__device__ __forceinline__ bf2 exp2_bf16x2_by_conversion(bf2 y,
+                                                         const Bf16K& k) {
+    y = __hmax2(y, k.floor);
+    const bf2 yi = h2floor(add2(y, k.half));
+    const bf2 z = mul2(sub2(y, yi), k.ln2);
+    bf2 p = add2(k.half, mul2(z, k.sixth));
+    p = add2(k.one, mul2(z, p));
+    p = add2(k.one, mul2(z, p));
+    const float2 yf = __bfloat1622float2(yi);
+    const int i0 = max(-126, min(127, (int)yf.x));
+    const int i1 = max(-126, min(127, (int)yf.y));
+    const unsigned two_i = ((unsigned)(i0 + 127) << 7)
+                           | ((unsigned)(i1 + 127) << 23);
+    return mul2(p, bf2_of(two_i));
+}
+
+__global__ void bf16_formulas_kernel(unsigned* __restrict__ out,
+                                     AtrousBf16 kb) {
+    const unsigned j = blockIdx.x * blockDim.x + threadIdx.x;
+    if (j >= 65536u) return;
+    const Bf16K k = bf16_k(kb);
+    const bf2 v = bf2_of(j | (((j * 40503u) & 0xFFFFu) << 16));
+    const float2 f = __bfloat1622float2(v);
+    out[j] = bf2_bits(exp2_bf16x2_by_conversion(v, k));
+    out[65536 + j] = bf2_bits(exp2_fast_bf16x2(v, k));
+    out[2 * 65536 + j] = bf2_bits(
+        __floats2bfloat162_rn(__frcp_rn(f.x), __frcp_rn(f.y)));
+    out[3 * 65536 + j] = bf2_bits(rcp_bf16x2(v));
 }
 
 // K9's inputs.
@@ -1086,6 +1192,13 @@ extern "C" const char* rdt_error_string(int code) {
     return cudaGetErrorString((cudaError_t)code);
 }
 
+// The bit-trick probe (bf16_formulas_kernel): out holds 4 x 65536 words.
+extern "C" int rdt_bf16_formulas(unsigned* out, const AtrousBf16* bf16,
+                                 void* stream) {
+    bf16_formulas_kernel<<<256, 256, 0, (cudaStream_t)stream>>>(out, *bf16);
+    return (int)cudaGetLastError();
+}
+
 extern "C" int rdt_zgrad(const float* depth, float* zgrad, int H, int W,
                          void* stream) {
     dim3 block(32, 8);
@@ -1175,15 +1288,17 @@ extern "C" int rdt_atrous_bwd(const float* color, const float* normal,
 extern "C" int rdt_atrous_level_bf16(const float* color, const float* var,
                                      const float* normal, const float* depth,
                                      const float* zgrad, const float* sden,
-                                     float* color_out, float* var_out,
-                                     float* w_out, float* n_out,
+                                     float* sden_out, float* color_out,
+                                     float* var_out, float* w_out,
+                                     float* n_out,
                                      const AtrousParams* params,
                                      const AtrousBf16* bf16,
                                      const float* wide_taps, void* stream) {
     const LevelArgs a{color, var, normal, depth, zgrad, sden, color_out,
                       var_out, w_out, n_out, 1, params, nullptr, wide_taps,
-                      (cudaStream_t)stream};
-    return (int)launch_level_bf16(a, *bf16);
+                      (cudaStream_t)stream, sden_out};
+    return (int)(sden ? launch_level_bf16(a, *bf16)
+                      : launch_level_bf16_fused(a, *bf16));
 }
 
 // K14's bf16 form, whole frame; bf16 and wide_taps as above.
@@ -1201,7 +1316,7 @@ extern "C" int rdt_atrous_bwd_bf16(const float* color, const float* normal,
     const cudaStream_t s = (cudaStream_t)stream;
     const size_t staged = lattice_entries<K14_TW, K14_TR>(p.spacing,
                                                           p.radius)
-                          * KB_BWD_PLANES * sizeof(__nv_bfloat16);
+                          * KB_BWD_BYTES;
     cudaError_t err;
     if (wide_taps) {
         err = staged <= kBf16BwdMaxStaged
@@ -1210,8 +1325,18 @@ extern "C" int rdt_atrous_bwd_bf16(const float* color, const float* normal,
     } else {
         switch (p.radius) {
         case 0: err = launch_bwd_bf16<0, true>(a, p, *bf16, staged, s); break;
-        case 1: err = launch_bwd_bf16<1, true>(a, p, *bf16, staged, s); break;
-        case 2: err = launch_bwd_bf16<2, true>(a, p, *bf16, staged, s); break;
+        // radius 1 and 2 apart at spacing 1, where a lane pair can be
+        // unaligned (bf16_pair_odd)
+        case 1:
+            err = p.spacing == 1
+                      ? launch_bwd_bf16<1, true, true>(a, p, *bf16, staged, s)
+                      : launch_bwd_bf16<1, true>(a, p, *bf16, staged, s);
+            break;
+        case 2:
+            err = p.spacing == 1
+                      ? launch_bwd_bf16<2, true, true>(a, p, *bf16, staged, s)
+                      : launch_bwd_bf16<2, true>(a, p, *bf16, staged, s);
+            break;
         default: err = cudaErrorInvalidValue;
         }
     }

@@ -56,6 +56,9 @@ struct LevelArgs {
     const AtrousTile* tile;
     const float* wide_taps;
     cudaStream_t stream;
+    // K1b's bf16 form with the sigma denominator fused (sden null): where
+    // set, the denominator is written here too (K14's bf16 form reads it)
+    float* sden_out;
 };
 
 // K1/K1b at radius R (0, 1, 2), or R = -1: any radius, taps in wide_taps;
@@ -71,9 +74,12 @@ struct AtrousBf16 {
     float l0, l1, l2, ln2, sixth, floor, sz2, eps2, c_s1, c_s2;
 };
 
-// K1b's bf16 form (atrous_level.cuh, instantiated in atrous_level_bf16.cu):
-// a.sden and a.n_out set, a.w_out null or float weights, no tile.
+// K1b's bf16 form (atrous_level.cuh): a.n_out set, no tile; a.sden set
+// (atrous_level_bf16.cu), a.w_out null or float weights; or a.sden null,
+// the sigma denominator fused (atrous_level_bf16_fused.cu), a.w_out null,
+// a.sden_out null or the plane it is written to.
 cudaError_t launch_level_bf16(const LevelArgs& a, const AtrousBf16& kb);
+cudaError_t launch_level_bf16_fused(const LevelArgs& a, const AtrousBf16& kb);
 
 namespace {
 
@@ -252,22 +258,30 @@ __device__ __forceinline__ bf2 bf2_splat(float x) {
     return __float2bfloat162_rn(x);
 }
 
-// The bf16 constants as lane pairs, and 1/2 and 1.
+// The bf16 constants as lane pairs, and 1/2, 1, -126 and 255 (all exact
+// in bf16).
 struct Bf16K {
-    bf2 l0, l1, l2, ln2, sixth, floor, sz2, eps2, c_s1, c_s2, half, one;
+    bf2 l0, l1, l2, ln2, sixth, floor, sz2, eps2, c_s1, c_s2, half, one,
+        m126, c255;
 };
 
 __device__ __forceinline__ Bf16K bf16_k(const AtrousBf16& b) {
     return Bf16K{bf2_splat(b.l0), bf2_splat(b.l1), bf2_splat(b.l2),
                  bf2_splat(b.ln2), bf2_splat(b.sixth), bf2_splat(b.floor),
                  bf2_splat(b.sz2), bf2_splat(b.eps2), bf2_splat(b.c_s1),
-                 bf2_splat(b.c_s2), bf2_splat(0.5f), bf2_splat(1.0f)};
+                 bf2_splat(b.c_s2), bf2_splat(0.5f), bf2_splat(1.0f),
+                 bf2_splat(-126.0f), bf2_splat(255.0f)};
 }
 
 // 2^y in bfloat16, y <= 0 (the TPU kernel's _exp2_fast_bf16,
 // ops.atrous.exp2_fast_bf16): y clamped at -1e4 (its bf16 value), i =
 // floor(y + 1/2), the degree-3 Taylor polynomial at z = (y - i)*ln2, times
-// 2^i built in the bf16 bit layout (exponent i + 127, i in [-126, 127]).
+// 2^i built in the bf16 bit layout (exponent field i + 127, i clipped to
+// [-126, 127]).  i <= 0 here, so 2^i comes from the bf16 bits with no
+// conversion: t = max(i, -126) + 255 is an integer in [129, 255], exact in
+// bf16, whose 7-bit mantissa field is t - 128 = max(i, -126) + 127, the
+// exponent field 2^i needs (tests/test_torch_bf16_bits.py enumerates it
+// against the clamp of the integer i).
 __device__ __forceinline__ bf2 exp2_fast_bf16x2(bf2 y, const Bf16K& k) {
     y = __hmax2(y, k.floor);
     const bf2 yi = h2floor(add2(y, k.half));
@@ -275,12 +289,8 @@ __device__ __forceinline__ bf2 exp2_fast_bf16x2(bf2 y, const Bf16K& k) {
     bf2 p = add2(k.half, mul2(z, k.sixth));
     p = add2(k.one, mul2(z, p));
     p = add2(k.one, mul2(z, p));
-    const float2 yf = __bfloat1622float2(yi);
-    const int i0 = max(-126, min(127, (int)yf.x));
-    const int i1 = max(-126, min(127, (int)yf.y));
-    const unsigned two_i = ((unsigned)(i0 + 127) << 7)
-                           | ((unsigned)(i1 + 127) << 23);
-    return mul2(p, bf2_of(two_i));
+    const bf2 t = add2(__hmax2(yi, k.m126), k.c255);
+    return mul2(p, bf2_of((bf2_bits(t) & 0x007F007Fu) << 7));
 }
 
 // The bf16 tap weight's exponential, 2^(wz2 + wl2 - (c1*s + c2*s^2)) with
@@ -297,13 +307,30 @@ __device__ __forceinline__ bf2 edge_exp_bf16x2(bf2 wz2, bf2 wl2, bf2 a0,
     return exp2_fast_bf16x2(arg, k);
 }
 
-// hfm of a tap for the two lanes: h = h_y*h_x in bf16 where the lane's
-// tap lies in the frame (m0, m1), else +0.
-__device__ __forceinline__ bf2 tap_hfm(float hy, float hx, bool m0, bool m1) {
-    const bf2 h = mul2(bf2_splat(hy), bf2_splat(hx));
-    const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-    return __halves2bfloat162(m0 ? __low2bfloat16(h) : zero,
-                              m1 ? __high2bfloat16(h) : zero);
+// The two lanes of a bf16 pair as floats (exact: each lane's bits moved
+// into a float's high half, as __bfloat1622float2 does, in one operation a
+// lane).
+__device__ __forceinline__ float2 bf2_floats(bf2 a) {
+    const unsigned u = bf2_bits(a);
+    return make_float2(__uint_as_float(u << 16),
+                       __uint_as_float(u & 0xFFFF0000u));
+}
+
+// The lane mask of a tap's column pair: 0xFFFF where lane 0's tap lies in
+// the frame, 0xFFFF0000 where lane 1's does.
+__device__ __forceinline__ unsigned lane_mask(bool m0, bool m1) {
+    return (m0 ? 0x0000FFFFu : 0u) | (m1 ? 0xFFFF0000u : 0u);
+}
+
+// h = h_y*h_x rounded to bf16 in both lanes (the tap's 2-D weight).
+__device__ __forceinline__ bf2 tap_h2(float hy, float hx) {
+    return mul2(bf2_splat(hy), bf2_splat(hx));
+}
+
+// hfm of a tap for the two lanes: h where the lane's tap lies in the frame
+// (its half of lane_mask), else +0 (bits 0).
+__device__ __forceinline__ bf2 tap_hfm(bf2 h, unsigned mask) {
+    return bf2_of(bf2_bits(h) & mask);
 }
 
 // A pair of adjacent bf16 entries of a staged plane: one 4-byte load where
@@ -312,6 +339,42 @@ __device__ __forceinline__ bf2 lds_pair(const __nv_bfloat16* plane, int e,
                                         bool odd) {
     if (!odd) return *reinterpret_cast<const bf2*>(plane + e);
     return __halves2bfloat162(plane[e], plane[e + 1]);
+}
+
+// Whether the lane pair at staged entry e of a row-lattice tile, read for
+// its tap column dx, is unaligned.  e = row*sw + 2*tx + (dx + r)*sp with sw
+// even, so only (dx + r)*sp can be odd: never at a spacing above 1, at
+// spacing 1 (S1) where dx + r is odd; a compiled radius (R >= 0) knows it
+// at compile time, the WIDE one reads e's low bit.
+template <int R, bool S1>
+__device__ __forceinline__ bool bf16_pair_odd(int e, int dx) {
+    if constexpr (R < 0) return e & 1;
+    else return S1 && ((dx + R) & 1);
+}
+
+// A pair of adjacent entries of a staged float plane: one 8-byte load
+// where the pair is aligned, else two.
+__device__ __forceinline__ float2 lds_pair_f32(const float* plane, int e,
+                                               bool odd) {
+    if (!odd) return *reinterpret_cast<const float2*>(plane + e);
+    return make_float2(plane[e], plane[e + 1]);
+}
+
+// x rounded to bf16, as a float (the value the float32 sums multiply).
+__device__ __forceinline__ float bf16_value(float x) {
+    return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The two outputs (a at element k, b at k + 1 where in1) of a lane pair:
+// one 8-byte store where k is even, else one or two 4-byte stores.
+__device__ __forceinline__ void store_pair(float* __restrict__ out, int k,
+                                           float a, float b, bool in1) {
+    if (in1 && !(k & 1)) {
+        *reinterpret_cast<float2*>(out + k) = make_float2(a, b);
+        return;
+    }
+    out[k] = a;
+    if (in1) out[k + 1] = b;
 }
 
 // Raise a kernel's dynamic shared-memory limit to ``bytes`` (the default

@@ -336,34 +336,51 @@ cudaError_t launch_level_store(const LevelArgs& a) {
 // rows of one residue modulo the spacing), 32 x 8 threads, each computing
 // the two horizontally adjacent pixels (x, x + 1) of one lattice row in
 // the two lanes of an __nv_bfloat162.  A block stages once per pixel of
-// its tile and halo the nine bf16 values a tap reads (colour, variance,
-// luminance, normal, depth), rounded from the f32 planes as they are
-// loaded (no separate cast pass over the planes), 18 B a pixel as nine
-// planes, so a tap reads nine lane pairs: one 4-byte load each where the
-// pair is aligned (spacing >= 2; at spacing 1 every other dx), else two.
-// The tap math then runs on both pixels at once in packed bf16 (PTX
+// its tile and halo what a tap reads, rounded from the f32 planes as they
+// are loaded (no separate cast pass): colour and variance as float32
+// values already rounded to bf16 (four float planes: they feed only the
+// float32 fmas, so a tap reads them with no unpacking, one 8-byte load a
+// plane for an aligned lane pair), and luminance (bf16, from the rounded
+// colour), normal and depth as five bf16 planes: 26 B a pixel.  At
+// spacing 1 every other dx reads an unaligned pair: two loads a plane.
+// The tap math runs on both pixels at once in packed bf16 (PTX
 // add/sub/mul.rn.bf16x2: each operation rounded once, as the TPU body
-// rounds it; no fma where it rounds twice); the depth weight's scale rz =
-// 1/(sz2*|dz.d| + eps2) is a true float32 division a lane, rounded to
-// bf16 (the TPU kernel's Newton reciprocal from a bf16 seed differs by
-// ~2^-16 before that rounding; the twin divides as the kernel does), and
-// shared between a tap and its mirror (the same expression).  Sums are
-// float32: each lane's weight times its neighbour's value is exact in
-// float32 and enters by one fma (the JAX kernel keeps these products
-// unrounded: XLA drops their bf16 round trip into the float32 sum; w*w is
-// rounded), N adds the weight's exact float32 value h*2^arg.  The end is
-// float32: N = max(N, eps), c = sum*(1/N), v = sum_v*(1/N)^2, true
-// division.  Bound: memory as K1b's f32 form, 64 B/px (the planes are read
-// as f32 and rounded on staging); the lever over it is the instruction
-// count (two pixels an instruction in the tap math).  R: 0, 1, 2 at
-// compile time, or -1: any radius, taps from wide_taps; STAGED false (a
-// WIDE tile above kBf16MaxStaged): each tap reads its two neighbours
-// through the caches and rounds them there.
-constexpr int KB_FWD_PLANES = 9;         // c0 c1 c2 v lum n0 n1 n2 z
+// rounds it; no fma where it rounds twice).  Per thread, before the taps:
+// the 2-D tap weights h_y*h_x in bf16 (one a distinct |dy|, |dx|: the taps
+// are symmetric), and the depth weight's scale rz = 1/(sz2*|dz.d| + eps2)
+// of each lane, one true float32 division for each distinct offset (a tap
+// and its mirror share |dz.d|: 5 at r1, 13 at r2, the centre included),
+// rounded to bf16 (the TPU kernel's Newton reciprocal from a bf16 seed
+// differs by ~2^-16 before that rounding; the twin divides as this kernel
+// does).  2^i in the exponential comes from the bf16 bits
+// (exp2_fast_bf16x2).  Sums are float32: each lane's weight times its
+// neighbour's value is exact in float32 and enters by one fma (the JAX
+// kernel keeps these products unrounded: XLA drops their bf16 round trip
+// into the float32 sum; w*w is rounded), N adds the weight's exact float32
+// value h*2^arg.  The end is float32: N = max(N, eps), c = sum*(1/N), v =
+// sum_v*(1/N)^2, true division; an aligned lane pair stores its two
+// outputs as one float2.  A dropped tap is masked, not skipped (no branch
+// but at radius 2).  Radius 1 and 2 compile spacing 1 apart (S1), so every
+// lane pair's alignment is known at compile time.  FUSED: the sigma
+// denominator is not read but computed from the float32 variance through
+// the caches (fused_sden_pair: K1's fused_sden<false> for both lanes from
+// one 3 x 4 window; the operations and order of ops.atrous.
+// sigma_denominator, which the other form is fed), and written where
+// sden_out is set (for K14's bf16 form).  Bound: memory, 64 B/px with a
+// given sigma (colour, variance, normal, depth, zgrad, sigma in; c, v, N
+// out); fused 60 B/px, 64 with the sigma written.  R: 0, 1, 2 at compile
+// time, or -1: any radius, taps from wide_taps, the scales and tap weights
+// a tap; STAGED false (a WIDE tile above kBf16MaxStaged): each tap reads
+// its two neighbours through the caches and rounds them there.
+constexpr int KB_FWD_F32 = 4;            // c0 c1 c2 v, rounded to bf16
+constexpr int KB_FWD_PLANES = 5;         // lum n0 n1 n2 z
+constexpr size_t KB_FWD_BYTES =
+    KB_FWD_F32 * sizeof(float) + KB_FWD_PLANES * sizeof(__nv_bfloat16);
 constexpr size_t kBf16MaxStaged = 200 * 1024;
 
-// One pixel's bf16 values for the forward's taps; zero outside the frame.
+// One pixel's values for the forward's taps; zero outside the frame.
 struct FwdPixBf16 {
+    float f[KB_FWD_F32];
     __nv_bfloat16 a[KB_FWD_PLANES];
 };
 
@@ -374,6 +391,8 @@ __device__ __forceinline__ FwdPixBf16 fwd_pixel_bf16(
     FwdPixBf16 v;
     if (y < 0 || y >= H || x < 0 || x >= W) {
         const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+#pragma unroll
+        for (int q = 0; q < KB_FWD_F32; ++q) v.f[q] = 0.0f;
 #pragma unroll
         for (int q = 0; q < KB_FWD_PLANES; ++q) v.a[q] = zero;
         return v;
@@ -387,32 +406,85 @@ __device__ __forceinline__ FwdPixBf16 fwd_pixel_bf16(
                          mul2(k.l2, __low2bfloat162(c2v)));
     const bf2 n01 = __floats2bfloat162_rn(normal[i], normal[hw + i]);
     const bf2 n2z = __floats2bfloat162_rn(normal[2 * hw + i], depth[i]);
-    v.a[0] = __low2bfloat16(c01);
-    v.a[1] = __high2bfloat16(c01);
-    v.a[2] = __low2bfloat16(c2v);
-    v.a[3] = __high2bfloat16(c2v);
-    v.a[4] = __low2bfloat16(lum);
-    v.a[5] = __low2bfloat16(n01);
-    v.a[6] = __high2bfloat16(n01);
-    v.a[7] = __low2bfloat16(n2z);
-    v.a[8] = __high2bfloat16(n2z);
+    const float2 c01f = __bfloat1622float2(c01);
+    const float2 c2vf = __bfloat1622float2(c2v);
+    v.f[0] = c01f.x;
+    v.f[1] = c01f.y;
+    v.f[2] = c2vf.x;
+    v.f[3] = c2vf.y;
+    v.a[0] = __low2bfloat16(lum);
+    v.a[1] = __low2bfloat16(n01);
+    v.a[2] = __high2bfloat16(n01);
+    v.a[3] = __low2bfloat16(n2z);
+    v.a[4] = __high2bfloat16(n2z);
     return v;
 }
 
-// The lane pairs of a tap's two neighbours.
-struct FwdPairBf16 {
-    bf2 a[KB_FWD_PLANES];
-};
+// The depth weight's scale rz = 1/(sz2*|zg.(ky, kx)| + eps2) of the two
+// lanes (depth gradients (zg00, zg10) and (zg01, zg11)), true float32
+// divisions rounded to bf16.
+__device__ __forceinline__ bf2 depth_scale_bf16(float zg00, float zg10,
+                                                float zg01, float zg11,
+                                                float ky, float kx,
+                                                const AtrousParams& p) {
+    const float rz0 = 1.0f / (p.sz2 * fabsf(zg00 * ky + zg10 * kx) + p.eps2);
+    const float rz1 = 1.0f / (p.sz2 * fabsf(zg01 * ky + zg11 * kx) + p.eps2);
+    return __floats2bfloat162_rn(rz0, rz1);
+}
 
-template <int R, bool STAGED, bool STORE>
+// fused_sden<false> of the lane pair (x, x + 1) of row y (0 for lane 1
+// past the frame's edge), in its operations and order for each lane, from
+// one 3 x 4 window of variance loads (the lanes share two columns).
+__device__ __forceinline__ float2 fused_sden_pair(
+    const float* __restrict__ var, int H, int W, int y, int x, bool in1,
+    const AtrousParams& p) {
+    const float k1[3] = {0.25f, 0.5f, 0.25f};
+    float v[3][4];
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+            const int yy = y + dy, xx = x - 1 + c;
+            v[dy + 1][c] = yy >= 0 && yy < H && xx >= 0 && xx < W
+                               ? var[yy * W + xx] : 0.0f;
+        }
+    }
+    float num0 = 0.0f, kden0 = 0.0f, num1 = 0.0f, kden1 = 0.0f;
+#pragma unroll
+    for (int dy = -1; dy <= 1; ++dy) {
+        if (y + dy < 0 || y + dy >= H) continue;
+#pragma unroll
+        for (int dx = -1; dx <= 1; ++dx) {
+            const float k = k1[dy + 1] * k1[dx + 1];
+            if (x + dx >= 0 && x + dx < W) {
+                num0 = num0 + k * v[dy + 1][dx + 1];
+                kden0 = kden0 + k;
+            }
+            if (x + 1 + dx < W) {
+                num1 = num1 + k * v[dy + 1][dx + 2];
+                kden1 = kden1 + k;
+            }
+        }
+    }
+    return make_float2(
+        p.sigma_color * sqrtf(fmaxf(num0 / kden0, 0.0f)) + kEps,
+        in1 ? p.sigma_color * sqrtf(fmaxf(num1 / kden1, 0.0f)) + kEps
+            : 0.0f);
+}
+
+template <int R, bool STAGED, bool STORE, bool FUSED, bool S1>
 __global__ void __launch_bounds__(KB_TX * KB_TY) level_bf16_kernel(
     const float* __restrict__ color, const float* __restrict__ var,
     const float* __restrict__ normal, const float* __restrict__ depth,
     const float* __restrict__ zgrad, const float* __restrict__ sden,
-    float* __restrict__ color_out, float* __restrict__ var_out,
-    float* __restrict__ w_out, float* __restrict__ n_out, AtrousParams p,
-    AtrousBf16 kb, const float* __restrict__ wide_taps) {
+    float* __restrict__ sden_out, float* __restrict__ color_out,
+    float* __restrict__ var_out, float* __restrict__ w_out,
+    float* __restrict__ n_out, AtrousParams p, AtrousBf16 kb,
+    const float* __restrict__ wide_taps) {
     constexpr bool WIDE = R < 0;
+    // compiled radius: its taps, and the distinct |dz.d| (centre first)
+    constexpr int NT = WIDE ? 1 : (2 * R + 1) * (2 * R + 1);
+    constexpr int NRZ = NT / 2 + 1;
     const int H = p.H, W = p.W, hw = H * W;
     const int r = WIDE ? p.radius : R;
     const int side = 2 * r + 1;
@@ -420,9 +492,12 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) level_bf16_kernel(
     const Bf16K k = bf16_k(kb);
     const int tx = threadIdx.x;
 
+    // the staged planes: four float planes, then five bf16 planes (the
+    // tile's width is even, so every plane's pairs align alike)
     extern __shared__ float4 smem[];
-    __nv_bfloat16* s_b = (__nv_bfloat16*)smem;
     const int n = L.sw * L.sh;
+    float* s_f = (float*)smem;
+    __nv_bfloat16* s_b = (__nv_bfloat16*)(s_f + KB_FWD_F32 * n);
     if (STAGED) {
         const int tid = threadIdx.y * KB_TX + tx;
         for (int j = tid / K1_TW; j < L.sh; j += KB_TX * KB_TY / K1_TW) {
@@ -432,6 +507,8 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) level_bf16_kernel(
                                                     depth, H, W, y, L.col(c),
                                                     k);
                 const int e = j * L.sw + c;
+#pragma unroll
+                for (int q = 0; q < KB_FWD_F32; ++q) s_f[q * n + e] = v.f[q];
 #pragma unroll
                 for (int q = 0; q < KB_FWD_PLANES; ++q)
                     s_b[q * n + e] = v.a[q];
@@ -445,13 +522,13 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) level_bf16_kernel(
     if (y >= H || x >= W) return;
     const bool in1 = x + 1 < W;
     const int i = y * W + x;
-    // the pair's own values (the tap d = 0)
-    FwdPairBf16 c;
+    // the pair's own luminance, normal and depth (the tap d = 0)
+    bf2 c[KB_FWD_PLANES];
     if (STAGED) {
         const int e = L.at(kl, 2 * tx, 0, 0);
 #pragma unroll
         for (int q = 0; q < KB_FWD_PLANES; ++q)
-            c.a[q] = lds_pair(s_b + q * n, e, e & 1);
+            c[q] = lds_pair(s_b + q * n, e, bf16_pair_odd<R, S1>(e, 0));
     } else {
         const FwdPixBf16 a = fwd_pixel_bf16(color, var, normal, depth, H, W,
                                             y, x, k);
@@ -459,14 +536,49 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) level_bf16_kernel(
                                             y, x + 1, k);
 #pragma unroll
         for (int q = 0; q < KB_FWD_PLANES; ++q)
-            c.a[q] = __halves2bfloat162(a.a[q], b.a[q]);
+            c[q] = __halves2bfloat162(a.a[q], b.a[q]);
     }
     const float zg00 = zgrad[i], zg10 = zgrad[hw + i];
     const float zg01 = in1 ? zgrad[i + 1] : 0.0f;
     const float zg11 = in1 ? zgrad[hw + i + 1] : 0.0f;
-    const bf2 isd2 = __floats2bfloat162_rn(
-        kLog2e / fmaxf(sden[i], kEps),
-        kLog2e / fmaxf(in1 ? sden[i + 1] : 0.0f, kEps));
+    float sd0, sd1;
+    if (FUSED) {
+        const float2 sd = fused_sden_pair(var, H, W, y, x, in1, p);
+        sd0 = sd.x;
+        sd1 = sd.y;
+        if (sden_out) store_pair(sden_out, i, sd0, sd1, in1);
+    } else {
+        sd0 = sden[i];
+        sd1 = in1 ? sden[i + 1] : 0.0f;
+    }
+    const bf2 isd2 = __floats2bfloat162_rn(kLog2e / fmaxf(sd0, kEps),
+                                           kLog2e / fmaxf(sd1, kEps));
+    // per thread, before the taps (a compiled radius): rz of each distinct
+    // offset, the rows outside the frame included (the tap j = NT/2 + t,
+    // dy-major, and its mirror NT/2 - t), h_y*h_x of each |dy|, |dx|, and
+    // the lane mask of each column dx
+    bf2 rz_t[NRZ], h_t[WIDE ? 1 : (R + 1) * (R + 1)];
+    unsigned cmask[WIDE ? 1 : 2 * R + 1];
+    if constexpr (!WIDE) {
+#pragma unroll
+        for (int dx = -R; dx <= R; ++dx) {
+            const int ox = dx * L.s;
+            cmask[dx + R] = lane_mask(x + ox >= 0 && x + ox < W,
+                                      x + 1 + ox >= 0 && x + 1 + ox < W);
+        }
+#pragma unroll
+        for (int t = 0; t < NRZ; ++t) {
+            const int j = NT / 2 + t;
+            rz_t[t] = depth_scale_bf16(
+                zg00, zg10, zg01, zg11, (float)((j / (2 * R + 1) - R) * L.s),
+                (float)((j % (2 * R + 1) - R) * L.s), p);
+        }
+#pragma unroll
+        for (int a = 0; a <= R; ++a)
+#pragma unroll
+            for (int b = 0; b <= R; ++b)
+                h_t[a * (R + 1) + b] = tap_h2(p.taps[R + a], p.taps[R + b]);
+    }
 
     float a00 = 0.0f, a01 = 0.0f, a02 = 0.0f, av0 = 0.0f, den0 = 0.0f;
     float a10 = 0.0f, a11 = 0.0f, a12 = 0.0f, av1 = 0.0f, den1 = 0.0f;
@@ -478,64 +590,76 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) level_bf16_kernel(
         for (int dx = -r; dx <= r; ++dx) {
             const int ox = dx * L.s;
             const int kidx = ((dy + r) * side + (dx + r)) * hw + i;
-            const bool m0 = rin && x + ox >= 0 && x + ox < W;
-            const bool m1 = rin && x + 1 + ox >= 0 && x + 1 + ox < W;
-            if (!m0 && !m1) {
-                if (STORE) {
-                    w_out[kidx] = 0.0f;
-                    if (in1) w_out[kidx + 1] = 0.0f;
-                }
+            // a dropped tap (its lane's half of the mask 0) reads the
+            // staged zeros of the frame's outside, weighs +0, and adds
+            // exact zeros (a sum starts at +0): the skipped tap's bits.  No
+            // branch but at radius 2, where the straight-line taps ran 13 %
+            // slower (PERF.md, PR 18)
+            unsigned mask = 0u;
+            if (rin) {
+                if constexpr (WIDE)
+                    mask = lane_mask(x + ox >= 0 && x + ox < W,
+                                     x + 1 + ox >= 0 && x + 1 + ox < W);
+                else
+                    mask = cmask[dx + R];
+            }
+            if (R == 2 && !mask) {
+                if (STORE) store_pair(w_out, kidx, 0.0f, 0.0f, in1);
                 continue;
             }
-            FwdPairBf16 q;
+            float2 q0, q1, q2, qv;    // colour and variance, both lanes
+            bf2 q[KB_FWD_PLANES];
             if (STAGED) {
                 const int e = L.at(kl, 2 * tx, dy, dx);
-                const bool odd = e & 1;
+                const bool odd = bf16_pair_odd<R, S1>(e, dx);
+                q0 = lds_pair_f32(s_f, e, odd);
+                q1 = lds_pair_f32(s_f + n, e, odd);
+                q2 = lds_pair_f32(s_f + 2 * n, e, odd);
+                qv = lds_pair_f32(s_f + 3 * n, e, odd);
 #pragma unroll
                 for (int t = 0; t < KB_FWD_PLANES; ++t)
-                    q.a[t] = lds_pair(s_b + t * n, e, odd);
+                    q[t] = lds_pair(s_b + t * n, e, odd);
             } else {
                 const FwdPixBf16 a = fwd_pixel_bf16(
                     color, var, normal, depth, H, W, y + oy, x + ox, k);
                 const FwdPixBf16 b = fwd_pixel_bf16(
                     color, var, normal, depth, H, W, y + oy, x + 1 + ox, k);
+                q0 = make_float2(a.f[0], b.f[0]);
+                q1 = make_float2(a.f[1], b.f[1]);
+                q2 = make_float2(a.f[2], b.f[2]);
+                qv = make_float2(a.f[3], b.f[3]);
 #pragma unroll
                 for (int t = 0; t < KB_FWD_PLANES; ++t)
-                    q.a[t] = __halves2bfloat162(a.a[t], b.a[t]);
+                    q[t] = __halves2bfloat162(a.a[t], b.a[t]);
             }
-            const float hy = WIDE ? wide_taps[dy + r] : p.taps[dy + r];
-            const float hx = WIDE ? wide_taps[dx + r] : p.taps[dx + r];
-            const bf2 hfm = tap_hfm(hy, hx, m0, m1);
-            // |dz.d| of a tap and its mirror is one expression
-            const bool pos = dy > 0 || (dy == 0 && dx >= 0);
-            const float ky = (float)(pos ? oy : -oy);
-            const float kx = (float)(pos ? ox : -ox);
-            const float rz0 = 1.0f / (p.sz2 * fabsf(zg00 * ky + zg10 * kx)
-                                      + p.eps2);
-            const float rz1 = 1.0f / (p.sz2 * fabsf(zg01 * ky + zg11 * kx)
-                                      + p.eps2);
-            const bf2 rz = __floats2bfloat162_rn(rz0, rz1);
-            const bf2 wl2 = mul2(neg_abs2(sub2(c.a[4], q.a[4])), isd2);
-            const bf2 wz2 = mul2(neg_abs2(sub2(c.a[8], q.a[8])), rz);
-            const bf2 e2 = edge_exp_bf16x2(wz2, wl2, c.a[5], c.a[6], c.a[7],
-                                           q.a[5], q.a[6], q.a[7], k);
+            bf2 h, rz;
+            if constexpr (!WIDE) {
+                const int j = (dy + R) * (2 * R + 1) + (dx + R);
+                h = h_t[(dy < 0 ? -dy : dy) * (R + 1) + (dx < 0 ? -dx : dx)];
+                rz = rz_t[j >= NT / 2 ? j - NT / 2 : NT / 2 - j];
+            } else {
+                // |dz.d| of a tap and its mirror is one expression
+                const bool pos = dy > 0 || (dy == 0 && dx >= 0);
+                h = tap_h2(wide_taps[dy + r], wide_taps[dx + r]);
+                rz = depth_scale_bf16(zg00, zg10, zg01, zg11,
+                                      (float)(pos ? oy : -oy),
+                                      (float)(pos ? ox : -ox), p);
+            }
+            const bf2 hfm = tap_hfm(h, mask);
+            const bf2 wl2 = mul2(neg_abs2(sub2(c[0], q[0])), isd2);
+            const bf2 wz2 = mul2(neg_abs2(sub2(c[4], q[4])), rz);
+            const bf2 e2 = edge_exp_bf16x2(wz2, wl2, c[1], c[2], c[3], q[1],
+                                           q[2], q[3], k);
             const bf2 w = mul2(hfm, e2);
-            const float2 hf = __bfloat1622float2(hfm);
-            const float2 ef = __bfloat1622float2(e2);
+            const float2 hf = bf2_floats(hfm);
+            const float2 ef = bf2_floats(e2);
             // h*2^arg exact in float32: N's addend and the stored weight
             const float wf0 = hf.x * ef.x, wf1 = hf.y * ef.y;
-            if (STORE) {
-                w_out[kidx] = wf0;
-                if (in1) w_out[kidx + 1] = wf1;
-            }
+            if (STORE) store_pair(w_out, kidx, wf0, wf1, in1);
             den0 = den0 + wf0;
             den1 = den1 + wf1;
-            const float2 wr = __bfloat1622float2(w);
-            const float2 ww = __bfloat1622float2(mul2(w, w));
-            const float2 q0 = __bfloat1622float2(q.a[0]);
-            const float2 q1 = __bfloat1622float2(q.a[1]);
-            const float2 q2 = __bfloat1622float2(q.a[2]);
-            const float2 qv = __bfloat1622float2(q.a[3]);
+            const float2 wr = bf2_floats(w);
+            const float2 ww = bf2_floats(mul2(w, w));
             a00 = __fmaf_rn(wr.x, q0.x, a00);
             a01 = __fmaf_rn(wr.x, q1.x, a01);
             a02 = __fmaf_rn(wr.x, q2.x, a02);
@@ -546,44 +670,67 @@ __global__ void __launch_bounds__(KB_TX * KB_TY) level_bf16_kernel(
             av1 = __fmaf_rn(ww.y, qv.y, av1);
         }
     }
+    // lane 1 past the frame's edge computes and stores nothing
     den0 = fmaxf(den0, kEps);
-    const float inv0 = 1.0f / den0;
-    color_out[i] = a00 * inv0;
-    color_out[hw + i] = a01 * inv0;
-    color_out[2 * hw + i] = a02 * inv0;
-    var_out[i] = av0 * (inv0 * inv0);
-    n_out[i] = den0;
-    if (in1) {
-        den1 = fmaxf(den1, kEps);
-        const float inv1 = 1.0f / den1;
-        color_out[i + 1] = a10 * inv1;
-        color_out[hw + i + 1] = a11 * inv1;
-        color_out[2 * hw + i + 1] = a12 * inv1;
-        var_out[i + 1] = av1 * (inv1 * inv1);
-        n_out[i + 1] = den1;
-    }
+    den1 = fmaxf(den1, kEps);
+    const float inv0 = 1.0f / den0, inv1 = 1.0f / den1;
+    store_pair(color_out, i, a00 * inv0, a10 * inv1, in1);
+    store_pair(color_out, hw + i, a01 * inv0, a11 * inv1, in1);
+    store_pair(color_out, 2 * hw + i, a02 * inv0, a12 * inv1, in1);
+    store_pair(var_out, i, av0 * (inv0 * inv0), av1 * (inv1 * inv1), in1);
+    store_pair(n_out, i, den0, den1, in1);
 }
 
-template <int R, bool STAGED, bool STORE>
+template <int R, bool STAGED, bool STORE, bool FUSED, bool S1 = false>
 cudaError_t launch_level_bf16_kernel(const LevelArgs& a,
                                      const AtrousBf16& kb, size_t bytes) {
     const AtrousParams& p = *a.params;
-    auto kernel = level_bf16_kernel<R, STAGED, STORE>;
+    auto kernel = level_bf16_kernel<R, STAGED, STORE, FUSED, S1>;
     static size_t opted = 0;
     cudaError_t err = allow_smem(kernel, bytes, opted);
     if (err != cudaSuccess) return err;
     kernel<<<lattice_grid<K1_TW, K1_TR>(p.H, p.W, p.spacing),
              dim3(KB_TX, KB_TY), bytes, a.stream>>>(
-        a.color, a.var, a.normal, a.depth, a.zgrad, a.sden, a.color_out,
-        a.var_out, (float*)a.w_out, a.n_out, p, kb, a.wide_taps);
+        a.color, a.var, a.normal, a.depth, a.zgrad, a.sden, a.sden_out,
+        a.color_out, a.var_out, (float*)a.w_out, a.n_out, p, kb,
+        a.wide_taps);
     return cudaGetLastError();
 }
 
-template <int R, bool STAGED>
-cudaError_t launch_level_bf16_store(const LevelArgs& a, const AtrousBf16& kb,
-                                    size_t bytes) {
-    return a.w_out ? launch_level_bf16_kernel<R, STAGED, true>(a, kb, bytes)
-                   : launch_level_bf16_kernel<R, STAGED, false>(a, kb, bytes);
+// A launch at the radius of a.params: 0-2 compiled (1 and 2 apart at
+// spacing 1, S1), any other the WIDE instantiation, staged while its tile
+// fits kBf16MaxStaged.
+template <bool STORE, bool FUSED>
+cudaError_t launch_level_bf16_radius(const LevelArgs& a,
+                                     const AtrousBf16& kb) {
+    const AtrousParams& p = *a.params;
+    const size_t staged =
+        lattice_entries<K1_TW, K1_TR>(p.spacing, p.radius) * KB_FWD_BYTES;
+    if (a.wide_taps) {
+        return staged <= kBf16MaxStaged
+                   ? launch_level_bf16_kernel<-1, true, STORE, FUSED>(
+                         a, kb, staged)
+                   : launch_level_bf16_kernel<-1, false, STORE, FUSED>(
+                         a, kb, 0);
+    }
+    switch (p.radius) {
+    case 0:
+        return launch_level_bf16_kernel<0, true, STORE, FUSED>(a, kb, staged);
+    case 1:
+        return p.spacing == 1
+                   ? launch_level_bf16_kernel<1, true, STORE, FUSED, true>(
+                         a, kb, staged)
+                   : launch_level_bf16_kernel<1, true, STORE, FUSED>(a, kb,
+                                                                     staged);
+    case 2:
+        return p.spacing == 1
+                   ? launch_level_bf16_kernel<2, true, STORE, FUSED, true>(
+                         a, kb, staged)
+                   : launch_level_bf16_kernel<2, true, STORE, FUSED>(a, kb,
+                                                                     staged);
+    default:
+        return cudaErrorInvalidValue;
+    }
 }
 
 }  // namespace

@@ -11,6 +11,13 @@ own ``build/``, and both run in this one process on the same inputs:
 K1 (every radius 0-3, fast, exact and luminance-only weights, at every
 level 0-4, with no store and with bf16 and float weight stores), K1b (with
 and without float weights), K9, K14 (every radius 0-3 at every level 0-4),
+the bf16 forms (``precision="bf16"``, every radius 0-3 at every level 0-4,
+on the frame and on a frame one row and three columns short): K1b-bf16
+with a given σ-denominator (with and without float weights) and with σ
+fused, written and not (a tree without the fused form runs
+``sigma_denominator`` and then K1b-bf16, and gives that σ), K14-bf16 on
+the σ and N its tree's forward gives, and the 5-level bf16 sweep at r1
+and r2, inference and forward+backward,
 the tile forms of K1/K1b/K14 on a quarter tile of a 3840x2160 frame at
 levels 1 and 4, K2/K2b (every radius 0-3 at every level 0-4, bf16 and
 float weights, and the tile form at radius 1, levels 1 and 4) and the
@@ -403,6 +410,100 @@ def _cases(P, U, cots, S, M, T):
         for lvl in range(5):
             yield (f"K14 r{r} l{lvl}",
                    lambda t, r=r, lvl=lvl: k14(t, r, lvl))
+
+    # the bf16 forms on the frame and on one a row and three columns short
+    # (an odd width: the last lane pair half outside): K1b-bf16 with σ
+    # given (and float weights), with σ fused, written and not (a tree
+    # without the fused form: sigma_denominator, then K1b-bf16, and that
+    # σ), K14-bf16 on the σ and N its tree's forward gives, and the bf16
+    # sweep, inference and fwd+bwd (outputs, colour and variance gradients)
+    odd_planes = tuple(x[..., :-1, :-3].contiguous() for x in P)
+    odd_cots = tuple(x[..., :-1, :-3].contiguous() for x in cots)
+
+    def bf16_level(tree, r, lvl, odd):
+        cc, vv, nn, zz = odd_planes if odd else P
+        p = tree.SVGFParams(radius=r)
+        zgr = tree.common.finite_diff_gradients(zz)
+        return (cc, vv, nn, zz, zgr), dict(level=lvl, params=p,
+                                           precision="bf16")
+
+    def fused_sigma(tree):
+        return hasattr(tree.atrous_cuda.atrous_level_fwd_cuda, "bf16_fused")
+
+    def k1b_bf16(tree, r, lvl, save, odd):
+        ins, kw = bf16_level(tree, r, lvl, odd)
+        sd = tree.atrous.sigma_denominator(ins[1], kw["params"])
+        return lambda: tuple(tree.atrous_cuda.atrous_level_fwd_cuda(
+            *ins, sd, save_weights=save, **kw))
+
+    def k1b_bf16_fused(tree, r, lvl, write, odd):
+        ins, kw = bf16_level(tree, r, lvl, odd)
+        fwd = tree.atrous_cuda.atrous_level_fwd_cuda
+        if fused_sigma(tree):
+            return lambda: tuple(fwd(*ins, None, return_sigma_denom=write,
+                                     **kw))
+
+        def glue():
+            sd = tree.atrous.sigma_denominator(ins[1], kw["params"])
+            return tuple(fwd(*ins, sd, **kw)) + ((sd,) if write else ())
+        return glue
+
+    def k14_bf16(tree, r, lvl, odd):
+        ins, kw = bf16_level(tree, r, lvl, odd)
+        fn = tree.atrous_cuda
+        if fused_sigma(tree):
+            _, _, norm, sd = fn.atrous_level_fwd_cuda(
+                *ins, None, return_sigma_denom=True, **kw)
+        else:
+            sd = tree.atrous.sigma_denominator(ins[1], kw["params"])
+            _, _, norm = fn.atrous_level_fwd_cuda(*ins, sd, **kw)
+        cc, _, nn, zz, zgr = ins
+        return lambda: tuple(fn.atrous_level_bwd_cuda(
+            cc, nn, zz, zgr, sd, norm, *(odd_cots if odd else cots), **kw))
+
+    def sweep_bf16(tree, r, grad, odd):
+        planes = odd_planes if odd else P
+        gc, gv = odd_cots if odd else cots
+        p = tree.SVGFParams(radius=r, iterations=5)
+        sweep = tree.atrous_cuda.svgf_spatial_ad_cuda
+
+        def run():
+            if not grad:
+                return tuple(sweep(*planes, params=p, return_feedback=True,
+                                   precision="bf16"))
+            with torch.enable_grad():
+                ins = [t.detach().requires_grad_(k < 2)
+                       for k, t in enumerate(planes)]
+                oc, ov, fb = sweep(*ins, params=p, return_feedback=True,
+                                   precision="bf16")
+                loss = (oc * gc).sum() + (ov * gv).sum() + (fb * gc).sum()
+                grads = torch.autograd.grad(loss, ins[:2])
+            return (oc.detach(), ov.detach(), fb.detach()) + grads
+        return run
+
+    for odd in (False, True):
+        frame = " odd frame" if odd else ""
+        for r in (0, 1, 2, 3):
+            for lvl in range(5):
+                for save in (False, True):
+                    yield (f"K1b-bf16 r{r}{' f32 weights' if save else ''}"
+                           f"{frame} l{lvl}",
+                           lambda t, r=r, lvl=lvl, save=save, odd=odd:
+                           k1b_bf16(t, r, lvl, save, odd))
+                for write in (False, True):
+                    yield (f"K1b-bf16 fused σ{' written' if write else ''} "
+                           f"r{r}{frame} l{lvl}",
+                           lambda t, r=r, lvl=lvl, write=write, odd=odd:
+                           k1b_bf16_fused(t, r, lvl, write, odd))
+                yield (f"K14-bf16 r{r}{frame} l{lvl}",
+                       lambda t, r=r, lvl=lvl, odd=odd: k14_bf16(t, r, lvl,
+                                                                 odd))
+        for r in (1, 2):
+            for grad in (False, True):
+                yield (f"sweep bf16 r{r} {'fwd+bwd' if grad else 'inference'}"
+                       f"{frame}",
+                       lambda t, r=r, grad=grad, odd=odd: sweep_bf16(
+                           t, r, grad, odd))
 
     for kind in ("K1 fast", "K1 store", "K1b", "K14"):
         for r in (1, 2):

@@ -9,6 +9,7 @@ forward and backward on one GPU.
     python3 -m raymarchdenoisercuda_torch.utils.profile clamped
     python3 -m raymarchdenoisercuda_torch.utils.profile temporal [--served]
     python3 -m raymarchdenoisercuda_torch.utils.profile box
+    python3 -m raymarchdenoisercuda_torch.utils.profile sass [--match RE]
 
 At 1920x1080: runs 3 warm-up steps, times ``--steps`` more without the
 profiler, then traces as many with ``torch.profiler`` (CPU and CUDA
@@ -39,7 +40,15 @@ seeded 1920x1080 planes, by device time a call (``--steps`` calls under
 the profiler), at each radius and depth of ``BOX_CASES`` and each way of
 splitting its levels into launches that a halo cap in ``BOX_CAPS`` gives
 (cap 0: one level a launch), the ways in turn three times, and prints
-the medians: the measurement behind ``BOX_HALO_CAP``.  ``--trace DIR``
+the medians: the measurement behind ``BOX_HALO_CAP``.  ``sass`` builds
+the kernels, disassembles the library with ``cuobjdump -sass`` and
+prints, for each kernel whose mangled name matches ``--match`` (default:
+the bf16 forms of K1b and K14), its instruction count by class (MUFU,
+conversions, PRMT, packed half/bf16 arithmetic, float arithmetic, shared
+and global loads, branches, ...), and that count over the kernel's taps
+(the tap loops are unrolled, so the whole function's count over its
+(2r + 1)^2 taps approximates a tap's; the staging and epilogue are in
+it too).  ``--trace DIR``
 (train, serve, spatial, temporal) also writes the profiled steps as a
 Chrome trace, ``DIR/<path>.json`` (``timing.trace``).  Needs a CUDA
 device; the CPU has nothing to measure here.
@@ -48,8 +57,12 @@ device; the CPU has nothing to measure here.
 from __future__ import annotations
 
 import argparse
+import collections
+import re
+import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -63,6 +76,7 @@ from ..models.pipeline import (FramePipeline, init_train_state,
                                make_train_step)
 from ..ops import filters_cuda, raymarch
 from ..ops.atrous_cuda import svgf_spatial_ad_cuda
+from ..ops.cuda import _build
 from ..ops.temporal import history_from_stack, history_stack
 from ..ops.temporal_cuda import (clamped_gather_bwd_cuda, clamped_gather_cuda,
                                  history_stack_channel_minor_cuda)
@@ -231,10 +245,90 @@ def _box(H, W, dev, calls):
                   for g, cap in ways.items()), flush=True)
 
 
+# SASS opcodes by class (the base opcode, before its first dot)
+SASS_CLASSES = (
+    ("MUFU", ("MUFU",)),
+    ("convert", ("F2I", "I2F", "F2F", "F2FP", "I2FP", "F2IP", "FRND")),
+    ("PRMT", ("PRMT",)),
+    ("half2", ("HADD2", "HMUL2", "HFMA2", "HMNMX2", "HSETP2", "HSET2")),
+    ("float", ("FFMA", "FADD", "FMUL", "FMNMX", "FSETP", "FSEL", "FCHK",
+               "FSET")),
+    ("LDS", ("LDS", "LDSM")),
+    ("LDG", ("LDG", "LD")),
+    ("STG/STS", ("STG", "STS", "ST")),
+    ("branch", ("BRA", "BSSY", "BSYNC", "BREAK", "CALL", "RET", "EXIT",
+                "WARPSYNC", "BAR", "BMOV", "JMP")),
+    ("integer", ("IMAD", "IADD3", "LOP3", "SHF", "ISETP", "LEA", "SEL",
+                 "IABS", "IMNMX", "VIADDMNMX", "VIMNMX", "IADD",
+                 "VIADD", "UIMAD", "UIADD3", "ULOP3", "USHF", "ULEA",
+                 "UISETP", "USEL")),
+)
+_SASS_FUNCTION = re.compile(r"Function : (\S+)")
+_SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                          r"([A-Z][A-Z0-9_]*)")
+# the bf16 forms: level_bf16_kernel<R, ...> (K1b-bf16) and
+# atrous_bwd_bf16_kernel<R, STAGED> (K14-bf16); R = -1: any radius
+BF16_FORMS = r"level_bf16_kernel|atrous_bwd_bf16_kernel"
+_TEMPLATE_R = re.compile(r"_kernelILi(n?\d+)E")
+
+
+def sass_mix(match: str = BF16_FORMS, lib: Path = None) -> dict:
+    """``{mangled name: Counter(class -> static instruction count)}`` of
+    the library's kernels whose name matches ``match``, from ``cuobjdump
+    -sass`` (streamed: the whole listing is tens of MiB)."""
+    lib = lib or _build.build()
+    tool = Path(_build.nvcc_path()).with_name("cuobjdump")
+    want = re.compile(match)
+    out, current = {}, None
+    proc = subprocess.Popen([str(tool), "-sass", str(lib)],
+                            stdout=subprocess.PIPE, text=True)
+    for line in proc.stdout:
+        m = _SASS_FUNCTION.search(line)
+        if m:
+            name = m.group(1)
+            current = (out.setdefault(name, collections.Counter())
+                       if want.search(name) else None)
+            continue
+        if current is None:
+            continue
+        m = _SASS_OPCODE.search(line)
+        if m:
+            op = m.group(1)
+            cls = next((c for c, ops in SASS_CLASSES if op in ops), "other")
+            current[cls] += 1
+            current["total"] += 1
+    if proc.wait() != 0:
+        raise RuntimeError(f"{tool} -sass {lib} failed")
+    return out
+
+
+def sass_taps(name: str) -> int:
+    """The taps of a kernel compiled at radius R (the template's first
+    argument; 0 where it takes its radius at run time)."""
+    m = _TEMPLATE_R.search(name)
+    R = int(m.group(1).replace("n", "-")) if m else -1
+    return (2 * R + 1) ** 2 if R >= 0 else 0
+
+
+def sass_lines(match: str = BF16_FORMS, lib: Path = None):
+    """One printable line a matching kernel: its instruction classes and,
+    at a compiled radius, each class over the taps."""
+    order = ["total"] + [c for c, _ in SASS_CLASSES] + ["other"]
+    for name, mix in sorted(sass_mix(match, lib).items()):
+        taps = sass_taps(name)
+        parts = ", ".join(f"{c} {mix[c]}" + (f" ({mix[c] / taps:.1f})"
+                                             if taps else "")
+                          for c in order if mix[c])
+        yield (f"{name}: {parts}" + (f"  [(...) a tap of {taps}]"
+                                     if taps else ""))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("path", choices=("train", "serve", "spatial", "clamped",
-                                     "temporal", "box"))
+                                     "temporal", "box", "sass"))
+    ap.add_argument("--match", default=BF16_FORMS,
+                    help="sass: the kernels' mangled names to count")
     ap.add_argument("--mode", choices=tuple(SPATIAL_MODES),
                     default="stored", help="spatial: the adjoint mode")
     ap.add_argument("--radius", type=int, default=1, help="spatial: radius")
@@ -250,7 +344,11 @@ def main(argv=None) -> int:
                     help="train, serve, spatial, temporal: write the "
                          "profiled steps as a Chrome trace into DIR")
     args = ap.parse_args(argv)
-    if args.trace and args.path in ("clamped", "box"):
+    if args.path == "sass":
+        for line in sass_lines(args.match):
+            print(line, flush=True)
+        return 0
+    if args.trace and args.path in ("clamped", "box", "sass"):
         ap.error(f"--trace: {args.path} times its kernels under a profiler "
                  f"of its own")
     if not torch.cuda.is_available():

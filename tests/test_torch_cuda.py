@@ -115,7 +115,7 @@ from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
                                             raymarch, raymarch_cuda, temporal)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
-    atrous_level, atrous_level_bwd_cuda, atrous_level_bwd_stored_cuda,
+    atrous_level, atrous_level_bwd_cuda, bf16_bit_formulas_cuda, atrous_level_bwd_stored_cuda,
     atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
     atrous_level_fwd_cuda, atrous_level_wgrad_bwd_cuda, svgf_spatial_ad_cuda,
     svgf_spatial_cuda, svgf_spatial_stored_cuda)
@@ -2056,9 +2056,11 @@ def _assert_bf16_twin(got, want, name):
 @pytest.mark.parametrize("shape", BF16_SHAPES,
                          ids=["37x53", "20x20", "1080p"])
 def test_k1b_k14_bf16_every_level_match_twins(dev, shape, radius):
-    """K1b-bf16 (with N; with its float32 weights too) and K14-bf16 at
-    levels 0-4, an odd width (the last lane pair half outside the frame)
-    included, against the twins; each launch counted on ``.bf16``."""
+    """K1b-bf16 (with N; with its float32 weights too; with the
+    σ-denominator fused, written and not) and K14-bf16 at levels 0-4, an
+    odd width (the last lane pair half outside the frame) included,
+    against the twins fed ``sigma_denominator``; each launch counted on
+    ``.bf16`` (the fused ones on ``.bf16_fused`` too)."""
     color, var, normal, depth = _planes(dev, 130 + radius, *shape)
     zgrad = finite_diff_gradients(depth)
     params = SVGFParams(radius=radius)
@@ -2091,6 +2093,50 @@ def test_k1b_k14_bf16_every_level_match_twins(dev, shape, radius):
                                                sd, n1, gc, gv, **kw)
         _assert_bf16_twin(dc, dc0, f"K14-bf16 l{level} dc")
         _assert_bf16_twin(dv, dv0, f"K14-bf16 l{level} dv")
+        # the σ-denominator fused, written and not: PyTorch's σ bit for
+        # bit, the outputs the twin's fed it (and the given-σ launch's)
+        before = atrous_level_fwd_cuda.bf16_fused.launches
+        cf, vf, nf, sdf = atrous_level_fwd_cuda(
+            color, var, normal, depth, zgrad, None, return_sigma_denom=True,
+            **kw)
+        fused = atrous_level_fwd_cuda(color, var, normal, depth, zgrad,
+                                      None, **kw)
+        assert atrous_level_fwd_cuda.bf16_fused.launches == before + 2
+        assert torch.equal(sdf, sd), f"l{level} fused σ"
+        for name, a, b, c in zip(("c", "v", "N"), (cf, vf, nf), fused,
+                                 (c0, v0, n0)):
+            _assert_bf16_twin(a, c, f"K1b-bf16 fused l{level} {name}")
+            assert torch.equal(a, b) and torch.equal(
+                b, got[("c", "v", "N").index(name)]), name
+        dcf, dvf = atrous_level_bwd_cuda(color, normal, depth, zgrad, sdf,
+                                         nf, gc, gv, **kw)
+        assert torch.equal(dcf, dc) and torch.equal(dvf, dv)
+
+
+def test_bf16_bit_formulas_equal_on_every_pattern(dev):
+    """The bf16 forms' bit tricks on the card, on all 65,536 bf16 patterns
+    in each lane (``bf16_bit_formulas_cuda``): ``exp2_fast_bf16x2`` with
+    2^i from the bf16 bits equals the conversion-and-clamp assembly it
+    replaced wherever the exponent's argument can lie (y <= 0, and NaN,
+    which the clamp maps to -1e4; ``tests/test_torch_bf16_bits.py``); the
+    reciprocal by ``rcp.approx.f32`` rounded to bf16 equals ``__frcp_rn``'s
+    on every pattern (NaN against NaN)."""
+    out = bf16_bit_formulas_cuda(dev).cpu().numpy().view(np.uint32)
+    j = np.arange(65536, dtype=np.uint32)
+
+    def value(bits):
+        return (bits.astype(np.uint32) << 16).view(np.float32)
+
+    for lane, pattern in enumerate((j, (j * 40503) & 0xFFFF)):
+        exp_old, exp_new, rcp_old, rcp_new = (
+            (row >> (16 * lane)) & 0xFFFF for row in out)
+        domain = ((pattern & 0x8000) != 0) | (pattern == 0) | np.isnan(
+            value(pattern))
+        assert domain.sum() > 32768
+        np.testing.assert_array_equal(exp_new[domain], exp_old[domain])
+        nan = np.isnan(value(rcp_old))
+        np.testing.assert_array_equal(rcp_new[~nan], rcp_old[~nan])
+        assert np.isnan(value(rcp_new[nan])).all()
 
 
 @pytest.mark.parametrize("shape", [(37, 53), (1080, 1920)],
@@ -2146,9 +2192,14 @@ def test_bf16_sweep_kernel_path_matches_plain(dev, kw, tols, radius):
         ins = [t.to(d).clone().requires_grad_(k < 2 or wg)
                for k, t in enumerate(planes)]
         before = atrous_level_bwd_cuda.bf16.launches
+        fused = atrous_level_fwd_cuda.bf16_fused.launches
         oc, ov, fb = svgf_spatial_ad_cuda(*ins, params=params,
                                           return_feedback=True,
                                           precision="bf16", **kw)
+        if d.type == "cuda":
+            # σ fused into every level's K1b-bf16 but with weight_grads
+            assert atrous_level_fwd_cuda.bf16_fused.launches == fused + (
+                0 if wg else 5)
         loss = sum(((o * c.to(d)).sum() for o, c in zip((oc, ov, fb), cots)))
         grads.append([x.cpu() for x in torch.autograd.grad(
             loss, ins[:len(tols)])])

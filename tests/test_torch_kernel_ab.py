@@ -16,7 +16,8 @@ radius and both sigma_n forms, on the odd frame and through
 ``apply_filter``, K10 at every radius and depth, K11 at every radius,
 sigma and depth, both on the odd frame and through ``apply_filter``;
 and the wide forms held to this tree's twins: K5/K6 past max_motion 59,
-K5c/K6c on a quarter tile's canvas, K10, K11 and K12 past radius 16),
+K5c/K6c on a quarter tile's canvas, K10, K11 and K12 past radius 16;
+the bf16 forms of K1b, σ given and fused, and K14, and the bf16 sweep),
 and that the outputs are finite and of the expected
 shapes.  No timing, no other
 tree.
@@ -99,6 +100,16 @@ FAMILIES = {
     "K10w": (r"^K10w ", 3, [(3, *FRAME)]),
     "K11w": (r"^K11w ", 3, [(3, *FRAME)]),
     "K12w": (r"^K12w ", 2, [(3, *FRAME)]),
+    # the bf16 forms at level 1, r1 and r3, on the frame and the odd one:
+    # K1b-bf16 with σ given (and float weights), with σ fused (and
+    # written), K14-bf16, and the bf16 sweep at r1
+    "K1b-bf16": (r"^K1b-bf16 r[13]( f32 weights)?( odd frame)? l1$", 8,
+                 [(3, *FRAME), FRAME, FRAME]),
+    "K1b-bf16 fused": (r"^K1b-bf16 fused σ( written)? r[13]( odd frame)? "
+                       r"l1$", 8, [(3, *FRAME), FRAME, FRAME]),
+    "K14-bf16": (r"^K14-bf16 r[13]( odd frame)? l1$", 4,
+                 [(3, *FRAME), FRAME]),
+    "sweep bf16": (r"^sweep bf16 r1 ", 4, [(3, *FRAME), FRAME, (3, *FRAME)]),
 }
 # the outputs held bit for bit (True) or within rounding (False): KGb's
 # and K5/K6's history gradients within rounding, every other output exact
