@@ -14,9 +14,11 @@ the script exits non-zero without printing a result):
    (both routes, and the camera route's first launch), K10's and K11's
    (r 0-4 and the generic radius), K12's staged form (r <= 4), KG's,
    KGb's (and its rounding pass), KGp's, K4/K4c's and K5/K6's (K5c/K6c;
-   6 and 10 gradient planes, and their banded form past max_motion 59),
-   K10's and K11's 1-D passes past r 16 and K12's one-thread-a-pixel body
-   (its taps in the struct or in memory), and of K1b's and K14's bf16
+   6 and 10 gradient planes, and past max_motion 59 the bucketed
+   scatter's code-and-count, scan, placement, sort and gather kernels and
+   K5's motion term), K10's and K11's 1-D passes past r 16 and K12's
+   rolling-row tile past r 4 (its ring and its chunked form), and of K1b's
+   and K14's bf16
    forms (each radius, staged or not, spacing 1 apart, K1b's with the
    σ-denominator fused too), and print the bf16 forms' SASS instruction
    mix a tap (``utils/profile.py sass``; a reading, it fails nothing);
@@ -24,7 +26,7 @@ the script exits non-zero without printing a result):
    K14 (their bf16 forms too) at a compiled radius, K9 at r <= 1, K7, K8,
    K13 or K15 on a compiled scene, K3/K3b, K15's first camera launch, K10
    or K11 at r <= 4 or in a 1-D pass, a K12 form, a KG, KGb or KGp kernel
-   or a K4-K6 kernel (banded ones included) uses local memory (K9 at r2
+   or a K4-K6 kernel (the scatter's included) uses local memory (K9 at r2
    and wider spills: printed, not failed; the wide bf16 forms fail above
    ``BF16_WIDE_LOCAL_B`` of stack and spills);
 3. hold each kernel against its plain PyTorch version on the card at the
@@ -57,11 +59,17 @@ the script exits non-zero without printing a result):
    (bit-equal to its plain twin) and on a planar one (laid out by KGp in
    the wrappers), timed on phase 3's and a served frame's input, KGb
    split into its kernels by the profiler; the wide forms beside their
-   bounds: K5/K6 at max_motion 60 and 96 (row bands) on random motion to
-   ±7 and ±(M + 1) px, repeatable, K5c/K6c on a quarter tile's canvas,
-   K10, K11 and K12 at radius 17 and 24 and K10 and K11 at radius 90
-   (K10 and K11 as two 1-D passes a level, the gaussian taps in a device
-   array), each against its twin; K1b's and K14's bf16 forms
+   bounds: K5/K6 past max_motion 59 (the bucketed scatter) at 60 and 96
+   on random motion to ±7 and ±(M + 1) px, at 1000 on ±7 px and on a sink
+   at 128 (its four texels bit for bit to the float32 sums in the
+   kernels' order), repeatable, with ``grid_sample``'s backward on the
+   same motion beside them, K5c/K6c on a quarter tile's canvas, the
+   scatter route at max_motion 6 bit-equal to the staged gather and both
+   timed, K10, K11 and K12 at radius 17 and 24 and K10 and K11 at radius
+   90 (K10 and K11 as two 1-D passes a level, the gaussian taps in a
+   device array; K12's rolling-row tile), each against its twin, with
+   ``avg_pool2d`` beside K10 and the depthwise ``conv2d`` numerator
+   beside K11; K1b's and K14's bf16 forms
    (``precision="bf16"``; K1b's with the σ-denominator given, and fused,
    written and not, bit-equal to ``sigma_denominator``'s) at level 1, r1
    and r2, against their twins, timed by CUDA events and by device time
@@ -186,7 +194,8 @@ from raymarchdenoisercuda_torch.models.pipeline import (
     FramePipeline, init_train_state, make_train_step, render_and_denoise)
 from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import (atrous, atrous_cuda, boxfilter,
-                                            filters, raymarch, temporal)
+                                            filters, raymarch, temporal,
+                                            temporal_cuda)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level, atrous_level_bwd_cuda, atrous_level_bwd_stored_cuda,
     atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
@@ -213,7 +222,8 @@ from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
 from raymarchdenoisercuda_torch.utils import denoise_quality
 from raymarchdenoisercuda_torch.utils.profile import clamped_split, sass_lines
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
-    clamped_inputs, gather_inputs, served_clamped_inputs)
+    clamped_inputs, gather_inputs, ordered_texel_sums, served_clamped_inputs,
+    sink_motion, sink_texels)
 from raymarchdenoisercuda_torch.utils.timing import (
     CudaTimer, cuda_time_ms, device_ms, nvidia_smi_name_power)
 
@@ -252,7 +262,14 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             # kernels line marks the fused form "form_of" K1b-bf16)
             "K1b-bf16": atrous_level_fwd_cuda.bf16,
             "K1b-bf16-fused": atrous_level_fwd_cuda.bf16_fused,
-            "K14-bf16": atrous_level_bwd_cuda.bf16}
+            "K14-bf16": atrous_level_bwd_cuda.bf16,
+            # K5/K6 (K5c/K6c) past max_motion 59 and K12 past r 4: their
+            # redesigned forms count apart from the wrappers' own too
+            "K5w": gather_bwd_cuda.scatter,
+            "K6w": gather_bwd_hist_cuda.scatter,
+            "K5cw": gather_canvas_bwd_cuda.scatter,
+            "K6cw": gather_canvas_bwd_hist_cuda.scatter,
+            "K12w": cross_bilateral_cuda.rolling}
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
@@ -317,11 +334,24 @@ KERNELS = {
                        PALLAS + "atrous_tpu.py:780"),
     "K14-bf16": ("atrous_bwd_recompute_bf16", CUDA_SRC + "atrous.cu",
                  PALLAS + "atrous_tpu.py:865"),
+    # past max_motion 59: the bucketed scatter of K5/K6 (K5c/K6c)
+    "K5w": ("reproject_gather_bwd_scatter", CUDA_SRC + "temporal.cu",
+            PALLAS + "temporal_tpu.py:606"),
+    "K6w": ("reproject_gather_bwd_hist_scatter", CUDA_SRC + "temporal.cu",
+            PALLAS + "temporal_tpu.py:518"),
+    "K5cw": ("reproject_gather_canvas_bwd_scatter", CUDA_SRC + "temporal.cu",
+             PALLAS + "temporal_tpu.py:987"),
+    "K6cw": ("reproject_gather_canvas_bwd_hist_scatter",
+             CUDA_SRC + "temporal.cu", PALLAS + "temporal_tpu.py:1010"),
+    # past r 4: K12's rolling-row tile
+    "K12w": ("cross_bilateral_rolling", CUDA_SRC + "filters.cu",
+             PALLAS + "filters_tpu.py:135"),
 }
-# an instantiation of another entry's kernel whose launches that entry's
-# count holds too: its line names the kernel ("form_of"), so a sum of the
-# line's launches counts the entries without it
-FORM_OF = {"K1b-bf16-fused": "K1b-bf16"}
+# a form of another entry's kernel whose launches that entry's count
+# holds too: its line names the kernel ("form_of"), so a sum of the line's
+# launches counts the entries without it
+FORM_OF = {"K1b-bf16-fused": "K1b-bf16", "K5w": "K5", "K6w": "K6",
+           "K5cw": "K5c", "K6cw": "K6c", "K12w": "K12"}
 # per-tap float operations of K1's weight math and accumulation, of K2's
 # tap, of K14's (the recomputed weight and K2's sum), of K9's two passes
 # together and of K12's tap (weights, three colour products, the sums),
@@ -349,9 +379,16 @@ UNBOUNDED = SVGFParams(radius=1, max_motion=None)
 UNBOUNDED_FRAMES = 4
 SEEDED_UHD_FRAMES = 4
 SEEDED_UHD_STEPS = 2                 # timed, after one warm-up step
-# phase 3's wide forms: K5/K6 past max_motion 59 (row bands), K10-K12 past
-# radius 16 (K10 and K11 as 1-D passes, the taps in a device array)
-WIDE_MOTIONS = (60, 96)
+# phase 3's wide forms: K5/K6 past max_motion 59 (the bucketed scatter) on
+# phase 3's random motion (±7 px), on motion to ±(M + 1) and on the sink,
+# WIDE_REPORTED the case on the kernels line (K5w, K6w), K5c/K6c at the
+# bounds of WIDE_CANVAS_MOTIONS on ±(M + 1); K10-K12 past
+# radius 16 (K10 and K11 as 1-D passes, the taps in a device array; K12
+# past r 4 the rolling-row tile)
+WIDE_MOTIONS = ((60, "±7 px"), (60, "wide"), (96, "±7 px"), (96, "wide"),
+                (1000, "±7 px"), (128, "sink"))
+WIDE_REPORTED = (96, "wide")
+WIDE_CANVAS_MOTIONS = (60, 96)
 WIDE_RADII = (17, 24)
 WIDEST_RADIUS = 90                   # K10 and K11 only
 # phase 10: the weak-scaling harness's one-rank row (a tile of the frame)
@@ -426,15 +463,22 @@ KG_KERNELS = {re.compile(r"21clamped_gather_kernelE"): "KG",
 # K5c/K6c; NP: 6 or 10 gradient planes compiled)
 K4_MANGLED = re.compile(r"13gather_kernelILb([01])EE")
 K5_MANGLED = re.compile(r"17gather_bwd_kernelILb([01])ELb([01])ELi(\d+)EE")
-# past max_motion 59: the banded d_hist, gather_bwd_banded_kernel<TILE, NP>,
-# and K5's motion term, motion_term_kernel<TILE>
-K5_BANDED = re.compile(r"24gather_bwd_banded_kernelILb([01])ELi(\d+)EE")
+# past max_motion 59, the bucketed scatter: its code-and-count,
+# placement, scan (three passes) and sort kernels, its gather,
+# scatter_gather_kernel<NP>, and K5's motion term, motion_term_kernel<TILE>
+K5_SCATTER = {re.compile(r"20scatter_count_kernel"): "code and count",
+              re.compile(r"18scan_blocks_kernel"): "scan blocks",
+              re.compile(r"16scan_sums_kernel"): "scan sums",
+              re.compile(r"15scan_add_kernel"): "scan add",
+              re.compile(r"20scatter_place_kernel"): "placement",
+              re.compile(r"19scatter_sort_kernel"): "sort"}
+K5_SCATTER_GATHER = re.compile(r"21scatter_gather_kernelILi(\d+)EE")
 K5_MOTION = re.compile(r"18motion_term_kernelILb([01])EE")
 # K10's and K11's 1-D passes past r 16, sep_pass_kernel<GAUSS, ALONG_Y>,
-# and K12's one-thread-a-pixel body, cross_bilateral_kernel<WIDE> (WIDE:
-# the taps in a device array)
+# and K12's rolling-row tile past r 4, cross_bilateral_rolling_kernel<ROLL>
+# (ROLL: the ring; else chunked)
 K1011_PASS = re.compile(r"15sep_pass_kernelILb([01])ELb([01])EE")
-K12_GENERIC = re.compile(r"22cross_bilateral_kernelILb([01])EE")
+K12_ROLLING = re.compile(r"30cross_bilateral_rolling_kernelILb([01])EE")
 # the bf16 forms: level_bf16_kernel<R, STAGED, STORE, FUSED, S1> (K1b-bf16;
 # FUSED: the σ-denominator fused; S1: spacing 1) and
 # atrous_bwd_bf16_kernel<R, STAGED, S1> (K14-bf16); R = -1: any radius
@@ -500,8 +544,9 @@ def random_planes(H, W, dev, seed):
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
     K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K10's, K11's (and their
-    1-D passes), K12's, KG's, KGb's, KGp's, K4/K4c's, K5/K6's (staged and
-    banded) and K1b-bf16's and K14-bf16's instantiations (the build's
+    1-D passes), K12's (staged and rolling), KG's, KGb's, KGp's,
+    K4/K4c's, K5/K6's (staged, and the scatter route's kernels) and
+    K1b-bf16's and K14-bf16's instantiations (the build's
     report); raise if one of K1/K1b, K2/K2b or K14 (or a bf16 form) at a
     compiled radius, K9 at r <= 1, K7, K8, K13 or K15 on a compiled scene,
     K3/K3b, K15's first camera launch, K10 or K11 at a compiled radius or
@@ -523,14 +568,18 @@ def report_resources():
             if R >= 0 and (res[1] or res[2] or res[3]):
                 local.append(f"{kernel} r{R}")
         m = (K4_MANGLED.search(name) or K5_MANGLED.search(name)
-             or K5_BANDED.search(name) or K5_MOTION.search(name))
+             or K5_SCATTER_GATHER.search(name) or K5_MOTION.search(name))
+        form = next((f"K5/K6 scatter {f}" for r, f in K5_SCATTER.items()
+                     if r.search(name)), None)
         if m:
             tile = " tile" if m.group(1) == "1" else ""
             form = (f"K4{tile}" if m.re is K4_MANGLED else
                     f"K{5 if m.group(2) == '1' else 6}{tile} NP {m.group(3)}"
                     if m.re is K5_MANGLED else
-                    f"K5/K6{tile} NP {m.group(2)} banded"
-                    if m.re is K5_BANDED else f"K5{tile} motion term")
+                    f"K5/K6 scatter gather NP {m.group(1)}"
+                    if m.re is K5_SCATTER_GATHER else
+                    f"K5{tile} motion term")
+        if form:
             phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
                      f"spills {res[2] + res[3]} B")
             k456.append(form)
@@ -560,13 +609,13 @@ def report_resources():
                      f"{res[1]} B, spills {res[2] + res[3]} B")
             if res[1] or res[2] or res[3]:
                 local.append("K15 camera delta launch")
-        m = K1011_PASS.search(name) or K12_GENERIC.search(name)
+        m = K1011_PASS.search(name) or K12_ROLLING.search(name)
         if m:
             form = (f"{'K11' if m.group(1) == '1' else 'K10'} pass along "
                     f"{'y' if m.group(2) == '1' else 'x'}"
                     if m.re is K1011_PASS else
-                    "K12 r > 4" + (" (taps in memory)" if m.group(1) == "1"
-                                   else ""))
+                    "K12 r > 4 rolling " + ("ring" if m.group(1) == "1"
+                                            else "chunked"))
             phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
                      f"spills {res[2] + res[3]} B")
             k1011.append(form)
@@ -671,15 +720,16 @@ def report_resources():
     if len(k15) != 4 or sorted(k12) != [0, 1, 2, 3, 4]:
         raise AssertionError(f"phase 2: compiled K15 {k15} or staged K12 "
                              f"{sorted(k12)} missing from ptxas's report")
-    if len(set(k456)) != 16:
+    if len(set(k456)) != 20:
         raise AssertionError(f"phase 2: K4/K4c and K5/K6 (K5c/K6c) "
                              f"instantiations {sorted(k456)} in ptxas's "
-                             f"report, expected 2, 8, 4 banded and 2 "
+                             f"report, expected 2, 8 staged, 6 of the "
+                             f"scatter, its gather at NP 6 and 10 and 2 "
                              f"motion terms")
     want = sorted([(k, R) for k in ("K10", "K11") for R in range(-1, 5)]
                   + [f"K1{k} pass along {a}" for k in (0, 1) for a in "xy"]
-                  + ["K12 r > 4",
-                     "K12 r > 4 (taps in memory)"], key=str)
+                  + ["K12 r > 4 rolling ring",
+                     "K12 r > 4 rolling chunked"], key=str)
     if sorted(k1011, key=str) != want:
         raise AssertionError(f"phase 2: K10/K11 instantiations "
                              f"{sorted(k1011)} in ptxas's report, expected "
@@ -1180,13 +1230,8 @@ def check_k4_k5_k6(P, results):
     lib4 = cuda_time_ms(lambda: F.grid_sample(
         x, grid, mode="bilinear", padding_mode="zeros", align_corners=True),
         repeats=20)
-    y = F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
-                      align_corners=True)
-    gy = g[None]
-    lib5 = cuda_time_ms(lambda: torch.autograd.grad(
-        y, (x, grid), gy, retain_graph=True), repeats=20)
-    lib6 = cuda_time_ms(lambda: torch.autograd.grad(
-        y, x, gy, retain_graph=True), repeats=20)
+    lib5 = _grid_sample_bwd_ms(stack, motion, g, True, repeats=20)
+    lib6 = _grid_sample_bwd_ms(stack, motion, g, False, repeats=20)
     results["K4"] = dict(max_abs_err=errs[0], ms=ms4, plain_ms=plain4,
                          library_ms=lib4, bytes=88 * HW,
                          flops=int(4 * (10 * 2 + 8) * frac * HW))
@@ -1327,18 +1372,48 @@ def check_filters(P, results):
              f"{plain:.4f} ms; {', '.join(others)}")
 
 
-def check_wide_forms(P):
+def _wide_motion(base, Mw, kind):
+    """Phase 3's random motion (±7 px), scaled to ±(Mw + 1) ("wide"), or
+    with the sink at the frame's middle (every source of the (2Mw + 1)^2
+    window around it anchored there)."""
+    if kind == "wide":
+        return base * ((Mw + 1.0) / 7.0)
+    if kind == "sink":
+        return sink_motion(base, Mw)
+    return base
+
+
+def _grid_sample_bwd_ms(stack, motion, g, both, repeats=10):
+    """ms a call of ``grid_sample``'s backward (bilinear, zero padding) on
+    ``motion``: the history's and the grid's gradients (``both``) or the
+    history's."""
+    x = stack[None].clone().requires_grad_()
+    grid = _grid(motion).requires_grad_()
+    y = F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
+                      align_corners=True)
+    wrt = (x, grid) if both else x
+    return cuda_time_ms(lambda: torch.autograd.grad(
+        y, wrt, g[None], retain_graph=True), repeats=repeats)
+
+
+def check_wide_forms(P, results):
     """Phase 3's wide forms against their twins on the 1080p planes, each
-    timed beside its bound: K5/K6 at max_motion 60 and 96 (a block's
-    sources staged in row bands) on phase 3's random motion (±7 px) and on
-    motion to ±(M + 1), repeated bit-equal, K5c/K6c on the canvas of the
-    frame's lower right quarter tile; K10, K11 and K12 at radius 17 and 24
-    and K10 and K11 at radius 90 (K10 and K11 as a pass along y and one
-    along x a level, the taps of K11 and K12 in a device array); K10 and
-    K11 bit-equal to their twins, K12 atol 5e-5, K5/K6 rtol 1e-5, atol
-    1e-6.  The bounds count the separable work: 2(2r + 1) adds and a
-    division an output for K10, 6(2r + 1) operations and two divisions for
-    K11."""
+    timed beside its bound: K5/K6 past max_motion 59 (the bucketed scatter)
+    on each of ``WIDE_MOTIONS`` (random ±7 px, motion to ±(M + 1), the
+    sink), repeated bit-equal, with ``grid_sample``'s backward on the same
+    motion beside them, K5c/K6c on the canvas of the frame's lower right
+    quarter tile, and the scatter route at phase 3's max_motion against the
+    staged gather there (bit-equal, both timed); K10, K11 and K12 at radius
+    17 and 24 and K10 and K11 at radius 90 (K10 and K11 as a pass along y
+    and one along x a level, the taps of K11 and K12 in a device array;
+    K12 past r 4 the rolling-row tile), with ``avg_pool2d`` beside K10 and
+    the depthwise ``conv2d`` numerator beside K11; K10 and K11 bit-equal to
+    their twins, K12 atol 5e-5, K5/K6 rtol 1e-5, atol 1e-6 (the sink's
+    four texels, which sum tens of thousands of addends that the twin adds
+    in another order, bit for bit to the float32 sums in the kernels'
+    order).  The bounds count the separable work:
+    2(2r + 1) adds and a division an output for K10, 6(2r + 1) operations
+    and two divisions for K11."""
     dev = P["color"].device
     H, W = P["depth"].shape
     HW = H * W
@@ -1347,39 +1422,75 @@ def check_wide_forms(P):
                        P["depth"][None], P["normal"]]).contiguous()
     g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
         np.float32)).to(dev)
+    base = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * 14.0).astype(
+        np.float32)).to(dev)
     tol = dict(atol=1e-6, rtol=1e-5)
-    lines = []
-    for Mw in WIDE_MOTIONS:
-        for kind, scale in (("±7 px", 7.0), (f"±{Mw + 1} px", Mw + 1.0)):
-            motion = torch.from_numpy(((rng.random((2, H, W)) - 0.5) * 2
-                                       * scale).astype(np.float32)).to(dev)
-            k5 = gather_bwd_cuda(stack, motion, g, Mw, grad_planes=6)
-            want = temporal.gather_bwd_ref(stack, motion, g, Mw,
-                                           motion_grad=True, grad_planes=6)
-            for name, a, b in zip(("d_hist", "d_motion"), k5, want):
-                check_close(f"K5 M{Mw} {kind} {name}", a, b, **tol)
-            k6 = gather_bwd_hist_cuda(motion, g, Mw, grad_planes=6)
-            check_close(f"K6 M{Mw} {kind}", k6[0], want[0], **tol)
-            again = gather_bwd_cuda(stack, motion, g, Mw, grad_planes=6)
-            if not all(torch.equal(a, b) for a, b in zip(again, k5)):
-                raise AssertionError(f"K5 M{Mw} {kind}: differs between "
-                                     f"launches")
-            err = max(max_err(a, b) for a, b in zip(k5, want))
-            ms5 = cuda_time_ms(lambda: gather_bwd_cuda(
-                stack, motion, g, Mw, grad_planes=6), repeats=5)
-            ms6 = cuda_time_ms(lambda: gather_bwd_hist_cuda(
-                motion, g, Mw, grad_planes=6), repeats=5)
-            plain = cuda_time_ms(lambda: temporal.gather_bwd_ref(
-                stack, motion, g, Mw, motion_grad=True, grad_planes=6),
-                repeats=2)
-            b5, _ = bound(104 * HW, 0)
-            b6, _ = bound(72 * HW, 0)
-            lines.append(f"K5/K6 M{Mw} {kind}: max |err| {err:.3g}, K5 "
-                         f"{ms5:.4f} ms (bound {b5:.4f}, plain {plain:.4f}), "
-                         f"K6 {ms6:.4f} ms (bound {b6:.4f})")
-        # the canvas forms on the lower right quarter tile
-        th, tw = H // 2, W // 2
-        tile = Tile((H - th, W - tw), (H, W))
+    b5, _ = bound(104 * HW, 0)
+    b6, _ = bound(72 * HW, 0)
+    lines, errs = [], []
+    for Mw, kind in WIDE_MOTIONS:
+        motion = _wide_motion(base, Mw, kind)
+        k5 = gather_bwd_cuda(stack, motion, g, Mw, grad_planes=6)
+        want = temporal.gather_bwd_ref(stack, motion, g, Mw,
+                                       motion_grad=True, grad_planes=6)
+        k6 = gather_bwd_hist_cuda(motion, g, Mw, grad_planes=6)
+        mask = None
+        if kind == "sink":
+            # its four texels sum the window's 66,049 sources, which the
+            # twin adds in index_add_'s order: held bit for bit to the
+            # float32 sums in the kernels' order instead
+            texels = sink_texels(H, W)
+            exact = torch.from_numpy(ordered_texel_sums(motion, g, Mw,
+                                                        texels)).to(dev)
+            mask = torch.ones((H, W), dtype=torch.bool, device=dev)
+            for i, (qy, qx) in enumerate(texels):
+                mask[qy, qx] = False
+                for name, dh in (("K5", k5[0]), ("K6", k6[0])):
+                    if not torch.equal(dh[:6, qy, qx], exact[i]):
+                        raise AssertionError(
+                            f"{name} M{Mw} sink texel {(qy, qx)}: not the "
+                            f"float32 sum in the kernels' order")
+        check_close(f"K5 M{Mw} {kind} d_hist", k5[0], want[0], mask=mask,
+                    **tol)
+        check_close(f"K5 M{Mw} {kind} d_motion", k5[1], want[1], **tol)
+        check_close(f"K6 M{Mw} {kind}", k6[0], want[0], mask=mask, **tol)
+        again = (gather_bwd_cuda(stack, motion, g, Mw, grad_planes=6),
+                 gather_bwd_hist_cuda(motion, g, Mw, grad_planes=6))
+        if not (all(torch.equal(a, b) for a, b in zip(again[0], k5))
+                and torch.equal(again[1][0], k6[0])):
+            raise AssertionError(f"K5/K6 M{Mw} {kind}: differs between "
+                                 f"launches")
+        err = max(max_err(k5[0], want[0], mask), max_err(k5[1], want[1]))
+        errs.append(err)
+        ms5 = cuda_time_ms(lambda: gather_bwd_cuda(
+            stack, motion, g, Mw, grad_planes=6), repeats=5)
+        ms6 = cuda_time_ms(lambda: gather_bwd_hist_cuda(
+            motion, g, Mw, grad_planes=6), repeats=5)
+        plain5 = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+            stack, motion, g, Mw, motion_grad=True, grad_planes=6),
+            repeats=2)
+        plain6 = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+            None, motion, g, Mw, motion_grad=False, grad_planes=6),
+            repeats=2)
+        lib5 = _grid_sample_bwd_ms(stack, motion, g, True)
+        lib6 = _grid_sample_bwd_ms(stack, motion, g, False)
+        lines.append(f"M{Mw} {kind}: max |err| {err:.3g}, K5 {ms5:.4f} ms "
+                     f"(bound {b5:.4f}, plain {plain5:.4f}, grid_sample bwd "
+                     f"{lib5:.4f}), K6 {ms6:.4f} ms (bound {b6:.4f}, plain "
+                     f"{plain6:.4f}, grid_sample bwd input-only {lib6:.4f})")
+        if (Mw, kind) == WIDE_REPORTED:
+            results["K5w"] = dict(ms=ms5, plain_ms=plain5, library_ms=lib5,
+                                  bytes=104 * HW, flops=0)
+            results["K6w"] = dict(ms=ms6, plain_ms=plain6, library_ms=lib6,
+                                  bytes=72 * HW, flops=0)
+    results["K5w"]["max_abs_err"] = results["K6w"]["max_abs_err"] = max(
+        errs)
+    # the canvas forms on the lower right quarter tile
+    th, tw = H // 2, W // 2
+    tile = Tile((H - th, W - tw), (H, W))
+    errs = []
+    for Mw in WIDE_CANVAS_MOTIONS:
+        motion = _wide_motion(base, Mw, "wide")
         canvas = frame_canvas(stack, tile, th, tw, Mw + 1)
         m_t, g_t = (x[..., H - th:, W - tw:].contiguous()
                     for x in (motion, g))
@@ -1393,15 +1504,63 @@ def check_wide_forms(P):
                                           canvas_shape=canvas.shape,
                                           grad_planes=6)
         check_close(f"K6c M{Mw}", k6c[0], want[0], **tol)
+        errs.append(max(max_err(a, b) for a, b in zip(k5c, want)))
         ms5c = cuda_time_ms(lambda: gather_canvas_bwd_cuda(
             canvas, m_t, g_t, Mw, tile=tile, grad_planes=6), repeats=5)
-        lines.append(f"K5c/K6c M{Mw} quarter tile: ok, K5c {ms5c:.4f} ms")
-    phase(3, "wide K5/K6 (row bands past max_motion 59): ok, repeatable; "
-             + "; ".join(lines))
+        ms6c = cuda_time_ms(lambda: gather_canvas_bwd_hist_cuda(
+            m_t, g_t, Mw, tile=tile, canvas_shape=canvas.shape,
+            grad_planes=6), repeats=5)
+        plain5c = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+            canvas, m_t, g_t, Mw, motion_grad=True, grad_planes=6,
+            tile=tile), repeats=2)
+        plain6c = cuda_time_ms(lambda: temporal.gather_bwd_ref(
+            None, m_t, g_t, Mw, motion_grad=False, grad_planes=6,
+            tile=tile, canvas_shape=canvas.shape), repeats=2)
+        # grid_sample on the tile's centre (it has no canvas form)
+        centre = canvas[:, Mw + 1:Mw + 1 + th, Mw + 1:Mw + 1 + tw]
+        lib5c = _grid_sample_bwd_ms(centre.contiguous(), m_t, g_t, True)
+        lib6c = _grid_sample_bwd_ms(centre.contiguous(), m_t, g_t, False)
+        lines.append(f"K5c/K6c M{Mw} ±{Mw + 1} px quarter tile: K5c "
+                     f"{ms5c:.4f} ms (plain {plain5c:.4f}, grid_sample bwd "
+                     f"{lib5c:.4f}), K6c {ms6c:.4f} ms (plain "
+                     f"{plain6c:.4f}, grid_sample bwd input-only "
+                     f"{lib6c:.4f})")
+        if Mw == WIDE_REPORTED[0]:
+            # a quarter tile's sources: the bytes of a quarter frame
+            results["K5cw"] = dict(ms=ms5c, plain_ms=plain5c,
+                                   library_ms=lib5c, bytes=104 * th * tw,
+                                   flops=0)
+            results["K6cw"] = dict(ms=ms6c, plain_ms=plain6c,
+                                   library_ms=lib6c, bytes=72 * th * tw,
+                                   flops=0)
+    results["K5cw"]["max_abs_err"] = results["K6cw"]["max_abs_err"] = max(
+        errs)
+    # the scatter route at phase 3's max_motion, where the wrappers take
+    # the staged gather: the same floats; both timed
+    for kind, (st, motion, cot) in (("random", (stack, base, g)),
+                                    ("served", gather_inputs(H, W, dev,
+                                                             "served"))):
+        for k, mg in ((5, True), (6, False)):
+            def run(scatter):
+                return temporal_cuda._gather_bwd(
+                    st if mg else None, motion, cot, M, mg, 6,
+                    scatter=scatter)
+            if not all(torch.equal(a, b)
+                       for a, b in zip(run(False), run(True))):
+                raise AssertionError(f"K{k} scatter route at M{M} {kind}: "
+                                     f"not the staged gather's floats")
+            staged = cuda_time_ms(lambda: run(False), repeats=10)
+            scat = cuda_time_ms(lambda: run(True), repeats=10)
+            lines.append(f"K{k} M{M} {kind}: scatter route {scat:.4f} ms, "
+                         f"staged gather {staged:.4f} (bit-equal)")
+    phase(3, "wide K5/K6 (the bucketed scatter past max_motion 59): ok, "
+             "repeatable; " + "; ".join(lines))
 
     x = P["color"]
     albedo = P["h_color"]
     lines = []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
     for r in WIDE_RADII + (WIDEST_RADIUS,):
         taps = 2 * r + 1
         got = box_filter_cuda(x, radius=r)
@@ -1409,9 +1568,20 @@ def check_wide_forms(P):
         if not torch.equal(got, want):
             raise AssertionError(f"K10 r{r}: not its twin's floats (max "
                                  f"|diff| {max_err(got, want):.3g})")
+
+        def pool():
+            return F.avg_pool2d(x[None], taps, stride=1, padding=r,
+                                count_include_pad=False)[0]
+
+        if r in WIDE_RADII:
+            # the same function (at r 90 its 32,761-term sums part from
+            # the twin's two 1-D passes by more than this tolerance)
+            check_close(f"avg_pool2d r{r} vs K10's twin", pool(), want,
+                        atol=1e-6, rtol=1e-5)
         ms10 = cuda_time_ms(lambda: box_filter_cuda(x, radius=r), repeats=5)
         plain10 = cuda_time_ms(lambda: boxfilter.box_filter(x, radius=r),
                                repeats=2)
+        lib10 = cuda_time_ms(pool, repeats=5)
         b10, by10 = bound(24 * HW, 3 * (2 * taps + 1) * HW)
         got = gaussian_filter_cuda(x, radius=r, sigma=r / 2.0)
         want = filters.gaussian_filter(x, radius=r, sigma=r / 2.0)
@@ -1422,26 +1592,45 @@ def check_wide_forms(P):
             x, radius=r, sigma=r / 2.0), repeats=5)
         plain11 = cuda_time_ms(lambda: filters.gaussian_filter(
             x, radius=r, sigma=r / 2.0), repeats=2)
+        gt = torch.tensor(filters._gauss_taps(r, r / 2.0), device=dev)
+        w2 = (gt[:, None] * gt[None, :]).expand(3, 1, taps, taps).contiguous()
+        try:
+            lib11 = cuda_time_ms(lambda: F.conv2d(x[None], w2, padding=r,
+                                                  groups=3), repeats=2)
+            lib11 = f"{lib11:.4f}"
+        except torch.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            lib11 = "not measured (out of memory)"
         b11, by11 = bound(24 * HW, 3 * (6 * taps + 2) * HW)
         line = (f"r{r}: K10 {ms10:.4f} ms (bound {b10:.4f} {by10}, plain "
-                f"{plain10:.4f}), K11 {ms11:.4f} ms (bound {b11:.4f} "
-                f"{by11}, plain {plain11:.4f})")
+                f"{plain10:.4f}, avg_pool2d {lib10:.4f}), K11 {ms11:.4f} ms "
+                f"(bound {b11:.4f} {by11}, plain {plain11:.4f}, depthwise "
+                f"conv2d numerator {lib11})")
         if r in WIDE_RADII:
             p = FilterParams(type=FilterType.CROSS, radius=r)
             args = (x, albedo, P["normal"], P["depth"])
             got = cross_bilateral_cuda(*args, params=p)
             want = filters.cross_bilateral_filter(*args, params=p)
             check_close(f"K12 r{r}", got, want, atol=5e-5)
+            err12 = max_err(got, want)
             ms12 = cuda_time_ms(lambda: cross_bilateral_cuda(*args,
                                                              params=p),
                                 repeats=3)
             b12, by12 = bound(52 * HW, K12_TAP_FLOPS * taps * taps * HW)
             line += (f", K12 {ms12:.4f} ms (bound {b12:.4f} {by12}; max "
-                     f"|err| {max_err(got, want):.3g})")
+                     f"|err| {err12:.3g})")
+            if r == WIDE_RADII[-1]:
+                plain12 = cuda_time_ms(lambda: filters.cross_bilateral_filter(
+                    *args, params=p), repeats=1)
+                line += f", K12's plain {plain12:.4f} ms"
+                results["K12w"] = dict(max_abs_err=err12, ms=ms12,
+                                       plain_ms=plain12, bytes=52 * HW,
+                                       flops=K12_TAP_FLOPS * taps * taps * HW)
         lines.append(line)
+    torch.backends.cudnn.allow_tf32 = tf32
     phase(3, "wide K10/K11/K12 (K10 and K11 bit-equal to their twins as "
              "two 1-D passes a level past r 16, the taps in a device "
-             "array): ok; " + "; ".join(lines))
+             "array; K12's rolling-row tile): ok; " + "; ".join(lines))
 
 
 def sdf_flops(scene):
@@ -2850,12 +3039,9 @@ def check_temporal_canvas_tiles(P, results, tile_ms):
             lib4 = cuda_time_ms(lambda: F.grid_sample(
                 x, grid, mode="bilinear", padding_mode="zeros",
                 align_corners=True), repeats=20)
-            y = F.grid_sample(x, grid, mode="bilinear", padding_mode="zeros",
-                              align_corners=True)
-            lib5 = cuda_time_ms(lambda: torch.autograd.grad(
-                y, (x, grid), cot_t[None], retain_graph=True), repeats=20)
-            lib6 = cuda_time_ms(lambda: torch.autograd.grad(
-                y, x, cot_t[None], retain_graph=True), repeats=20)
+            centre = _crop(stack, tile, th, tw)
+            lib5 = _grid_sample_bwd_ms(centre, m_t, cot_t, True, repeats=20)
+            lib6 = _grid_sample_bwd_ms(centre, m_t, cot_t, False, repeats=20)
             HW = th * tw
             frac = float(((m_t[0].abs() <= M) & (m_t[1].abs() <= M)).float()
                          .mean())
@@ -3381,7 +3567,7 @@ def main(argv=None) -> int:
     check_k3(P, results)
     check_k4_k5_k6(P, results)
     check_filters(P, results)
-    check_wide_forms(P)
+    check_wide_forms(P, results)
     check_k7_k8(H, W, dev, results)
     check_k13(H, W, dev, results)
     check_cone_seed(H, W, dev, results)

@@ -54,7 +54,7 @@ SIGNATURES = {
     "rdt_bf16_formulas": (_P,) * 3,
     "rdt_temporal": (_P,) * 16,
     "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,) * 2,
-    "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2,
+    "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2 + (_I, _P),
     "rdt_clamped_gather": (_P,) * 3 + (_I,) * 4 + (_P,),
     "rdt_clamped_gather_bwd": (_P,) * 6 + (_I,) * 5 + (_P,),
     "rdt_stack_channel_minor": (_P,) * 6 + (_I, _P),

@@ -24,9 +24,9 @@
 // takes r up to 16.  Past r 16, K10 and K11 run as their twins do: two
 // 1-D passes (sep_pass_kernel), along y into a global intermediate and
 // along x from it, each tap read through the caches (O(r) work an output
-// where a staged tile would hold a halo of 2r rows); K12's one-thread-a-
-// pixel body reads its gaussian taps from a device array there (the
-// à-trous WIDE instantiation's way), not from the launch's parameter struct.
+// where a staged tile would hold a halo of 2r rows); K12 reads its
+// gaussian taps from a device array there (the à-trous WIDE
+// instantiation's way), not from the launch's parameter struct.
 //
 // * K10: all the levels of a launch in shared memory (ping-pong between
 //   two staged buffers), the halo r·levels; only the last level's tile is
@@ -53,11 +53,29 @@
 //   every tap reads the staged tile at offsets fixed at compile time (the
 //   radius is a template parameter); a thread computes two pixels, one
 //   above the other, and its taps of one staged row first take their
-//   normal terms together, so the squaring loop runs once a row.  The
-//   one-thread-a-pixel body, reading each tap's ten values through L1
-//   (250 loads a pixel at r2), stays for r > 4.  Both add the same floats
-//   in the same order (dy-major, dx-minor, taps beyond the frame
-//   skipped), so they agree to the bit.
+//   normal terms together, so the squaring loop runs once a row.
+//   For r > 4 the rolling-row tile (cross_bilateral_rolling_kernel)
+//   replaces the first-generation body, one thread a pixel with each tap's
+//   ten values read through L1 (11.82 ms at r17, 23.02 at r24 on the H100,
+//   8.4x its operation bound).  Its bound is operations (~37 flops a tap:
+//   1.40 ms at r17, 2.75 at r24); the design keeps a tap's instructions
+//   (~50 with --fmad=false) the work: a block of 32 x 8 threads, two
+//   pixels a thread one above the other (a 32 x 16 output tile), walks its
+//   2r + 16 source rows once, keeping a ring of 16 rows of the ten planes
+//   (the 15 a step reads and the next, cp.async'd one step ahead) of 32 +
+//   2r columns in shared memory, 41.4 KB at r17, 50.2 KB at r24, 133.2 KB
+//   at r90 with the 2r + 1 spatial taps; at step t thread row ty takes the
+//   taps of row t + 2ty for both of its pixels, which are rows dy = t - r
+//   and t - r - 1 of them, so a staged value serves two pixel-taps and
+//   every pixel's rows still come in ascending order.  A thread takes a
+//   row's taps in chunks of 8 columns (normal terms, their squaring over
+//   the chunk, then the sums; with powf one tap at a time, which wastes
+//   none on a chunk past the row's end), the columns clipped to the
+//   frame.  Past
+//   r 164 the ring would exceed 227 KB: each step then stages only the 8
+//   rows it reads, in segments of 256 taps' columns, ascending (chunked).
+//   Every form adds the same floats in the same order (dy-major,
+//   dx-minor, taps beyond the frame skipped), so they agree to the bit.
 //
 // Bound on the card: bytes (K10, K11: 24 B a pixel of three planes, for a
 // launch of any depth or an iteration; K12: 52 B a pixel), with K12 close
@@ -91,64 +109,274 @@ struct CrossParams {
 
 namespace {
 
-__device__ float pow_sigma_n(float x, const CrossParams& p) {
-    if (p.pow2_steps < 0) return powf(fmaxf(x, 1e-20f), p.sigma_normal);
-    for (int k = 0; k < p.pow2_steps; ++k) x = x * x;
-    return x;
-}
-
-// color, albedo, normal (3, H, W) and depth (H, W) -> out (3, H, W); the
-// spatial taps from p.gt, or (WIDE, r > 16) from the device array wide_gt
-template <bool WIDE>
-__global__ void cross_bilateral_kernel(const float* __restrict__ color,
-                                       const float* __restrict__ albedo,
-                                       const float* __restrict__ normal,
-                                       const float* __restrict__ depth,
-                                       float* __restrict__ out,
-                                       CrossParams p,
-                                       const float* __restrict__ wide_gt) {
-    const int x = blockIdx.x * blockDim.x + threadIdx.x;
-    const int y = blockIdx.y * blockDim.y + threadIdx.y;
-    if (x >= p.W || y >= p.H) return;
-    const int hw = p.H * p.W, i = y * p.W + x, r = p.radius;
-    const float a0 = albedo[i], a1 = albedo[hw + i], a2 = albedo[2 * hw + i];
-    const float n0 = normal[i], n1 = normal[hw + i], n2 = normal[2 * hw + i];
-    const float z = depth[i];
-    float num0 = 0.0f, num1 = 0.0f, num2 = 0.0f, den = 0.0f;
-    for (int dy = -r; dy <= r; ++dy) {
-        const int yy = y + dy;
-        if (yy < 0 || yy >= p.H) continue;
-        for (int dx = -r; dx <= r; ++dx) {
-            const int xx = x + dx;
-            if (xx < 0 || xx >= p.W) continue;
-            const int q = yy * p.W + xx;
-            const float d0 = a0 - albedo[q];
-            const float d1 = a1 - albedo[hw + q];
-            const float d2 = a2 - albedo[2 * hw + q];
-            const float da2 = d0 * d0 + d1 * d1 + d2 * d2;
-            const float ndot = fmaxf(
-                n0 * normal[q] + n1 * normal[hw + q] + n2 * normal[2 * hw + q],
-                0.0f);
-            const float arg = -(da2 * p.inv_2sa2 + fabsf(z - depth[q]) * p.inv_sz);
-            const float gy = WIDE ? wide_gt[dy + r] : p.gt[dy + r];
-            const float gx = WIDE ? wide_gt[dx + r] : p.gt[dx + r];
-            const float w = gy * gx * exp2f(arg) * pow_sigma_n(ndot, p);
-            num0 = num0 + w * color[q];
-            num1 = num1 + w * color[hw + q];
-            num2 = num2 + w * color[2 * hw + q];
-            den = den + w;
-        }
-    }
-    den = fmaxf(den, p.eps);
-    out[i] = num0 / den;
-    out[hw + i] = num1 / den;
-    out[2 * hw + i] = num2 / den;
-}
-
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
     asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
                  :: "r"(d), "l"(src));
+}
+
+// K12 past r 4: the rolling-row tile (see the header).  A block of KR_TX x
+// KR_TY threads, each computing KR_PX pixels one above the other, over a
+// KR_TX x KR_OH output tile.  At step t, thread row ty takes the taps of
+// frame row y0 - r + t + ty KR_PX, which is row dy = t - r - k of its pixel
+// k: every pixel's rows come in ascending order, and a staged row's
+// values, loaded once, serve the thread's KR_PX pixels (kr_row_taps takes
+// a row's taps, ascending).
+constexpr int KR_TX = 32, KR_TY = 8, KR_PX = 2;
+constexpr int KR_OH = KR_TY * KR_PX;
+// Rows in the ring: the KR_OH - KR_PX + 1 rows a step reads, and the next
+// one in flight.
+constexpr int KR_RING = KR_OH - KR_PX + 2;
+constexpr int KR_CH = 8;
+// Past the ring's shared memory (r > 164), each step stages the KR_TY rows
+// it reads, a segment of KR_SEG taps' columns at a time (chunked).
+constexpr int KR_SEG = 256;
+constexpr size_t kSmemOptin = 232448;   // the shared memory a block can have
+
+// Floats of one plane of a staged row: the whole row's KR_TX + 2r columns
+// (ring), or a segment's KR_SEG + KR_TX - 1 (chunked).
+__host__ __device__ inline int kr_cols(bool roll, int r) {
+    return roll ? KR_TX + 2 * r : KR_SEG + KR_TX - 1;
+}
+
+// A launch's shared memory: its staged rows of 10 planes, and (ring) the
+// 2r + 1 spatial taps.
+__host__ __device__ inline size_t kr_smem(bool roll, int r) {
+    const size_t rows = roll ? KR_RING : KR_TY;
+    return sizeof(float)
+        * (rows * 10 * kr_cols(roll, r) + (roll ? 2 * r + 1 : 0));
+}
+
+// One staged row: frame row y, columns x_begin .. x_begin + n - 1 of the
+// ten planes into dst (plane stride cols); what lies beyond the frame is
+// not staged (never read: its taps are skipped).
+__device__ __forceinline__ void kr_stage(float* dst, int cols,
+                                         const float* const (&planes)[10],
+                                         int H, int W, int y, int x_begin,
+                                         int n) {
+    if (y < 0 || y >= H) return;
+    const int tid = threadIdx.y * KR_TX + threadIdx.x;
+    const int c_lo = max(0, -x_begin), c_hi = min(n, W - x_begin);
+    for (int c = c_lo + tid; c < c_hi; c += KR_TX * KR_TY) {
+        const int q = y * W + x_begin + c;
+#pragma unroll
+        for (int j = 0; j < 10; ++j) cp_async4(dst + j * cols + c, planes[j] + q);
+    }
+}
+
+// A thread's state: its pixels' centres (albedo, normal, depth) and sums.
+struct CrossPixels {
+    float ctr[KR_PX][7];
+    float num0[KR_PX], num1[KR_PX], num2[KR_PX], den[KR_PX];
+};
+
+// One tap (its staged values at v, plane stride cols; spatial weight gx)
+// for the thread's pixels: pixel k takes it where live[k], its normal term
+// nd[k] given.  The parent's floats, in its order.
+__device__ __forceinline__ void kr_tap(const float* v, int cols, float gx,
+                                       const float (&nd)[KR_PX],
+                                       const float (&gy)[KR_PX],
+                                       const bool (&live)[KR_PX],
+                                       CrossPixels& px,
+                                       const CrossParams& p) {
+    const float c0 = v[0], c1 = v[cols], c2 = v[2 * cols];
+    const float b0 = v[3 * cols], b1 = v[4 * cols];
+    const float b2 = v[5 * cols], zq = v[9 * cols];
+#pragma unroll
+    for (int k = 0; k < KR_PX; ++k) {
+        if (!live[k]) continue;
+        const float e0 = px.ctr[k][0] - b0;
+        const float e1 = px.ctr[k][1] - b1;
+        const float e2 = px.ctr[k][2] - b2;
+        const float da2 = e0 * e0 + e1 * e1 + e2 * e2;
+        const float arg = -(da2 * p.inv_2sa2
+                            + fabsf(px.ctr[k][6] - zq) * p.inv_sz);
+        const float w = gy[k] * gx * exp2f(arg) * nd[k];
+        px.num0[k] = px.num0[k] + w * c0;
+        px.num1[k] = px.num1[k] + w * c1;
+        px.num2[k] = px.num2[k] + w * c2;
+        px.den[k] = px.den[k] + w;
+    }
+}
+
+// The normal term's base, max(n . n_q, 0), of the tap at v for pixel k.
+__device__ __forceinline__ float kr_ndot(const float* v, int cols,
+                                         const CrossPixels& px, int k) {
+    return fmaxf(px.ctr[k][3] * v[6 * cols] + px.ctr[k][4] * v[7 * cols]
+                 + px.ctr[k][5] * v[8 * cols], 0.0f);
+}
+
+// The taps d = lo .. hi (dx = d - r) of one staged row for the thread's
+// pixels: row + d is tap d's colour in plane 0 (plane stride cols); pixel
+// k takes them where live[k], with its row's spatial weight gy[k].  A
+// power-of-two sigma_n takes the taps in chunks of KR_CH (the normal
+// terms, their squaring over the chunk, then the sums); powf one tap at a
+// time (a chunk past the row's end would waste it).
+__device__ __forceinline__ void kr_row_taps(const float* row, int cols,
+                                            int lo, int hi, const float* gt,
+                                            const float (&gy)[KR_PX],
+                                            const bool (&live)[KR_PX],
+                                            CrossPixels& px,
+                                            const CrossParams& p) {
+    if (p.pow2_steps < 0) {
+        for (int d = lo; d <= hi; ++d) {
+            float nd[KR_PX];
+#pragma unroll
+            for (int k = 0; k < KR_PX; ++k) {
+                nd[k] = live[k] ? powf(fmaxf(kr_ndot(row + d, cols, px, k),
+                                             1e-20f), p.sigma_normal)
+                                : 0.0f;
+            }
+            kr_tap(row + d, cols, gt[d], nd, gy, live, px, p);
+        }
+        return;
+    }
+    for (int d0 = lo; d0 <= hi; d0 += KR_CH) {
+        float nd[KR_PX][KR_CH];
+#pragma unroll
+        for (int j = 0; j < KR_CH; ++j) {
+            const bool in = d0 + j <= hi;
+#pragma unroll
+            for (int k = 0; k < KR_PX; ++k) {
+                nd[k][j] = in ? kr_ndot(row + d0 + j, cols, px, k) : 0.0f;
+            }
+        }
+        for (int st = 0; st < p.pow2_steps; ++st) {
+#pragma unroll
+            for (int k = 0; k < KR_PX; ++k) {
+#pragma unroll
+                for (int j = 0; j < KR_CH; ++j) nd[k][j] = nd[k][j] * nd[k][j];
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < KR_CH; ++j) {
+            if (d0 + j > hi) break;
+            float n2[KR_PX];
+#pragma unroll
+            for (int k = 0; k < KR_PX; ++k) n2[k] = nd[k][j];
+            kr_tap(row + d0 + j, cols, gt[d0 + j], n2, gy, live, px, p);
+        }
+    }
+}
+
+// Step t of a thread's rows: its frame row ys = y0 - r + t + ty KR_PX,
+// which is row dy = t - r - k of pixel k; the taps d_lo .. d_hi of the
+// staged row at row (column tx at row[0]).
+__device__ __forceinline__ void kr_step(int t, int r, int ys, int H,
+                                        const float* row, int cols,
+                                        int d_lo, int d_hi, const float* gt,
+                                        const bool (&on)[KR_PX],
+                                        CrossPixels& px,
+                                        const CrossParams& p) {
+    if (ys < 0 || ys >= H || d_lo > d_hi) return;
+    float gy[KR_PX];
+    bool live[KR_PX];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < KR_PX; ++k) {
+        const int dy = t - r - k;
+        live[k] = on[k] && dy >= -r && dy <= r;
+        gy[k] = live[k] ? gt[dy + r] : 0.0f;
+        any = any || live[k];
+    }
+    if (any) kr_row_taps(row, cols, d_lo, d_hi, gt, gy, live, px, p);
+}
+
+// K12 for r > kMaxStagedRadius: ROLL, the ring of rows (each row staged
+// once, one step ahead, by cp.async); else chunked (each step stages the
+// rows it reads a segment at a time).  The spatial taps from p.gt (r <=
+// 16) or the device array wide_gt, staged as a table (ring) or read
+// through the caches (chunked, r > 164).
+template <bool ROLL>
+__global__ void __launch_bounds__(KR_TX * KR_TY)
+cross_bilateral_rolling_kernel(const float* __restrict__ color,
+                               const float* __restrict__ albedo,
+                               const float* __restrict__ normal,
+                               const float* __restrict__ depth,
+                               float* __restrict__ out, CrossParams p,
+                               const float* __restrict__ wide_gt) {
+    extern __shared__ float kr_buf[];
+    const int r = p.radius, H = p.H, W = p.W, hw = H * W;
+    const int tx = threadIdx.x, ty = threadIdx.y;
+    const int x0 = blockIdx.x * KR_TX, y0 = blockIdx.y * KR_OH;
+    const int cols = kr_cols(ROLL, r), row_floats = 10 * cols;
+    const float* const planes[10] = {
+        color, color + hw, color + 2 * hw, albedo, albedo + hw,
+        albedo + 2 * hw, normal, normal + hw, normal + 2 * hw, depth};
+    const float* gt = wide_gt;
+    if (ROLL) {
+        float* taps = kr_buf + KR_RING * row_floats;
+        for (int i = ty * KR_TX + tx; i <= 2 * r; i += KR_TX * KR_TY) {
+            taps[i] = wide_gt ? wide_gt[i] : p.gt[i];
+        }
+        gt = taps;
+    }
+    // pixel k at (y0 + ty KR_PX + k, x); its taps' columns clipped to the
+    // frame (the parent skips the others)
+    const int x = x0 + tx;
+    const int lo = max(0, r - x), hi = min(2 * r, r + W - 1 - x);
+    CrossPixels px;
+    bool on[KR_PX];
+#pragma unroll
+    for (int k = 0; k < KR_PX; ++k) {
+        const int y = y0 + ty * KR_PX + k;
+        on[k] = x < W && y < H;
+        const int i = on[k] ? y * W + x : 0;
+#pragma unroll
+        for (int j = 0; j < 7; ++j) px.ctr[k][j] = planes[3 + j][i];
+        px.num0[k] = px.num1[k] = px.num2[k] = px.den[k] = 0.0f;
+    }
+    const int steps = 2 * r + KR_PX;
+    if (ROLL) {
+        // row j (frame row y0 - r + j) in slot j % KR_RING
+        const int n_rows = 2 * r + KR_OH;
+        for (int j = 0; j <= KR_RING - 2 && j < n_rows; ++j) {
+            kr_stage(kr_buf + (j % KR_RING) * row_floats, cols, planes, H, W,
+                     y0 - r + j, x0 - r, KR_TX + 2 * r);
+        }
+        asm volatile("cp.async.wait_all;\n" ::: "memory");
+        __syncthreads();
+        for (int t = 0; t < steps; ++t) {
+            // the row step t + 1 adds, into the slot of the row step t - 1
+            // read last
+            const int jn = t + KR_RING - 1;
+            if (jn < n_rows) {
+                kr_stage(kr_buf + (jn % KR_RING) * row_floats, cols, planes,
+                         H, W, y0 - r + jn, x0 - r, KR_TX + 2 * r);
+            }
+            const int j = t + ty * KR_PX;
+            kr_step(t, r, y0 - r + j, H, kr_buf + (j % KR_RING) * row_floats
+                    + tx, cols, lo, hi, gt, on, px, p);
+            asm volatile("cp.async.wait_all;\n" ::: "memory");
+            __syncthreads();
+        }
+    } else {
+        for (int t = 0; t < steps; ++t) {
+            for (int c0 = 0; c0 <= 2 * r; c0 += KR_SEG) {
+                __syncthreads();   // the previous segment's readers are done
+                for (int rr = 0; rr < KR_TY; ++rr) {
+                    kr_stage(kr_buf + rr * row_floats, cols, planes, H, W,
+                             y0 - r + t + rr * KR_PX, x0 - r + c0,
+                             min(cols, KR_TX + 2 * r - c0));
+                }
+                asm volatile("cp.async.wait_all;\n" ::: "memory");
+                __syncthreads();
+                kr_step(t, r, y0 - r + t + ty * KR_PX, H,
+                        kr_buf + ty * row_floats + tx - c0, cols,
+                        max(lo, c0), min(hi, c0 + KR_SEG - 1), gt, on, px,
+                        p);
+            }
+        }
+    }
+#pragma unroll
+    for (int k = 0; k < KR_PX; ++k) {
+        if (!on[k]) continue;
+        const int i = (y0 + ty * KR_PX + k) * W + x;
+        const float d = fmaxf(px.den[k], p.eps);
+        out[i] = px.num0[k] / d;
+        out[hw + i] = px.num1[k] / d;
+        out[2 * hw + i] = px.num2[k] / d;
+    }
 }
 
 // K12's staged form (r <= kMaxStagedRadius): a block of K12_TX x K12_TY
@@ -747,8 +975,8 @@ extern "C" int rdt_filter_pass(const float* in, float* out, int C, int H,
     return (int)cudaGetLastError();
 }
 
-// K12: the staged form for r <= kMaxStagedRadius, else one thread a pixel
-// (r > 16: the spatial taps from the device array wide_gt, NULL below)
+// K12: the staged form for r <= kMaxStagedRadius, else the rolling-row
+// tile (r > 16: the spatial taps from the device array wide_gt, NULL below)
 extern "C" int rdt_cross_bilateral(const float* color, const float* albedo,
                                    const float* normal, const float* depth,
                                    float* out, const CrossParams* params,
@@ -770,16 +998,25 @@ extern "C" int rdt_cross_bilateral(const float* color, const float* albedo,
     case 2: RDT_CROSS(2); break;
     case 3: RDT_CROSS(3); break;
     case 4: RDT_CROSS(4); break;
-    default:
-        if (r > kMaxTaps / 2) {
-            cross_bilateral_kernel<true>
-                <<<grid_for(H, W, 1, block), block, 0, s>>>(
-                    color, albedo, normal, depth, out, *params, wide_gt);
+    default: {
+        const dim3 rb(KR_TX, KR_TY);
+        const dim3 grid((W + KR_TX - 1) / KR_TX, (H + KR_OH - 1) / KR_OH);
+        if (kr_smem(true, r) <= kSmemOptin) {
+            const size_t smem = kr_smem(true, r);
+            const cudaError_t err = allow_smem(
+                cross_bilateral_rolling_kernel<true>, smem);
+            if (err != cudaSuccess) return (int)err;
+            cross_bilateral_rolling_kernel<true><<<grid, rb, smem, s>>>(
+                color, albedo, normal, depth, out, *params, wide_gt);
         } else {
-            cross_bilateral_kernel<false>
-                <<<grid_for(H, W, 1, block), block, 0, s>>>(
-                    color, albedo, normal, depth, out, *params, nullptr);
+            const size_t smem = kr_smem(false, r);
+            const cudaError_t err = allow_smem(
+                cross_bilateral_rolling_kernel<false>, smem);
+            if (err != cudaSuccess) return (int)err;
+            cross_bilateral_rolling_kernel<false><<<grid, rb, smem, s>>>(
+                color, albedo, normal, depth, out, *params, wide_gt);
         }
+    }
     }
 #undef RDT_CROSS
     return (int)cudaGetLastError();

@@ -97,18 +97,32 @@
 // of its own, 1.10x served; its blocks interleaved with the gather's, 0.98x
 // served but 1.04x random; more blocks an SM by launch bounds spilled.
 //   Above max_motion 59 a block's (9 + 2M) x (33 + 2M) sources no longer
-//   fit in the 227 KB of shared memory a block can have.  There
-//   gather_bwd_banded_kernel stages them in row bands of at most
-//   kBandBytes, one band after another from the region's last row to its
-//   first: a texel's candidate offset rows oy = q - p then still ascend
-//   across the bands, each band scans the floor range of its own sources,
-//   and the sums stay in registers, so every texel adds the same addends
-//   in the same order as one band of the whole region would (any band
-//   split gives the same floats, and launches repeat them).  K5's motion
-//   term runs there in a kernel of its own (motion_term_kernel, the same
-//   sums): inlined after the banded gather, the canvas form with 10
-//   planes spilled.
-//
+//   fit in the 227 KB of shared memory a block can have.  The banded form
+//   that staged them in row bands cost O(M^2) a block (every block coded
+//   the whole region, every texel scanned (2M + 2)^2 candidates on motion
+//   spanning the bound: 13.2 ms at M60, 29.5 at M96 on the H100, against a
+//   bound of 0.064).  Its replacement is a bucketed scatter, O(1) a source
+//   at any M, the same bound (bytes): (1) each accepted source's anchor,
+//   the top left tap of its 2 x 2, is counted on a grid over the canvas
+//   one row and column wider (scatter_count_kernel; no anchor for a
+//   source none of whose taps lands on a texel that gathers); (2) the
+//   counts are scanned into segment offsets (scan_blocks_kernel,
+//   scan_sums_kernel, scan_add_kernel); (3) each source's index is placed
+//   in its anchor's segment (scatter_place_kernel; both atomics taken once
+//   a warp's run of lanes with one anchor); (4) each segment is sorted in
+//   descending source index (scatter_sort_kernel: a thread sorts up to 16
+//   by insertion, the block a longer one through a bitmap of its keys in
+//   the window of sources that can reach its anchor); (5) each texel q
+//   merges the four segments of the anchors q - (1, 1), q - (1, 0), q -
+//   (0, 1) and q in descending source index (scatter_gather_kernel).
+//   Descending source index is the staged kernel's order of ascending
+//   offset rows, then columns: every texel adds the same addends in the
+//   same order, so the route gives the staged kernel's and the banded
+//   form's floats bit for bit, on every launch.  K5's motion term runs
+//   last in a kernel of its own (motion_term_kernel, the same sums).  The
+//   workspace, through PyTorch's allocator: counts and offsets over the
+//   anchor grid and one source index a pixel.
+
 // Tiles (the sharded pipeline, parallel/sharded.py).  Each kernel computes
 // the H x W centre of a tile whose pixel (0, 0) is the global pixel
 // (gy0, gx0) of an Hg x Wg frame, and tests every tap, and the reprojected
@@ -772,119 +786,535 @@ gather_bwd_kernel(const float* __restrict__ hist,
         motion_term<TILE>(hist, motion, g, dm, H, W, M, np, t, qy, qx);
 }
 
-// K5/K6 (K5c/K6c) above max_motion 59: gather_bwd_kernel's d_hist with
-// the block's source region staged in bands of `band_rows` rows (see the
-// header), from the region's last band to its first; shared memory holds
-// one band's motion planes and codes.  K5's motion term follows in
-// motion_term_kernel.
-template <bool TILE, int NP>
+// K5/K6 (K5c/K6c) above kStagedMaxMotion: the bucketed scatter (see the
+// header).  Every kernel below takes the route's geometry: the tile's H x
+// W sources, the bound M, the canvas (Hc x Wc, margin hm) and the anchor
+// grid over it, one row and one column wider (an anchor a, the top left
+// tap of a source's 2 x 2, at tile coordinates (ay, ax) has the index
+// (ay + hm + 1) Wa + ax + hm + 1), and the rows and columns [ylo, yhi] x
+// [xlo, xhi] (tile coordinates) of the texels that gather: the canvas's
+// inside the frame.
+struct ScatterGeom {
+    int H, W, M, hm, Hc, Wc, Wa, Na;
+    int ylo, yhi, xlo, xhi;
+};
+
+// Threads a block of the scatter's one-dimensional launches; the counts a
+// thread of the scan's first pass adds, and a block's share; a segment a
+// thread sorts by insertion, longer ones a block sorts through a bitmap of
+// its keys, kSortWords words (with one pad word each 32 against bank
+// conflicts); sources a thread of the gather takes from the merge before
+// loading their values, and the sources past which a warp merges a texel.
+constexpr int KS_THREADS = 256;
+constexpr int kScanItems = 8;
+constexpr int kScanBlock = KS_THREADS * kScanItems;
+constexpr int kSortShort = 16;
+constexpr int kSortWords = 8192;
+constexpr int kMergeBatch = 4;
+// A texel whose four segments hold more sources than this (a sink's) is
+// merged by a warp, 32 sources at a time.
+constexpr int kLongTexel = 64;
+
+template <bool TILE>
+__host__ __device__ inline ScatterGeom scatter_geom(int H, int W, int M,
+                                                    const TemporalTile& t) {
+    ScatterGeom g;
+    g.H = H;
+    g.W = W;
+    g.M = M;
+    g.hm = TILE ? t.h_m : 0;
+    g.Hc = H + 2 * g.hm;
+    g.Wc = W + 2 * g.hm;
+    g.Wa = g.Wc + 1;
+    g.Na = (g.Hc + 1) * g.Wa;
+    // the texels inside the frame and the canvas
+    g.ylo = TILE ? (g.hm < t.gy0 ? -g.hm : -t.gy0) : 0;
+    g.xlo = TILE ? (g.hm < t.gx0 ? -g.hm : -t.gx0) : 0;
+    g.yhi = TILE ? (H + g.hm < t.Hg - t.gy0 ? H + g.hm : t.Hg - t.gy0) - 1
+                 : H - 1;
+    g.xhi = TILE ? (W + g.hm < t.Wg - t.gx0 ? W + g.hm : t.Wg - t.gx0) - 1
+                 : W - 1;
+    return g;
+}
+
+// The workspace: counts and segment offsets, each over the anchor grid
+// and its total rounded up to whole scan blocks, the scan's block sums
+// (rounded to four), and a source index for each source.
+__host__ __device__ inline long long scatter_counts(const ScatterGeom& g) {
+    return ((long long)g.Na + 1 + kScanBlock - 1) / kScanBlock * kScanBlock;
+}
+
+__host__ __device__ inline long long scatter_workspace_ints(
+    const ScatterGeom& g) {
+    const long long np = scatter_counts(g);
+    return 2 * np + (np / kScanBlock + 3) / 4 * 4 + (long long)g.H * g.W;
+}
+
+// Source i's anchor index, or -1: rejected (|m| > M on an axis) or none of
+// its taps on a texel that gathers.
+__device__ __forceinline__ int scatter_anchor(const float* __restrict__ motion,
+                                              const ScatterGeom& g, int i) {
+    const int hw = g.H * g.W;
+    const float m0 = motion[i], m1 = motion[hw + i];
+    if (!(fabsf(m0) <= (float)g.M && fabsf(m1) <= (float)g.M)) return -1;
+    const int py = i / g.W, px = i - py * g.W;
+    const int ay = py + (int)floorf(m0), ax = px + (int)floorf(m1);
+    if (ay < g.ylo - 1 || ay > g.yhi || ax < g.xlo - 1 || ax > g.xhi) {
+        return -1;
+    }
+    return (ay + g.hm + 1) * g.Wa + ax + g.hm + 1;
+}
+
+// 1. Code and count: count[a] += the sources anchored at a, one atomic a
+// warp's run of lanes that share an anchor (a sink's sources would
+// otherwise queue on one address).
+__global__ void __launch_bounds__(KS_THREADS)
+scatter_count_kernel(const float* __restrict__ motion, int* __restrict__ count,
+                     ScatterGeom g) {
+    const int i = blockIdx.x * KS_THREADS + threadIdx.x;
+    const int a = i < g.H * g.W ? scatter_anchor(motion, g, i) : -1;
+    const unsigned live = __ballot_sync(0xffffffffu, a >= 0);
+    if (a < 0) return;
+    const unsigned peers = __match_any_sync(live, a);
+    if ((int)(threadIdx.x & 31) == __ffs(peers) - 1) {
+        atomicAdd(&count[a], __popc(peers));
+    }
+}
+
+// A block's exclusive sum of one int a thread (KS_THREADS threads);
+// ``total`` gets the block's sum.  Holds two __syncthreads.
+__device__ __forceinline__ int block_exclusive_sum(int v, int* warp_sums,
+                                                   int& total) {
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    int incl = v;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+        const int u = __shfl_up_sync(0xffffffffu, incl, d);
+        if (lane >= d) incl += u;
+    }
+    if (lane == 31) warp_sums[warp] = incl;
+    __syncthreads();
+    int before = 0;
+    total = 0;
+#pragma unroll
+    for (int w = 0; w < KS_THREADS / 32; ++w) {
+        before += w < warp ? warp_sums[w] : 0;
+        total += warp_sums[w];
+    }
+    __syncthreads();
+    return before + incl - v;
+}
+
+// 2. The exclusive scan of the counts into segment offsets, in three
+// passes: each block's kScanBlock counts (off gets their exclusive sums
+// within the block, bsum the block's total), the block totals (one block,
+// in place), and the block totals added back.
+__global__ void __launch_bounds__(KS_THREADS)
+scan_blocks_kernel(const int* __restrict__ count, int* __restrict__ off,
+                   int* __restrict__ bsum) {
+    __shared__ int warp_sums[KS_THREADS / 32];
+    const size_t base = (size_t)blockIdx.x * kScanBlock
+        + threadIdx.x * kScanItems;
+    const int4 c0 = *reinterpret_cast<const int4*>(count + base);
+    const int4 c1 = *reinterpret_cast<const int4*>(count + base + 4);
+    const int v[kScanItems] = {c0.x, c0.y, c0.z, c0.w,
+                               c1.x, c1.y, c1.z, c1.w};
+    int sum = 0;
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) sum += v[k];
+    int total;
+    int run = block_exclusive_sum(sum, warp_sums, total);
+    int e[kScanItems];
+#pragma unroll
+    for (int k = 0; k < kScanItems; ++k) {
+        e[k] = run;
+        run += v[k];
+    }
+    *reinterpret_cast<int4*>(off + base) = make_int4(e[0], e[1], e[2], e[3]);
+    *reinterpret_cast<int4*>(off + base + 4) =
+        make_int4(e[4], e[5], e[6], e[7]);
+    if (threadIdx.x == 0) bsum[blockIdx.x] = total;
+}
+
+__global__ void __launch_bounds__(KS_THREADS)
+scan_sums_kernel(int* __restrict__ bsum, int nb) {
+    __shared__ int warp_sums[KS_THREADS / 32];
+    int carry = 0;
+    for (int b0 = 0; b0 < nb; b0 += KS_THREADS) {
+        const int b = b0 + threadIdx.x;
+        const int v = b < nb ? bsum[b] : 0;
+        int total;
+        const int e = block_exclusive_sum(v, warp_sums, total);
+        if (b < nb) bsum[b] = carry + e;
+        carry += total;
+    }
+}
+
+__global__ void __launch_bounds__(KS_THREADS)
+scan_add_kernel(int* __restrict__ off, const int* __restrict__ bsum,
+                long long n) {
+    const long long i = ((long long)blockIdx.x * KS_THREADS + threadIdx.x) * 4;
+    if (i >= n) return;
+    int4 v = *reinterpret_cast<int4*>(off + i);
+    const int s = bsum[i / kScanBlock];
+    v.x += s;
+    v.y += s;
+    v.z += s;
+    v.w += s;
+    *reinterpret_cast<int4*>(off + i) = v;
+}
+
+// 3. Placement: each source's index into its anchor's segment, at a slot
+// counted down from the segment's end (count[a] returns to 0); the order
+// within a segment is the atomics', which step 4 sorts.
+__global__ void __launch_bounds__(KS_THREADS)
+scatter_place_kernel(const float* __restrict__ motion, int* __restrict__ count,
+                     const int* __restrict__ off, int* __restrict__ idx,
+                     ScatterGeom g) {
+    const int i = blockIdx.x * KS_THREADS + threadIdx.x;
+    const int a = i < g.H * g.W ? scatter_anchor(motion, g, i) : -1;
+    const unsigned live = __ballot_sync(0xffffffffu, a >= 0);
+    if (a < 0) return;
+    const unsigned peers = __match_any_sync(live, a);
+    const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
+    const int n = __popc(peers);
+    int end = 0;
+    if (lane == leader) end = atomicSub(&count[a], n);
+    end = __shfl_sync(peers, end, leader);
+    // the run's slots: [end - n, end) of the segment
+    const int rank = __popc(peers & ((1u << lane) - 1u));
+    idx[off[a] + end - n + rank] = i;
+}
+
+// A long segment (anchor a, n > kSortShort sources) sorted by the block in
+// descending source index.  A source p of it lies in the window of
+// sources whose floors reach a, [ay - M, ay + M] x [ax - M, ax + M]
+// clipped to the tile; its key, (py - row0) KW + px - col0, ascends with
+// p.  The block sets each source's key in a bitmap of kSortWords * 32 keys
+// at a time, counts the set bits of each thread's 32 words, and writes
+// each source at n - 1 - its rank, into scratch (the counts' array, free
+// after placement: the segment's own n ints at its offset), then copies
+// the segment back.  Cost: ceil(KR / 262144) passes over the n sources,
+// KR <= min((2M + 1)^2, H W) keys (a sink of (2M + 1)^2 sources at M 128:
+// one pass over 66,049 of them).
+__device__ void sort_long_segment(int a, int s, int n, int* __restrict__ idx,
+                                  int* __restrict__ scratch,
+                                  const ScatterGeom& g, unsigned* bits,
+                                  int* warp_sums) {
+    const int ay = a / g.Wa - g.hm - 1, ax = a % g.Wa - g.hm - 1;
+    const int row0 = max(ay - g.M, 0), row1 = min(ay + g.M, g.H - 1);
+    const int col0 = max(ax - g.M, 0), col1 = min(ax + g.M, g.W - 1);
+    const int KW = col1 - col0 + 1;
+    const int KR = (row1 - row0 + 1) * KW;          // <= H W
+    constexpr int kChunk = kSortWords * 32;
+    constexpr int kPer = kSortWords / KS_THREADS;   // words a thread scans
+    int done = 0;
+    for (int k0 = 0; k0 < KR; k0 += kChunk) {
+        for (int w = threadIdx.x; w < kSortWords; w += KS_THREADS) {
+            bits[w + (w >> 5)] = 0u;
+        }
+        __syncthreads();
+        for (int e = threadIdx.x; e < n; e += KS_THREADS) {
+            const int p = idx[s + e];
+            const int py = p / g.W, px = p - py * g.W;
+            const int key = (py - row0) * KW + px - col0 - k0;
+            if (key >= 0 && key < kChunk) {
+                const int w = key >> 5;
+                atomicOr(&bits[w + (w >> 5)], 1u << (key & 31));
+            }
+        }
+        __syncthreads();
+        // thread t's words t kPer .. (t + 1) kPer - 1, at t (kPer + 1) + j
+        const unsigned* mine = bits + threadIdx.x * (kPer + 1);
+        int c = 0;
+#pragma unroll 4
+        for (int j = 0; j < kPer; ++j) c += __popc(mine[j]);
+        int total;
+        int rank = done + block_exclusive_sum(c, warp_sums, total);
+        for (int j = 0; j < kPer; ++j) {
+            unsigned b = mine[j];
+            while (b) {
+                const int bit = __ffs(b) - 1;
+                b &= b - 1u;
+                const int key = k0 + ((threadIdx.x * kPer + j) << 5) + bit;
+                const int dy = key / KW;
+                scratch[s + n - 1 - rank] = (row0 + dy) * g.W + col0 + key
+                    - dy * KW;
+                ++rank;
+            }
+        }
+        done += total;
+        __syncthreads();
+    }
+    for (int e = threadIdx.x; e < n; e += KS_THREADS) idx[s + e] = scratch[s + e];
+    __syncthreads();
+}
+
+// 4. Sorting: each segment in descending source index (the parent's
+// order of ascending offset rows, then columns, at every texel): a thread
+// a segment of up to kSortShort by insertion, the block the longer ones
+// of its KS_THREADS anchors, one after another.
+__global__ void __launch_bounds__(KS_THREADS)
+scatter_sort_kernel(const int* __restrict__ off, int* __restrict__ idx,
+                    int* __restrict__ scratch, ScatterGeom g) {
+    __shared__ unsigned bits[kSortWords + kSortWords / 32];
+    __shared__ int warp_sums[KS_THREADS / 32];
+    __shared__ int longs[KS_THREADS];
+    __shared__ int n_long;
+    const int a = blockIdx.x * KS_THREADS + threadIdx.x;
+    int s = 0, n = 0;
+    if (a < g.Na) {
+        s = off[a];
+        n = off[a + 1] - s;
+    }
+    if (n >= 2 && n <= kSortShort) {
+        int* seg = idx + s;
+        for (int i = 1; i < n; ++i) {
+            const int v = seg[i];
+            int j = i - 1;
+            while (j >= 0 && seg[j] < v) {
+                seg[j + 1] = seg[j];
+                --j;
+            }
+            seg[j + 1] = v;
+        }
+    }
+    if (threadIdx.x == 0) n_long = 0;
+    __syncthreads();
+    if (n > kSortShort) longs[atomicAdd(&n_long, 1)] = a;
+    __syncthreads();
+    // each long segment's result is its own: the list's order is free
+    for (int k = 0; k < n_long; ++k) {
+        const int b = longs[k];
+        sort_long_segment(b, off[b], off[b + 1] - off[b], idx, scratch, g,
+                          bits, warp_sums);
+    }
+}
+
+// Run k's next head: its source at position h + 1, or -1 past its end e.
+__device__ __forceinline__ void run_advance(const int* __restrict__ idx,
+                                            int& v, int& h, int e) {
+    ++h;
+    v = h < e ? idx[h] : -1;
+}
+
+// The next source of a texel's four sorted runs, in descending index (-1
+// when all are spent); v_k is run k's head, h_k its position, e_k its end.
+// (Written out run by run: a loop over the runs with an exit compiled to
+// an indexed array in local memory.)
+__device__ __forceinline__ int merge_next(const int* __restrict__ idx,
+                                          int (&v)[4], int (&h)[4],
+                                          const int (&e)[4]) {
+    const int best = max(max(v[0], v[1]), max(v[2], v[3]));
+    if (best >= 0) {
+        if (v[0] == best) {
+            run_advance(idx, v[0], h[0], e[0]);
+        } else if (v[1] == best) {
+            run_advance(idx, v[1], h[1], e[1]);
+        } else if (v[2] == best) {
+            run_advance(idx, v[2], h[2], e[2]);
+        } else {
+            run_advance(idx, v[3], h[3], e[3]);
+        }
+    }
+    return best;
+}
+
+// The segments of texel (cy, cx) of the canvas: the anchors q - (1, 1)
+// and q - (1, 0), then q - (0, 1) and q (two pairs of adjacent segments):
+// starts h, ends e.
+__device__ __forceinline__ void texel_runs(const int* __restrict__ off,
+                                           const ScatterGeom& sg, int cy,
+                                           int cx, int (&h)[4], int (&e)[4]) {
+    const int* o0 = off + cy * sg.Wa + cx;
+    const int* o1 = o0 + sg.Wa;
+    h[0] = o0[0];
+    h[1] = e[0] = o0[1];
+    e[1] = o0[2];
+    h[2] = o1[0];
+    h[3] = e[2] = o1[1];
+    e[3] = o1[2];
+}
+
+// The weight of source p at texel q (tile coordinates), as the parent
+// rounds it: tent(m0 - oy) * tent(m1 - ox) at the offset o = q - p.
+__device__ __forceinline__ float scatter_weight(float m0, float m1, int p,
+                                                int qy, int qx, int W) {
+    const int py = p / W, px = p - py * W;
+    return tent(m0 - (float)(qy - py)) * tent(m1 - (float)(qx - px));
+}
+
+// A long texel's sums, by the calling warp (every lane gets them): each
+// round loads the next 32 sources of each of the four runs, ranks the
+// 128 candidates (how many are larger), takes the 32 largest (the next 32
+// of the merge, in order), computes their products a lane each, and adds
+// them in order, every lane the same floats.
+template <int NP>
+__device__ __forceinline__ void merge_long_texel(
+    const float* __restrict__ motion, const float* __restrict__ g,
+    const int* __restrict__ off, const int* __restrict__ idx, int np,
+    const ScatterGeom& sg, int cy, int cx, int* sel, float (&acc)[NP]) {
+    const unsigned full = 0xffffffffu;
+    const int lane = threadIdx.x, hw = sg.H * sg.W;
+    const int qy = cy - sg.hm, qx = cx - sg.hm;
+    int h[4], e[4];
+    texel_runs(off, sg, cy, cx, h, e);
+#pragma unroll
+    for (int c = 0; c < NP; ++c) acc[c] = 0.0f;
+    while (h[0] < e[0] || h[1] < e[1] || h[2] < e[2] || h[3] < e[3]) {
+        int cand[4], rank[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            cand[k] = h[k] + lane < e[k] ? idx[h[k] + lane] : -1;
+            rank[k] = 0;
+        }
+#pragma unroll 4
+        for (int l2 = 0; l2 < 32; ++l2) {
+            int v[4];
+#pragma unroll
+            for (int k2 = 0; k2 < 4; ++k2) {
+                v[k2] = __shfl_sync(full, cand[k2], l2);
+            }
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+                rank[k] += (v[0] > cand[k]) + (v[1] > cand[k])
+                    + (v[2] > cand[k]) + (v[3] > cand[k]);
+            }
+        }
+        int n = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            const bool take = cand[k] >= 0 && rank[k] < 32;
+            if (take) sel[rank[k]] = cand[k];
+            const int taken = __popc(__ballot_sync(full, take));
+            h[k] += taken;
+            n += taken;
+        }
+        __syncwarp();
+        float prod[NP];
+        const int p = sel[lane];
+#pragma unroll
+        for (int c = 0; c < NP; ++c) prod[c] = 0.0f;
+        if (lane < n) {
+            const float w = scatter_weight(motion[p], motion[hw + p], p, qy,
+                                           qx, sg.W);
+#pragma unroll
+            for (int c = 0; c < NP; ++c) {
+                if (c < np) prod[c] = w * g[c * hw + p];
+            }
+        }
+        for (int j = 0; j < n; ++j) {
+#pragma unroll
+            for (int c = 0; c < NP; ++c) {
+                const float t = __shfl_sync(full, prod[c], j);
+                if (c < np) acc[c] = acc[c] + t;
+            }
+        }
+        __syncwarp();
+    }
+}
+
+// 5. The gather: texel q of the canvas takes w * g[p] from the sources of
+// the anchors q - (1, 1), q - (1, 0), q - (0, 1) and q, merged in
+// descending source index (the parent's order), kMergeBatch at a time
+// (their loads go out together), with the parent's weight and rounding;
+// a texel of more than kLongTexel sources is left to a warp of the block
+// (merge_long_texel), the block's long texels one a warp.  A 32 x 8
+// block writes its texels' 10 planes, zeros beyond np.
+template <int NP>
 __global__ void __launch_bounds__(KT_X * KT_Y)
-gather_bwd_banded_kernel(const float* __restrict__ motion,
-                         const float* __restrict__ g, float* __restrict__ dh,
-                         int H, int W, int M, int np, TemporalTile t,
-                         int band_rows) {
-    extern __shared__ float sm[];
-    __shared__ int red[KT_Y][4];
-    const int hm = TILE ? t.h_m : 0;
-    const int cx0 = blockIdx.x * KT_X, cy0 = blockIdx.y * KT_Y;
-    const int qx0 = cx0 - hm, qy0 = cy0 - hm;
-    const int rh = KT_Y + 2 * M + 1, rw = KT_X + 2 * M + 1;
-    const int ry0 = qy0 - M - 1, rx0 = qx0 - M - 1;
-    const int nb = band_rows * rw;
-    const int hw = H * W;
-    const int rs = TILE ? t.h_rs : W, ps = TILE ? t.h_ps : hw;
-    float* s0 = sm;
-    float* s1 = sm + nb;
-    int* code = reinterpret_cast<int*>(sm + 2 * nb);
-    const int cx = cx0 + threadIdx.x, cy = cy0 + threadIdx.y;
-    const int qx = qx0 + threadIdx.x, qy = qy0 + threadIdx.y;
-    const bool live = cy < H + 2 * hm && cx < W + 2 * hm;
-    const bool gather = live
-        && (!TILE || tap_inside<TILE>(t, H, W, qy, qx, 0, 0));
+scatter_gather_kernel(const float* __restrict__ motion,
+                      const float* __restrict__ g, const int* __restrict__ off,
+                      const int* __restrict__ idx, float* __restrict__ dh,
+                      int np, ScatterGeom sg) {
+    __shared__ int long_list[KT_X * KT_Y];
+    __shared__ int n_long;
+    __shared__ float long_acc[KT_X * KT_Y][NP];
+    __shared__ int sel[KT_Y][32];
+    const int tid = threadIdx.y * KT_X + threadIdx.x;
+    const int cx = blockIdx.x * KT_X + threadIdx.x;
+    const int cy = blockIdx.y * KT_Y + threadIdx.y;
+    const bool live = cy < sg.Hc && cx < sg.Wc;
+    const int hw = sg.H * sg.W;
+    const int qy = cy - sg.hm, qx = cx - sg.hm;
     float acc[NP];
 #pragma unroll
     for (int c = 0; c < NP; ++c) acc[c] = 0.0f;
+    bool is_long = false;
+    if (live && qy >= sg.ylo && qy <= sg.yhi && qx >= sg.xlo
+        && qx <= sg.xhi) {
+        int h[4], e[4];
+        texel_runs(off, sg, cy, cx, h, e);
+        is_long = (e[0] - h[0]) + (e[1] - h[1]) + (e[2] - h[2])
+            + (e[3] - h[3]) > kLongTexel;
+        int v[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+            v[k] = !is_long && h[k] < e[k] ? idx[h[k]] : -1;
+        }
 #pragma unroll 1
-    for (int b1 = rh; b1 > 0; b1 -= band_rows) {
-        // region rows [b0, b1): frame rows ry0 + b0 .. ry0 + b1 - 1
-        const int b0 = max(b1 - band_rows, 0), bh = b1 - b0;
-        const int sy0 = ry0 + b0;
-        __syncthreads();   // the previous band's readers are done
-        for (int ry = threadIdx.y; ry < bh; ry += KT_Y) {
-            const int sy = sy0 + ry;
-            for (int rx = threadIdx.x; rx < rw; rx += KT_X) {
-                const int sx = rx0 + rx;
-                const bool in = sy >= 0 && sy < H && sx >= 0 && sx < W;
-                const float* src = motion + (in ? sy * W + sx : 0);
-                cp_async4_or_zero(s0 + ry * rw + rx, src, in);
-                cp_async4_or_zero(s1 + ry * rw + rx, src + hw, in);
-            }
-        }
-        cp_async_wait_all();
-        __syncthreads();
-        int y_lo = kNoLo, y_hi = kNoHi, x_lo = kNoLo, x_hi = kNoHi;
-        for (int ry = threadIdx.y; ry < bh; ry += KT_Y) {
-            const int sy = sy0 + ry;
-            for (int rx = threadIdx.x; rx < rw; rx += KT_X) {
-                const int sx = rx0 + rx, e = ry * rw + rx;
-                const float m0 = s0[e], m1 = s1[e];
-                int c = kNoSource;
-                if (sy >= 0 && sy < H && sx >= 0 && sx < W
-                    && fabsf(m0) <= (float)M && fabsf(m1) <= (float)M) {
-                    const int fy = (int)floorf(m0), fx = (int)floorf(m1);
-                    const int ay = sy + fy - qy0, ax = sx + fx - qx0;
-                    if (ay >= -1 && ay < KT_Y && ax >= -1 && ax < KT_X) {
-                        c = ((fy + kCodeBias) << 16) + fx + kCodeBias;
-                        y_lo = min(y_lo, fy);
-                        y_hi = max(y_hi, fy);
-                        x_lo = min(x_lo, fx);
-                        x_hi = max(x_hi, fx);
-                    }
+        while (true) {
+            int p[kMergeBatch];
+#pragma unroll
+            for (int b = 0; b < kMergeBatch; ++b) p[b] = merge_next(idx, v, h, e);
+            if (p[0] < 0) break;
+            float m0[kMergeBatch], m1[kMergeBatch], gv[kMergeBatch][NP];
+#pragma unroll
+            for (int b = 0; b < kMergeBatch; ++b) {
+                const int s = max(p[b], 0);
+                m0[b] = motion[s];
+                m1[b] = motion[hw + s];
+#pragma unroll
+                for (int c = 0; c < NP; ++c) {
+                    gv[b][c] = p[b] >= 0 && c < np ? g[c * hw + s] : 0.0f;
                 }
-                code[e] = c;
             }
-        }
-        const FloorRange r = block_floor_range(y_lo, y_hi, x_lo, x_hi, red);
-        if (!gather || r.y_lo > r.y_hi) continue;
-        // the offset rows whose source row qy - oy lies in the band,
-        // ascending, as gather_bwd_kernel scans them
-        const int oy_lo = max(r.y_lo, qy - (sy0 + bh - 1));
-        const int oy_hi = min(r.y_hi + 1, qy - sy0);
-        const int nx = r.x_hi - r.x_lo + 2;
-        for (int oy = oy_lo; oy <= oy_hi; ++oy) {
-            const int ty = ((oy + kCodeBias) << 16) + kCodeBias;
-            const int row = (qy - oy - sy0) * rw + qx - rx0;
-            for (int k0 = 0; k0 < nx; k0 += 32) {
-                const int kn = min(nx - k0, 32);
-                const int ox0 = r.x_lo + k0;
-                unsigned mask = 0u;
-                for (int k = 0; k < kn; ++k) {
-                    const int d = ty + ox0 + k - code[row - ox0 - k];
-                    mask |= ((d & 0xfffefffe) == 0 ? 1u : 0u) << k;
-                }
-                while (mask) {
-                    const int k = __ffs(mask) - 1;
-                    mask &= mask - 1u;
-                    const int ox = ox0 + k, e = row - ox;
-                    const float w = tent(s0[e] - (float)oy)
-                        * tent(s1[e] - (float)ox);
-                    const float* gs = g + (qy - oy) * W + qx - ox;
+#pragma unroll
+            for (int b = 0; b < kMergeBatch; ++b) {
+                if (p[b] >= 0) {
+                    const float w = scatter_weight(m0[b], m1[b], p[b], qy,
+                                                   qx, sg.W);
 #pragma unroll
                     for (int c = 0; c < NP; ++c) {
-                        if (c < np) acc[c] = acc[c] + w * gs[c * hw];
+                        if (c < np) acc[c] = acc[c] + w * gv[b][c];
                     }
                 }
             }
         }
     }
+    if (tid == 0) n_long = 0;
+    __syncthreads();
+    if (is_long) long_list[atomicAdd(&n_long, 1)] = tid;
+    __syncthreads();
+    if (n_long) {
+        // each long texel's result is its own: the list's order is free
+        for (int k = threadIdx.y; k < n_long; k += KT_Y) {
+            const int t = long_list[k];
+            float sum[NP];
+            merge_long_texel<NP>(motion, g, off, idx, np, sg,
+                                 blockIdx.y * KT_Y + t / KT_X,
+                                 blockIdx.x * KT_X + t % KT_X,
+                                 sel[threadIdx.y], sum);
+            if (threadIdx.x == 0) {
+#pragma unroll
+                for (int c = 0; c < NP; ++c) long_acc[t][c] = sum[c];
+            }
+        }
+        __syncthreads();
+        if (is_long) {
+#pragma unroll
+            for (int c = 0; c < NP; ++c) acc[c] = long_acc[tid][c];
+        }
+    }
     if (!live) return;
-    float* d = dh + cy * rs + cx;
+    float* d = dh + cy * sg.Wc + cx;
+    const int ps = sg.Hc * sg.Wc;
 #pragma unroll
     for (int c = 0; c < 10; ++c) d[c * ps] = c < NP ? acc[c] : 0.0f;
 }
 
 // K5's motion term (motion_term) at every pixel of the tile, one a thread:
-// the banded K5's second launch.
+// the scatter route's last launch.
 template <bool TILE>
 __global__ void __launch_bounds__(KT_X * KT_Y)
 motion_term_kernel(const float* __restrict__ hist,
@@ -1348,37 +1778,52 @@ extern "C" int rdt_gather(const float* stack, const float* motion, float* out,
 // K5/K6's shared memory: the motion (two floats) and the code of each of
 // a gather block's (KT_Y + 2M + 1) x (KT_X + 2M + 1) sources.
 static size_t gather_bwd_smem(int M) {
-    const size_t n = (size_t)(KT_Y + 2 * M + 1) * (KT_X + 2 * M + 1);
+    const size_t n = (size_t)(KT_Y + 2 * (size_t)M + 1)
+        * (KT_X + 2 * (size_t)M + 1);
     return (2 * sizeof(float) + sizeof(int)) * n;
 }
 
-// The shared memory a block can have (sm_90), and the banded form's
-// budget a band: two blocks an SM.
+// The shared memory a block can have (sm_90): the staged gather takes
+// max_motion up to 59 (225 KB), the scatter route any.
 constexpr size_t kSmemOptin = 227 * 1024;
-constexpr size_t kBandBytes = 96 * 1024;
 
+static int grid_1d(long long n) {
+    return (int)((n + KS_THREADS - 1) / KS_THREADS);
+}
+
+// The scatter route's launches (see the header), on the workspace ws of
+// ws_ints ints: counts, offsets, the scan's block sums, source indices.
 template <bool TILE, bool MG, int NP>
-static int launch_gather_bwd_banded(const float* hist, const float* motion,
-                                    const float* g, float* dh, float* dm,
-                                    int H, int W, int M, int np,
-                                    const TemporalTile& t, cudaStream_t s) {
-    const int rh = KT_Y + 2 * M + 1, rw = KT_X + 2 * M + 1;
-    const size_t row_bytes = (2 * sizeof(float) + sizeof(int)) * rw;
-    const int band_rows = std::max(
-        1, std::min(rh, (int)(kBandBytes / row_bytes)));
-    const size_t smem = row_bytes * band_rows;
-    if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(
-            gather_bwd_banded_kernel<TILE, NP>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (err != cudaSuccess) return (int)err;
+static int launch_gather_bwd_scatter(const float* hist, const float* motion,
+                                     const float* g, float* dh, float* dm,
+                                     int H, int W, int M, int np,
+                                     const TemporalTile& t, int* ws,
+                                     int ws_ints, cudaStream_t s) {
+    const ScatterGeom sg = scatter_geom<TILE>(H, W, M, t);
+    if (!ws || ws_ints < scatter_workspace_ints(sg) || !aligned(ws, 16)) {
+        return (int)cudaErrorInvalidValue;
     }
-    const int hm = TILE ? t.h_m : 0;
+    const long long nc = scatter_counts(sg);
+    const int nb = (int)(nc / kScanBlock);
+    int* count = ws;
+    int* off = count + nc;
+    int* bsum = off + nc;
+    int* idx = bsum + (nb + 3) / 4 * 4;
+    cudaError_t err = cudaMemsetAsync(count, 0, sizeof(int) * nc, s);
+    if (err != cudaSuccess) return (int)err;
+    const int n_src = grid_1d((long long)H * W);
+    scatter_count_kernel<<<n_src, KS_THREADS, 0, s>>>(motion, count, sg);
+    scan_blocks_kernel<<<nb, KS_THREADS, 0, s>>>(count, off, bsum);
+    scan_sums_kernel<<<1, KS_THREADS, 0, s>>>(bsum, nb);
+    scan_add_kernel<<<grid_1d(nc / 4), KS_THREADS, 0, s>>>(off, bsum, nc);
+    scatter_place_kernel<<<n_src, KS_THREADS, 0, s>>>(motion, count, off, idx,
+                                                       sg);
+    scatter_sort_kernel<<<grid_1d(sg.Na), KS_THREADS, 0, s>>>(off, idx, count,
+                                                              sg);
     const dim3 block(KT_X, KT_Y);
-    const dim3 grid((W + 2 * hm + KT_X - 1) / KT_X,
-                    (H + 2 * hm + KT_Y - 1) / KT_Y);
-    gather_bwd_banded_kernel<TILE, NP><<<grid, block, smem, s>>>(
-        motion, g, dh, H, W, M, np, t, band_rows);
+    const dim3 grid((sg.Wc + KT_X - 1) / KT_X, (sg.Hc + KT_Y - 1) / KT_Y);
+    scatter_gather_kernel<NP><<<grid, block, 0, s>>>(motion, g, off, idx, dh,
+                                                      np, sg);
     if (MG) {
         const dim3 px((W + KT_X - 1) / KT_X, (H + KT_Y - 1) / KT_Y);
         motion_term_kernel<TILE><<<px, block, 0, s>>>(hist, motion, g, dm, H,
@@ -1391,13 +1836,14 @@ template <bool TILE, bool MG, int NP>
 static int launch_gather_bwd(const float* hist, const float* motion,
                              const float* g, float* dh, float* dm, int H,
                              int W, int M, int np, const TemporalTile& t,
-                             cudaStream_t s) {
-    const size_t smem = gather_bwd_smem(M);
-    if (smem > kSmemOptin) {
-        // max_motion > 59: the region in row bands
-        return launch_gather_bwd_banded<TILE, MG, NP>(hist, motion, g, dh,
-                                                      dm, H, W, M, np, t, s);
+                             int* ws, int ws_ints, cudaStream_t s) {
+    if (ws) {
+        // the bucketed scatter (max_motion > 59, or asked for)
+        return launch_gather_bwd_scatter<TILE, MG, NP>(
+            hist, motion, g, dh, dm, H, W, M, np, t, ws, ws_ints, s);
     }
+    const size_t smem = gather_bwd_smem(M);
+    if (smem > kSmemOptin) return (int)cudaErrorInvalidValue;
     if (smem > 48 * 1024) {
         const cudaError_t err = cudaFuncSetAttribute(
             gather_bwd_kernel<TILE, MG, NP>,
@@ -1414,14 +1860,16 @@ static int launch_gather_bwd(const float* hist, const float* motion,
 }
 
 // K5/K6, K5c/K6c (tile given): dh (the history canvas's shape) is written
-// whole; dm is written by K5 (motion_grad) only.
+// whole; dm is written by K5 (motion_grad) only.  Given the workspace ws
+// (ws_ints ints, 16-byte aligned; scatter_workspace_ints, and
+// utils/tiling.py's), the scatter route runs, which max_motion past 59
+// needs; null, the staged gather.
 extern "C" int rdt_gather_bwd(const float* hist, const float* motion,
                               const float* g, float* dh, float* dm, int H,
                               int W, int max_motion, int grad_planes,
                               int motion_grad, const TemporalTile* tile,
-                              void* stream) {
-    if (grad_planes < 1 || grad_planes > 10 || max_motion < 0
-        || max_motion > kCodeBias - 2) {
+                              int* ws, int ws_ints, void* stream) {
+    if (grad_planes < 1 || grad_planes > 10 || max_motion < 0) {
         return (int)cudaErrorInvalidValue;
     }
     cudaStream_t s = (cudaStream_t)stream;
@@ -1429,7 +1877,7 @@ extern "C" int rdt_gather_bwd(const float* hist, const float* motion,
     const int M = max_motion, np = grad_planes;
 #define RDT_GATHER_BWD(T, MG, NP)                                          \
     return launch_gather_bwd<T, MG, NP>(hist, motion, g, dh, dm, H, W, M,  \
-                                         np, t, s)
+                                         np, t, ws, ws_ints, s)
 #define RDT_GATHER_BWD_NP(T, MG)                                           \
     if (np <= 6) { RDT_GATHER_BWD(T, MG, 6); }                             \
     RDT_GATHER_BWD(T, MG, 10)

@@ -11,7 +11,8 @@ requires grad.  Any radius: up to :data:`STRUCT_RADIUS` the gaussian taps
 ride in the launch's parameter struct; above it K10 and K11 run as two
 1-D passes a level (``rdt_filter_pass``, through a global intermediate)
 and the gaussian taps go to the kernels in a device array
-(:func:`_wide_taps`), as the à-trous sweep's do.
+(:func:`_wide_taps`), as the à-trous sweep's do.  K12 runs its staged
+tile up to r 4 and its rolling-row tile above.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import torch
 
 from ..config import FilterParams, FilterType
 from .atrous import _EPS, _LOG2E
+from .atrous_cuda import LaunchCount
 from .boxfilter import box_filter
 from .cuda import _build
 from .filters import _gauss_taps, cross_bilateral_filter, gaussian_filter
@@ -29,6 +31,9 @@ from .filters import _gauss_taps, cross_bilateral_filter, gaussian_filter
 # the largest radius whose 2r + 1 taps ride in GaussParams / CrossParams
 # (kMaxTaps = 33 in filters.cu)
 STRUCT_RADIUS = 16
+# K12's staged form takes r up to 4 (kMaxStagedRadius), the rolling-row
+# tile any above
+STAGED_CROSS_RADIUS = 4
 # The largest halo r·levels that one K10 launch stages.  On the H100
 # (``utils/profile.py box``, PERF.md PR 15) a call split so that each
 # launch's halo is at most 8 ran no slower than any finer split (r1 d3-d8,
@@ -214,7 +219,9 @@ def cross_bilateral_cuda(color: torch.Tensor, albedo: torch.Tensor,
                          params: FilterParams = FilterParams(
                              type=FilterType.CROSS)) -> torch.Tensor:
     """Cross-bilateral filter, as ``cross_bilateral_filter`` returns it:
-    K12.  Each launch adds one to ``cross_bilateral_cuda.launches``."""
+    K12 (past r 4 its rolling-row tile).  Each launch adds one to
+    ``cross_bilateral_cuda.launches``, and one past r 4 to
+    ``cross_bilateral_cuda.rolling.launches`` too."""
     _build.check_no_grad("cross_bilateral_cuda", color, albedo, normal, depth)
     if not color.is_cuda:
         return cross_bilateral_filter(color, albedo, normal, depth,
@@ -241,7 +248,9 @@ def cross_bilateral_cuda(color: torch.Tensor, albedo: torch.Tensor,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "rdt_cross_bilateral")
     cross_bilateral_cuda.launches += 1
+    cross_bilateral_cuda.rolling.launches += int(r > STAGED_CROSS_RADIUS)
     return out
 
 
 cross_bilateral_cuda.launches = 0
+cross_bilateral_cuda.rolling = LaunchCount()

@@ -49,6 +49,8 @@ import torch
 
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History
+from ..utils.tiling import GATHER_STAGED_MAX_MOTION, scatter_workspace_ints
+from .atrous_cuda import LaunchCount
 from .common import Tile, canvas_margin
 from .cuda import _build
 from .temporal import (GRAD_PLANES, N_HIST_PLANES, _ReprojectGather,
@@ -292,14 +294,13 @@ def gather_canvas_cuda(canvas: torch.Tensor, motion: torch.Tensor,
 gather_canvas_cuda.launches = 0
 
 
-# the largest max_motion K5/K6's source codes take (kCodeBias - 2 in
-# ops/cuda/temporal.cu); a larger bound is cut to the frame's larger side
-# plus one, which accepts and rejects the same sources' taps in the frame
-GATHER_BWD_CODE_MOTION = 8190
-
-
 def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
-                tile=None, canvas_shape=None):
+                tile=None, canvas_shape=None, scatter=None, counter=None):
+    """K5/K6 (K5c/K6c with ``tile``): the staged gather up to
+    ``GATHER_STAGED_MAX_MOTION``, the bucketed scatter above it (or, with
+    ``scatter`` True, at any bound: the same floats).  The launch adds one
+    to ``counter.launches`` (the calling wrapper), and a scatter launch to
+    ``counter.scatter.launches`` too."""
     H, W = g.shape[-2:]
     dev = g.device
     f32 = torch.float32
@@ -314,9 +315,6 @@ def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
     # of it and gives its pixel no motion gradient, accepted or not
     frame = (H, W) if tile is None else tile.bounds
     max_motion = min(max_motion, max(frame) + 1)
-    if max_motion > GATHER_BWD_CODE_MOTION:
-        raise ValueError(f"the card's K5/K6 take frames of sides up to "
-                         f"{GATHER_BWD_CODE_MOTION - 1}, got {frame}")
     ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
         (motion, "motion", (2, H, W)), (g, "g", (N_HIST_PLANES, H, W)))]
     hist_ptr = (_build.check_input(stack, "stack", shape, f32, dev)
@@ -326,10 +324,22 @@ def _gather_bwd(stack, motion, g, max_motion, motion_grad, grad_planes,
     dm = (torch.empty if motion_grad else torch.zeros)(
         (2, H, W), dtype=f32, device=dev)
     t = _canvas_tile(shape, H, tile)
+    if scatter is None:
+        scatter = max_motion > GATHER_STAGED_MAX_MOTION
+    n_ws = (scatter_workspace_ints(H, W, (shape[-2] - H) // 2) if scatter
+            else 0)
+    if n_ws >= 2 ** 31:
+        raise ValueError(f"K5/K6: a workspace of {n_ws} ints exceeds the "
+                         f"kernels' int32 indexing")
+    ws = torch.empty(n_ws, dtype=torch.int32, device=dev) if n_ws else None
     rc = _build.kernels().rdt_gather_bwd(
         hist_ptr, *ptrs, dh.data_ptr(), dm.data_ptr(), H, W, max_motion,
-        grad_planes, int(motion_grad), _ref(t), _stream(g))
+        grad_planes, int(motion_grad), _ref(t),
+        None if ws is None else ws.data_ptr(), n_ws, _stream(g))
     _build.check(rc, "rdt_gather_bwd")
+    if counter is not None:
+        counter.launches += 1
+        counter.scatter.launches += int(scatter)
     return dh, dm
 
 
@@ -338,34 +348,37 @@ def gather_bwd_cuda(stack, motion, g, max_motion: int, *,
     """K5: the full adjoint of K4 (``d_hist`` and ``d_motion``), as
     ``gather_bwd_ref(motion_grad=True)``.  ``d_hist`` is a gather, each
     texel's addends in a fixed order: the same on every launch.  Each
-    launch adds one to ``gather_bwd_cuda.launches``."""
+    launch adds one to ``gather_bwd_cuda.launches``, and one past
+    max_motion 59 (the scatter route) to ``gather_bwd_cuda.scatter.launches``
+    too."""
     _build.check_no_grad("gather_bwd_cuda", stack, motion, g)
     if not g.is_cuda:
         return gather_bwd_ref(stack, motion, g, max_motion, motion_grad=True,
                               grad_planes=grad_planes)
-    out = _gather_bwd(stack, motion, g, max_motion, True, grad_planes)
-    gather_bwd_cuda.launches += 1
-    return out
+    return _gather_bwd(stack, motion, g, max_motion, True, grad_planes,
+                       counter=gather_bwd_cuda)
 
 
 gather_bwd_cuda.launches = 0
+gather_bwd_cuda.scatter = LaunchCount()
 
 
 def gather_bwd_hist_cuda(motion, g, max_motion: int, *,
                          grad_planes: int = N_HIST_PLANES):
     """K6: the ``d_hist``-only adjoint of K4 (``motion_grad=False``); returns
     ``(d_hist, zeros for d_motion)``.  Each launch adds one to
-    ``gather_bwd_hist_cuda.launches``."""
+    ``gather_bwd_hist_cuda.launches`` (past max_motion 59 to its
+    ``.scatter.launches`` too)."""
     _build.check_no_grad("gather_bwd_hist_cuda", motion, g)
     if not g.is_cuda:
         return gather_bwd_ref(None, motion, g, max_motion, motion_grad=False,
                               grad_planes=grad_planes)
-    out = _gather_bwd(None, motion, g, max_motion, False, grad_planes)
-    gather_bwd_hist_cuda.launches += 1
-    return out
+    return _gather_bwd(None, motion, g, max_motion, False, grad_planes,
+                       counter=gather_bwd_hist_cuda)
 
 
 gather_bwd_hist_cuda.launches = 0
+gather_bwd_hist_cuda.scatter = LaunchCount()
 
 
 def _reproject_bwd_cuda(stack, motion, g, max_motion, *, motion_grad,
@@ -393,17 +406,18 @@ def gather_canvas_bwd_cuda(canvas, motion, g, max_motion: int, *,
     """K5c: the full adjoint of K4c, ``(d_canvas, d_motion)``; ``d_canvas``
     covers the history canvas, margins included (``gather_bwd_ref(tile=,
     motion_grad=True)``).  Each launch adds one to
-    ``gather_canvas_bwd_cuda.launches``."""
+    ``gather_canvas_bwd_cuda.launches`` (past max_motion 59 to its
+    ``.scatter.launches`` too)."""
     _build.check_no_grad("gather_canvas_bwd_cuda", canvas, motion, g)
     if not g.is_cuda:
         return gather_bwd_ref(canvas, motion, g, max_motion, motion_grad=True,
                               grad_planes=grad_planes, tile=tile)
-    out = _gather_bwd(canvas, motion, g, max_motion, True, grad_planes, tile)
-    gather_canvas_bwd_cuda.launches += 1
-    return out
+    return _gather_bwd(canvas, motion, g, max_motion, True, grad_planes,
+                       tile, counter=gather_canvas_bwd_cuda)
 
 
 gather_canvas_bwd_cuda.launches = 0
+gather_canvas_bwd_cuda.scatter = LaunchCount()
 
 
 def gather_canvas_bwd_hist_cuda(motion, g, max_motion: int, *, tile: Tile,
@@ -411,19 +425,20 @@ def gather_canvas_bwd_hist_cuda(motion, g, max_motion: int, *, tile: Tile,
     """K6c: the ``d_canvas``-only adjoint of K4c (``motion_grad=False``)
     over a canvas of ``canvas_shape``; returns ``(d_canvas, zeros for
     d_motion)``.  Each launch adds one to
-    ``gather_canvas_bwd_hist_cuda.launches``."""
+    ``gather_canvas_bwd_hist_cuda.launches`` (past max_motion 59 to its
+    ``.scatter.launches`` too)."""
     _build.check_no_grad("gather_canvas_bwd_hist_cuda", motion, g)
     if not g.is_cuda:
         return gather_bwd_ref(None, motion, g, max_motion, motion_grad=False,
                               grad_planes=grad_planes, tile=tile,
                               canvas_shape=canvas_shape)
-    out = _gather_bwd(None, motion, g, max_motion, False, grad_planes, tile,
-                      canvas_shape)
-    gather_canvas_bwd_hist_cuda.launches += 1
-    return out
+    return _gather_bwd(None, motion, g, max_motion, False, grad_planes,
+                       tile, canvas_shape,
+                       counter=gather_canvas_bwd_hist_cuda)
 
 
 gather_canvas_bwd_hist_cuda.launches = 0
+gather_canvas_bwd_hist_cuda.scatter = LaunchCount()
 
 
 def _reproject_canvas_bwd_cuda(canvas, motion, g, max_motion, *, motion_grad,

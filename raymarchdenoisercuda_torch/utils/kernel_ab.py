@@ -41,7 +41,7 @@ orbit through this tree's pipeline); K3b on the quarter tiles of a
 the camera (phase 3's, the frame's window at (0, 0) and a quarter window
 of a 3840x2160 frame at (1080, 1920)), from phase 3's ray planes (outputs
 t_c, delta and base) and the march launch alone on the camera's cones;
-K12 at radius 0, 1, 2, 3, 4, 5 and 16 with
+K12 at radius 0, 1, 2, 3, 4, 5, 8, 16 and 40 with
 sigma_n 128 (repeated squaring) and 100 (powf), on a frame of sides
 1079 x 1917 (no multiple of the tile) at radius 2 and 4, and at depth 2
 through ``apply_filter(CROSS)``; K10 on ``chip_smoke.py`` phase 3's
@@ -69,14 +69,17 @@ K4c, K5c and K6c on the history canvases of the quarter tiles of a frame
 of twice the sides (random and served motion, phase 10(a)'s cut): K4,
 K4c and the motion gradients bit for bit, the history gradients to within
 rounding (an earlier tree's K5/K6 add by atomics, in no fixed order).
-The wide forms, which an earlier tree refuses, are held against this
-tree's plain twins on the card instead (``K5w``/``K6w`` at max_motion 60
-and 96 on the random motion and on motion to ±(M + 1); ``K5cw``/``K6cw``
-on a quarter tile's canvas: rtol 1e-5, atol 1e-6 of the largest
-magnitude; ``K10w`` at radius 17, 24 and 90 and ``K11w`` at 17, 24 and 90
-with sigma r / 2, two 1-D passes a level: bit-equal; ``K12w`` at 17 and
-24: atol 5e-5): ``--only '^K[56]'`` and
-``--only '^K1[012]'`` run them beside the cases held to the other tree.
+The wide forms: K5/K6 past max_motion 59 (``K5w``/``K6w`` at 60, 96 and
+128 on the random motion and on motion to ±(M + 1), at 1000 on the random
+motion, and on a sink at 128 and 600; ``K5cw``/``K6cw`` on a quarter
+tile's canvas at 60 and 96), this tree's scatter route at max_motion 6
+against the other tree's K5/K6 (``K5s``/``K6s`` on random and served
+motion), and K12 at radius 8, 40 (``K12``), 17 and 24 (``K12w``, and 17 on
+the odd frame) are held to the other tree (a tree before 3dccd34 refuses
+them); ``K10w`` at radius 17, 24 and 90 and ``K11w`` at 17, 24 and 90
+with sigma r / 2, two 1-D passes a level, to this tree's plain twins,
+bit-equal: ``--only '^K[56]'`` and ``--only '^K1[012]'`` run them beside
+the others.
 For each case it
 prints whether every output is bit-equal to the other tree's
 (``torch.equal``) and the largest difference, and times both trees in
@@ -102,6 +105,7 @@ import argparse
 import contextlib
 import importlib
 import importlib.util
+import inspect
 import io
 import json
 import re
@@ -113,7 +117,8 @@ import torch
 
 from ..ops.cuda._build import parse_resources
 from .seeded_inputs import (clamped_inputs, gather_inputs,
-                            served_clamped_inputs, served_inputs)
+                            served_clamped_inputs, served_inputs,
+                            sink_motion)
 from .timing import (cuda_time_ms, device_ms, device_ms_by_kernel,
                      nvidia_smi_name_power)
 
@@ -774,12 +779,16 @@ def _cases(P, U, cots, S, M, T):
 
     def wide_gather(tree, k, Mw, kind, canvas=False):
         # K5/K6 (k = 5, 6) at a max_motion past the staged region, on
-        # phase 3's random motion (±7 px) or on motion to ±(Mw + 1); with
-        # ``canvas``, K5c/K6c on the lower right quarter tile's canvas
+        # phase 3's random motion (±7 px), on motion to ±(Mw + 1) ("wide")
+        # or with the sink (every source of the (2 Mw + 1)^2 window around
+        # the middle anchored there); with ``canvas``, K5c/K6c on the lower
+        # right quarter tile's canvas
         tc = tree.temporal_cuda
         stack, motion, g = T["gather"]["random"]
         if kind == "wide":
             motion = motion * ((Mw + 1.0) / 7.0)
+        elif kind == "sink":
+            motion = sink_motion(motion, Mw)
         if not canvas:
             if k == 5:
                 return lambda: tuple(tc.gather_bwd_cuda(
@@ -798,39 +807,48 @@ def _cases(P, U, cots, S, M, T):
         return lambda: tuple(tc.gather_canvas_bwd_hist_cuda(
             m_t, g_t, Mw, tile=tile, canvas_shape=cv.shape, grad_planes=6))
 
-    def wide_gather_twin(k, Mw, kind, canvas=False):
-        def launch(tree):
-            # the twin on the same inputs: the CPU path of the wrapper on
-            # the card's tensors is the kernel, so call gather_bwd_ref
-            t = tree.temporal
-            stack, motion, g = T["gather"]["random"]
-            if kind == "wide":
-                motion = motion * ((Mw + 1.0) / 7.0)
-            if not canvas:
-                return lambda: tuple(t.gather_bwd_ref(
-                    stack if k == 5 else None, motion, g, Mw,
-                    motion_grad=k == 5, grad_planes=6))
-            H, W = motion.shape[-2:]
-            th, tw = H // 2, W // 2
-            tile = tree.common.Tile((H - th, W - tw), (H, W))
-            cv = tree.common.frame_canvas(stack, tile, th, tw, Mw + 1)
-            m_t, g_t = (x[..., H - th:, W - tw:].contiguous()
-                        for x in (motion, g))
-            return lambda: tuple(t.gather_bwd_ref(
-                cv if k == 5 else None, m_t, g_t, Mw, motion_grad=k == 5,
-                grad_planes=6, tile=tile, canvas_shape=cv.shape))
-        return Twin(launch)
-
+    # past max_motion 59, held to the other tree (an earlier tree than
+    # 3dccd34 refuses them): K5/K6 at M60, M96 and M128 on the random and the
+    # wide motion, at M1000 on the random motion, the sink at M128 and M600
+    # (1.3 M sources on one anchor, sorted in five bitmap passes), and
+    # K5c/K6c on motion to ±(M + 1)
     for k in (5, 6):
+        for Mw, kind in ((60, "random"), (60, "wide"), (96, "random"),
+                         (96, "wide"), (128, "random"), (128, "wide"),
+                         (128, "sink"), (600, "sink"), (1000, "random")):
+            yield (f"K{k}w M{Mw} {kind}",
+                   lambda t, k=k, Mw=Mw, kind=kind: wide_gather(
+                       t, k, Mw, kind))
         for Mw in (60, 96):
-            for kind in ("random", "wide"):
-                yield (f"K{k}w M{Mw} {kind}",
-                       lambda t, k=k, Mw=Mw, kind=kind: wide_gather(
-                           t, k, Mw, kind),
-                       wide_gather_twin(k, Mw, kind))
             yield (f"K{k}cw M{Mw} wide quarter tile 3",
-                   lambda t, k=k, Mw=Mw: wide_gather(t, k, Mw, "wide", True),
-                   wide_gather_twin(k, Mw, "wide", True))
+                   lambda t, k=k, Mw=Mw: wide_gather(t, k, Mw, "wide",
+                                                     True))
+
+    def scatter_at(tree, k, kind):
+        # this tree's scatter route at phase 3's max_motion, where its
+        # wrappers take the staged gather (the other tree's K5/K6: the same
+        # floats)
+        tc = tree.temporal_cuda
+        Mb = tree.SVGFParams().max_motion
+        stack, motion, g = T["gather"][kind]
+        if not g.is_cuda or "scatter" not in inspect.signature(
+                tc._gather_bwd).parameters:
+            if k == 5:
+                return lambda: tuple(tc.gather_bwd_cuda(stack, motion, g, Mb,
+                                                        grad_planes=6))
+            return lambda: tuple(tc.gather_bwd_hist_cuda(motion, g, Mb,
+                                                         grad_planes=6))
+        return lambda: tuple(tc._gather_bwd(
+            stack if k == 5 else None, motion, g, Mb, k == 5, 6,
+            scatter=True))
+
+    # the history gradient within rounding of a tree whose K5/K6 add by
+    # atomics, as K5/K6's cases
+    for k in (5, 6):
+        for kind in ("random", "served"):
+            yield (f"K{k}s M6 {kind}",
+                   lambda t, k=k, kind=kind: scatter_at(t, k, kind),
+                   (False, True))
 
     def k15(tree, name, route):
         # phase 3's camera and rays; "quarter": the window at (H, W) of a
@@ -878,22 +896,15 @@ def _cases(P, U, cots, S, M, T):
         return lambda: (tree.filters_cuda.cross_bilateral_cuda(*planes,
                                                                params=p),)
 
-    for r in (0, 1, 2, 3, 4, 5, 16):
+    for r in (0, 1, 2, 3, 4, 5, 8, 16, 40):
         for sigma_n in (128.0, 100.0):
             yield (f"K12 r{r} sigma_n {sigma_n:g}",
                    lambda t, r=r, sigma_n=sigma_n: k12(t, r, sigma_n))
-
-    def k12_twin(r):
-        def launch(tree):
-            p = tree.config.FilterParams(type=tree.config.FilterType.CROSS,
-                                         radius=r, sigma_normal=128.0)
-            return lambda: (tree.filters.cross_bilateral_filter(
-                c, T["frame"]["h_color"], n, z, params=p),)
-        return Twin(launch, rtol=0.0, atol=5e-5, relative=False)
-
+    # past r 16, the taps in a device array (an earlier tree than 3dccd34
+    # refuses them)
     for r in (17, 24):
-        yield (f"K12w r{r} sigma_n 128", lambda t, r=r: k12(t, r, 128.0),
-               k12_twin(r))
+        yield (f"K12w r{r} sigma_n 128", lambda t, r=r: k12(t, r, 128.0))
+    yield "K12w r17 odd frame", lambda t: k12(t, 17, 128.0, odd=True)
     for r in (2, 4):
         yield (f"K12 r{r} odd frame",
                lambda t, r=r: k12(t, r, 128.0, odd=True))

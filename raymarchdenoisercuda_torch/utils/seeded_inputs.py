@@ -2,9 +2,9 @@
 ``utils/kernel_ab.py`` and ``utils/profile.py clamped`` give them: the
 served frame's (the Cornell box through ``FramePipeline`` for the orbit
 frames before the ninth), the bounded gather's (K4-K6) and the clamped
-gather's (KG, KGb), each on random motion and on the served frame.  Each
-takes the frame's sides and the device; the same arguments give the same
-tensors.
+gather's (KG, KGb), each on random motion and on the served frame, and
+the sink motion of K5/K6's wide forms.  Each takes the frame's sides and
+the device; the same arguments give the same tensors.
 """
 
 from __future__ import annotations
@@ -85,6 +85,66 @@ def gather_inputs(H, W, dev, kind="random", max_motion=6):
     m = {"random": m, "integer": np.round(m),
          "zero": np.zeros_like(m)}[kind]
     return stack, torch.from_numpy(m.astype(np.float32)).to(dev), g
+
+
+def sink_motion(motion, max_motion):
+    """``motion`` with a sink: every source p of the (2M + 1)^2 window
+    around the frame's middle c moved by clip(c - p + 0.25, -M, M), so
+    that all of them are accepted and anchored at c (their 2 x 2 taps' top
+    left): the longest segment K5/K6's scatter route can be given.  The
+    other pixels keep their motion."""
+    H, W = motion.shape[-2:]
+    cy, cx = H // 2, W // 2
+    M = max_motion
+    iy = torch.arange(H, device=motion.device, dtype=torch.float32)[:, None]
+    ix = torch.arange(W, device=motion.device, dtype=torch.float32)[None, :]
+    to_y = (cy - iy + 0.25).clamp(-M, M).expand(H, W)
+    to_x = (cx - ix + 0.25).clamp(-M, M).expand(H, W)
+    window = ((iy - cy).abs() <= M) & ((ix - cx).abs() <= M)
+    return torch.where(window[None], torch.stack([to_y, to_x]), motion)
+
+
+def sink_texels(H, W, origin=(0, 0)):
+    """The four texels a :func:`sink_motion` of an H x W frame (its middle)
+    fills, ``(qy, qx)`` relative to the tile at ``origin``: the anchor and
+    its right, lower and lower right neighbours."""
+    cy, cx = H // 2 - origin[0], W // 2 - origin[1]
+    return [(cy + a, cx + b) for a in (0, 1) for b in (0, 1)]
+
+
+def ordered_texel_sums(motion, g, max_motion, texels):
+    """``(len(texels), 6)`` float32: the history gradient of K5/K6 with 6
+    gradient planes (the wide forms' checks) at
+    the texels ``(qy, qx)`` (coordinates of the tile whose motion and
+    cotangent are given), each the sum over the sources p whose 2 x 2 taps
+    reach it, in descending source index, of tent(m0 - oy) * tent(m1 - ox)
+    * g[c][p] (o = q - p), every product and sum rounded to float32 as the
+    kernels round them.  A sink's texels sum tens of thousands of addends,
+    where the twin's ``index_add_`` order gives other floats: they are held
+    to these bit for bit."""
+    m = motion.detach().cpu().numpy()
+    gg = g.detach().cpu().numpy().reshape(g.shape[0], -1)
+    H, W = m.shape[1:]
+    f32 = np.float32
+    m0, m1 = m[0].ravel(), m[1].ravel()
+    py, px = np.divmod(np.arange(H * W), W)
+    ok = (np.abs(m0) <= max_motion) & (np.abs(m1) <= max_motion)
+    ay = py + np.floor(m0).astype(np.int64)
+    ax = px + np.floor(m1).astype(np.int64)
+    planes = 6
+    out = np.zeros((len(texels), planes), f32)
+    for i, (qy, qx) in enumerate(texels):
+        p = np.flatnonzero(ok & ((qy - ay) >= 0) & ((qy - ay) <= 1)
+                           & ((qx - ax) >= 0) & ((qx - ax) <= 1))[::-1]
+        if not len(p):
+            continue
+        ty = np.maximum(f32(1) - np.abs(m0[p] - (qy - py[p]).astype(f32)),
+                        f32(0))
+        tx = np.maximum(f32(1) - np.abs(m1[p] - (qx - px[p]).astype(f32)),
+                        f32(0))
+        terms = (ty * tx)[None] * gg[:planes, p]
+        out[i] = np.cumsum(terms, axis=1, dtype=f32)[:, -1]
+    return out
 
 
 def served_clamped_inputs(H, W, dev):

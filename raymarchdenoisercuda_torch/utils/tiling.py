@@ -16,6 +16,16 @@ functions; the memory budgets are the port's own.
 * :func:`halo_budget`: the bytes a rank receives in the sharded sweep's
   halo exchange (``parallel/halo.py``: rows, then columns of the row-
   extended tile, so the corners come along) for a level's reach r·2^level.
+* :func:`k12_smem`: the shared memory of K12's rolling-row tile past r 4
+  (``cross_bilateral_rolling_kernel`` in ``ops/cuda/filters.cu``): a ring
+  of :data:`K12_RING_ROWS` staged rows of ten planes, 32 + 2r columns
+  each, and the 2r + 1 spatial taps; past the 227 KB a block can have,
+  the chunked form's 8 rows of a 256-tap segment.
+* :func:`scatter_workspace_ints`: the workspace of K5/K6's scatter route,
+  which ``max_motion`` past 59 takes (``ops/cuda/temporal.cu``): counts and segment
+  offsets over the anchor grid (the canvas one row and column wider),
+  rounded up to whole scan blocks, the scan's block sums and one source
+  index a pixel; the wrapper allocates it (``ops/temporal_cuda.py``).
 
 Numbers here are counts from shapes; none is a measurement.
 """
@@ -37,6 +47,17 @@ STAGED_PIXEL_BYTES = {"K1": 36, "K1 luma-only": 20, "K14": 48,
                       "K1b bf16": 18, "K14 bf16": 24}
 # the shared memory a block may use on an H100 (227 KB)
 SMEM_PER_BLOCK = 232448
+# K12's rolling-row tile (KR_TX, KR_TY, KR_PX and KR_SEG of filters.cu):
+# threads a block across and down, pixels a thread one above the other,
+# and the taps' columns a segment of the chunked form stages
+K12_TX, K12_TY, K12_PX, K12_SEG = 32, 8, 2, 256
+# the ring: the rows a step reads (KR_TY KR_PX - KR_PX + 1) and the next
+K12_RING_ROWS = K12_TY * K12_PX - K12_PX + 2
+# K5/K6 past the staged gather's max_motion (59: its 225 KB region), and
+# the counts a block of the scatter's scan adds (KS_THREADS x kScanItems of
+# temporal.cu)
+GATHER_STAGED_MAX_MOTION = 59
+SCATTER_SCAN_BLOCK = 256 * 8
 
 
 def spacing(level: int) -> int:
@@ -103,6 +124,28 @@ def halo_budget(tile_h: int, tile_w: int, radius: int, levels: int,
     return out
 
 
+def k12_smem(radius: int):
+    """``(bytes, form)``: the shared memory a block of K12's rolling-row
+    tile takes at ``radius`` (> 4) and its form, ``"ring"`` while the ring
+    fits :data:`SMEM_PER_BLOCK`, else ``"chunked"``."""
+    ring = 4 * (K12_RING_ROWS * 10 * (K12_TX + 2 * radius) + 2 * radius + 1)
+    if ring <= SMEM_PER_BLOCK:
+        return ring, "ring"
+    return 4 * K12_TY * 10 * (K12_SEG + K12_TX - 1), "chunked"
+
+
+def scatter_workspace_ints(height: int, width: int, margin: int) -> int:
+    """The int32 workspace of K5/K6's (K5c/K6c's) scatter route for a tile
+    of ``height`` x ``width`` sources and a history canvas of ``margin``
+    (0: the whole frame): counts and offsets over the (Hc + 1) x (Wc + 1)
+    anchor grid and its total, rounded up to whole scan blocks, the block
+    sums (rounded up to four) and one source index a pixel."""
+    anchors = (height + 2 * margin + 1) * (width + 2 * margin + 1)
+    counts = -(-(anchors + 1) // SCATTER_SCAN_BLOCK) * SCATTER_SCAN_BLOCK
+    blocks = counts // SCATTER_SCAN_BLOCK
+    return 2 * counts + -(-blocks // 4) * 4 + height * width
+
+
 def print_model(width: int = 1920, height: int = 1080, radius: int = 2,
                 levels: int = 5, kernel: str = "K1") -> None:
     """Human-readable dump (the notebook's printed tables): per level, the
@@ -125,5 +168,24 @@ def print_model(width: int = 1920, height: int = 1080, radius: int = 2,
               f"of 2x2 ({th}x{tw} tiles)")
 
 
+def print_wide_forms(width: int = 1920, height: int = 1080) -> None:
+    """K12's rolling-row tile's shared memory a block at radii 5-165 (its
+    ring up to r 164, chunked past it) and K5/K6's scatter workspace on the
+    frame and on the history canvas of a 3840x2160 frame's quarter tile at
+    max_motion 60 and 1000."""
+    for r in (5, 17, 24, 90, 164, 165):
+        nbytes, form = k12_smem(r)
+        print(f"K12 r{r}: {form}, {nbytes / 1024:.1f} KB a block")
+    for name, (h, w, m) in (
+            (f"{width}x{height}", (height, width, 0)),
+            (f"quarter canvas of {2 * width}x{2 * height} at M60",
+             (height, width, 61)),
+            (f"quarter canvas of {2 * width}x{2 * height} at M1000",
+             (height, width, 1001))):
+        n = scatter_workspace_ints(h, w, m)
+        print(f"K5/K6 scatter workspace {name}: {4 * n / 2**20:.2f} MiB")
+
+
 if __name__ == "__main__":
     print_model()
+    print_wide_forms()

@@ -71,7 +71,8 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
 # clamped-gather adjoint's float64 scratch with its plane count; the cone
 # seed's camera route (its scratch and key); and the clamped gather's and
 # its adjoint's stack layout (texel stride); the bf16 level forward's
-# σ-denominator output (its fused form)
+# σ-denominator output (its fused form); the gather adjoint's workspace
+# and its size (the scatter route past max_motion 59)
 @pytest.mark.parametrize("name,index,ctype", [
     ("rdt_shadow_shade", 13, ctypes.c_int),
     ("rdt_march", 9, ctypes.c_int),
@@ -85,12 +86,15 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
     ("rdt_clamped_gather_bwd", 9, ctypes.c_int),
     ("rdt_clamped_gather", 6, ctypes.c_int),
     ("rdt_clamped_gather_bwd", 10, ctypes.c_int),
-    ("rdt_atrous_level_bf16", 6, ctypes.c_void_p)],
+    ("rdt_atrous_level_bf16", 6, ctypes.c_void_p),
+    ("rdt_gather_bwd", 11, ctypes.c_void_p),
+    ("rdt_gather_bwd", 12, ctypes.c_int)],
     ids=["shade scene_key", "march scene_key", "shadow scene_key",
          "cone delta", "cone base", "cone scene_key", "cone camera scratch",
          "cone camera scene_key", "gather_bwd scratch", "gather_bwd P",
          "clamped gather layout", "clamped gather_bwd layout",
-         "bf16 level sden_out"])
+         "bf16 level sden_out", "gather_bwd workspace",
+         "gather_bwd workspace ints"])
 def test_added_arguments_are_declared(name, index, ctype):
     assert _build.SIGNATURES[name][index] is ctype
     assert _exports()[name][index] is ctype

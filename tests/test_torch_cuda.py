@@ -113,7 +113,8 @@ from raymarchdenoisercuda_torch.models.pipeline import (
     init_train_state, make_train_step, render_and_denoise)
 from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import (atrous, boxfilter, filters,
-                                            raymarch, raymarch_cuda, temporal)
+                                            raymarch, raymarch_cuda, temporal,
+                                            temporal_cuda)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level, atrous_level_bwd_cuda, bf16_bit_formulas_cuda, atrous_level_bwd_stored_cuda,
     atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
@@ -136,7 +137,8 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     temporal_accumulate_cuda)
 from raymarchdenoisercuda_torch.parallel import sharded
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
-from raymarchdenoisercuda_torch.utils.seeded_inputs import gather_inputs
+from raymarchdenoisercuda_torch.utils.seeded_inputs import (
+    gather_inputs, ordered_texel_sums, sink_motion, sink_texels)
 
 pytestmark = pytest.mark.cuda
 
@@ -373,7 +375,10 @@ def _motion(dev, kind, seed, M=6, H=H, W=W):
         # weight is 0) or ±(M + 1) (rejected) on either axis
         edge = rng.choice([-M - 1.0, -M, M, M + 1.0], size=(2, H, W))
         m = np.where(rng.random((2, H, W)) < 1 / 3, edge, m)
-    return torch.from_numpy(m.astype(np.float32)).to(dev)
+    m = torch.from_numpy(m.astype(np.float32)).to(dev)
+    # "sink": the sources of the (2M + 1)^2 window around the middle all
+    # anchored there, fractional motion elsewhere
+    return sink_motion(m, M) if kind == "sink" else m
 
 
 _SERVED = {}
@@ -394,10 +399,11 @@ def _corner_tiles(H, W):
         yield Tile((gy, gx), (H, W)), th, tw
 
 
-def _check_canvas_gathers(stack, motion, g, M, tiles, tol):
+def _check_canvas_gathers(stack, motion, g, M, tiles, tol, kind=None):
     """K4c, K5c and K6c on each tile's history canvas (margin M + 1) against
-    their twins, K4c bit-equal to the whole frame's K4 and K5c's motion
-    gradient to the whole frame's K5 within ``tol``."""
+    their twins (the history gradients as :func:`_assert_d_hist` holds
+    them for motion of ``kind``), K4c bit-equal to the whole frame's K4 and
+    K5c's motion gradient to the whole frame's K5 within ``tol``."""
     whole4 = gather_cuda(stack, motion, M)
     whole5 = gather_bwd_cuda(stack, motion, g, M, grad_planes=6)
     for tile, th, tw in tiles:
@@ -413,12 +419,15 @@ def _check_canvas_gathers(stack, motion, g, M, tiles, tol):
                                     grad_planes=6)
         want = temporal.gather_bwd_ref(canvas, m_t, g_t, M, motion_grad=True,
                                        grad_planes=6, tile=tile)
-        for a, b in zip(k5, want):
-            np.testing.assert_allclose(_np(a), _np(b), **tol)
+        frame = motion.shape[-2:]
+        _assert_d_hist(k5[0], want[0], m_t, g_t, M, kind, frame,
+                       tile.origin, M + 1)
+        np.testing.assert_allclose(_np(k5[1]), _np(want[1]), **tol)
         k6 = gather_canvas_bwd_hist_cuda(m_t, g_t, M, tile=tile,
                                          canvas_shape=canvas.shape,
                                          grad_planes=6)
-        np.testing.assert_allclose(_np(k6[0]), _np(want[0]), **tol)
+        _assert_d_hist(k6[0], want[0], m_t, g_t, M, kind, frame,
+                       tile.origin, M + 1)
         assert float(k6[1].abs().max()) == 0.0
         np.testing.assert_allclose(_np(k5[1]), _np(_crop(whole5[1], tile, th,
                                                          tw)), **tol)
@@ -463,25 +472,55 @@ def test_k4_k5_k6_match_plain(dev, kind):
         assert float(dh[grad_planes:].abs().sum()) == 0.0
 
 
-@pytest.mark.parametrize("max_motion", [30, 59, 60, 96])
-def test_k5_k6_wide_max_motion(dev, max_motion):
+# K5/K6 past max_motion 59 (the scatter route) and below it: motion to
+# ±(max_motion + 1), the sink (one segment of every source of the frame,
+# 32,400 at 135 x 240), a frame whose sides are no multiple of a block
+WIDE_GATHER_CASES = [(30, "fractional", (H, W)), (59, "fractional", (H, W)),
+                     (60, "fractional", (H, W)), (96, "fractional", (H, W)),
+                     (128, "fractional", (H, W)), (128, "sink", (H, W)),
+                     (128, "fractional", (1079, 1917))]
+
+
+def _assert_d_hist(got, want, motion, g, M, kind, frame, origin=(0, 0),
+                   margin=0):
+    """K5/K6's history gradient against the twin's, rtol 1e-5, atol 1e-6.
+    The sink's four texels (``kind`` "sink", at the middle of ``frame``)
+    sum every source of its window, tens of thousands of addends, which the
+    twin adds in ``index_add_``'s order: they are held bit for bit to the
+    float32 sums in the kernels' order (``ordered_texel_sums``) instead.
+    ``origin``: the tile's; ``margin``: its history canvas's."""
+    got, want = _np(got).copy(), _np(want)
+    if kind == "sink":
+        texels = sink_texels(*frame, origin)
+        for (qy, qx), e in zip(texels, ordered_texel_sums(motion, g, M,
+                                                          texels)):
+            cell = (slice(0, 6), qy + margin, qx + margin)
+            np.testing.assert_array_equal(got[cell], e)
+            got[cell] = want[cell]
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("max_motion,kind,shape", WIDE_GATHER_CASES)
+def test_k5_k6_wide_max_motion(dev, max_motion, kind, shape):
     """K5/K6 at a max_motion whose source region needs more than 48 KB of
     shared memory (the launch's attribute; 59 needs 225 KB), and beyond
-    59, where a block stages its region in row bands, against the twin, on
-    motion to ±(max_motion + 1); a second and third launch bit-equal to
-    the first (the bands keep each texel's order of additions)."""
+    59, where the bucketed scatter runs, against the twin; a second and
+    third launch bit-equal to the first (each texel's addends in one
+    order)."""
+    h, w = shape
     rng = np.random.default_rng(32)
-    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+    stack = torch.from_numpy(rng.random((10, h, w), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((10, h, w)).astype(
         np.float32)).to(dev)
-    motion = _motion(dev, "fractional", 33, M=max_motion)
+    motion = _motion(dev, kind, 33, M=max_motion, H=h, W=w)
     got = gather_bwd_cuda(stack, motion, g, max_motion, grad_planes=6)
     want = temporal.gather_bwd_ref(stack, motion, g, max_motion,
                                    motion_grad=True, grad_planes=6)
-    for a, b in zip(got, want):
-        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
+    _assert_d_hist(got[0], want[0], motion, g, max_motion, kind, (h, w))
+    np.testing.assert_allclose(_np(got[1]), _np(want[1]), rtol=1e-5,
+                               atol=1e-6)
     dh, _ = gather_bwd_hist_cuda(motion, g, max_motion, grad_planes=6)
-    np.testing.assert_allclose(_np(dh), _np(want[0]), rtol=1e-5, atol=1e-6)
+    _assert_d_hist(dh, want[0], motion, g, max_motion, kind, (h, w))
     for _ in range(2):
         again = gather_bwd_cuda(stack, motion, g, max_motion, grad_planes=6)
         assert all(torch.equal(a, b) for a, b in zip(again, got))
@@ -489,19 +528,23 @@ def test_k5_k6_wide_max_motion(dev, max_motion):
                                                 grad_planes=6)[0], dh)
 
 
-@pytest.mark.parametrize("max_motion", [60, 96])
-def test_k5c_k6c_wide_max_motion(dev, max_motion):
+@pytest.mark.parametrize("max_motion,kind,shape", [
+    (60, "fractional", (H, W)), (96, "fractional", (H, W)),
+    (128, "fractional", (H, W)), (128, "sink", (H, W)),
+    (128, "fractional", (1079, 1917))])
+def test_k5c_k6c_wide_max_motion(dev, max_motion, kind, shape):
     """K5c/K6c (and K4c) past max_motion 59 on the canvases of the frame's
     corner tiles, against their twins and the whole frame's kernels
     (``test_k4_k5_k6_match_plain``'s corner tiles), repeated bit-equal."""
+    h, w = shape
     rng = np.random.default_rng(34)
-    stack = torch.from_numpy(rng.random((10, H, W), dtype=np.float32)).to(dev)
-    g = torch.from_numpy(rng.standard_normal((10, H, W)).astype(
+    stack = torch.from_numpy(rng.random((10, h, w), dtype=np.float32)).to(dev)
+    g = torch.from_numpy(rng.standard_normal((10, h, w)).astype(
         np.float32)).to(dev)
-    motion = _motion(dev, "fractional", 35, M=max_motion)
-    tiles = list(_corner_tiles(H, W))
+    motion = _motion(dev, kind, 35, M=max_motion, H=h, W=w)
+    tiles = list(_corner_tiles(h, w))
     _check_canvas_gathers(stack, motion, g, max_motion, tiles,
-                          dict(rtol=1e-5, atol=1e-6))
+                          dict(rtol=1e-5, atol=1e-6), kind)
     tile, th, tw = tiles[3]
     canvas = frame_canvas(stack, tile, th, tw, max_motion + 1)
     m_t, g_t = _crop(motion, tile, th, tw), _crop(g, tile, th, tw)
@@ -510,6 +553,34 @@ def test_k5c_k6c_wide_max_motion(dev, max_motion):
     again = gather_canvas_bwd_cuda(canvas, m_t, g_t, max_motion, tile=tile,
                                    grad_planes=6)
     assert all(torch.equal(a, b) for a, b in zip(again, first))
+
+
+@pytest.mark.parametrize("max_motion", [6, 59])
+@pytest.mark.parametrize("kind", ["random", "served", "odd frame",
+                                  "corner tile"])
+def test_scatter_route_bit_equal_to_staged_gather(dev, kind, max_motion):
+    """K5/K6's bucketed scatter (their route past max_motion 59) launched
+    where the wrappers take the staged gather: d_hist and d_motion
+    bit-equal to the staged gather's, K5 and K6, whole frame and on a
+    corner tile's canvas (each texel adds the same addends in the same
+    order)."""
+    h, w = (1079, 1917) if kind == "odd frame" else (1080, 1920)
+    if kind == "served":
+        stack, motion, g = _served_gather_inputs(dev, h, w)
+    else:
+        stack, motion, g = gather_inputs(h, w, dev, "random",
+                                         max_motion=max_motion)
+    tile = None
+    if kind == "corner tile":
+        tile, th, tw = Tile((0, w - w // 2), (h, w)), h // 2, w // 2
+        stack = frame_canvas(stack, tile, th, tw, max_motion + 1)
+        motion, g = _crop(motion, tile, th, tw), _crop(g, tile, th, tw)
+    for motion_grad in (True, False):
+        runs = [temporal_cuda._gather_bwd(
+            stack, motion, g, max_motion, motion_grad, 6, tile,
+            stack.shape, scatter=scatter) for scatter in (False, True)]
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), (motion_grad, int((a != b).sum()))
 
 
 @pytest.mark.parametrize("kind", ["random", "served"])
@@ -700,10 +771,9 @@ def test_k11_bit_equal_to_twin(dev, shape, radius, sigma):
             x, radius=radius, sigma=sigma, depth=depth)), depth
 
 
-# K12's radii: 0-4 run the staged form, 5 and 16 the one-thread-a-pixel
-# body with the taps in its parameter struct, 17 and 24 with the taps in a
-# device array
-K12_RADII = [0, 1, 2, 3, 4, 5, 16, 17, 24]
+# K12's radii: 0-4 run the staged form, 5-40 the rolling-row tile, with the
+# taps in its parameter struct up to 16 and in a device array above
+K12_RADII = [0, 1, 2, 3, 4, 5, 8, 16, 17, 24, 40]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
@@ -738,6 +808,50 @@ def test_k12_matches_plain(dev, shape, sigma_normal, radius):
     got = cross_bilateral_cuda(color, albedo, normal, depth, params=p)
     want = filters.cross_bilateral_filter(color, albedo, normal, depth,
                                           params=p)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=5e-5)
+
+
+def _cross_bilateral_f64(color, albedo, normal, depth, p):
+    """K12's function in float64, every pair of pixels of a small frame at
+    once (a radius past the frame's sides covers all of them): the oracle
+    where the twin's loop over (2r + 1)^2 taps is too long."""
+    H, W = depth.shape
+    r = p.radius
+    f64 = dict(dtype=torch.float64, device=depth.device)
+    gt = torch.tensor(filters._gauss_taps(r, p.sigma_space), **f64)
+    iy, ix = torch.meshgrid(torch.arange(H, device=depth.device),
+                            torch.arange(W, device=depth.device),
+                            indexing="ij")
+    iy, ix = iy.reshape(-1), ix.reshape(-1)
+    dy, dx = iy[None, :] - iy[:, None], ix[None, :] - ix[:, None]
+    a, n, c = (t.double().reshape(3, -1) for t in (albedo, normal, color))
+    z = depth.double().reshape(-1)
+    da2 = ((a[:, :, None] - a[:, None, :]) ** 2).sum(0)
+    ndot = (n[:, :, None] * n[:, None, :]).sum(0).clamp(min=0.0)
+    w = (gt[(dy + r).clamp(0, 2 * r)] * gt[(dx + r).clamp(0, 2 * r)]
+         * torch.exp(-da2 / (2.0 * p.sigma_albedo ** 2 + atrous._EPS))
+         * ndot.clamp(min=1e-20) ** p.sigma_normal
+         * torch.exp(-(z[:, None] - z[None, :]).abs()
+                     / (p.sigma_depth + atrous._EPS)))
+    w = w * ((dy.abs() <= r) & (dx.abs() <= r))
+    out = (w[None] * c[:, None, :]).sum(-1) / w.sum(-1).clamp(
+        min=atrous._EPS)[None]
+    return out.reshape(3, H, W).float()
+
+
+@pytest.mark.parametrize("radius", [24, 165, 300])
+@pytest.mark.parametrize("sigma_normal", [128.0, 3.0])
+def test_k12_wide_radii_match_float64(dev, radius, sigma_normal):
+    """K12's rolling-row tile in its ring form (r 24) and past the ring's
+    227 KB (r 165 and 300: each step stages its rows a segment at a time)
+    on a 37 x 53 frame against K12's function in float64, atol 5e-5 (the
+    twin's bound)."""
+    color, _var, normal, depth = _planes(dev, 54, 37, 53)
+    albedo = _planes(dev, 55, 37, 53)[0]
+    p = FilterParams(type=FilterType.CROSS, sigma_normal=sigma_normal,
+                     radius=radius, sigma_space=radius / 2.0)
+    got = cross_bilateral_cuda(color, albedo, normal, depth, params=p)
+    want = _cross_bilateral_f64(color, albedo, normal, depth, p)
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=5e-5)
 
 

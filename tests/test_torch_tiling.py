@@ -97,3 +97,62 @@ def test_timer_measures_the_block():
     with Timer() as t2:
         out = t2.sync(torch.ones(4) * 2)
     assert t2.ms >= 0.0 and float(out.sum()) == 8.0
+
+
+def _wide_form_constants():
+    """K12's rolling-row tile's (threads across and down, pixels a thread,
+    a chunked segment's taps) and K5/K6's scatter scan's (threads, counts
+    a thread), parsed from filters.cu and temporal.cu."""
+    src = {p.name: p.read_text() for p in _build.sources()}
+    kr = re.search(r"constexpr int KR_TX = (\d+), KR_TY = (\d+), "
+                   r"KR_PX = (\d+);", src["filters.cu"])
+    seg = re.search(r"constexpr int KR_SEG = (\d+);", src["filters.cu"])
+    ks = re.search(r"constexpr int KS_THREADS = (\d+);", src["temporal.cu"])
+    items = re.search(r"constexpr int kScanItems = (\d+);",
+                      src["temporal.cu"])
+    return ((int(kr[1]), int(kr[2]), int(kr[3]), int(seg[1])),
+            int(ks[1]) * int(items[1]))
+
+
+def test_wide_form_constants_are_the_kernels():
+    k12, scan = _wide_form_constants()
+    assert k12 == (tiling.K12_TX, tiling.K12_TY, tiling.K12_PX,
+                   tiling.K12_SEG)
+    assert scan == tiling.SCATTER_SCAN_BLOCK
+
+
+@pytest.mark.parametrize("radius", [5, 8, 16, 17, 24, 40, 90, 164])
+def test_k12_ring_fits_a_block(radius):
+    """K12's rolling-row tile keeps a ring of 16 rows (the 15 a step reads
+    and the next) of ten planes, 32 + 2r columns each, and the 2r + 1
+    taps: under the 227 KB a block can have up to r 164 (41.4 KB at r17,
+    50.2 KB at r24, 133.2 KB at r90)."""
+    nbytes, form = tiling.k12_smem(radius)
+    assert form == "ring"
+    assert nbytes == 4 * (16 * 10 * (32 + 2 * radius) + 2 * radius + 1)
+    assert nbytes <= tiling.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("radius", [165, 300, 2000])
+def test_k12_chunked_form_past_the_ring(radius):
+    """Past r 164 a step stages its 8 rows a 256-tap segment at a time:
+    the same shared memory at any radius."""
+    nbytes, form = tiling.k12_smem(radius)
+    assert form == "chunked"
+    assert nbytes == 4 * 8 * 10 * (256 + 31) <= tiling.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("frame,margin,mib", [
+    ((1080, 1920), 0, 23.76),            # 1080p
+    ((1080, 1920), 61, 26.68),           # 4K quarter canvas, max_motion 60
+    ((1080, 1920), 1001, 100.21)])       # 4K quarter canvas, max_motion 1000
+def test_scatter_workspace_bytes(frame, margin, mib):
+    """K5/K6's scatter workspace: counts and offsets over the (Hc + 1) x
+    (Wc + 1) anchor grid and its total, each rounded up to 2048 (a scan
+    block), the block sums rounded up to 4, a source index a pixel."""
+    H, W = frame
+    n = tiling.scatter_workspace_ints(H, W, margin)
+    anchors = (H + 2 * margin + 1) * (W + 2 * margin + 1)
+    counts = -(-(anchors + 1) // 2048) * 2048
+    assert n == 2 * counts + -(-(counts // 2048) // 4) * 4 + H * W
+    assert round(4 * n / 2 ** 20, 2) == mib
