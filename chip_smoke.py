@@ -22,8 +22,9 @@ the script exits non-zero without printing a result):
    forms (each radius, staged or not, spacing 1 apart, K1b's with the
    σ-denominator fused too), and print the bf16 forms' SASS instruction
    mix a tap (``utils/profile.py sass``; a reading, it fails nothing);
-   fail if one of K1/K1b, K2/K2b or
-   K14 (their bf16 forms too) at a compiled radius, K9 at r <= 1, K7, K8,
+   fail if K2/K2b or K14 in any form (staged or through the caches,
+   compiled radius or any), K1/K1b or a bf16 form of K1b or K14 at a
+   compiled radius, or if K2/K2b or K14 lacks a form, K9 at r <= 1, K7, K8,
    K13 or K15 on a compiled scene, K3/K3b, K15's first camera launch, K10
    or K11 at r <= 4 or in a 1-D pass, a K12 form, a KG, KGb or KGp kernel
    or a K4-K6 kernel (the scatter's included) uses local memory (K9 at r2
@@ -73,7 +74,11 @@ the script exits non-zero without printing a result):
    (``precision="bf16"``; K1b's with the σ-denominator given, and fused,
    written and not, bit-equal to ``sigma_denominator``'s) at level 1, r1
    and r2, against their twins, timed by CUDA events and by device time
-   beside the float32 forms (K1 beside the fused one);
+   beside the float32 forms (K1 beside the fused one); K2, K2b and K14
+   past radius 2 (r3, r4, r5 at levels 1 and 4, whole frame and a quarter
+   tile) against their twins, the form the wrapper picks (staged, or the
+   centres through the caches past the staging budget) bit-equal to the
+   other, both timed by CUDA events beside the twin and the bound;
 4. the serving path: 16 frames of the animated Cornell sequence at
    1920x1080 (``orbit_camera``) through ``FramePipeline`` (render ->
    temporal -> 5-level à-trous, radius 1, fast weights); the first 3
@@ -95,8 +100,9 @@ the script exits non-zero without printing a result):
    seed; ``apply_filter`` runs all four filter types on the loaded frame,
    kernel path against plain path;
 9. the spatial adjoints: ``svgf_spatial_ad_cuda``, the 5-level sweep
-   forward and backward at 1920x1080 with exact weights, at radius 1
-   (config 4's) and 2, in each adjoint mode (``stored``, ``stored_f32``,
+   forward and backward at 1920x1080 with exact weights, at radius 0 to
+   3 (config 4's is 1; at 3 the adjoints' staged forms past radius 2, K2w,
+   K2bw, K14w, must launch), in each adjoint mode (``stored``, ``stored_f32``,
    ``recompute``, ``recompute`` with ``chained=False``,
    ``weight_grads=True``), timed per forward+backward with peak memory;
    gradients against the plain path (the whole sweep, except the radius-2
@@ -219,7 +225,7 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
 from raymarchdenoisercuda_torch.parallel import scaling, sharded
 from raymarchdenoisercuda_torch.parallel.distributed import spawn_group
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
-from raymarchdenoisercuda_torch.utils import denoise_quality
+from raymarchdenoisercuda_torch.utils import denoise_quality, tiling
 from raymarchdenoisercuda_torch.utils.profile import clamped_split, sass_lines
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
     clamped_inputs, gather_inputs, ordered_texel_sums, served_clamped_inputs,
@@ -263,6 +269,11 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K1b-bf16": atrous_level_fwd_cuda.bf16,
             "K1b-bf16-fused": atrous_level_fwd_cuda.bf16_fused,
             "K14-bf16": atrous_level_bwd_cuda.bf16,
+            # K14 and K2/K2b past radius 2, their staged forms: counted on
+            # the wrappers' own counts too
+            "K14w": atrous_level_bwd_cuda.wide,
+            "K2w": atrous_level_bwd_stored_cuda.wide,
+            "K2bw": atrous_level_bwd_stored_f32_cuda.wide,
             # K5/K6 (K5c/K6c) past max_motion 59 and K12 past r 4: their
             # redesigned forms count apart from the wrappers' own too
             "K5w": gather_bwd_cuda.scatter,
@@ -346,12 +357,20 @@ KERNELS = {
     # past r 4: K12's rolling-row tile
     "K12w": ("cross_bilateral_rolling", CUDA_SRC + "filters.cu",
              PALLAS + "filters_tpu.py:135"),
+    # past r 2: K14's staged one-output form, K2/K2b's staged kernel
+    "K14w": ("atrous_bwd_recompute_wide", CUDA_SRC + "atrous.cu",
+             PALLAS + "atrous_tpu.py:865"),
+    "K2w": ("atrous_bwd_stored_wide", CUDA_SRC + "atrous.cu",
+            PALLAS + "atrous_tpu.py:361"),
+    "K2bw": ("atrous_bwd_stored_f32_wide", CUDA_SRC + "atrous.cu",
+             PALLAS + "atrous_tpu.py:661"),
 }
 # a form of another entry's kernel whose launches that entry's count
 # holds too: its line names the kernel ("form_of"), so a sum of the line's
 # launches counts the entries without it
 FORM_OF = {"K1b-bf16-fused": "K1b-bf16", "K5w": "K5", "K6w": "K6",
-           "K5cw": "K5c", "K6cw": "K6c", "K12w": "K12"}
+           "K5cw": "K5c", "K6cw": "K6c", "K12w": "K12", "K14w": "K14",
+           "K2w": "K2", "K2bw": "K2b"}
 # per-tap float operations of K1's weight math and accumulation, of K2's
 # tap, of K14's (the recomputed weight and K2's sum), of K9's two passes
 # together and of K12's tap (weights, three colour products, the sums),
@@ -391,6 +410,11 @@ WIDE_REPORTED = (96, "wide")
 WIDE_CANVAS_MOTIONS = (60, 96)
 WIDE_RADII = (17, 24)
 WIDEST_RADIUS = 90                   # K10 and K11 only
+# phase 3's adjoints past radius 2 (K2, K2b, K14): radii and levels held to
+# their twins, whole frame and tile; the case on the kernels line
+WIDE_ADJOINT_RADII = (3, 4, 5)
+WIDE_ADJOINT_LEVELS = (1, 4)
+WIDE_ADJOINT_REPORTED = (3, 1)
 # phase 10: the weak-scaling harness's one-rank row (a tile of the frame)
 SCALING_STEPS = 3
 # phase 12: the geometry gradient; phase 13: the quality gate at the card
@@ -427,12 +451,22 @@ K1_MANGLED = re.compile(r"(?:12level_kernel|15level_kernel_2b)ILi(n?\d+)ELi"
 K9_MANGLED = re.compile(r"12wgrad_kernelILi(n?\d+)ELb([01])EE")
 # the recompute adjoint's, atrous_bwd_kernel<R, STAGED, TILE>, the
 # stored-weight adjoint's, atrous_bwd_stored_kernel<WT, R, TILE> (through
-# the caches; R = -1: any radius) and atrous_bwd_stored_staged_kernel<WT,
-# R, TILE>, and the march's and the shading pass's, march_kernel and
+# the caches) and atrous_bwd_stored_staged_kernel<WT, R, TILE> (R = -1:
+# any radius), and the march's and the shading pass's, march_kernel and
 # shade_kernel<NS, NB, NP> (-1: counts known at run time)
 K14_MANGLED = re.compile(r"17atrous_bwd_kernelILi(n?\d+)ELb([01])ELb([01])EE")
 K2_MANGLED = re.compile(r"(24atrous_bwd_stored|31atrous_bwd_stored_staged)"
                         r"_kernelI(13__nv_bfloat16|f)Li(n?\d+)ELb([01])EE")
+# the (radius, staged) forms of K14 and K2/K2b the build must hold, each
+# whole frame and tile: K14 through the caches at 0-2 and any radius,
+# staged at 1-4 and any radius; K2/K2b through the caches at 0 and any
+# radius, staged at 1-3 and any radius
+_K2_FORMS = {(0, False), (-1, False), (1, True), (2, True), (3, True),
+             (-1, True)}
+ADJOINT_FORMS = {"K14": {(0, False), (1, False), (2, False), (-1, False),
+                         (1, True), (2, True), (3, True), (4, True),
+                         (-1, True)},
+                 "K2": _K2_FORMS, "K2b": _K2_FORMS}
 K7_MANGLED = re.compile(r"12march_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 K8_MANGLED = re.compile(r"12shade_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 # the shadow pass's, shadow_kernel<NS, NB, NP>, and the temporal step's,
@@ -541,14 +575,59 @@ def random_planes(H, W, dev, seed):
                 h_length=t(np.floor(rng.random((H, W)) * 6)))
 
 
+def adjoint_instantiation(name):
+    """``(kernel, R, staged, tile)`` of a K14 or K2/K2b instantiation's
+    mangled name (R = -1: any radius), else None."""
+    m = K14_MANGLED.search(name)
+    if m:
+        R, staged, tile = (int(v.replace("n", "-")) for v in m.groups())
+        return "K14", R, staged == 1, tile == 1
+    m = K2_MANGLED.search(name)
+    if m:
+        return ("K2" if m.group(2).startswith("13") else "K2b",
+                int(m.group(3).replace("n", "-")), m.group(1).startswith("31"),
+                m.group(4) == "1")
+    return None
+
+
+def adjoint_resources(report):
+    """Print ptxas's registers, stack and spills of K14's and K2/K2b's
+    instantiations in ``report`` (``{mangled name: (registers, stack,
+    spill stores, spill loads)}``); return those that use local memory;
+    raise unless the report holds every form of :data:`ADJOINT_FORMS`,
+    whole frame and tile, and no other."""
+    found = {k: set() for k in ADJOINT_FORMS}
+    local = []
+    for name, res in sorted(report.items()):
+        form = adjoint_instantiation(name)
+        if form is None:
+            continue
+        kernel, R, staged, tile = form
+        label = (f"{kernel} {f'r{R}' if R >= 0 else 'any r'}"
+                 f"{' staged' if staged else ''}{' tile' if tile else ''}")
+        phase(2, f"{label}: {res[0]} registers, stack {res[1]} B, spills "
+                 f"{res[2] + res[3]} B")
+        found[kernel].add((R, staged, tile))
+        if res[1] or res[2] or res[3]:
+            local.append(label)
+    for kernel, forms in ADJOINT_FORMS.items():
+        want = {(R, st, tile) for R, st in forms for tile in (False, True)}
+        if found[kernel] != want:
+            raise AssertionError(f"phase 2: {kernel} instantiations "
+                                 f"{sorted(found[kernel])} in ptxas's "
+                                 f"report, expected {sorted(want)}")
+    return local
+
+
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
     K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K10's, K11's (and their
     1-D passes), K12's (staged and rolling), KG's, KGb's, KGp's,
     K4/K4c's, K5/K6's (staged, and the scatter route's kernels) and
     K1b-bf16's and K14-bf16's instantiations (the build's
-    report); raise if one of K1/K1b, K2/K2b or K14 (or a bf16 form) at a
-    compiled radius, K9 at r <= 1, K7, K8, K13 or K15 on a compiled scene,
+    report); raise if K2/K2b or K14 in any form, or one of K1/K1b (or a
+    bf16 form) at a compiled radius, K9 at r <= 1, K7, K8, K13 or K15 on a
+    compiled scene,
     K3/K3b, K15's first camera launch, K10 or K11 at a compiled radius or
     in a 1-D pass, a K12 form, a KG, KGb or KGp kernel or a K4-K6 kernel
     uses local memory, or if K3/K3b, a compiled K13 or K15, a K10 or K11,
@@ -556,7 +635,9 @@ def report_resources():
     form is missing from the report."""
     k1, k9, local, k3, k13, k15, k12, kg = {}, {}, [], [], [], [], [], []
     k456, k1011, bf16 = [], [], []
-    for name, res in sorted(_build.resource_report().items()):
+    report = _build.resource_report()
+    local += adjoint_resources(report)
+    for name, res in sorted(report.items()):
         m = K10_MANGLED.search(name)
         if m:
             kernel = "K10" if m.group(1).startswith("17") else "K11"
@@ -630,17 +711,6 @@ def report_resources():
             k12.append(R)
             if res[1] or res[2] or res[3]:
                 local.append(f"K12 staged r{R}")
-        m = K2_MANGLED.search(name)
-        if m:
-            staged = m.group(1).startswith("31")
-            kernel = "K2" if m.group(2).startswith("13") else "K2b"
-            R, tile = int(m.group(3).replace("n", "-")), int(m.group(4))
-            phase(2, f"{kernel} r{R if R >= 0 else '>2'}"
-                     f"{' staged' if staged else ''}{' tile' if tile else ''}"
-                     f": {res[0]} registers, stack {res[1]} B, spills "
-                     f"{res[2] + res[3]} B")
-            if R >= 0 and (res[1] or res[2] or res[3]):
-                local.append(f"{kernel} r{R}{' tile' if tile else ''}")
         m = K7_MANGLED.search(name)
         if m:
             counts = tuple(int(v.replace("n", "-")) for v in m.groups())
@@ -649,16 +719,6 @@ def report_resources():
                      f"{res[2] + res[3]} B")
             if counts[0] >= 0 and (res[1] or res[2] or res[3]):
                 local.append(f"K7 {counts}")
-        m = K14_MANGLED.search(name)
-        if m:
-            R, staged, tile = (int(v.replace("n", "-")) for v in m.groups())
-            phase(2, f"K14 r{R if R >= 0 else '>2'}"
-                     f"{' staged' if staged else ''}{' tile' if tile else ''}"
-                     f": {res[0]} registers, stack {res[1]} B, spills "
-                     f"{res[2] + res[3]} B")
-            if R >= 0 and (res[1] or res[2] or res[3]):
-                local.append(f"K14 r{R}{' staged' if staged else ''}"
-                             f"{' tile' if tile else ''}")
         m = K8_MANGLED.search(name)
         if m:
             counts = tuple(int(v.replace("n", "-")) for v in m.groups())
@@ -1019,6 +1079,114 @@ def check_adjoint_kernels(P, results):
             if radius == TRAIN.radius and k in KERNELS:
                 results[k] = dict(max_abs_err=err, ms=ms, plain_ms=plain,
                                   **cost)
+
+
+def _wide_adjoint_cases(P, radius, level):
+    """K2, K2b and K14 at ``radius`` and ``level`` on phase 3's 1080p
+    planes: ``{label: (kernel, launch(**form), twin(), bytes a pixel,
+    pixels, staging key)}`` for the whole frame and for the lower right
+    quarter tile (its origin, the frame's bounds, margin gradients).  The
+    weights are K1b's float weights (bf16 for K2), N is K1b's."""
+    params = SVGFParams(radius=radius)
+    taps = (2 * radius + 1) ** 2
+    c, v, n, z, zg, sd, gc, gv = _level_inputs(P, radius, 20 + radius)
+    kw = dict(level=level, params=params)
+    _, _, norm, w = atrous_level_fwd_cuda(c, v, n, z, zg, sd,
+                                          save_weights=True, **kw)
+    wb = w.to(torch.bfloat16)
+    H, W = z.shape
+    th, tw = H // 2, W // 2
+    tile, h = Tile((th, tw), (H, W)), radius << level
+
+    def cut(x):
+        return x[..., th:, tw:].contiguous()
+
+    cases = {}
+    for where in ("whole", "tile"):
+        tiled = where == "tile"
+        npx = (H - th) * (W - tw) if tiled else H * W
+        sk = dict(level=level, radius=radius, out_halo=h if tiled else 0)
+        for kn, wrapper, wt, bytes_px in (
+                ("K2", atrous_level_bwd_stored_cuda, wb, 2 * taps + 36),
+                ("K2b", atrous_level_bwd_stored_f32_cuda, w, 4 * taps + 36)):
+            args = tuple(cut(x) if tiled else x for x in (wt, norm, gc, gv))
+            cases[f"{kn} {where}"] = (
+                kn, lambda a=args, wr=wrapper, k=sk, **f: wr(*a, **k, **f),
+                lambda a=args, k=sk: atrous.atrous_level_bwd_stored_ref(
+                    *a, **k), bytes_px, npx, "K2")
+        args = (c, n, z, zg, sd, norm, gc, gv)
+        k14kw = dict(kw)
+        if tiled:
+            args = tuple(frame_canvas(x, tile, H - th, W - tw, h)
+                         for x in (c, n, z)) + tuple(
+                cut(x) for x in (zg, sd, norm, gc, gv))
+            k14kw.update(tile=tile, out_halo=h)
+        cases[f"K14 {where}"] = (
+            "K14", lambda a=args, k=k14kw, **f: atrous_level_bwd_cuda(
+                *a, **k, **f),
+            lambda a=args, k=k14kw: atrous.atrous_level_bwd_ref(*a, **k), 76,
+            npx, "K14")
+    return cases
+
+
+def check_wide_adjoints(P, results):
+    """K2 (bf16 weights), K2b (float weights) and K14 past radius 2: at
+    radius 3, 4 and 5, levels 1 and 4, whole frame and the lower right
+    quarter tile, each against its plain twin on the same inputs (phase
+    3's tolerances: K2/K2b rtol 1e-6, K14 atol 1e-5·max) and the form the
+    wrapper picks (``utils.tiling.adjoint_staged``: staged, or the centres
+    through the caches past the staging budget) bit-equal to the other
+    form (staged where its tile fits a block); each timed with CUDA
+    events beside the other form, the twin and its bound (the whole
+    case's bytes: inputs once, outputs once at its pixels; the taps'
+    operations)."""
+    for radius in WIDE_ADJOINT_RADII:
+        taps = (2 * radius + 1) ** 2
+        for level in WIDE_ADJOINT_LEVELS:
+            for label, (kn, launch, twin, bytes_px, npx, key) in \
+                    _wide_adjoint_cases(P, radius, level).items():
+                name = f"{label} r{radius} l{level}"
+                got, want = launch(), twin()
+                for out, a, b in zip(("d_color", "d_variance"), got, want):
+                    if kn == "K14":
+                        check_close(f"{name} {out}", a, b,
+                                    atol=1e-5 * float(b.abs().max()))
+                    else:
+                        check_close(f"{name} {out}", a, b,
+                                    atol=1e-12 * float(b.abs().max()),
+                                    rtol=1e-6)
+                err = max(max_err(a, b) for a, b in zip(got, want))
+                staged = tiling.adjoint_staged(key, radius, level)
+                rows, cols = tiling.staged_tile(radius, level)
+                fits = (rows * cols * tiling.STAGED_PIXEL_BYTES[key]
+                        <= tiling.SMEM_PER_BLOCK)
+                forms = {staged: launch}
+                text = f"{'staged' if staged else 'through the caches'}"
+                if fits or staged:
+                    other = launch(staged=not staged)
+                    if not all(torch.equal(a, b)
+                               for a, b in zip(got, other)):
+                        raise AssertionError(f"phase 3: {name}: the staged "
+                                             f"and cache-read forms differ")
+                    forms[not staged] = (
+                        lambda f=launch, st=not staged: f(staged=st))
+                ms = {st: cuda_time_ms(f, repeats=20)
+                      for st, f in forms.items()}
+                plain = cuda_time_ms(twin, repeats=3)
+                flops = (K14_TAP_FLOPS if kn == "K14" else K2_TAP_FLOPS)
+                b_ms, b_by = bound(bytes_px * npx, flops * taps * npx)
+                phase(3, f"{name}: ok, max |err| {err:.3g}; {text} "
+                         f"{ms[staged]:.4f} ms"
+                         + (f", {'through the caches' if staged else 'staged'}"
+                            f" {ms[not staged]:.4f} ms" if len(ms) > 1
+                            else "")
+                         + f"; plain {plain:.4f} ms; bound {b_ms:.4f} ms "
+                           f"({b_by}, {bytes_px} B/px)")
+                if ((radius, level) == WIDE_ADJOINT_REPORTED
+                        and label.endswith("whole")):
+                    results[f"{kn}w"] = dict(
+                        max_abs_err=err, ms=ms[staged], plain_ms=plain,
+                        bytes=bytes_px * npx, flops=flops * taps * npx)
 
 
 # the bf16 forms against their twins: the same bf16 operations in the same
@@ -2710,7 +2878,8 @@ def adjoint_phase(H, W, dev):
         lines.append(bf16_sweep_case(ins, cots, radius))
         phase(9, lines[-1])
     counts = read_counts(9, ("K1", "K2", "K1b", "K2b", "K14", "K9",
-                             "K1b-bf16", "K1b-bf16-fused", "K14-bf16"))
+                             "K1b-bf16", "K1b-bf16-fused", "K14-bf16",
+                             "K2w", "K2bw", "K14w"))
     phase(9, f"spatial adjoints {W}x{H}, 5 levels, exact weights: all "
              f"modes match the plain path; launches {counts}")
     return counts
@@ -3563,6 +3732,7 @@ def main(argv=None) -> int:
     check_k1(P, results)
     check_k1_store_k2(P, results)
     check_adjoint_kernels(P, results)
+    check_wide_adjoints(P, results)
     check_bf16_kernels(P, results)
     check_k3(P, results)
     check_k4_k5_k6(P, results)

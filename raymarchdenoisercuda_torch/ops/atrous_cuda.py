@@ -29,7 +29,12 @@ its ``launches`` attribute.  K1b's and K14's wrappers take ``precision``:
 their bfloat16 forms (the TPU kernels' ``precision="bf16"``, one
 ``__nv_bfloat162`` pair of pixels a thread on the card; plain twins
 ``atrous_level_ref`` / ``atrous_level_bwd_ref`` with ``precision="bf16"``)
-count on ``.bf16.launches`` instead.
+count on ``.bf16.launches`` instead.  The adjoints K14 and K2/K2b take
+``staged``: on the card each runs a staged form (its centres' values
+staged once a block in shared memory) or reads the centres through the
+caches, by default as ``utils.tiling.adjoint_staged`` picks from the
+staged tile's size; both forms give the same floats.  A staged launch past
+radius 2 also counts on the wrapper's ``.wide.launches``.
 
 Tiles: K1, K1b and K14 take ``tile=Tile(origin, bounds)`` (the sharded
 sweep, ``parallel/sharded.py``): the colour/variance and normal/depth
@@ -48,6 +53,7 @@ import ctypes
 import torch
 
 from ..config import SVGFParams
+from ..utils.tiling import adjoint_staged
 from .atrous import (PRECISIONS, WEIGHT_MATHS, _EPS, _LN2, _LOG2E,
                      _spline_taps, atrous_level_bwd_ref,
                      atrous_level_bwd_stored_ref, atrous_level_ref,
@@ -426,7 +432,7 @@ def _out_region(H, W, out_halo, dev):
             torch.empty(shape, dtype=torch.float32, device=dev))
 
 
-def _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo):
+def _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo, staged):
     H, W = gv.shape
     dev = gc.device
     ptrs = [_build.check_input(w, "w", ((2 * radius + 1) ** 2, H, W),
@@ -437,79 +443,110 @@ def _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo):
     t = _AtrousTile(o_m=out_halo) if out_halo else None
     rc = _build.kernels().rdt_atrous_bwd_stored(
         *ptrs, dc.data_ptr(), dv.data_ptr(), H, W, 1 << level, radius,
-        int(w.dtype == torch.float32), _ref(t), _stream(dev))
+        int(w.dtype == torch.float32), _ref(t), int(staged), _stream(dev))
     _build.check(rc, "rdt_atrous_bwd_stored")
     return dc, dv
 
 
+def _count_form(wrapper, radius, staged):
+    """Count a launch of ``wrapper``'s kernel, and on its ``.wide`` too
+    where it ran the staged form past radius 2."""
+    wrapper.launches += 1
+    if staged and radius > _STRUCT_RADIUS:
+        wrapper.wide.launches += 1
+
+
 def atrous_level_bwd_stored_cuda(w, norm, gc, gv, *, level: int,
-                                 radius: int, out_halo: int = 0):
+                                 radius: int, out_halo: int = 0,
+                                 staged: bool = None):
     """One level of the stored-weight adjoint; returns ``(d_color,
     d_variance)`` as ``atrous_level_bwd_stored_ref`` does.  bf16 weights
     go to K2 (``atrous_level_bwd_stored_canvas``), float32 weights to K2b
     (:func:`atrous_level_bwd_stored_f32_cuda`).  ``out_halo`` = o: the
     gradients of the (H + 2o, W + 2o) canvas around the tile (the margin-
-    writing form of the sharded sweep).
+    writing form of the sharded sweep).  ``staged``: the kernel's form on
+    the card, None the tiling model's choice
+    (``utils.tiling.adjoint_staged``), True staged, False the centres
+    through the caches; every form gives the same floats, and the CPU runs
+    the twin whatever it says.
 
-    Each K2 launch adds one to ``atrous_level_bwd_stored_cuda.launches``."""
+    Each K2 launch adds one to ``atrous_level_bwd_stored_cuda.launches``,
+    and a staged launch past radius 2 also to
+    ``atrous_level_bwd_stored_cuda.wide.launches``."""
     if w.dtype == torch.float32:
         return atrous_level_bwd_stored_f32_cuda(w, norm, gc, gv, level=level,
                                                 radius=radius,
-                                                out_halo=out_halo)
+                                                out_halo=out_halo,
+                                                staged=staged)
     _build.check_no_grad("atrous_level_bwd_stored_cuda", w, norm, gc, gv)
+    staged = adjoint_staged("K2", radius, level, staged)
     if not gc.is_cuda:
         return atrous_level_bwd_stored_ref(w, norm, gc, gv, level=level,
                                            radius=radius, out_halo=out_halo)
     if w.dtype != torch.bfloat16:
         raise ValueError(f"w: dtype {w.dtype}, expected bfloat16 or float32")
-    out = _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo)
-    atrous_level_bwd_stored_cuda.launches += 1
+    out = _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo,
+                             staged)
+    _count_form(atrous_level_bwd_stored_cuda, radius, staged)
     return out
 
 
 atrous_level_bwd_stored_cuda.launches = 0
+atrous_level_bwd_stored_cuda.wide = LaunchCount()
 
 
 def atrous_level_bwd_stored_f32_cuda(w, norm, gc, gv, *, level: int,
-                                     radius: int, out_halo: int = 0):
+                                     radius: int, out_halo: int = 0,
+                                     staged: bool = None):
     """K2b, the stored-weight adjoint from float32 weights (the counterpart
     of ``atrous_level_bwd_stored_pallas``; the ``bwd_impl="stored_f32"``
-    backward); returns ``(d_color, d_variance)``.
+    backward); returns ``(d_color, d_variance)``.  ``staged`` as in
+    :func:`atrous_level_bwd_stored_cuda`.
 
-    Each launch adds one to ``atrous_level_bwd_stored_f32_cuda.launches``."""
+    Each launch adds one to ``atrous_level_bwd_stored_f32_cuda.launches``,
+    and a staged launch past radius 2 also to its ``.wide.launches``."""
     _build.check_no_grad("atrous_level_bwd_stored_f32_cuda", w, norm, gc, gv)
+    staged = adjoint_staged("K2", radius, level, staged)
     if not gc.is_cuda:
         return atrous_level_bwd_stored_ref(w, norm, gc, gv, level=level,
                                            radius=radius, out_halo=out_halo)
     if w.dtype != torch.float32:
         raise ValueError(f"w: dtype {w.dtype}, expected float32")
-    out = _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo)
-    atrous_level_bwd_stored_f32_cuda.launches += 1
+    out = _launch_bwd_stored(w, norm, gc, gv, level, radius, out_halo,
+                             staged)
+    _count_form(atrous_level_bwd_stored_f32_cuda, radius, staged)
     return out
 
 
 atrous_level_bwd_stored_f32_cuda.launches = 0
+atrous_level_bwd_stored_f32_cuda.wide = LaunchCount()
 
 
 def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
                           g_color, g_var, *, level: int, params: SVGFParams,
                           tile: Tile = None, out_halo: int = 0,
-                          precision: str = "f32"):
+                          precision: str = "f32", staged: bool = None):
     """K14, the recompute adjoint of one level (the counterpart of
     ``atrous_level_bwd_pallas``): the weights are re-derived from the
     forward's inputs and its σ-denominator by the forward's exact weight
     math.  Returns ``(d_color, d_variance)``.  ``tile`` as in
-    :func:`atrous_level_cuda` (canvas margins >= ``out_halo``) and
-    ``out_halo`` as in :func:`atrous_level_bwd_stored_cuda`.
+    :func:`atrous_level_cuda` (canvas margins >= ``out_halo``),
+    ``out_halo`` and ``staged`` (the float32 form's) as in
+    :func:`atrous_level_bwd_stored_cuda`.
 
     ``precision="bf16"``: K14's bfloat16 form on the whole frame, the
     adjoint of K1b's (``atrous_level_bwd_ref(..., precision="bf16")``).
 
-    Each float32 launch adds one to ``atrous_level_bwd_cuda.launches``, each
-    bf16 launch to ``atrous_level_bwd_cuda.bf16.launches``."""
+    Each float32 launch adds one to ``atrous_level_bwd_cuda.launches`` (a
+    staged one past radius 2 also to ``atrous_level_bwd_cuda.wide.
+    launches``), each bf16 launch to
+    ``atrous_level_bwd_cuda.bf16.launches``."""
     _check_precision(precision, tile, out_halo)
     _build.check_no_grad("atrous_level_bwd_cuda", color, normal, depth, zgrad,
                          sigma_denom, norm, g_color, g_var)
+    if precision == "bf16" and staged is not None:
+        raise ValueError("staged chooses the float32 form's staging")
+    staged = adjoint_staged("K14", params.radius, level, staged)
     if not g_color.is_cuda:
         return atrous_level_bwd_ref(color, normal, depth, zgrad, sigma_denom,
                                     norm, g_color, g_var, level=level,
@@ -541,13 +578,14 @@ def atrous_level_bwd_cuda(color, normal, depth, zgrad, sigma_denom, norm,
     p = _launch_params(H, W, level, params)
     rc = _build.kernels().rdt_atrous_bwd(
         *ptrs, dc.data_ptr(), dv.data_ptr(), ctypes.addressof(p), _ref(t),
-        _taps_ptr(params.radius, dev), _stream(dev))
+        _taps_ptr(params.radius, dev), int(staged), _stream(dev))
     _build.check(rc, "rdt_atrous_bwd")
-    atrous_level_bwd_cuda.launches += 1
+    _count_form(atrous_level_bwd_cuda, params.radius, staged)
     return dc, dv
 
 
 atrous_level_bwd_cuda.launches = 0
+atrous_level_bwd_cuda.wide = LaunchCount()
 atrous_level_bwd_cuda.bf16 = LaunchCount()
 
 

@@ -46,8 +46,8 @@ _I = ctypes.c_int
 SIGNATURES = {
     "rdt_zgrad": (_P, _P, _I, _I, _P),
     "rdt_atrous_level": (_P,) * 10 + (_I,) + (_P,) * 4,
-    "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 5 + (_P,) * 2,
-    "rdt_atrous_bwd": (_P,) * 14,
+    "rdt_atrous_bwd_stored": (_P,) * 6 + (_I,) * 5 + (_P, _I, _P),
+    "rdt_atrous_bwd": (_P,) * 13 + (_I, _P),
     "rdt_atrous_wgrad_bwd": (_P,) * 20,
     "rdt_atrous_level_bf16": (_P,) * 15,
     "rdt_atrous_bwd_bf16": (_P,) * 14,

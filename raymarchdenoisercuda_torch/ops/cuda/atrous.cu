@@ -58,7 +58,7 @@
 // u2 = gv_p / max(N_p, eps)^2.  A gather needs no atomics, so the sum is
 // deterministic and in the twin's tap order.  Bound: memory, 54 (K2 r1),
 // 86 (K2 r2), 72 (K2b r1) or 136 (K2b r2) B/px (weights, N, gc, gv in; dc,
-// dv out).  Design at radius 1 and 2 (compile time): K14's row-lattice
+// dv out).  Design (radius >= 1): K14's row-lattice
 // tile (64 columns by 8 lattice rows) laid over the OUTPUT region, whose
 // centres p = x - d*2^level lie on the output's own lattice.  A block
 // stages once per centre of its tile and halo one float4, (u, u2) =
@@ -77,13 +77,21 @@
 // the latter up to 30 % slower than its whole frame; staging with plain
 // loads and stores, or loading a thread's weights into registers first,
 // 10-55 % slower; staged rows split into even and odd columns (no bank
-// conflicts for the pairs' reads) 1-4 % slower.  At most 75 KB a block
-// (radius 2 at spacing 64 and above).  Radius 0 (one tap, each centre read
-// once) and above 2 read the centres through the caches, one output a
-// thread in 32 x 8 blocks, as the kernel this design replaced.  Every sum
-// adds its taps in the same (dy, dx) order, and an out-of-frame centre is
-// dropped by its coordinate, so the outputs are bit-equal to that
-// kernel's and to the twin's.
+// conflicts for the pairs' reads) 1-4 % slower.  Radius 1, 2 and 3 are
+// compiled (the taps unroll); a larger radius runs the same body with the
+// radius at run time (R = -1).  The wrapper picks the form
+// (utils/tiling.py, adjoint_staged): staged while the tile takes at most
+// 56 KB a block up to spacing 16 (four blocks an SM: the weights stream
+// from device memory) and 40 KB at spacing 32, which is radius 1 to level
+// 5, 2 and 3 to level 4, 4 and 5 to level 3, 8 to level 1; else the
+// centres read through the caches, one output a thread in 32 x 8 blocks
+// (the kernel this design replaced), as at radius 0, whose one tap reads
+// each centre once.  Past those limits the staged form lost at 1080p
+// (utils/profile.py forms): a wide spacing leaves a lattice residue's
+// last row group part empty while each block stages its whole halo.
+// Every sum adds its taps in the same (dy, dx) order, and an out-of-frame
+// centre is dropped by its coordinate, so the outputs are bit-equal to
+// that kernel's and to the twin's.
 //
 // K14 replaces _make_level_kernel(mode="bwd") as called by
 // atrous_level_bwd_pallas and atrous_level_bwd_canvas: the same gather as
@@ -102,15 +110,23 @@
 // and depth, u = gc/max(N, eps) and u2 = gv/max(N, eps)^2, luminance
 // (luma3, the float the per-tap expression gives), sigma and depth
 // gradient, 48 B, so that a tap reads three float4 from shared memory in
-// place of ~15 plane reads, a luminance and a 1/N; each thread then
-// computes two outputs.  x's own luminance, depth and normal stay in
-// registers.  Specialised at compile time on the radius (0 stages
-// nothing, 1, 2; above 2 the WIDE instantiation, taps in device memory)
-// and the tile form.  Radius 0, WIDE and a tile above K14_MAX_STAGED read
-// the centres through the caches, one output a thread (two a thread made
-// radius 3 5-16 % slower than the kernel this one replaced).  Every
-// weight goes through exact_tap unchanged and every sum adds its taps in
-// the same (dy, dx) order, so the outputs are those of the one-thread-per-
+// place of ~15 plane reads, a luminance and a 1/N.  x's own luminance,
+// depth and normal stay in registers.  Radius 1 and 2 compute two outputs
+// a thread (64 x 4 threads); past radius 2 one output a thread (64 x 8):
+// two a thread made radius 3 5-16 % slower than the cache-read kernel.
+// Specialised at compile time on the radius (0 stages nothing; 1, 2 with
+// the taps in the parameters; 3 and 4 with the taps in device memory, the
+// rows run as a loop and each row's taps unrolled; -1 any radius) and the
+// tile form.  The wrapper picks staged or not (utils/tiling.py,
+// adjoint_staged): staged while the tile fits a block up to spacing 16
+// (one block of 512 threads an SM still won) and takes at most 110 KB
+// (two blocks an SM) at spacing 32, which is radius 1 and 2 to level 5,
+// 3-5 to level 4, 8 to level 3; else, and at radius 0, the centres are
+// read through the caches, one output a thread (past radius 2 the WIDE
+// instantiation, the kernel this design replaced), as K2 for the same
+// reason.  Every weight
+// goes through exact_tap unchanged and every sum adds its taps in the
+// same (dy, dx) order, so the outputs are those of the one-thread-per-
 // pixel kernel it replaced, bit for bit.
 //
 // K9 replaces the TPU package's two weight-gradient kernels, centre and
@@ -243,20 +259,19 @@ __global__ void atrous_bwd_stored_kernel(const WT* __restrict__ w,
     dv[i] = acc_v;
 }
 
-// K14's block: 64 columns by 8 lattice rows of outputs; staged, K1's 64
-// x 4 threads, two lattice rows a thread, else 64 x 8 threads, one each.
+// K14's block: 64 columns by 8 lattice rows of outputs; staged at radius
+// 1 and 2, K1's 64 x 4 threads, two lattice rows a thread, else 64 x 8
+// threads, one each.
 constexpr int K14_TW = 64, K14_TR = 8;
-template <bool STAGED>
+template <int R, bool STAGED>
 struct K14Rows {
-    static constexpr int PY = STAGED ? 2 : 1;      // lattice rows a thread
-    static constexpr int TY = K14_TR / PY;         // thread rows a block
+    // lattice rows a thread, thread rows a block
+    static constexpr int PY = STAGED && (R == 1 || R == 2) ? 2 : 1;
+    static constexpr int TY = K14_TR / PY;
     static constexpr int THREADS = K14_TW * TY;
 };
 // bytes a staged centre: three float4
 constexpr int K14_STAGED_BYTES = 48;
-// the largest staged tile (two blocks an SM): radius 2 up to spacing 32;
-// radius 1's is at most 92 KB at any spacing
-constexpr size_t K14_MAX_STAGED = 110 * 1024;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
     const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
@@ -338,8 +353,8 @@ __device__ __forceinline__ void stage_u(float4* s_u, float* s_n,
     __syncthreads();
 }
 
-// K2/K2b at radius R (1, 2) on K14's row-lattice tile over the output
-// region (see the header).
+// K2/K2b at radius R (1, 2, 3; -1: any radius r_ >= 1) on K14's
+// row-lattice tile over the output region (see the header).
 template <typename WT, int R, bool TILE>
 __global__ void __launch_bounds__(K2_TX * K2_TY)
     atrous_bwd_stored_staged_kernel(const WT* __restrict__ w,
@@ -348,14 +363,15 @@ __global__ void __launch_bounds__(K2_TX * K2_TY)
                                     const float* __restrict__ gv,
                                     float* __restrict__ dc,
                                     float* __restrict__ dv, int H, int W,
-                                    int spacing, AtrousTile t) {
-    constexpr int SIDE = 2 * R + 1;
+                                    int spacing, int r_, AtrousTile t) {
+    const int r = R < 0 ? r_ : R;
+    const int side = 2 * r + 1;
     const int hw = H * W;
     const int om = TILE ? t.o_m : 0;
     const int Ho = H + 2 * om, Wo = W + 2 * om, hwo = Ho * Wo;
     // the lattice of the output region: its staged rows and columns are
     // output coordinates, a centre's tile coordinates those less om
-    const Lattice<K14_TW, K14_TR> L(spacing, R);
+    const Lattice<K14_TW, K14_TR> L(spacing, r);
     const int tx = threadIdx.x, kl = threadIdx.y;
     extern __shared__ float4 s_u[];
     stage_u(s_u, (float*)(s_u + L.sw * L.sh), L, norm, gc, gv, H, W, om);
@@ -368,16 +384,16 @@ __global__ void __launch_bounds__(K2_TX * K2_TY)
     float a0[2] = {0.0f, 0.0f}, a1[2] = {0.0f, 0.0f}, a2[2] = {0.0f, 0.0f},
           av[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int dy = -R; dy <= R; ++dy) {
+    for (int dy = -r; dy <= r; ++dy) {
         const int py = y - dy * L.s;
         if (py < 0 || py >= H) continue;
 #pragma unroll
-        for (int dx = -R; dx <= R; ++dx) {
+        for (int dx = -r; dx <= r; ++dx) {
             const int px = x - dx * L.s;
             const bool in0 = px >= 0 && px < W;
             const bool in1 = two && px + 1 >= 0 && px + 1 < W;
             if (!in0 && !in1) continue;
-            const int k = (dy + R) * SIDE + (dx + R);
+            const int k = (dy + r) * side + (dx + r);
             const float2 wk = load_w2(w, k * hw + py * W + px, in0, in1);
             const int e = L.at(kl, 2 * tx, -dy, -dx);
             if (in0) {
@@ -426,38 +442,48 @@ struct StoredArgs {
 };
 
 template <typename WT, int R, bool TILE>
-cudaError_t launch_stored(const StoredArgs& a, const AtrousTile& t,
-                          cudaStream_t s) {
+cudaError_t launch_stored_staged(const StoredArgs& a, const AtrousTile& t,
+                                 cudaStream_t s) {
     const int Ho = a.H + 2 * t.o_m, Wo = a.W + 2 * t.o_m;
-    if constexpr (R == 1 || R == 2) {
-        auto kernel = atrous_bwd_stored_staged_kernel<WT, R, TILE>;
-        const size_t bytes = lattice_entries<K14_TW, K14_TR>(a.spacing, R)
-                             * (sizeof(float4) + sizeof(float));
-        static size_t opted = 0;
-        cudaError_t err = allow_smem(kernel, bytes, opted);
-        if (err != cudaSuccess) return err;
-        kernel<<<lattice_grid<K14_TW, K14_TR>(Ho, Wo, a.spacing),
-                 dim3(K2_TX, K2_TY), bytes, s>>>(
-            (const WT*)a.w, a.norm, a.gc, a.gv, a.dc, a.dv, a.H, a.W,
-            a.spacing, t);
-    } else {
-        dim3 block(32, 8);
-        atrous_bwd_stored_kernel<WT, R, TILE><<<grid_for(Ho, Wo, block),
-                                                block, 0, s>>>(
-            (const WT*)a.w, a.norm, a.gc, a.gv, a.dc, a.dv, a.H, a.W,
-            a.spacing, a.radius, t);
-    }
+    auto kernel = atrous_bwd_stored_staged_kernel<WT, R, TILE>;
+    const size_t bytes = lattice_entries<K14_TW, K14_TR>(a.spacing, a.radius)
+                         * (sizeof(float4) + sizeof(float));
+    static size_t opted = 0;
+    cudaError_t err = allow_smem(kernel, bytes, opted);
+    if (err != cudaSuccess) return err;
+    kernel<<<lattice_grid<K14_TW, K14_TR>(Ho, Wo, a.spacing),
+             dim3(K2_TX, K2_TY), bytes, s>>>(
+        (const WT*)a.w, a.norm, a.gc, a.gv, a.dc, a.dv, a.H, a.W, a.spacing,
+        a.radius, t);
     return cudaGetLastError();
 }
 
+template <typename WT, int R, bool TILE>
+cudaError_t launch_stored_cached(const StoredArgs& a, const AtrousTile& t,
+                                 cudaStream_t s) {
+    const int Ho = a.H + 2 * t.o_m, Wo = a.W + 2 * t.o_m;
+    dim3 block(32, 8);
+    atrous_bwd_stored_kernel<WT, R, TILE><<<grid_for(Ho, Wo, block), block,
+                                            0, s>>>(
+        (const WT*)a.w, a.norm, a.gc, a.gv, a.dc, a.dv, a.H, a.W, a.spacing,
+        a.radius, t);
+    return cudaGetLastError();
+}
+
+// staged: the form the wrapper picked; radius 0 has nothing to stage
 template <typename WT, bool TILE>
 cudaError_t launch_stored_radius(const StoredArgs& a, const AtrousTile& t,
-                                 cudaStream_t s) {
+                                 bool staged, cudaStream_t s) {
+    if (!staged) {
+        return a.radius == 0 ? launch_stored_cached<WT, 0, TILE>(a, t, s)
+                             : launch_stored_cached<WT, -1, TILE>(a, t, s);
+    }
     switch (a.radius) {
-    case 0: return launch_stored<WT, 0, TILE>(a, t, s);
-    case 1: return launch_stored<WT, 1, TILE>(a, t, s);
-    case 2: return launch_stored<WT, 2, TILE>(a, t, s);
-    default: return launch_stored<WT, -1, TILE>(a, t, s);
+    case 0: return cudaErrorInvalidValue;
+    case 1: return launch_stored_staged<WT, 1, TILE>(a, t, s);
+    case 2: return launch_stored_staged<WT, 2, TILE>(a, t, s);
+    case 3: return launch_stored_staged<WT, 3, TILE>(a, t, s);
+    default: return launch_stored_staged<WT, -1, TILE>(a, t, s);
     }
 }
 
@@ -488,22 +514,26 @@ __device__ __forceinline__ BwdCentre bwd_centre(
 }
 
 // K14: the recompute adjoint (see the header).  Exact, full weights only.
-// R: the radius, or -1 (any radius, taps in wide_taps); STAGED: the
-// centres staged over the block's lattice tile, else read through the
-// caches.  Output pixel (yo, xo) of the centre-plus-o_m region is tile
-// pixel (y, x); its centres p = x - d lie in the tile, and a centre's tap
-// to x was dropped in the forward when (y, x) lies outside the frame, so
-// such a pixel gets zero.
+// R: the radius (0-2 taps in the parameters, 3 and 4 in wide_taps), or -1
+// (any radius, taps in wide_taps); STAGED: the centres staged over the
+// block's lattice tile, else read through the caches.  Output pixel (yo,
+// xo) of the centre-plus-o_m region is tile pixel (y, x); its centres p =
+// x - d lie in the tile, and a centre's tap to x was dropped in the
+// forward when (y, x) lies outside the frame, so such a pixel gets zero.
 template <int R, bool STAGED, bool TILE>
-__global__ void __launch_bounds__(K14Rows<STAGED>::THREADS) atrous_bwd_kernel(
-    const float* __restrict__ color, const float* __restrict__ normal,
-    const float* __restrict__ depth, const float* __restrict__ zgrad,
-    const float* __restrict__ sden, const float* __restrict__ norm,
-    const float* __restrict__ gc, const float* __restrict__ gv,
-    float* __restrict__ dc, float* __restrict__ dv, AtrousParams p,
-    AtrousTile t, const float* __restrict__ wide_taps) {
+__global__ void __launch_bounds__(K14Rows<R, STAGED>::THREADS)
+    atrous_bwd_kernel(const float* __restrict__ color,
+                      const float* __restrict__ normal,
+                      const float* __restrict__ depth,
+                      const float* __restrict__ zgrad,
+                      const float* __restrict__ sden,
+                      const float* __restrict__ norm,
+                      const float* __restrict__ gc,
+                      const float* __restrict__ gv, float* __restrict__ dc,
+                      float* __restrict__ dv, AtrousParams p, AtrousTile t,
+                      const float* __restrict__ wide_taps) {
     constexpr bool WIDE = R < 0;
-    constexpr int PY = K14Rows<STAGED>::PY, TY = K14Rows<STAGED>::TY;
+    constexpr int PY = K14Rows<R, STAGED>::PY, TY = K14Rows<R, STAGED>::TY;
     const int H = p.H, W = p.W, hw = H * W;
     const int om = TILE ? t.o_m : 0;
     const int Ho = H + 2 * om, Wo = W + 2 * om, hwo = Ho * Wo;
@@ -554,38 +584,58 @@ __global__ void __launch_bounds__(K14Rows<STAGED>::THREADS) atrous_bwd_kernel(
             const float z_x = depth[gx_];
             const float n0 = normal[gx_], n1 = normal[gp + gx_],
                         n2 = normal[2 * gp + gx_];
+            // centre p = x - d's weight for its tap (oy, ox), whose
+            // neighbour is x, into the sums (p in the tile's rows)
+            auto tap = [&](int dy, int dx) {
+                const int oy = dy * L.s, ox = dx * L.s;
+                const int py = y - oy, px = x - ox;
+                if (px < 0 || px >= W) return;
+                BwdCentre q;
+                if (STAGED) {
+                    const int e = L.at(kl, tx, -dy, -dx);
+                    q.nz = s_nz[e];
+                    q.u = s_u[e];
+                    q.ls = s_ls[e];
+                } else {
+                    q = bwd_centre<TILE>(color, normal, depth, zgrad, sden,
+                                         norm, gc, gv, t, W, hw, dp, gp, py,
+                                         px);
+                }
+                // taps in the parameters up to radius 2, else in wide_taps
+                // (read a tap: the cached loads cost less than the
+                // registers that would hold them)
+                const float h =
+                    tap_h<(R < 0 || R > 2)>(p, wide_taps, dy + r, dx + r);
+                const float wk = exact_tap(
+                    h, q.ls.x, lum_x, q.ls.y, q.nz.w, z_x, q.ls.z, q.ls.w,
+                    oy, ox, q.nz.x, q.nz.y, q.nz.z, n0, n1, n2, p).w;
+                acc0 = acc0 + wk * q.u.x;
+                acc1 = acc1 + wk * q.u.y;
+                acc2 = acc2 + wk * q.u.z;
+                acc_v = acc_v + (wk * wk) * q.u.w;
+            };
+            if constexpr (R >= 0 && R <= 2) {
 #pragma unroll
-            for (int dy = -r; dy <= r; ++dy) {
-                const int oy = dy * L.s;
-                const int py = y - oy;
-                if (py < 0 || py >= H) continue;
+                for (int dy = -r; dy <= r; ++dy) {
+                    const int py = y - dy * L.s;
+                    if (py < 0 || py >= H) continue;
 #pragma unroll
-                for (int dx = -r; dx <= r; ++dx) {
-                    const int ox = dx * L.s;
-                    const int px = x - ox;
-                    if (px < 0 || px >= W) continue;
-                    BwdCentre q;
-                    if (STAGED) {
-                        const int e = L.at(kl, tx, -dy, -dx);
-                        q.nz = s_nz[e];
-                        q.u = s_u[e];
-                        q.ls = s_ls[e];
-                    } else {
-                        q = bwd_centre<TILE>(color, normal, depth, zgrad,
-                                             sden, norm, gc, gv, t, W, hw,
-                                             dp, gp, py, px);
-                    }
-                    const float h = tap_h<WIDE>(p, wide_taps, dy + r, dx + r);
-                    // centre p's weight for its tap (oy, ox), whose
-                    // neighbour is x
-                    const float wk = exact_tap(
-                        h, q.ls.x, lum_x, q.ls.y, q.nz.w, z_x, q.ls.z,
-                        q.ls.w, oy, ox, q.nz.x, q.nz.y, q.nz.z, n0, n1, n2,
-                        p).w;
-                    acc0 = acc0 + wk * q.u.x;
-                    acc1 = acc1 + wk * q.u.y;
-                    acc2 = acc2 + wk * q.u.z;
-                    acc_v = acc_v + (wk * wk) * q.u.w;
+                    for (int dx = -r; dx <= r; ++dx) tap(dy, dx);
+                }
+            } else {
+                // past radius 2 the rows run as a loop (fewer taps' values
+                // live: ptxas spilled 280 B of the radius-3 tile form
+                // unrolled); the columns unroll at a compiled radius, by 4
+                // in the staged form at any radius (rolled, ptxas kept it to
+                // 40 registers and spilled 16 B) and not in the cache-read
+                // form (by 4 it took 58 registers and ran 10-16 % slower)
+                constexpr int COLS = R > 2 ? 2 * R + 1 : STAGED ? 4 : 1;
+#pragma unroll 1
+                for (int dy = -r; dy <= r; ++dy) {
+                    const int py = y - dy * L.s;
+                    if (py < 0 || py >= H) continue;
+#pragma unroll (COLS)
+                    for (int dx = -r; dx <= r; ++dx) tap(dy, dx);
                 }
             }
         }
@@ -616,7 +666,7 @@ cudaError_t launch_bwd(const BwdArgs& a, const AtrousParams& p,
     const int om = TILE ? t.o_m : 0;
     kernel<<<lattice_grid<K14_TW, K14_TR>(p.H + 2 * om, p.W + 2 * om,
                                           p.spacing),
-             dim3(K14_TW, K14Rows<STAGED>::TY), bytes, s>>>(
+             dim3(K14_TW, K14Rows<R, STAGED>::TY), bytes, s>>>(
         a.color, a.normal, a.depth, a.zgrad, a.sden, a.norm, a.gc, a.gv,
         a.dc, a.dv, p, t, a.wide_taps);
     return cudaGetLastError();
@@ -1234,51 +1284,65 @@ extern "C" int rdt_atrous_level(const float* color, const float* var,
 }
 
 // K2 (bf16 weights) / K2b (w_f32: float weights); with a tile the grid
-// covers its output region (the centre plus o_m on every side).
+// covers its output region (the centre plus o_m on every side).  staged:
+// the staged form (radius >= 1), else the centres through the caches.
 extern "C" int rdt_atrous_bwd_stored(const void* w, const float* norm,
                                      const float* gc, const float* gv,
                                      float* dc, float* dv, int H, int W,
                                      int spacing, int radius, int w_f32,
-                                     const AtrousTile* tile, void* stream) {
+                                     const AtrousTile* tile, int staged,
+                                     void* stream) {
     const StoredArgs a{w, norm, gc, gv, dc, dv, H, W, spacing, radius};
     const AtrousTile t = tile ? *tile : AtrousTile{};
     const cudaStream_t s = (cudaStream_t)stream;
+    const bool st = staged != 0;
     if (w_f32) {
-        return (int)(tile ? launch_stored_radius<float, true>(a, t, s)
-                          : launch_stored_radius<float, false>(a, t, s));
+        return (int)(tile ? launch_stored_radius<float, true>(a, t, st, s)
+                          : launch_stored_radius<float, false>(a, t, st, s));
     }
-    return (int)(tile ? launch_stored_radius<__nv_bfloat16, true>(a, t, s)
-                      : launch_stored_radius<__nv_bfloat16, false>(a, t, s));
+    return (int)(tile
+                     ? launch_stored_radius<__nv_bfloat16, true>(a, t, st, s)
+                     : launch_stored_radius<__nv_bfloat16, false>(a, t, st,
+                                                                  s));
 }
 
-// K14, over the output region as K2; wide_taps as in rdt_atrous_level.
+// K14, over the output region as K2; wide_taps as in rdt_atrous_level;
+// staged: the staged form (radius >= 1), else the centres through the
+// caches.
 extern "C" int rdt_atrous_bwd(const float* color, const float* normal,
                               const float* depth, const float* zgrad,
                               const float* sden, const float* norm,
                               const float* gc, const float* gv, float* dc,
                               float* dv, const AtrousParams* params,
                               const AtrousTile* tile, const float* wide_taps,
-                              void* stream) {
+                              int staged, void* stream) {
     const BwdArgs a{color, normal, depth, zgrad, sden, norm, gc, gv, dc, dv,
                     wide_taps};
     const AtrousParams& p = *params;
     const cudaStream_t s = (cudaStream_t)stream;
-    // radius 0 reads each centre once: nothing to stage
-    const bool staged = lattice_entries<K14_TW, K14_TR>(p.spacing, p.radius)
-                            * K14_STAGED_BYTES
-                        <= K14_MAX_STAGED;
+    // taps in the parameters up to radius 2, in wide_taps above
+    if ((wide_taps != nullptr) != (p.radius > 2))
+        return (int)cudaErrorInvalidValue;
     cudaError_t err;
-    if (wide_taps) {
-        err = launch_bwd_tile<-1, false>(a, p, tile, s);
-    } else {
-        switch (p.radius) {
-        case 0: err = launch_bwd_tile<0, false>(a, p, tile, s); break;
-        case 1: err = launch_bwd_tile<1, true>(a, p, tile, s); break;
-        case 2: err = staged ? launch_bwd_tile<2, true>(a, p, tile, s)
-                             : launch_bwd_tile<2, false>(a, p, tile, s);
-            break;
-        default: err = cudaErrorInvalidValue;
-        }
+    switch (p.radius) {
+    // radius 0 reads each centre once: nothing to stage
+    case 0: err = staged ? cudaErrorInvalidValue
+                         : launch_bwd_tile<0, false>(a, p, tile, s);
+        break;
+    case 1: err = staged ? launch_bwd_tile<1, true>(a, p, tile, s)
+                         : launch_bwd_tile<1, false>(a, p, tile, s);
+        break;
+    case 2: err = staged ? launch_bwd_tile<2, true>(a, p, tile, s)
+                         : launch_bwd_tile<2, false>(a, p, tile, s);
+        break;
+    case 3: err = staged ? launch_bwd_tile<3, true>(a, p, tile, s)
+                         : launch_bwd_tile<-1, false>(a, p, tile, s);
+        break;
+    case 4: err = staged ? launch_bwd_tile<4, true>(a, p, tile, s)
+                         : launch_bwd_tile<-1, false>(a, p, tile, s);
+        break;
+    default: err = staged ? launch_bwd_tile<-1, true>(a, p, tile, s)
+                          : launch_bwd_tile<-1, false>(a, p, tile, s);
     }
     return (int)err;
 }

@@ -10,7 +10,7 @@ under another name, each builds its kernels from its own sources into its
 own ``build/``, and both run in this one process on the same inputs:
 K1 (every radius 0-3, fast, exact and luminance-only weights, at every
 level 0-4, with no store and with bf16 and float weight stores), K1b (with
-and without float weights), K9, K14 (every radius 0-3 at every level 0-4),
+and without float weights), K9, K14 (radius 0-5 and 8 at every level 0-4),
 the bf16 forms (``precision="bf16"``, every radius 0-3 at every level 0-4,
 on the frame and on a frame one row and three columns short): K1b-bf16
 with a given σ-denominator (with and without float weights) and with σ
@@ -19,8 +19,9 @@ fused, written and not (a tree without the fused form runs
 the σ and N its tree's forward gives, and the 5-level bf16 sweep at r1
 and r2, inference and forward+backward,
 the tile forms of K1/K1b/K14 on a quarter tile of a 3840x2160 frame at
-levels 1 and 4, K2/K2b (every radius 0-3 at every level 0-4, bf16 and
-float weights, and the tile form at radius 1, levels 1 and 4) and the
+levels 1 and 4 (K14 at radius 1-3, the others 1-2), K2/K2b (radius 0-5
+and 8 at every level 0-4, bf16 and float weights, and the tile form at
+radius 1 and 3, levels 1 and 4) and the
 5-level inference sweep as ``chip_smoke.py`` phase 3 runs it, all at
 1920x1080 on seeded planes; K7 on the rays of phase 3's camera and K8 on
 the G-buffers, of the Cornell box, ``random_scene`` and a scene of other
@@ -129,6 +130,10 @@ FRAME = (1080, 1920)                 # the main paths' frame (H, W)
 # of twice its sides (seeded_inputs.gather_inputs)
 GATHER_KINDS = ("random", "integer", "zero", "served")
 GATHER_KINDS_UHD = ("random", "served")
+# K14's and K2/K2b's radii: past 2 the staged forms at a compiled radius
+# (3, and K14's 4) and at the runtime one, and the cache-read form where
+# a level's staged tile is past the budget (utils/tiling.py)
+ADJOINT_RADII = (0, 1, 2, 3, 4, 5, 8)
 
 
 class Twin:
@@ -411,7 +416,7 @@ def _cases(P, U, cots, S, M, T):
         return lambda: tuple(tree.atrous_cuda.atrous_level_bwd_cuda(
             c, n, z, zgr, sd, norm, *cots, level=lvl, params=p))
 
-    for r in (0, 1, 2, 3):
+    for r in ADJOINT_RADII:
         for lvl in range(5):
             yield (f"K14 r{r} l{lvl}",
                    lambda t, r=r, lvl=lvl: k14(t, r, lvl))
@@ -511,7 +516,7 @@ def _cases(P, U, cots, S, M, T):
                            t, r, grad, odd))
 
     for kind in ("K1 fast", "K1 store", "K1b", "K14"):
-        for r in (1, 2):
+        for r in (1, 2, 3) if kind == "K14" else (1, 2):
             for lvl in (1, 4):
                 yield (f"tile {kind} r{r} l{lvl}",
                        lambda t, kind=kind, r=r, lvl=lvl: tile(t, kind, r,
@@ -533,15 +538,17 @@ def _cases(P, U, cots, S, M, T):
             w, norm, gc, gv, level=lvl, radius=r,
             out_halo=r << lvl if halo else 0))
 
-    for r in (0, 1, 2, 3):
+    for r in ADJOINT_RADII:
         for dt, kn in ((torch.bfloat16, "K2"), (torch.float32, "K2b")):
             for lvl in range(5):
                 yield (f"{kn} r{r} l{lvl}",
                        lambda t, r=r, dt=dt, lvl=lvl: k2(t, r, lvl, dt))
     for dt, kn in ((torch.bfloat16, "K2"), (torch.float32, "K2b")):
-        for lvl in (1, 4):
-            yield (f"tile {kn} r1 l{lvl}",
-                   lambda t, dt=dt, lvl=lvl: k2(t, 1, lvl, dt, halo=True))
+        for r in (1, 3):
+            for lvl in (1, 4):
+                yield (f"tile {kn} r{r} l{lvl}",
+                       lambda t, dt=dt, r=r, lvl=lvl: k2(t, r, lvl, dt,
+                                                         halo=True))
 
     def k7(tree, name, omega, seeded, window, camera=False):
         rc = tree.raymarch_cuda

@@ -9,6 +9,7 @@ forward and backward on one GPU.
     python3 -m raymarchdenoisercuda_torch.utils.profile clamped
     python3 -m raymarchdenoisercuda_torch.utils.profile temporal [--served]
     python3 -m raymarchdenoisercuda_torch.utils.profile box
+    python3 -m raymarchdenoisercuda_torch.utils.profile forms
     python3 -m raymarchdenoisercuda_torch.utils.profile sass [--match RE]
 
 At 1920x1080: runs 3 warm-up steps, times ``--steps`` more without the
@@ -40,7 +41,14 @@ seeded 1920x1080 planes, by device time a call (``--steps`` calls under
 the profiler), at each radius and depth of ``BOX_CASES`` and each way of
 splitting its levels into launches that a halo cap in ``BOX_CAPS`` gives
 (cap 0: one level a launch), the ways in turn three times, and prints
-the medians: the measurement behind ``BOX_HALO_CAP``.  ``sass`` builds
+the medians: the measurement behind ``BOX_HALO_CAP``.  ``forms`` times
+the à-trous adjoints K14 and K2/K2b (bf16 and float weights, K1b's, on
+``_spatial_runner``'s planes) at each radius of ``FORMS_RADII`` and each
+level of ``FORMS_LEVELS`` in both forms, staged (where its tile fits a
+block) and with the centres read through the caches, by device time a
+call, the forms in turn ``FORMS_ROUNDS`` times, and prints the medians
+beside the staged tile's size and the form ``utils.tiling.adjoint_staged``
+picks: the measurement behind the adjoints' staging budgets.  ``sass`` builds
 the kernels, disassembles the library with ``cuobjdump -sass`` and
 prints, for each kernel whose mangled name matches ``--match`` (default:
 the bf16 forms of K1b and K14), its instruction count by class (MUFU,
@@ -75,11 +83,16 @@ from ..io.generate import orbit_camera
 from ..models.pipeline import (FramePipeline, init_train_state,
                                make_train_step)
 from ..ops import filters_cuda, raymarch
-from ..ops.atrous_cuda import svgf_spatial_ad_cuda
+from ..ops.atrous import sigma_denominator
+from ..ops.atrous_cuda import (atrous_level_bwd_cuda,
+                               atrous_level_bwd_stored_cuda,
+                               atrous_level_fwd_cuda, svgf_spatial_ad_cuda)
+from ..ops.common import finite_diff_gradients
 from ..ops.cuda import _build
 from ..ops.temporal import history_from_stack, history_stack
 from ..ops.temporal_cuda import (clamped_gather_bwd_cuda, clamped_gather_cuda,
                                  history_stack_channel_minor_cuda)
+from . import tiling
 from .seeded_inputs import clamped_inputs, served_clamped_inputs
 from .timing import device_ms_by_kernel, nvidia_smi_name_power, trace
 
@@ -125,17 +138,22 @@ SPATIAL_MODES = {"stored": dict(bwd_impl="stored"),
                  "weight_grads": dict(weight_grads=True)}
 
 
-def _spatial_runner(H, W, dev, mode, radius):
-    """The 5-level sweep forward and backward, exact weights, on seeded
-    planes (colour, variance, and with ``weight_grads`` normal and depth
-    differentiated)."""
+def _spatial_planes(H, W, dev):
+    """Seeded colour, variance, normal and depth."""
     g = torch.Generator(dev).manual_seed(9)
     normal = torch.nn.functional.normalize(
         torch.randn((3, H, W), generator=g, device=dev)
         + torch.tensor([0.0, 0.0, 3.0], device=dev)[:, None, None], dim=0)
-    planes = (torch.rand((3, H, W), generator=g, device=dev),
-              0.02 * torch.rand((H, W), generator=g, device=dev), normal,
-              0.3 + 0.5 * torch.rand((H, W), generator=g, device=dev))
+    return (torch.rand((3, H, W), generator=g, device=dev),
+            0.02 * torch.rand((H, W), generator=g, device=dev), normal,
+            0.3 + 0.5 * torch.rand((H, W), generator=g, device=dev))
+
+
+def _spatial_runner(H, W, dev, mode, radius):
+    """The 5-level sweep forward and backward, exact weights, on seeded
+    planes (colour, variance, and with ``weight_grads`` normal and depth
+    differentiated)."""
+    planes = _spatial_planes(H, W, dev)
     kw = SPATIAL_MODES[mode]
     diff = 4 if kw.get("weight_grads") else 2
     params = SVGFParams(iterations=5, radius=radius)
@@ -245,6 +263,66 @@ def _box(H, W, dev, calls):
                   for g, cap in ways.items()), flush=True)
 
 
+# forms: the adjoints' radii and levels timed in both forms, and rounds
+FORMS_RADII = (1, 2, 3, 4, 5, 8)
+FORMS_LEVELS = tuple(range(8))
+FORMS_ROUNDS = 3
+
+
+def _device_ms(fn, calls, tries=3):
+    """Device ms a call of ``fn`` (``device_ms_by_kernel`` summed); a
+    profiler session that caught no kernel is run again."""
+    for _ in range(tries):
+        ms = sum(device_ms_by_kernel(fn, calls).values())
+        if ms > 0.0:
+            return ms
+    raise RuntimeError("the profiler caught no kernel")
+
+
+def _forms(H, W, dev, calls):
+    c, v, n, z = _spatial_planes(H, W, dev)
+    g = torch.Generator(dev).manual_seed(10)
+    gc = torch.randn((3, H, W), generator=g, device=dev)
+    gv = torch.randn((H, W), generator=g, device=dev)
+    zg = finite_diff_gradients(z)
+    for r in FORMS_RADII:
+        params = SVGFParams(radius=r)
+        sd = sigma_denominator(v, params)
+        for lvl in FORMS_LEVELS:
+            _, _, norm, w = atrous_level_fwd_cuda(
+                c, v, n, z, zg, sd, level=lvl, params=params,
+                save_weights=True)
+            wb = w.to(torch.bfloat16)
+            launches = {
+                "K14": lambda st: atrous_level_bwd_cuda(
+                    c, n, z, zg, sd, norm, gc, gv, level=lvl, params=params,
+                    staged=st),
+                "K2": lambda st: atrous_level_bwd_stored_cuda(
+                    wb, norm, gc, gv, level=lvl, radius=r, staged=st),
+                "K2b": lambda st: atrous_level_bwd_stored_cuda(
+                    w, norm, gc, gv, level=lvl, radius=r, staged=st)}
+            for kn, f in launches.items():
+                key = "K14" if kn == "K14" else "K2"
+                rows, cols = tiling.staged_tile(r, lvl)
+                nbytes = rows * cols * tiling.STAGED_PIXEL_BYTES[key]
+                forms = ((True, False) if r and nbytes
+                         <= tiling.SMEM_PER_BLOCK else (False,))
+                ms = {st: [] for st in forms}
+                for _ in range(FORMS_ROUNDS):
+                    for st in forms:
+                        ms[st].append(_device_ms(lambda st=st: f(st), calls))
+                med = {st: float(np.median(t)) for st, t in ms.items()}
+                default = tiling.adjoint_staged(key, r, lvl)
+                print(f"{kn} r{r} l{lvl}: staged tile {nbytes / 1024:.1f} "
+                      f"KB, picks {'staged' if default else 'the caches'}; "
+                      f"device ms a call (median of {FORMS_ROUNDS}): "
+                      + (f"staged {med[True]:.4f}, " if True in med else "")
+                      + f"through the caches {med[False]:.4f}"
+                      + (f", ratio {med[True] / med[False]:.3f}"
+                         if True in med else ""), flush=True)
+            del w, wb, norm
+
+
 # SASS opcodes by class (the base opcode, before its first dot)
 SASS_CLASSES = (
     ("MUFU", ("MUFU",)),
@@ -326,7 +404,7 @@ def sass_lines(match: str = BF16_FORMS, lib: Path = None):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("path", choices=("train", "serve", "spatial", "clamped",
-                                     "temporal", "box", "sass"))
+                                     "temporal", "box", "forms", "sass"))
     ap.add_argument("--match", default=BF16_FORMS,
                     help="sass: the kernels' mangled names to count")
     ap.add_argument("--mode", choices=tuple(SPATIAL_MODES),
@@ -348,7 +426,7 @@ def main(argv=None) -> int:
         for line in sass_lines(args.match):
             print(line, flush=True)
         return 0
-    if args.trace and args.path in ("clamped", "box", "sass"):
+    if args.trace and args.path in ("clamped", "box", "forms", "sass"):
         ap.error(f"--trace: {args.path} times its kernels under a profiler "
                  f"of its own")
     if not torch.cuda.is_available():
@@ -356,13 +434,11 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device("cuda")
     H, W = 1080, 1920
-    if args.path in ("clamped", "box"):
+    if args.path in ("clamped", "box", "forms"):
         print(nvidia_smi_name_power())
         with torch.no_grad():
-            if args.path == "clamped":
-                _clamped(H, W, dev, args.steps)
-            else:
-                _box(H, W, dev, args.steps)
+            {"clamped": _clamped, "box": _box, "forms": _forms}[args.path](
+                H, W, dev, args.steps)
         return 0
     if args.path == "spatial":
         run = _spatial_runner(H, W, dev, args.mode, args.radius)

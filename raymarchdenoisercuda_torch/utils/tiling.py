@@ -13,6 +13,12 @@ functions; the memory budgets are the port's own.
   ``8 + 2r`` lattice rows by ``64 + 2r·min(s, 64)`` columns (``Lattice``
   and ``lattice_entries`` in ``ops/cuda/atrous_common.cuh``), times the
   bytes it keeps a pixel (:data:`STAGED_PIXEL_BYTES`).
+* :func:`adjoint_staged`: which form the adjoints K14 and K2/K2b
+  (``ops/cuda/atrous.cu``) take at a radius and level: staged on the same
+  row-lattice tile over the output region while the tile fits the budget
+  :data:`ADJOINT_STAGING` gives its spacing, else the centres read through
+  the caches, as at radius 0 (``utils/profile.py forms`` measured both
+  forms at radius 1-8, levels 0-7).
 * :func:`halo_budget`: the bytes a rank receives in the sharded sweep's
   halo exchange (``parallel/halo.py``: rows, then columns of the row-
   extended tile, so the corners come along) for a level's reach r·2^level.
@@ -41,12 +47,24 @@ TILE_COLS = 64
 TILE_ROWS = 8
 # bytes a block stages a pixel: K1/K1b (colour and variance, luminance,
 # normal and depth), K1 with luminance-only weights, K14 (normal and
-# depth, u and u2, luminance, sigma, depth gradient), and the bf16 forms
-# (nine and twelve bf16 planes)
-STAGED_PIXEL_BYTES = {"K1": 36, "K1 luma-only": 20, "K14": 48,
+# depth, u and u2, luminance, sigma, depth gradient), K2/K2b (u and u2, N)
+# and the bf16 forms (nine and twelve bf16 planes)
+STAGED_PIXEL_BYTES = {"K1": 36, "K1 luma-only": 20, "K14": 48, "K2": 20,
                       "K1b bf16": 18, "K14 bf16": 24}
 # the shared memory a block may use on an H100 (227 KB)
 SMEM_PER_BLOCK = 232448
+# the adjoints' default staging budgets, (spacing up to, largest staged
+# tile) in order of spacing; past the last spacing they read through the
+# caches.  Measured at 1080p (utils/profile.py forms): K14 (one block of
+# 512 threads an SM still wins up to spacing 16) won everywhere it fits
+# up to spacing 16, at 32 up to 108 KB and lost at 168 KB, at 64 always
+# lost; K2/K2b (its weights stream from device memory: it needs the warps
+# of four blocks an SM) won up to 52 KB and lost from 60 KB up to spacing
+# 16, at 32 won at 25 KB and lost from 45 KB, at 64 always lost.  A wide
+# spacing leaves a lattice residue's last row group part empty while each
+# block stages its whole halo.
+ADJOINT_STAGING = {"K14": ((16, SMEM_PER_BLOCK), (32, 110 * 1024)),
+                   "K2": ((16, 56 * 1024), (32, 40 * 1024))}
 # K12's rolling-row tile (KR_TX, KR_TY, KR_PX and KR_SEG of filters.cu):
 # threads a block across and down, pixels a thread one above the other,
 # and the taps' columns a segment of the chunked form stages
@@ -106,6 +124,32 @@ def smem_budget(radius: int, levels: int,
             staged_rows=rows, staged_cols=cols,
             smem_bytes=rows * cols * px, halo_bytes=0))
     return out
+
+
+def adjoint_staged(kernel: str, radius: int, level: int,
+                   staged=None) -> bool:
+    """Whether the adjoint ``kernel`` ("K14", or "K2" for K2/K2b) runs its
+    staged form at ``radius`` and ``level``.  ``staged`` None: while the
+    staged tile fits the budget :data:`ADJOINT_STAGING` gives the level's
+    spacing; True: the staged form (ValueError at radius 0 or past
+    :data:`SMEM_PER_BLOCK`); False: the centres through the caches."""
+    if staged is False:
+        return False
+    if radius == 0:
+        if staged:
+            raise ValueError("radius 0 has no staged form")
+        return False
+    rows, cols = staged_tile(radius, level)
+    nbytes = rows * cols * STAGED_PIXEL_BYTES[kernel]
+    if staged is None:
+        budget = next((b for s, b in ADJOINT_STAGING[kernel]
+                       if spacing(level) <= s), 0)
+        return nbytes <= budget
+    if nbytes > SMEM_PER_BLOCK:
+        raise ValueError(f"{kernel} r{radius} l{level}: a staged tile of "
+                         f"{nbytes} B is past the {SMEM_PER_BLOCK} B a "
+                         f"block can have")
+    return True
 
 
 def halo_budget(tile_h: int, tile_w: int, radius: int, levels: int,
@@ -186,6 +230,18 @@ def print_wide_forms(width: int = 1920, height: int = 1080) -> None:
         print(f"K5/K6 scatter workspace {name}: {4 * n / 2**20:.2f} MiB")
 
 
+def print_adjoint_forms(radii=(1, 2, 3, 4, 5, 8), levels: int = 8) -> None:
+    """The form K14 and K2/K2b take at each radius and level by default
+    (:func:`adjoint_staged`): S staged, C the centres through the
+    caches."""
+    for kernel in ("K14", "K2"):
+        for r in radii:
+            forms = " ".join("S" if adjoint_staged(kernel, r, lvl) else "C"
+                             for lvl in range(levels))
+            print(f"{kernel} r{r} levels 0-{levels - 1}: {forms}")
+
+
 if __name__ == "__main__":
     print_model()
     print_wide_forms()
+    print_adjoint_forms()

@@ -16,7 +16,10 @@ by parsing the source, and the wrappers' choice is checked on CPU scenes.
 """
 
 import ctypes
+import importlib.util
+import itertools
 import re
+from pathlib import Path
 
 import pytest
 
@@ -72,7 +75,8 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
 # seed's camera route (its scratch and key); and the clamped gather's and
 # its adjoint's stack layout (texel stride); the bf16 level forward's
 # σ-denominator output (its fused form); the gather adjoint's workspace
-# and its size (the scatter route past max_motion 59)
+# and its size (the scatter route past max_motion 59); the à-trous
+# adjoints' form (K14 and K2/K2b staged or through the caches)
 @pytest.mark.parametrize("name,index,ctype", [
     ("rdt_shadow_shade", 13, ctypes.c_int),
     ("rdt_march", 9, ctypes.c_int),
@@ -88,16 +92,93 @@ ptxas info    : Used 64 registers, 460 bytes cmem[0]
     ("rdt_clamped_gather_bwd", 10, ctypes.c_int),
     ("rdt_atrous_level_bf16", 6, ctypes.c_void_p),
     ("rdt_gather_bwd", 11, ctypes.c_void_p),
-    ("rdt_gather_bwd", 12, ctypes.c_int)],
+    ("rdt_gather_bwd", 12, ctypes.c_int),
+    ("rdt_atrous_bwd", 13, ctypes.c_int),
+    ("rdt_atrous_bwd_stored", 12, ctypes.c_int)],
     ids=["shade scene_key", "march scene_key", "shadow scene_key",
          "cone delta", "cone base", "cone scene_key", "cone camera scratch",
          "cone camera scene_key", "gather_bwd scratch", "gather_bwd P",
          "clamped gather layout", "clamped gather_bwd layout",
          "bf16 level sden_out", "gather_bwd workspace",
-         "gather_bwd workspace ints"])
+         "gather_bwd workspace ints", "atrous_bwd staged",
+         "atrous_bwd_stored staged"])
 def test_added_arguments_are_declared(name, index, ctype):
     assert _build.SIGNATURES[name][index] is ctype
     assert _exports()[name][index] is ctype
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the repository root, imported by its path."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _adjoint_name(kernel, R, staged, tile):
+    """The mangled name nvcc gives an instantiation of K14
+    (atrous_bwd_kernel<R, STAGED, TILE>) or K2/K2b
+    (atrous_bwd_stored[_staged]_kernel<WT, R, TILE>) in atrous.cu's
+    anonymous namespace."""
+    r = f"n{-R}" if R < 0 else str(R)
+    if kernel == "K14":
+        return (f"_ZN12_GLOBAL__N_117atrous_bwd_kernelILi{r}ELb{int(staged)}"
+                f"ELb{int(tile)}EEEvPKfS2_S2_S2_S2_S2_S2_S2_PfS3_"
+                f"12AtrousParams10AtrousTileS2_")
+    wt = "13__nv_bfloat16" if kernel == "K2" else "f"
+    body = "31atrous_bwd_stored_staged" if staged else "24atrous_bwd_stored"
+    return (f"_ZN12_GLOBAL__N_1{body}_kernelI{wt}Li{r}ELb{int(tile)}EEEvPKT_"
+            f"PKfS6_S6_PfS7_iiii10AtrousTile")
+
+
+def _ptxas_report(entries):
+    """ptxas -v's report of ``{name: (registers, stack, spill stores,
+    spill loads)}``."""
+    lines = []
+    for name, (regs, stack, st, ld) in entries.items():
+        lines += [f"ptxas info    : Compiling entry function '{name}' for "
+                  f"'sm_90a'",
+                  f"ptxas info    : Function properties for {name}",
+                  f"    {stack} bytes stack frame, {st} bytes spill stores, "
+                  f"{ld} bytes spill loads",
+                  f"ptxas info    : Used {regs} registers, 460 bytes cmem[0]"]
+    return "\n".join(lines) + "\n"
+
+
+def test_phase2_sees_the_adjoints_instantiations():
+    """chip_smoke.py's phase 2 reads K14's and K2/K2b's instantiations from
+    ptxas's report by their mangled names: the staged forms past radius 2
+    (K14 at 3, 4 and any radius, K2/K2b at 3 and any radius) among them.
+    A report that lacks one fails; local memory in any of them is
+    returned for phase 2 to fail on."""
+    smoke = _chip_smoke()
+    entries = {}
+    for kernel, forms in smoke.ADJOINT_FORMS.items():
+        for (R, staged), tile in itertools.product(sorted(forms),
+                                                   (False, True)):
+            name = _adjoint_name(kernel, R, staged, tile)
+            assert smoke.adjoint_instantiation(name) == (kernel, R, staged,
+                                                         tile)
+            entries[name] = (56, 0, 0, 0)
+    assert (3, True) in smoke.ADJOINT_FORMS["K14"]
+    assert (4, True) in smoke.ADJOINT_FORMS["K14"]
+    assert (-1, True) in smoke.ADJOINT_FORMS["K2b"]
+    report = _build.parse_resources(_ptxas_report(entries))
+    assert report == entries
+    assert smoke.adjoint_resources(report) == []
+    spilled = dict(report)
+    spilled[_adjoint_name("K14", 3, True, False)] = (64, 8, 8, 8)
+    spilled[_adjoint_name("K2", -1, True, True)] = (40, 16, 0, 0)
+    assert sorted(smoke.adjoint_resources(spilled)) == [
+        "K14 r3 staged", "K2 any r staged tile"]
+    missing = dict(report)
+    del missing[_adjoint_name("K2b", 3, True, False)]
+    with pytest.raises(AssertionError, match="K2b instantiations"):
+        smoke.adjoint_resources(missing)
+    assert smoke.adjoint_instantiation(
+        "_ZN12_GLOBAL__N_122atrous_bwd_bf16_kernelILi3ELb1ELb0EEEvPKf") \
+        is None
 
 
 def _switch_cases(macro):

@@ -54,7 +54,11 @@ kernel path against plain path (phase 9's): ``stored`` atol 3e-3·max,
 
 K14 at every radius and level, whole frame and 2x2 tiles, as K1/K1b:
 atol 1e-5·max against the twin, the tiles' margin gradients summed against
-the whole frame at rtol 1e-5.  K8 in each of its instantiations (the
+the whole frame at rtol 1e-5; K14 and K2/K2b at radius 0-5 (past 2 the
+staged one-output form and K2's staged kernel at any radius), and their
+staged form ``torch.equal`` to the cache-read form at radius 1, 2, 3 and
+8, level 4 (radius 3 near the default staging budget, 8 past it).  K8 in
+each of its instantiations (the
 Cornell box, ``random_scene``, and a scene of other counts: the runtime-
 count one) at K7/K8's tolerance, its window bit-equal to the whole frame's
 crop.  KGb run 20 times: every history gradient within one float32 ulp
@@ -137,6 +141,7 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     temporal_accumulate_cuda)
 from raymarchdenoisercuda_torch.parallel import sharded
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
+from raymarchdenoisercuda_torch.utils import tiling
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
     gather_inputs, ordered_texel_sums, sink_motion, sink_texels)
 
@@ -146,6 +151,9 @@ H, W = 135, 240
 # every radius the level kernels take: 1 and 2 ride in the parameter
 # struct, 0 has one tap, 3 runs the WIDE instantiation (taps in memory)
 RADII = [0, 1, 2, 3]
+# the adjoints K14 and K2/K2b: their taps in memory past 2, radius 3 and 4
+# compiled (K14) or 3 (K2), 5 the runtime radius
+ADJOINT_RADII = [0, 1, 2, 3, 4, 5]
 
 
 @pytest.fixture
@@ -1869,7 +1877,7 @@ def test_clamped_gather_adjoint_is_repeatable(dev, layout):
         assert torch.equal(d_motion, first[1]), run
 
 
-@pytest.mark.parametrize("radius", RADII)
+@pytest.mark.parametrize("radius", ADJOINT_RADII)
 @pytest.mark.parametrize("shape", LEVEL_SHAPES, ids=["37x53", "20x20"])
 def test_k14_every_level_whole_and_tiles(dev, shape, radius):
     """K14 at levels 0-4 against its plain twin (atol 1e-5·max), whole
@@ -1886,6 +1894,69 @@ def test_k14_radius2_wide_spacing(dev, level):
     staged tile) and 64 (the centres read through the caches), as
     ``test_k14_every_level_whole_and_tiles``."""
     _check_k14_levels(dev, (150, 170), 2, (level,))
+
+
+@pytest.mark.parametrize("tiled", [False, True], ids=["whole", "tile"])
+@pytest.mark.parametrize("kernel", ["K14", "K2", "K2b"])
+@pytest.mark.parametrize("radius", [1, 2, 3, 8])
+def test_adjoint_staged_equals_cache_read(dev, radius, kernel, tiled):
+    """K14 and K2/K2b at level 4 on a 150x170 frame: at radius 1 and 2
+    (the cache-read form of a compiled radius, which the default takes
+    past level 4 or 5), at radius 3, whose staged tile is near K2's default
+    budget (44 KB of 56), and at radius 8, past both kernels' (the default
+    then reads the centres through the caches), the staged
+    form ``torch.equal`` to the cache-read form, whole frame and tile
+    form (a quarter tile, its margin gradients); the default's form
+    counted on the wrapper's ``.wide`` only where it is the staged one
+    past radius 2, and a staged tile past a block's shared memory (K14 at
+    radius 8) refused."""
+    shape, level = (150, 170), 4
+    color, var, normal, depth = _planes(dev, 150 + radius, *shape)
+    zg = finite_diff_gradients(depth)
+    params = SVGFParams(radius=radius)
+    sd = atrous.sigma_denominator(var, params)
+    g = torch.Generator(dev).manual_seed(40 + radius)
+    gc = torch.randn((3, *shape), generator=g, device=dev)
+    gv = torch.randn(shape, generator=g, device=dev)
+    h = radius << level if tiled else 0
+    if kernel == "K14":
+        norm = atrous_level_fwd_cuda(color, var, normal, depth, zg, sd,
+                                     level=level, params=params)[2]
+        wrapper = atrous_level_bwd_cuda
+        args, kw = (color, normal, depth, zg, sd, norm, gc, gv), dict(
+            level=level, params=params)
+        if tiled:
+            tile, th, tw = next(_quarter_tiles(shape))
+            args = tuple(frame_canvas(x, tile, th, tw, h)
+                         for x in (color, normal, depth)) + tuple(
+                x[..., :th, :tw].contiguous()
+                for x in (zg, sd, norm, gc, gv))
+            kw.update(tile=tile, out_halo=h)
+    else:
+        wrapper = (atrous_level_bwd_stored_cuda if kernel == "K2"
+                   else atrous_level_bwd_stored_f32_cuda)
+        dtype = torch.bfloat16 if kernel == "K2" else torch.float32
+        w = torch.rand(((2 * radius + 1) ** 2, *shape), generator=g,
+                       device=dev).to(dtype)
+        norm = 0.2 + 2.0 * torch.rand(shape, generator=g, device=dev)
+        args = (w, norm, gc, gv)
+        kw = dict(level=level, radius=radius, out_halo=h)
+    key = "K14" if kernel == "K14" else "K2"
+    default = tiling.adjoint_staged(key, radius, level)
+    assert default == (radius <= 3)
+    cached = wrapper(*args, staged=False, **kw)
+    before = wrapper.wide.launches
+    got = wrapper(*args, **kw)
+    assert wrapper.wide.launches == before + int(radius == 3)
+    for a, b in zip(got, cached):
+        assert torch.equal(a, b)
+    rows, cols = tiling.staged_tile(radius, level)
+    if rows * cols * tiling.STAGED_PIXEL_BYTES[key] > tiling.SMEM_PER_BLOCK:
+        with pytest.raises(ValueError, match="past the"):
+            wrapper(*args, staged=True, **kw)
+        return
+    for a, b in zip(wrapper(*args, staged=True, **kw), cached):
+        assert torch.equal(a, b)
 
 
 def _check_k14_levels(dev, shape, radius, levels):
@@ -2044,7 +2115,7 @@ def test_k7_other_counts_run_the_runtime_instantiation(dev):
 @pytest.mark.parametrize("tiled", [False, True], ids=["whole", "tile"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["K2", "K2b"])
-@pytest.mark.parametrize("radius", RADII)
+@pytest.mark.parametrize("radius", ADJOINT_RADII)
 def test_k2_bit_equal_to_twin(dev, radius, dtype, tiled):
     """K2 (bf16 weights) and K2b (float weights) at every level 0-4, on
     a frame that is no multiple of the row-lattice tile and on one whose

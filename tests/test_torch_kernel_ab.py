@@ -59,12 +59,14 @@ def inputs():
 
 # (name pattern, expected number of cases, output shapes of the first)
 FAMILIES = {
-    "K14": (r"^K14 ", 20, [(3, *FRAME), FRAME]),
-    "K14 tile": (r"^tile K14 ", 4, [(3, 28, 44), (28, 44)]),
+    # K14 and K2/K2b at radius 0-5 and 8, levels 0-4; their tile forms at
+    # radius 1-3 (K14) and 1 and 3 (K2/K2b), levels 1 and 4
+    "K14": (r"^K14 ", 35, [(3, *FRAME), FRAME]),
+    "K14 tile": (r"^tile K14 ", 6, [(3, 28, 44), (28, 44)]),
     "K8": (r"^K8 ", 15, [(3, *FRAME), FRAME, (2, *FRAME)]),
     "K7": (r"^K7 ", 18, [FRAME, FRAME, FRAME, (3, *FRAME)]),
-    "K2": (r"^K2b? r", 40, [(3, *FRAME), FRAME]),
-    "K2 tile": (r"^tile K2b? ", 4, [(3, 28, 44), (28, 44)]),
+    "K2": (r"^K2b? r", 70, [(3, *FRAME), FRAME]),
+    "K2 tile": (r"^tile K2b? ", 8, [(3, 28, 44), (28, 44)]),
     "KG": (r"^KG ", 13, [(10, *FRAME)]),
     "KGb": (r"^KGb ", 36, [(10, *FRAME), (2, *FRAME)]),
     "K13": (r"^K13 ", 6, [FRAME]),

@@ -74,12 +74,43 @@ def test_smem_budget_is_the_lattice_tile(kernel, radius):
 
 
 def test_smem_budget_marks_the_kernels_staging_limits():
-    """K14 stages radius 2 up to spacing 32 (K14_MAX_STAGED, 110 KB); the
+    """K14 stages radius 2 up to spacing 32 (110 KB); the
     bf16 forms stage radius 3 at every spacing (under 200 KB)."""
     k14 = tiling.smem_budget(2, 7, "K14")
     assert k14[5].smem_bytes <= 110 * 1024 < k14[6].smem_bytes
     for kernel in ("K1b bf16", "K14 bf16"):
         assert tiling.smem_budget(3, 8, kernel)[-1].smem_bytes <= 200 * 1024
+
+
+# the last level (spacing 2^level) at which each adjoint stages its tile
+# by default (K14: a block's 227 KB up to spacing 16, 110 KB at 32; K2/K2b:
+# 56 KB up to 16, 40 KB at 32), levels 0-7; None: none
+@pytest.mark.parametrize("kernel,radius,last", [
+    ("K14", 0, None), ("K14", 1, 5), ("K14", 2, 5), ("K14", 3, 4),
+    ("K14", 4, 4), ("K14", 5, 4), ("K14", 8, 3),
+    ("K2", 0, None), ("K2", 1, 5), ("K2", 2, 4), ("K2", 3, 4),
+    ("K2", 4, 3), ("K2", 5, 3), ("K2", 8, 1)])
+def test_adjoint_forms_follow_the_staging_budget(kernel, radius, last):
+    """K14 and K2/K2b stage within their budgets (the forms atrous.cu's
+    header lists), never at radius 0 or past spacing 32; asked to stage,
+    they refuse radius 0 and a tile past a block's shared memory."""
+    for level in range(8):
+        want = last is not None and level <= last
+        assert tiling.adjoint_staged(kernel, radius, level) is want
+        assert tiling.adjoint_staged(kernel, radius, level, False) is False
+        rows, cols = tiling.staged_tile(radius, level)
+        nbytes = rows * cols * tiling.STAGED_PIXEL_BYTES[kernel]
+        if radius and nbytes <= tiling.SMEM_PER_BLOCK:
+            assert tiling.adjoint_staged(kernel, radius, level, True)
+        else:
+            with pytest.raises(ValueError):
+                tiling.adjoint_staged(kernel, radius, level, True)
+
+
+def test_print_adjoint_forms(capsys):
+    tiling.print_adjoint_forms(radii=(3,), levels=6)
+    assert capsys.readouterr().out.splitlines() == [
+        "K14 r3 levels 0-5: S S S S S C", "K2 r3 levels 0-5: S S S S S C"]
 
 
 def test_print_model_prints_the_ports_numbers(capsys):
