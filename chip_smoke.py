@@ -12,11 +12,11 @@ the script exits non-zero without printing a result):
    and spills of the à-trous level forward's instantiations (K1/K1b, each
    radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's
    (both routes, and the camera route's first launch), K10's and K11's
-   (r 0-4 and the generic radius), K12's staged form (r <= 4), KG's,
+   2-D bodies (r 0-4), K12's staged form (r <= 4), KG's,
    KGb's (and its rounding pass), KGp's, K4/K4c's and K5/K6's (K5c/K6c;
    6 and 10 gradient planes, and past max_motion 59 the bucketed
    scatter's code-and-count, scan, placement, sort and gather kernels and
-   K5's motion term), K10's and K11's 1-D passes past r 16 and K12's
+   K5's motion term), K10's and K11's 1-D passes and K12's
    rolling-row tile past r 4 (its ring and its chunked form), and of K1b's
    and K14's bf16
    forms (each radius, staged or not, spacing 1 apart, K1b's with the
@@ -67,10 +67,12 @@ the script exits non-zero without printing a result):
    same motion beside them, K5c/K6c on a quarter tile's canvas, the
    scatter route at max_motion 6 bit-equal to the staged gather and both
    timed, K10, K11 and K12 at radius 17 and 24 and K10 and K11 at radius
-   90 (K10 and K11 as two 1-D passes a level, the gaussian taps in a
-   device array; K12's rolling-row tile), each against its twin, with
-   ``avg_pool2d`` beside K10 and the depthwise ``conv2d`` numerator
-   beside K11; K1b's and K14's bf16 forms
+   90 and at 17 with depth 2 (K10 and K11 as two 1-D passes a level, the
+   gaussian taps in a device array; K12's rolling-row tile), each against
+   its twin, with device time, ``avg_pool2d`` beside K10 and the
+   depthwise ``conv2d`` numerator beside K11, and K10 and K11 on both
+   routes (the 2-D body and the 1-D passes) at the radii around their
+   crossovers, device time in turns; K1b's and K14's bf16 forms
    (``precision="bf16"``; K1b's with the σ-denominator given, and fused,
    written and not, bit-equal to ``sigma_denominator``'s) at level 1, r1
    and r2, against their twins, timed by CUDA events and by device time
@@ -200,8 +202,8 @@ from raymarchdenoisercuda_torch.models.pipeline import (
     FramePipeline, init_train_state, make_train_step, render_and_denoise)
 from raymarchdenoisercuda_torch.models.svgf import svgf_denoise_frame
 from raymarchdenoisercuda_torch.ops import (atrous, atrous_cuda, boxfilter,
-                                            filters, raymarch, temporal,
-                                            temporal_cuda)
+                                            filters, filters_cuda, raymarch,
+                                            temporal, temporal_cuda)
 from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     atrous_level, atrous_level_bwd_cuda, atrous_level_bwd_stored_cuda,
     atrous_level_bwd_stored_f32_cuda, atrous_level_cuda,
@@ -211,8 +213,8 @@ from raymarchdenoisercuda_torch.ops.common import (
     Tile, finite_diff_gradients, frame_canvas)
 from raymarchdenoisercuda_torch.ops.cuda import _build
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
-    box_filter_cuda, box_level_groups, cross_bilateral_cuda,
-    gaussian_filter_cuda)
+    BOX_PASS_RADIUS, GAUSS_PASS_RADIUS, box_filter_cuda, box_level_groups,
+    cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     cone_launch, cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
     scene_key, shadow_factor_cuda, shadow_shade_cuda)
@@ -280,7 +282,11 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K6w": gather_bwd_hist_cuda.scatter,
             "K5cw": gather_canvas_bwd_cuda.scatter,
             "K6cw": gather_canvas_bwd_hist_cuda.scatter,
-            "K12w": cross_bilateral_cuda.rolling}
+            "K12w": cross_bilateral_cuda.rolling,
+            # K10 and K11 from r 5: the 1-D passes, counted on the
+            # wrappers' own counts too
+            "K10w": box_filter_cuda.passes,
+            "K11w": gaussian_filter_cuda.passes}
 PALLAS = "raymarchdenoisercuda_tpu/ops/pallas/"
 CUDA_SRC = "raymarchdenoisercuda_torch/ops/cuda/"
 KERNELS = {
@@ -357,6 +363,11 @@ KERNELS = {
     # past r 4: K12's rolling-row tile
     "K12w": ("cross_bilateral_rolling", CUDA_SRC + "filters.cu",
              PALLAS + "filters_tpu.py:135"),
+    # from r 5: K10's and K11's 1-D passes
+    "K10w": ("box_filter_passes", CUDA_SRC + "filters.cu",
+             PALLAS + "box_tpu.py:53"),
+    "K11w": ("gaussian_filter_passes", CUDA_SRC + "filters.cu",
+             PALLAS + "filters_tpu.py:41"),
     # past r 2: K14's staged one-output form, K2/K2b's staged kernel
     "K14w": ("atrous_bwd_recompute_wide", CUDA_SRC + "atrous.cu",
              PALLAS + "atrous_tpu.py:865"),
@@ -370,7 +381,7 @@ KERNELS = {
 # launches counts the entries without it
 FORM_OF = {"K1b-bf16-fused": "K1b-bf16", "K5w": "K5", "K6w": "K6",
            "K5cw": "K5c", "K6cw": "K6c", "K12w": "K12", "K14w": "K14",
-           "K2w": "K2", "K2bw": "K2b"}
+           "K2w": "K2", "K2bw": "K2b", "K10w": "K10", "K11w": "K11"}
 # per-tap float operations of K1's weight math and accumulation, of K2's
 # tap, of K14's (the recomputed weight and K2's sum), of K9's two passes
 # together and of K12's tap (weights, three colour products, the sums),
@@ -410,6 +421,10 @@ WIDE_REPORTED = (96, "wide")
 WIDE_CANVAS_MOTIONS = (60, 96)
 WIDE_RADII = (17, 24)
 WIDEST_RADIUS = 90                   # K10 and K11 only
+# the largest radius K10's and K11's 2-D bodies are compiled at, just
+# below the crossover, where both routes (the 2-D body and the 1-D passes)
+# run: timed in turns
+CROSSOVER_RADIUS = min(BOX_PASS_RADIUS, GAUSS_PASS_RADIUS) - 1
 # phase 3's adjoints past radius 2 (K2, K2b, K14): radii and levels held to
 # their twins, whole frame and tile; the case on the kernels line
 WIDE_ADJOINT_RADII = (3, 4, 5)
@@ -483,8 +498,8 @@ K15_MANGLED = re.compile(r"11cone_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)ELb"
 K15_DELTA_MANGLED = re.compile(r"17cone_delta_kernel")
 K12_MANGLED = re.compile(r"29cross_bilateral_staged_kernelILi(\d+)ELi(\d+)EE")
 # the box filter's, box_filter_kernel<R> (K10), and the gaussian's,
-# gaussian_filter_kernel<R> (K11); R = -1: the generic radius
-K10_MANGLED = re.compile(r"(17box_filter|22gaussian_filter)_kernelILi(n?\d+)EE")
+# gaussian_filter_kernel<R> (K11), R 0-4
+K10_MANGLED = re.compile(r"(17box_filter|22gaussian_filter)_kernelILi(\d+)EE")
 # the clamped gather's (KG, the 10 planes channel-minor), its adjoint's
 # (KGb) and the adjoint's rounding pass, and the channel-minor stack's
 # (KGp)
@@ -508,10 +523,16 @@ K5_SCATTER = {re.compile(r"20scatter_count_kernel"): "code and count",
               re.compile(r"19scatter_sort_kernel"): "sort"}
 K5_SCATTER_GATHER = re.compile(r"21scatter_gather_kernelILi(\d+)EE")
 K5_MOTION = re.compile(r"18motion_term_kernelILb([01])EE")
-# K10's and K11's 1-D passes past r 16, sep_pass_kernel<GAUSS, ALONG_Y>,
-# and K12's rolling-row tile past r 4, cross_bilateral_rolling_kernel<ROLL>
-# (ROLL: the ring; else chunked)
-K1011_PASS = re.compile(r"15sep_pass_kernelILb([01])ELb([01])EE")
+# K10's and K11's 1-D passes (from BOX_PASS_RADIUS and GAUSS_PASS_RADIUS,
+# and past r 16), pass_y_kernel<GAUSS> and pass_x_kernel<GAUSS>, and K12's
+# rolling-row tile past r 4, cross_bilateral_rolling_kernel<ROLL> (ROLL:
+# the ring; else chunked)
+K1011_PASS = re.compile(r"13pass_([xy])_kernelILb([01])EE")
+
+
+def pass_form(m):
+    """The K10/K11 pass a K1011_PASS match names."""
+    return f"{'K11' if m.group(2) == '1' else 'K10'} pass along {m.group(1)}"
 K12_ROLLING = re.compile(r"30cross_bilateral_rolling_kernelILb([01])EE")
 # the bf16 forms: level_bf16_kernel<R, STAGED, STORE, FUSED, S1> (K1b-bf16;
 # FUSED: the σ-denominator fused; S1: spacing 1) and
@@ -628,8 +649,8 @@ def report_resources():
     report); raise if K2/K2b or K14 in any form, or one of K1/K1b (or a
     bf16 form) at a compiled radius, K9 at r <= 1, K7, K8, K13 or K15 on a
     compiled scene,
-    K3/K3b, K15's first camera launch, K10 or K11 at a compiled radius or
-    in a 1-D pass, a K12 form, a KG, KGb or KGp kernel or a K4-K6 kernel
+    K3/K3b, K15's first camera launch, K10 or K11 (a 2-D body or a 1-D
+    pass), a K12 form, a KG, KGb or KGp kernel or a K4-K6 kernel
     uses local memory, or if K3/K3b, a compiled K13 or K15, a K10 or K11,
     a K12 form, a KG, KGb or KGp kernel, a K4-K6 instantiation or a bf16
     form is missing from the report."""
@@ -641,12 +662,11 @@ def report_resources():
         m = K10_MANGLED.search(name)
         if m:
             kernel = "K10" if m.group(1).startswith("17") else "K11"
-            R = int(m.group(2).replace("n", "-"))
-            phase(2, f"{kernel} {f'r{R}' if R >= 0 else 'r > 4'}: {res[0]} "
-                     f"registers, stack {res[1]} B, spills "
-                     f"{res[2] + res[3]} B")
+            R = int(m.group(2))
+            phase(2, f"{kernel} r{R}: {res[0]} registers, stack {res[1]} B, "
+                     f"spills {res[2] + res[3]} B")
             k1011.append((kernel, R))
-            if R >= 0 and (res[1] or res[2] or res[3]):
+            if res[1] or res[2] or res[3]:
                 local.append(f"{kernel} r{R}")
         m = (K4_MANGLED.search(name) or K5_MANGLED.search(name)
              or K5_SCATTER_GATHER.search(name) or K5_MOTION.search(name))
@@ -692,9 +712,7 @@ def report_resources():
                 local.append("K15 camera delta launch")
         m = K1011_PASS.search(name) or K12_ROLLING.search(name)
         if m:
-            form = (f"{'K11' if m.group(1) == '1' else 'K10'} pass along "
-                    f"{'y' if m.group(2) == '1' else 'x'}"
-                    if m.re is K1011_PASS else
+            form = (pass_form(m) if m.re is K1011_PASS else
                     "K12 r > 4 rolling " + ("ring" if m.group(1) == "1"
                                             else "chunked"))
             phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
@@ -786,7 +804,7 @@ def report_resources():
                              f"report, expected 2, 8 staged, 6 of the "
                              f"scatter, its gather at NP 6 and 10 and 2 "
                              f"motion terms")
-    want = sorted([(k, R) for k in ("K10", "K11") for R in range(-1, 5)]
+    want = sorted([(k, R) for k in ("K10", "K11") for R in range(5)]
                   + [f"K1{k} pass along {a}" for k in (0, 1) for a in "xy"]
                   + ["K12 r > 4 rolling ring",
                      "K12 r > 4 rolling chunked"], key=str)
@@ -1572,11 +1590,13 @@ def check_wide_forms(P, results):
     motion beside them, K5c/K6c on the canvas of the frame's lower right
     quarter tile, and the scatter route at phase 3's max_motion against the
     staged gather there (bit-equal, both timed); K10, K11 and K12 at radius
-    17 and 24 and K10 and K11 at radius 90 (K10 and K11 as a pass along y
-    and one along x a level, the taps of K11 and K12 in a device array;
-    K12 past r 4 the rolling-row tile), with ``avg_pool2d`` beside K10 and
-    the depthwise ``conv2d`` numerator beside K11; K10 and K11 bit-equal to
-    their twins, K12 atol 5e-5, K5/K6 rtol 1e-5, atol 1e-6 (the sink's
+    17 and 24 and K10 and K11 at radius 90 and at 17 with depth 2 (K10 and
+    K11 as a pass along y and one along x a level, the taps of K11 and K12
+    in a device array; K12 past r 4 the rolling-row tile), with device
+    time, ``avg_pool2d`` beside K10 and the depthwise ``conv2d`` numerator
+    beside K11, and both routes of K10 and K11 at r 4, below their
+    crossovers (:func:`check_filter_routes`); K10 and K11 bit-equal to their twins,
+    K12 atol 5e-5, K5/K6 rtol 1e-5, atol 1e-6 (the sink's
     four texels, which sum tens of thousands of addends that the twin adds
     in another order, bit for bit to the float32 sums in the kernels'
     order).  The bounds count the separable work:
@@ -1731,11 +1751,23 @@ def check_wide_forms(P, results):
     torch.backends.cudnn.allow_tf32 = False
     for r in WIDE_RADII + (WIDEST_RADIUS,):
         taps = 2 * r + 1
-        got = box_filter_cuda(x, radius=r)
-        want = boxfilter.box_filter(x, radius=r)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K10 r{r}: not its twin's floats (max "
-                                 f"|diff| {max_err(got, want):.3g})")
+        for depth in (1, 2) if r == WIDE_RADII[0] else (1,):
+            got = box_filter_cuda(x, radius=r, depth=depth)
+            want = boxfilter.box_filter(x, radius=r, depth=depth)
+            if depth == 1:
+                box_twin = want
+            if not torch.equal(got, want):
+                raise AssertionError(f"K10 r{r} d{depth}: not its twin's "
+                                     f"floats (max |diff| "
+                                     f"{max_err(got, want):.3g})")
+            got = gaussian_filter_cuda(x, radius=r, sigma=r / 2.0,
+                                       depth=depth)
+            want = filters.gaussian_filter(x, radius=r, sigma=r / 2.0,
+                                           depth=depth)
+            if not torch.equal(got, want):
+                raise AssertionError(f"K11 r{r} d{depth}: not its twin's "
+                                     f"floats (max |diff| "
+                                     f"{max_err(got, want):.3g})")
 
         def pool():
             return F.avg_pool2d(x[None], taps, stride=1, padding=r,
@@ -1744,36 +1776,50 @@ def check_wide_forms(P, results):
         if r in WIDE_RADII:
             # the same function (at r 90 its 32,761-term sums part from
             # the twin's two 1-D passes by more than this tolerance)
-            check_close(f"avg_pool2d r{r} vs K10's twin", pool(), want,
+            check_close(f"avg_pool2d r{r} vs K10's twin", pool(), box_twin,
                         atol=1e-6, rtol=1e-5)
         ms10 = cuda_time_ms(lambda: box_filter_cuda(x, radius=r), repeats=5)
+        dev10 = device_ms(lambda: box_filter_cuda(x, radius=r), 5)
         plain10 = cuda_time_ms(lambda: boxfilter.box_filter(x, radius=r),
                                repeats=2)
         lib10 = cuda_time_ms(pool, repeats=5)
         b10, by10 = bound(24 * HW, 3 * (2 * taps + 1) * HW)
-        got = gaussian_filter_cuda(x, radius=r, sigma=r / 2.0)
-        want = filters.gaussian_filter(x, radius=r, sigma=r / 2.0)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K11 r{r}: not its twin's floats (max "
-                                 f"|diff| {max_err(got, want):.3g})")
         ms11 = cuda_time_ms(lambda: gaussian_filter_cuda(
             x, radius=r, sigma=r / 2.0), repeats=5)
+        dev11 = device_ms(lambda: gaussian_filter_cuda(
+            x, radius=r, sigma=r / 2.0), 5)
         plain11 = cuda_time_ms(lambda: filters.gaussian_filter(
             x, radius=r, sigma=r / 2.0), repeats=2)
         gt = torch.tensor(filters._gauss_taps(r, r / 2.0), device=dev)
         w2 = (gt[:, None] * gt[None, :]).expand(3, 1, taps, taps).contiguous()
         try:
-            lib11 = cuda_time_ms(lambda: F.conv2d(x[None], w2, padding=r,
-                                                  groups=3), repeats=2)
-            lib11 = f"{lib11:.4f}"
+            lib11_ms = cuda_time_ms(lambda: F.conv2d(
+                x[None], w2, padding=r, groups=3), repeats=2)
+            lib11 = f"{lib11_ms:.4f}"
         except torch.OutOfMemoryError:
             torch.cuda.empty_cache()
-            lib11 = "not measured (out of memory)"
+            lib11_ms, lib11 = None, "not measured (out of memory)"
         b11, by11 = bound(24 * HW, 3 * (6 * taps + 2) * HW)
-        line = (f"r{r}: K10 {ms10:.4f} ms (bound {b10:.4f} {by10}, plain "
-                f"{plain10:.4f}, avg_pool2d {lib10:.4f}), K11 {ms11:.4f} ms "
-                f"(bound {b11:.4f} {by11}, plain {plain11:.4f}, depthwise "
-                f"conv2d numerator {lib11})")
+        if r == WIDE_RADII[0]:
+            results["K10w"] = dict(max_abs_err=0.0, ms=ms10,
+                                   plain_ms=plain10, library_ms=lib10,
+                                   bytes=24 * HW,
+                                   flops=3 * (2 * taps + 1) * HW)
+            results["K11w"] = dict(max_abs_err=0.0, ms=ms11,
+                                   plain_ms=plain11, library_ms=lib11_ms,
+                                   bytes=24 * HW,
+                                   flops=3 * (6 * taps + 2) * HW)
+        line = (f"r{r}: K10 {ms10:.4f} ms (device {dev10:.4f}, bound "
+                f"{b10:.4f} {by10}, plain {plain10:.4f}, avg_pool2d "
+                f"{lib10:.4f}), K11 {ms11:.4f} ms (device {dev11:.4f}, bound "
+                f"{b11:.4f} {by11}, plain {plain11:.4f}, depthwise conv2d "
+                f"numerator {lib11})")
+        if r == WIDE_RADII[0]:
+            d10 = device_ms(lambda: box_filter_cuda(x, radius=r, depth=2), 5)
+            d11 = device_ms(lambda: gaussian_filter_cuda(
+                x, radius=r, sigma=r / 2.0, depth=2), 5)
+            line += (f"; depth 2 (bit-equal to the twins): K10 device "
+                     f"{d10:.4f} ms, K11 device {d11:.4f}")
         if r in WIDE_RADII:
             p = FilterParams(type=FilterType.CROSS, radius=r)
             args = (x, albedo, P["normal"], P["depth"])
@@ -1796,9 +1842,54 @@ def check_wide_forms(P, results):
                                        flops=K12_TAP_FLOPS * taps * taps * HW)
         lines.append(line)
     torch.backends.cudnn.allow_tf32 = tf32
+    lines += check_filter_routes(x)
     phase(3, "wide K10/K11/K12 (K10 and K11 bit-equal to their twins as "
              "two 1-D passes a level past r 16, the taps in a device "
              "array; K12's rolling-row tile): ok; " + "; ".join(lines))
+
+
+def check_filter_routes(x):
+    """K10 and K11 on both routes, the 2-D body and the 1-D passes, at
+    ``CROSSOVER_RADIUS`` and depth 1 and 2, device time in turns (2-D,
+    passes, passes, 2-D): K11's routes bit-equal, K10's passes bit-equal
+    to its twin and its 2-D body within rtol 1e-5, atol 1e-6."""
+    lines = []
+    for r in (CROSSOVER_RADIUS,):
+        for depth in (1, 2):
+            def box(passes):
+                if passes:
+                    return filters_cuda._separable(x, r, depth, None,
+                                                   box_filter_cuda)
+                return filters_cuda._box_launches(
+                    x, r, box_level_groups(r, depth))
+
+            def gauss(passes):
+                if passes:
+                    return filters_cuda._gaussian_passes(x, r, r / 2.0,
+                                                         depth)
+                return filters_cuda._gaussian_launches(x, r, r / 2.0, depth)
+
+            if not torch.equal(box(True), boxfilter.box_filter(
+                    x, radius=r, depth=depth)):
+                raise AssertionError(f"K10 passes r{r} d{depth}: not its "
+                                     f"twin's floats")
+            check_close(f"K10 r{r} d{depth} 2-D body vs passes", box(False),
+                        box(True), atol=1e-6, rtol=1e-5)
+            if not torch.equal(gauss(False), gauss(True)):
+                raise AssertionError(f"K11 r{r} d{depth}: its routes' "
+                                     f"floats differ")
+            times = {}
+            for name, f in (("K10", box), ("K11", gauss)):
+                ms = {False: [], True: []}
+                for passes in (False, True, True, False):
+                    ms[passes].append(device_ms(lambda: f(passes), 10))
+                times[name] = ms
+            lines.append(f"routes r{r} d{depth} (device ms, 2-D / passes, "
+                         f"in turns): " + ", ".join(
+                             f"{k} {' '.join(f'{t:.4f}' for t in v[False])}"
+                             f" / {' '.join(f'{t:.4f}' for t in v[True])}"
+                             for k, v in times.items()))
+    return lines
 
 
 def sdf_flops(scene):

@@ -20,13 +20,14 @@
 // float4 windows of the staged rows, so a row's values, loaded once,
 // serve all of its taps.  Where a tile's outputs and their taps all lie
 // in the frame, the tap count or weight sum is the full one, computed
-// once.  The radius is a template parameter for r <= 4; a generic body
-// takes r up to 16.  Past r 16, K10 and K11 run as their twins do: two
-// 1-D passes (sep_pass_kernel), along y into a global intermediate and
-// along x from it, each tap read through the caches (O(r) work an output
-// where a staged tile would hold a halo of 2r rows); K12 reads its
-// gaussian taps from a device array there (the à-trous WIDE
-// instantiation's way), not from the launch's parameter struct.
+// once.  The radius is a template parameter, r 0-4 (kBodyRadius).  From
+// r 5 (BOX_PASS_RADIUS, GAUSS_PASS_RADIUS in utils/tiling.py), K10 and
+// K11 run as their twins do: two 1-D passes a level (pass_y_kernel into a
+// global intermediate, pass_x_kernel from it), O(r) work an output where
+// the 2-D body takes O(r^2), each thread sliding register windows over its
+// column or its staged row; K12 reads its gaussian taps from a device
+// array past r 16 (the à-trous WIDE instantiation's way), not from the
+// launch's parameter struct.
 //
 // * K10: all the levels of a launch in shared memory (ping-pong between
 //   two staged buffers), the halo r·levels; only the last level's tile is
@@ -84,18 +85,22 @@
 // (~35 instructions an output) do not overlap the staging fully; the
 // staged K12 is held by its instructions (~50 a tap
 // with --fmad=false) and its shared-memory reads (40 B a staged tap, 24 B
-// a pixel's tap at r2 with two pixels a thread).
+// a pixel's tap at r2 with two pixels a thread).  The 1-D passes are held
+// by their adds at large r (4r an output for K10, a product and a sum a
+// tap for K11, at the card's 33.5e12 a second: K10 r90 0.067 ms) and by
+// device memory at small r (each pass reads and writes 24 B a pixel).
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
-constexpr int kMaxTaps = 33;  // the taps a parameter struct holds: r <= 16
+constexpr int kMaxTaps = 33;  // the taps K12's parameter struct holds: r <= 16
+constexpr int kBodyRadius = 4;  // K10's and K11's 2-D bodies: r 0-4
 
 // Launch parameters, passed by pointer from ops/filters_cuda.py (ctypes).
 struct GaussParams {
     int C, H, W, radius;
-    float taps[kMaxTaps];       // _gauss_taps(radius, sigma), r <= 16
+    float taps[2 * kBodyRadius + 1];  // _gauss_taps(radius, sigma)
 };
 
 struct CrossParams {
@@ -582,21 +587,15 @@ __device__ __forceinline__ void window_quad(float4 q, int c, int span, F& f) {
 }
 
 // Feeds one staged row's window to KF_PX outputs along it: output k takes
-// the row's columns k + d, d = 0..2r in that order (r = R, or the runtime
-// radius when R < 0), through f(k, d, value).  `row` is 16-byte aligned;
-// the window's KF_PX + 2r floats are loaded once, as float4.
+// the row's columns k + d, d = 0..2R in that order, through f(k, d,
+// value).  `row` is 16-byte aligned; the window's KF_PX + 2R floats are
+// loaded once, as float4.
 template <int R, typename F>
-__device__ __forceinline__ void row_window(const float* row, int r, F&& f) {
+__device__ __forceinline__ void row_window(const float* row, F&& f) {
     const float4* q = reinterpret_cast<const float4*>(row);
-    if constexpr (R >= 0) {
 #pragma unroll
-        for (int c = 0; c < (KF_PX + 2 * R + 3) / 4; ++c) {
-            window_quad(q[c], c, 2 * R, f);
-        }
-    } else {
-        for (int c = 0; c < (KF_PX + 2 * r + 3) / 4; ++c) {
-            window_quad(q[c], c, 2 * r, f);
-        }
+    for (int c = 0; c < (KF_PX + 2 * R + 3) / 4; ++c) {
+        window_quad(q[c], c, 2 * R, f);
     }
 }
 
@@ -618,20 +617,20 @@ __device__ __forceinline__ void store_outputs(float* o, const float* res,
     }
 }
 
-// K10: `levels` levels of the (2r+1)^2 box average (r = R, or `radius`
-// when R < 0) on one plane's tile.  The block stages the tile and a halo
-// of h = r·levels (zeros beyond the frame) and runs the levels in shared
-// memory, ping-pong: level l over the tile grown by r·(levels - l), its
-// pixels beyond the frame stored as 0; the last level's tile goes to
-// `out`.  Each output adds its taps dy-major, dx-minor (a staged zero adds
-// +0.0 to a sum that starts at +0.0: the per-level kernel's sum of the
-// in-range taps, bit for bit) and divides by the in-range tap count.
+// K10: `levels` levels of the (2r+1)^2 box average (r = R) on one plane's
+// tile.  The block stages the tile and a halo of h = r·levels (zeros beyond
+// the frame) and runs the levels in shared memory, ping-pong: level l over the
+// tile grown by r·(levels - l), its pixels beyond the frame stored as 0; the
+// last level's tile goes to `out`.  Each output adds its taps dy-major,
+// dx-minor (a staged zero adds +0.0 to a sum that starts at +0.0: the
+// per-level kernel's sum of the in-range taps, bit for bit) and divides by the
+// in-range tap count.
 template <int R>
 __global__ void __launch_bounds__(K10_THREADS)
 box_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
-                  int H, int W, int radius, int levels, bool vec_out) {
+                  int H, int W, int levels, bool vec_out) {
     extern __shared__ float4 kf_smem[];
-    const int r = R >= 0 ? R : radius;
+    constexpr int r = R;
     const int h = r * levels;
     const int sw = staged_stride(KF_TW + 2 * h);
     float* src = reinterpret_cast<float*>(kf_smem);   // KF_TH + 2h rows
@@ -655,7 +654,7 @@ box_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
             for (int k = 0; k < KF_PX; ++k) acc[k] = 0.0f;
 #pragma unroll
             for (int dy = 0; dy <= 2 * r; ++dy) {
-                row_window<R>(src + (i + dy) * sw + c, r,
+                row_window<R>(src + (i + dy) * sw + c,
                               [&](int k, int, float v) { acc[k] = acc[k] + v; });
             }
             const int y = y0 - g + i, x = x0 - g + c;
@@ -702,51 +701,43 @@ box_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
     }
 }
 
-// K11: one iteration of the border-renormalised separable gaussian (r = R,
-// or p.radius when R < 0) on one plane's tile.  The block stages the tile
-// and an r-pixel halo (zeros beyond the frame), computes the pass along y
-// over the tile's width and its x-halo into shared memory (a column beyond
-// the frame holds 0), then the pass along x from there, and writes the
-// result once.  Each pass adds tap·value for k = 0..2r in order and divides
-// by the ordered sum of its in-range taps, as the row and column launches
-// did (a staged zero adds +0.0; the intermediate is rounded to float as
-// their global buffer was): bit for bit the same floats.
+// K11: one iteration of the border-renormalised separable gaussian (r = R) on
+// one plane's tile.  The block stages the tile and an r-pixel halo (zeros
+// beyond the frame), computes the pass along y over the tile's width and its
+// x-halo into shared memory (a column beyond the frame holds 0), then the pass
+// along x from there, and writes the result once.  Each pass adds tap·value
+// for k = 0..2r in order and divides by the ordered sum of its in-range taps,
+// as the row and column launches did (a staged zero adds +0.0; the
+// intermediate is rounded to float as their global buffer was): bit for bit
+// the same floats.
 template <int R>
 __global__ void __launch_bounds__(K11_THREADS)
 gaussian_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
                        GaussParams p, bool vec_out) {
     extern __shared__ float4 kf_smem[];
-    const int r = R >= 0 ? R : p.radius;
+    constexpr int r = R;
     const int H = p.H, W = p.W;
     const int sw = staged_stride(KF_TW + 2 * r);
     float* s = reinterpret_cast<float*>(kf_smem);   // KF_TH + 2r rows
     float* v = s + (KF_TH + 2 * r) * sw;            // KF_TH rows
-    float* taps = v + KF_TH * sw;                   // kMaxTaps
+    float* taps = v + KF_TH * sw;                   // 2r + 1
     if (threadIdx.x == 0) {
 #pragma unroll
-        for (int k = 0; k < kMaxTaps; ++k) taps[k] = p.taps[k];
+        for (int k = 0; k <= 2 * R; ++k) taps[k] = p.taps[k];
     }
     const int x0 = blockIdx.x * KF_TW, y0 = blockIdx.y * KF_TH;
     const size_t hw = (size_t)H * W;
     stage_plane<K11_THREADS>(s, sw, in + blockIdx.z * hw, H, W, y0 - r,
                              x0 - r, KF_TH + 2 * r, KF_TW + 2 * r);
-    // the taps in registers at a compiled radius
-    float t[R >= 0 ? 2 * R + 1 : 1];
-    if constexpr (R >= 0) {
+    // the taps in registers, through shared memory (read from the
+    // parameters directly, K11 r2-r4 ran 1.7-2.4% slower on the H100)
+    float t[2 * R + 1];
 #pragma unroll
-        for (int k = 0; k <= 2 * R; ++k) t[k] = taps[k];
-    }
-    auto tap = [&](int k) {
-        if constexpr (R >= 0) {
-            return t[k];
-        } else {
-            return taps[k];
-        }
-    };
+    for (int k = 0; k <= 2 * R; ++k) t[k] = taps[k];
     // the denominator where every tap lies in the frame
     float den_all = 0.0f;
 #pragma unroll
-    for (int k = 0; k <= 2 * r; ++k) den_all = den_all + tap(k);
+    for (int k = 0; k <= 2 * r; ++k) den_all = den_all + t[k];
 
     // pass along y: a column quad of one row a thread
     const int quads = (KF_TW + 2 * r + 3) / 4;
@@ -757,7 +748,7 @@ gaussian_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
         for (int k = 0; k <= 2 * r; ++k) {
             const float4 q = *reinterpret_cast<const float4*>(
                 s + (i + k) * sw + c);
-            const float tk = tap(k);
+            const float tk = t[k];
             num[0] = num[0] + tk * q.x;
             num[1] = num[1] + tk * q.y;
             num[2] = num[2] + tk * q.z;
@@ -770,7 +761,7 @@ gaussian_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
 #pragma unroll
             for (int k = 0; k <= 2 * r; ++k) {
                 const int yy = y + k - r;
-                den = den + (yy >= 0 && yy < H ? tap(k) : 0.0f);
+                den = den + (yy >= 0 && yy < H ? t[k] : 0.0f);
             }
         }
         float res[4];
@@ -794,8 +785,8 @@ gaussian_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
         float num[KF_PX];
 #pragma unroll
         for (int k = 0; k < KF_PX; ++k) num[k] = 0.0f;
-        row_window<R>(v + i * sw + c, r, [&](int k, int d, float val) {
-            num[k] = num[k] + tap(d) * val;
+        row_window<R>(v + i * sw + c, [&](int k, int d, float val) {
+            num[k] = num[k] + t[d] * val;
         });
         const bool inner = x - r >= 0 && x + KF_PX + r <= W;
         float res[KF_PX];
@@ -807,7 +798,7 @@ gaussian_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
 #pragma unroll
                 for (int d = 0; d <= 2 * r; ++d) {
                     const int xx = x + k + d - r;
-                    den = den + (xx >= 0 && xx < W ? tap(d) : 0.0f);
+                    den = den + (xx >= 0 && xx < W ? t[d] : 0.0f);
                 }
             }
             res[k] = num[k] / den;
@@ -816,53 +807,325 @@ gaussian_filter_kernel(const float* __restrict__ in, float* __restrict__ out,
     }
 }
 
-// K10 and K11 past r 16: one 1-D pass of the twins (box_filter in
-// ops/boxfilter.py, gaussian_filter in ops/filters.py), one output a
-// thread (KS_TX x KS_TY a block, one plane a grid layer), every tap read
-// through the caches: a warp's loads of one tap are one row segment.
-// GAUSS: tap·value for the in-range taps k = 0..2r in order, divided by
-// the ordered sum of those taps (the pass along y rounded to float in the
-// intermediate).  The box: the centre, then the values at +d and -d for
-// d = 1..r (0 beyond the frame), the twin's order; the pass along x
-// divides by the in-range tap count.  The twins' floats, bit for bit.
-constexpr int KS_TX = 32, KS_TY = 8;
+// K10 and K11 as two 1-D passes a level (pass_y_kernel into an
+// intermediate, pass_x_kernel from it), the twins' passes (box_filter in
+// ops/boxfilter.py, gaussian_filter in ops/filters.py) term for term.  A
+// thread owns P consecutive outputs of one column (along y) or one row
+// (along x) and keeps the values its taps read in registers, in windows
+// that slide one value a step: output j at tap k reads the value that
+// output j + 1 reads at tap k - 1, so a step loads one new value (the
+// gaussian) or two (the box: one window moves forward, one back) for P
+// outputs' adds.  The tap loops are unrolled by P, so the windows rotate
+// by renaming registers.  One load then serves P adds where a thread a
+// tap would issue one load an add (the load units take a quarter of the
+// FP32 rate), and the P chains of adds overlap.
+//
+// Bit for bit the twins' floats (built with --fmad=false; __fmul_rn and
+// __fadd_rn besides):
+// * GAUSS: output o adds tap(k)·v[o + k - r] for k ascending from +0.0
+//   and divides by the ordered sum of its in-range taps, which depends on
+//   o's row (along y) or column (along x) alone: the wrapper sums them
+//   once, as the twin does, into the tables den_y and den_x that follow
+//   the taps in `taps` (a loop of O(r) an output at the borders held the
+//   border warps ~10x as long as the rest).  A value
+//   beyond the frame reads as 0 (staged, or a predicated load): its
+//   product +0.0 leaves the sum where the twin adds t·0·0 = +0.0 and the
+//   parent kernel skipped the tap (a sum that starts at +0.0 is never
+//   -0.0).  Taps whose values all lie beyond the frame for every output
+//   of the warp are not stepped through: they add +0.0 too.
+// * Box: acc = v[o], then acc = (acc + v[o + d]) + v[o - d] for d = 1..r,
+//   0.0 beyond the frame (the twin's _sep_sum order; its shift pads with
+//   +0.0).  Steps past d_end = max(n - o0, o0 + P) (the frame's extent n,
+//   the warp's first output o0) add +0.0 + +0.0 to every output, and the
+//   step at d_end already did, so no sum is -0.0 after it: they change
+//   nothing and are not run.  The pass along x divides by ny·nx, the
+//   in-range tap count.
+//
+// Along y (KY_P outputs down a column a thread): a warp covers 32
+// adjacent columns, so each step's load is one 128-byte row segment,
+// through the read-only cache; a warp whose rows and taps all lie in the
+// frame loads with no predicate.  (Staging the block's column strip in
+// shared memory by cp.async instead ran 1.00-1.09x the read-only path's
+// time at r17-r90 on the H100.)  Along x (KX_P outputs along a row a
+// thread, a warp a row): the warp stages its row's segment [x0 - r, x0 +
+// KX_TW + r) in shared memory by cp.async, zeros beyond the frame, and
+// its lanes read it at a stride of KX_P: KX_P is odd, so the 32 lanes hit
+// 32 banks.  The outputs go back through the segment and out in
+// coalesced rows.  A segment past KX_SMEM a block (2781 gaussian taps,
+// r 1390; 1242 box steps, r 1242, each side's values staged apart) is
+// staged in chunks of steps, ascending; the windows carry over.  A level
+// in one launch, the pass along y of a 32-row tile and its x-halo into
+// shared memory and the pass along x from there, took 0.94-0.98x the two
+// launches' time at r 5-8 and 1.01-1.68x at r 12-90 (K10; K11 1.08-1.47x
+// at r 17-90): the halo's columns are summed along y by both blocks
+// beside them.  Not kept.
+constexpr int KY_P = 8, KY_WARPS = 8;
+constexpr int KX_P = 9, KX_WARPS = 4;
+constexpr int KX_TW = 32 * KX_P;
+constexpr int KX_SMEM = 48 * 1024;
 
-template <bool GAUSS, bool ALONG_Y>
-__global__ void __launch_bounds__(KS_TX * KS_TY)
-sep_pass_kernel(const float* __restrict__ in, float* __restrict__ out,
-                int H, int W, int r, const float* __restrict__ taps) {
-    const int x = blockIdx.x * KS_TX + threadIdx.x;
-    const int y = blockIdx.y * KS_TY + threadIdx.y;
-    if (x >= W || y >= H) return;
-    const size_t o = blockIdx.z * (size_t)H * W + (size_t)y * W + x;
-    const float* c = in + o;
-    const int pos = ALONG_Y ? y : x, n = ALONG_Y ? H : W;
-    const ptrdiff_t step = ALONG_Y ? W : 1;
-    float res;
+// The steps of the pass along x a chunk stages (a multiple of KX_P): all
+// the steps a warp can take when they fit KX_SMEM, else as many as fit.
+// The gaussian stages one segment of chunk + KX_TW values a warp, the box
+// two (the values ahead and behind).
+__host__ inline int kx_chunk(bool gauss, int r, int W) {
+    const long long most = (long long)W + KX_TW - 1;
+    const long long want = gauss ? 2LL * r + 1 : r;
+    const int steps = (int)(want < most ? want : most);
+    const int fits = (KX_SMEM / (4 * KX_WARPS * (gauss ? 1 : 2)) - KX_TW)
+        / KX_P * KX_P;
+    const int all = (steps + KX_P - 1) / KX_P * KX_P;
+    return all < KX_P ? KX_P : all < fits ? all : fits;
+}
+
+__host__ inline size_t kx_smem_bytes(bool gauss, int chunk) {
+    return sizeof(float) * KX_WARPS * (gauss ? 1 : 2) * (chunk + KX_TW);
+}
+
+// Runs steps [0, n) of a pass, P at a time: step(a, s) with a = s mod P
+// known at compile time (the windows' registers), the last group checked.
+template <int P, typename F>
+__device__ __forceinline__ void run_steps(int n, F&& step) {
+    int s0 = 0;
+    for (; s0 + P <= n; s0 += P) {
+#pragma unroll
+        for (int a = 0; a < P; ++a) step(a, s0 + a);
+    }
+#pragma unroll
+    for (int a = 0; a < P; ++a) {
+        if (s0 + a < n) step(a, s0 + a);
+    }
+}
+
+// The gaussian along y for the KY_P outputs from row yb of column `col`;
+// EDGE: loads beyond the frame read 0.
+template <bool EDGE>
+__device__ __forceinline__ void gauss_y(const float* __restrict__ col, int H,
+                                        int W, int yb, int r,
+                                        const float* __restrict__ taps,
+                                        float (&res)[KY_P]) {
+    constexpr int P = KY_P;
+    const int k_lo = max(0, r - (yb + P - 1));
+    const int k_hi = min(2 * r, r + H - 1 - yb);
+    // value q is row row0 + q; step s reads value s + j for output j
+    const int row0 = yb - r + k_lo;
+    auto load = [&](int q) {
+        const int y = row0 + q;
+        if (EDGE && (y < 0 || y >= H)) return 0.0f;
+        return __ldg(col + (ptrdiff_t)y * W);
+    };
+    float num[P], w[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) num[j] = 0.0f;
+#pragma unroll
+    for (int q = 0; q < P - 1; ++q) w[q] = load(q);
+    const float* t = taps + k_lo;
+    run_steps<P>(k_hi - k_lo + 1, [&](int a, int s) {
+        w[(a + P - 1) % P] = load(s + P - 1);
+        const float tk = __ldg(t + s);
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            num[j] = __fadd_rn(num[j], __fmul_rn(tk, w[(a + j) % P]));
+        }
+    });
+    const float* den = taps + 2 * r + 1;   // den_y
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        res[j] = num[j] / __ldg(den + min(yb + j, H - 1));
+    }
+}
+
+// The box's pass along y (the sums, undivided), as gauss_y.
+template <bool EDGE>
+__device__ __forceinline__ void box_y(const float* __restrict__ col, int H,
+                                      int W, int yb, int r,
+                                      float (&res)[KY_P]) {
+    constexpr int P = KY_P;
+    auto load = [&](int y) {
+        if (EDGE && (y < 0 || y >= H)) return 0.0f;
+        return __ldg(col + (ptrdiff_t)y * W);
+    };
+    // F[(s + 1 + j) % P] holds v[yb + j + d] and B[(j - s - 1) mod P]
+    // v[yb + j - d] at step s (d = s + 1); both start as the centres
+    float acc[P], F[P], B[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) acc[j] = F[j] = B[j] = load(yb + j);
+    run_steps<P>(min(r, max(H - yb, yb + P)), [&](int a, int s) {
+        F[a] = load(yb + P + s);
+        B[P - 1 - a] = load(yb - 1 - s);
+#pragma unroll
+        for (int j = 0; j < P; ++j) {
+            acc[j] = __fadd_rn(__fadd_rn(acc[j], F[(a + 1 + j) % P]),
+                               B[(j + 2 * P - a - 1) % P]);
+        }
+    });
+#pragma unroll
+    for (int j = 0; j < P; ++j) res[j] = acc[j];
+}
+
+template <bool GAUSS>
+__global__ void __launch_bounds__(32 * KY_WARPS)
+pass_y_kernel(const float* __restrict__ in, float* __restrict__ out, int H,
+              int W, int r, const float* __restrict__ taps) {
+    const int x = blockIdx.x * 32 + (threadIdx.x & 31);
+    const int yb = (blockIdx.y * KY_WARPS + (threadIdx.x >> 5)) * KY_P;
+    if (x >= W || yb >= H) return;
+    const size_t plane = (size_t)blockIdx.z * H * W;
+    const float* col = in + plane + x;
+    // every value the warp's taps read lies in the frame
+    const bool inner = yb - r >= 0 && yb + KY_P + r <= H;
+    float res[KY_P];
     if constexpr (GAUSS) {
-        float num = 0.0f, den = 0.0f;
-        const int k1 = min(2 * r, n - 1 - pos + r);
-        for (int k = max(r - pos, 0); k <= k1; ++k) {
-            num = num + taps[k] * c[(k - r) * step];
-            den = den + taps[k];
-        }
-        res = num / den;
-    } else {
-        float acc = c[0];
-        for (int d = 1; d <= r; ++d) {
-            const float a = pos + d < n ? c[d * step] : 0.0f;
-            const float b = pos - d >= 0 ? c[-d * step] : 0.0f;
-            acc = acc + a + b;
-        }
-        if constexpr (ALONG_Y) {
-            res = acc;
+        if (inner) {
+            gauss_y<false>(col, H, W, yb, r, taps, res);
         } else {
-            const int ny = min(y + r, H - 1) - max(y - r, 0) + 1;
-            const int nx = min(x + r, W - 1) - max(x - r, 0) + 1;
-            res = acc / (float)(ny * nx);
+            gauss_y<true>(col, H, W, yb, r, taps, res);
+        }
+    } else {
+        if (inner) {
+            box_y<false>(col, H, W, yb, r, res);
+        } else {
+            box_y<true>(col, H, W, yb, r, res);
         }
     }
-    out[o] = res;
+    float* o = out + plane + (size_t)yb * W + x;
+#pragma unroll
+    for (int j = 0; j < KY_P; ++j) {
+        if (yb + j < H) o[(size_t)j * W] = res[j];
+    }
+}
+
+// Stages columns [c0, c0 + n) of `row` into s by cp.async (zeros beyond
+// the frame), the warp's lanes in turn; returns with the warp's copies
+// complete and visible to the warp.
+__device__ __forceinline__ void stage_row(float* s, const float* row, int W,
+                                          int c0, int n, int lane) {
+    for (int i = lane; i < n; i += 32) {
+        const int c = c0 + i;
+        if (c >= 0 && c < W) {
+            cp_async4(s + i, row + c);
+        } else {
+            s[i] = 0.0f;
+        }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncwarp();
+}
+
+// The gaussian along x for the KX_P outputs from column x0 + xl of `row`,
+// staged a chunk of steps at a time in `seg`.
+__device__ __forceinline__ void gauss_x(const float* row, int H, int W,
+                                        int x0, int xl, int r,
+                                        const float* __restrict__ taps,
+                                        int chunk, float* seg, int lane,
+                                        float (&res)[KX_P]) {
+    constexpr int P = KX_P;
+    const int k_lo = max(0, r - (x0 + KX_TW - 1));
+    const int n = min(2 * r, r + W - 1 - x0) - k_lo + 1;
+    float num[P], w[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) num[j] = 0.0f;
+    // seg[i] holds column x0 - r + k_lo + c0 + i: the value that output j
+    // of lane 0 reads at step c0 + i - j
+    const float* sv = seg + xl;
+    for (int c0 = 0; c0 < n; c0 += chunk) {
+        const int cn = min(chunk, n - c0);
+        __syncwarp();
+        stage_row(seg, row, W, x0 - r + k_lo + c0, cn + KX_TW - 1, lane);
+        if (c0 == 0) {
+#pragma unroll
+            for (int q = 0; q < P - 1; ++q) w[q] = sv[q];
+        }
+        const float* t = taps + k_lo + c0;
+        run_steps<P>(cn, [&](int a, int s) {
+            w[(a + P - 1) % P] = sv[s + P - 1];
+            const float tk = __ldg(t + s);
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+                num[j] = __fadd_rn(num[j], __fmul_rn(tk, w[(a + j) % P]));
+            }
+        });
+    }
+    // the denominators first: read between the divisions, one spilled
+    const float* den = taps + 2 * r + 1 + H;   // den_x
+    float d[P];
+#pragma unroll
+    for (int j = 0; j < P; ++j) d[j] = __ldg(den + min(x0 + xl + j, W - 1));
+#pragma unroll
+    for (int j = 0; j < P; ++j) res[j] = num[j] / d[j];
+}
+
+// The box's pass along x, divided by the in-range tap count, as gauss_x:
+// each chunk stages the values ahead of the outputs in sf and those behind
+// in sb.
+__device__ __forceinline__ void box_x(const float* row, int H, int W, int y,
+                                      int x0, int xl, int r, int chunk,
+                                      float* seg, int lane,
+                                      float (&res)[KX_P]) {
+    constexpr int P = KX_P;
+    const int n = min(r, max(W - x0, x0 + KX_TW));
+    float* sf = seg;
+    float* sb = seg + chunk + KX_TW;
+    float acc[P], F[P], B[P];
+    int c0 = 0;
+    do {
+        const int cn = min(chunk, n - c0);
+        __syncwarp();
+        // sf: columns [x0 + c0, x0 + c0 + cn + KX_TW) (the centres in the
+        // first chunk); sb: columns [x0 - c0 - cn, x0 - c0 + KX_TW)
+        stage_row(sf, row, W, x0 + c0, cn + KX_TW, lane);
+        stage_row(sb, row, W, x0 - c0 - cn, cn + KX_TW, lane);
+        if (c0 == 0) {
+#pragma unroll
+            for (int j = 0; j < P; ++j) acc[j] = F[j] = B[j] = sf[xl + j];
+        }
+        const float* pf = sf + xl + P;
+        const float* pb = sb + xl - 1 + cn;
+        run_steps<P>(cn, [&](int a, int t) {
+            F[a] = pf[t];
+            B[P - 1 - a] = pb[-t];
+#pragma unroll
+            for (int j = 0; j < P; ++j) {
+                acc[j] = __fadd_rn(__fadd_rn(acc[j], F[(a + 1 + j) % P]),
+                                   B[(j + 2 * P - a - 1) % P]);
+            }
+        });
+        c0 += chunk;
+    } while (c0 < n);
+    const int ny = min(y + r, H - 1) - max(y - r, 0) + 1;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+        const int x = x0 + xl + j;
+        const int nx = min(x + r, W - 1) - max(x - r, 0) + 1;
+        res[j] = acc[j] / (float)(ny * nx);
+    }
+}
+
+template <bool GAUSS>
+__global__ void __launch_bounds__(32 * KX_WARPS)
+pass_x_kernel(const float* __restrict__ in, float* __restrict__ out, int H,
+              int W, int r, const float* __restrict__ taps, int chunk) {
+    extern __shared__ float kx_seg[];
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int y = blockIdx.y * KX_WARPS + warp;
+    if (y >= H) return;
+    const int x0 = blockIdx.x * KX_TW, xl = lane * KX_P;
+    const size_t at = (size_t)blockIdx.z * H * W + (size_t)y * W;
+    float* seg = kx_seg + warp * (GAUSS ? 1 : 2) * (chunk + KX_TW);
+    float res[KX_P];
+    if constexpr (GAUSS) {
+        gauss_x(in + at, H, W, x0, xl, r, taps, chunk, seg, lane, res);
+    } else {
+        box_x(in + at, H, W, y, x0, xl, r, chunk, seg, lane, res);
+    }
+    // out through the segment, a row at a time
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < KX_P; ++j) seg[xl + j] = res[j];
+    __syncwarp();
+    float* o = out + at + x0;
+    const int n = min(KX_TW, W - x0);
+    for (int i = lane; i < n; i += 32) o[i] = seg[i];
 }
 
 // Dynamic shared memory above the default 48 KB needs the kernel's
@@ -880,26 +1143,25 @@ static bool vec_aligned(const float* out, int W) {
 
 template <int R>
 static int launch_box(const float* in, float* out, int C, int H, int W,
-                      int radius, int levels, cudaStream_t s) {
-    const int h = radius * levels;
+                      int levels, cudaStream_t s) {
+    const int h = R * levels;
     const size_t rows = (KF_TH + 2 * h)
-        + (levels > 1 ? KF_TH + 2 * (h - radius) : 0);
+        + (levels > 1 ? KF_TH + 2 * (h - R) : 0);
     const size_t smem = sizeof(float) * staged_stride(KF_TW + 2 * h) * rows;
     const cudaError_t err = allow_smem(box_filter_kernel<R>, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((W + KF_TW - 1) / KF_TW, (H + KF_TH - 1) / KF_TH, C);
     box_filter_kernel<R><<<grid, K10_THREADS, smem, s>>>(
-        in, out, H, W, radius, levels, vec_aligned(out, W));
+        in, out, H, W, levels, vec_aligned(out, W));
     return (int)cudaGetLastError();
 }
 
 template <int R>
 static int launch_gaussian(const float* in, float* out, const GaussParams& p,
                            cudaStream_t s) {
-    const int r = p.radius;
     const size_t smem = sizeof(float)
-        * ((size_t)staged_stride(KF_TW + 2 * r) * (2 * KF_TH + 2 * r)
-           + kMaxTaps);
+        * ((size_t)staged_stride(KF_TW + 2 * R) * (2 * KF_TH + 2 * R)
+           + 2 * R + 1);
     const cudaError_t err = allow_smem(gaussian_filter_kernel<R>, smem);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((p.W + KF_TW - 1) / KF_TW, (p.H + KF_TH - 1) / KF_TH,
@@ -909,37 +1171,28 @@ static int launch_gaussian(const float* in, float* out, const GaussParams& p,
     return (int)cudaGetLastError();
 }
 
-dim3 grid_for(int H, int W, int C, dim3 block) {
-    return dim3((W + block.x - 1) / block.x, (H + block.y - 1) / block.y, C);
-}
-
 }  // namespace
 
-// K10: `levels` levels of the box average in one launch (the radius
-// compiled for r <= 4).
+// K10: `levels` levels of the box average in one launch, r 0-4 (past it
+// the 1-D passes, rdt_filter_pass).
 extern "C" int rdt_box_filter(const float* in, float* out, int C, int H,
                               int W, int radius, int levels, void* stream) {
-    if (radius < 0 || radius > kMaxTaps / 2 || levels < 1) {
-        return (int)cudaErrorInvalidValue;
-    }
+    if (levels < 1) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
     switch (radius) {
-    case 0: return launch_box<0>(in, out, C, H, W, radius, levels, s);
-    case 1: return launch_box<1>(in, out, C, H, W, radius, levels, s);
-    case 2: return launch_box<2>(in, out, C, H, W, radius, levels, s);
-    case 3: return launch_box<3>(in, out, C, H, W, radius, levels, s);
-    case 4: return launch_box<4>(in, out, C, H, W, radius, levels, s);
-    default: return launch_box<-1>(in, out, C, H, W, radius, levels, s);
+    case 0: return launch_box<0>(in, out, C, H, W, levels, s);
+    case 1: return launch_box<1>(in, out, C, H, W, levels, s);
+    case 2: return launch_box<2>(in, out, C, H, W, levels, s);
+    case 3: return launch_box<3>(in, out, C, H, W, levels, s);
+    case 4: return launch_box<4>(in, out, C, H, W, levels, s);
+    default: return (int)cudaErrorInvalidValue;
     }
 }
 
-// K11: one iteration of the gaussian, both passes (the radius compiled for
-// r <= 4).
+// K11: one iteration of the gaussian, both passes, r 0-4 (past it the 1-D
+// passes, rdt_filter_pass).
 extern "C" int rdt_gaussian_filter(const float* in, float* out,
                                    const GaussParams* params, void* stream) {
-    if (params->radius < 0 || params->radius > kMaxTaps / 2) {
-        return (int)cudaErrorInvalidValue;
-    }
     const cudaStream_t s = (cudaStream_t)stream;
     switch (params->radius) {
     case 0: return launch_gaussian<0>(in, out, *params, s);
@@ -947,30 +1200,41 @@ extern "C" int rdt_gaussian_filter(const float* in, float* out,
     case 2: return launch_gaussian<2>(in, out, *params, s);
     case 3: return launch_gaussian<3>(in, out, *params, s);
     case 4: return launch_gaussian<4>(in, out, *params, s);
-    default: return launch_gaussian<-1>(in, out, *params, s);
+    default: return (int)cudaErrorInvalidValue;
     }
 }
 
-// K10 and K11 past r 16: one 1-D pass, the gaussian's with its 2r + 1
-// taps from the device array `taps`, the box's where taps is NULL.
+// K10 and K11 in 1-D passes: one pass, the gaussian's with its 2r + 1
+// taps and its denominators by row and by column from the device array
+// `taps` (2r + 1 + H + W floats), the box's where taps is NULL.
 extern "C" int rdt_filter_pass(const float* in, float* out, int C, int H,
                                int W, int radius, const float* taps,
                                int along_y, void* stream) {
     if (radius < 0) return (int)cudaErrorInvalidValue;
     const cudaStream_t s = (cudaStream_t)stream;
-    const dim3 block(KS_TX, KS_TY), grid = grid_for(H, W, C, block);
-    if (taps && along_y) {
-        sep_pass_kernel<true, true><<<grid, block, 0, s>>>(in, out, H, W,
-                                                           radius, taps);
-    } else if (taps) {
-        sep_pass_kernel<true, false><<<grid, block, 0, s>>>(in, out, H, W,
-                                                            radius, taps);
-    } else if (along_y) {
-        sep_pass_kernel<false, true><<<grid, block, 0, s>>>(in, out, H, W,
-                                                            radius, taps);
+    if (along_y) {
+        const dim3 grid((W + 31) / 32,
+                        (H + KY_P * KY_WARPS - 1) / (KY_P * KY_WARPS), C);
+        if (taps) {
+            pass_y_kernel<true><<<grid, 32 * KY_WARPS, 0, s>>>(
+                in, out, H, W, radius, taps);
+        } else {
+            pass_y_kernel<false><<<grid, 32 * KY_WARPS, 0, s>>>(
+                in, out, H, W, radius, taps);
+        }
     } else {
-        sep_pass_kernel<false, false><<<grid, block, 0, s>>>(in, out, H, W,
-                                                             radius, taps);
+        const bool gauss = taps != nullptr;
+        const int chunk = kx_chunk(gauss, radius, W);
+        const size_t smem = kx_smem_bytes(gauss, chunk);
+        const dim3 grid((W + KX_TW - 1) / KX_TW,
+                        (H + KX_WARPS - 1) / KX_WARPS, C);
+        if (gauss) {
+            pass_x_kernel<true><<<grid, 32 * KX_WARPS, smem, s>>>(
+                in, out, H, W, radius, taps, chunk);
+        } else {
+            pass_x_kernel<false><<<grid, 32 * KX_WARPS, smem, s>>>(
+                in, out, H, W, radius, taps, chunk);
+        }
     }
     return (int)cudaGetLastError();
 }

@@ -7,12 +7,14 @@ box_tpu.py``), ``gaussian_filter_pallas`` and ``cross_bilateral_pallas``
 plain versions ``ops.boxfilter.box_filter``, ``ops.filters.gaussian_filter``
 and ``ops.filters.cross_bilateral_filter``.  The filters are forward-only
 (the JAX package gives them no VJP): each wrapper raises if an input
-requires grad.  Any radius: up to :data:`STRUCT_RADIUS` the gaussian taps
-ride in the launch's parameter struct; above it K10 and K11 run as two
-1-D passes a level (``rdt_filter_pass``, through a global intermediate)
-and the gaussian taps go to the kernels in a device array
-(:func:`_wide_taps`), as the à-trous sweep's do.  K12 runs its staged
-tile up to r 4 and its rolling-row tile above.
+requires grad.  Any radius: from :data:`BOX_PASS_RADIUS` (K10) and
+:data:`GAUSS_PASS_RADIUS` (K11) up, K10 and K11 run as two 1-D passes a
+level (``rdt_filter_pass``, through a global intermediate), the gaussian
+taps and denominators in a device array (:func:`pass_taps`); below, the
+2-D bodies compiled at r 0-4, the gaussian taps in the launch's parameter
+struct.  K12 runs its staged tile up to r 4 and its
+rolling-row tile above, its taps past r 16 in a device array
+(:func:`_wide_taps`), as the à-trous sweep's are.
 """
 
 from __future__ import annotations
@@ -27,9 +29,10 @@ from .atrous_cuda import LaunchCount
 from .boxfilter import box_filter
 from .cuda import _build
 from .filters import _gauss_taps, cross_bilateral_filter, gaussian_filter
+from ..utils.tiling import BOX_PASS_RADIUS, GAUSS_PASS_RADIUS
 
-# the largest radius whose 2r + 1 taps ride in GaussParams / CrossParams
-# (kMaxTaps = 33 in filters.cu)
+# the largest radius whose 2r + 1 taps ride in CrossParams (kMaxTaps = 33
+# in filters.cu)
 STRUCT_RADIUS = 16
 # K12's staged form takes r up to 4 (kMaxStagedRadius), the rolling-row
 # tile any above
@@ -38,16 +41,24 @@ STAGED_CROSS_RADIUS = 4
 # (``utils/profile.py box``, PERF.md PR 15) a call split so that each
 # launch's halo is at most 8 ran no slower than any finer split (r1 d3-d8,
 # r2 d2-d4, r3 d2, r4 d2 in one launch; r2 d5 as 3 + 2 levels, r3 d3 as
-# 2 + 1); halos of 10-16 lost (r2 d5 in one launch 1.03x, r3 d3 1.02x,
-# r8 d2 1.35x the split).
+# 2 + 1); larger halos lost (r3 d3 in one launch 1.02x, r2 d5 1.03x the
+# split).
 BOX_HALO_CAP = 8
+# BOX_PASS_RADIUS and GAUSS_PASS_RADIUS (utils/tiling.py, both 5): the
+# smallest radius K10 and K11 run as 1-D passes; the 2-D bodies are
+# compiled at r 0-4 only.  On the H100 at 1080p x 3 planes, device time in
+# turns (chip_smoke.py phase 3 and kernel_ab; PERF.md section 6), the 2-D
+# bodies won at r 4 (K10 0.0397 ms against the passes' 0.0500, K11 0.0355
+# against 0.0498) and lost from r 5 (K10 r5 0.1047 against 0.0507, r16
+# 0.5659 against 0.0617; K11 r5 0.0606 against 0.0536, r16 0.1212 against
+# 0.0821), at depth 1 and 2 alike.
 
 
 class _GaussParams(ctypes.Structure):
     """Mirror of ``struct GaussParams`` in ``ops/cuda/filters.cu``."""
 
     _fields_ = [(n, ctypes.c_int) for n in ("C", "H", "W", "radius")] + [
-        ("taps", ctypes.c_float * (2 * STRUCT_RADIUS + 1))]
+        ("taps", ctypes.c_float * (2 * GAUSS_PASS_RADIUS - 1))]
 
 
 class _CrossParams(ctypes.Structure):
@@ -75,12 +86,12 @@ def _planes(x: torch.Tensor, name: str, radius: int, depth: int):
 _wide_taps_cache = {}
 
 
-def _struct_taps(radius: int, sigma: float):
-    """The parameter struct's taps: the 2r + 1 gaussian taps up to
-    :data:`STRUCT_RADIUS`, zeros above it (the kernel reads the device
+def _struct_taps(radius: int, sigma: float, most: int = STRUCT_RADIUS):
+    """A parameter struct's taps, room for radius ``most``: the 2r + 1
+    gaussian taps up to it, zeros above it (the kernel reads the device
     array then)."""
-    taps = _gauss_taps(radius, sigma) if radius <= STRUCT_RADIUS else ()
-    return (ctypes.c_float * (2 * STRUCT_RADIUS + 1))(*taps)
+    taps = _gauss_taps(radius, sigma) if radius <= most else ()
+    return (ctypes.c_float * (2 * most + 1))(*taps)
 
 
 def _wide_taps(radius: int, sigma: float, dev):
@@ -94,6 +105,35 @@ def _wide_taps(radius: int, sigma: float, dev):
         _wide_taps_cache[key] = torch.tensor(
             _gauss_taps(radius, sigma), dtype=torch.float32, device=dev)
     return _wide_taps_cache[key]
+
+
+_pass_taps_cache = {}
+
+
+def pass_taps(radius: int, sigma: float, H: int, W: int) -> torch.Tensor:
+    """The gaussian's 1-D passes' taps (CPU, float32): the 2r + 1 taps, then
+    the denominators of a pass along y by row (H) and along x by column
+    (W), each the sum of the taps that fall in the frame, added in order
+    from +0.0 in float32 as the twin adds them (``den + t·m``)."""
+    taps = _gauss_taps(radius, sigma)
+    dens = []
+    for n in (H, W):
+        pos = torch.arange(n)
+        den = torch.zeros(n, dtype=torch.float32)
+        for k, t in enumerate(taps):
+            src = pos + (k - radius)
+            den = den + t * ((src >= 0) & (src < n)).to(torch.float32)
+        dens.append(den)
+    return torch.cat([torch.tensor(taps, dtype=torch.float32)] + dens)
+
+
+def _pass_taps(radius: int, sigma: float, H: int, W: int, dev):
+    """:func:`pass_taps` on ``dev``, one array a (radius, sigma, H, W,
+    device), kept for reuse."""
+    key = (radius, float(sigma), H, W, str(dev))
+    if key not in _pass_taps_cache:
+        _pass_taps_cache[key] = pass_taps(radius, sigma, H, W).to(dev)
+    return _pass_taps_cache[key]
 
 
 def _ptr(t):
@@ -122,23 +162,24 @@ def _ping_pong(n: int, out: torch.Tensor):
 def box_filter_cuda(x: torch.Tensor, radius: int = 2,
                     depth: int = 1) -> torch.Tensor:
     """Iterated (2r+1)² box average on planar (..., H, W), as ``box_filter``
-    returns it: K10, which runs the levels of a launch in shared memory,
-    as many as :func:`box_level_groups` gives it (past
-    :data:`STRUCT_RADIUS`: two 1-D passes a level).  Each launch adds one
-    to ``box_filter_cuda.launches``."""
+    returns it: K10, from :data:`BOX_PASS_RADIUS` up two 1-D passes a
+    level, below it the 2-D body, which runs the levels of a launch in
+    shared memory, as many as :func:`box_level_groups` gives it.  Each
+    launch adds one to ``box_filter_cuda.launches``, a pass one to
+    ``box_filter_cuda.passes.launches`` too."""
     _build.check_no_grad("box_filter_cuda", x)
     if not x.is_cuda:
         return box_filter(x, radius=radius, depth=depth)
-    if radius > STRUCT_RADIUS:
+    if radius >= BOX_PASS_RADIUS:
         return _separable(x, radius, depth, None, box_filter_cuda)
     return _box_launches(x, radius, box_level_groups(radius, depth))
 
 
 def _separable(x: torch.Tensor, radius: int, depth: int, taps, counter):
-    """K10 (``taps`` None) or K11 past :data:`STRUCT_RADIUS` on a CUDA
-    tensor: each level or iteration a pass along y into an intermediate and
-    a pass along x from it, each launch adding one to
-    ``counter.launches``."""
+    """K10 (``taps`` None) or K11 (``taps`` from :func:`_pass_taps`) as 1-D
+    passes on a CUDA tensor: each level or iteration a pass along y into an
+    intermediate and a pass along x from it, each launch adding one to
+    ``counter.launches`` and ``counter.passes.launches``."""
     src, ptr = _planes(x, "x", radius, depth)
     C, H, W = src.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -151,13 +192,15 @@ def _separable(x: torch.Tensor, radius: int, depth: int, taps, counter):
                 p_in, p_out, C, H, W, radius, _ptr(taps), along_y, stream),
                 "rdt_filter_pass")
             counter.launches += 1
+            counter.passes.launches += 1
         ptr = dst.data_ptr()
     return out.reshape(x.shape)
 
 
 def _box_launches(x: torch.Tensor, radius: int, groups) -> torch.Tensor:
-    """K10 on a CUDA tensor, launch i running ``groups[i]`` levels: the
-    same floats for any grouping of ``sum(groups)`` levels."""
+    """K10's 2-D body (r below :data:`BOX_PASS_RADIUS`) on a CUDA tensor,
+    launch i running ``groups[i]`` levels: the same floats for any grouping
+    of ``sum(groups)`` levels."""
     src, ptr = _planes(x, "x", radius, sum(groups))
     C, H, W = src.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -172,26 +215,43 @@ def _box_launches(x: torch.Tensor, radius: int, groups) -> torch.Tensor:
 
 
 box_filter_cuda.launches = 0
+box_filter_cuda.passes = LaunchCount()
 
 
 def gaussian_filter_cuda(x: torch.Tensor, radius: int = 2,
                          sigma: float = 2.0, depth: int = 1) -> torch.Tensor:
     """Separable gaussian on planar (..., H, W), iterated ``depth`` times,
-    as ``gaussian_filter`` returns it: K11, both passes of an iteration in
-    one launch (past :data:`STRUCT_RADIUS`: one launch a pass).  Each
-    launch adds one to ``gaussian_filter_cuda.launches``."""
+    as ``gaussian_filter`` returns it: K11, from :data:`GAUSS_PASS_RADIUS`
+    up one launch a pass, below it both passes of an iteration in one
+    launch.  Each launch adds one to ``gaussian_filter_cuda.launches``, a
+    pass one to ``gaussian_filter_cuda.passes.launches`` too."""
     _build.check_no_grad("gaussian_filter_cuda", x)
     if not x.is_cuda:
         return gaussian_filter(x, radius=radius, sigma=sigma, depth=depth)
-    if radius > STRUCT_RADIUS:
-        return _separable(x, radius, depth,
-                          _wide_taps(radius, sigma, x.device),
-                          gaussian_filter_cuda)
+    if radius >= GAUSS_PASS_RADIUS:
+        return _gaussian_passes(x, radius, sigma, depth)
+    return _gaussian_launches(x, radius, sigma, depth)
+
+
+def _gaussian_passes(x: torch.Tensor, radius: int, sigma: float,
+                     depth: int) -> torch.Tensor:
+    """K11 as 1-D passes on a CUDA tensor (:func:`_separable`)."""
+    H, W = x.shape[-2:]
+    return _separable(x, radius, depth,
+                      _pass_taps(radius, sigma, H, W, x.device),
+                      gaussian_filter_cuda)
+
+
+def _gaussian_launches(x: torch.Tensor, radius: int, sigma: float,
+                       depth: int) -> torch.Tensor:
+    """K11's 2-D body (r below :data:`GAUSS_PASS_RADIUS`) on a CUDA
+    tensor, one launch an iteration."""
     src, ptr = _planes(x, "x", radius, depth)
     C, H, W = src.shape
     stream = torch.cuda.current_stream(x.device).cuda_stream
     p = _GaussParams(C=C, H=H, W=W, radius=radius,
-                     taps=_struct_taps(radius, sigma))
+                     taps=_struct_taps(radius, sigma,
+                                       GAUSS_PASS_RADIUS - 1))
     out = torch.empty_like(src)
     for dst in _ping_pong(depth, out):
         _build.check(_build.kernels().rdt_gaussian_filter(
@@ -203,6 +263,7 @@ def gaussian_filter_cuda(x: torch.Tensor, radius: int = 2,
 
 
 gaussian_filter_cuda.launches = 0
+gaussian_filter_cuda.passes = LaunchCount()
 
 
 def _pow2_steps(sigma_n: float) -> int:

@@ -46,13 +46,17 @@ K12 at radius 0, 1, 2, 3, 4, 5, 8, 16 and 40 with
 sigma_n 128 (repeated squaring) and 100 (powf), on a frame of sides
 1079 x 1917 (no multiple of the tile) at radius 2 and 4, and at depth 2
 through ``apply_filter(CROSS)``; K10 on ``chip_smoke.py`` phase 3's
-colour planes at radius 0, 1, 2, 3, 4, 8 and 16 with depth 1, at r1 and
-r2 with depth 3, r2 with depth 5 and r8 with depth 2 (the last two past
-the halo one launch stages), on the frame one row and three columns
-short at r2 with depth 1 and 3, and at depth 2 through
-``apply_filter(AVERAGE)``; K11 at radius 0, 1, 2, 4 and 16 with sigma
-0.5, 2 and 8 at depth 1 and 2, on the short frame at r2 with depth 1 and
-2, and at depth 2 through ``apply_filter(GAUSSIAN)``; KG, the clamped
+colour planes at radius 0-6, 8, 12 and 16 with depth 1, at 4-6, 8, 12
+and 16 with depth 2 (across the crossover of its 2-D body and its 1-D
+passes, ``utils/tiling.py``'s ``BOX_PASS_RADIUS``: where this tree runs
+the passes and the other the 2-D body, within rounding, and bit-equal to
+this tree's twin in the cases ``K10 r<r> d<d> twin``), at r1 and r2 with
+depth 3 and r2 with depth 5 (past the halo one launch stages), on the
+frame one row and three columns short at r2 with depth 1 and 3, and at
+depth 2 through ``apply_filter(AVERAGE)``; K11 at radius 0, 1, 2, 4 and
+16 with sigma 0.5, 2 and 8 and at 5, 6, 8 and 12 with sigma r / 2, at
+depth 1 and 2 (bit-equal on either route), on the short frame at r2 with
+depth 1 and 2, and at depth 2 through ``apply_filter(GAUSSIAN)``; KG, the clamped
 gather of unbounded
 motion, on ``chip_smoke.py`` phase 3's input (uniform random motion to
 ±28 pixels), on motion 0, ±3 and ±80 pixels (taps clamped at the
@@ -77,10 +81,11 @@ tile's canvas at 60 and 96), this tree's scatter route at max_motion 6
 against the other tree's K5/K6 (``K5s``/``K6s`` on random and served
 motion), and K12 at radius 8, 40 (``K12``), 17 and 24 (``K12w``, and 17 on
 the odd frame) are held to the other tree (a tree before 3dccd34 refuses
-them); ``K10w`` at radius 17, 24 and 90 and ``K11w`` at 17, 24 and 90
-with sigma r / 2, two 1-D passes a level, to this tree's plain twins,
-bit-equal: ``--only '^K[56]'`` and ``--only '^K1[012]'`` run them beside
-the others.
+them); ``K10w`` and ``K11w`` (sigma r / 2), the 1-D passes, at radius 17,
+24 and 90, at 17 with depth 2, on the odd frame at 17 and 90 and at 1200,
+past the frame's height, bit-equal to the other tree, and at 17, 24 and
+90 to this tree's twins (the cases ``... twin``): ``--only '^K[56]'``
+and ``--only '^K1[012]'`` run them beside the others.
 For each case it
 prints whether every output is bit-equal to the other tree's
 (``torch.equal``) and the largest difference, and times both trees in
@@ -92,9 +97,10 @@ which the events' wall holds for a short kernel); ``--rounds 0`` compares
 the outputs only, and ``--by-kernel`` prints each tree's device time a
 call by kernel (and memset or fill) under the profiler.
 It prints ptxas's registers, stack and spills of the à-trous, march,
-shading, shadow, temporal, cone, box, gaussian, cross-bilateral and
-clamped-gather kernels of each tree it builds (a library
-built before is loaded as it is), and the card's name and power limit.
+shading, shadow, temporal, cone, box, gaussian (and their 1-D passes),
+cross-bilateral and clamped-gather kernels of each tree it builds (a
+library built before is loaded as it is), and the card's name and power
+limit.
 It exits non-zero if an output held bit for bit differs, or if one held
 within rounding differs by more than rtol 1e-5 (atol 1e-6 of its largest
 magnitude).
@@ -117,6 +123,7 @@ import numpy as np
 import torch
 
 from ..ops.cuda._build import parse_resources
+from .tiling import BOX_PASS_RADIUS
 from .seeded_inputs import (clamped_inputs, gather_inputs,
                             served_clamped_inputs, served_inputs,
                             sink_motion)
@@ -134,6 +141,11 @@ GATHER_KINDS_UHD = ("random", "served")
 # (3, and K14's 4) and at the runtime one, and the cache-read form where
 # a level's staged tile is past the budget (utils/tiling.py)
 ADJOINT_RADII = (0, 1, 2, 3, 4, 5, 8)
+# K10's and K11's radii across the crossover of their 2-D bodies and 1-D
+# passes (BOX_PASS_RADIUS, GAUSS_PASS_RADIUS), and past 16 a radius larger
+# than the frame's height
+ROUTE_RADII = (4, 5, 6, 8, 12, 16)
+WIDE_PAST_FRAME = 1200
 
 
 class Twin:
@@ -937,42 +949,77 @@ def _cases(P, U, cots, S, M, T):
         return lambda: (tree.filters_cuda.gaussian_filter_cuda(
             x, radius=r, sigma=sigma, depth=depth),)
 
-    # K10 at depth 1 (r 0-4 compiled, 8 and 16 the generic body), deeper
-    # (r2 d5 and r8 d2 past the halo cap), on the odd frame and through
-    # apply_filter
-    box_cases = [(r, 1) for r in (0, 1, 2, 3, 4, 8, 16)]
-    for r, d in box_cases + [(1, 3), (2, 3), (2, 5), (8, 2)]:
+    # K10 at depth 1 (r 0-4 the 2-D body, from BOX_PASS_RADIUS the 1-D
+    # passes; a tree before them ran a 2-D body to r 16), at depth 2
+    # across the crossover,
+    # deeper (r2 d5 past the halo cap), on the odd frame and through
+    # apply_filter.  Where this tree runs the passes and the other the 2-D
+    # body (dy-major, dx-minor), within rounding; the twin's floats, bit
+    # for bit, in the twin cases
+    def box_exact(r):
+        return r < BOX_PASS_RADIUS
+
+    box_cases = ([(r, 1) for r in (0, 1, 2, 3) + ROUTE_RADII]
+                 + [(r, 2) for r in ROUTE_RADII] + [(1, 3), (2, 3), (2, 5)])
+    for r, d in box_cases:
         yield (f"K10 r{r} d{d}",
-               lambda t, r=r, d=d: smooth(t, "AVERAGE", r, d))
+               lambda t, r=r, d=d: smooth(t, "AVERAGE", r, d), box_exact(r))
     for d in (1, 3):
         yield (f"K10 r2 d{d} odd frame",
                lambda t, d=d: smooth(t, "AVERAGE", 2, d, odd=True))
     yield ("K10 apply_filter depth 2",
            lambda t: smooth(t, "AVERAGE", 2, 2, apply=True))
-    for r in (0, 1, 2, 4, 16):
-        for sigma in (0.5, 2.0, 8.0):
-            for d in (1, 2):
-                yield (f"K11 r{r} sigma {sigma:g} d{d}",
-                       lambda t, r=r, sigma=sigma, d=d: smooth(
-                           t, "GAUSSIAN", r, d, sigma))
+    # K11 at five radii and three sigmas, and across the crossover at
+    # sigma r / 2; its 2-D body and its passes add the twin's products in
+    # the twin's order: bit-equal to the other tree either way
+    k11_cases = [(r, sigma) for r in (0, 1, 2, 4, 16)
+                 for sigma in (0.5, 2.0, 8.0)] + [
+                     (r, r / 2.0) for r in ROUTE_RADII if r not in (4, 16)]
+    for r, sigma in k11_cases:
+        for d in (1, 2):
+            yield (f"K11 r{r} sigma {sigma:g} d{d}",
+                   lambda t, r=r, sigma=sigma, d=d: smooth(
+                       t, "GAUSSIAN", r, d, sigma))
     for d in (1, 2):
         yield (f"K11 r2 sigma 2 d{d} odd frame",
                lambda t, d=d: smooth(t, "GAUSSIAN", 2, d, odd=True))
 
-    def smooth_twin(ftype, r, sigma):
+    def smooth_twin(ftype, r, sigma, d=1, exact=True):
         def launch(tree):
             if ftype == "AVERAGE":
                 from ..ops.boxfilter import box_filter
-                return lambda: (box_filter(c, radius=r, depth=1),)
+                return lambda: (box_filter(c, radius=r, depth=d),)
             return lambda: (tree.filters.gaussian_filter(
-                c, radius=r, sigma=sigma, depth=1),)
-        # past r 16 both add their twin's terms in its order: held exactly
-        return Twin(launch, rtol=0.0, atol=0.0)
+                c, radius=r, sigma=sigma, depth=d),)
+        # the passes add their twin's terms in its order: held exactly;
+        # K10's 2-D body within rounding (the JAX package's tolerance)
+        return (Twin(launch, rtol=0.0, atol=0.0) if exact
+                else Twin(launch, relative=False))
 
+    # K10 across the crossover against its twin
+    for r in ROUTE_RADII:
+        for d in (1, 2):
+            yield (f"K10 r{r} d{d} twin",
+                   lambda t, r=r, d=d: smooth(t, "AVERAGE", r, d),
+                   smooth_twin("AVERAGE", r, 2.0, d, not box_exact(r)))
+    # past r 16 (the passes in both trees since 3dccd34): held to the other
+    # tree at depth 1 and 2, on the odd frame and at a radius past the
+    # frame's height, and to this tree's twin
+    for r, d, odd in ((17, 1, False), (24, 1, False), (90, 1, False),
+                      (17, 2, False), (17, 1, True), (90, 1, True),
+                      (WIDE_PAST_FRAME, 1, False)):
+        where = " odd frame" if odd else f" d{d}"
+        yield (f"K10w r{r}{where}",
+               lambda t, r=r, d=d, odd=odd: smooth(t, "AVERAGE", r, d,
+                                                   odd=odd))
+        yield (f"K11w r{r} sigma {r / 2:g}{where}",
+               lambda t, r=r, d=d, odd=odd: smooth(t, "GAUSSIAN", r, d,
+                                                   r / 2.0, odd=odd))
     for r in (17, 24, 90):
-        yield (f"K10w r{r} d1", lambda t, r=r: smooth(t, "AVERAGE", r, 1),
+        yield (f"K10w r{r} d1 twin",
+               lambda t, r=r: smooth(t, "AVERAGE", r, 1),
                smooth_twin("AVERAGE", r, 2.0))
-        yield (f"K11w r{r} sigma {r / 2:g} d1",
+        yield (f"K11w r{r} sigma {r / 2:g} d1 twin",
                lambda t, r=r: smooth(t, "GAUSSIAN", r, 1, r / 2.0),
                smooth_twin("GAUSSIAN", r, r / 2.0))
     yield ("K11 apply_filter depth 2",
@@ -998,15 +1045,15 @@ _ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
                      r"shade_kernel|march_kernel|shadow_kernel|"
                      r"temporal_kernel|cone\w*kernel|cross_bilateral\w*kernel|"
                      r"(clamped_)?gather\w*kernel|round_planes_kernel|"
-                     r"box\w*kernel|gauss\w*kernel)"
+                     r"box\w*kernel|gauss\w*kernel|pass_[xy]_kernel)"
                      r"(I\w*?EE)?")
 
 
 def resources(text_or_dict):
     """``{short kernel name: (registers, stack, spill st, spill ld)}`` of
-    the à-trous, march, shading, shadow, temporal, cone, box, gaussian,
-    cross-bilateral and clamped-gather kernels in a ptxas report (a kernel that is not a
-    template by its name alone)."""
+    the à-trous, march, shading, shadow, temporal, cone, box, gaussian (and
+    their 1-D passes), cross-bilateral and clamped-gather kernels in a
+    ptxas report (a kernel that is not a template by its name alone)."""
     out = {}
     for name, res in text_or_dict.items():
         m = _ATROUS.search(name)

@@ -237,7 +237,7 @@ def _clamped(H, W, dev, calls):
 
 # K10's (radius, depth) cases and halo caps for ``box``
 BOX_CASES = ((0, 3), (1, 2), (1, 3), (1, 4), (1, 6), (1, 8), (2, 2), (2, 3),
-             (2, 4), (2, 5), (3, 2), (3, 3), (4, 2), (8, 2))
+             (2, 4), (2, 5), (3, 2), (3, 3), (4, 2), (4, 3))
 BOX_CAPS = (0, 2, 4, 6, 8, 12, 16)
 BOX_ROUNDS = 3
 

@@ -27,6 +27,13 @@ functions; the memory budgets are the port's own.
   of :data:`K12_RING_ROWS` staged rows of ten planes, 32 + 2r columns
   each, and the 2r + 1 spatial taps; past the 227 KB a block can have,
   the chunked form's 8 rows of a 256-tap segment.
+* :func:`filter_pass_smem`: the shared memory a block of K10's and K11's
+  pass along x takes (``pass_x_kernel`` in ``ops/cuda/filters.cu``): a
+  warp a row, each warp its row's segment of the steps it takes and
+  :data:`PASS_X_TW` columns (the box two, the values ahead and behind),
+  whole up to :data:`PASS_X_SMEM` a block, past it in chunks of steps;
+  and :data:`BOX_PASS_RADIUS` and :data:`GAUSS_PASS_RADIUS`, the radii
+  from which ``ops/filters_cuda.py`` runs K10 and K11 as 1-D passes.
 * :func:`scatter_workspace_ints`: the workspace of K5/K6's scatter route,
   which ``max_motion`` past 59 takes (``ops/cuda/temporal.cu``): counts and segment
   offsets over the anchor grid (the canvas one row and column wider),
@@ -71,6 +78,20 @@ ADJOINT_STAGING = {"K14": ((16, SMEM_PER_BLOCK), (32, 110 * 1024)),
 K12_TX, K12_TY, K12_PX, K12_SEG = 32, 8, 2, 256
 # the ring: the rows a step reads (KR_TY KR_PX - KR_PX + 1) and the next
 K12_RING_ROWS = K12_TY * K12_PX - K12_PX + 2
+# K10's and K11's 1-D passes (KY_P, KY_WARPS, KX_P, KX_WARPS and KX_SMEM of
+# filters.cu): outputs a thread down a column and warps a block along y;
+# outputs a thread along a row (odd: the lanes read the staged row at that
+# stride, one bank each), warps a block (a row each) and the shared
+# memory a block stages at most along x
+PASS_Y_P, PASS_Y_WARPS = 8, 8
+PASS_X_P, PASS_X_WARPS = 9, 4
+PASS_X_TW = 32 * PASS_X_P
+PASS_X_SMEM = 48 * 1024
+# the smallest radius K10 and K11 run as 1-D passes: the 2-D bodies are
+# compiled at r 0-4 (kBodyRadius of filters.cu), the radii where they beat
+# the passes (ops/filters_cuda.py gives the measurement)
+BOX_PASS_RADIUS = 5
+GAUSS_PASS_RADIUS = 5
 # K5/K6 past the staged gather's max_motion (59: its 225 KB region), and
 # the counts a block of the scatter's scan adds (KS_THREADS x kScanItems of
 # temporal.cu)
@@ -178,6 +199,25 @@ def k12_smem(radius: int):
     return 4 * K12_TY * 10 * (K12_SEG + K12_TX - 1), "chunked"
 
 
+def filter_pass_smem(radius: int, width: int, gauss: bool):
+    """``(bytes, steps a chunk, chunks)`` of K11's (``gauss``) or K10's
+    pass along x at ``radius`` on a frame ``width`` wide: a warp steps
+    through at most 2r + 1 gaussian taps or r box steps, and no more than
+    the frame's width and a warp's row segment less one (taps whose values
+    all lie beyond the frame are not taken); a chunk is a multiple of
+    :data:`PASS_X_P` steps, all of them while the block's segments (one
+    for the gaussian, two for the box, chunk + :data:`PASS_X_TW` floats
+    each, a warp) fit :data:`PASS_X_SMEM`: whole up to r 1390 (K11) and
+    1242 (K10) on a wide enough frame."""
+    steps = min(2 * radius + 1 if gauss else radius, width + PASS_X_TW - 1)
+    segs = 1 if gauss else 2
+    fits = ((PASS_X_SMEM // (4 * PASS_X_WARPS * segs) - PASS_X_TW)
+            // PASS_X_P * PASS_X_P)
+    chunk = max(PASS_X_P, min(-(-steps // PASS_X_P) * PASS_X_P, fits))
+    return (4 * PASS_X_WARPS * segs * (chunk + PASS_X_TW), chunk,
+            max(1, -(-steps // chunk)))
+
+
 def scatter_workspace_ints(height: int, width: int, margin: int) -> int:
     """The int32 workspace of K5/K6's (K5c/K6c's) scatter route for a tile
     of ``height`` x ``width`` sources and a history canvas of ``margin``
@@ -214,12 +254,19 @@ def print_model(width: int = 1920, height: int = 1080, radius: int = 2,
 
 def print_wide_forms(width: int = 1920, height: int = 1080) -> None:
     """K12's rolling-row tile's shared memory a block at radii 5-165 (its
-    ring up to r 164, chunked past it) and K5/K6's scatter workspace on the
+    ring up to r 164, chunked past it), K10's and K11's pass along x at
+    radii 17-2000 on a frame ``width`` wide, and K5/K6's scatter workspace on the
     frame and on the history canvas of a 3840x2160 frame's quarter tile at
     max_motion 60 and 1000."""
     for r in (5, 17, 24, 90, 164, 165):
         nbytes, form = k12_smem(r)
         print(f"K12 r{r}: {form}, {nbytes / 1024:.1f} KB a block")
+    for r in (17, 90, 1242, 1243, 2000):
+        for name, gauss in (("K10", False), ("K11", True)):
+            nbytes, chunk, chunks = filter_pass_smem(r, width, gauss)
+            print(f"{name} pass along x r{r} at width {width}: "
+                  f"{nbytes / 1024:.1f} KB a block, {chunks} chunk"
+                  f"{'s' if chunks > 1 else ''} of {chunk} steps")
     for name, (h, w, m) in (
             (f"{width}x{height}", (height, width, 0)),
             (f"quarter canvas of {2 * width}x{2 * height} at M60",

@@ -181,6 +181,25 @@ def test_phase2_sees_the_adjoints_instantiations():
         is None
 
 
+# the mangled names nvcc gives K10's and K11's 1-D passes,
+# pass_y_kernel<GAUSS> and pass_x_kernel<GAUSS> (filters.cu's anonymous
+# namespace), and the forms phase 2 prints and fails on
+@pytest.mark.parametrize("name,form", [
+    ("_ZN12_GLOBAL__N_113pass_y_kernelILb0EEEvPKfPfiiiS2_",
+     "K10 pass along y"),
+    ("_ZN12_GLOBAL__N_113pass_y_kernelILb1EEEvPKfPfiiiS2_",
+     "K11 pass along y"),
+    ("_ZN12_GLOBAL__N_113pass_x_kernelILb0EEEvPKfPfiiiS2_i",
+     "K10 pass along x"),
+    ("_ZN12_GLOBAL__N_113pass_x_kernelILb1EEEvPKfPfiiiS2_i",
+     "K11 pass along x")])
+def test_phase2_names_the_filter_passes(name, form):
+    smoke = _chip_smoke()
+    assert smoke.pass_form(smoke.K1011_PASS.search(name)) == form
+    assert smoke.K1011_PASS.search(
+        "_ZN12_GLOBAL__N_115sep_pass_kernelILb1ELb0EEEvPKfPfiiiS2_") is None
+
+
 def _switch_cases(macro):
     """``{key: counts}`` of the switch whose cases call ``macro`` in
     ``raymarch.cu``."""

@@ -28,16 +28,18 @@ tolerances and repeated bit-equal, the canvas forms too; the
 albedo gradient atol 3e-3·max (the stored bf16 weights; the plain path
 differentiates the float weights), updated albedo atol 1e-5.  Filters and
 K13 (the JAX package's kernel-vs-oracle tolerances): K10 rtol 1e-5, atol
-1e-6 (the kernel sums the 2-D window, its twin sums separably), at every
-compiled radius and the generic body's, at depths split into launches
-past the halo cap, and bit-equal to one level a call; K11 atol 1e-5, and
+1e-6 (the 2-D body sums the 2-D window, its twin sums separably), at
+every compiled radius (0-4), at depths split into launches past the halo
+cap, and bit-equal to one level a call; K11 atol 1e-5, and
 bit-equal to its twin (the same products in the same order); K12 atol
 5e-5 (exp2f of log2(e)-scaled arguments and repeated
 squaring against exp and pow) at radii 0-4 (its staged form) and 5 and 16
 (one thread a pixel), on a 1079 x 1917 frame too, and 17 and 24 (its
-taps in a device array); K10 and K11 at radius 17, 24 and 90 (two 1-D
-passes a level, K11's taps in a device array), bit-equal to their twins
-(the same sums in the same order); K13 at most 0.1 %
+taps in a device array); K10 and K11 as two 1-D passes a level (from
+BOX_PASS_RADIUS and GAUSS_PASS_RADIUS; asked for at 0-4 too, at 17, 90
+and 150, in chunks of a row at 1300-2000), bit-equal to their twins (the
+same sums in the same order), and both routes at r 4, below the
+crossover (K11 bit-equal, K10 at its tolerance); K13 at most 0.1 %
 visibility flips, as K8,
 in each of its instantiations (counted under the key the scene's counts
 pick).  K3 also on a frame of sides no multiple of its 32 x 8 tile, with
@@ -126,9 +128,10 @@ from raymarchdenoisercuda_torch.ops.atrous_cuda import (
     svgf_spatial_cuda, svgf_spatial_stored_cuda)
 from raymarchdenoisercuda_torch.ops.common import (
     Tile, finite_diff_gradients, frame_canvas)
+from raymarchdenoisercuda_torch.ops import filters_cuda
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
-    box_filter_cuda, box_level_groups, cross_bilateral_cuda,
-    gaussian_filter_cuda)
+    BOX_PASS_RADIUS, GAUSS_PASS_RADIUS, box_filter_cuda, box_level_groups,
+    cross_bilateral_cuda, gaussian_filter_cuda)
 from raymarchdenoisercuda_torch.ops.raymarch_cuda import (
     cone_seed_cuda, march_gbuf_cuda, march_gbuf_seeded_cuda,
     scene_key, shadow_factor_cuda, shadow_shade_cuda)
@@ -711,13 +714,22 @@ def test_train_step_kernel_path_matches_plain(dev):
 SHAPES = [(H, W), (37, 53)]
 
 
-# K10's cases: every compiled radius (0-4) and the generic body (8, 16) at
-# depth 1, and deeper calls, r2 d5 and r8 d2 past the halo one launch
-# stages; K11's radii; both also on a frame of odd sides
-K10_CASES = [(r, 1) for r in (0, 1, 2, 3, 4, 8, 16, 17, 24)] + [
-    (1, 3), (2, 3), (2, 5), (8, 2), (17, 2)]
-K11_RADII = [0, 1, 2, 4, 16, 17, 24]
+# K10's cases: every compiled radius (0-4) and the 1-D passes' radii from
+# BOX_PASS_RADIUS (5-16) at depth 1, past 16 and past the two smaller
+# frames' sides (150), and deeper calls, r2 d5 and r4 d3 past the halo one
+# launch stages, the passes at 5, 12 and 17; K11's radii; both also on a
+# frame of odd sides
+ROUTE_RADII = [4, 5, 6, 8, 12, 16]
+K10_CASES = [(r, 1) for r in [0, 1, 2, 3] + ROUTE_RADII + [17, 24, 150]] + [
+    (1, 3), (2, 3), (2, 5), (4, 3), (5, 2), (12, 2), (17, 2)]
+K11_RADII = [0, 1, 2] + ROUTE_RADII + [17, 24, 150]
 FILTER_SHAPES = SHAPES + [(1079, 1917)]
+
+
+def _pass_launches(radius, depth, first):
+    """The launches of K10 (first = BOX_PASS_RADIUS) or K11 as 1-D passes
+    at ``radius``, two a level; 0 where the wrapper takes the 2-D body."""
+    return 2 * depth if radius >= first else 0
 
 
 @pytest.mark.parametrize("shape", FILTER_SHAPES)
@@ -726,11 +738,13 @@ def test_k10_matches_plain(dev, shape, radius, depth):
     """K10 against its twin (which sums separably), launched as many
     times as ``box_level_groups`` splits the depth."""
     x = _planes(dev, 50, *shape)[0]
-    before = box_filter_cuda.launches
+    before = box_filter_cuda.launches, box_filter_cuda.passes.launches
     got = box_filter_cuda(x, radius=radius, depth=depth)
-    # past r 16 two 1-D passes a level
-    assert box_filter_cuda.launches == before + (
-        len(box_level_groups(radius, depth)) if radius <= 16 else 2 * depth)
+    # from BOX_PASS_RADIUS the 1-D passes
+    passes = _pass_launches(radius, depth, BOX_PASS_RADIUS)
+    assert box_filter_cuda.launches == before[0] + (
+        passes or len(box_level_groups(radius, depth)))
+    assert box_filter_cuda.passes.launches == before[1] + passes
     np.testing.assert_allclose(
         _np(got), _np(boxfilter.box_filter(x, radius=radius, depth=depth)),
         rtol=1e-5, atol=1e-6)
@@ -738,7 +752,7 @@ def test_k10_matches_plain(dev, shape, radius, depth):
 
 @pytest.mark.parametrize("shape", FILTER_SHAPES)
 @pytest.mark.parametrize("radius,depth", [(0, 3), (1, 3), (2, 3), (2, 5),
-                                          (3, 4), (8, 2), (24, 2)])
+                                          (3, 4), (4, 3), (24, 2)])
 def test_k10_levels_of_one_launch_match_per_level_launches(dev, shape,
                                                            radius, depth):
     """Levels run in one launch's shared memory, and a call split into
@@ -755,13 +769,15 @@ def test_k10_levels_of_one_launch_match_per_level_launches(dev, shape,
 @pytest.mark.parametrize("radius", K11_RADII)
 @pytest.mark.parametrize("depth", [1, 2])
 def test_k11_matches_plain(dev, shape, radius, depth):
-    """K11 against its twin, one launch an iteration (past r 16, one a
-    pass)."""
+    """K11 against its twin, one launch an iteration (from
+    GAUSS_PASS_RADIUS, one a pass)."""
     x = _planes(dev, 51, *shape)[0]
-    before = gaussian_filter_cuda.launches
+    before = (gaussian_filter_cuda.launches,
+              gaussian_filter_cuda.passes.launches)
     got = gaussian_filter_cuda(x, radius=radius, sigma=2.0, depth=depth)
-    assert gaussian_filter_cuda.launches == before + depth * (
-        1 if radius <= 16 else 2)
+    passes = _pass_launches(radius, depth, GAUSS_PASS_RADIUS)
+    assert gaussian_filter_cuda.launches == before[0] + (passes or depth)
+    assert gaussian_filter_cuda.passes.launches == before[1] + passes
     want = filters.gaussian_filter(x, radius=radius, sigma=2.0, depth=depth)
     np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-5)
 
@@ -785,21 +801,63 @@ K12_RADII = [0, 1, 2, 3, 4, 5, 8, 16, 17, 24, 40]
 
 
 @pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("radius", [17, 90])
+@pytest.mark.parametrize("radius", [0, 1, 2, 3] + ROUTE_RADII + [17, 90, 150])
 def test_k10_k11_separable_passes_bit_equal_to_twins(dev, shape, radius):
-    """Past r 16 K10 and K11 run as their twins do, a pass along y and a
-    pass along x a level, each adding the twin's terms in the twin's order:
-    bit-equal to the twins at depth 1 and 2 (r 90 is wider than the
-    (37, 53) frame)."""
+    """K10 and K11 as 1-D passes (the route from BOX_PASS_RADIUS and
+    GAUSS_PASS_RADIUS; below, called directly) run as their twins
+    do, a pass along y and a pass along x a level, each adding the twin's
+    terms in the twin's order: bit-equal to the twins at depth 1 and 2 (r
+    90 is wider than the (37, 53) frame, r 150 than both)."""
     x = _planes(dev, 58, *shape)[0] - 0.5
+    x[0, :3, :3] = -0.0
+    for depth in (1, 2):
+        assert torch.equal(
+            filters_cuda._separable(x, radius, depth, None, box_filter_cuda),
+            boxfilter.box_filter(x, radius=radius, depth=depth)), depth
+        assert torch.equal(
+            filters_cuda._gaussian_passes(x, radius, 30.0, depth),
+            filters.gaussian_filter(x, radius=radius, sigma=30.0,
+                                    depth=depth)), depth
+
+
+@pytest.mark.parametrize("radius", [1300, 2000])
+def test_k10_k11_passes_stage_rows_in_chunks(dev, radius):
+    """Past the shared memory a block of the pass along x stages (a box
+    segment past 1242 steps, a gaussian one past 2781 taps:
+    utils/tiling.py's filter_pass_smem), the pass stages a row in chunks
+    of steps, its windows carried from one to the next: the twins' floats
+    still (the gaussian chunked at r 2000)."""
+    x = _planes(dev, 59, 16, 3000)[0] - 0.5
+    assert tiling.filter_pass_smem(radius, 3000, False)[2] > 1
+    assert tiling.filter_pass_smem(2000, 3000, True)[2] > 1
     for depth in (1, 2):
         assert torch.equal(
             box_filter_cuda(x, radius=radius, depth=depth),
             boxfilter.box_filter(x, radius=radius, depth=depth)), depth
-        assert torch.equal(
-            gaussian_filter_cuda(x, radius=radius, sigma=30.0, depth=depth),
-            filters.gaussian_filter(x, radius=radius, sigma=30.0,
-                                    depth=depth)), depth
+    assert torch.equal(
+        gaussian_filter_cuda(x, radius=radius, sigma=radius / 2.0),
+        filters.gaussian_filter(x, radius=radius, sigma=radius / 2.0))
+
+
+@pytest.mark.parametrize("radius", [BOX_PASS_RADIUS - 1])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_k10_k11_routes_agree_across_the_crossover(dev, radius, depth):
+    """Both routes at the largest radius the 2-D bodies are compiled at,
+    just below the crossover: K11's 2-D body and its passes add the same
+    products in the same order (bit-equal); K10's 2-D body sums dy-major,
+    dx-minor, its passes separably (within the JAX package's
+    tolerance)."""
+    x = _planes(dev, 60, 1079, 1917)[0]
+    np.testing.assert_allclose(
+        _np(filters_cuda._box_launches(x, radius,
+                                       box_level_groups(radius, depth))),
+        _np(filters_cuda._separable(x, radius, depth, None,
+                                    box_filter_cuda)),
+        rtol=1e-5, atol=1e-6)
+    sigma = radius / 2.0
+    assert torch.equal(
+        filters_cuda._gaussian_launches(x, radius, sigma, depth),
+        filters_cuda._gaussian_passes(x, radius, sigma, depth))
 
 
 @pytest.mark.parametrize("radius", K12_RADII)

@@ -37,7 +37,7 @@ from raymarchdenoisercuda_torch.io import native
 from raymarchdenoisercuda_torch.ops import boxfilter, filters
 from raymarchdenoisercuda_torch.ops.filters_cuda import (
     BOX_HALO_CAP, box_filter_cuda, box_level_groups, cross_bilateral_cuda,
-    gaussian_filter_cuda)
+    gaussian_filter_cuda, pass_taps)
 
 U8_CASES = [(2, 1, False), (2, 1, True), (1, 3, False), (3, 2, True),
             (0, 1, False)]
@@ -88,6 +88,29 @@ def test_box_filter_matches_jax_and_pallas(shape, radius, depth):
                                    interpret=True)):
         np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5,
                                    atol=1e-6)
+
+
+@pytest.mark.parametrize("radius,sigma", [(0, 2.0), (2, 2.0), (17, 8.5),
+                                          (90, 45.0), (1200, 600.0)])
+def test_pass_taps_carry_the_twins_denominators(radius, sigma):
+    """K11's 1-D passes take the JAX package's 2r + 1 taps in float32, then
+    the denominators of the pass along y by row and along x by column: at
+    each position the sum of the taps whose values lie in the frame, added
+    in order from +0.0 in float32 (the twin's ``den + t·m``; a tap beyond
+    the frame adds +0.0), the full sum in the interior."""
+    H, W = 37, 200
+    taps = pass_taps(radius, sigma, H, W)
+    n = 2 * radius + 1
+    assert taps.dtype == torch.float32 and taps.shape == (n + H + W,)
+    want = np.asarray(jfilters._gauss_taps(radius, sigma), np.float32)
+    np.testing.assert_array_equal(taps[:n].numpy(), want)
+    for size, den in ((H, taps[n:n + H]), (W, taps[n + H:])):
+        for pos in sorted({0, 1, size // 2, size - 2, size - 1}):
+            d = np.float32(0.0)
+            for k in range(n):
+                if 0 <= pos + k - radius < size:
+                    d = np.float32(d + want[k])
+            assert den[pos].item() == d, (size, pos)
 
 
 @pytest.mark.parametrize("radius", [0, 1, 2, 3, 4, 8, 9, 16])

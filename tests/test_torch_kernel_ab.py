@@ -14,11 +14,12 @@ camera, a quarter window and the ray planes and alone on each scene, K7
 seeded from the camera, K12 at every
 radius and both sigma_n forms, on the odd frame and through
 ``apply_filter``, K10 at every radius and depth, K11 at every radius,
-sigma and depth, both on the odd frame and through ``apply_filter``;
+sigma and depth, both on the odd frame and through ``apply_filter``, K10
+against its twin across the crossover of its 2-D body and its passes;
 K5/K6 past max_motion 59 (random, wide and sink motion), K5c/K6c on a
 quarter tile's canvas, K12 past radius 16 and this tree's scatter route
 of K5/K6 at max_motion 6; and the wide forms held to this tree's twins:
-K10 and K11 past radius 16;
+K10 and K11 past radius 16 (the other tree too);
 the bf16 forms of K1b, σ given and fused, and K14, and the bf16 sweep),
 and that the outputs are finite and of the expected
 shapes.  No timing, no other
@@ -31,6 +32,7 @@ import pytest
 import torch
 
 from raymarchdenoisercuda_torch.utils import kernel_ab
+from raymarchdenoisercuda_torch.utils.tiling import BOX_PASS_RADIUS
 
 FRAME = (24, 40)
 
@@ -76,12 +78,15 @@ FAMILIES = {
     "K12": (r"^K12 r\d+ sigma", 18, [(3, *FRAME)]),
     "K12 odd": (r"^K12 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
     "K12 apply_filter": (r"^K12 apply", 1, [(3, *FRAME)]),
-    # K10 at r 0-4, 8, 16 (depth 1) and four deeper calls; K11 at five
-    # radii, three sigmas, depth 1 and 2
-    "K10": (r"^K10 r\d+ d\d+$", 11, [(3, *FRAME)]),
+    # K10 at r 0-6, 8, 12, 16 (depth 1), 4-6, 8, 12, 16 (depth 2) and
+    # three deeper calls, and against its twin across the crossover; K11 at
+    # five radii and three sigmas and four radii at sigma r / 2, depth 1
+    # and 2
+    "K10": (r"^K10 r\d+ d\d+$", 19, [(3, *FRAME)]),
+    "K10 twin": (r"^K10 r\d+ d\d+ twin$", 12, [(3, *FRAME)]),
     "K10 odd": (r"^K10 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
     "K10 apply_filter": (r"^K10 apply", 1, [(3, *FRAME)]),
-    "K11": (r"^K11 r\d+ sigma \S+ d\d$", 30, [(3, *FRAME)]),
+    "K11": (r"^K11 r\d+ sigma \S+ d\d$", 38, [(3, *FRAME)]),
     "K11 odd": (r"^K11 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
     "K11 apply_filter": (r"^K11 apply", 1, [(3, *FRAME)]),
     "K4": (r"^K4 ", 4, [(10, *FRAME)]),
@@ -97,16 +102,19 @@ FAMILIES = {
     "K6s": (r"^K6s ", 2, [(10, *FRAME), (2, *FRAME)]),
     # the wide forms: max_motion 60, 96, 128, 600 and 1000 (the canvas of the
     # lower right quarter tile, margin 61 at M 60), radius 17, 24 and 90
-    # (K12: 17 and 24, 17 on the odd frame; held to the other tree), K10
-    # and K11 held to this tree's twin
+    # (K12: 17 and 24, 17 on the odd frame), K10 and K11 also at depth 2,
+    # on the odd frame and past the frame's height, all held to the other
+    # tree; K10 and K11 at 17, 24 and 90 held to this tree's twin too
     "K5w": (r"^K5w ", 9, [(10, *FRAME), (2, *FRAME)]),
     "K6w": (r"^K6w ", 9, [(10, *FRAME), (2, *FRAME)]),
     "K5cw": (r"^K5cw ", 2, [(10, FRAME[0] // 2 + 122, FRAME[1] // 2 + 122),
                             (2, FRAME[0] // 2, FRAME[1] // 2)]),
     "K6cw": (r"^K6cw ", 2, [(10, FRAME[0] // 2 + 122, FRAME[1] // 2 + 122),
                             (2, FRAME[0] // 2, FRAME[1] // 2)]),
-    "K10w": (r"^K10w ", 3, [(3, *FRAME)]),
-    "K11w": (r"^K11w ", 3, [(3, *FRAME)]),
+    "K10w": (r"^K10w r\d+ (d\d|odd frame)$", 7, [(3, *FRAME)]),
+    "K11w": (r"^K11w r\d+ sigma \S+ (d\d|odd frame)$", 7, [(3, *FRAME)]),
+    "K10w twin": (r"^K10w .* twin$", 3, [(3, *FRAME)]),
+    "K11w twin": (r"^K11w .* twin$", 3, [(3, *FRAME)]),
     "K12w": (r"^K12w ", 3, [(3, *FRAME)]),
     # the bf16 forms at level 1, r1 and r3, on the frame and the odd one:
     # K1b-bf16 with σ given (and float weights), with σ fused (and
@@ -144,8 +152,14 @@ def test_kernel_ab_cases_run_on_the_cpu(inputs, family):
             if isinstance(exact, kernel_ab.Twin):
                 # the kernel's twin on the same inputs (here both are the
                 # plain path)
-                assert family in ("K10w", "K11w"), name
+                assert family in ("K10 twin", "K10w twin",
+                                  "K11w twin"), name
                 assert exact.close(out, exact.launch(this)()), name
+            elif family == "K10":
+                # the 2-D body's floats, bit for bit, below the crossover;
+                # the passes' within rounding of a tree that ran it
+                radius = int(re.match(r"K10 r(\d+)", name)[1])
+                assert exact == (radius < BOX_PASS_RADIUS), name
             else:
                 assert exact == EXACT.get(form, True), name
             assert all(bool(torch.isfinite(x.float()).all()) for x in out), \

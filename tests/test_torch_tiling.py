@@ -187,3 +187,60 @@ def test_scatter_workspace_bytes(frame, margin, mib):
     counts = -(-(anchors + 1) // 2048) * 2048
     assert n == 2 * counts + -(-(counts // 2048) // 4) * 4 + H * W
     assert round(4 * n / 2 ** 20, 2) == mib
+
+
+def test_filter_pass_constants_are_the_kernels():
+    """K10's and K11's 1-D passes: outputs a thread and warps a block along
+    y, along x (odd: a warp's lanes read its staged row at that stride, 32
+    banks), and the shared memory a block of the pass along x stages,
+    parsed from filters.cu."""
+    src = (_build._SRC_DIR / "filters.cu").read_text()
+    ky = re.search(r"constexpr int KY_P = (\d+), KY_WARPS = (\d+);", src)
+    kx = re.search(r"constexpr int KX_P = (\d+), KX_WARPS = (\d+);", src)
+    smem = re.search(r"constexpr int KX_SMEM = (\d+) \* 1024;", src)
+    assert (int(ky[1]), int(ky[2])) == (tiling.PASS_Y_P, tiling.PASS_Y_WARPS)
+    assert (int(kx[1]), int(kx[2])) == (tiling.PASS_X_P, tiling.PASS_X_WARPS)
+    assert int(smem[1]) * 1024 == tiling.PASS_X_SMEM
+    assert tiling.PASS_X_P % 2 == 1
+    assert tiling.PASS_X_TW == 32 * tiling.PASS_X_P
+
+
+# (gauss, radius, width, chunks): whole up to r 1390 (K11, 2781 taps) and
+# 1242 (K10) on a frame wide enough; a narrow frame caps the steps at its
+# width and a warp's row less one
+@pytest.mark.parametrize("gauss,radius,width,chunks", [
+    (True, 17, 1920, 1), (True, 90, 1920, 1), (True, 1390, 3840, 1),
+    (True, 1391, 3840, 2), (True, 2000, 1920, 1), (True, 5000, 4000, 2),
+    (True, 5000, 240, 1), (False, 17, 1920, 1), (False, 1242, 3840, 1),
+    (False, 1243, 3840, 2), (False, 2000, 1920, 2), (False, 5000, 240, 1),
+    (False, 0, 1920, 1)])
+def test_filter_pass_smem_stages_whole_or_in_chunks(gauss, radius, width,
+                                                    chunks):
+    """The pass along x stages a warp's segment of the steps a chunk takes
+    and its row (one segment for the gaussian, two for the box) within the
+    block's budget; a chunk is a multiple of the outputs a thread, so the
+    register windows rotate alike in every chunk."""
+    nbytes, chunk, n = tiling.filter_pass_smem(radius, width, gauss)
+    segs = 1 if gauss else 2
+    assert n == chunks
+    assert chunk % tiling.PASS_X_P == 0
+    assert nbytes == 4 * tiling.PASS_X_WARPS * segs * (chunk
+                                                      + tiling.PASS_X_TW)
+    assert nbytes <= tiling.PASS_X_SMEM
+    steps = min(2 * radius + 1 if gauss else radius,
+                width + tiling.PASS_X_TW - 1)
+    assert chunk * n >= steps and chunk * (n - 1) < max(steps, 1)
+
+
+def test_filter_pass_radii_are_the_routes():
+    """K10 and K11 run as 1-D passes from BOX_PASS_RADIUS and
+    GAUSS_PASS_RADIUS up, just past the radii their 2-D bodies are
+    compiled at (kBodyRadius of filters.cu, whose 2r + 1 taps fill K11's
+    parameter struct; the wrappers read the constants from here)."""
+    from raymarchdenoisercuda_torch.ops import filters_cuda
+    src = (_build._SRC_DIR / "filters.cu").read_text()
+    body = int(re.search(r"constexpr int kBodyRadius = (\d+);", src)[1])
+    assert tiling.BOX_PASS_RADIUS == tiling.GAUSS_PASS_RADIUS == body + 1
+    assert len(filters_cuda._GaussParams().taps) == 2 * body + 1
+    assert filters_cuda.BOX_PASS_RADIUS == tiling.BOX_PASS_RADIUS
+    assert filters_cuda.GAUSS_PASS_RADIUS == tiling.GAUSS_PASS_RADIUS
