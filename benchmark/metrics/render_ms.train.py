@@ -1,0 +1,6 @@
+"""Device ms a step of the renderer's kernels (K7 march, K8 shadow and
+shading; kernel_names/renderer*.txt).  Moves step_ms."""
+
+
+def read(trace):
+    return trace.layer_ms("renderer")
