@@ -22,6 +22,7 @@ from torch import nn
 from ..config import CameraParams, RaymarchParams, SVGFParams
 from ..gbuffer import GBuffer, History
 from ..ops.raymarch import Camera, Materials, Scene, render_gbuffer
+from ..utils.timing import span, spanned
 from .svgf import SVGFDenoiser, svgf_denoise_frame
 
 
@@ -103,26 +104,35 @@ def make_train_step(
     ``.grad`` keeps this step's gradient until the next step); the returned
     history is detached, so the graph does not grow across steps.
     ``light_sample`` (3, H, W) replaces the draw from the state's
-    generator (the tests pass the JAX package's sample)."""
+    generator (the tests pass the JAX package's sample).
+
+    Its spans (``utils.timing.span``): the unit ``rdt.step``, and inside it
+    ``rdt.forward`` (render, denoise, loss), ``rdt.backward`` and
+    ``rdt.optim`` (Adam's step and the clip)."""
 
     def train_step(state: TrainState,
                    light_sample: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, torch.Tensor]:
-        state.optimizer.zero_grad(set_to_none=True)
-        scene = dataclasses.replace(base_scene, materials=dataclasses.replace(
-            base_scene.materials, albedo=state.albedo))
-        out, new_hist = render_and_denoise(
-            scene, camera, None, state.history, state.generator,
-            cam_cfg=cam_cfg, rm_params=rm_params, svgf_params=svgf_params,
-            light_sample=light_sample, impl=impl, temporal="ad",
-            motion_grad=False)
-        loss = torch.mean((out.denoised - target) ** 2)
-        loss.backward()
-        state.optimizer.step()
-        with torch.no_grad():
-            state.albedo.clamp_(0.0, 1.0)
-        new_hist = History(**{f.name: getattr(new_hist, f.name).detach()
-                              for f in dataclasses.fields(History)})
+        with span("rdt.step", unit=True):
+            state.optimizer.zero_grad(set_to_none=True)
+            with span("rdt.forward"):
+                scene = dataclasses.replace(
+                    base_scene, materials=dataclasses.replace(
+                        base_scene.materials, albedo=state.albedo))
+                out, new_hist = render_and_denoise(
+                    scene, camera, None, state.history, state.generator,
+                    cam_cfg=cam_cfg, rm_params=rm_params,
+                    svgf_params=svgf_params, light_sample=light_sample,
+                    impl=impl, temporal="ad", motion_grad=False)
+                loss = torch.mean((out.denoised - target) ** 2)
+            with span("rdt.backward"):
+                loss.backward()
+            with span("rdt.optim"):
+                state.optimizer.step()
+                with torch.no_grad():
+                    state.albedo.clamp_(0.0, 1.0)
+            new_hist = History(**{f.name: getattr(new_hist, f.name).detach()
+                                  for f in dataclasses.fields(History)})
         return state._replace(history=new_hist), loss.detach()
 
     return train_step
@@ -162,7 +172,8 @@ class Renderer(nn.Module):
 
 
 class FramePipeline(nn.Module):
-    """Renderer + SVGF denoiser: one call renders and denoises a frame."""
+    """Renderer + SVGF denoiser: one call renders and denoises a frame,
+    the serving unit: the span ``rdt.frame`` (``utils.timing.span``)."""
 
     def __init__(self, scene: Scene, cam_cfg: CameraParams = CameraParams(),
                  rm_params: RaymarchParams = RaymarchParams(),
@@ -174,6 +185,7 @@ class FramePipeline(nn.Module):
         self.denoiser = SVGFDenoiser(svgf_params, weight_math, impl=impl,
                                      precision=precision)
 
+    @spanned("rdt.frame", unit=True)
     def forward(self, camera: Camera, prev_camera: Optional[Camera],
                 history: History,
                 generator: Optional[torch.Generator] = None,

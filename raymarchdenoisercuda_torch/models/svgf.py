@@ -50,6 +50,8 @@ from ..ops.atrous_cuda import BWD_IMPLS, svgf_spatial_ad_cuda
 from ..ops.temporal import temporal_accumulate, temporal_accumulate_ad
 from ..ops.temporal_cuda import (temporal_accumulate_ad_cuda,
                                  temporal_accumulate_cuda)
+from ..utils.timing import (count, count_device, span, span_backward,
+                            spanned, tracing)
 
 _ALBEDO_EPS = 1e-3
 # Surfaces darker than this are emissive/unlit and pass through
@@ -73,6 +75,7 @@ def remodulate(irradiance: torch.Tensor, albedo: torch.Tensor) -> torch.Tensor:
                        irradiance)
 
 
+@spanned("rdt.denoise")
 def svgf_denoise_frame(
     gbuf: GBuffer,
     history: History,
@@ -95,7 +98,13 @@ def svgf_denoise_frame(
     the motion gradient of the differentiable step (exact when the loss does
     not depend on motion through it, as in material-only training);
     ``spatial_bwd`` and ``precision`` (``"f32"`` or ``"bf16"``; ignored by
-    ``impl="plain"``) as in the module docstring."""
+    ``impl="plain"``) as in the module docstring.
+
+    Its spans (``utils.timing.span``): ``rdt.denoise`` (its self time the
+    (de)modulation and the history's bookkeeping), ``rdt.temporal`` and
+    ``rdt.atrous``, and in the backward ``rdt.temporal.bwd`` (the temporal
+    step's adjoint); while they record, the counters ``reprojected_px``
+    (the pixels whose history was taken, on the device) and ``pixels``."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
     if precision not in PRECISIONS:
@@ -113,31 +122,38 @@ def svgf_denoise_frame(
     ad = temporal == "ad"
     work = (gbuf.replace(render=demodulate(gbuf.render, gbuf.albedo))
             if demodulate_albedo else gbuf)
+    with span("rdt.temporal"):
+        if ad:
+            step = (temporal_accumulate_ad_cuda if impl == "auto"
+                    else temporal_accumulate_ad)
+            integrated, variance, new_history = step(
+                work, history, params=params, motion_grad=motion_grad)
+        else:
+            step = (temporal_accumulate_cuda if impl == "auto"
+                    else temporal_accumulate)
+            integrated, variance, new_history = step(work, history,
+                                                     params=params)
+    if tracing():
+        count_device("reprojected_px", (new_history.length > 1).sum())
+        count("pixels", new_history.length.numel())
+        # the epilogue's adjoint is autograd's (the gather's, K5/K6, has
+        # its own span where the history takes a gradient)
+        span_backward("rdt.temporal.bwd", (integrated, variance),
+                      (work.render,))
     spatial_kw = dict(params=params, weight_math=weight_math,
                       return_feedback=True)
-    if impl == "auto":
-        if ad:
-            integrated, variance, new_history = temporal_accumulate_ad_cuda(
-                work, history, params=params, motion_grad=motion_grad)
+    with span("rdt.atrous"):
+        if impl == "auto":
+            if spatial_bwd == "auto":
+                # the fused inference step makes the frame gradient-free
+                spatial_bwd = "stored" if ad else "none"
+            filtered, _, feedback = svgf_spatial_ad_cuda(
+                integrated, variance, gbuf.normal, gbuf.depth,
+                bwd_impl=spatial_bwd, precision=precision, **spatial_kw)
         else:
-            integrated, variance, new_history = temporal_accumulate_cuda(
-                work, history, params=params)
-        if spatial_bwd == "auto":
-            # the fused inference step makes the frame gradient-free
-            spatial_bwd = "stored" if ad else "none"
-        filtered, _, feedback = svgf_spatial_ad_cuda(
-            integrated, variance, gbuf.normal, gbuf.depth,
-            bwd_impl=spatial_bwd, precision=precision, **spatial_kw)
-    else:
-        if ad:
-            integrated, variance, new_history = temporal_accumulate_ad(
-                work, history, params=params, motion_grad=motion_grad)
-        else:
-            integrated, variance, new_history = temporal_accumulate(
-                work, history, params=params)
-        filtered, _, feedback = svgf_spatial_ref(
-            integrated, variance, gbuf.normal, gbuf.depth,
-            detach_weights=detach_weights, **spatial_kw)
+            filtered, _, feedback = svgf_spatial_ref(
+                integrated, variance, gbuf.normal, gbuf.depth,
+                detach_weights=detach_weights, **spatial_kw)
     new_history = new_history.replace(color=feedback)
     denoised = (remodulate(filtered, gbuf.albedo) if demodulate_albedo
                 else filtered)

@@ -53,6 +53,7 @@ import ctypes
 import torch
 
 from ..config import SVGFParams
+from ..utils.timing import spanned
 from ..utils.tiling import adjoint_staged
 from .atrous import (PRECISIONS, WEIGHT_MATHS, _EPS, _LN2, _LOG2E,
                      _spline_taps, atrous_level_bwd_ref,
@@ -655,6 +656,7 @@ class _AtrousLevel(torch.autograd.Function):
         return c, v
 
     @staticmethod
+    @spanned("rdt.atrous.bwd")
     def backward(ctx, gc, gv):
         kw = dict(level=ctx.level, params=ctx.params)
         gc, gv = gc.contiguous(), gv.contiguous()
@@ -745,6 +747,7 @@ class _StoredSweep(torch.autograd.Function):
         return c, v, feedback
 
     @staticmethod
+    @spanned("rdt.atrous.bwd")
     def backward(ctx, gc, gv, gfeed):
         params = ctx.params
         feed_used = 1 <= params.feedback_level <= params.iterations

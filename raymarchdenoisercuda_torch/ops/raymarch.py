@@ -47,6 +47,7 @@ import torch
 from ..config import CameraParams, RaymarchParams
 from ..device import resolve_device
 from ..gbuffer import GBuffer
+from ..utils.timing import spanned
 
 _AMBIENT = 0.08
 _SHADOW_MIN_STEP = 0.01
@@ -105,6 +106,7 @@ class _Norm3(torch.autograd.Function):
         return r
 
     @staticmethod
+    @spanned("rdt.render.bwd")
     def backward(ctx, g):
         v, r = ctx.saved_tensors
         scale = torch.where(r > 0, g / torch.where(r > 0, r, 1.0), 0.0)
@@ -140,6 +142,7 @@ class _Abs(torch.autograd.Function):
         return torch.abs(x)
 
     @staticmethod
+    @spanned("rdt.render.bwd")
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
         return torch.where(x >= 0, g, -g)
@@ -452,6 +455,7 @@ class _March(torch.autograd.Function):
         return (t, hit, mat, n) if fused else (t, hit, mat)
 
     @staticmethod
+    @spanned("rdt.render.bwd")
     def backward(ctx, g_t, _g_hit, _g_mat, g_n=None):
         sph, box, pl, ro, rd, t, hit = ctx.saved_tensors
         if not any(ctx.needs_input_grad[:5]):
@@ -731,6 +735,7 @@ class _TableLookup(torch.autograd.Function):
         return table.t()[:, idx]
 
     @staticmethod
+    @spanned("rdt.render.bwd")
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         onehot = torch.nn.functional.one_hot(idx, ctx.rows).to(g.dtype)
@@ -766,6 +771,7 @@ def render_gbuffer(
         light_sample=light_sample, spp=spp, impl=impl)
 
 
+@spanned("rdt.render")
 def render_gbuffer_window(
     scene: Scene,
     camera: Camera,

@@ -45,6 +45,7 @@ from typing import Optional, Tuple
 import torch
 
 from ..config import CameraParams, RaymarchParams
+from ..utils.timing import spanned
 from .cuda import _build
 from .raymarch import (Camera, Scene, cone_march, cone_rays,
                        cone_rays_analytic, march, march_gbuf,
@@ -374,6 +375,7 @@ class _ShadowShade(torch.autograd.Function):
         return render, vis, motion
 
     @staticmethod
+    @spanned("rdt.render.bwd")
     def backward(ctx, g_render, _g_vis, g_motion=None):
         p, n, light_p, albedo, emission, hit, vis, light_consts, prev = (
             ctx.saved_tensors)

@@ -47,6 +47,7 @@ import torch
 
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History, luminance
+from ..utils.timing import spanned
 from .common import (Tile, canvas_margin, crop, fma, shift2d,
                      tent, tent_prime, valid_mask)
 
@@ -246,6 +247,7 @@ class _ReprojectGather(torch.autograd.Function):
         return fwd(stack, motion, max_motion, tile=tile)
 
     @staticmethod
+    @spanned("rdt.temporal.bwd")
     def backward(ctx, g):
         stack, motion = ctx.saved_tensors
         max_motion, motion_grad, grad_planes, bwd, tile, shape = ctx.args

@@ -50,6 +50,7 @@ import torch
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History
 from ..utils.tiling import GATHER_STAGED_MAX_MOTION, scatter_workspace_ints
+from ..utils.timing import spanned
 from .atrous_cuda import LaunchCount
 from .common import Tile, canvas_margin
 from .cuda import _build
@@ -595,6 +596,7 @@ class _ClampedGather(torch.autograd.Function):
         return clamped_gather_cuda(stack, motion)
 
     @staticmethod
+    @spanned("rdt.temporal.bwd")
     def backward(ctx, g):
         stack, motion = ctx.saved_tensors
         return clamped_gather_bwd_cuda(
@@ -639,6 +641,7 @@ class _StackChannelMinor(torch.autograd.Function):
         return out.permute(2, 0, 1)
 
     @staticmethod
+    @spanned("rdt.temporal.bwd")
     def backward(ctx, g):
         return g[0:3], g[3:5], g[5], g[6], g[7:10]
 
