@@ -10,7 +10,8 @@ the script exits non-zero without printing a result):
 2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``
    (one nvcc per source, in parallel) and print ptxas's registers, stack
    and spills of the à-trous level forward's instantiations (K1/K1b, each
-   radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's
+   radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's, K16's,
+   K15's
    (both routes, and the camera route's first launch), K10's and K11's
    2-D bodies (r 0-4), K12's staged form (r <= 4), KG's,
    KGb's (and its rounding pass), KGp's, K4/K4c's and K5/K6's (K5c/K6c;
@@ -25,7 +26,8 @@ the script exits non-zero without printing a result):
    fail if K2/K2b or K14 in any form (staged or through the caches,
    compiled radius or any), K1/K1b or a bf16 form of K1b or K14 at a
    compiled radius, or if K2/K2b or K14 lacks a form, K9 at r <= 1, K7, K8,
-   K13 or K15 on a compiled scene, K3/K3b, K15's first camera launch, K10
+   K13 or K15 on a compiled scene, K3/K3b, K16, K15's first camera launch,
+   K10
    or K11 at r <= 4 or in a 1-D pass, a K12 form, a KG, KGb or KGp kernel
    or a K4-K6 kernel (the scatter's included) uses local memory (K9 at r2
    and wider spills: printed, not failed; the wide bf16 forms fail above
@@ -35,7 +37,8 @@ the script exits non-zero without printing a result):
    with CUDA events: K1 à-trous level (inference and store mode), K2
    stored-weight adjoint, K1b level with a given σ-denominator, K2b
    stored adjoint from float32 weights, K14 recompute adjoint, K9 adjoint
-   through the weights, K3 temporal step, K4 reprojection gather, K5/K6
+   through the weights, K3 temporal step, K16 its adjoint for the render
+   (the training step's; bit-equal to its twin), K4 reprojection gather, K5/K6
    its adjoints (on random, integer, zero and a served frame's motion,
    their history gradient the same on a second launch, timed on the random
    and the served input, with ``grid_sample``'s forward and backward timed
@@ -87,11 +90,13 @@ the script exits non-zero without printing a result):
    frames match the plain path;
 5. the training step (BASELINE config 4): ``make_train_step`` at
    1920x1080 on the Cornell scene, radius 1, 5 levels, exact weights,
-   Adam at lr 1e-2 against a seeded target; 1 warm-up and 8 timed steps
+   Adam at lr 1e-2 against a seeded target (its temporal step K3 and
+   K16: only the render takes a gradient); 1 warm-up and 8 timed steps
    (ms/step, peak memory); the first 2 steps match the plain path;
 6. the temporal gradient path: ``svgf_denoise_frame(temporal="ad")`` at
-   1080p differentiated with respect to motion and history, with the motion
-   gradient (K5) and without it (K6); gradients match the plain path;
+   1080p differentiated with respect to motion and history (K4 and the
+   plain epilogue), with the motion gradient (K5) and without it (K6);
+   gradients match the plain path;
 7. the reference's own surface: the CLI's ``-t`` case runner
    (``raymarchdenoisercuda_torch.cli``) on the 1920x1080 filter, spatial,
    temporal, raymarch and device cases, on the card;
@@ -223,7 +228,8 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
     gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
     history_stack_channel_minor_cuda, temporal_accumulate_ad_cuda,
-    temporal_accumulate_canvas_cuda, temporal_accumulate_cuda)
+    temporal_accumulate_canvas_cuda, temporal_accumulate_cuda,
+    temporal_bwd_cuda)
 from raymarchdenoisercuda_torch.parallel import scaling, sharded
 from raymarchdenoisercuda_torch.parallel.distributed import spawn_group
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
@@ -265,6 +271,7 @@ WRAPPERS = {"K1": atrous_level_cuda, "K2": atrous_level_bwd_stored_cuda,
             "K15": cone_seed_cuda, "K7s": march_gbuf_seeded_cuda,
             "KG": clamped_gather_cuda, "KGb": clamped_gather_bwd_cuda,
             "KGp": history_stack_channel_minor_cuda,
+            "K16": temporal_bwd_cuda,
             # the bf16 forms count apart from their float32 wrappers; the
             # fused-σ launches of K1b-bf16 count on both of its counts (the
             # kernels line marks the fused form "form_of" K1b-bf16)
@@ -342,6 +349,10 @@ KERNELS = {
     # the channel-minor stack that bilinear_gather_many builds
     "KGp": ("clamped_gather_stack", CUDA_SRC + "temporal.cu",
             "raymarchdenoisercuda_tpu/ops/temporal.py:57"),
+    # no TPU kernel: the JAX package differentiates its epilogue by
+    # autodiff; K16 is the fused step's (K3's) adjoint for the render
+    "K16": ("temporal_step_bwd", CUDA_SRC + "temporal.cu",
+            "raymarchdenoisercuda_tpu/ops/temporal.py:184"),
     # precision="bf16" of atrous_level_fwd_pallas / atrous_level_bwd_pallas
     "K1b-bf16": ("atrous_level_sigma_bf16", CUDA_SRC + "atrous_level.cuh",
                  PALLAS + "atrous_tpu.py:780"),
@@ -489,6 +500,8 @@ K8_MANGLED = re.compile(r"12shade_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 # thread)
 K13_MANGLED = re.compile(r"13shadow_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 K3_MANGLED = re.compile(r"15temporal_kernelILb([01])ELi\d+EE")
+# the fused step's adjoint, temporal_bwd_kernel (K16)
+K16_MANGLED = re.compile(r"19temporal_bwd_kernel")
 # the cone seed's march, cone_kernel<NS, NB, NP, CAMERA> (CAMERA: its cones
 # from the camera), and its first launch on that route, cone_delta_kernel;
 # the cross-bilateral filter's staged form, cross_bilateral_staged_kernel<R,
@@ -755,6 +768,12 @@ def report_resources():
                 k13.append(counts)
                 if res[1] or res[2] or res[3]:
                     local.append(f"K13 {counts}")
+        if K16_MANGLED.search(name):
+            phase(2, f"K16: {res[0]} registers, stack {res[1]} B, spills "
+                     f"{res[2] + res[3]} B")
+            k3.append("K16")
+            if res[1] or res[2] or res[3]:
+                local.append("K16")
         m = K3_MANGLED.search(name)
         if m:
             form = "K3 tile/K3b" if m.group(1) == "1" else "K3"
@@ -792,9 +811,9 @@ def report_resources():
             k9[(int(m.group(1).replace("n", "-")), int(m.group(2)))] = res
     if not k1 or not k9:
         raise AssertionError("phase 2: no K1 or K9 kernel in ptxas's report")
-    if sorted(k3) != ["K3", "K3 tile/K3b"] or len(k13) != 2:
-        raise AssertionError(f"phase 2: K3/K3b {k3} or compiled K13 {k13} "
-                             f"missing from ptxas's report")
+    if sorted(k3) != ["K16", "K3", "K3 tile/K3b"] or len(k13) != 2:
+        raise AssertionError(f"phase 2: K3/K3b, K16 {k3} or compiled K13 "
+                             f"{k13} missing from ptxas's report")
     if len(k15) != 4 or sorted(k12) != [0, 1, 2, 3, 4]:
         raise AssertionError(f"phase 2: compiled K15 {k15} or staged K12 "
                              f"{sorted(k12)} missing from ptxas's report")
@@ -1331,6 +1350,46 @@ def check_k3(P, results):
                          bytes=104 * HW, flops=(60 + 49 * 8 * short) * HW)
     phase(3, f"K3: ok, max |err| {err:.3g}, {ms:.4f} ms, plain "
              f"{plain_ms:.4f} ms")
+
+
+def check_k16(P, results):
+    """K16, the fused step's adjoint, on phase 3's input (K3's): bit-equal
+    to its plain twin, with the cotangents of integrated and variance (the
+    training step's; the new moments take none there)."""
+    g = GBuffer(render=P["color"], albedo=P["color"], normal=P["normal"],
+                depth=P["depth"], motion=P["motion"])
+    h = History(color=P["h_color"], moments=P["h_moments"],
+                length=P["h_length"], prev_depth=P["depth"],
+                prev_normal=P["normal"])
+    params = SVGFParams()
+    with torch.no_grad():
+        _, _, nh = temporal_accumulate_cuda(g, h, params=params)
+    gen = torch.Generator(g.device).manual_seed(16)
+    gi = torch.randn(P["color"].shape, generator=gen, device=g.device)
+    gv = torch.randn(P["depth"].shape, generator=gen, device=g.device)
+
+    def run(fn):
+        return lambda: fn(g, h, nh.moments, nh.length, gi, gv, None,
+                          params=params)
+
+    got = run(temporal_bwd_cuda)()
+    want = temporal.temporal_step_bwd_ref(g, h, nh.moments, nh.length, gi,
+                                          gv, None, params)
+    if not torch.equal(got, want):
+        raise AssertionError(f"K16 != its twin at {int((got != want).sum())}"
+                             f" elements (max |diff| {max_err(got, want)})")
+    ms = cuda_time_ms(run(temporal_bwd_cuda), repeats=20)
+    plain_ms = cuda_time_ms(lambda: temporal.temporal_step_bwd_ref(
+        g, h, nh.moments, nh.length, gi, gv, None, params), repeats=3)
+    HW = g.depth.numel()
+    # read once: render 12, motion 8, depth 4, normal 12, the 8 history
+    # planes the validity and clamp read 32, n_new 4, moments 8, the
+    # cotangents 16; written: d_render 12; ~400 operations a pixel
+    results["K16"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                          bytes=108 * HW, flops=400 * HW)
+    b_ms, b_by = bound(108 * HW, 400 * HW)
+    phase(3, f"K16: ok, bit-equal to its twin, {ms:.4f} ms ({b_ms / ms:.2f} "
+             f"of its bound {b_ms:.4f} ms, {b_by}), plain {plain_ms:.4f} ms")
 
 
 def _grid(motion):
@@ -2604,7 +2663,7 @@ def train_phase(H, W, dev):
         state, dev_ms, host_ms, kept = run_train(step, state, n, CHECK_STEPS)
         peak = torch.cuda.max_memory_allocated() - base
         if impl == "auto":
-            counts = read_counts(5, ("K1", "K2", "K4", "K7", "K8"))
+            counts = read_counts(5, ("K1", "K2", "K3", "K16", "K7", "K8"))
             dev_ms, host_ms = dev_ms[1:], host_ms[1:]
         runs[impl] = (dev_ms, host_ms, kept, peak)
         del step, state
@@ -2677,7 +2736,8 @@ def seeded_train_phase(H, W, dev):
                                  f" against its frame's {frames[seeded][1]}")
         runs[seeded] = (dev_ms[1:], kept)
         del step, state
-    require_launched(11, counts, ("K1", "K2", "K4", "K15", "K7s", "K8"))
+    require_launched(11, counts, ("K1", "K2", "K3", "K16", "K15", "K7s",
+                                  "K8"))
     if counts["K7"]:
         raise AssertionError("phase 11: the seeded train step launched K7")
     stats = compare_seeded("seeded train step 0 frame", frames[True][0],
@@ -3826,6 +3886,7 @@ def main(argv=None) -> int:
     check_wide_adjoints(P, results)
     check_bf16_kernels(P, results)
     check_k3(P, results)
+    check_k16(P, results)
     check_k4_k5_k6(P, results)
     check_filters(P, results)
     check_wide_forms(P, results)

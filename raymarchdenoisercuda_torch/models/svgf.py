@@ -8,8 +8,10 @@ for CPU tensors:
 * ``temporal="auto"``/``"fused"``: the fused inference step (K3), then the
   inference sweep (K1 without weight writes) — no gradient, as the JAX
   package's ``spatial_bwd="auto"`` resolves it;
-* ``temporal="ad"``: the differentiable step (K4, adjoint K5/K6) and the
-  stored-weight sweep (K1 in store mode, adjoint K2) — the training path.
+* ``temporal="ad"``: the differentiable step (where only the render takes a
+  gradient K3 with its adjoint K16, elsewhere K4, adjoint K5/K6, and the
+  plain epilogue) and the stored-weight sweep (K1 in store mode, adjoint
+  K2) — the training path.
 
 ``spatial_bwd`` picks the sweep's adjoint as the JAX package's does
 (``svgf_spatial_ad_cuda``'s ``bwd_impl``): ``"auto"`` is ``"none"`` after
@@ -48,7 +50,8 @@ from ..gbuffer import GBuffer, History
 from ..ops.atrous import PRECISIONS, svgf_spatial_ref
 from ..ops.atrous_cuda import BWD_IMPLS, svgf_spatial_ad_cuda
 from ..ops.temporal import temporal_accumulate, temporal_accumulate_ad
-from ..ops.temporal_cuda import (temporal_accumulate_ad_cuda,
+from ..ops.temporal_cuda import (fused_step_route,
+                                 temporal_accumulate_ad_cuda,
                                  temporal_accumulate_cuda)
 from ..utils.timing import (count, count_device, span, span_backward,
                             spanned, tracing)
@@ -122,6 +125,10 @@ def svgf_denoise_frame(
     ad = temporal == "ad"
     work = (gbuf.replace(render=demodulate(gbuf.render, gbuf.albedo))
             if demodulate_albedo else gbuf)
+    # K3 and its adjoint K16 (one Function with a span of its own), where
+    # only the render takes a gradient
+    fused_ad = ad and impl == "auto" and fused_step_route(
+        work, history, params, motion_grad)
     with span("rdt.temporal"):
         if ad:
             step = (temporal_accumulate_ad_cuda if impl == "auto"
@@ -136,10 +143,11 @@ def svgf_denoise_frame(
     if tracing():
         count_device("reprojected_px", (new_history.length > 1).sum())
         count("pixels", new_history.length.numel())
-        # the epilogue's adjoint is autograd's (the gather's, K5/K6, has
-        # its own span where the history takes a gradient)
-        span_backward("rdt.temporal.bwd", (integrated, variance),
-                      (work.render,))
+        if not fused_ad:
+            # the epilogue's adjoint is autograd's (the gather's, K5/K6,
+            # has its own span where the history takes a gradient)
+            span_backward("rdt.temporal.bwd", (integrated, variance),
+                          (work.render,))
     spatial_kw = dict(params=params, weight_math=weight_math,
                       return_feedback=True)
     with span("rdt.atrous"):

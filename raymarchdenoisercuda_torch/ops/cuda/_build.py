@@ -53,6 +53,7 @@ SIGNATURES = {
     "rdt_atrous_bwd_bf16": (_P,) * 14,
     "rdt_bf16_formulas": (_P,) * 3,
     "rdt_temporal": (_P,) * 16,
+    "rdt_temporal_bwd": (_P,) * 16,
     "rdt_gather": (_P,) * 3 + (_I,) * 3 + (_P,) * 2,
     "rdt_gather_bwd": (_P,) * 5 + (_I,) * 5 + (_P,) * 2 + (_I, _P),
     "rdt_clamped_gather": (_P,) * 3 + (_I,) * 4 + (_P,),

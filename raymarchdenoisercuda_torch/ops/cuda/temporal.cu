@@ -123,6 +123,45 @@
 //   workspace, through PyTorch's allocator: counts and offsets over the
 //   anchor grid and one source index a pixel.
 
+// K16 (temporal_bwd_kernel; no TPU kernel: the JAX package differentiates
+// its epilogue by autodiff) is the adjoint of K3's whole-frame step with
+// respect to the render, for the training step, where only the render
+// takes a gradient (ops/temporal_cuda.py _FusedTemporalStep: forward K3,
+// backward K16).  Plain twin: temporal_step_bwd_ref in ops/temporal.py,
+// which it follows operation by operation.  With a = alpha where the
+// history is valid, else 1, the render's cotangent at pixel p is
+//   g_c(p) * a(p)                                      (its own blend)
+//   + the clamp's: the clamped colour min(max(prev, cmin), cmax) takes
+//     (1 - alpha) g_c at a valid pixel; cmin's and cmax's cotangents go
+//     back through the separable 3x3 min/max (rows, then columns, the
+//     offsets -1 then +1: m(m(v(p), v(p - e)), v(p + e)) a pass), the
+//     cotangent of a link split in halves between tied sides, as
+//     torch.minimum/torch.maximum (and jnp.minimum/maximum) split it;
+//   + L_c * (the luma's): the moments' cotangents, plus those of the
+//     temporal variance max(m2 - m1^2, 0) where the pixel is not short,
+//     times a_m, through (l, l^2); and where a pixel q within 3 is short
+//     (n_new < variance_boost_frames), the spatial variance
+//     max(s2 - s1^2, 0) of q's 7x7 window sums, whose cotangents G1 =
+//     -2 s1 dv / n_q and G2 = dv / n_q are summed over p's own 7x7 window
+//     (the window sum is its own adjoint): W(G1) + 2 l W(G2).
+// max(., 0) halves its cotangent at 0, as torch.maximum does.  Gather
+// form: each pixel adds its terms in a fixed order, no atomics.  History,
+// motion, depth and normal take no gradient here.  The bound: memory,
+// 108 B a pixel (read the render, motion, depth and normal, the 8 history
+// planes validity and the clamp read, n_new and the new moments, the
+// cotangents of integrated and variance, 92 B; write d_render, 12 B):
+// 0.27 ms at 3840x2160 and 3.35 TB/s; a block re-reads its render tile
+// with a 6-pixel halo (3.4x) and regathers the history of a 1-pixel ring
+// (1.33x) through the caches.  Measured at 3840x2160 on an H100 (device
+// time, a served frame's inputs / uniform random motion): 0.74 / 0.89 ms,
+// of which the clamp ~0.33 and the 7x7 ~0.18 on the served frame.  Tried
+// and dropped: each receiver recomputing the three shares it takes from
+// its neighbours' min/max triples (all three channels a pass; 0.80 /
+// 0.94 ms); a register cap for 5 blocks an SM (__launch_bounds__(256,
+// 5): 48 registers with spills, 0.73 / 0.94 ms, 1.27x slower without the
+// clamp on random motion); a 32 x 16 tile of 512 threads (less halo a
+// pixel, 2 blocks an SM: 0.76 / 0.92 ms).
+
 // Tiles (the sharded pipeline, parallel/sharded.py).  Each kernel computes
 // the H x W centre of a tile whose pixel (0, 0) is the global pixel
 // (gy0, gx0) of an Hg x Wg frame, and tests every tap, and the reprojected
@@ -1658,6 +1697,473 @@ __global__ void round_planes_kernel(const double* __restrict__ scratch,
     }
 }
 
+// K16: the adjoint, with respect to the render, of the bounded whole-frame
+// step (see the header).  A block of 32 x 8 threads, one output pixel a
+// thread, stages its render tile with a 6-pixel halo (cp.async, in flight
+// while the threads regather their history) and runs three stages in
+// shared memory, each in the plain twin's order (temporal_step_bwd_ref):
+//   1. the clamp, a channel at a time: the rows' pass (min and max over a
+//      column's 3 rows, K16Tile::cl.r) at rows -1..8 and columns -2..33;
+//      at the tile and a 1-pixel ring, cmin and cmax (the columns' pass of
+//      cl.r), the cotangents (1 - alpha) g of the clamped colour that
+//      reach them, and the shares of each that the columns' pass sends to
+//      the pixel and to its -x and +x neighbours (cl.s); at rows -1..8, the
+//      rows' pass's cotangent (the pixel's own share, then its +x
+//      neighbour's, then its -x neighbour's) and the shares of it that the
+//      rows' pass sends to the pixel and to its -y and +y neighbours
+//      (cl.v, in cl.r's memory); at the pixel, its own share, then its +y
+//      neighbour's, then its -y neighbour's;
+//   2. the moments and the temporal variance at the pixel, in registers;
+//   3. where a pixel within 3 of the tile is short (__syncthreads_or), the
+//      spatial variance: the 7-row sums of luma and luma^2 (K3's order),
+//      each pixel's cotangents of its two window sums (vb.g1, vb.g2) at
+//      rows -3..10 and columns -3..34, and their 7x7 window sums at the
+//      tile (their own adjoint), in the same order.
+// Threads outside the frame stay through every barrier.
+constexpr int K16_TX = 32, K16_TY = 8, K16_HALO = 6;
+// the ring of the clamp's cotangents around the tile: its top and bottom
+// rows, then its left and right columns
+constexpr int K16_RING = 2 * (K16_TX + 2) + 2 * K16_TY;
+
+struct K16Tile {
+    static constexpr int SW = K16_TX + 2 * K16_HALO;      // staged render
+    static constexpr int SH = K16_TY + 2 * K16_HALO;
+    static constexpr int CW = K16_TX + 2, CH = K16_TY + 2;   // tile + ring
+    static constexpr int RW = K16_TX + 4;     // the rows' pass, cols -2..33
+    static constexpr int VW = K16_TX + 6, VH = K16_TY + 6;   // 7x7 reach
+    float c[3][SH][SW];     // the render (zero outside the frame)
+    union {
+        struct {            // one channel's clamp (min, max)
+            union {
+                float r[2][CH][RW];      // the rows' pass (+-inf out)
+                float v[2][3][CH][K16_TX];   // shares of its cotangent:
+                                             // own, to -y, to +y
+            };
+            float s[2][3][CH][CW];       // shares of cmin's, cmax's
+                                         // cotangents: own, to -x, to +x
+        } cl;
+        struct {
+            float l[SH][SW];             // luma
+            float s1[VH][SW], s2[VH][SW];    // 7-row sums at rows -3..10
+            float g1[VH][VW], g2[VH][VW];    // window sums' cotangents
+            float t1[K16_TY][VW], t2[K16_TY][VW];  // their 7-row sums
+        } vb;
+    } u;
+};
+
+// The share a side takes of a link's cotangent: all where it alone is the
+// extreme, half where the two tie (torch.minimum/maximum's rule).
+__device__ __forceinline__ float tie_share(bool strict, bool tie) {
+    return strict ? 1.0f : (tie ? 0.5f : 0.0f);
+}
+
+// The shares of the cotangent of m(m(a, b), c) (m = min for LO, else max)
+// that reach a, b and c.
+template <bool LO>
+__device__ __forceinline__ void chain_shares(float a, float b, float c,
+                                             float& wa, float& wb,
+                                             float& wc) {
+    // a link's two shares sum to 1 (0 and 1, or halves)
+    const float o1 = LO ? fminf(a, b) : fmaxf(a, b);
+    wc = tie_share(LO ? c < o1 : c > o1, c == o1);
+    const float wo = 1.0f - wc;
+    const float sa = tie_share(LO ? a < b : a > b, a == b);
+    wa = wo * sa;
+    wb = wo * (1.0f - sa);
+}
+
+// K3's reprojection of the 8 planes validity and the clamp read (colour,
+// length, previous depth and normal), in its arithmetic: whether pixel
+// (y, x) of the frame takes its history, and its history colour.
+__device__ __forceinline__ bool k16_regather(
+    const float* __restrict__ motion, const float* __restrict__ depth,
+    const float* __restrict__ normal, const float* __restrict__ h_color,
+    const float* __restrict__ h_length, const float* __restrict__ h_depth,
+    const float* __restrict__ h_normal, int H, int W, int M, int y, int x,
+    float prev[3]) {
+    const int hw = H * W, i = y * W + x;
+    const float* planes[8] = {h_color, h_color + hw, h_color + 2 * hw,
+                              h_length, h_depth, h_normal, h_normal + hw,
+                              h_normal + 2 * hw};
+    float g[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) g[j] = 0.0f;
+    const float m0 = motion[i], m1 = motion[hw + i];
+    const float ys = (float)y + m0, xs = (float)x + m1;
+    const bool within = fabsf(m0) <= (float)M && fabsf(m1) <= (float)M;
+    const bool in_bounds = ys >= 0.0f && ys <= (float)(H - 1) && xs >= 0.0f
+        && xs <= (float)(W - 1) && within;
+    if (within) {
+        const float y0 = floorf(m0), x0 = floorf(m1);
+        for (int ay = 0; ay <= 1; ++ay) {
+            const float dyf = y0 + (float)ay;
+            const float ty = fmaxf(1.0f - fabsf(m0 - dyf), 0.0f);
+            const int ry = y + (int)dyf;
+            for (int ax = 0; ax <= 1; ++ax) {
+                const float dxf = x0 + (float)ax;
+                const float tx = fmaxf(1.0f - fabsf(m1 - dxf), 0.0f);
+                const int rx = x + (int)dxf;
+                const bool inside = ry >= 0 && ry < H && rx >= 0 && rx < W;
+                const float w = ty * tx;
+                const int q = ry * W + rx;
+#pragma unroll
+                for (int j = 0; j < 8; ++j) {
+                    g[j] = __fmaf_rn(w, inside ? planes[j][q] : 0.0f, g[j]);
+                }
+            }
+        }
+    }
+    prev[0] = g[0];
+    prev[1] = g[1];
+    prev[2] = g[2];
+    const float z = depth[i];
+    const bool depth_ok = fabsf(g[4] - z) <= 0.1f * fmaxf(fabsf(z), 1e-3f);
+    const float ndot = g[5] * normal[i] + g[6] * normal[hw + i]
+        + g[7] * normal[2 * hw + i];
+    return in_bounds && depth_ok && ndot > 0.8f && g[3] > 0.0f;
+}
+
+__global__ void __launch_bounds__(K16_TX * K16_TY)
+temporal_bwd_kernel(const float* __restrict__ render,
+                    const float* __restrict__ motion,
+                    const float* __restrict__ depth,
+                    const float* __restrict__ normal,
+                    const float* __restrict__ h_color,
+                    const float* __restrict__ h_length,
+                    const float* __restrict__ h_depth,
+                    const float* __restrict__ h_normal,
+                    const float* __restrict__ moments,
+                    const float* __restrict__ n_new,
+                    const float* __restrict__ g_integ,
+                    const float* __restrict__ g_var,
+                    const float* __restrict__ g_mom,
+                    float* __restrict__ d_render, TemporalParams p) {
+    using T = K16Tile;
+    __shared__ T sm;
+    const int H = p.H, W = p.W, hw = H * W;
+    const int bx0 = blockIdx.x * K16_TX, by0 = blockIdx.y * K16_TY;
+    const int tid = threadIdx.y * K16_TX + threadIdx.x;
+    constexpr int NT = K16_TX * K16_TY;
+
+    for (int e = tid; e < T::SH * T::SW; e += NT) {
+        const int sy = e / T::SW, sx = e - sy * T::SW;
+        const int ry = by0 + sy - K16_HALO, rx = bx0 + sx - K16_HALO;
+        if (ry >= 0 && ry < H && rx >= 0 && rx < W) {
+            const int q = ry * W + rx;
+            cp_async4(&sm.c[0][sy][sx], render + q);
+            cp_async4(&sm.c[1][sy][sx], render + hw + q);
+            cp_async4(&sm.c[2][sy][sx], render + 2 * hw + q);
+        } else {
+            sm.c[0][sy][sx] = 0.0f;
+            sm.c[1][sy][sx] = 0.0f;
+            sm.c[2][sy][sx] = 0.0f;
+        }
+    }
+
+    // the clamp's positions: the thread's pixel (k = 0) and one pixel of
+    // the ring (k = 1, the first K16_RING threads); the history regathered
+    // while the render tile is in flight
+    const int y = by0 + threadIdx.y, x = bx0 + threadIdx.x;
+    const bool live = y < H && x < W;
+    int cy[2], cx[2];
+    bool at[2];
+    float gp[2][3], prev[2][3];
+    bool valid = false;
+    float alpha = 0.0f, alpha_m = 0.0f, nn = 1.0f, gi[3] = {0, 0, 0};
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+        if (k == 0) {
+            cy[k] = threadIdx.y;
+            cx[k] = threadIdx.x;
+        } else {
+            const int e = tid;
+            cy[k] = e < K16_TX + 2 ? -1
+                : e < 2 * (K16_TX + 2) ? K16_TY
+                : e < 2 * (K16_TX + 2) + K16_TY ? e - 2 * (K16_TX + 2)
+                : e - 2 * (K16_TX + 2) - K16_TY;
+            cx[k] = e < K16_TX + 2 ? e - 1
+                : e < 2 * (K16_TX + 2) ? e - (K16_TX + 2) - 1
+                : e < 2 * (K16_TX + 2) + K16_TY ? -1 : K16_TX;
+        }
+        const int py = by0 + cy[k], px = bx0 + cx[k];
+        at[k] = (k == 0 || (p.history_clamp && tid < K16_RING)) && py >= 0
+            && py < H && px >= 0 && px < W;
+#pragma unroll
+        for (int ch = 0; ch < 3; ++ch) gp[k][ch] = prev[k][ch] = 0.0f;
+        if (!at[k]) continue;
+        const int i = py * W + px;
+        float g[3] = {0.0f, 0.0f, 0.0f};
+        if (g_integ) {
+            g[0] = g_integ[i];
+            g[1] = g_integ[hw + i];
+            g[2] = g_integ[2 * hw + i];
+        }
+        const float n = n_new[i];
+        const float a = fmaxf(1.0f / n, p.alpha);
+        const bool v = k16_regather(motion, depth, normal, h_color, h_length,
+                                    h_depth, h_normal, H, W, p.max_motion,
+                                    py, px, prev[k]);
+        if (p.history_clamp && v) {
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) gp[k][ch] = g[ch] * (1.0f - a);
+        }
+        if (k == 0) {
+            valid = v;
+            alpha = a;
+            alpha_m = fmaxf(1.0f / n, p.alpha_m);
+            nn = n;
+#pragma unroll
+            for (int ch = 0; ch < 3; ++ch) gi[ch] = g[ch];
+        }
+    }
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    const int ly = threadIdx.y + K16_HALO, lx = threadIdx.x + K16_HALO;
+    float clamp[3] = {0.0f, 0.0f, 0.0f};
+    // 1. the clamp, a channel at a time
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+        if (!p.history_clamp) break;
+        // the rows' pass (min and max over a column's 3 rows) at rows
+        // -1..8 and columns -2..33; +-inf outside the frame
+        for (int e = tid; e < T::CH * T::RW; e += NT) {
+            const int r = e / T::RW, s = e - r * T::RW;
+            const int gy = by0 + r - 1, gx = bx0 + s - 2;
+            const int sy = r - 1 + K16_HALO, sx = s - 2 + K16_HALO;
+            const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+            const float a = sm.c[ch][sy][sx];
+            const float up = gy - 1 >= 0 ? sm.c[ch][sy - 1][sx] : INFINITY;
+            const float dn = gy + 1 < H ? sm.c[ch][sy + 1][sx] : INFINITY;
+            const float upx = gy - 1 >= 0 ? sm.c[ch][sy - 1][sx] : -INFINITY;
+            const float dnx = gy + 1 < H ? sm.c[ch][sy + 1][sx] : -INFINITY;
+            sm.u.cl.r[0][r][s] = in ? fminf(fminf(a, up), dn) : INFINITY;
+            sm.u.cl.r[1][r][s] = in ? fmaxf(fmaxf(a, upx), dnx) : -INFINITY;
+        }
+        __syncthreads();
+        // at the tile and its ring: cmin and cmax (the columns' pass of
+        // the rows' pass), their cotangents, and the shares of each that
+        // the columns' pass sends to the pixel and to its -x and +x
+        // neighbours
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            if (k == 1 && tid >= K16_RING) continue;
+            const int dy = cy[k] + 1, dx = cx[k] + 1;
+            float w[2][3] = {{0.0f, 0.0f, 0.0f}, {0.0f, 0.0f, 0.0f}};
+            float d[2] = {0.0f, 0.0f};
+            if (at[k]) {
+                const float* lo = &sm.u.cl.r[0][dy][cx[k] + 2];
+                const float* hi = &sm.u.cl.r[1][dy][cx[k] + 2];
+                chain_shares<true>(lo[0], lo[-1], lo[1], w[0][0], w[0][1],
+                                   w[0][2]);
+                chain_shares<false>(hi[0], hi[-1], hi[1], w[1][0], w[1][1],
+                                    w[1][2]);
+                const float cmin = fminf(fminf(lo[0], lo[-1]), lo[1]);
+                const float cmax = fmaxf(fmaxf(hi[0], hi[-1]), hi[1]);
+                const float pc = prev[k][ch];
+                const float u = fmaxf(pc, cmin);
+                d[1] = gp[k][ch] * tie_share(cmax < u, cmax == u);
+                d[0] = gp[k][ch] * (tie_share(u < cmax, u == cmax)
+                                    * tie_share(cmin > pc, cmin == pc));
+            }
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+#pragma unroll
+                for (int j = 0; j < 3; ++j) {
+                    sm.u.cl.s[m][j][dy][dx] = d[m] * w[m][j];
+                }
+            }
+        }
+        __syncthreads();
+        // at rows -1..8 of the tile's columns: the rows' pass's cotangent
+        // (the pixel's own share, then its +x neighbour's, then its -x
+        // neighbour's), and the shares of it that the rows' pass sends to
+        // the pixel and to its -y and +y neighbours
+        for (int e = tid; e < T::CH * K16_TX; e += NT) {
+            const int r = e / K16_TX, s = e - r * K16_TX;
+            const int gy = by0 + r - 1, gx = bx0 + s;
+            const bool in = gy >= 0 && gy < H && gx < W;
+            const int sy = r - 1 + K16_HALO, sx = s + K16_HALO;
+            const float a = sm.c[ch][sy][sx];
+            const float b = sm.c[ch][sy - 1][sx], c = sm.c[ch][sy + 1][sx];
+            const bool up = gy - 1 >= 0, dn = gy + 1 < H;
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+                float dr = 0.0f, w0 = 0.0f, w1 = 0.0f, w2 = 0.0f;
+                if (in) {
+                    const float* sa = &sm.u.cl.s[m][0][r][s + 1];
+                    const float* sb = &sm.u.cl.s[m][1][r][s + 1];
+                    const float* sc = &sm.u.cl.s[m][2][r][s + 1];
+                    dr = (sa[0] + sb[1]) + sc[-1];
+                    if (m == 0) {
+                        chain_shares<true>(a, up ? b : INFINITY,
+                                           dn ? c : INFINITY, w0, w1, w2);
+                    } else {
+                        chain_shares<false>(a, up ? b : -INFINITY,
+                                            dn ? c : -INFINITY, w0, w1, w2);
+                    }
+                }
+                sm.u.cl.v[m][0][r][s] = dr * w0;
+                sm.u.cl.v[m][1][r][s] = dr * w1;
+                sm.u.cl.v[m][2][r][s] = dr * w2;
+            }
+        }
+        __syncthreads();
+        // the pixel's own share, then its +y neighbour's, then its -y
+        // neighbour's
+        if (live) {
+            float part[2];
+#pragma unroll
+            for (int m = 0; m < 2; ++m) {
+                const int r = threadIdx.y + 1, s = threadIdx.x;
+                part[m] = (sm.u.cl.v[m][0][r][s] + sm.u.cl.v[m][1][r + 1][s])
+                    + sm.u.cl.v[m][2][r - 1][s];
+            }
+            clamp[ch] = part[0] + part[1];
+        }
+        // the next channel's rows' pass overwrites cl.v
+        __syncthreads();
+    }
+
+    // 2. the moments and the temporal variance at the pixel
+    const bool short_px = live && p.boost_frames > 0
+        && nn < (float)p.boost_frames;
+    float dlum_m = 0.0f, lum = 0.0f;
+    if (live) {
+        const int i = y * W + x;
+        lum = kL0 * sm.c[0][ly][lx] + kL1 * sm.c[1][ly][lx]
+            + kL2 * sm.c[2][ly][lx];
+        const float m0 = moments[i], m1 = moments[hw + i];
+        const float gv = g_var ? g_var[i] : 0.0f;
+        const float gm0 = g_mom ? g_mom[i] : 0.0f;
+        const float gm1 = g_mom ? g_mom[hw + i] : 0.0f;
+        const float t = m1 - m0 * m0;
+        const float dv = short_px ? 0.0f : gv * tie_share(t > 0.0f, t == 0.0f);
+        const float d_m1 = gm1 + dv;
+        const float sq = dv * m0;
+        const float d_m0 = gm0 - (sq + sq);
+        const float am = valid ? alpha_m : 1.0f;
+        const float t1 = (d_m1 * am) * lum;
+        dlum_m = (d_m0 * am) + (t1 + t1);
+    }
+
+    // 3. the spatial variance, where a pixel within 3 of the tile is short
+    constexpr int NV = (T::VH * T::VW + NT - 1) / NT;
+    bool vshort[NV];
+    float vg[NV];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < NV; ++k) {
+        const int e = tid + k * NT;
+        const int vy = e / T::VW, vx = e - vy * T::VW;
+        const int gy = by0 + vy - 3, gx = bx0 + vx - 3;
+        vshort[k] = false;
+        vg[k] = 0.0f;
+        if (p.boost_frames > 0 && e < T::VH * T::VW && gy >= 0 && gy < H
+            && gx >= 0 && gx < W) {
+            const int i = gy * W + gx;
+            vshort[k] = n_new[i] < (float)p.boost_frames;
+            vg[k] = g_var ? g_var[i] : 0.0f;
+            any = any || vshort[k];
+        }
+    }
+    float dlum_s = 0.0f;
+    if (__syncthreads_or(any)) {
+        for (int e = tid; e < T::SH * T::SW; e += NT) {
+            const int sy = e / T::SW, sx = e - sy * T::SW;
+            sm.u.vb.l[sy][sx] = kL0 * sm.c[0][sy][sx] + kL1 * sm.c[1][sy][sx]
+                + kL2 * sm.c[2][sy][sx];
+        }
+        __syncthreads();
+        // 7-row sums of luma and luma^2 at rows -3..10 (K3's order)
+        for (int e = tid; e < T::VH * T::SW; e += NT) {
+            const int r = e / T::SW, sx = e - r * T::SW;
+            const int gx = bx0 + sx - K16_HALO;
+            float a1 = 0.0f, a2 = 0.0f;
+            if (gx >= 0 && gx < W) {
+                const int sy = r + K16_HALO - 3;
+                a1 = sm.u.vb.l[sy][sx];
+                a2 = a1 * a1;
+                for (int d = 1; d <= 3; ++d) {
+                    const float lp = sm.u.vb.l[sy + d][sx];
+                    const float lm = sm.u.vb.l[sy - d][sx];
+                    a1 = (a1 + lp) + lm;
+                    a2 = (a2 + lp * lp) + lm * lm;
+                }
+            }
+            sm.u.vb.s1[r][sx] = a1;
+            sm.u.vb.s2[r][sx] = a2;
+        }
+        __syncthreads();
+        // each pixel's cotangents of its two window sums
+#pragma unroll
+        for (int k = 0; k < NV; ++k) {
+            const int e = tid + k * NT;
+            if (e >= T::VH * T::VW) continue;
+            const int vy = e / T::VW, vx = e - vy * T::VW;
+            const int gy = by0 + vy - 3, gx = bx0 + vx - 3;
+            float g1 = 0.0f, g2 = 0.0f;
+            if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+                const int sx = vx - 3 + K16_HALO;
+                float s1 = sm.u.vb.s1[vy][sx], s2 = sm.u.vb.s2[vy][sx];
+                for (int d = 1; d <= 3; ++d) {
+                    s1 = s1 + sm.u.vb.s1[vy][sx + d];
+                    s2 = s2 + sm.u.vb.s2[vy][sx + d];
+                    s1 = s1 + sm.u.vb.s1[vy][sx - d];
+                    s2 = s2 + sm.u.vb.s2[vy][sx - d];
+                }
+                const float fy = (float)gy, fx = (float)gx;
+                const float cyn = fminf(fy, 3.0f)
+                    + fminf((float)(H - 1) - fy, 3.0f) + 1.0f;
+                const float cxn = fminf(fx, 3.0f)
+                    + fminf((float)(W - 1) - fx, 3.0f) + 1.0f;
+                const float inv = 1.0f / (cyn * cxn);
+                const float sm1 = s1 * inv, sm2 = s2 * inv;
+                const float ts = sm2 - sm1 * sm1;
+                const float dvs = vshort[k]
+                    ? vg[k] * tie_share(ts > 0.0f, ts == 0.0f) : 0.0f;
+                const float q = dvs * sm1;
+                g1 = (-(q + q)) * inv;
+                g2 = dvs * inv;
+            }
+            sm.u.vb.g1[vy][vx] = g1;
+            sm.u.vb.g2[vy][vx] = g2;
+        }
+        __syncthreads();
+        // their 7x7 window sums at the tile: 7-row sums, then the row
+        for (int e = tid; e < K16_TY * T::VW; e += NT) {
+            const int r = e / T::VW, s = e - r * T::VW;
+            float a1 = sm.u.vb.g1[r + 3][s], a2 = sm.u.vb.g2[r + 3][s];
+            for (int d = 1; d <= 3; ++d) {
+                a1 = (a1 + sm.u.vb.g1[r + 3 + d][s]) + sm.u.vb.g1[r + 3 - d][s];
+                a2 = (a2 + sm.u.vb.g2[r + 3 + d][s]) + sm.u.vb.g2[r + 3 - d][s];
+            }
+            sm.u.vb.t1[r][s] = a1;
+            sm.u.vb.t2[r][s] = a2;
+        }
+        __syncthreads();
+        const float* t1 = &sm.u.vb.t1[threadIdx.y][threadIdx.x + 3];
+        const float* t2 = &sm.u.vb.t2[threadIdx.y][threadIdx.x + 3];
+        float w1 = t1[0], w2 = t2[0];
+        for (int d = 1; d <= 3; ++d) {
+            w1 = (w1 + t1[d]) + t1[-d];
+            w2 = (w2 + t2[d]) + t2[-d];
+        }
+        const float tt = w2 * lum;
+        dlum_s = w1 + (tt + tt);
+    }
+
+    if (!live) return;
+    const int i = y * W + x;
+    const float dlum = dlum_m + dlum_s;
+    const float own_w = valid ? alpha : 1.0f;
+    const float kl[3] = {kL0, kL1, kL2};
+#pragma unroll
+    for (int ch = 0; ch < 3; ++ch) {
+        d_render[ch * hw + i] = (gi[ch] * own_w + clamp[ch]) + kl[ch] * dlum;
+    }
+}
+
 bool aligned(const void* p, unsigned long long bytes) {
     return ((unsigned long long)p & (bytes - 1)) == 0;
 }
@@ -1889,4 +2395,24 @@ extern "C" int rdt_gather_bwd(const float* hist, const float* motion,
     RDT_GATHER_BWD_NP(false, false);
 #undef RDT_GATHER_BWD_NP
 #undef RDT_GATHER_BWD
+}
+
+// K16: d_render (3 planes) from the step's inputs, its outputs moments and
+// n_new, and the cotangents of integrated, variance and moments (each may
+// be null: zero).
+extern "C" int rdt_temporal_bwd(const float* render, const float* motion,
+                                const float* depth, const float* normal,
+                                const float* h_color, const float* h_length,
+                                const float* h_depth, const float* h_normal,
+                                const float* moments, const float* n_new,
+                                const float* g_integ, const float* g_var,
+                                const float* g_mom, float* d_render,
+                                const TemporalParams* params, void* stream) {
+    const dim3 block(K16_TX, K16_TY);
+    const dim3 grid((params->W + K16_TX - 1) / K16_TX,
+                    (params->H + K16_TY - 1) / K16_TY);
+    temporal_bwd_kernel<<<grid, block, 0, (cudaStream_t)stream>>>(
+        render, motion, depth, normal, h_color, h_length, h_depth, h_normal,
+        moments, n_new, g_integ, g_var, g_mom, d_render, *params);
+    return (int)cudaGetLastError();
 }

@@ -36,7 +36,9 @@ conventions (``ops.common.tent_prime``), and the epilogue's maxima and
 clamps use ``torch.maximum``/``torch.minimum``, which split a tie's
 gradient 0.5/0.5 as ``jnp.maximum`` does; so autograd through
 :func:`temporal_accumulate` gives ``jax.grad``'s gradients of the JAX
-package's ``temporal_accumulate``.
+package's ``temporal_accumulate``.  :func:`temporal_step_bwd_ref` writes
+the whole-frame step's render gradient out, with the same tie rule: the
+plain twin of the CUDA adjoint K16 of the training step's fused route.
 """
 
 from __future__ import annotations
@@ -360,33 +362,52 @@ def _spatial_moments_tile(lum_c: torch.Tensor, tile: Tile, H: int, W: int,
     return winsum(lum_c) * inv_cnt, winsum(lum_c * lum_c) * inv_cnt
 
 
-def spatial_moments(lum: torch.Tensor, radius: int = 3):
-    """Spatial (E[l], E[l^2]) over a (2r+1)^2 window, normalised by the
-    number of in-image taps.  Sums run rows first (offsets 0, +1, −1, +2,
-    −2, …), then columns in the same order."""
-    H, W = lum.shape
+def _winsum(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """The (2r+1)^2 window sum of an (H, W) plane, zero outside the image:
+    rows first (offsets 0, +1, −1, +2, −2, …), then columns in the same
+    order.  Symmetric, so it is its own adjoint."""
+    rows = x
+    for d in range(1, radius + 1):
+        rows = rows + shift2d(x, d, 0) + shift2d(x, -d, 0)
+    out = rows
+    for d in range(1, radius + 1):
+        out = out + shift2d(rows, 0, d) + shift2d(rows, 0, -d)
+    return out
 
-    def winsum(x):
-        rows = x
-        for d in range(1, radius + 1):
-            rows = rows + shift2d(x, d, 0) + shift2d(x, -d, 0)
-        out = rows
-        for d in range(1, radius + 1):
-            out = out + shift2d(rows, 0, d) + shift2d(rows, 0, -d)
-        return out
 
-    iy = torch.arange(H, dtype=lum.dtype, device=lum.device)[:, None]
-    ix = torch.arange(W, dtype=lum.dtype, device=lum.device)[None, :]
+def _inv_count(like: torch.Tensor, radius: int) -> torch.Tensor:
+    """1 / the number of in-image taps of each pixel's (2r+1)^2 window."""
+    H, W = like.shape[-2:]
+    iy = torch.arange(H, dtype=like.dtype, device=like.device)[:, None]
+    ix = torch.arange(W, dtype=like.dtype, device=like.device)[None, :]
     cy = (torch.clamp(iy, max=float(radius))
           + torch.clamp(H - 1 - iy, max=float(radius)) + 1.0)
     cx = (torch.clamp(ix, max=float(radius))
           + torch.clamp(W - 1 - ix, max=float(radius)) + 1.0)
-    inv_cnt = 1.0 / (cy * cx)
-    return winsum(lum) * inv_cnt, winsum(lum * lum) * inv_cnt
+    return 1.0 / (cy * cx)
+
+
+def spatial_moments(lum: torch.Tensor, radius: int = 3):
+    """Spatial (E[l], E[l^2]) over a (2r+1)^2 window, normalised by the
+    number of in-image taps (:func:`_winsum`'s order)."""
+    inv_cnt = _inv_count(lum, radius)
+    return (_winsum(lum, radius) * inv_cnt,
+            _winsum(lum * lum, radius) * inv_cnt)
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(x, dtype=like.dtype, device=like.device)
+
+
+def _validity(gbuf: GBuffer, prev_len, prev_depth, prev_normal, in_bounds):
+    """The pixels whose reprojected history is taken: in bounds, depth
+    within 10 %, ``n·n_prev > 0.8`` and a non-empty history."""
+    depth_ok = torch.abs(prev_depth - gbuf.depth) <= 0.1 * torch.clamp(
+        torch.abs(gbuf.depth), min=1e-3)
+    n = gbuf.normal
+    ndot = (prev_normal[0] * n[0] + prev_normal[1] * n[1]
+            + prev_normal[2] * n[2])
+    return in_bounds & depth_ok & (ndot > 0.8) & (prev_len > 0)
 
 
 def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams,
@@ -400,13 +421,7 @@ def _temporal_epilogue(gbuf: GBuffer, gathered, in_bounds, params: SVGFParams,
         color = crop(render_c, canvas_margin(render_c, H, W, "render"), 0,
                      0, H, W)
     prev_color, prev_moments, prev_len, prev_depth, prev_normal = gathered
-
-    depth_ok = torch.abs(prev_depth - gbuf.depth) <= 0.1 * torch.clamp(
-        torch.abs(gbuf.depth), min=1e-3)
-    n = gbuf.normal
-    ndot = (prev_normal[0] * n[0] + prev_normal[1] * n[1]
-            + prev_normal[2] * n[2])
-    valid = in_bounds & depth_ok & (ndot > 0.8) & (prev_len > 0)
+    valid = _validity(gbuf, prev_len, prev_depth, prev_normal, in_bounds)
 
     if params.history_clamp:
         cmin, cmax = (_neighborhood_minmax(color, radius=1) if tile is None
@@ -585,3 +600,148 @@ def temporal_accumulate_ad(
                                      bilinear_gather_clamped)
     return temporal_step_ad(gbuf, history, params, reproject_gather,
                             motion_grad=motion_grad, grad_planes=GRAD_PLANES)
+
+
+# ---------------------------------------------------------------------------
+# the written-out adjoint of the step with respect to the render
+# ---------------------------------------------------------------------------
+
+def _tie_weight(strict: torch.Tensor, tie: torch.Tensor) -> torch.Tensor:
+    """1 where ``strict``, 0.5 where ``tie``, else 0: the share of a
+    cotangent that autograd's ``torch.minimum``/``torch.maximum`` pass to
+    one side (a tie splits it in halves)."""
+    return torch.where(strict, 1.0, torch.where(tie, 0.5, 0.0))
+
+
+def _stage_taps(v: torch.Tensor, axis_is_y: bool, lower: bool):
+    """The taps p − e and p + e of one pass of :func:`_neighborhood_minmax`
+    (radius 1), +inf (min) or −inf (max) outside the image."""
+    H, W = v.shape[-2:]
+    fill = float("inf") if lower else float("-inf")
+    dy, dx = (1, 0) if axis_is_y else (0, 1)
+    before = valid_mask(H, W, -dy, -dx, device=v.device) > 0
+    after = valid_mask(H, W, dy, dx, device=v.device) > 0
+    return (torch.where(before, shift2d(v, -dy, -dx), fill),
+            torch.where(after, shift2d(v, dy, dx), fill))
+
+
+def _chain_shares(a, b, c, lower: bool):
+    """The shares of the cotangent of ``m(m(a, b), c)`` (m = min when
+    ``lower``, else max) that reach a, b and c, autograd's tie rule at each
+    link."""
+    first = torch.lt if lower else torch.gt
+    o1 = torch.minimum(a, b) if lower else torch.maximum(a, b)
+    wc = _tie_weight(first(c, o1), c == o1)
+    wo = _tie_weight(first(o1, c), o1 == c)
+    return (wo * _tie_weight(first(a, b), a == b),
+            wo * _tie_weight(first(b, a), a == b), wc)
+
+
+def _minmax_stage(v: torch.Tensor, axis_is_y: bool, lower: bool):
+    """One pass of :func:`_neighborhood_minmax` (radius 1), min or max."""
+    b, c = _stage_taps(v, axis_is_y, lower)
+    m = torch.minimum if lower else torch.maximum
+    return m(m(v, b), c)
+
+
+def _minmax_stage_bwd(v, d, axis_is_y: bool, lower: bool):
+    """The adjoint of :func:`_minmax_stage` of ``v`` for the cotangent
+    ``d`` of its output, in gather form: each pixel takes its own share,
+    then the −e share of p + e, then the +e share of p − e."""
+    dy, dx = (1, 0) if axis_is_y else (0, 1)
+    wa, wb, wc = _chain_shares(v, *_stage_taps(v, axis_is_y, lower), lower)
+    return (d * wa + shift2d(d * wb, dy, dx)) + shift2d(d * wc, -dy, -dx)
+
+
+def _clamp_bwd(color, prev, gp):
+    """The render's cotangent through the history clamp
+    ``min(max(prev, cmin), cmax)`` for the cotangent ``gp`` of the clamped
+    colour: ``cmin``/``cmax``'s shares, then the separable chain back to
+    the render (columns' pass, then rows')."""
+    rlo = _minmax_stage(color, True, True)
+    rhi = _minmax_stage(color, True, False)
+    cmin = _minmax_stage(rlo, False, True)
+    cmax = _minmax_stage(rhi, False, False)
+    u = torch.maximum(prev, cmin)
+    d_cmax = gp * _tie_weight(cmax < u, cmax == u)
+    d_cmin = gp * (_tie_weight(u < cmax, u == cmax)
+                   * _tie_weight(cmin > prev, cmin == prev))
+    lo = _minmax_stage_bwd(color, _minmax_stage_bwd(rlo, d_cmin, False, True),
+                           True, True)
+    hi = _minmax_stage_bwd(color, _minmax_stage_bwd(rhi, d_cmax, False,
+                                                    False), True, False)
+    return lo + hi
+
+
+def temporal_step_bwd_ref(gbuf: GBuffer, history: History,
+                          moments: torch.Tensor, n_new: torch.Tensor,
+                          g_integrated, g_variance, g_moments,
+                          params: SVGFParams) -> torch.Tensor:
+    """The render's cotangent of the bounded whole-frame temporal step
+    (:func:`temporal_accumulate`) whose outputs' cotangents are
+    ``g_integrated`` (3, H, W), ``g_variance`` (H, W) and ``g_moments``
+    (2, H, W) (each may be None: zero), from the step's inputs and its
+    outputs ``moments`` and ``n_new`` (the new history's moments and
+    length).  The derivative autograd takes of the plain epilogue, every
+    term, written out (the plain twin of the CUDA adjoint of
+    ``temporal_cuda.temporal_accumulate_ad_cuda``'s fused route, which
+    follows it operation by operation):
+
+    * its own blend, ``alpha`` where the history is valid, else 1;
+    * the history clamp ``min(max(prev, cmin), cmax)``: the clamped
+      colour's cotangent ``(1 − alpha)·g`` to ``cmin``/``cmax``, then back
+      through the separable 3x3 min/max (rows, then columns, offsets −1
+      then +1), a tie splitting its cotangent in halves at each link, as
+      ``torch.minimum``/``torch.maximum`` do;
+    * the moments and the variance ``max(m2 − m1², 0)`` through the
+      luminance (a tie at 0 halves too);
+    * while ``n_new < variance_boost_frames``, the spatial variance: its
+      cotangent over the 7x7 window sums, which are their own adjoint.
+
+    History, motion, depth and normal take no gradient here (the fused
+    route runs only where none is asked for)."""
+    color = gbuf.render
+    motion = _motion(gbuf)
+    zeros = torch.zeros_like
+    g_i = zeros(color) if g_integrated is None else g_integrated
+    g_v = zeros(n_new) if g_variance is None else g_variance
+    g_m = zeros(moments) if g_moments is None else g_moments
+    g = gather_ref(history_stack(history), motion, params.max_motion)
+    valid = _validity(gbuf, g[5], g[6], g[7:10],
+                      _in_bounds(motion, params.max_motion))
+    alpha = torch.clamp(1.0 / n_new, min=params.temporal_alpha)
+    alpha_m = torch.clamp(1.0 / n_new, min=params.temporal_moments_alpha)
+
+    own = g_i * torch.where(valid, alpha, 1.0)
+    if params.history_clamp:
+        gp = torch.where(valid, g_i * (1 - alpha), 0.0)
+        clamp = _clamp_bwd(color, g[0:3], gp)
+    else:
+        clamp = zeros(color)
+
+    lum = luminance(color)
+    short = (n_new < params.variance_boost_frames
+             if params.variance_boost_frames > 0
+             else torch.zeros_like(n_new, dtype=torch.bool))
+    m0, m1 = moments[0], moments[1]
+    t = m1 - m0 * m0
+    dv = torch.where(short, 0.0, g_v * _tie_weight(t > 0, t == 0))
+    d_m1 = g_m[1] + dv
+    sq = dv * m0
+    d_m0 = g_m[0] - (sq + sq)
+    am = torch.where(valid, alpha_m, 1.0)
+    t1 = (d_m1 * am) * lum
+    dlum = (d_m0 * am) + (t1 + t1)
+    if params.variance_boost_frames > 0:
+        inv = _inv_count(lum, 3)
+        sm1, sm2 = spatial_moments(lum)
+        ts = sm2 - sm1 * sm1
+        dvs = torch.where(short, g_v * _tie_weight(ts > 0, ts == 0), 0.0)
+        q = dvs * sm1
+        t2 = _winsum(dvs * inv, 3) * lum
+        dlum_s = _winsum((-(q + q)) * inv, 3) + (t2 + t2)
+    else:
+        dlum_s = zeros(lum)
+    dlum = dlum + dlum_s
+    return (own + clamp) + torch.stack(
+        [0.2126 * dlum, 0.7152 * dlum, 0.0722 * dlum])

@@ -5,10 +5,14 @@
   the fused inference step: no gradient (it raises on an input that
   requires grad).
 * :func:`temporal_accumulate_ad_cuda` is ``temporal_accumulate_pallas_ad``,
-  the differentiable step of training: the reprojection
-  (:func:`reproject_gather_cuda`, forward K4, backward K5 or, without the
-  motion gradient, K6) plus the plain epilogue, which autograd
-  differentiates.
+  the differentiable step of training.  Where only the render takes a
+  gradient (bounded motion, no gradient asked of the history or the
+  motion: the material fit's step), it is one autograd Function,
+  ``_FusedTemporalStep``: forward K3, backward K16
+  (:func:`temporal_bwd_cuda`, the epilogue's adjoint in gather form).
+  Elsewhere it is the reprojection (:func:`reproject_gather_cuda`, forward
+  K4, backward K5 or, without the motion gradient, K6) plus the plain
+  epilogue, which autograd differentiates.
 
 Tiles (the sharded pipeline, ``parallel/sharded.py``): K3 takes ``tile``
 (history planes and render as canvases around the tile: the
@@ -50,7 +54,7 @@ import torch
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History
 from ..utils.tiling import GATHER_STAGED_MAX_MOTION, scatter_workspace_ints
-from ..utils.timing import spanned
+from ..utils.timing import count, spanned
 from .atrous_cuda import LaunchCount
 from .common import Tile, canvas_margin
 from .cuda import _build
@@ -58,7 +62,8 @@ from .temporal import (GRAD_PLANES, N_HIST_PLANES, _ReprojectGather,
                        _canvas_of, bilinear_gather_clamped, gather_bwd_ref,
                        gather_ref, history_from_stack, history_stack,
                        history_stack_channel_minor, temporal_accumulate,
-                       temporal_step_ad, temporal_step_clamped)
+                       temporal_step_ad, temporal_step_bwd_ref,
+                       temporal_step_clamped)
 
 
 class _TemporalParams(ctypes.Structure):
@@ -672,6 +677,117 @@ def _clamped_step(gbuf, history, params):
         else history_stack)
 
 
+def temporal_bwd_cuda(gbuf: GBuffer, history: History, moments: torch.Tensor,
+                      n_new: torch.Tensor, g_integrated, g_variance,
+                      g_moments, *, params: SVGFParams) -> torch.Tensor:
+    """K16: the render's cotangent of the bounded whole-frame step for the
+    cotangents of its outputs (each may be None: zero), from the step's
+    inputs and its outputs ``moments`` and ``n_new``, as
+    ``ops.temporal.temporal_step_bwd_ref`` computes it (its plain twin,
+    which CPU tensors run).  No gradient of its own.
+
+    Each launch adds one to ``temporal_bwd_cuda.launches``."""
+    _build.check_no_grad("temporal_bwd_cuda", gbuf.render, moments,
+                         g_integrated, g_variance, g_moments)
+    if not gbuf.render.is_cuda:
+        return temporal_step_bwd_ref(gbuf, history, moments, n_new,
+                                     g_integrated, g_variance, g_moments,
+                                     params)
+    if params.max_motion is None:
+        raise ValueError("K16 requires SVGFParams.max_motion (bounded "
+                         "reprojection)")
+    H, W = gbuf.depth.shape
+    dev = gbuf.device
+    f32 = torch.float32
+    motion = (gbuf.motion if gbuf.motion is not None
+              else torch.zeros((2, H, W), dtype=f32, device=dev))
+    ptrs = [_build.check_input(t, n, s, f32, dev) for t, n, s in (
+        (gbuf.render, "render", (3, H, W)), (motion, "motion", (2, H, W)),
+        (gbuf.depth, "depth", (H, W)), (gbuf.normal, "normal", (3, H, W)),
+        (history.color, "history.color", (3, H, W)),
+        (history.length, "history.length", (H, W)),
+        (history.prev_depth, "history.prev_depth", (H, W)),
+        (history.prev_normal, "history.prev_normal", (3, H, W)),
+        (moments, "moments", (2, H, W)), (n_new, "n_new", (H, W)))]
+    # the cotangents, made contiguous and kept alive until the launch
+    cot = [None if t is None else t.contiguous()
+           for t in (g_integrated, g_variance, g_moments)]
+    gs = [None if t is None else _build.check_input(t, n, s, f32, dev)
+          for t, n, s in zip(cot, ("g_integrated", "g_variance",
+                                   "g_moments"),
+                             ((3, H, W), (H, W), (2, H, W)))]
+    d_render = torch.empty((3, H, W), dtype=f32, device=dev)
+    p = _TemporalParams(H=H, W=W, max_motion=params.max_motion,
+                        history_clamp=int(params.history_clamp),
+                        boost_frames=params.variance_boost_frames,
+                        alpha=params.temporal_alpha,
+                        alpha_m=params.temporal_moments_alpha)
+    rc = _build.kernels().rdt_temporal_bwd(
+        *ptrs, *gs, d_render.data_ptr(), ctypes.addressof(p), _stream(n_new))
+    _build.check(rc, "rdt_temporal_bwd")
+    temporal_bwd_cuda.launches += 1
+    return d_render
+
+
+temporal_bwd_cuda.launches = 0
+
+
+class _FusedTemporalStep(torch.autograd.Function):
+    """The bounded whole-frame step where the render alone takes a
+    gradient: forward K3 (:func:`_launch_temporal`, counted on
+    ``temporal_accumulate_cuda.launches``; the plain step on CPU tensors),
+    backward K16 (:func:`temporal_bwd_cuda`).  Outputs integrated,
+    variance, the new moments and the new length (no gradient)."""
+
+    @staticmethod
+    def forward(ctx, render, gbuf, history, params):
+        count("temporal_fused", 1)
+        gbuf = gbuf.replace(**{k: getattr(gbuf, k).contiguous() for k in (
+            "render", "depth", "normal", "motion")
+            if getattr(gbuf, k) is not None})
+        history = History(**{f: getattr(history, f).contiguous() for f in (
+            "color", "moments", "length", "prev_depth", "prev_normal")})
+        if render.is_cuda:
+            integ, var, nh = _launch_temporal(
+                gbuf, (history.color, history.moments, history.length,
+                       history.prev_depth, history.prev_normal),
+                params=params, tile=None)
+            temporal_accumulate_cuda.launches += 1
+        else:
+            integ, var, nh = temporal_accumulate(gbuf, history,
+                                                 params=params)
+        ctx.set_materialize_grads(False)
+        ctx.mark_non_differentiable(nh.length)
+        ctx.save_for_backward(gbuf.render, nh.moments, nh.length)
+        ctx.step = (gbuf, history, params)
+        return integ, var, nh.moments, nh.length
+
+    @staticmethod
+    @spanned("rdt.temporal.bwd")
+    def backward(ctx, g_integ, g_var, g_mom, _g_len):
+        render, moments, n_new = ctx.saved_tensors
+        gbuf, history, params = ctx.step
+        d_render = temporal_bwd_cuda(gbuf.replace(render=render), history,
+                                     moments, n_new, g_integ, g_var, g_mom,
+                                     params=params)
+        return d_render, None, None, None
+
+
+def fused_step_route(gbuf: GBuffer, history: History, params: SVGFParams,
+                     motion_grad: bool) -> bool:
+    """Whether :func:`temporal_accumulate_ad_cuda` takes the fused route
+    (``_FusedTemporalStep``): bounded motion, no history plane that
+    requires grad, and no motion gradient (``motion_grad`` False, no
+    motion, or motion that does not require grad)."""
+    if params.max_motion is None or any(
+            t.requires_grad for t in (history.color, history.moments,
+                                      history.length, history.prev_depth,
+                                      history.prev_normal)):
+        return False
+    return not (motion_grad and gbuf.motion is not None
+                and gbuf.motion.requires_grad)
+
+
 def temporal_accumulate_ad_cuda(
     gbuf: GBuffer,
     history: History,
@@ -679,12 +795,24 @@ def temporal_accumulate_ad_cuda(
     params: SVGFParams = SVGFParams(),
     motion_grad: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor, History]:
-    """The differentiable temporal step (``temporal_accumulate_pallas_ad``):
-    the K4-K6 reprojection, then the plain epilogue.  Values as
-    ``temporal_accumulate``; returns ``(integrated, variance,
-    new_history)``.  With ``max_motion=None``: the clamped gather and its
-    adjoint (:func:`reproject_clamped_cuda`), whose motion gradient flows
-    wherever motion requires grad, as in ``temporal_accumulate_ad``."""
+    """The differentiable temporal step (``temporal_accumulate_pallas_ad``).
+    Values as ``temporal_accumulate``; returns ``(integrated, variance,
+    new_history)``.  Where :func:`fused_step_route` holds, K3 and its
+    adjoint K16 (``_FusedTemporalStep``; the render's gradient only, which
+    is all that is asked there); elsewhere the K4-K6 reprojection, then
+    the plain epilogue.  With ``max_motion=None``: the clamped gather and
+    its adjoint (:func:`reproject_clamped_cuda`), whose motion gradient
+    flows wherever motion requires grad, as in ``temporal_accumulate_ad``.
+
+    While spans record, each call adds one to the counter
+    ``temporal_steps``, and the fused route one to ``temporal_fused``."""
+    count("temporal_steps", 1)
+    if fused_step_route(gbuf, history, params, motion_grad):
+        integ, var, moments, n_new = _FusedTemporalStep.apply(
+            gbuf.render, gbuf, history, params)
+        return integ, var, History(color=integ, moments=moments,
+                                   length=n_new, prev_depth=gbuf.depth,
+                                   prev_normal=gbuf.normal)
     if params.max_motion is None:
         return _clamped_step(gbuf, history, params)
     return temporal_step_ad(gbuf, history, params, reproject_gather_cuda,

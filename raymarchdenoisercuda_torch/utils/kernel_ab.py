@@ -37,7 +37,11 @@ histories) with motion scales 0, 3 and 14, the variance boost on and off,
 the history clamp off, on a frame whose sides are no multiple of the
 tile, on histories where a few pixels of each block are short and where
 none is, and on a served frame's inputs (the ninth frame of phase 4's
-orbit through this tree's pipeline); K3b on the quarter tiles of a
+orbit through this tree's pipeline); K16, the fused step's adjoint, on
+K3's inputs of each kind (motion 14, 0 and 3, the boost off, the clamp
+off, the moments' cotangent given, the odd frame, few and no short
+pixels, the served frame) bit for bit against this tree's twin (an
+earlier tree has no K16); K3b on the quarter tiles of a
 3840x2160 frame (phase 10(a)); K15 on each of the three scenes from
 the camera (phase 3's, the frame's window at (0, 0) and a quarter window
 of a 3840x2160 frame at (1080, 1920)), from phase 3's ray planes (outputs
@@ -630,7 +634,7 @@ def _cases(P, U, cots, S, M, T):
             yield (f"K13 {name} omega {omega}",
                    lambda t, name=name, omega=omega: k13(t, name, omega))
 
-    def k3(tree, kind, scale=14.0, boost=4, clamp=True):
+    def k3_inputs(tree, kind, scale=14.0, boost=4, clamp=True):
         # phase 3's kind of input with the motion scaled (0: every pixel
         # reprojects onto itself); "few": long valid histories (zero
         # motion, the current depth and normal) except one pixel in 256,
@@ -640,8 +644,7 @@ def _cases(P, U, cots, S, M, T):
         p = tree.SVGFParams(variance_boost_frames=boost, history_clamp=clamp)
         if kind == "served":
             g, h = T["served"]
-            return lambda: _step_outputs(
-                tree.temporal_cuda.temporal_accumulate_cuda(g, h, params=p))
+            return g, h, p
         F = T["frame"]
         motion = F["motion"] * (scale / 14.0)
         length = F["h_length"]
@@ -660,6 +663,10 @@ def _cases(P, U, cots, S, M, T):
         h = History(color=planes["h_color"], moments=planes["h_moments"],
                     length=planes["h_length"], prev_depth=planes["depth"],
                     prev_normal=planes["normal"])
+        return g, h, p
+
+    def k3(tree, kind, scale=14.0, boost=4, clamp=True):
+        g, h, p = k3_inputs(tree, kind, scale, boost, clamp)
         return lambda: _step_outputs(
             tree.temporal_cuda.temporal_accumulate_cuda(g, h, params=p))
 
@@ -671,6 +678,37 @@ def _cases(P, U, cots, S, M, T):
     yield "K3 motion 14 no clamp", lambda t: k3(t, "random", clamp=False)
     for kind in ("odd", "few", "none", "served"):
         yield f"K3 {kind}", lambda t, kind=kind: k3(t, kind)
+
+    def k16(tree, kind, scale=14.0, boost=4, clamp=True, moments=False,
+            twin=False):
+        # K16, the fused step's adjoint, on K3's input of the same kind
+        # (its outputs from this tree's K3) for the cotangents of
+        # integrated and variance (and of the new moments); ``twin``: its
+        # plain twin on the same inputs
+        g, h, p = k3_inputs(tree, kind, scale, boost, clamp)
+        _, _, nh = tree.temporal_cuda.temporal_accumulate_cuda(g, h,
+                                                               params=p)
+        H, W = g.depth.shape
+        gi, gv = (x[..., :H, :W].contiguous() for x in cots)
+        gm = (torch.stack([gv, -gv]) if moments else None)
+        fn = (tree.temporal.temporal_step_bwd_ref if twin else
+              lambda *a: tree.temporal_cuda.temporal_bwd_cuda(
+                  *a[:-1], params=a[-1]))
+        return lambda: (fn(g, h, nh.moments, nh.length, gi, gv, gm, p),)
+
+    # held bit for bit to this tree's twin (an earlier tree has no K16)
+    for name, kw in (("motion 14 boost 4", {}),
+                     ("motion 0 boost 4", dict(scale=0.0)),
+                     ("motion 3 boost 0", dict(scale=3.0, boost=0)),
+                     ("motion 14 no clamp", dict(clamp=False)),
+                     ("motion 14 moments", dict(moments=True)),
+                     ("odd", dict(kind="odd")), ("few", dict(kind="few")),
+                     ("none", dict(kind="none")),
+                     ("served", dict(kind="served"))):
+        kw = dict(dict(kind="random"), **kw)
+        yield (f"K16 {name}", lambda t, kw=kw: k16(t, **kw),
+               Twin(lambda t, kw=kw: k16(t, twin=True, **kw), rtol=0.0,
+                    atol=0.0))
 
     def k3b(tree, k):
         # the history canvas (margin max_motion + 1) and the render canvas
@@ -1043,7 +1081,8 @@ def compare(a, b):
 
 _ATROUS = re.compile(r"(level_kernel(_2b)?|wgrad\w*kernel|atrous\w*kernel|"
                      r"shade_kernel|march_kernel|shadow_kernel|"
-                     r"temporal_kernel|cone\w*kernel|cross_bilateral\w*kernel|"
+                     r"temporal(_bwd)?_kernel|cone\w*kernel|"
+                     r"cross_bilateral\w*kernel|"
                      r"(clamped_)?gather\w*kernel|round_planes_kernel|"
                      r"box\w*kernel|gauss\w*kernel|pass_[xy]_kernel)"
                      r"(I\w*?EE)?")

@@ -141,12 +141,14 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
     history_stack_channel_minor_cuda, reproject_clamped_cuda,
     temporal_accumulate_ad_cuda, temporal_accumulate_canvas_cuda,
-    temporal_accumulate_cuda)
+    temporal_accumulate_cuda, temporal_bwd_cuda)
+from raymarchdenoisercuda_torch.models import svgf as svgf_model
 from raymarchdenoisercuda_torch.parallel import sharded
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
 from raymarchdenoisercuda_torch.utils import tiling
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
-    gather_inputs, ordered_texel_sums, sink_motion, sink_texels)
+    gather_inputs, ordered_texel_sums, served_inputs, sink_motion,
+    sink_texels)
 
 pytestmark = pytest.mark.cuda
 
@@ -275,6 +277,115 @@ def test_k3_rejects_unbounded_motion(dev):
                              params=unbounded)
     assert (temporal_accumulate_cuda.launches,
             clamped_gather_cuda.launches) == (before[0], before[1] + 1)
+
+
+# K16's inputs: frame, motion scale, variance boost, history clamp and
+# kind: "random" (phase 3's kind: lengths 0-5, so most pixels short),
+# "ties" (a render of three grey levels, a flat patch and a zero
+# background, no motion: tied clamps and variances), "served" (the served
+# frame's inputs, its render demodulated as the step takes it)
+K16_CASES = [((1080, 1920), 14.0, 4, True, "random"),
+             ((517, 1001), 14.0, 4, True, "random"),
+             ((1080, 1920), 3.0, 0, True, "random"),
+             ((1080, 1920), 14.0, 4, False, "random"),
+             ((1080, 1920), 0.0, 4, True, "ties"),
+             ((1080, 1920), 0.0, 4, True, "served")]
+
+
+def _k16_inputs(dev, shape, motion_scale, kind):
+    h_, w_ = shape
+    if kind == "served":
+        g, h = served_inputs(h_, w_, dev)
+        return g.replace(render=svgf_model.demodulate(g.render, g.albedo)), h
+    color, var, normal, depth = _planes(dev, 17, h_, w_)
+    if kind == "ties":
+        color = torch.round(color * 2) / 2
+        color[:, 100:160, 300:420] = 0.25
+        color[:, h_ // 2:, :200] = 0.0
+    rng = np.random.default_rng(18)
+    motion = torch.from_numpy(((rng.random((2, h_, w_)) - 0.5)
+                               * motion_scale).astype(np.float32)).to(dev)
+    g = GBuffer(render=color, albedo=color, normal=normal, depth=depth,
+                motion=motion)
+    h = History(color=color.flip(-1).contiguous(),
+                moments=torch.stack([var, var * 2]),
+                length=torch.floor(var * 300), prev_depth=depth,
+                prev_normal=normal)
+    return g, h
+
+
+@pytest.mark.parametrize("shape,motion_scale,boost,clamp,kind", K16_CASES,
+                         ids=[f"{k} {w}x{h} m{m:g} b{b}"
+                              + ("" if c else " no clamp")
+                              for (h, w), m, b, c, k in K16_CASES])
+def test_k16_bit_equal_to_twin(dev, shape, motion_scale, boost, clamp, kind):
+    """K16, the fused step's adjoint, against its plain twin
+    (``temporal_step_bwd_ref``) on the card: bit-equal, with and without
+    the moments' cotangent; and the fused route's forward, K3, against the
+    old route's K4 and plain epilogue: bit-equal."""
+    g, h = _k16_inputs(dev, shape, motion_scale, kind)
+    params = SVGFParams(variance_boost_frames=boost, history_clamp=clamp)
+    with torch.no_grad():
+        integ, var, nh = temporal_accumulate_cuda(g, h, params=params)
+        old = temporal.temporal_step_ad(
+            g, h, params, temporal_cuda.reproject_gather_cuda,
+            motion_grad=False, grad_planes=temporal.GRAD_PLANES)
+    for a, b in ((integ, old[0]), (var, old[1]),
+                 (nh.moments, old[2].moments), (nh.length, old[2].length)):
+        assert torch.equal(a, b)
+    rng = np.random.default_rng(19)
+    gi, gv, gm = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(dev) for s in ((3, *shape), shape, (2, *shape)))
+    for cot_m in (gm, None):
+        got = temporal_bwd_cuda(g, h, nh.moments, nh.length, gi, gv, cot_m,
+                                params=params)
+        want = temporal.temporal_step_bwd_ref(g, h, nh.moments, nh.length,
+                                              gi, gv, cot_m, params)
+        diff = (got != want).any(0)
+        assert torch.equal(got, want), (int(diff.sum()),
+                                        float((got - want).abs().max()))
+    assert float(want.abs().max()) > 0
+
+
+def test_train_step_routes_agree(dev, monkeypatch):
+    """The material fit's step (config 4, 3 steps at 270x480) on the fused
+    route (K3, K16) and on the old one (K4, the plain epilogue under
+    autograd, K6; taken here by refusing the route): the same losses, and
+    the albedo table's gradient within the benchmark's ``grad_gap`` limit
+    (0.1; the routes compute the same derivative in float32, so the gap
+    is rounding)."""
+    h_, w_ = 270, 480
+    scene = raymarch.cornell_scene(device=dev)
+    target = torch.from_numpy(np.random.default_rng(0).random(
+        (3, h_, w_), dtype=np.float32)).to(dev)
+    runs = {}
+    for fused in (True, False):
+        if not fused:
+            for mod in (temporal_cuda, svgf_model):
+                monkeypatch.setattr(mod, "fused_step_route",
+                                    lambda *a: False)
+        step = make_train_step(scene, raymarch.cornell_camera(device=dev),
+                               target, cam_cfg=CameraParams(width=w_,
+                                                            height=h_),
+                               rm_params=RaymarchParams(),
+                               svgf_params=SVGFParams(iterations=5,
+                                                      radius=1))
+        state = init_train_state(scene.materials.albedo, h_, w_,
+                                 torch.Generator(dev).manual_seed(0))
+        before = (temporal_bwd_cuda.launches, gather_cuda.launches)
+        runs[fused] = []
+        for _ in range(3):
+            state, loss = step(state)
+            runs[fused].append((float(loss), state.albedo.grad.clone()))
+        launched = (temporal_bwd_cuda.launches - before[0],
+                    gather_cuda.launches - before[1])
+        assert launched == ((3, 0) if fused else (0, 3))
+    for (lf, gf), (lo, go) in zip(runs[True], runs[False]):
+        assert abs(lf - lo) <= 1e-6 * abs(lo)
+        gap = abs(float(gf.norm()) - float(go.norm())) / float(go.norm())
+        assert gap < 0.1, gap
+        np.testing.assert_allclose(_np(gf), _np(go), rtol=1e-5,
+                                   atol=1e-6 * float(go.abs().max()))
 
 
 def _compare_gbuffers(got, want):

@@ -6,7 +6,8 @@ take their plain twins for CPU tensors: this checks that every case
 builds its inputs and calls its wrapper with the arguments the wrapper
 takes (K14 and K2/K2b whole frame and tile form, K7 unseeded, seeded
 and on a window, K8 and K13 on each scene, K3 on every input kind, the
-served frame's among them, K3b on the quarter tiles, KG and KGb on each
+served frame's among them, K16 on K3's inputs held to its twin, K3b
+on the quarter tiles, KG and KGb on each
 input and stack layout (KGb with each pair of gradients) and KG after the
 served step's stack, K4, K5 and K6 on each motion and K4c, K5c and K6c on
 the quarter tiles, K15 from the
@@ -74,6 +75,8 @@ FAMILIES = {
     "K13": (r"^K13 ", 6, [FRAME]),
     "K3": (r"^K3 ", 11, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
     "K3b": (r"^K3b ", 4, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
+    # the fused step's adjoint on K3's inputs, held to this tree's twin
+    "K16": (r"^K16 ", 9, [(3, *FRAME)]),
     "K15": (r"^K15 ", 12, [(6, 10), (), ()]),
     "K12": (r"^K12 r\d+ sigma", 18, [(3, *FRAME)]),
     "K12 odd": (r"^K12 .*odd", 2, [(3, FRAME[0] - 1, FRAME[1] - 3)]),
@@ -152,8 +155,8 @@ def test_kernel_ab_cases_run_on_the_cpu(inputs, family):
             if isinstance(exact, kernel_ab.Twin):
                 # the kernel's twin on the same inputs (here both are the
                 # plain path)
-                assert family in ("K10 twin", "K10w twin",
-                                  "K11w twin"), name
+                assert family in ("K10 twin", "K10w twin", "K11w twin",
+                                  "K16"), name
                 assert exact.close(out, exact.launch(this)()), name
             elif family == "K10":
                 # the 2-D body's floats, bit for bit, below the crossover;

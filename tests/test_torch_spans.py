@@ -204,6 +204,16 @@ def test_the_adjoints_sit_under_the_backward(trained, name):
     assert s["device_ms"] > 0 and s["self_device_ms"] > 0
 
 
+def test_the_training_step_counts_its_fused_temporal_route(trained):
+    """Each step's temporal step counts on ``temporal_steps``, and on
+    ``temporal_fused`` where it takes the fused route (K3 and its adjoint
+    K16; the plain step and its twin on CPU tensors): every step here,
+    whose history and motion take no gradient."""
+    c = trained["report"]["counters"]
+    assert c["temporal_steps"] == STEPS
+    assert c["temporal_fused"] == STEPS
+
+
 @pytest.mark.parametrize("unit,names", [("served", SERVE),
                                         ("trained", TRAIN)])
 def test_the_spans_are_in_the_profilers_trace(unit, names, request):

@@ -28,7 +28,7 @@ from raymarchdenoisercuda_tpu.ops.temporal import (
     temporal_accumulate as j_temporal_accumulate)
 from raymarchdenoisercuda_torch import convert
 from raymarchdenoisercuda_torch.config import SVGFParams
-from raymarchdenoisercuda_torch.ops import common, temporal
+from raymarchdenoisercuda_torch.ops import common, temporal, temporal_cuda
 from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     temporal_accumulate_ad_cuda, temporal_accumulate_cuda)
 
@@ -192,3 +192,177 @@ def test_fused_step_refuses_gradients():
     with pytest.raises(RuntimeError, match="no backward"):
         temporal_accumulate_cuda(gb.replace(render=gb.render.requires_grad_()),
                                  hb)
+
+
+# -- the fused route of the training step: K3 and its adjoint K16 ------------
+#
+# On CPU tensors the route's Function runs the plain step forward and
+# ``temporal_step_bwd_ref`` (K16's plain twin, which the card holds K16 to
+# bit for bit) backward.
+
+FUSED_NODE = "_FusedTemporalStepBackward"
+
+
+def _route_inputs(seed, history):
+    """Temporal inputs with invalid pixels (a depth jump, a flipped
+    normal, motion out of the frame at its borders) and history lengths
+    0-7 ("mixed": both sides of a boost of 4) or 5-9 ("long": none short
+    but the invalid pixels)."""
+    g, h = _inputs(seed, "fractional")
+    rng = np.random.default_rng(seed + 100)
+    lo, hi = (0, 8) if history == "mixed" else (5, 10)
+    h["length"] = rng.integers(lo, hi, (H, W)).astype(np.float32)
+    h["prev_depth"] = h["prev_depth"].copy()
+    h["prev_depth"][rng.random((H, W)) < 0.1] *= 1.5
+    h["prev_normal"] = h["prev_normal"].copy()
+    h["prev_normal"][:, rng.random((H, W)) < 0.1] *= -1.0
+    return g, h
+
+
+def _cotangents(seed):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal(s).astype(np.float32)
+            for s in ((3, H, W), (H, W), (2, H, W))]
+
+
+def _torch_bwd(g, h, cots, params):
+    gb = convert.gbuffer_from_numpy(g, "cpu")
+    hb = convert.history_from_numpy(h, "cpu")
+    integ, var, nh = temporal.temporal_accumulate(gb, hb, params=params)
+    gi, gv, gm = (torch.from_numpy(c) for c in cots)
+    return temporal.temporal_step_bwd_ref(gb, hb, nh.moments, nh.length, gi,
+                                          gv, gm, params), nh
+
+
+@pytest.mark.parametrize("history", ["mixed", "long"])
+@pytest.mark.parametrize("boost", [4, 0])
+@pytest.mark.parametrize("clamp", [True, False])
+def test_written_out_adjoint_matches_jax(clamp, boost, history):
+    """K16's twin against ``jax.grad`` of the JAX package's step with
+    respect to the render, for random cotangents of integrated, variance
+    and the new moments."""
+    g, h = _route_inputs(6, history)
+    cots = _cotangents(7)
+    jp = JSVGFParams(history_clamp=clamp, variance_boost_frames=boost)
+
+    def loss(render):
+        gg = JGBuffer(**{k: jnp.asarray(v) for k, v in g.items()}).replace(
+            render=render)
+        hh = JHistory(**{k: jnp.asarray(v) for k, v in h.items()})
+        i, v, nh = j_temporal_accumulate(gg, hh, params=jp)
+        return ((i * cots[0]).sum() + (v * cots[1]).sum()
+                + (nh.moments * cots[2]).sum())
+
+    want = np.asarray(jax.grad(loss)(jnp.asarray(g["render"])))
+    got, nh = _torch_bwd(g, h, cots, SVGFParams(history_clamp=clamp,
+                                                variance_boost_frames=boost))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    length = nh.length.numpy()
+    assert (length == 1).any(), "no invalid pixel"
+    if history == "mixed":
+        assert (length < 4).any() and (length >= 4).any()
+
+
+def _tied_inputs(kind):
+    """Frames whose epilogue ties: "flat" patches of one colour, a zero
+    background (its 7x7 variance exactly 0) and histories whose colour
+    equals the clamp's bounds; "levels" a render of 3 grey levels."""
+    g, h = _route_inputs(8, "mixed")
+    render = g["render"]
+    if kind == "flat":
+        render[:, 4:14, 6:16] = 0.25
+        render[:, 18:, :12] = 0.0
+        h["color"][:, 4:14, 6:16] = 0.25
+    else:
+        render[:] = np.round(render * 2) / 2
+    g["render"] = render
+    g["motion"] = np.zeros_like(g["motion"])
+    return g, h
+
+
+@pytest.mark.parametrize("kind", ["flat", "levels"])
+@pytest.mark.parametrize("boost", [4, 0])
+def test_written_out_adjoint_splits_ties_as_autograd(kind, boost):
+    """K16's twin against autograd of the plain epilogue on frames with
+    exact ties (the clamp's min/max chain, ``max(·, 0)`` of both
+    variances): a tied link halves its cotangent, as
+    ``torch.minimum``/``torch.maximum`` do."""
+    g, h = _tied_inputs(kind)
+    cots = _cotangents(9)
+    params = SVGFParams(variance_boost_frames=boost)
+    gb = convert.gbuffer_from_numpy(g, "cpu")
+    hb = convert.history_from_numpy(h, "cpu")
+    render = gb.render.clone().requires_grad_()
+    integ, var, nh = temporal.temporal_accumulate(gb.replace(render=render),
+                                                  hb, params=params)
+    gi, gv, gm = (torch.from_numpy(c) for c in cots)
+    want, = torch.autograd.grad((integ * gi).sum() + (var * gv).sum()
+                                + (nh.moments * gm).sum(), render)
+    got, _ = _torch_bwd(g, h, cots, params)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+    # ties the chain splits: a pixel whose 3x3 minimum several taps reach
+    c = gb.render
+    lo = temporal._minmax_stage(temporal._minmax_stage(c, True, True),
+                                False, True)
+    assert int((temporal.shift2d(c, 0, 1) == lo).logical_and(
+        c == lo).sum()) > 0
+
+
+def _grads_of_route(gb, hb, params, **kw):
+    out = temporal_accumulate_ad_cuda(gb, hb, params=params, **kw)
+    return out, type(out[0].grad_fn).__name__
+
+
+def test_fused_route_runs_where_only_the_render_takes_a_gradient():
+    """The route: bounded motion, no tile, no history plane and no motion
+    that takes a gradient (motion that requires grad under
+    ``motion_grad=False`` takes none)."""
+    g, h = _route_inputs(10, "mixed")
+    gb = convert.gbuffer_from_numpy(g, "cpu")
+    hb = convert.history_from_numpy(h, "cpu")
+    r = gb.render.clone().requires_grad_()
+    m = gb.motion.clone().requires_grad_()
+    fused = SVGFParams()
+    for kw in (dict(gbuf=gb.replace(render=r)),
+               dict(gbuf=gb.replace(render=r, motion=None)),
+               dict(gbuf=gb.replace(render=r, motion=m),
+                    motion_grad=False)):
+        _, node = _grads_of_route(kw.pop("gbuf"), hb, fused, **kw)
+        assert node == FUSED_NODE
+    # the old route: K4-K6 (or the clamped gather) and the plain epilogue
+    old = [_grads_of_route(gb.replace(render=r),
+                           hb.replace(color=hb.color.clone()
+                                      .requires_grad_()), fused),
+           _grads_of_route(gb.replace(render=r, motion=m), hb, fused,
+                           motion_grad=True),
+           _grads_of_route(gb.replace(render=r), hb,
+                           SVGFParams(max_motion=None))]
+    for _, node in old:
+        assert node != FUSED_NODE
+    tile = common.Tile((0, 0), (H, W))
+    canvas = common.frame_canvas(temporal.history_stack(hb), tile, H, W, 7)
+    gc = gb.replace(render=common.frame_canvas(r, tile, H, W, 3))
+    integ, _, _ = temporal_cuda.temporal_accumulate_canvas_ad_cuda(
+        gc, canvas, params=fused, tile=tile, motion_grad=False)
+    assert type(integ.grad_fn).__name__ != FUSED_NODE
+
+
+@pytest.mark.parametrize("history", ["mixed", "long"])
+def test_fused_route_forward_equals_temporal_accumulate_ad(history):
+    """The fused route's values are ``temporal_accumulate_ad``'s, exactly,
+    and its render gradient is the old route's within rounding."""
+    g, h = _route_inputs(11, history)
+    gb = convert.gbuffer_from_numpy(g, "cpu")
+    hb = convert.history_from_numpy(h, "cpu")
+    outs, grads = [], []
+    for fn, kw in ((temporal_accumulate_ad_cuda, {}),
+                   (temporal.temporal_accumulate_ad, dict(motion_grad=False))):
+        r = gb.render.clone().requires_grad_()
+        integ, var, nh = fn(gb.replace(render=r), hb, params=SVGFParams(),
+                            **kw)
+        outs.append((integ, var, nh.moments, nh.length))
+        grads.append(torch.autograd.grad(
+            _loss(integ, var, nh), r)[0])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    np.testing.assert_allclose(grads[0].numpy(), grads[1].numpy(), **TOL)
