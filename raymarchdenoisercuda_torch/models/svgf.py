@@ -61,6 +61,9 @@ _ALBEDO_EPS = 1e-3
 # un-demodulated: dividing by a near-zero albedo turns the light's pixels
 # into huge irradiance outliers that bleed into their neighbours.
 _EMISSIVE_THRESH = 0.02
+# the reprojection bound SVGFParams sets by default: an unbounded step
+# counts the histories it keeps from beyond it
+_DEFAULT_MAX_MOTION = SVGFParams().max_motion
 
 IMPLS = ("auto", "plain")
 TEMPORALS = ("auto", "fused", "ad")
@@ -107,7 +110,10 @@ def svgf_denoise_frame(
     (de)modulation and the history's bookkeeping), ``rdt.temporal`` and
     ``rdt.atrous``, and in the backward ``rdt.temporal.bwd`` (the temporal
     step's adjoint); while they record, the counters ``reprojected_px``
-    (the pixels whose history was taken, on the device) and ``pixels``."""
+    (the pixels whose history was taken, on the device) and ``pixels``,
+    and with unbounded motion (``max_motion=None``) ``reprojected_far_px``:
+    of those pixels, the ones whose |m0| or |m1| exceeds the default bound
+    (``SVGFParams().max_motion``), the histories a bounded step drops."""
     if impl not in IMPLS:
         raise ValueError(f"unknown impl: {impl!r}")
     if precision not in PRECISIONS:
@@ -141,8 +147,13 @@ def svgf_denoise_frame(
             integrated, variance, new_history = step(work, history,
                                                      params=params)
     if tracing():
-        count_device("reprojected_px", (new_history.length > 1).sum())
+        taken = new_history.length > 1
+        count_device("reprojected_px", taken.sum())
         count("pixels", new_history.length.numel())
+        if params.max_motion is None and gbuf.motion is not None:
+            m = gbuf.motion.detach().abs()
+            far = (m[0] > _DEFAULT_MAX_MOTION) | (m[1] > _DEFAULT_MAX_MOTION)
+            count_device("reprojected_far_px", (taken & far).sum())
         if not fused_ad:
             # the epilogue's adjoint is autograd's (the gather's, K5/K6,
             # has its own span where the history takes a gradient)

@@ -49,7 +49,7 @@ import torch
 
 from ..config import SVGFParams
 from ..gbuffer import GBuffer, History, luminance
-from ..utils.timing import spanned
+from ..utils.timing import count, span, spanned
 from .common import (Tile, canvas_margin, crop, fma, shift2d,
                      tent, tent_prime, valid_mask)
 
@@ -280,7 +280,7 @@ def _neighborhood_minmax(color: torch.Tensor, radius: int = 1):
     """Per-pixel min/max of ``color`` over a (2r+1)^2 window; out-of-image
     taps dropped (separable: rows, then columns)."""
     H, W = color.shape[-2], color.shape[-1]
-    inf = torch.tensor(float("inf"), dtype=color.dtype, device=color.device)
+    inf = torch.full((), float("inf"), dtype=color.dtype, device=color.device)
 
     def one_axis(lo, hi, axis_is_y):
         olo, ohi = lo, hi
@@ -396,7 +396,10 @@ def spatial_moments(lum: torch.Tensor, radius: int = 3):
 
 
 def _scalar(x: float, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(x, dtype=like.dtype, device=like.device)
+    """A 0-d tensor of ``x`` beside ``like``, filled on the device:
+    ``torch.tensor`` of a Python number would copy it from the host, a
+    synchronising call on the card."""
+    return torch.full((), x, dtype=like.dtype, device=like.device)
 
 
 def _validity(gbuf: GBuffer, prev_len, prev_depth, prev_normal, in_bounds):
@@ -548,11 +551,19 @@ def temporal_step_clamped(gbuf: GBuffer, history: History,
     the history stack, ``stack(history)`` (:func:`history_stack`, or on the
     card :func:`history_stack_channel_minor`), by ``gather(stack, motion)``
     (:func:`bilinear_gather_clamped` or its CUDA counterpart), then the
-    shared epilogue; differentiable when ``gather`` is."""
+    shared epilogue; differentiable when ``gather`` is.
+
+    While spans record: the spans ``rdt.temporal.gather`` (the stack and
+    the gather: KGp and KG on the card) and ``rdt.temporal.epilogue``, and
+    one on the host counter ``temporal_unbounded``."""
+    count("temporal_unbounded", 1)
     motion = _motion(gbuf)
-    g = gather(stack(history), motion)
+    with span("rdt.temporal.gather"):
+        g = gather(stack(history), motion)
     planes = (g[0:3], g[3:5], g[5], g[6], g[7:10])
-    return _temporal_epilogue(gbuf, planes, _in_bounds(motion, None), params)
+    with span("rdt.temporal.epilogue"):
+        return _temporal_epilogue(gbuf, planes, _in_bounds(motion, None),
+                                  params)
 
 
 def temporal_step_ad(gbuf: GBuffer, history, params: SVGFParams,
