@@ -10,8 +10,8 @@ the script exits non-zero without printing a result):
 2. build the CUDA kernels from ``raymarchdenoisercuda_torch/ops/cuda/*.cu``
    (one nvcc per source, in parallel) and print ptxas's registers, stack
    and spills of the à-trous level forward's instantiations (K1/K1b, each
-   radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's, K16's,
-   K15's
+   radius), of K9's, K14's, K2/K2b's, K7's, K8's, K13's, K3/K3b's (and
+   K3's unbounded step's), K16's, K15's
    (both routes, and the camera route's first launch), K10's and K11's
    2-D bodies (r 0-4), K12's staged form (r <= 4), KG's,
    KGb's (and its rounding pass), KGp's, K4/K4c's and K5/K6's (K5c/K6c;
@@ -26,7 +26,8 @@ the script exits non-zero without printing a result):
    fail if K2/K2b or K14 in any form (staged or through the caches,
    compiled radius or any), K1/K1b or a bf16 form of K1b or K14 at a
    compiled radius, or if K2/K2b or K14 lacks a form, K9 at r <= 1, K7, K8,
-   K13 or K15 on a compiled scene, K3/K3b, K16, K15's first camera launch,
+   K13 or K15 on a compiled scene, K3/K3b (or its unbounded step), K16,
+   K15's first camera launch,
    K10
    or K11 at r <= 4 or in a 1-D pass, a K12 form, a KG, KGb or KGp kernel
    or a K4-K6 kernel (the scatter's included) uses local memory (K9 at r2
@@ -37,7 +38,10 @@ the script exits non-zero without printing a result):
    with CUDA events: K1 à-trous level (inference and store mode), K2
    stored-weight adjoint, K1b level with a given σ-denominator, K2b
    stored adjoint from float32 weights, K14 recompute adjoint, K9 adjoint
-   through the weights, K3 temporal step, K16 its adjoint for the render
+   through the weights, K3 temporal step (and its unbounded step on
+   motion to ±28 pixels and a served frame's with ``max_motion=None``,
+   bit-equal to the route it replaced: KGp, KG and the plain epilogue,
+   timed beside it), K16 its adjoint for the render
    (the training step's; bit-equal to its twin), K4 reprojection gather, K5/K6
    its adjoints (on random, integer, zero and a served frame's motion,
    their history gradient the same on a second launch, timed on the random
@@ -144,8 +148,9 @@ the script exits non-zero without printing a result):
    ones by the seeded bounds (hit flips, p99 of the depth and denoised
    differences); (b) the config-4 train step seeded against the unseeded
    one, its first frame held by the same bounds; (c)
-   a serving sequence and (d) a ``temporal="ad"`` gradient pass with
-   ``SVGFParams(max_motion=None)`` (KGp, KG, KGb) against the plain path; (e)
+   a serving sequence (K3's unbounded step) and (d) a ``temporal="ad"``
+   gradient pass (KGp, KG, KGb) with ``SVGFParams(max_motion=None)``
+   against the plain path; (e)
    the sharded pipeline at 3840x2160 and (f) the sharded train step
    (config 5), seeded, against the unsharded seeded ones;
 12. the geometry gradient at 1920x1080 through the implicit-function
@@ -227,9 +232,9 @@ from raymarchdenoisercuda_torch.ops.temporal_cuda import (
     clamped_gather_bwd_cuda, clamped_gather_cuda, gather_bwd_cuda,
     gather_bwd_hist_cuda, gather_canvas_bwd_cuda,
     gather_canvas_bwd_hist_cuda, gather_canvas_cuda, gather_cuda,
-    history_stack_channel_minor_cuda, temporal_accumulate_ad_cuda,
-    temporal_accumulate_canvas_cuda, temporal_accumulate_cuda,
-    temporal_bwd_cuda)
+    history_stack_channel_minor_cuda, reproject_clamped_cuda,
+    temporal_accumulate_ad_cuda, temporal_accumulate_canvas_cuda,
+    temporal_accumulate_cuda, temporal_bwd_cuda)
 from raymarchdenoisercuda_torch.parallel import scaling, sharded
 from raymarchdenoisercuda_torch.parallel.distributed import spawn_group
 from raymarchdenoisercuda_torch.parallel.mesh import make_mesh
@@ -237,7 +242,7 @@ from raymarchdenoisercuda_torch.utils import denoise_quality, tiling
 from raymarchdenoisercuda_torch.utils.profile import clamped_split, sass_lines
 from raymarchdenoisercuda_torch.utils.seeded_inputs import (
     clamped_inputs, gather_inputs, ordered_texel_sums, served_clamped_inputs,
-    sink_motion, sink_texels)
+    served_inputs, sink_motion, sink_texels)
 from raymarchdenoisercuda_torch.utils.timing import (
     CudaTimer, cuda_time_ms, device_ms, nvidia_smi_name_power)
 
@@ -496,10 +501,18 @@ ADJOINT_FORMS = {"K14": {(0, False), (1, False), (2, False), (-1, False),
 K7_MANGLED = re.compile(r"12march_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 K8_MANGLED = re.compile(r"12shade_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
 # the shadow pass's, shadow_kernel<NS, NB, NP>, and the temporal step's,
-# temporal_kernel<TILE, PX> (TILE: K3's tile form and K3b; PX pixels a
-# thread)
+# temporal_kernel<TILE, PX, CLAMPED> (TILE: K3's tile form and K3b; PX
+# pixels a thread; CLAMPED: the unbounded step)
 K13_MANGLED = re.compile(r"13shadow_kernelILi(n?\d+)ELi(n?\d+)ELi(n?\d+)EE")
-K3_MANGLED = re.compile(r"15temporal_kernelILb([01])ELi\d+EE")
+K3_MANGLED = re.compile(r"15temporal_kernelILb([01])ELi\d+ELb([01])EE")
+
+
+def k3_form(m):
+    """The form of K3 a K3_MANGLED match names."""
+    return ("K3 tile/K3b" if m.group(1) == "1" else
+            "K3 unbounded" if m.group(2) == "1" else "K3")
+
+
 # the fused step's adjoint, temporal_bwd_kernel (K16)
 K16_MANGLED = re.compile(r"19temporal_bwd_kernel")
 # the cone seed's march, cone_kernel<NS, NB, NP, CAMERA> (CAMERA: its cones
@@ -655,16 +668,18 @@ def adjoint_resources(report):
 
 def report_resources():
     """Print ptxas's registers, stack and spills of K1/K1b's, K9's, K14's,
-    K2/K2b's, K7's, K8's, K13's, K3/K3b's, K15's, K10's, K11's (and their
+    K2/K2b's, K7's, K8's, K13's, K3/K3b's (and K3's unbounded step's),
+    K15's, K10's, K11's (and their
     1-D passes), K12's (staged and rolling), KG's, KGb's, KGp's,
     K4/K4c's, K5/K6's (staged, and the scatter route's kernels) and
     K1b-bf16's and K14-bf16's instantiations (the build's
     report); raise if K2/K2b or K14 in any form, or one of K1/K1b (or a
     bf16 form) at a compiled radius, K9 at r <= 1, K7, K8, K13 or K15 on a
     compiled scene,
-    K3/K3b, K15's first camera launch, K10 or K11 (a 2-D body or a 1-D
-    pass), a K12 form, a KG, KGb or KGp kernel or a K4-K6 kernel
-    uses local memory, or if K3/K3b, a compiled K13 or K15, a K10 or K11,
+    K3/K3b (or its unbounded step), K15's first camera launch, K10 or K11
+    (a 2-D body or a 1-D pass), a K12 form, a KG, KGb or KGp kernel or a
+    K4-K6 kernel uses local memory, or if K3/K3b (or its unbounded step),
+    a compiled K13 or K15, a K10 or K11,
     a K12 form, a KG, KGb or KGp kernel, a K4-K6 instantiation or a bf16
     form is missing from the report."""
     k1, k9, local, k3, k13, k15, k12, kg = {}, {}, [], [], [], [], [], []
@@ -776,7 +791,7 @@ def report_resources():
                 local.append("K16")
         m = K3_MANGLED.search(name)
         if m:
-            form = "K3 tile/K3b" if m.group(1) == "1" else "K3"
+            form = k3_form(m)
             phase(2, f"{form}: {res[0]} registers, stack {res[1]} B, "
                      f"spills {res[2] + res[3]} B")
             k3.append(form)
@@ -811,7 +826,8 @@ def report_resources():
             k9[(int(m.group(1).replace("n", "-")), int(m.group(2)))] = res
     if not k1 or not k9:
         raise AssertionError("phase 2: no K1 or K9 kernel in ptxas's report")
-    if sorted(k3) != ["K16", "K3", "K3 tile/K3b"] or len(k13) != 2:
+    if sorted(k3) != ["K16", "K3", "K3 tile/K3b", "K3 unbounded"] or len(
+            k13) != 2:
         raise AssertionError(f"phase 2: K3/K3b, K16 {k3} or compiled K13 "
                              f"{k13} missing from ptxas's report")
     if len(k15) != 4 or sorted(k12) != [0, 1, 2, 3, 4]:
@@ -1350,6 +1366,51 @@ def check_k3(P, results):
                          bytes=104 * HW, flops=(60 + 49 * 8 * short) * HW)
     phase(3, f"K3: ok, max |err| {err:.3g}, {ms:.4f} ms, plain "
              f"{plain_ms:.4f} ms")
+    check_k3_unbounded(g, h)
+
+
+def check_k3_unbounded(g, h):
+    """K3's unbounded step (``max_motion=None``) on phase 3's input with
+    its motion scaled to ±28 pixels and on the served frame's with
+    ``max_motion=None``: bit-equal to the route it replaced (the history
+    stacked by KGp, KG, the plain epilogue), at K3's tolerance to the
+    plain step; the three timed."""
+    unbounded = SVGFParams(max_motion=None)
+    H, W = g.depth.shape
+    ins = {"±28 px": (g.replace(motion=g.motion * 4.0), h),
+           "served frame": served_inputs(H, W, g.device, unbounded=True)}
+    for label, (gi, hi) in ins.items():
+        got = temporal_accumulate_cuda(gi, hi, params=unbounded)
+
+        def old():
+            return temporal.temporal_step_clamped(
+                gi, hi, unbounded, reproject_clamped_cuda,
+                history_stack_channel_minor_cuda)
+
+        want = old()
+        for name, a, b in zip(("integrated", "variance", "moments",
+                               "length"),
+                              (got[0], got[1], got[2].moments, got[2].length),
+                              (want[0], want[1], want[2].moments,
+                               want[2].length)):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"K3 unbounded {label} {name} != the clamped route at "
+                    f"{int((a != b).sum())} elements")
+        plain = temporal.temporal_accumulate(gi, hi, params=unbounded)
+        for name, a, b in (("integrated", got[0], plain[0]),
+                           ("variance", got[1], plain[1]),
+                           ("moments", got[2].moments, plain[2].moments)):
+            check_close(f"K3 unbounded {label} {name}", a, b, atol=1e-6,
+                        rtol=1e-5)
+        ms = cuda_time_ms(lambda: temporal_accumulate_cuda(
+            gi, hi, params=unbounded), repeats=20)
+        old_ms = cuda_time_ms(old, repeats=20)
+        plain_ms = cuda_time_ms(lambda: temporal.temporal_accumulate(
+            gi, hi, params=unbounded), repeats=3)
+        phase(3, f"K3 unbounded, {label}: bit-equal to KGp + KG + the plain "
+                 f"epilogue; {ms:.4f} ms, that route {old_ms:.4f} ms, plain "
+                 f"{plain_ms:.4f} ms")
 
 
 def check_k16(P, results):
@@ -3908,7 +3969,7 @@ def main(argv=None) -> int:
                 lambda: serving_phase(
                     H, W, dev, UNBOUNDED_FRAMES, svgf=UNBOUNDED, n=11,
                     label="(c) unbounded motion (max_motion=None), ",
-                    expected=("K1", "KG", "KGp", "K7", "K8")),
+                    expected=("K1", "K3", "K7", "K8")),
                 lambda: temporal_grad_phase(
                     H, W, dev, params=SVGFParams(iterations=5, radius=1,
                                                  max_motion=None),

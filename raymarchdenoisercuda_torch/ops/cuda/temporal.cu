@@ -1,4 +1,5 @@
-// K3: the fused inference temporal step of SVGF, and K4-K6: the
+// K3: the fused inference temporal step of SVGF (bounded motion, and with
+// the clamped gather for unbounded motion), and K4-K6: the
 // differentiable reprojection of the training step and its adjoints.
 //
 // Replaces the TPU kernel raymarchdenoisercuda_tpu/ops/pallas/temporal_tpu.py
@@ -198,8 +199,25 @@
 // both gradients (motion, 6 cotangent and 6 history planes in; 6 history
 // gradients and the motion's out).
 //
-// The kernels read the stack channel-minor (a texel's 10 planes
-// contiguous: the temporal step builds it so on the card with
+// K3's unbounded step, temporal_kernel<false, 1, true> (no TPU kernel
+// either: the JAX package's jnp step is bilinear_gather_many, then
+// _temporal_epilogue), is the serving route with max_motion = None: K3's
+// body with its step 1 replaced by KG's clamped gather (clamped_taps_at,
+// the sums rounded as KG rounds them), in_bounds the landing test alone
+// (no bound); steps 2-4 are K3's code.  It replaces KGp, KG and PyTorch's
+// epilogue (~60 operations on whole planes, 7.5 ms at 3840x2160) by one
+// launch, bit-equal to them.  Bound: K3's, memory, 104 B a pixel, 0.2575
+// ms at 3840x2160 and 3.35 TB/s.  It reads the history planar, as K3
+// does, not KGp's channel-minor stack: the served motion is coherent, so
+// a warp's taps of one plane are neighbouring floats.  At 3840x2160 on a
+// frame of serve_4k_unbounded's orbit (device time, H100): 0.394 ms
+// planar, against 0.376 for a channel-minor read after KGp's 0.216; at
+// 1080p on a served frame 0.106 against 0.104 + 0.052.  Only on uniform
+// random motion (±28 px, 1080p) did the channel-minor read win, 0.155 +
+// 0.052 against 0.278.  The tile form and K3b keep bounded motion.
+//
+// KG and KGb read the stack channel-minor (a texel's 10 planes
+// contiguous: the differentiable step builds it so on the card with
 // stack_channel_minor_kernel, KGp, as the JAX package stacks its planes
 // (H*W, 10) for its gather; the wrappers lay a planar stack out with KGp
 // first).  Planar, each tap would read one float from each of 10 planes,
@@ -286,6 +304,40 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
                  :: "r"(d), "l"(src));
 }
 
+// The clamped gather's tap geometry at the reprojected position (ys, xs)
+// of an H x W frame: the four clamped tap indices and the bilinear
+// fractions; clamped_taps takes pixel (y, x)'s, ys = y + m0, xs = x + m1.
+struct ClampedTaps {
+    int i00, i01, i10, i11;
+    float fy, fx;
+};
+
+__device__ __forceinline__ ClampedTaps clamped_taps_at(float ys, float xs,
+                                                       int H, int W) {
+    const float y0 = floorf(ys), x0 = floorf(xs);
+    ClampedTaps c;
+    c.fy = ys - y0;
+    c.fx = xs - x0;
+    // floor is integral: clamping in float, then converting, is the
+    // twin's clamp of the converted index
+    const int y0i = (int)fminf(fmaxf(y0, 0.0f), (float)(H - 1));
+    const int x0i = (int)fminf(fmaxf(x0, 0.0f), (float)(W - 1));
+    const int y1i = min(y0i + 1, H - 1), x1i = min(x0i + 1, W - 1);
+    c.i00 = y0i * W + x0i;
+    c.i01 = y0i * W + x1i;
+    c.i10 = y1i * W + x0i;
+    c.i11 = y1i * W + x1i;
+    return c;
+}
+
+__device__ __forceinline__ ClampedTaps clamped_taps(const float* motion,
+                                                    int H, int W, int y,
+                                                    int x) {
+    const int hw = H * W, i = y * W + x;
+    return clamped_taps_at((float)y + motion[i], (float)x + motion[hw + i],
+                           H, W);
+}
+
 // K3's block: 32 x 8 threads, each computing PX pixels 32 columns apart
 // (a (32 PX) x 8 output tile); its render is staged with a 3-pixel halo,
 // the reach of the 7x7 window.  The launches take one pixel a thread: two
@@ -315,7 +367,10 @@ struct K3Tile {
 // 0, +1, -1, +2, -2, +3, -3 of a column, with + 0.0f for a row outside
 // the frame; columns x, x+1, x-1, ..., x-3, a column outside the frame
 // adding 0).  Threads outside the tile stay through every barrier.
-template <bool TILE, int PX>
+// CLAMPED (whole frame only): the unbounded step, its reprojection KG's
+// clamped bilinear gather of the planar history (see the header); steps
+// 2-4 are the same code.
+template <bool TILE, int PX, bool CLAMPED = false>
 __global__ void __launch_bounds__(K3_TX * K3_TY)
 temporal_kernel(const float* __restrict__ render,
                 const float* __restrict__ motion,
@@ -331,6 +386,7 @@ temporal_kernel(const float* __restrict__ render,
                 float* __restrict__ out_moments,
                 float* __restrict__ out_length,
                 TemporalParams p, TemporalTile t) {
+    static_assert(!(CLAMPED && TILE), "the clamped gather has no tile form");
     using Tl = K3Tile<PX>;
     __shared__ Tl sm;
     const int H = p.H, W = p.W, hw = H * W;
@@ -384,6 +440,29 @@ temporal_kernel(const float* __restrict__ render,
         const int i = y * W + x;
         const float m0 = motion[i], m1 = motion[hw + i];
         const float ys = (float)gy + m0, xs = (float)gx + m1;
+        if (CLAMPED) {
+            // KG's taps and sums: each row's blend as a fused multiply-add
+            // of the right tap's product, then the rows'
+            in_bounds[k] = ys >= 0.0f && ys <= (float)(Hg - 1)
+                && xs >= 0.0f && xs <= (float)(Wg - 1);
+            const ClampedTaps c = clamped_taps_at(ys, xs, H, W);
+            const float wx = 1.0f - c.fx, wy = 1.0f - c.fy;
+            float a[4][10];
+#pragma unroll
+            for (int j = 0; j < 10; ++j) {
+                a[0][j] = planes[j][c.i00];
+                a[1][j] = planes[j][c.i01];
+                a[2][j] = planes[j][c.i10];
+                a[3][j] = planes[j][c.i11];
+            }
+#pragma unroll
+            for (int j = 0; j < 10; ++j) {
+                const float top = __fmaf_rn(a[0][j], wx, a[1][j] * c.fx);
+                const float bot = __fmaf_rn(a[2][j], wx, a[3][j] * c.fx);
+                g[k][j] = __fmaf_rn(top, wy, bot * c.fy);
+            }
+            continue;
+        }
         const bool within = fabsf(m0) <= (float)p.max_motion
             && fabsf(m1) <= (float)p.max_motion;
         in_bounds[k] = ys >= 0.0f && ys <= (float)(Hg - 1)
@@ -1366,34 +1445,6 @@ motion_term_kernel(const float* __restrict__ hist,
                                           t, y, x);
 }
 
-// The clamped gather's tap geometry at pixel (y, x) of an H x W frame:
-// the four clamped tap indices and the bilinear fractions.
-struct ClampedTaps {
-    int i00, i01, i10, i11;
-    float fy, fx;
-};
-
-__device__ __forceinline__ ClampedTaps clamped_taps(const float* motion,
-                                                    int H, int W, int y,
-                                                    int x) {
-    const int hw = H * W, i = y * W + x;
-    const float ys = (float)y + motion[i], xs = (float)x + motion[hw + i];
-    const float y0 = floorf(ys), x0 = floorf(xs);
-    ClampedTaps c;
-    c.fy = ys - y0;
-    c.fx = xs - x0;
-    // floor is integral: clamping in float, then converting, is the
-    // twin's clamp of the converted index
-    const int y0i = (int)fminf(fmaxf(y0, 0.0f), (float)(H - 1));
-    const int x0i = (int)fminf(fmaxf(x0, 0.0f), (float)(W - 1));
-    const int y1i = min(y0i + 1, H - 1), x1i = min(x0i + 1, W - 1);
-    c.i00 = y0i * W + x0i;
-    c.i01 = y0i * W + x1i;
-    c.i10 = y1i * W + x0i;
-    c.i11 = y1i * W + x1i;
-    return c;
-}
-
 constexpr int KG_PLANES = 10;
 
 // The NP leading planes of texel q of the channel-minor stack, in float2
@@ -2238,7 +2289,8 @@ extern "C" int rdt_stack_channel_minor(const float* color,
     return (int)cudaGetLastError();
 }
 
-// K3, K3b.
+// K3, K3b; K3's unbounded step (the clamped gather) where
+// params->max_motion is -1, which a tile refuses.
 extern "C" int rdt_temporal(const float* render, const float* motion,
                             const float* depth, const float* normal,
                             const float* h_color, const float* h_moments,
@@ -2253,12 +2305,22 @@ extern "C" int rdt_temporal(const float* render, const float* motion,
                     (params->H + K3_TY - 1) / K3_TY);
     cudaStream_t s = (cudaStream_t)stream;
     const TemporalTile t = tile ? *tile : TemporalTile{};
-#define RDT_TEMPORAL(T)                                                   \
-    temporal_kernel<T, PX><<<grid, block, 0, s>>>(                        \
+    const bool clamped = params->max_motion == -1;
+    if (params->max_motion < -1 || (clamped && tile)) {
+        return (int)cudaErrorInvalidValue;
+    }
+#define RDT_TEMPORAL(T, C)                                                \
+    temporal_kernel<T, PX, C><<<grid, block, 0, s>>>(                     \
         render, motion, depth, normal, h_color, h_moments, h_length,      \
         h_depth, h_normal, out_integ, out_var, out_moments, out_length,   \
         *params, t)
-    if (tile) RDT_TEMPORAL(true); else RDT_TEMPORAL(false);
+    if (tile) {
+        RDT_TEMPORAL(true, false);
+    } else if (clamped) {
+        RDT_TEMPORAL(false, true);
+    } else {
+        RDT_TEMPORAL(false, false);
+    }
 #undef RDT_TEMPORAL
     return (int)cudaGetLastError();
 }

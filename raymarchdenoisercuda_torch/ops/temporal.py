@@ -27,8 +27,10 @@ the frame in global coordinates, so a tile computes what the whole frame
 computes at its pixels.
 
 Unbounded motion (``max_motion=None``): the reprojection is the clamped
-bilinear gather (:func:`bilinear_gather_clamped`; the CUDA wrapper runs
-its kernel and a hand-written adjoint), then the same epilogue.
+bilinear gather (:func:`bilinear_gather_clamped`), then the same
+epilogue; on the card inference runs both in one kernel (K3's unbounded
+step) and the differentiable step the gather's kernel and a hand-written
+adjoint, then this epilogue.
 
 Gradients: the bounded reprojection is a ``torch.autograd.Function``
 (:func:`reproject_gather`) whose backward is written out with JAX's kink
@@ -554,8 +556,9 @@ def temporal_step_clamped(gbuf: GBuffer, history: History,
     shared epilogue; differentiable when ``gather`` is.
 
     While spans record: the spans ``rdt.temporal.gather`` (the stack and
-    the gather: KGp and KG on the card) and ``rdt.temporal.epilogue``, and
-    one on the host counter ``temporal_unbounded``."""
+    the gather: KGp and KG on the card's differentiable route) and
+    ``rdt.temporal.epilogue``, and one on the host counter
+    ``temporal_unbounded``."""
     count("temporal_unbounded", 1)
     motion = _motion(gbuf)
     with span("rdt.temporal.gather"):

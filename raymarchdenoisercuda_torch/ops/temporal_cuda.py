@@ -2,8 +2,8 @@
 ``ops/cuda/temporal.cu``.
 
 * :func:`temporal_accumulate_cuda` (K3) is ``temporal_accumulate_pallas``,
-  the fused inference step: no gradient (it raises on an input that
-  requires grad).
+  the fused inference step, and with unbounded motion K3's unbounded step:
+  no gradient (it raises on an input that requires grad).
 * :func:`temporal_accumulate_ad_cuda` is ``temporal_accumulate_pallas_ad``,
   the differentiable step of training.  Where only the render takes a
   gradient (bounded motion, no gradient asked of the history or the
@@ -26,19 +26,28 @@ and :func:`reproject_gather_canvas_cuda` /
 :func:`temporal_accumulate_canvas_ad_cuda`, the differentiable step on the
 canvas (``temporal_accumulate_canvas_local``).
 
-Unbounded motion (``SVGFParams.max_motion=None``): the TPU kernels and
-K3-K6 take bounded motion only, and the JAX package runs its jnp step
-there.  :func:`temporal_accumulate_cuda` and
-:func:`temporal_accumulate_ad_cuda` then run the clamped bilinear gather
+Unbounded motion (``SVGFParams.max_motion=None``): the TPU kernels take
+bounded motion only, and the JAX package runs its jnp step there
+(``bilinear_gather_many``, then ``_temporal_epilogue``; no Pallas
+kernel).  :func:`temporal_accumulate_cuda` runs K3's unbounded step: one
+launch of K3's body whose reprojection is the clamped bilinear gather
+(``temporal_kernel<false, 1, true>``, C entry ``rdt_temporal`` with
+``TemporalParams.max_motion = -1``), bit-equal to the route it replaced
+(the history stacked by KGp, KG, the plain epilogue).  Its bound is K3's,
+104 B a pixel (0.2575 ms at 3840x2160); it reads the history planar, as
+K3 does: on the served frames' coherent motion that beat KGp's
+channel-minor stack, 0.394 ms against 0.376 + KGp's 0.216 at 3840x2160
+(H100, device time; ``ops/cuda/temporal.cu``'s header).
+:func:`temporal_accumulate_ad_cuda` runs the clamped gather
 (:func:`clamped_gather_cuda`, with the hand-written adjoint
 :func:`clamped_gather_bwd_cuda`, both in one autograd Function,
-:func:`reproject_clamped_cuda`) and the shared epilogue.  On the card they
-stack the history channel-minor, which the gather reads a texel at a time:
-:func:`history_stack_channel_minor_cuda` (KGp, one pass, as the planar
-``cat`` is; its plain twin is ``history_stack_channel_minor``); the
-clamped wrappers lay a planar stack out with KGp first.  K3 itself, its
-tile form and K3b keep refusing unbounded motion, as the TPU kernel
-does.
+:func:`reproject_clamped_cuda`) and the shared epilogue under autograd.
+On the card that route stacks the history channel-minor, which the
+gather reads a texel at a time: :func:`history_stack_channel_minor_cuda`
+(KGp, one pass, as the planar ``cat`` is; its plain twin is
+``history_stack_channel_minor``); the clamped wrappers lay a planar stack
+out with KGp first.  K3's tile form and K3b keep refusing unbounded
+motion, as the TPU kernel does.
 
 Every wrapper launches its kernel for CUDA tensors and runs its plain twin
 from ``ops.temporal`` for CPU tensors.
@@ -102,10 +111,15 @@ def _ref(struct):
 def _launch_temporal(gbuf, planes, *, params, tile):
     """One launch of K3/K3b.  ``planes``: the 10 history planes as views
     of one canvas geometry (whole frame: contiguous H x W planes) in the
-    order colour, moments, length, previous depth, previous normal."""
-    if params.max_motion is None:
-        raise ValueError("the CUDA temporal kernel requires "
+    order colour, moments, length, previous depth, previous normal.
+    ``max_motion=None`` on the whole frame: K3's unbounded step (the
+    clamped gather); a tile takes bounded motion only."""
+    if params.max_motion is None and tile is not None:
+        raise ValueError("the CUDA temporal kernel's tile form requires "
                          "SVGFParams.max_motion (bounded reprojection)")
+    if params.max_motion is not None and params.max_motion < 0:
+        raise ValueError(f"max_motion must be >= 0 or None, got "
+                         f"{params.max_motion}")
     H, W = gbuf.depth.shape
     dev = gbuf.device
     f32 = torch.float32
@@ -149,7 +163,9 @@ def _launch_temporal(gbuf, planes, *, params, tile):
     var = torch.empty((H, W), dtype=f32, device=dev)
     mom = torch.empty((2, H, W), dtype=f32, device=dev)
     n_new = torch.empty((H, W), dtype=f32, device=dev)
-    p = _TemporalParams(H=H, W=W, max_motion=params.max_motion,
+    # -1: the unbounded step
+    p = _TemporalParams(H=H, W=W, max_motion=(-1 if params.max_motion is None
+                                              else params.max_motion),
                         history_clamp=int(params.history_clamp),
                         boost_frames=params.variance_boost_frames,
                         alpha=params.temporal_alpha,
@@ -174,23 +190,29 @@ def temporal_accumulate_cuda(
     tile: Tile = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, History]:
     """One temporal step; returns ``(integrated, variance, new_history)`` as
-    ``temporal_accumulate`` does.  The kernel needs bounded motion
-    (``params.max_motion``), as the TPU kernel does.  ``tile``: the
-    history planes are canvases of one geometry around the tile (margin >=
-    max_motion + 1) and the render a canvas with margin >= 3, as in
-    ``temporal_accumulate(tile=)``.
+    ``temporal_accumulate`` does.  ``tile``: the history planes are
+    canvases of one geometry around the tile (margin >= max_motion + 1)
+    and the render a canvas with margin >= 3, as in
+    ``temporal_accumulate(tile=)``; bounded motion only, as the TPU
+    kernel takes.
 
-    With ``max_motion=None`` (and no tile) it runs the clamped gather and
-    the plain epilogue instead (see the module docstring).
+    With ``max_motion=None`` and no tile, K3's unbounded step: the clamped
+    gather in K3's body (see the module docstring).  While spans record,
+    that route adds one to the counters ``temporal_unbounded`` and
+    ``temporal_unbounded_fused``, on either device.
 
     Each launch of K3 adds one to ``temporal_accumulate_cuda.launches``."""
     _build.check_no_grad("temporal_accumulate_cuda", gbuf.render,
                          gbuf.motion, history.color, history.moments,
                          history.length)
+    unbounded = params.max_motion is None and tile is None
+    if unbounded:
+        count("temporal_unbounded_fused", 1)
     if not gbuf.render.is_cuda:
+        # the plain step counts temporal_unbounded itself
         return temporal_accumulate(gbuf, history, params=params, tile=tile)
-    if params.max_motion is None and tile is None:
-        return _clamped_step(gbuf, history, params)
+    if unbounded:
+        count("temporal_unbounded", 1)
     out = _launch_temporal(gbuf, (history.color, history.moments,
                                   history.length, history.prev_depth,
                                   history.prev_normal),
@@ -668,9 +690,10 @@ history_stack_channel_minor_cuda.launches = 0
 
 
 def _clamped_step(gbuf, history, params):
-    """The unbounded-motion step through :func:`reproject_clamped_cuda`, on
-    the history stacked channel-minor by KGp on the card (planar, as the
-    plain step stacks it, on the CPU)."""
+    """The differentiable unbounded-motion step through
+    :func:`reproject_clamped_cuda`, on the history stacked channel-minor
+    by KGp on the card (planar, as the plain step stacks it, on the
+    CPU)."""
     return temporal_step_clamped(
         gbuf, history, params, reproject_clamped_cuda,
         history_stack_channel_minor_cuda if gbuf.render.is_cuda

@@ -41,7 +41,11 @@ orbit through this tree's pipeline); K16, the fused step's adjoint, on
 K3's inputs of each kind (motion 14, 0 and 3, the boost off, the clamp
 off, the moments' cotangent given, the odd frame, few and no short
 pixels, the served frame) bit for bit against this tree's twin (an
-earlier tree has no K16); K3b on the quarter tiles of a
+earlier tree has no K16); K3u, K3's unbounded step (``max_motion=None``;
+an earlier tree's route: KGp, KG and the plain epilogue), on random
+motion to ±28 pixels, the served frame's with ``max_motion=None`` and at
+twice its sides on ``serve_4k_unbounded``'s orbit, half a turn in (32
+frames a turn); K3b on the quarter tiles of a
 3840x2160 frame (phase 10(a)); K15 on each of the three scenes from
 the camera (phase 3's, the frame's window at (0, 0) and a quarter window
 of a 3840x2160 frame at (1080, 1920)), from phase 3's ray planes (outputs
@@ -114,6 +118,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import importlib
 import importlib.util
 import inspect
@@ -141,6 +146,9 @@ FRAME = (1080, 1920)                 # the main paths' frame (H, W)
 # of twice its sides (seeded_inputs.gather_inputs)
 GATHER_KINDS = ("random", "integer", "zero", "served")
 GATHER_KINDS_UHD = ("random", "served")
+# K3's unbounded step at twice FRAME's sides: serve_4k_unbounded's orbit
+# (benchmark/traffic/orbit_cornell_fast.json's period)
+UHD_ORBIT_FRAMES = 32
 # K14's and K2/K2b's radii: past 2 the staged forms at a compiled radius
 # (3, and K14's 4) and at the runtime one, and the cache-read form where
 # a level's staged tile is past the budget (utils/tiling.py)
@@ -305,7 +313,9 @@ def temporal_inputs(dev):
     phase 3's on a frame one row and three columns short; K4-K6's under
     ``"gather"`` (random motion to ±7 pixels, integer, zero and the served
     frame's) and K4c-K6c's under ``"gather uhd"`` (random and served, at
-    twice the sides)."""
+    twice the sides); K3's unbounded step's under ``"unbounded"``: the
+    served frame's with ``max_motion=None``, at ``FRAME`` and at twice its
+    sides on the fast orbit (``UHD_ORBIT_FRAMES`` a turn)."""
     H, W = FRAME
     clamped = {f"motion {m:g}": clamped_inputs(H, W, dev, 2.0 * m)
                for m in (28, 0, 3, 80)}
@@ -314,6 +324,14 @@ def temporal_inputs(dev):
     return dict(frame=temporal_planes(H, W, dev, 21),
                 uhd=temporal_planes(2 * H, 2 * W, dev, 22),
                 served=served_inputs(H, W, dev), clamped=clamped,
+                unbounded=dict(
+                    served=served_inputs(H, W, dev, unbounded=True),
+                    # the fast orbit of serve_4k_unbounded at twice the
+                    # sides, half a turn in
+                    **{"served uhd": served_inputs(
+                        2 * H, 2 * W, dev, unbounded=True,
+                        frame=UHD_ORBIT_FRAMES // 2,
+                        orbit_frames=UHD_ORBIT_FRAMES)}),
                 gather={k: gather_inputs(H, W, dev, k) for k in GATHER_KINDS},
                 gather_uhd={k: gather_inputs(2 * H, 2 * W, dev, k)
                             for k in GATHER_KINDS_UHD})
@@ -678,6 +696,22 @@ def _cases(P, U, cots, S, M, T):
     yield "K3 motion 14 no clamp", lambda t: k3(t, "random", clamp=False)
     for kind in ("odd", "few", "none", "served"):
         yield f"K3 {kind}", lambda t, kind=kind: k3(t, kind)
+
+    def k3u(tree, kind):
+        # the unbounded step (max_motion=None): this tree's K3 body with
+        # the clamped gather against the other tree's route (an earlier
+        # tree: KGp, KG and the plain epilogue)
+        if kind == "motion 28":
+            g, h, p = k3_inputs(tree, "random", scale=56.0)
+        else:
+            g, h = T["unbounded"][kind]
+            p = tree.SVGFParams()
+        p = dataclasses.replace(p, max_motion=None)
+        return lambda: _step_outputs(
+            tree.temporal_cuda.temporal_accumulate_cuda(g, h, params=p))
+
+    for kind in ("motion 28", "served", "served uhd"):
+        yield f"K3u {kind}", lambda t, kind=kind: k3u(t, kind)
 
     def k16(tree, kind, scale=14.0, boost=4, clamp=True, moments=False,
             twin=False):

@@ -20,15 +20,15 @@ overlapping kernels would count twice, and the port runs one stream), the
 busy share of the wall, and the ``--top`` operators and kernels with the
 most device time.  ``--seeded`` serves with ``RaymarchParams(coarse_seed=
 True)`` (the cone seed from the camera, K15, and the seeded march);
-``--unbounded`` with ``SVGFParams(max_motion=None)`` (the clamped gather,
-KG, in place of K3).
+``--unbounded`` with ``SVGFParams(max_motion=None)`` (K3's unbounded
+step: the clamped gather in K3's body).
 
 ``clamped`` times the clamped gather (KG) and its adjoint (KGb) alone, by
 kernel (device time a call under the profiler, ``--steps`` calls), on
 ``chip_smoke.py`` phase 3's input (uniform random motion to ±28 pixels)
 and on a served frame's (the ninth orbit frame through ``FramePipeline``
 with ``max_motion=None``), the history stacked channel-minor by KGp as the
-unbounded step stacks it: the stack's build (KGp, and the planar ``cat``
+differentiable unbounded step stacks it: the stack's build (KGp, and the planar ``cat``
 of ``history_stack`` that the bounded paths make), KG, and KGb with both
 gradients, with the history's only and with the motion's only, each split
 into its kernels, memsets and fills.  ``temporal`` profiles

@@ -16,11 +16,12 @@ SERVED_FRAME = 8                     # the served frame: its orbit index
 ORBIT_FRAMES = 16                    # frames a turn of phase 4's orbit
 
 
-def served_inputs(H, W, dev, unbounded=False):
+def served_inputs(H, W, dev, unbounded=False, frame=SERVED_FRAME,
+                  orbit_frames=ORBIT_FRAMES):
     """``(gbuf, history)``: the served frame's temporal inputs, the Cornell
     box at H x W through this tree's ``FramePipeline`` (``chip_smoke.py``
     phase 4's settings; ``unbounded``: phase 11(c)'s, ``max_motion=None``)
-    for the orbit frames before ``SERVED_FRAME``."""
+    for the orbit frames before ``frame``, ``orbit_frames`` a turn."""
     from ..config import CameraParams, RaymarchParams, SVGFParams
     from ..gbuffer import History
     from ..io.generate import orbit_camera
@@ -34,9 +35,9 @@ def served_inputs(H, W, dev, unbounded=False):
                          weight_math="fast")
     gen = torch.Generator(dev).manual_seed(0)
     hist, prev = History.zeros(H, W, device=dev), None
-    for f in range(SERVED_FRAME + 1):
-        cam = orbit_camera(f / ORBIT_FRAMES, device=dev)
-        if f == SERVED_FRAME:
+    for f in range(frame + 1):
+        cam = orbit_camera(f / orbit_frames, device=dev)
+        if f == frame:
             return pipe.renderer(cam, prev, gen), hist
         _, hist = pipe(cam, prev, hist, gen)
         prev = cam

@@ -200,6 +200,21 @@ def test_phase2_names_the_filter_passes(name, form):
         "_ZN12_GLOBAL__N_115sep_pass_kernelILb1ELb0EEEvPKfPfiiiS2_") is None
 
 
+# the mangled names nvcc gives K3's instantiations,
+# temporal_kernel<TILE, PX, CLAMPED> (temporal.cu's anonymous namespace),
+# and the forms phase 2 prints and requires
+@pytest.mark.parametrize("name,form", [
+    ("_ZN12_GLOBAL__N_115temporal_kernelILb0ELi1ELb0EEEvPKf", "K3"),
+    ("_ZN12_GLOBAL__N_115temporal_kernelILb1ELi1ELb0EEEvPKf", "K3 tile/K3b"),
+    ("_ZN12_GLOBAL__N_115temporal_kernelILb0ELi1ELb1EEEvPKf",
+     "K3 unbounded")])
+def test_phase2_names_the_temporal_forms(name, form):
+    smoke = _chip_smoke()
+    assert smoke.k3_form(smoke.K3_MANGLED.search(name)) == form
+    assert smoke.K3_MANGLED.search(
+        "_ZN12_GLOBAL__N_119temporal_bwd_kernelEPKf") is None
+
+
 def _switch_cases(macro):
     """``{key: counts}`` of the switch whose cases call ``macro`` in
     ``raymarch.cu``."""

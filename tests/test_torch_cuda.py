@@ -44,7 +44,10 @@ visibility flips, as K8,
 in each of its instantiations (counted under the key the scene's counts
 pick).  K3 also on a frame of sides no multiple of its 32 x 8 tile, with
 the history clamp off, and with one short pixel in the whole frame (one
-block runs the 7x7 boost).
+block runs the 7x7 boost).  K3's unbounded step (``max_motion=None``, the
+clamped gather in its body) ``torch.equal`` to the route it replaced
+(KGp, KG and the plain epilogue) on those kinds, on motion past every
+border and on the served frame, and at K3's tolerance to the CPU twin.
 The adjoints (``chip_smoke.py`` phase 3's tolerances): K1b rtol 5e-5 as K1,
 its float32 weights too; K2b rtol 1e-6 as K2; K14 atol 1e-5·max (K1's
 weights, an ulp from the twin's, over cotangents of both signs); K9 atol
@@ -258,9 +261,9 @@ def test_k3_matches_plain(dev, motion_scale, boost, kind):
 
 
 def test_k3_rejects_unbounded_motion(dev):
-    """K3 itself takes bounded motion only, as the TPU kernel does: its
-    tile form and K3b refuse ``max_motion=None``; the whole-frame wrapper
-    runs the clamped gather instead and launches no K3."""
+    """K3's tile form and K3b take bounded motion only, as the TPU kernel
+    does: they refuse ``max_motion=None``; the whole-frame wrapper runs
+    K3's unbounded step there, one K3 launch and no KGp or KG."""
     color, var, normal, depth = _planes(dev, 9, 8, 8)
     g = GBuffer(render=color, albedo=color, normal=normal, depth=depth)
     unbounded = SVGFParams(max_motion=None)
@@ -272,11 +275,97 @@ def test_k3_rejects_unbounded_motion(dev):
     with pytest.raises(ValueError, match="max_motion"):
         temporal_accumulate_cuda(g, History.zeros(8, 8, device=dev),
                                  params=unbounded, tile=tile)
-    before = (temporal_accumulate_cuda.launches, clamped_gather_cuda.launches)
+    before = (temporal_accumulate_cuda.launches, clamped_gather_cuda.launches,
+              history_stack_channel_minor_cuda.launches)
     temporal_accumulate_cuda(g, History.zeros(8, 8, device=dev),
                              params=unbounded)
-    assert (temporal_accumulate_cuda.launches,
-            clamped_gather_cuda.launches) == (before[0], before[1] + 1)
+    assert (temporal_accumulate_cuda.launches, clamped_gather_cuda.launches,
+            history_stack_channel_minor_cuda.launches) == (
+        before[0] + 1, before[1], before[2])
+
+
+# K3's unbounded step: kind, frame, motion scale (uniform in ±scale / 2
+# px), variance boost, history clamp.  "random" (±28 px; ±300 px, where
+# most pixels land outside the frame and the taps clamp on every border),
+# "outside" (every pixel moved past the frame's bottom), "one short" (long
+# valid histories, zero motion, one pixel of length 0), "served" (the
+# served 1080p frame's inputs with max_motion=None, demodulated as the
+# step takes them)
+K3U_CASES = [("random", (H, W), 56.0, 4, True),
+             ("random", (H, W), 600.0, 4, True),
+             ("outside", (H, W), 56.0, 4, True),
+             ("random", (133, 237), 56.0, 4, True),
+             ("random", (H, W), 56.0, 4, False),
+             ("random", (H, W), 56.0, 0, True),
+             ("one short", (H, W), 0.0, 4, True),
+             ("served", (1080, 1920), 0.0, 4, True)]
+
+
+def _k3u_inputs(dev, kind, shape, motion_scale):
+    h_, w_ = shape
+    if kind == "served":
+        g, h = served_inputs(h_, w_, dev, unbounded=True)
+        return g.replace(render=svgf_model.demodulate(g.render, g.albedo)), h
+    color, var, normal, depth = _planes(dev, 27, h_, w_)
+    rng = np.random.default_rng(28)
+    motion = ((rng.random((2, h_, w_)) - 0.5) * motion_scale).astype(
+        np.float32)
+    if kind == "outside":
+        motion[0] += h_ + motion_scale / 2
+    length = torch.floor(var * 300)
+    if kind == "one short":
+        length = torch.full_like(length, 10.0)
+        length[37, 101] = 0.0
+    g = GBuffer(render=color, albedo=color, normal=normal, depth=depth,
+                motion=torch.from_numpy(motion).to(dev))
+    h = History(color=color.flip(-1).contiguous(),
+                moments=torch.stack([var, var * 2]), length=length,
+                prev_depth=depth, prev_normal=normal)
+    return g, h
+
+
+@pytest.mark.parametrize("kind,shape,motion_scale,boost,clamp", K3U_CASES,
+                         ids=[f"{k} {w}x{h} m{m:g} b{b}"
+                              + ("" if c else " no clamp")
+                              for k, (h, w), m, b, c in K3U_CASES])
+def test_k3_unbounded_bit_equal_to_the_clamped_route(dev, kind, shape,
+                                                     motion_scale, boost,
+                                                     clamp):
+    """K3's unbounded step (one launch) against the card route it replaced,
+    the history stacked channel-minor by KGp, KG and the plain epilogue:
+    ``torch.equal`` on every output; and against the CPU twin (the plain
+    step) at K3's tolerance, the length exact."""
+    g, h = _k3u_inputs(dev, kind, shape, motion_scale)
+    params = SVGFParams(variance_boost_frames=boost, history_clamp=clamp,
+                        max_motion=None)
+    before = (temporal_accumulate_cuda.launches, clamped_gather_cuda.launches,
+              history_stack_channel_minor_cuda.launches)
+    with torch.no_grad():
+        integ, var, nh = temporal_accumulate_cuda(g, h, params=params)
+        assert (temporal_accumulate_cuda.launches,
+                clamped_gather_cuda.launches,
+                history_stack_channel_minor_cuda.launches) == (
+            before[0] + 1, before[1], before[2])
+        old = temporal.temporal_step_clamped(
+            g, h, params, temporal_cuda.reproject_clamped_cuda,
+            temporal_cuda.history_stack_channel_minor_cuda)
+    got = (integ, var, nh.moments, nh.length)
+    for name, a, b in zip(("integrated", "variance", "moments", "length"),
+                          got, (old[0], old[1], old[2].moments,
+                                old[2].length)):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+    want = temporal.temporal_accumulate(
+        g.replace(**{f: getattr(g, f).cpu() for f in (
+            "render", "albedo", "normal", "depth", "motion")}),
+        h.replace(**{f: getattr(h, f).cpu() for f in (
+            "color", "moments", "length", "prev_depth", "prev_normal")}),
+        params=params)
+    for a, b in ((integ, want[0]), (var, want[1]),
+                 (nh.moments, want[2].moments)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(_np(nh.length), _np(want[2].length))
+    taken = int((nh.length > 1).sum())
+    assert taken == 0 if kind == "outside" else taken > 0
 
 
 # K16's inputs: frame, motion scale, variance boost, history clamp and
@@ -1976,9 +2065,9 @@ def test_channel_minor_stack_matches_plain(dev):
 
 @pytest.mark.parametrize("temporal_mode", ["auto", "ad"])
 def test_unbounded_motion_frame_matches_plain(dev, temporal_mode):
-    """``svgf_denoise_frame(impl="auto")`` with ``max_motion=None`` (the
-    clamped gather on the channel-minor history stack from KGp, its
-    adjoint for ``"ad"``, the sweep) against
+    """``svgf_denoise_frame(impl="auto")`` with ``max_motion=None`` (K3's
+    unbounded step; for ``"ad"`` the clamped gather on the channel-minor
+    history stack from KGp and its adjoint; the sweep) against
     ``impl="plain"``: the frame atol 1e-3·max as the slice's; for ``"ad"``
     the gradients of the history colour and the motion at the training
     path's 3e-3·max (the stored bf16 sweep weights)."""
@@ -2007,12 +2096,14 @@ def test_unbounded_motion_frame_matches_plain(dev, temporal_mode):
             grads.append(torch.autograd.grad((out.denoised ** 2).mean(),
                                              (hc, m)))
         if impl == "auto":
-            assert clamped_gather_cuda.launches == before[0] + 1
-            assert clamped_gather_bwd_cuda.launches == before[1] + int(ad)
-            # the history stacked channel-minor by KGp once, so that the
+            # inference: K3's unbounded step, no KGp or KG; "ad": the
+            # history stacked channel-minor by KGp once, so that the
             # wrappers lay nothing out again (they would launch KGp for a
             # planar stack)
-            assert history_stack_channel_minor_cuda.launches == before[2] + 1
+            assert clamped_gather_cuda.launches == before[0] + int(ad)
+            assert clamped_gather_bwd_cuda.launches == before[1] + int(ad)
+            assert history_stack_channel_minor_cuda.launches == (
+                before[2] + int(ad))
     a, b = _np(outs[0]), _np(outs[1])
     np.testing.assert_allclose(a, b, rtol=0, atol=1e-3 * np.abs(b).max())
     for x, y in zip(*grads):

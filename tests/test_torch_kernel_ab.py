@@ -6,8 +6,9 @@ take their plain twins for CPU tensors: this checks that every case
 builds its inputs and calls its wrapper with the arguments the wrapper
 takes (K14 and K2/K2b whole frame and tile form, K7 unseeded, seeded
 and on a window, K8 and K13 on each scene, K3 on every input kind, the
-served frame's among them, K16 on K3's inputs held to its twin, K3b
-on the quarter tiles, KG and KGb on each
+served frame's among them, K16 on K3's inputs held to its twin, K3's
+unbounded step (K3u) on its three inputs, K3b on the quarter tiles, KG
+and KGb on each
 input and stack layout (KGb with each pair of gradients) and KG after the
 served step's stack, K4, K5 and K6 on each motion and K4c, K5c and K6c on
 the quarter tiles, K15 from the
@@ -75,6 +76,9 @@ FAMILIES = {
     "K13": (r"^K13 ", 6, [FRAME]),
     "K3": (r"^K3 ", 11, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
     "K3b": (r"^K3b ", 4, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
+    # K3's unbounded step: random motion to ±28 px, the served frame and
+    # the fast orbit's frame at twice the sides
+    "K3u": (r"^K3u ", 3, [(3, *FRAME), FRAME, (2, *FRAME), FRAME]),
     # the fused step's adjoint on K3's inputs, held to this tree's twin
     "K16": (r"^K16 ", 9, [(3, *FRAME)]),
     "K15": (r"^K15 ", 12, [(6, 10), (), ()]),

@@ -21,12 +21,13 @@ Tolerances, each with its reason:
   (four fused multiply-adds from zero, against two rows' blends and a
   column blend), so the reprojected planes agree to rtol 1e-6, atol 1e-6
   times their largest value (a few float32 roundings);
-* the card route (``impl="auto"``: KGp, KG and the epilogue; K1 for the
-  sweep) against the reference computed on the card, 1920x1080, motion to
-  ±40 px: history moments rtol 1e-5, atol 1e-6 (the epilogue is the same
-  PyTorch on both sides; KG's ``fmaf`` against the reference's float64
-  sum rounded once can differ by an ulp where the double rounding
-  falls), length atol 1e-5 (an ulp of a length up to ~40); denoised
+* the card route (``impl="auto"``: K3's unbounded step, the clamped
+  gather in K3's body; K1 for the sweep) against the reference computed
+  on the card, 1920x1080, motion to ±40 px: history moments rtol 1e-5,
+  atol 1e-6 (the epilogue's operations are the reference's, in its
+  order; the gather's ``fmaf`` against the reference's float64 sum
+  rounded once can differ by an ulp where the double rounding falls),
+  length atol 1e-5 (an ulp of a length up to ~40); denoised
   frame and history colour atol 1e-3 times their largest value, the
   existing card test's tolerance for the frame (K1's exact weights are
   an ulp from ``torch.exp``'s, over five levels).
@@ -202,6 +203,28 @@ def test_the_unbounded_route_records_its_spans_and_counters(impl):
     assert c["pixels"] == FRAMES * H * W
 
 
+def test_the_fused_route_counts_every_unbounded_step():
+    """``impl="auto"`` takes K3's unbounded step (on the CPU its twin):
+    each frame adds one to ``temporal_unbounded_fused`` and one to
+    ``temporal_unbounded``; a bounded frame adds to neither."""
+    rng = np.random.default_rng(13)
+    frames = [gbuffer(rng, H, W, 18.0) for _ in range(FRAMES)]
+    state = dict(hist=history(rng, H, W))
+
+    def run():
+        for g in frames:
+            _, state["hist"] = program_frame(g, state["hist"], "auto")
+
+    _, rep = records_of(run)
+    c = rep["counters"]
+    assert c["temporal_unbounded_fused"] == c["temporal_unbounded"] == FRAMES
+    g, hist = gbuffer(rng, H, W, 18.0), history(rng, H, W)
+    _, rep = records_of(lambda: program_frame(g, hist, "auto",
+                                              params=SVGFParams()))
+    assert not rep["counters"].keys() & {"temporal_unbounded",
+                                         "temporal_unbounded_fused"}
+
+
 def test_a_bounded_frame_records_neither():
     rng = np.random.default_rng(12)
     g, hist = gbuffer(rng, H, W, 18.0), history(rng, H, W)
@@ -225,16 +248,20 @@ def dev():
 @pytest.mark.cuda
 def test_the_card_route_matches_the_reference_at_1080p(dev):
     from raymarchdenoisercuda_torch.ops.temporal_cuda import (
-        clamped_gather_cuda, history_stack_channel_minor_cuda)
+        clamped_gather_cuda, history_stack_channel_minor_cuda,
+        temporal_accumulate_cuda)
     h, w = 1080, 1920
     rng = np.random.default_rng(1080)
     g = gbuffer(rng, h, w, 40.0, device=dev)
     hist = history(rng, h, w, device=dev)
     before = (clamped_gather_cuda.launches,
-              history_stack_channel_minor_cuda.launches)
+              history_stack_channel_minor_cuda.launches,
+              temporal_accumulate_cuda.launches)
     den, new = program_frame(g, hist, impl="auto")
-    assert clamped_gather_cuda.launches == before[0] + 1
-    assert history_stack_channel_minor_cuda.launches == before[1] + 1
+    # one launch of K3's unbounded step, no KG or KGp
+    assert clamped_gather_cuda.launches == before[0]
+    assert history_stack_channel_minor_cuda.launches == before[1]
+    assert temporal_accumulate_cuda.launches == before[2] + 1
     with torch.no_grad():
         want, ref_hist = ref.denoise(g, hist, REF_PARAMS)
     torch.testing.assert_close(new["moments"], ref_hist["moments"],
